@@ -1,0 +1,382 @@
+"""High-level inference API of the PyTorch port (port of the serving half of
+``scann_tpu/api.py``).
+
+``Scann`` holds one config and one set of parameters on one device and
+predicts properties and per-atom GA scores for structures:
+
+    featurize (host Voronoi, ``prepare_input``)
+      -> pad and group by ladder-quantized (M, N) shape
+      -> ``forward_eval`` in batches of ``hyper.batch_size``
+         (the whole-model CUDA kernel on the GPU, the eager model on the CPU)
+      -> un-standardize.
+
+The device defaults to CUDA, and a missing CUDA device raises: nothing
+falls back to the CPU unless the caller asks for ``device="cpu"``.
+Training, the orbax checkpoint format and the compiled-executable cache of
+the JAX package are not part of the port yet; weights come from a
+reference Keras H5 (``load_pretrained``) or from any flax-layout tree
+(``load_params``).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from scann_tpu_torch.compat.from_jax import params_from_jax
+from scann_tpu_torch.config import ScannConfig, load_config
+from scann_tpu_torch.data.structure import Structure
+from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors
+from scann_tpu_torch.kernels.scann_forward import launch_scann_forward, pack_params
+from scann_tpu_torch.models.scann import init_params, scann_forward
+
+StructureLike = Union[Structure, str, os.PathLike]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _ladder(x: int, base: int) -> int:
+    """Quantize ``x`` up to a bounded geometric ladder of ``base`` multiples
+    (base * {1,2,3,4,6,8,12,16,...}): a bounded set of padded shapes, at
+    most ~33% padding."""
+    steps = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128]
+    for s in steps:
+        if x <= base * s:
+            return base * s
+    return _round_up(x, base * steps[-1])
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a user asked for; CUDA must exist when it is asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' explicitly to run the eager model on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def prepare_input(
+    struct: Structure,
+    d_t: float = 4.0,
+    w_t: float = 0.4,
+    angle: bool = True,
+    cutoff: float = 7.0,
+    atoms_multiple: int = 8,
+    neighbors_multiple: int = 8,
+    use_ring: bool = False,
+    feature: str = "atomic",
+    canonical_frame: bool = False,
+) -> Dict[str, np.ndarray]:
+    """Featurize one structure into a padded model-input dict (batch of 1).
+
+    The weight channel is the raw solid angle when ``angle`` (SCANN+), the
+    max-normalized one otherwise. ``use_ring`` adds the [ring, aromatic]
+    channel from the bond graph; ``feature="cgcnn"`` expands atomic numbers
+    into the 92-dim CGCNN descriptors; ``canonical_frame`` rotates molecules
+    into their principal-axes frame first.
+    """
+    if canonical_frame:
+        struct = struct.canonicalized()
+    neighbors = compute_voronoi_neighbors(
+        struct.as_periodic(), cutoff=cutoff, d_thresh=d_t, w_thresh=w_t)
+    n_atoms = len(struct)
+    max_nbr = max((len(a) for a in neighbors), default=1)
+    M = _round_up(n_atoms, atoms_multiple)
+    N = _round_up(max(max_nbr, 1), neighbors_multiple)
+
+    inputs = {
+        "atomic": np.zeros((1, M), np.int32),
+        "atom_mask": np.zeros((1, M, 1), np.float32),
+        "neighbors": np.zeros((1, M, N), np.int32),
+        "neighbor_mask": np.zeros((1, M, N), np.float32),
+        "neighbor_weight": np.zeros((1, M, N), np.float32),
+        "neighbor_distance": np.zeros((1, M, N), np.float32),
+    }
+    inputs["atomic"][0, :n_atoms] = struct.atomic_numbers
+    inputs["atom_mask"][0, :n_atoms, 0] = 1.0
+    w_col = 2 if angle else 3
+    for a, lst in enumerate(neighbors):
+        for j, rec in enumerate(lst):
+            inputs["neighbors"][0, a, j] = int(rec[1])
+            inputs["neighbor_mask"][0, a, j] = 1.0
+            inputs["neighbor_weight"][0, a, j] = float(rec[w_col])
+            inputs["neighbor_distance"][0, a, j] = float(rec[-1])
+
+    if use_ring:
+        from scann_tpu_torch.data.bonds import ring_aromatic_flags
+
+        ring, aromatic = ring_aromatic_flags(list(struct.species), struct.coords)
+        ra = np.zeros((1, M, 2), np.float32)
+        ra[0, :n_atoms, 0] = ring
+        ra[0, :n_atoms, 1] = aromatic
+        inputs["ring_aromatic"] = ra
+
+    if feature == "cgcnn":
+        from scann_tpu_torch.data.atomic_data import get_atomic_features
+
+        table = get_atomic_features()
+        feat = np.zeros((1, M, 92), np.float32)
+        for a, z in enumerate(struct.atomic_numbers):
+            feat[0, a] = table[str(int(z))]
+        inputs["atomic"] = feat
+    return inputs
+
+
+class Scann:
+    """Inference for one config on one device."""
+
+    def __init__(self, config: Union[ScannConfig, dict, str], pretrained: str = "",
+                 device: Union[str, torch.device] = "cuda"):
+        if isinstance(config, str):
+            config = load_config(config)
+        elif isinstance(config, dict):
+            config = ScannConfig.from_dict(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self.mrelu_head = config.hyper.target == "e_b"
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self._packed = None  # (params, kernel-layout params) for the GPU path
+        self._feat_pool = None
+        self._feat_pool_lock = threading.Lock()
+        if pretrained:
+            self.load_pretrained(pretrained)
+            self.config.hyper.pretrained = pretrained
+
+    # --- parameters -----------------------------------------------------------
+
+    def load_params(self, params) -> Dict[str, torch.Tensor]:
+        """Install a flax-layout parameter tree (``{"params": ...}`` or
+        bare, numpy arrays): from the JAX package or ``load_h5_params``.
+        Every key and shape is checked against the config."""
+        self.params = params_from_jax(params, self.config.model, device=self.device)
+        self._packed = None
+        return self.params
+
+    def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
+        """Random parameters with the Keras initializers, from ``seed``."""
+        g = torch.Generator().manual_seed(seed)
+        self.params = init_params(self.config.model, g, self.device)
+        self._packed = None
+        return self.params
+
+    def load_pretrained(self, path: str):
+        """Load a reference Keras H5 checkpoint (full-model or weights-only)."""
+        if not path.endswith((".h5", ".hdf5")):
+            raise ValueError(f"{path}: the port loads Keras H5 checkpoints only; "
+                             "orbax checkpoint directories are not supported yet")
+        from scann_tpu_torch.compat.h5_loader import load_h5_params
+
+        return self.load_params(load_h5_params(path, self.config.model))
+
+    def _require_state(self, what: str):
+        if self.params is None:
+            raise RuntimeError(
+                f"{what} needs parameters, but none are loaded: pass "
+                "pretrained= to Scann(), or call load_params / load_pretrained")
+
+    # --- forward --------------------------------------------------------------
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(self.device)
+                continue
+            dtype = (torch.int32 if k == "neighbors"
+                     or (k == "atomic" and v.ndim == 2) else torch.float32)
+            out[k] = torch.as_tensor(np.ascontiguousarray(v)).to(self.device, dtype)
+        return out
+
+    def forward_eval(self, params: Dict[str, torch.Tensor], batch
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
+
+        On CUDA it runs the whole-model kernel; shapes the kernel does not
+        take raise NotImplementedError (they need the crystal loop kernel,
+        not ported yet). On the CPU it runs the eager model."""
+        batch = self._to_device(batch)
+        cfm = self.config.model
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                if self._packed is None or self._packed[0] is not params:
+                    self._packed = (params, pack_params(params, cfm))
+                return launch_scann_forward(self._packed[1], batch, cfm, self.mrelu_head)
+            return scann_forward(params, batch, cfm, self.mrelu_head)
+
+    # --- structures -----------------------------------------------------------
+
+    def _check_vocab(self, structs: List[Structure]):
+        """Atomic numbers outside the embedding vocab would index past the
+        table: raise with the offending elements instead."""
+        if self.config.model.feature != "atomic":
+            return
+        vocab = self.config.model.n_atoms
+        for s in structs:
+            bad = [sp for sp, z in zip(s.species, s.atomic_numbers) if int(z) >= vocab]
+            if bad:
+                raise ValueError(
+                    f"structure contains element(s) {sorted(set(bad))} with atomic "
+                    f"number >= the model's embedding vocab (model.n_atoms={vocab}); "
+                    "retrain with a larger n_atoms or use feature='cgcnn'")
+
+    @staticmethod
+    def _as_structure(struct: StructureLike) -> Structure:
+        if isinstance(struct, (str, os.PathLike)):
+            return Structure.from_file(os.fspath(struct))
+        return struct
+
+    def _featurize_executor(self, n: int):
+        """Persistent spawn-context featurization pool, created lazily and
+        replaced when its workers died."""
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        with self._feat_pool_lock:
+            ex = self._feat_pool
+            if ex is not None and getattr(ex, "_broken", False):
+                ex.shutdown(wait=False)
+                ex = self._feat_pool = None
+            if ex is None:
+                ex = self._feat_pool = ProcessPoolExecutor(
+                    n, mp_context=mp.get_context("spawn"))
+            return ex
+
+    def close(self):
+        """Release the featurization pool."""
+        with self._feat_pool_lock:
+            if self._feat_pool is not None:
+                self._feat_pool.shutdown(wait=True)
+                self._feat_pool = None
+
+    def predict_structure(self, struct: StructureLike, d_t: float = 4.0,
+                          w_t: float = 0.4, canonical_frame: bool = True
+                          ) -> Tuple[float, np.ndarray]:
+        """(value, per-atom GA scores) for one structure or file path."""
+        return self.predict_structures([struct], d_t=d_t, w_t=w_t,
+                                       canonical_frame=canonical_frame)[0]
+
+    def predict_structures(self, structs: List[StructureLike], d_t: float = 4.0,
+                           w_t: float = 0.4, featurize_pool: int = 0,
+                           batch_size: Optional[int] = None,
+                           canonical_frame: bool = True
+                           ) -> List[Tuple[float, np.ndarray]]:
+        """Batched inference over many structures (the serving path);
+        returns [(value, ga_scores)] in input order."""
+        structs, all_inputs = self.featurize_structures(
+            structs, d_t=d_t, w_t=w_t, featurize_pool=featurize_pool,
+            canonical_frame=canonical_frame)
+        return self.predict_featurized(structs, all_inputs, batch_size=batch_size)
+
+    def featurize_structures(self, structs: List[StructureLike], d_t: float = 4.0,
+                             w_t: float = 0.4, featurize_pool: int = 0,
+                             canonical_frame: bool = True):
+        """Stage 1 of the serving path: host featurization only. Returns
+        ``(structs, all_inputs)`` for ``predict_featurized``."""
+        self._require_state("featurize_structures")
+        structs = [self._as_structure(s) for s in structs]
+        self._check_vocab(structs)
+        cfm = self.config.model
+        kw = dict(d_t=d_t, w_t=w_t, angle=cfm.g_update, use_ring=cfm.use_ring,
+                  feature=cfm.feature, canonical_frame=canonical_frame)
+        if featurize_pool > 1:
+            from concurrent.futures.process import BrokenProcessPool
+            from functools import partial
+
+            try:
+                ex = self._featurize_executor(featurize_pool)
+                all_inputs = list(ex.map(partial(prepare_input, **kw), structs,
+                                         chunksize=4))
+            except BrokenProcessPool:
+                # a worker died: rebuild the pool once and retry
+                ex = self._featurize_executor(featurize_pool)
+                all_inputs = list(ex.map(partial(prepare_input, **kw), structs,
+                                         chunksize=4))
+        else:
+            all_inputs = [prepare_input(s, **kw) for s in structs]
+        return structs, all_inputs
+
+    def predict_featurized(self, structs: List[Structure], all_inputs,
+                           batch_size: Optional[int] = None
+                           ) -> List[Tuple[float, np.ndarray]]:
+        """Stage 2 of the serving path: group by ladder-quantized (M, N),
+        pad, run in fixed-size batches (the tail wrap-padded with members of
+        its own group), un-standardize."""
+        self._require_state("predict_featurized")
+        base_m = self.config.tpu.atoms_pad_multiple
+        base_n = self.config.tpu.neighbors_pad_multiple
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, inp in enumerate(all_inputs):
+            key = (_ladder(inp["atomic"].shape[1], base_m),
+                   _ladder(inp["neighbors"].shape[2], base_n))
+            groups.setdefault(key, []).append(i)
+
+        def repad(inp, M, N):
+            out = {}
+            for k, v in inp.items():
+                pad = [(0, 0)] * v.ndim
+                pad[1] = (0, M - v.shape[1])
+                if v.ndim == 3 and k not in ("atom_mask", "ring_aromatic", "atomic"):
+                    pad[2] = (0, N - v.shape[2])  # neighbor tensors [1, M, N]
+                out[k] = np.pad(v, pad)
+            return out
+
+        bs = batch_size or self.config.hyper.batch_size
+        hyper = self.config.hyper
+        results: List[Optional[Tuple[float, np.ndarray]]] = [None] * len(structs)
+        for (M, N), members in groups.items():
+            padded = {i: repad(all_inputs[i], M, N) for i in members}
+            G = len(members)
+            for s0 in range(0, G, bs):
+                idxs = [members[j % G] for j in range(s0, s0 + bs)]
+                batch = {k: np.concatenate([padded[i][k] for i in idxs])
+                         for k in padded[members[0]]}
+                pred, ga = self.forward_eval(self.params, batch)
+                pred = pred[:, 0].cpu().numpy() * hyper.target_std + hyper.target_mean
+                ga = ga[..., 0].cpu().numpy()
+                for row, i in enumerate(idxs[: min(bs, G - s0)]):
+                    results[i] = (float(pred[row]), ga[row, : len(structs[i])])
+        return results
+
+    def _example_inputs(self, M: int = 8, N: int = 4, B: int = 1) -> Dict[str, np.ndarray]:
+        ex = {
+            "atomic": np.zeros((B, M), np.int32),
+            "atom_mask": np.ones((B, M, 1), np.float32),
+            "neighbors": np.zeros((B, M, N), np.int32),
+            "neighbor_mask": np.ones((B, M, N), np.float32),
+            "neighbor_weight": np.ones((B, M, N), np.float32),
+            "neighbor_distance": np.ones((B, M, N), np.float32),
+        }
+        if self.config.model.feature == "cgcnn":
+            ex["atomic"] = np.zeros((B, M, 92), np.float32)
+        if self.config.model.use_ring:
+            ex["ring_aromatic"] = np.zeros((B, M, 2), np.float32)
+        return ex
+
+    def warmup_serving(self, shapes: List[Tuple[int, int]],
+                       batch_size: Optional[int] = None) -> List[Tuple[int, int]]:
+        """Run each distinct ladder rung of the (max_atoms, max_neighbors)
+        shapes once on dummy inputs, so the first requests do not pay the
+        kernel build and the first allocations. Returns the rungs run."""
+        self._require_state("warmup_serving")
+        bs = batch_size or self.config.hyper.batch_size
+        base_m = self.config.tpu.atoms_pad_multiple
+        base_n = self.config.tpu.neighbors_pad_multiple
+        done: List[Tuple[int, int]] = []
+        for m, n in shapes:
+            rung = (_ladder(int(m), base_m), _ladder(int(n), base_n))
+            if rung in done:
+                continue
+            pred, _ = self.forward_eval(self.params,
+                                        self._example_inputs(M=rung[0], N=rung[1], B=bs))
+            pred.cpu()
+            done.append(rung)
+        return done

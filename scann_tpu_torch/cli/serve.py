@@ -1,0 +1,66 @@
+"""Batched-inference HTTP server CLI of the PyTorch port.
+
+    python -m scann_tpu_torch.cli.serve --config X.yaml --weights W.h5
+        [--host 127.0.0.1] [--port 8421] [--max-batch 64] [--window-ms 5]
+        [--device cuda]
+
+Serves a config and a Keras H5 checkpoint over HTTP on the GPU; see
+``scann_tpu_torch.serve`` for the request/response format.
+"""
+
+import argparse
+
+
+def parse_shapes(text: str):
+    shapes = []
+    for part in text.split(","):
+        m, n = part.lower().split("x")
+        shapes.append((int(m), int(n)))
+    return shapes
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", required=True, help="model config YAML")
+    parser.add_argument("--weights", required=True, help="Keras H5 checkpoint")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8421)
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--window-ms", type=float, default=5.0)
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--featurize-pool", type=int, default=0,
+                        help="featurize coalesced batches across N worker processes")
+    parser.add_argument("--warmup", type=str, default="",
+                        help="comma-separated MxN shapes (atoms x neighbors) to run "
+                             "once before accepting requests, e.g. '30x14,48x16'. "
+                             "Default: the model's recorded tpu.observed_buckets")
+    parser.add_argument("--no-canonical-frame", dest="canonical_frame",
+                        action="store_false",
+                        help="serve raw client frames instead of rotating molecules "
+                             "into their principal-axes frame first")
+    args = parser.parse_args(argv)
+
+    from scann_tpu_torch.serve import BatchedPredictor, PredictionServer
+
+    warmup = None
+    if args.warmup:
+        try:
+            warmup = parse_shapes(args.warmup)
+        except ValueError:
+            parser.error(f"--warmup must look like '30x14,48x16', got {args.warmup!r}")
+
+    predictor = BatchedPredictor.from_files(
+        args.config, args.weights, device=args.device, max_batch=args.max_batch,
+        window_ms=args.window_ms, featurize_pool=args.featurize_pool,
+        canonical_frame=args.canonical_frame, warmup_shapes=warmup)
+    if predictor.warmed:
+        print(f"warmed serving shapes: {predictor.warmed}")
+    server = PredictionServer(predictor, host=args.host, port=args.port)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+
+
+if __name__ == "__main__":
+    main()

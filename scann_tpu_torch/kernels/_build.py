@@ -1,0 +1,88 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+nvcc compiles it in seconds:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/scann_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
+
+The build runs at first use, into ``build/scann_tpu_torch/`` beside the
+package, keyed by a hash of the source and the flags, so an edited source
+rebuilds and an unchanged one loads at once. ``build_all`` starts one nvcc
+per source, all at once. Nothing here is imported from or built at module
+import time, and nothing falls back: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+SOURCES = ("scann_forward",)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str) -> subprocess.Popen:
+    out = library_path(name)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.scann_paths = (tmp, out)  # type: ignore[attr-defined]
+    return proc
+
+
+def build_all(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]:
+    """Compile every missing library (every one with ``force``) in
+    parallel; returns name -> .so path."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {n: _start(n) for n in names
+             if force or not os.path.exists(library_path(n))}
+    errors = []
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        tmp, out = proc.scann_paths
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: library_path(n) for n in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = _libs[name] = ctypes.CDLL(path)
+        return lib
