@@ -2,21 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from ``scann_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, then
-serves a few QM9 molecules over HTTP through ``PredictionServer`` at the
-full width of the flagship QM9 SCANN+ model (``configs/model_qm9.yaml``:
-7 layers, D=128, 8 heads, embedding 48; random weights from a seed) and
-checks every answer against the eager model on the card.
+Builds every CUDA kernel of the port from ``scann_tpu_torch/csrc`` (one
+nvcc per source, all at once) and, at the full width of the flagship QM9
+SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8 heads,
+embedding 48; random weights from a seed):
 
-Prints the card (``nvidia-smi``), the build time, each comparison, the
-serving results, then one ``{"kernels": [...]}`` line and, last,
+1. holds the forward kernel against its plain PyTorch version;
+2. serves a few molecules over HTTP through ``PredictionServer`` (the
+   serving path) and checks every answer against the eager model;
+3. times both kernels at the QM9 batch shape against their bounds and
+   their plain versions;
+4. holds the backward kernel (at dropout 0 and 0.1, one-shot and with a
+   GA cotangent) and the forward kernel with dropout against their plain
+   versions on the same Philox masks;
+5. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
+   (the training path) on ~1000 synthetic QM9-like molecules in one M=32
+   bucket, checks the launches, the falling loss (per epoch, and over the
+   training set without dropout), 3 kernel steps against 3 plain steps and
+   ``load_model_infer``.
+
+Prints the card (``nvidia-smi``), the build time, each comparison and
+phase, then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
-Tolerance: rtol 1e-4, atol 1e-5 on pred and GA scores. The kernel sums its
-FP32 products in another order than cuBLAS (TF32 off) and carries the
-difference through 7 LayerNormed layers; agreement is typically ~1e-6.
+Tolerances. Forward: rtol 1e-4, atol 1e-5 on pred and GA scores: the
+kernel sums its FP32 products in another order than cuBLAS (TF32 off) and
+carries the difference through 7 LayerNormed layers. Backward: pred as the
+forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
+up to 65,536 rows run in another order. Training: 3-step losses to 1e-4
+relative.
 """
 
 import json
@@ -32,6 +47,8 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 1e-4, 1e-5
+GRAD_RTOL = 1e-4             # of each gradient's max |plain|
+LOSS_RTOL = 1e-4
 H100_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 
@@ -116,6 +133,263 @@ MOLECULES = {  # name -> (species, cartesian coordinates in Angstrom)
 }
 
 
+def grad_errors(got, want):
+    """(worst |got - want| / max |want| over the gradient tensors, its key,
+    the largest absolute difference)."""
+    worst, where, ab = 0.0, None, 0.0
+    for k, w in want.items():
+        d = (got[k] - w).abs().max().item()
+        rel = d / max(w.abs().max().item(), 1e-30)
+        ab = max(ab, d)
+        if rel > worst or where is None:
+            worst, where = rel, k
+    return worst, where, ab
+
+
+def time_backward(cfm, params, packed, inputs, card):
+    """Phase 3 for the backward kernel: its launch plus the row reduction at
+    the QM9 training shape (dropout 0.1, one-shot), against its bound and
+    its plain version (the eager training forward under torch.autograd)."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+
+    B, M = inputs["atomic"].shape
+    N = inputs["neighbors"].shape[2]
+    y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
+    kfwd._check_inputs(inputs, cfm, packed["wde"].device)
+    ms = cuda_ms(lambda: kbwd._launch(packed, inputs, cfm, y, None, True, False, 0.1, 7))
+    plain_ms = cuda_ms(lambda: kbwd.reference_fused_scann_train_grads(
+        params, inputs, y, cfm, False, 0.1, 7), reps=10)
+    flops = kbwd.backward_flops(cfm, B, M, N)
+    _, P = kbwd.grad_layout(packed)
+    nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
+              + sum(t.numel() * t.element_size() for t in packed.values())
+              + 4 * B + 4 * (P + B))          # targets in; gradients and pred out
+    ops_ms = 1e3 * flops / H100_FP32_FLOPS
+    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
+    bound = max(ops_ms, bytes_ms)
+    print(f"scann_backward at B={B} M={M} N={N} (dropout 0.1, one-shot, with its row "
+          f"reduction): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, "
+          f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
+          f"[{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "flops": flops,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase4(matrix, qm9_model, qm9_inputs, failures, card):
+    """The backward kernel (one-shot and with a GA cotangent) and the
+    forward kernel with dropout against their plain versions, on the same
+    Philox masks. Returns the largest absolute errors."""
+    import dataclasses
+
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(4)
+    err = {"backward": 0.0, "forward_dropout": 0.0}
+    cases = [(name, cfm, mrelu, 8, 16, 8, 3) for name, cfm, mrelu in matrix]
+    cases += [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
+               False, 8, 16, 8, 3),
+              ("qm9 width N=24 (one atom per chunk)", qm9_model, False, 8, 32, 24, 3),
+              ("qm9 width single atoms", qm9_model, False, 8, 8, 8, 1)]
+    for name, cfm, mrelu, B, M, N, min_atoms in cases:
+        x = synthetic_batch(rng, B, M, N, cfm.use_ring, cfm.feature == "cgcnn",
+                            min_atoms=min_atoms)
+        p = init_params(cfm, torch.Generator().manual_seed(2), "cuda")
+        y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+        ctp = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        ctg = torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda()
+        for rate in (0.0, 0.1):
+            check_backward(f"{name} dropout {rate}", cfm, p, x, y, ctp, ctg, mrelu, rate,
+                           err, failures)
+    x = qm9_inputs
+    p = init_params(qm9_model, torch.Generator().manual_seed(3), "cuda")
+    y = torch.from_numpy(rng.normal(size=x["atomic"].shape[0]).astype(np.float32)).cuda()
+    check_backward("qm9 full width dropout 0.1", qm9_model, p, x, y, None, None, False, 0.1,
+                   err, failures)
+    print(f"phase 4: worst backward abs error {err['backward']:.3e}, forward with dropout "
+          f"{err['forward_dropout']:.3e}  [{card}]", flush=True)
+    return err
+
+
+def check_backward(label, cfm, p, x, y, ctp, ctg, mrelu, rate, err, failures):
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+
+    seed = 11
+    with torch.no_grad():
+        pf, gf = kfwd.fused_scann_forward(p, x, cfm, mrelu, rate, seed)
+        torch.cuda.synchronize()
+        pr, gr = kfwd.reference_scann_forward(p, x, cfm, mrelu, rate, seed)
+    line = [label]
+    for what, got, want in (("fwd pred", pf, pr), ("fwd ga", gf, gr)):
+        ab, _, ok = errors(got, want)
+        err["forward_dropout"] = max(err["forward_dropout"], ab)
+        line.append(f"{what} {ab:.2e}")
+        if not ok:
+            failures.append(f"{label} {what}: max_abs {ab:.3e} outside rtol {RTOL} atol {ATOL}")
+    pred, g = kbwd.fused_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
+    torch.cuda.synchronize()
+    pred0, g0 = kbwd.reference_fused_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
+    checks = [("one-shot", pred, pred0, g, g0)]
+    if ctp is not None:
+        g1 = kbwd.fused_scann_grad(p, x, cfm, ctp, ctg, rate, seed)
+        torch.cuda.synchronize()
+        checks.append(("ct_ga", None, None, g1,
+                       kbwd.reference_fused_scann_grad(p, x, cfm, ctp, ctg, rate, seed)))
+    for what, got_p, want_p, got_g, want_g in checks:
+        if got_p is not None:
+            ab, _, ok = errors(got_p, want_p)
+            err["backward"] = max(err["backward"], ab)
+            line.append(f"{what} pred {ab:.2e}")
+            if not ok:
+                failures.append(f"{label} {what} pred: max_abs {ab:.3e}")
+        if set(got_g) != set(want_g):
+            failures.append(f"{label} {what}: gradient keys differ")
+            continue
+        rel, key, ab = grad_errors(got_g, want_g)
+        err["backward"] = max(err["backward"], ab)
+        finite = all(bool(torch.isfinite(v).all()) for v in got_g.values())
+        line.append(f"{what} grads worst {rel:.2e} of max|plain| at {key}")
+        if rel > GRAD_RTOL or not finite:
+            failures.append(f"{label} {what}: gradient {key} off by {rel:.3e} of its max "
+                            f"(limit {GRAD_RTOL}), finite={finite}")
+    print("  ".join(line), flush=True)
+
+
+def train_set_loss(scann):
+    """RMSE + l2 of the current weights over the training buckets, without
+    dropout (the forward kernel)."""
+    from scann_tpu_torch.models.scann import l2_penalty
+
+    trainer = scann.trainer
+    dev = trainer._put_buckets(scann.train_buckets, "train")
+    _, _, pred, y = trainer._evaluate_buckets(scann.train_buckets, dev)
+    return (float(np.sqrt(np.mean((pred - y) ** 2)))
+            + float(l2_penalty(trainer.params, scann.config.hyper.l2_reg)))
+
+
+def phase5(qm9_model, failures, card):
+    """Train 2 epochs through Scann at QM9 width on synthetic QM9-like
+    molecules; returns the backward kernel's launches in that run."""
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.synthetic import make_synthetic_dataset
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.train.loop import Trainer
+
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_")
+    t0 = time.time()
+    n_mol = 1000
+    energy, nbr = make_synthetic_dataset(work, "qm9like", n_structures=n_mol, min_atoms=5,
+                                         max_atoms=29, seed=0)
+    print(f"phase 5: {n_mol} synthetic molecules (5-29 atoms of H, C, N, O, F) written and "
+          f"featurized on the host in {time.time() - t0:.1f} s", flush=True)
+    cfg = ScannConfig(model=qm9_model,
+                      hyper=HyperConfig(batch_size=128, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                        data_energy_path=energy, data_nei_path=nbr,
+                                        save_path=os.path.join(work, "run"), epochs=2, seed=0),
+                      tpu=TpuConfig(max_buckets=1))
+    scann = Scann(cfg, device="cuda")
+    scann.prepare_dataset()
+    shapes = [b.shape for b in scann.train_buckets]
+    steps = 2 * sum(-(-b.num_structures // 128) for b in scann.train_buckets)
+    eval_batches = (2 * sum(-(-b.num_structures // 128) for b in scann.valid_buckets)
+                    + sum(-(-b.num_structures // 128) for b in scann.test_buckets))
+    trainer = scann.trainer
+    scann.init_params(cfg.hyper.seed)              # what fit() would draw
+    loss_before = train_set_loss(scann)
+    step_ms, fwd_calls = [], [0]
+    train_step, forward_eval = trainer.train_step, trainer.forward_eval
+
+    def timed_step(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = train_step(*args)
+        e.record()
+        step_ms.append((s, e))
+        return out
+
+    def counted_eval(*args):
+        fwd_calls[0] += 1
+        return forward_eval(*args)
+
+    trainer.train_step, trainer.forward_eval = timed_step, counted_eval
+    kbwd.launch_scann_backward.launches = 0          # counts of the training path only
+    kfwd.fused_scann_forward.launches = 0
+    t1 = time.time()
+    hist = scann.train()
+    result = scann.evaluate()
+    torch.cuda.synchronize()
+    bwd_launches = kbwd.launch_scann_backward.launches
+    fwd_launches = kfwd.fused_scann_forward.launches
+    trainer.train_step, trainer.forward_eval = train_step, forward_eval
+    loss_after = train_set_loss(scann)
+    med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
+    n_train = sum(b.num_structures for b in scann.train_buckets)
+    print(f"phase 5: buckets {shapes}, {len(step_ms)} steps in {time.time() - t1:.1f} s, "
+          f"losses {hist['loss']}, val_mae {hist['val_mae']}, test {result}", flush=True)
+    print(f"phase 5: median train step {med:.4f} ms (CUDA events), epoch 2 "
+          f"{n_train / hist['epoch_time'][1]:.1f} structures/s; backward launches "
+          f"{bwd_launches} for {steps} steps, forward launches {fwd_launches} for "
+          f"{eval_batches} eval batches  [{card}]", flush=True)
+    # One M=32 bucket: an epoch trains its buckets one after the other (as the
+    # JAX Trainer does), and the synthetic target grows with molecule size, so
+    # with two buckets every switch swings the predictions and two epochs are
+    # too few for the epoch loss to show the trend.
+    print(f"phase 5: training-set loss without dropout {loss_before:.6f} before the first "
+          f"epoch, {loss_after:.6f} after the last", flush=True)
+    if not (all(np.isfinite(hist["loss"])) and hist["loss"][-1] < hist["loss"][0]
+            and np.isfinite(loss_after) and loss_after < loss_before):
+        failures.append(f"training loss not finite and falling: epochs {hist['loss']}, "
+                        f"training set without dropout {loss_before} -> {loss_after}")
+    if bwd_launches != steps or len(step_ms) != steps:
+        failures.append(f"backward launches {bwd_launches} != training steps {steps}")
+    if fwd_launches != eval_batches or fwd_calls[0] != eval_batches:
+        failures.append(f"forward launches {fwd_launches} != eval batches {eval_batches}")
+
+    # 3 steps through the kernel against 3 through the plain step
+    class PlainTrainer(Trainer):
+        def raw_grads(self, batch, y, seed):
+            pred, raw = kbwd.reference_fused_scann_train_grads(
+                self.params, batch, y, self.config.model, self.mrelu_head,
+                self.dropout_rate, seed)
+            return pred[:, 0], raw
+
+    b = scann.train_buckets[-1]
+    losses = []
+    for cls in (Trainer, PlainTrainer):
+        t = cls(cfg, "cuda", os.path.join(work, cls.__name__))
+        t.init_state(5)
+        (binputs, btargets), = t._put_buckets([b], "train")
+        idx, seeds = t.epoch_plan(0, 0, b.num_structures, 128)
+        run = []
+        for k in range(3):
+            rows = idx[k % idx.shape[0]].cuda()
+            loss, _ = t.train_step({n: v[rows] for n, v in binputs.items()}, btargets[rows],
+                                   5e-4, seeds[k % len(seeds)])
+            run.append(float(loss))
+        losses.append(run)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    print(f"phase 5: 3 kernel steps {losses[0]} vs 3 plain steps {losses[1]}: "
+          f"max rel {rel:.3e} (limit {LOSS_RTOL})", flush=True)
+    if not rel <= LOSS_RTOL:
+        failures.append(f"kernel and plain training steps differ: {rel:.3e}")
+
+    # a model loaded back from the run directory predicts what the trainer does
+    p_trained = scann.predict_data(scann.test_buckets)
+    loaded = Scann.load_model_infer(trainer.workdir, device="cuda")
+    p_loaded = loaded.predict_data(scann.test_buckets)
+    d = float(np.abs(p_trained - p_loaded).max())
+    print(f"phase 5: load_model_infer predicts {len(p_loaded)} test molecules, max |d| "
+          f"{d:.3e} from the trainer's predictions", flush=True)
+    if not (np.isfinite(p_loaded).all() and d <= ATOL + RTOL * np.abs(p_trained).max()):
+        failures.append(f"load_model_infer predictions differ by {d:.3e}")
+    return bwd_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -131,7 +405,8 @@ def main():
     print(card, flush=True)
     t0 = time.time()
     _build.build_all(force=True)
-    print(f"built {list(_build.SOURCES)} with nvcc in {time.time() - t0:.1f} s", flush=True)
+    print(f"built {list(_build.SOURCES)} with nvcc in {time.time() - t0:.1f} s "
+          "(one nvcc per source, in parallel)", flush=True)
 
     failures = []
     max_err = 0.0
@@ -301,18 +576,33 @@ def main():
     print(f"scann_forward at B={B} M={M} N={N}: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
           f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / kernel_ms:.1f}% "
-          f"of it reached)", flush=True)
+          f"of it reached)  [{card}]", flush=True)
+    bwd_time = time_backward(qm9_model, params, packed, qm9_inputs, card)
+
+    # ---- phase 4: the backward kernel against its plain version -------------
+    bwd_err = phase4(matrix, qm9_model, qm9_inputs, failures, card)
+
+    # ---- phase 5: the training path ------------------------------------------
+    train_launches = phase5(qm9_model, failures, card)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)
         return 1
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+
     kernels = [{
         "name": "scann_forward", "route": "cuda", "source": kfwd.SOURCE,
         "replaces": kfwd.REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
+        "max_abs_err": max(max_err, bwd_err["forward_dropout"]), "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None, "flops": flops,
+    }, {
+        "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,
+        "replaces": kbwd.REPLACES, "launches": train_launches,
+        "max_abs_err": bwd_err["backward"], "ms": bwd_time["ms"],
+        "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
+        "bound_by": bwd_time["bound_by"], "library_ms": None, "flops": bwd_time["flops"],
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

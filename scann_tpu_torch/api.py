@@ -1,8 +1,13 @@
-"""High-level inference API of the PyTorch port (port of the serving half of
-``scann_tpu/api.py``).
+"""High-level API of the PyTorch port (port of ``scann_tpu/api.py``).
 
-``Scann`` holds one config and one set of parameters on one device and
-predicts properties and per-atom GA scores for structures:
+``Scann`` holds one config and, in its ``Trainer``, one set of parameters
+on one device. It trains and evaluates on a dataset pair:
+
+    prepare_dataset (load, standardize, pad into (M, N) buckets, split)
+      -> train (one backward-kernel launch per step on the GPU)
+      -> evaluate / predict_data (the forward kernel)
+
+and it predicts properties and per-atom GA scores for structures:
 
     featurize (host Voronoi, ``prepare_input``)
       -> pad and group by ladder-quantized (M, N) shape
@@ -12,10 +17,11 @@ predicts properties and per-atom GA scores for structures:
 
 The device defaults to CUDA, and a missing CUDA device raises: nothing
 falls back to the CPU unless the caller asks for ``device="cpu"``.
-Training, the orbax checkpoint format and the compiled-executable cache of
-the JAX package are not part of the port yet; weights come from a
-reference Keras H5 (``load_pretrained``) or from any flax-layout tree
-(``load_params``).
+Weights come from training, a torch checkpoint of this package
+(``load_model_infer``), a reference Keras H5 (``load_pretrained``, weights
+only) or any flax-layout tree (``load_params``). Structure packing, the
+orbax checkpoint format and the compiled-executable cache of the JAX
+package are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -29,10 +35,10 @@ import torch
 
 from scann_tpu_torch.compat.from_jax import params_from_jax
 from scann_tpu_torch.config import ScannConfig, load_config
+from scann_tpu_torch.data.pipeline import load_dataset, pack_dataset, split_data, subset_buckets
 from scann_tpu_torch.data.structure import Structure
 from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors
-from scann_tpu_torch.kernels.scann_forward import launch_scann_forward, pack_params
-from scann_tpu_torch.models.scann import init_params, scann_forward
+from scann_tpu_torch.train.loop import Trainer, _to_device
 
 StructureLike = Union[Structure, str, os.PathLike]
 
@@ -132,19 +138,20 @@ def prepare_input(
 
 
 class Scann:
-    """Inference for one config on one device."""
+    """Train / eval / infer lifecycle for one config on one device, like
+    the reference ``SCANN`` class."""
 
     def __init__(self, config: Union[ScannConfig, dict, str], pretrained: str = "",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", workdir: Optional[str] = None):
         if isinstance(config, str):
             config = load_config(config)
         elif isinstance(config, dict):
             config = ScannConfig.from_dict(config)
         self.config = config
         self.device = resolve_device(device)
-        self.mrelu_head = config.hyper.target == "e_b"
-        self.params: Optional[Dict[str, torch.Tensor]] = None
-        self._packed = None  # (params, kernel-layout params) for the GPU path
+        self.trainer = Trainer(config, self.device, workdir)
+        self._buckets = None
+        self.train_buckets = self.valid_buckets = self.test_buckets = None
         self._feat_pool = None
         self._feat_pool_lock = threading.Lock()
         if pretrained:
@@ -153,20 +160,32 @@ class Scann:
 
     # --- parameters -----------------------------------------------------------
 
+    @property
+    def params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The trainer's parameters (flat dict keyed like the flax tree)."""
+        return self.trainer.params
+
     def load_params(self, params) -> Dict[str, torch.Tensor]:
         """Install a flax-layout parameter tree (``{"params": ...}`` or
         bare, numpy arrays): from the JAX package or ``load_h5_params``.
         Every key and shape is checked against the config."""
-        self.params = params_from_jax(params, self.config.model, device=self.device)
-        self._packed = None
-        return self.params
+        return self.trainer.load_params(params_from_jax(params, self.config.model))
 
     def init_params(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Random parameters with the Keras initializers, from ``seed``."""
-        g = torch.Generator().manual_seed(seed)
-        self.params = init_params(self.config.model, g, self.device)
-        self._packed = None
-        return self.params
+        return self.trainer.init_state(seed)
+
+    @classmethod
+    def load_model_infer(cls, workdir: str, device: Union[str, torch.device] = "cuda"
+                         ) -> "Scann":
+        """An inference-ready model from a training run directory: the config
+        and weights of its ``checkpoints/best.pt`` (reference
+        ``SCANN.load_model_infer``, ``scann_model.py:85-91``). Needs no yaml."""
+        path = os.path.join(workdir, "checkpoints", "best.pt")
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        obj = cls(ScannConfig.from_dict(ckpt["config"]), device=device, workdir=workdir)
+        obj.trainer.restore_checkpoint("best")
+        return obj
 
     def load_pretrained(self, path: str):
         """Load a reference Keras H5 checkpoint (full-model or weights-only)."""
@@ -186,31 +205,104 @@ class Scann:
     # --- forward --------------------------------------------------------------
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, torch.Tensor):
-                out[k] = v.to(self.device)
-                continue
-            dtype = (torch.int32 if k == "neighbors"
-                     or (k == "atomic" and v.ndim == 2) else torch.float32)
-            out[k] = torch.as_tensor(np.ascontiguousarray(v)).to(self.device, dtype)
-        return out
+        return _to_device(batch, self.device)
 
     def forward_eval(self, params: Dict[str, torch.Tensor], batch
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
 
-        On CUDA it runs the whole-model kernel; shapes the kernel does not
-        take raise NotImplementedError (they need the crystal loop kernel,
-        not ported yet). On the CPU it runs the eager model."""
-        batch = self._to_device(batch)
-        cfm = self.config.model
-        with torch.inference_mode():
-            if self.device.type == "cuda":
-                if self._packed is None or self._packed[0] is not params:
-                    self._packed = (params, pack_params(params, cfm))
-                return launch_scann_forward(self._packed[1], batch, cfm, self.mrelu_head)
-            return scann_forward(params, batch, cfm, self.mrelu_head)
+        On CUDA it runs the whole-model kernel, on the kernel layout of the
+        weights that ``Trainer.kernel_params`` keeps for the current
+        parameter version; shapes the kernel does not take raise
+        NotImplementedError (they need the crystal loop kernel, not ported
+        yet). On the CPU it runs the eager model."""
+        return self.trainer.forward_eval(params, self._to_device(batch))
+
+    # --- dataset and training -------------------------------------------------
+
+    def prepare_dataset(self, split: bool = True):
+        """Load the configured dataset pair, standardize the target
+        (``hyper.scaler``), pad it into (M, N) buckets and, with ``split``,
+        carve train / valid / test out of them (returns their indices);
+        without, returns the buckets of the whole dataset."""
+        hyper, cfm = self.config.hyper, self.config.model
+        if self.config.tpu.structure_packing:
+            raise NotImplementedError("tpu.structure_packing: structure packing is not "
+                                      "ported yet")
+        records, neighbors = load_dataset(hyper.data_energy_path, hyper.data_nei_path,
+                                          hyper.target, use_ref=hyper.use_ref,
+                                          use_ring=cfm.use_ring)
+        if cfm.feature == "atomic":
+            zmax = max(int(max(r["atomic"])) for r in records)
+            if zmax >= cfm.n_atoms:
+                raise ValueError(
+                    f"dataset contains atomic number {zmax} but the model's embedding vocab "
+                    f"is n_atoms={cfm.n_atoms}; raise model.n_atoms or use feature='cgcnn'")
+        if hyper.scaler:
+            ys = np.array([r["target"] for r in records], np.float64)
+            mean, std = float(ys.mean()), float(ys.std())
+            print(f"Standardizing target: mean {mean:.6f}, std {std:.6f}")
+            for r in records:
+                r["target"] = (r["target"] - mean) / std
+            hyper.target_mean, hyper.target_std = mean, std
+        hyper.data_size = len(records)
+        buckets = pack_dataset(
+            records, neighbors, g_update=cfm.g_update, feature=cfm.feature,
+            use_ring=cfm.use_ring, atoms_multiple=self.config.tpu.atoms_pad_multiple,
+            neighbors_multiple=self.config.tpu.neighbors_pad_multiple,
+            max_buckets=self.config.tpu.max_buckets,
+            csr_cache_path=hyper.data_nei_path + ".csr.npz", csr_source_path=hyper.data_nei_path)
+        if not split:
+            self._buckets = buckets
+            return buckets
+        tr, va, te = split_data(len(records), test_percent=hyper.test_percent,
+                                train_size=hyper.train_size, test_size=hyper.test_size,
+                                seed=hyper.seed)
+        print(f"Split: {len(tr)} train / {len(va)} valid / {len(te)} test")
+        self.train_buckets = subset_buckets(buckets, tr)
+        self.valid_buckets = subset_buckets(buckets, va)
+        self.test_buckets = subset_buckets(buckets, te)
+        return tr, va, te
+
+    def train(self, epochs: Optional[int] = None, resume: bool = False):
+        if self.train_buckets is None:
+            raise RuntimeError("no training data: call prepare_dataset() first")
+        return self.trainer.fit(self.train_buckets, self.valid_buckets, epochs=epochs,
+                                resume=resume)
+
+    def evaluate(self):
+        """Test-set report. After training in this session it evaluates the
+        best-val checkpoint (reference ``scann_model.py:249-258``); with
+        loaded weights it keeps them; otherwise it loads the run's best."""
+        best = self.trainer._checkpoint_path("best")
+        if self.trainer.history is not None and os.path.exists(best):
+            self.trainer.restore_checkpoint("best")
+        elif self.params is None:
+            if not os.path.exists(best):
+                raise RuntimeError(f"no parameters to evaluate: no checkpoint at {best}; "
+                                   "train first or pass pretrained=")
+            self.trainer.restore_checkpoint("best")
+        buckets = self._buckets if self._buckets is not None else self.test_buckets
+        if buckets is None:
+            raise RuntimeError("no data to evaluate: call prepare_dataset() first")
+        result = self.trainer.evaluate(buckets)
+        print(f"Test {self.config.hyper.target}: "
+              f"MAE {result['test_mae']:.6f}, R2 {result['test_r2']:.5f}")
+        return result
+
+    def predict_data(self, buckets=None, with_ga: bool = False):
+        """Predict over buckets, un-standardized, in dataset order; defaults
+        to the whole prepared dataset."""
+        if buckets is None:
+            if self._buckets is not None:
+                buckets = self._buckets
+            elif self.train_buckets is not None:
+                buckets = (list(self.train_buckets) + list(self.valid_buckets)
+                           + list(self.test_buckets))
+            else:
+                raise RuntimeError("no data: call prepare_dataset() or pass buckets")
+        self._require_state("predict_data")
+        return self.trainer.predict(buckets, with_ga=with_ga)
 
     # --- structures -----------------------------------------------------------
 

@@ -3,7 +3,8 @@
 YAML-compatible with the repo's ``configs/*.yaml``: blocks ``model:`` /
 ``hyper:`` / ``tpu:``, with the same keys and defaults as the JAX package,
 so one config file drives both. ``yaml`` is imported only inside
-``load_config`` / ``save_config``: a config built in code needs no yaml.
+``load_config``; ``save_config`` writes the mapping by hand, so training
+and checkpoints need no yaml.
 The ``tpu:`` block is kept for file compatibility; the port reads only its
 padding multiples (``atoms_pad_multiple``, ``neighbors_pad_multiple``).
 """
@@ -11,6 +12,8 @@ padding multiples (``atoms_pad_multiple``, ``neighbors_pad_multiple``).
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -197,8 +200,37 @@ def load_config(path: str) -> ScannConfig:
         return ScannConfig.from_dict(yaml.safe_load(f))
 
 
-def save_config(config: ScannConfig, path: str) -> None:
-    import yaml
+def _yaml_scalar(v) -> str:
+    """One value in YAML 1.1 syntax that ``yaml.safe_load`` reads back as
+    the same Python value: JSON-quoted strings and flow lists, floats with
+    a decimal point (``1e-05`` alone would load as a string)."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "e" in text and "." not in text.split("e")[0]:
+            mant, exp = text.split("e")
+            text = f"{mant}.0e{exp}"
+        return text
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    return json.dumps(str(v))
 
+
+def save_config(config: ScannConfig, path: str) -> None:
+    """Write the config as the two-level YAML mapping ``load_config``
+    reads, by hand: it needs no ``yaml`` module."""
+    lines = []
+    for block, values in config.to_dict().items():
+        lines.append(f"{block}:")
+        lines.extend(f"  {k}: {_yaml_scalar(v)}" for k, v in values.items())
     with open(path, "w") as f:
-        yaml.safe_dump(config.to_dict(), f, default_flow_style=False)
+        f.write("\n".join(lines) + "\n")

@@ -2,11 +2,15 @@
 // molecule.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_forward.py:_kernel (the
-// Pallas whole-model forward) for the deterministic, unpacked case:
+// Pallas whole-model forward) for unpacked batches:
 // embedding (atomic-number lookup or cgcnn dense, optional ring concat),
 // Gaussian RBF geometry (+ the SCANN+ geometry embedding), L x
 // (LocalAttention + ResidualNorm), after_Lc, the GA readout and the
 // property head (optional mrelu). Outputs pred [B] and ga [B, M], f32.
+// With dropout on (training through scann_apply) it applies the embedding
+// and residual masks and, under use_drop, the attention mask, drawn in
+// place by the Philox of philox.cuh, so the backward kernel replays them;
+// with dropout off it computes exactly what it computed without them.
 //
 // Bound. At the QM9 serving shape (B=128, M=32, N=16, L=7, D=128) the work
 // is ~5.0e10 FLOP against a few MB of inputs and weights, so the kernel is
@@ -35,17 +39,14 @@
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "philox.cuh"
+#include "scann_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace scann;
+
 constexpr int kMaxChunkRows = 64;
-constexpr int kMaxSharedBytes = 232448;   // 227 KB opt-in per block (sm_90)
-constexpr int kErrSharedMemory = 10001;
-constexpr int kErrShape = 10002;
 
 struct Args {
   // inputs of one padded batch
@@ -109,9 +110,11 @@ struct Args {
   int abuf_floats;      // floats of the chunk operand buffer
   float dk;             // hd ** -scale
   float rbf_width;      // squared Gaussian width (0.25)
+  // training dropout (philox.cuh): masks keyed on (seed, mol_base + b)
+  int dropout, attn_dropout;
+  unsigned int seed, mol_base, drop_threshold, attn_threshold;
+  float drop_scale, attn_scale;
 };
-
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
 // Shared-memory plan, in floats: centers, query, scratch [M, wd] each; the
 // chunk operand buffer A (also the embedding staging area); the chunk
@@ -134,127 +137,6 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   return p;
 }
 
-__device__ __forceinline__ float swishf(float x) { return x / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// out[r][c] = sum_k A[r * lda + k] * W[k * ldw + c] for r < rows (<= 64),
-// c < nc (a multiple of 4, <= 128). A lives in shared memory, W in global
-// memory. Each thread owns up to 8 consecutive rows x 4 columns and hands
-// every finished quad to epi(row, col, value). No barrier inside: the
-// caller synchronises before reading the results.
-template <typename Epi>
-__device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int K,
-                                          const float* __restrict__ W, int ldw, int nc,
-                                          Epi epi) {
-  const int cg = nc >> 2;
-  const int rgs = kThreads / cg;
-  const int tid = threadIdx.x;
-  if (tid >= rgs * cg) return;
-  const int c = (tid % cg) * 4;
-  const int rpt = (rows + rgs - 1) / rgs;
-  const int r0 = (tid / cg) * rpt;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    acc[i][0] = 0.f; acc[i][1] = 0.f; acc[i][2] = 0.f; acc[i][3] = 0.f;
-  }
-  // the next k-step's four weight quads load while this step's FMAs run
-  // (ldw is a multiple of 4, so the rows stay 16-byte aligned)
-  int k = 0;
-  const float4* Wc = reinterpret_cast<const float4*>(W + c);
-  const int ldw4 = ldw >> 2;
-  float4 p0 = make_float4(0.f, 0.f, 0.f, 0.f), p1 = p0, p2 = p0, p3 = p0;
-  if (K >= 4) {
-    p0 = __ldg(Wc); p1 = __ldg(Wc + ldw4); p2 = __ldg(Wc + 2 * ldw4); p3 = __ldg(Wc + 3 * ldw4);
-  }
-  for (; k + 4 <= K; k += 4) {
-    const float4 w0 = p0, w1 = p1, w2 = p2, w3 = p3;
-    if (k + 8 <= K) {
-      const float4* q = Wc + (size_t)(k + 4) * ldw4;
-      p0 = __ldg(q); p1 = __ldg(q + ldw4); p2 = __ldg(q + 2 * ldw4); p3 = __ldg(q + 3 * ldw4);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < rpt && r0 + i < rows) {
-        const float4 av = *reinterpret_cast<const float4*>(A + (r0 + i) * lda + k);
-        acc[i][0] = fmaf(av.x, w0.x, acc[i][0]);
-        acc[i][1] = fmaf(av.x, w0.y, acc[i][1]);
-        acc[i][2] = fmaf(av.x, w0.z, acc[i][2]);
-        acc[i][3] = fmaf(av.x, w0.w, acc[i][3]);
-        acc[i][0] = fmaf(av.y, w1.x, acc[i][0]);
-        acc[i][1] = fmaf(av.y, w1.y, acc[i][1]);
-        acc[i][2] = fmaf(av.y, w1.z, acc[i][2]);
-        acc[i][3] = fmaf(av.y, w1.w, acc[i][3]);
-        acc[i][0] = fmaf(av.z, w2.x, acc[i][0]);
-        acc[i][1] = fmaf(av.z, w2.y, acc[i][1]);
-        acc[i][2] = fmaf(av.z, w2.z, acc[i][2]);
-        acc[i][3] = fmaf(av.z, w2.w, acc[i][3]);
-        acc[i][0] = fmaf(av.w, w3.x, acc[i][0]);
-        acc[i][1] = fmaf(av.w, w3.y, acc[i][1]);
-        acc[i][2] = fmaf(av.w, w3.z, acc[i][2]);
-        acc[i][3] = fmaf(av.w, w3.w, acc[i][3]);
-      }
-    }
-  }
-  for (; k < K; ++k) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)k * ldw + c));
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < rpt && r0 + i < rows) {
-        const float av = A[(r0 + i) * lda + k];
-        acc[i][0] = fmaf(av, w.x, acc[i][0]);
-        acc[i][1] = fmaf(av, w.y, acc[i][1]);
-        acc[i][2] = fmaf(av, w.z, acc[i][2]);
-        acc[i][3] = fmaf(av, w.w, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (i < rpt && r0 + i < rows)
-      epi(r0 + i, c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
-}
-
-// Two-pass LayerNorm (eps 1e-6) of one row of D <= 128 values held by a
-// warp, lane l holding elements l, l+32, l+64, l+96.
-__device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const float* gamma,
-                                                const float* beta, int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (lane + 32 * i < D) s += v[i];
-  const float mean = warp_sum(s) / (float)D;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (lane + 32 * i < D) {
-      const float t = v[i] - mean;
-      q += t * t;
-    }
-  const float inv = rsqrtf(warp_sum(q) / (float)D + 1e-6f);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) v[i] = (v[i] - mean) * inv * gamma[d] + beta[d];
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, float4 v) {
-  *reinterpret_cast<float4*>(dst) = v;
-}
-
 // one block per SM (its shared memory takes most of the SM), so the
 // compiler may spend up to 255 registers a thread: no spills
 __global__ void __launch_bounds__(kThreads, 1)
@@ -265,6 +147,15 @@ scann_forward_kernel(const Args a) {
   const int b = blockIdx.x;
   const int M = a.M, N = a.N, D = a.D, H = a.H, K = a.K, G = a.G, O = a.O;
   const int wd = P.wd, lda = 2 * D, hd = D / H, CA = a.chunk_atoms;
+  const unsigned int mol = a.mol_base + (unsigned int)b;
+  // the [M, D] embedding and residual masks: quad (r, c..c+3) is one Philox
+  // output, since D and c are multiples of 4
+  auto drop_quad = [&](int stream, int r, int c, float4 v) {
+    if (!a.dropout) return v;
+    const float4 m = scann_philox::mask_quad(a.seed, mol, stream, (unsigned)(r * D + c) >> 2,
+                                             a.drop_threshold, a.drop_scale);
+    return make_float4(v.x * m.x, v.y * m.y, v.z * m.z, v.w * m.w);
+  };
   float* sC = smem;               // centers        [M, wd]
   float* sQ = smem + P.offQ;      // query / out    [M, wd]
   float* sW = smem + P.offW;      // scratch        [M, wd]
@@ -315,8 +206,9 @@ scann_forward_kernel(const Args a) {
   __syncthreads();
   tile_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
     store4(sC + r * wd + c,
-           make_float4(swishf(v.x + a.bde[c]), swishf(v.y + a.bde[c + 1]),
-                       swishf(v.z + a.bde[c + 2]), swishf(v.w + a.bde[c + 3])));
+           drop_quad(0, r, c,
+                     make_float4(swishf(v.x + a.bde[c]), swishf(v.y + a.bde[c + 1]),
+                                 swishf(v.z + a.bde[c + 2]), swishf(v.w + a.bde[c + 3]))));
   });
   __syncthreads();
 
@@ -475,6 +367,12 @@ scann_forward_kernel(const Args a) {
           s += t;
         }
         for (int n = 0; n < N; ++n) e[n * H] = e[n * H] / s;
+        if (a.attn_dropout) {   // the context uses the dropped-out attention
+          for (int n = 0; n < N; ++n)
+            e[n * H] *= scann_philox::mask_value(
+                a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                a.attn_threshold, a.attn_scale);
+        }
       }
       __syncthreads();
       // out = ctx + query, ctx = sum_n attn * nmask * key
@@ -513,7 +411,8 @@ scann_forward_kernel(const Args a) {
     __syncthreads();
     tile_gemm(sW, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sC + r * wd + c,
-             make_float4(v.x + br2[c], v.y + br2[c + 1], v.z + br2[c + 2], v.w + br2[c + 3]));
+             drop_quad(1 + l, r, c, make_float4(v.x + br2[c], v.y + br2[c + 1],
+                                                v.z + br2[c + 2], v.w + br2[c + 3])));
     });
     __syncthreads();
     const float* rs = a.rln_s + (size_t)l * D;
@@ -619,8 +518,8 @@ scann_forward_kernel(const Args a) {
 
 }  // namespace
 
-// The order of the 49 pointers and 18 sizes must match
-// scann_tpu_torch/kernels/scann_forward.py.
+// The order of the 49 pointers, 20 sizes, 4 scalars and 4 random-stream words
+// must match scann_tpu_torch/kernels/scann_forward.py.
 extern "C" int scann_forward_shared_bytes(const int* dims) {
   Args a = {};
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
@@ -630,7 +529,7 @@ extern "C" int scann_forward_shared_bytes(const int* dims) {
 }
 
 extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const float* scalars,
-                                    void* stream) {
+                                    const unsigned int* rng, void* stream) {
   Args a;
   const void* const* p = ptrs;
   int i = 0;
@@ -690,8 +589,12 @@ extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const fl
   a.cgcnn = dims[11]; a.use_ring = dims[12]; a.g_update = dims[13];
   a.ga_norm = dims[14]; a.mrelu = dims[15];
   a.chunk_atoms = dims[16]; a.abuf_floats = dims[17];
+  a.dropout = dims[18]; a.attn_dropout = dims[19];
   a.dk = scalars[0];
   a.rbf_width = scalars[1];
+  a.drop_scale = scalars[2];
+  a.attn_scale = scalars[3];
+  a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
 
   if (a.M > 64 || a.M < 1 || a.chunk_atoms * a.N > kMaxChunkRows || a.D > 128 || a.G > 128 ||
       a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D)

@@ -8,7 +8,9 @@ nvcc compiles it in seconds:
 
 The build runs at first use, into ``build/scann_tpu_torch/`` beside the
 package, keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. ``build_all`` starts one nvcc
+rebuilds and an unchanged one loads at once. The hash covers the source
+and every header it includes (``philox.cuh``, ``scann_common.cuh``), so
+an edited header rebuilds every library that includes it. ``build_all`` starts one nvcc
 per source, all at once. Nothing here is imported from or built at module
 import time, and nothing falls back: a failed build raises.
 """
@@ -18,17 +20,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("scann_forward",)
+SOURCES = ("scann_forward", "scann_backward")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,9 +47,27 @@ def nvcc_path() -> str:
                        "kernels are built from source at first use")
 
 
+def source_files(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and every ``#include "..."`` it reaches, in
+    first-seen order: all of them go into the build's hash."""
+    seen: List[str] = []
+    todo = [os.path.join(SRC_DIR, f"{name}.cu")]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            for m in _INCLUDE.finditer(f.read()):
+                todo.append(os.path.join(os.path.dirname(path), m.group(1)))
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

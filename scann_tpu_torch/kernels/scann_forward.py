@@ -2,14 +2,17 @@
 ``csrc/scann_forward.cu``.
 
 Replaces ``scann_tpu/kernels/scann_forward.py:_kernel`` (the Pallas TPU
-kernel that runs the whole model in one program) for the deterministic,
-unpacked forward that serving and evaluation run.
+kernel that runs the whole model in one program) for unpacked batches: the
+deterministic forward that serving and evaluation run, and the training
+forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
+0, with the Philox masks of ``ops.dropout`` that the backward replays).
 
-- ``fused_scann_forward(params, inputs, cfm, mrelu_head)`` keeps the JAX
-  signature and layout: (property [B, 1], ga_score [B, M, 1]), f32. For
-  CUDA tensors it launches the kernel (or raises); for CPU tensors it runs
-  the plain version, ``reference_scann_forward``: the eager model called
-  functionally. ``fused_scann_forward.launches`` counts kernel launches.
+- ``fused_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate,
+  seed)`` keeps the JAX signature and layout: (property [B, 1], ga_score
+  [B, M, 1]), f32. For CUDA tensors it launches the kernel (or raises);
+  for CPU tensors it runs the plain version, ``reference_scann_forward``:
+  the eager model called functionally, with the same masks.
+  ``fused_scann_forward.launches`` counts kernel launches.
 - The gate is the kernel's own shared-memory plan (``shared_memory_plan``)
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
   (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
@@ -26,13 +29,19 @@ buffer.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from scann_tpu_torch.config import ModelConfig
+from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
 from scann_tpu_torch.models.scann import scann_forward
+from scann_tpu_torch.ops.dropout import (
+    DropoutMasks,
+    keep_scale,
+    keep_threshold,
+    make_dropout_masks,
+)
 from scann_tpu_torch.ops.rbf import make_centers
 
 REPLACES = "scann_tpu/kernels/scann_forward.py:222"  # _kernel
@@ -61,11 +70,40 @@ _LAYER_KEYS = (
 )
 
 
+def dropout_masks_for(cfm: ModelConfig, inputs: Dict[str, torch.Tensor], dropout_rate: float,
+                      seed: int, mol_base: int = 0) -> Optional[DropoutMasks]:
+    """The masks the kernels draw for this batch (None at rate 0)."""
+    if dropout_rate <= 0.0:
+        return None
+    B, M = inputs["atomic"].shape[:2]
+    N = inputs["neighbors"].shape[2]
+    return make_dropout_masks(seed, mol_base, B, M, N, cfm.local_dim, cfm.num_head,
+                              cfm.n_attention, dropout_rate,
+                              attn_dropout_rate(cfm, dropout_rate),
+                              device=inputs["atomic"].device)
+
+
 def reference_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
-                            cfm: ModelConfig, mrelu_head: bool = False
+                            cfm: ModelConfig, mrelu_head: bool = False,
+                            dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: the eager model, called functionally."""
-    return scann_forward(params, inputs, cfm, mrelu_head)
+    """The plain version: the eager model, called functionally, with the
+    kernels' dropout masks at a rate above 0."""
+    return scann_forward(params, inputs, cfm, mrelu_head,
+                         dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base))
+
+
+def rng_words(cfm: ModelConfig, dropout_rate: float, seed: int, mol_base: int):
+    """(flags [dropout, attention dropout], scales [2], words [seed,
+    mol_base, threshold, attention threshold]) the kernels take."""
+    attn = attn_dropout_rate(cfm, dropout_rate)
+    flags = [int(dropout_rate > 0.0), int(attn > 0.0)]
+    scales = [keep_scale(dropout_rate) if flags[0] else 1.0,
+              keep_scale(attn) if flags[1] else 1.0]
+    words = [int(seed) & 0xFFFFFFFF, int(mol_base) & 0xFFFFFFFF,
+             keep_threshold(dropout_rate) if flags[0] else 0,
+             keep_threshold(attn) if flags[1] else 0]
+    return flags, scales, words
 
 
 def stack_layer_params(params: Dict[str, torch.Tensor], n_layers: int,
@@ -206,18 +244,20 @@ def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
 
 
 def launch_scann_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
-                         cfm: ModelConfig, mrelu_head: bool = False
+                         cfm: ModelConfig, mrelu_head: bool = False,
+                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the kernel with ``pack_params`` output."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     _check_inputs(inputs, cfm, dev)
-    return _launch(packed, inputs, cfm, mrelu_head)
+    return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base)
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
-            cfm: ModelConfig, mrelu_head: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+            cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
+            seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``_check_inputs`` accepted."""
     from scann_tpu_torch.kernels._build import load_library
 
@@ -251,17 +291,19 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm.global_dim, cfm.dense_out, cfm.n_attention, 92,
             int(cgcnn), int(cfm.use_ring), int(cfm.g_update), int(cfm.use_ga_norm),
             int(mrelu_head), chunk_atoms, abuf]
-    hd = cfm.local_dim // cfm.num_head
-    dk = float(np.float32(hd) ** np.float32(-cfm.scale))
-    scalars = (ctypes.c_float * 2)(dk, RBF_WIDTH)
+    flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
+    dims += flags
+    scalars = (ctypes.c_float * 4)(attention_scale(cfm), RBF_WIDTH, *scales)
+    rng = (ctypes.c_uint32 * 4)(*words)
 
     lib = load_library("scann_forward")
     fn = lib.scann_forward_launch
-    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, (ctypes.c_int * len(dims))(*dims), scalars, ctypes.c_void_p(stream))
+        rc = fn(ptrs, (ctypes.c_int * len(dims))(*dims), scalars, rng,
+                ctypes.c_void_p(stream))
     if rc != 0:
         err = lib.scann_forward_error_string
         err.argtypes = [ctypes.c_int]
@@ -273,21 +315,30 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
 
 
 def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
-                        cfm: ModelConfig, mrelu_head: bool = False
+                        cfm: ModelConfig, mrelu_head: bool = False,
+                        dropout_rate: float = 0.0, seed: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole-model forward -> (property [B, 1], ga_score [B, M, 1]), f32.
+    """Whole-model forward -> (property [B, 1], ga_score [B, M, 1]), f32;
+    the training forward at ``dropout_rate`` > 0 (masks keyed on ``seed``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise (unsupported shape, bad input, failed build or launch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
-        return reference_scann_forward(params, inputs, cfm, mrelu_head)
+        return reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate, seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return launch_scann_forward(pack_params(params, cfm), inputs, cfm, mrelu_head)
+    return launch_scann_forward(pack_params(params, cfm), inputs, cfm, mrelu_head,
+                                dropout_rate, seed)
 
 
 fused_scann_forward.launches = 0
+
+
+def attention_scale(cfm: ModelConfig) -> float:
+    """The query scale hd ** -scale, in float32 as the eager model has it."""
+    hd = cfm.local_dim // cfm.num_head
+    return float(np.float32(hd) ** np.float32(-cfm.scale))
 
 
 def forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:

@@ -19,12 +19,15 @@ Inputs (one padded batch, see ``api.prepare_input``):
     neighbor_distance [B, M, N] float
     ring_aromatic     [B, M, 2] float (only when use_ring)
 
-``scann_forward`` is the deterministic forward as a plain function of
-(params, inputs); ``ScannModel`` wraps it as an ``nn.Module`` that owns its
-parameters. Dropout and structure packing are not ported yet.
+``scann_forward`` is the forward as a plain function of (params, inputs):
+deterministic, or the training forward when it is handed the dropout masks
+of ``ops.dropout.make_dropout_masks`` (embedding and residual dropout, and
+the attention dropout of ``use_drop``). ``ScannModel`` wraps it as an
+``nn.Module`` that owns its parameters. ``l2_penalty`` is the reference's
+kernel regularisation. Structure packing is not ported yet.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ from scann_tpu_torch.ops.attention import (
     global_attention_core,
     local_attention_core,
 )
+from scann_tpu_torch.ops.dropout import DropoutMasks
 from scann_tpu_torch.ops.rbf import gaussian_expansion, make_centers
 
 Params = Dict[str, torch.Tensor]
@@ -125,11 +129,13 @@ def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def local_attention(params: Params, name: str, centers, neighbor_idx,
-                    geometry, neighbor_mask, neighbor_weight, cfm: ModelConfig):
+                    geometry, neighbor_mask, neighbor_weight, cfm: ModelConfig,
+                    attn_mask: Optional[torch.Tensor] = None):
     """One LocalAttention layer -> (out [B,M,D], geometry for the next
     layer). SCANN+ updates the geometry from [center | geometry | neighbor]
     as three partial products; SCANN filters the distance RBF and scales
-    it by the solid angle."""
+    it by the solid angle. ``attn_mask`` [B, M, N, H] is the attention
+    dropout mask (training under ``use_drop``)."""
     D = centers.shape[-1]
     ns = gather_neighbor_states(centers, neighbor_idx)
     w = params[f"{name}/filter_geo/kernel"]
@@ -148,25 +154,36 @@ def local_attention(params: Params, name: str, centers, neighbor_idx,
 
     key = _dense(params, f"{name}/key", ns * geo_term)
     query = _dense(params, f"{name}/query", centers)
-    _, ctx = local_attention_core(query, key, key, neighbor_mask,
-                                  num_head=cfm.num_head, scale=cfm.scale)
+    _, ctx = local_attention_core(
+        query, key, key, neighbor_mask, num_head=cfm.num_head, scale=cfm.scale,
+        dropout_mask=None if attn_mask is None else attn_mask.permute(0, 3, 1, 2))
     out = _layer_norm(ctx + query, params[f"{name}/layer_norm/scale"],
                       params[f"{name}/layer_norm/bias"])
     return out, geometry
 
 
-def residual_norm(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    """Post-attention FFN block with a residual and a LayerNorm."""
+def residual_norm(params: Params, name: str, x: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Post-attention FFN block with a residual and a LayerNorm; ``mask``
+    is its training dropout on the FFN output (reference ``:54-62``)."""
     h = swish(_dense(params, f"{name}/dense_1", x))
     h = _dense(params, f"{name}/dense_2", h)
+    if mask is not None:
+        h = h * mask
     return _layer_norm(x + h, params[f"{name}/layer_norm/scale"],
                        params[f"{name}/layer_norm/bias"])
 
 
 def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
-                  cfm: ModelConfig, mrelu_head: bool = False
+                  cfm: ModelConfig, mrelu_head: bool = False,
+                  masks: Optional[DropoutMasks] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]), f32."""
+    """Forward -> (property [B, 1], ga_score [B, M, 1]), f32.
+
+    Deterministic without ``masks``; with them, the training forward:
+    dropout on the embedding (reference ``scann.py:228``), on each
+    ResidualNorm's FFN output, and (``masks.attn``) on the attention
+    probabilities."""
     if cfm.dtype != "float32":
         raise NotImplementedError(
             f"model.dtype={cfm.dtype!r}: the port computes in float32 only")
@@ -189,6 +206,8 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
         ring = _dense(p, "extra_embed", inputs["ring_aromatic"].float())
         centers = torch.cat([centers, ring], dim=-1)
     centers = swish(_dense(p, "dense_embed", centers))
+    if masks is not None:
+        centers = centers * masks.embed
 
     dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev)
     dist_rbf = gaussian_expansion(neighbor_distance, dist_c)
@@ -202,11 +221,13 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
         geometry = dist_rbf
 
     for i in range(cfm.n_attention):
+        attn_mask = None if masks is None or masks.attn is None else masks.attn[i]
         centers, geometry = local_attention(
             p, f"local_attention_{i}", centers, neighbor_idx, geometry,
-            neighbor_mask, neighbor_weight, cfm)
+            neighbor_mask, neighbor_weight, cfm, attn_mask)
         if cfm.use_attn_norm:
-            centers = residual_norm(p, f"residual_norm_{i}", centers)
+            centers = residual_norm(p, f"residual_norm_{i}", centers,
+                                    None if masks is None else masks.layers[i])
 
     centers = swish(_dense(p, "after_Lc", centers))
     gq = _dense(p, "global_attention/query", centers)
@@ -218,6 +239,33 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
     if mrelu_head:
         out = mrelu(out)
     return out, ga_score
+
+
+# --- L2 regularisation --------------------------------------------------------
+# The reference puts Keras l2(1e-4) kernel regularizers on the q/k/v and
+# filter_geo projections of every attention layer, both ResidualNorm Dense
+# layers, the GA query/key, after_Lc and bf_property, but NOT on embed_atom,
+# dense_embed, neighbor_d, neighbor_w, extra_embed or predict_property
+# (``scann_tpu/models/scann.py:312-337``).
+
+_REGULARIZED_LAYERS = ("query", "key", "value", "filter_geo", "dense_1", "dense_2",
+                       "after_Lc", "bf_property")
+
+
+def regularized_keys(params: Params) -> List[str]:
+    """The kernels the l2 penalty applies to, in the params' order."""
+    out = []
+    for k in params:
+        parts = k.split("/")
+        if parts[-1] == "kernel" and any(q in _REGULARIZED_LAYERS for q in parts[:-1]):
+            out.append(k)
+    return out
+
+
+def l2_penalty(params: Params, coeff: float = 1e-4) -> torch.Tensor:
+    """Sum of the l2(coeff) kernel penalties at the reference placement."""
+    keys = regularized_keys(params)
+    return coeff * sum(torch.sum(params[k].float() ** 2) for k in keys)
 
 
 class ScannModel(nn.Module):

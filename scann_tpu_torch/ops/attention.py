@@ -13,7 +13,7 @@
 Packed segments (several structures per padded slot) are not ported yet.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,12 +34,16 @@ def local_attention_core(
     mask: torch.Tensor,    # [B, M, N]    float valid-neighbor mask
     num_head: int,
     scale: float = 0.5,
+    dropout_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked multi-head attention over the neighbor axis.
 
     Returns (attn [B, H, M, N], context [B, M, D]); the context is the
     masked neighbor sum of attn-weighted values, before the +query residual
-    and the LayerNorm.
+    and the LayerNorm. ``dropout_mask`` [B, H, M, N] (0 or 1/keep, the
+    training ``use_drop`` attention dropout) scales the probabilities the
+    context uses; the returned attn is the one before dropout, as in
+    ``scann_tpu/ops/attention.py:92-100``.
     """
     B, M, D = query.shape
     N = key.shape[2]
@@ -55,8 +59,9 @@ def local_attention_core(
     energy = torch.einsum("bmhd,bmnhd->bhmn", q, k)
     energy = energy + (1.0 - mask[:, None, :, :]) * -1e9
     attn = torch.softmax(energy, dim=-1)
+    attn_used = attn if dropout_mask is None else attn * dropout_mask
 
-    context = torch.einsum("bhmn,bmn,bmnhd->bmhd", attn, mask, v)
+    context = torch.einsum("bhmn,bmn,bmnhd->bmhd", attn_used, mask, v)
     return attn, context.reshape(B, M, D)
 
 

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: importing it (and its API, serving and
-CLI modules) in a fresh interpreter loads neither JAX nor any module of the
-JAX package ``scann_tpu``, and needs neither yaml nor h5py."""
+"""The PyTorch port stands alone: importing it (and its API, training,
+serving and CLI modules) in a fresh interpreter loads neither JAX nor any
+module of the JAX package ``scann_tpu``, and needs neither yaml nor h5py."""
 
 import json
 import os
@@ -27,7 +27,14 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
     mods = _modules_after(
         "import scann_tpu_torch, scann_tpu_torch.api, scann_tpu_torch.serve\n"
         "import scann_tpu_torch.cli.serve, scann_tpu_torch.cli.predict_files\n"
-        "import scann_tpu_torch.compat, scann_tpu_torch.kernels.scann_forward")
+        "import scann_tpu_torch.compat, scann_tpu_torch.kernels.scann_forward\n"
+        "import scann_tpu_torch.kernels.scann_backward, scann_tpu_torch.ops.dropout\n"
+        "import scann_tpu_torch.train.loop, scann_tpu_torch.train.schedules\n"
+        "import scann_tpu_torch.data.pipeline, scann_tpu_torch.data.synthetic\n"
+        "import scann_tpu_torch.data.featurize\n"
+        "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model\n"
+        "import scann_tpu_torch.tools.profile_backward")
+    assert "scann_tpu_torch.train.loop" in mods
     assert "scann_tpu_torch.api" in mods
     leaked = [m for m in mods
               if m in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py")
