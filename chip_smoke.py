@@ -16,10 +16,12 @@ embedding 48; random weights from a seed):
    GA cotangent) and the forward kernel with dropout against their plain
    versions on the same Philox masks;
 5. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
-   (the training path) on ~1000 synthetic QM9-like molecules in one M=32
-   bucket, checks the launches, the falling loss (per epoch, and over the
-   training set without dropout), 3 kernel steps against 3 plain steps and
-   ``load_model_infer``.
+   (the training path) on ~1000 synthetic QM9-like molecules in the
+   flagship recipe's two buckets; checks the launches, that each pass over
+   a bucket lowers that bucket's loss without dropout, that the same run
+   with the plain step gives the same losses, 3 kernel steps against 3
+   plain steps and ``load_model_infer``; then trains 2 epochs in one
+   bucket and checks that the epoch loss and the training-set loss fall.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, then one ``{"kernels": [...]}`` line and, last,
@@ -31,7 +33,8 @@ kernel sums its FP32 products in another order than cuBLAS (TF32 off) and
 carries the difference through 7 LayerNormed layers. Backward: pred as the
 forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
 up to 65,536 rows run in another order. Training: 3-step losses to 1e-4
-relative.
+relative; the two-epoch runs' losses to 1e-3 relative, since Adam carries
+the FP32 differences through 16 steps.
 """
 
 import json
@@ -49,6 +52,7 @@ import torch
 RTOL, ATOL = 1e-4, 1e-5
 GRAD_RTOL = 1e-4             # of each gradient's max |plain|
 LOSS_RTOL = 1e-4
+TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
 H100_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 
@@ -161,6 +165,7 @@ def time_backward(cfm, params, packed, inputs, card):
     plain_ms = cuda_ms(lambda: kbwd.reference_fused_scann_train_grads(
         params, inputs, y, cfm, False, 0.1, 7), reps=10)
     flops = kbwd.backward_flops(cfm, B, M, N)
+    recompute = kbwd.recompute_flops(cfm, B, M, N)
     _, P = kbwd.grad_layout(packed)
     nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
@@ -172,7 +177,11 @@ def time_backward(cfm, params, packed, inputs, card):
           f"reduction): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, "
           f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
           f"[{card}]", flush=True)
+    print(f"scann_backward: the kernel's schedule adds {recompute:.4e} FLOP of recompute "
+          f"({1e3 * recompute / H100_FP32_FLOPS:.4f} ms at the FP32 peak), which the bound "
+          f"does not count", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "flops": flops,
+            "recompute_flops": recompute,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -256,21 +265,57 @@ def check_backward(label, cfm, p, x, y, ctp, ctg, mrelu, rate, err, failures):
     print("  ".join(line), flush=True)
 
 
-def train_set_loss(scann):
-    """RMSE + l2 of the current weights over the training buckets, without
-    dropout (the forward kernel)."""
+def bucket_losses(trainer, buckets):
+    """RMSE + l2 of the trainer's current weights on each bucket, without
+    dropout (the forward kernel). The launch counters and the trainer's
+    counting wrapper are left as they were."""
+    from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.models.scann import l2_penalty
 
-    trainer = scann.trainer
-    dev = trainer._put_buckets(scann.train_buckets, "train")
-    _, _, pred, y = trainer._evaluate_buckets(scann.train_buckets, dev)
-    return (float(np.sqrt(np.mean((pred - y) ** 2)))
-            + float(l2_penalty(trainer.params, scann.config.hyper.l2_reg)))
+    saved = kfwd.fused_scann_forward.launches
+    wrapper = trainer.__dict__.pop("forward_eval", None)
+    l2 = float(l2_penalty(trainer.params, trainer.config.hyper.l2_reg))
+    out = []
+    for b, dev in zip(buckets, trainer._put_buckets(buckets, "train")):
+        _, _, pred, y = trainer._evaluate_buckets([b], [dev])
+        out.append(float(np.sqrt(np.mean((pred - y) ** 2))) + l2)
+    if wrapper is not None:
+        trainer.forward_eval = wrapper
+    kfwd.fused_scann_forward.launches = saved
+    return out
+
+
+def trace_passes(trainer, buckets):
+    """Record every bucket's loss without dropout as each pass over one
+    bucket begins (``epoch_plan`` is called once per pass); returns the
+    list of (epoch, bucket, losses) it fills."""
+    passes, plan = [], trainer.epoch_plan
+
+    def traced(epoch, bucket, n_rows, batch_size):
+        passes.append((epoch, bucket, bucket_losses(trainer, buckets)))
+        return plan(epoch, bucket, n_rows, batch_size)
+
+    trainer.epoch_plan = traced
+    return passes
+
+
+def check_passes(label, passes, final, failures):
+    """Each pass over a bucket lowers that bucket's loss without dropout;
+    prints what every pass did to every bucket."""
+    ends = [p[2] for p in passes[1:]] + [final]
+    for (epoch, bucket, before), after in zip(passes, ends):
+        moves = ", ".join(f"bucket {j} {x:.6f} -> {y:.6f}"
+                          for j, (x, y) in enumerate(zip(before, after)))
+        print(f"phase 5 {label}: epoch {epoch} pass over bucket {bucket}: {moves}", flush=True)
+        if not (np.isfinite(after[bucket]) and after[bucket] < before[bucket]):
+            failures.append(f"{label}: the pass over bucket {bucket} in epoch {epoch} did not "
+                            f"lower its loss: {before[bucket]} -> {after[bucket]}")
 
 
 def phase5(qm9_model, failures, card):
     """Train 2 epochs through Scann at QM9 width on synthetic QM9-like
-    molecules; returns the backward kernel's launches in that run."""
+    molecules, in the flagship recipe's two buckets (the main path, whose
+    launches it returns), again with the plain step, and in one bucket."""
     import tempfile
 
     from scann_tpu_torch.api import Scann
@@ -280,6 +325,15 @@ def phase5(qm9_model, failures, card):
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.train.loop import Trainer
 
+    class PlainTrainer(Trainer):
+        """The same Trainer with the backward kernel's plain version."""
+
+        def raw_grads(self, batch, y, seed):
+            pred, raw = kbwd.reference_fused_scann_train_grads(
+                self.params, batch, y, self.config.model, self.mrelu_head,
+                self.dropout_rate, seed)
+            return pred[:, 0], raw
+
     work = tempfile.mkdtemp(prefix="scann_chip_smoke_")
     t0 = time.time()
     n_mol = 1000
@@ -287,20 +341,26 @@ def phase5(qm9_model, failures, card):
                                          max_atoms=29, seed=0)
     print(f"phase 5: {n_mol} synthetic molecules (5-29 atoms of H, C, N, O, F) written and "
           f"featurized on the host in {time.time() - t0:.1f} s", flush=True)
-    cfg = ScannConfig(model=qm9_model,
-                      hyper=HyperConfig(batch_size=128, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
-                                        data_energy_path=energy, data_nei_path=nbr,
-                                        save_path=os.path.join(work, "run"), epochs=2, seed=0),
-                      tpu=TpuConfig(max_buckets=1))
+
+    def config(name, max_buckets):
+        return ScannConfig(model=qm9_model,
+                           hyper=HyperConfig(batch_size=128, scheduler="sgdr", lr=5e-4,
+                                             min_lr=1e-4, data_energy_path=energy,
+                                             data_nei_path=nbr, epochs=2, seed=0,
+                                             save_path=os.path.join(work, name)),
+                           tpu=TpuConfig(max_buckets=max_buckets))
+
+    # ---- the main path: the flagship recipe's buckets (max_buckets: 2) ----
+    cfg = config("run", 2)
     scann = Scann(cfg, device="cuda")
     scann.prepare_dataset()
-    shapes = [b.shape for b in scann.train_buckets]
-    steps = 2 * sum(-(-b.num_structures // 128) for b in scann.train_buckets)
+    buckets = scann.train_buckets
+    steps = 2 * sum(-(-b.num_structures // 128) for b in buckets)
     eval_batches = (2 * sum(-(-b.num_structures // 128) for b in scann.valid_buckets)
                     + sum(-(-b.num_structures // 128) for b in scann.test_buckets))
     trainer = scann.trainer
     scann.init_params(cfg.hyper.seed)              # what fit() would draw
-    loss_before = train_set_loss(scann)
+    passes = trace_passes(trainer, buckets)
     step_ms, fwd_calls = [], [0]
     train_step, forward_eval = trainer.train_step, trainer.forward_eval
 
@@ -321,44 +381,50 @@ def phase5(qm9_model, failures, card):
     kfwd.fused_scann_forward.launches = 0
     t1 = time.time()
     hist = scann.train()
+    final = bucket_losses(trainer, buckets)        # before evaluate() restores "best"
     result = scann.evaluate()
     torch.cuda.synchronize()
     bwd_launches = kbwd.launch_scann_backward.launches
     fwd_launches = kfwd.fused_scann_forward.launches
-    trainer.train_step, trainer.forward_eval = train_step, forward_eval
-    loss_after = train_set_loss(scann)
+    del trainer.train_step, trainer.forward_eval, trainer.epoch_plan
     med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
-    n_train = sum(b.num_structures for b in scann.train_buckets)
-    print(f"phase 5: buckets {shapes}, {len(step_ms)} steps in {time.time() - t1:.1f} s, "
-          f"losses {hist['loss']}, val_mae {hist['val_mae']}, test {result}", flush=True)
+    n_train = sum(b.num_structures for b in buckets)
+    print(f"phase 5: buckets {[(b.shape, b.num_structures) for b in buckets]}, "
+          f"{len(step_ms)} steps in {time.time() - t1:.1f} s, losses {hist['loss']}, "
+          f"val_mae {hist['val_mae']}, test {result}", flush=True)
     print(f"phase 5: median train step {med:.4f} ms (CUDA events), epoch 2 "
-          f"{n_train / hist['epoch_time'][1]:.1f} structures/s; backward launches "
+          f"{n_train / hist['epoch_time'][1]:.1f} structures/s (the per-pass probes "
+          f"included); backward launches "
           f"{bwd_launches} for {steps} steps, forward launches {fwd_launches} for "
           f"{eval_batches} eval batches  [{card}]", flush=True)
-    # One M=32 bucket: an epoch trains its buckets one after the other (as the
-    # JAX Trainer does), and the synthetic target grows with molecule size, so
-    # with two buckets every switch swings the predictions and two epochs are
-    # too few for the epoch loss to show the trend.
-    print(f"phase 5: training-set loss without dropout {loss_before:.6f} before the first "
-          f"epoch, {loss_after:.6f} after the last", flush=True)
-    if not (all(np.isfinite(hist["loss"])) and hist["loss"][-1] < hist["loss"][0]
-            and np.isfinite(loss_after) and loss_after < loss_before):
-        failures.append(f"training loss not finite and falling: epochs {hist['loss']}, "
-                        f"training set without dropout {loss_before} -> {loss_after}")
+    if not all(np.isfinite(hist["loss"])):
+        failures.append(f"training loss not finite: {hist['loss']}")
+    # An epoch trains its buckets one after the other (as the JAX Trainer
+    # does), so the loss that falls is that of the bucket being trained.
+    check_passes("kernel", passes, final, failures)
     if bwd_launches != steps or len(step_ms) != steps:
         failures.append(f"backward launches {bwd_launches} != training steps {steps}")
     if fwd_launches != eval_batches or fwd_calls[0] != eval_batches:
         failures.append(f"forward launches {fwd_launches} != eval batches {eval_batches}")
 
-    # 3 steps through the kernel against 3 through the plain step
-    class PlainTrainer(Trainer):
-        def raw_grads(self, batch, y, seed):
-            pred, raw = kbwd.reference_fused_scann_train_grads(
-                self.params, batch, y, self.config.model, self.mrelu_head,
-                self.dropout_rate, seed)
-            return pred[:, 0], raw
+    # ---- the same run with the plain step: the same losses -------------------
+    plain = PlainTrainer(cfg, "cuda", os.path.join(work, "plain"))
+    plain.init_state(cfg.hyper.seed)
+    plain_passes = trace_passes(plain, buckets)
+    plain_hist = plain.fit(buckets, scann.valid_buckets, log_fn=lambda *_: None)
+    plain_final = bucket_losses(plain, buckets)
+    check_passes("plain", plain_passes, plain_final, failures)
+    mine = hist["loss"] + [x for p in passes for x in p[2]] + final
+    ref = plain_hist["loss"] + [x for p in plain_passes for x in p[2]] + plain_final
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mine, ref))
+    print(f"phase 5: the plain step's run: losses {plain_hist['loss']}; its epoch and "
+          f"per-pass losses against the kernel's: max rel {rel:.3e} (limit "
+          f"{TRAIN_RTOL})", flush=True)
+    if len(mine) != len(ref) or not rel <= TRAIN_RTOL:
+        failures.append(f"kernel and plain two-epoch runs differ: {rel:.3e}")
 
-    b = scann.train_buckets[-1]
+    # 3 steps through the kernel against 3 through the plain step
+    b = buckets[-1]
     losses = []
     for cls in (Trainer, PlainTrainer):
         t = cls(cfg, "cuda", os.path.join(work, cls.__name__))
@@ -387,6 +453,23 @@ def phase5(qm9_model, failures, card):
           f"{d:.3e} from the trainer's predictions", flush=True)
     if not (np.isfinite(p_loaded).all() and d <= ATOL + RTOL * np.abs(p_trained).max()):
         failures.append(f"load_model_infer predictions differ by {d:.3e}")
+
+    # ---- one bucket: the epoch loss and the training-set loss fall -----------
+    one = Scann(config("one", 1), device="cuda")
+    one.prepare_dataset()
+    one.init_params(0)
+    before = bucket_losses(one.trainer, one.train_buckets)
+    one_hist = one.train()
+    after = bucket_losses(one.trainer, one.train_buckets)
+    n_one = sum(b.num_structures for b in one.train_buckets)
+    print(f"phase 5 one bucket {[b.shape for b in one.train_buckets]}: epoch losses "
+          f"{one_hist['loss']}, training-set loss without dropout {before[0]:.6f} -> "
+          f"{after[0]:.6f}, epoch 2 {n_one / one_hist['epoch_time'][1]:.1f} structures/s  "
+          f"[{card}]", flush=True)
+    if not (all(np.isfinite(one_hist["loss"])) and one_hist["loss"][-1] < one_hist["loss"][0]
+            and np.isfinite(after[0]) and after[0] < before[0]):
+        failures.append(f"one-bucket training loss not finite and falling: epochs "
+                        f"{one_hist['loss']}, training set without dropout {before} -> {after}")
     return bwd_launches
 
 
@@ -603,6 +686,7 @@ def main():
         "max_abs_err": bwd_err["backward"], "ms": bwd_time["ms"],
         "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
         "bound_by": bwd_time["bound_by"], "library_ms": None, "flops": bwd_time["flops"],
+        "recompute_flops": bwd_time["recompute_flops"],
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,12 +16,14 @@
 // then the embedding (one-hot, cgcnn, ring) and the SCANN+ neighbor_d /
 // neighbor_w geometry embedding.
 //
-// Bound. backward_flops (kernels/scann_backward.py) counts 2.0e11 FLOP of
-// FP32 FMA per QM9 training batch (B=128, M=32, N=16, L=7, D=128): the
-// forward, each layer's rows recomputed once more, and two products for
-// each forward product. At the H100 SXM's 67 TFLOP/s FP32 that is ~3.0 ms,
-// above the ~0.3 ms the per-molecule gradient rows take to write and read
-// at HBM rate, so the kernel is bound by operations.
+// Bound. backward_flops (kernels/scann_backward.py) counts the 1.50e11
+// FLOP of FP32 FMA that the function needs per QM9 training batch (B=128,
+// M=32, N=16, L=7, D=128): the forward, and the weight and input gradients
+// of each forward product (no input gradient where the input is data). At
+// the H100 SXM's 67 TFLOP/s FP32 that is ~2.24 ms, above the time the
+// inputs, weights and gradients take to move at HBM rate, so the bound is
+// set by operations. This schedule's recompute adds 5.0e10 FLOP
+// (recompute_flops), which the bound does not count.
 //
 // Design.
 // - No sequential grid. The TPU adds every program's gradients into the
@@ -65,33 +67,6 @@ namespace {
 using namespace scann;
 
 constexpr int kMaxChunkRows = 32;
-
-// Phase timer for scann_tpu_torch/tools/profile_backward.py. Built with
-// -DSCANN_PROFILE, thread 0 of each block adds the clock64() cycles since
-// the previous mark to the phase that just ended (every mark follows a
-// barrier, so the block has finished that phase); without it PHASE()
-// compiles to nothing.
-enum Phase {
-  pForward, pReadout, pLayerAtoms, pStage, pRowRecompute, pAttention, pKeyGrad,
-  pKeyInputGrad, pGeometryNorm, pFilterGrad, pScatter, pLayerTail, pEmbedding,
-  pGeometryEmbedding, kNumPhases
-};
-constexpr int kProfiledBlocks = 1024;
-#ifdef SCANN_PROFILE
-__device__ long long g_phase_cycles[kProfiledBlocks * kNumPhases];
-#define PHASE(p)                                   \
-  do {                                             \
-    if (threadIdx.x == 0) {                        \
-      const long long now_ = clock64();            \
-      phase_cycles[p] += now_ - phase_start;       \
-      phase_start = now_;                          \
-    }                                              \
-  } while (0)
-#else
-#define PHASE(p) \
-  do {           \
-  } while (0)
-#endif
 
 enum GradIndex {
   gEMBED, gBEMBED, gWRING, gBRING, gWDE, gBDE, gWND, gBND, gWNW, gBNW,
@@ -360,10 +335,6 @@ scann_backward_kernel(const Args a) {
   const int lda = 2 * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned int mol = a.mol_base + (unsigned int)b;
-#ifdef SCANN_PROFILE
-  long long phase_cycles[kNumPhases] = {};
-  long long phase_start = clock64();
-#endif
 
   // per-atom buffers, live for the whole walk
   float* sC = smem;                  // layer input centers        [M, wd]
@@ -681,7 +652,6 @@ scann_backward_kernel(const Args a) {
     }
     __syncthreads();
   }
-  PHASE(pForward);
 
   // ======================= readout: forward and backward ====================
   {
@@ -860,7 +830,6 @@ scann_backward_kernel(const Args a) {
     });
     __syncthreads();
   }
-  PHASE(pReadout);
 
   // ======================= reverse walk over the layers =====================
   zero(sPart, kWarps * 2 * wd);
@@ -999,16 +968,12 @@ scann_backward_kernel(const Args a) {
     zero(sAcc, 4 * wd);
     __syncthreads();
 
-    PHASE(pLayerAtoms);
-
     // ---- the (atom, neighbour) rows, chunk by chunk ------------------------
     int ci = 0;
     for (int m0 = 0; m0 < M; m0 += CA, ++ci) {
       const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
       stage_chunk(l, m0, rows);
-      PHASE(pStage);
       row_forward(l, m0, ca, false);
-      PHASE(pRowRecompute);
       // d attn = mask * nmask * sum_{d in head} d ctx * key
       for (int i = tid; i < rows * H; i += kThreads) {
         const int r = i / H, h = i - r * H;
@@ -1046,15 +1011,12 @@ scann_backward_kernel(const Args a) {
         sDQ[m * wd + d] = dctx + ex * a.dk;
       }
       __syncthreads();
-      PHASE(pAttention);
       // key = kin @ Wk + bk
       gemm_tA(sV, D, sW, D, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0);
       column_sums(sW, D, rows, D, sAcc, true);
       __syncthreads();
-      PHASE(pKeyGrad);
       tile_gemm_tB(sW, D, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * D + c, v); });
       __syncthreads();
-      PHASE(pKeyInputGrad);
       if (a.g_update) {
         // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
         const float* gs = a.lng_s + (size_t)l * D;
@@ -1101,7 +1063,6 @@ scann_backward_kernel(const Args a) {
         }
       }
       __syncthreads();
-      PHASE(pGeometryNorm);
       if (a.g_update) {
         gemm_tA(sA, lda, sU, D, rows, 2 * D, D, grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D,
                 D, ci > 0);
@@ -1126,12 +1087,10 @@ scann_backward_kernel(const Args a) {
       }
       column_sums(sU, D, rows, D, sAcc + wd, true);
       __syncthreads();
-      PHASE(pFilterGrad);
       // the gather's transpose: d centers[idx] += d ns, in row order
       for (int d = tid; d < D; d += kThreads)
         for (int r = 0; r < rows; ++r) sDCN[nbr[base + r] * wd + d] += sV[r * D + d];
       __syncthreads();
-      PHASE(pScatter);
     }
 
     // ---- per-atom gradients of the layer -----------------------------------
@@ -1158,7 +1117,6 @@ scann_backward_kernel(const Args a) {
     float* t = sDC;
     sDC = sDCN;
     sDCN = t;
-    PHASE(pLayerTail);
   }
 
   // ======================= embedding backward ===============================
@@ -1208,7 +1166,6 @@ scann_backward_kernel(const Args a) {
     }
     __syncthreads();
   }
-  PHASE(pEmbedding);
 
   // ======================= SCANN+ geometry embedding backward ===============
   if (a.g_update) {
@@ -1245,11 +1202,6 @@ scann_backward_kernel(const Args a) {
       __syncthreads();
     }
   }
-  PHASE(pGeometryEmbedding);
-#ifdef SCANN_PROFILE
-  if (threadIdx.x == 0 && b < kProfiledBlocks)
-    for (int i = 0; i < kNumPhases; ++i) g_phase_cycles[b * kNumPhases + i] = phase_cycles[i];
-#endif
 }
 
 // out[p] = sum_b rows[b * P + p], b in order: the batch's gradients, the
@@ -1344,14 +1296,6 @@ extern "C" int scann_backward_launch(void* const* ptrs, const int* dims, const f
   scann_reduce_rows<<<(int)blocks, kThreads, 0, s>>>(a.grad_rows, a.B, a.P, out);
   return (int)cudaGetLastError();
 }
-
-#ifdef SCANN_PROFILE
-// The phase cycles of the last launch's first min(B, 1024) blocks, [blocks, kNumPhases].
-extern "C" int scann_backward_phase_cycles(long long* host, int blocks) {
-  return (int)cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(long long) * kNumPhases *
-                                                             (blocks < kProfiledBlocks ? blocks : kProfiledBlocks));
-}
-#endif
 
 extern "C" const char* scann_backward_error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";

@@ -28,7 +28,8 @@ the backward kernel plus its row reduction).
 
 Packed batches (``segment_onehot``) raise NotImplementedError: structure
 packing is not ported yet. Bound and design are in the source note of
-``csrc/scann_backward.cu``; ``backward_flops`` counts its products.
+``csrc/scann_backward.cu``; ``backward_flops`` counts the products the
+function needs, ``recompute_flops`` those the kernel's schedule adds.
 """
 
 from __future__ import annotations
@@ -371,33 +372,40 @@ def scann_apply(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor]
 
 
 def backward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
-    """Multiply-add FLOPs (2 per FMA) of one backward launch at one padded
-    batch, counted from the kernel's products: the forward
-    (``forward_flops``), the readout again with its backward, each layer's
-    per-atom and per-row products recomputed once with two products for
-    each of them, and the embedding's. Elementwise work, softmax and
-    LayerNorm are left out."""
+    """Multiply-add FLOPs (2 per FMA) that the function needs at one padded
+    batch, whatever the schedule: the forward (``forward_flops``) once,
+    and for each of its products the gradient of the weight and of the
+    input, except where the input is data (the cgcnn features, the RBF
+    expansion of the distances), which needs none. The kernel's bound is
+    computed from this count."""
+    D, K, E = cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim
+    R = M * N
+    mm = lambda rows, k, n: 2 * rows * k * n
+    f = 3 * forward_flops(cfm, 1, M, N)
+    if cfm.feature == "cgcnn":
+        f -= mm(M, CGCNN_FEATURES, E)
+    f -= (2 if cfm.g_update else cfm.n_attention) * mm(R, K, D)
+    return B * f
+
+
+def recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """FLOPs that the kernel's schedule adds to ``backward_flops`` at one
+    padded batch: the forward again in the reverse walk, except each
+    layer's context, which the stash keeps. Elementwise work, softmax and
+    LayerNorm are left out, as in ``forward_flops``."""
     D, K, E, G, O = (cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim,
                      cfm.global_dim, cfm.dense_out)
     R = M * N
-    ke = E + (10 if cfm.use_ring else 0)
     mm = lambda rows, k, n: 2 * rows * k * n
-    f = forward_flops(cfm, 1, M, N)
-    # readout: recompute, then d Wgq/Wgk, d cg, d Wal, d c, and the head
-    f += 3 * (mm(M, D, G) + 2 * mm(M, G, G) + mm(1, G, O)) + mm(M, G, D)
-    per_layer = 2 * mm(M, D, D)                        # ResidualNorm recompute
-    per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)   # query (and cw)
-    per_layer += 4 * mm(M, D, D)                       # d W1, d W2, d h1, d o1
-    rows_fwd = (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)
-    per_layer += rows_fwd + 2 * R * D                  # rows recompute, energies
-    per_layer += 3 * 2 * R * D                         # d attn, d key, d query
-    per_layer += 2 * mm(R, D, D)                       # d Wk, d key input
-    per_layer += 2 * mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)   # d Wfg, d geo, d ns
-    per_layer += (2 if cfm.g_update else 1) * 2 * mm(M, D, D)   # d Wq, d c (and cw)
+    f = mm(M, D, G) + 2 * mm(M, G, G) + 6 * M * G + mm(1, G, O) + 2 * O   # readout
+    per_layer = 2 * mm(M, D, D)                                   # ResidualNorm
+    per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)         # query (and cw)
+    per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
+    per_layer += 2 * R * D                                        # energies
     f += cfm.n_attention * per_layer
-    f += 3 * mm(M, ke, D)                              # embedding: recompute, d Wde, d emb
+    f += mm(M, E + (10 if cfm.use_ring else 0), D)                # embedding
     if cfm.feature == "cgcnn":
-        f += 2 * mm(M, CGCNN_FEATURES, E)
+        f += mm(M, CGCNN_FEATURES, E)
     if cfm.g_update:
-        f += 4 * mm(R, K, D)                           # geometry embedding again, d Wnd, d Wnw
+        f += 2 * mm(R, K, D)                                      # geometry embedding
     return B * f

@@ -266,10 +266,11 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             epoch_lr = sgdr.epoch_begin() if sgdr else 0.0
-            losses, maes = [], []
+            bucket_losses, bucket_maes = [], []
             for bi, (binputs, btargets) in enumerate(dev_train):
                 idx, seeds = self.epoch_plan(epoch, bi, btargets.shape[0], bs)
                 idx = idx.to(self.device)
+                losses, maes = [], []
                 for k in range(idx.shape[0]):
                     rows = idx[k]
                     batch = {name: v[rows] for name, v in binputs.items()}
@@ -278,8 +279,11 @@ class Trainer:
                     loss, mae = self.train_step(batch, btargets[rows], lr, seeds[k])
                     losses.append(loss)
                     maes.append(mae)
-            train_loss = float(torch.stack(losses).mean())
-            train_mae = float(torch.stack(maes).mean())
+                bucket_losses.append(torch.stack(losses).mean())
+                bucket_maes.append(torch.stack(maes).mean())
+            # the mean of the buckets' means, as the JAX loop reports it (loop.py:759-760)
+            train_loss = float(torch.stack(bucket_losses).mean())
+            train_mae = float(torch.stack(bucket_maes).mean())
             val_mae, val_r2, _, _ = self._evaluate_buckets(valid_buckets, dev_valid)
             dt = time.perf_counter() - t0
             lr_now = float(epoch_lr if sgdr else lr_fn(self.step))

@@ -32,8 +32,7 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
         "import scann_tpu_torch.train.loop, scann_tpu_torch.train.schedules\n"
         "import scann_tpu_torch.data.pipeline, scann_tpu_torch.data.synthetic\n"
         "import scann_tpu_torch.data.featurize\n"
-        "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model\n"
-        "import scann_tpu_torch.tools.profile_backward")
+        "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model")
     assert "scann_tpu_torch.train.loop" in mods
     assert "scann_tpu_torch.api" in mods
     leaked = [m for m in mods

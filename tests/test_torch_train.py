@@ -97,6 +97,14 @@ def test_torch_training_trajectory_matches_jax_step(rng):
         want.append(float(jloss))
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
+    # Adam hides the scale of the gradient from the loss: the weights and the
+    # moments after 20 steps must agree too, each tensor within 1e-4 x its max
+    assert opt.count == trainer.step == 20
+    for mine, ref in ((trainer.params, jparams), (trainer.mu, opt.mu), (trainer.nu, opt.nu)):
+        ref = params_from_jax(jax.device_get(ref), tcfg)
+        for k, r in ref.items():
+            torch.testing.assert_close(mine[k], r, rtol=0,
+                                       atol=1e-4 * float(r.abs().max()), msg=k)
 
 
 def _config(tmp_path, n=40, **hyper):
