@@ -3,9 +3,12 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``scann_tpu_torch/csrc`` (one
-nvcc per source, all at once) and, at the full width of the flagship QM9
-SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8 heads,
-embedding 48; random weights from a seed):
+nvcc per source, all at once). Phases 1-5 run at the full width of the
+flagship QM9 SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8
+heads, embedding 48), phases 6-8 at the full width of the crystal models
+(``configs/model_mp2018.yaml``: SCANN+, 9 layers, D=128, embedding 128,
+vocab 95; ``configs/model_ptgp.yaml``: SCANN with ring features, 11
+layers); random weights from seeds:
 
 1. holds the forward kernel against its plain PyTorch version;
 2. serves a few molecules over HTTP through ``PredictionServer`` (the
@@ -21,16 +24,31 @@ embedding 48; random weights from a seed):
    a bucket lowers that bucket's loss without dropout, that the same run
    with the plain step gives the same losses, 3 kernel steps against 3
    plain steps and ``load_model_infer``; then trains 2 epochs in one
-   bucket and checks that the epoch loss and the training-set loss fall.
+   bucket and checks that the epoch loss and the training-set loss fall;
+6. holds the crystal loop-forward kernel against its plain version: a small
+   matrix of configurations (two atom blocks, ragged counts, single atoms,
+   dropout 0 and 0.1 with attention dropout), then MP2018 (B=64, M=96,
+   N=32) and Pt/graphene (B=64, M=128, N=32) at full width, and times it;
+7. holds the per-layer LocalAttention kernel against its plain version
+   (out, geometry, attention; SCANN+ and SCANN) at one MP2018 layer and at
+   an M beyond the loop kernel's gate, the per-layer model against the
+   eager model for ``use_attn_norm: false``, and times it;
+8. serves synthetic periodic crystals of 20-90 sites, posted as CIF and as
+   JSON, and one of 200 sites that takes the per-layer route, through
+   ``PredictionServer`` on the MP2018 model (the crystal serving path);
+   checks every answer against the eager model and the launches of each
+   route against the batches that took it.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, then one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
-Tolerances. Forward: rtol 1e-4, atol 1e-5 on pred and GA scores: the
-kernel sums its FP32 products in another order than cuBLAS (TF32 off) and
-carries the difference through 7 LayerNormed layers. Backward: pred as the
+Tolerances. Forward (molecule and crystal kernels, per-layer kernel's out
+and geometry): rtol 1e-4, atol 1e-5: the kernels sum their FP32 products in
+another order than cuBLAS (TF32 off) and carry the difference through 7 to
+11 LayerNormed layers; the per-layer kernel's attention probabilities:
+rtol 1e-4, atol 1e-6. Backward: pred as the
 forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
 up to 65,536 rows run in another order. Training: 3-step losses to 1e-4
 relative; the two-epoch runs' losses to 1e-3 relative, since Adam carries
@@ -50,6 +68,7 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 1e-4, 1e-5
+ATTN_ATOL = 1e-6             # attention probabilities of the per-layer kernel
 GRAD_RTOL = 1e-4             # of each gradient's max |plain|
 LOSS_RTOL = 1e-4
 TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
@@ -473,6 +492,339 @@ def phase5(qm9_model, failures, card):
     return bwd_launches
 
 
+def bound_ms(flops, nbytes):
+    """(bound, "operations" | "bytes"): the larger of the FP32 time of the
+    products and the HBM time of one pass over inputs and outputs."""
+    ops_ms = 1e3 * flops / H100_FP32_FLOPS
+    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def tensor_bytes(*groups):
+    return sum(t.numel() * t.element_size() for g in groups for t in g if t is not None)
+
+
+def hold(label, named, failures):
+    """Print one line of max abs errors for (what, got, want, atol) and
+    record what falls outside rtol/atol; returns the largest error."""
+    line, worst = [label], 0.0
+    for what, got, want, atol in named:
+        diff = (got - want).abs()
+        ok = (bool((diff <= atol + RTOL * want.abs()).all())
+              and bool(torch.isfinite(got).all()))
+        ab = diff.max().item()
+        worst = max(worst, ab)
+        line.append(f"{what} {ab:.2e}")
+        if not ok:
+            failures.append(f"{label} {what}: max_abs {ab:.3e} outside rtol {RTOL} atol {atol}")
+    print("  ".join(line), flush=True)
+    return worst
+
+
+def crystal_models():
+    """configs/model_mp2018.yaml and configs/model_ptgp.yaml, model blocks."""
+    from scann_tpu_torch.config import ModelConfig
+
+    wide = dict(local_dim=128, num_head=8, global_dim=128, dense_out=128, scale=0.5,
+                use_attn_norm=True, use_ga_norm=True)
+    mp2018 = ModelConfig(n_atoms=95, embedding_dim=128, n_attention=9, use_ring=False,
+                         g_update=True, gaussian_d=6.0, **wide)
+    ptgp = ModelConfig(n_atoms=80, embedding_dim=48, n_attention=11, use_ring=True,
+                       g_update=False, gaussian_d=4.0, **wide)
+    return mp2018, ptgp
+
+
+def phase6(matrix, mp2018, ptgp, failures, card):
+    """The crystal loop-forward kernel against its plain version, then its
+    time at the MP2018 and Pt/graphene batch shapes. Returns (largest abs
+    error, timing of the MP2018 shape, the MP2018 inputs)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(6)
+    worst = 0.0
+
+    def compare(name, cfm, x, mrelu=False, rate=0.0):
+        nonlocal worst
+        p = init_params(cfm, torch.Generator().manual_seed(6), "cuda")
+        with torch.inference_mode():
+            pred, ga = kloop.loop_scann_forward(p, x, cfm, mrelu, rate, 11)
+            torch.cuda.synchronize()
+            pred0, ga0 = kloop.reference_loop_forward(p, x, cfm, mrelu, rate, 11)
+        B, M = x["atom_mask"].shape[:2]
+        worst = max(worst, hold(f"phase 6 {name} B={B} M={M} N={x['neighbors'].shape[2]} "
+                                f"dropout {rate}",
+                                [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)], failures))
+
+    cases = list(matrix) + [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
+                             False)]
+    for name, cfm, mrelu in cases:
+        # M=40: an atom block of 32 and one of 8; single-atom structures allowed
+        x = synthetic_batch(rng, 6, 40, 8, cfm.use_ring, cfm.feature == "cgcnn", min_atoms=1)
+        for rate in (0.0, 0.1):
+            compare(name, cfm, x, mrelu, rate)
+    compare("scann+ two atoms per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24))
+    lone = synthetic_batch(rng, 4, 72, 8)
+    lone["atom_mask"][0] = 0.0
+    lone["atom_mask"][0, 0] = 1.0
+    lone["neighbor_mask"][0] = 0.0
+    compare("scann+ one-atom structure", matrix[0][1], lone)
+    mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
+    compare("mp2018 full width", mp2018, mp_inputs)
+    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1)
+    ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
+                                  min_atoms=20)
+    compare("ptgp full width", ptgp, ptgp_inputs)
+    compare("mp2018 widest atom block of 16", mp2018,
+            synthetic_batch(rng, 4, 192, 32, n_atoms=mp2018.n_atoms, min_atoms=100))
+
+    timing = None
+    for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs)):
+        params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+        packed = kfwd.pack_params(params, cfm)
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        with torch.inference_mode():
+            kloop.check_supported(cfm, M, N, x)
+            kfwd._check_inputs(x, cfm, packed["wde"].device)
+            ms = cuda_ms(lambda: kloop._launch(packed, x, cfm, False))
+            plain_ms = cuda_ms(lambda: kloop.reference_loop_forward(params, x, cfm), reps=10)
+        flops = kloop.loop_forward_flops(cfm, B, M, N)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+        bound, by = bound_ms(flops, nbytes)
+        print(f"scann_loop at {name} B={B} M={M} N={N} L={cfm.n_attention}: kernel {ms:.4f} "
+              f"ms on {B} blocks of {torch.cuda.get_device_properties(0).multi_processor_count}"
+              f" SMs, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
+              f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  [{card}]",
+              flush=True)
+        if timing is None:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "flops": flops}
+            # one block per structure: does a batch of 64 leave SMs idle?
+            twice = {k: torch.cat([v, v]) for k, v in x.items()}
+            with torch.inference_mode():
+                ms2 = cuda_ms(lambda: kloop._launch(packed, twice, cfm, False))
+            print(f"scann_loop at {name} with the batch doubled to B={2 * B}: kernel {ms2:.4f} "
+                  f"ms, {ms2 / ms:.2f}x the time of B={B} for twice the work  [{card}]",
+                  flush=True)
+    print(f"phase 6: worst loop-forward abs error {worst:.3e}  [{card}]", flush=True)
+    return worst, timing
+
+
+def layer_inputs(rng, B, M, N, D, H, g_update, K=20):
+    """Seeded inputs and parameters of one LocalAttention layer, on the card."""
+    from scann_tpu_torch.kernels.local_attention import PARAM_KEYS
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    mask = (rng.uniform(size=(B, M, N)) > 0.25).astype(np.float32)
+    mask[..., 0] = 1.0
+    shapes = {"filter_geo/kernel": (3 * D if g_update else K, D), "key/kernel": (D, D),
+              "query/kernel": (D, D)}
+    params = {}
+    for key in PARAM_KEYS[: 10 if g_update else 8]:
+        shape = shapes.get(key, (D,))
+        params[key] = f32(rng.uniform(0.5, 1.5, size=shape) if key.endswith("scale")
+                          else 0.1 * rng.normal(size=shape))
+    return (f32(rng.normal(size=(B, M, D))),
+            torch.from_numpy(rng.integers(0, M, size=(B, M, N)).astype(np.int32)).cuda(),
+            f32(rng.normal(size=(B, M, N, D if g_update else K))), f32(mask),
+            f32(rng.uniform(0.3, 3.0, size=(B, M, N))), params, H, 0.5, g_update)
+
+
+def phase7(mp2018, failures, card):
+    """The per-layer LocalAttention kernel against its plain version, the
+    per-layer model against the eager model, and the kernel's time at one
+    MP2018 layer. Returns (largest abs error, timing)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.models.scann import init_params, scann_forward
+
+    rng = np.random.default_rng(7)
+    worst, timing = 0.0, None
+    D, H = mp2018.local_dim, mp2018.num_head
+    for g_update in (True, False):
+        # a ragged small layer, an M beyond the loop kernel's gate, one MP2018 layer
+        for B, M, N, d, h in ((3, 40, 8, 32, 4), (8, 256, 32, D, H), (64, 96, 32, D, H)):
+            args = layer_inputs(rng, B, M, N, d, h, g_update)
+            with torch.inference_mode():
+                out, geo, attn = kla.fused_local_attention(*args)
+                torch.cuda.synchronize()
+                out0, geo0, attn0 = kla.reference_local_attention(*args)
+            named = [("out", out, out0, ATOL), ("attn", attn, attn0, ATTN_ATOL)]
+            if g_update:
+                named.append(("geometry", geo, geo0, ATOL))
+            worst = max(worst, hold(f"phase 7 layer {'scann+' if g_update else 'scann'} B={B} "
+                                    f"M={M} N={N} D={d}", named, failures))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: kla._launch(*args))
+            plain_ms = cuda_ms(lambda: kla.reference_local_attention(*args))
+        centers, idx, geometry, mask, weight, params = args[:6]
+        flops = kla.layer_flops(B, M, N, D, g_update)
+        nbytes = (tensor_bytes([centers, idx, geometry, mask, None if g_update else weight],
+                               params.values())
+                  + 4 * (centers.numel() + B * M * N * H
+                         + (geometry.numel() if g_update else 0)))
+        bound, by = bound_ms(flops, nbytes)
+        print(f"local_attention ({'scann+' if g_update else 'scann'}) at B={B} M={M} N={N} "
+              f"D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} "
+              f"bytes, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  "
+              f"[{card}]", flush=True)
+        if g_update:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "flops": flops}
+
+    # the per-layer model (what use_attn_norm: false and oversize structures run)
+    for g_update in (True, False):
+        cfm = dataclasses.replace(mp2018, use_attn_norm=False, n_attention=3, g_update=g_update)
+        x = synthetic_batch(rng, 8, 96, 32, n_atoms=cfm.n_atoms, min_atoms=20)
+        p = init_params(cfm, torch.Generator().manual_seed(7), "cuda")
+        before = kla.fused_local_attention.launches
+        with torch.inference_mode():
+            pred, ga = scann_forward(p, x, cfm, use_pallas=True)
+            torch.cuda.synchronize()
+            pred0, ga0 = scann_forward(p, x, cfm)
+        n = kla.fused_local_attention.launches - before
+        worst = max(worst, hold(f"phase 7 per-layer model use_attn_norm=False "
+                                f"{'scann+' if g_update else 'scann'} ({n} launches)",
+                                [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)], failures))
+        if n != cfm.n_attention:
+            failures.append(f"per-layer model launched the layer kernel {n} times for "
+                            f"{cfm.n_attention} layers")
+    print(f"phase 7: worst per-layer abs error {worst:.3e}  [{card}]", flush=True)
+    return worst, timing
+
+
+def cif_text(name, species, coords, lattice):
+    """A P1 CIF of an orthorhombic cell with cartesian ``coords``."""
+    abc = np.diag(lattice)
+    rows = "".join(f"{s} {x:.6f} {y:.6f} {z:.6f}\n"
+                   for s, (x, y, z) in zip(species, np.asarray(coords) / abc))
+    return (f"data_{name}\n_cell_length_a {abc[0]:.6f}\n_cell_length_b {abc[1]:.6f}\n"
+            f"_cell_length_c {abc[2]:.6f}\n_cell_angle_alpha 90.0\n_cell_angle_beta 90.0\n"
+            "_cell_angle_gamma 90.0\nloop_\n_atom_site_type_symbol\n_atom_site_fract_x\n"
+            "_atom_site_fract_y\n_atom_site_fract_z\n" + rows)
+
+
+def phase8(mp2018, failures, card):
+    """The crystal serving path: PredictionServer on the MP2018 model,
+    synthetic periodic crystals posted as CIF and as JSON. Returns the
+    launches of (the loop kernel, the per-layer kernel) on that path."""
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.cif import parse_cif
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.data.synthetic import _random_crystal
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+    from scann_tpu_torch.serve import BatchedPredictor, PredictionServer
+
+    cfg = ScannConfig(model=mp2018,
+                      hyper=HyperConfig(batch_size=64, target="formation_energy_per_atom",
+                                        scaler=False),
+                      tpu=TpuConfig(max_buckets=4))
+    scann = Scann(cfg, device="cuda")
+    scann.init_params(seed=8)
+    routes = []
+    eval_route = scann.trainer.eval_route
+
+    def recorded_route(M, N):
+        routes.append((eval_route(M, N), M, N))
+        return routes[-1][0]
+
+    scann.trainer.eval_route = recorded_route
+    rng = np.random.default_rng(8)
+    crystals = {f"crystal{n}": _random_crystal(rng, n) for n in (20, 37, 54, 71, 90, 200)}
+    bodies, sent = {}, {}
+    for i, (name, (sp, xyz, lat)) in enumerate(crystals.items()):
+        if i % 2 == 0:
+            sent[name] = cif_text(name, sp, xyz, lat)
+            bodies[name] = (sent[name].encode(), "text/plain")
+        else:
+            bodies[name] = (json.dumps({"structures": [{
+                "species": sp, "coords": xyz.tolist(), "lattice": lat.tolist()}]}).encode(),
+                            "application/json")
+
+    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+    for c in counters:
+        c.launches = 0                               # counts of the serving path only
+    t_serve = time.time()
+    predictor = BatchedPredictor(scann, max_batch=64, window_ms=20.0,
+                                 warmup_shapes=[(96, 32)])
+    server = PredictionServer(predictor, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://{server.host}:{server.port}"
+    answers, latencies = {}, {}
+
+    def post(name, body, ctype):
+        t = time.time()
+        req = urllib.request.Request(base + "/predict", data=body,
+                                     headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[name] = (r.status, json.loads(r.read()))
+        except Exception as e:  # recorded, then reported as a failure below
+            answers[name] = (getattr(e, "code", None), {"error": repr(e)})
+        latencies[name] = 1e3 * (time.time() - t)
+
+    try:
+        threads = [threading.Thread(target=post, args=(n, *b)) for n, b in bodies.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        server.shutdown()
+        thread.join(10)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t_serve
+    fused_n, loop_n, layer_n = (c.launches for c in counters)
+    del scann.trainer.eval_route
+
+    for name, (sp, xyz, lat) in crystals.items():
+        status, out = answers.get(name, (None, {}))
+        if status != 200:
+            failures.append(f"{name}: HTTP {status} {out}")
+            continue
+        value, ga = out["predictions"][0], np.asarray(out["ga_scores"][0])
+        # the reference featurizes exactly what was sent (the CIF text is rounded)
+        struct = parse_cif(sent[name]) if name in sent else Structure(sp, xyz, lat)
+        _, inputs = scann.featurize_structures([struct])
+        with torch.inference_mode():
+            p0, g0 = scann_forward(scann.params, scann._to_device(inputs[0]), mp2018)
+        ref, ref_ga = p0[0, 0].item(), g0[0, :len(sp), 0].cpu().numpy()
+        err_v, err_g = abs(value - ref), float(np.abs(ga - ref_ga).max())
+        ok = (np.isfinite(value) and np.isfinite(ga).all() and ga.shape == (len(sp),)
+              and err_v <= ATOL + RTOL * abs(ref)
+              and np.all(np.abs(ga - ref_ga) <= ATOL + RTOL * np.abs(ref_ga)))
+        M, N = inputs[0]["neighbors"].shape[1:]
+        print(f"{name} ({'CIF' if name in sent else 'JSON'}, {len(sp)} sites, featurized "
+              f"M={M} N={N}): HTTP 200 {value:.6f} eager={ref:.6f} |d|={err_v:.2e} "
+              f"ga max|d|={err_g:.2e} latency {latencies[name]:.1f} ms", flush=True)
+        if not ok:
+            failures.append(f"{name}: served answer differs from the eager model "
+                            f"({err_v:.3e}, {err_g:.3e})")
+    taken = {r: [(M, N) for q, M, N in routes if q == r] for r in ("fused", "loop", "per_layer")}
+    print(f"crystal serving: {len(answers)} requests, {len(routes)} device batches "
+          f"(the warm-up's included) by route {taken}; launches: molecule kernel {fused_n}, "
+          f"loop kernel {loop_n}, per-layer kernel {layer_n}; {serve_s:.1f} s from predictor "
+          f"start  [{card}]", flush=True)
+    L = mp2018.n_attention
+    if (loop_n == 0 or loop_n != len(taken["loop"]) or fused_n != len(taken["fused"])
+            or len(taken["per_layer"]) != 1 or layer_n != L * len(taken["per_layer"])):
+        failures.append(f"launches do not match the routes taken: {taken}, molecule {fused_n}, "
+                        f"loop {loop_n}, per-layer {layer_n} (L={L})")
+    return loop_n, layer_n
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -668,6 +1020,15 @@ def main():
     # ---- phase 5: the training path ------------------------------------------
     train_launches = phase5(qm9_model, failures, card)
 
+    # ---- phases 6-8: crystals ---------------------------------------------------
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    mp2018, ptgp = crystal_models()
+    loop_err, loop_time = phase6(matrix, mp2018, ptgp, failures, card)
+    layer_err, layer_time = phase7(mp2018, failures, card)
+    loop_launches, layer_launches = phase8(mp2018, failures, card)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)
         return 1
@@ -687,6 +1048,14 @@ def main():
         "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
         "bound_by": bwd_time["bound_by"], "library_ms": None, "flops": bwd_time["flops"],
         "recompute_flops": bwd_time["recompute_flops"],
+    }, {
+        "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
+        "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
+        "library_ms": None, **loop_time,
+    }, {
+        "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
+        "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
+        "library_ms": None, **layer_time,
     }]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,8 @@ and it predicts properties and per-atom GA scores for structures:
     featurize (host Voronoi, ``prepare_input``)
       -> pad and group by ladder-quantized (M, N) shape
       -> ``forward_eval`` in batches of ``hyper.batch_size``
-         (the whole-model CUDA kernel on the GPU, the eager model on the CPU)
+         (on the GPU the molecule kernel, the crystal loop kernel or the
+         per-layer kernel, by the batch's shape; the eager model on the CPU)
       -> un-standardize.
 
 The device defaults to CUDA, and a missing CUDA device raises: nothing
@@ -211,11 +212,13 @@ class Scann:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
 
-        On CUDA it runs the whole-model kernel, on the kernel layout of the
-        weights that ``Trainer.kernel_params`` keeps for the current
-        parameter version; shapes the kernel does not take raise
-        NotImplementedError (they need the crystal loop kernel, not ported
-        yet). On the CPU it runs the eager model."""
+        On CUDA the batch's (M, N) picks the route before anything is
+        launched (``Trainer.eval_route``): the whole-model molecule kernel
+        (M <= 64), else the whole-model crystal loop kernel, both on the
+        kernel layout of the weights that ``Trainer.kernel_params`` keeps
+        for the current parameter version, else the per-layer model with
+        one LocalAttention kernel launch per layer. On the CPU it runs the
+        eager model."""
         return self.trainer.forward_eval(params, self._to_device(batch))
 
     # --- dataset and training -------------------------------------------------

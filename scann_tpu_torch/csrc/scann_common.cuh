@@ -1,6 +1,7 @@
-// Building blocks shared by the whole-model forward and backward kernels:
-// one block of kThreads threads per molecule, FP32 FMA products with the
-// left operand in shared memory, warp-per-row LayerNorm.
+// Building blocks shared by the port's kernels: blocks of kThreads threads,
+// FP32 FMA products with the left operand in shared memory, warp-per-row
+// LayerNorm, the argument block of the whole-model forwards and the
+// attention of one chunk of (atom, neighbour) rows.
 
 #pragma once
 
@@ -143,6 +144,333 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const floa
     const int d = lane + 32 * i;
     if (d < D) v[i] = (v[i] - mean) * inv * gamma[d] + beta[d];
   }
+}
+
+// Arguments of the whole-model forwards (scann_forward.cu for molecules,
+// scann_loop.cu for crystals).
+struct ForwardArgs {
+  // inputs of one padded batch
+  const int* atomic;          // [B, M]     (feature "atomic")
+  const float* feat;          // [B, M, F]  (feature "cgcnn")
+  const float* atom_mask;     // [B, M]
+  const int* nbr;             // [B, M, N]
+  const float* nmask;         // [B, M, N]
+  const float* nweight;       // [B, M, N]
+  const float* ndist;         // [B, M, N]
+  const float* ring;          // [B, M, 2]  (use_ring)
+  const float* dist_centers;  // [K]
+  const float* angle_centers; // [K]
+  // embedding
+  const float* embed;   // [n_atoms, E] lookup table, or [F, E] cgcnn kernel
+  const float* bembed;  // [E] (cgcnn)
+  const float* wring;   // [2, 10]
+  const float* bring;   // [10]
+  const float* wde;     // [E (+10), D]
+  const float* bde;     // [D]
+  const float* wnd;     // [K, D]  (g_update)
+  const float* bnd;
+  const float* wnw;     // [K, D]  (g_update)
+  const float* bnw;
+  // per-layer parameters stacked on a leading [L] axis
+  const float* wfg;     // [L, 3D or K, D]
+  const float* bfg;     // [L, D]
+  const float* wk;      // [L, D, D]
+  const float* bk;
+  const float* wq;
+  const float* bq;
+  const float* ln_s;
+  const float* ln_b;
+  const float* lng_s;
+  const float* lng_b;
+  const float* wr1;
+  const float* br1;
+  const float* wr2;
+  const float* br2;
+  const float* rln_s;
+  const float* rln_b;
+  // readout
+  const float* wal;     // [D, G]
+  const float* bal;
+  const float* wgq;     // [G, G]
+  const float* bgq;
+  const float* wgk;     // [G, G]
+  const float* bgk;
+  const float* wbf;     // [G, O]
+  const float* bbf;
+  const float* wp;      // [O, 1]
+  const float* bp;      // [1]
+  // scratch and outputs
+  float* geo;           // [B, M, N, D]  (g_update)
+  float* pred;          // [B]
+  float* ga;            // [B, M]
+  float* next_centers;  // [B, M, D]     (scann_loop.cu only)
+  // sizes and switches
+  int B, M, N, D, H, E, K, G, O, L, F;
+  int cgcnn, use_ring, g_update, ga_norm, mrelu;
+  int chunk_atoms;      // atoms per geometry chunk (chunk rows = CA * N <= 64)
+  int abuf_floats;      // floats of the chunk operand buffer
+  int atom_block;       // atoms per per-atom product (scann_loop.cu only)
+  float dk;             // hd ** -scale
+  float rbf_width;      // squared Gaussian width (0.25)
+  // training dropout (philox.cuh): masks keyed on (seed, mol_base + b)
+  int dropout, attn_dropout;
+  unsigned int seed, mol_base, drop_threshold, attn_threshold;
+  float drop_scale, attn_scale;
+};
+
+// Fills ForwardArgs from the 49 pointers, 20 sizes, 4 scalars and 4
+// random-stream words that kernels/scann_forward.py passes, in its order.
+inline void unpack_forward_args(ForwardArgs& a, void* const* ptrs, const int* dims,
+                                const float* scalars, const unsigned int* rng) {
+  const void* const* p = ptrs;
+  int i = 0;
+  a.atomic = (const int*)p[i++];
+  a.feat = (const float*)p[i++];
+  a.atom_mask = (const float*)p[i++];
+  a.nbr = (const int*)p[i++];
+  const float** f[] = {
+      &a.nmask, &a.nweight, &a.ndist, &a.ring, &a.dist_centers, &a.angle_centers,
+      &a.embed, &a.bembed, &a.wring, &a.bring, &a.wde, &a.bde, &a.wnd, &a.bnd, &a.wnw, &a.bnw,
+      &a.wfg, &a.bfg, &a.wk, &a.bk, &a.wq, &a.bq, &a.ln_s, &a.ln_b, &a.lng_s, &a.lng_b,
+      &a.wr1, &a.br1, &a.wr2, &a.br2, &a.rln_s, &a.rln_b,
+      &a.wal, &a.bal, &a.wgq, &a.bgq, &a.wgk, &a.bgk, &a.wbf, &a.bbf, &a.wp, &a.bp};
+  for (const float** q : f) *q = (const float*)p[i++];
+  a.geo = (float*)p[i++];
+  a.pred = (float*)p[i++];
+  a.ga = (float*)p[i++];
+  a.next_centers = nullptr;
+
+  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
+  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
+  a.F = dims[10];
+  a.cgcnn = dims[11]; a.use_ring = dims[12]; a.g_update = dims[13];
+  a.ga_norm = dims[14]; a.mrelu = dims[15];
+  a.chunk_atoms = dims[16]; a.abuf_floats = dims[17];
+  a.dropout = dims[18]; a.attn_dropout = dims[19];
+  a.atom_block = 0;
+  a.dk = scalars[0];
+  a.rbf_width = scalars[1];
+  a.drop_scale = scalars[2];
+  a.attn_scale = scalars[3];
+  a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
+}
+
+// The parameters of one LocalAttention layer.
+struct LayerWeights {
+  const float* wfg;     // [3D, D] (SCANN+) or [K, D] (SCANN)
+  const float* bfg;
+  const float* wk;      // [D, D]
+  const float* bk;
+  const float* ln_s;
+  const float* ln_b;
+  const float* lng_s;   // geometry LayerNorm (SCANN+)
+  const float* lng_b;
+};
+
+// The LocalAttention parameters of layer l of the stacked [L, ...] arrays.
+__device__ __forceinline__ LayerWeights layer_weights(const ForwardArgs& a, int l) {
+  const size_t D = a.D, fg_in = a.g_update ? 3 * D : (size_t)a.K;
+  LayerWeights w;
+  w.wfg = a.wfg + l * fg_in * D;
+  w.bfg = a.bfg + l * D;
+  w.wk = a.wk + l * D * D;
+  w.bk = a.bk + l * D;
+  w.ln_s = a.ln_s + l * D;
+  w.ln_b = a.ln_b + l * D;
+  w.lng_s = a.g_update ? a.lng_s + l * D : nullptr;
+  w.lng_b = a.g_update ? a.lng_b + l * D : nullptr;
+  return w;
+}
+
+// LocalAttention for one chunk of ca atoms x N neighbours (rows = ca * N <=
+// 64), called by the whole block. The caller has staged, and synchronised,
+//   sA [rows, 2D]: columns [0, D) the geometry (SCANN+) or [0, K) the
+//                  distance RBF (SCANN), columns [D, 2D) the neighbours' states;
+//   sCW [ca, ldq]: centers @ Wfg[0:D] of the chunk's atoms (SCANN+);
+//   sQ  [ca, ldq]: their queries.
+// It leaves LayerNorm(context + query) in sQ and ends with a barrier.
+// nmask and nweight point at the chunk's first row. geo_out [rows, D] takes
+// the updated geometry (SCANN+), attn_out [rows, H] (or null) the attention
+// before dropout; drop(atom, n, h) is the factor of the attention dropout.
+template <typename Drop>
+__device__ __forceinline__ void attention_chunk(
+    int ca, int N, int D, int H, int K, bool g_update, float* sA, float* sU, float* sE,
+    const float* sCW, float* sQ, int ldq, const float* nmask, const float* nweight,
+    float* geo_out, float* attn_out, const LayerWeights& w, float dk, bool attn_dropout,
+    Drop drop) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = ca * N, lda = 2 * D, hd = D / H;
+  if (g_update) {
+    // u = [geo | ns] @ Wfg[D:3D]; geo' = LN_g(swish(u + cw + b) + geo)
+    tile_gemm(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * D + c, v);
+    });
+    __syncthreads();
+    for (int r = warp; r < rows; r += kWarps) {
+      const int m = r / N;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = lane + 32 * i;
+        v[i] = 0.f;
+        if (d < D) v[i] = swishf(sCW[m * ldq + d] + sU[r * D + d] + w.bfg[d]) + sA[r * lda + d];
+      }
+      warp_layer_norm(v, D, w.lng_s, w.lng_b, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          geo_out[(size_t)r * D + d] = v[i];
+          sU[r * D + d] = sA[r * lda + D + d] * v[i];   // ns * geo'
+        }
+      }
+    }
+  } else {
+    // geo_term = swish(rbf(d) @ Wfg + b) * weight
+    tile_gemm(sA, lda, rows, K, w.wfg, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * D + c, v);
+    });
+    __syncthreads();
+    for (int i = tid; i < rows * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      const float g = swishf(sU[r * D + d] + w.bfg[d]) * nweight[r];
+      sU[r * D + d] = sA[r * lda + D + d] * g;           // ns * geo_term
+    }
+  }
+  __syncthreads();
+
+  // key = (ns * geo) @ Wk + bk, into the neighbour half of A
+  tile_gemm(sU, D, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+    store4(sA + r * lda + D + c, make_float4(v.x + w.bk[c], v.y + w.bk[c + 1],
+                                             v.z + w.bk[c + 2], v.w + w.bk[c + 3]));
+  });
+  __syncthreads();
+
+  // per-head energies (query * dk) . key, masked with -1e9
+  for (int i = tid; i < rows * H; i += kThreads) {
+    const int r = i / H, h = i - r * H;
+    const float* q = sQ + (r / N) * ldq + h * hd;
+    const float* kk = sA + r * lda + D + h * hd;
+    float e = 0.f;
+    for (int j = 0; j < hd; ++j) e = fmaf(q[j] * dk, kk[j], e);
+    sE[r * H + h] = e + (1.0f - nmask[r]) * -1e9f;
+  }
+  __syncthreads();
+  // max-shifted softmax over the N neighbours of each (atom, head)
+  for (int i = tid; i < ca * H; i += kThreads) {
+    const int at = i / H, h = i - at * H;
+    float* e = sE + at * N * H + h;
+    float mx = -INFINITY;
+    for (int n = 0; n < N; ++n) mx = fmaxf(mx, e[n * H]);
+    float s = 0.f;
+    for (int n = 0; n < N; ++n) {
+      const float t = expf(e[n * H] - mx);
+      e[n * H] = t;
+      s += t;
+    }
+    for (int n = 0; n < N; ++n) {
+      const float p = e[n * H] / s;
+      if (attn_out) attn_out[(size_t)(at * N + n) * H + h] = p;
+      e[n * H] = attn_dropout ? p * drop(at, n, h) : p;   // the context uses the dropped one
+    }
+  }
+  __syncthreads();
+  // out = LN(ctx + query), ctx = sum_n attn * nmask * key
+  for (int i = tid; i < ca * D; i += kThreads) {
+    const int at = i / D, d = i - at * D, h = d / hd;
+    float s = 0.f;
+    for (int n = 0; n < N; ++n) {
+      const int r = at * N + n;
+      s += sE[r * H + h] * nmask[r] * sA[r * lda + D + d];
+    }
+    sQ[at * ldq + d] = s + sQ[at * ldq + d];
+  }
+  __syncthreads();
+  for (int at = warp; at < ca; at += kWarps) {
+    float* row = sQ + at * ldq;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (lane + 32 * i < D) ? row[lane + 32 * i] : 0.f;
+    warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+  }
+  __syncthreads();
+}
+
+// SCANN+ geometry embedding of one structure, chunk by chunk into its global
+// scratch geo_b [M * N, D]:
+//   geo = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw).
+// sA [rows, 2D] and sU [rows, D] are the chunk buffers; ends with a barrier.
+__device__ __forceinline__ void embed_geometry(const ForwardArgs& a, float* sA, float* sU,
+                                               const float* ndist, const float* nweight,
+                                               float* geo_b) {
+  const int tid = threadIdx.x, M = a.M, N = a.N, D = a.D, K = a.K, lda = 2 * D;
+  for (int m0 = 0; m0 < M; m0 += a.chunk_atoms) {
+    const int ca = min(a.chunk_atoms, M - m0), rows = ca * N, base = m0 * N;
+    for (int i = tid; i < rows * K; i += kThreads) {
+      const int r = i / K, k = i - r * K;
+      const float t = ndist[base + r] - a.dist_centers[k];
+      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
+    }
+    __syncthreads();
+    tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
+                                         v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
+    });
+    __syncthreads();
+    for (int i = tid; i < rows * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      sA[r * lda + D + d] = swishf(sU[r * D + d]);  // d_emb; K <= D keeps it clear of the rbf
+    }
+    for (int i = tid; i < rows * K; i += kThreads) {
+      const int r = i / K, k = i - r * K;
+      const float t = nweight[base + r] - a.angle_centers[k];
+      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
+    }
+    __syncthreads();
+    tile_gemm(sA, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
+                                         v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
+    });
+    __syncthreads();
+    for (int i = tid; i < rows * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      geo_b[(size_t)(base + r) * D + d] = sA[r * lda + D + d] * swishf(sU[r * D + d]);
+    }
+    __syncthreads();
+  }
+}
+
+// Stages the operand of one chunk of (atom, neighbour) rows, starting at row
+// base of the structure, for attention_chunk: the geometry from the global
+// scratch (SCANN+) or the distance RBF (SCANN) into columns [0, D) of sA, and
+// the neighbours' states, gathered from the centers sC [M, wd] in shared
+// memory, into columns [D, 2D). Ends with a barrier.
+__device__ __forceinline__ void stage_chunk(const ForwardArgs& a, float* sA, const float* sC,
+                                            int wd, const int* nbr, const float* ndist,
+                                            const float* geo_b, int base, int rows) {
+  const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D;
+  if (a.g_update) {
+    const int q4 = D / 4;
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      store4(sA + r * lda + c,
+             *reinterpret_cast<const float4*>(geo_b + (size_t)(base + r) * D + c));
+    }
+  } else {
+    for (int i = tid; i < rows * K; i += kThreads) {
+      const int r = i / K, k = i - r * K;
+      const float t = ndist[base + r] - a.dist_centers[k];
+      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
+    }
+  }
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    sA[r * lda + D + d] = sC[nbr[base + r] * wd + d];
+  }
+  __syncthreads();
 }
 
 }  // namespace scann

@@ -48,73 +48,7 @@ using namespace scann;
 
 constexpr int kMaxChunkRows = 64;
 
-struct Args {
-  // inputs of one padded batch
-  const int* atomic;          // [B, M]     (feature "atomic")
-  const float* feat;          // [B, M, F]  (feature "cgcnn")
-  const float* atom_mask;     // [B, M]
-  const int* nbr;             // [B, M, N]
-  const float* nmask;         // [B, M, N]
-  const float* nweight;       // [B, M, N]
-  const float* ndist;         // [B, M, N]
-  const float* ring;          // [B, M, 2]  (use_ring)
-  const float* dist_centers;  // [K]
-  const float* angle_centers; // [K]
-  // embedding
-  const float* embed;   // [n_atoms, E] lookup table, or [F, E] cgcnn kernel
-  const float* bembed;  // [E] (cgcnn)
-  const float* wring;   // [2, 10]
-  const float* bring;   // [10]
-  const float* wde;     // [E (+10), D]
-  const float* bde;     // [D]
-  const float* wnd;     // [K, D]  (g_update)
-  const float* bnd;
-  const float* wnw;     // [K, D]  (g_update)
-  const float* bnw;
-  // per-layer parameters stacked on a leading [L] axis
-  const float* wfg;     // [L, 3D or K, D]
-  const float* bfg;     // [L, D]
-  const float* wk;      // [L, D, D]
-  const float* bk;
-  const float* wq;
-  const float* bq;
-  const float* ln_s;
-  const float* ln_b;
-  const float* lng_s;
-  const float* lng_b;
-  const float* wr1;
-  const float* br1;
-  const float* wr2;
-  const float* br2;
-  const float* rln_s;
-  const float* rln_b;
-  // readout
-  const float* wal;     // [D, G]
-  const float* bal;
-  const float* wgq;     // [G, G]
-  const float* bgq;
-  const float* wgk;     // [G, G]
-  const float* bgk;
-  const float* wbf;     // [G, O]
-  const float* bbf;
-  const float* wp;      // [O, 1]
-  const float* bp;      // [1]
-  // scratch and outputs
-  float* geo;           // [B, M, N, D]  (g_update)
-  float* pred;          // [B]
-  float* ga;            // [B, M]
-  // sizes and switches
-  int B, M, N, D, H, E, K, G, O, L, F;
-  int cgcnn, use_ring, g_update, ga_norm, mrelu;
-  int chunk_atoms;      // atoms per geometry chunk (chunk rows = CA * N <= 64)
-  int abuf_floats;      // floats of the chunk operand buffer
-  float dk;             // hd ** -scale
-  float rbf_width;      // squared Gaussian width (0.25)
-  // training dropout (philox.cuh): masks keyed on (seed, mol_base + b)
-  int dropout, attn_dropout;
-  unsigned int seed, mol_base, drop_threshold, attn_threshold;
-  float drop_scale, attn_scale;
-};
+using Args = ForwardArgs;   // scann_common.cuh
 
 // Shared-memory plan, in floats: centers, query, scratch [M, wd] each; the
 // chunk operand buffer A (also the embedding staging area); the chunk
@@ -146,7 +80,7 @@ scann_forward_kernel(const Args a) {
   const Plan P = make_plan(a);
   const int b = blockIdx.x;
   const int M = a.M, N = a.N, D = a.D, H = a.H, K = a.K, G = a.G, O = a.O;
-  const int wd = P.wd, lda = 2 * D, hd = D / H, CA = a.chunk_atoms;
+  const int wd = P.wd, CA = a.chunk_atoms;
   const unsigned int mol = a.mol_base + (unsigned int)b;
   // the [M, D] embedding and residual masks: quad (r, c..c+3) is one Philox
   // output, since D and c are multiples of 4
@@ -213,57 +147,17 @@ scann_forward_kernel(const Args a) {
   __syncthreads();
 
   // ---- SCANN+ geometry embedding -> global scratch -----------------------
-  // geo = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw)
-  if (a.g_update) {
-    for (int m0 = 0; m0 < M; m0 += CA) {
-      const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
-      for (int i = tid; i < rows * K; i += kThreads) {
-        const int r = i / K, k = i - r * K;
-        const float t = ndist[base + r] - a.dist_centers[k];
-        sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-      }
-      __syncthreads();
-      tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
-                                           v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
-      });
-      __syncthreads();
-      for (int i = tid; i < rows * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        sA[r * lda + D + d] = swishf(sU[r * D + d]);  // d_emb; K <= D keeps it clear of the rbf
-      }
-      for (int i = tid; i < rows * K; i += kThreads) {
-        const int r = i / K, k = i - r * K;
-        const float t = nweight[base + r] - a.angle_centers[k];
-        sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-      }
-      __syncthreads();
-      tile_gemm(sA, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
-                                           v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
-      });
-      __syncthreads();
-      for (int i = tid; i < rows * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        geo_b[(size_t)(base + r) * D + d] = sA[r * lda + D + d] * swishf(sU[r * D + d]);
-      }
-      __syncthreads();
-    }
-  }
+  if (a.g_update) embed_geometry(a, sA, sU, ndist, nweight, geo_b);
 
   // ---- L x (LocalAttention + ResidualNorm) -------------------------------
-  const int fg_in = a.g_update ? 3 * D : K;
   for (int l = 0; l < a.L; ++l) {
-    const float* wfg = a.wfg + (size_t)l * fg_in * D;
-    const float* bfg = a.bfg + (size_t)l * D;
-    const float* wk = a.wk + (size_t)l * D * D;
-    const float* bk = a.bk + (size_t)l * D;
+    const LayerWeights w = layer_weights(a, l);
     const float* wq = a.wq + (size_t)l * D * D;
     const float* bq = a.bq + (size_t)l * D;
 
     // per-atom projections: cw = centers @ Wfg[0:D] (SCANN+), query
     if (a.g_update) {
-      tile_gemm(sC, wd, M, D, wfg, D, D, [&](int r, int c, float4 v) {
+      tile_gemm(sC, wd, M, D, w.wfg, D, D, [&](int r, int c, float4 v) {
         store4(sW + r * wd + c, v);
       });
     }
@@ -274,131 +168,14 @@ scann_forward_kernel(const Args a) {
 
     for (int m0 = 0; m0 < M; m0 += CA) {
       const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
-      // stage the geometry (SCANN+) or the distance RBF (SCANN), and the
-      // gathered neighbour states
-      if (a.g_update) {
-        const int q4 = D / 4;
-        for (int i = tid; i < rows * q4; i += kThreads) {
-          const int r = i / q4, c = (i - r * q4) * 4;
-          store4(sA + r * lda + c,
-                 *reinterpret_cast<const float4*>(geo_b + (size_t)(base + r) * D + c));
-        }
-      } else {
-        for (int i = tid; i < rows * K; i += kThreads) {
-          const int r = i / K, k = i - r * K;
-          const float t = ndist[base + r] - a.dist_centers[k];
-          sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-        }
-      }
-      for (int i = tid; i < rows * D; i += kThreads) {
-        const int r = i / D, d = i - r * D;
-        sA[r * lda + D + d] = sC[nbr[base + r] * wd + d];
-      }
-      __syncthreads();
-
-      if (a.g_update) {
-        // u = [geo | ns] @ Wfg[D:3D]; geo' = LN_g(swish(u + cw + b) + geo)
-        tile_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
-          store4(sU + r * D + c, v);
-        });
-        __syncthreads();
-        const float* gs = a.lng_s + (size_t)l * D;
-        const float* gb = a.lng_b + (size_t)l * D;
-        for (int r = warp; r < rows; r += nwarps) {
-          const int m = m0 + r / N;
-          float v[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = lane + 32 * i;
-            v[i] = 0.f;
-            if (d < D) v[i] = swishf(sW[m * wd + d] + sU[r * D + d] + bfg[d]) + sA[r * lda + d];
-          }
-          warp_layer_norm(v, D, gs, gb, lane);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) {
-              geo_b[(size_t)(base + r) * D + d] = v[i];
-              sU[r * D + d] = sA[r * lda + D + d] * v[i];   // ns * geo'
-            }
-          }
-        }
-      } else {
-        // geo_term = swish(rbf(d) @ Wfg + b) * weight
-        tile_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
-          store4(sU + r * D + c, v);
-        });
-        __syncthreads();
-        for (int i = tid; i < rows * D; i += kThreads) {
-          const int r = i / D, d = i - r * D;
-          const float g = swishf(sU[r * D + d] + bfg[d]) * nweight[base + r];
-          sU[r * D + d] = sA[r * lda + D + d] * g;           // ns * geo_term
-        }
-      }
-      __syncthreads();
-
-      // key = (ns * geo) @ Wk + bk, into the neighbour half of A
-      tile_gemm(sU, D, rows, D, wk, D, D, [&](int r, int c, float4 v) {
-        store4(sA + r * lda + D + c,
-               make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
-      });
-      __syncthreads();
-
-      // per-head energies (query * dk) . key, masked with -1e9
-      for (int i = tid; i < rows * H; i += kThreads) {
-        const int r = i / H, h = i - r * H;
-        const float* q = sQ + (m0 + r / N) * wd + h * hd;
-        const float* kk = sA + r * lda + D + h * hd;
-        float e = 0.f;
-        for (int j = 0; j < hd; ++j) e = fmaf(q[j] * a.dk, kk[j], e);
-        sE[r * H + h] = e + (1.0f - nmask[base + r]) * -1e9f;
-      }
-      __syncthreads();
-      // max-shifted softmax over the N neighbours of each (atom, head)
-      for (int i = tid; i < ca * H; i += kThreads) {
-        const int at = i / H, h = i - at * H;
-        float* e = sE + at * N * H + h;
-        float mx = -INFINITY;
-        for (int n = 0; n < N; ++n) mx = fmaxf(mx, e[n * H]);
-        float s = 0.f;
-        for (int n = 0; n < N; ++n) {
-          const float t = expf(e[n * H] - mx);
-          e[n * H] = t;
-          s += t;
-        }
-        for (int n = 0; n < N; ++n) e[n * H] = e[n * H] / s;
-        if (a.attn_dropout) {   // the context uses the dropped-out attention
-          for (int n = 0; n < N; ++n)
-            e[n * H] *= scann_philox::mask_value(
-                a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
-                a.attn_threshold, a.attn_scale);
-        }
-      }
-      __syncthreads();
-      // out = ctx + query, ctx = sum_n attn * nmask * key
-      for (int i = tid; i < ca * D; i += kThreads) {
-        const int at = i / D, d = i - at * D, h = d / hd;
-        float s = 0.f;
-        for (int n = 0; n < N; ++n) {
-          const int r = at * N + n;
-          s += sE[r * H + h] * nmask[base + r] * sA[r * lda + D + d];
-        }
-        sQ[(m0 + at) * wd + d] = s + sQ[(m0 + at) * wd + d];
-      }
-      __syncthreads();
-      const float* ls = a.ln_s + (size_t)l * D;
-      const float* lb = a.ln_b + (size_t)l * D;
-      for (int at = warp; at < ca; at += nwarps) {
-        float* row = sQ + (m0 + at) * wd;
-        float v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = (lane + 32 * i < D) ? row[lane + 32 * i] : 0.f;
-        warp_layer_norm(v, D, ls, lb, lane);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
-      }
-      __syncthreads();
+      stage_chunk(a, sA, sC, wd, nbr, ndist, geo_b, base, rows);
+      attention_chunk(ca, N, D, H, K, a.g_update != 0, sA, sU, sE, sW + m0 * wd, sQ + m0 * wd,
+                      wd, nmask + base, nweight + base, geo_b + (size_t)base * D, nullptr, w,
+                      a.dk, a.attn_dropout != 0, [&](int at, int n, int h) {
+                        return scann_philox::mask_value(
+                            a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                            a.attn_threshold, a.attn_scale);
+                      });
     }
 
     // ResidualNorm: centers = LN(out + swish(out @ W1 + b1) @ W2 + b2)
@@ -518,83 +295,13 @@ scann_forward_kernel(const Args a) {
 
 }  // namespace
 
-// The order of the 49 pointers, 20 sizes, 4 scalars and 4 random-stream words
-// must match scann_tpu_torch/kernels/scann_forward.py.
-extern "C" int scann_forward_shared_bytes(const int* dims) {
-  Args a = {};
-  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
-  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
-  a.F = dims[10]; a.chunk_atoms = dims[16]; a.abuf_floats = dims[17];
-  return make_plan(a).total * (int)sizeof(float);
-}
-
+// The 49 pointers, 20 sizes, 4 scalars and 4 random-stream words are those of
+// unpack_forward_args (scann_common.cuh), in the order
+// scann_tpu_torch/kernels/scann_forward.py passes them.
 extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const float* scalars,
                                     const unsigned int* rng, void* stream) {
   Args a;
-  const void* const* p = ptrs;
-  int i = 0;
-  a.atomic = (const int*)p[i++];
-  a.feat = (const float*)p[i++];
-  a.atom_mask = (const float*)p[i++];
-  a.nbr = (const int*)p[i++];
-  a.nmask = (const float*)p[i++];
-  a.nweight = (const float*)p[i++];
-  a.ndist = (const float*)p[i++];
-  a.ring = (const float*)p[i++];
-  a.dist_centers = (const float*)p[i++];
-  a.angle_centers = (const float*)p[i++];
-  a.embed = (const float*)p[i++];
-  a.bembed = (const float*)p[i++];
-  a.wring = (const float*)p[i++];
-  a.bring = (const float*)p[i++];
-  a.wde = (const float*)p[i++];
-  a.bde = (const float*)p[i++];
-  a.wnd = (const float*)p[i++];
-  a.bnd = (const float*)p[i++];
-  a.wnw = (const float*)p[i++];
-  a.bnw = (const float*)p[i++];
-  a.wfg = (const float*)p[i++];
-  a.bfg = (const float*)p[i++];
-  a.wk = (const float*)p[i++];
-  a.bk = (const float*)p[i++];
-  a.wq = (const float*)p[i++];
-  a.bq = (const float*)p[i++];
-  a.ln_s = (const float*)p[i++];
-  a.ln_b = (const float*)p[i++];
-  a.lng_s = (const float*)p[i++];
-  a.lng_b = (const float*)p[i++];
-  a.wr1 = (const float*)p[i++];
-  a.br1 = (const float*)p[i++];
-  a.wr2 = (const float*)p[i++];
-  a.br2 = (const float*)p[i++];
-  a.rln_s = (const float*)p[i++];
-  a.rln_b = (const float*)p[i++];
-  a.wal = (const float*)p[i++];
-  a.bal = (const float*)p[i++];
-  a.wgq = (const float*)p[i++];
-  a.bgq = (const float*)p[i++];
-  a.wgk = (const float*)p[i++];
-  a.bgk = (const float*)p[i++];
-  a.wbf = (const float*)p[i++];
-  a.bbf = (const float*)p[i++];
-  a.wp = (const float*)p[i++];
-  a.bp = (const float*)p[i++];
-  a.geo = (float*)p[i++];
-  a.pred = (float*)p[i++];
-  a.ga = (float*)p[i++];
-
-  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
-  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
-  a.F = dims[10];
-  a.cgcnn = dims[11]; a.use_ring = dims[12]; a.g_update = dims[13];
-  a.ga_norm = dims[14]; a.mrelu = dims[15];
-  a.chunk_atoms = dims[16]; a.abuf_floats = dims[17];
-  a.dropout = dims[18]; a.attn_dropout = dims[19];
-  a.dk = scalars[0];
-  a.rbf_width = scalars[1];
-  a.drop_scale = scalars[2];
-  a.attn_scale = scalars[3];
-  a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
+  unpack_forward_args(a, ptrs, dims, scalars, rng);
 
   if (a.M > 64 || a.M < 1 || a.chunk_atoms * a.N > kMaxChunkRows || a.D > 128 || a.G > 128 ||
       a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D)

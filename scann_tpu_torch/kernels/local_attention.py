@@ -1,0 +1,260 @@
+"""One LocalAttention layer on the GPU: the wrapper around
+``csrc/local_attention.cu``.
+
+Replaces ``scann_tpu/kernels/local_attention.py:_kernel`` (the Pallas TPU
+kernel that fuses one layer: neighbour gather, SCANN+ geometry update or
+SCANN distance filter, key and query projections, per-head masked softmax
+over the neighbours, masked context sum, + query, LayerNorm). The per-layer
+model (``models.scann.scann_forward(..., use_pallas=True)``) calls it once
+per layer for what the whole-model kernels refuse: structures beyond the
+loop kernel's shared-memory plan, and ``use_attn_norm=False``.
+
+- ``fused_local_attention(centers, neighbor_idx, geometry, neighbor_mask,
+  neighbor_weight, params, num_head, scale, g_update)`` keeps the JAX
+  signature and layout, with ``params`` the layer's flat dict
+  (``filter_geo/kernel``, ``key/bias``, ``layer_norm/scale``, ...): (out
+  [B, M, D], geometry out, attn [B, M, N, H]), f32; for SCANN the geometry
+  out is the input [B, M, N, K] itself. It is differentiable: the forward
+  launches the kernel for CUDA tensors (or raises) and runs the plain
+  version for CPU tensors; the backward recomputes the plain layer under
+  autograd, as the JAX package's VJP does (it has no backward kernel here).
+  ``fused_local_attention.launches`` counts kernel launches.
+- ``reference_local_attention`` is the plain version, with the attention
+  dropout of ``use_drop`` when it is handed a mask.
+- The kernel reads the previous layer's centers from global memory and tiles
+  the atoms over the grid, so M is not limited. Its tiles limit the rest: D
+  a multiple of 4 up to 128 and divisible by the heads, N <= 64 (one atom's
+  neighbours fit a chunk of 64 rows), the SCANN filter's input K <= D,
+  float32.
+
+Bound: ``layer_flops`` of FP32 FMA (~2.0e10 at one MP2018 layer, B=64, M=96,
+N=32, D=128) against one read and one write of the [B, M, N, D] geometry;
+bound by operations on an H100 (~0.30 ms at its 67 TFLOP/s FP32 peak).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from scann_tpu_torch.ops.activations import swish
+from scann_tpu_torch.ops.attention import gather_neighbor_states, local_attention_core
+
+REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
+SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
+MAX_CHUNK_ROWS = 64
+MAX_WIDTH = 128
+PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
+              "query/kernel", "query/bias", "layer_norm/scale", "layer_norm/bias",
+              "layer_norm_g/scale", "layer_norm_g/bias")
+
+Params = Dict[str, torch.Tensor]
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis with the reference's eps of 1e-6."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def reference_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
+                              geometry: torch.Tensor, neighbor_mask: torch.Tensor,
+                              neighbor_weight: Optional[torch.Tensor], params: Params,
+                              num_head: int, scale: float, g_update: bool,
+                              attn_mask: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """The plain layer -> (out [B, M, D], geometry out or None for SCANN,
+    attn [B, M, N, H] before dropout). SCANN+ updates the geometry from
+    [center | geometry | neighbour] as three partial products; SCANN filters
+    the distance RBF and scales it by the solid angle. ``attn_mask``
+    [B, M, N, H] (0 or 1/keep) is the attention dropout of ``use_drop``."""
+    D = centers.shape[-1]
+    ns = gather_neighbor_states(centers, neighbor_idx)
+    w, b = params["filter_geo/kernel"], params["filter_geo/bias"]
+    if g_update:
+        u = ((centers @ w[0:D])[:, :, None, :]
+             + geometry @ w[D:2 * D]
+             + ns @ w[2 * D:3 * D]
+             + b)
+        geometry = layer_norm(swish(u) + geometry, params["layer_norm_g/scale"],
+                               params["layer_norm_g/bias"])
+        geo_out = geometry
+    else:
+        geometry = swish(geometry @ w + b) * neighbor_weight[..., None]
+        geo_out = None
+    key = (ns * geometry) @ params["key/kernel"] + params["key/bias"]
+    query = centers @ params["query/kernel"] + params["query/bias"]
+    attn, ctx = local_attention_core(
+        query, key, key, neighbor_mask, num_head=num_head, scale=scale,
+        dropout_mask=None if attn_mask is None else attn_mask.permute(0, 3, 1, 2))
+    out = layer_norm(ctx + query, params["layer_norm/scale"], params["layer_norm/bias"])
+    return out, geo_out, attn.permute(0, 2, 3, 1)
+
+
+def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError for what the kernel does not take."""
+    if dtype != torch.float32:
+        raise NotImplementedError(f"dtype {dtype}: the kernel computes in float32 only")
+    if (D % 4 or D > MAX_WIDTH or D % num_head or N < 1 or N > MAX_CHUNK_ROWS
+            or K < 1 or K > D):
+        raise NotImplementedError(
+            f"sizes outside the kernel's tiles: D={D} (multiple of 4, <= {MAX_WIDTH}, "
+            f"divisible by num_head={num_head}), N={N} (<= {MAX_CHUNK_ROWS}), filter "
+            f"input K={K} (<= D)")
+
+
+def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
+                           geometry: torch.Tensor, neighbor_mask: torch.Tensor,
+                           neighbor_weight: Optional[torch.Tensor], params: Params,
+                           num_head: int, scale: float, g_update: bool
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Check CUDA inputs and launch the kernel -> (out, geometry out or None
+    for SCANN, attn), as ``reference_local_attention`` returns them."""
+    dev = centers.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    B, M, D = centers.shape
+    N = neighbor_idx.shape[2]
+    K = geometry.shape[-1]
+    check_supported(D, N, K, num_head, centers.dtype)
+    if B > 65535:
+        raise NotImplementedError(f"B={B}: the grid takes at most 65535 structures")
+    want = {"centers": (centers, (B, M, D), torch.float32),
+            "neighbor_idx": (neighbor_idx, (B, M, N), torch.int32),
+            "geometry": (geometry, (B, M, N, D if g_update else K), torch.float32),
+            "neighbor_mask": (neighbor_mask, (B, M, N), torch.float32)}
+    if not g_update:
+        want["neighbor_weight"] = (neighbor_weight, (B, M, N), torch.float32)
+    shapes = {"filter_geo/kernel": (3 * D if g_update else K, D), "key/kernel": (D, D),
+              "query/kernel": (D, D)}
+    for key in PARAM_KEYS[: 10 if g_update else 8]:
+        want[key] = (params[key], shapes.get(key, (D,)), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if (t is None or t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
+                             f"{shape} on {dev}, got {got}")
+    # an out-of-range index is an out-of-bounds read on the GPU (the TPU's
+    # one-hot compare made it a silent zero row): refuse it on the host
+    lo, hi = torch.stack([neighbor_idx.min(), neighbor_idx.max()]).cpu().tolist()
+    if lo < 0 or hi >= M:
+        raise ValueError(f"neighbor indices span [{lo}, {hi}], outside [0, M={M})")
+
+    return _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
+                   num_head, scale, g_update)
+
+
+def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
+            num_head, scale, g_update):
+    """The launch itself, on inputs ``launch_local_attention`` accepted."""
+    from scann_tpu_torch.kernels.scann_forward import call_kernel
+
+    dev = centers.device
+    B, M, D = centers.shape
+    N = neighbor_idx.shape[2]
+    K = geometry.shape[-1]
+    out = torch.empty((B, M, D), device=dev, dtype=torch.float32)
+    geo_out = torch.empty((B, M, N, D), device=dev, dtype=torch.float32) if g_update else None
+    attn = torch.empty((B, M, N, num_head), device=dev, dtype=torch.float32)
+    tensors = ([centers, neighbor_idx, geometry, neighbor_mask,
+                None if g_update else neighbor_weight]
+               + [params.get(k) if g_update or "layer_norm_g" not in k else None
+                  for k in PARAM_KEYS]
+               + [out, geo_out, attn])
+    hd = D // num_head
+    dk = float(np.float32(hd) ** np.float32(-scale))
+    chunk_atoms = max(1, MAX_CHUNK_ROWS // N)
+    call_kernel("local_attention", "local_attention", dev, tensors,
+                [B, M, N, D, num_head, K, int(g_update), chunk_atoms], [dk])
+    fused_local_attention.launches += 1
+    return out, geo_out, attn
+
+
+class _FusedLocalAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain layer (CPU). Backward: the
+    plain layer recomputed under autograd, differentiated with respect to
+    the centers, the geometry, the solid-angle weight and the parameters."""
+
+    @staticmethod
+    def forward(ctx, centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight,
+                num_head, scale, g_update, keys, *values):
+        params = dict(zip(keys, values))
+        ctx.save_for_backward(centers, neighbor_idx, geometry, neighbor_mask,
+                              neighbor_weight, *values)
+        ctx.meta = (num_head, scale, g_update, keys)
+        if centers.device.type == "cuda":
+            out, geo_out, attn = launch_local_attention(
+                centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
+                num_head, scale, g_update)
+        elif centers.device.type == "cpu":
+            out, geo_out, attn = reference_local_attention(
+                centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
+                num_head, scale, g_update)
+        else:
+            raise ValueError(f"unsupported device {centers.device}")
+        if not g_update:
+            geo_out = geometry.view_as(geometry)      # passthrough: carries its cotangent
+        return out, geo_out, attn
+
+    @staticmethod
+    def backward(ctx, ct_out, ct_geo, ct_attn):
+        centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, *values = \
+            ctx.saved_tensors
+        num_head, scale, g_update, keys = ctx.meta
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (centers, geometry, *values)]
+            weight = neighbor_weight
+            if weight is not None and weight.is_floating_point():
+                weight = weight.detach().requires_grad_(True)
+            out, geo_out, attn = reference_local_attention(
+                leaves[0], neighbor_idx, leaves[1], neighbor_mask, weight,
+                dict(zip(keys, leaves[2:])), num_head, scale, g_update)
+            if geo_out is None:
+                geo_out = leaves[1]
+            wrt = leaves + ([weight] if weight is not None else [])
+            grads = torch.autograd.grad(
+                [out, geo_out, attn], wrt,
+                [torch.zeros_like(o) if c is None else c
+                 for o, c in ((out, ct_out), (geo_out, ct_geo), (attn, ct_attn))],
+                allow_unused=True)
+        d_centers, d_geometry, *d_values = grads[: len(leaves)]
+        d_weight = grads[-1] if weight is not None else None
+        return (d_centers, None, d_geometry, None, d_weight, None, None, None, None,
+                *d_values)
+
+
+def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
+                          geometry: torch.Tensor, neighbor_mask: torch.Tensor,
+                          neighbor_weight: Optional[torch.Tensor], params: Params,
+                          num_head: int, scale: float, g_update: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused LocalAttention layer -> (out [B, M, D], geometry out
+    [B, M, N, *], attn [B, M, N, H]); for SCANN the geometry out is the
+    unchanged input. CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise (unsupported sizes, bad input, failed build or
+    launch)."""
+    keys = tuple(k for k in PARAM_KEYS if g_update or "layer_norm_g" not in k)
+    return _FusedLocalAttention.apply(centers, neighbor_idx, geometry, neighbor_mask,
+                                      neighbor_weight, num_head, scale, g_update, keys,
+                                      *[params[k] for k in keys])
+
+
+fused_local_attention.launches = 0
+
+
+def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:
+    """Multiply-add FLOPs (2 per FMA) of one layer, counted from the
+    kernel's products; the gather and the elementwise work are left out."""
+    rows = M * N
+    if g_update:
+        f = 2 * rows * 3 * D * D + 2 * M * D * D      # [geo | ns] @ Wfg, key; cw
+    else:
+        f = 2 * rows * K * D + 2 * rows * D * D
+    f += 2 * M * D * D                                # query
+    f += 2 * rows * D * 2                             # energies, context
+    return B * f

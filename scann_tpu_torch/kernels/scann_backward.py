@@ -143,9 +143,9 @@ def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
     """Raise NotImplementedError for what the backward kernel does not take."""
     if M > MAX_ATOMS:
         raise NotImplementedError(
-            f"M={M} atoms: the whole-model backward takes M <= {MAX_ATOMS}; larger "
-            "structures need the crystal loop kernel "
-            "(scann_tpu/kernels/scann_loop.py:_bwd_kernel), not ported yet")
+            f"M={M} atoms: the whole-model backward takes M <= {MAX_ATOMS}; training "
+            "larger structures needs the backward of the crystal loop kernel "
+            "(scann_tpu/kernels/scann_loop.py:_bwd_kernel), which is not ported yet")
     if not cfm.use_attn_norm:
         raise NotImplementedError(
             "use_attn_norm=False: the kernel always applies ResidualNorm")

@@ -16,7 +16,7 @@ forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
 - The gate is the kernel's own shared-memory plan (``shared_memory_plan``)
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
   (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
-  Larger structures (crystals) need the loop kernel, which is not ported.
+  Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
 
 Bound and design are in the source note of ``csrc/scann_forward.cu``:
 about 5.0e10 FLOP of FP32 FMA per QM9 batch (B=128, M=32, N=16, L=7,
@@ -137,31 +137,44 @@ def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int]
     return chunk_atoms, abuf, 4 * floats
 
 
-def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
-    """Raise NotImplementedError for what the kernel does not take."""
+def refusal(cfm: ModelConfig, M: int, N: int) -> Optional[str]:
+    """Why the kernel does not take (config, M, N), or None where it does:
+    the gate, read by ``check_supported`` and by the dispatch in
+    ``Trainer.eval_route``."""
     if M > MAX_ATOMS:
-        raise NotImplementedError(
-            f"M={M} atoms: the whole-model kernel takes M <= {MAX_ATOMS}; "
-            "larger structures need the crystal loop kernel "
-            "(scann_tpu/kernels/scann_loop.py:_fwd_kernel), not ported yet")
+        return (f"M={M} atoms: the whole-model kernel takes M <= {MAX_ATOMS}; "
+                "larger structures go to the crystal loop kernel (kernels.scann_loop)")
     if not cfm.use_attn_norm:
-        raise NotImplementedError(
-            "use_attn_norm=False: the kernel always applies ResidualNorm; "
-            "that configuration runs in the crystal loop kernel or the eager "
-            "model, neither of which is on the GPU path yet")
+        return ("use_attn_norm=False: the kernel always applies ResidualNorm; "
+                "that configuration runs in the per-layer model "
+                "(models.scann.scann_forward with use_pallas)")
+    reason = common_refusal(cfm, N)
+    nbytes = 0 if reason else shared_memory_plan(cfm, M, N)[2]
+    if nbytes > MAX_SHARED_BYTES:
+        reason = f"shared-memory plan of {nbytes} bytes exceeds {MAX_SHARED_BYTES}"
+    return reason
+
+
+def common_refusal(cfm: ModelConfig, N: int) -> Optional[str]:
+    """What both whole-model forwards refuse: a dtype other than float32 and
+    sizes outside the tiles of ``csrc/scann_common.cuh``."""
     if cfm.dtype != "float32":
-        raise NotImplementedError(f"model.dtype={cfm.dtype!r}: float32 only")
+        return (f"model.dtype={cfm.dtype!r}: float32 only (the bf16 products of the TPU "
+                "kernels are not ported)")
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
-        raise NotImplementedError(
-            f"sizes outside the kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
-            f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
-            f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
-    nbytes = shared_memory_plan(cfm, M, N)[2]
-    if nbytes > MAX_SHARED_BYTES:
-        raise NotImplementedError(
-            f"shared-memory plan of {nbytes} bytes exceeds {MAX_SHARED_BYTES}")
+        return (f"sizes outside the kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
+                f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
+                f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
+    return None
+
+
+def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
+    """Raise NotImplementedError for what the kernel does not take."""
+    reason = refusal(cfm, M, N)
+    if reason:
+        raise NotImplementedError(reason)
 
 
 def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -255,20 +268,18 @@ def launch_scann_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
     return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base)
 
 
-def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
-            cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
-            seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``_check_inputs`` accepted."""
-    from scann_tpu_torch.kernels._build import load_library
-
+def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                     cfm: ModelConfig, mrelu_head: bool, dropout_rate: float, seed: int,
+                     mol_base: int, chunk_atoms: int, abuf: int):
+    """What the whole-model forwards (this kernel and the crystal loop
+    kernel) are launched with: (tensors in ``unpack_forward_args`` order,
+    the outputs and the SCANN+ geometry scratch last; sizes; scalars;
+    random-stream words), and the outputs (pred [B], ga [B, M])."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
-    check_supported(cfm, M, N)
-    chunk_atoms, abuf, _ = shared_memory_plan(cfm, M, N)
     D = cfm.local_dim
     cgcnn = cfm.feature == "cgcnn"
-
     pred = torch.empty(B, device=dev, dtype=torch.float32)
     ga = torch.empty((B, M), device=dev, dtype=torch.float32)
     geo = (torch.empty(B * M * N * D, device=dev, dtype=torch.float32)
@@ -285,31 +296,50 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     }
     order = ([tensors[k] for k in _INPUT_KEYS] + [packed.get(k) for k in _PARAM_KEYS]
              + [geo, pred, ga])
-    ptrs = (ctypes.c_void_p * len(order))(*[None if t is None else t.data_ptr()
-                                            for t in order])
     dims = [B, M, N, D, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, 92,
             int(cgcnn), int(cfm.use_ring), int(cfm.g_update), int(cfm.use_ga_norm),
             int(mrelu_head), chunk_atoms, abuf]
     flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
-    dims += flags
-    scalars = (ctypes.c_float * 4)(attention_scale(cfm), RBF_WIDTH, *scales)
-    rng = (ctypes.c_uint32 * 4)(*words)
+    return order, dims + flags, [attention_scale(cfm), RBF_WIDTH, *scales], words, pred, ga
 
-    lib = load_library("scann_forward")
-    fn = lib.scann_forward_launch
-    fn.argtypes = [ctypes.c_void_p] * 5
+
+def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, scalars,
+                rng=None) -> None:
+    """Launch ``<symbol>_launch`` of ``csrc/<library>.cu`` on ``dev``'s
+    current stream; a launch the card refuses raises RuntimeError."""
+    from scann_tpu_torch.kernels._build import load_library
+
+    lib = load_library(library)
+    args = [(ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr()
+                                                for t in tensors]),
+            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * len(scalars))(*scalars)]
+    if rng is not None:
+        args.append((ctypes.c_uint32 * len(rng))(*rng))
+    fn = getattr(lib, f"{symbol}_launch")
+    fn.argtypes = [ctypes.c_void_p] * (len(args) + 1)
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, (ctypes.c_int * len(dims))(*dims), scalars, rng,
-                ctypes.c_void_p(stream))
+        rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        err = lib.scann_forward_error_string
+        err = getattr(lib, f"{symbol}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        raise RuntimeError(f"scann_forward kernel launch failed ({rc}): "
-                           f"{err(rc).decode()}")
+        raise RuntimeError(f"{symbol} kernel launch failed ({rc}): {err(rc).decode()}")
+
+
+def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+            cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
+            seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``_check_inputs`` accepted."""
+    B, M = inputs["atomic"].shape[:2]
+    N = inputs["neighbors"].shape[2]
+    check_supported(cfm, M, N)
+    chunk_atoms, abuf, _ = shared_memory_plan(cfm, M, N)
+    tensors, dims, scalars, rng, pred, ga = launch_arguments(
+        packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, abuf)
+    call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors, dims,
+                scalars, rng)
     fused_scann_forward.launches += 1
     return pred.view(B, 1), ga.view(B, M, 1)
 

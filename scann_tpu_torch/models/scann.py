@@ -23,7 +23,9 @@ Inputs (one padded batch, see ``api.prepare_input``):
 deterministic, or the training forward when it is handed the dropout masks
 of ``ops.dropout.make_dropout_masks`` (embedding and residual dropout, and
 the attention dropout of ``use_drop``). ``ScannModel`` wraps it as an
-``nn.Module`` that owns its parameters. ``l2_penalty`` is the reference's
+``nn.Module`` that owns its parameters (``use_pallas=True``: the per-layer
+model, whose LocalAttention layers run in the kernel of
+``kernels.local_attention`` on CUDA). ``l2_penalty`` is the reference's
 kernel regularisation. Structure packing is not ported yet.
 """
 
@@ -34,12 +36,14 @@ import torch
 from torch import nn
 
 from scann_tpu_torch.config import ModelConfig
-from scann_tpu_torch.ops.activations import mrelu, swish
-from scann_tpu_torch.ops.attention import (
-    gather_neighbor_states,
-    global_attention_core,
-    local_attention_core,
+from scann_tpu_torch.kernels.local_attention import (
+    PARAM_KEYS,
+    fused_local_attention,
+    layer_norm,
+    reference_local_attention,
 )
+from scann_tpu_torch.ops.activations import mrelu, swish
+from scann_tpu_torch.ops.attention import global_attention_core
 from scann_tpu_torch.ops.dropout import DropoutMasks
 from scann_tpu_torch.ops.rbf import gaussian_expansion, make_centers
 
@@ -121,45 +125,25 @@ def _dense(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     return x @ params[f"{name}/kernel"] + params[f"{name}/bias"]
 
 
-def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
-    mean = x.mean(dim=-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
-
-
 def local_attention(params: Params, name: str, centers, neighbor_idx,
                     geometry, neighbor_mask, neighbor_weight, cfm: ModelConfig,
-                    attn_mask: Optional[torch.Tensor] = None):
+                    attn_mask: Optional[torch.Tensor] = None, use_pallas: bool = False):
     """One LocalAttention layer -> (out [B,M,D], geometry for the next
-    layer). SCANN+ updates the geometry from [center | geometry | neighbor]
-    as three partial products; SCANN filters the distance RBF and scales
-    it by the solid angle. ``attn_mask`` [B, M, N, H] is the attention
-    dropout mask (training under ``use_drop``)."""
-    D = centers.shape[-1]
-    ns = gather_neighbor_states(centers, neighbor_idx)
-    w = params[f"{name}/filter_geo/kernel"]
-    b = params[f"{name}/filter_geo/bias"]
-    if cfm.g_update:
-        u = ((centers @ w[0:D])[:, :, None, :]
-             + geometry @ w[D:2 * D]
-             + ns @ w[2 * D:3 * D]
-             + b)
-        geometry = _layer_norm(swish(u) + geometry,
-                               params[f"{name}/layer_norm_g/scale"],
-                               params[f"{name}/layer_norm_g/bias"])
-        geo_term = geometry
+    layer). ``attn_mask`` [B, M, N, H] is the attention dropout mask
+    (training under ``use_drop``). With ``use_pallas`` a layer without
+    attention dropout on CUDA tensors is one launch of the per-layer kernel
+    (``kernels.local_attention.fused_local_attention``); every other layer
+    is the plain ``reference_local_attention``."""
+    layer = {k: params[f"{name}/{k}"] for k in PARAM_KEYS if f"{name}/{k}" in params}
+    if use_pallas and attn_mask is None and centers.device.type == "cuda":
+        out, geo_out, _ = fused_local_attention(
+            centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, layer,
+            cfm.num_head, cfm.scale, cfm.g_update)
     else:
-        geo_term = swish(geometry @ w + b) * neighbor_weight[..., None]
-
-    key = _dense(params, f"{name}/key", ns * geo_term)
-    query = _dense(params, f"{name}/query", centers)
-    _, ctx = local_attention_core(
-        query, key, key, neighbor_mask, num_head=cfm.num_head, scale=cfm.scale,
-        dropout_mask=None if attn_mask is None else attn_mask.permute(0, 3, 1, 2))
-    out = _layer_norm(ctx + query, params[f"{name}/layer_norm/scale"],
-                      params[f"{name}/layer_norm/bias"])
-    return out, geometry
+        out, geo_out, _ = reference_local_attention(
+            centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, layer,
+            cfm.num_head, cfm.scale, cfm.g_update, attn_mask)
+    return out, geo_out if cfm.g_update else geometry
 
 
 def residual_norm(params: Params, name: str, x: torch.Tensor,
@@ -170,15 +154,19 @@ def residual_norm(params: Params, name: str, x: torch.Tensor,
     h = _dense(params, f"{name}/dense_2", h)
     if mask is not None:
         h = h * mask
-    return _layer_norm(x + h, params[f"{name}/layer_norm/scale"],
+    return layer_norm(x + h, params[f"{name}/layer_norm/scale"],
                        params[f"{name}/layer_norm/bias"])
 
 
 def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
                   cfm: ModelConfig, mrelu_head: bool = False,
-                  masks: Optional[DropoutMasks] = None
+                  masks: Optional[DropoutMasks] = None, use_pallas: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward -> (property [B, 1], ga_score [B, M, 1]), f32.
+
+    ``use_pallas`` (the JAX model's name for it) is the per-layer model: on
+    CUDA tensors each LocalAttention layer without attention dropout is one
+    launch of the per-layer kernel, the rest stays plain PyTorch.
 
     Deterministic without ``masks``; with them, the training forward:
     dropout on the embedding (reference ``scann.py:228``), on each
@@ -224,7 +212,7 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
         attn_mask = None if masks is None or masks.attn is None else masks.attn[i]
         centers, geometry = local_attention(
             p, f"local_attention_{i}", centers, neighbor_idx, geometry,
-            neighbor_mask, neighbor_weight, cfm, attn_mask)
+            neighbor_mask, neighbor_weight, cfm, attn_mask, use_pallas)
         if cfm.use_attn_norm:
             centers = residual_norm(p, f"residual_norm_{i}", centers,
                                     None if masks is None else masks.layers[i])
@@ -277,10 +265,12 @@ class ScannModel(nn.Module):
 
     def __init__(self, config: ModelConfig, mrelu_head: bool = False,
                  params: Optional[Params] = None,
-                 generator: Optional[torch.Generator] = None, device="cpu"):
+                 generator: Optional[torch.Generator] = None, device="cpu",
+                 use_pallas: bool = False):
         super().__init__()
         self.config = config
         self.mrelu_head = mrelu_head
+        self.use_pallas = use_pallas
         if params is None:
             params = init_params(config, generator, device)
         self.params = nn.ParameterDict(
@@ -288,5 +278,5 @@ class ScannModel(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         pred, ga = scann_forward(dict(self.params.items()), inputs,
-                                 self.config, self.mrelu_head)
+                                 self.config, self.mrelu_head, use_pallas=self.use_pallas)
         return {"property": pred, "ga_score": ga}

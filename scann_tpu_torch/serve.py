@@ -12,7 +12,8 @@ HTTP (port of ``scann_tpu/serve.py``, same HTTP contract).
 
       POST /predict   {"structures": [{"species": [...], "coords": [[...]],
                                        "lattice": [[...]] | null}, ...]}
-                      or a raw (multi-)xyz body with Content-Type text/plain
+                      or, with Content-Type text/plain, a raw (multi-)xyz
+                      body or CIF text (one structure per ``data_`` block)
       GET  /healthz   liveness + target name
 
   Response: {"predictions": [...], "ga_scores": [[...], ...],
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import json
 import queue
+import re
 import threading
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -269,7 +271,13 @@ def _parse_structures(body: bytes, content_type: str) -> List[Structure]:
                                  None if lattice is None
                                  else np.asarray(lattice, np.float64)))
         return out
-    lines = body.decode().splitlines()  # raw (multi-)xyz text
+    text = body.decode()
+    if "_cell_length_a" in text:        # CIF: one periodic structure per data_ block
+        from scann_tpu_torch.data.cif import parse_cif
+
+        blocks = re.split(r"(?m)^(?=data_)", text)
+        return [parse_cif(b) for b in blocks if "_cell_length_a" in b]
+    lines = text.splitlines()           # raw (multi-)xyz text
     out, i = [], 0
     while i < len(lines):
         if not lines[i].strip():

@@ -45,7 +45,10 @@ from scann_tpu_torch.kernels.scann_backward import (
     grads_from_flat,
     launch_scann_backward,
 )
+from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import scann_loop as kloop
 from scann_tpu_torch.kernels.scann_forward import launch_scann_forward, pack_params
+from scann_tpu_torch.kernels.scann_loop import launch_loop_forward
 from scann_tpu_torch.models.scann import (
     init_params,
     l2_penalty,
@@ -117,23 +120,45 @@ class Trainer:
         return self.load_params(init_params(self.config.model, torch.Generator().manual_seed(seed)))
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
-        """The kernels' layout of the current weights, rebuilt when
-        ``version`` moved since it was built."""
+        """The whole-model kernels' layout of the current weights (the
+        molecule and the crystal kernel share it), rebuilt when ``version``
+        moved since it was built."""
         if self._packed is None or self._packed[0] != self.version:
             self._packed = (self.version, pack_params(self.params, self.config.model))
         return self._packed[1]
 
+    def eval_route(self, M: int, N: int) -> str:
+        """Which forward a CUDA batch of shape (M, N) takes, from the
+        kernels' gates alone: "fused" (the whole-model molecule kernel),
+        "loop" (the whole-model crystal kernel) or "per_layer" (the eager
+        model with one LocalAttention kernel launch per layer)."""
+        cfm = self.config.model
+        if kfwd.refusal(cfm, M, N) is None:
+            return "fused"
+        if kloop.refusal(cfm, M, N) is None:
+            return "loop"
+        return "per_layer"
+
     def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]):
-        the forward kernel on CUDA, the eager model on the CPU."""
+        """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
+
+        On CUDA the route is chosen from (config, M, N) before anything is
+        launched (``eval_route``): the whole-model kernel where its gate
+        passes, else the crystal loop kernel where its gate passes, else the
+        per-layer model. A kernel that fails to build or launch raises;
+        nothing falls back. On the CPU it is the eager model."""
         cfm = self.config.model
         with torch.inference_mode():
-            if self.device.type == "cuda":
-                packed = (self.kernel_params() if params is self.params
-                          else pack_params(params, cfm))
-                return launch_scann_forward(packed, batch, cfm, self.mrelu_head)
-            return scann_forward(params, batch, cfm, self.mrelu_head)
+            if self.device.type != "cuda":
+                return scann_forward(params, batch, cfm, self.mrelu_head)
+            route = self.eval_route(batch["atomic"].shape[1], batch["neighbors"].shape[2])
+            if route == "per_layer":
+                return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True)
+            packed = (self.kernel_params() if params is self.params
+                      else pack_params(params, cfm))
+            launch = launch_scann_forward if route == "fused" else launch_loop_forward
+            return launch(packed, batch, cfm, self.mrelu_head)
 
     # --- one step ----------------------------------------------------------------
 

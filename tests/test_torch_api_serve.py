@@ -163,6 +163,82 @@ def test_torch_http_server_json_xyz_400_413(scann):
         server.shutdown()
 
 
+CIF = """data_{name}
+_cell_length_a {a:.6f}
+_cell_length_b {a:.6f}
+_cell_length_c {a:.6f}
+_cell_angle_alpha 90.0
+_cell_angle_beta 90.0
+_cell_angle_gamma 90.0
+loop_
+_atom_site_type_symbol
+_atom_site_fract_x
+_atom_site_fract_y
+_atom_site_fract_z
+"""
+
+
+def _crystal_cif(name, n_sites, seed):
+    """A synthetic periodic crystal of the JAX package's generator, as P1 CIF
+    text (fractional coordinates rounded to 6 decimals)."""
+    from scann_tpu.data.synthetic import _random_crystal
+
+    syms, coords, lattice = _random_crystal(np.random.default_rng(seed), n_sites)
+    a = float(lattice[0, 0])
+    return CIF.format(name=name, a=a) + "".join(
+        f"{s} {x:.6f} {y:.6f} {z:.6f}\n" for s, (x, y, z) in zip(syms, coords / a))
+
+
+def test_torch_http_server_serves_crystal_cif(tmp_path):
+    """Crystals posted as CIF text and as JSON with a lattice reach the
+    periodic Voronoi path and ladder rungs above 64 atoms, end to end on the
+    CPU, and give what the JAX package predicts for the same file."""
+    from scann_tpu.data.builders.cif import parse_cif as jax_parse_cif
+    from scann_tpu_torch.data.cif import parse_cif
+
+    model = dict(SMALL, n_atoms=30)
+    jcfg = JaxConfig(model=JaxModel(**model),
+                     hyper=JaxHyper(batch_size=2, target="e_form", scaler=False,
+                                    save_path=str(tmp_path / "jax")),
+                     tpu=JaxTpu(use_pallas=False))
+    js = JaxScann(jcfg)
+    js.trainer.init_state(js._example_inputs(), seed=5)
+    ts = Scann(ScannConfig.from_dict(dataclasses.asdict(jcfg)), device="cpu")
+    ts.load_params(jax.device_get(js.trainer.state.params))
+    big, small = _crystal_cif("big", 70, 1), _crystal_cif("small", 9, 2)
+    want = js.predict_structures([jax_parse_cif(big), jax_parse_cif(small)])
+
+    shapes = []
+    forward_eval = ts.forward_eval
+    ts.forward_eval = lambda params, batch: (shapes.append(batch["neighbors"].shape[1:]),
+                                             forward_eval(params, batch))[1]
+    server = PredictionServer(BatchedPredictor(ts, window_ms=0.0, warmup_shapes=[]), port=0)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+
+    def post(data, ctype):
+        req = urllib.request.Request(f"http://{server.host}:{server.port}/predict", data=data,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    try:
+        out = post((big + small).encode(), "text/plain")         # two data_ blocks
+        s = parse_cif(big)
+        as_json = post(json.dumps({"structures": [{
+            "species": s.species, "coords": s.coords.tolist(),
+            "lattice": s.lattice.tolist()}]}).encode(), "application/json")
+    finally:
+        server.shutdown()
+    assert out["batch_size"] == 2 and [len(g) for g in out["ga_scores"]] == [70, 9]
+    for i, (v, ga) in enumerate(want):
+        assert out["predictions"][i] == pytest.approx(float(v), rel=1e-4, abs=1e-5)
+        np.testing.assert_allclose(out["ga_scores"][i], np.asarray(ga), rtol=1e-4, atol=1e-5)
+    assert as_json["predictions"][0] == pytest.approx(out["predictions"][0], rel=1e-5)
+    assert max(M for M, _ in shapes) == _ladder(70, 8) == 96       # a rung above 64 atoms
+    assert all(M == _ladder(M, 8) and N == _ladder(N, 8) for M, N in shapes)
+
+
 def test_torch_batched_predictor_coalesces(scann):
     p = BatchedPredictor(scann, max_batch=16, window_ms=30.0, warmup_shapes=[(3, 2)])
     assert p.warmed == [(8, 8)]

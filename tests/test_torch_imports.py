@@ -29,12 +29,15 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
         "import scann_tpu_torch.cli.serve, scann_tpu_torch.cli.predict_files\n"
         "import scann_tpu_torch.compat, scann_tpu_torch.kernels.scann_forward\n"
         "import scann_tpu_torch.kernels.scann_backward, scann_tpu_torch.ops.dropout\n"
+        "import scann_tpu_torch.kernels.scann_loop, scann_tpu_torch.kernels.local_attention\n"
         "import scann_tpu_torch.train.loop, scann_tpu_torch.train.schedules\n"
         "import scann_tpu_torch.data.pipeline, scann_tpu_torch.data.synthetic\n"
         "import scann_tpu_torch.data.featurize\n"
         "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model")
     assert "scann_tpu_torch.train.loop" in mods
     assert "scann_tpu_torch.api" in mods
+    assert "scann_tpu_torch.kernels.scann_loop" in mods
+    assert "scann_tpu_torch.kernels.local_attention" in mods
     leaked = [m for m in mods
               if m in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py")
               or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "orbax."))

@@ -1,0 +1,138 @@
+"""The PyTorch port's crystal loop forward against the JAX package on the
+CPU, in float32: the port's ``loop_scann_forward`` on CPU tensors (its plain
+version) against the JAX Pallas loop kernel in interpret mode, on the same
+flax parameters (moved with ``params_from_jax``) and the same seeded inputs;
+the crystal golden fixtures through the port's API; the kernel's gate; and
+the plain version's dropout."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from conftest import jit_init_vars, make_synthetic_batch
+from scann_tpu.config import ModelConfig as JaxModelConfig
+from scann_tpu.kernels.scann_loop import loop_scann_forward as jax_loop_forward
+from scann_tpu.models import ScannModel as JaxScannModel
+from scann_tpu_torch.api import Scann
+from scann_tpu_torch.compat import load_h5_params, params_from_jax
+from scann_tpu_torch.config import HyperConfig, ModelConfig, ScannConfig
+from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.models import init_params, scann_forward
+from test_torch_golden import load_case
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-6          # tests/test_loop_kernels.py's own limits
+SMALL = dict(n_atoms=10, embedding_dim=16, local_dim=32, num_head=4, global_dim=32,
+             dense_out=16)
+MP2018 = ModelConfig(n_atoms=95, embedding_dim=128, n_attention=9, gaussian_d=6.0)
+PTGP = ModelConfig(n_atoms=80, n_attention=11, use_ring=True, g_update=False)
+
+
+def _torch_inputs(inputs):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in inputs.items()}
+
+
+@pytest.mark.parametrize("g_update,ga_norm,ring,cgcnn,layers", [
+    (False, False, False, False, 3),
+    (True, True, False, False, 2),
+    (False, True, True, False, 2),
+    (True, True, False, True, 2),
+])
+def test_torch_loop_forward_matches_jax_loop_kernel(rng, g_update, ga_norm, ring, cgcnn, layers):
+    kw = dict(SMALL, n_attention=layers, g_update=g_update, use_ga_norm=ga_norm,
+              use_ring=ring, feature="cgcnn" if cgcnn else "atomic")
+    jcfg, tcfg = JaxModelConfig(**kw), ModelConfig(**kw)
+    inputs = make_synthetic_batch(rng, B=3, M=12, N=6, use_ring=ring, cgcnn=cgcnn)
+    jparams = jit_init_vars(JaxScannModel(config=jcfg), jax.random.PRNGKey(0), inputs)
+    want_p, want_g = jax_loop_forward(jparams, inputs, jcfg, interpret=True)
+    tparams = params_from_jax(jax.device_get(jparams), tcfg)
+    with torch.no_grad():
+        pred, ga = kloop.loop_scann_forward(tparams, _torch_inputs(inputs), tcfg)
+    assert pred.shape == (3, 1) and ga.shape == (3, 12, 1)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want_p), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(want_g), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["scann_plus_mp2018full", "scann_plus_ptgp11"])
+def test_torch_crystal_golden_through_api(name):
+    """The two published crystal checkpoints, through ``Scann.forward_eval``
+    on the CPU, against the reference TF graph's outputs."""
+    cfm, target, inputs, data, h5 = load_case(name)
+    scann = Scann(ScannConfig(model=cfm, hyper=HyperConfig(target=target)), device="cpu")
+    scann.load_params(load_h5_params(h5, cfm))
+    pred, ga = scann.forward_eval(scann.params, inputs)
+    np.testing.assert_allclose(pred.numpy(), data["prediction"], rtol=1e-4, atol=2e-5)
+    np.testing.assert_allclose(ga.numpy(), data["ga_score"], rtol=1e-4, atol=2e-5)
+    M, N = inputs["atomic"].shape[1], inputs["neighbors"].shape[2]
+    kloop.check_supported(cfm, M, N)     # the loop kernel takes the fixture's shape
+
+
+@pytest.mark.parametrize("cfm,M,N", [(MP2018, 96, 32), (PTGP, 128, 32), (MP2018, 192, 32)])
+def test_torch_loop_gate_accepts_crystal_shapes(cfm, M, N):
+    kloop.check_supported(cfm, M, N)
+    assert kloop.refusal(cfm, M, N) is None and kloop.supports_loop(cfm)
+    assert "loop kernel" in kfwd.refusal(cfm, M, N)   # too large for the molecule kernel
+    chunk_atoms, atom_block, abuf, nbytes = kloop.loop_memory_plan(cfm, M, N)
+    assert nbytes <= kfwd.MAX_SHARED_BYTES
+    assert chunk_atoms * N <= 64 and 1 <= atom_block <= 32
+    assert abuf >= chunk_atoms * N * 2 * cfm.local_dim
+
+
+def test_torch_loop_gate_refuses():
+    with pytest.raises(NotImplementedError, match="per-layer kernel"):
+        kloop.check_supported(MP2018, 512, 32)
+    assert kloop.refusal(MP2018, 512, 32) is not None
+    with pytest.raises(NotImplementedError, match="use_attn_norm"):
+        kloop.check_supported(dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
+    assert not kloop.supports_loop(dataclasses.replace(MP2018, use_attn_norm=False))
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        kloop.check_supported(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 32)
+    with pytest.raises(NotImplementedError, match="sizes"):
+        kloop.check_supported(MP2018, 96, 72)
+    packed_batch = {"segment_onehot": torch.zeros(1, 2, 8)}
+    with pytest.raises(NotImplementedError, match="structure packing"):
+        kloop.check_supported(MP2018, 96, 32, packed_batch)
+
+
+def test_torch_loop_wrapper_refuses_packed_and_cpu_launch(rng):
+    cfm = ModelConfig(**SMALL, n_attention=2)
+    inputs = _torch_inputs(make_synthetic_batch(rng, B=2, M=12, N=6))
+    params = init_params(cfm, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="segment_onehot"):
+        kloop.loop_scann_forward(params, dict(inputs, segment_onehot=torch.zeros(2, 2, 12)),
+                                 cfm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kloop.launch_loop_forward(kfwd.pack_params(params, cfm), inputs, cfm)
+    assert kloop.launch_loop_forward.launches == 0
+
+
+@pytest.mark.parametrize("use_drop", [False, True])
+def test_torch_loop_plain_version_dropout_is_the_eager_training_forward(rng, use_drop):
+    """At a rate above 0 the plain version is the eager model handed the
+    Philox masks of ``ops.dropout`` (attention dropout under ``use_drop``)."""
+    cfm = ModelConfig(**SMALL, n_attention=2, use_drop=use_drop)
+    inputs = _torch_inputs(make_synthetic_batch(rng, B=3, M=12, N=6))
+    params = init_params(cfm, torch.Generator().manual_seed(1))
+    masks = kfwd.dropout_masks_for(cfm, inputs, 0.1, 7)
+    assert (masks.attn is not None) == use_drop
+    with torch.no_grad():
+        want_p, want_g = scann_forward(params, inputs, cfm, masks=masks)
+        pred, ga = kloop.loop_scann_forward(params, inputs, cfm, dropout_rate=0.1,
+                                            dropout_seed=7)
+        det_p, _ = kloop.loop_scann_forward(params, inputs, cfm)
+        other, _ = kloop.loop_scann_forward(params, inputs, cfm, dropout_rate=0.1,
+                                            dropout_seed=8)
+    assert torch.equal(pred, want_p) and torch.equal(ga, want_g)
+    assert not torch.allclose(pred, det_p) and not torch.allclose(pred, other)
+
+
+def test_torch_loop_forward_flops_crystal_batches():
+    """The counts the kernel's bounds are computed from: 1.849e11 FLOP per
+    MP2018 batch (B=64, M=96, N=32, L=9), 1.205e11 per Pt/graphene batch."""
+    assert kloop.loop_forward_flops(MP2018, 64, 96, 32) == pytest.approx(1.849e11, rel=1e-3)
+    assert kloop.loop_forward_flops(PTGP, 64, 128, 32) == pytest.approx(1.205e11, rel=1e-3)
