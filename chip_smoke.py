@@ -5,7 +5,7 @@
 Builds every CUDA kernel of the port from ``scann_tpu_torch/csrc`` (one
 nvcc per source, all at once). Phases 1-5 run at the full width of the
 flagship QM9 SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8
-heads, embedding 48), phases 6-8 at the full width of the crystal models
+heads, embedding 48), phases 6-10 at the full width of the crystal models
 (``configs/model_mp2018.yaml``: SCANN+, 9 layers, D=128, embedding 128,
 vocab 95; ``configs/model_ptgp.yaml``: SCANN with ring features, 11
 layers); random weights from seeds:
@@ -37,7 +37,22 @@ layers); random weights from seeds:
    JSON, and one of 200 sites that takes the per-layer route, through
    ``PredictionServer`` on the MP2018 model (the crystal serving path);
    checks every answer against the eager model and the launches of each
-   route against the batches that took it.
+   route against the batches that took it;
+9. holds the crystal loop-backward kernel against its plain version (the
+   eager training forward under ``torch.autograd``, same Philox masks): a
+   small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
+   blocks of 32, 16 and 8, then MP2018 (B=64, M=96, N=32) and Pt/graphene
+   (B=64, M=128, N=32) at full width, each with a second launch that must
+   give the same gradients bit for bit, and times it;
+10. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
+   (the crystal training path) on synthetic periodic crystals of 20-90 sites
+   at the full width and depth of the MP2018 model, batch 64, in the
+   recipe's 4 buckets; checks one loop-backward launch per step and none of
+   the molecule backward, the eval launches against the routes, the same run
+   with the plain step and ``load_model_infer``; trains 2 epochs in one
+   bucket, where every pass must lower the loss without dropout; and takes
+   one training step by the per-layer route on structures beyond the loop
+   backward's gate, held against the plain step.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, then one ``{"kernels": [...]}`` line and, last,
@@ -50,9 +65,9 @@ another order than cuBLAS (TF32 off) and carry the difference through 7 to
 11 LayerNormed layers; the per-layer kernel's attention probabilities:
 rtol 1e-4, atol 1e-6. Backward: pred as the
 forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
-up to 65,536 rows run in another order. Training: 3-step losses to 1e-4
-relative; the two-epoch runs' losses to 1e-3 relative, since Adam carries
-the FP32 differences through 16 steps.
+up to 196,608 rows run in another order. Training: 3-step and single-step
+losses to 1e-4 relative; the two-epoch runs' losses to 1e-3 relative, since
+Adam carries the FP32 differences through 16 steps.
 """
 
 import json
@@ -169,6 +184,29 @@ def grad_errors(got, want):
     return worst, where, ab
 
 
+def hold_backward(label, what, got_p, want_p, got_g, want_g, line, failures):
+    """Hold one backward launch against its plain version: pred (when
+    given) at RTOL / ATOL, each gradient within GRAD_RTOL x its max |plain|.
+    Appends to the printed ``line`` and to ``failures``; returns the largest
+    absolute difference."""
+    worst = 0.0
+    if got_p is not None:
+        worst, _, ok = errors(got_p, want_p)
+        line.append(f"{what} pred {worst:.2e}")
+        if not ok:
+            failures.append(f"{label} {what} pred: max_abs {worst:.3e}")
+    if set(got_g) != set(want_g):
+        failures.append(f"{label} {what}: gradient keys differ")
+        return worst
+    rel, key, ab = grad_errors(got_g, want_g)
+    finite = all(bool(torch.isfinite(v).all()) for v in got_g.values())
+    line.append(f"{what} grads worst {rel:.2e} of max|plain| at {key}")
+    if rel > GRAD_RTOL or not finite:
+        failures.append(f"{label} {what}: gradient {key} off by {rel:.3e} of its max "
+                        f"(limit {GRAD_RTOL}), finite={finite}")
+    return max(worst, ab)
+
+
 def time_backward(cfm, params, packed, inputs, card):
     """Phase 3 for the backward kernel: its launch plus the row reduction at
     the QM9 training shape (dropout 0.1, one-shot), against its bound and
@@ -265,33 +303,22 @@ def check_backward(label, cfm, p, x, y, ctp, ctg, mrelu, rate, err, failures):
         checks.append(("ct_ga", None, None, g1,
                        kbwd.reference_fused_scann_grad(p, x, cfm, ctp, ctg, rate, seed)))
     for what, got_p, want_p, got_g, want_g in checks:
-        if got_p is not None:
-            ab, _, ok = errors(got_p, want_p)
-            err["backward"] = max(err["backward"], ab)
-            line.append(f"{what} pred {ab:.2e}")
-            if not ok:
-                failures.append(f"{label} {what} pred: max_abs {ab:.3e}")
-        if set(got_g) != set(want_g):
-            failures.append(f"{label} {what}: gradient keys differ")
-            continue
-        rel, key, ab = grad_errors(got_g, want_g)
-        err["backward"] = max(err["backward"], ab)
-        finite = all(bool(torch.isfinite(v).all()) for v in got_g.values())
-        line.append(f"{what} grads worst {rel:.2e} of max|plain| at {key}")
-        if rel > GRAD_RTOL or not finite:
-            failures.append(f"{label} {what}: gradient {key} off by {rel:.3e} of its max "
-                            f"(limit {GRAD_RTOL}), finite={finite}")
+        err["backward"] = max(err["backward"], hold_backward(label, what, got_p, want_p, got_g,
+                                                             want_g, line, failures))
     print("  ".join(line), flush=True)
 
 
 def bucket_losses(trainer, buckets):
     """RMSE + l2 of the trainer's current weights on each bucket, without
-    dropout (the forward kernel). The launch counters and the trainer's
+    dropout (the forward kernels). The launch counters and the trainer's
     counting wrapper are left as they were."""
+    from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import l2_penalty
 
-    saved = kfwd.fused_scann_forward.launches
+    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+    saved = [c.launches for c in counters]
     wrapper = trainer.__dict__.pop("forward_eval", None)
     l2 = float(l2_penalty(trainer.params, trainer.config.hyper.l2_reg))
     out = []
@@ -300,7 +327,8 @@ def bucket_losses(trainer, buckets):
         out.append(float(np.sqrt(np.mean((pred - y) ** 2))) + l2)
     if wrapper is not None:
         trainer.forward_eval = wrapper
-    kfwd.fused_scann_forward.launches = saved
+    for c, n in zip(counters, saved):
+        c.launches = n
     return out
 
 
@@ -318,15 +346,17 @@ def trace_passes(trainer, buckets):
     return passes
 
 
-def check_passes(label, passes, final, failures):
-    """Each pass over a bucket lowers that bucket's loss without dropout;
-    prints what every pass did to every bucket."""
+def check_passes(label, passes, final, failures, phase="phase 5"):
+    """Prints what every pass did to every bucket's loss without dropout
+    and, unless ``failures`` is None, holds each pass to lowering the loss
+    of its own bucket."""
     ends = [p[2] for p in passes[1:]] + [final]
     for (epoch, bucket, before), after in zip(passes, ends):
         moves = ", ".join(f"bucket {j} {x:.6f} -> {y:.6f}"
                           for j, (x, y) in enumerate(zip(before, after)))
-        print(f"phase 5 {label}: epoch {epoch} pass over bucket {bucket}: {moves}", flush=True)
-        if not (np.isfinite(after[bucket]) and after[bucket] < before[bucket]):
+        print(f"{phase} {label}: epoch {epoch} pass over bucket {bucket}: {moves}", flush=True)
+        if failures is not None and not (np.isfinite(after[bucket])
+                                         and after[bucket] < before[bucket]):
             failures.append(f"{label}: the pass over bucket {bucket} in epoch {epoch} did not "
                             f"lower its loss: {before[bucket]} -> {after[bucket]}")
 
@@ -825,6 +855,320 @@ def phase8(mp2018, failures, card):
     return loop_n, layer_n
 
 
+def phase9(matrix, mp2018, ptgp, failures, card):
+    """The crystal loop-backward kernel against its plain version (the eager
+    training forward under torch.autograd, same Philox masks): a small matrix
+    in cotangent and one-shot mode at dropout 0 and 0.1, the atom blocks of
+    16 and 8, then MP2018 and Pt/graphene at full width with two launches
+    held bit for bit, and its time. Returns (largest abs error, timing of
+    the MP2018 shape)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(9)
+    worst = 0.0
+
+    def compare(name, cfm, x, mrelu=False, rate=0.0, cotangent=True, repeat=False):
+        nonlocal worst
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        _, block, _ = kloop.loop_backward_memory_plan(cfm, M, N)
+        label = f"phase 9 {name} B={B} M={M} N={N} (atom block {block}) dropout {rate}"
+        p = init_params(cfm, torch.Generator().manual_seed(9), "cuda")
+        y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+        line = [label]
+        pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, 11)
+        torch.cuda.synchronize()
+        pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, 11)
+        worst = max(worst, hold_backward(label, "one-shot", pred, pred0, g, g0, line, failures))
+        if cotangent:
+            ctp = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+            ctg = torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda()
+            g1 = kloop.loop_scann_grad(p, x, cfm, ctp, ctg, rate, 11)
+            torch.cuda.synchronize()
+            g2 = kloop.reference_loop_grad(p, x, cfm, ctp, ctg, rate, 11)
+            worst = max(worst, hold_backward(label, "ct_ga", None, None, g1, g2, line, failures))
+        if repeat:
+            _, again = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, 11)
+            same = all(torch.equal(g[k], again[k]) for k in g)
+            line.append(f"two launches bit-identical: {same}")
+            if not same:
+                failures.append(f"{label}: two launches on the same inputs differ in "
+                                f"{[k for k in g if not torch.equal(g[k], again[k])]}")
+        print("  ".join(line), flush=True)
+
+    cases = list(matrix) + [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
+                             False)]
+    for name, cfm, mrelu in cases:
+        # M=40: an atom block of 32 and one of 8; single-atom structures allowed
+        x = synthetic_batch(rng, 6, 40, 8, cfm.use_ring, cfm.feature == "cgcnn", min_atoms=1)
+        for rate in (0.0, 0.1):
+            compare(name, cfm, x, mrelu, rate, repeat=rate > 0)
+    compare("scann+ one atom per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24), rate=0.1)
+    lone = synthetic_batch(rng, 4, 72, 8)
+    lone["atom_mask"][0] = 0.0
+    lone["atom_mask"][0, 0] = 1.0
+    lone["neighbor_mask"][0] = 0.0
+    compare("scann+ one-atom structure", matrix[0][1], lone)
+    for M in (160, 208):   # atom blocks of 16 and of 8, the last M the gate takes
+        compare("mp2018 full width", mp2018,
+                synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms, min_atoms=100),
+                rate=0.1, cotangent=False, repeat=True)
+    mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
+    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, repeat=True)
+    ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
+                                  min_atoms=20)
+    compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, repeat=True)
+
+    timing = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs)):
+        params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+        packed = kfwd.pack_params(params, cfm)
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
+        kloop.check_backward_supported(cfm, M, N, x)
+        kfwd._check_inputs(x, cfm, packed["wde"].device)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
+        ms = cuda_ms(lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7,
+                                                    0, scratch), reps=10)
+        plain_ms = cuda_ms(lambda: kloop.reference_loop_train_grads(
+            params, x, y, cfm, False, 0.1, 7), reps=10)
+        flops = kloop.loop_backward_flops(cfm, B, M, N)
+        recompute = kloop.loop_recompute_flops(cfm, B, M, N)
+        _, P = kbwd.grad_layout(packed)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        bound, by = bound_ms(flops, nbytes)
+        scratch_bytes = tensor_bytes(scratch.values())
+        print(f"scann_loop_backward at {name} B={B} M={M} N={N} L={cfm.n_attention} (dropout "
+              f"0.1, one-shot, with its row reduction): kernel {ms:.4f} ms on {B} blocks of "
+              f"{sms} SMs, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
+              f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached); the schedule "
+              f"adds {recompute:.4e} FLOP of recompute, which the bound does not count; "
+              f"scratch {scratch_bytes / 2 ** 20:.0f} MiB  [{card}]", flush=True)
+        if timing is None:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "flops": flops, "recompute_flops": recompute}
+        del scratch
+    print(f"phase 9: worst loop-backward abs error (pred and gradients) {worst:.3e}  [{card}]",
+          flush=True)
+    return worst, timing
+
+
+def phase10(mp2018, failures, card):
+    """The crystal training path: 2 epochs through Scann.prepare_dataset ->
+    train -> evaluate on synthetic periodic crystals of 20-90 sites at the
+    full width and depth of the MP2018 model, batch 64, the recipe's 4
+    buckets; the same run with the plain step; load_model_infer; and one
+    training step by the per-layer route on structures beyond the loop
+    backward's gate. Returns the loop-backward launches of the main path."""
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.synthetic import make_synthetic_dataset
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.train.loop import Trainer
+
+    class PlainTrainer(Trainer):
+        """The same Trainer with the plain version of every backward."""
+
+        def raw_grads(self, batch, y, seed):
+            pred, raw = kloop.reference_loop_train_grads(
+                self.params, batch, y, self.config.model, self.mrelu_head,
+                self.dropout_rate, seed)
+            return pred[:, 0], raw
+
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_crystals_")
+    # host Voronoi of periodic cells is slow: size the set by the clock
+    t0 = time.time()
+    make_synthetic_dataset(work, "probe", n_structures=8, min_atoms=20, max_atoms=90,
+                           periodic=True, seed=1, target_names=("formation_energy_per_atom",))
+    per_crystal = (time.time() - t0) / 8
+    n_crystals = int(min(480, max(96, 40.0 / per_crystal)))
+    t0 = time.time()
+    energy, nbr = make_synthetic_dataset(work, "mplike", n_structures=n_crystals, min_atoms=20,
+                                         max_atoms=90, periodic=True, seed=0,
+                                         target_names=("formation_energy_per_atom",))
+    print(f"phase 10: {n_crystals} synthetic periodic crystals (20-90 sites of Si, O, Al, Fe, "
+          f"Mg) written and featurized on the host in {time.time() - t0:.1f} s (a probe of 8 "
+          f"took {per_crystal:.2f} s each)", flush=True)
+
+    bs = 64
+
+    def config(name, max_buckets):
+        return ScannConfig(model=mp2018,
+                           hyper=HyperConfig(batch_size=bs, scheduler="sgdr", lr=5e-4,
+                                             min_lr=1e-4, target="formation_energy_per_atom",
+                                             data_energy_path=energy, data_nei_path=nbr,
+                                             epochs=2, seed=0,
+                                             save_path=os.path.join(work, name)),
+                           tpu=TpuConfig(max_buckets=max_buckets))
+
+    # ---- the main path: the MP2018 recipe's buckets (max_buckets: 4) ---------
+    cfg = config("run", 4)
+    scann = Scann(cfg, device="cuda")
+    scann.prepare_dataset()
+    buckets = scann.train_buckets
+    trainer = scann.trainer
+    batches = lambda bb: sum(-(-b.num_structures // bs) for b in bb)
+    train_routes = [trainer.train_route(*b.shape) for b in buckets]
+    steps = {r: 2 * batches([b for b, q in zip(buckets, train_routes) if q == r])
+             for r in ("fused", "loop", "per_layer")}
+    eval_batches = {r: 0 for r in ("fused", "loop", "per_layer")}
+    for times, bb in ((2, scann.valid_buckets), (1, scann.test_buckets)):
+        for b in bb:
+            eval_batches[trainer.eval_route(*b.shape)] += times * batches([b])
+    scann.init_params(cfg.hyper.seed)              # what fit() would draw
+    passes = trace_passes(trainer, buckets)
+    step_ms = []
+    train_step = trainer.train_step
+
+    def timed_step(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = train_step(*args)
+        e.record()
+        step_ms.append((s, e))
+        return out
+
+    trainer.train_step = timed_step
+    counters = (kbwd.launch_scann_backward, kloop.launch_loop_backward,
+                kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+    for c in counters:
+        c.launches = 0                               # counts of the training path only
+    t1 = time.time()
+    hist = scann.train()
+    final = bucket_losses(trainer, buckets)        # before evaluate() restores "best"
+    result = scann.evaluate()
+    torch.cuda.synchronize()
+    fused_bwd, loop_bwd, fused_fwd, loop_fwd, layer_fwd = (c.launches for c in counters)
+    del trainer.train_step, trainer.epoch_plan
+    med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
+    n_train = sum(b.num_structures for b in buckets)
+    shapes = [(b.shape, b.num_structures, r) for b, r in zip(buckets, train_routes)]
+    print(f"phase 10: buckets {shapes}, {len(step_ms)} steps in {time.time() - t1:.1f} s, losses {hist['loss']}, val_mae "
+          f"{hist['val_mae']}, test {result}", flush=True)
+    print(f"phase 10: median train step {med:.4f} ms (CUDA events), epoch 2 "
+          f"{n_train / hist['epoch_time'][1]:.1f} structures/s (the per-pass probes included); "
+          f"loop-backward launches {loop_bwd} for {steps['loop']} steps, molecule-backward "
+          f"launches {fused_bwd} for {steps['fused']}; eval launches: molecule {fused_fwd}, "
+          f"loop {loop_fwd}, per-layer {layer_fwd} for eval batches {eval_batches}  [{card}]",
+          flush=True)
+    if not all(np.isfinite(hist["loss"])):
+        failures.append(f"crystal training loss not finite: {hist['loss']}")
+    # A pass over one of four buckets is two steps, and they ride on the Adam
+    # momentum of the other buckets' steps, so a pass need not lower its own
+    # bucket's loss here (the plain step's run below does the same); the
+    # one-bucket run further down is the one held to a falling loss.
+    check_passes("kernel", passes, final, None, "phase 10")
+    if (loop_bwd == 0 or loop_bwd != steps["loop"] or fused_bwd != steps["fused"]
+            or steps["per_layer"] or len(step_ms) != sum(steps.values())):
+        failures.append(f"backward launches do not match the routes: loop {loop_bwd}, molecule "
+                        f"{fused_bwd} for steps {steps}")
+    if not any(b.shape[0] > 32 and r == "loop" for b, r in zip(buckets, train_routes)):
+        failures.append(f"no crystal bucket (M > 32) trained by the loop backward: "
+                        f"{[b.shape for b in buckets]}")
+    if (fused_fwd != eval_batches["fused"] or loop_fwd != eval_batches["loop"]
+            or layer_fwd != mp2018.n_attention * eval_batches["per_layer"]):
+        failures.append(f"eval launches (molecule {fused_fwd}, loop {loop_fwd}, per-layer "
+                        f"{layer_fwd}) do not match the eval batches {eval_batches}")
+
+    # ---- the same run with the plain step: the same losses -------------------
+    plain = PlainTrainer(cfg, "cuda", os.path.join(work, "plain"))
+    plain.init_state(cfg.hyper.seed)
+    plain_passes = trace_passes(plain, buckets)
+    plain_hist = plain.fit(buckets, scann.valid_buckets, log_fn=lambda *_: None)
+    plain_final = bucket_losses(plain, buckets)
+    check_passes("plain", plain_passes, plain_final, None, "phase 10")
+    mine = hist["loss"] + [x for p in passes for x in p[2]] + final
+    ref = plain_hist["loss"] + [x for p in plain_passes for x in p[2]] + plain_final
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mine, ref))
+    print(f"phase 10: the plain step's run: losses {plain_hist['loss']}; its epoch and "
+          f"per-pass losses against the kernel's: max rel {rel:.3e} (limit {TRAIN_RTOL})",
+          flush=True)
+    if len(mine) != len(ref) or not rel <= TRAIN_RTOL:
+        failures.append(f"kernel and plain two-epoch crystal runs differ: {rel:.3e}")
+    del plain
+
+    # a model loaded back from the run directory predicts what the trainer does
+    p_trained = scann.predict_data(scann.test_buckets)
+    loaded = Scann.load_model_infer(trainer.workdir, device="cuda")
+    p_loaded = loaded.predict_data(scann.test_buckets)
+    d = float(np.abs(p_trained - p_loaded).max())
+    print(f"phase 10: load_model_infer predicts {len(p_loaded)} test crystals, max |d| {d:.3e} "
+          f"from the trainer's predictions", flush=True)
+    if not (np.isfinite(p_loaded).all() and d <= ATOL + RTOL * np.abs(p_trained).max()):
+        failures.append(f"load_model_infer crystal predictions differ by {d:.3e}")
+    del loaded
+
+    # ---- one bucket: every pass (an epoch of 6 steps) lowers the loss ----------
+    one = Scann(config("one", 1), device="cuda")
+    one.prepare_dataset()
+    one.init_params(0)
+    one_passes = trace_passes(one.trainer, one.train_buckets)
+    kloop.launch_loop_backward.launches = 0
+    one_hist = one.train()
+    one_final = bucket_losses(one.trainer, one.train_buckets)
+    one_steps = 2 * batches(one.train_buckets)
+    del one.trainer.epoch_plan
+    check_passes("one bucket", one_passes, one_final, failures, "phase 10")
+    n_one = sum(b.num_structures for b in one.train_buckets)
+    print(f"phase 10 one bucket {[b.shape for b in one.train_buckets]}: epoch losses "
+          f"{one_hist['loss']}, {kloop.launch_loop_backward.launches} loop-backward launches "
+          f"for {one_steps} steps, epoch 2 {n_one / one_hist['epoch_time'][1]:.1f} structures/s"
+          f"  [{card}]", flush=True)
+    if not (all(np.isfinite(one_hist["loss"])) and one_hist["loss"][-1] < one_hist["loss"][0]
+            and kloop.launch_loop_backward.launches == one_steps):
+        failures.append(f"one-bucket crystal training: epoch losses {one_hist['loss']} not "
+                        f"finite and falling, or {kloop.launch_loop_backward.launches} launches "
+                        f"for {one_steps} steps")
+    del one
+
+    # ---- the third route: one step on structures beyond the backward's gate --
+    rng = np.random.default_rng(10)
+    M, N, B = 216, 32, 8
+    x = synthetic_batch(rng, B, M, N, n_atoms=mp2018.n_atoms, min_atoms=150)
+    y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    outcome = []
+    for cls in (Trainer, PlainTrainer):
+        t = cls(cfg, "cuda", os.path.join(work, "third_" + cls.__name__))
+        t.init_state(5)
+        route = t.train_route(M, N)
+        _, raw = t.raw_grads(x, y, 3)
+        before = kla.fused_local_attention.launches, kloop.launch_loop_backward.launches
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss, _ = t.train_step(x, y, 5e-4, 3)
+        e.record()
+        e.synchronize()
+        outcome.append((float(loss), raw, s.elapsed_time(e),
+                        kla.fused_local_attention.launches - before[0],
+                        kloop.launch_loop_backward.launches - before[1]))
+    (loss_k, raw_k, ms_k, layer_n, loop_n), (loss_p, raw_p, ms_p, _, _) = outcome
+    g_rel, g_key, _ = grad_errors(raw_k, raw_p)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"phase 10: one {route} training step at B={B} M={M} N={N} (beyond the loop "
+          f"backward's gate): loss {loss_k:.6f} vs plain step {loss_p:.6f} (rel {rel:.3e}, "
+          f"limit {LOSS_RTOL}), gradients worst {g_rel:.2e} of max|plain| at {g_key}, {layer_n} "
+          f"per-layer kernel launches, {loop_n} loop-backward launches, {ms_k:.1f} ms (plain "
+          f"step {ms_p:.1f} ms)  [{card}]", flush=True)
+    if (route != "per_layer" or layer_n != mp2018.n_attention or loop_n != 0
+            or not rel <= LOSS_RTOL or not g_rel <= GRAD_RTOL):
+        failures.append(f"per-layer training step: route {route}, {layer_n} layer launches, "
+                        f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
+                        f"{g_rel:.3e} at {g_key}")
+    return loop_bwd
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1029,6 +1373,10 @@ def main():
     layer_err, layer_time = phase7(mp2018, failures, card)
     loop_launches, layer_launches = phase8(mp2018, failures, card)
 
+    # ---- phases 9-10: crystal training ---------------------------------------------
+    loop_bwd_err, loop_bwd_time = phase9(matrix, mp2018, ptgp, failures, card)
+    loop_bwd_launches = phase10(mp2018, failures, card)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)
         return 1
@@ -1052,6 +1400,10 @@ def main():
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
         "library_ms": None, **loop_time,
+    }, {
+        "name": "scann_loop_backward", "route": "cuda", "source": kloop.BACKWARD_SOURCE,
+        "replaces": kloop.BACKWARD_REPLACES, "launches": loop_bwd_launches,
+        "max_abs_err": loop_bwd_err, "library_ms": None, **loop_bwd_time,
     }, {
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,

@@ -4,8 +4,10 @@
 on one device. It trains and evaluates on a dataset pair:
 
     prepare_dataset (load, standardize, pad into (M, N) buckets, split)
-      -> train (one backward-kernel launch per step on the GPU)
-      -> evaluate / predict_data (the forward kernel)
+      -> train (on the GPU one launch per step of the molecule backward
+         kernel or, for crystal buckets, of the loop backward kernel; the
+         per-layer model under autograd beyond both: ``Trainer.train_route``)
+      -> evaluate / predict_data (the forward kernels)
 
 and it predicts properties and per-atom GA scores for structures:
 

@@ -9,7 +9,8 @@ nvcc compiles it in seconds:
 The build runs at first use, into ``build/scann_tpu_torch/`` beside the
 package, keyed by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once. The hash covers the source
-and every header it includes (``philox.cuh``, ``scann_common.cuh``), so
+and every header it includes (``philox.cuh``, ``scann_common.cuh``,
+``scann_grad_common.cuh``), so
 an edited header rebuilds every library that includes it. ``build_all`` starts one nvcc
 per source, all at once. Nothing here is imported from or built at module
 import time, and nothing falls back: a failed build raises.
@@ -31,7 +32,8 @@ SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("scann_forward", "scann_backward", "scann_loop", "local_attention")
+SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
+           "local_attention")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()

@@ -26,15 +26,17 @@ the same Philox masks, differentiated with ``torch.autograd.grad``.
 ``launch_scann_backward.launches`` counts kernel launches (each launch is
 the backward kernel plus its row reduction).
 
-Packed batches (``segment_onehot``) raise NotImplementedError: structure
-packing is not ported yet. Bound and design are in the source note of
+The gate (``refusal``) is the kernel's own shared-memory plan: seven
+[M, max(D, G)] buffers stay resident, so M <= 32 at D = G = 128; larger
+buckets train through the backward of the crystal loop kernel
+(``kernels.scann_loop``). Packed batches (``segment_onehot``) raise
+NotImplementedError: structure packing is not ported yet. Bound and design are in the source note of
 ``csrc/scann_backward.cu``; ``backward_flops`` counts the products the
 function needs, ``recompute_flops`` those the kernel's schedule adds.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -48,6 +50,7 @@ from scann_tpu_torch.kernels.scann_forward import (
     _LAYER_KEYS,
     _check_inputs,
     attention_scale,
+    call_kernel,
     dropout_masks_for,
     forward_flops,
     fused_scann_forward,
@@ -139,34 +142,45 @@ def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int]:
     return chunk_atoms, 4 * floats
 
 
-def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
-    """Raise NotImplementedError for what the backward kernel does not take."""
+def refusal(cfm: ModelConfig, M: int, N: int,
+            inputs: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
+    """Why the backward kernel does not take (config, M, N) or this batch,
+    or None where it does: the gate, read by ``check_supported`` and by the
+    dispatch in ``Trainer.train_route``."""
+    if inputs is not None and ("segment_onehot" in inputs or "segment_mask" in inputs):
+        return "packed batches (segment_onehot): structure packing is not ported yet"
     if M > MAX_ATOMS:
-        raise NotImplementedError(
-            f"M={M} atoms: the whole-model backward takes M <= {MAX_ATOMS}; training "
-            "larger structures needs the backward of the crystal loop kernel "
-            "(scann_tpu/kernels/scann_loop.py:_bwd_kernel), which is not ported yet")
+        return (f"M={M} atoms: the whole-model backward takes M <= {MAX_ATOMS}; larger "
+                "structures train through the backward of the crystal loop kernel "
+                "(kernels.scann_loop.loop_scann_train_grads)")
     if not cfm.use_attn_norm:
-        raise NotImplementedError(
-            "use_attn_norm=False: the kernel always applies ResidualNorm")
+        return ("use_attn_norm=False: the kernel always applies ResidualNorm; that "
+                "configuration trains through the per-layer model")
     if cfm.dtype != "float32":
-        raise NotImplementedError(f"model.dtype={cfm.dtype!r}: float32 only")
+        return f"model.dtype={cfm.dtype!r}: float32 only"
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
-        raise NotImplementedError(
-            f"sizes outside the backward kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
-            f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
-            f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
+        return (f"sizes outside the backward kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
+                f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
+                f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
     nbytes = shared_memory_plan(cfm, M, N)[1]
     if nbytes > MAX_SHARED_BYTES:
-        raise NotImplementedError(
-            f"M={M}, N={N}: the backward's shared-memory plan of {nbytes} bytes exceeds "
-            f"{MAX_SHARED_BYTES}")
+        return (f"M={M}, N={N}: the backward's shared-memory plan of {nbytes} bytes exceeds "
+                f"{MAX_SHARED_BYTES}; larger structures train through the backward of the "
+                "crystal loop kernel (kernels.scann_loop.loop_scann_train_grads)")
+    return None
+
+
+def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
+    """Raise NotImplementedError for what the backward kernel does not take."""
+    reason = refusal(cfm, M, N)
+    if reason:
+        raise NotImplementedError(reason)
 
 
 def _check_packed_inputs(inputs: Dict[str, torch.Tensor]) -> None:
-    if "segment_onehot" in inputs:
+    if "segment_onehot" in inputs or "segment_mask" in inputs:
         raise NotImplementedError(
             "packed batches (segment_onehot): structure packing is not ported yet")
 
@@ -233,62 +247,73 @@ def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, tor
                    mol_base)
 
 
+def allocate_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int, N: int,
+                     center_layers: int) -> Dict[str, Optional[torch.Tensor]]:
+    """The global scratch of one backward launch at batch shape (B, M, N):
+    the stashes of layer inputs (``center_layers`` sets of centers), of
+    ctx + query and, for SCANN+, of the geometry and its gradient, and the
+    [B, P] per-structure gradient rows. Its contents mean nothing between
+    launches, so a caller may keep it and hand it to every launch of that
+    shape."""
+    dev = packed["wde"].device
+    L, D, R = cfm.n_attention, cfm.local_dim, M * N
+    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
+    return {"c_stash": empty(B, center_layers, M, D), "o_stash": empty(B, L, M, D),
+            "g_stash": empty(B, L, R, D) if cfm.g_update else None,
+            "dgeo": empty(B, R, D) if cfm.g_update else None,
+            "rows": empty(B, grad_layout(packed)[1])}
+
+
+def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                     cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
+                     one_shot: bool, mrelu_head: bool, dropout_rate: float, seed: int,
+                     mol_base: int, chunk_atoms: int, scratch: Dict[str, Optional[torch.Tensor]]):
+    """What the whole-model backwards (this kernel and the crystal loop
+    backward) are launched with: (tensors in ``unpack_backward_args`` order,
+    sizes, scalars, random-stream words, gradient offsets with the row
+    length last), and the outputs (flat gradients [P], pred [B])."""
+    dev = packed["wde"].device
+    B, M = inputs["atomic"].shape[:2]
+    N = inputs["neighbors"].shape[2]
+    cgcnn = cfm.feature == "cgcnn"
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).reshape(B, -1).contiguous()
+    ct = f32(ct)[:, 0].contiguous()
+    ct_ga = f32(ct_ga) if ct_ga is not None and not one_shot else None
+    offsets, P = grad_layout(packed)
+    flat = torch.empty(P, device=dev, dtype=torch.float32)
+    pred = torch.empty(B, device=dev, dtype=torch.float32)
+    tensors = ([None if cgcnn else inputs["atomic"], inputs["atomic"] if cgcnn else None,
+                inputs["atom_mask"], inputs["neighbors"], inputs["neighbor_mask"],
+                inputs["neighbor_weight"], inputs["neighbor_distance"],
+                inputs.get("ring_aromatic") if cfm.use_ring else None,
+                packed["dist_centers"], packed.get("angle_centers"), ct, ct_ga]
+               + [packed.get(name) for name in GRAD_NAMES]
+               + [scratch[k] for k in ("c_stash", "o_stash", "g_stash", "dgeo", "rows")]
+               + [pred])
+    dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
+            cfm.global_dim, cfm.dense_out, cfm.n_attention, CGCNN_FEATURES,
+            packed["embed"].shape[0], int(cgcnn), int(cfm.use_ring), int(cfm.g_update),
+            int(cfm.use_ga_norm), int(mrelu_head), int(one_shot), chunk_atoms]
+    flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
+    return (tensors, dims + flags, [attention_scale(cfm), RBF_WIDTH, *scales], words,
+            offsets + [P], flat, pred)
+
+
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor], one_shot: bool,
             mrelu_head: bool = False, dropout_rate: float = 0.0, seed: int = 0,
             mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``_check_inputs`` accepted."""
-    from scann_tpu_torch.kernels._build import load_library
-
-    dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     check_supported(cfm, M, N)
     chunk_atoms, _ = shared_memory_plan(cfm, M, N)
-    L, D, R = cfm.n_attention, cfm.local_dim, M * N
-    cgcnn = cfm.feature == "cgcnn"
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).reshape(B, -1).contiguous()
-    ct = f32(ct)[:, 0].contiguous()
-    ct_ga = f32(ct_ga) if ct_ga is not None and not one_shot else None
-
-    offsets, P = grad_layout(packed)
-    empty = lambda *shape: torch.empty(shape, device=dev, dtype=torch.float32)
-    c_stash, o_stash = empty(B, L, M, D), empty(B, L, M, D)
-    g_stash = empty(B, L, R, D) if cfm.g_update else None
-    dgeo = empty(B, R, D) if cfm.g_update else None
-    rows, flat, pred = empty(B, P), empty(P), empty(B)
-    order = ([None if cgcnn else inputs["atomic"], inputs["atomic"] if cgcnn else None,
-              inputs["atom_mask"], inputs["neighbors"], inputs["neighbor_mask"],
-              inputs["neighbor_weight"], inputs["neighbor_distance"],
-              inputs.get("ring_aromatic") if cfm.use_ring else None,
-              packed["dist_centers"], packed.get("angle_centers"), ct, ct_ga]
-             + [packed.get(name) for name in GRAD_NAMES]
-             + [c_stash, o_stash, g_stash, dgeo, rows, pred])
-    ptrs = (ctypes.c_void_p * len(order))(*[None if t is None else t.data_ptr() for t in order])
-    vocab = packed["embed"].shape[0]
-    dims = [B, M, N, D, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian, cfm.global_dim,
-            cfm.dense_out, L, CGCNN_FEATURES, vocab, int(cgcnn), int(cfm.use_ring),
-            int(cfm.g_update), int(cfm.use_ga_norm), int(mrelu_head), int(one_shot),
-            chunk_atoms]
-    flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
-    dims += flags
-    scalars = (ctypes.c_float * 4)(attention_scale(cfm), RBF_WIDTH, *scales)
-    rng = (ctypes.c_uint32 * 4)(*words)
-    offs = (ctypes.c_longlong * (len(offsets) + 1))(*offsets, P)
-
-    lib = load_library("scann_backward")
-    fn = lib.scann_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, (ctypes.c_int * len(dims))(*dims), scalars, rng, offs,
-                ctypes.c_void_p(flat.data_ptr()), ctypes.c_void_p(stream))
-    if rc != 0:
-        err = lib.scann_backward_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        raise RuntimeError(f"scann_backward kernel launch failed ({rc}): {err(rc).decode()}")
+    scratch = allocate_scratch(packed, cfm, B, M, N, cfm.n_attention)
+    tensors, dims, scalars, rng, offsets, flat, pred = launch_arguments(
+        packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
+        chunk_atoms, scratch)
+    call_kernel("scann_backward", "scann_backward", packed["wde"].device, tensors, dims,
+                scalars, rng, offsets, flat)
     launch_scann_backward.launches += 1
     return flat, pred
 

@@ -305,9 +305,11 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
 
 
 def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, scalars,
-                rng=None) -> None:
+                rng=None, offsets=None, out: Optional[torch.Tensor] = None) -> None:
     """Launch ``<symbol>_launch`` of ``csrc/<library>.cu`` on ``dev``'s
-    current stream; a launch the card refuses raises RuntimeError."""
+    current stream; a launch the card refuses raises RuntimeError. The
+    backward kernels also take the gradient ``offsets`` and the tensor
+    ``out`` that their row reduction fills."""
     from scann_tpu_torch.kernels._build import load_library
 
     lib = load_library(library)
@@ -316,6 +318,10 @@ def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, sca
             (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * len(scalars))(*scalars)]
     if rng is not None:
         args.append((ctypes.c_uint32 * len(rng))(*rng))
+    if offsets is not None:
+        args.append((ctypes.c_longlong * len(offsets))(*offsets))
+    if out is not None:
+        args.append(ctypes.c_void_p(out.data_ptr()))
     fn = getattr(lib, f"{symbol}_launch")
     fn.argtypes = [ctypes.c_void_p] * (len(args) + 1)
     fn.restype = ctypes.c_int

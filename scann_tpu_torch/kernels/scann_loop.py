@@ -1,12 +1,14 @@
-"""Whole-model SCANN forward for crystals on the GPU: the wrapper around
-``csrc/scann_loop.cu``.
+"""Whole-model SCANN forward and backward for crystals on the GPU: the
+wrappers around ``csrc/scann_loop.cu`` and ``csrc/scann_loop_backward.cu``.
 
-Replaces ``scann_tpu/kernels/scann_loop.py:_fwd_kernel`` (the Pallas TPU
-kernel that runs the whole model with a ``fori_loop`` over its layers) for
-unpacked batches whose structures are too large for the molecule kernel of
-``kernels.scann_forward``: MP2018 at (M=96, N=32, 9 layers), Pt/graphene at
-(M=128, N=32, 11 layers, ring features). The backward half of the TPU module
-(``_bwd_kernel``) is not ported yet, so crystals are served, not trained.
+Replaces ``scann_tpu/kernels/scann_loop.py`` (the Pallas TPU kernels that run
+the whole model with a ``fori_loop`` over its layers: ``_fwd_kernel`` and
+``_bwd_kernel``) for unpacked batches whose structures are too large for the
+molecule kernels of ``kernels.scann_forward`` / ``kernels.scann_backward``:
+MP2018 at (M=96, N=32, 9 layers), Pt/graphene at (M=128, N=32, 11 layers,
+ring features).
+
+Forward:
 
 - ``loop_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate,
   dropout_seed)`` keeps the JAX signature and layout: (property [B, 1],
@@ -28,9 +30,41 @@ unpacked batches whose structures are too large for the molecule kernel of
   to 128, float32. Packed batches (``segment_onehot``) and
   ``use_attn_norm=False`` are refused.
 
-Bound and design are in the source note of ``csrc/scann_loop.cu``: about
-1.85e11 FLOP of FP32 FMA per MP2018 batch (B=64, M=96, N=32, L=9, D=128), so
-it is bound by operations (~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak).
+Backward (crystal training):
+
+- ``loop_scann_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+  dropout_seed)``: the parameter gradients of (pred, ga) contracted with the
+  cotangents. ``loop_scann_train_grads(params, inputs, targets, cfm,
+  mrelu_head, dropout_rate, dropout_seed)``: the one-shot training step,
+  forward, residual and backward in one launch -> (pred [B, 1], raw gradients
+  of 0.5 * sum((pred - t)^2)); mrelu is straight-through. ``loop_scann_apply``
+  is a ``torch.autograd.Function``: forward = the loop forward kernel,
+  backward = the loop backward kernel, on the same dropout masks. Gradients
+  come back as a flat dict keyed like the params. CUDA tensors launch the
+  kernel (``launch_loop_backward``, whose ``.launches`` counts launches: the
+  backward kernel plus its row reduction) or raise; CPU tensors run the plain
+  versions ``reference_loop_grad`` / ``reference_loop_train_grads``: the eager
+  training forward under ``torch.autograd``, the code of
+  ``kernels.scann_backward.reference_fused_scann_*``.
+- Its gate (``backward_refusal``) is again the kernel's own plan
+  (``loop_backward_memory_plan``): one resident [M, max(D, G)] buffer (the
+  centers going forward, the accumulating d(layer input) going back), five
+  slots for a block of 32, 16 or 8 atoms, and a work region for a chunk of at
+  most 32 (atom, neighbour) rows, so N <= 32 and, at D = G = 128 and N = 32,
+  M <= 96 with blocks of 32, M <= 168 with blocks of 16 and M <= 208 with
+  blocks of 8: lower than the forward's 232. Beyond it a bucket trains
+  through the per-layer model under ``torch.autograd``
+  (``Trainer.train_route``).
+- The global scratch of a launch (``loop_backward_scratch``: the stashes of
+  layer inputs and, for SCANN+, 0.9 GB of geometry at the MP2018 batch, and
+  the [B, P] gradient rows) can be allocated once per batch shape and handed
+  to every launch.
+
+Bounds and designs are in the source notes of the two CUDA files: about
+1.85e11 FLOP of FP32 FMA per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for
+the forward (~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak) and 5.5e11 for
+the backward (~8.2 ms); ``loop_backward_flops`` counts what the function
+needs, ``loop_recompute_flops`` what the backward's schedule adds.
 """
 
 from __future__ import annotations
@@ -40,6 +74,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from scann_tpu_torch.config import ModelConfig
+from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_CHUNK_ROWS,
@@ -49,6 +84,8 @@ from scann_tpu_torch.kernels.scann_forward import (
 
 REPLACES = "scann_tpu/kernels/scann_loop.py:208"  # _fwd_kernel
 SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
+BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
+BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
 
 
@@ -182,3 +219,251 @@ def loop_forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     """Multiply-add FLOPs (2 per FMA) of the forward at one padded batch:
     the products are those of the molecule kernel, so is the count."""
     return kfwd.forward_flops(cfm, B, M, N)
+
+
+# --- the backward ---------------------------------------------------------------
+
+def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int]:
+    """(atoms per chunk of rows, atoms per block, shared bytes per block) --
+    the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks. The
+    atom block is the largest of 32, 16, 8 whose plan fits a block's shared
+    memory (the smallest one's plan if none does)."""
+    r4 = lambda x: -(-x // 4) * 4
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    wd = max(D, G)
+    lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+    ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
+    for block in ATOM_BLOCKS:
+        block = min(block, M)
+        chunk_atoms = max(1, min(block, kbwd.MAX_CHUNK_ROWS // max(N, 1)))
+        rows = chunk_atoms * N
+        work = max(rows * 2 * D + 3 * rows * D + 3 * r4(rows * H),
+                   5 * block * wd + r4(block),
+                   block * (2 * lde + ldf) + block * wd)
+        floats = (M * wd + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd + 4 * wd
+                  + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)
+        if 4 * floats <= MAX_SHARED_BYTES:
+            break
+    return chunk_atoms, block, 4 * floats
+
+
+def backward_refusal(cfm: ModelConfig, M: int, N: int,
+                     inputs: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
+    """Why the loop backward does not take (config, M, N) or this batch, or
+    None where it does: the gate, read by ``check_backward_supported`` and by
+    the dispatch in ``Trainer.train_route``."""
+    if inputs is not None and ("segment_onehot" in inputs or "segment_mask" in inputs):
+        return ("packed batches (segment_onehot): the per-segment readout of the loop "
+                "kernels belongs to structure packing, which is not ported yet")
+    if not supports_loop(cfm):
+        return ("use_attn_norm=False: the loop kernels always apply ResidualNorm; that "
+                "configuration trains through the per-layer model "
+                "(models.scann.scann_forward with use_pallas, under torch.autograd)")
+    if M < 1:
+        return f"M={M}: no atoms"
+    reason = kfwd.common_refusal(cfm, N)
+    if reason is None and N > kbwd.MAX_CHUNK_ROWS:
+        reason = (f"N={N} neighbours: the loop backward walks chunks of at most "
+                  f"{kbwd.MAX_CHUNK_ROWS} (atom, neighbour) rows; wider buckets train "
+                  "through the per-layer model")
+    nbytes = 0 if reason else loop_backward_memory_plan(cfm, M, N)[2]
+    if nbytes > MAX_SHARED_BYTES:
+        reason = (f"M={M} atoms: the resident buffer plus one atom block need {nbytes} bytes "
+                  f"of shared memory, a block has {MAX_SHARED_BYTES}; larger structures "
+                  "train through the per-layer model")
+    return reason
+
+
+def check_backward_supported(cfm: ModelConfig, M: int, N: int,
+                             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Raise NotImplementedError for what the loop backward does not take."""
+    reason = backward_refusal(cfm, M, N, inputs)
+    if reason:
+        raise NotImplementedError(reason)
+
+
+def reference_loop_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                        cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None, mol_base: int = 0
+                        ) -> Dict[str, torch.Tensor]:
+    """The plain version of ``loop_scann_grad``: gradients of sum(pred *
+    ct_pred) + sum(ga * ct_ga) through the eager training forward."""
+    return kbwd.reference_fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+                                           dropout_seed or 0, mol_base)
+
+
+def reference_loop_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                               targets, cfm: ModelConfig, mrelu_head: bool = False,
+                               dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                               mol_base: int = 0
+                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The plain version of ``loop_scann_train_grads``: (pred [B, 1],
+    gradients of 0.5 * sum((pred - t)^2)); mrelu is straight-through."""
+    return kbwd.reference_fused_scann_train_grads(params, inputs, targets, cfm, mrelu_head,
+                                                  dropout_rate, dropout_seed or 0, mol_base)
+
+
+def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int,
+                          N: int) -> Dict[str, Optional[torch.Tensor]]:
+    """The global scratch of one loop-backward launch at batch shape (B, M,
+    N): that of the molecule backward with the last centers stashed too, plus
+    the [B, M, D] d(layer output). A trainer allocates it once per shape."""
+    scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1)
+    scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=packed["wde"].device,
+                                      dtype=torch.float32)
+    return scratch
+
+
+def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                         cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
+                         one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
+                         seed: int = 0, mol_base: int = 0,
+                         scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check CUDA inputs and launch the loop backward and its row reduction
+    with ``pack_params`` output. ``ct`` [B] is d pred, or the targets when
+    ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
+    from ``loop_backward_scratch`` at this batch shape (allocated here when
+    None). Returns (flat gradients [P], pred [B])."""
+    dev = packed["wde"].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
+                             inputs)
+    kfwd._check_inputs(inputs, cfm, dev)
+    return _launch_backward(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate,
+                            seed, mol_base, scratch)
+
+
+launch_loop_backward.launches = 0
+
+
+def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                     cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
+                     one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
+                     seed: int = 0, mol_base: int = 0,
+                     scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``launch_loop_backward`` accepted."""
+    B, M = inputs["atomic"].shape[:2]
+    N = inputs["neighbors"].shape[2]
+    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N)
+    if scratch is None:
+        scratch = loop_backward_scratch(packed, cfm, B, M, N)
+    elif scratch["dcenters"].shape != (B, M, cfm.local_dim):
+        raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} handed to a "
+                         f"batch of shape {(B, M, cfm.local_dim)}")
+    tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
+        packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
+        chunk_atoms, scratch)
+    kfwd.call_kernel("scann_loop_backward", "scann_loop_backward", packed["wde"].device,
+                     tensors + [scratch["dcenters"]], dims + [atom_block], scalars, rng,
+                     offsets, flat)
+    launch_loop_backward.launches += 1
+    return flat, pred
+
+
+def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                    cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Parameter gradients of (pred, ga) contracted with (ct_pred [B] or
+    [B, 1], ct_ga [B, M] or [B, M, 1]) through the loop backward kernel."""
+    dev = inputs["atomic"].device
+    check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
+                             inputs)
+    if dev.type == "cpu":
+        return reference_loop_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+                                   dropout_seed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    packed = pack_params(params, cfm)
+    flat, _ = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(ct_pred, device=dev),
+                                   torch.as_tensor(ct_ga, device=dev), False, False,
+                                   dropout_rate, dropout_seed or 0)
+    return kbwd.grads_from_flat(flat, packed, cfm)
+
+
+def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                           targets, cfm: ModelConfig, mrelu_head: bool = False,
+                           dropout_rate: float = 0.0, dropout_seed: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-shot crystal training: forward, residual and backward in one
+    launch. Returns (pred [B, 1], raw gradients of 0.5 * sum((pred - t)^2));
+    the caller turns them into RMSE + l2 gradients (``train.loop``)."""
+    dev = inputs["atomic"].device
+    check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
+                             inputs)
+    if dev.type == "cpu":
+        return reference_loop_train_grads(params, inputs, targets, cfm, mrelu_head,
+                                          dropout_rate, dropout_seed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    packed = pack_params(params, cfm)
+    flat, pred = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
+                                      None, True, mrelu_head, dropout_rate, dropout_seed or 0)
+    return pred.view(-1, 1), kbwd.grads_from_flat(flat, packed, cfm)
+
+
+class _LoopScannApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, inputs, *values):
+        keys, cfm, mrelu_head, dropout_rate, seed = spec
+        pred, ga = loop_scann_forward(dict(zip(keys, values)), inputs, cfm, mrelu_head,
+                                      dropout_rate, seed)
+        ctx.spec, ctx.inputs = spec, inputs
+        ctx.save_for_backward(*values)
+        return pred, ga
+
+    @staticmethod
+    def backward(ctx, d_pred, d_ga):
+        keys, cfm, _, dropout_rate, seed = ctx.spec
+        params = dict(zip(keys, ctx.saved_tensors))
+        B, M = ctx.inputs["atomic"].shape[:2]
+        dev = ctx.saved_tensors[0].device
+        ct_pred = d_pred if d_pred is not None else torch.zeros(B, 1, device=dev)
+        ct_ga = d_ga if d_ga is not None else torch.zeros(B, M, 1, device=dev)
+        # mrelu head: straight-through, so the cotangent passes unchanged
+        grads = loop_scann_grad(params, ctx.inputs, cfm, ct_pred, ct_ga, dropout_rate, seed)
+        return (None, None, *[grads[k] for k in keys])
+
+
+def loop_scann_apply(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                     cfm: ModelConfig, mrelu_head: bool = False, dropout_rate: float = 0.0,
+                     dropout_seed: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable crystal-scale forward -> (pred [B, 1], ga [B, M, 1]):
+    ``torch.autograd`` through it runs the loop backward kernel (parameter
+    gradients only), on the dropout masks of the forward."""
+    keys = tuple(params)
+    spec = (keys, cfm, mrelu_head, dropout_rate, dropout_seed or 0)
+    return _LoopScannApply.apply(spec, inputs, *[params[k] for k in keys])
+
+
+def loop_backward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """Multiply-add FLOPs (2 per FMA) that the function needs at one padded
+    batch, whatever the schedule: the products are those of the molecule
+    backward, so is the count. The kernel's bound is computed from it."""
+    return kbwd.backward_flops(cfm, B, M, N)
+
+
+def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """FLOPs that the loop backward's schedule adds to ``loop_backward_flops``
+    at one padded batch: in the reverse walk each layer's ResidualNorm, query
+    (and cw), (atom, neighbour) rows and energies again (the context is
+    stashed); in the readout's second pass after_Lc and the GA queries; the
+    embedding and the SCANN+ geometry embedding. Elementwise work, softmax
+    and LayerNorm are left out, as in ``forward_flops``."""
+    D, K, E, G = cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim, cfm.global_dim
+    R = M * N
+    mm = lambda rows, k, n: 2 * rows * k * n
+    f = mm(M, D, G) + mm(M, G, G)                                  # readout, second pass
+    per_layer = 2 * mm(M, D, D)                                    # ResidualNorm
+    per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)          # query (and cw)
+    per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
+    per_layer += 2 * R * D                                         # energies
+    f += cfm.n_attention * per_layer
+    f += mm(M, E + (10 if cfm.use_ring else 0), D)                 # embedding
+    if cfm.feature == "cgcnn":
+        f += mm(M, kbwd.CGCNN_FEATURES, E)
+    if cfm.g_update:
+        f += 2 * mm(R, K, D)                                       # geometry embedding
+    return B * f

@@ -9,13 +9,19 @@ MAE, best-val checkpoints, a test report.
 - Each bucket's padded arrays go to the device once; a step gathers its
   batch there with an index vector (``loop.py:340-360``), and each epoch
   wrap-pads its last batch.
-- A step on CUDA is ONE launch of the backward kernel (forward recompute,
-  residual and every gradient) plus its row reduction
-  (``fused_scann_train_grads``), at dropout 0.1; the raw gradients are
-  scaled by 1 / (n * rmse) and the l2 gradient is added, as at
-  ``loop.py:391-427``. There is no ``torch.autograd`` on that path and no
-  fallback: a bucket the kernel does not take raises. On the CPU the same
-  step runs the kernel's plain version.
+- A step takes one of three routes, chosen from (config, M, N) before
+  anything is launched (``Trainer.train_route``, the mirror of
+  ``eval_route`` and of ``loop.py:384-430``): "fused", ONE launch of the
+  molecule backward kernel (forward recompute, residual and every gradient)
+  plus its row reduction where its gate passes (M <= 32 at D = 128); else
+  "loop", ONE launch of the crystal loop backward kernel where its gate
+  passes (M <= 208 at N = 32, D = 128); else "per_layer", the per-layer
+  model under ``torch.autograd`` (one LocalAttention kernel launch per layer
+  going forward, the plain layer going back). All run at dropout 0.1 on the
+  same Philox masks; the raw gradients are scaled by 1 / (n * rmse) and the
+  l2 gradient is added, as at ``loop.py:391-427``. A kernel that fails to
+  build or launch raises: no route gives way to another at run time. On the
+  CPU the same routes run the kernels' plain versions.
 - The epoch order and the dropout seeds come from a ``torch.Generator``
   seeded from (seed, epoch, bucket) alone, so a resumed run replays an
   uninterrupted one exactly (``loop.py:738-751``).
@@ -40,15 +46,24 @@ import torch
 
 from scann_tpu_torch.config import ScannConfig, save_config
 from scann_tpu_torch.data.pipeline import PackedBucket
+from scann_tpu_torch.kernels import scann_backward as kbwd
+from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import scann_loop as kloop
 from scann_tpu_torch.kernels.scann_backward import (
     fused_scann_train_grads,
     grads_from_flat,
     launch_scann_backward,
 )
-from scann_tpu_torch.kernels import scann_forward as kfwd
-from scann_tpu_torch.kernels import scann_loop as kloop
-from scann_tpu_torch.kernels.scann_forward import launch_scann_forward, pack_params
-from scann_tpu_torch.kernels.scann_loop import launch_loop_forward
+from scann_tpu_torch.kernels.scann_forward import (
+    dropout_masks_for,
+    launch_scann_forward,
+    pack_params,
+)
+from scann_tpu_torch.kernels.scann_loop import (
+    launch_loop_backward,
+    launch_loop_forward,
+    loop_scann_train_grads,
+)
 from scann_tpu_torch.models.scann import (
     init_params,
     l2_penalty,
@@ -97,6 +112,7 @@ class Trainer:
         self.version = 0
         self._packed: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
         self._device_buckets: Dict[Tuple[str, int], tuple] = {}
+        self._loop_scratch: Dict[Tuple[int, int, int], dict] = {}
         self.history: Optional[Dict[str, list]] = None
 
     # --- parameters and optimizer state ---------------------------------------
@@ -180,20 +196,64 @@ class Trainer:
         self._adam(keys, grads, lr)
         return loss.detach(), mae.detach()
 
+    def train_route(self, M: int, N: int) -> str:
+        """Which backward a training batch of shape (M, N) takes, from the
+        kernels' gates alone: "fused" (the whole-model molecule backward),
+        "loop" (the whole-model crystal loop backward) or "per_layer" (the
+        per-layer model under ``torch.autograd``)."""
+        cfm = self.config.model
+        if kbwd.refusal(cfm, M, N) is None:
+            return "fused"
+        if kloop.backward_refusal(cfm, M, N) is None:
+            return "loop"
+        return "per_layer"
+
     def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(pred [B], gradients of 0.5 * sum((pred - y)^2)) at the training
-        dropout: one backward-kernel launch on CUDA, its plain version on
-        the CPU."""
+        dropout, by the route of ``train_route``: on CUDA one launch of the
+        molecule or the loop backward kernel (the loop kernel's scratch is
+        kept per batch shape), or the per-layer model under autograd; on the
+        CPU the kernels' plain versions."""
         cfm = self.config.model
+        B, M = batch["atomic"].shape[:2]
+        N = batch["neighbors"].shape[2]
+        route = self.train_route(M, N)
+        if route == "per_layer":
+            return self._per_layer_grads(batch, y, seed)
         if self.device.type == "cuda":
             packed = self.kernel_params()
-            flat, pred = launch_scann_backward(packed, batch, cfm, y, None, True,
-                                               self.mrelu_head, self.dropout_rate, seed)
+            if route == "fused":
+                flat, pred = launch_scann_backward(packed, batch, cfm, y, None, True,
+                                                   self.mrelu_head, self.dropout_rate, seed)
+            else:
+                scratch = self._loop_scratch.get((B, M, N))
+                if scratch is None:
+                    scratch = self._loop_scratch[(B, M, N)] = kloop.loop_backward_scratch(
+                        packed, cfm, B, M, N)
+                flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
+                                                  self.mrelu_head, self.dropout_rate, seed,
+                                                  scratch=scratch)
             return pred, grads_from_flat(flat, packed, cfm)
-        pred, raw = fused_scann_train_grads(self.params, batch, y, cfm, self.mrelu_head,
-                                            self.dropout_rate, seed)
+        grads_fn = fused_scann_train_grads if route == "fused" else loop_scann_train_grads
+        pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed)
         return pred[:, 0], raw
+
+    def _per_layer_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The third route: the training forward of the per-layer model
+        (``scann_forward(use_pallas=True)``: on CUDA one LocalAttention
+        kernel launch per layer, whose backward recomputes the plain layer)
+        differentiated by ``torch.autograd``; the same residual and the same
+        dropout masks as the whole-model kernels."""
+        cfm = self.config.model
+        masks = dropout_masks_for(cfm, batch, self.dropout_rate, seed)
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
+            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True)
+            loss = 0.5 * ((pred[:, 0] - y) ** 2).sum()
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return pred.detach()[:, 0], dict(zip(leaves, grads))
 
     def _adam(self, keys: List[str], grads: List[torch.Tensor], lr: float) -> None:
         """optax.scale_by_adam(0.9, 0.999, eps=1e-7), then params -= lr * update."""

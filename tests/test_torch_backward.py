@@ -197,11 +197,12 @@ def test_torch_backward_flops_qm9():
 def test_torch_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """Editing a header that a kernel includes changes that kernel's
     library path, so a stale build is never loaded."""
-    for f in ("scann_backward.cu", "scann_common.cuh", "philox.cuh"):
+    for f in ("scann_backward.cu", "scann_grad_common.cuh", "scann_common.cuh", "philox.cuh"):
         (tmp_path / f).write_text(open(f"{_build.SRC_DIR}/{f}").read())
     monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
     names = [p.rsplit("/", 1)[1] for p in _build.source_files("scann_backward")]
-    assert names == ["scann_backward.cu", "philox.cuh", "scann_common.cuh"]
+    assert names == ["scann_backward.cu", "philox.cuh", "scann_grad_common.cuh",
+                     "scann_common.cuh"]
     before = _build.library_path("scann_backward")
     (tmp_path / "philox.cuh").write_text((tmp_path / "philox.cuh").read_text() + "\n// edit\n")
     assert _build.library_path("scann_backward") != before

@@ -174,10 +174,15 @@ def test_torch_forward_eval_dispatch(cfm, M, N, route, monkeypatch):
 
 
 def test_torch_training_refuses_crystal_buckets_naming_the_loop_backward():
+    """The molecule backward refuses a crystal bucket and names the route
+    that trains it, the backward of the crystal loop kernel, which takes it."""
     from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
 
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
+    with pytest.raises(NotImplementedError, match="loop_scann_train_grads"):
         kbwd.check_supported(MP2018, 96, 32)
+    assert "loop_scann_train_grads" in kbwd.refusal(MP2018, 96, 32)
+    assert kloop.backward_refusal(MP2018, 96, 32) is None
 
 
 def test_torch_local_attention_gate_and_flops():

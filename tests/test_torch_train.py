@@ -1,7 +1,10 @@
 """The PyTorch port's training path on the CPU: schedules and a 20-step
-loss trajectory against the JAX package, exact resume, the parameter
-version that keeps the kernels' weight layout fresh, yaml-free configs and
-checkpoints, and the two training CLIs."""
+loss trajectory against the JAX package, a crystal trajectory by the loop
+route and by the per-layer route against the JAX loop-kernel step, exact
+resume, the parameter version that keeps the kernels' weight layout fresh,
+yaml-free configs and checkpoints, and the two training CLIs."""
+
+import functools
 
 import json
 import os
@@ -17,12 +20,14 @@ import yaml
 
 from conftest import jit_init_vars, make_synthetic_batch
 from scann_tpu.config import ModelConfig as JaxModelConfig
+from scann_tpu.kernels.scann_loop import loop_scann_train_grads as jax_loop_train_grads
 from scann_tpu.models import ScannModel as JaxScannModel
 from scann_tpu.models.scann import l2_penalty as jax_l2_penalty
 from scann_tpu.train import schedules as jax_schedules
 from scann_tpu_torch.api import Scann
 from scann_tpu_torch.compat import params_from_jax
 from scann_tpu_torch.config import HyperConfig, ModelConfig, ScannConfig, TpuConfig, save_config
+from scann_tpu_torch.data.pipeline import load_dataset, pack_dataset
 from scann_tpu_torch.data.synthetic import make_synthetic_dataset
 from scann_tpu_torch.models.scann import ScannModel, l2_penalty
 from scann_tpu_torch.train import loop, schedules
@@ -105,6 +110,86 @@ def test_torch_training_trajectory_matches_jax_step(rng):
         for k, r in ref.items():
             torch.testing.assert_close(mine[k], r, rtol=0,
                                        atol=1e-4 * float(r.abs().max()), msg=k)
+
+
+CRYSTAL_STEPS, CRYSTAL_BATCH = 6, 4
+CRYSTAL = dict(SMALL, n_atoms=30)       # the synthetic crystals go up to Fe (26)
+
+
+@functools.lru_cache(maxsize=None)
+def _crystal_trajectory(data_dir):
+    """Synthetic periodic crystals of 66-72 sites packed into one (72, N)
+    bucket, and CRYSTAL_STEPS Adam steps on them at dropout 0 by the JAX
+    package: its loop backward kernel in interpret mode (one-shot mode), the
+    1/(n*rmse) scale, the l2 gradient and optax.scale_by_adam. Returns (the
+    bucket, the initial flax params, the batches' rows, the losses, the final
+    params)."""
+    jcfg = JaxModelConfig(**CRYSTAL)
+    energy, nbr = make_synthetic_dataset(data_dir, n_structures=10, min_atoms=66, max_atoms=72,
+                                         periodic=True, seed=3)
+    records, neighbors = load_dataset(energy, nbr, "homo")
+    bucket, = pack_dataset(records, neighbors, g_update=True, max_buckets=1)
+    assert bucket.shape[0] == 72
+    data = bucket.inputs
+    y_all = np.linspace(-1.5, 1.5, bucket.num_structures).astype(np.float32)
+    model = JaxScannModel(config=jcfg)
+    first = {k: v[:CRYSTAL_BATCH] for k, v in data.items()}
+    params0 = jax.device_get(jit_init_vars(model, jax.random.PRNGKey(0), first)["params"])
+    tx = optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-7)
+
+    @jax.jit
+    def jax_step(params, opt, batch, y, lr):
+        pred, raw = jax_loop_train_grads(params, batch, y, jcfg, interpret=True)
+        rmse = jnp.sqrt(jnp.mean((pred[:, 0] - y) ** 2))
+        l2g = jax.grad(lambda p: jax_l2_penalty(p, 1e-4))(params)
+        g = jax.tree.map(lambda r, g2: r / (y.shape[0] * rmse) + g2, raw, l2g)
+        upd, opt = tx.update(g, opt, params)
+        params = optax.apply_updates(params, jax.tree.map(lambda u: -lr * u, upd))
+        return params, opt, rmse + jax_l2_penalty(params, 1e-4)
+
+    plan = np.random.default_rng(1)
+    rows = [plan.choice(bucket.num_structures, size=CRYSTAL_BATCH, replace=False)
+            for _ in range(CRYSTAL_STEPS)]
+    params, opt, losses = params0, tx.init(params0), []
+    for step, idx in enumerate(rows):
+        before = params
+        params, opt, _ = jax_step(params, opt, {k: v[idx] for k, v in data.items()},
+                                  jnp.asarray(y_all[idx]), 5e-4 / (1.0 + 1e-5 * step))
+        pred = model.apply({"params": before}, {k: v[idx] for k, v in data.items()},
+                           deterministic=True)["property"][:, 0]
+        losses.append(float(jnp.sqrt(jnp.mean((pred - y_all[idx]) ** 2))
+                            + jax_l2_penalty(before, 1e-4)))
+    return bucket, params0, rows, y_all, losses, jax.device_get(params)
+
+
+@pytest.mark.parametrize("route", ["loop", "per_layer"])
+def test_torch_crystal_trajectory_matches_jax_loop_step(route, tmp_path_factory, monkeypatch):
+    """A bucket with M = 72 > 64 trains by the loop route on the CPU (the loop
+    backward's plain version); with the whole-model gates shut it trains by
+    the per-layer route. Either way the losses and the weights after the
+    steps match the JAX loop-kernel step: losses to 1e-4 relative, every
+    tensor within 1e-4 x its max."""
+    tcfg = ModelConfig(**CRYSTAL)
+    data_dir = str(tmp_path_factory.getbasetemp().parent / "torch_crystal_trajectory")
+    bucket, params0, rows, y_all, want, final = _crystal_trajectory(data_dir)
+    trainer = loop.Trainer(ScannConfig(model=tcfg, hyper=HyperConfig(batch_size=CRYSTAL_BATCH)),
+                           "cpu")
+    trainer.load_params(params_from_jax(params0, tcfg))
+    trainer.dropout_rate = 0.0
+    if route == "per_layer":
+        monkeypatch.setattr(loop.kloop, "backward_refusal", lambda *a, **k: "shut for this test")
+    assert trainer.train_route(*bucket.shape) == route
+    got = []
+    for step, idx in enumerate(rows):
+        tb = loop._to_device({k: v[idx] for k, v in bucket.inputs.items()}, trainer.device)
+        loss, _ = trainer.train_step(tb, torch.from_numpy(y_all[idx]),
+                                     5e-4 / (1.0 + 1e-5 * step), seed=0)
+        got.append(float(loss))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert trainer.step == CRYSTAL_STEPS
+    for k, r in params_from_jax(final, tcfg).items():
+        torch.testing.assert_close(trainer.params[k], r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=k)
 
 
 def _config(tmp_path, n=40, **hyper):
