@@ -41,18 +41,22 @@ layers); random weights from seeds:
 9. holds the crystal loop-backward kernel against its plain version (the
    eager training forward under ``torch.autograd``, same Philox masks): a
    small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
-   blocks of 32, 16 and 8, then MP2018 (B=64, M=96, N=32) and Pt/graphene
-   (B=64, M=128, N=32) at full width, each with a second launch that must
-   give the same gradients bit for bit, and times it;
+   blocks of 32, 16 and 8, then MP2018 (B=64, M=96, at N=32 and at N=16)
+   and Pt/graphene (B=64, M=128, N=32) at full width, each with further
+   launches on a kept scratch filled with NaN or a constant that must give
+   the same gradients bit for bit, and times it;
 10. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
-   (the crystal training path) on synthetic periodic crystals of 20-90 sites
-   at the full width and depth of the MP2018 model, batch 64, in the
-   recipe's 4 buckets; checks one loop-backward launch per step and none of
-   the molecule backward, the eval launches against the routes, the same run
-   with the plain step and ``load_model_infer``; trains 2 epochs in one
-   bucket, where every pass must lower the loss without dropout; and takes
-   one training step by the per-layer route on structures beyond the loop
-   backward's gate, held against the plain step.
+   (the crystal training path) on 480 synthetic periodic crystals of 20-90
+   sites at the full width and depth of the MP2018 model, batch 64, in the
+   recipe's 4 buckets with the neighbour axis padded to the recipe's 32 (the
+   largest is the recipe's (96, 32)); holds the kernel against its plain
+   version on the first batch of every bucket; checks one loop-backward
+   launch per step and none of the molecule backward, the eval launches
+   against the routes, the same run with the plain step and
+   ``load_model_infer``; trains 2 epochs in one bucket (96, 16), where every
+   pass must lower the loss without dropout; and takes one training step by
+   the per-layer route on structures beyond the loop backward's gate, held
+   against the plain step.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, then one ``{"kernels": [...]}`` line and, last,
@@ -205,6 +209,57 @@ def hold_backward(label, what, got_p, want_p, got_g, want_g, line, failures):
         failures.append(f"{label} {what}: gradient {key} off by {rel:.3e} of its max "
                         f"(limit {GRAD_RTOL}), finite={finite}")
     return max(worst, ab)
+
+
+def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None, relaunches=0):
+    """Hold the crystal loop-backward kernel against its plain version on one
+    batch: in one-shot mode, and in cotangent mode when ``ct`` = (d pred, d
+    ga) is given. With ``relaunches``, that many further one-shot launches run
+    on a kept scratch (as a Trainer keeps its scratch from step to step) that
+    is filled with NaN before one launch and with a finite constant before
+    the next: each must return the first launch's pred and gradients bit for
+    bit, so a race, or a read of scratch that the launch itself did not
+    write, fails here. Prints one line; returns the largest absolute
+    difference from the plain version."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N)
+    label = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk) "
+             f"dropout {rate}")
+    line = [label]
+    pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
+    torch.cuda.synchronize()
+    pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, seed)
+    worst = hold_backward(label, "one-shot", pred, pred0, g, g0, line, failures)
+    if ct is not None:
+        g1 = kloop.loop_scann_grad(p, x, cfm, ct[0], ct[1], rate, seed)
+        torch.cuda.synchronize()
+        g2 = kloop.reference_loop_grad(p, x, cfm, ct[0], ct[1], rate, seed)
+        worst = max(worst, hold_backward(label, "ct_ga", None, None, g1, g2, line, failures))
+    if relaunches:
+        packed = kfwd.pack_params(p, cfm)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
+        differ = set()
+        for i in range(relaunches):
+            for t in scratch.values():
+                if t is not None:
+                    t.fill_(float("nan") if i % 2 == 0 else -3.0)
+            flat, pred_i = kloop.launch_loop_backward(packed, x, cfm, y, None, True, mrelu, rate,
+                                                      seed, 0, scratch)
+            again = kbwd.grads_from_flat(flat, packed, cfm)
+            differ |= {k for k in g if not torch.equal(g[k], again[k])}
+            if not torch.equal(pred_i.view(-1, 1), pred):
+                differ.add("pred")
+        line.append(f"{relaunches} launches on NaN- and constant-filled scratch bit-identical: "
+                    f"{not differ}")
+        if differ:
+            failures.append(f"{label}: launches on the same inputs differ in {sorted(differ)}")
+    print("  ".join(line), flush=True)
+    return worst
 
 
 def time_backward(cfm, params, packed, inputs, card):
@@ -859,9 +914,10 @@ def phase9(matrix, mp2018, ptgp, failures, card):
     """The crystal loop-backward kernel against its plain version (the eager
     training forward under torch.autograd, same Philox masks): a small matrix
     in cotangent and one-shot mode at dropout 0 and 0.1, the atom blocks of
-    16 and 8, then MP2018 and Pt/graphene at full width with two launches
-    held bit for bit, and its time. Returns (largest abs error, timing of
-    the MP2018 shape)."""
+    16 and 8, then MP2018 (N=32 and N=16) and Pt/graphene at full width,
+    with relaunches on garbage-filled scratch held bit for bit, and its
+    time. Returns (largest abs error, timing of the MP2018 (96, 32) shape,
+    the largest bucket of phase 10's main path)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_backward as kbwd
@@ -872,34 +928,17 @@ def phase9(matrix, mp2018, ptgp, failures, card):
     rng = np.random.default_rng(9)
     worst = 0.0
 
-    def compare(name, cfm, x, mrelu=False, rate=0.0, cotangent=True, repeat=False):
+    def compare(name, cfm, x, mrelu=False, rate=0.0, cotangent=True, relaunches=0):
         nonlocal worst
         B, M = x["atom_mask"].shape[:2]
-        N = x["neighbors"].shape[2]
-        _, block, _ = kloop.loop_backward_memory_plan(cfm, M, N)
-        label = f"phase 9 {name} B={B} M={M} N={N} (atom block {block}) dropout {rate}"
         p = init_params(cfm, torch.Generator().manual_seed(9), "cuda")
         y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
-        line = [label]
-        pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, 11)
-        torch.cuda.synchronize()
-        pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, 11)
-        worst = max(worst, hold_backward(label, "one-shot", pred, pred0, g, g0, line, failures))
+        ct = None
         if cotangent:
-            ctp = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
-            ctg = torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda()
-            g1 = kloop.loop_scann_grad(p, x, cfm, ctp, ctg, rate, 11)
-            torch.cuda.synchronize()
-            g2 = kloop.reference_loop_grad(p, x, cfm, ctp, ctg, rate, 11)
-            worst = max(worst, hold_backward(label, "ct_ga", None, None, g1, g2, line, failures))
-        if repeat:
-            _, again = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, 11)
-            same = all(torch.equal(g[k], again[k]) for k in g)
-            line.append(f"two launches bit-identical: {same}")
-            if not same:
-                failures.append(f"{label}: two launches on the same inputs differ in "
-                                f"{[k for k in g if not torch.equal(g[k], again[k])]}")
-        print("  ".join(line), flush=True)
+            ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
+                  torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda())
+        worst = max(worst, hold_loop_backward(f"phase 9 {name}", cfm, p, x, y, mrelu, rate, 11,
+                                              failures, ct, relaunches))
 
     cases = list(matrix) + [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
                              False)]
@@ -907,7 +946,7 @@ def phase9(matrix, mp2018, ptgp, failures, card):
         # M=40: an atom block of 32 and one of 8; single-atom structures allowed
         x = synthetic_batch(rng, 6, 40, 8, cfm.use_ring, cfm.feature == "cgcnn", min_atoms=1)
         for rate in (0.0, 0.1):
-            compare(name, cfm, x, mrelu, rate, repeat=rate > 0)
+            compare(name, cfm, x, mrelu, rate, relaunches=2 if rate > 0 else 0)
     compare("scann+ one atom per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24), rate=0.1)
     lone = synthetic_batch(rng, 4, 72, 8)
     lone["atom_mask"][0] = 0.0
@@ -917,16 +956,24 @@ def phase9(matrix, mp2018, ptgp, failures, card):
     for M in (160, 208):   # atom blocks of 16 and of 8, the last M the gate takes
         compare("mp2018 full width", mp2018,
                 synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms, min_atoms=100),
-                rate=0.1, cotangent=False, repeat=True)
+                rate=0.1, cotangent=False, relaunches=12)
+    # mostly padding: structures of 3 atoms up in a block-16 bucket
+    compare("mp2018 full width, ragged", mp2018,
+            synthetic_batch(rng, 4, 160, 32, n_atoms=mp2018.n_atoms), rate=0.1, cotangent=False,
+            relaunches=12)
     mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
-    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, repeat=True)
+    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, relaunches=4)
+    # N=16: two atoms per chunk of rows, the shape of phase 10's one-bucket run
+    mp16_inputs = synthetic_batch(rng, 64, 96, 16, n_atoms=mp2018.n_atoms, min_atoms=20)
+    compare("mp2018 full width", mp2018, mp16_inputs, rate=0.1, relaunches=4)
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                   min_atoms=20)
-    compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, repeat=True)
+    compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, relaunches=4)
 
     timing = None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs)):
+    for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs),
+                         ("mp2018", mp2018, mp16_inputs)):
         params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
         packed = kfwd.pack_params(params, cfm)
         B, M = x["atom_mask"].shape[:2]
@@ -976,7 +1023,7 @@ def phase10(mp2018, failures, card):
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
-    from scann_tpu_torch.train.loop import Trainer
+    from scann_tpu_torch.train.loop import Trainer, _to_device
 
     class PlainTrainer(Trainer):
         """The same Trainer with the plain version of every backward."""
@@ -988,33 +1035,46 @@ def phase10(mp2018, failures, card):
             return pred[:, 0], raw
 
     work = tempfile.mkdtemp(prefix="scann_chip_smoke_crystals_")
-    # host Voronoi of periodic cells is slow: size the set by the clock
-    t0 = time.time()
-    make_synthetic_dataset(work, "probe", n_structures=8, min_atoms=20, max_atoms=90,
-                           periodic=True, seed=1, target_names=("formation_energy_per_atom",))
-    per_crystal = (time.time() - t0) / 8
-    n_crystals = int(min(480, max(96, 40.0 / per_crystal)))
+    n_crystals = 480       # host Voronoi of periodic cells: 0.065-0.085 s a crystal
     t0 = time.time()
     energy, nbr = make_synthetic_dataset(work, "mplike", n_structures=n_crystals, min_atoms=20,
                                          max_atoms=90, periodic=True, seed=0,
                                          target_names=("formation_energy_per_atom",))
     print(f"phase 10: {n_crystals} synthetic periodic crystals (20-90 sites of Si, O, Al, Fe, "
-          f"Mg) written and featurized on the host in {time.time() - t0:.1f} s (a probe of 8 "
-          f"took {per_crystal:.2f} s each)", flush=True)
+          f"Mg) written and featurized on the host in {time.time() - t0:.1f} s", flush=True)
 
     bs = 64
 
-    def config(name, max_buckets):
+    def config(name, max_buckets, neighbors_multiple):
         return ScannConfig(model=mp2018,
                            hyper=HyperConfig(batch_size=bs, scheduler="sgdr", lr=5e-4,
                                              min_lr=1e-4, target="formation_energy_per_atom",
                                              data_energy_path=energy, data_nei_path=nbr,
                                              epochs=2, seed=0,
                                              save_path=os.path.join(work, name)),
-                           tpu=TpuConfig(max_buckets=max_buckets))
+                           tpu=TpuConfig(max_buckets=max_buckets,
+                                         neighbors_pad_multiple=neighbors_multiple))
 
-    # ---- the main path: the MP2018 recipe's buckets (max_buckets: 4) ---------
-    cfg = config("run", 4)
+    def hold_first_batches(label, trainer, buckets):
+        """The loop-backward kernel against its plain version on the first
+        batch that training takes from each bucket: its rows, its dropout
+        seed, the trainer's parameters."""
+        for bi, b in enumerate(buckets):
+            if trainer.train_route(*b.shape) != "loop":
+                continue
+            idx, seeds = trainer.epoch_plan(0, bi, b.num_structures, bs)
+            x = _to_device(b.inputs, trainer.device)
+            x = {k: v[idx[0].to(trainer.device)] for k, v in x.items()}
+            y = torch.as_tensor(np.asarray(b.targets, np.float32))[idx[0]].to(trainer.device)
+            hold_loop_backward(f"phase 10 {label}, bucket {bi}'s first batch", mp2018,
+                               trainer.params, x, y, trainer.mrelu_head, trainer.dropout_rate,
+                               seeds[0], failures, relaunches=2)
+
+    # ---- the main path: the MP2018 recipe's buckets (max_buckets: 4). The
+    # jittered-grid crystals have at most 16 Voronoi neighbours, MP2018's have
+    # up to 32: the neighbour axis is padded to the recipe's width, so the
+    # largest bucket is the recipe's (96, 32)
+    cfg = config("run", 4, 32)
     scann = Scann(cfg, device="cuda")
     scann.prepare_dataset()
     buckets = scann.train_buckets
@@ -1028,6 +1088,7 @@ def phase10(mp2018, failures, card):
         for b in bb:
             eval_batches[trainer.eval_route(*b.shape)] += times * batches([b])
     scann.init_params(cfg.hyper.seed)              # what fit() would draw
+    hold_first_batches("main path", trainer, buckets)
     passes = trace_passes(trainer, buckets)
     step_ms = []
     train_step = trainer.train_step
@@ -1074,8 +1135,8 @@ def phase10(mp2018, failures, card):
             or steps["per_layer"] or len(step_ms) != sum(steps.values())):
         failures.append(f"backward launches do not match the routes: loop {loop_bwd}, molecule "
                         f"{fused_bwd} for steps {steps}")
-    if not any(b.shape[0] > 32 and r == "loop" for b, r in zip(buckets, train_routes)):
-        failures.append(f"no crystal bucket (M > 32) trained by the loop backward: "
+    if not any(b.shape == (96, 32) and r == "loop" for b, r in zip(buckets, train_routes)):
+        failures.append(f"the recipe's bucket (96, 32) was not trained by the loop backward: "
                         f"{[b.shape for b in buckets]}")
     if (fused_fwd != eval_batches["fused"] or loop_fwd != eval_batches["loop"]
             or layer_fwd != mp2018.n_attention * eval_batches["per_layer"]):
@@ -1111,9 +1172,10 @@ def phase10(mp2018, failures, card):
     del loaded
 
     # ---- one bucket: every pass (an epoch of 6 steps) lowers the loss ----------
-    one = Scann(config("one", 1), device="cuda")
+    one = Scann(config("one", 1, 8), device="cuda")
     one.prepare_dataset()
     one.init_params(0)
+    hold_first_batches("one bucket", one.trainer, one.train_buckets)
     one_passes = trace_passes(one.trainer, one.train_buckets)
     kloop.launch_loop_backward.launches = 0
     one_hist = one.train()

@@ -4,7 +4,6 @@ route and by the per-layer route against the JAX loop-kernel step, exact
 resume, the parameter version that keeps the kernels' weight layout fresh,
 yaml-free configs and checkpoints, and the two training CLIs."""
 
-import functools
 
 import json
 import os
@@ -116,8 +115,8 @@ CRYSTAL_STEPS, CRYSTAL_BATCH = 6, 4
 CRYSTAL = dict(SMALL, n_atoms=30)       # the synthetic crystals go up to Fe (26)
 
 
-@functools.lru_cache(maxsize=None)
-def _crystal_trajectory(data_dir):
+@pytest.fixture(scope="module")
+def crystal_trajectory(tmp_path_factory):
     """Synthetic periodic crystals of 66-72 sites packed into one (72, N)
     bucket, and CRYSTAL_STEPS Adam steps on them at dropout 0 by the JAX
     package: its loop backward kernel in interpret mode (one-shot mode), the
@@ -125,6 +124,7 @@ def _crystal_trajectory(data_dir):
     bucket, the initial flax params, the batches' rows, the losses, the final
     params)."""
     jcfg = JaxModelConfig(**CRYSTAL)
+    data_dir = str(tmp_path_factory.mktemp("torch_crystal_trajectory"))
     energy, nbr = make_synthetic_dataset(data_dir, n_structures=10, min_atoms=66, max_atoms=72,
                                          periodic=True, seed=3)
     records, neighbors = load_dataset(energy, nbr, "homo")
@@ -163,15 +163,14 @@ def _crystal_trajectory(data_dir):
 
 
 @pytest.mark.parametrize("route", ["loop", "per_layer"])
-def test_torch_crystal_trajectory_matches_jax_loop_step(route, tmp_path_factory, monkeypatch):
+def test_torch_crystal_trajectory_matches_jax_loop_step(route, crystal_trajectory, monkeypatch):
     """A bucket with M = 72 > 64 trains by the loop route on the CPU (the loop
     backward's plain version); with the whole-model gates shut it trains by
     the per-layer route. Either way the losses and the weights after the
     steps match the JAX loop-kernel step: losses to 1e-4 relative, every
     tensor within 1e-4 x its max."""
     tcfg = ModelConfig(**CRYSTAL)
-    data_dir = str(tmp_path_factory.getbasetemp().parent / "torch_crystal_trajectory")
-    bucket, params0, rows, y_all, want, final = _crystal_trajectory(data_dir)
+    bucket, params0, rows, y_all, want, final = crystal_trajectory
     trainer = loop.Trainer(ScannConfig(model=tcfg, hyper=HyperConfig(batch_size=CRYSTAL_BATCH)),
                            "cpu")
     trainer.load_params(params_from_jax(params0, tcfg))
