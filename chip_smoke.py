@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``scann_tpu_torch/csrc`` (one
-nvcc per source, all at once). Phases 1-5 run at the full width of the
+nvcc per source, all at once) and prints the registers and spills of the two
+backward kernels. Phases 1-5 run at the full width of the
 flagship QM9 SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8
 heads, embedding 48), phases 6-10 at the full width of the crystal models
 (``configs/model_mp2018.yaml``: SCANN+, 9 layers, D=128, embedding 128,
@@ -15,7 +16,9 @@ layers); random weights from seeds:
    serving path) and checks every answer against the eager model;
 3. times both kernels at the QM9 batch shape against their bounds and
    their plain versions;
-4. holds the backward kernel (at dropout 0 and 0.1, one-shot and with a
+4. holds the products of ``csrc/scann_mma.cuh`` (split-TF32 ``mma.sync``, the
+   three forms the backward kernels use) against a float64 product, then the
+   backward kernel (at dropout 0 and 0.1, one-shot and with a
    GA cotangent) and the forward kernel with dropout against their plain
    versions on the same Philox masks;
 5. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
@@ -41,10 +44,14 @@ layers); random weights from seeds:
 9. holds the crystal loop-backward kernel against its plain version (the
    eager training forward under ``torch.autograd``, same Philox masks): a
    small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
-   blocks of 32, 16 and 8, then MP2018 (B=64, M=96, at N=32 and at N=16)
-   and Pt/graphene (B=64, M=128, N=32) at full width, each with further
-   launches on a kept scratch filled with NaN or a constant that must give
-   the same gradients bit for bit, and times it;
+   blocks of 32, 16 and 8, structures with fewer atoms than blocks and with
+   unequal shares, then MP2018 (B=64, M=96, at N=32 and at N=16) and
+   Pt/graphene (B=64, M=128, N=32) at full width, at every cluster size the
+   kernel launches with (1, 2 and, for small batches, 4 blocks per
+   structure), each with further launches on a kept scratch filled with NaN
+   or a constant that must give the same gradients bit for bit, and times it
+   in turns with its plain version (plain, kernel, kernel, plain), at one
+   block per structure beside the cluster, and at B=128 beside B=64;
 10. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
    (the crystal training path) on 480 synthetic periodic crystals of 20-90
    sites at the full width and depth of the MP2018 model, batch 64, in the
@@ -69,9 +76,11 @@ another order than cuBLAS (TF32 off) and carry the difference through 7 to
 11 LayerNormed layers; the per-layer kernel's attention probabilities:
 rtol 1e-4, atol 1e-6. Backward: pred as the
 forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
-up to 196,608 rows run in another order. Training: 3-step and single-step
-losses to 1e-4 relative; the two-epoch runs' losses to 1e-3 relative, since
-Adam carries the FP32 differences through 16 steps.
+up to 196,608 rows run in another order; the backward kernels' tensor-core
+products (three TF32 passes, accumulated in f32) within 2e-6 x max |exact| of
+a float64 product, where a single TF32 pass reads about 3e-4. Training:
+3-step and single-step losses to 1e-4 relative; the two-epoch runs' losses
+to 1e-3 relative, since Adam carries the FP32 differences through 16 steps.
 """
 
 import json
@@ -89,6 +98,7 @@ import torch
 RTOL, ATOL = 1e-4, 1e-5
 ATTN_ATOL = 1e-6             # attention probabilities of the per-layer kernel
 GRAD_RTOL = 1e-4             # of each gradient's max |plain|
+MMA_RTOL = 2e-6              # split-TF32 products, of max |float64 product|
 LOSS_RTOL = 1e-4
 TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
 H100_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
@@ -136,9 +146,9 @@ def errors(got, want):
     return diff.max().item(), rel, ok
 
 
-def cuda_ms(fn, reps=25):
-    """Median of per-call CUDA-event times after a warm-up."""
-    for _ in range(3):
+def cuda_times(fn, reps=25, warmup=3):
+    """Per-call CUDA-event times after a warm-up."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -150,7 +160,22 @@ def cuda_ms(fn, reps=25):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps=25):
+    """Median of per-call CUDA-event times after a warm-up."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def in_turns_ms(plain, kernel, plain_reps=5, kernel_reps=10):
+    """(kernel ms, plain ms): medians over two rounds each, taken in the
+    order plain, kernel, kernel, plain, so that a drift of the card's clock
+    falls on both alike."""
+    p = cuda_times(plain, plain_reps, warmup=2)
+    k = cuda_times(kernel, kernel_reps) + cuda_times(kernel, kernel_reps, warmup=0)
+    p += cuda_times(plain, plain_reps, warmup=0)
+    return statistics.median(k), statistics.median(p)
 
 
 def benzene():
@@ -211,16 +236,19 @@ def hold_backward(label, what, got_p, want_p, got_g, want_g, line, failures):
     return max(worst, ab)
 
 
-def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None, relaunches=0):
+def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None, relaunches=0,
+                       clusters=None):
     """Hold the crystal loop-backward kernel against its plain version on one
-    batch: in one-shot mode, and in cotangent mode when ``ct`` = (d pred, d
-    ga) is given. With ``relaunches``, that many further one-shot launches run
-    on a kept scratch (as a Trainer keeps its scratch from step to step) that
-    is filled with NaN before one launch and with a finite constant before
-    the next: each must return the first launch's pred and gradients bit for
-    bit, so a race, or a read of scratch that the launch itself did not
-    write, fails here. Prints one line; returns the largest absolute
-    difference from the plain version."""
+    batch, at every cluster size of ``clusters`` (blocks per structure; the
+    wrapper's own choice for this batch size when None): in one-shot mode,
+    and in cotangent mode when ``ct`` = (d pred, d ga) is given. With
+    ``relaunches``, that many further one-shot launches run at each cluster
+    size on a kept scratch (as a Trainer keeps its scratch from step to step)
+    that is filled with NaN before one launch and with a finite constant
+    before the next: each must return the first launch's pred and gradients
+    bit for bit, so a race, or a read of scratch that the launch itself did
+    not write, fails here. Prints one line per cluster size; returns the
+    largest absolute difference from the plain version."""
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -228,38 +256,82 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
     chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N)
-    label = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk) "
-             f"dropout {rate}")
-    line = [label]
-    pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
-    torch.cuda.synchronize()
+    own = kloop.cluster_size(B)
+    packed = kfwd.pack_params(p, cfm)
     pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, seed)
-    worst = hold_backward(label, "one-shot", pred, pred0, g, g0, line, failures)
-    if ct is not None:
-        g1 = kloop.loop_scann_grad(p, x, cfm, ct[0], ct[1], rate, seed)
+    g2 = kloop.reference_loop_grad(p, x, cfm, ct[0], ct[1], rate, seed) if ct is not None else None
+    worst = 0.0
+    for C in clusters or (own,):
+        tag = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk, "
+               f"{C} blocks per structure) dropout {rate}")
+        line = [tag]
+        if C == own:    # through the public entry points, which choose C themselves
+            pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
+        else:
+            flat, pred = kloop.launch_loop_backward(packed, x, cfm, y, None, True, mrelu, rate,
+                                                    seed, 0, None, C)
+            pred, g = pred.view(-1, 1), kbwd.grads_from_flat(flat, packed, cfm)
         torch.cuda.synchronize()
-        g2 = kloop.reference_loop_grad(p, x, cfm, ct[0], ct[1], rate, seed)
-        worst = max(worst, hold_backward(label, "ct_ga", None, None, g1, g2, line, failures))
-    if relaunches:
-        packed = kfwd.pack_params(p, cfm)
-        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
-        differ = set()
-        for i in range(relaunches):
-            for t in scratch.values():
-                if t is not None:
-                    t.fill_(float("nan") if i % 2 == 0 else -3.0)
-            flat, pred_i = kloop.launch_loop_backward(packed, x, cfm, y, None, True, mrelu, rate,
-                                                      seed, 0, scratch)
-            again = kbwd.grads_from_flat(flat, packed, cfm)
-            differ |= {k for k in g if not torch.equal(g[k], again[k])}
-            if not torch.equal(pred_i.view(-1, 1), pred):
-                differ.add("pred")
-        line.append(f"{relaunches} launches on NaN- and constant-filled scratch bit-identical: "
-                    f"{not differ}")
-        if differ:
-            failures.append(f"{label}: launches on the same inputs differ in {sorted(differ)}")
-    print("  ".join(line), flush=True)
+        worst = max(worst, hold_backward(tag, "one-shot", pred, pred0, g, g0, line, failures))
+        if ct is not None:
+            if C == own:
+                g1 = kloop.loop_scann_grad(p, x, cfm, ct[0], ct[1], rate, seed)
+            else:
+                flat, _ = kloop.launch_loop_backward(packed, x, cfm, ct[0], ct[1], False, False,
+                                                     rate, seed, 0, None, C)
+                g1 = kbwd.grads_from_flat(flat, packed, cfm)
+            torch.cuda.synchronize()
+            worst = max(worst, hold_backward(tag, "ct_ga", None, None, g1, g2, line, failures))
+        if relaunches:
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C)
+            differ = set()
+            for i in range(relaunches):
+                for t in scratch.values():
+                    if t is not None:
+                        t.fill_(float("nan") if i % 2 == 0 else -3.0)
+                flat, pred_i = kloop.launch_loop_backward(packed, x, cfm, y, None, True, mrelu,
+                                                          rate, seed, 0, scratch, C)
+                again = kbwd.grads_from_flat(flat, packed, cfm)
+                differ |= {k for k in g if not torch.equal(g[k], again[k])}
+                if not torch.equal(pred_i.view(-1, 1), pred):
+                    differ.add("pred")
+            line.append(f"{relaunches} launches on NaN- and constant-filled scratch "
+                        f"bit-identical: {not differ}")
+            if differ:
+                failures.append(f"{tag}: launches on the same inputs differ in {sorted(differ)}")
+            del scratch
+        print("  ".join(line), flush=True)
     return worst
+
+
+def check_products(failures, card):
+    """The three products of csrc/scann_mma.cuh on one block, on seeded
+    inputs, against a float64 product (torch.matmul is the yardstick here
+    only): a single TF32 pass would be about 3e-4 off, so a result within
+    MMA_RTOL shows that all three passes are there."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+
+    g = torch.Generator().manual_seed(4)
+    worst = 0.0
+    for rows, K, nc in ((32, 256, 128), (32, 128, 128), (24, 20, 128), (8, 60, 60), (64, 128, 32)):
+        a = torch.randn(rows, K, generator=g).cuda()
+        w = torch.randn(K, nc, generator=g).cuda()
+        y = torch.randn(rows, nc, generator=g).cuda()
+        got = kbwd.mma_selftest(a, w, y)
+        torch.cuda.synchronize()
+        exact = a.double() @ w.double()
+        want = (exact, exact, a.double().t() @ y.double(), y.double().sum(0))
+        rel = [float((o.double() - e).abs().max() / e.abs().max()) for o, e in zip(got, want)]
+        one = float((kbwd.reference_tf32x3_matmul(a, w, passes=1).double() - exact).abs().max()
+                    / exact.abs().max())
+        worst = max(worst, *rel)
+        print(f"products [{rows}, {K}] @ [{K}, {nc}]: x @ W {rel[0]:.2e}, the same from W's "
+              f"transpose {rel[1]:.2e}, x^T dy {rel[2]:.2e}, column sums {rel[3]:.2e} of max "
+              f"|float64 product| (limit "
+              f"{MMA_RTOL}; one TF32 pass alone: {one:.2e})", flush=True)
+        if not all(r <= MMA_RTOL for r in rel):
+            failures.append(f"split-TF32 products at [{rows}, {K}] @ [{K}, {nc}]: {rel}")
+    print(f"products: worst {worst:.3e} of max |exact|  [{card}]", flush=True)
 
 
 def time_backward(cfm, params, packed, inputs, card):
@@ -273,9 +345,9 @@ def time_backward(cfm, params, packed, inputs, card):
     N = inputs["neighbors"].shape[2]
     y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
     kfwd._check_inputs(inputs, cfm, packed["wde"].device)
-    ms = cuda_ms(lambda: kbwd._launch(packed, inputs, cfm, y, None, True, False, 0.1, 7))
-    plain_ms = cuda_ms(lambda: kbwd.reference_fused_scann_train_grads(
-        params, inputs, y, cfm, False, 0.1, 7), reps=10)
+    ms, plain_ms = in_turns_ms(
+        lambda: kbwd.reference_fused_scann_train_grads(params, inputs, y, cfm, False, 0.1, 7),
+        lambda: kbwd._launch(packed, inputs, cfm, y, None, True, False, 0.1, 7), 5, 12)
     flops = kbwd.backward_flops(cfm, B, M, N)
     recompute = kbwd.recompute_flops(cfm, B, M, N)
     _, P = kbwd.grad_layout(packed)
@@ -286,7 +358,8 @@ def time_backward(cfm, params, packed, inputs, card):
     bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
     bound = max(ops_ms, bytes_ms)
     print(f"scann_backward at B={B} M={M} N={N} (dropout 0.1, one-shot, with its row "
-          f"reduction): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, "
+          f"reduction; timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {flops:.4e} FLOP, "
           f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
           f"[{card}]", flush=True)
     print(f"scann_backward: the kernel's schedule adds {recompute:.4e} FLOP of recompute "
@@ -912,12 +985,13 @@ def phase8(mp2018, failures, card):
 
 def phase9(matrix, mp2018, ptgp, failures, card):
     """The crystal loop-backward kernel against its plain version (the eager
-    training forward under torch.autograd, same Philox masks): a small matrix
-    in cotangent and one-shot mode at dropout 0 and 0.1, the atom blocks of
-    16 and 8, then MP2018 (N=32 and N=16) and Pt/graphene at full width,
-    with relaunches on garbage-filled scratch held bit for bit, and its
-    time. Returns (largest abs error, timing of the MP2018 (96, 32) shape,
-    the largest bucket of phase 10's main path)."""
+    training forward under torch.autograd, same Philox masks), at 1, 2 and 4
+    blocks per structure: a small matrix in cotangent and one-shot mode at
+    dropout 0 and 0.1, the atom blocks of 16 and 8, structures with fewer
+    atoms than blocks and with unequal shares, then MP2018 (N=32 and N=16)
+    and Pt/graphene at full width, with relaunches on garbage-filled scratch
+    held bit for bit at every cluster size, and its time. Returns (largest
+    abs error, timing of the MP2018 (96, 32) shape)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_backward as kbwd
@@ -927,8 +1001,10 @@ def phase9(matrix, mp2018, ptgp, failures, card):
 
     rng = np.random.default_rng(9)
     worst = 0.0
+    every = kloop.CLUSTER_SIZES[::-1]      # (1, 2, 4)
 
-    def compare(name, cfm, x, mrelu=False, rate=0.0, cotangent=True, relaunches=0):
+    def compare(name, cfm, x, mrelu=False, rate=0.0, cotangent=True, relaunches=0,
+                clusters=None):
         nonlocal worst
         B, M = x["atom_mask"].shape[:2]
         p = init_params(cfm, torch.Generator().manual_seed(9), "cuda")
@@ -938,37 +1014,47 @@ def phase9(matrix, mp2018, ptgp, failures, card):
             ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
                   torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda())
         worst = max(worst, hold_loop_backward(f"phase 9 {name}", cfm, p, x, y, mrelu, rate, 11,
-                                              failures, ct, relaunches))
+                                              failures, ct, relaunches, clusters))
 
     cases = list(matrix) + [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
                              False)]
     for name, cfm, mrelu in cases:
-        # M=40: an atom block of 32 and one of 8; single-atom structures allowed
+        # M=40: an atom block of 32 and one of 8 at one block per structure, shares of 20
+        # and 10 atoms at 2 and 4; single-atom structures allowed
         x = synthetic_batch(rng, 6, 40, 8, cfm.use_ring, cfm.feature == "cgcnn", min_atoms=1)
-        for rate in (0.0, 0.1):
-            compare(name, cfm, x, mrelu, rate, relaunches=2 if rate > 0 else 0)
-    compare("scann+ one atom per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24), rate=0.1)
+        compare(name, cfm, x, mrelu, 0.0)
+        compare(name, cfm, x, mrelu, 0.1, relaunches=2, clusters=every)
+    compare("scann+ one atom per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24), rate=0.1,
+            clusters=every)
     lone = synthetic_batch(rng, 4, 72, 8)
     lone["atom_mask"][0] = 0.0
     lone["atom_mask"][0, 0] = 1.0
     lone["neighbor_mask"][0] = 0.0
-    compare("scann+ one-atom structure", matrix[0][1], lone)
-    for M in (160, 208):   # atom blocks of 16 and of 8, the last M the gate takes
+    compare("scann+ one-atom structure", matrix[0][1], lone, relaunches=2, clusters=every)
+    # M=3 at 4 blocks per structure: the last block has no atom and a row of zeros
+    compare("scann+ fewer atoms than blocks", matrix[0][1],
+            synthetic_batch(rng, 4, 3, 8, min_atoms=1), rate=0.1, relaunches=2, clusters=every)
+    # M=90: shares of 45 + 45 and of 23 + 23 + 23 + 21 atoms, atom blocks of 32 + 13 in a share
+    compare("mp2018 full width, unequal shares", mp2018,
+            synthetic_batch(rng, 4, 90, 32, n_atoms=mp2018.n_atoms, min_atoms=40),
+            rate=0.1, cotangent=False, relaunches=4, clusters=every)
+    for M in (160, 208, 226):   # atom blocks of 16 and of 8, the last M the gate takes
         compare("mp2018 full width", mp2018,
                 synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms, min_atoms=100),
-                rate=0.1, cotangent=False, relaunches=12)
-    # mostly padding: structures of 3 atoms up in a block-16 bucket
-    compare("mp2018 full width, ragged", mp2018,
-            synthetic_batch(rng, 4, 160, 32, n_atoms=mp2018.n_atoms), rate=0.1, cotangent=False,
-            relaunches=12)
+                rate=0.1, cotangent=False, relaunches=12, clusters=every)
+    # mostly padding: structures of 3 atoms up in the block-16 and block-8 buckets
+    for M in (160, 208):
+        compare("mp2018 full width, ragged", mp2018,
+                synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms), rate=0.1,
+                cotangent=False, relaunches=12, clusters=every)
     mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
-    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, relaunches=4)
+    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, relaunches=4, clusters=(1, 2))
     # N=16: two atoms per chunk of rows, the shape of phase 10's one-bucket run
     mp16_inputs = synthetic_batch(rng, 64, 96, 16, n_atoms=mp2018.n_atoms, min_atoms=20)
-    compare("mp2018 full width", mp2018, mp16_inputs, rate=0.1, relaunches=4)
+    compare("mp2018 full width", mp2018, mp16_inputs, rate=0.1, relaunches=4, clusters=(1, 2))
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                   min_atoms=20)
-    compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, relaunches=4)
+    compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, relaunches=4, clusters=(1, 2))
 
     timing = None
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -978,14 +1064,15 @@ def phase9(matrix, mp2018, ptgp, failures, card):
         packed = kfwd.pack_params(params, cfm)
         B, M = x["atom_mask"].shape[:2]
         N = x["neighbors"].shape[2]
+        C = kloop.cluster_size(B)
         y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
         kloop.check_backward_supported(cfm, M, N, x)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
-        ms = cuda_ms(lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7,
-                                                    0, scratch), reps=10)
-        plain_ms = cuda_ms(lambda: kloop.reference_loop_train_grads(
-            params, x, y, cfm, False, 0.1, 7), reps=10)
+        ms, plain_ms = in_turns_ms(
+            lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7),
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch))
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
@@ -993,15 +1080,39 @@ def phase9(matrix, mp2018, ptgp, failures, card):
         bound, by = bound_ms(flops, nbytes)
         scratch_bytes = tensor_bytes(scratch.values())
         print(f"scann_loop_backward at {name} B={B} M={M} N={N} L={cfm.n_attention} (dropout "
-              f"0.1, one-shot, with its row reduction): kernel {ms:.4f} ms on {B} blocks of "
-              f"{sms} SMs, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
-              f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached); the schedule "
-              f"adds {recompute:.4e} FLOP of recompute, which the bound does not count; "
-              f"scratch {scratch_bytes / 2 ** 20:.0f} MiB  [{card}]", flush=True)
+              f"0.1, one-shot, with its row reduction; timed in turns: plain, kernel, kernel, "
+              f"plain): kernel {ms:.4f} ms on {B} clusters of {C} blocks on {sms} SMs "
+              f"({kloop.max_active_clusters(cfm, B, M, N, C)} such clusters run at once), plain "
+              f"{plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound {bound:.4f} ms by {by} "
+              f"({100 * bound / ms:.1f}% of it reached); the schedule adds {recompute:.4e} FLOP "
+              f"of recompute, which the bound does not count; scratch "
+              f"{scratch_bytes / 2 ** 20:.0f} MiB  [{card}]", flush=True)
+        del scratch
         if timing is None:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "flops": flops, "recompute_flops": recompute}
-        del scratch
+                      "flops": flops, "recompute_flops": recompute, "cluster": C}
+            # what the cluster gives: the same batch at one block per structure, and the
+            # batch doubled (one block per structure: 128 blocks either way)
+            one = kloop.loop_backward_scratch(packed, cfm, B, M, N, 1)
+            ms1 = cuda_ms(lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False,
+                                                         0.1, 7, 0, one, 1), reps=10)
+            del one
+            twice = {k: torch.cat([v, v]) for k, v in x.items()}
+            y2 = torch.cat([y, y])
+            C2 = kloop.cluster_size(2 * B)
+            two = kloop.loop_backward_scratch(packed, cfm, 2 * B, M, N)
+            ms2 = cuda_ms(lambda: kloop._launch_backward(packed, twice, cfm, y2, None, True,
+                                                         False, 0.1, 7, 0, two), reps=10)
+            del two, twice
+            timing["ms_one_block"], timing["ms_batch_doubled"] = ms1, ms2
+            print(f"scann_loop_backward at {name} B={B}: {ms1:.4f} ms at one block per "
+                  f"structure ({ms1 / ms:.2f}x the time of {C}); with the batch doubled to "
+                  f"B={2 * B} ({C2} block per structure) {ms2:.4f} ms, {ms2 / ms:.2f}x the time "
+                  f"of B={B} for twice the work  [{card}]", flush=True)
+    at_once = {c: kloop.max_active_clusters(mp2018, 64, 96, 32, c) for c in every}
+    print(f"scann_loop_backward clusters that run at once at the MP2018 shape, by blocks per "
+          f"structure: {at_once} (the wrapper's rule counts on {kloop.CLUSTERS_AT_ONCE}; fewer "
+          f"would cost a second wave, not the result)", flush=True)
     print(f"phase 9: worst loop-backward abs error (pred and gradients) {worst:.3e}  [{card}]",
           flush=True)
     return worst, timing
@@ -1197,7 +1308,7 @@ def phase10(mp2018, failures, card):
 
     # ---- the third route: one step on structures beyond the backward's gate --
     rng = np.random.default_rng(10)
-    M, N, B = 216, 32, 8
+    M, N, B = 240, 32, 8
     x = synthetic_batch(rng, B, M, N, n_atoms=mp2018.n_atoms, min_atoms=150)
     y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
     outcome = []
@@ -1248,6 +1359,11 @@ def main():
     _build.build_all(force=True)
     print(f"built {list(_build.SOURCES)} with nvcc in {time.time() - t0:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
+    for name in ("scann_backward", "scann_loop_backward"):
+        for entry, regs, stores, loads in _build.kernel_resources(name):
+            if "reduce_rows" not in entry and "selftest" not in entry:
+                print(f"{name}.cu: {regs} registers a thread, {stores} bytes of spill stores, "
+                      f"{loads} bytes of spill loads (ptxas -v)", flush=True)
 
     failures = []
     max_err = 0.0
@@ -1421,6 +1537,7 @@ def main():
     bwd_time = time_backward(qm9_model, params, packed, qm9_inputs, card)
 
     # ---- phase 4: the backward kernel against its plain version -------------
+    check_products(failures, card)
     bwd_err = phase4(matrix, qm9_model, qm9_inputs, failures, card)
 
     # ---- phase 5: the training path ------------------------------------------

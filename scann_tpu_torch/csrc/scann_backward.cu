@@ -17,13 +17,14 @@
 // neighbor_w geometry embedding.
 //
 // Bound. backward_flops (kernels/scann_backward.py) counts the 1.50e11
-// FLOP of FP32 FMA that the function needs per QM9 training batch (B=128,
-// M=32, N=16, L=7, D=128): the forward, and the weight and input gradients
-// of each forward product (no input gradient where the input is data). At
-// the H100 SXM's 67 TFLOP/s FP32 that is ~2.24 ms, above the time the
-// inputs, weights and gradients take to move at HBM rate, so the bound is
-// set by operations. This schedule's recompute adds 5.0e10 FLOP
-// (recompute_flops), which the bound does not count.
+// FLOP that the function needs per QM9 training batch (B=128, M=32, N=16,
+// L=7, D=128): the forward, and the weight and input gradients of each
+// forward product (no input gradient where the input is data). At the H100
+// SXM's 67 TFLOP/s FP32 that is ~2.24 ms, above the time the inputs, weights
+// and gradients take to move at HBM rate, so the bound is set by operations
+// (the products run on the tensor cores in three TF32 passes to keep f32
+// accuracy, so the FP32 peak stays the yardstick). This schedule's recompute
+// adds 5.0e10 FLOP (recompute_flops), which the bound does not count.
 //
 // Design.
 // - No sequential grid. The TPU adds every program's gradients into the
@@ -41,26 +42,34 @@
 //   the rows are recomputed once, not twice).
 // - The (atom, neighbour) rows go through shared memory in chunks of CA
 //   whole atoms (CA*N <= 32 rows), so a softmax over N neighbours stays in
-//   one chunk. The gradient of the geometry flows back through a global
-//   [M*N, D] buffer, read and rewritten chunk by chunk.
-// - Products: tile_gemm (x @ W), tile_gemm_tB (dy @ W^T, W read by rows)
-//   and gemm_tA (x^T dy for the weight gradients, 8 x 8 output tiles per
-//   thread, written straight into the block's gradient row, added to it
-//   from the second chunk of rows on). All are FP32 FMA loops, none is a
-//   library call.
+//   one chunk: one warp per (atom, head), lane n holding neighbour n. The
+//   gradient of the geometry flows back through a global [M*N, D] buffer,
+//   read and rewritten chunk by chunk.
+// - Products (scann_mma.cuh): mma_gemm (x @ W), mma_gemm_tB (dy @ W^T) and
+//   mma_gemm_tA (x^T dy for the weight gradients, with the bias sums from
+//   the same fragments) run on the tensor cores as split-TF32 mma.sync,
+//   three passes per tile, accumulated in f32. Each warp owns 16 output
+//   columns, so a weight element leaves L2 once per chunk; the chunk's
+//   buffers have row strides of 2D + 4 and D + 4 floats, which keeps the
+//   fragment reads free of bank conflicts. Weight gradients are added into
+//   the block's gradient row from the second chunk on, 16 bytes a thread,
+//   by the same thread every time. None is a library call.
 // - The gather's transpose is a scatter-add of d(neighbour state) into the
-//   molecule's d(centers) in shared memory, one thread per column walking
-//   the rows in order; the one-hot embedding's gradient is the same
-//   scatter into the rows of the atoms' Z. Column sums (biases) and the
-//   LayerNorm parameter gradients (per-warp partials reduced in warp order)
-//   are also summed in a fixed order.
+//   molecule's d(centers) in shared memory: every target element belongs to
+//   one thread, which walks the chunk's rows in order; the one-hot
+//   embedding's gradient is the same scatter into the rows of the atoms' Z.
+//   Bias sums and the LayerNorm parameter gradients (per-warp partials
+//   reduced in warp order) are also summed in a fixed order.
 //
 // Interface: a plain C function, loaded with ctypes. It launches both
 // kernels on the given stream, synchronises nothing, allocates nothing,
 // and returns the cudaGetLastError() code of the launches (or an own code).
+// scann_mma_selftest_launch runs the three products of scann_mma.cuh on one
+// block, for a check against a float64 product.
 
 #include "philox.cuh"
-#include "scann_grad_common.cuh"
+#define SCANN_MMA_SELFTEST
+#include "scann_mma.cuh"
 
 namespace {
 
@@ -75,7 +84,7 @@ using Args = BackwardArgs;
 // readout, a layer's per-atom recompute, the embedding); a small tail holds
 // per-warp LayerNorm partials and bias sums.
 struct Plan {
-  int wd, MW, rows, lde, ldf, work, offWork, offPart, offAcc, total;
+  int wd, MW, rows, lda, ldu, lde, ldf, work, offWork, offPart, offAcc, total;
 };
 
 __host__ __device__ inline Plan make_plan(const Args& a) {
@@ -83,9 +92,11 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.wd = a.D > a.G ? a.D : a.G;
   p.MW = a.M * p.wd;
   p.rows = a.chunk_atoms * a.N;
+  p.lda = 2 * a.D + 4;
+  p.ldu = a.D + 4;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
-  const int chunk = p.rows * 2 * a.D + 3 * p.rows * a.D + 3 * round4(p.rows * a.H);
+  const int chunk = p.rows * p.lda + 3 * p.rows * p.ldu + 3 * round4(p.rows * a.H);
   const int readout = 5 * p.MW + 4 * p.wd + 4 * round4(a.M) + 3 * round4(a.O) + 4;
   const int layer = 6 * p.MW + round4(a.M);
   const int embed = 2 * a.M * p.lde + a.M * p.ldf + p.MW;
@@ -97,7 +108,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.offWork = 7 * p.MW;
   p.offPart = p.offWork + w;
   p.offAcc = p.offPart + kWarps * 2 * p.wd;
-  p.total = p.offAcc + 4 * p.wd;
+  p.total = p.offAcc + 2 * p.wd;
   return p;
 }
 
@@ -109,7 +120,7 @@ scann_backward_kernel(const Args a) {
   const int b = blockIdx.x;
   const int M = a.M, N = a.N, D = a.D, H = a.H, K = a.K, G = a.G, O = a.O, L = a.L;
   const int wd = P.wd, MW = P.MW, hd = D / H, CA = a.chunk_atoms, R = M * N;
-  const int lda = 2 * D;
+  const int lda = P.lda, ldu = P.ldu;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned int mol = a.mol_base + (unsigned int)b;
 
@@ -123,14 +134,14 @@ scann_backward_kernel(const Args a) {
   float* sDCN = smem + 6 * MW;       // d layer input, accumulated
   float* work = smem + P.offWork;
   float* sPart = smem + P.offPart;   // [kWarps][2][wd] LayerNorm partials
-  float* sAcc = smem + P.offAcc;     // [4][wd] bias sums
+  float* sAcc = smem + P.offAcc;     // [2][wd] bias sums
   // a chunk of (atom, neighbour) rows
   const int CR = P.rows;
-  float* sA = work;                  // [CR, 2D]: geometry or RBF | neighbour states
-  float* sU = sA + CR * lda;         // [CR, D]: u_pre, then d u_pre
-  float* sV = sU + CR * D;           // [CR, D]: key input, then d key input
-  float* sW = sV + CR * D;           // [CR, D]: key, then d key, then d LN_g input
-  float* sE = sW + CR * D;           // [CR, H]: attention (before dropout)
+  float* sA = work;                  // [CR, lda]: geometry or RBF | neighbour states
+  float* sU = sA + CR * lda;         // [CR, ldu]: u_pre, then d u_pre
+  float* sV = sU + CR * ldu;         // [CR, ldu]: key input, then d key input
+  float* sW = sV + CR * ldu;         // [CR, ldu]: key, then d key, then d LN_g input
+  float* sE = sW + CR * ldu;         // [CR, H]: attention (before dropout)
   float* sF = sE + round4(CR * H);   // [CR, H]: d attention
   float* sM = sF + round4(CR * H);   // [CR, H]: attention dropout mask
 
@@ -146,6 +157,7 @@ scann_backward_kernel(const Args a) {
   float* grow = a.grad_rows + (size_t)b * a.P;
   auto grad = [&](int g) { return grow + a.off[g]; };
   const int fg_in = a.g_update ? 3 * D : K;
+  const int q4 = D / 4;
 
   // the [M, D] embedding and residual masks: quad (r, c..c+3) is one Philox
   // output, since D and c are multiples of 4
@@ -168,7 +180,6 @@ scann_backward_kernel(const Args a) {
     const int base = m0 * N;
     if (a.g_update) {
       const float* g_in = g_st + ((size_t)l * R + base) * D;
-      const int q4 = D / 4;
       for (int i = tid; i < rows * q4; i += kThreads) {
         const int r = i / q4, c = (i - r * q4) * 4;
         store4(sA + r * lda + c, *reinterpret_cast<const float4*>(g_in + (size_t)r * D + c));
@@ -180,9 +191,9 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
       }
     }
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      sA[r * lda + D + d] = sC[nbr[base + r] * wd + d];
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      store4(sA + r * lda + D + c, *reinterpret_cast<const float4*>(sC + nbr[base + r] * wd + c));
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
@@ -199,9 +210,9 @@ scann_backward_kernel(const Args a) {
     const float* bk = a.bk + (size_t)l * D;
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
-      tile_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
         const float* cw = sCW + (m0 + r / N) * wd + c;
-        store4(sU + r * D + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
+        store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
                                            cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
       });
       __syncthreads();
@@ -213,7 +224,7 @@ scann_backward_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int d = lane + 32 * i;
-          v[i] = d < D ? swishf(sU[r * D + d]) + sA[r * lda + d] : 0.f;
+          v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
         }
         float mean, inv;
         warp_ln_stats(v, D, lane, mean, inv);
@@ -223,51 +234,30 @@ scann_backward_kernel(const Args a) {
           if (d < D) {
             const float g = (v[i] - mean) * inv * gs[d] + gb[d];
             if (write_g) g_out[(size_t)r * D + d] = g;
-            sV[r * D + d] = sA[r * lda + D + d] * g;   // ns * geo'
+            sV[r * ldu + d] = sA[r * lda + D + d] * g;   // ns * geo'
           }
         }
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
-      tile_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c,
+      mma_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
+        store4(sU + r * ldu + c,
                make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
       });
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
         const int r = i / D, d = i - r * D;
-        sV[i] = sA[r * lda + D + d] * (swishf(sU[i]) * nweight[base + r]);
+        sV[r * ldu + d] = sA[r * lda + D + d] * (swishf(sU[r * ldu + d]) * nweight[base + r]);
       }
     }
     __syncthreads();
     // key = (ns * geo) @ Wk + bk
-    tile_gemm(sV, D, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
-      store4(sW + r * D + c,
+    mma_gemm(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      store4(sW + r * ldu + c,
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    for (int i = tid; i < rows * H; i += kThreads) {
-      const int r = i / H, h = i - r * H;
-      const float* q = sQ + (m0 + r / N) * wd + h * hd;
-      const float* kk = sW + r * D + h * hd;
-      float e = 0.f;
-      for (int j = 0; j < hd; ++j) e = fmaf(q[j] * a.dk, kk[j], e);
-      sE[i] = e + (1.0f - nmask[base + r]) * -1e9f;
-    }
-    __syncthreads();
-    for (int i = tid; i < ca * H; i += kThreads) {
-      const int at = i / H, h = i - at * H;
-      float* e = sE + at * N * H + h;
-      float mx = -INFINITY;
-      for (int n = 0; n < N; ++n) mx = fmaxf(mx, e[n * H]);
-      float s = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float t = expf(e[n * H] - mx);
-        e[n * H] = t;
-        s += t;
-      }
-      for (int n = 0; n < N; ++n) e[n * H] = e[n * H] / s;
-    }
+    warp_energy_softmax(sQ + m0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
     __syncthreads();
   };
 
@@ -276,8 +266,8 @@ scann_backward_kernel(const Args a) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bq = a.bq + (size_t)l * D;
     if (a.g_update)
-      tile_gemm(sC, wd, M, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
-    tile_gemm(sC, wd, M, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(sC, wd, M, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
+    mma_gemm(sC, wd, M, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * wd + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
     });
   };
@@ -296,7 +286,7 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
       const float* bemb = a.bembed;
-      tile_gemm(sFeat, ldf, M, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
+      mma_gemm(sFeat, ldf, M, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
         store4(sEmb + r * lde + c,
                make_float4(v.x + bemb[c], v.y + bemb[c + 1], v.z + bemb[c + 2], v.w + bemb[c + 3]));
       });
@@ -322,7 +312,7 @@ scann_backward_kernel(const Args a) {
 
   // ======================= forward, stashing layer inputs ===================
   stage_embedding();
-  tile_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+  mma_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
     const float4 m = mask4(0, r, c);
     store4(sC + r * wd + c,
            make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
@@ -342,17 +332,19 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + D + k] = expf(-(u * u) / a.rbf_width);
       }
       __syncthreads();
-      tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
+      mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+        store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
                                            v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
       });
-      tile_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
-        store4(sV + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
+      mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+        store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
                                            v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
       });
       __syncthreads();
-      for (int i = tid; i < rows * D; i += kThreads)
-        g_st[(size_t)base * D + i] = swishf(sU[i]) * swishf(sV[i]);
+      for (int i = tid; i < rows * D; i += kThreads) {
+        const int r = i / D, d = i - r * D;
+        g_st[(size_t)base * D + i] = swishf(sU[r * ldu + d]) * swishf(sV[r * ldu + d]);
+      }
       __syncthreads();
     }
   }
@@ -375,7 +367,7 @@ scann_backward_kernel(const Args a) {
         for (int n = 0; n < N; ++n) {
           const int r = at * N + n;
           const float p = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-          s += p * nmask[base + r] * sW[r * D + d];
+          s += p * nmask[base + r] * sW[r * ldu + d];
         }
         sQ[(m0 + at) * wd + d] = s + sQ[(m0 + at) * wd + d];
       }
@@ -402,12 +394,12 @@ scann_backward_kernel(const Args a) {
     // ResidualNorm: centers = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
     const float* br1 = a.br1 + (size_t)l * D;
     const float* br2 = a.br2 + (size_t)l * D;
-    tile_gemm(sQ, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(sQ, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sDQ + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                            swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
     });
     __syncthreads();
-    tile_gemm(sDQ, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(sDQ, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       store4(sC + r * wd + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                           (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));
@@ -449,18 +441,18 @@ scann_backward_kernel(const Args a) {
     float* sb = sbf + round4(O);
     float* dsbf = sb + round4(O);
     float* scal = dsbf + round4(O);   // [0] norm, [1] d pred
-    tile_gemm(sC, wd, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
+    mma_gemm(sC, wd, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
       const float4 s = make_float4(v.x + a.bal[c], v.y + a.bal[c + 1], v.z + a.bal[c + 2],
                                    v.w + a.bal[c + 3]);
       store4(RA + r * wd + c, s);
       store4(RB + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
     });
     __syncthreads();
-    tile_gemm(RB, wd, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+    mma_gemm(RB, wd, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
       store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                           v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
     });
-    tile_gemm(RB, wd, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+    mma_gemm(RB, wd, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
       store4(RD + r * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                           v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
@@ -585,30 +577,31 @@ scann_backward_kernel(const Args a) {
       RD[m * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
     }
     __syncthreads();
-    gemm_tA(RB, wd, RC, wd, M, G, G, grad(gWGQ), G, false);
-    gemm_tA(RB, wd, RD, wd, M, G, G, grad(gWGK), G, false);
-    column_sums(RC, wd, M, G, grad(gBGQ), false);
-    column_sums(RD, wd, M, G, grad(gBGK), false);
-    tile_gemm_tB(RC, wd, M, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
+    mma_gemm_tA(RB, wd, RC, wd, M, G, G, grad(gWGQ), G, false, grad(gBGQ), false);
+    mma_gemm_tA(RB, wd, RD, wd, M, G, G, grad(gWGK), G, false, grad(gBGK), false);
+    mma_gemm_tB(RC, wd, M, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
       store4(RE + r * wd + c, v);
     });
     __syncthreads();
-    tile_gemm_tB(RD, wd, M, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
+    mma_gemm_tB(RD, wd, M, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
       const float* e = RE + r * wd + c;
       const float* s = RA + r * wd + c;
       store4(RE + r * wd + c, make_float4((e[0] + v.x) * swish_grad(s[0]), (e[1] + v.y) * swish_grad(s[1]),
                                           (e[2] + v.z) * swish_grad(s[2]), (e[3] + v.w) * swish_grad(s[3])));
     });
     __syncthreads();
-    gemm_tA(sC, wd, RE, wd, M, D, G, grad(gWAL), G, false);
-    column_sums(RE, wd, M, G, grad(gBAL), false);
-    tile_gemm_tB(RE, wd, M, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tA(sC, wd, RE, wd, M, D, G, grad(gWAL), G, false, grad(gBAL), false);
+    mma_gemm_tB(RE, wd, M, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
       store4(sDC + r * wd + c, v);
     });
     __syncthreads();
   }
 
   // ======================= reverse walk over the layers =====================
+  // the gather's transpose: column d of the targets with index % np == part
+  // belongs to thread part * D + d, which walks the chunk's rows in order
+  const int np = kThreads / D > 0 ? kThreads / D : 1;
+  const int sc_d = tid % D, sc_part = tid / D;
   zero(sPart, kWarps * 2 * wd);
   __syncthreads();
   for (int l = L - 1; l >= 0; --l) {
@@ -649,13 +642,13 @@ scann_backward_kernel(const Args a) {
     __syncthreads();
     const float* br1 = a.br1 + (size_t)l * D;
     const float* br2 = a.br2 + (size_t)l * D;
-    tile_gemm(P1, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(P1, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
       store4(P2 + r * wd + c, s);
       store4(P3 + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
     });
     __syncthreads();
-    tile_gemm(P3, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(P3, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       const float* o1 = P1 + r * wd + c;
       store4(P4 + r * wd + c, make_float4(o1[0] + (v.x + br2[c]) * m.x, o1[1] + (v.y + br2[c + 1]) * m.y,
@@ -701,18 +694,18 @@ scann_backward_kernel(const Args a) {
       }
     };
     flush_ln(grad(gRLNS) + (size_t)l * D, grad(gRLNB) + (size_t)l * D);
-    gemm_tA(P3, wd, P4, wd, M, D, D, grad(gWR2) + (size_t)l * D * D, D, false);
-    column_sums(P4, wd, M, D, grad(gBR2) + (size_t)l * D, false);
+    mma_gemm_tA(P3, wd, P4, wd, M, D, D, grad(gWR2) + (size_t)l * D * D, D, false,
+                grad(gBR2) + (size_t)l * D, false);
     __syncthreads();
-    tile_gemm_tB(P4, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tB(P4, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       const float* s = P2 + r * wd + c;
       store4(P3 + r * wd + c, make_float4(v.x * swish_grad(s[0]), v.y * swish_grad(s[1]),
                                           v.z * swish_grad(s[2]), v.w * swish_grad(s[3])));
     });
     __syncthreads();
-    gemm_tA(P1, wd, P3, wd, M, D, D, grad(gWR1) + (size_t)l * D * D, D, false);
-    column_sums(P3, wd, M, D, grad(gBR1) + (size_t)l * D, false);
-    tile_gemm_tB(P3, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tA(P1, wd, P3, wd, M, D, D, grad(gWR1) + (size_t)l * D * D, D, false,
+                grad(gBR1) + (size_t)l * D, false);
+    mma_gemm_tB(P3, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       float* p = P5 + r * wd + c;
       store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
     });
@@ -742,7 +735,7 @@ scann_backward_kernel(const Args a) {
     project_atoms(l);
     zero(sDCW, MW);
     zero(sDCN, MW);
-    zero(sAcc, 4 * wd);
+    zero(sAcc, 2 * wd);
     __syncthreads();
 
     // ---- the (atom, neighbour) rows, chunk by chunk ------------------------
@@ -751,26 +744,10 @@ scann_backward_kernel(const Args a) {
       const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
       stage_chunk(l, m0, rows);
       row_forward(l, m0, ca, false);
-      // d attn = mask * nmask * sum_{d in head} d ctx * key
-      for (int i = tid; i < rows * H; i += kThreads) {
-        const int r = i / H, h = i - r * H;
-        const float* dq = sDQ + (m0 + r / N) * wd + h * hd;
-        const float* kk = sW + r * D + h * hd;
-        float s = 0.f;
-        for (int j = 0; j < hd; ++j) s = fmaf(dq[j], kk[j], s);
-        s *= nmask[base + r];
-        sF[i] = a.attn_dropout ? s * sM[i] : s;
-      }
-      __syncthreads();
-      // softmax backward over the N neighbours, on the pre-dropout attention
-      for (int i = tid; i < ca * H; i += kThreads) {
-        const int at = i / H, h = i - at * H;
-        const float* p = sE + at * N * H + h;
-        float* f = sF + at * N * H + h;
-        float s = 0.f;
-        for (int n = 0; n < N; ++n) s += p[n * H] * f[n * H];
-        for (int n = 0; n < N; ++n) f[n * H] = p[n * H] * (f[n * H] - s);
-      }
+      // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
+      // backward over the N neighbours, on the pre-dropout attention
+      warp_softmax_backward(sDQ + m0 * wd, wd, sW, ldu, nmask + base,
+                            a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
       __syncthreads();
       // d key (in place of the key) and d query = d ctx + dk sum_n de key
       for (int i = tid; i < ca * D; i += kThreads) {
@@ -782,17 +759,16 @@ scann_backward_kernel(const Args a) {
           const int r = at * N + n;
           const float de = sF[r * H + h];
           const float used = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-          ex += de * sW[r * D + d];
-          sW[r * D + d] = dctx * used * nmask[base + r] + de * qs;
+          ex += de * sW[r * ldu + d];
+          sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
         }
         sDQ[m * wd + d] = dctx + ex * a.dk;
       }
       __syncthreads();
       // key = kin @ Wk + bk
-      gemm_tA(sV, D, sW, D, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0);
-      column_sums(sW, D, rows, D, sAcc, true);
+      mma_gemm_tA(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
       __syncthreads();
-      tile_gemm_tB(sW, D, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * D + c, v); });
+      mma_gemm_tB(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
       __syncthreads();
       if (a.g_update) {
         // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
@@ -803,7 +779,7 @@ scann_backward_kernel(const Args a) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int d = lane + 32 * i;
-            v[i] = d < D ? swishf(sU[r * D + d]) + sA[r * lda + d] : 0.f;
+            v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
           }
           warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
@@ -813,8 +789,8 @@ scann_backward_kernel(const Args a) {
             dy[i] = 0.f;
             if (d < D) {
               const float g = xh[i] * gs[d] + gb[d];
-              const float dkin = sV[r * D + d], ns = sA[r * lda + D + d];
-              sV[r * D + d] = dkin * g;   // d ns from the key input
+              const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
+              sV[r * ldu + d] = dkin * g;   // d ns from the key input
               dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
             }
           }
@@ -823,8 +799,8 @@ scann_backward_kernel(const Args a) {
           for (int i = 0; i < 4; ++i) {
             const int d = lane + 32 * i;
             if (d < D) {
-              sW[r * D + d] = dx[i];                                // d r (residual into geo)
-              sU[r * D + d] = dx[i] * swish_grad(sU[r * D + d]);    // d u_pre
+              sW[r * ldu + d] = dx[i];                                // d r (residual into geo)
+              sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
               sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
               sPart[(warp * 2 + 1) * wd + d] += dy[i];
             }
@@ -833,40 +809,43 @@ scann_backward_kernel(const Args a) {
       } else {
         for (int i = tid; i < rows * D; i += kThreads) {
           const int r = i / D, d = i - r * D;
-          const float u = sU[i], w = nweight[base + r];
-          const float dkin = sV[i];
-          sV[i] = dkin * (swishf(u) * w);
-          sU[i] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
+          const float u = sU[r * ldu + d], w = nweight[base + r];
+          const float dkin = sV[r * ldu + d];
+          sV[r * ldu + d] = dkin * (swishf(u) * w);
+          sU[r * ldu + d] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
         }
       }
       __syncthreads();
       if (a.g_update) {
-        gemm_tA(sA, lda, sU, D, rows, 2 * D, D, grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D,
-                D, ci > 0);
+        mma_gemm_tA(sA, lda, sU, ldu, rows, 2 * D, D,
+                    grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
         for (int i = tid; i < ca * D; i += kThreads) {
           const int at = i / D, d = i - at * D;
           float s = 0.f;
-          for (int n = 0; n < N; ++n) s += sU[(at * N + n) * D + d];
+          for (int n = 0; n < N; ++n) s += sU[(at * N + n) * ldu + d];
           sDCW[(m0 + at) * wd + d] = s;
         }
         // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
         float* dg_out = dgb + (size_t)base * D;
-        tile_gemm_tB(sU, D, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
-          const float* dr = sW + r * D + c;
+        mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
+          const float* dr = sW + r * ldu + c;
           store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
         });
-        tile_gemm_tB(sU, D, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
-          float* p = sV + r * D + c;
+        mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
+          float* p = sV + r * ldu + c;
           store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
       } else {
-        gemm_tA(sA, lda, sU, D, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0);
+        mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
+                    sAcc + wd, true);
       }
-      column_sums(sU, D, rows, D, sAcc + wd, true);
       __syncthreads();
       // the gather's transpose: d centers[idx] += d ns, in row order
-      for (int d = tid; d < D; d += kThreads)
-        for (int r = 0; r < rows; ++r) sDCN[nbr[base + r] * wd + d] += sV[r * D + d];
+      if (sc_part < np)
+        for (int r = 0; r < rows; ++r) {
+          const int idx = nbr[base + r];
+          if (idx % np == sc_part) sDCN[idx * wd + sc_d] += sV[r * ldu + sc_d];
+        }
       __syncthreads();
     }
 
@@ -876,16 +855,17 @@ scann_backward_kernel(const Args a) {
       grad(gBK)[(size_t)l * D + d] = sAcc[d];
       grad(gBFG)[(size_t)l * D + d] = sAcc[wd + d];
     }
-    gemm_tA(sC, wd, sDQ, wd, M, D, D, grad(gWQ) + (size_t)l * D * D, D, false);
-    column_sums(sDQ, wd, M, D, grad(gBQ) + (size_t)l * D, false);
-    if (a.g_update) gemm_tA(sC, wd, sDCW, wd, M, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, false);
-    tile_gemm_tB(sDQ, wd, M, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tA(sC, wd, sDQ, wd, M, D, D, grad(gWQ) + (size_t)l * D * D, D, false,
+                grad(gBQ) + (size_t)l * D, false);
+    if (a.g_update)
+      mma_gemm_tA(sC, wd, sDCW, wd, M, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, false);
+    mma_gemm_tB(sDQ, wd, M, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       float* p = sDCN + r * wd + c;
       store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
     });
     __syncthreads();
     if (a.g_update) {
-      tile_gemm_tB(sDCW, wd, M, D, wfg, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tB(sDCW, wd, M, D, wfg, D, D, D, [&](int r, int c, float4 v) {
         float* p = sDCN + r * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
@@ -901,7 +881,7 @@ scann_backward_kernel(const Args a) {
     float* E1 = work + 2 * M * lde + M * ldf;   // d s_de [M, wd]
     float* E2 = work + M * lde + M * ldf;       // d emb  [M, lde]
     stage_embedding();
-    tile_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, r, c);
       const float* dc = sDC + r * wd + c;
       store4(E1 + r * wd + c,
@@ -911,15 +891,13 @@ scann_backward_kernel(const Args a) {
                          dc[3] * m.w * swish_grad(v.w + a.bde[c + 3])));
     });
     __syncthreads();
-    column_sums(E1, wd, M, D, grad(gBDE), false);
-    gemm_tA(sEmb, lde, E1, wd, M, ke, D, grad(gWDE), D, false);
-    tile_gemm_tB(E1, wd, M, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
+    mma_gemm_tA(sEmb, lde, E1, wd, M, ke, D, grad(gWDE), D, false, grad(gBDE), false);
+    mma_gemm_tB(E1, wd, M, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
       store4(E2 + r * lde + c, v);
     });
     __syncthreads();
     if (a.cgcnn) {
-      gemm_tA(sFeat, ldf, E2, lde, M, a.F, a.E, grad(gEMBED), a.E, false);
-      column_sums(E2, lde, M, a.E, grad(gBEMBED), false);
+      mma_gemm_tA(sFeat, ldf, E2, lde, M, a.F, a.E, grad(gEMBED), a.E, false, grad(gBEMBED), false);
     } else {
       // the one-hot embedding's transpose: scatter d emb into the rows of Z
       float* ge = grad(gEMBED);
@@ -957,25 +935,24 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + D + k] = expf(-(u * u) / a.rbf_width);
       }
       __syncthreads();
-      tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
+      mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+        store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
                                            v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
       });
-      tile_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
-        store4(sV + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
+      mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+        store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
                                            v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
       });
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
-        const float g = dgb[(size_t)base * D + i], snd = sU[i], snw = sV[i];
-        sU[i] = g * swishf(snw) * swish_grad(snd);
-        sV[i] = g * swishf(snd) * swish_grad(snw);
+        const int r = i / D, d = i - r * D;
+        const float g = dgb[(size_t)base * D + i], snd = sU[r * ldu + d], snw = sV[r * ldu + d];
+        sU[r * ldu + d] = g * swishf(snw) * swish_grad(snd);
+        sV[r * ldu + d] = g * swishf(snd) * swish_grad(snw);
       }
       __syncthreads();
-      gemm_tA(sA, lda, sU, D, rows, K, D, grad(gWND), D, ci > 0);
-      gemm_tA(sA + D, lda, sV, D, rows, K, D, grad(gWNW), D, ci > 0);
-      column_sums(sU, D, rows, D, grad(gBND), ci > 0);
-      column_sums(sV, D, rows, D, grad(gBNW), ci > 0);
+      mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
+      mma_gemm_tA(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
       __syncthreads();
     }
   }
@@ -1018,4 +995,19 @@ extern "C" const char* scann_backward_error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes";
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// ptrs: A [rows, K], W [K, nc], WT [nc, K], Y [rows, nc], then the outputs
+// A @ W [rows, nc], A @ WT^T [rows, nc], 2 A^T Y [K, nc] and 2 colsum(Y) [nc];
+// dims: rows, K, nc.
+extern "C" int scann_mma_selftest_launch(void* const* ptrs, const int* dims, const float*,
+                                         void* stream) {
+  return launch_mma_selftest((const float*)ptrs[0], (const float*)ptrs[1], (const float*)ptrs[2],
+                             (const float*)ptrs[3], (float*)ptrs[4], (float*)ptrs[5],
+                             (float*)ptrs[6], (float*)ptrs[7], dims[0], dims[1], dims[2],
+                             (cudaStream_t)stream);
+}
+
+extern "C" const char* scann_mma_selftest_error_string(int code) {
+  return scann_backward_error_string(code);
 }

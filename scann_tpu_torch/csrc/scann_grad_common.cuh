@@ -1,8 +1,8 @@
 // Building blocks shared by the port's two backward kernels
 // (scann_backward.cu for molecules, scann_loop_backward.cu for crystals): the
-// order of the 36 gradients, the argument block, the products with a
-// transposed operand, ordered column sums, the LayerNorm backward of one row
-// and the reduction of the per-structure gradient rows.
+// order of the 36 gradients, the argument block, the LayerNorm backward of
+// one row and the reduction of the per-block gradient rows. Their products
+// are in scann_mma.cuh.
 
 #pragma once
 
@@ -75,7 +75,7 @@ struct BackwardArgs {
   float* o_stash;             // [B, L, M, D]   ctx + query before the LayerNorm
   float* g_stash;             // [B, L, M*N, D] geometry inputs (g_update)
   float* dgeo;                // [B, M*N, D]    d geometry (g_update)
-  float* grad_rows;           // [B, P]
+  float* grad_rows;           // [B, P] ([B * cluster, P] in scann_loop_backward.cu)
   float* pred;                // [B]
   float* dcenters;            // [B, M, D]      d layer output (scann_loop_backward.cu only)
   long long P;                // floats of one gradient row
@@ -85,6 +85,7 @@ struct BackwardArgs {
   int cgcnn, use_ring, g_update, ga_norm, mrelu, one_shot;
   int chunk_atoms;            // atoms per chunk of rows (CA * N <= 32)
   int atom_block;             // atoms per per-atom product (scann_loop_backward.cu only)
+  int cluster;                // blocks per structure (scann_loop_backward.cu only)
   int dropout, attn_dropout;
   unsigned int seed, mol_base, drop_threshold, attn_threshold;
   float drop_scale, attn_scale;
@@ -132,6 +133,7 @@ inline void unpack_backward_args(BackwardArgs& a, void* const* p, const int* dim
   a.ga_norm = dims[15]; a.mrelu = dims[16]; a.one_shot = dims[17];
   a.chunk_atoms = dims[18]; a.dropout = dims[19]; a.attn_dropout = dims[20];
   a.atom_block = 0;
+  a.cluster = 1;
   a.dk = scalars[0];
   a.rbf_width = scalars[1];
   a.drop_scale = scalars[2];
@@ -139,115 +141,6 @@ inline void unpack_backward_args(BackwardArgs& a, void* const* p, const int* dim
   a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
   a.P = offsets[kNumGrads];
   for (int j = 0; j < kNumGrads; ++j) a.off[j] = (int)offsets[j];
-}
-
-// out[r][c] = sum_k A[r * lda + k] * W[c * ldw + k]: a product with the
-// transpose of W, whose rows are read as float4. Rows c >= nvalid of W read
-// as zero. rows <= 64, nc a multiple of 4 (<= 128), K a multiple of 4.
-template <typename Epi>
-__device__ __forceinline__ void tile_gemm_tB(const float* A, int lda, int rows, int K,
-                                             const float* __restrict__ W, int ldw, int nc,
-                                             int nvalid, Epi epi) {
-  const int cg = nc >> 2;
-  const int rgs = kThreads / cg;
-  const int tid = threadIdx.x;
-  if (tid >= rgs * cg) return;
-  const int c = (tid % cg) * 4;
-  const int rpt = (rows + rgs - 1) / rgs;
-  const int r0 = (tid / cg) * rpt;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    acc[i][0] = 0.f; acc[i][1] = 0.f; acc[i][2] = 0.f; acc[i][3] = 0.f;
-  }
-  const float* w0 = W + (size_t)c * ldw;
-  const bool v0 = c < nvalid, v1 = c + 1 < nvalid, v2 = c + 2 < nvalid, v3 = c + 3 < nvalid;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < K; k += 4) {
-    const float4 q0 = v0 ? __ldg(reinterpret_cast<const float4*>(w0 + k)) : z;
-    const float4 q1 = v1 ? __ldg(reinterpret_cast<const float4*>(w0 + ldw + k)) : z;
-    const float4 q2 = v2 ? __ldg(reinterpret_cast<const float4*>(w0 + 2 * ldw + k)) : z;
-    const float4 q3 = v3 ? __ldg(reinterpret_cast<const float4*>(w0 + 3 * ldw + k)) : z;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < rpt && r0 + i < rows) {
-        const float4 av = *reinterpret_cast<const float4*>(A + (r0 + i) * lda + k);
-        acc[i][0] = fmaf(av.x, q0.x, acc[i][0]);
-        acc[i][1] = fmaf(av.x, q1.x, acc[i][1]);
-        acc[i][2] = fmaf(av.x, q2.x, acc[i][2]);
-        acc[i][3] = fmaf(av.x, q3.x, acc[i][3]);
-        acc[i][0] = fmaf(av.y, q0.y, acc[i][0]);
-        acc[i][1] = fmaf(av.y, q1.y, acc[i][1]);
-        acc[i][2] = fmaf(av.y, q2.y, acc[i][2]);
-        acc[i][3] = fmaf(av.y, q3.y, acc[i][3]);
-        acc[i][0] = fmaf(av.z, q0.z, acc[i][0]);
-        acc[i][1] = fmaf(av.z, q1.z, acc[i][1]);
-        acc[i][2] = fmaf(av.z, q2.z, acc[i][2]);
-        acc[i][3] = fmaf(av.z, q3.z, acc[i][3]);
-        acc[i][0] = fmaf(av.w, q0.w, acc[i][0]);
-        acc[i][1] = fmaf(av.w, q1.w, acc[i][1]);
-        acc[i][2] = fmaf(av.w, q2.w, acc[i][2]);
-        acc[i][3] = fmaf(av.w, q3.w, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (i < rpt && r0 + i < rows)
-      epi(r0 + i, c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
-}
-
-// Gout[i * ldg + j] (+)= sum_{r < rows} X[r * ldx + i] * Y[r * ldy + j] for
-// i < I, j < J (multiples of 4): a weight gradient x^T dy. X and Y live in
-// shared memory (ldx, ldy multiples of 4 and >= round4 of the widths);
-// Gout is the block's own gradient row in global memory, overwritten when
-// accumulate is 0. Each thread owns 8 x 8 output tiles.
-__device__ __forceinline__ void gemm_tA(const float* X, int ldx, const float* Y, int ldy,
-                                        int rows, int I, int J, float* Gout, int ldg,
-                                        bool accumulate) {
-  const int ti = (I + 7) >> 3, tj = (J + 7) >> 3;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int t = threadIdx.x; t < ti * tj; t += kThreads) {
-    const int i0 = (t / tj) * 8, j0 = (t % tj) * 8;
-    const bool i1 = i0 + 4 < I, j1 = j0 + 4 < J;
-    float acc[8][8];
-#pragma unroll
-    for (int ii = 0; ii < 8; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[ii][jj] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float4 x0 = *reinterpret_cast<const float4*>(X + r * ldx + i0);
-      const float4 x1 = i1 ? *reinterpret_cast<const float4*>(X + r * ldx + i0 + 4) : z;
-      const float4 y0 = *reinterpret_cast<const float4*>(Y + r * ldy + j0);
-      const float4 y1 = j1 ? *reinterpret_cast<const float4*>(Y + r * ldy + j0 + 4) : z;
-      const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-      for (int ii = 0; ii < 8; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[ii][jj] = fmaf(xs[ii], ys[jj], acc[ii][jj]);
-    }
-#pragma unroll
-    for (int ii = 0; ii < 8; ++ii) {
-      if (i0 + ii >= I) continue;
-      float* g = Gout + (size_t)(i0 + ii) * ldg + j0;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        if (j0 + jj < J) g[jj] = accumulate ? g[jj] + acc[ii][jj] : acc[ii][jj];
-    }
-  }
-}
-
-// dst[j] (+)= sum_{r < rows} Y[r * ldy + j] for j < J, one thread per column
-// walking the rows in order.
-__device__ __forceinline__ void column_sums(const float* Y, int ldy, int rows, int J,
-                                            float* dst, bool accumulate) {
-  for (int j = threadIdx.x; j < J; j += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += Y[r * ldy + j];
-    dst[j] = accumulate ? dst[j] + s : s;
-  }
 }
 
 // LayerNorm statistics of one row held by a warp as in warp_layer_norm:

@@ -1,6 +1,6 @@
 // Whole-model SCANN / SCANN+ backward for crystals: every parameter gradient
-// of one batch, one CUDA block per structure, plus the reduction that sums
-// the per-structure gradients in a fixed order.
+// of one batch, a cluster of CUDA blocks per structure, plus the reduction
+// that sums the per-block gradients in a fixed order.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_loop.py:_bwd_kernel (the
 // Pallas loop backward) for unpacked batches. It computes what
@@ -15,11 +15,12 @@
 // shared-memory plan: MP2018 at (M=96, N=32, L=9) and Pt/graphene at (M=128,
 // N=32, L=11), D=128.
 //
-// Bound. loop_backward_flops (kernels/scann_loop.py) counts ~5.5e11 FLOP of
-// FP32 FMA that the function needs per MP2018 training batch (B=64, M=96,
-// N=32, L=9, D=128): bound by operations, ~8.2 ms at the H100 SXM's 67
-// TFLOP/s FP32 peak. This schedule's recompute (loop_recompute_flops) comes
-// on top and is not in the bound.
+// Bound. loop_backward_flops (kernels/scann_loop.py) counts ~5.5e11 FLOP that
+// the function needs per MP2018 training batch (B=64, M=96, N=32, L=9,
+// D=128): bound by operations, ~8.2 ms at the H100 SXM's 67 TFLOP/s FP32
+// peak (the products run on the tensor cores in three TF32 passes to keep f32
+// accuracy, so that peak stays the yardstick). This schedule's recompute
+// (loop_recompute_flops) comes on top and is not in the bound.
 //
 // Design.
 // - Schedule: that of scann_backward.cu, exact f32. The forward pass stashes
@@ -30,6 +31,22 @@
 //   once, chunk by chunk, from the geometry stash. (The TPU kernel's selective
 //   stash of neighbour states, keys, attention, u_pre and o1 is another
 //   schedule of the same function; it is not ported.)
+// - Products: split-TF32 mma.sync (scann_mma.cuh): each warp owns 16 output
+//   columns, so a weight element leaves L2 once per chunk of rows; the chunk's
+//   buffers have row strides of 2D + 4 and D + 4 floats, which keeps the
+//   fragment reads free of bank conflicts. Weight gradients add into the
+//   block's gradient row 16 bytes a thread, and the bias sums fall out of the
+//   same fragments. Softmax over the neighbours and its backward run one warp
+//   per (atom, head).
+// - A cluster of C blocks per structure (C = 1, 2 or 4, chosen by the wrapper
+//   from the batch size so that a batch of 64 fills 128 of the card's 132
+//   SMs). The blocks split the structure's atoms into C contiguous ranges.
+//   What crosses blocks: the new centers of a layer go to the global stash,
+//   then a cluster barrier, then every block reloads all M rows; the readout's
+//   first pass (three small products on [M, D]) runs in every block; in the
+//   reverse walk each block scatters d(neighbour state) into its own [M, D]
+//   buffer, and after a cluster barrier each block sums, for its own atoms,
+//   the C partial rows in rank order through distributed shared memory.
 // - Where the state lives. Only one [M, max(D, G)] buffer stays in shared
 //   memory: the current centers in the forward pass (every atom's gather may
 //   read any row), the GA keys in the readout, and in the reverse walk the
@@ -39,41 +56,45 @@
 //   rows, the per-atom recompute, the readout and the embedding). In the
 //   reverse walk the gather reads the layer's input centers from the stash in
 //   global memory, and d(layer output) passes from one layer to the one below
-//   through a [B, M, D] global scratch. The plan is M * 532 bytes + 117 to
-//   177 KB at D=128 (atom blocks of 8 to 32): M <= 96 with blocks of 32,
-//   M <= 168 with blocks of 16, M <= 208 with blocks of 8, at N=32.
-// - No sequential grid, no atomics: each block writes its structure's
-//   gradients into its own row of a [B, P] scratch, added to from the second
-//   atom block (or chunk) on, and scann_reduce_rows sums the rows in order
-//   b = 0..B-1. The gather's transpose is a scatter-add into the shared
-//   d(layer input), one thread per column walking the rows in order. Bias and
-//   LayerNorm-parameter sums also run in a fixed order. Gradients therefore
-//   repeat bit for bit from run to run.
+//   through a [B, M, D] global scratch. The plan is M * 512 bytes + 107 to
+//   175 KB at D=128 (atom blocks of 8 to 32): M <= 106 with blocks of 32,
+//   M <= 186 with blocks of 16, M <= 226 with blocks of 8, at N=32.
+// - No sequential grid, no atomics: each block writes its share of the
+//   gradients into its own row of a [B * C, P] scratch, added to from the
+//   second atom block (or chunk) on by the same thread, and scann_reduce_rows
+//   sums the rows in order. The gather's transpose is a scatter-add into the
+//   shared d(layer input) in which every target element is added to by one
+//   thread walking the rows in order. Bias and LayerNorm-parameter sums also
+//   run in a fixed order. Gradients therefore repeat bit for bit from run to
+//   run at one cluster size; two cluster sizes differ in the last bits.
 // - Dropout masks are drawn where they are used, forward and reverse, keyed
 //   as in scann_loop.cu and ops/dropout.py.
-// - One block per structure: a batch of 64 fills 64 of the card's 132 SMs.
 //
 // Interface: a plain C function, loaded with ctypes. It launches both kernels
 // on the given stream, synchronises nothing, allocates nothing, and returns
 // the cudaGetLastError() code of the launches (or kErrSharedMemory / kErrShape).
 
+#include <cooperative_groups.h>
+
 #include "philox.cuh"
-#include "scann_grad_common.cuh"
+#include "scann_mma.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace scann;
 
 using Args = BackwardArgs;
 
 constexpr int kMaxChunkRows = 32;
 constexpr int kMaxAtomBlock = 32;
+constexpr int kMaxCluster = 4;
 
 // Shared-memory plan, in floats: the resident [M, wd] buffer; five per-block
-// slots [AB, wd]; the work region; per-warp LayerNorm partials and bias sums;
-// the readout's vectors.
+// slots [AB, wd]; the work region (the readout keeps its vectors there, past
+// one [AB, wd] buffer); per-warp LayerNorm partials and bias sums.
 struct Plan {
-  int wd, ABW, rows, lde, ldf, work, offBlk, offWork, offPart, offAcc, offMisc, total;
+  int wd, ABW, rows, lda, ldu, lde, ldf, work, offBlk, offWork, offPart, offAcc, total;
 };
 
 __host__ __device__ inline Plan make_plan(const Args& a) {
@@ -82,21 +103,24 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.wd = a.D > a.G ? a.D : a.G;
   p.ABW = AB * p.wd;
   p.rows = a.chunk_atoms * a.N;
+  p.lda = 2 * a.D + 4;
+  p.ldu = a.D + 4;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
-  const int chunk = p.rows * 2 * a.D + 3 * p.rows * a.D + 3 * round4(p.rows * a.H);
+  const int chunk = p.rows * p.lda + 3 * p.rows * p.ldu + 3 * round4(p.rows * a.H);
   const int atoms = 5 * p.ABW + round4(AB);     // the reverse walk's per-atom recompute
   const int embed = AB * (2 * p.lde + p.ldf) + p.ABW;
+  const int readout = p.ABW + 4 * p.wd + 5 * round4(a.M) + 3 * round4(a.O) + 4;
   int w = chunk;
   w = atoms > w ? atoms : w;
   w = embed > w ? embed : w;
+  w = readout > w ? readout : w;
   p.work = w;
   p.offBlk = a.M * p.wd;
   p.offWork = p.offBlk + 5 * p.ABW;
   p.offPart = p.offWork + w;
   p.offAcc = p.offPart + kWarps * 2 * p.wd;
-  p.offMisc = p.offAcc + 4 * p.wd;
-  p.total = p.offMisc + 4 * p.wd + 5 * round4(a.M) + 3 * round4(a.O) + 4;
+  p.total = p.offAcc + 2 * p.wd;
   return p;
 }
 
@@ -105,12 +129,18 @@ scann_loop_backward_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan(a);
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.cluster, rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const bool lead = rank == 0;
   const int M = a.M, N = a.N, D = a.D, H = a.H, K = a.K, G = a.G, O = a.O, L = a.L;
   const int wd = P.wd, ABW = P.ABW, hd = D / H, CA = a.chunk_atoms, AB = a.atom_block;
-  const int R = M * N, lda = 2 * D;
+  const int R = M * N, lda = P.lda, ldu = P.ldu;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned int mol = a.mol_base + (unsigned int)b;
+  // this block's atoms: the rank-th of C contiguous ranges
+  const int per = (M + C - 1) / C;
+  const int m_lo = min(M, rank * per), m_hi = min(M, m_lo + per);
 
   float* sR = smem;                    // resident [M, wd]: centers / GA keys / d layer input
   float* sCb = smem + P.offBlk;        // the block's layer input centers   [AB, wd]
@@ -120,15 +150,14 @@ scann_loop_backward_kernel(const Args a) {
   float* sDCW = sDQ + ABW;             // d cw (SCANN+)
   float* work = smem + P.offWork;
   float* sPart = smem + P.offPart;     // [kWarps][2][wd] LayerNorm partials
-  float* sAcc = smem + P.offAcc;       // [4][wd] bias sums of a layer's rows
-  float* sMisc = smem + P.offMisc;
+  float* sAcc = smem + P.offAcc;       // [2][wd] bias sums of a layer's rows
   // a chunk of (atom, neighbour) rows
   const int CR = P.rows;
-  float* sA = work;                    // [CR, 2D]: geometry or RBF | neighbour states
-  float* sU = sA + CR * lda;           // [CR, D]: u_pre, then d u_pre
-  float* sV = sU + CR * D;             // [CR, D]: key input, then d key input
-  float* sW = sV + CR * D;             // [CR, D]: key, then d key, then d LN_g input
-  float* sE = sW + CR * D;             // [CR, H]: attention (before dropout)
+  float* sA = work;                    // [CR, lda]: geometry or RBF | neighbour states
+  float* sU = sA + CR * lda;           // [CR, ldu]: u_pre, then d u_pre
+  float* sV = sU + CR * ldu;           // [CR, ldu]: key input, then d key input
+  float* sW = sV + CR * ldu;           // [CR, ldu]: key, then d key, then d LN_g input
+  float* sE = sW + CR * ldu;           // [CR, H]: attention (before dropout)
   float* sF = sE + round4(CR * H);     // [CR, H]: d attention
   float* sM = sF + round4(CR * H);     // [CR, H]: attention dropout mask
 
@@ -142,7 +171,7 @@ scann_loop_backward_kernel(const Args a) {
   float* g_st = a.g_update ? a.g_stash + (size_t)b * L * R * D : nullptr;
   float* dgb = a.g_update ? a.dgeo + (size_t)b * R * D : nullptr;
   float* dcen = a.dcenters + (size_t)b * M * D;
-  float* grow = a.grad_rows + (size_t)b * a.P;
+  float* grow = a.grad_rows + (size_t)blockIdx.x * a.P;
   auto grad = [&](int g) { return grow + a.off[g]; };
   const int fg_in = a.g_update ? 3 * D : K;
   const int q4 = D / 4;
@@ -170,6 +199,11 @@ scann_loop_backward_kernel(const Args a) {
     }
   };
 
+  // a block without atoms (fewer atoms than blocks in the cluster) still owns
+  // a gradient row: all zeros. It goes on to every cluster barrier below.
+  if (m_lo >= m_hi)
+    for (long long i = tid; i < a.P; i += kThreads) grow[i] = 0.f;
+
   // ---- a chunk of rows: stage, then recompute u_pre, key input, key, attention.
   // cen [M, ldc] holds the layer's input centers: the resident buffer in the
   // forward pass, the stash in global memory in the reverse walk.
@@ -188,9 +222,10 @@ scann_loop_backward_kernel(const Args a) {
         sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
       }
     }
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      sA[r * lda + D + d] = cen[(size_t)nbr[base + r] * ldc + d];
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      store4(sA + r * lda + D + c,
+             *reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c));
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
@@ -208,10 +243,10 @@ scann_loop_backward_kernel(const Args a) {
     const float* bk = a.bk + (size_t)l * D;
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
-      tile_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
         const float* cw = sCW + (lm0 + r / N) * wd + c;
-        store4(sU + r * D + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
-                                           cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
+        store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
+                                             cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
       });
       __syncthreads();
       const float* gs = a.lng_s + (size_t)l * D;
@@ -222,7 +257,7 @@ scann_loop_backward_kernel(const Args a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int d = lane + 32 * i;
-          v[i] = d < D ? swishf(sU[r * D + d]) + sA[r * lda + d] : 0.f;
+          v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
         }
         float mean, inv;
         warp_ln_stats(v, D, lane, mean, inv);
@@ -232,51 +267,30 @@ scann_loop_backward_kernel(const Args a) {
           if (d < D) {
             const float g = (v[i] - mean) * inv * gs[d] + gb[d];
             if (write_g) g_out[(size_t)r * D + d] = g;
-            sV[r * D + d] = sA[r * lda + D + d] * g;   // ns * geo'
+            sV[r * ldu + d] = sA[r * lda + D + d] * g;   // ns * geo'
           }
         }
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
-      tile_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c,
+      mma_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
+        store4(sU + r * ldu + c,
                make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
       });
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
         const int r = i / D, d = i - r * D;
-        sV[i] = sA[r * lda + D + d] * (swishf(sU[i]) * nweight[base + r]);
+        sV[r * ldu + d] = sA[r * lda + D + d] * (swishf(sU[r * ldu + d]) * nweight[base + r]);
       }
     }
     __syncthreads();
     // key = (ns * geo) @ Wk + bk
-    tile_gemm(sV, D, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
-      store4(sW + r * D + c,
+    mma_gemm(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      store4(sW + r * ldu + c,
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    for (int i = tid; i < rows * H; i += kThreads) {
-      const int r = i / H, h = i - r * H;
-      const float* q = sQ + (lm0 + r / N) * wd + h * hd;
-      const float* kk = sW + r * D + h * hd;
-      float e = 0.f;
-      for (int j = 0; j < hd; ++j) e = fmaf(q[j] * a.dk, kk[j], e);
-      sE[i] = e + (1.0f - nmask[base + r]) * -1e9f;
-    }
-    __syncthreads();
-    for (int i = tid; i < ca * H; i += kThreads) {
-      const int at = i / H, h = i - at * H;
-      float* e = sE + at * N * H + h;
-      float mx = -INFINITY;
-      for (int n = 0; n < N; ++n) mx = fmaxf(mx, e[n * H]);
-      float s = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float t = expf(e[n * H] - mx);
-        e[n * H] = t;
-        s += t;
-      }
-      for (int n = 0; n < N; ++n) e[n * H] = e[n * H] / s;
-    }
+    warp_energy_softmax(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
     __syncthreads();
   };
 
@@ -286,8 +300,8 @@ scann_loop_backward_kernel(const Args a) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bq = a.bq + (size_t)l * D;
     if (a.g_update)
-      tile_gemm(cb, wd, ab, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
-    tile_gemm(cb, wd, ab, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(cb, wd, ab, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
+    mma_gemm(cb, wd, ab, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * wd + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
     });
   };
@@ -321,7 +335,7 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       const float* bemb = a.bembed;
-      tile_gemm(sFeat, ldf, ab, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
+      mma_gemm(sFeat, ldf, ab, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
         store4(sEmb + r * lde + c,
                make_float4(v.x + bemb[c], v.y + bemb[c + 1], v.z + bemb[c + 2], v.w + bemb[c + 3]));
       });
@@ -346,7 +360,7 @@ scann_loop_backward_kernel(const Args a) {
   };
 
   // the RBF expansions of a chunk's distances and angles, for the SCANN+
-  // geometry embedding: sA [rows, 2D] = [rbf(d) | rbf(w)]; the caller synchronises
+  // geometry embedding: sA [rows, lda] = [rbf(d) | rbf(w)]; the caller synchronises
   auto stage_rbf = [&](int base, int rows) {
     for (int i = tid; i < rows * K; i += kThreads) {
       const int r = i / K, k = i - r * K;
@@ -358,43 +372,48 @@ scann_loop_backward_kernel(const Args a) {
   };
   // s_nd = rbf(d) @ Wnd + bnd -> sU, s_nw = rbf(w) @ Wnw + bnw -> sV; the caller synchronises
   auto geometry_products = [&](int rows) {
-    tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
-      store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
-                                         v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
+    mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
+                                           v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
     });
-    tile_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
-      store4(sV + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
-                                         v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
+    mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+      store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
+                                           v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
     });
   };
 
   // ======================= forward, stashing layer inputs ===================
-  for (int ab0 = 0; ab0 < M; ab0 += AB) {
-    const int ab = min(AB, M - ab0);
+  for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+    const int ab = min(AB, m_hi - ab0);
     stage_embedding(ab0, ab);
-    tile_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
-      const float4 o = make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
-                                   swishf(v.z + a.bde[c + 2]) * m.z, swishf(v.w + a.bde[c + 3]) * m.w);
-      store4(sR + (ab0 + r) * wd + c, o);
-      store4(c_st + (size_t)(ab0 + r) * D + c, o);
+      store4(c_st + (size_t)(ab0 + r) * D + c,
+             make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
+                         swishf(v.z + a.bde[c + 2]) * m.z, swishf(v.w + a.bde[c + 3]) * m.w));
     });
     __syncthreads();
   }
 
   // SCANN+ geometry embedding: geo_0 = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw)
   if (a.g_update) {
-    for (int m0 = 0; m0 < M; m0 += CA) {
-      const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
+    for (int m0 = m_lo; m0 < m_hi; m0 += CA) {
+      const int ca = min(CA, m_hi - m0), rows = ca * N, base = m0 * N;
       stage_rbf(base, rows);
       __syncthreads();
       geometry_products(rows);
       __syncthreads();
-      for (int i = tid; i < rows * D; i += kThreads)
-        g_st[(size_t)base * D + i] = swishf(sU[i]) * swishf(sV[i]);
+      for (int i = tid; i < rows * D; i += kThreads) {
+        const int r = i / D, d = i - r * D;
+        g_st[(size_t)base * D + i] = swishf(sU[r * ldu + d]) * swishf(sV[r * ldu + d]);
+      }
       __syncthreads();
     }
   }
+  // every block of the cluster has written its atoms' embeddings: take all M rows
+  cluster.sync();
+  load_rows(sR, c_st, 0, M);
+  __syncthreads();
 
   for (int l = 0; l < L; ++l) {
     const float* ls = a.ln_s + (size_t)l * D;
@@ -406,8 +425,8 @@ scann_loop_backward_kernel(const Args a) {
     float* c_next = c_st + (size_t)(l + 1) * M * D;
     float* sH1 = sDQ;                  // swish(o1 @ W1 + b1)
     float* sH2 = sDCW;                 // (h1 @ W2 + b2) * mask
-    for (int ab0 = 0; ab0 < M; ab0 += AB) {
-      const int ab = min(AB, M - ab0);
+    for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+      const int ab = min(AB, m_hi - ab0);
       project_atoms(l, sR + ab0 * wd, ab);
       __syncthreads();
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
@@ -421,7 +440,7 @@ scann_loop_backward_kernel(const Args a) {
           for (int n = 0; n < N; ++n) {
             const int r = at * N + n;
             const float p = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-            s += p * nmask[base + r] * sW[r * D + d];
+            s += p * nmask[base + r] * sW[r * ldu + d];
           }
           sQ[(lm0 + at) * wd + d] = s + sQ[(lm0 + at) * wd + d];
         }
@@ -444,12 +463,12 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       // ResidualNorm: next = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
-      tile_gemm(sQ, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(sQ, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         store4(sH1 + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                              swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
       });
       __syncthreads();
-      tile_gemm(sH1, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(sH1, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 m = mask4(1 + l, ab0 + r, c);
         store4(sH2 + r * wd + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                              (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));
@@ -469,7 +488,9 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
     }
-    // every atom has gathered from this layer's input: take the new centers
+    // every atom of the structure has gathered from this layer's input and
+    // every block has written its atoms' new centers: take all M rows
+    cluster.sync();
     load_rows(sR, c_next, 0, M);
     __syncthreads();
   }
@@ -477,7 +498,7 @@ scann_loop_backward_kernel(const Args a) {
   // ======================= readout: forward and backward ====================
   const float* c_last = c_st + (size_t)L * M * D;
   {
-    float* qsum = sMisc;               // [wd] each
+    float* qsum = work + ABW;          // [wd] each; work[0, ABW) is pass 2's RE
     float* struc = qsum + wd;
     float* dstruc = struc + wd;
     float* dqsum = dstruc + wd;
@@ -490,22 +511,23 @@ scann_loop_backward_kernel(const Args a) {
     float* sb = sbf + round4(O);
     float* dsbf = sb + round4(O);
     float* scal = dsbf + round4(O);    // [0] norm, [1] d pred
-    // pass 1, block by block: the GA keys take the place of the centers
+    // pass 1, block by block over all M atoms, in every block of the cluster
+    // (the scores need every key): the GA keys take the place of the centers
     zero(qsum, G);
     for (int ab0 = 0; ab0 < M; ab0 += AB) {
       const int ab = min(AB, M - ab0);
       float* RB = sCb;                 // cg = swish(cL @ Wal + bal)
       float* RC = sQ;                  // gq
-      tile_gemm(sR + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      mma_gemm(sR + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                             swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
       });
       __syncthreads();
-      tile_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+      mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
         store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
-      tile_gemm(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+      mma_gemm(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
         store4(sR + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                                     v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
       });
@@ -578,23 +600,25 @@ scann_loop_backward_kernel(const Args a) {
       p = warp_sum(p) + a.bp[0];
       if (a.mrelu) p = fmaxf(p, 0.f);
       if (lane == 0) {
-        a.pred[b] = p;
+        if (lead) a.pred[b] = p;
         scal[1] = a.one_shot ? p - a.ct[b] : a.ct[b];   // straight-through mrelu
       }
     }
     __syncthreads();
-    const float ctp = scal[1], nrm = scal[0];
-    if (tid == 0) grad(gBP)[0] = ctp;
+    // the head's gradients belong to the structure, not to an atom: the
+    // cluster's first block writes them, the others write zeros
+    const float ctp = scal[1], nrm = scal[0], mine = lead ? 1.f : 0.f;
+    if (tid == 0) grad(gBP)[0] = ctp * mine;
     for (int o = tid; o < O; o += kThreads) {
-      grad(gWP)[o] = sb[o] * ctp;
+      grad(gWP)[o] = sb[o] * ctp * mine;
       dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
     }
     __syncthreads();
     for (int i = tid; i < G * O; i += kThreads) {
       const int g = i / O, o = i - g * O;
-      grad(gWBF)[i] = struc[g] * dsbf[o];
+      grad(gWBF)[i] = struc[g] * dsbf[o] * mine;
     }
-    for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o];
+    for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o] * mine;
     for (int g = tid; g < G; g += kThreads) {
       float s = 0.f;
       for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
@@ -631,11 +655,12 @@ scann_loop_backward_kernel(const Args a) {
       dqsum[g] = s;
     }
     __syncthreads();
-    // pass 2, block by block: recompute s_al, cg and gq from the stashed last
-    // centers, then the gradients of the GA projections and of after_Lc
-    for (int ab0 = 0; ab0 < M; ab0 += AB) {
-      const int ab = min(AB, M - ab0);
-      const bool acc = ab0 > 0;
+    // pass 2, block by block over this block's atoms: recompute s_al, cg and gq
+    // from the stashed last centers, then the gradients of the GA projections
+    // and of after_Lc
+    for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+      const int ab = min(AB, m_hi - ab0);
+      const bool acc = ab0 > m_lo;
       float* cLb = sCb;                // the block's last centers
       float* RA = sQ;                  // s_al = cL @ Wal + bal
       float* RB = sCW;                 // cg = swish(s_al)
@@ -644,14 +669,14 @@ scann_loop_backward_kernel(const Args a) {
       float* RE = work;                // d cg, then d s_al
       load_rows(cLb, c_last, ab0, ab);
       __syncthreads();
-      tile_gemm(cLb, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      mma_gemm(cLb, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + a.bal[c], v.y + a.bal[c + 1], v.z + a.bal[c + 2],
                                      v.w + a.bal[c + 3]);
         store4(RA + r * wd + c, s);
         store4(RB + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
       });
       __syncthreads();
-      tile_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+      mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
         store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
@@ -665,24 +690,21 @@ scann_loop_backward_kernel(const Args a) {
         RD[r * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
       }
       __syncthreads();
-      gemm_tA(RB, wd, RC, wd, ab, G, G, grad(gWGQ), G, acc);
-      gemm_tA(RB, wd, RD, wd, ab, G, G, grad(gWGK), G, acc);
-      column_sums(RC, wd, ab, G, grad(gBGQ), acc);
-      column_sums(RD, wd, ab, G, grad(gBGK), acc);
-      tile_gemm_tB(RC, wd, ab, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
+      mma_gemm_tA(RB, wd, RC, wd, ab, G, G, grad(gWGQ), G, acc, grad(gBGQ), acc);
+      mma_gemm_tA(RB, wd, RD, wd, ab, G, G, grad(gWGK), G, acc, grad(gBGK), acc);
+      mma_gemm_tB(RC, wd, ab, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
         store4(RE + r * wd + c, v);
       });
       __syncthreads();
-      tile_gemm_tB(RD, wd, ab, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
+      mma_gemm_tB(RD, wd, ab, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
         const float* e = RE + r * wd + c;
         const float* s = RA + r * wd + c;
         store4(RE + r * wd + c, make_float4((e[0] + v.x) * swish_grad(s[0]), (e[1] + v.y) * swish_grad(s[1]),
                                             (e[2] + v.z) * swish_grad(s[2]), (e[3] + v.w) * swish_grad(s[3])));
       });
       __syncthreads();
-      gemm_tA(cLb, wd, RE, wd, ab, D, G, grad(gWAL), G, acc);
-      column_sums(RE, wd, ab, G, grad(gBAL), acc);
-      tile_gemm_tB(RE, wd, ab, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tA(cLb, wd, RE, wd, ab, D, G, grad(gWAL), G, acc, grad(gBAL), acc);
+      mma_gemm_tB(RE, wd, ab, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
         store4(dcen + (size_t)(ab0 + r) * D + c, v);
       });
       __syncthreads();
@@ -691,6 +713,10 @@ scann_loop_backward_kernel(const Args a) {
 
   // ======================= reverse walk over the layers =====================
   float* sDCN = sR;                    // d layer input, accumulated over the atom blocks
+  // the gather's transpose: column d of the targets with index % np == part
+  // belongs to thread part * D + d, which walks the chunk's rows in order
+  const int np = kThreads / D > 0 ? kThreads / D : 1;
+  const int sc_d = tid % D, sc_part = tid / D;
   zero(sPart, kWarps * 2 * wd);
   __syncthreads();
   for (int l = L - 1; l >= 0; --l) {
@@ -709,12 +735,12 @@ scann_loop_backward_kernel(const Args a) {
     float* P5 = sDCW;                  // d (o1 + h2), then d o1
     float* oinv = work + 5 * ABW;      // [AB] rsqrt(var + eps) of ctx + query
     zero(sDCN, M * wd);
-    zero(sAcc, 4 * wd);
+    zero(sAcc, 2 * wd);
     __syncthreads();
     int ci = 0;                        // chunks of rows done in this layer
-    for (int ab0 = 0; ab0 < M; ab0 += AB) {
-      const int ab = min(AB, M - ab0);
-      const bool acc = ab0 > 0;
+    for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+      const int ab = min(AB, m_hi - ab0);
+      const bool acc = ab0 > m_lo;
       load_rows(P0, o_st + (size_t)l * M * D, ab0, ab);
       __syncthreads();
       // recompute o1 and the ResidualNorm
@@ -735,13 +761,13 @@ scann_loop_backward_kernel(const Args a) {
         if (lane == 0) oinv[m] = inv;
       }
       __syncthreads();
-      tile_gemm(P1, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(P1, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
         store4(P2 + r * wd + c, s);
         store4(P3 + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
       });
       __syncthreads();
-      tile_gemm(P3, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm(P3, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 m = mask4(1 + l, ab0 + r, c);
         const float* o1 = P1 + r * wd + c;
         store4(P4 + r * wd + c, make_float4(o1[0] + (v.x + br2[c]) * m.x, o1[1] + (v.y + br2[c + 1]) * m.y,
@@ -774,18 +800,18 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       flush_ln(grad(gRLNS) + (size_t)l * D, grad(gRLNB) + (size_t)l * D, acc);
-      gemm_tA(P3, wd, P4, wd, ab, D, D, grad(gWR2) + (size_t)l * D * D, D, acc);
-      column_sums(P4, wd, ab, D, grad(gBR2) + (size_t)l * D, acc);
+      mma_gemm_tA(P3, wd, P4, wd, ab, D, D, grad(gWR2) + (size_t)l * D * D, D, acc,
+                  grad(gBR2) + (size_t)l * D, acc);
       __syncthreads();
-      tile_gemm_tB(P4, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tB(P4, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         const float* s = P2 + r * wd + c;
         store4(P3 + r * wd + c, make_float4(v.x * swish_grad(s[0]), v.y * swish_grad(s[1]),
                                             v.z * swish_grad(s[2]), v.w * swish_grad(s[3])));
       });
       __syncthreads();
-      gemm_tA(P1, wd, P3, wd, ab, D, D, grad(gWR1) + (size_t)l * D * D, D, acc);
-      column_sums(P3, wd, ab, D, grad(gBR1) + (size_t)l * D, acc);
-      tile_gemm_tB(P3, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tA(P1, wd, P3, wd, ab, D, D, grad(gWR1) + (size_t)l * D * D, D, acc,
+                  grad(gBR1) + (size_t)l * D, acc);
+      mma_gemm_tB(P3, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         float* p = P5 + r * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
@@ -821,26 +847,10 @@ scann_loop_backward_kernel(const Args a) {
         const int ca = min(CA, ab0 + ab - m0), rows = ca * N, base = m0 * N, lm0 = m0 - ab0;
         stage_chunk(l, m0, rows, c_in, D);
         row_forward(l, m0, lm0, ca, false);
-        // d attn = mask * nmask * sum_{d in head} d ctx * key
-        for (int i = tid; i < rows * H; i += kThreads) {
-          const int r = i / H, h = i - r * H;
-          const float* dq = sDQ + (lm0 + r / N) * wd + h * hd;
-          const float* kk = sW + r * D + h * hd;
-          float s = 0.f;
-          for (int j = 0; j < hd; ++j) s = fmaf(dq[j], kk[j], s);
-          s *= nmask[base + r];
-          sF[i] = a.attn_dropout ? s * sM[i] : s;
-        }
-        __syncthreads();
-        // softmax backward over the N neighbours, on the pre-dropout attention
-        for (int i = tid; i < ca * H; i += kThreads) {
-          const int at = i / H, h = i - at * H;
-          const float* p = sE + at * N * H + h;
-          float* f = sF + at * N * H + h;
-          float s = 0.f;
-          for (int n = 0; n < N; ++n) s += p[n * H] * f[n * H];
-          for (int n = 0; n < N; ++n) f[n * H] = p[n * H] * (f[n * H] - s);
-        }
+        // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
+        // backward over the N neighbours, on the pre-dropout attention
+        warp_softmax_backward(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
+                              a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
         __syncthreads();
         // d key (in place of the key) and d query = d ctx + dk sum_n de key
         for (int i = tid; i < ca * D; i += kThreads) {
@@ -852,17 +862,16 @@ scann_loop_backward_kernel(const Args a) {
             const int r = at * N + n;
             const float de = sF[r * H + h];
             const float used = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-            ex += de * sW[r * D + d];
-            sW[r * D + d] = dctx * used * nmask[base + r] + de * qs;
+            ex += de * sW[r * ldu + d];
+            sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
           }
           sDQ[m * wd + d] = dctx + ex * a.dk;
         }
         __syncthreads();
         // key = kin @ Wk + bk
-        gemm_tA(sV, D, sW, D, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0);
-        column_sums(sW, D, rows, D, sAcc, true);
+        mma_gemm_tA(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
         __syncthreads();
-        tile_gemm_tB(sW, D, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * D + c, v); });
+        mma_gemm_tB(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
         __syncthreads();
         if (a.g_update) {
           // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
@@ -873,7 +882,7 @@ scann_loop_backward_kernel(const Args a) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int d = lane + 32 * i;
-              v[i] = d < D ? swishf(sU[r * D + d]) + sA[r * lda + d] : 0.f;
+              v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
             }
             warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
@@ -883,8 +892,8 @@ scann_loop_backward_kernel(const Args a) {
               dy[i] = 0.f;
               if (d < D) {
                 const float g = xh[i] * gs[d] + gb[d];
-                const float dkin = sV[r * D + d], ns = sA[r * lda + D + d];
-                sV[r * D + d] = dkin * g;   // d ns from the key input
+                const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
+                sV[r * ldu + d] = dkin * g;   // d ns from the key input
                 dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
               }
             }
@@ -893,8 +902,8 @@ scann_loop_backward_kernel(const Args a) {
             for (int i = 0; i < 4; ++i) {
               const int d = lane + 32 * i;
               if (d < D) {
-                sW[r * D + d] = dx[i];                                // d r (residual into geo)
-                sU[r * D + d] = dx[i] * swish_grad(sU[r * D + d]);    // d u_pre
+                sW[r * ldu + d] = dx[i];                                  // d r (residual into geo)
+                sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
                 sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
                 sPart[(warp * 2 + 1) * wd + d] += dy[i];
               }
@@ -903,55 +912,59 @@ scann_loop_backward_kernel(const Args a) {
         } else {
           for (int i = tid; i < rows * D; i += kThreads) {
             const int r = i / D, d = i - r * D;
-            const float u = sU[i], w = nweight[base + r];
-            const float dkin = sV[i];
-            sV[i] = dkin * (swishf(u) * w);
-            sU[i] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
+            const float u = sU[r * ldu + d], w = nweight[base + r];
+            const float dkin = sV[r * ldu + d];
+            sV[r * ldu + d] = dkin * (swishf(u) * w);
+            sU[r * ldu + d] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
           }
         }
         __syncthreads();
         if (a.g_update) {
-          gemm_tA(sA, lda, sU, D, rows, 2 * D, D, grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D,
-                  D, ci > 0);
+          mma_gemm_tA(sA, lda, sU, ldu, rows, 2 * D, D,
+                      grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
           for (int i = tid; i < ca * D; i += kThreads) {
             const int at = i / D, d = i - at * D;
             float s = 0.f;
-            for (int n = 0; n < N; ++n) s += sU[(at * N + n) * D + d];
+            for (int n = 0; n < N; ++n) s += sU[(at * N + n) * ldu + d];
             sDCW[(lm0 + at) * wd + d] = s;
           }
           // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
           float* dg_out = dgb + (size_t)base * D;
-          tile_gemm_tB(sU, D, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
-            const float* dr = sW + r * D + c;
+          mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
+            const float* dr = sW + r * ldu + c;
             store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
           });
-          tile_gemm_tB(sU, D, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
-            float* p = sV + r * D + c;
+          mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
+            float* p = sV + r * ldu + c;
             store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
           });
         } else {
-          gemm_tA(sA, lda, sU, D, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0);
+          mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
+                      sAcc + wd, true);
         }
-        column_sums(sU, D, rows, D, sAcc + wd, true);
         __syncthreads();
         // the gather's transpose: d centers[idx] += d ns, in row order
-        for (int d = tid; d < D; d += kThreads)
-          for (int r = 0; r < rows; ++r) sDCN[nbr[base + r] * wd + d] += sV[r * D + d];
+        if (sc_part < np)
+          for (int r = 0; r < rows; ++r) {
+            const int idx = nbr[base + r];
+            if (idx % np == sc_part) sDCN[idx * wd + sc_d] += sV[r * ldu + sc_d];
+          }
         __syncthreads();
       }
 
       // ---- per-atom gradients of the block -----------------------------------
       if (a.g_update) flush_ln(grad(gLNGS) + (size_t)l * D, grad(gLNGB) + (size_t)l * D, acc);
-      gemm_tA(sCb, wd, sDQ, wd, ab, D, D, grad(gWQ) + (size_t)l * D * D, D, acc);
-      column_sums(sDQ, wd, ab, D, grad(gBQ) + (size_t)l * D, acc);
-      if (a.g_update) gemm_tA(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
-      tile_gemm_tB(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tA(sCb, wd, sDQ, wd, ab, D, D, grad(gWQ) + (size_t)l * D * D, D, acc,
+                  grad(gBQ) + (size_t)l * D, acc);
+      if (a.g_update)
+        mma_gemm_tA(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
+      mma_gemm_tB(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         float* p = sDCN + (ab0 + r) * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
       __syncthreads();
       if (a.g_update) {
-        tile_gemm_tB(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
+        mma_gemm_tB(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
           float* p = sDCN + (ab0 + r) * wd + c;
           store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
@@ -962,22 +975,32 @@ scann_loop_backward_kernel(const Args a) {
       grad(gBK)[(size_t)l * D + d] = sAcc[d];
       grad(gBFG)[(size_t)l * D + d] = sAcc[wd + d];
     }
-    // d (this layer's input) is d (the output of the layer below)
-    for (int i = tid; i < M * q4; i += kThreads) {
-      const int m = i / q4, c = (i - m * q4) * 4;
-      store4(dcen + (size_t)m * D + c, *reinterpret_cast<const float4*>(sDCN + m * wd + c));
+    // d (this layer's input) is d (the output of the layer below): for this
+    // block's atoms, the sum of the cluster's partial rows in rank order
+    if (C > 1) cluster.sync();
+    for (int i = tid; i < (m_hi - m_lo) * q4; i += kThreads) {
+      const int m = m_lo + i / q4, c = (i % q4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < C; ++q) {
+        const float* part = C > 1 ? cluster.map_shared_rank(sDCN, q) : sDCN;
+        const float4 v = *reinterpret_cast<const float4*>(part + m * wd + c);
+        s = q == 0 ? v : make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+      }
+      store4(dcen + (size_t)m * D + c, s);
+      store4(sDCN + m * wd + c, s);
     }
+    if (C > 1) cluster.sync();
     __syncthreads();
   }
 
   // ======================= embedding backward ===============================
-  for (int ab0 = 0; ab0 < M; ab0 += AB) {
-    const int ab = min(AB, M - ab0);
-    const bool acc = ab0 > 0;
+  for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+    const int ab = min(AB, m_hi - ab0);
+    const bool acc = ab0 > m_lo;
     float* E1 = work + AB * (2 * lde + ldf);   // d s_de [AB, wd]
     float* E2 = work + AB * (lde + ldf);       // d emb  [AB, lde]
     stage_embedding(ab0, ab);
-    tile_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
       const float* dc = sDCN + (ab0 + r) * wd + c;
       store4(E1 + r * wd + c,
@@ -987,15 +1010,13 @@ scann_loop_backward_kernel(const Args a) {
                          dc[3] * m.w * swish_grad(v.w + a.bde[c + 3])));
     });
     __syncthreads();
-    column_sums(E1, wd, ab, D, grad(gBDE), acc);
-    gemm_tA(sEmb, lde, E1, wd, ab, ke, D, grad(gWDE), D, acc);
-    tile_gemm_tB(E1, wd, ab, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
+    mma_gemm_tA(sEmb, lde, E1, wd, ab, ke, D, grad(gWDE), D, acc, grad(gBDE), acc);
+    mma_gemm_tB(E1, wd, ab, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
       store4(E2 + r * lde + c, v);
     });
     __syncthreads();
     if (a.cgcnn) {
-      gemm_tA(sFeat, ldf, E2, lde, ab, a.F, a.E, grad(gEMBED), a.E, acc);
-      column_sums(E2, lde, ab, a.E, grad(gBEMBED), acc);
+      mma_gemm_tA(sFeat, ldf, E2, lde, ab, a.F, a.E, grad(gEMBED), a.E, acc, grad(gBEMBED), acc);
     } else {
       // the one-hot embedding's transpose: scatter d emb into the rows of Z
       float* ge = grad(gEMBED);
@@ -1024,44 +1045,83 @@ scann_loop_backward_kernel(const Args a) {
   // ======================= SCANN+ geometry embedding backward ===============
   if (a.g_update) {
     int ci = 0;
-    for (int m0 = 0; m0 < M; m0 += CA, ++ci) {
-      const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
+    for (int m0 = m_lo; m0 < m_hi; m0 += CA, ++ci) {
+      const int ca = min(CA, m_hi - m0), rows = ca * N, base = m0 * N;
       stage_rbf(base, rows);
       __syncthreads();
       geometry_products(rows);
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
-        const float g = dgb[(size_t)base * D + i], snd = sU[i], snw = sV[i];
-        sU[i] = g * swishf(snw) * swish_grad(snd);
-        sV[i] = g * swishf(snd) * swish_grad(snw);
+        const int r = i / D, d = i - r * D;
+        const float g = dgb[(size_t)base * D + i], snd = sU[r * ldu + d], snw = sV[r * ldu + d];
+        sU[r * ldu + d] = g * swishf(snw) * swish_grad(snd);
+        sV[r * ldu + d] = g * swishf(snd) * swish_grad(snw);
       }
       __syncthreads();
-      gemm_tA(sA, lda, sU, D, rows, K, D, grad(gWND), D, ci > 0);
-      gemm_tA(sA + D, lda, sV, D, rows, K, D, grad(gWNW), D, ci > 0);
-      column_sums(sU, D, rows, D, grad(gBND), ci > 0);
-      column_sums(sV, D, rows, D, grad(gBNW), ci > 0);
+      mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
+      mma_gemm_tA(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
       __syncthreads();
     }
   }
+}
+
+// The sizes make_plan reads, from the wrapper's list of sizes.
+void set_dims(Args& a, const int* dims) {
+  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
+  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
+  a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
+  a.atom_block = dims[21];
+}
+
+// The launch of C blocks per structure, shared by the launcher and the
+// occupancy query.
+void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int C,
+                           int bytes, cudaStream_t s) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
 }
 
 }  // namespace
 
 extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
   Args a = {};
-  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
-  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
-  a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
-  a.atom_block = dims[21];
+  set_dims(a, dims);
   return make_plan(a).total * (int)sizeof(float);
+}
+
+// How many clusters of `cluster` blocks with this shape's shared memory the
+// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
+  Args a = {};
+  set_dims(a, dims);
+  const int bytes = make_plan(a).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // The pointers, sizes, scalars, random-stream words and offsets are those of
 // unpack_backward_args (scann_grad_common.cuh), followed by pointer 54, the
-// d(layer output) scratch [B, M, D], and size 21, the atom block; in the order
+// d(layer output) scratch [B, M, D], size 21, the atom block, and size 22, the
+// blocks per structure C (grad_rows is then [B * C, P]); in the order
 // scann_tpu_torch/kernels/scann_loop.py passes them. Launches the backward
-// kernel (one block per structure) and the reduction of its gradient rows
-// into out [P].
+// kernel (a cluster of C blocks per structure) and the reduction of its
+// gradient rows into out [P].
 extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
                                           const float* scalars, const unsigned int* rng,
                                           const long long* offsets, float* out, void* stream) {
@@ -1069,9 +1129,11 @@ extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
   a.dcenters = (float*)ptrs[54];
   a.atom_block = dims[21];
+  a.cluster = dims[22];
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       a.chunk_atoms * a.N > kMaxChunkRows || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
+      a.cluster < 1 || a.cluster > kMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D || a.P <= 0)
     return kErrShape;
@@ -1081,10 +1143,14 @@ extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  scann_loop_backward_kernel<<<a.B, kThreads, bytes, s>>>(a);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(cfg, attr, a.B, a.cluster, bytes, s);
+  err = cudaLaunchKernelEx(&cfg, scann_loop_backward_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce_rows(a.grad_rows, a.B, a.P, out, s);
+  return launch_reduce_rows(a.grad_rows, a.B * a.cluster, a.P, out, s);
 }
 
 extern "C" const char* scann_loop_backward_error_string(int code) {

@@ -4,14 +4,16 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 nvcc compiles it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/scann_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/scann_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
 
 The build runs at first use, into ``build/scann_tpu_torch/`` beside the
 package, keyed by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once. The hash covers the source
 and every header it includes (``philox.cuh``, ``scann_common.cuh``,
-``scann_grad_common.cuh``), so
-an edited header rebuilds every library that includes it. ``build_all`` starts one nvcc
+``scann_grad_common.cuh``, ``scann_mma.cuh``), so
+an edited header rebuilds every library that includes it. ``-Xptxas -v``
+makes the compiler report each kernel's registers and spills:
+``build_logs`` keeps what nvcc printed and ``kernel_resources`` reads it. ``build_all`` starts one nvcc
 per source, all at once. Nothing here is imported from or built at module
 import time, and nothing falls back: a failed build raises.
 """
@@ -25,19 +27,23 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
            "local_attention")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", re.S)
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}   # name -> nvcc's output of the build made by this process
 
 
 def nvcc_path() -> str:
@@ -63,6 +69,18 @@ def source_files(name: str) -> List[str]:
             for m in _INCLUDE.finditer(f.read()):
                 todo.append(os.path.join(os.path.dirname(path), m.group(1)))
     return seen
+
+
+def kernel_resources(name: str) -> List[Tuple[str, int, int, int]]:
+    """(mangled kernel name, registers per thread, bytes of spill stores,
+    bytes of spill loads) of every kernel of ``csrc/<name>.cu``, from what
+    ``ptxas -v`` printed when this process built it (empty if it did not)."""
+    out = []
+    for m in _ENTRY.finditer(build_logs.get(name, "")):
+        spill = _SPILL.search(m.group(0))
+        out.append((m.group(1), int(m.group(2)),
+                    int(spill.group(1)) if spill else 0, int(spill.group(2)) if spill else 0))
+    return out
 
 
 def library_path(name: str) -> str:
@@ -92,6 +110,7 @@ def build_all(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, 
     errors = []
     for name, proc in procs.items():
         log, _ = proc.communicate()
+        build_logs[name] = log
         tmp, out = proc.scann_paths
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")

@@ -29,7 +29,11 @@ the backward kernel plus its row reduction).
 The gate (``refusal``) is the kernel's own shared-memory plan: seven
 [M, max(D, G)] buffers stay resident, so M <= 32 at D = G = 128; larger
 buckets train through the backward of the crystal loop kernel
-(``kernels.scann_loop``). Packed batches (``segment_onehot``) raise
+(``kernels.scann_loop``). The kernel's products run on the tensor cores as
+split-TF32 ``mma.sync`` (``csrc/scann_mma.cuh``: three TF32 passes per tile,
+accumulated in f32), which keeps f32 accuracy; ``reference_tf32x3_matmul``
+is that arithmetic in plain PyTorch and ``mma_selftest`` runs the header's
+three products on the card. Packed batches (``segment_onehot``) raise
 NotImplementedError: structure packing is not ported yet. Bound and design are in the source note of
 ``csrc/scann_backward.cu``; ``backward_flops`` counts the products the
 function needs, ``recompute_flops`` those the kernel's schedule adds.
@@ -123,6 +127,15 @@ def grads_from_flat(flat: torch.Tensor, packed: Dict[str, torch.Tensor],
     return out
 
 
+def chunk_floats(rows: int, D: int, H: int) -> int:
+    """Floats of the buffers of one chunk of (atom, neighbour) rows in both
+    backward kernels: [rows, 2D + 4] operands, three [rows, D + 4] buffers
+    (the strides of 4 mod 32 floats keep the tensor-core fragment reads free
+    of bank conflicts) and three [rows, H] attention buffers."""
+    r4 = lambda x: -(-x // 4) * 4
+    return rows * (2 * D + 4) + 3 * rows * (D + 4) + 3 * r4(rows * H)
+
+
 def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int]:
     """(atoms per chunk of rows, shared bytes per block): the layout
     ``make_plan`` in the CUDA source walks."""
@@ -134,11 +147,11 @@ def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int]:
     rows = chunk_atoms * N
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
-    work = max(rows * 2 * D + 3 * rows * D + 3 * r4(rows * H),
+    work = max(chunk_floats(rows, D, H),
                5 * MW + 4 * wd + 4 * r4(M) + 3 * r4(O) + 4,
                6 * MW + r4(M),
                2 * M * lde + M * ldf + MW)
-    floats = 7 * MW + work + N_WARPS * 2 * wd + 4 * wd
+    floats = 7 * MW + work + N_WARPS * 2 * wd + 2 * wd
     return chunk_atoms, 4 * floats
 
 
@@ -248,11 +261,12 @@ def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, tor
 
 
 def allocate_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int, N: int,
-                     center_layers: int) -> Dict[str, Optional[torch.Tensor]]:
+                     center_layers: int, blocks: int = 1) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one backward launch at batch shape (B, M, N):
     the stashes of layer inputs (``center_layers`` sets of centers), of
     ctx + query and, for SCANN+, of the geometry and its gradient, and the
-    [B, P] per-structure gradient rows. Its contents mean nothing between
+    [B * blocks, P] gradient rows, one per CUDA block (``blocks`` per
+    structure). Its contents mean nothing between
     launches, so a caller may keep it and hand it to every launch of that
     shape."""
     dev = packed["wde"].device
@@ -261,7 +275,7 @@ def allocate_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, 
     return {"c_stash": empty(B, center_layers, M, D), "o_stash": empty(B, L, M, D),
             "g_stash": empty(B, L, R, D) if cfm.g_update else None,
             "dgeo": empty(B, R, D) if cfm.g_update else None,
-            "rows": empty(B, grad_layout(packed)[1])}
+            "rows": empty(B * blocks, grad_layout(packed)[1])}
 
 
 def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -357,6 +371,53 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
     flat, pred = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
                                        None, True, mrelu_head, dropout_rate, seed)
     return pred.view(-1, 1), grads_from_flat(flat, packed, cfm)
+
+
+# --- the products of csrc/scann_mma.cuh ------------------------------------------
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def reference_tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as the backward kernels' tensor-core products compute it:
+    each float32 operand split into hi = tf32(x) and lo = tf32(x - hi), the
+    tile summed from a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first,
+    accumulated in float32. ``passes=1`` keeps a_hi b_hi alone: one TF32
+    pass, three digits."""
+    a_hi, b_hi = round_tf32(a), round_tf32(b)
+    exact = lambda x, y: (x.double() @ y.double())   # TF32 products are exact in f32
+    if passes == 1:
+        return exact(a_hi, b_hi).float()
+    a_lo, b_lo = round_tf32(a - a_hi), round_tf32(b - b_hi)
+    return ((exact(a_lo, b_hi) + exact(a_hi, b_lo)).float().double()
+            + exact(a_hi, b_hi)).float()
+
+
+def mma_selftest(a: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
+    """Run the three products of ``csrc/scann_mma.cuh`` on one CUDA block:
+    a [rows <= 64, K] @ w [K, nc] through ``mma_gemm``, the same through
+    ``mma_gemm_tB`` on w's transpose, and a^T y with y [rows, nc] and y's
+    column sums through ``mma_gemm_tA`` (the second of two calls adds to the
+    first, as from the second chunk of rows on). Returns (a @ w, a @ w by the
+    transposed form, a^T y, column sums of y)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    rows, K = a.shape
+    nc = w.shape[1]
+    if w.shape != (K, nc) or y.shape != (rows, nc):
+        raise ValueError(f"shapes {tuple(a.shape)}, {tuple(w.shape)}, {tuple(y.shape)}")
+    a, w, y = (t.to(torch.float32).contiguous() for t in (a, w, y))
+    wt = w.t().contiguous()
+    out = [torch.empty(shape, device=dev, dtype=torch.float32)
+           for shape in ((rows, nc), (rows, nc), (K, nc), (nc,))]
+    call_kernel("scann_backward", "scann_mma_selftest", dev, [a, w, wt, y] + out,
+                [rows, K, nc], [0.0])
+    return out[0], out[1], out[2] / 2, out[3] / 2
 
 
 # --- differentiable wrapper ---------------------------------------------------

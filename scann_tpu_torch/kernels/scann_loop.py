@@ -51,14 +51,21 @@ Backward (crystal training):
   centers going forward, the accumulating d(layer input) going back), five
   slots for a block of 32, 16 or 8 atoms, and a work region for a chunk of at
   most 32 (atom, neighbour) rows, so N <= 32 and, at D = G = 128 and N = 32,
-  M <= 96 with blocks of 32, M <= 168 with blocks of 16 and M <= 208 with
+  M <= 106 with blocks of 32, M <= 186 with blocks of 16 and M <= 226 with
   blocks of 8: lower than the forward's 232. Beyond it a bucket trains
   through the per-layer model under ``torch.autograd``
   (``Trainer.train_route``).
+- A cluster of C thread blocks works on each structure, each block on its
+  share of the atoms (``cluster_size``: C is a function of the batch size
+  alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
+  SMs in one wave). Launches at one C repeat bit for bit; two values of C
+  differ in the last bits, each within the same tolerance of the plain
+  version. The products run on the tensor cores as split-TF32 ``mma.sync``
+  at f32 accuracy (``csrc/scann_mma.cuh``).
 - The global scratch of a launch (``loop_backward_scratch``: the stashes of
   layer inputs and, for SCANN+, 0.9 GB of geometry at the MP2018 batch, and
-  the [B, P] gradient rows) can be allocated once per batch shape and handed
-  to every launch.
+  the [B * C, P] gradient rows, one per block) can be allocated once per batch
+  shape and handed to every launch.
 
 Bounds and designs are in the source notes of the two CUDA files: about
 1.85e11 FLOP of FP32 FMA per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for
@@ -87,6 +94,15 @@ SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
 BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
 BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
+# Blocks per structure the loop backward launches with -> how many such
+# clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs) runs at once when
+# a block takes most of an SM's shared memory. A cluster of 2 is one pair, so
+# 66 always fit; a cluster of 4 needs two pairs of one GPC, so a GPC with an
+# odd count of pairs leaves one out: between 29 and 33 fit, depending on the
+# die (cudaOccupancyMaxActiveClusters, ``max_active_clusters``, said 30 on
+# the card the kernel was measured on; chip_smoke.py prints it).
+CLUSTERS_AT_ONCE = {4: 28, 2: 66, 1: 132}
+CLUSTER_SIZES = tuple(CLUSTERS_AT_ONCE)
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -229,7 +245,7 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, in
     atom block is the largest of 32, 16, 8 whose plan fits a block's shared
     memory (the smallest one's plan if none does)."""
     r4 = lambda x: -(-x // 4) * 4
-    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    D, G, O = cfm.local_dim, cfm.global_dim, cfm.dense_out
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
@@ -237,14 +253,25 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, in
         block = min(block, M)
         chunk_atoms = max(1, min(block, kbwd.MAX_CHUNK_ROWS // max(N, 1)))
         rows = chunk_atoms * N
-        work = max(rows * 2 * D + 3 * rows * D + 3 * r4(rows * H),
+        work = max(kbwd.chunk_floats(rows, D, cfm.num_head),
                    5 * block * wd + r4(block),
-                   block * (2 * lde + ldf) + block * wd)
-        floats = (M * wd + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd + 4 * wd
-                  + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)
+                   block * (2 * lde + ldf) + block * wd,
+                   block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
+        floats = M * wd + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd + 2 * wd
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, 4 * floats
+
+
+def cluster_size(B: int) -> int:
+    """Thread blocks per structure of a loop-backward launch at batch size B:
+    the largest of 4, 2, 1 with which the batch's clusters still run at once
+    on the card (``CLUSTERS_AT_ONCE``). 4 up to 28 structures, 2 up to 66 (the
+    MP2018 batch of 64 fills 128 of 132 SMs), 1 beyond."""
+    for c, at_once in CLUSTERS_AT_ONCE.items():
+        if B <= at_once:
+            return c
+    return 1
 
 
 def backward_refusal(cfm: ModelConfig, M: int, N: int,
@@ -304,11 +331,15 @@ def reference_loop_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str
 
 
 def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int,
-                          N: int) -> Dict[str, Optional[torch.Tensor]]:
+                          N: int, cluster: Optional[int] = None
+                          ) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-backward launch at batch shape (B, M,
-    N): that of the molecule backward with the last centers stashed too, plus
-    the [B, M, D] d(layer output). A trainer allocates it once per shape."""
-    scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1)
+    N): that of the molecule backward with the last centers stashed too and
+    one gradient row per block ([B * cluster, P]; ``cluster`` defaults to
+    ``cluster_size(B)``), plus the [B, M, D] d(layer output). A trainer
+    allocates it once per shape."""
+    cluster = cluster_size(B) if cluster is None else cluster
+    scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=packed["wde"].device,
                                       dtype=torch.float32)
     return scratch
@@ -318,13 +349,14 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                          cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
                          one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                          seed: int = 0, mol_base: int = 0,
-                         scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+                         cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the loop backward and its row reduction
     with ``pack_params`` output. ``ct`` [B] is d pred, or the targets when
     ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
-    from ``loop_backward_scratch`` at this batch shape (allocated here when
-    None). Returns (flat gradients [P], pred [B])."""
+    from ``loop_backward_scratch`` at this batch shape and cluster size
+    (allocated here when None); ``cluster`` blocks per structure (1, 2 or 4;
+    ``cluster_size(B)`` when None). Returns (flat gradients [P], pred [B])."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -332,7 +364,7 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                              inputs)
     kfwd._check_inputs(inputs, cfm, dev)
     return _launch_backward(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate,
-                            seed, mol_base, scratch)
+                            seed, mol_base, scratch, cluster)
 
 
 launch_loop_backward.launches = 0
@@ -342,25 +374,52 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
                      cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
                      one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                      seed: int = 0, mol_base: int = 0,
-                     scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+                     cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``launch_loop_backward`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N)
+    cluster = cluster_size(B) if cluster is None else cluster
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
     if scratch is None:
-        scratch = loop_backward_scratch(packed, cfm, B, M, N)
-    elif scratch["dcenters"].shape != (B, M, cfm.local_dim):
-        raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} handed to a "
-                         f"batch of shape {(B, M, cfm.local_dim)}")
+        scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster)
+    elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
+          or scratch["rows"].shape[0] != B * cluster):
+        raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
+                         f"{scratch['rows'].shape[0]} gradient rows handed to a batch of shape "
+                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure")
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
     kfwd.call_kernel("scann_loop_backward", "scann_loop_backward", packed["wde"].device,
-                     tensors + [scratch["dcenters"]], dims + [atom_block], scalars, rng,
-                     offsets, flat)
+                     tensors + [scratch["dcenters"]], dims + [atom_block, cluster], scalars,
+                     rng, offsets, flat)
     launch_loop_backward.launches += 1
     return flat, pred
+
+
+def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` loop-backward blocks at this shape the
+    card runs at once (``cudaOccupancyMaxActiveClusters``); a launch of more
+    than that many structures takes more than one wave."""
+    import ctypes
+
+    from scann_tpu_torch.kernels._build import load_library
+
+    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N)
+    dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
+            cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
+            int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
+            atom_block]
+    fn = load_library("scann_loop_backward").scann_loop_backward_max_clusters
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn((ctypes.c_int * len(dims))(*dims), cluster)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
+    return n
 
 
 def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],

@@ -158,7 +158,10 @@ def test_torch_backward_gate_and_layout():
     cfm = ModelConfig()
     kbwd.check_supported(cfm, 32, 16)
     kbwd.check_supported(cfm, 32, 24)
-    assert kbwd.shared_memory_plan(cfm, 32, 16) == (2, 223360)
+    # chunk buffers padded to strides of 2D + 4 and D + 4 floats, two rows of bias sums
+    assert kbwd.shared_memory_plan(cfm, 32, 16) == (2, 222336)
+    assert kbwd.shared_memory_plan(cfm, 32, 24)[0] == 1
+    assert kbwd.refusal(cfm, 32, 16) is None and kbwd.refusal(cfm, 32, 32) is None
     with pytest.raises(NotImplementedError, match="loop kernel"):
         kbwd.check_supported(cfm, 96, 16)
     with pytest.raises(NotImplementedError, match="shared-memory plan"):
@@ -197,12 +200,89 @@ def test_torch_backward_flops_qm9():
 def test_torch_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """Editing a header that a kernel includes changes that kernel's
     library path, so a stale build is never loaded."""
-    for f in ("scann_backward.cu", "scann_grad_common.cuh", "scann_common.cuh", "philox.cuh"):
+    for f in ("scann_backward.cu", "scann_mma.cuh", "scann_grad_common.cuh", "scann_common.cuh",
+              "philox.cuh"):
         (tmp_path / f).write_text(open(f"{_build.SRC_DIR}/{f}").read())
     monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
     names = [p.rsplit("/", 1)[1] for p in _build.source_files("scann_backward")]
-    assert names == ["scann_backward.cu", "philox.cuh", "scann_grad_common.cuh",
+    assert names == ["scann_backward.cu", "philox.cuh", "scann_mma.cuh", "scann_grad_common.cuh",
                      "scann_common.cuh"]
     before = _build.library_path("scann_backward")
     (tmp_path / "philox.cuh").write_text((tmp_path / "philox.cuh").read_text() + "\n// edit\n")
-    assert _build.library_path("scann_backward") != before
+    after = _build.library_path("scann_backward")
+    assert after != before
+    (tmp_path / "scann_mma.cuh").write_text((tmp_path / "scann_mma.cuh").read_text() + "\n// edit\n")
+    assert _build.library_path("scann_backward") not in (before, after)
+
+
+def test_torch_backward_plan_matches_cuda_source():
+    """``shared_memory_plan`` mirrors ``make_plan`` of ``csrc/scann_backward.cu``:
+    the padded strides of the chunk buffers are read from the source, and the
+    QM9 plan is rebuilt term by term."""
+    with open(_build.source_files("scann_backward")[0]) as f:
+        src = f.read()
+    plan = src[src.index("inline Plan make_plan"):src.index("__global__")]
+    assert "p.lda = 2 * a.D + 4;" in plan and "p.ldu = a.D + 4;" in plan
+    assert "p.total = p.offAcc + 2 * p.wd;" in plan
+    cfm = ModelConfig()
+    D, H, M, wd = cfm.local_dim, cfm.num_head, 32, 128
+    MW = M * wd
+    chunk = 32 * (2 * D + 4) + 3 * 32 * (D + 4) + 3 * 32 * H
+    assert kbwd.chunk_floats(32, D, H) == chunk
+    work = max(chunk, 5 * MW + 4 * wd + 4 * M + 3 * cfm.dense_out + 4, 6 * MW + M,
+               2 * M * 48 + MW)
+    assert kbwd.shared_memory_plan(cfm, M, 16)[1] == 4 * (7 * MW + work + 8 * 2 * wd + 2 * wd)
+
+
+@pytest.mark.parametrize("rows,K,nc", [(32, 256, 128), (32, 128, 128), (24, 20, 128), (8, 58, 60)])
+def test_torch_tf32x3_matmul_keeps_f32_accuracy(rows, K, nc):
+    """Why the tolerances of the backward kernels stay where they were: the
+    split product the kernels run on the tensor cores (operands rounded to
+    TF32's 10 mantissa bits, three passes, small terms first) is within 2e-6
+    x max |exact| of a float64 product, as an FP32 FMA loop is, where a single
+    TF32 pass is more than 100 times further off."""
+    g = torch.Generator().manual_seed(rows + K)
+    a, b = torch.randn(rows, K, generator=g), torch.randn(K, nc, generator=g)
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    three = float((kbwd.reference_tf32x3_matmul(a, b).double() - exact).abs().max()) / scale
+    one = float((kbwd.reference_tf32x3_matmul(a, b, passes=1).double() - exact).abs().max()) / scale
+    fp32 = float(((a @ b).double() - exact).abs().max()) / scale
+    assert three <= 2e-6
+    assert one > 100 * three
+    assert three <= 4 * fp32 + 1e-7
+
+
+def test_torch_round_tf32():
+    """``round_tf32`` keeps 10 mantissa bits, to nearest, ties away from zero."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23, -1.0 - 2.0 ** -11,
+                      3.14159265, 0.0])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0, -1.0 - 2.0 ** -10, 3.140625, 0.0])
+    assert torch.equal(kbwd.round_tf32(x), want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi = kbwd.round_tf32(y)
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2.0 ** -11
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros(1000, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kbwd.mma_selftest(torch.zeros(4, 8), torch.zeros(8, 4), torch.zeros(4, 4))
+
+
+def test_torch_build_reads_ptxas_resource_report(monkeypatch):
+    """``kernel_resources`` reads registers and spills of each kernel from
+    what ``ptxas -v`` printed during the build (the build asks for it)."""
+    assert _build.NVCC_FLAGS[-2:] == ["-Xptxas", "-v"]
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5scann17scann_reduce_rowsEPKfixPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN5scann17scann_reduce_rowsEPKfixPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN1a21scann_backward_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a21scann_backward_kernelE
+    40 bytes stack frame, 32 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 40 bytes cumulative stack size
+"""
+    monkeypatch.setitem(_build.build_logs, "scann_backward", log)
+    assert _build.kernel_resources("scann_backward") == [
+        ("_ZN5scann17scann_reduce_rowsEPKfixPf", 18, 0, 0),
+        ("_ZN1a21scann_backward_kernelE", 255, 32, 36)]
+    assert _build.kernel_resources("not_built_here") == []

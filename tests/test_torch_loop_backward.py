@@ -167,24 +167,30 @@ PTGP = ModelConfig(n_atoms=80, n_attention=11, use_ring=True, g_update=False)
 
 def test_torch_loop_backward_gate_and_layout():
     """The gate is the kernel's own shared-memory plan: atom blocks of 32
-    up to M = 96, of 16 up to 168, of 8 up to 208 at N = 32 and D = G = 128;
-    chunks of at most 32 rows, so N <= 32."""
-    assert kloop.loop_backward_memory_plan(MP2018, 96, 32) == (1, 32, 231824)
-    assert kloop.loop_backward_memory_plan(MP2018, 104, 32)[1] == 16
-    assert kloop.loop_backward_memory_plan(MP2018, 168, 32)[1:] == (16, 229168)
-    assert kloop.loop_backward_memory_plan(MP2018, 176, 32)[1] == 8
+    up to M = 106, of 16 up to 186, of 8 up to 226 at N = 32 and D = G = 128
+    (the chunk buffers carry 4 floats of padding per row for the tensor-core
+    fragment reads; the readout's vectors live in the work region, which
+    lifted the gate from 96 / 168 / 208); chunks of at most 32 rows, so
+    N <= 32."""
+    assert kloop.loop_backward_memory_plan(MP2018, 96, 32) == (1, 32, 227328)
+    assert kloop.loop_backward_memory_plan(MP2018, 104, 32)[1] == 32
+    assert kloop.loop_backward_memory_plan(MP2018, 106, 32)[1:] == (32, kfwd.MAX_SHARED_BYTES)
+    assert kloop.loop_backward_memory_plan(MP2018, 112, 32)[1] == 16
+    assert kloop.loop_backward_memory_plan(MP2018, 168, 32)[1:] == (16, 223232)
+    assert kloop.loop_backward_memory_plan(MP2018, 186, 32)[1] == 16
+    assert kloop.loop_backward_memory_plan(MP2018, 192, 32)[1] == 8
     assert kloop.loop_backward_memory_plan(PTGP, 128, 32)[:2] == (1, 16)
     assert kloop.loop_backward_memory_plan(MP2018, 96, 16)[0] == 2
     assert kloop.loop_backward_memory_plan(MP2018, 16, 8)[:2] == (4, 16)
-    for M_ok in (8, 96, 128, 208):
+    for M_ok in (8, 96, 128, 208, 216, 226):
         assert kloop.backward_refusal(MP2018, M_ok, 32) is None
         kloop.check_backward_supported(MP2018, M_ok, 32)
-    assert kloop.loop_backward_memory_plan(MP2018, 208, 32)[2] <= kfwd.MAX_SHARED_BYTES
-    assert kloop.loop_backward_memory_plan(MP2018, 216, 32)[2] > kfwd.MAX_SHARED_BYTES
+    assert kloop.loop_backward_memory_plan(MP2018, 226, 32)[2] <= kfwd.MAX_SHARED_BYTES
+    assert kloop.loop_backward_memory_plan(MP2018, 227, 32)[2] > kfwd.MAX_SHARED_BYTES
     with pytest.raises(NotImplementedError, match="per-layer model"):
-        kloop.check_backward_supported(MP2018, 216, 32)
+        kloop.check_backward_supported(MP2018, 232, 32)
     # the forward still takes what the backward leaves to the per-layer model
-    assert kloop.refusal(MP2018, 216, 32) is None
+    assert kloop.refusal(MP2018, 232, 32) is None
     assert "chunks of at most 32" in kloop.backward_refusal(MP2018, 96, 40)
     assert kloop.refusal(MP2018, 96, 40) is None
     assert "use_attn_norm" in kloop.backward_refusal(
@@ -199,7 +205,14 @@ def test_torch_loop_backward_gate_and_layout():
         kloop.launch_loop_backward({"wde": torch.zeros(1)}, {}, MP2018, None, None, True)
     assert "scann_loop_backward" in _build.SOURCES
     assert [f.rsplit("/", 1)[-1] for f in _build.source_files("scann_loop_backward")] == [
-        "scann_loop_backward.cu", "philox.cuh", "scann_grad_common.cuh", "scann_common.cuh"]
+        "scann_loop_backward.cu", "philox.cuh", "scann_mma.cuh", "scann_grad_common.cuh",
+        "scann_common.cuh"]
+    assert "scann_mma.cuh" in [f.rsplit("/", 1)[-1]
+                               for f in _build.source_files("scann_backward")]
+    # the forward kernels do not include the backwards' headers
+    for name in ("scann_forward", "scann_loop", "local_attention"):
+        assert not {"scann_mma.cuh", "scann_grad_common.cuh"} & {
+            f.rsplit("/", 1)[-1] for f in _build.source_files(name)}
     assert "scann_grad_common.cuh" in [f.rsplit("/", 1)[-1]
                                        for f in _build.source_files("scann_backward")]
 
@@ -224,7 +237,8 @@ TRAIN_ROUTES = [
     (MP2018, 48, 24, "loop"),
     (PTGP, 128, 32, "loop"),
     (MP2018, 208, 32, "loop"),
-    (MP2018, 216, 32, "per_layer"),
+    (MP2018, 216, 32, "loop"),
+    (MP2018, 232, 32, "per_layer"),
     (MP2018, 96, 40, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 24, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
@@ -291,3 +305,67 @@ def test_torch_per_layer_route_matches_loop_route():
     for k in raw:
         torch.testing.assert_close(raw2[k], raw[k], rtol=1e-5,
                                    atol=1e-6 * float(raw[k].abs().max()) + 1e-9)
+
+
+@pytest.mark.parametrize("B_,C", [(1, 4), (8, 4), (28, 4), (29, 2), (32, 2), (64, 2), (66, 2),
+                                  (67, 1), (128, 1), (1024, 1)])
+def test_torch_loop_backward_cluster_size(B_, C):
+    """Blocks per structure are a function of the batch size alone: the
+    largest of 4, 2, 1 whose clusters all run at once on the card (2 at the
+    MP2018 batch of 64: 128 blocks on 132 SMs)."""
+    assert kloop.cluster_size(B_) == C
+    assert kloop.CLUSTER_SIZES == (4, 2, 1) and C in kloop.CLUSTER_SIZES
+    assert B_ <= kloop.CLUSTERS_AT_ONCE[C] or C == 1
+    if C < 4:
+        assert B_ > kloop.CLUSTERS_AT_ONCE[2 * C]
+    assert all(c * n <= 132 for c, n in kloop.CLUSTERS_AT_ONCE.items())
+
+
+@pytest.mark.parametrize("C", [None, 1, 2, 4])
+def test_torch_loop_backward_scratch_shapes(C):
+    """One gradient row per block: [B * C, P]; the stashes do not depend on C.
+    A scratch of another cluster size is refused before any launch."""
+    cfm = ModelConfig(**SMALL, g_update=True)
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0)), cfm)
+    B_, M_, N_ = 5, 40, 8
+    scratch = kloop.loop_backward_scratch(packed, cfm, B_, M_, N_, C)
+    L, D = cfm.n_attention, cfm.local_dim
+    P = kbwd.grad_layout(packed)[1]
+    blocks = B_ * (C or kloop.cluster_size(B_))
+    assert scratch["rows"].shape == (blocks, P)
+    assert scratch["c_stash"].shape == (B_, L + 1, M_, D)
+    assert scratch["o_stash"].shape == (B_, L, M_, D)
+    assert scratch["g_stash"].shape == (B_, L, M_ * N_, D)
+    assert scratch["dgeo"].shape == (B_, M_ * N_, D)
+    assert scratch["dcenters"].shape == (B_, M_, D)
+    x = {k: torch.from_numpy(v) for k, v in
+         make_synthetic_batch(np.random.default_rng(1), B=B_, M=M_, N=N_).items()}
+    other = 2 if (C or 4) != 2 else 1
+    with pytest.raises(ValueError, match="blocks per structure"):
+        kloop._launch_backward(packed, x, cfm, torch.zeros(B_), None, True, scratch=scratch,
+                               cluster=other)
+    with pytest.raises(ValueError, match="launches with"):
+        kloop._launch_backward(packed, x, cfm, torch.zeros(B_), None, True, cluster=3)
+
+
+def test_torch_loop_backward_plan_matches_cuda_source():
+    """``loop_backward_memory_plan`` mirrors ``make_plan`` of
+    ``csrc/scann_loop_backward.cu``: the padded strides of the chunk buffers
+    and the terms of the plan are read from the source."""
+    import re
+    with open(_build.source_files("scann_loop_backward")[0]) as f:
+        src = f.read()
+    plan = src[src.index("inline Plan make_plan"):src.index("__global__")]
+    assert "p.lda = 2 * a.D + 4;" in plan and "p.ldu = a.D + 4;" in plan
+    assert re.search(r"chunk = p\.rows \* p\.lda \+ 3 \* p\.rows \* p\.ldu \+ 3 \* "
+                     r"round4\(p\.rows \* a\.H\)", plan)
+    assert "p.total = p.offAcc + 2 * p.wd;" in plan
+    D, H = MP2018.local_dim, MP2018.num_head
+    assert kbwd.chunk_floats(32, D, H) == 32 * (2 * D + 4) + 3 * 32 * (D + 4) + 3 * 32 * H
+    # the whole plan at the MP2018 bucket, term by term as make_plan adds them
+    wd, AB, M_, O = 128, 32, 96, MP2018.dense_out
+    work = max(kbwd.chunk_floats(32, D, H), 5 * AB * wd + AB,
+               AB * 2 * 128 + AB * wd, AB * wd + 4 * wd + 5 * M_ + 3 * O + 4)
+    total = M_ * wd + 5 * AB * wd + work + 8 * 2 * wd + 2 * wd
+    assert kloop.loop_backward_memory_plan(MP2018, M_, 32)[2] == 4 * total
+    assert (D + 4) % 32 == 4 and (2 * D + 4) % 32 == 4      # conflict-free fragment reads
