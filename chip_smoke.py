@@ -28,19 +28,26 @@ layers); random weights from seeds:
    with the plain step gives the same losses, 3 kernel steps against 3
    plain steps and ``load_model_infer``; then trains 2 epochs in one
    bucket and checks that the epoch loss and the training-set loss fall;
-6. holds the crystal loop-forward kernel against its plain version: a small
-   matrix of configurations (two atom blocks, ragged counts, single atoms,
-   dropout 0 and 0.1 with attention dropout), then MP2018 (B=64, M=96,
-   N=32) and Pt/graphene (B=64, M=128, N=32) at full width, and times it;
+6. holds the crystal loop-forward kernel against its plain version at 1, 2
+   and 4 blocks per structure: a small matrix of configurations (two atom
+   blocks, ragged counts, single atoms, fewer atoms than blocks, dropout 0
+   and 0.1 with attention dropout), a ragged M=160 at B=20, the gate's edge
+   M=232, MP2018 (B=64 and B=128, M=96, N=32) and Pt/graphene (B=64, M=128,
+   N=32) at full width, each with further launches on a kept scratch filled
+   with NaN or a constant that must give the same pred and ga bit for bit;
+   and times it in turns with its plain version at MP2018 on 2 blocks and on
+   1 block per structure, at B=128, and at Pt/graphene;
 7. holds the per-layer LocalAttention kernel against its plain version
    (out, geometry, attention; SCANN+ and SCANN) at one MP2018 layer and at
    an M beyond the loop kernel's gate, the per-layer model against the
    eager model for ``use_attn_norm: false``, and times it;
-8. serves synthetic periodic crystals of 20-90 sites, posted as CIF and as
-   JSON, and one of 200 sites that takes the per-layer route, through
-   ``PredictionServer`` on the MP2018 model (the crystal serving path);
-   checks every answer against the eager model and the launches of each
-   route against the batches that took it;
+8. (run last) serves synthetic periodic crystals of 20-90 sites, posted as
+   CIF and as JSON, and one of 200 sites that takes the per-layer route,
+   through ``PredictionServer`` on the MP2018 model that phase 10 trained,
+   loaded from its run directory (``BatchedPredictor.from_model_dir``; the
+   crystal serving path); prints each request's batch size (a group
+   launches at its own size), checks every answer against the eager model
+   and the launches of each route against the batches that took it;
 9. holds the crystal loop-backward kernel against its plain version (the
    eager training forward under ``torch.autograd``, same Philox masks): a
    small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
@@ -505,7 +512,7 @@ def phase5(qm9_model, failures, card):
     class PlainTrainer(Trainer):
         """The same Trainer with the backward kernel's plain version."""
 
-        def raw_grads(self, batch, y, seed):
+        def raw_grads(self, batch, y, seed, check_ranges=True):
             pred, raw = kbwd.reference_fused_scann_train_grads(
                 self.params, batch, y, self.config.model, self.mrelu_head,
                 self.dropout_rate, seed)
@@ -541,17 +548,17 @@ def phase5(qm9_model, failures, card):
     step_ms, fwd_calls = [], [0]
     train_step, forward_eval = trainer.train_step, trainer.forward_eval
 
-    def timed_step(*args):
+    def timed_step(*args, **kw):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = train_step(*args)
+        out = train_step(*args, **kw)
         e.record()
         step_ms.append((s, e))
         return out
 
-    def counted_eval(*args):
+    def counted_eval(*args, **kw):
         fwd_calls[0] += 1
-        return forward_eval(*args)
+        return forward_eval(*args, **kw)
 
     trainer.train_step, trainer.forward_eval = timed_step, counted_eval
     kbwd.launch_scann_backward.launches = 0          # counts of the training path only
@@ -692,82 +699,163 @@ def crystal_models():
     return mp2018, ptgp
 
 
+def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, clusters=None,
+                      relaunches=0):
+    """Hold the crystal loop-forward kernel against its plain version on one
+    batch, at every cluster size of ``clusters`` (blocks per structure; the
+    wrapper's own choice for this batch size when None, through the public
+    entry point). With ``relaunches``, that many further launches run at each
+    cluster size on a kept scratch (geometry and new centers) filled with NaN
+    before one launch and with a finite constant before the next: each must
+    return the first launch's pred and ga bit for bit. Returns the largest
+    absolute difference from the plain version."""
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    chunk_atoms, block, _, _ = kloop.loop_memory_plan(cfm, M, N)
+    own = kloop.cluster_size(B)
+    packed = kfwd.pack_params(p, cfm)
+    with torch.inference_mode():
+        pred0, ga0 = kloop.reference_loop_forward(p, x, cfm, mrelu, rate, 11)
+    worst = 0.0
+    for C in clusters or (own,):
+        tag = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk, "
+               f"{C} blocks per structure) dropout {rate}")
+        with torch.inference_mode():
+            if C == own:    # through the public entry point, which chooses C itself
+                pred, ga = kloop.loop_scann_forward(p, x, cfm, mrelu, rate, 11)
+            else:
+                pred, ga = kloop._launch(packed, x, cfm, mrelu, rate, 11, 0, C)
+            torch.cuda.synchronize()
+        worst = max(worst, hold(tag, [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)],
+                                failures))
+        if relaunches:
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
+            differ = set()
+            with torch.inference_mode():
+                for i in range(relaunches):
+                    for t in scratch.values():
+                        if t is not None:
+                            t.fill_(float("nan") if i % 2 == 0 else -3.0)
+                    p_i, g_i = kloop._launch(packed, x, cfm, mrelu, rate, 11, 0, C, scratch)
+                    differ |= {w for w, a, b in (("pred", p_i, pred), ("ga", g_i, ga))
+                               if not torch.equal(a, b)}
+            print(f"{tag}: {relaunches} launches on NaN- and constant-filled scratch "
+                  f"bit-identical: {not differ}", flush=True)
+            if differ:
+                failures.append(f"{tag}: launches on the same inputs differ in {sorted(differ)}")
+    return worst
+
+
+def time_loop_forward(name, cfm, x, card, clusters=(None,)):
+    """Kernel #3 at one batch shape, at each cluster size of ``clusters`` (None:
+    the wrapper's own), in turns with its plain version (plain, kernel,
+    kernel, plain), against its bound: the larger of the products' FP32 time
+    and the HBM time of the inputs, weights and outputs read or written once
+    plus the geometry scratch's round trips (``loop_forward_bytes``)."""
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(params, cfm)
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    flops = kloop.loop_forward_flops(cfm, B, M, N)
+    nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+              + kloop.loop_forward_bytes(cfm, B, M, N))
+    bound, by = bound_ms(flops, nbytes)
+    scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
+    out = {}
+    with torch.inference_mode():
+        kloop.check_supported(cfm, M, N, x)
+        kfwd._check_inputs(x, cfm, packed["wde"].device)
+        for C in clusters:
+            C = kloop.cluster_size(B) if C is None else C
+            ms, plain_ms = in_turns_ms(
+                lambda: kloop.reference_loop_forward(params, x, cfm),
+                lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 3, 10)
+            print(f"scann_loop at {name} B={B} M={M} N={N} L={cfm.n_attention} (timed in turns: "
+                  f"plain, kernel, kernel, plain): kernel {ms:.4f} ms on {B} clusters of {C} "
+                  f"blocks ({kloop.max_active_forward_clusters(cfm, B, M, N, C)} such clusters "
+                  f"run at once), plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, "
+                  f"bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  "
+                  f"[{card}]", flush=True)
+            out[C] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "flops": flops, "cluster": C}
+    return out
+
+
 def phase6(matrix, mp2018, ptgp, failures, card):
-    """The crystal loop-forward kernel against its plain version, then its
-    time at the MP2018 and Pt/graphene batch shapes. Returns (largest abs
-    error, timing of the MP2018 shape, the MP2018 inputs)."""
+    """The crystal loop-forward kernel against its plain version at 1, 2 and
+    4 blocks per structure (a small matrix at dropout 0 and 0.1, two atoms
+    per chunk, a one-atom structure, fewer atoms than blocks, a ragged
+    M = 160 at B <= 28, the gate's edge M = 232, MP2018 at B = 64 and 128,
+    Pt/graphene), with relaunches on garbage-filled scratch held bit for bit,
+    then its time. Returns (largest abs error, timing of the MP2018 shape)."""
     import dataclasses
 
-    from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
 
     rng = np.random.default_rng(6)
     worst = 0.0
+    every = kloop.CLUSTER_SIZES[::-1]      # (1, 2, 4)
 
-    def compare(name, cfm, x, mrelu=False, rate=0.0):
+    def compare(name, cfm, x, mrelu=False, rate=0.0, clusters=every, relaunches=0):
         nonlocal worst
         p = init_params(cfm, torch.Generator().manual_seed(6), "cuda")
-        with torch.inference_mode():
-            pred, ga = kloop.loop_scann_forward(p, x, cfm, mrelu, rate, 11)
-            torch.cuda.synchronize()
-            pred0, ga0 = kloop.reference_loop_forward(p, x, cfm, mrelu, rate, 11)
-        B, M = x["atom_mask"].shape[:2]
-        worst = max(worst, hold(f"phase 6 {name} B={B} M={M} N={x['neighbors'].shape[2]} "
-                                f"dropout {rate}",
-                                [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)], failures))
+        worst = max(worst, hold_loop_forward(f"phase 6 {name}", cfm, p, x, failures, mrelu, rate,
+                                             clusters, relaunches))
 
     cases = list(matrix) + [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
                              False)]
     for name, cfm, mrelu in cases:
-        # M=40: an atom block of 32 and one of 8; single-atom structures allowed
+        # M=40: an atom block of 32 and one of 8 at one block per structure, shares of 20
+        # and 10 at 2 and 4; single-atom structures allowed
         x = synthetic_batch(rng, 6, 40, 8, cfm.use_ring, cfm.feature == "cgcnn", min_atoms=1)
-        for rate in (0.0, 0.1):
-            compare(name, cfm, x, mrelu, rate)
+        compare(name, cfm, x, mrelu, 0.0)
+        compare(name, cfm, x, mrelu, 0.1, relaunches=2)
     compare("scann+ two atoms per chunk", matrix[0][1], synthetic_batch(rng, 4, 72, 24))
     lone = synthetic_batch(rng, 4, 72, 8)
     lone["atom_mask"][0] = 0.0
     lone["atom_mask"][0, 0] = 1.0
     lone["neighbor_mask"][0] = 0.0
-    compare("scann+ one-atom structure", matrix[0][1], lone)
+    compare("scann+ one-atom structure", matrix[0][1], lone, relaunches=2)
+    # M=3 at 4 blocks per structure: the last block has no atom
+    compare("scann+ fewer atoms than blocks", matrix[0][1],
+            synthetic_batch(rng, 4, 3, 8, min_atoms=1), rate=0.1, relaunches=2)
+    # a small batch (4 blocks per structure) of a ragged bucket, and the gate's edge
+    compare("mp2018 full width, ragged", mp2018,
+            synthetic_batch(rng, 20, 160, 32, n_atoms=mp2018.n_atoms), rate=0.1, relaunches=4)
+    compare("mp2018 full width, the gate's edge", mp2018,
+            synthetic_batch(rng, 4, 232, 32, n_atoms=mp2018.n_atoms, min_atoms=150),
+            relaunches=4)
     mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
-    compare("mp2018 full width", mp2018, mp_inputs)
-    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1)
+    compare("mp2018 full width", mp2018, mp_inputs, clusters=(1, 2), relaunches=4)
+    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, clusters=(2,))
+    twice = {k: torch.cat([v, v]) for k, v in mp_inputs.items()}
+    compare("mp2018 full width", mp2018, twice, clusters=(1,))
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                   min_atoms=20)
-    compare("ptgp full width", ptgp, ptgp_inputs)
-    compare("mp2018 widest atom block of 16", mp2018,
-            synthetic_batch(rng, 4, 192, 32, n_atoms=mp2018.n_atoms, min_atoms=100))
+    compare("ptgp full width", ptgp, ptgp_inputs, clusters=(1, 2), relaunches=4)
 
-    timing = None
-    for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs)):
-        params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
-        packed = kfwd.pack_params(params, cfm)
-        B, M = x["atom_mask"].shape[:2]
-        N = x["neighbors"].shape[2]
-        with torch.inference_mode():
-            kloop.check_supported(cfm, M, N, x)
-            kfwd._check_inputs(x, cfm, packed["wde"].device)
-            ms = cuda_ms(lambda: kloop._launch(packed, x, cfm, False))
-            plain_ms = cuda_ms(lambda: kloop.reference_loop_forward(params, x, cfm), reps=10)
-        flops = kloop.loop_forward_flops(cfm, B, M, N)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
-        bound, by = bound_ms(flops, nbytes)
-        print(f"scann_loop at {name} B={B} M={M} N={N} L={cfm.n_attention}: kernel {ms:.4f} "
-              f"ms on {B} blocks of {torch.cuda.get_device_properties(0).multi_processor_count}"
-              f" SMs, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
-              f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  [{card}]",
-              flush=True)
-        if timing is None:
-            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "flops": flops}
-            # one block per structure: does a batch of 64 leave SMs idle?
-            twice = {k: torch.cat([v, v]) for k, v in x.items()}
-            with torch.inference_mode():
-                ms2 = cuda_ms(lambda: kloop._launch(packed, twice, cfm, False))
-            print(f"scann_loop at {name} with the batch doubled to B={2 * B}: kernel {ms2:.4f} "
-                  f"ms, {ms2 / ms:.2f}x the time of B={B} for twice the work  [{card}]",
-                  flush=True)
+    mp = time_loop_forward("mp2018", mp2018, mp_inputs, card, clusters=(2, 1))
+    timing = dict(mp[2], ms_one_block=mp[1]["ms"])
+    (doubled,) = time_loop_forward("mp2018, the batch doubled", mp2018, twice, card).values()
+    (pt,) = time_loop_forward("ptgp", ptgp, ptgp_inputs, card).values()
+    timing.update(ms_batch_doubled=doubled["ms"], ms_ptgp=pt["ms"], plain_ms_ptgp=pt["plain_ms"],
+                  bound_ms_ptgp=pt["bound_ms"])
+    print(f"scann_loop at mp2018: B=128 ({doubled['cluster']} block per structure) takes "
+          f"{doubled['ms'] / timing['ms']:.2f}x the time of B=64 ({timing['cluster']} blocks per "
+          f"structure) for twice the work; one block per structure at B=64 "
+          f"{timing['ms_one_block'] / timing['ms']:.2f}x  [{card}]", flush=True)
+    at_once = {c: kloop.max_active_forward_clusters(mp2018, 64, 96, 32, c) for c in every}
+    print(f"scann_loop clusters that run at once at the MP2018 shape, by blocks per structure: "
+          f"{at_once} (the wrapper's rule counts on {kloop.CLUSTERS_AT_ONCE}; fewer would cost "
+          f"a second wave, not the result)", flush=True)
     print(f"phase 6: worst loop-forward abs error {worst:.3e}  [{card}]", flush=True)
     return worst, timing
 
@@ -869,12 +957,12 @@ def cif_text(name, species, coords, lattice):
             "_atom_site_fract_y\n_atom_site_fract_z\n" + rows)
 
 
-def phase8(mp2018, failures, card):
-    """The crystal serving path: PredictionServer on the MP2018 model,
-    synthetic periodic crystals posted as CIF and as JSON. Returns the
-    launches of (the loop kernel, the per-layer kernel) on that path."""
-    from scann_tpu_torch.api import Scann
-    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+def phase8(mp2018, run_dir, failures, card):
+    """The crystal serving path: PredictionServer over the MP2018 model that
+    phase 10 trained, loaded from its run directory
+    (``BatchedPredictor.from_model_dir``), synthetic periodic crystals posted
+    as CIF and as JSON. Returns the launches of (the loop kernel, the
+    per-layer kernel) on that path."""
     from scann_tpu_torch.data.cif import parse_cif
     from scann_tpu_torch.data.structure import Structure
     from scann_tpu_torch.data.synthetic import _random_crystal
@@ -884,20 +972,26 @@ def phase8(mp2018, failures, card):
     from scann_tpu_torch.models.scann import scann_forward
     from scann_tpu_torch.serve import BatchedPredictor, PredictionServer
 
-    cfg = ScannConfig(model=mp2018,
-                      hyper=HyperConfig(batch_size=64, target="formation_energy_per_atom",
-                                        scaler=False),
-                      tpu=TpuConfig(max_buckets=4))
-    scann = Scann(cfg, device="cuda")
-    scann.init_params(seed=8)
-    routes = []
-    eval_route = scann.trainer.eval_route
+    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+    for c in counters:
+        c.launches = 0                               # counts of the serving path only
+    t_serve = time.time()
+    predictor = BatchedPredictor.from_model_dir(run_dir, max_batch=64, window_ms=20.0,
+                                                warmup_shapes=[])
+    scann = predictor.scann
+    hyper = scann.config.hyper
+    routes = []                                  # (route, M, N, B) of every device batch
+    forward_eval = scann.trainer.forward_eval
 
-    def recorded_route(M, N):
-        routes.append((eval_route(M, N), M, N))
-        return routes[-1][0]
+    def recorded_forward(params, batch, **kw):
+        B, M = batch["atomic"].shape[:2]
+        N = batch["neighbors"].shape[2]
+        routes.append((scann.trainer.eval_route(M, N), M, N, B))
+        return forward_eval(params, batch, **kw)
 
-    scann.trainer.eval_route = recorded_route
+    scann.trainer.forward_eval = recorded_forward
+    print(f"crystal serving: warmed {scann.warmup_serving([(96, 32)])} at one structure",
+          flush=True)
     rng = np.random.default_rng(8)
     crystals = {f"crystal{n}": _random_crystal(rng, n) for n in (20, 37, 54, 71, 90, 200)}
     bodies, sent = {}, {}
@@ -910,12 +1004,6 @@ def phase8(mp2018, failures, card):
                 "species": sp, "coords": xyz.tolist(), "lattice": lat.tolist()}]}).encode(),
                             "application/json")
 
-    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
-    for c in counters:
-        c.launches = 0                               # counts of the serving path only
-    t_serve = time.time()
-    predictor = BatchedPredictor(scann, max_batch=64, window_ms=20.0,
-                                 warmup_shapes=[(96, 32)])
     server = PredictionServer(predictor, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -945,7 +1033,8 @@ def phase8(mp2018, failures, card):
     torch.cuda.synchronize()
     serve_s = time.time() - t_serve
     fused_n, loop_n, layer_n = (c.launches for c in counters)
-    del scann.trainer.eval_route
+    del scann.trainer.forward_eval
+    from scann_tpu_torch.api import _ladder
 
     for name, (sp, xyz, lat) in crystals.items():
         status, out = answers.get(name, (None, {}))
@@ -958,23 +1047,33 @@ def phase8(mp2018, failures, card):
         _, inputs = scann.featurize_structures([struct])
         with torch.inference_mode():
             p0, g0 = scann_forward(scann.params, scann._to_device(inputs[0]), mp2018)
-        ref, ref_ga = p0[0, 0].item(), g0[0, :len(sp), 0].cpu().numpy()
+        ref = p0[0, 0].item() * hyper.target_std + hyper.target_mean
+        ref_ga = g0[0, :len(sp), 0].cpu().numpy()
         err_v, err_g = abs(value - ref), float(np.abs(ga - ref_ga).max())
         ok = (np.isfinite(value) and np.isfinite(ga).all() and ga.shape == (len(sp),)
               and err_v <= ATOL + RTOL * abs(ref)
               and np.all(np.abs(ga - ref_ga) <= ATOL + RTOL * np.abs(ref_ga)))
         M, N = inputs[0]["neighbors"].shape[1:]
+        rung = (_ladder(M, scann.config.tpu.atoms_pad_multiple),
+                _ladder(N, scann.config.tpu.neighbors_pad_multiple))
+        batch = [r for r in routes[1:] if r[1:3] == rung]
         print(f"{name} ({'CIF' if name in sent else 'JSON'}, {len(sp)} sites, featurized "
-              f"M={M} N={N}): HTTP 200 {value:.6f} eager={ref:.6f} |d|={err_v:.2e} "
+              f"M={M} N={N}, rung {rung}: batches of B={[r[3] for r in batch]} by the "
+              f"{batch[-1][0] if batch else None} route): HTTP 200 {value:.6f} eager={ref:.6f} "
+              f"|d|={err_v:.2e} "
               f"ga max|d|={err_g:.2e} latency {latencies[name]:.1f} ms", flush=True)
         if not ok:
             failures.append(f"{name}: served answer differs from the eager model "
                             f"({err_v:.3e}, {err_g:.3e})")
-    taken = {r: [(M, N) for q, M, N in routes if q == r] for r in ("fused", "loop", "per_layer")}
-    print(f"crystal serving: {len(answers)} requests, {len(routes)} device batches "
-          f"(the warm-up's included) by route {taken}; launches: molecule kernel {fused_n}, "
-          f"loop kernel {loop_n}, per-layer kernel {layer_n}; {serve_s:.1f} s from predictor "
-          f"start  [{card}]", flush=True)
+    taken = {r: [(M, N, B) for q, M, N, B in routes if q == r]
+             for r in ("fused", "loop", "per_layer")}
+    print(f"crystal serving from {run_dir}: {len(answers)} requests, {len(routes)} device "
+          f"batches (the warm-up's included) by route, as (M, N, B): {taken}; launches: "
+          f"molecule kernel {fused_n}, loop kernel {loop_n}, per-layer kernel {layer_n}; "
+          f"{serve_s:.1f} s from predictor start  [{card}]", flush=True)
+    if sum(B for _, _, _, B in routes[1:]) != len(crystals):
+        failures.append(f"served batches {routes[1:]} do not hold each of the {len(crystals)} "
+                        "crystals once")
     L = mp2018.n_attention
     if (loop_n == 0 or loop_n != len(taken["loop"]) or fused_n != len(taken["fused"])
             or len(taken["per_layer"]) != 1 or layer_n != L * len(taken["per_layer"])):
@@ -1124,7 +1223,8 @@ def phase10(mp2018, failures, card):
     full width and depth of the MP2018 model, batch 64, the recipe's 4
     buckets; the same run with the plain step; load_model_infer; and one
     training step by the per-layer route on structures beyond the loop
-    backward's gate. Returns the loop-backward launches of the main path."""
+    backward's gate. Returns (the loop-backward launches of the main path,
+    its run directory)."""
     import tempfile
 
     from scann_tpu_torch.api import Scann
@@ -1139,7 +1239,7 @@ def phase10(mp2018, failures, card):
     class PlainTrainer(Trainer):
         """The same Trainer with the plain version of every backward."""
 
-        def raw_grads(self, batch, y, seed):
+        def raw_grads(self, batch, y, seed, check_ranges=True):
             pred, raw = kloop.reference_loop_train_grads(
                 self.params, batch, y, self.config.model, self.mrelu_head,
                 self.dropout_rate, seed)
@@ -1204,10 +1304,10 @@ def phase10(mp2018, failures, card):
     step_ms = []
     train_step = trainer.train_step
 
-    def timed_step(*args):
+    def timed_step(*args, **kw):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = train_step(*args)
+        out = train_step(*args, **kw)
         e.record()
         step_ms.append((s, e))
         return out
@@ -1339,7 +1439,7 @@ def phase10(mp2018, failures, card):
         failures.append(f"per-layer training step: route {route}, {layer_n} layer launches, "
                         f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
                         f"{g_rel:.3e} at {g_key}")
-    return loop_bwd
+    return loop_bwd, trainer.workdir
 
 
 def main():
@@ -1550,11 +1650,11 @@ def main():
     mp2018, ptgp = crystal_models()
     loop_err, loop_time = phase6(matrix, mp2018, ptgp, failures, card)
     layer_err, layer_time = phase7(mp2018, failures, card)
-    loop_launches, layer_launches = phase8(mp2018, failures, card)
 
-    # ---- phases 9-10: crystal training ---------------------------------------------
+    # ---- phases 9-10: crystal training, then phase 8 serves what phase 10 trained --
     loop_bwd_err, loop_bwd_time = phase9(matrix, mp2018, ptgp, failures, card)
-    loop_bwd_launches = phase10(mp2018, failures, card)
+    loop_bwd_launches, run_dir = phase10(mp2018, failures, card)
+    loop_launches, layer_launches = phase8(mp2018, run_dir, failures, card)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)

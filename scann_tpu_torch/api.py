@@ -13,7 +13,8 @@ and it predicts properties and per-atom GA scores for structures:
 
     featurize (host Voronoi, ``prepare_input``)
       -> pad and group by ladder-quantized (M, N) shape
-      -> ``forward_eval`` in batches of ``hyper.batch_size``
+      -> ``forward_eval`` in batches of at most ``hyper.batch_size`` (a
+         group's last batch at its own size, its indices checked on the host)
          (on the GPU the molecule kernel, the crystal loop kernel or the
          per-layer kernel, by the batch's shape; the eager model on the CPU)
       -> un-standardize.
@@ -41,6 +42,7 @@ from scann_tpu_torch.config import ScannConfig, load_config
 from scann_tpu_torch.data.pipeline import load_dataset, pack_dataset, split_data, subset_buckets
 from scann_tpu_torch.data.structure import Structure
 from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors
+from scann_tpu_torch.models.scann import check_index_ranges
 from scann_tpu_torch.train.loop import Trainer, _to_device
 
 StructureLike = Union[Structure, str, os.PathLike]
@@ -220,8 +222,14 @@ class Scann:
         kernel layout of the weights that ``Trainer.kernel_params`` keeps
         for the current parameter version, else the per-layer model with
         one LocalAttention kernel launch per layer. On the CPU it runs the
-        eager model."""
-        return self.trainer.forward_eval(params, self._to_device(batch))
+        eager model. A batch of numpy arrays has its index ranges checked on
+        the host before the copy, so the launch reads nothing back; a batch
+        of tensors is checked on its device."""
+        on_host = all(isinstance(v, np.ndarray) for v in batch.values())
+        if on_host:
+            check_index_ranges(batch, self.config.model)
+        return self.trainer.forward_eval(params, self._to_device(batch),
+                                         check_ranges=not on_host)
 
     # --- dataset and training -------------------------------------------------
 
@@ -405,8 +413,9 @@ class Scann:
                            batch_size: Optional[int] = None
                            ) -> List[Tuple[float, np.ndarray]]:
         """Stage 2 of the serving path: group by ladder-quantized (M, N),
-        pad, run in fixed-size batches (the tail wrap-padded with members of
-        its own group), un-standardize."""
+        pad, run each group in batches of at most ``batch_size`` (its last
+        batch at the group's own remainder: the kernels take any B, so a
+        lone structure launches at B=1), un-standardize."""
         self._require_state("predict_featurized")
         base_m = self.config.tpu.atoms_pad_multiple
         base_n = self.config.tpu.neighbors_pad_multiple
@@ -433,13 +442,13 @@ class Scann:
             padded = {i: repad(all_inputs[i], M, N) for i in members}
             G = len(members)
             for s0 in range(0, G, bs):
-                idxs = [members[j % G] for j in range(s0, s0 + bs)]
+                idxs = members[s0:s0 + bs]
                 batch = {k: np.concatenate([padded[i][k] for i in idxs])
                          for k in padded[members[0]]}
                 pred, ga = self.forward_eval(self.params, batch)
                 pred = pred[:, 0].cpu().numpy() * hyper.target_std + hyper.target_mean
                 ga = ga[..., 0].cpu().numpy()
-                for row, i in enumerate(idxs[: min(bs, G - s0)]):
+                for row, i in enumerate(idxs):
                     results[i] = (float(pred[row]), ga[row, : len(structs[i])])
         return results
 
@@ -459,12 +468,13 @@ class Scann:
         return ex
 
     def warmup_serving(self, shapes: List[Tuple[int, int]],
-                       batch_size: Optional[int] = None) -> List[Tuple[int, int]]:
+                       batch_size: int = 1) -> List[Tuple[int, int]]:
         """Run each distinct ladder rung of the (max_atoms, max_neighbors)
-        shapes once on dummy inputs, so the first requests do not pay the
-        kernel build and the first allocations. Returns the rungs run."""
+        shapes once on dummy inputs of ``batch_size`` structures, so the
+        first requests do not pay the build of the kernel that rung takes.
+        Served batches come at any size, so one structure does. Returns the
+        rungs run."""
         self._require_state("warmup_serving")
-        bs = batch_size or self.config.hyper.batch_size
         base_m = self.config.tpu.atoms_pad_multiple
         base_n = self.config.tpu.neighbors_pad_multiple
         done: List[Tuple[int, int]] = []
@@ -473,7 +483,7 @@ class Scann:
             if rung in done:
                 continue
             pred, _ = self.forward_eval(self.params,
-                                        self._example_inputs(M=rung[0], N=rung[1], B=bs))
+                                        self._example_inputs(M=rung[0], N=rung[1], B=batch_size))
             pred.cpu()
             done.append(rung)
         return done

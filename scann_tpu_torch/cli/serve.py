@@ -1,11 +1,14 @@
 """Batched-inference HTTP server CLI of the PyTorch port.
 
-    python -m scann_tpu_torch.cli.serve --config X.yaml --weights W.h5
+    python -m scann_tpu_torch.cli.serve <model_dir>
         [--host 127.0.0.1] [--port 8421] [--max-batch 64] [--window-ms 5]
         [--device cuda]
+    python -m scann_tpu_torch.cli.serve --config X.yaml --weights W.h5 [...]
 
-Serves a config and a Keras H5 checkpoint over HTTP on the GPU; see
-``scann_tpu_torch.serve`` for the request/response format.
+Serves a training run directory of this package (``checkpoints/best.pt``,
+as ``scann_tpu.cli.serve`` takes the JAX package's), or a config and a Keras
+H5 checkpoint, over HTTP on the GPU; see ``scann_tpu_torch.serve`` for the
+request/response format. A run directory needs neither yaml nor h5py.
 """
 
 import argparse
@@ -21,8 +24,10 @@ def parse_shapes(text: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--config", required=True, help="model config YAML")
-    parser.add_argument("--weights", required=True, help="Keras H5 checkpoint")
+    parser.add_argument("model_dir", nargs="?", default=None,
+                        help="training run dir (checkpoints/best.pt)")
+    parser.add_argument("--config", help="model config YAML (with --weights)")
+    parser.add_argument("--weights", help="Keras H5 checkpoint (with --config)")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8421)
     parser.add_argument("--max-batch", type=int, default=64)
@@ -39,6 +44,8 @@ def main(argv=None):
                         help="serve raw client frames instead of rotating molecules "
                              "into their principal-axes frame first")
     args = parser.parse_args(argv)
+    if (args.model_dir is None) == (args.config is None or args.weights is None):
+        parser.error("give either a model_dir or both --config and --weights")
 
     from scann_tpu_torch.serve import BatchedPredictor, PredictionServer
 
@@ -49,16 +56,21 @@ def main(argv=None):
         except ValueError:
             parser.error(f"--warmup must look like '30x14,48x16', got {args.warmup!r}")
 
-    predictor = BatchedPredictor.from_files(
-        args.config, args.weights, device=args.device, max_batch=args.max_batch,
-        window_ms=args.window_ms, featurize_pool=args.featurize_pool,
-        canonical_frame=args.canonical_frame, warmup_shapes=warmup)
+    kw = dict(device=args.device, max_batch=args.max_batch, window_ms=args.window_ms,
+              featurize_pool=args.featurize_pool, canonical_frame=args.canonical_frame,
+              warmup_shapes=warmup)
+    if args.model_dir is not None:
+        predictor = BatchedPredictor.from_model_dir(args.model_dir, **kw)
+    else:
+        predictor = BatchedPredictor.from_files(args.config, args.weights, **kw)
     if predictor.warmed:
         print(f"warmed serving shapes: {predictor.warmed}")
     server = PredictionServer(predictor, host=args.host, port=args.port)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
+        pass
+    finally:
         server.shutdown()
 
 

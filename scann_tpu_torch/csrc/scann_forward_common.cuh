@@ -1,0 +1,404 @@
+// Building blocks of the two whole-model forwards (scann_forward.cu for
+// molecules, scann_loop.cu for crystals) on the tensor cores: the staging and
+// the LocalAttention of one chunk of (atom, neighbour) rows, the SCANN+
+// geometry embedding, the atom embedding and the ResidualNorm of a block of
+// atoms.
+//
+// Products. Every row product is mma_gemm of scann_mma.cuh: split-TF32
+// mma.sync m16n8k8 in three passes accumulated in f32 (within 2e-6 x max of a
+// float64 product), the block's 8 warps splitting the output columns 16 each,
+// so a weight element leaves L2 once per 32 rows. The chunk's operand buffers
+// have row strides of 2D + 4 and D + 4 floats (4 mod 32), which keeps the
+// fragment reads free of bank conflicts.
+//
+// The serial tails of the chunk: energies and the softmax over N <= 64
+// neighbours one warp per (atom, head) (lane n holds neighbours n and n + 32,
+// reductions by shuffles in a fixed tree), which also folds the neighbour
+// mask into the attention it stores; the context one thread per (atom,
+// column) walking the neighbours in order; the geometry LayerNorm four rows a
+// warp with their shuffles interleaved; the staging in float4 (cp.async for
+// the geometry). Every sum runs
+// in a fixed order, so a launch repeats bit for bit.
+//
+// The chunk's buffers (fwd_chunk_floats):
+//   sA [rows, 2D + 4]: columns [0, D) the geometry (SCANN+) or [0, K) the
+//                      distance RBF (SCANN), columns [D, 2D) the neighbours'
+//                      states, then their keys;
+//   sU [rows, D + 4]:  u = cw + [geo | ns] @ Wfg[D:3D] + b, then the key input
+//                      (ns * geo' or ns * filter);
+//   sE [rows, H]:      the attention after its dropout, times the neighbour
+//                      mask.
+
+#pragma once
+
+#include "philox.cuh"
+#include "scann_mma.cuh"
+
+namespace scann {
+
+constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
+
+__host__ __device__ inline int fwd_chunk_floats(int rows, int D, int H) {
+  return rows * (2 * D + 4) + rows * (D + 4) + round4(rows * H);
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async, past L1); cp_async_wait_all waits for all of the thread's.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// warp_layer_norm (scann_common.cuh) of R rows at once, the same arithmetic
+// on each, their shuffles interleaved; g and bt are the lane's values of
+// gamma and beta (columns lane + 32 i).
+template <int R>
+__device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, const float (&g)[4],
+                                                     const float (&bt)[4], int lane) {
+  float s[R], q[R], mean[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    s[j] = 0.f;
+    q[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) s[j] += v[j][i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    mean[j] = s[j] / (float)D;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) {
+        const float t = v[j][i] - mean[j];
+        q[j] += t * t;
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < R; ++j) q[j] += __shfl_xor_sync(0xffffffffu, q[j], o);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float inv = rsqrtf(q[j] / (float)D + 1e-6f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) v[j][i] = (v[j][i] - mean[j]) * inv * g[i] + bt[i];
+  }
+}
+
+// Stages rows [base, base + rows) of the structure for fwd_chunk: the SCANN+
+// geometry from its global scratch geo_b [M * N, D] (written earlier by this
+// block; all of a thread's copies in flight at once, past L1) or the distance
+// RBF (pad columns up to a multiple of 4 zeroed), and the neighbours' states
+// gathered as float4 from the centers cen [M, ldc] in shared memory, eight
+// loads a thread before their stores. Ends with a barrier.
+__device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA, const float* cen,
+                                                int ldc, const int* nbr, const float* ndist,
+                                                const float* geo_b, int base, int rows) {
+  const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D + 4, q4 = D / 4;
+  const int total = rows * q4;
+  if (a.g_update) {
+    for (int i = tid; i < total; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      cp_async16(sA + r * lda + c, geo_b + (size_t)(base + r) * D + c);
+    }
+  } else {
+    const int k4 = round4(K);
+    for (int i = tid; i < rows * k4; i += kThreads) {
+      const int r = i / k4, k = i - r * k4;
+      float v = 0.f;
+      if (k < K) {
+        const float t = ndist[base + r] - a.dist_centers[k];
+        v = expf(-(t * t) / a.rbf_width);
+      }
+      sA[r * lda + k] = v;
+    }
+  }
+  for (int i0 = tid; i0 < total; i0 += 8 * kThreads) {
+    float4 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * kThreads, r = i / q4, c = (i - r * q4) * 4;
+      if (i < total) v[j] = *reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * kThreads, r = i / q4, c = (i - r * q4) * 4;
+      if (i < total) store4(sA + r * lda + D + c, v[j]);
+    }
+  }
+  if (a.g_update) cp_async_wait_all();
+  __syncthreads();
+}
+
+// LocalAttention of one staged chunk of ca atoms x N neighbours (rows = ca * N
+// <= 64), called by the whole block. sCW [ca, ldq] holds centers @ Wfg[0:D]
+// of the chunk's atoms (SCANN+), sQ [ca, ldq] their queries; nmask and
+// nweight point at the chunk's first row. Leaves LayerNorm(context + query)
+// in sQ; geo_out [rows, D] (or null: the last layer) takes the updated
+// geometry (SCANN+); drop(atom, n,
+// h) is the factor of the attention dropout. Ends with a barrier.
+template <typename Drop>
+__device__ __forceinline__ void fwd_chunk(const ForwardArgs& a, const LayerWeights& w, int ca,
+                                          float* sA, float* sU, float* sE, const float* sCW,
+                                          float* sQ, int ldq, const float* nmask,
+                                          const float* nweight, float* geo_out, Drop drop) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4, ldu = D + 4;
+  const int rows = ca * N;
+  if (a.g_update) {
+    // u = cw + [geo | ns] @ Wfg[D:3D] + b; geo' = LN_g(swish(u) + geo); kin = ns * geo'
+    mma_gemm(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      const float* cw = sCW + (r / N) * ldq + c;
+      store4(sU + r * ldu + c, make_float4(cw[0] + v.x + w.bfg[c], cw[1] + v.y + w.bfg[c + 1],
+                                           cw[2] + v.z + w.bfg[c + 2], cw[3] + v.w + w.bfg[c + 3]));
+    });
+    __syncthreads();
+    float g[4], bt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      g[i] = d < D ? w.lng_s[d] : 0.f;
+      bt[i] = d < D ? w.lng_b[d] : 0.f;
+    }
+    // four rows of the warp together: r0, r0 + kWarps, ...
+    constexpr int kRows = 4;
+    for (int r0 = warp; r0 < rows; r0 += kRows * kWarps) {
+      float v[kRows][4];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int r = r0 + j * kWarps;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          v[j][i] = d < D && r < rows ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
+        }
+      }
+      warp_layer_norm_rows(v, D, g, bt, lane);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int r = r0 + j * kWarps;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) {
+            if (geo_out) geo_out[(size_t)r * D + d] = v[j][i];
+            sU[r * ldu + d] = sA[r * lda + D + d] * v[j][i];
+          }
+        }
+      }
+    }
+  } else {
+    // kin = ns * (swish(rbf(d) @ Wfg + b) * weight)
+    mma_gemm(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
+      const float* ns = sA + r * lda + D + c;
+      const float wt = nweight[r];
+      store4(sU + r * ldu + c,
+             make_float4(ns[0] * (swishf(v.x + w.bfg[c]) * wt), ns[1] * (swishf(v.y + w.bfg[c + 1]) * wt),
+                         ns[2] * (swishf(v.z + w.bfg[c + 2]) * wt), ns[3] * (swishf(v.w + w.bfg[c + 3]) * wt)));
+    });
+  }
+  __syncthreads();
+  // key = kin @ Wk + bk, into the neighbour half of sA
+  mma_gemm(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+    store4(sA + r * lda + D + c, make_float4(v.x + w.bk[c], v.y + w.bk[c + 1],
+                                             v.z + w.bk[c + 2], v.w + w.bk[c + 3]));
+  });
+  __syncthreads();
+  // energies (query * dk) . key - 1e9 (1 - nmask) and the max-shifted softmax
+  // over the neighbours, one warp per (atom, head); stores attn * nmask
+  for (int i = warp; i < ca * H; i += kWarps) {
+    const int at = i / H, h = i - at * H;
+    const float* q = sQ + at * ldq + h * hd;
+    float e[2], nm[2], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = lane + 32 * j;
+      e[j] = -INFINITY;
+      nm[j] = 0.f;
+      if (n < N) {
+        const int r = at * N + n;
+        nm[j] = nmask[r];
+        const float* kk = sA + r * lda + D + h * hd;
+        float s = 0.f;
+        if ((hd & 3) == 0) {
+          for (int t = 0; t < hd; t += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(q + t);
+            const float4 kv = *reinterpret_cast<const float4*>(kk + t);
+            s = fmaf(qv.x * a.dk, kv.x, s);
+            s = fmaf(qv.y * a.dk, kv.y, s);
+            s = fmaf(qv.z * a.dk, kv.z, s);
+            s = fmaf(qv.w * a.dk, kv.w, s);
+          }
+        } else {
+          for (int t = 0; t < hd; ++t) s = fmaf(q[t] * a.dk, kk[t], s);
+        }
+        e[j] = s + (1.0f - nm[j]) * -1e9f;
+      }
+      mx = fmaxf(mx, e[j]);
+    }
+    mx = warp_max(mx);
+    float p[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) p[j] = lane + 32 * j < N ? expf(e[j] - mx) : 0.f;
+    const float tot = warp_sum(p[0] + p[1]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = lane + 32 * j;
+      if (n < N) {
+        const float pr = p[j] / tot;
+        sE[(at * N + n) * H + h] = (a.attn_dropout ? pr * drop(at, n, h) : pr) * nm[j];
+      }
+    }
+  }
+  __syncthreads();
+  // context = sum_n (attn * nmask) * key, added to the query
+  for (int i = tid; i < ca * D; i += kThreads) {
+    const int at = i / D, d = i - at * D;
+    const float* e = sE + at * N * H + d / hd;
+    const float* kk = sA + at * N * lda + D + d;
+    float s = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) s += e[n * H] * kk[n * lda];
+    sQ[at * ldq + d] = s + sQ[at * ldq + d];
+  }
+  __syncthreads();
+  // out = LN(ctx + query), one warp per atom
+  for (int at = warp; at < ca; at += kWarps) {
+    float* row = sQ + at * ldq;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
+    warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+  }
+  __syncthreads();
+}
+
+// SCANN+ geometry embedding of atoms [m_lo, m_hi) of one structure, chunk by
+// chunk of CA atoms into its global scratch geo_b [M * N, D]:
+//   geo = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw).
+// sA and sU are the chunk buffers; ends with a barrier.
+__device__ __forceinline__ void fwd_embed_geometry(const ForwardArgs& a, float* sA, float* sU,
+                                                   const float* ndist, const float* nweight,
+                                                   float* geo_b, int m_lo, int m_hi) {
+  const int tid = threadIdx.x, N = a.N, D = a.D, K = a.K, lda = 2 * D + 4, ldu = D + 4;
+  const int k4 = round4(K);
+  for (int m0 = m_lo; m0 < m_hi; m0 += a.chunk_atoms) {
+    const int rows = min(a.chunk_atoms, m_hi - m0) * N, base = m0 * N;
+    // [rbf(d) | rbf(w)] at columns 0 and D, pad columns zeroed
+    for (int i = tid; i < rows * k4; i += kThreads) {
+      const int r = i / k4, k = i - r * k4;
+      float vd = 0.f, vw = 0.f;
+      if (k < K) {
+        const float t = ndist[base + r] - a.dist_centers[k];
+        const float u = nweight[base + r] - a.angle_centers[k];
+        vd = expf(-(t * t) / a.rbf_width);
+        vw = expf(-(u * u) / a.rbf_width);
+      }
+      sA[r * lda + k] = vd;
+      sA[r * lda + D + k] = vw;
+    }
+    __syncthreads();
+    mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+      store4(sU + r * ldu + c, make_float4(swishf(v.x + a.bnd[c]), swishf(v.y + a.bnd[c + 1]),
+                                           swishf(v.z + a.bnd[c + 2]), swishf(v.w + a.bnd[c + 3])));
+    });
+    __syncthreads();
+    mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+      const float* de = sU + r * ldu + c;
+      store4(geo_b + (size_t)(base + r) * D + c,
+             make_float4(de[0] * swishf(v.x + a.bnw[c]), de[1] * swishf(v.y + a.bnw[c + 1]),
+                         de[2] * swishf(v.z + a.bnw[c + 2]), de[3] * swishf(v.w + a.bnw[c + 3])));
+    });
+    __syncthreads();
+  }
+}
+
+// The embedding operand of atoms [ab0, ab0 + ab) of structure b: sEmb [ab,
+// lde] = [lookup or cgcnn dense | ring embedding | zeros up to lde]; sFeat
+// [ab, ldf] stages the cgcnn features. The caller multiplies by Wde. Ends
+// with a barrier.
+__device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b, int ab0, int ab,
+                                                    float* sEmb, int lde, float* sFeat, int ldf) {
+  const int tid = threadIdx.x, M = a.M, E = a.E, ke = E + (a.use_ring ? 10 : 0);
+  if (a.cgcnn) {
+    const int F = a.F;
+    for (int i = tid; i < ab * ldf; i += kThreads) {
+      const int m = i / ldf, f = i - m * ldf;
+      sFeat[i] = f < F ? a.feat[((size_t)b * M + ab0 + m) * F + f] : 0.f;
+    }
+    __syncthreads();
+    mma_gemm(sFeat, ldf, ab, F, a.embed, E, E, [&](int r, int c, float4 v) {
+      store4(sEmb + r * lde + c, make_float4(v.x + a.bembed[c], v.y + a.bembed[c + 1],
+                                             v.z + a.bembed[c + 2], v.w + a.bembed[c + 3]));
+    });
+  } else {
+    for (int i = tid; i < ab * E; i += kThreads) {
+      const int m = i / E, e = i - m * E;
+      sEmb[m * lde + e] = a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * E + e];
+    }
+  }
+  if (a.use_ring) {
+    for (int i = tid; i < ab * 10; i += kThreads) {
+      const int m = i / 10, j = i - m * 10;
+      const float* ra = a.ring + ((size_t)b * M + ab0 + m) * 2;
+      sEmb[m * lde + E + j] = ra[0] * a.wring[j] + ra[1] * a.wring[10 + j] + a.bring[j];
+    }
+  }
+  for (int i = tid; i < ab * (lde - ke); i += kThreads) {   // keep the pad columns finite
+    const int m = i / (lde - ke), j = i - m * (lde - ke);
+    sEmb[m * lde + ke + j] = 0.f;
+  }
+  __syncthreads();
+}
+
+// ResidualNorm of layer l for ab atoms whose attention outputs are sO [ab,
+// ld]: next = LN(out + mask * (swish(out @ W1 + b1) @ W2 + b2)). sH1 and sH2
+// [ab, ld] are scratch (sH2 may be the centers the block no longer needs);
+// mask(c-quad) is the residual dropout of row r, and out(r, v) takes each
+// finished row as a warp's four values per lane (v[i] at column lane + 32 i).
+template <typename Mask, typename Out>
+__device__ __forceinline__ void fwd_residual_norm(const ForwardArgs& a, int l, int ab,
+                                                  const float* sO, float* sH1, float* sH2, int ld,
+                                                  Mask mask, Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, D = a.D;
+  const float* br1 = a.br1 + (size_t)l * D;
+  const float* br2 = a.br2 + (size_t)l * D;
+  mma_gemm(sO, ld, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    store4(sH1 + r * ld + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
+                                         swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
+  });
+  __syncthreads();
+  mma_gemm(sH1, ld, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    const float4 m = mask(r, c);
+    store4(sH2 + r * ld + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
+                                         (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));
+  });
+  __syncthreads();
+  for (int m = warp; m < ab; m += kWarps) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      v[i] = d < D ? sO[m * ld + d] + sH2[m * ld + d] : 0.f;
+    }
+    warp_layer_norm(v, D, a.rln_s + (size_t)l * D, a.rln_b + (size_t)l * D, lane);
+    out(m, v);
+  }
+  __syncthreads();
+}
+
+}  // namespace scann

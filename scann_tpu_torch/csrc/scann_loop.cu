@@ -1,5 +1,5 @@
-// Whole-model SCANN / SCANN+ forward for crystals, one CUDA block per
-// structure.
+// Whole-model SCANN / SCANN+ forward for crystals, a cluster of CUDA blocks
+// per structure.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_loop.py:_fwd_kernel (the
 // Pallas loop forward) for unpacked batches. It computes what
@@ -9,91 +9,121 @@
 // that kernel's shared-memory plan: MP2018 at (M=96, N=32, L=9) and Pt/graphene
 // at (M=128, N=32, L=11), D=128. Outputs pred [B] and ga [B, M], f32.
 //
-// Bound. At the MP2018 serving shape (B=64, M=96, N=32, L=9, D=128) the work
-// is ~1.85e11 FLOP of FP32 FMA against ~100 MB of geometry scratch that stays
-// in L2 and a few MB of inputs and weights: bound by operations, ~2.8 ms at
-// the H100 SXM's 67 TFLOP/s FP32 peak.
+// Bound. At the MP2018 serving shape (B=64, M=96, N=32, L=9, D=128) the
+// products are ~1.85e11 FLOP, ~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak
+// (they run on the tensor cores in three TF32 passes to keep f32 accuracy,
+// so that peak stays the yardstick). The SCANN+ geometry scratch [B, M*N, D]
+// is 100 MB at that shape, twice the card's 50 MB of L2, so each layer reads
+// and writes it in HBM: 1.8 GB over the 9 layers, ~0.55 ms at 3.35 TB/s,
+// below the operations bound; loop_forward_bytes counts it.
 //
-// Design. What separates it from scann_forward.cu is where the per-structure
-// state lives.
-// - Only the current centers [M, D] stay in shared memory for the whole
-//   layer, because every atom's gather may read any row of them. All other
-//   per-atom state (query, cw, the ResidualNorm hidden) exists for one block
-//   of AB <= 32 atoms at a time: the layer walks the atom blocks, and each
-//   block's new centers go to a global scratch [B, M, D] (a few MB, in L2)
-//   that is copied back into shared memory when the layer is done. The plan
-//   is M * 520 bytes + 107 to 131 KB at D=128 (atom blocks of 8 to 32), so
-//   M <= 232 fits the 227 KB of a block.
-// - Within an atom block the (atom, neighbour) rows go through
-//   attention_chunk (scann_common.cuh) in chunks of at most 64 rows, with the
-//   SCANN+ geometry streamed from and to a global scratch [B, M, N, D].
-// - The embedding and the readout walk the same atom blocks; the GA keys
-//   overwrite the centers block by block, the query sum and the per-atom
-//   diagonal terms accumulate in shared memory.
-// - One block per structure needs no barrier across blocks (a layer's gather
-//   reads only its own structure), but a batch of 64 structures fills only 64
-//   of the card's 132 SMs.
+// Design.
+// - A cluster of C blocks per structure (C = 1, 2 or 4, chosen by the wrapper
+//   from the batch size, so that a batch of 64 fills 128 of the card's 132
+//   SMs). Each block owns a contiguous range of the structure's atoms; what
+//   crosses blocks is the new centers of a layer: each block writes its
+//   atoms' rows to a global scratch [B, M, D], then a cluster barrier, then
+//   every block reloads all M rows, then a second barrier before the scratch
+//   is written again.
+// - Only the current centers [M, max(D, G)] stay in shared memory for the
+//   whole layer, because every atom's gather may read any row of them. All
+//   other per-atom state (query, cw, the ResidualNorm hidden) exists for one
+//   block of AB <= 32 atoms at a time, in two slots of stride max(D, G) + 4.
+//   The plan is M * 512 bytes + 108 to 133 KB at D=128 (atom blocks of 8 to
+//   32): M <= 237 at N=32.
+// - Within an atom block the (atom, neighbour) rows go through fwd_chunk
+//   (scann_forward_common.cuh) in chunks of at most 64 rows: split-TF32
+//   mma.sync products, the softmax one warp per (atom, head), the context
+//   split over the warps; the SCANN+ geometry is streamed from and to the
+//   global scratch.
+// - The readout (after_Lc, GA queries and keys, the scores, the pooled
+//   context, the head) runs over all M atoms in every block of the cluster,
+//   in the same order, so every block has the scores; rank 0 writes pred and
+//   each block the GA scores of its own atoms. Launches at one C repeat bit
+//   for bit.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory / kErrShape).
 
-#include "philox.cuh"
-#include "scann_common.cuh"
+#include <cooperative_groups.h>
+
+#include "scann_forward_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace scann;
 
-constexpr int kMaxChunkRows = 64;
 constexpr int kMaxAtomBlock = 32;
+constexpr int kMaxCluster = 4;
 
-// Shared-memory plan, in floats: centers [M, wd]; query and scratch
-// [AB, wd]; the chunk operand buffer A (also the embedding staging area);
-// the chunk product buffer U; energies [rows, H]; readout vectors.
+// Shared-memory plan, in floats: centers [M, wd]; two per-block slots [AB,
+// wd + 4]; the work region: a chunk's buffers, the embedding's staging, the
+// ResidualNorm's h2 [AB, wd + 4], or the readout's [AB, wd] block and
+// vectors.
 struct Plan {
-  int wd, rows, offQ, offW, offA, offU, offE, offMisc, total;
+  int wd, lds, rows, lde, ldf, work, offQ, offW, offWork, total;
 };
 
 __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   Plan p;
+  const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
+  p.lds = p.wd + 4;
   p.rows = a.chunk_atoms * a.N;
-  const int urows = p.rows > a.atom_block ? p.rows : a.atom_block;
+  p.lde = round4(a.E + (a.use_ring ? 10 : 0));
+  p.ldf = a.cgcnn ? round4(a.F) : 0;
+  int w = fwd_chunk_floats(p.rows, a.D, a.H);
+  const int embed = AB * (p.lde + p.ldf);
+  const int residual = AB * p.lds;
+  const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
+  w = embed > w ? embed : w;
+  w = residual > w ? residual : w;
+  w = readout > w ? readout : w;
+  p.work = w;
   p.offQ = a.M * p.wd;
-  p.offW = p.offQ + a.atom_block * p.wd;
-  p.offA = p.offW + a.atom_block * p.wd;
-  p.offU = p.offA + a.abuf_floats;
-  p.offE = p.offU + urows * a.D;
-  p.offMisc = p.offE + round4(p.rows * a.H);
-  p.total = p.offMisc + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
+  p.offW = p.offQ + AB * p.lds;
+  p.offWork = p.offW + AB * p.lds;
+  p.total = p.offWork + w;
   return p;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-scann_loop_forward_kernel(const ForwardArgs a) {
+scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan(a);
-  const int b = blockIdx.x;
-  const int M = a.M, N = a.N, D = a.D, H = a.H, K = a.K, G = a.G, O = a.O;
-  const int wd = P.wd, CA = a.chunk_atoms, AB = a.atom_block;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int M = a.M, N = a.N, D = a.D, H = a.H, G = a.G, O = a.O;
+  const int wd = P.wd, lds = P.lds, CA = a.chunk_atoms, AB = a.atom_block;
+  const int lda = 2 * D + 4, ldu = D + 4, q4 = D / 4;
   const unsigned int mol = a.mol_base + (unsigned int)b;
+  // this block's atoms: the rank-th of C contiguous ranges
+  const int per = (M + C - 1) / C;
+  const int m_lo = min(M, rank * per), m_hi = min(M, m_lo + per);
   // the [M, D] embedding and residual masks: quad (r, c..c+3) is one Philox
   // output, since D and c are multiples of 4
-  auto drop_quad = [&](int stream, int r, int c, float4 v) {
-    if (!a.dropout) return v;
-    const float4 m = scann_philox::mask_quad(a.seed, mol, stream, (unsigned)(r * D + c) >> 2,
-                                             a.drop_threshold, a.drop_scale);
-    return make_float4(v.x * m.x, v.y * m.y, v.z * m.z, v.w * m.w);
+  auto mask4 = [&](int stream, int r, int c) {
+    if (!a.dropout) return make_float4(1.f, 1.f, 1.f, 1.f);
+    return scann_philox::mask_quad(a.seed, mol, stream, (unsigned)(r * D + c) >> 2,
+                                   a.drop_threshold, a.drop_scale);
   };
-  float* sC = smem;               // centers        [M, wd]
-  float* sQ = smem + P.offQ;      // query / out    [AB, wd]
-  float* sW = smem + P.offW;      // scratch        [AB, wd]
-  float* sA = smem + P.offA;      // chunk operand  [rows, 2D]: geometry | neighbours/key
-  float* sU = smem + P.offU;      // chunk product  [rows, D]
-  float* sE = smem + P.offE;      // energies       [rows, H]
-  float* sMisc = smem + P.offMisc;
+  // between the blocks of the cluster: every block's writes to the global
+  // scratch are seen by every block after it
+  auto cluster_barrier = [&]() {
+    if (C > 1) cluster.sync();
+    else __syncthreads();
+  };
+  float* sC = smem;               // centers / GA keys  [M, wd]
+  float* sQ = smem + P.offQ;      // query / out        [AB, lds]
+  float* sW = smem + P.offW;      // cw, then h1        [AB, lds]
+  float* work = smem + P.offWork;
+  float* sA = work;                        // chunk operand [rows, 2D + 4]
+  float* sU = sA + P.rows * lda;           // chunk product [rows, D + 4]
+  float* sE = sU + P.rows * ldu;           // attention     [rows, H]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const float* am = a.atom_mask + (size_t)b * M;
@@ -103,159 +133,120 @@ scann_loop_forward_kernel(const ForwardArgs a) {
   const float* ndist = a.ndist + (size_t)b * M * N;
   float* geo_b = a.geo + (size_t)b * M * N * D;
   float* next_b = a.next_centers + (size_t)b * M * D;
+  // all M rows of the scratch into the centers, past L1 (the rows of the other
+  // blocks were written on other SMs), every copy of a thread in flight at once
+  auto load_centers = [&]() {
+    for (int i = tid; i < M * q4; i += kThreads) {
+      const int m = i / q4, c = (i - m * q4) * 4;
+      cp_async16(sC + m * wd + c, next_b + (size_t)m * D + c);
+    }
+    cp_async_wait_all();
+  };
 
-  // ---- atom embedding -> centers = swish(emb @ Wde + bde) ----------------
+  // ---- atom embedding of this block's atoms -> the scratch ----------------
   const int ke = a.E + (a.use_ring ? 10 : 0);
-  const int lde = round4(ke);
-  float* sEmb = sA;                                   // [AB, lde]
-  for (int ab0 = 0; ab0 < M; ab0 += AB) {
-    const int ab = min(AB, M - ab0);
-    if (a.cgcnn) {
-      const int F = a.F, ldf = round4(F);
-      float* sFeat = sA + AB * lde;                   // [AB, ldf]
-      for (int i = tid; i < ab * F; i += kThreads) {
-        const int m = i / F, f = i - m * F;
-        sFeat[m * ldf + f] = a.feat[((size_t)b * M + ab0 + m) * F + f];
-      }
-      __syncthreads();
-      const float* bemb = a.bembed;
-      tile_gemm(sFeat, ldf, ab, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
-        store4(sEmb + r * lde + c,
-               make_float4(v.x + bemb[c], v.y + bemb[c + 1], v.z + bemb[c + 2], v.w + bemb[c + 3]));
-      });
-    } else {
-      for (int i = tid; i < ab * a.E; i += kThreads) {
-        const int m = i / a.E, e = i - m * a.E;
-        sEmb[m * lde + e] = a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * a.E + e];
-      }
-    }
-    if (a.use_ring) {
-      for (int i = tid; i < ab * 10; i += kThreads) {
-        const int m = i / 10, j = i - m * 10;
-        const float* ra = a.ring + ((size_t)b * M + ab0 + m) * 2;
-        sEmb[m * lde + a.E + j] = ra[0] * a.wring[j] + ra[1] * a.wring[10 + j] + a.bring[j];
-      }
-    }
-    __syncthreads();
-    tile_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
-      store4(sC + (ab0 + r) * wd + c,
-             drop_quad(0, ab0 + r, c,
-                       make_float4(swishf(v.x + a.bde[c]), swishf(v.y + a.bde[c + 1]),
-                                   swishf(v.z + a.bde[c + 2]), swishf(v.w + a.bde[c + 3]))));
+  for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+    const int ab = min(AB, m_hi - ab0);
+    fwd_stage_embedding(a, b, ab0, ab, work, P.lde, work + AB * P.lde, P.ldf);
+    mma_gemm(work, P.lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+      const float4 m = mask4(0, ab0 + r, c);
+      store4(next_b + (size_t)(ab0 + r) * D + c,
+             make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
+                         swishf(v.z + a.bde[c + 2]) * m.z, swishf(v.w + a.bde[c + 3]) * m.w));
     });
     __syncthreads();
   }
 
-  // ---- SCANN+ geometry embedding -> global scratch -----------------------
-  if (a.g_update) embed_geometry(a, sA, sU, ndist, nweight, geo_b);
+  // ---- SCANN+ geometry embedding of this block's atoms -> global scratch --
+  if (a.g_update) fwd_embed_geometry(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
+  cluster_barrier();
+  load_centers();
+  cluster_barrier();
 
   // ---- L x (LocalAttention + ResidualNorm) -------------------------------
   for (int l = 0; l < a.L; ++l) {
     const LayerWeights w = layer_weights(a, l);
     const float* wq = a.wq + (size_t)l * D * D;
     const float* bq = a.bq + (size_t)l * D;
-    const float* br1 = a.br1 + (size_t)l * D;
-    const float* br2 = a.br2 + (size_t)l * D;
-    const float* rs = a.rln_s + (size_t)l * D;
-    const float* rb = a.rln_b + (size_t)l * D;
 
-    for (int ab0 = 0; ab0 < M; ab0 += AB) {
-      const int ab = min(AB, M - ab0);
+    for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+      const int ab = min(AB, m_hi - ab0);
       // per-atom projections of the block: cw = centers @ Wfg[0:D] (SCANN+), query
-      if (a.g_update) {
-        tile_gemm(sC + ab0 * wd, wd, ab, D, w.wfg, D, D, [&](int r, int c, float4 v) {
-          store4(sW + r * wd + c, v);
-        });
-      }
-      tile_gemm(sC + ab0 * wd, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
-        store4(sQ + r * wd + c,
+      if (a.g_update)
+        mma_gemm(sC + ab0 * wd, wd, ab, D, w.wfg, D, D,
+                 [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+      mma_gemm(sC + ab0 * wd, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
+        store4(sQ + r * lds + c,
                make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
       });
       __syncthreads();
 
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
-        const int ca = min(CA, ab0 + ab - m0), rows = ca * N, base = m0 * N;
-        stage_chunk(a, sA, sC, wd, nbr, ndist, geo_b, base, rows);
-        attention_chunk(ca, N, D, H, K, a.g_update != 0, sA, sU, sE,
-                        sW + (m0 - ab0) * wd, sQ + (m0 - ab0) * wd, wd, nmask + base,
-                        nweight + base, geo_b + (size_t)base * D, nullptr, w, a.dk,
-                        a.attn_dropout != 0, [&](int at, int n, int h) {
-                          return scann_philox::mask_value(
-                              a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
-                              a.attn_threshold, a.attn_scale);
-                        });
+        const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+        fwd_stage_chunk(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
+        fwd_chunk(a, w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
+                  nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+                  [&](int at, int n, int h) {
+                    return scann_philox::mask_value(
+                        a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                        a.attn_threshold, a.attn_scale);
+                  });
       }
 
       // ResidualNorm of the block: next = LN(out + swish(out @ W1 + b1) @ W2 + b2)
-      tile_gemm(sQ, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
-        store4(sW + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
-                                            swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
-      });
-      __syncthreads();
-      tile_gemm(sW, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * D + c,
-               drop_quad(1 + l, ab0 + r, c, make_float4(v.x + br2[c], v.y + br2[c + 1],
-                                                        v.z + br2[c + 2], v.w + br2[c + 3])));
-      });
-      __syncthreads();
-      for (int m = warp; m < ab; m += kWarps) {
-        float v[4];
+      fwd_residual_norm(a, l, ab, sQ, sW, work, lds,
+                        [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
+                        [&](int m, const float (&v)[4]) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int d = lane + 32 * i;
-          v[i] = (d < D) ? sQ[m * wd + d] + sU[m * D + d] : 0.f;
-        }
-        warp_layer_norm(v, D, rs, rb, lane);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (lane + 32 * i < D) next_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
-      }
-      __syncthreads();
+                          for (int i = 0; i < 4; ++i)
+                            if (lane + 32 * i < D)
+                              next_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
+                        });
     }
 
-    // every atom has gathered from this layer's input: take the new centers
-    const int q4 = D / 4;
-    for (int i = tid; i < M * q4; i += kThreads) {
-      const int m = i / q4, c = (i - m * q4) * 4;
-      store4(sC + m * wd + c, *reinterpret_cast<const float4*>(next_b + (size_t)m * D + c));
-    }
-    __syncthreads();
+    // every atom of the structure has gathered from this layer's input and
+    // every block has written its atoms' new centers: take all M rows
+    cluster_barrier();
+    load_centers();
+    cluster_barrier();
   }
 
   // ---- readout: after_Lc, GA scores, pooled context, head ----------------
-  float* qsum = sMisc;                 // [G]  sum_m mask * gq
-  float* struc = sMisc + wd;           // [G]  pooled context
-  float* score = sMisc + 2 * wd;       // [M]  agg, then ga
+  // over all M atoms in every block, in the same order
+  float* RB = work;                    // cg = swish(cL @ Wal + bal) of an atom block [AB, wd]
+  float* qsum = work + AB * wd;        // [G]  sum_m mask * gq
+  float* struc = qsum + wd;            // [G]  pooled context
+  float* score = struc + wd;           // [M]  agg, then ga
   float* diag = score + round4(M);     // [M]  (mask k) . (mask q)
   float* hid = diag + round4(M);       // [O]
   for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
   for (int ab0 = 0; ab0 < M; ab0 += AB) {
     const int ab = min(AB, M - ab0);
-    tile_gemm(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
-      store4(sW + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
+    mma_gemm(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                           swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
     });
     __syncthreads();
     // the block's GA queries, and its GA keys in place of its centers
-    tile_gemm(sW, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
-      store4(sQ + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
-                                          v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
+    mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+      store4(sQ + r * lds + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
+                                           v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
     });
-    tile_gemm(sW, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+    mma_gemm(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
       store4(sC + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                                   v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
     __syncthreads();
     for (int g = tid; g < G; g += kThreads) {
       float s = qsum[g];
-      for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * wd + g];
+      for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * lds + g];
       qsum[g] = s;
     }
     for (int m = warp; m < ab; m += kWarps) {
       const float mm = am[ab0 + m];
       float dg = 0.f;
       for (int g = lane; g < G; g += 32)
-        dg += (mm * sC[(ab0 + m) * wd + g]) * (mm * sQ[m * wd + g]);
+        dg += (mm * sC[(ab0 + m) * wd + g]) * (mm * sQ[m * lds + g]);
       dg = warp_sum(dg);
       if (lane == 0) diag[ab0 + m] = dg;
     }
@@ -293,7 +284,7 @@ scann_loop_forward_kernel(const ForwardArgs a) {
     tot = warp_sum(tot);
     for (int m = lane; m < M; m += 32) {
       score[m] /= tot;
-      a.ga[(size_t)b * M + m] = score[m];
+      if (m >= m_lo && m < m_hi) a.ga[(size_t)b * M + m] = score[m];
     }
   }
   __syncthreads();
@@ -313,16 +304,65 @@ scann_loop_forward_kernel(const ForwardArgs a) {
     for (int o = lane; o < O; o += 32) p += hid[o] * a.wp[o];
     p = warp_sum(p) + a.bp[0];
     if (a.mrelu) p = fmaxf(p, 0.f);
-    if (lane == 0) a.pred[b] = p;
+    if (lane == 0 && rank == 0) a.pred[b] = p;
   }
+}
+
+// The launch of C blocks per structure, shared by the launcher and the
+// occupancy query.
+void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int C,
+                           int bytes, cudaStream_t s) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+// The sizes make_plan reads, from the wrapper's list of sizes.
+void set_dims(ForwardArgs& a, const int* dims) {
+  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
+  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
+  a.F = dims[10]; a.cgcnn = dims[11]; a.use_ring = dims[12]; a.chunk_atoms = dims[16];
+  a.atom_block = dims[20];
 }
 
 }  // namespace
 
+extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
+  ForwardArgs a = {};
+  set_dims(a, dims);
+  return make_plan(a).total * (int)sizeof(float);
+}
+
+// How many clusters of `cluster` blocks with this shape's shared memory the
+// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+extern "C" int scann_loop_forward_max_clusters(const int* dims, int cluster) {
+  ForwardArgs a = {};
+  set_dims(a, dims);
+  const int bytes = make_plan(a).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // The pointers, sizes, scalars and random-stream words are those of
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the
-// next-centers scratch [B, M, D], and size 20, the atom block; in the order
-// scann_tpu_torch/kernels/scann_loop.py passes them.
+// next-centers scratch [B, M, D], size 20, the atom block, and size 21, the
+// blocks per structure C; in the order scann_tpu_torch/kernels/scann_loop.py
+// passes them. Size 17 (the chunk buffer) is the work region of make_plan.
 extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
                                          const float* scalars, const unsigned int* rng,
                                          void* stream) {
@@ -330,21 +370,27 @@ extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
   unpack_forward_args(a, ptrs, dims, scalars, rng);
   a.next_centers = (float*)ptrs[49];
   a.atom_block = dims[20];
+  const int C = dims[21];
 
-  if (a.M < 1 || a.N < 1 || a.chunk_atoms < 1 || a.chunk_atoms * a.N > kMaxChunkRows ||
-      a.atom_block < 1 || a.atom_block > kMaxAtomBlock ||
+  if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
+      a.chunk_atoms * a.N > kFwdMaxChunkRows || a.atom_block < 1 ||
+      a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
+      C < 1 || C > kMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D)
     return kErrShape;
-  const int stage = round4(a.E + (a.use_ring ? 10 : 0)) + (a.cgcnn ? round4(a.F) : 0);
-  if (a.abuf_floats < a.chunk_atoms * a.N * 2 * a.D || a.abuf_floats < a.atom_block * stage)
-    return kErrShape;
-  const int bytes = make_plan(a).total * (int)sizeof(float);
+  const Plan plan = make_plan(a);
+  if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
+  const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
   cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  scann_loop_forward_kernel<<<a.B, kThreads, bytes, (cudaStream_t)stream>>>(a);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, scann_loop_forward_kernel, a, C);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -245,17 +245,18 @@ def reference_fused_scann_train_grads(params: Dict[str, torch.Tensor],
 def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                           cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
                           one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
-                          seed: int = 0, mol_base: int = 0
+                          seed: int = 0, mol_base: int = 0, check_ranges: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the backward kernel and its reduction
-    with ``pack_params`` output. ``ct`` [B] is d pred, or the targets when
+    with ``pack_params`` output (index ranges as
+    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d pred, or the targets when
     ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``). Returns
     (flat gradients [P], pred [B])."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     _check_packed_inputs(inputs)
-    _check_inputs(inputs, cfm, dev)
+    _check_inputs(inputs, cfm, dev, check_ranges)
     return _launch(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed,
                    mol_base)
 

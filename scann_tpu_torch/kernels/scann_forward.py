@@ -17,13 +17,16 @@ forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
   (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
   Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
+- The launch wrappers read nothing back from the device unless asked to
+  check the batch's index ranges (``check_ranges``, on by default for a
+  direct call; ``Trainer`` and ``Scann`` check once, on the host or per
+  bucket, and launch without it).
 
 Bound and design are in the source note of ``csrc/scann_forward.cu``:
-about 5.0e10 FLOP of FP32 FMA per QM9 batch (B=128, M=32, N=16, L=7,
-D=128), so it is bound by operations (~0.75 ms at the H100 SXM's 67
-TFLOP/s FP32 peak); one block per molecule, neighbour gather and per-head
-reductions in shared memory, the SCANN+ geometry in a global scratch
-buffer.
+about 5.0e10 FLOP per QM9 batch (B=128, M=32, N=16, L=7, D=128), so it is
+bound by operations (~0.75 ms at the H100 SXM's 67 TFLOP/s FP32 peak); one
+block per molecule, products as split-TF32 ``mma.sync`` on the tensor cores
+at f32 accuracy, the SCANN+ geometry in a global scratch buffer.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
-from scann_tpu_torch.models.scann import scann_forward
+from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 from scann_tpu_torch.ops.dropout import (
     DropoutMasks,
     keep_scale,
@@ -120,21 +123,36 @@ def stack_layer_params(params: Dict[str, torch.Tensor], n_layers: int,
     return out
 
 
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def forward_chunk_floats(rows: int, D: int, H: int) -> int:
+    """Floats of a chunk of (atom, neighbour) rows in the forward kernels
+    (``fwd_chunk_floats`` of ``csrc/scann_forward_common.cuh``): the operand
+    [rows, 2D + 4], the product [rows, D + 4], the attention [rows, H]."""
+    return rows * (2 * D + 4) + rows * (D + 4) + _r4(rows * H)
+
+
+def embedding_stage_floats(cfm: ModelConfig, atoms: int) -> int:
+    """Floats of the embedding's staging of ``atoms`` atoms: [atoms, lde]
+    (embedding and ring columns) and, for cgcnn, [atoms, ldf] (features)."""
+    lde = _r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+    ldf = _r4(CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
+    return atoms * (lde + ldf)
+
+
 def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int]:
-    """(atoms per geometry chunk, floats of the chunk operand buffer, shared
-    bytes per block) -- the layout ``make_plan`` in the CUDA source walks."""
-    r4 = lambda x: -(-x // 4) * 4
+    """(atoms per chunk of rows, floats of the work region, shared bytes per
+    block) -- the layout ``make_plan`` in the CUDA source walks: centers,
+    query and a scratch [M, max(D, G) + 4] each, the work region (a chunk's
+    buffers or the embedding's staging), the readout's vectors."""
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
-    wd = max(D, G)
+    ldm = max(D, G) + 4
     chunk_atoms = max(1, min(M, MAX_CHUNK_ROWS // N))
-    rows = chunk_atoms * N
-    stage = M * r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
-    if cfm.feature == "cgcnn":
-        stage += M * r4(92)
-    abuf = max(rows * 2 * D, stage)
-    floats = (3 * M * wd + abuf + rows * D + r4(rows * H)
-              + 2 * wd + r4(M) + r4(O))
-    return chunk_atoms, abuf, 4 * floats
+    work = max(forward_chunk_floats(chunk_atoms * N, D, H), embedding_stage_floats(cfm, M))
+    floats = 3 * M * ldm + work + 2 * ldm + _r4(M) + _r4(O)
+    return chunk_atoms, work, 4 * floats
 
 
 def refusal(cfm: ModelConfig, M: int, N: int) -> Optional[str]:
@@ -216,7 +234,10 @@ _PARAM_KEYS = ("dist_centers", "angle_centers", "embed", "bembed", "wring", "bri
 
 
 def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
-                  dev: torch.device) -> Tuple[int, int, int]:
+                  dev: torch.device, check_ranges: bool = True) -> Tuple[int, int, int]:
+    """Shapes, dtypes, devices and contiguity of a batch, read from the
+    tensors' metadata; with ``check_ranges`` also its index ranges
+    (``check_index_ranges``), which reads them back from the device."""
     cgcnn = cfm.feature == "cgcnn"
     atomic = inputs["atomic"]
     B, M = atomic.shape[:2]
@@ -238,43 +259,37 @@ def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
                 f"input {k!r}: expected a contiguous {dtype} tensor of shape {shape} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
-    # an out-of-range index is an out-of-bounds read on the GPU (the TPU's
-    # one-hot compare made it a silent zero row): refuse it on the host
-    nbr = inputs["neighbors"]
-    if cgcnn:
-        lo_hi = torch.stack([nbr.min(), nbr.max()]).cpu().tolist()
-        z_lo, z_hi = 0, 0
-    else:
-        z_lo, z_hi, *lo_hi = torch.stack(
-            [atomic.min(), atomic.max(), nbr.min(), nbr.max()]).cpu().tolist()
-        if z_lo < 0 or z_hi >= cfm.n_atoms:
-            raise ValueError(f"atomic numbers span [{z_lo}, {z_hi}], outside the "
-                             f"embedding vocab [0, {cfm.n_atoms})")
-    if lo_hi[0] < 0 or lo_hi[1] >= M:
-        raise ValueError(f"neighbor indices span [{lo_hi[0]}, {lo_hi[1]}], outside "
-                         f"[0, M={M})")
+    if check_ranges:
+        check_index_ranges(inputs, cfm)
     return B, M, N
 
 
 def launch_scann_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                          cfm: ModelConfig, mrelu_head: bool = False,
-                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check CUDA inputs and launch the kernel with ``pack_params`` output."""
+                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
+                         check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check CUDA inputs and launch the kernel with ``pack_params`` output.
+    The index ranges are read back and checked unless ``check_ranges`` is
+    False, which a caller that has checked the batch already passes
+    (``Trainer`` at ``_put_buckets``, ``Scann`` on the host arrays); the
+    launch itself waits on nothing."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    _check_inputs(inputs, cfm, dev)
+    _check_inputs(inputs, cfm, dev, check_ranges)
     return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base)
 
 
 def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                      cfm: ModelConfig, mrelu_head: bool, dropout_rate: float, seed: int,
-                     mol_base: int, chunk_atoms: int, abuf: int):
+                     mol_base: int, chunk_atoms: int, work: int,
+                     geo: Optional[torch.Tensor] = None):
     """What the whole-model forwards (this kernel and the crystal loop
     kernel) are launched with: (tensors in ``unpack_forward_args`` order,
-    the outputs and the SCANN+ geometry scratch last; sizes; scalars;
-    random-stream words), and the outputs (pred [B], ga [B, M])."""
+    the outputs and the SCANN+ geometry scratch last; sizes, with the plan's
+    chunk atoms and work floats; scalars; random-stream words), and the
+    outputs (pred [B], ga [B, M]). ``geo`` is the [B * M * N * D] geometry
+    scratch (SCANN+), allocated here when None."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
@@ -282,8 +297,8 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     cgcnn = cfm.feature == "cgcnn"
     pred = torch.empty(B, device=dev, dtype=torch.float32)
     ga = torch.empty((B, M), device=dev, dtype=torch.float32)
-    geo = (torch.empty(B * M * N * D, device=dev, dtype=torch.float32)
-           if cfm.g_update else None)
+    if cfm.g_update and geo is None:
+        geo = torch.empty(B * M * N * D, device=dev, dtype=torch.float32)
     tensors = {
         "atomic": None if cgcnn else inputs["atomic"],
         "feat": inputs["atomic"] if cgcnn else None,
@@ -299,7 +314,7 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     dims = [B, M, N, D, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, 92,
             int(cgcnn), int(cfm.use_ring), int(cfm.g_update), int(cfm.use_ga_norm),
-            int(mrelu_head), chunk_atoms, abuf]
+            int(mrelu_head), chunk_atoms, work]
     flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
     return order, dims + flags, [attention_scale(cfm), RBF_WIDTH, *scales], words, pred, ga
 
@@ -341,9 +356,9 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     check_supported(cfm, M, N)
-    chunk_atoms, abuf, _ = shared_memory_plan(cfm, M, N)
+    chunk_atoms, work, _ = shared_memory_plan(cfm, M, N)
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
-        packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, abuf)
+        packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
     call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors, dims,
                 scalars, rng)
     fused_scann_forward.launches += 1
@@ -378,9 +393,11 @@ def attention_scale(cfm: ModelConfig) -> float:
 
 
 def forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
-    """Multiply-add FLOPs (2 per FMA) of the forward at one padded batch,
-    counted from the kernel's products; the neighbour gather, the RBF
-    exponentials and the other elementwise work are left out."""
+    """Multiply-add FLOPs (2 per product term) of the forward at one padded
+    batch, counted from the kernel's products; the neighbour gather, the RBF
+    exponentials and the other elementwise work are left out. The kernel's
+    bound is computed from it at the FP32 rate: the split-TF32 products keep
+    f32 accuracy with three tensor-core passes."""
     D, K, E, G, O = (cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim,
                      cfm.global_dim, cfm.dense_out)
     rows = M * N

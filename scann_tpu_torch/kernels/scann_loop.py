@@ -23,12 +23,19 @@ Forward:
   and differ in where a structure's state lives. This kernel keeps only the
   current centers [M, max(D, G)] in shared memory for a whole layer and every
   other per-atom tensor for one block of 32, 16 or 8 atoms at a time, so it
-  needs M * 520 bytes + 107 to 131 KB at D = G = 128: M <= 232 (at N = 32)
+  needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
   fits a block's 227 KB, and larger structures go through the per-layer
   kernel of ``kernels.local_attention``. It shares the molecule kernel's tiles: chunks
   of at most 64 (atom, neighbour) rows (N <= 64), D, G, O multiples of 4 up
   to 128, float32. Packed batches (``segment_onehot``) and
   ``use_attn_norm=False`` are refused.
+- Like the backward, it launches a cluster of ``cluster_size(B)`` blocks per
+  structure (``launch_loop_forward(..., cluster=C)`` takes another C), each
+  block on a contiguous share of the atoms; the new centers of a layer cross
+  the cluster through a global [B, M, D] scratch. Its products run as
+  split-TF32 ``mma.sync`` (``csrc/scann_forward_common.cuh``). Launches at one
+  C repeat bit for bit, also on a kept scratch (``loop_forward_scratch``)
+  that holds garbage.
 
 Backward (crystal training):
 
@@ -68,10 +75,12 @@ Backward (crystal training):
   shape and handed to every launch.
 
 Bounds and designs are in the source notes of the two CUDA files: about
-1.85e11 FLOP of FP32 FMA per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for
-the forward (~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak) and 5.5e11 for
-the backward (~8.2 ms); ``loop_backward_flops`` counts what the function
-needs, ``loop_recompute_flops`` what the backward's schedule adds.
+1.85e11 FLOP per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for the forward
+(~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak; its 100 MB geometry scratch
+does not fit the 50 MB L2 and crosses HBM twice a layer, ~0.55 ms, which
+``loop_forward_bytes`` counts) and 5.5e11 for the backward (~8.2 ms);
+``loop_backward_flops`` counts what the function needs,
+``loop_recompute_flops`` what the backward's schedule adds.
 """
 
 from __future__ import annotations
@@ -94,9 +103,10 @@ SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
 BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
 BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
-# Blocks per structure the loop backward launches with -> how many such
-# clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs) runs at once when
-# a block takes most of an SM's shared memory. A cluster of 2 is one pair, so
+# Blocks per structure the loop kernels (forward and backward) launch with ->
+# how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
+# runs at once when a block takes a whole SM (most of its shared memory, or
+# 255 registers a thread). A cluster of 2 is one pair, so
 # 66 always fit; a cluster of 4 needs two pairs of one GPC, so a GPC with an
 # odd count of pairs leaves one out: between 29 and 33 fit, depending on the
 # die (cudaOccupancyMaxActiveClusters, ``max_active_clusters``, said 30 on
@@ -113,26 +123,26 @@ def supports_loop(cfm: ModelConfig) -> bool:
 
 
 def loop_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int, int]:
-    """(atoms per chunk, atoms per block, floats of the chunk operand buffer,
-    shared bytes per block) -- the layout ``make_plan`` in the CUDA source
-    walks. The atom block is the largest of 32, 16, 8 whose plan fits a
-    block's shared memory (the smallest one's plan if none does)."""
+    """(atoms per chunk, atoms per block, floats of the work region, shared
+    bytes per block) -- the layout ``make_plan`` in the CUDA source walks:
+    the centers [M, max(D, G)], two slots [block, max(D, G) + 4], and a work
+    region that holds a chunk's buffers, the embedding's staging, the
+    ResidualNorm's h2 or the readout's block and vectors. The atom block is
+    the largest of 32, 16, 8 whose plan fits a block's shared memory (the
+    smallest one's plan if none does)."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
-    chunk_atoms = max(1, min(M, MAX_CHUNK_ROWS // max(N, 1)))
-    rows = chunk_atoms * N
-    stage = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
-    if cfm.feature == "cgcnn":
-        stage += r4(92)
     for block in ATOM_BLOCKS:
         block = min(block, M)
-        abuf = max(rows * 2 * D, block * stage)
-        floats = (M * wd + 2 * block * wd + abuf + max(rows, block) * D + r4(rows * H)
-                  + 2 * wd + 2 * r4(M) + r4(O))
+        chunk_atoms = max(1, min(block, MAX_CHUNK_ROWS // max(N, 1)))
+        work = max(kfwd.forward_chunk_floats(chunk_atoms * N, D, H),
+                   kfwd.embedding_stage_floats(cfm, block), block * (wd + 4),
+                   block * wd + 2 * wd + 2 * r4(M) + r4(O))
+        floats = M * wd + 2 * block * (wd + 4) + work
         if 4 * floats <= MAX_SHARED_BYTES:
             break
-    return chunk_atoms, block, abuf, 4 * floats
+    return chunk_atoms, block, work, 4 * floats
 
 
 def refusal(cfm: ModelConfig, M: int, N: int,
@@ -176,17 +186,32 @@ def reference_loop_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
                                         dropout_seed or 0, mol_base)
 
 
+def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device
+                         ) -> Dict[str, Optional[torch.Tensor]]:
+    """The global scratch of one loop-forward launch at batch shape (B, M,
+    N): the SCANN+ geometry [B * M * N * D] (None for SCANN) and the new
+    centers [B, M, D]. Its contents mean nothing between launches; a launch
+    allocates its own unless it is handed one."""
+    D = cfm.local_dim
+    return {"geo": (torch.empty(B * M * N * D, device=device, dtype=torch.float32)
+                    if cfm.g_update else None),
+            "next_centers": torch.empty((B, M, D), device=device, dtype=torch.float32)}
+
+
 def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                         cfm: ModelConfig, mrelu_head: bool = False,
-                        dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
+                        dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
+                        cluster: Optional[int] = None, check_ranges: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check CUDA inputs and launch the kernel with ``pack_params`` output."""
+    """Check CUDA inputs and launch the kernel with ``pack_params`` output,
+    at ``cluster`` blocks per structure (``cluster_size(B)`` when None).
+    Index ranges as ``kernels.scann_forward.launch_scann_forward`` says."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     check_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2], inputs)
-    kfwd._check_inputs(inputs, cfm, dev)
-    return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base)
+    kfwd._check_inputs(inputs, cfm, dev, check_ranges)
+    return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, cluster)
 
 
 launch_loop_forward.launches = 0
@@ -194,17 +219,30 @@ launch_loop_forward.launches = 0
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
-            seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``launch_loop_forward`` accepted."""
+            seed: int = 0, mol_base: int = 0, cluster: Optional[int] = None,
+            scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``launch_loop_forward`` accepted, at
+    ``cluster`` blocks per structure (``cluster_size(B)`` when None), on
+    ``scratch`` from ``loop_forward_scratch`` (allocated here when None)."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
-    chunk_atoms, atom_block, abuf, _ = loop_memory_plan(cfm, M, N)
+    cluster = cluster_size(B) if cluster is None else cluster
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster}: the loop forward launches with {CLUSTER_SIZES}")
+    if scratch is None:
+        scratch = loop_forward_scratch(cfm, B, M, N, dev)
+    elif tuple(scratch["next_centers"].shape) != (B, M, cfm.local_dim):
+        raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} handed to "
+                         f"a batch of shape {(B, M, cfm.local_dim)}")
+    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
-        packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, abuf)
-    next_centers = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
-    kfwd.call_kernel("scann_loop", "scann_loop_forward", dev, tensors + [next_centers],
-                     dims + [atom_block], scalars, rng)
+        packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
+        scratch["geo"])
+    kfwd.call_kernel("scann_loop", "scann_loop_forward", dev,
+                     tensors + [scratch["next_centers"]], dims + [atom_block, cluster], scalars,
+                     rng)
     launch_loop_forward.launches += 1
     return pred.view(B, 1), ga.view(B, M, 1)
 
@@ -232,9 +270,42 @@ def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.
 
 
 def loop_forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
-    """Multiply-add FLOPs (2 per FMA) of the forward at one padded batch:
-    the products are those of the molecule kernel, so is the count."""
+    """Multiply-add FLOPs (2 per product term) of the forward at one padded
+    batch: the products are those of the molecule kernel, so is the count."""
     return kfwd.forward_flops(cfm, B, M, N)
+
+
+def loop_forward_bytes(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """Bytes of HBM traffic the forward needs at one padded batch beyond one
+    read of its inputs and weights and one write of its outputs: the SCANN+
+    geometry [B, M * N, D] f32 (100 MB at the MP2018 batch) does not fit the
+    card's 50 MB of L2 beside the rest, so the embedding writes it once and
+    each of the L layers reads it and all but the last write it back (2 L
+    passes). SCANN keeps no geometry scratch: 0."""
+    if not cfm.g_update:
+        return 0
+    return 2 * cfm.n_attention * B * M * N * cfm.local_dim * 4
+
+
+def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` loop-forward blocks at this shape the
+    card runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    from scann_tpu_torch.kernels._build import load_library
+
+    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N)
+    dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
+            cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
+            int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
+            chunk_atoms, work, 0, 0, atom_block]
+    fn = load_library("scann_loop").scann_loop_forward_max_clusters
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn((ctypes.c_int * len(dims))(*dims), cluster)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
+    return n
 
 
 # --- the backward ---------------------------------------------------------------
@@ -264,7 +335,8 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, in
 
 
 def cluster_size(B: int) -> int:
-    """Thread blocks per structure of a loop-backward launch at batch size B:
+    """Thread blocks per structure of a loop launch (forward or backward) at
+    batch size B:
     the largest of 4, 2, 1 with which the batch's clusters still run at once
     on the card (``CLUSTERS_AT_ONCE``). 4 up to 28 structures, 2 up to 66 (the
     MP2018 batch of 64 fills 128 of 132 SMs), 1 beyond."""
@@ -350,9 +422,11 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                          one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                          seed: int = 0, mol_base: int = 0,
                          scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                         cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         cluster: Optional[int] = None, check_ranges: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the loop backward and its row reduction
-    with ``pack_params`` output. ``ct`` [B] is d pred, or the targets when
+    with ``pack_params`` output (index ranges as
+    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d pred, or the targets when
     ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
     from ``loop_backward_scratch`` at this batch shape and cluster size
     (allocated here when None); ``cluster`` blocks per structure (1, 2 or 4;
@@ -362,7 +436,7 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
                              inputs)
-    kfwd._check_inputs(inputs, cfm, dev)
+    kfwd._check_inputs(inputs, cfm, dev, check_ranges)
     return _launch_backward(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate,
                             seed, mol_base, scratch, cluster)
 

@@ -6,7 +6,9 @@ HTTP (port of ``scann_tpu/serve.py``, same HTTP contract).
   queued within ``window_ms`` (up to ``max_batch`` structures) into one
   shape-grouped batch. With ``overlap`` (default) a featurizer thread
   prepares batch k+1 (host Voronoi) while the device thread runs batch k,
-  through a depth-1 double buffer. A full pending queue rejects at once
+  through a depth-1 double buffer. Every launch runs on the device thread:
+  a batch whose featurization failed goes through the same buffer, marked
+  for the per-request fallback. A full pending queue rejects at once
   (``Overloaded``); ``close()`` fails every request still in flight.
 - ``PredictionServer``: a stdlib ``ThreadingHTTPServer``:
 
@@ -21,7 +23,8 @@ HTTP (port of ``scann_tpu/serve.py``, same HTTP contract).
   invalid structure is a 400, an oversized body a 413, overload a 503, a
   timeout a 504, anything else a 500.
 
-CLI: ``python -m scann_tpu_torch.cli.serve --config X.yaml --weights W.h5``.
+CLI: ``python -m scann_tpu_torch.cli.serve <model_dir>`` (a training run
+directory of this package) or ``--config X.yaml --weights W.h5``.
 """
 
 from __future__ import annotations
@@ -86,11 +89,13 @@ class BatchedPredictor:
         if overlap:
             self._feat_queue: "queue.Queue" = queue.Queue(maxsize=1)
             self._workers = [
-                threading.Thread(target=self._run_featurizer, daemon=True),
-                threading.Thread(target=self._run_device, daemon=True),
+                threading.Thread(target=self._run_featurizer, daemon=True,
+                                 name="scann-featurizer"),
+                threading.Thread(target=self._run_device, daemon=True, name="scann-device"),
             ]
         else:
-            self._workers = [threading.Thread(target=self._run, daemon=True)]
+            self._workers = [threading.Thread(target=self._run, daemon=True,
+                                              name="scann-device")]
         for w in self._workers:
             w.start()
 
@@ -102,6 +107,15 @@ class BatchedPredictor:
 
         return cls(Scann(config_path, pretrained=weights_path, device=device),
                    owns_scann=True, **kw)
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str, device="cuda", **kw) -> "BatchedPredictor":
+        """A predictor over a training run directory of this package (its
+        ``checkpoints/best.pt``, through ``Scann.load_model_infer``); needs
+        neither yaml nor h5py."""
+        from scann_tpu_torch.api import Scann
+
+        return cls(Scann.load_model_infer(model_dir, device=device), owns_scann=True, **kw)
 
     # --- client side -----------------------------------------------------
 
@@ -213,7 +227,9 @@ class BatchedPredictor:
 
     def _run_featurizer(self):
         """Stage 1: coalesce + host featurization, handed to the device
-        thread through the depth-1 double buffer."""
+        thread through the depth-1 double buffer. A batch that fails to
+        featurize is handed over as it is (no inputs): the device thread runs
+        its per-request fallback, so no launch runs on this thread."""
         while not self._stop.is_set():
             reqs = self._drain()
             if not reqs:
@@ -224,8 +240,7 @@ class BatchedPredictor:
                     structs, featurize_pool=self.featurize_pool,
                     canonical_frame=self.canonical_frame)
             except Exception:
-                self._fallback_per_request(reqs)
-                continue
+                structs, inputs = None, None
             while not self._stop.is_set():
                 try:
                     self._feat_queue.put((reqs, structs, inputs), timeout=0.2)
@@ -241,6 +256,9 @@ class BatchedPredictor:
             try:
                 reqs, structs, inputs = self._feat_queue.get(timeout=0.2)
             except queue.Empty:
+                continue
+            if inputs is None:          # featurization failed: each request alone
+                self._fallback_per_request(reqs)
                 continue
             try:
                 results = self.scann.predict_featurized(structs, inputs)

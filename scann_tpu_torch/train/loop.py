@@ -6,16 +6,19 @@ l2(1e-4) kernel penalties, Adam(b1=0.9, b2=0.999, eps=1e-7) with the
 ``decay=1e-5`` inverse-time factor, cosine or SGDR, early stopping on val
 MAE, best-val checkpoints, a test report.
 
-- Each bucket's padded arrays go to the device once; a step gathers its
-  batch there with an index vector (``loop.py:340-360``), and each epoch
-  wrap-pads its last batch.
+- Each bucket's padded arrays go to the device once, after their index
+  ranges are checked on the host (``_put_buckets``), so no launch of a step
+  or an eval batch reads anything back; a step gathers its batch there with
+  an index vector (``loop.py:340-360``), and each epoch wrap-pads its last
+  batch. The loop backward's scratch is kept per batch shape while a live
+  bucket has that shape.
 - A step takes one of three routes, chosen from (config, M, N) before
   anything is launched (``Trainer.train_route``, the mirror of
   ``eval_route`` and of ``loop.py:384-430``): "fused", ONE launch of the
   molecule backward kernel (forward recompute, residual and every gradient)
   plus its row reduction where its gate passes (M <= 32 at D = 128); else
   "loop", ONE launch of the crystal loop backward kernel where its gate
-  passes (M <= 208 at N = 32, D = 128); else "per_layer", the per-layer
+  passes (M <= 226 at N = 32, D = 128); else "per_layer", the per-layer
   model under ``torch.autograd`` (one LocalAttention kernel launch per layer
   going forward, the plain layer going back). All run at dropout 0.1 on the
   same Philox masks; the raw gradients are scaled by 1 / (n * rmse) and the
@@ -65,6 +68,7 @@ from scann_tpu_torch.kernels.scann_loop import (
     loop_scann_train_grads,
 )
 from scann_tpu_torch.models.scann import (
+    check_index_ranges,
     init_params,
     l2_penalty,
     param_shapes,
@@ -155,35 +159,42 @@ class Trainer:
             return "loop"
         return "per_layer"
 
-    def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                     check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
 
         On CUDA the route is chosen from (config, M, N) before anything is
         launched (``eval_route``): the whole-model kernel where its gate
         passes, else the crystal loop kernel where its gate passes, else the
-        per-layer model. A kernel that fails to build or launch raises;
-        nothing falls back. On the CPU it is the eager model."""
+        per-layer model. The batch's index ranges are read back and checked
+        first unless ``check_ranges`` is False (batches of the device
+        buckets, checked at ``_put_buckets``). A kernel that fails to build
+        or launch raises; nothing falls back. On the CPU it is the eager
+        model."""
         cfm = self.config.model
         with torch.inference_mode():
             if self.device.type != "cuda":
                 return scann_forward(params, batch, cfm, self.mrelu_head)
+            if check_ranges:
+                check_index_ranges(batch, cfm)
             route = self.eval_route(batch["atomic"].shape[1], batch["neighbors"].shape[2])
             if route == "per_layer":
-                return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True)
+                return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True,
+                                     check_ranges=False)
             packed = (self.kernel_params() if params is self.params
                       else pack_params(params, cfm))
             launch = launch_scann_forward if route == "fused" else launch_loop_forward
-            return launch(packed, batch, cfm, self.mrelu_head)
+            return launch(packed, batch, cfm, self.mrelu_head, check_ranges=False)
 
     # --- one step ----------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, lr: float,
-                   seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   seed: int, check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """One Adam step on one batch; returns (loss, mae) as device scalars
-        (the loss is RMSE + l2, as the JAX step reports it)."""
+        (the loss is RMSE + l2, as the JAX step reports it). ``check_ranges``
+        as ``raw_grads`` takes it."""
         l2 = self.config.hyper.l2_reg
-        pred, raw = self.raw_grads(batch, y, seed)
+        pred, raw = self.raw_grads(batch, y, seed, check_ranges)
         err = pred - y
         rmse = torch.sqrt(torch.mean(err * err))
         mae = torch.mean(torch.abs(err))
@@ -208,16 +219,20 @@ class Trainer:
             return "loop"
         return "per_layer"
 
-    def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int,
+                  check_ranges: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(pred [B], gradients of 0.5 * sum((pred - y)^2)) at the training
         dropout, by the route of ``train_route``: on CUDA one launch of the
         molecule or the loop backward kernel (the loop kernel's scratch is
         kept per batch shape), or the per-layer model under autograd; on the
-        CPU the kernels' plain versions."""
+        CPU the kernels' plain versions. On CUDA the batch's index ranges are
+        read back and checked first unless ``check_ranges`` is False (``fit``'s
+        batches come from buckets checked at ``_put_buckets``)."""
         cfm = self.config.model
         B, M = batch["atomic"].shape[:2]
         N = batch["neighbors"].shape[2]
+        if check_ranges and self.device.type == "cuda":
+            check_index_ranges(batch, cfm)
         route = self.train_route(M, N)
         if route == "per_layer":
             return self._per_layer_grads(batch, y, seed)
@@ -225,7 +240,8 @@ class Trainer:
             packed = self.kernel_params()
             if route == "fused":
                 flat, pred = launch_scann_backward(packed, batch, cfm, y, None, True,
-                                                   self.mrelu_head, self.dropout_rate, seed)
+                                                   self.mrelu_head, self.dropout_rate, seed,
+                                                   check_ranges=False)
             else:
                 scratch = self._loop_scratch.get((B, M, N))
                 if scratch is None:
@@ -233,7 +249,7 @@ class Trainer:
                         packed, cfm, B, M, N)
                 flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
                                                   self.mrelu_head, self.dropout_rate, seed,
-                                                  scratch=scratch)
+                                                  scratch=scratch, check_ranges=False)
             return pred, grads_from_flat(flat, packed, cfm)
         grads_fn = fused_scann_train_grads if route == "fused" else loop_scann_train_grads
         pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed)
@@ -250,7 +266,8 @@ class Trainer:
         masks = dropout_masks_for(cfm, batch, self.dropout_rate, seed)
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True)
+            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True,
+                                    check_ranges=False)
             loss = 0.5 * ((pred[:, 0] - y) ** 2).sum()
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return pred.detach()[:, 0], dict(zip(leaves, grads))
@@ -290,8 +307,12 @@ class Trainer:
     # --- device-resident data ----------------------------------------------------
 
     def _put_buckets(self, buckets: List[PackedBucket], tag: str):
-        """Bucket arrays on the device, once per (tag, bucket); the entry keeps
-        the bucket alive so its id() cannot be reused by another one."""
+        """Bucket arrays on the device, once per (tag, bucket), their index
+        ranges checked on the host first (so no launch on them reads
+        anything back); the entry keeps the bucket alive so its id() cannot
+        be reused by another one. Buckets of ``tag`` not in ``buckets`` are
+        dropped, and with them the loop scratch of shapes no live bucket
+        has."""
         live = {(tag, id(b)) for b in buckets}
         for key in [k for k in self._device_buckets if k[0] == tag and k not in live]:
             del self._device_buckets[key]
@@ -302,11 +323,20 @@ class Trainer:
                 if "segment_mask" in b.inputs:
                     raise NotImplementedError("packed buckets: structure packing is not "
                                               "ported yet")
+                check_index_ranges(b.inputs, self.config.model)
                 self._device_buckets[key] = (
                     b, _to_device(b.inputs, self.device),
                     torch.as_tensor(np.asarray(b.targets, np.float32), device=self.device))
             out.append(self._device_buckets[key][1:])
+        self._prune_loop_scratch()
         return out
+
+    def _prune_loop_scratch(self) -> None:
+        """Drop the loop backward's scratch of every (B, M, N) whose (M, N)
+        no device bucket has (it holds 1.5 GB at the MP2018 batch)."""
+        shapes = {tuple(v[0].shape) for v in self._device_buckets.values()}
+        for key in [k for k in self._loop_scratch if k[1:] not in shapes]:
+            del self._loop_scratch[key]
 
     # --- training ------------------------------------------------------------------
 
@@ -361,7 +391,8 @@ class Trainer:
                     batch = {name: v[rows] for name, v in binputs.items()}
                     lr = (epoch_lr / (1.0 + hyper.adam_decay * self.step) if sgdr
                           else lr_fn(self.step))
-                    loss, mae = self.train_step(batch, btargets[rows], lr, seeds[k])
+                    loss, mae = self.train_step(batch, btargets[rows], lr, seeds[k],
+                                                check_ranges=False)
                     losses.append(loss)
                     maes.append(mae)
                 bucket_losses.append(torch.stack(losses).mean())
@@ -408,7 +439,8 @@ class Trainer:
         preds, gas = [], []
         for s0 in range(0, n_rows, batch_size):
             idx = torch.arange(s0, s0 + batch_size, device=self.device) % n_rows
-            pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()})
+            pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()},
+                                         check_ranges=False)
             preds.append(pred[:, 0])
             gas.append(ga[..., 0])
         return torch.cat(preds)[:n_rows], torch.cat(gas)[:n_rows]

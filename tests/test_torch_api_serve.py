@@ -297,3 +297,114 @@ def test_torch_predict_files_cli(tmp_path):
     v, ga = js.predict_structure(JaxStructure.from_file(str(xyz)))
     assert preds["water"]["prediction"] == pytest.approx(v, rel=1e-5, abs=1e-6)
     np.testing.assert_allclose(preds["water"]["ga_scores"], ga, rtol=1e-5, atol=1e-6)
+
+
+def test_torch_serving_launches_each_group_at_its_own_size(tmp_path):
+    """A group's last batch runs at the group's own remainder, not wrap-padded
+    to ``batch_size``: a lone structure is one batch of B=1. The answers equal
+    the wrap-padded batches' and the JAX package's on the same weights."""
+    jcfg = JaxConfig(model=JaxModel(**SMALL),
+                     hyper=JaxHyper(batch_size=3, target="homo", target_mean=-0.2,
+                                    target_std=0.03, save_path=str(tmp_path / "jax")),
+                     tpu=JaxTpu(use_pallas=False))
+    js = JaxScann(jcfg)
+    js.trainer.init_state(js._example_inputs(), seed=4)
+    ts = Scann(ScannConfig.from_dict(dataclasses.asdict(jcfg)), device="cpu")
+    ts.load_params(jax.device_get(js.trainer.state.params))
+    names = ["water", "methane", "co", "carbon", "water", "methane", "water", "water"]
+    sizes = []
+    forward_eval = ts.forward_eval
+    ts.forward_eval = lambda params, batch: (sizes.append(batch["atomic"].shape[0]),
+                                             forward_eval(params, batch))[1]
+    structs, inputs = ts.featurize_structures([Structure(*MOLS[n]) for n in names])
+    got = ts.predict_featurized(structs, inputs)
+    assert sizes == [3, 3, 2]          # one (M, N) rung; its tail is 2 structures, not 3
+    want = js.predict_structures([JaxStructure(*MOLS[n]) for n in names])
+    for (v, ga), (jv, jga) in zip(got, want):
+        assert v == pytest.approx(float(jv), rel=1e-5, abs=1e-6)
+        np.testing.assert_allclose(ga, np.asarray(jga), rtol=1e-5, atol=1e-6)
+    # the same structure alone, and wrap-padded to batch_size copies of itself
+    sizes.clear()
+    (lone,) = ts.predict_featurized(structs[3:4], inputs[3:4])
+    assert sizes == [1]
+    padded = {k: np.concatenate([v] * 3) for k, v in inputs[3].items()}
+    p, g = forward_eval(ts.params, padded)
+    for row in range(3):
+        assert lone[0] == pytest.approx(float(p[row, 0]) * 0.03 - 0.2, rel=1e-5, abs=1e-6)
+        np.testing.assert_allclose(lone[1], g[row, :1, 0].numpy(), rtol=1e-5, atol=1e-6)
+    assert lone[0] == pytest.approx(got[3][0], rel=1e-5, abs=1e-6)
+
+
+def test_torch_index_ranges_are_checked_once_before_the_launch(scann, monkeypatch):
+    """A served batch of numpy arrays is checked on the host before its copy
+    (a bad index raises the wrappers' ValueError); on the card the trainer's
+    launches then read nothing back. A tensor batch is checked once."""
+    import scann_tpu_torch.models.scann as model_mod
+    from scann_tpu_torch.train import loop as train_loop
+
+    batch = scann._example_inputs(M=8, N=4, B=2)
+    bad = dict(batch, neighbors=np.full((2, 8, 4), 8, np.int32))
+    with pytest.raises(ValueError, match="neighbor indices"):
+        scann.forward_eval(scann.params, bad)
+    reads = []
+    real = model_mod.index_bounds
+    monkeypatch.setattr(model_mod, "index_bounds",
+                        lambda *a: reads.append(type(a[0]).__name__) or real(*a))
+    trainer = train_loop.Trainer(scann.config, "cpu", "unused")
+    trainer.load_params(scann.params)
+    trainer.device = torch.device("cuda")       # only the dispatch reads it here
+    launched = []
+    monkeypatch.setattr(train_loop, "launch_scann_forward",
+                        lambda *a, **kw: launched.append(kw["check_ranges"]) or (None, None))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    trainer.forward_eval(trainer.params, tbatch, check_ranges=False)
+    assert reads == [] and launched == [False]
+    trainer.forward_eval(trainer.params, tbatch)
+    assert reads == ["Tensor"] and launched == [False, False]
+    reads.clear()
+    scann.forward_eval(scann.params, batch)
+    assert reads == ["ndarray"]
+
+
+def test_torch_featurization_failure_falls_back_on_the_device_thread(scann, monkeypatch):
+    """In overlap mode a batch that fails to featurize is handed to the
+    device thread, which answers its requests one by one: the good requests
+    of the batch get their answers, the bad one its error, and no launch runs
+    on the featurizer thread."""
+    featurize = scann.featurize_structures
+    predict = scann.predict_structures
+    threads = []
+
+    def flaky(structs, **kw):
+        if any(s.species == ["C"] for s in structs):
+            raise ValueError("injected featurization failure")
+        return featurize(structs, **kw)
+
+    def recorded(structs, **kw):
+        threads.append(threading.current_thread().name)
+        return predict(structs, **kw)
+
+    monkeypatch.setattr(scann, "featurize_structures", flaky)
+    monkeypatch.setattr(scann, "predict_structures", recorded)
+    p = BatchedPredictor(scann, max_batch=16, window_ms=200.0, warmup_shapes=[])
+    results, errors = {}, {}
+
+    def call(name):
+        try:
+            results[name] = p.predict([Structure(*MOLS[name])])
+        except Exception as e:
+            errors[name] = e
+
+    try:
+        workers = [threading.Thread(target=call, args=(n,)) for n in ("water", "carbon", "co")]
+        for th in workers:
+            th.start()
+        for th in workers:
+            th.join(60)
+    finally:
+        p.close()
+    assert set(results) == {"water", "co"} and set(errors) == {"carbon"}
+    assert "injected" in str(errors["carbon"])
+    assert threads and set(threads) == {"scann-device"}
+    assert results["water"][0][0] == pytest.approx(
+        predict([WATER])[0][0], rel=1e-6)

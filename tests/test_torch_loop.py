@@ -136,3 +136,95 @@ def test_torch_loop_forward_flops_crystal_batches():
     MP2018 batch (B=64, M=96, N=32, L=9), 1.205e11 per Pt/graphene batch."""
     assert kloop.loop_forward_flops(MP2018, 64, 96, 32) == pytest.approx(1.849e11, rel=1e-3)
     assert kloop.loop_forward_flops(PTGP, 64, 128, 32) == pytest.approx(1.205e11, rel=1e-3)
+
+
+@pytest.mark.parametrize("M_,N_,ok", [(96, 32, True), (232, 32, True), (237, 32, True),
+                                      (238, 32, False), (232, 64, True), (237, 64, True)])
+def test_torch_loop_forward_plan_keeps_its_gate(M_, N_, ok):
+    """The plan of the tensor-core loop forward still takes M = 232 at N = 32
+    (and N up to 64 there); one past its own edge, M = 238, goes to the
+    per-layer kernel."""
+    chunk_atoms, block, work, nbytes = kloop.loop_memory_plan(MP2018, M_, N_)
+    assert (kloop.refusal(MP2018, M_, N_) is None) == ok
+    assert (nbytes <= kfwd.MAX_SHARED_BYTES) == ok
+    assert chunk_atoms * N_ <= 64 and chunk_atoms <= block
+    assert block == (32 if M_ <= 189 else 16 if M_ <= 221 else 8)
+
+
+def test_torch_molecule_forward_plan_keeps_its_gate():
+    """#1 still takes every M up to 64 at N up to 64, and refuses M = 65."""
+    for N_ in (16, 32, 64):
+        chunk_atoms, work, nbytes = kfwd.shared_memory_plan(ModelConfig(), 64, N_)
+        assert nbytes <= kfwd.MAX_SHARED_BYTES and chunk_atoms * N_ <= 64
+        assert kfwd.refusal(ModelConfig(), 64, N_) is None
+    assert "loop kernel" in kfwd.refusal(ModelConfig(), 65, 16)
+    # the QM9 bucket: four atoms (64 rows) per chunk
+    assert kfwd.shared_memory_plan(ModelConfig(), 32, 16)[0] == 4
+
+
+def test_torch_forward_plans_match_cuda_sources():
+    """``shared_memory_plan`` and ``loop_memory_plan`` mirror ``make_plan`` of
+    ``csrc/scann_forward.cu`` and ``csrc/scann_loop.cu`` (whose launchers also
+    refuse a work size other than their own), and the chunk buffers of
+    ``csrc/scann_forward_common.cuh`` have the padded strides."""
+    from scann_tpu_torch.kernels import _build
+
+    src = {}
+    for name in ("scann_forward", "scann_loop", "scann_forward_common"):
+        ext = ".cuh" if name.endswith("common") else ".cu"
+        with open(f"{_build.SRC_DIR}/{name}{ext}") as f:
+            src[name] = f.read()
+    assert "return rows * (2 * D + 4) + rows * (D + 4) + round4(rows * H);" in \
+        src["scann_forward_common"]
+    for name in ("scann_forward", "scann_loop"):
+        assert "if (a.abuf_floats != plan.work) return kErrShape;" in src[name]
+    fwd = src["scann_forward"][src["scann_forward"].index("inline Plan make_plan"):]
+    assert "p.ldm = (a.D > a.G ? a.D : a.G) + 4;" in fwd
+    assert "p.total = p.offMisc + 2 * p.ldm + round4(a.M) + round4(a.O);" in fwd
+    loop = src["scann_loop"][src["scann_loop"].index("inline Plan make_plan"):]
+    for term in ("p.lds = p.wd + 4;", "const int residual = AB * p.lds;",
+                 "const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);",
+                 "p.total = p.offWork + w;"):
+        assert term in loop
+    D, H, wd = 128, 8, 128
+    assert kfwd.forward_chunk_floats(64, D, H) == 64 * (2 * D + 4) + 64 * (D + 4) + 64 * H
+    # the whole plans at the QM9 and MP2018 buckets, term by term
+    ldm = wd + 4
+    assert kfwd.shared_memory_plan(ModelConfig(), 32, 16) == (
+        4, 25600, 4 * (3 * 32 * ldm + 25600 + 2 * ldm + 32 + 128))
+    assert kloop.loop_memory_plan(MP2018, 96, 32) == (
+        2, 32, 25600, 4 * (96 * wd + 2 * 32 * (wd + 4) + 25600))
+    assert (D + 4) % 32 == 4 and (2 * D + 4) % 32 == 4      # conflict-free fragment reads
+
+
+@pytest.mark.parametrize("B_,C", [(1, 4), (20, 4), (28, 4), (29, 2), (64, 2), (66, 2),
+                                  (67, 1), (128, 1)])
+def test_torch_loop_forward_cluster_choice(B_, C, monkeypatch):
+    """The forward launches the backward's cluster of blocks per structure, a
+    function of the batch size alone (a block of either takes a whole SM);
+    another C is taken when asked for, and refused outside (1, 2, 4)."""
+    assert kloop.cluster_size(B_) == C
+    seen = []
+    monkeypatch.setattr(kfwd, "call_kernel", lambda *a: seen.append(a[4][-1]))
+    cfm = ModelConfig(**SMALL, n_attention=1)
+    x = _torch_inputs(make_synthetic_batch(np.random.default_rng(0), B=B_, M=8, N=4))
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0)), cfm)
+    kloop._launch(packed, x, cfm, False)
+    kloop._launch(packed, x, cfm, False, cluster=1)
+    assert seen == [C, 1]
+    with pytest.raises(ValueError, match="launches with"):
+        kloop._launch(packed, x, cfm, False, cluster=3)
+    scratch = kloop.loop_forward_scratch(cfm, B_ + 1, 8, 4, "cpu")
+    with pytest.raises(ValueError, match="scratch"):
+        kloop._launch(packed, x, cfm, False, scratch=scratch)
+
+
+def test_torch_loop_forward_bytes_count_the_geometry_round_trips():
+    """#3's bound counts the SCANN+ geometry scratch that does not fit L2:
+    written by the embedding, read by each of 9 layers and written back by 8
+    (1.81 GB at the MP2018 batch, ~0.54 ms at 3.35 TB/s, under the 2.76 ms of
+    its operations); SCANN keeps none."""
+    nbytes = kloop.loop_forward_bytes(MP2018, 64, 96, 32)
+    assert nbytes == 18 * 64 * 96 * 32 * 128 * 4
+    assert 1e3 * nbytes / 3.35e12 < 1e3 * kloop.loop_forward_flops(MP2018, 64, 96, 32) / 67e12
+    assert kloop.loop_forward_bytes(PTGP, 64, 128, 32) == 0

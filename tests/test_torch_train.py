@@ -308,3 +308,35 @@ def test_torch_train_and_predict_model_clis(tmp_path, capsys):
     with pytest.raises(SystemExit):
         train.main(["homo", str(path), "--structure-packing", "--device", "cpu"])
     assert "not ported" in capsys.readouterr().err
+
+
+def test_torch_fit_refuses_a_bucket_with_an_out_of_range_neighbour(tmp_path):
+    """Bucket index ranges are checked once, on the host, when the buckets go
+    to the device: a neighbour index outside [0, M) is refused by ``fit``
+    with the wrappers' ValueError, before any step."""
+    s = Scann(_config(tmp_path, n=24, epochs=1), device="cpu")
+    s.prepare_dataset()
+    b = s.train_buckets[-1]
+    b.inputs["neighbors"][0, 0, 0] = b.shape[0]
+    with pytest.raises(ValueError, match="neighbor indices"):
+        s.train()
+    assert s.trainer.step == 0
+
+
+def test_torch_loop_scratch_is_dropped_with_the_buckets(tmp_path):
+    """The loop backward's scratch, kept per (B, M, N), lives while a device
+    bucket has that (M, N): ``_put_buckets`` drops the rest when it drops
+    buckets."""
+    s = Scann(_config(tmp_path, n=40, epochs=1), device="cpu")
+    s.prepare_dataset()
+    t, buckets = s.trainer, s.train_buckets
+    shapes = [b.shape for b in buckets]
+    assert len(set(shapes)) == 2
+    t._loop_scratch = {(8, *shapes[0]): "a", (8, *shapes[1]): "b", (8, 200, 32): "stale"}
+    t._put_buckets(buckets, "train")
+    assert set(t._loop_scratch) == {(8, *shapes[0]), (8, *shapes[1])}
+    t._put_buckets(buckets[:1], "valid")
+    t._put_buckets(buckets[1:], "train")
+    assert set(t._loop_scratch) == {(8, *shapes[0]), (8, *shapes[1])}
+    t._put_buckets([], "valid")
+    assert set(t._loop_scratch) == {(8, *shapes[1])}
