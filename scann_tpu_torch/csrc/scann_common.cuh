@@ -399,78 +399,4 @@ __device__ __forceinline__ void attention_chunk(
   __syncthreads();
 }
 
-// SCANN+ geometry embedding of one structure, chunk by chunk into its global
-// scratch geo_b [M * N, D]:
-//   geo = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw).
-// sA [rows, 2D] and sU [rows, D] are the chunk buffers; ends with a barrier.
-__device__ __forceinline__ void embed_geometry(const ForwardArgs& a, float* sA, float* sU,
-                                               const float* ndist, const float* nweight,
-                                               float* geo_b) {
-  const int tid = threadIdx.x, M = a.M, N = a.N, D = a.D, K = a.K, lda = 2 * D;
-  for (int m0 = 0; m0 < M; m0 += a.chunk_atoms) {
-    const int ca = min(a.chunk_atoms, M - m0), rows = ca * N, base = m0 * N;
-    for (int i = tid; i < rows * K; i += kThreads) {
-      const int r = i / K, k = i - r * K;
-      const float t = ndist[base + r] - a.dist_centers[k];
-      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-    }
-    __syncthreads();
-    tile_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
-      store4(sU + r * D + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
-                                         v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
-    });
-    __syncthreads();
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      sA[r * lda + D + d] = swishf(sU[r * D + d]);  // d_emb; K <= D keeps it clear of the rbf
-    }
-    for (int i = tid; i < rows * K; i += kThreads) {
-      const int r = i / K, k = i - r * K;
-      const float t = nweight[base + r] - a.angle_centers[k];
-      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-    }
-    __syncthreads();
-    tile_gemm(sA, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
-      store4(sU + r * D + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
-                                         v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
-    });
-    __syncthreads();
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      geo_b[(size_t)(base + r) * D + d] = sA[r * lda + D + d] * swishf(sU[r * D + d]);
-    }
-    __syncthreads();
-  }
-}
-
-// Stages the operand of one chunk of (atom, neighbour) rows, starting at row
-// base of the structure, for attention_chunk: the geometry from the global
-// scratch (SCANN+) or the distance RBF (SCANN) into columns [0, D) of sA, and
-// the neighbours' states, gathered from the centers sC [M, wd] in shared
-// memory, into columns [D, 2D). Ends with a barrier.
-__device__ __forceinline__ void stage_chunk(const ForwardArgs& a, float* sA, const float* sC,
-                                            int wd, const int* nbr, const float* ndist,
-                                            const float* geo_b, int base, int rows) {
-  const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D;
-  if (a.g_update) {
-    const int q4 = D / 4;
-    for (int i = tid; i < rows * q4; i += kThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      store4(sA + r * lda + c,
-             *reinterpret_cast<const float4*>(geo_b + (size_t)(base + r) * D + c));
-    }
-  } else {
-    for (int i = tid; i < rows * K; i += kThreads) {
-      const int r = i / K, k = i - r * K;
-      const float t = ndist[base + r] - a.dist_centers[k];
-      sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
-    }
-  }
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    sA[r * lda + D + d] = sC[nbr[base + r] * wd + d];
-  }
-  __syncthreads();
-}
-
 }  // namespace scann

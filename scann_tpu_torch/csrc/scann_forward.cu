@@ -32,7 +32,8 @@
 //   the caller; 33.5 MB at the QM9 shape) and is streamed through shared
 //   memory in chunks of CA atoms (CA*N <= 64 rows), each chunk's rows through
 //   fwd_chunk of scann_forward_common.cuh: split-TF32 mma.sync products, one
-//   warp per (atom, head) for the softmax, the context split over the warps.
+//   warp per (atom, head) for the softmax, one thread per (atom, column) for
+//   the context.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the

@@ -34,8 +34,8 @@
 // - Within an atom block the (atom, neighbour) rows go through fwd_chunk
 //   (scann_forward_common.cuh) in chunks of at most 64 rows: split-TF32
 //   mma.sync products, the softmax one warp per (atom, head), the context
-//   split over the warps; the SCANN+ geometry is streamed from and to the
-//   global scratch.
+//   one thread per (atom, column); the SCANN+ geometry is streamed from and
+//   to the global scratch.
 // - The readout (after_Lc, GA queries and keys, the scores, the pooled
 //   context, the head) runs over all M atoms in every block of the cluster,
 //   in the same order, so every block has the scores; rank 0 writes pred and

@@ -10,7 +10,7 @@ The build runs at first use, into ``build/scann_tpu_torch/`` beside the
 package, keyed by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads at once. The hash covers the source
 and every header it includes (``philox.cuh``, ``scann_common.cuh``,
-``scann_grad_common.cuh``, ``scann_mma.cuh``), so
+``scann_grad_common.cuh``, ``scann_mma.cuh``, ``scann_forward_common.cuh``), so
 an edited header rebuilds every library that includes it. ``-Xptxas -v``
 makes the compiler report each kernel's registers and spills:
 ``build_logs`` keeps what nvcc printed and ``kernel_resources`` reads it. ``build_all`` starts one nvcc
