@@ -109,6 +109,7 @@ MMA_RTOL = 2e-6              # split-TF32 products, of max |float64 product|
 LOSS_RTOL = 1e-4
 TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
 H100_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
+H100_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
 H100_HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
 
 
@@ -361,20 +362,17 @@ def time_backward(cfm, params, packed, inputs, card):
     nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
               + 4 * B + 4 * (P + B))          # targets in; gradients and pred out
-    ops_ms = 1e3 * flops / H100_FP32_FLOPS
-    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
-    bound = max(ops_ms, bytes_ms)
+    bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
     print(f"scann_backward at B={B} M={M} N={N} (dropout 0.1, one-shot, with its row "
           f"reduction; timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, "
           f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
           f"[{card}]", flush=True)
     print(f"scann_backward: the kernel's schedule adds {recompute:.4e} FLOP of recompute "
-          f"({1e3 * recompute / H100_FP32_FLOPS:.4f} ms at the FP32 peak), which the bound "
+          f"({operations_ms(recompute, 0):.4f} ms as split-TF32 products), which the bound "
           f"does not count", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "flops": flops,
-            "recompute_flops": recompute,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "recompute_flops": recompute, "bound_by": by}
 
 
 def phase4(matrix, qm9_model, qm9_inputs, failures, card):
@@ -512,7 +510,7 @@ def phase5(qm9_model, failures, card):
     class PlainTrainer(Trainer):
         """The same Trainer with the backward kernel's plain version."""
 
-        def raw_grads(self, batch, y, seed, check_ranges=True):
+        def raw_grads(self, batch, y, seed):
             pred, raw = kbwd.reference_fused_scann_train_grads(
                 self.params, batch, y, self.config.model, self.mrelu_head,
                 self.dropout_rate, seed)
@@ -548,17 +546,17 @@ def phase5(qm9_model, failures, card):
     step_ms, fwd_calls = [], [0]
     train_step, forward_eval = trainer.train_step, trainer.forward_eval
 
-    def timed_step(*args, **kw):
+    def timed_step(*args):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = train_step(*args, **kw)
+        out = train_step(*args)
         e.record()
         step_ms.append((s, e))
         return out
 
-    def counted_eval(*args, **kw):
+    def counted_eval(*args):
         fwd_calls[0] += 1
-        return forward_eval(*args, **kw)
+        return forward_eval(*args)
 
     trainer.train_step, trainer.forward_eval = timed_step, counted_eval
     kbwd.launch_scann_backward.launches = 0          # counts of the training path only
@@ -657,10 +655,21 @@ def phase5(qm9_model, failures, card):
     return bwd_launches
 
 
-def bound_ms(flops, nbytes):
-    """(bound, "operations" | "bytes"): the larger of the FP32 time of the
-    products and the HBM time of one pass over inputs and outputs."""
-    ops_ms = 1e3 * flops / H100_FP32_FLOPS
+def operations_ms(flops, fp32_flops=None):
+    """The least time of ``flops``: ``fp32_flops`` of them at the FP32 rate
+    outside the tensor cores and the rest as split-TF32 products, three TF32
+    passes each at the dense TF32 rate; all at the FP32 rate when
+    ``fp32_flops`` is None (a kernel without tensor-core products)."""
+    if fp32_flops is None:
+        return 1e3 * flops / H100_FP32_FLOPS
+    return 1e3 * (3 * (flops - fp32_flops) / H100_TF32_FLOPS + fp32_flops / H100_FP32_FLOPS)
+
+
+def bound_ms(flops, nbytes, fp32_flops=None):
+    """(bound, "operations" | "bytes"): the larger of the operations' time
+    (``operations_ms``) and the HBM time of one pass over inputs and
+    outputs."""
+    ops_ms = operations_ms(flops, fp32_flops)
     bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -752,9 +761,10 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
 def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     """Kernel #3 at one batch shape, at each cluster size of ``clusters`` (None:
     the wrapper's own), in turns with its plain version (plain, kernel,
-    kernel, plain), against its bound: the larger of the products' FP32 time
-    and the HBM time of the inputs, weights and outputs read or written once
-    plus the geometry scratch's round trips (``loop_forward_bytes``)."""
+    kernel, plain), against its bound: the larger of the operations' time
+    (``operations_ms``) and the HBM time of the inputs, weights and outputs
+    read or written once plus the geometry scratch's round trips
+    (``loop_forward_bytes``)."""
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
@@ -766,7 +776,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     flops = kloop.loop_forward_flops(cfm, B, M, N)
     nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
               + kloop.loop_forward_bytes(cfm, B, M, N))
-    bound, by = bound_ms(flops, nbytes)
+    bound, by = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N))
     scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
     out = {}
     with torch.inference_mode():
@@ -792,9 +802,10 @@ def phase6(matrix, mp2018, ptgp, failures, card):
     """The crystal loop-forward kernel against its plain version at 1, 2 and
     4 blocks per structure (a small matrix at dropout 0 and 0.1, two atoms
     per chunk, a one-atom structure, fewer atoms than blocks, a ragged
-    M = 160 at B <= 28, the gate's edge M = 232, MP2018 at B = 64 and 128,
-    Pt/graphene), with relaunches on garbage-filled scratch held bit for bit,
-    then its time. Returns (largest abs error, timing of the MP2018 shape)."""
+    M = 160 at B <= 28, atom blocks of 16 at M = 200, the gate's edge
+    M = 237, MP2018 at B = 64 and 128, Pt/graphene), with relaunches on
+    garbage-filled scratch held bit for bit, then its time. Returns (largest
+    abs error, timing of the MP2018 shape)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -827,15 +838,18 @@ def phase6(matrix, mp2018, ptgp, failures, card):
     # M=3 at 4 blocks per structure: the last block has no atom
     compare("scann+ fewer atoms than blocks", matrix[0][1],
             synthetic_batch(rng, 4, 3, 8, min_atoms=1), rate=0.1, relaunches=2)
-    # a small batch (4 blocks per structure) of a ragged bucket, and the gate's edge
+    # a small batch (4 blocks per structure) of a ragged bucket, atom blocks of 16
+    # (M 189 to 221) and the gate's edge (blocks of 8)
     compare("mp2018 full width, ragged", mp2018,
             synthetic_batch(rng, 20, 160, 32, n_atoms=mp2018.n_atoms), rate=0.1, relaunches=4)
+    compare("mp2018 full width, atom blocks of 16", mp2018,
+            synthetic_batch(rng, 4, 200, 32, n_atoms=mp2018.n_atoms, min_atoms=150),
+            relaunches=4)
     compare("mp2018 full width, the gate's edge", mp2018,
-            synthetic_batch(rng, 4, 232, 32, n_atoms=mp2018.n_atoms, min_atoms=150),
+            synthetic_batch(rng, 4, 237, 32, n_atoms=mp2018.n_atoms, min_atoms=150),
             relaunches=4)
     mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
     compare("mp2018 full width", mp2018, mp_inputs, clusters=(1, 2), relaunches=4)
-    compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, clusters=(2,))
     twice = {k: torch.cat([v, v]) for k, v in mp_inputs.items()}
     compare("mp2018 full width", mp2018, twice, clusters=(1,))
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
@@ -889,7 +903,7 @@ def phase7(mp2018, failures, card):
     import dataclasses
 
     from scann_tpu_torch.kernels import local_attention as kla
-    from scann_tpu_torch.models.scann import init_params, scann_forward
+    from scann_tpu_torch.models.scann import check_index_ranges, init_params, scann_forward
 
     rng = np.random.default_rng(7)
     worst, timing = 0.0, None
@@ -898,6 +912,7 @@ def phase7(mp2018, failures, card):
         # a ragged small layer, an M beyond the loop kernel's gate, one MP2018 layer
         for B, M, N, d, h in ((3, 40, 8, 32, 4), (8, 256, 32, D, H), (64, 96, 32, D, H)):
             args = layer_inputs(rng, B, M, N, d, h, g_update)
+            kla.check_neighbor_range(*kla.index_bounds(args[1]), M)   # the wrapper reads nothing
             with torch.inference_mode():
                 out, geo, attn = kla.fused_local_attention(*args)
                 torch.cuda.synchronize()
@@ -930,6 +945,7 @@ def phase7(mp2018, failures, card):
         cfm = dataclasses.replace(mp2018, use_attn_norm=False, n_attention=3, g_update=g_update)
         x = synthetic_batch(rng, 8, 96, 32, n_atoms=cfm.n_atoms, min_atoms=20)
         p = init_params(cfm, torch.Generator().manual_seed(7), "cuda")
+        check_index_ranges(x, cfm)
         before = kla.fused_local_attention.launches
         with torch.inference_mode():
             pred, ga = scann_forward(p, x, cfm, use_pallas=True)
@@ -983,11 +999,11 @@ def phase8(mp2018, run_dir, failures, card):
     routes = []                                  # (route, M, N, B) of every device batch
     forward_eval = scann.trainer.forward_eval
 
-    def recorded_forward(params, batch, **kw):
+    def recorded_forward(params, batch):
         B, M = batch["atomic"].shape[:2]
         N = batch["neighbors"].shape[2]
         routes.append((scann.trainer.eval_route(M, N), M, N, B))
-        return forward_eval(params, batch, **kw)
+        return forward_eval(params, batch)
 
     scann.trainer.forward_eval = recorded_forward
     print(f"crystal serving: warmed {scann.warmup_serving([(96, 32)])} at one structure",
@@ -1176,7 +1192,7 @@ def phase9(matrix, mp2018, ptgp, failures, card):
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
         nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
-        bound, by = bound_ms(flops, nbytes)
+        bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         scratch_bytes = tensor_bytes(scratch.values())
         print(f"scann_loop_backward at {name} B={B} M={M} N={N} L={cfm.n_attention} (dropout "
               f"0.1, one-shot, with its row reduction; timed in turns: plain, kernel, kernel, "
@@ -1239,7 +1255,7 @@ def phase10(mp2018, failures, card):
     class PlainTrainer(Trainer):
         """The same Trainer with the plain version of every backward."""
 
-        def raw_grads(self, batch, y, seed, check_ranges=True):
+        def raw_grads(self, batch, y, seed):
             pred, raw = kloop.reference_loop_train_grads(
                 self.params, batch, y, self.config.model, self.mrelu_head,
                 self.dropout_rate, seed)
@@ -1304,10 +1320,10 @@ def phase10(mp2018, failures, card):
     step_ms = []
     train_step = trainer.train_step
 
-    def timed_step(*args, **kw):
+    def timed_step(*args):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = train_step(*args, **kw)
+        out = train_step(*args)
         e.record()
         step_ms.append((s, e))
         return out
@@ -1628,12 +1644,11 @@ def main():
     nbytes = (sum(t.numel() * t.element_size() for t in qm9_inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
               + 4 * (B + B * M))
-    ops_ms = 1e3 * flops / H100_FP32_FLOPS
-    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
+    fwd_bound, fwd_by = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(qm9_model, B, M, N))
     print(f"scann_forward at B={B} M={M} N={N}: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
-          f"{max(ops_ms, bytes_ms):.4f} ms ({100 * max(ops_ms, bytes_ms) / kernel_ms:.1f}% "
-          f"of it reached)  [{card}]", flush=True)
+          f"{fwd_bound:.4f} ms by {fwd_by} ({100 * fwd_bound / kernel_ms:.1f}% of it reached)  "
+          f"[{card}]", flush=True)
     bwd_time = time_backward(qm9_model, params, packed, qm9_inputs, card)
 
     # ---- phase 4: the backward kernel against its plain version -------------
@@ -1665,8 +1680,7 @@ def main():
         "name": "scann_forward", "route": "cuda", "source": kfwd.SOURCE,
         "replaces": kfwd.REPLACES, "launches": launches,
         "max_abs_err": max(max_err, bwd_err["forward_dropout"]), "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
         "library_ms": None, "flops": flops,
     }, {
         "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,

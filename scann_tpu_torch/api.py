@@ -222,14 +222,11 @@ class Scann:
         kernel layout of the weights that ``Trainer.kernel_params`` keeps
         for the current parameter version, else the per-layer model with
         one LocalAttention kernel launch per layer. On the CPU it runs the
-        eager model. A batch of numpy arrays has its index ranges checked on
-        the host before the copy, so the launch reads nothing back; a batch
-        of tensors is checked on its device."""
-        on_host = all(isinstance(v, np.ndarray) for v in batch.values())
-        if on_host:
-            check_index_ranges(batch, self.config.model)
-        return self.trainer.forward_eval(params, self._to_device(batch),
-                                         check_ranges=not on_host)
+        eager model. The batch's index ranges are checked here, once: a
+        batch of numpy arrays on the host before the copy, so the launch
+        reads nothing back; a batch of tensors with one read-back."""
+        check_index_ranges(batch, self.config.model)
+        return self.trainer.forward_eval(params, self._to_device(batch))
 
     # --- dataset and training -------------------------------------------------
 

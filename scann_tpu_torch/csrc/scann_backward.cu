@@ -19,11 +19,11 @@
 // Bound. backward_flops (kernels/scann_backward.py) counts the 1.50e11
 // FLOP that the function needs per QM9 training batch (B=128, M=32, N=16,
 // L=7, D=128): the forward, and the weight and input gradients of each
-// forward product (no input gradient where the input is data). At the H100
-// SXM's 67 TFLOP/s FP32 that is ~2.24 ms, above the time the inputs, weights
-// and gradients take to move at HBM rate, so the bound is set by operations
-// (the products run on the tensor cores in three TF32 passes to keep f32
-// accuracy, so the FP32 peak stays the yardstick). This schedule's recompute
+// forward product (no input gradient where the input is data). As three
+// TF32 passes per product at the H100 SXM's dense 495 TFLOP/s TF32 (the
+// energies and context on the CUDA cores at 67 TFLOP/s FP32) that is ~0.92
+// ms, above the time the inputs, weights and gradients take to move at HBM
+// rate, so the bound is set by operations. This schedule's recompute
 // adds 5.0e10 FLOP (recompute_flops), which the bound does not count.
 //
 // Design.

@@ -14,9 +14,10 @@
 //
 // Bound. At the QM9 serving shape (B=128, M=32, N=16, L=7, D=128) the work
 // is ~5.0e10 FLOP against a few MB of inputs and weights, so the kernel is
-// bound by operations: ~0.75 ms at the H100 SXM's 67 TFLOP/s FP32 peak. The
-// products run on the tensor cores in three TF32 passes to keep f32
-// accuracy (scann_mma.cuh), so that peak stays the yardstick.
+// bound by operations. The products run on the tensor cores in three TF32
+// passes to keep f32 accuracy (scann_mma.cuh): ~0.31 ms at the H100 SXM's
+// dense 495 TFLOP/s TF32, with the energies and context (1.2% of the FLOP,
+// on the CUDA cores) at 67 TFLOP/s FP32.
 //
 // Design.
 // - One block of 256 threads per molecule; the block loops over the layers

@@ -10,10 +10,12 @@
 // at (M=128, N=32, L=11), D=128. Outputs pred [B] and ga [B, M], f32.
 //
 // Bound. At the MP2018 serving shape (B=64, M=96, N=32, L=9, D=128) the
-// products are ~1.85e11 FLOP, ~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak
-// (they run on the tensor cores in three TF32 passes to keep f32 accuracy,
-// so that peak stays the yardstick). The SCANN+ geometry scratch [B, M*N, D]
-// is 100 MB at that shape, twice the card's 50 MB of L2, so each layer reads
+// products are ~1.85e11 FLOP. They run on the tensor cores in three TF32
+// passes to keep f32 accuracy, so at the H100 SXM's dense 495 TFLOP/s TF32
+// they take at least ~1.13 ms (the 0.5% that runs on the CUDA cores, the
+// energies and context, counted at 67 TFLOP/s FP32). The SCANN+ geometry
+// scratch [B, M*N, D] is 100 MB at that shape, twice the card's 50 MB of
+// L2, so each layer reads
 // and writes it in HBM: 1.8 GB over the 9 layers, ~0.55 ms at 3.35 TB/s,
 // below the operations bound; loop_forward_bytes counts it.
 //

@@ -17,9 +17,9 @@
 //
 // Bound. loop_backward_flops (kernels/scann_loop.py) counts ~5.5e11 FLOP that
 // the function needs per MP2018 training batch (B=64, M=96, N=32, L=9,
-// D=128): bound by operations, ~8.2 ms at the H100 SXM's 67 TFLOP/s FP32
-// peak (the products run on the tensor cores in three TF32 passes to keep f32
-// accuracy, so that peak stays the yardstick). This schedule's recompute
+// D=128): bound by operations, ~3.37 ms as three TF32 passes per product at
+// the H100 SXM's dense 495 TFLOP/s TF32 (the energies and context on the
+// CUDA cores at 67 TFLOP/s FP32). This schedule's recompute
 // (loop_recompute_flops) comes on top and is not in the bound.
 //
 // Design.

@@ -126,14 +126,14 @@ def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -
 def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
                            geometry: torch.Tensor, neighbor_mask: torch.Tensor,
                            neighbor_weight: Optional[torch.Tensor], params: Params,
-                           num_head: int, scale: float, g_update: bool,
-                           check_ranges: bool = True
+                           num_head: int, scale: float, g_update: bool
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Check CUDA inputs and launch the kernel -> (out, geometry out or None
     for SCANN, attn), as ``reference_local_attention`` returns them. The
-    neighbour indices are read back and checked unless ``check_ranges`` is
-    False: a caller that has checked them (the per-layer model checks its
-    batch once) launches without that wait on the device."""
+    check reads the tensors' metadata only and waits on nothing: the
+    neighbour indices are the caller's to check (``check_neighbor_range``;
+    the per-layer model's batches are checked where they enter, by
+    ``models.scann.check_index_ranges``)."""
     dev = centers.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -159,8 +159,6 @@ def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
             got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
             raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
                              f"{shape} on {dev}, got {got}")
-    if check_ranges:
-        check_neighbor_range(*index_bounds(neighbor_idx), M)
     return _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
                    num_head, scale, g_update)
 
@@ -198,7 +196,7 @@ class _FusedLocalAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight,
-                num_head, scale, g_update, check_ranges, keys, *values):
+                num_head, scale, g_update, keys, *values):
         params = dict(zip(keys, values))
         ctx.save_for_backward(centers, neighbor_idx, geometry, neighbor_mask,
                               neighbor_weight, *values)
@@ -206,7 +204,7 @@ class _FusedLocalAttention(torch.autograd.Function):
         if centers.device.type == "cuda":
             out, geo_out, attn = launch_local_attention(
                 centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
-                num_head, scale, g_update, check_ranges)
+                num_head, scale, g_update)
         elif centers.device.type == "cpu":
             out, geo_out, attn = reference_local_attention(
                 centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
@@ -240,26 +238,24 @@ class _FusedLocalAttention(torch.autograd.Function):
                 allow_unused=True)
         d_centers, d_geometry, *d_values = grads[: len(leaves)]
         d_weight = grads[-1] if weight is not None else None
-        return (d_centers, None, d_geometry, None, d_weight, None, None, None, None, None,
+        return (d_centers, None, d_geometry, None, d_weight, None, None, None, None,
                 *d_values)
 
 
 def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
                           geometry: torch.Tensor, neighbor_mask: torch.Tensor,
                           neighbor_weight: Optional[torch.Tensor], params: Params,
-                          num_head: int, scale: float, g_update: bool,
-                          check_ranges: bool = True
+                          num_head: int, scale: float, g_update: bool
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused LocalAttention layer -> (out [B, M, D], geometry out
     [B, M, N, *], attn [B, M, N, H]); for SCANN the geometry out is the
     unchanged input. CPU tensors run the plain version; CUDA tensors launch
     the kernel or raise (unsupported sizes, bad input, failed build or
-    launch; neighbour indices are checked as ``launch_local_attention``
-    says)."""
+    launch; neighbour indices as ``launch_local_attention`` says)."""
     keys = tuple(k for k in PARAM_KEYS if g_update or "layer_norm_g" not in k)
     return _FusedLocalAttention.apply(centers, neighbor_idx, geometry, neighbor_mask,
-                                      neighbor_weight, num_head, scale, g_update, check_ranges,
-                                      keys, *[params[k] for k in keys])
+                                      neighbor_weight, num_head, scale, g_update, keys,
+                                      *[params[k] for k in keys])
 
 
 fused_local_attention.launches = 0

@@ -52,16 +52,17 @@ from scann_tpu_torch.kernels.scann_forward import (
     MAX_WIDTH,
     RBF_WIDTH,
     _LAYER_KEYS,
-    _check_inputs,
+    _check_shapes,
     attention_scale,
     call_kernel,
     dropout_masks_for,
     forward_flops,
+    forward_fp32_flops,
     fused_scann_forward,
     pack_params,
     rng_words,
 )
-from scann_tpu_torch.models.scann import CGCNN_FEATURES, scann_forward
+from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 
 REPLACES = "scann_tpu/kernels/scann_backward.py:77"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_backward.cu"
@@ -245,18 +246,18 @@ def reference_fused_scann_train_grads(params: Dict[str, torch.Tensor],
 def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                           cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
                           one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
-                          seed: int = 0, mol_base: int = 0, check_ranges: bool = True
+                          seed: int = 0, mol_base: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the backward kernel and its reduction
-    with ``pack_params`` output (index ranges as
-    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d pred, or the targets when
-    ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``). Returns
+    with ``pack_params`` output (index ranges are the caller's, as
+    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
+    pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``). Returns
     (flat gradients [P], pred [B])."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     _check_packed_inputs(inputs)
-    _check_inputs(inputs, cfm, dev, check_ranges)
+    _check_shapes(inputs, cfm, dev)
     return _launch(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed,
                    mol_base)
 
@@ -318,7 +319,7 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor], one_shot: bool,
             mrelu_head: bool = False, dropout_rate: float = 0.0, seed: int = 0,
             mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``_check_inputs`` accepted."""
+    """The launch itself, on inputs ``_check_shapes`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     check_supported(cfm, M, N)
@@ -347,6 +348,7 @@ def fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
                                           dropout_rate, seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, _ = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(ct_pred, device=dev),
                                     torch.as_tensor(ct_ga, device=dev), False, False,
@@ -368,6 +370,7 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
                                                  dropout_rate, seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, pred = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
                                        None, True, mrelu_head, dropout_rate, seed)
@@ -473,6 +476,13 @@ def backward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
         f -= mm(M, CGCNN_FEATURES, E)
     f -= (2 if cfm.g_update else cfm.n_attention) * mm(R, K, D)
     return B * f
+
+
+def backward_fp32_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """Of ``backward_flops``, the FLOPs that run on the CUDA cores in f32:
+    the forward's (``forward_fp32_flops``) and their two gradients; the
+    rest are split-TF32 products on the tensor cores."""
+    return 3 * forward_fp32_flops(cfm, B, M, N)
 
 
 def recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:

@@ -17,14 +17,17 @@ forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
   (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
   Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
-- The launch wrappers read nothing back from the device unless asked to
-  check the batch's index ranges (``check_ranges``, on by default for a
-  direct call; ``Trainer`` and ``Scann`` check once, on the host or per
-  bucket, and launch without it).
+- The launch wrappers (``launch_scann_forward`` and the other kernels'
+  ``launch_*``) check shapes, dtypes and devices from the tensors' metadata
+  and read nothing back. The batch's index ranges are checked where data
+  enters (``models.scann.check_index_ranges``: ``Trainer`` per bucket on
+  the host, ``Scann.forward_eval`` per batch) and by the wrappers with the
+  JAX signature (``fused_scann_forward`` and its kin) before they launch.
 
 Bound and design are in the source note of ``csrc/scann_forward.cu``:
 about 5.0e10 FLOP per QM9 batch (B=128, M=32, N=16, L=7, D=128), so it is
-bound by operations (~0.75 ms at the H100 SXM's 67 TFLOP/s FP32 peak); one
+bound by operations (~0.31 ms as three TF32 passes per product at the H100
+SXM's dense 495 TFLOP/s, ``forward_fp32_flops`` at 67 TFLOP/s FP32); one
 block per molecule, products as split-TF32 ``mma.sync`` on the tensor cores
 at f32 accuracy, the SCANN+ geometry in a global scratch buffer.
 """
@@ -233,11 +236,10 @@ _PARAM_KEYS = ("dist_centers", "angle_centers", "embed", "bembed", "wring", "bri
                "wal", "bal", "wgq", "bgq", "wgk", "bgk", "wbf", "bbf", "wp", "bp")
 
 
-def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
-                  dev: torch.device, check_ranges: bool = True) -> Tuple[int, int, int]:
+def _check_shapes(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
+                  dev: torch.device) -> Tuple[int, int, int]:
     """Shapes, dtypes, devices and contiguity of a batch, read from the
-    tensors' metadata; with ``check_ranges`` also its index ranges
-    (``check_index_ranges``), which reads them back from the device."""
+    tensors' metadata (nothing is read back) -> (B, M, N)."""
     cgcnn = cfm.feature == "cgcnn"
     atomic = inputs["atomic"]
     B, M = atomic.shape[:2]
@@ -259,24 +261,29 @@ def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
                 f"input {k!r}: expected a contiguous {dtype} tensor of shape {shape} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
-    if check_ranges:
-        check_index_ranges(inputs, cfm)
     return B, M, N
+
+
+def _check_inputs(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
+                  dev: torch.device) -> Tuple[int, int, int]:
+    """``_check_shapes`` and the index ranges (``check_index_ranges``, a
+    read-back of the tensors) -> (B, M, N): what a direct caller checks."""
+    out = _check_shapes(inputs, cfm, dev)
+    check_index_ranges(inputs, cfm)
+    return out
 
 
 def launch_scann_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                          cfm: ModelConfig, mrelu_head: bool = False,
-                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
-                         check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check CUDA inputs and launch the kernel with ``pack_params`` output.
-    The index ranges are read back and checked unless ``check_ranges`` is
-    False, which a caller that has checked the batch already passes
-    (``Trainer`` at ``_put_buckets``, ``Scann`` on the host arrays); the
-    launch itself waits on nothing."""
+                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check CUDA inputs' shapes and launch the kernel with ``pack_params``
+    output; nothing is read back, so the batch's index ranges are the
+    caller's to check (``check_index_ranges``)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    _check_inputs(inputs, cfm, dev, check_ranges)
+    _check_shapes(inputs, cfm, dev)
     return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base)
 
 
@@ -352,7 +359,7 @@ def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, sca
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
             seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``_check_inputs`` accepted."""
+    """The launch itself, on inputs ``_check_shapes`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     check_supported(cfm, M, N)
@@ -373,12 +380,14 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
     the training forward at ``dropout_rate`` > 0 (masks keyed on ``seed``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise (unsupported shape, bad input, failed build or launch)."""
+    raise (unsupported shape, bad input, an index out of range, failed build
+    or launch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
         return reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate, seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     return launch_scann_forward(pack_params(params, cfm), inputs, cfm, mrelu_head,
                                 dropout_rate, seed)
 
@@ -396,8 +405,9 @@ def forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     """Multiply-add FLOPs (2 per product term) of the forward at one padded
     batch, counted from the kernel's products; the neighbour gather, the RBF
     exponentials and the other elementwise work are left out. The kernel's
-    bound is computed from it at the FP32 rate: the split-TF32 products keep
-    f32 accuracy with three tensor-core passes."""
+    bound takes ``forward_fp32_flops`` of them at the FP32 rate and the rest
+    at a third of the dense TF32 rate: the split-TF32 products keep f32
+    accuracy with three tensor-core passes."""
     D, K, E, G, O = (cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim,
                      cfm.global_dim, cfm.dense_out)
     rows = M * N
@@ -415,3 +425,12 @@ def forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     f += cfm.n_attention * per_layer
     f += 2 * M * D * G + 2 * 2 * M * G * G + 6 * M * G + 2 * G * O + 2 * O
     return B * f
+
+
+def forward_fp32_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+    """Of ``forward_flops``, the FLOPs that run on the CUDA cores in f32:
+    each layer's energies and context (one warp per atom and head), the
+    readout's elementwise terms and its one-row head. The rest are the
+    split-TF32 products, three TF32 passes each on the tensor cores."""
+    D, G, O = cfm.local_dim, cfm.global_dim, cfm.dense_out
+    return B * (cfm.n_attention * 2 * M * N * D * 2 + 6 * M * G + 2 * G * O + 2 * O)

@@ -76,9 +76,10 @@ Backward (crystal training):
 
 Bounds and designs are in the source notes of the two CUDA files: about
 1.85e11 FLOP per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for the forward
-(~2.8 ms at the H100 SXM's 67 TFLOP/s FP32 peak; its 100 MB geometry scratch
-does not fit the 50 MB L2 and crosses HBM twice a layer, ~0.55 ms, which
-``loop_forward_bytes`` counts) and 5.5e11 for the backward (~8.2 ms);
+(~1.13 ms as three TF32 passes per product at the H100 SXM's dense 495
+TFLOP/s, the energies and context at 67 TFLOP/s FP32; its 100 MB geometry
+scratch does not fit the 50 MB L2 and crosses HBM twice a layer, ~0.55 ms,
+which ``loop_forward_bytes`` counts) and 5.5e11 for the backward (~3.37 ms);
 ``loop_backward_flops`` counts what the function needs,
 ``loop_recompute_flops`` what the backward's schedule adds.
 """
@@ -97,6 +98,7 @@ from scann_tpu_torch.kernels.scann_forward import (
     MAX_SHARED_BYTES,
     pack_params,
 )
+from scann_tpu_torch.models.scann import check_index_ranges
 
 REPLACES = "scann_tpu/kernels/scann_loop.py:208"  # _fwd_kernel
 SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
@@ -201,16 +203,17 @@ def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device
 def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                         cfm: ModelConfig, mrelu_head: bool = False,
                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
-                        cluster: Optional[int] = None, check_ranges: bool = True
+                        cluster: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the kernel with ``pack_params`` output,
     at ``cluster`` blocks per structure (``cluster_size(B)`` when None).
-    Index ranges as ``kernels.scann_forward.launch_scann_forward`` says."""
+    Index ranges are the caller's, as
+    ``kernels.scann_forward.launch_scann_forward`` says."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     check_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2], inputs)
-    kfwd._check_inputs(inputs, cfm, dev, check_ranges)
+    kfwd._check_shapes(inputs, cfm, dev)
     return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, cluster)
 
 
@@ -265,6 +268,7 @@ def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.
                                       dropout_seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     return launch_loop_forward(pack_params(params, cfm), inputs, cfm, mrelu_head,
                                dropout_rate, dropout_seed or 0)
 
@@ -422,12 +426,12 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                          one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                          seed: int = 0, mol_base: int = 0,
                          scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                         cluster: Optional[int] = None, check_ranges: bool = True
+                         cluster: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the loop backward and its row reduction
-    with ``pack_params`` output (index ranges as
-    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d pred, or the targets when
-    ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
+    with ``pack_params`` output (index ranges are the caller's, as
+    ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
+    pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
     from ``loop_backward_scratch`` at this batch shape and cluster size
     (allocated here when None); ``cluster`` blocks per structure (1, 2 or 4;
     ``cluster_size(B)`` when None). Returns (flat gradients [P], pred [B])."""
@@ -436,7 +440,7 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
                              inputs)
-    kfwd._check_inputs(inputs, cfm, dev, check_ranges)
+    kfwd._check_shapes(inputs, cfm, dev)
     return _launch_backward(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate,
                             seed, mol_base, scratch, cluster)
 
@@ -509,6 +513,7 @@ def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Ten
                                    dropout_seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, _ = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(ct_pred, device=dev),
                                    torch.as_tensor(ct_ga, device=dev), False, False,
@@ -531,6 +536,7 @@ def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, to
                                           dropout_rate, dropout_seed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, pred = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
                                       None, True, mrelu_head, dropout_rate, dropout_seed or 0)

@@ -127,8 +127,11 @@ def check_index_ranges(inputs: Dict, cfm: ModelConfig) -> None:
     """Refuse a batch whose atomic numbers fall outside the embedding vocab
     or whose neighbour indices fall outside [0, M): on the card either is an
     out-of-bounds read. ``inputs`` holds numpy arrays (read on the host) or
-    tensors (read back once: a wait on their device), so a caller checks a
-    batch once, before it is copied or before its first launch."""
+    tensors (read back once: a wait on their device). The kernels' launch
+    wrappers read nothing back, so the entry points that take data check it
+    here once: ``Trainer._put_buckets`` each bucket on the host,
+    ``Scann.forward_eval`` each batch, the whole-model wrappers with the JAX
+    signature (``fused_scann_forward`` and its kin) each call."""
     M = inputs["atomic"].shape[1]
     if cfm.feature == "atomic":
         z_lo, z_hi, lo, hi = index_bounds(inputs["atomic"], inputs["neighbors"])
@@ -146,20 +149,18 @@ def _dense(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 def local_attention(params: Params, name: str, centers, neighbor_idx,
                     geometry, neighbor_mask, neighbor_weight, cfm: ModelConfig,
-                    attn_mask: Optional[torch.Tensor] = None, use_pallas: bool = False,
-                    check_ranges: bool = True):
+                    attn_mask: Optional[torch.Tensor] = None, use_pallas: bool = False):
     """One LocalAttention layer -> (out [B,M,D], geometry for the next
     layer). ``attn_mask`` [B, M, N, H] is the attention dropout mask
     (training under ``use_drop``). With ``use_pallas`` a layer without
     attention dropout on CUDA tensors is one launch of the per-layer kernel
-    (``kernels.local_attention.fused_local_attention``, which reads the
-    neighbour indices back unless ``check_ranges`` is False); every other
-    layer is the plain ``reference_local_attention``."""
+    (``kernels.local_attention.fused_local_attention``); every other layer
+    is the plain ``reference_local_attention``."""
     layer = {k: params[f"{name}/{k}"] for k in PARAM_KEYS if f"{name}/{k}" in params}
     if use_pallas and attn_mask is None and centers.device.type == "cuda":
         out, geo_out, _ = fused_local_attention(
             centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, layer,
-            cfm.num_head, cfm.scale, cfm.g_update, check_ranges)
+            cfm.num_head, cfm.scale, cfm.g_update)
     else:
         out, geo_out, _ = reference_local_attention(
             centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, layer,
@@ -181,16 +182,14 @@ def residual_norm(params: Params, name: str, x: torch.Tensor,
 
 def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
                   cfm: ModelConfig, mrelu_head: bool = False,
-                  masks: Optional[DropoutMasks] = None, use_pallas: bool = False,
-                  check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  masks: Optional[DropoutMasks] = None, use_pallas: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward -> (property [B, 1], ga_score [B, M, 1]), f32.
 
     ``use_pallas`` (the JAX model's name for it) is the per-layer model: on
     CUDA tensors each LocalAttention layer without attention dropout is one
-    launch of the per-layer kernel, the rest stays plain PyTorch; the
-    batch's indices are checked once before the first launch
-    (``check_index_ranges``) unless ``check_ranges`` is False, which a
-    caller that has checked them passes.
+    launch of the per-layer kernel, the rest stays plain PyTorch. The
+    batch's index ranges are the caller's to check (``check_index_ranges``).
 
     Deterministic without ``masks``; with them, the training forward:
     dropout on the embedding (reference ``scann.py:228``), on each
@@ -207,8 +206,6 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
     neighbor_mask = inputs["neighbor_mask"].float()
     neighbor_weight = inputs["neighbor_weight"].float()
     neighbor_distance = inputs["neighbor_distance"].float()
-    if use_pallas and check_ranges and dev.type == "cuda":
-        check_index_ranges(inputs, cfm)
 
     if cfm.feature == "atomic":
         centers = p["embed_atom/embedding"][atomic.long()]
@@ -238,7 +235,7 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
         attn_mask = None if masks is None or masks.attn is None else masks.attn[i]
         centers, geometry = local_attention(
             p, f"local_attention_{i}", centers, neighbor_idx, geometry,
-            neighbor_mask, neighbor_weight, cfm, attn_mask, use_pallas, check_ranges=False)
+            neighbor_mask, neighbor_weight, cfm, attn_mask, use_pallas)
         if cfm.use_attn_norm:
             centers = residual_norm(p, f"residual_norm_{i}", centers,
                                     None if masks is None else masks.layers[i])

@@ -159,42 +159,37 @@ class Trainer:
             return "loop"
         return "per_layer"
 
-    def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                     check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
 
         On CUDA the route is chosen from (config, M, N) before anything is
         launched (``eval_route``): the whole-model kernel where its gate
         passes, else the crystal loop kernel where its gate passes, else the
-        per-layer model. The batch's index ranges are read back and checked
-        first unless ``check_ranges`` is False (batches of the device
-        buckets, checked at ``_put_buckets``). A kernel that fails to build
-        or launch raises; nothing falls back. On the CPU it is the eager
-        model."""
+        per-layer model. Nothing is read back: the batch's index ranges are
+        checked where it entered (``_put_buckets``, ``Scann.forward_eval``).
+        A kernel that fails to build or launch raises; nothing falls back. On
+        the CPU it is the eager model."""
         cfm = self.config.model
         with torch.inference_mode():
             if self.device.type != "cuda":
                 return scann_forward(params, batch, cfm, self.mrelu_head)
-            if check_ranges:
-                check_index_ranges(batch, cfm)
             route = self.eval_route(batch["atomic"].shape[1], batch["neighbors"].shape[2])
             if route == "per_layer":
-                return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True,
-                                     check_ranges=False)
+                return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True)
             packed = (self.kernel_params() if params is self.params
                       else pack_params(params, cfm))
             launch = launch_scann_forward if route == "fused" else launch_loop_forward
-            return launch(packed, batch, cfm, self.mrelu_head, check_ranges=False)
+            return launch(packed, batch, cfm, self.mrelu_head)
 
     # --- one step ----------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, lr: float,
-                   seed: int, check_ranges: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                   seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """One Adam step on one batch; returns (loss, mae) as device scalars
-        (the loss is RMSE + l2, as the JAX step reports it). ``check_ranges``
-        as ``raw_grads`` takes it."""
+        (the loss is RMSE + l2, as the JAX step reports it)."""
         l2 = self.config.hyper.l2_reg
-        pred, raw = self.raw_grads(batch, y, seed, check_ranges)
+        pred, raw = self.raw_grads(batch, y, seed)
         err = pred - y
         rmse = torch.sqrt(torch.mean(err * err))
         mae = torch.mean(torch.abs(err))
@@ -219,20 +214,18 @@ class Trainer:
             return "loop"
         return "per_layer"
 
-    def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int,
-                  check_ranges: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(pred [B], gradients of 0.5 * sum((pred - y)^2)) at the training
         dropout, by the route of ``train_route``: on CUDA one launch of the
         molecule or the loop backward kernel (the loop kernel's scratch is
         kept per batch shape), or the per-layer model under autograd; on the
-        CPU the kernels' plain versions. On CUDA the batch's index ranges are
-        read back and checked first unless ``check_ranges`` is False (``fit``'s
-        batches come from buckets checked at ``_put_buckets``)."""
+        CPU the kernels' plain versions. Nothing is read back: ``fit``'s
+        batches come from buckets whose index ranges ``_put_buckets``
+        checked."""
         cfm = self.config.model
         B, M = batch["atomic"].shape[:2]
         N = batch["neighbors"].shape[2]
-        if check_ranges and self.device.type == "cuda":
-            check_index_ranges(batch, cfm)
         route = self.train_route(M, N)
         if route == "per_layer":
             return self._per_layer_grads(batch, y, seed)
@@ -240,8 +233,7 @@ class Trainer:
             packed = self.kernel_params()
             if route == "fused":
                 flat, pred = launch_scann_backward(packed, batch, cfm, y, None, True,
-                                                   self.mrelu_head, self.dropout_rate, seed,
-                                                   check_ranges=False)
+                                                   self.mrelu_head, self.dropout_rate, seed)
             else:
                 scratch = self._loop_scratch.get((B, M, N))
                 if scratch is None:
@@ -249,7 +241,7 @@ class Trainer:
                         packed, cfm, B, M, N)
                 flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
                                                   self.mrelu_head, self.dropout_rate, seed,
-                                                  scratch=scratch, check_ranges=False)
+                                                  scratch=scratch)
             return pred, grads_from_flat(flat, packed, cfm)
         grads_fn = fused_scann_train_grads if route == "fused" else loop_scann_train_grads
         pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed)
@@ -266,8 +258,7 @@ class Trainer:
         masks = dropout_masks_for(cfm, batch, self.dropout_rate, seed)
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True,
-                                    check_ranges=False)
+            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True)
             loss = 0.5 * ((pred[:, 0] - y) ** 2).sum()
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return pred.detach()[:, 0], dict(zip(leaves, grads))
@@ -391,8 +382,7 @@ class Trainer:
                     batch = {name: v[rows] for name, v in binputs.items()}
                     lr = (epoch_lr / (1.0 + hyper.adam_decay * self.step) if sgdr
                           else lr_fn(self.step))
-                    loss, mae = self.train_step(batch, btargets[rows], lr, seeds[k],
-                                                check_ranges=False)
+                    loss, mae = self.train_step(batch, btargets[rows], lr, seeds[k])
                     losses.append(loss)
                     maes.append(mae)
                 bucket_losses.append(torch.stack(losses).mean())
@@ -439,8 +429,7 @@ class Trainer:
         preds, gas = [], []
         for s0 in range(0, n_rows, batch_size):
             idx = torch.arange(s0, s0 + batch_size, device=self.device) % n_rows
-            pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()},
-                                         check_ranges=False)
+            pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()})
             preds.append(pred[:, 0])
             gas.append(ga[..., 0])
         return torch.cat(preds)[:n_rows], torch.cat(gas)[:n_rows]

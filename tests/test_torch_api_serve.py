@@ -335,10 +335,44 @@ def test_torch_serving_launches_each_group_at_its_own_size(tmp_path):
     assert lone[0] == pytest.approx(got[3][0], rel=1e-5, abs=1e-6)
 
 
+@pytest.mark.parametrize("bad", ["atomic", "neighbor low", "neighbor high"])
+def test_torch_launch_check_reads_no_index_back(bad, monkeypatch):
+    """The launch wrappers' check (``_check_shapes``) reads the tensors'
+    metadata only: it passes a batch with an index out of range and never
+    reaches ``index_bounds``; ``_check_inputs``, what a direct caller runs,
+    refuses the same batch."""
+    import scann_tpu_torch.models.scann as model_mod
+
+    cfm = ModelConfig(**SMALL)
+    B, M, N = 2, 8, 4
+    inputs = {
+        "atomic": torch.ones(B, M, dtype=torch.int32),
+        "atom_mask": torch.ones(B, M, 1),
+        "neighbors": torch.zeros(B, M, N, dtype=torch.int32),
+        "neighbor_mask": torch.ones(B, M, N),
+        "neighbor_weight": torch.ones(B, M, N),
+        "neighbor_distance": torch.ones(B, M, N),
+    }
+    key, value = {"atomic": ("atomic", cfm.n_atoms), "neighbor low": ("neighbors", -1),
+                  "neighbor high": ("neighbors", M)}[bad]
+    inputs[key] = torch.full_like(inputs[key], value)
+    cpu = torch.device("cpu")
+    real = model_mod.index_bounds
+    reads = []
+    monkeypatch.setattr(model_mod, "index_bounds", lambda *a: reads.append(1) or real(*a))
+    assert kfwd._check_shapes(inputs, cfm, cpu) == (B, M, N)
+    assert reads == []
+    with pytest.raises(ValueError, match="atomic numbers" if bad == "atomic" else "neighbor"):
+        kfwd._check_inputs(inputs, cfm, cpu)
+    assert reads == [1]
+
+
 def test_torch_index_ranges_are_checked_once_before_the_launch(scann, monkeypatch):
-    """A served batch of numpy arrays is checked on the host before its copy
-    (a bad index raises the wrappers' ValueError); on the card the trainer's
-    launches then read nothing back. A tensor batch is checked once."""
+    """A served batch is checked once where it enters, ``Scann.forward_eval``:
+    numpy arrays on the host before their copy (a bad index raises the
+    wrappers' ValueError), tensors with one read-back. On the card the
+    trainer's route and the kernel's launch wrapper then read nothing back:
+    they take no range flag."""
     import scann_tpu_torch.models.scann as model_mod
     from scann_tpu_torch.train import loop as train_loop
 
@@ -355,15 +389,14 @@ def test_torch_index_ranges_are_checked_once_before_the_launch(scann, monkeypatc
     trainer.device = torch.device("cuda")       # only the dispatch reads it here
     launched = []
     monkeypatch.setattr(train_loop, "launch_scann_forward",
-                        lambda *a, **kw: launched.append(kw["check_ranges"]) or (None, None))
+                        lambda *a, **kw: launched.append(kw) or (None, None))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    trainer.forward_eval(trainer.params, tbatch, check_ranges=False)
-    assert reads == [] and launched == [False]
     trainer.forward_eval(trainer.params, tbatch)
-    assert reads == ["Tensor"] and launched == [False, False]
-    reads.clear()
+    assert reads == [] and launched == [{}]
     scann.forward_eval(scann.params, batch)
     assert reads == ["ndarray"]
+    scann.forward_eval(scann.params, tbatch)
+    assert reads == ["ndarray", "Tensor"]
 
 
 def test_torch_featurization_failure_falls_back_on_the_device_thread(scann, monkeypatch):

@@ -197,6 +197,20 @@ def test_torch_backward_flops_qm9():
     assert kbwd.backward_flops(cfm, 64, 32, 16) * 2 == f
 
 
+@pytest.mark.parametrize("M,N", [(32, 16), (96, 32)])
+def test_torch_fp32_flops_are_the_energies_context_and_head(M, N):
+    """The part of the FLOP count that runs on the CUDA cores (the rest are
+    split-TF32 products): each layer's energies and context (2 x 2 M N D),
+    the readout's elementwise terms and the one-row head; the backward's is
+    three times the forward's, and both are a few percent of the whole."""
+    cfm = ModelConfig()
+    L, D, G, O = cfm.n_attention, cfm.local_dim, cfm.global_dim, cfm.dense_out
+    fwd = kfwd.forward_fp32_flops(cfm, 2, M, N)
+    assert fwd == 2 * (L * 4 * M * N * D + 6 * M * G + 2 * G * O + 2 * O)
+    assert kbwd.backward_fp32_flops(cfm, 2, M, N) == 3 * fwd
+    assert 0 < fwd / kfwd.forward_flops(cfm, 2, M, N) < 0.02
+
+
 def test_torch_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """Editing a header that a kernel includes changes that kernel's
     library path, so a stale build is never loaded."""
