@@ -38,9 +38,13 @@ layers); random weights from seeds:
    and times it in turns with its plain version at MP2018 on 2 blocks and on
    1 block per structure, at B=128, and at Pt/graphene;
 7. holds the per-layer LocalAttention kernel against its plain version
-   (out, geometry, attention; SCANN+ and SCANN) at one MP2018 layer and at
-   an M beyond the loop kernel's gate, the per-layer model against the
-   eager model for ``use_attn_norm: false``, and times it;
+   (out, geometry, attention; SCANN+ and SCANN) at a ragged small layer, at
+   an M beyond the loop kernel's gate (8, 256, 32) and at one MP2018 layer
+   (64, 96, 32), each relaunched into outputs filled with NaN that must
+   come back bit for bit; times it in turns with its plain version at the
+   last two shapes (and back to back, without the host's share of a call);
+   holds the per-layer model against the eager model for
+   ``use_attn_norm: false``;
 8. (run last) serves synthetic periodic crystals of 20-90 sites, posted as
    CIF and as JSON, and one of 200 sites that takes the per-layer route,
    through ``PredictionServer`` on the MP2018 model that phase 10 trained,
@@ -78,14 +82,14 @@ phase, then one ``{"kernels": [...]}`` line and, last,
 without printing a result when CUDA is not available.
 
 Tolerances. Forward (molecule and crystal kernels, per-layer kernel's out
-and geometry): rtol 1e-4, atol 1e-5: the kernels sum their FP32 products in
-another order than cuBLAS (TF32 off) and carry the difference through 7 to
-11 LayerNormed layers; the per-layer kernel's attention probabilities:
-rtol 1e-4, atol 1e-6. Backward: pred as the
-forward; each gradient within 1e-4 x its max |plain|, since FP32 sums over
-up to 196,608 rows run in another order; the backward kernels' tensor-core
-products (three TF32 passes, accumulated in f32) within 2e-6 x max |exact| of
-a float64 product, where a single TF32 pass reads about 3e-4. Training:
+and geometry): rtol 1e-4, atol 1e-5: the kernels sum their products (three
+TF32 passes on the tensor cores, accumulated in f32) in another order than
+cuBLAS (TF32 off) and carry the difference through 7 to 11 LayerNormed
+layers; the per-layer kernel's attention probabilities: rtol 1e-4, atol
+1e-6. Backward: pred as the forward; each gradient within 1e-4 x its max
+|plain|, since FP32 sums over up to 196,608 rows run in another order; the
+kernels' tensor-core products within 2e-6 x max |exact| of a float64
+product, where a single TF32 pass reads about 3e-4. Training:
 3-step and single-step losses to 1e-4 relative; the two-epoch runs' losses
 to 1e-3 relative, since Adam carries the FP32 differences through 16 steps.
 """
@@ -184,6 +188,23 @@ def in_turns_ms(plain, kernel, plain_reps=5, kernel_reps=10):
     k = cuda_times(kernel, kernel_reps) + cuda_times(kernel, kernel_reps, warmup=0)
     p += cuda_times(plain, plain_reps, warmup=0)
     return statistics.median(k), statistics.median(p)
+
+
+def back_to_back_ms(fn, reps=20):
+    """ms per call of ``reps`` calls between two CUDA events after a warm-up:
+    the device's time, the host's work of each call hidden behind the calls
+    before it (``cuda_times`` waits for each call, so it counts that work
+    where the device is faster than the host)."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def benzene():
@@ -655,17 +676,14 @@ def phase5(qm9_model, failures, card):
     return bwd_launches
 
 
-def operations_ms(flops, fp32_flops=None):
+def operations_ms(flops, fp32_flops):
     """The least time of ``flops``: ``fp32_flops`` of them at the FP32 rate
     outside the tensor cores and the rest as split-TF32 products, three TF32
-    passes each at the dense TF32 rate; all at the FP32 rate when
-    ``fp32_flops`` is None (a kernel without tensor-core products)."""
-    if fp32_flops is None:
-        return 1e3 * flops / H100_FP32_FLOPS
+    passes each at the dense TF32 rate."""
     return 1e3 * (3 * (flops - fp32_flops) / H100_TF32_FLOPS + fp32_flops / H100_FP32_FLOPS)
 
 
-def bound_ms(flops, nbytes, fp32_flops=None):
+def bound_ms(flops, nbytes, fp32_flops):
     """(bound, "operations" | "bytes"): the larger of the operations' time
     (``operations_ms``) and the HBM time of one pass over inputs and
     outputs."""
@@ -896,19 +914,52 @@ def layer_inputs(rng, B, M, N, D, H, g_update, K=20):
             f32(rng.uniform(0.3, 3.0, size=(B, M, N))), params, H, 0.5, g_update)
 
 
+def time_local_attention(args, card):
+    """Kernel #5 on one layer's inputs, in turns with its plain version
+    (plain, kernel, kernel, plain), against its bound: the products as three
+    TF32 passes and ``layer_fp32_flops`` at the FP32 rate, or one pass over
+    inputs and outputs at the HBM rate."""
+    from scann_tpu_torch.kernels import local_attention as kla
+
+    centers, idx, geometry, mask, weight, params, H, _, g_update = args
+    B, M, D = centers.shape
+    N = idx.shape[2]
+    flops = kla.layer_flops(B, M, N, D, g_update, geometry.shape[-1])
+    nbytes = (tensor_bytes([centers, idx, geometry, mask, None if g_update else weight],
+                           params.values())
+              + 4 * (centers.numel() + B * M * N * H + (geometry.numel() if g_update else 0)))
+    bound, by = bound_ms(flops, nbytes, kla.layer_fp32_flops(B, M, N, D))
+    with torch.inference_mode():
+        ms, plain_ms = in_turns_ms(lambda: kla.reference_local_attention(*args),
+                                   lambda: kla._launch(*args), 3, 10)
+        b2b = back_to_back_ms(lambda: kla._launch(*args))
+    block = kla.make_plan(B, M, N, D, H, g_update, kla.sm_count(centers.device))[0]
+    print(f"local_attention ({'scann+' if g_update else 'scann'}) at B={B} M={M} N={N} D={D} "
+          f"(atom block {block}; timed in turns: plain, kernel, kernel, plain): kernel "
+          f"{ms:.4f} ms ({b2b:.4f} ms a launch back to back), plain {plain_ms:.4f} ms, "
+          f"{flops:.4e} FLOP, {nbytes} bytes, bound {bound:.4f} ms by {by} "
+          f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "flops": flops,
+            "ms_back_to_back": b2b}
+
+
 def phase7(mp2018, failures, card):
-    """The per-layer LocalAttention kernel against its plain version, the
-    per-layer model against the eager model, and the kernel's time at one
-    MP2018 layer. Returns (largest abs error, timing)."""
+    """The per-layer LocalAttention kernel against its plain version at a
+    ragged small layer, an M beyond the loop kernel's gate and one MP2018
+    layer (SCANN+ and SCANN), each relaunched into outputs filled with NaN
+    that must come back bit for bit; its time at the last two shapes; the
+    per-layer model against the eager model. Returns (largest abs error,
+    timing at the MP2018 layer, SCANN+, with the other three beside it)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.models.scann import check_index_ranges, init_params, scann_forward
 
     rng = np.random.default_rng(7)
-    worst, timing = 0.0, None
+    worst, times = 0.0, {}
     D, H = mp2018.local_dim, mp2018.num_head
     for g_update in (True, False):
+        what = "scann+" if g_update else "scann"
         # a ragged small layer, an M beyond the loop kernel's gate, one MP2018 layer
         for B, M, N, d, h in ((3, 40, 8, 32, 4), (8, 256, 32, D, H), (64, 96, 32, D, H)):
             args = layer_inputs(rng, B, M, N, d, h, g_update)
@@ -917,28 +968,30 @@ def phase7(mp2018, failures, card):
                 out, geo, attn = kla.fused_local_attention(*args)
                 torch.cuda.synchronize()
                 out0, geo0, attn0 = kla.reference_local_attention(*args)
+                kept = tuple(None if t is None else torch.full_like(t, float("nan"))
+                             for t in (out, geo if g_update else None, attn))
+                again = kla._launch(*args, outputs=kept)
+                torch.cuda.synchronize()
             named = [("out", out, out0, ATOL), ("attn", attn, attn0, ATTN_ATOL)]
             if g_update:
                 named.append(("geometry", geo, geo0, ATOL))
-            worst = max(worst, hold(f"phase 7 layer {'scann+' if g_update else 'scann'} B={B} "
-                                    f"M={M} N={N} D={d}", named, failures))
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: kla._launch(*args))
-            plain_ms = cuda_ms(lambda: kla.reference_local_attention(*args))
-        centers, idx, geometry, mask, weight, params = args[:6]
-        flops = kla.layer_flops(B, M, N, D, g_update)
-        nbytes = (tensor_bytes([centers, idx, geometry, mask, None if g_update else weight],
-                               params.values())
-                  + 4 * (centers.numel() + B * M * N * H
-                         + (geometry.numel() if g_update else 0)))
-        bound, by = bound_ms(flops, nbytes)
-        print(f"local_attention ({'scann+' if g_update else 'scann'}) at B={B} M={M} N={N} "
-              f"D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} "
-              f"bytes, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  "
-              f"[{card}]", flush=True)
-        if g_update:
-            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "flops": flops}
+            tag = f"phase 7 layer {what} B={B} M={M} N={N} D={d}"
+            worst = max(worst, hold(tag, named, failures))
+            differ = [w for w, a, b in zip(("out", "geometry", "attn"), again,
+                                           (out, geo if g_update else None, attn))
+                      if a is not None and not torch.equal(a, b)]
+            print(f"{tag}: a relaunch into NaN-filled outputs bit-identical: {not differ}",
+                  flush=True)
+            if differ:
+                failures.append(f"{tag}: a relaunch into NaN-filled outputs differs in {differ}")
+            if M > 40:
+                times[(what, M)] = time_local_attention(args, card)
+    timing = dict(times[("scann+", 96)])
+    for (what, M), t in times.items():
+        if (what, M) != ("scann+", 96):
+            suffix = ("_scann" if what == "scann" else "") + ("_m256" if M == 256 else "")
+            timing.update({f"{k}{suffix}": t[k]
+                           for k in ("ms", "plain_ms", "bound_ms", "ms_back_to_back")})
 
     # the per-layer model (what use_attn_norm: false and oversize structures run)
     for g_update in (True, False):

@@ -85,6 +85,30 @@ MARKS = {
             ("sQ + m * D + c));\n  }\n^}", "__syncthreads();\nPROF(9);\n"),
         ],
     },
+    # PR 7's design: the chunk is fwd_chunk of scann_forward_common.cuh; its
+    # energies and softmax are one phase (counted as "softmax"), and for
+    # SCANN the RBF product and the filter (its epilogue) one (counted as
+    # "filter")
+    "pr7": {
+        "scann_common.cuh": [("namespace scann {\n^", PROF_DEFS)],
+        "scann_forward_common.cuh": [
+            ("cw[3] + v.w + w.bfg[c + 3]));\n    });\n    __syncthreads();\n^", "PROF(3);\n"),
+            ("  __syncthreads();\n^  // key = kin @ Wk + bk", "PROF(4);\n"),
+            ("v.z + w.bk[c + 2], v.w + w.bk[c + 3]));\n  });\n  __syncthreads();\n^",
+             "PROF(5);\n"),
+            ("  __syncthreads();\n^  // context = sum_n", "PROF(7);\n"),
+            ("row[lane + 32 * i] = v[i];\n  }\n  __syncthreads();\n^}", "PROF(8);\n"),
+        ],
+        "local_attention.cu": [
+            ("^  // the block's centers, then cw", "PROF_START;\n"),
+            ("  cp_async_wait_all();\n  __syncthreads();\n^  if (a.g_update)\n    mma_gemm(work",
+             "PROF(0);\n"),
+            ("v.w + a.bq[c + 3]));\n  });\n  __syncthreads();\n^", "PROF(1);\n"),
+            ("  cp_async_wait_all();\n  __syncthreads();\n^}\n\n// one block per SM",
+             "PROF(2);\n"),
+            ("sQ + m * lds + c));\n  }\n^}", "__syncthreads();\nPROF(9);\n"),
+        ],
+    },
 }
 
 
@@ -113,21 +137,51 @@ def instrument(src_dir: str, out_dir: str) -> str:
     return which
 
 
-def build():
+def build(tag: str = ""):
     from scann_tpu_torch.kernels._build import NVCC_FLAGS, nvcc_path
 
-    out = os.path.join(OUT_DIR, "liblocal_attention_phases.so")
+    out = os.path.join(OUT_DIR, f"liblocal_attention_phases{tag}.so")
     t0 = time.time()
     r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", out,
-                        os.path.join(OUT_DIR, "local_attention.cu")],
+                        os.path.join(OUT_DIR, f"local_attention{tag}.cu")],
                        capture_output=True, text=True)
     if r.returncode:
-        raise RuntimeError(f"nvcc failed for the instrumented local_attention.cu:\n"
+        raise RuntimeError(f"nvcc failed for the instrumented local_attention{tag}.cu:\n"
                            f"{r.stdout}{r.stderr}")
     regs = [line.strip() for line in (r.stdout + r.stderr).splitlines() if "registers" in line]
-    print(f"built the instrumented local_attention.cu in {time.time() - t0:.1f} s: {regs}",
+    print(f"built the instrumented local_attention{tag}.cu in {time.time() - t0:.1f} s: {regs}",
           flush=True)
     return ctypes.CDLL(out)
+
+
+# PR 7's design without the prefetch into a second operand buffer: the
+# source's plan never takes it, and the wrapper's mirror leaves out its bytes
+NO_PREFETCH = ("  p.prefetch = (p.total + second) * (int)sizeof(float) <= kMaxSharedBytes;",
+               "  p.prefetch = 0;")
+
+
+def no_prefetch_plan(make_plan):
+    def plan(B, M, N, D, H, g_update, n_sm):
+        ab, ca, nbytes = make_plan(B, M, N, D, H, g_update, n_sm)
+        rows = ca * N
+        chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-rows * H // 4) * 4
+        return ab, ca, 4 * ((2 if g_update else 1) * ab * (D + 4) + max(chunk, ab * (D + 4)))
+    return plan
+
+
+def back_to_back_ms(run, reps=20):
+    """ms per launch of ``reps`` launches between two events, after a
+    warm-up: the device's time, with the host's work of each launch hidden
+    behind the launches before it."""
+    run()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        run()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def split(lib, run, reps):
@@ -169,7 +223,14 @@ def main(argv=None):
     print(f"design: {which}", flush=True)
     _build.build_all(["local_attention"], force=True)
     plain_lib = _build.load_library("local_attention")
-    prof_lib = build()
+    variants = [("", build(), kla.make_plan)]
+    with open(os.path.join(OUT_DIR, "local_attention.cu")) as f:
+        text = f.read()
+    if text.count(NO_PREFETCH[0]) == 1:
+        with open(os.path.join(OUT_DIR, "local_attention_np.cu"), "w") as f:
+            f.write(text.replace(*NO_PREFETCH))
+        variants.append((" without prefetch", build("_np"), no_prefetch_plan(kla.make_plan)))
+    make_plan = kla.make_plan
     rng = np.random.default_rng(7)
     for B, M, N in ((64, 96, 32), (8, 256, 32)):
         for g_update in (True, False):
@@ -182,16 +243,24 @@ def main(argv=None):
                 torch.cuda.synchronize()
                 ms, plain_ms = cs.in_turns_ms(lambda: kla.reference_local_attention(*layer),
                                               lambda: kla._launch(*layer), 3, 10)
-                _build._libs["local_attention"] = prof_lib
-                prof_ms, total, cycles = split(prof_lib, lambda: kla._launch(*layer), args.reps)
-            _build._libs["local_attention"] = plain_lib
+                b2b_ms = back_to_back_ms(lambda: kla._launch(*layer))
             err = max(float((out - out0).abs().max()), float((attn - attn0).abs().max()),
                       float((geo - geo0).abs().max()) if g_update else 0.0)
             print(f"local_attention {which} {what} B={B} M={M} N={N}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (in turns); instrumented {prof_ms:.4f} ms, block 0 "
-                  f"{total:.4e} cycles; max |d| {err:.2e} against plain  [{card}]", flush=True)
-            for name, c in zip(PHASES, cycles):
-                print(f"  {name:52s} {100 * c / total:6.2f}%  {c:.4e} cycles")
+                  f"plain {plain_ms:.4f} ms (in turns, each call timed alone); {b2b_ms:.4f} ms "
+                  f"a launch back to back; max |d| {err:.2e} against plain  [{card}]",
+                  flush=True)
+            for tag, lib, plan in variants:
+                _build._libs["local_attention"] = lib
+                kla.make_plan = plan
+                with torch.inference_mode():
+                    prof_ms, total, cycles = split(lib, lambda: kla._launch(*layer), args.reps)
+                _build._libs["local_attention"] = plain_lib
+                kla.make_plan = make_plan
+                print(f"  instrumented{tag}: {prof_ms:.4f} ms a launch back to back, block 0 "
+                      f"{total:.4e} cycles", flush=True)
+                for name, c in zip(PHASES, cycles):
+                    print(f"    {name:52s} {100 * c / total:6.2f}%  {c:.4e} cycles")
     return 0
 
 

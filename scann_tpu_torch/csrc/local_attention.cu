@@ -6,40 +6,50 @@
 // SCANN distance filter -> key and query projections -> per-head masked
 // softmax over the N neighbours -> masked context sum -> + query ->
 // LayerNorm. Outputs out [B, M, D], the updated geometry [B, M, N, D]
-// (SCANN+) and the attention [B, M, N, H], f32. The eager model runs the
-// rest of the network around it, for shapes and configurations the
-// whole-model kernels refuse.
+// (SCANN+) and the attention [B, M, N, H] before the neighbour mask, f32. The
+// eager model runs the rest of the network around it, for shapes and
+// configurations the whole-model kernels refuse.
 //
-// Bound. At one MP2018 layer (B=64, M=96, N=32, D=128) the layer is ~2.0e10
-// FLOP of FP32 FMA; it reads and writes the geometry once each (2 x 100 MB)
-// beside ~10 MB of other tensors. At the H100 SXM's 67 TFLOP/s and 3.35 TB/s
-// that is ~0.30 ms of operations against ~0.06 ms of bytes: bound by
-// operations.
+// Bound. At one MP2018 layer (B=64, M=96, N=32, D=128, SCANN+) the layer is
+// ~1.98e10 FLOP, 99.5% of it row products. They run on the tensor cores in
+// three TF32 passes to keep f32 accuracy (scann_mma.cuh): ~0.12 ms at the
+// H100 SXM's dense 495 TFLOP/s TF32, with the energies and context (1.0e8
+// FLOP) at 67 TFLOP/s FP32. The layer reads and writes the geometry once each
+// (2 x 100 MB) beside ~10 MB of other tensors, ~0.06 ms at 3.35 TB/s: bound
+// by operations.
 //
 // Design.
-// - The previous layer's centers are read from global memory (a few MB, in
-//   L2), so nothing limits M: the grid tiles the atoms, AB = 32 to a block,
-//   and a block needs no other block.
-// - A block stages its atoms' centers, forms their queries (and the SCANN+
-//   center term cw) once, then sends its (atom, neighbour) rows through
-//   attention_chunk (scann_common.cuh) in chunks of at most 64 rows: the
-//   gather is an index read, the per-head reductions loop over a head's lanes.
+// - The launch plan (make_plan) picks the atom block AB of {64, 48, 32, 16}
+//   with the fewest atoms per SM: a block takes a whole SM (its shared memory
+//   and 255 registers a thread), so the B * ceil(M / AB) blocks run in
+//   ceil(B * ceil(M / AB) / n_sm) waves of AB atoms each. MP2018 (64, 96, 32)
+//   gets AB = 48, 128 blocks in one wave; (8, 256, 32) AB = 16, 128 blocks.
+// - The previous layer's centers are read from global memory (3 MB at
+//   MP2018, resident in L2), so nothing limits M and a block needs no other
+//   block. A block writes only its own atoms' rows, so a launch repeats bit
+//   for bit.
+// - A block stages its atoms' centers and forms their queries and, for
+//   SCANN+, the center term cw = centers @ Wfg[0:D] with mma_gemm (split-TF32
+//   mma.sync), then sends its (atom, neighbour) rows through fwd_chunk
+//   (scann_forward_common.cuh, shared with the whole-model forwards) in
+//   chunks of at most 64 rows: the products on the tensor cores, the softmax
+//   one warp per (atom, head), the context one thread per (atom, column). A
+//   chunk's geometry (or its distance RBF) and its neighbours' states,
+//   gathered from the centers in global memory, arrive by cp.async.
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
-//   lane, a thread's tile is 4 columns), N <= 64 (one atom's neighbours must
-//   fit a chunk), K <= D, D % H == 0.
+//   lane), N <= 64 (one atom's neighbours fit a chunk), K <= D, D % H == 0.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory / kErrShape).
 
-#include "scann_common.cuh"
+#include "scann_forward_common.cuh"
 
 namespace {
 
 using namespace scann;
 
-constexpr int kMaxChunkRows = 64;
-constexpr int kAtomBlock = 32;
+constexpr int kAtomBlocks[] = {64, 48, 32, 16};
 
 struct Args {
   const float* centers;   // [B, M, D]
@@ -53,90 +63,142 @@ struct Args {
   float* out;             // [B, M, D]
   float* geo_out;         // [B, M, N, D] (SCANN+)
   float* attn;            // [B, M, N, H]
-  int B, M, N, D, H, K, g_update, chunk_atoms;
+  int B, M, N, D, H, K, g_update, atom_block, chunk_atoms;
   float dk;               // hd ** -scale
 };
 
-// Shared memory, in floats: the block's centers, queries and center terms
-// [AB, D] each, the chunk operand [rows, 2D], the chunk product [rows, D],
-// the energies [rows, H].
-__host__ __device__ inline int shared_floats(const Args& a) {
-  const int rows = a.chunk_atoms * a.N;
-  return 3 * kAtomBlock * a.D + rows * 3 * a.D + round4(rows * a.H);
+// Shared-memory plan of one atom block, in floats: the queries (then the
+// outputs) and, for SCANN+, cw [AB, D + 4] each; the work region, which
+// holds the block's centers [AB, D + 4] for the per-atom products and then a
+// chunk's buffers (fwd_chunk_floats).
+struct Plan {
+  int atom_block, chunk_atoms, work, total;
+};
+
+inline Plan plan_for(int AB, int N, int D, int H, int g_update) {
+  Plan p;
+  p.atom_block = AB;
+  const int fit = kFwdMaxChunkRows / N;
+  p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;
+  const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);
+  const int centers = AB * (D + 4);
+  p.work = chunk > centers ? chunk : centers;
+  p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;
+  return p;
 }
 
+// The atom block of kAtomBlocks whose plan fits a block's shared memory with
+// the fewest atoms per SM, ceil(blocks / n_sm) * AB (the larger block where
+// two tie); atom_block 0 if none fits.
+inline Plan make_plan(int B, int M, int N, int D, int H, int g_update, int n_sm) {
+  Plan best = {0, 0, 0, 0};
+  long long best_cost = -1;
+  for (int AB : kAtomBlocks) {
+    const Plan p = plan_for(AB, N, D, H, g_update);
+    if (p.total * (int)sizeof(float) > kMaxSharedBytes) continue;
+    const long long blocks = (long long)B * ((M + AB - 1) / AB);
+    const long long cost = (blocks + n_sm - 1) / n_sm * AB;
+    if (best_cost < 0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Stages the chunk's rows [0, rows) into sA for fwd_chunk: columns [0, D) the
+// SCANN+ geometry from geo [rows, D], or columns [0, round4(K)) the distance
+// RBF from geo [rows, K] with the pad columns zeroed (mma_gemm reads them);
+// columns [D, 2D) the neighbours' states gathered from the structure's
+// centers cen [M, D] in global memory. All copies of a thread are in flight
+// at once (cp.async, past L1); a K that is not a multiple of 4 leaves the RBF
+// rows unaligned, so they are loaded. Ends with a barrier.
+__device__ __forceinline__ void stage_chunk(const Args& a, float* sA, const float* cen,
+                                            const int* nbr, const float* geo, int rows) {
+  const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D + 4, q4 = D / 4;
+  if (a.g_update) {
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      cp_async16(sA + r * lda + c, geo + (size_t)r * D + c);
+    }
+  } else if ((K & 3) == 0) {
+    const int k4 = K / 4;
+    for (int i = tid; i < rows * k4; i += kThreads) {
+      const int r = i / k4, k = (i - r * k4) * 4;
+      cp_async16(sA + r * lda + k, geo + (size_t)r * K + k);
+    }
+  } else {
+    const int kp = round4(K);
+    for (int i = tid; i < rows * kp; i += kThreads) {
+      const int r = i / kp, k = i - r * kp;
+      sA[r * lda + k] = k < K ? __ldg(geo + (size_t)r * K + k) : 0.f;
+    }
+  }
+  for (int i = tid; i < rows * q4; i += kThreads) {
+    const int r = i / q4, c = (i - r * q4) * 4;
+    cp_async16(sA + r * lda + D + c, cen + (size_t)__ldg(nbr + r) * D + c);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// one block per SM (its shared memory takes most of the SM), so the compiler
+// may spend up to 255 registers a thread
 __global__ void __launch_bounds__(kThreads, 1)
 local_attention_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int N = a.N, D = a.D, H = a.H, K = a.K, M = a.M, CA = a.chunk_atoms;
-  const int rows_max = CA * N, lda = 2 * D, q4 = D / 4;
-  float* sC = smem;                          // centers of the block  [AB, D]
-  float* sQ = sC + kAtomBlock * D;           // query / out           [AB, D]
-  float* sW = sQ + kAtomBlock * D;           // cw                    [AB, D]
-  float* sA = sW + kAtomBlock * D;           // chunk operand         [rows, 2D]
-  float* sU = sA + rows_max * lda;           // chunk product         [rows, D]
-  float* sE = sU + rows_max * D;             // energies              [rows, H]
+  const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
+  const int lds = D + 4, rows_max = CA * N, q4 = D / 4;
+  float* sQ = smem;                                    // query, then out   [AB, D + 4]
+  float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
+  float* work = sW + (a.g_update ? AB * lds : 0);      // centers, then:
+  float* sA = work;                                    // chunk operand     [rows, 2D + 4]
+  float* sU = sA + rows_max * (2 * D + 4);             // chunk product     [rows, D + 4]
+  float* sE = sU + rows_max * (D + 4);                 // attention         [rows, H]
   const int tid = threadIdx.x;
-  const int b = blockIdx.y, ab0 = blockIdx.x * kAtomBlock;
-  const int ab = min(kAtomBlock, M - ab0);
-  const int gk = a.g_update ? D : K;         // width of a geometry row
+  const int blocks_per_structure = (M + AB - 1) / AB;
+  const int b = blockIdx.x / blocks_per_structure;
+  const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
+  const ChunkDims cd = {N, D, H, a.K, a.g_update, 0, a.dk};
 
   const float* centers_b = a.centers + (size_t)b * M * D;
   const int* nbr = a.nbr + (size_t)b * M * N;
-  const float* geometry = a.geometry + (size_t)b * M * N * gk;
+  const float* geometry = a.geometry + (size_t)b * M * N * (a.g_update ? D : a.K);
   const float* nmask = a.nmask + (size_t)b * M * N;
   const float* nweight = a.nweight + (size_t)b * M * N;
   float* geo_out = a.geo_out + (size_t)b * M * N * D;
   float* attn = a.attn + (size_t)b * M * N * H;
 
+  // the block's centers, then cw = centers @ Wfg[0:D] (SCANN+) and the query
   for (int i = tid; i < ab * q4; i += kThreads) {
     const int m = i / q4, c = (i - m * q4) * 4;
-    store4(sC + m * D + c, __ldg(reinterpret_cast<const float4*>(
-                               centers_b + (size_t)(ab0 + m) * D + c)));
+    cp_async16(work + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
   }
+  cp_async_wait_all();
   __syncthreads();
-  if (a.g_update) {
-    tile_gemm(sC, D, ab, D, a.w.wfg, D, D, [&](int r, int c, float4 v) {
-      store4(sW + r * D + c, v);
-    });
-  }
-  tile_gemm(sC, D, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
-    store4(sQ + r * D + c, make_float4(v.x + a.bq[c], v.y + a.bq[c + 1], v.z + a.bq[c + 2],
-                                       v.w + a.bq[c + 3]));
+  if (a.g_update)
+    mma_gemm(work, lds, ab, D, a.w.wfg, D, D,
+             [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+  mma_gemm(work, lds, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
+    store4(sQ + r * lds + c, make_float4(v.x + a.bq[c], v.y + a.bq[c + 1], v.z + a.bq[c + 2],
+                                         v.w + a.bq[c + 3]));
   });
   __syncthreads();
 
   for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
-    const int ca = min(CA, ab0 + ab - m0), rows = ca * N, base = m0 * N;
-    if (a.g_update) {
-      for (int i = tid; i < rows * q4; i += kThreads) {
-        const int r = i / q4, c = (i - r * q4) * 4;
-        store4(sA + r * lda + c, __ldg(reinterpret_cast<const float4*>(
-                                     geometry + (size_t)(base + r) * D + c)));
-      }
-    } else {
-      for (int i = tid; i < rows * K; i += kThreads) {
-        const int r = i / K, k = i - r * K;
-        sA[r * lda + k] = geometry[(size_t)(base + r) * K + k];
-      }
-    }
-    for (int i = tid; i < rows * q4; i += kThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      store4(sA + r * lda + D + c, __ldg(reinterpret_cast<const float4*>(
-                                       centers_b + (size_t)nbr[base + r] * D + c)));
-    }
-    __syncthreads();
-    attention_chunk(ca, N, D, H, K, a.g_update != 0, sA, sU, sE, sW + (m0 - ab0) * D,
-                    sQ + (m0 - ab0) * D, D, nmask + base, nweight + base,
-                    geo_out + (size_t)base * D, attn + (size_t)base * H, a.w, a.dk, false,
-                    [](int, int, int) { return 1.0f; });
+    const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+    stage_chunk(a, sA, centers_b, nbr + base,
+                geometry + (size_t)base * (a.g_update ? D : a.K), ca * N);
+    fwd_chunk(cd, a.w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
+              nmask + base, nweight + base, a.g_update ? geo_out + (size_t)base * D : nullptr,
+              attn + (size_t)base * H, [](int, int, int) { return 1.0f; });
   }
 
   for (int i = tid; i < ab * q4; i += kThreads) {
     const int m = i / q4, c = (i - m * q4) * 4;
     store4(a.out + ((size_t)b * M + ab0 + m) * D + c,
-           *reinterpret_cast<const float4*>(sQ + m * D + c));
+           *reinterpret_cast<const float4*>(sQ + m * lds + c));
   }
 }
 
@@ -144,8 +206,9 @@ local_attention_kernel(const Args a) {
 
 // ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
 // bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn;
-// dims: B, M, N, D, H, K, g_update, chunk_atoms; scalars: dk. The order
-// must match scann_tpu_torch/kernels/local_attention.py.
+// dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's
+// plan: atom block, atoms per chunk, shared bytes per block; scalars: dk.
+// The order must match scann_tpu_torch/kernels/local_attention.py.
 extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const float* scalars,
                                       void* stream) {
   Args a;
@@ -169,25 +232,31 @@ extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const 
   a.geo_out = (float*)ptrs[i++];
   a.attn = (float*)ptrs[i++];
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4]; a.K = dims[5];
-  a.g_update = dims[6]; a.chunk_atoms = dims[7];
+  a.g_update = dims[6];
+  const int n_sm = dims[7];
+  a.atom_block = dims[8]; a.chunk_atoms = dims[9];
   a.dk = scalars[0];
 
-  if (a.B < 1 || a.B > 65535 || a.M < 1 || a.N < 1 || a.chunk_atoms < 1 ||
-      a.chunk_atoms * a.N > kMaxChunkRows || a.D > 128 || (a.D & 3) || a.D % a.H ||
-      a.K < 1 || a.K > a.D)
+  if (a.B < 1 || a.M < 1 || a.N < 1 || a.N > kFwdMaxChunkRows || a.D < 4 || a.D > 128 ||
+      (a.D & 3) || a.H < 1 || a.D % a.H || a.K < 1 || a.K > a.D || n_sm < 1)
     return kErrShape;
-  const int bytes = shared_floats(a) * (int)sizeof(float);
-  if (bytes > kMaxSharedBytes) return kErrSharedMemory;
+  const Plan plan = make_plan(a.B, a.M, a.N, a.D, a.H, a.g_update, n_sm);
+  if (plan.atom_block == 0) return kErrSharedMemory;
+  const int bytes = plan.total * (int)sizeof(float);
+  // the wrapper's plan is this one
+  if (a.atom_block != plan.atom_block || a.chunk_atoms != plan.chunk_atoms || dims[10] != bytes)
+    return kErrShape;
+  const long long blocks = (long long)a.B * ((a.M + a.atom_block - 1) / a.atom_block);
+  if (blocks > 0x7fffffffLL) return kErrShape;
   cudaError_t err = cudaFuncSetAttribute(local_attention_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.M + kAtomBlock - 1) / kAtomBlock, a.B);
-  local_attention_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(a);
+  local_attention_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* local_attention_error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
-  if (code == kErrShape) return "shape outside what the kernel takes";
+  if (code == kErrShape) return "shape outside what the kernel takes, or a plan not the kernel's";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,7 +1,7 @@
 // Building blocks shared by the port's kernels: blocks of kThreads threads,
-// FP32 FMA products with the left operand in shared memory, warp-per-row
-// LayerNorm, the argument block of the whole-model forwards and the
-// attention of one chunk of (atom, neighbour) rows.
+// FP32 FMA products with the left operand in shared memory (the readouts'
+// small products), warp-per-row LayerNorm, the argument block of the
+// whole-model forwards and the parameters of one LocalAttention layer.
 
 #pragma once
 
@@ -280,123 +280,6 @@ __device__ __forceinline__ LayerWeights layer_weights(const ForwardArgs& a, int 
   w.lng_s = a.g_update ? a.lng_s + l * D : nullptr;
   w.lng_b = a.g_update ? a.lng_b + l * D : nullptr;
   return w;
-}
-
-// LocalAttention for one chunk of ca atoms x N neighbours (rows = ca * N <=
-// 64), called by the whole block. The caller has staged, and synchronised,
-//   sA [rows, 2D]: columns [0, D) the geometry (SCANN+) or [0, K) the
-//                  distance RBF (SCANN), columns [D, 2D) the neighbours' states;
-//   sCW [ca, ldq]: centers @ Wfg[0:D] of the chunk's atoms (SCANN+);
-//   sQ  [ca, ldq]: their queries.
-// It leaves LayerNorm(context + query) in sQ and ends with a barrier.
-// nmask and nweight point at the chunk's first row. geo_out [rows, D] takes
-// the updated geometry (SCANN+), attn_out [rows, H] (or null) the attention
-// before dropout; drop(atom, n, h) is the factor of the attention dropout.
-template <typename Drop>
-__device__ __forceinline__ void attention_chunk(
-    int ca, int N, int D, int H, int K, bool g_update, float* sA, float* sU, float* sE,
-    const float* sCW, float* sQ, int ldq, const float* nmask, const float* nweight,
-    float* geo_out, float* attn_out, const LayerWeights& w, float dk, bool attn_dropout,
-    Drop drop) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = ca * N, lda = 2 * D, hd = D / H;
-  if (g_update) {
-    // u = [geo | ns] @ Wfg[D:3D]; geo' = LN_g(swish(u + cw + b) + geo)
-    tile_gemm(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
-      store4(sU + r * D + c, v);
-    });
-    __syncthreads();
-    for (int r = warp; r < rows; r += kWarps) {
-      const int m = r / N;
-      float v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = lane + 32 * i;
-        v[i] = 0.f;
-        if (d < D) v[i] = swishf(sCW[m * ldq + d] + sU[r * D + d] + w.bfg[d]) + sA[r * lda + d];
-      }
-      warp_layer_norm(v, D, w.lng_s, w.lng_b, lane);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) {
-          geo_out[(size_t)r * D + d] = v[i];
-          sU[r * D + d] = sA[r * lda + D + d] * v[i];   // ns * geo'
-        }
-      }
-    }
-  } else {
-    // geo_term = swish(rbf(d) @ Wfg + b) * weight
-    tile_gemm(sA, lda, rows, K, w.wfg, D, D, [&](int r, int c, float4 v) {
-      store4(sU + r * D + c, v);
-    });
-    __syncthreads();
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      const float g = swishf(sU[r * D + d] + w.bfg[d]) * nweight[r];
-      sU[r * D + d] = sA[r * lda + D + d] * g;           // ns * geo_term
-    }
-  }
-  __syncthreads();
-
-  // key = (ns * geo) @ Wk + bk, into the neighbour half of A
-  tile_gemm(sU, D, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
-    store4(sA + r * lda + D + c, make_float4(v.x + w.bk[c], v.y + w.bk[c + 1],
-                                             v.z + w.bk[c + 2], v.w + w.bk[c + 3]));
-  });
-  __syncthreads();
-
-  // per-head energies (query * dk) . key, masked with -1e9
-  for (int i = tid; i < rows * H; i += kThreads) {
-    const int r = i / H, h = i - r * H;
-    const float* q = sQ + (r / N) * ldq + h * hd;
-    const float* kk = sA + r * lda + D + h * hd;
-    float e = 0.f;
-    for (int j = 0; j < hd; ++j) e = fmaf(q[j] * dk, kk[j], e);
-    sE[r * H + h] = e + (1.0f - nmask[r]) * -1e9f;
-  }
-  __syncthreads();
-  // max-shifted softmax over the N neighbours of each (atom, head)
-  for (int i = tid; i < ca * H; i += kThreads) {
-    const int at = i / H, h = i - at * H;
-    float* e = sE + at * N * H + h;
-    float mx = -INFINITY;
-    for (int n = 0; n < N; ++n) mx = fmaxf(mx, e[n * H]);
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float t = expf(e[n * H] - mx);
-      e[n * H] = t;
-      s += t;
-    }
-    for (int n = 0; n < N; ++n) {
-      const float p = e[n * H] / s;
-      if (attn_out) attn_out[(size_t)(at * N + n) * H + h] = p;
-      e[n * H] = attn_dropout ? p * drop(at, n, h) : p;   // the context uses the dropped one
-    }
-  }
-  __syncthreads();
-  // out = LN(ctx + query), ctx = sum_n attn * nmask * key
-  for (int i = tid; i < ca * D; i += kThreads) {
-    const int at = i / D, d = i - at * D, h = d / hd;
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const int r = at * N + n;
-      s += sE[r * H + h] * nmask[r] * sA[r * lda + D + d];
-    }
-    sQ[at * ldq + d] = s + sQ[at * ldq + d];
-  }
-  __syncthreads();
-  for (int at = warp; at < ca; at += kWarps) {
-    float* row = sQ + at * ldq;
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = (lane + 32 * i < D) ? row[lane + 32 * i] : 0.f;
-    warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
-  }
-  __syncthreads();
 }
 
 }  // namespace scann

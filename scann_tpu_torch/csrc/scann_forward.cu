@@ -138,8 +138,9 @@ scann_forward_kernel(const Args a) {
     for (int m0 = 0; m0 < M; m0 += CA) {
       const int ca = min(CA, M - m0), base = m0 * N;
       fwd_stage_chunk(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
-      fwd_chunk(a, w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm, nmask + base,
-                nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, [&](int at, int n, int h) {
+      fwd_chunk(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm,
+                nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+                nullptr, [&](int at, int n, int h) {
                   return scann_philox::mask_value(
                       a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
                       a.attn_threshold, a.attn_scale);

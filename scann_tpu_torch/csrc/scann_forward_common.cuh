@@ -1,8 +1,9 @@
-// Building blocks of the two whole-model forwards (scann_forward.cu for
-// molecules, scann_loop.cu for crystals) on the tensor cores: the staging and
-// the LocalAttention of one chunk of (atom, neighbour) rows, the SCANN+
-// geometry embedding, the atom embedding and the ResidualNorm of a block of
-// atoms.
+// Building blocks of the forwards on the tensor cores: the LocalAttention of
+// one chunk of (atom, neighbour) rows (fwd_chunk), which the two whole-model
+// forwards (scann_forward.cu for molecules, scann_loop.cu for crystals) and
+// the per-layer kernel (local_attention.cu) share, and for the whole-model
+// forwards the staging of a chunk, the SCANN+ geometry embedding, the atom
+// embedding and the ResidualNorm of a block of atoms.
 //
 // Products. Every row product is mma_gemm of scann_mma.cuh: split-TF32
 // mma.sync m16n8k8 in three passes accumulated in f32 (within 2e-6 x max of a
@@ -37,6 +38,17 @@
 namespace scann {
 
 constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
+
+// The sizes fwd_chunk reads: the whole-model forwards take them from their
+// ForwardArgs (forward_chunk_dims), the per-layer kernel fills them itself.
+struct ChunkDims {
+  int N, D, H, K, g_update, attn_dropout;
+  float dk;   // hd ** -scale
+};
+
+__device__ __forceinline__ ChunkDims forward_chunk_dims(const ForwardArgs& a) {
+  return ChunkDims{a.N, a.D, a.H, a.K, a.g_update, a.attn_dropout, a.dk};
+}
 
 __host__ __device__ inline int fwd_chunk_floats(int rows, int D, int H) {
   return rows * (2 * D + 4) + rows * (D + 4) + round4(rows * H);
@@ -145,13 +157,15 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
 // of the chunk's atoms (SCANN+), sQ [ca, ldq] their queries; nmask and
 // nweight point at the chunk's first row. Leaves LayerNorm(context + query)
 // in sQ; geo_out [rows, D] (or null: the last layer) takes the updated
-// geometry (SCANN+); drop(atom, n,
-// h) is the factor of the attention dropout. Ends with a barrier.
+// geometry (SCANN+), attn_out [rows, H] (or null) the attention before the
+// neighbour mask and the dropout; drop(atom, n, h) is the factor of the
+// attention dropout. Ends with a barrier.
 template <typename Drop>
-__device__ __forceinline__ void fwd_chunk(const ForwardArgs& a, const LayerWeights& w, int ca,
+__device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights& w, int ca,
                                           float* sA, float* sU, float* sE, const float* sCW,
                                           float* sQ, int ldq, const float* nmask,
-                                          const float* nweight, float* geo_out, Drop drop) {
+                                          const float* nweight, float* geo_out, float* attn_out,
+                                          Drop drop) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4, ldu = D + 4;
   const int rows = ca * N;
@@ -257,6 +271,7 @@ __device__ __forceinline__ void fwd_chunk(const ForwardArgs& a, const LayerWeigh
       const int n = lane + 32 * j;
       if (n < N) {
         const float pr = p[j] / tot;
+        if (attn_out) attn_out[(size_t)(at * N + n) * H + h] = pr;
         sE[(at * N + n) * H + h] = (a.attn_dropout ? pr * drop(at, n, h) : pr) * nm[j];
       }
     }

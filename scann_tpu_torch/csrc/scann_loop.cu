@@ -186,8 +186,9 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
         fwd_stage_chunk(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
-        fwd_chunk(a, w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
-                  nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+        fwd_chunk(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
+                  sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
+                  l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
                   [&](int at, int n, int h) {
                     return scann_philox::mask_value(
                         a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),

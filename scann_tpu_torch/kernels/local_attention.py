@@ -26,14 +26,23 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   a multiple of 4 up to 128 and divisible by the heads, N <= 64 (one atom's
   neighbours fit a chunk of 64 rows), the SCANN filter's input K <= D,
   float32.
+- It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
+  accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
+  the whole-model forwards share. ``make_plan`` mirrors the launch plan of
+  the CUDA source (which refuses any other): the atom block of
+  ``ATOM_BLOCKS`` with the fewest atoms per SM over the card's SMs, one block
+  per SM.
 
-Bound: ``layer_flops`` of FP32 FMA (~2.0e10 at one MP2018 layer, B=64, M=96,
-N=32, D=128) against one read and one write of the [B, M, N, D] geometry;
-bound by operations on an H100 (~0.30 ms at its 67 TFLOP/s FP32 peak).
+Bound: ``layer_flops`` (~2.0e10 at one MP2018 layer, B=64, M=96, N=32,
+D=128) against one read and one write of the [B, M, N, D] geometry; bound by
+operations on an H100: ~0.12 ms with the products as three TF32 passes at its
+dense 495 TFLOP/s and ``layer_fp32_flops`` (energies and context) at 67
+TFLOP/s FP32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,6 +55,8 @@ REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
 MAX_CHUNK_ROWS = 64
 MAX_WIDTH = 128
+MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
+ATOM_BLOCKS = (64, 48, 32, 16)
 PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
               "query/kernel", "query/bias", "layer_norm/scale", "layer_norm/bias",
               "layer_norm_g/scale", "layer_norm_g/bias")
@@ -123,6 +134,46 @@ def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -
             f"input K={K} (<= D)")
 
 
+def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple[int, int]:
+    """(atoms per chunk, shared bytes) of one block of ``atom_block`` atoms --
+    ``plan_for`` of the CUDA source. A block holds the queries and, for
+    SCANN+, cw of its atoms [AB, D + 4] each, and a work region for the
+    atoms' centers [AB, D + 4] or a chunk's buffers (rows of 2D + 4 and D + 4
+    floats and the attention [rows, H], rows = atoms per chunk x N <= 64)."""
+    chunk_atoms = min(atom_block, max(1, MAX_CHUNK_ROWS // N))
+    rows = chunk_atoms * N
+    chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-rows * H // 4) * 4
+    work = max(chunk, atom_block * (D + 4))
+    return chunk_atoms, 4 * ((2 if g_update else 1) * atom_block * (D + 4) + work)
+
+
+def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
+              n_sm: int) -> Tuple[int, int, int]:
+    """(atom block, atoms per chunk, shared bytes per block) of the launch --
+    ``make_plan`` of the CUDA source, which refuses any other. A block takes
+    a whole SM, so the B * ceil(M / AB) blocks run in ceil(blocks / n_sm)
+    waves of AB atoms: the plan takes the atom block of ``ATOM_BLOCKS`` whose
+    ``block_plan`` fits with the fewest atoms per SM, the larger where two
+    tie."""
+    best = None
+    for ab in ATOM_BLOCKS:
+        chunk_atoms, nbytes = block_plan(ab, N, D, H, g_update)
+        if nbytes > MAX_SHARED_BYTES:
+            continue
+        cost = -(-B * -(-M // ab) // n_sm) * ab
+        if best is None or cost < best[0]:
+            best = (cost, ab, chunk_atoms, nbytes)
+    if best is None:
+        raise NotImplementedError(f"no atom block fits a block's shared memory at N={N}, D={D}")
+    return best[1:]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
                            geometry: torch.Tensor, neighbor_mask: torch.Tensor,
                            neighbor_weight: Optional[torch.Tensor], params: Params,
@@ -141,8 +192,6 @@ def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
     N = neighbor_idx.shape[2]
     K = geometry.shape[-1]
     check_supported(D, N, K, num_head, centers.dtype)
-    if B > 65535:
-        raise NotImplementedError(f"B={B}: the grid takes at most 65535 structures")
     want = {"centers": (centers, (B, M, D), torch.float32),
             "neighbor_idx": (neighbor_idx, (B, M, N), torch.int32),
             "geometry": (geometry, (B, M, N, D if g_update else K), torch.float32),
@@ -164,17 +213,22 @@ def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
 
 
 def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
-            num_head, scale, g_update):
-    """The launch itself, on inputs ``launch_local_attention`` accepted."""
+            num_head, scale, g_update, outputs=None):
+    """The launch itself, on inputs ``launch_local_attention`` accepted;
+    ``outputs`` (out, geometry out or None, attn), as it returns them, are
+    written in place of new tensors."""
     from scann_tpu_torch.kernels.scann_forward import call_kernel
 
     dev = centers.device
     B, M, D = centers.shape
     N = neighbor_idx.shape[2]
     K = geometry.shape[-1]
-    out = torch.empty((B, M, D), device=dev, dtype=torch.float32)
-    geo_out = torch.empty((B, M, N, D), device=dev, dtype=torch.float32) if g_update else None
-    attn = torch.empty((B, M, N, num_head), device=dev, dtype=torch.float32)
+    if outputs is None:
+        outputs = (torch.empty((B, M, D), device=dev, dtype=torch.float32),
+                   torch.empty((B, M, N, D), device=dev, dtype=torch.float32) if g_update
+                   else None,
+                   torch.empty((B, M, N, num_head), device=dev, dtype=torch.float32))
+    out, geo_out, attn = outputs
     tensors = ([centers, neighbor_idx, geometry, neighbor_mask,
                 None if g_update else neighbor_weight]
                + [params.get(k) if g_update or "layer_norm_g" not in k else None
@@ -182,9 +236,10 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
                + [out, geo_out, attn])
     hd = D // num_head
     dk = float(np.float32(hd) ** np.float32(-scale))
-    chunk_atoms = max(1, MAX_CHUNK_ROWS // N)
+    n_sm = sm_count(dev)
+    plan = make_plan(B, M, N, D, num_head, g_update, n_sm)
     call_kernel("local_attention", "local_attention", dev, tensors,
-                [B, M, N, D, num_head, K, int(g_update), chunk_atoms], [dk])
+                [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
     return out, geo_out, attn
 
@@ -263,7 +318,8 @@ fused_local_attention.launches = 0
 
 def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:
     """Multiply-add FLOPs (2 per FMA) of one layer, counted from the
-    kernel's products; the gather and the elementwise work are left out."""
+    kernel's products; the gather and the elementwise work are left out.
+    All but ``layer_fp32_flops`` run on the tensor cores."""
     rows = M * N
     if g_update:
         f = 2 * rows * 3 * D * D + 2 * M * D * D      # [geo | ns] @ Wfg, key; cw
@@ -272,3 +328,9 @@ def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> 
     f += 2 * M * D * D                                # query
     f += 2 * rows * D * 2                             # energies, context
     return B * f
+
+
+def layer_fp32_flops(B: int, M: int, N: int, D: int) -> int:
+    """The FLOPs of ``layer_flops`` that run on the CUDA cores in FP32: the
+    energies and the context, 2 x B M N D multiply-adds."""
+    return B * 2 * M * N * D * 2

@@ -200,3 +200,118 @@ def test_torch_local_attention_gate_and_flops():
     # one MP2018 layer (B=64, M=96, N=32, D=128): ~2.0e10 FLOP
     assert kla.layer_flops(64, 96, 32, 128, True) == pytest.approx(1.983e10, rel=1e-3)
     assert kla.layer_flops(64, 96, 32, 128, False) < kla.layer_flops(64, 96, 32, 128, True)
+
+
+@pytest.mark.parametrize("B_,M_,N_,block", [(64, 96, 32, 48), (8, 256, 32, 16), (3, 40, 8, 16),
+                                            (64, 96, 16, 48), (1, 300, 64, 16), (200, 96, 32, 32)])
+def test_torch_local_attention_plan_fills_the_card(B_, M_, N_, block):
+    """The plan of the tensor-core layer kernel takes the atom block with the
+    fewest atoms per SM on the H100's 132 SMs: 48 at one MP2018 layer (128
+    blocks, one wave, against 1.45 waves of 32), 16 at (8, 256, 32) (128
+    blocks, against 64); and every block it may return fits 227 KB."""
+    for g_update in (True, False):
+        ab, chunk_atoms, nbytes = kla.make_plan(B_, M_, N_, 128, 8, g_update, 132)
+        assert ab == block
+        assert (chunk_atoms, nbytes) == kla.block_plan(ab, N_, 128, 8, g_update)
+        assert chunk_atoms * N_ <= kla.MAX_CHUNK_ROWS and chunk_atoms <= ab
+        blocks = B_ * -(-M_ // ab)
+        for other in kla.ATOM_BLOCKS:      # no other block has fewer atoms per SM
+            assert -(-B_ * -(-M_ // other) // 132) * other >= -(-blocks // 132) * ab
+    for N_ in range(1, 65):
+        for D in range(4, 129, 4):
+            for g_update in (True, False):
+                for ab in kla.ATOM_BLOCKS:
+                    assert kla.block_plan(ab, N_, D, 1, g_update)[1] <= kla.MAX_SHARED_BYTES
+
+
+def test_torch_local_attention_plan_matches_cuda_source(monkeypatch):
+    """``make_plan`` mirrors ``plan_for`` and ``make_plan`` of
+    ``csrc/local_attention.cu``, whose launcher refuses another atom block,
+    chunk or shared size; the wrapper hands the kernel its plan and the
+    card's SM count, and writes into kept outputs when given them."""
+    from scann_tpu_torch.kernels import _build
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+
+    with open(f"{_build.SRC_DIR}/local_attention.cu") as f:
+        src = f.read()
+    for term in ("constexpr int kAtomBlocks[] = {64, 48, 32, 16};",
+                 "p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;",
+                 "const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);",
+                 "const int centers = AB * (D + 4);",
+                 "p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;",
+                 "const long long cost = (blocks + n_sm - 1) / n_sm * AB;",
+                 "if (best_cost < 0 || cost < best_cost) {",
+                 "if (a.atom_block != plan.atom_block || a.chunk_atoms != plan.chunk_atoms || "
+                 "dims[10] != bytes)",
+                 "fwd_chunk(cd, a.w, ca, sA, sU, sE,"):
+        assert term in src, term
+    assert "tile_gemm" not in src and "attention_chunk" not in src
+    with open(f"{_build.SRC_DIR}/scann_common.cuh") as f:
+        assert "attention_chunk" not in f.read()
+    assert kla.block_plan(48, 32, 128, 8, True) == (2, 4 * (2 * 48 * 132 + kfwd.forward_chunk_floats(
+        64, 128, 8)))
+
+    seen = []
+    monkeypatch.setattr(kfwd, "call_kernel", lambda *a: seen.append(a))
+    monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
+    rng = np.random.default_rng(0)
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(rng, B=2, M=20, N=8, D=32)
+    args = (*_tensors(centers, idx, geometry, mask, weight), _flat(params), 4, 0.5, True)
+    out, geo, attn = kla._launch(*args)
+    kept = (torch.zeros_like(out), torch.zeros_like(geo), torch.zeros_like(attn))
+    again = kla._launch(*args, outputs=kept)
+    assert all(a is b for a, b in zip(again, kept))
+    (_, _, _, tensors, dims, scalars), _ = seen
+    assert dims == [2, 20, 8, 32, 4, 32, 1, 132, *kla.make_plan(2, 20, 8, 32, 4, True, 132)]
+    assert tensors[-3:] == [out, geo, attn]
+    assert scalars == [pytest.approx(8 ** -0.5)]
+    kla.fused_local_attention.launches = 0
+
+
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_local_attention_fp32_flops_split(g_update):
+    """``layer_fp32_flops`` (energies, context) plus the row products that
+    run on the tensor cores is ``layer_flops``: at one MP2018 layer the
+    products are 99.5% of it, 0.1211 ms as three TF32 passes at 495 TFLOP/s
+    with the rest at 67 TFLOP/s."""
+    B, M, N, D, K = 64, 96, 32, 128, 20
+    rows = B * M * N
+    if g_update:
+        products = 2 * rows * 3 * D * D + 2 * B * M * D * D * 2      # [geo | ns], key; cw, query
+    else:
+        products = 2 * rows * K * D + 2 * rows * D * D + 2 * B * M * D * D
+    fp32 = kla.layer_fp32_flops(B, M, N, D)
+    assert fp32 == 4 * rows * D
+    assert fp32 + products == kla.layer_flops(B, M, N, D, g_update, K)
+    if g_update:
+        bound_ms = 1e3 * (3 * products / 495e12 + fp32 / 67e12)
+        assert bound_ms == pytest.approx(0.1211, abs=1e-4)
+        assert products / (products + fp32) == pytest.approx(0.995, abs=1e-3)
+
+
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_plain_layer_attention_of_padded_atoms(rng, g_update):
+    """At a ragged M with fully padded atoms (every neighbour masked, as the
+    padding of a bucket leaves them), the plain layer's attention -- the
+    softmax of e + (1 - mask) (-1e9) before the mask -- is the JAX kernel's in
+    interpret mode and its reference's, padded rows included."""
+    B, M, N = 3, 11, 6
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(
+        rng, B=B, M=M, N=N, D=16, g_update=g_update)
+    counts = (11, 7, 4)
+    for b, n in enumerate(counts):
+        mask[b, n:] = 0.0
+        idx[b, n:] = 0
+        idx[b, :n] %= n
+    H, scale = 4, 0.5
+    jargs = [jnp.asarray(a) for a in (centers, idx, geometry, mask, weight)]
+    kernel = jla._pallas_forward(*jargs, params, H, scale, g_update, interpret=True)
+    reference = jla.reference_local_attention(*jargs, params, H, scale, g_update)
+    with torch.no_grad():
+        _, _, attn = kla.reference_local_attention(
+            *_tensors(centers, idx, geometry, mask, weight), _flat(params), H, scale, g_update)
+    for want in (kernel, reference):
+        np.testing.assert_allclose(attn.numpy(), np.asarray(want[2]), rtol=1e-5, atol=1e-6)
+    padded = attn[1, 7:].numpy()
+    assert np.isfinite(padded).all()
+    np.testing.assert_allclose(padded.sum(axis=1), 1.0, rtol=1e-5)   # still a softmax over N
