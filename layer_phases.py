@@ -223,14 +223,14 @@ def main(argv=None):
     print(f"design: {which}", flush=True)
     _build.build_all(["local_attention"], force=True)
     plain_lib = _build.load_library("local_attention")
-    variants = [("", build(), kla.make_plan)]
+    make_plan = getattr(kla, "make_plan", None)      # PR 3's wrapper has no plan
+    variants = [("", build(), make_plan)]
     with open(os.path.join(OUT_DIR, "local_attention.cu")) as f:
         text = f.read()
     if text.count(NO_PREFETCH[0]) == 1:
         with open(os.path.join(OUT_DIR, "local_attention_np.cu"), "w") as f:
             f.write(text.replace(*NO_PREFETCH))
-        variants.append((" without prefetch", build("_np"), no_prefetch_plan(kla.make_plan)))
-    make_plan = kla.make_plan
+        variants.append((" without prefetch", build("_np"), no_prefetch_plan(make_plan)))
     rng = np.random.default_rng(7)
     for B, M, N in ((64, 96, 32), (8, 256, 32)):
         for g_update in (True, False):
@@ -252,11 +252,13 @@ def main(argv=None):
                   flush=True)
             for tag, lib, plan in variants:
                 _build._libs["local_attention"] = lib
-                kla.make_plan = plan
+                if plan is not None:
+                    kla.make_plan = plan
                 with torch.inference_mode():
                     prof_ms, total, cycles = split(lib, lambda: kla._launch(*layer), args.reps)
                 _build._libs["local_attention"] = plain_lib
-                kla.make_plan = make_plan
+                if plan is not None:
+                    kla.make_plan = make_plan
                 print(f"  instrumented{tag}: {prof_ms:.4f} ms a launch back to back, block 0 "
                       f"{total:.4e} cycles", flush=True)
                 for name, c in zip(PHASES, cycles):

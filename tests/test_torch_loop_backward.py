@@ -209,13 +209,11 @@ def test_torch_loop_backward_gate_and_layout():
         "scann_common.cuh"]
     assert "scann_mma.cuh" in [f.rsplit("/", 1)[-1]
                                for f in _build.source_files("scann_backward")]
-    # the whole-model forwards run their products through the same header;
-    # the per-layer kernel does not include it
-    for name in ("scann_forward", "scann_loop"):
+    # the three forwards (the whole-model ones and the per-layer kernel) run
+    # their products through the same header
+    for name in ("scann_forward", "scann_loop", "local_attention"):
         assert {"scann_forward_common.cuh", "scann_mma.cuh"} <= {
             f.rsplit("/", 1)[-1] for f in _build.source_files(name)}
-    assert not {"scann_forward_common.cuh", "scann_mma.cuh", "scann_grad_common.cuh"} & {
-        f.rsplit("/", 1)[-1] for f in _build.source_files("local_attention")}
     assert "scann_grad_common.cuh" in [f.rsplit("/", 1)[-1]
                                        for f in _build.source_files("scann_backward")]
 
