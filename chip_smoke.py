@@ -11,16 +11,21 @@ heads, embedding 48), phases 6-10 at the full width of the crystal models
 vocab 95; ``configs/model_ptgp.yaml``: SCANN with ring features, 11
 layers); random weights from seeds:
 
-1. holds the forward kernel against its plain PyTorch version;
+1. holds the forward kernel against its plain PyTorch version, unpacked
+   and on packed slots (structure packing: several structures a slot, up to
+   8 segments, at least one empty; the small matrix in slots of 16 rows and
+   QM9 molecules of 3-29 atoms at the flagship's packing capacity 48 and at
+   the derived 32);
 2. serves a few molecules over HTTP through ``PredictionServer`` (the
    serving path) and checks every answer against the eager model;
 3. times both kernels at the QM9 batch shape against their bounds and
-   their plain versions;
+   their plain versions, and the packed forward at capacity 48 and the
+   packed backward at capacity 32;
 4. holds the products of ``csrc/scann_mma.cuh`` (split-TF32 ``mma.sync``, the
    three forms the backward kernels use) against a float64 product, then the
    backward kernel (at dropout 0 and 0.1, one-shot and with a
    GA cotangent) and the forward kernel with dropout against their plain
-   versions on the same Philox masks;
+   versions on the same Philox masks, unpacked and packed;
 5. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
    (the training path) on ~1000 synthetic QM9-like molecules in the
    flagship recipe's two buckets; checks the launches, that each pass over
@@ -28,15 +33,24 @@ layers); random weights from seeds:
    with the plain step gives the same losses, 3 kernel steps against 3
    plain steps and ``load_model_infer``; then trains 2 epochs in one
    bucket and checks that the epoch loss and the training-set loss fall;
+   then, with ``tpu.structure_packing`` on the same molecules, 3 epochs at
+   packing capacity 48 (eval by the molecule forward, steps by the loop
+   backward) and 1 at the derived capacity 32 (steps by the molecule
+   backward): the routes, one launch per step and per eval batch, a falling
+   loss, ``predict_data`` per structure (values and GA scores) against the
+   unpacked pipeline with the same parameters, and occupancy, slots, slot
+   batch, median step and structures/s beside the unpacked run's;
 6. holds the crystal loop-forward kernel against its plain version at 1, 2
    and 4 blocks per structure: a small matrix of configurations (two atom
    blocks, ragged counts, single atoms, fewer atoms than blocks, dropout 0
    and 0.1 with attention dropout), a ragged M=160 at B=20, the gate's edge
    M=232, MP2018 (B=64 and B=128, M=96, N=32) and Pt/graphene (B=64, M=128,
-   N=32) at full width, each with further launches on a kept scratch filled
-   with NaN or a constant that must give the same pred and ga bit for bit;
-   and times it in turns with its plain version at MP2018 on 2 blocks and on
-   1 block per structure, at B=128, and at Pt/graphene;
+   N=32) at full width, and packed slots (the small matrix, MP2018-like
+   crystals of 20-90 sites at packing capacity 96), each with further
+   launches on a kept scratch filled with NaN or a constant that must give
+   the same pred and ga bit for bit; and times it in turns with its plain
+   version at MP2018 on 2 blocks and on 1 block per structure, at B=128, at
+   Pt/graphene and packed at capacity 96;
 7. holds the per-layer LocalAttention kernel against its plain version
    (out, geometry, attention; SCANN+ and SCANN) at a ragged small layer, at
    an M beyond the loop kernel's gate (8, 256, 32) and at one MP2018 layer
@@ -57,12 +71,14 @@ layers); random weights from seeds:
    small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
    blocks of 32, 16 and 8, structures with fewer atoms than blocks and with
    unequal shares, then MP2018 (B=64, M=96, at N=32 and at N=16) and
-   Pt/graphene (B=64, M=128, N=32) at full width, at every cluster size the
-   kernel launches with (1, 2 and, for small batches, 4 blocks per
-   structure), each with further launches on a kept scratch filled with NaN
-   or a constant that must give the same gradients bit for bit, and times it
-   in turns with its plain version (plain, kernel, kernel, plain), at one
-   block per structure beside the cluster, and at B=128 beside B=64;
+   Pt/graphene (B=64, M=128, N=32) at full width, and packed slots (the
+   small matrix, QM9 at capacity 48, MP2018-like crystals at 96) at every
+   cluster size the kernel launches with (1, 2 and, for small batches, 4
+   blocks per structure), each with further launches on a kept scratch
+   filled with NaN or a constant that must give the same gradients bit for
+   bit, and times it in turns with its plain version (plain, kernel, kernel,
+   plain), at one block per structure beside the cluster, at B=128 beside
+   B=64, and packed at QM9 capacity 48 and crystal capacity 96;
 10. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
    (the crystal training path) on 480 synthetic periodic crystals of 20-90
    sites at the full width and depth of the MP2018 model, batch 64, in the
@@ -74,10 +90,14 @@ layers); random weights from seeds:
    ``load_model_infer``; trains 2 epochs in one bucket (96, 16), where every
    pass must lower the loss without dropout; and takes one training step by
    the per-layer route on structures beyond the loop backward's gate, held
-   against the plain step.
+   against the plain step; then one packed epoch of the same crystals at
+   capacity 96 (eval by the loop forward, steps by the loop backward),
+   checked as phase 5's packed runs.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
-phase, then one ``{"kernels": [...]}`` line and, last,
+phase, then one ``{"kernels": [...]}`` line (the rows of the four
+whole-model kernels with ``packed_launches``, their launches on the packed
+training runs, and ``packed``, their times at a packed shape) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
@@ -149,6 +169,35 @@ def synthetic_batch(rng, B, M, N, use_ring=False, cgcnn=False, n_atoms=10,
         x["atomic"] = ((rng.uniform(size=(B, M, 92)) < 0.05)
                        * x["atom_mask"]).astype(np.float32)
     return {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+
+
+def pack_batch(x, capacity, segments=8):
+    """A padded batch on the card bin-packed into slots of ``capacity`` rows
+    (``data/packing.pack_padded_inputs``, structure packing), its one-hot
+    widened to ``segments`` columns: every slot with fewer structures has
+    empty segments, and the batch has at least one."""
+    from scann_tpu_torch.data.packing import pack_padded_inputs
+
+    p = pack_padded_inputs({k: v.cpu().numpy() for k, v in x.items()}, capacity=capacity,
+                           max_segments=segments)
+    out = dict(p.inputs)
+    slots, used = p.indices.shape
+    out["segment_onehot"] = np.concatenate(
+        [out["segment_onehot"], np.zeros((slots, capacity, segments - used), np.float32)], -1)
+    out["segment_mask"] = np.concatenate(
+        [out["segment_mask"], np.zeros((slots, segments - used), np.float32)], -1)
+    if out["segment_mask"].all():
+        raise AssertionError("a packed batch without an empty segment")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in out.items()}
+
+
+def packed_label(x):
+    """' packed S=..' for a packed batch, '' otherwise."""
+    seg = x.get("segment_onehot")
+    if seg is None:
+        return ""
+    empty = int((x["segment_mask"] == 0).sum())
+    return f" packed S={seg.shape[-1]} ({empty} empty segments)"
 
 
 def errors(got, want):
@@ -284,22 +333,23 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
 
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N)
+    S = kfwd.segment_count(x)
+    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N, S)
     own = kloop.cluster_size(B)
     packed = kfwd.pack_params(p, cfm)
     pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, seed)
     g2 = kloop.reference_loop_grad(p, x, cfm, ct[0], ct[1], rate, seed) if ct is not None else None
     worst = 0.0
     for C in clusters or (own,):
-        tag = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk, "
-               f"{C} blocks per structure) dropout {rate}")
+        tag = (f"{label} B={B} M={M} N={N}{packed_label(x)} (atom block {block}, "
+               f"{chunk_atoms} per chunk, {C} blocks per structure) dropout {rate}")
         line = [tag]
         if C == own:    # through the public entry points, which choose C themselves
             pred, g = kloop.loop_scann_train_grads(p, x, y, cfm, mrelu, rate, seed)
         else:
             flat, pred = kloop.launch_loop_backward(packed, x, cfm, y, None, True, mrelu, rate,
                                                     seed, 0, None, C)
-            pred, g = pred.view(-1, 1), kbwd.grads_from_flat(flat, packed, cfm)
+            pred, g = pred.view(B, -1), kbwd.grads_from_flat(flat, packed, cfm)
         torch.cuda.synchronize()
         worst = max(worst, hold_backward(tag, "one-shot", pred, pred0, g, g0, line, failures))
         if ct is not None:
@@ -322,7 +372,7 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
                                                           rate, seed, 0, scratch, C)
                 again = kbwd.grads_from_flat(flat, packed, cfm)
                 differ |= {k for k in g if not torch.equal(g[k], again[k])}
-                if not torch.equal(pred_i.view(-1, 1), pred):
+                if not torch.equal(pred_i.view(B, -1), pred):
                     differ.add("pred")
             line.append(f"{relaunches} launches on NaN- and constant-filled scratch "
                         f"bit-identical: {not differ}")
@@ -372,7 +422,8 @@ def time_backward(cfm, params, packed, inputs, card):
 
     B, M = inputs["atomic"].shape
     N = inputs["neighbors"].shape[2]
-    y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
+    S = max(kfwd.segment_count(inputs), 1)
+    y = torch.from_numpy(np.random.default_rng(1).normal(size=(B, S)).astype(np.float32)).cuda()
     kfwd._check_inputs(inputs, cfm, packed["wde"].device)
     ms, plain_ms = in_turns_ms(
         lambda: kbwd.reference_fused_scann_train_grads(params, inputs, y, cfm, False, 0.1, 7),
@@ -382,9 +433,10 @@ def time_backward(cfm, params, packed, inputs, card):
     _, P = kbwd.grad_layout(packed)
     nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
-              + 4 * B + 4 * (P + B))          # targets in; gradients and pred out
+              + 4 * B * S + 4 * (P + B * S))  # targets in; gradients and pred out
     bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
-    print(f"scann_backward at B={B} M={M} N={N} (dropout 0.1, one-shot, with its row "
+    print(f"scann_backward at B={B} M={M} N={N}{packed_label(inputs)} (dropout 0.1, one-shot, "
+          f"with its row "
           f"reduction; timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, "
           f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
@@ -396,15 +448,19 @@ def time_backward(cfm, params, packed, inputs, card):
             "recompute_flops": recompute, "bound_by": by}
 
 
-def phase4(matrix, qm9_model, qm9_inputs, failures, card):
+def phase4(matrix, qm9_model, qm9_inputs, packed_qm9, failures, card):
     """The backward kernel (one-shot and with a GA cotangent) and the
     forward kernel with dropout against their plain versions, on the same
-    Philox masks. Returns the largest absolute errors."""
+    Philox masks, unpacked and packed (the small matrix in slots of 16 rows,
+    QM9 at the derived packing capacity 32). Returns the largest absolute
+    errors."""
     import dataclasses
 
+    from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.models.scann import init_params
 
     rng = np.random.default_rng(4)
+    prng = np.random.default_rng(40)       # the packed batches' draws
     err = {"backward": 0.0, "forward_dropout": 0.0}
     cases = [(name, cfm, mrelu, 8, 16, 8, 3) for name, cfm, mrelu in matrix]
     cases += [("scann+ use_drop", dataclasses.replace(matrix[0][1], use_drop=True),
@@ -415,17 +471,24 @@ def phase4(matrix, qm9_model, qm9_inputs, failures, card):
         x = synthetic_batch(rng, B, M, N, cfm.use_ring, cfm.feature == "cgcnn",
                             min_atoms=min_atoms)
         p = init_params(cfm, torch.Generator().manual_seed(2), "cuda")
-        y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
-        ctp = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
-        ctg = torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda()
-        for rate in (0.0, 0.1):
-            check_backward(f"{name} dropout {rate}", cfm, p, x, y, ctp, ctg, mrelu, rate,
-                           err, failures)
-    x = qm9_inputs
-    p = init_params(qm9_model, torch.Generator().manual_seed(3), "cuda")
-    y = torch.from_numpy(rng.normal(size=x["atomic"].shape[0]).astype(np.float32)).cuda()
-    check_backward("qm9 full width dropout 0.1", qm9_model, p, x, y, None, None, False, 0.1,
-                   err, failures)
+        for x, r in ((x, rng), (pack_batch(x, 2 * M), prng)) if (M, N) == (16, 8) else ((x, rng),):
+            B, M = x["atom_mask"].shape[:2]
+            S = max(kfwd.segment_count(x), 1)
+            y = torch.from_numpy(r.normal(size=(B, S)).astype(np.float32)).cuda()
+            ctp = torch.from_numpy(r.normal(size=(B, S)).astype(np.float32)).cuda()
+            ctg = torch.from_numpy(r.normal(size=(B, M, 1)).astype(np.float32)).cuda()
+            for rate in (0.0, 0.1):
+                check_backward(f"{name}{packed_label(x)} dropout {rate}", cfm, p, x, y, ctp, ctg,
+                               mrelu, rate, err, failures)
+    for label, x in (("qm9 full width", qm9_inputs),
+                     ("qm9 full width capacity 32", packed_qm9[32])):
+        p = init_params(qm9_model, torch.Generator().manual_seed(3), "cuda")
+        B = x["atomic"].shape[0]
+        r = prng if kfwd.segment_count(x) else rng
+        y = torch.from_numpy(r.normal(size=(B, max(kfwd.segment_count(x), 1)))
+                             .astype(np.float32)).cuda()
+        check_backward(f"{label}{packed_label(x)} dropout 0.1", qm9_model, p, x, y, None, None,
+                       False, 0.1, err, failures)
     print(f"phase 4: worst backward abs error {err['backward']:.3e}, forward with dropout "
           f"{err['forward_dropout']:.3e}  [{card}]", flush=True)
     return err
@@ -673,7 +736,118 @@ def phase5(qm9_model, failures, card):
             and np.isfinite(after[0]) and after[0] < before[0]):
         failures.append(f"one-bucket training loss not finite and falling: epochs "
                         f"{one_hist['loss']}, training set without dropout {before} -> {after}")
-    return bwd_launches
+    return bwd_launches, {"data": (energy, nbr), "work": work, "step_ms": med,
+                          "structures_s": n_train / hist["epoch_time"][1], "name": "phase 5"}
+
+
+def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, failures, card,
+                 neighbors_multiple=8, compare_unpacked=False):
+    """Structure packing on a training path: ``epochs`` epochs through
+    ``Scann.prepare_dataset -> train -> evaluate -> predict_data`` with
+    ``tpu.structure_packing`` at ``capacity`` rows a slot (None: derived from
+    the largest structure), up to 8 segments a slot, on a featurized set of
+    an earlier phase. Checks the routes (eval, step), one launch of the
+    step's kernel per step and of the eval kernel per eval batch and none of
+    the others, a finite loss that falls over more than one epoch and, with
+    ``compare_unpacked``, that ``predict_data`` per structure equals the
+    unpacked pipeline's with the same parameters. Returns the launches by
+    kernel."""
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    energy, nbr = info["data"]
+    target = "formation_energy_per_atom" if cfm.n_atoms > 10 else "homo"
+
+    def config(name, packed):
+        return ScannConfig(model=cfm,
+                           hyper=HyperConfig(batch_size=batch_size, scheduler="sgdr", lr=5e-4,
+                                             min_lr=1e-4, target=target, data_energy_path=energy,
+                                             data_nei_path=nbr, epochs=epochs, seed=0,
+                                             save_path=os.path.join(info["work"], name)),
+                           tpu=TpuConfig(max_buckets=2, structure_packing=packed,
+                                         packing_capacity=capacity, pack_max_segments=8,
+                                         neighbors_pad_multiple=neighbors_multiple))
+
+    scann = Scann(config(label.replace(" ", "_"), True), device="cuda")
+    scann.prepare_dataset()
+    (b,) = scann.train_buckets
+    M, N = b.shape
+    S = b.num_segments
+    trainer = scann.trainer
+    routes = (trainer.eval_route(M, N, S), trainer.train_route(M, N, S))
+    scann.init_params(0)
+    step_ms = []
+    train_step = trainer.train_step
+
+    def timed_step(*args):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = train_step(*args)
+        e.record()
+        step_ms.append((s, e))
+        return out
+
+    trainer.train_step = timed_step
+    counters = {"scann_forward": kfwd.fused_scann_forward,
+                "scann_backward": kbwd.launch_scann_backward,
+                "scann_loop": kloop.launch_loop_forward,
+                "scann_loop_backward": kloop.launch_loop_backward,
+                "local_attention": kla.fused_local_attention}
+    for c in counters.values():
+        c.launches = 0                               # counts of this packed path only
+    hist = scann.train()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    del trainer.train_step
+    slot_bs = trainer._slot_batch
+    steps = epochs * -(-len(b.targets) // slot_bs)
+    evals = epochs * sum(-(-len(v.targets) // slot_bs) for v in scann.valid_buckets)
+    result = scann.evaluate()
+    med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
+    per_s = b.num_structures / hist["epoch_time"][-1]
+    print(f"{label}: {b.num_structures} structures in {b.num_slots} slots of {M} rows "
+          f"({b.occupancy:.1%} occupancy, S={S}), N={N}, slot batch {slot_bs} (batch_size "
+          f"{batch_size} structures); routes eval {routes[0]}, step {routes[1]}; losses "
+          f"{hist['loss']}, val_mae {hist['val_mae']}, test {result}", flush=True)
+    print(f"{label}: median train step {med:.4f} ms (CUDA events), last epoch {per_s:.1f} "
+          f"structures/s; unpacked ({info['name']}): median step {info['step_ms']:.4f} ms, "
+          f"epoch 2 {info['structures_s']:.1f} structures/s; launches {launches} for {steps} "
+          f"steps and {evals} eval batches  [{card}]", flush=True)
+    eval_kernel = {"fused": "scann_forward", "loop": "scann_loop"}.get(routes[0])
+    step_kernel = {"fused": "scann_backward", "loop": "scann_loop_backward"}.get(routes[1])
+    expect = {k: 0 for k in counters}
+    if eval_kernel:
+        expect[eval_kernel] += evals
+    if step_kernel:
+        expect[step_kernel] += steps
+    if routes != want_routes or launches != expect or len(step_ms) != steps:
+        failures.append(f"{label}: routes {routes} (want {want_routes}), launches {launches} "
+                        f"(want {expect}), {len(step_ms)} timed steps for {steps}")
+    if not (all(np.isfinite(hist["loss"])) and (epochs == 1 or hist["loss"][-1] < hist["loss"][0])):
+        failures.append(f"{label}: training loss not finite and falling: {hist['loss']}")
+    if compare_unpacked:
+        got, got_ga = scann.predict_data(scann.test_buckets, with_ga=True)
+        plain = Scann(config(label.replace(" ", "_") + "_unpacked", False), device="cuda")
+        plain.prepare_dataset()
+        plain.trainer.load_params(scann.params)
+        want, want_ga = plain.predict_data(plain.test_buckets, with_ga=True)
+        d = float(np.abs(got - want).max())
+        d_ga = max(float(np.abs(g - w).max()) for g, w in zip(got_ga, want_ga))
+        ok = (got.shape == want.shape and np.isfinite(got).all()
+              and np.all(np.abs(got - want) <= ATOL + RTOL * np.abs(want))
+              and all(g.shape == w.shape and np.all(np.abs(g - w) <= ATOL + RTOL * np.abs(w))
+                      for g, w in zip(got_ga, want_ga)))
+        print(f"{label}: predict_data of {len(got)} test structures packed against unpacked, "
+              f"same parameters: max |d| {d:.3e}, GA scores {d_ga:.3e} (rtol {RTOL}, atol "
+              f"{ATOL})", flush=True)
+        if not ok:
+            failures.append(f"{label}: packed predictions differ from unpacked: {d:.3e}, "
+                            f"ga {d_ga:.3e}")
+    return launches
 
 
 def operations_ms(flops, fp32_flops):
@@ -741,15 +915,15 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
 
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    chunk_atoms, block, _, _ = kloop.loop_memory_plan(cfm, M, N)
+    chunk_atoms, block, _, _ = kloop.loop_memory_plan(cfm, M, N, kfwd.segment_count(x))
     own = kloop.cluster_size(B)
     packed = kfwd.pack_params(p, cfm)
     with torch.inference_mode():
         pred0, ga0 = kloop.reference_loop_forward(p, x, cfm, mrelu, rate, 11)
     worst = 0.0
     for C in clusters or (own,):
-        tag = (f"{label} B={B} M={M} N={N} (atom block {block}, {chunk_atoms} per chunk, "
-               f"{C} blocks per structure) dropout {rate}")
+        tag = (f"{label} B={B} M={M} N={N}{packed_label(x)} (atom block {block}, "
+               f"{chunk_atoms} per chunk, {C} blocks per structure) dropout {rate}")
         with torch.inference_mode():
             if C == own:    # through the public entry point, which chooses C itself
                 pred, ga = kloop.loop_scann_forward(p, x, cfm, mrelu, rate, 11)
@@ -798,7 +972,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
     out = {}
     with torch.inference_mode():
-        kloop.check_supported(cfm, M, N, x)
+        kloop.check_supported(cfm, M, N)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         for C in clusters:
             C = kloop.cluster_size(B) if C is None else C
@@ -816,7 +990,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     return out
 
 
-def phase6(matrix, mp2018, ptgp, failures, card):
+def phase6(matrix, mp2018, ptgp, mp_packed, failures, card):
     """The crystal loop-forward kernel against its plain version at 1, 2 and
     4 blocks per structure (a small matrix at dropout 0 and 0.1, two atoms
     per chunk, a one-atom structure, fewer atoms than blocks, a ragged
@@ -873,6 +1047,14 @@ def phase6(matrix, mp2018, ptgp, failures, card):
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                   min_atoms=20)
     compare("ptgp full width", ptgp, ptgp_inputs, clusters=(1, 2), relaunches=4)
+    # packed slots: the small matrix in slots of 16 rows, and MP2018-like crystals of
+    # 20-90 sites at packing capacity 96, up to 8 segments a slot, at 1, 2 and 4 blocks
+    prng = np.random.default_rng(60)
+    for name, cfm, mrelu in matrix:
+        compare(f"{name}", cfm, pack_batch(synthetic_batch(prng, 12, 8, 8, cfm.use_ring,
+                                                           cfm.feature == "cgcnn"), 16),
+                mrelu, 0.1, relaunches=2)
+    compare("mp2018 full width capacity 96", mp2018, mp_packed, relaunches=4)
 
     mp = time_loop_forward("mp2018", mp2018, mp_inputs, card, clusters=(2, 1))
     timing = dict(mp[2], ms_one_block=mp[1]["ms"])
@@ -880,6 +1062,9 @@ def phase6(matrix, mp2018, ptgp, failures, card):
     (pt,) = time_loop_forward("ptgp", ptgp, ptgp_inputs, card).values()
     timing.update(ms_batch_doubled=doubled["ms"], ms_ptgp=pt["ms"], plain_ms_ptgp=pt["plain_ms"],
                   bound_ms_ptgp=pt["bound_ms"])
+    (pk,) = time_loop_forward("mp2018 capacity 96" + packed_label(mp_packed), mp2018, mp_packed,
+                              card).values()
+    timing["packed"] = {k: pk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "flops")}
     print(f"scann_loop at mp2018: B=128 ({doubled['cluster']} block per structure) takes "
           f"{doubled['ms'] / timing['ms']:.2f}x the time of B=64 ({timing['cluster']} blocks per "
           f"structure) for twice the work; one block per structure at B=64 "
@@ -1151,7 +1336,7 @@ def phase8(mp2018, run_dir, failures, card):
     return loop_n, layer_n
 
 
-def phase9(matrix, mp2018, ptgp, failures, card):
+def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
     """The crystal loop-backward kernel against its plain version (the eager
     training forward under torch.autograd, same Philox masks), at 1, 2 and 4
     blocks per structure: a small matrix in cotangent and one-shot mode at
@@ -1168,6 +1353,7 @@ def phase9(matrix, mp2018, ptgp, failures, card):
     from scann_tpu_torch.models.scann import init_params
 
     rng = np.random.default_rng(9)
+    prng = np.random.default_rng(90)       # the packed batches' draws
     worst = 0.0
     every = kloop.CLUSTER_SIZES[::-1]      # (1, 2, 4)
 
@@ -1175,12 +1361,14 @@ def phase9(matrix, mp2018, ptgp, failures, card):
                 clusters=None):
         nonlocal worst
         B, M = x["atom_mask"].shape[:2]
+        S = max(kfwd.segment_count(x), 1)
+        r = prng if S > 1 else rng
         p = init_params(cfm, torch.Generator().manual_seed(9), "cuda")
-        y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+        y = torch.from_numpy(r.normal(size=(B, S)).astype(np.float32)).cuda()
         ct = None
         if cotangent:
-            ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
-                  torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda())
+            ct = (torch.from_numpy(r.normal(size=(B, S)).astype(np.float32)).cuda(),
+                  torch.from_numpy(r.normal(size=(B, M, 1)).astype(np.float32)).cuda())
         worst = max(worst, hold_loop_backward(f"phase 9 {name}", cfm, p, x, y, mrelu, rate, 11,
                                               failures, ct, relaunches, clusters))
 
@@ -1223,18 +1411,34 @@ def phase9(matrix, mp2018, ptgp, failures, card):
     ptgp_inputs = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                   min_atoms=20)
     compare("ptgp full width", ptgp, ptgp_inputs, rate=0.1, relaunches=4, clusters=(1, 2))
+    # packed slots: the small matrix in slots of 16 rows; the flagship QM9 packing
+    # (capacity 48, whose step this kernel takes) and MP2018-like crystals at capacity
+    # 96, up to 8 segments a slot, at 1, 2 and 4 blocks per structure
+    for name, cfm, mrelu in matrix:
+        compare(name, cfm, pack_batch(synthetic_batch(prng, 12, 8, 8, cfm.use_ring,
+                                                      cfm.feature == "cgcnn"), 16),
+                mrelu, 0.1, relaunches=2, clusters=every)
+    compare("qm9 full width capacity 48", qm9_model, packed_batches["qm9"], rate=0.1,
+            relaunches=4, clusters=every)
+    compare("mp2018 full width capacity 96", mp2018, packed_batches["mp2018"], rate=0.1,
+            relaunches=4, clusters=every)
 
     timing = None
+    packed_timing = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, cfm, x in (("mp2018", mp2018, mp_inputs), ("ptgp", ptgp, ptgp_inputs),
-                         ("mp2018", mp2018, mp16_inputs)):
+                         ("mp2018", mp2018, mp16_inputs),
+                         ("qm9 capacity 48", qm9_model, packed_batches["qm9"]),
+                         ("mp2018 capacity 96", mp2018, packed_batches["mp2018"])):
         params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
         packed = kfwd.pack_params(params, cfm)
         B, M = x["atom_mask"].shape[:2]
         N = x["neighbors"].shape[2]
+        S = max(kfwd.segment_count(x), 1)
         C = kloop.cluster_size(B)
-        y = torch.from_numpy(np.random.default_rng(1).normal(size=B).astype(np.float32)).cuda()
-        kloop.check_backward_supported(cfm, M, N, x)
+        y = torch.from_numpy(np.random.default_rng(1).normal(size=(B, S)).astype(np.float32)
+                             ).cuda()
+        kloop.check_backward_supported(cfm, M, N)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
         ms, plain_ms = in_turns_ms(
@@ -1244,10 +1448,11 @@ def phase9(matrix, mp2018, ptgp, failures, card):
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B * S + 4 * (P + B * S)
         bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         scratch_bytes = tensor_bytes(scratch.values())
-        print(f"scann_loop_backward at {name} B={B} M={M} N={N} L={cfm.n_attention} (dropout "
+        print(f"scann_loop_backward at {name} B={B} M={M} N={N}{packed_label(x)} "
+              f"L={cfm.n_attention} (dropout "
               f"0.1, one-shot, with its row reduction; timed in turns: plain, kernel, kernel, "
               f"plain): kernel {ms:.4f} ms on {B} clusters of {C} blocks on {sms} SMs "
               f"({kloop.max_active_clusters(cfm, B, M, N, C)} such clusters run at once), plain "
@@ -1256,7 +1461,10 @@ def phase9(matrix, mp2018, ptgp, failures, card):
               f"of recompute, which the bound does not count; scratch "
               f"{scratch_bytes / 2 ** 20:.0f} MiB  [{card}]", flush=True)
         del scratch
-        if timing is None:
+        if S > 1:
+            packed_timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                   "bound_by": by, "flops": flops}
+        elif timing is None:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                       "flops": flops, "recompute_flops": recompute, "cluster": C}
             # what the cluster gives: the same batch at one block per structure, and the
@@ -1283,6 +1491,7 @@ def phase9(matrix, mp2018, ptgp, failures, card):
           f"would cost a second wave, not the result)", flush=True)
     print(f"phase 9: worst loop-backward abs error (pred and gradients) {worst:.3e}  [{card}]",
           flush=True)
+    timing["packed"] = packed_timing
     return worst, timing
 
 
@@ -1508,7 +1717,9 @@ def phase10(mp2018, failures, card):
         failures.append(f"per-layer training step: route {route}, {layer_n} layer launches, "
                         f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
                         f"{g_rel:.3e} at {g_key}")
-    return loop_bwd, trainer.workdir
+    return loop_bwd, trainer.workdir, {"data": (energy, nbr), "work": work, "step_ms": med,
+                                       "structures_s": n_train / hist["epoch_time"][1],
+                                       "name": "phase 10"}
 
 
 def main():
@@ -1546,7 +1757,7 @@ def main():
             torch.cuda.synchronize()
             pred0, ga0 = kfwd.reference_scann_forward(params, inputs, cfm, mrelu)
         line = [name, f"B={inputs['atomic'].shape[0]} M={inputs['atomic'].shape[1]} "
-                      f"N={inputs['neighbors'].shape[2]}"]
+                      f"N={inputs['neighbors'].shape[2]}{packed_label(inputs)}"]
         for what, got, want in (("pred", pred, pred0), ("ga", ga, ga0)):
             ab, rel, ok = errors(got, want)
             max_err = max(max_err, ab)
@@ -1582,6 +1793,17 @@ def main():
     lone["neighbor_mask"][0] = 0.0
     compare("qm9 one-atom molecule", qm9_model, lone)
     compare("qm9 widest rung M=64", qm9_model, synthetic_batch(rng, 32, 64, 16))
+    # packed slots (structure packing): the small matrix in slots of 16 rows, and
+    # molecules of 3-29 atoms at the flagship's packing capacity 48 and the derived 32,
+    # up to 8 segments a slot
+    for name, cfm, mrelu in matrix:
+        compare(f"{name} packed", cfm,
+                pack_batch(synthetic_batch(rng, 12, 8, 8, cfm.use_ring, cfm.feature == "cgcnn"),
+                           16), mrelu)
+    qm9_mols = synthetic_batch(rng, 256, 29, 16)
+    packed_qm9 = {cap: pack_batch(qm9_mols, cap) for cap in (48, 32)}
+    for cap, xp in packed_qm9.items():
+        compare(f"qm9 full width capacity {cap}", qm9_model, xp)
 
     # ---- phase 2: the serving path, through HTTP --------------------------
     from scann_tpu_torch.api import Scann
@@ -1703,25 +1925,57 @@ def main():
           f"{fwd_bound:.4f} ms by {fwd_by} ({100 * fwd_bound / kernel_ms:.1f}% of it reached)  "
           f"[{card}]", flush=True)
     bwd_time = time_backward(qm9_model, params, packed, qm9_inputs, card)
+    # the segmented kernels at the packed shapes: #1 at capacity 48, #2 at 32
+    xp = packed_qm9[48]
+    with torch.inference_mode():
+        kfwd._check_inputs(xp, qm9_model, packed["wde"].device)
+        p_ms, p_plain_ms = in_turns_ms(lambda: kfwd.reference_scann_forward(params, xp, qm9_model),
+                                       lambda: kfwd._launch(packed, xp, qm9_model, False), 2, 5)
+    B, M = xp["atomic"].shape
+    N = xp["neighbors"].shape[2]
+    p_flops = kfwd.forward_flops(qm9_model, B, M, N)
+    p_bound, p_by = bound_ms(p_flops, tensor_bytes(xp.values(), packed.values())
+                             + 4 * (B * xp["segment_onehot"].shape[-1] + B * M),
+                             kfwd.forward_fp32_flops(qm9_model, B, M, N))
+    print(f"scann_forward at B={B} M={M} N={N}{packed_label(xp)} (timed in turns: plain, "
+          f"kernel, kernel, plain): kernel {p_ms:.4f} ms, plain {p_plain_ms:.4f} ms, "
+          f"{p_flops:.4e} FLOP, bound {p_bound:.4f} ms by {p_by} "
+          f"({100 * p_bound / p_ms:.1f}% of it reached)  [{card}]", flush=True)
+    fwd_packed_time = {"ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound,
+                       "bound_by": p_by, "flops": p_flops}
+    bwd_packed_time = time_backward(qm9_model, params, packed, packed_qm9[32], card)
 
     # ---- phase 4: the backward kernel against its plain version -------------
     check_products(failures, card)
-    bwd_err = phase4(matrix, qm9_model, qm9_inputs, failures, card)
+    bwd_err = phase4(matrix, qm9_model, qm9_inputs, packed_qm9, failures, card)
 
-    # ---- phase 5: the training path ------------------------------------------
-    train_launches = phase5(qm9_model, failures, card)
+    # ---- phase 5: the training path, then with structure packing --------------
+    train_launches, qm9_run = phase5(qm9_model, failures, card)
+    packed_launches = train_packed("phase 5 packed capacity 48", qm9_model, qm9_run, 48, 3, 128,
+                                   ("fused", "loop"), failures, card, compare_unpacked=True)
+    derived = train_packed("phase 5 packed derived capacity", qm9_model, qm9_run, None, 1, 128,
+                           ("fused", "fused"), failures, card)
+    packed_launches = {k: v + derived[k] for k, v in packed_launches.items()}
 
     # ---- phases 6-8: crystals ---------------------------------------------------
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     mp2018, ptgp = crystal_models()
-    loop_err, loop_time = phase6(matrix, mp2018, ptgp, failures, card)
+    mp_packed = pack_batch(synthetic_batch(np.random.default_rng(66), 64, 90, 32,
+                                           n_atoms=mp2018.n_atoms, min_atoms=20), 96)
+    loop_err, loop_time = phase6(matrix, mp2018, ptgp, mp_packed, failures, card)
     layer_err, layer_time = phase7(mp2018, failures, card)
 
     # ---- phases 9-10: crystal training, then phase 8 serves what phase 10 trained --
-    loop_bwd_err, loop_bwd_time = phase9(matrix, mp2018, ptgp, failures, card)
-    loop_bwd_launches, run_dir = phase10(mp2018, failures, card)
+    loop_bwd_err, loop_bwd_time = phase9(matrix, mp2018, ptgp, qm9_model,
+                                         {"qm9": packed_qm9[48], "mp2018": mp_packed}, failures,
+                                         card)
+    loop_bwd_launches, run_dir, crystal_run = phase10(mp2018, failures, card)
+    crystal_packed = train_packed("phase 10 packed capacity 96", mp2018, crystal_run, 96, 1, 64,
+                                  ("loop", "loop"), failures, card, neighbors_multiple=32,
+                                  compare_unpacked=True)
+    packed_launches = {k: v + crystal_packed[k] for k, v in packed_launches.items()}
     loop_launches, layer_launches = phase8(mp2018, run_dir, failures, card)
 
     if failures:
@@ -1729,12 +1983,16 @@ def main():
         return 1
     from scann_tpu_torch.kernels import scann_backward as kbwd
 
+    # "packed_launches": the packed training paths' launches (phase 5 packed at
+    # capacities 48 and 32, phase 10 packed at 96); "packed": the segmented
+    # kernel timed at a packed shape
     kernels = [{
         "name": "scann_forward", "route": "cuda", "source": kfwd.SOURCE,
         "replaces": kfwd.REPLACES, "launches": launches,
         "max_abs_err": max(max_err, bwd_err["forward_dropout"]), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
         "library_ms": None, "flops": flops,
+        "packed_launches": packed_launches["scann_forward"], "packed": fwd_packed_time,
     }, {
         "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,
         "replaces": kbwd.REPLACES, "launches": train_launches,
@@ -1742,14 +2000,18 @@ def main():
         "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
         "bound_by": bwd_time["bound_by"], "library_ms": None, "flops": bwd_time["flops"],
         "recompute_flops": bwd_time["recompute_flops"],
+        "packed_launches": packed_launches["scann_backward"],
+        "packed": {k: bwd_packed_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "flops")},
     }, {
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
-        "library_ms": None, **loop_time,
+        "library_ms": None, "packed_launches": packed_launches["scann_loop"], **loop_time,
     }, {
         "name": "scann_loop_backward", "route": "cuda", "source": kloop.BACKWARD_SOURCE,
         "replaces": kloop.BACKWARD_REPLACES, "launches": loop_bwd_launches,
-        "max_abs_err": loop_bwd_err, "library_ms": None, **loop_bwd_time,
+        "max_abs_err": loop_bwd_err, "library_ms": None,
+        "packed_launches": packed_launches["scann_loop_backward"], **loop_bwd_time,
     }, {
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,

@@ -3,7 +3,9 @@
 ``Scann`` holds one config and, in its ``Trainer``, one set of parameters
 on one device. It trains and evaluates on a dataset pair:
 
-    prepare_dataset (load, standardize, pad into (M, N) buckets, split)
+    prepare_dataset (load, standardize, pad into (M, N) buckets or, with
+      ``tpu.structure_packing``, bin-pack into slots of several structures;
+      split)
       -> train (on the GPU one launch per step of the molecule backward
          kernel or, for crystal buckets, of the loop backward kernel; the
          per-layer model under autograd beyond both: ``Trainer.train_route``)
@@ -23,9 +25,9 @@ The device defaults to CUDA, and a missing CUDA device raises: nothing
 falls back to the CPU unless the caller asks for ``device="cpu"``.
 Weights come from training, a torch checkpoint of this package
 (``load_model_infer``), a reference Keras H5 (``load_pretrained``, weights
-only) or any flax-layout tree (``load_params``). Structure packing, the
-orbax checkpoint format and the compiled-executable cache of the JAX
-package are not part of the port yet.
+only) or any flax-layout tree (``load_params``). The orbax checkpoint format
+and the compiled-executable cache of the JAX package are not part of the
+port yet.
 """
 
 from __future__ import annotations
@@ -39,7 +41,14 @@ import torch
 
 from scann_tpu_torch.compat.from_jax import params_from_jax
 from scann_tpu_torch.config import ScannConfig, load_config
-from scann_tpu_torch.data.pipeline import load_dataset, pack_dataset, split_data, subset_buckets
+from scann_tpu_torch.data.packing import pack_dataset_slots
+from scann_tpu_torch.data.pipeline import (
+    build_csr,
+    load_dataset,
+    pack_dataset,
+    split_data,
+    subset_buckets,
+)
 from scann_tpu_torch.data.structure import Structure
 from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors
 from scann_tpu_torch.models.scann import check_index_ranges
@@ -234,11 +243,16 @@ class Scann:
         """Load the configured dataset pair, standardize the target
         (``hyper.scaler``), pad it into (M, N) buckets and, with ``split``,
         carve train / valid / test out of them (returns their indices);
-        without, returns the buckets of the whole dataset."""
+        without, returns the buckets of the whole dataset.
+
+        With ``tpu.structure_packing`` each split is one ``PackedSlots`` of
+        several structures per slot (``data/packing.py``) instead, as
+        ``scann_tpu/api.py:282-351`` packs them: capacity, neighbour width
+        and segment count come from the whole dataset's CSR, so every split
+        has one (M, N, S) shape; ``tpu.packing_capacity`` overrides the
+        capacity (at least the largest structure, rounded up to
+        ``tpu.atoms_pad_multiple``) and ``tpu.pack_max_segments`` is S."""
         hyper, cfm = self.config.hyper, self.config.model
-        if self.config.tpu.structure_packing:
-            raise NotImplementedError("tpu.structure_packing: structure packing is not "
-                                      "ported yet")
         records, neighbors = load_dataset(hyper.data_energy_path, hyper.data_nei_path,
                                           hyper.target, use_ref=hyper.use_ref,
                                           use_ring=cfm.use_ring)
@@ -256,6 +270,8 @@ class Scann:
                 r["target"] = (r["target"] - mean) / std
             hyper.target_mean, hyper.target_std = mean, std
         hyper.data_size = len(records)
+        if self.config.tpu.structure_packing:
+            return self._prepare_packed(records, neighbors, split)
         buckets = pack_dataset(
             records, neighbors, g_update=cfm.g_update, feature=cfm.feature,
             use_ring=cfm.use_ring, atoms_multiple=self.config.tpu.atoms_pad_multiple,
@@ -272,6 +288,47 @@ class Scann:
         self.train_buckets = subset_buckets(buckets, tr)
         self.valid_buckets = subset_buckets(buckets, va)
         self.test_buckets = subset_buckets(buckets, te)
+        return tr, va, te
+
+    def _prepare_packed(self, records, neighbors, split: bool):
+        """The packed branch of ``prepare_dataset``."""
+        hyper, cfm, tpu = self.config.hyper, self.config.model, self.config.tpu
+        csr = build_csr(records, neighbors, hyper.data_nei_path + ".csr.npz",
+                        source_path=hyper.data_nei_path)
+        max_atoms = int(np.diff(csr.atom_offsets).max())
+        capacity = _round_up(max_atoms, tpu.atoms_pad_multiple)
+        if tpu.packing_capacity is not None:
+            if tpu.packing_capacity < max_atoms:
+                raise ValueError(f"tpu.packing_capacity={tpu.packing_capacity} is below the "
+                                 f"dataset's largest structure ({max_atoms} atoms)")
+            capacity = _round_up(int(tpu.packing_capacity), tpu.atoms_pad_multiple)
+        n_cap = _round_up(max(int(np.diff(csr.nbr_offsets).max()), 1),
+                          tpu.neighbors_pad_multiple)
+
+        def pack(sub, name):
+            sub = np.asarray(sub, np.int64)
+            p = pack_dataset_slots(
+                [records[i] for i in sub], [neighbors[i] for i in sub], csr=csr.subset(sub),
+                g_update=cfm.g_update, feature=cfm.feature, use_ring=cfm.use_ring,
+                atoms_multiple=tpu.atoms_pad_multiple,
+                neighbors_multiple=tpu.neighbors_pad_multiple, capacity=capacity,
+                max_segments=tpu.pack_max_segments, orig_indices=sub,
+                neighbors_capacity=n_cap, segments_capacity=tpu.pack_max_segments)
+            print(f"Packed {name} split: {p.num_structures} structures in {p.num_slots} "
+                  f"slots of {capacity} rows ({p.occupancy:.1%} occupancy, "
+                  f"<= {p.num_segments} segments/slot)")
+            return [p]
+
+        if not split:
+            self._buckets = pack(np.arange(len(records)), "full")
+            return self._buckets
+        tr, va, te = split_data(len(records), test_percent=hyper.test_percent,
+                                train_size=hyper.train_size, test_size=hyper.test_size,
+                                seed=hyper.seed)
+        print(f"Split: {len(tr)} train / {len(va)} valid / {len(te)} test")
+        self.train_buckets = pack(tr, "train")
+        self.valid_buckets = pack(va, "valid")
+        self.test_buckets = pack(te, "test")
         return tr, va, te
 
     def train(self, epochs: Optional[int] = None, resume: bool = False):
@@ -301,8 +358,8 @@ class Scann:
         return result
 
     def predict_data(self, buckets=None, with_ga: bool = False):
-        """Predict over buckets, un-standardized, in dataset order; defaults
-        to the whole prepared dataset."""
+        """Predict over buckets (or packed slots), un-standardized, in dataset
+        order; defaults to the whole prepared dataset."""
         if buckets is None:
             if self._buckets is not None:
                 buckets = self._buckets

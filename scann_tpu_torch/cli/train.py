@@ -3,13 +3,15 @@
     python -m scann_tpu_torch.cli.train <target> <config.yaml> \\
         [--use_ring] [--use_ref] [--use_drop] [--feature atomic|cgcnn] \\
         [--pretrained W.h5] [--mode train|eval] [--epochs N] [--resume] \\
-        [--device cuda]
+        [--structure-packing] [--device cuda]
 
 Flags merge into the config as in the reference ``train.py:37-43``. The
 run directory (``{save_path}_{target}``) gets config.yaml, metrics.jsonl,
-checkpoints/{best,last}.pt, report.txt and hist_data.json. The flags of
-parts not ported yet (--structure-packing, --exec-cache, --distributed,
---profile) are accepted and refused with a message.
+checkpoints/{best,last}.pt, report.txt and hist_data.json.
+``--structure-packing`` sets ``tpu.structure_packing``: several structures
+per slot (``data/packing.py``). The flags of parts not ported yet
+(--exec-cache, --distributed, --profile) are accepted and refused with a
+message.
 """
 
 import argparse
@@ -44,14 +46,15 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="continue from the run's 'last' checkpoint")
     parser.add_argument("--device", type=str, default="cuda")
-    for flag in ("--structure-packing", "--distributed"):
-        parser.add_argument(flag, action="store_true", help="not ported yet")
+    parser.add_argument("--structure-packing", action="store_true",
+                        help="bin-pack several structures per padded slot")
+    parser.add_argument("--distributed", action="store_true", help="not ported yet")
     parser.add_argument("--exec-cache", type=str, nargs="?", const="auto", default=None,
                         metavar="DIR", help="not ported yet")
     parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                         help="not ported yet")
     args = parser.parse_args(argv)
-    for name in ("structure_packing", "distributed", "exec_cache", "profile"):
+    for name in ("distributed", "exec_cache", "profile"):
         if getattr(args, name):
             parser.error(f"--{name.replace('_', '-')} is not ported to the PyTorch port yet")
 
@@ -66,6 +69,8 @@ def main(argv=None):
     config.hyper.use_ref = args.use_ref
     config.hyper.target = args.target
     config.hyper.pretrained = args.pretrained
+    if args.structure_packing:
+        config.tpu.structure_packing = True
 
     scann = Scann(config, pretrained=args.pretrained, device=args.device)
     print(f"Loading dataset for target {args.target}")

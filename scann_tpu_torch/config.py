@@ -112,20 +112,16 @@ class TpuConfig:
     device_resident_data: bool = True  # keep the whole padded dataset in HBM
     donate_state: bool = True
     # STRUCTURE PACKING (data/packing.py): bin-pack several structures per
-    # padded (M, N) slot — ~1.5x structures/step at QM9-like size spreads
-    # (>92% row occupancy vs ~75% bucketed) with per-structure math exactly
-    # equal to the unpacked path (segment-aware GA readout). All three
-    # splits pack; eval/predict are segment-aware end to end.
+    # padded (M, N) slot, with per-structure math equal to the unpacked path
+    # (segment-aware GA readout). All three splits pack; eval and predict
+    # are segment-aware end to end.
     structure_packing: bool = False
-    pack_max_segments: int = 8     # max structures per packed slot
+    pack_max_segments: int = 8     # max structures per packed slot (S)
     # Slot capacity (rows) override for structure packing. None (default)
     # derives it from the dataset's max structure size rounded to
-    # atoms_pad_multiple (QM9: 29 -> 32). Larger capacities pack denser
-    # (QM9 at 40: 99.6% occupancy vs 92.4% at 32) but shrink the backward
-    # batch tile; with the 3-rung in the tile ladder, capacity 40 measured
-    # +2.2% over 32 at the flagship shape
-    # (benchmarks/packing_capacity_sweep.py). Must be >= the derived
-    # minimum; values below it raise at prepare_dataset.
+    # atoms_pad_multiple (QM9: 29 -> 32); a larger capacity packs denser.
+    # Must be >= the largest structure; values below it raise at
+    # prepare_dataset.
     packing_capacity: Optional[int] = None
     # Preserve the reference recipe's EFFECTIVE batch: hyper.batch_size
     # counts STRUCTURES, so the Trainer batches round(batch_size / packing

@@ -2,8 +2,8 @@
 // gradient of one batch, one CUDA block per molecule, plus a second kernel
 // that sums the per-molecule gradients in a fixed order.
 //
-// Replaces the TPU kernel scann_tpu/kernels/scann_backward.py:_kernel for
-// unpacked batches. Given the output cotangents (d pred [B], d ga [B, M]),
+// Replaces the TPU kernel scann_tpu/kernels/scann_backward.py:_kernel. Given
+// the output cotangents (d pred [B], d ga [B, M]),
 // or in one-shot training mode the targets (the residual pred - t is then
 // formed here; mrelu is straight-through, so no gate), each block
 // recomputes its molecule's forward with the training dropout of
@@ -14,7 +14,11 @@
 // attention mask, the context from the dropped-out ones), key and query,
 // the SCANN+ geometry update or the SCANN filter, and the neighbour gather;
 // then the embedding (one-hot, cgcnn, ring) and the SCANN+ neighbor_d /
-// neighbor_w geometry embedding.
+// neighbor_w geometry embedding. For a packed batch (structure packing: S > 0
+// segments per slot, each row's segment in seg [B, M], -1 on padding) d pred,
+// the targets and pred are [B, S], and the readout and its backward run per
+// segment (scann_common.cuh's seg_* routines; scann_backward.py:289-389): the
+// one-shot residual of a segment without atoms is zeroed.
 //
 // Bound. backward_flops (kernels/scann_backward.py) counts the 1.50e11
 // FLOP that the function needs per QM9 training batch (B=128, M=32, N=16,
@@ -98,10 +102,12 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.ldf = a.cgcnn ? round4(a.F) : 0;
   const int chunk = p.rows * p.lda + 3 * p.rows * p.ldu + 3 * round4(p.rows * a.H);
   const int readout = 5 * p.MW + 4 * p.wd + 4 * round4(a.M) + 3 * round4(a.O) + 4;
+  const int seg_readout = 5 * p.MW + seg_backward_floats(a.S, p.wd, a.M, a.O);
   const int layer = 6 * p.MW + round4(a.M);
   const int embed = 2 * a.M * p.lde + a.M * p.ldf + p.MW;
   int w = chunk;
   w = readout > w ? readout : w;
+  if (a.S) w = seg_readout > w ? seg_readout : w;
   w = layer > w ? layer : w;
   w = embed > w ? embed : w;
   p.work = w;
@@ -457,126 +463,141 @@ scann_backward_kernel(const Args a) {
                                           v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
     __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += am[m] * RC[m * wd + g];
-      qsum[g] = s;
-    }
-    __syncthreads();
-    for (int m = warp; m < M; m += kWarps) {
-      const float mm = am[m];
-      float cross = 0.f, diag = 0.f;
-      for (int g = lane; g < G; g += 32) {
-        const float mk = mm * RD[m * wd + g];
-        cross += mk * qsum[g];
-        diag += mk * (mm * RC[m * wd + g]);
+    if (a.S) {
+      // a packed slot: the readout and its backward per segment (scann_common.cuh)
+      const int* sid = a.seg + (size_t)b * M;
+      const SegVectors v = seg_vectors(work + 5 * MW, a.S, wd, M, O, true);
+      seg_queries(v, a.S, RC, wd, RD, wd, am, sid, 0, M, G, true);
+      __syncthreads();
+      seg_readout_backward(v, RD, wd, am, sid, M, a.S, G, O, a.ga_norm, a.mrelu, a.one_shot,
+                           a.ct + (size_t)b * a.S,
+                           a.one_shot ? nullptr : a.ct_ga + (size_t)b * M, a.wbf, a.bbf, a.wp,
+                           a.bp, a.pred + (size_t)b * a.S, 1.f, grad(gWP), grad(gBP),
+                           grad(gWBF), grad(gBBF));
+      seg_query_key_grads(v, RC, wd, RD, wd, am, sid, 0, M, G);
+      __syncthreads();
+    } else {
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += am[m] * RC[m * wd + g];
+        qsum[g] = s;
       }
-      cross = warp_sum(cross);
-      diag = warp_sum(diag);
-      if (lane == 0) agg0[m] = mm * (cross - diag);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // M <= 64: lane holds atoms lane and lane + 32
-      const bool v0 = lane < M, v1 = lane + 32 < M;
-      float s0 = v0 ? agg0[lane] : 0.f, s1 = v1 ? agg0[lane + 32] : 0.f;
-      float nrm = 1.f;
-      if (a.ga_norm) {
-        nrm = sqrtf(warp_sum(s0 * s0 + s1 * s1));
-        if (nrm == 0.f) nrm = 1.f;   // single-atom structure: zero sum
-        s0 /= nrm;
-        s1 /= nrm;
+      __syncthreads();
+      for (int m = warp; m < M; m += kWarps) {
+        const float mm = am[m];
+        float cross = 0.f, diag = 0.f;
+        for (int g = lane; g < G; g += 32) {
+          const float mk = mm * RD[m * wd + g];
+          cross += mk * qsum[g];
+          diag += mk * (mm * RC[m * wd + g]);
+        }
+        cross = warp_sum(cross);
+        diag = warp_sum(diag);
+        if (lane == 0) agg0[m] = mm * (cross - diag);
       }
-      s0 = v0 ? s0 + (1.0f - am[lane]) * -1e9f : -INFINITY;
-      s1 = v1 ? s1 + (1.0f - am[lane + 32]) * -1e9f : -INFINITY;
-      const float mx = warp_max(fmaxf(s0, s1));
-      const float e0 = v0 ? expf(s0 - mx) : 0.f, e1 = v1 ? expf(s1 - mx) : 0.f;
-      const float tot = warp_sum(e0 + e1);
-      if (v0) ga[lane] = e0 / tot;
-      if (v1) ga[lane + 32] = e1 / tot;
-      if (lane == 0) scal[0] = nrm;
-    }
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += am[m] * ga[m] * RD[m * wd + g];
-      struc[g] = s;
-    }
-    __syncthreads();
-    tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
-      const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
-                                   v.w + a.bbf[c + 3]);
-      store4(sbf + c, s);
-      store4(sb + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
-    });
-    __syncthreads();
-    if (warp == 0) {
-      float p = 0.f;
-      for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
-      p = warp_sum(p) + a.bp[0];
-      if (a.mrelu) p = fmaxf(p, 0.f);
-      if (lane == 0) {
-        a.pred[b] = p;
-        scal[1] = a.one_shot ? p - a.ct[b] : a.ct[b];   // straight-through mrelu
+      __syncthreads();
+      if (warp == 0) {
+        // M <= 64: lane holds atoms lane and lane + 32
+        const bool v0 = lane < M, v1 = lane + 32 < M;
+        float s0 = v0 ? agg0[lane] : 0.f, s1 = v1 ? agg0[lane + 32] : 0.f;
+        float nrm = 1.f;
+        if (a.ga_norm) {
+          nrm = sqrtf(warp_sum(s0 * s0 + s1 * s1));
+          if (nrm == 0.f) nrm = 1.f;   // single-atom structure: zero sum
+          s0 /= nrm;
+          s1 /= nrm;
+        }
+        s0 = v0 ? s0 + (1.0f - am[lane]) * -1e9f : -INFINITY;
+        s1 = v1 ? s1 + (1.0f - am[lane + 32]) * -1e9f : -INFINITY;
+        const float mx = warp_max(fmaxf(s0, s1));
+        const float e0 = v0 ? expf(s0 - mx) : 0.f, e1 = v1 ? expf(s1 - mx) : 0.f;
+        const float tot = warp_sum(e0 + e1);
+        if (v0) ga[lane] = e0 / tot;
+        if (v1) ga[lane + 32] = e1 / tot;
+        if (lane == 0) scal[0] = nrm;
       }
-    }
-    __syncthreads();
-    const float ctp = scal[1], nrm = scal[0];
-    if (tid == 0) grad(gBP)[0] = ctp;
-    for (int o = tid; o < O; o += kThreads) {
-      grad(gWP)[o] = sb[o] * ctp;
-      dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * O; i += kThreads) {
-      const int g = i / O, o = i - g * O;
-      grad(gWBF)[i] = struc[g] * dsbf[o];
-    }
-    for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o];
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
-      dstruc[g] = s;
-    }
-    __syncthreads();
-    for (int m = warp; m < M; m += kWarps) {
-      float s = 0.f;
-      for (int g = lane; g < G; g += 32) s += am[m] * RD[m * wd + g] * dstruc[g];
-      s = warp_sum(s);
-      if (lane == 0) dga[m] = s + (a.one_shot ? 0.f : a.ct_ga[(size_t)b * M + m]);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const bool v0 = lane < M, v1 = lane + 32 < M;
-      const float g0 = v0 ? ga[lane] : 0.f, g1 = v1 ? ga[lane + 32] : 0.f;
-      const float d0 = v0 ? dga[lane] : 0.f, d1 = v1 ? dga[lane + 32] : 0.f;
-      const float s = warp_sum(g0 * d0 + g1 * d1);
-      float da0 = g0 * (d0 - s), da1 = g1 * (d1 - s);   // softmax over the atoms
-      if (a.ga_norm) {
-        const float a0 = v0 ? agg0[lane] : 0.f, a1 = v1 ? agg0[lane + 32] : 0.f;
-        const float inner = warp_sum(a0 * da0 + a1 * da1);
-        da0 = da0 / nrm - a0 * (inner / (nrm * nrm * nrm));
-        da1 = da1 / nrm - a1 * (inner / (nrm * nrm * nrm));
+      __syncthreads();
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += am[m] * ga[m] * RD[m * wd + g];
+        struc[g] = s;
       }
-      if (v0) dcd[lane] = da0 * am[lane];
-      if (v1) dcd[lane + 32] = da1 * am[lane + 32];
+      __syncthreads();
+      tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+        const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
+                                     v.w + a.bbf[c + 3]);
+        store4(sbf + c, s);
+        store4(sb + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
+      });
+      __syncthreads();
+      if (warp == 0) {
+        float p = 0.f;
+        for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
+        p = warp_sum(p) + a.bp[0];
+        if (a.mrelu) p = fmaxf(p, 0.f);
+        if (lane == 0) {
+          a.pred[b] = p;
+          scal[1] = a.one_shot ? p - a.ct[b] : a.ct[b];   // straight-through mrelu
+        }
+      }
+      __syncthreads();
+      const float ctp = scal[1], nrm = scal[0];
+      if (tid == 0) grad(gBP)[0] = ctp;
+      for (int o = tid; o < O; o += kThreads) {
+        grad(gWP)[o] = sb[o] * ctp;
+        dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
+      }
+      __syncthreads();
+      for (int i = tid; i < G * O; i += kThreads) {
+        const int g = i / O, o = i - g * O;
+        grad(gWBF)[i] = struc[g] * dsbf[o];
+      }
+      for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o];
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
+        dstruc[g] = s;
+      }
+      __syncthreads();
+      for (int m = warp; m < M; m += kWarps) {
+        float s = 0.f;
+        for (int g = lane; g < G; g += 32) s += am[m] * RD[m * wd + g] * dstruc[g];
+        s = warp_sum(s);
+        if (lane == 0) dga[m] = s + (a.one_shot ? 0.f : a.ct_ga[(size_t)b * M + m]);
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const bool v0 = lane < M, v1 = lane + 32 < M;
+        const float g0 = v0 ? ga[lane] : 0.f, g1 = v1 ? ga[lane + 32] : 0.f;
+        const float d0 = v0 ? dga[lane] : 0.f, d1 = v1 ? dga[lane + 32] : 0.f;
+        const float s = warp_sum(g0 * d0 + g1 * d1);
+        float da0 = g0 * (d0 - s), da1 = g1 * (d1 - s);   // softmax over the atoms
+        if (a.ga_norm) {
+          const float a0 = v0 ? agg0[lane] : 0.f, a1 = v1 ? agg0[lane + 32] : 0.f;
+          const float inner = warp_sum(a0 * da0 + a1 * da1);
+          da0 = da0 / nrm - a0 * (inner / (nrm * nrm * nrm));
+          da1 = da1 / nrm - a1 * (inner / (nrm * nrm * nrm));
+        }
+        if (v0) dcd[lane] = da0 * am[lane];
+        if (v1) dcd[lane + 32] = da1 * am[lane + 32];
+      }
+      __syncthreads();
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * RD[m * wd + g]);
+        dqsum[g] = s;
+      }
+      __syncthreads();
+      for (int i = tid; i < M * G; i += kThreads) {
+        const int m = i / G, g = i - m * G;
+        const float mm = am[m], mk = mm * RD[m * wd + g], mq = mm * RC[m * wd + g];
+        const float dmk = dcd[m] * qsum[g] - dcd[m] * mq;
+        const float dmq = -dcd[m] * mk + dqsum[g];
+        RC[m * wd + g] = mm * dmq;
+        RD[m * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * RD[m * wd + g]);
-      dqsum[g] = s;
-    }
-    __syncthreads();
-    for (int i = tid; i < M * G; i += kThreads) {
-      const int m = i / G, g = i - m * G;
-      const float mm = am[m], mk = mm * RD[m * wd + g], mq = mm * RC[m * wd + g];
-      const float dmk = dcd[m] * qsum[g] - dcd[m] * mq;
-      const float dmq = -dcd[m] * mk + dqsum[g];
-      RC[m * wd + g] = mm * dmq;
-      RD[m * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
-    }
-    __syncthreads();
     mma_gemm_tA(RB, wd, RC, wd, M, G, G, grad(gWGQ), G, false, grad(gBGQ), false);
     mma_gemm_tA(RB, wd, RD, wd, M, G, G, grad(gWGK), G, false, grad(gBGK), false);
     mma_gemm_tB(RC, wd, M, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
@@ -965,16 +986,21 @@ extern "C" int scann_backward_shared_bytes(const int* dims) {
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
   a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
   a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
+  a.S = dims[21];
   return make_plan(a).total * (int)sizeof(float);
 }
 
 // Launches the backward kernel (one block per molecule) and the reduction
-// of its gradient rows into out [P].
+// of its gradient rows into out [P]. Pointer 54 is the segment ids [B, M]
+// (null unless packed) and size 21 the segments per slot S.
 extern "C" int scann_backward_launch(void* const* ptrs, const int* dims, const float* scalars,
                                      const unsigned int* rng, const long long* offsets,
                                      float* out, void* stream) {
   Args a;
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
+  a.seg = (const int*)ptrs[54];
+  a.S = dims[21];
+  if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M > 64 || a.M < 1 || a.chunk_atoms < 1 || a.chunk_atoms * a.N > kMaxChunkRows ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D || a.P <= 0)

@@ -1,7 +1,8 @@
 // Building blocks shared by the port's kernels: blocks of kThreads threads,
 // FP32 FMA products with the left operand in shared memory (the readouts'
-// small products), warp-per-row LayerNorm, the argument block of the
-// whole-model forwards and the parameters of one LocalAttention layer.
+// small products), the per-segment GA readout of a packed slot (structure
+// packing), warp-per-row LayerNorm, the argument block of the whole-model
+// forwards and the parameters of one LocalAttention layer.
 
 #pragma once
 
@@ -122,6 +123,341 @@ __device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int
   }
 }
 
+// ---- the per-segment GA readout of a packed slot ---------------------------
+// Structure packing puts several structures into one slot of M rows; row m
+// belongs to segment seg[m] (-1 on a padded row), and every per-structure
+// reduction of the GA readout runs per segment: the sums of the GA queries,
+// the norm, the softmax denominator, the pooled context, then the head on
+// each segment's pooled row. The TPU kernels form these sums as [M, S]
+// one-hot products (scann_tpu/kernels/scann_forward.py:372-403); here they are
+// ordered sums in shared memory: one thread per column (or one warp per
+// segment) walks the rows in order, with no atomics, so a launch repeats bit
+// for bit. All four whole-model kernels run the readout over all M rows of
+// the slot inside one block, so no sum crosses blocks.
+constexpr int kMaxSegments = 32;
+
+// out[s * ldo + g] += coef(m) * x[r * ldx + g] over the rows r < rows of the
+// slot (m = m0 + r) with seg[m] = s >= 0, for every s < S and g < G: one
+// thread per column, rows in order. With `first` the thread zeroes its
+// columns of all S rows first. No barrier inside.
+template <typename Coef>
+__device__ __forceinline__ void seg_pool(float* out, int ldo, int S, const float* x, int ldx,
+                                         const int* seg, int m0, int rows, int G, bool first,
+                                         Coef coef) {
+  for (int g = threadIdx.x; g < G; g += kThreads) {
+    if (first)
+      for (int s = 0; s < S; ++s) out[s * ldo + g] = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const int s = seg[m0 + r];
+      if (s >= 0) out[s * ldo + g] += coef(m0 + r) * x[r * ldx + g];
+    }
+  }
+}
+
+// v[s] = the sum of f(m) over the rows m < M with seg[m] = s, for s < S: one
+// warp per segment, lanes strided over the rows, then the warp's butterfly
+// sum, as the unpacked readout sums its rows. No barrier inside.
+template <typename F>
+__device__ __forceinline__ void seg_sum(float* v, int S, const int* seg, int M, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int s = warp; s < S; s += kWarps) {
+    float t = 0.f;
+    for (int m = lane; m < M; m += 32)
+      if (seg[m] == s) t += f(m);
+    t = warp_sum(t);
+    if (lane == 0) v[s] = t;
+  }
+}
+
+// The GA scores of a packed slot. keys [M, ldk] are the GA keys of every row,
+// diag [M] = (mask k) . (mask q) of each row, qsum [S, ldq] each segment's sum
+// of mask q (seg_pool). Writes agg0 [M] = mask ((mask k) . qsum[seg] - diag),
+// nrm [S] (each segment's euclidean norm of agg0 with ga_norm, a zero norm
+// counted as 1; 1 without), ga [M] = the softmax over each segment's rows,
+// shifted by the slot's max (constant within a segment, as
+// scann_tpu/kernels/scann_forward.py:395-398 shifts it) and divided by the segment's sum (a zero sum, from underflow or
+// on a padded row, counted as 1), and den [S] = those sums. Barriers inside:
+// every thread of the block calls it.
+__device__ inline void seg_scores(const float* keys, int ldk, const float* diag,
+                                  const float* qsum, int ldq, const float* am, const int* seg,
+                                  int M, int S, int G, bool ga_norm, float* agg0, float* nrm,
+                                  float* ga, float* den) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int m = warp; m < M; m += kWarps) {
+    const int s = seg[m];
+    float cross = 0.f;
+    if (s >= 0) {
+      const float mm = am[m];
+      for (int g = lane; g < G; g += 32) cross += (mm * keys[m * ldk + g]) * qsum[s * ldq + g];
+    }
+    cross = warp_sum(cross);
+    if (lane == 0) agg0[m] = s >= 0 ? am[m] * (cross - diag[m]) : 0.f;   // a padded row's mask is 0
+  }
+  __syncthreads();
+  if (ga_norm) seg_sum(nrm, S, seg, M, [&](int m) { return agg0[m] * agg0[m]; });
+  __syncthreads();
+  for (int s = tid; s < S; s += kThreads) {
+    const float n = ga_norm ? sqrtf(nrm[s]) : 1.f;
+    nrm[s] = n == 0.f ? 1.f : n;   // a single-atom structure: zero sum
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float mx = -INFINITY;
+    for (int m = lane; m < M; m += 32) {
+      const int s = seg[m];
+      const float v = (s >= 0 ? agg0[m] / nrm[s] : agg0[m]) + (1.0f - am[m]) * -1e9f;
+      ga[m] = v;
+      mx = fmaxf(mx, v);
+    }
+    mx = warp_max(mx);
+    for (int m = lane; m < M; m += 32) ga[m] = expf(ga[m] - mx);
+  }
+  __syncthreads();
+  seg_sum(den, S, seg, M, [&](int m) { return ga[m]; });
+  __syncthreads();
+  for (int m = tid; m < M; m += kThreads) {
+    const int s = seg[m];
+    const float d = s >= 0 ? den[s] : 0.f;
+    ga[m] = ga[m] / (d == 0.f ? 1.f : d);
+  }
+  __syncthreads();
+}
+
+// The backward of seg_scores, per segment as
+// scann_tpu/kernels/scann_backward.py:367-388: from dga [M] (d ga) to dcd [M]
+// = mask d agg0, through each segment's softmax and norm. gd [S] and inner [S]
+// are scratch. Barriers inside.
+__device__ inline void seg_scores_backward(const float* dga, const float* ga,
+                                           const float* agg0, const float* nrm,
+                                           const float* am, const int* seg, int M, int S,
+                                           bool ga_norm, float* gd, float* inner, float* dcd) {
+  const int tid = threadIdx.x;
+  seg_sum(gd, S, seg, M, [&](int m) { return ga[m] * dga[m]; });
+  __syncthreads();
+  for (int m = tid; m < M; m += kThreads) {
+    const int s = seg[m];
+    dcd[m] = ga[m] * (dga[m] - (s >= 0 ? gd[s] : 0.f));   // softmax over the segment
+  }
+  __syncthreads();
+  if (ga_norm) seg_sum(inner, S, seg, M, [&](int m) { return agg0[m] * dcd[m]; });
+  __syncthreads();
+  for (int m = tid; m < M; m += kThreads) {
+    const int s = seg[m];
+    float da = dcd[m];
+    if (ga_norm && s >= 0) {
+      const float n = nrm[s];
+      da = da / n - agg0[m] * (inner[s] / (n * n * n));
+    }
+    dcd[m] = da * am[m];
+  }
+  __syncthreads();
+}
+
+// The property head of one pooled row struc [G]: sb [O] = swish(sbf = struc
+// @ Wbf + bbf) (sbf kept when non-null), then pred = sb . wp + bp (mrelu on
+// request), returned to thread 0 (0 elsewhere). Barriers inside.
+__device__ inline float seg_head(const float* struc, int G, int O, const float* wbf,
+                                 const float* bbf, const float* wp, const float* bp, bool mrelu,
+                                 float* sbf, float* sb) {
+  tile_gemm(struc, G, 1, G, wbf, O, O, [&](int r, int c, float4 v) {
+    const float4 s = make_float4(v.x + bbf[c], v.y + bbf[c + 1], v.z + bbf[c + 2], v.w + bbf[c + 3]);
+    if (sbf) *reinterpret_cast<float4*>(sbf + c) = s;
+    *reinterpret_cast<float4*>(sb + c) =
+        make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w));
+  });
+  __syncthreads();
+  float p = 0.f;
+  if (threadIdx.x < 32) {
+    for (int o = threadIdx.x; o < O; o += 32) p += sb[o] * wp[o];
+    p = warp_sum(p) + bp[0];
+    if (mrelu) p = fmaxf(p, 0.f);
+  }
+  __syncthreads();
+  return threadIdx.x == 0 ? p : 0.f;
+}
+
+// The backward of seg_head for one pooled row struc [G] with d pred = ctp
+// (sb and sbf from seg_head): writes (acc false) or adds to the gradients of
+// predict_property (gwp [O], gbp [1]) and bf_property (gwbf [G, O], gbbf
+// [O]), each times `mine` (0 in the blocks of a cluster other than its
+// first, which write zeros), and writes dstruc [G] = d struc. dsbf [O] is
+// scratch. Each gradient element belongs to one thread at every call, so
+// the sums over the segments repeat bit for bit. Barriers inside.
+__device__ inline void seg_head_backward(float ctp, const float* sb, const float* sbf,
+                                         const float* struc, int G, int O, const float* wp,
+                                         const float* wbf, float mine, bool acc, float* gwp,
+                                         float* gbp, float* gwbf, float* gbbf, float* dsbf,
+                                         float* dstruc) {
+  const int tid = threadIdx.x;
+  if (tid == 0) gbp[0] = (acc ? gbp[0] : 0.f) + ctp * mine;
+  for (int o = tid; o < O; o += kThreads) {
+    gwp[o] = (acc ? gwp[o] : 0.f) + sb[o] * ctp * mine;
+    dsbf[o] = ctp * wp[o] * swish_grad(sbf[o]);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * O; i += kThreads) {
+    const int g = i / O, o = i - g * O;
+    gwbf[i] = (acc ? gwbf[i] : 0.f) + struc[g] * dsbf[o] * mine;
+  }
+  for (int o = tid; o < O; o += kThreads) gbbf[o] = (acc ? gbbf[o] : 0.f) + dsbf[o] * mine;
+  for (int g = tid; g < G; g += kThreads) {
+    float t = 0.f;
+    for (int o = 0; o < O; ++o) t += dsbf[o] * wbf[(size_t)g * O + o];
+    dstruc[g] = t;
+  }
+  __syncthreads();
+}
+
+// Floats of the forward kernels' per-segment readout vectors: qsum and struc
+// [S, ld] each, agg0, ga and diag [M] each, nrm and den [S] each, the head's
+// [O].
+__host__ __device__ inline int seg_forward_floats(int S, int ld, int M, int O) {
+  return 2 * S * ld + 3 * round4(M) + 2 * round4(S) + round4(O);
+}
+
+// Floats of the backward kernels' per-segment readout vectors: qsum, struc
+// (then d qsum) and d struc [S, ld] each; agg0, ga, d ga, dcd and diag [M]
+// each; nrm, den, d pred and a scratch [S] each; the head's three [O].
+__host__ __device__ inline int seg_backward_floats(int S, int ld, int M, int O) {
+  return 3 * S * ld + 5 * round4(M) + 4 * round4(S) + 3 * round4(O);
+}
+
+// The per-segment readout vectors of a packed slot in shared memory, at row
+// stride ld, laid out as seg_forward_floats (backward false: no dstruc, dga,
+// dcd, ctp, cnt, sbf, dsbf) or seg_backward_floats count them.
+struct SegVectors {
+  int ld;
+  float *qsum, *struc, *dstruc;            // [S, ld]; struc becomes d qsum
+  float *agg0, *ga, *dga, *dcd, *diag;     // [M]
+  float *nrm, *den, *ctp, *cnt;            // [S]
+  float *sbf, *sb, *dsbf;                  // [O]
+};
+
+__device__ inline SegVectors seg_vectors(float* p, int S, int ld, int M, int O, bool backward) {
+  SegVectors v = {};
+  auto take = [&](float*& dst, int n) { dst = p; p += n; };
+  v.ld = ld;
+  take(v.qsum, S * ld);
+  take(v.struc, S * ld);
+  if (backward) take(v.dstruc, S * ld);
+  take(v.agg0, round4(M));
+  take(v.ga, round4(M));
+  if (backward) {
+    take(v.dga, round4(M));
+    take(v.dcd, round4(M));
+  }
+  take(v.diag, round4(M));
+  take(v.nrm, round4(S));
+  take(v.den, round4(S));
+  if (backward) {
+    take(v.ctp, round4(S));
+    take(v.cnt, round4(S));
+    take(v.sbf, round4(O));
+  }
+  take(v.sb, round4(O));
+  if (backward) take(v.dsbf, round4(O));
+  return v;
+}
+
+// Adds rows m0 .. m0 + rows of a packed slot to their segments' sums of
+// mask q (v.qsum, zeroed first with `first`) and writes their diag =
+// (mask k) . (mask q). q [rows, ldq] holds those rows' GA queries; keys the
+// slot's GA keys, row m at keys + m * ldk. No barrier inside.
+__device__ inline void seg_queries(const SegVectors& v, int S, const float* q, int ldq,
+                                   const float* keys, int ldk, const float* am, const int* seg,
+                                   int m0, int rows, int G, bool first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  seg_pool(v.qsum, v.ld, S, q, ldq, seg, m0, rows, G, first, [&](int m) { return am[m]; });
+  for (int r = warp; r < rows; r += kWarps) {
+    const float mm = am[m0 + r];
+    float dg = 0.f;
+    for (int g = lane; g < G; g += 32) dg += (mm * keys[(m0 + r) * ldk + g]) * (mm * q[r * ldq + g]);
+    dg = warp_sum(dg);
+    if (lane == 0) v.diag[m0 + r] = dg;
+  }
+}
+
+// The forward readout of a packed slot once seg_queries has seen every row:
+// the GA scores (v.ga), the pooled rows and the head per segment; pred [S]
+// is written by thread 0 when non-null. Barriers inside.
+__device__ inline void seg_readout_forward(const SegVectors& v, const float* keys, int ldk,
+                                           const float* am, const int* seg, int M, int S, int G,
+                                           int O, bool ga_norm, const float* wbf,
+                                           const float* bbf, const float* wp, const float* bp,
+                                           bool mrelu, float* pred) {
+  seg_scores(keys, ldk, v.diag, v.qsum, v.ld, am, seg, M, S, G, ga_norm, v.agg0, v.nrm, v.ga,
+             v.den);
+  seg_pool(v.struc, v.ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return am[m] * v.ga[m]; });
+  __syncthreads();
+  for (int s = 0; s < S; ++s) {
+    const float p = seg_head(v.struc + s * v.ld, G, O, wbf, bbf, wp, bp, mrelu, nullptr, v.sb);
+    if (threadIdx.x == 0 && pred) pred[s] = p;
+  }
+}
+
+// The readout of a packed slot and its backward, once seg_queries has seen
+// every row, as scann_tpu/kernels/scann_backward.py:289-389: the scores, the
+// head per segment (pred [S] written by thread 0 when non-null), d pred =
+// ct[s], or in one-shot mode the residual pred - ct[s] zeroed for a segment
+// without atoms, the head's gradients (times `mine`), d struc, d ga (plus
+// ct_ga [M] when non-null), dcd, and d qsum in place of v.struc. Barriers
+// inside.
+__device__ inline void seg_readout_backward(const SegVectors& v, const float* keys, int ldk,
+                                            const float* am, const int* seg, int M, int S, int G,
+                                            int O, bool ga_norm, bool mrelu, bool one_shot,
+                                            const float* ct, const float* ct_ga,
+                                            const float* wbf, const float* bbf, const float* wp,
+                                            const float* bp, float* pred, float mine, float* gwp,
+                                            float* gbp, float* gwbf, float* gbbf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, ld = v.ld;
+  seg_scores(keys, ldk, v.diag, v.qsum, ld, am, seg, M, S, G, ga_norm, v.agg0, v.nrm, v.ga, v.den);
+  seg_pool(v.struc, ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return am[m] * v.ga[m]; });
+  seg_sum(v.cnt, S, seg, M, [&](int m) { return am[m]; });
+  __syncthreads();
+  for (int s = 0; s < S; ++s) {
+    const float p = seg_head(v.struc + s * ld, G, O, wbf, bbf, wp, bp, mrelu, v.sbf, v.sb);
+    if (threadIdx.x == 0) {
+      if (pred) pred[s] = p;
+      // one-shot: the residual of a segment without atoms is zeroed
+      v.ctp[s] = one_shot ? (p - ct[s]) * (v.cnt[s] > 0.f ? 1.f : 0.f) : ct[s];
+    }
+    __syncthreads();
+    seg_head_backward(v.ctp[s], v.sb, v.sbf, v.struc + s * ld, G, O, wp, wbf, mine, s > 0, gwp,
+                      gbp, gwbf, gbbf, v.dsbf, v.dstruc + s * ld);
+  }
+  for (int m = warp; m < M; m += kWarps) {
+    const int sg = seg[m];
+    float t = 0.f;
+    if (sg >= 0)
+      for (int g = lane; g < G; g += 32) t += am[m] * keys[m * ldk + g] * v.dstruc[sg * ld + g];
+    t = warp_sum(t);
+    if (lane == 0) v.dga[m] = t + (ct_ga ? ct_ga[m] : 0.f);
+  }
+  __syncthreads();
+  seg_scores_backward(v.dga, v.ga, v.agg0, v.nrm, am, seg, M, S, ga_norm, v.cnt, v.den, v.dcd);
+  seg_pool(v.struc, ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return v.dcd[m] * am[m]; });
+  __syncthreads();
+}
+
+// The gradients of the GA queries and keys of rows m0 .. m0 + rows of a
+// packed slot, after seg_readout_backward, in place: q [rows, ldq] from gq
+// to d gq, k [rows, ldk] from gk to d gk. No barrier inside.
+__device__ inline void seg_query_key_grads(const SegVectors& v, float* q, int ldq, float* k,
+                                           int ldk, const float* am, const int* seg, int m0,
+                                           int rows, int G) {
+  const int ld = v.ld;
+  for (int i = threadIdx.x; i < rows * G; i += kThreads) {
+    const int r = i / G, g = i - r * G, m = m0 + r, sg = seg[m];
+    const float mm = am[m], mk = mm * k[r * ldk + g], mq = mm * q[r * ldq + g];
+    const float qs = sg >= 0 ? v.qsum[sg * ld + g] : 0.f;
+    const float dq = sg >= 0 ? v.struc[sg * ld + g] : 0.f;
+    const float ds = sg >= 0 ? v.dstruc[sg * ld + g] : 0.f;
+    const float dcd = v.dcd[m];
+    q[r * ldq + g] = mm * (-dcd * mk + dq);
+    k[r * ldk + g] = mm * v.ga[m] * ds + mm * (dcd * qs - dcd * mq);
+  }
+}
+
 // Two-pass LayerNorm (eps 1e-6) of one row of D <= 128 values held by a
 // warp, lane l holding elements l, l+32, l+64, l+96.
 __device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const float* gamma,
@@ -204,12 +540,14 @@ struct ForwardArgs {
   float* pred;          // [B]
   float* ga;            // [B, M]
   float* next_centers;  // [B, M, D]     (scann_loop.cu only)
+  const int* seg;       // [B, M] segment of each row, -1 on padding (packed slots)
   // sizes and switches
   int B, M, N, D, H, E, K, G, O, L, F;
   int cgcnn, use_ring, g_update, ga_norm, mrelu;
   int chunk_atoms;      // atoms per geometry chunk (chunk rows = CA * N <= 64)
   int abuf_floats;      // floats of the chunk operand buffer
   int atom_block;       // atoms per per-atom product (scann_loop.cu only)
+  int S;                // segments per slot (0: one structure per row block)
   float dk;             // hd ** -scale
   float rbf_width;      // squared Gaussian width (0.25)
   // training dropout (philox.cuh): masks keyed on (seed, mol_base + b)
@@ -248,6 +586,8 @@ inline void unpack_forward_args(ForwardArgs& a, void* const* ptrs, const int* di
   a.chunk_atoms = dims[16]; a.abuf_floats = dims[17];
   a.dropout = dims[18]; a.attn_dropout = dims[19];
   a.atom_block = 0;
+  a.seg = nullptr;
+  a.S = 0;
   a.dk = scalars[0];
   a.rbf_width = scalars[1];
   a.drop_scale = scalars[2];

@@ -2,11 +2,15 @@
 // molecule.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_forward.py:_kernel (the
-// Pallas whole-model forward) for unpacked batches:
+// Pallas whole-model forward):
 // embedding (atomic-number lookup or cgcnn dense, optional ring concat),
 // Gaussian RBF geometry (+ the SCANN+ geometry embedding), L x
 // (LocalAttention + ResidualNorm), after_Lc, the GA readout and the
-// property head (optional mrelu). Outputs pred [B] and ga [B, M], f32.
+// property head (optional mrelu). Outputs pred [B] and ga [B, M], f32. For
+// a packed batch (structure packing: S > 0 segments per slot, each row's
+// segment in seg [B, M], -1 on padding) the readout runs per segment
+// (seg_scores of scann_common.cuh, scann_forward.py:358-412) and pred is
+// [B, S].
 // With dropout on (training through scann_apply) it applies the embedding
 // and residual masks and, under use_drop, the attention mask, drawn in
 // place by the Philox of philox.cuh, so the backward kernel replays them;
@@ -50,7 +54,8 @@ using Args = ForwardArgs;   // scann_common.cuh
 
 // Shared-memory plan, in floats: centers, query, scratch [M, ldm] each
 // (ldm = max(D, G) + 4); the work region (a chunk's buffers, or the
-// embedding's staging [M, lde + ldf]); readout vectors.
+// embedding's staging [M, lde + ldf]); readout vectors (per segment for a
+// packed batch).
 struct Plan {
   int ldm, rows, lde, ldf, work, offQ, offW, offWork, offMisc, total;
 };
@@ -69,6 +74,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.offWork = 3 * a.M * p.ldm;
   p.offMisc = p.offWork + p.work;
   p.total = p.offMisc + 2 * p.ldm + round4(a.M) + round4(a.O);
+  if (a.S) p.total = p.offMisc + seg_forward_floats(a.S, p.ldm, a.M, a.O);
   return p;
 }
 
@@ -173,6 +179,17 @@ scann_forward_kernel(const Args a) {
                                          v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
   });
   __syncthreads();
+  if (a.S) {
+    // a packed slot: the GA readout and the head per segment (scann_common.cuh)
+    const int* sid = a.seg + (size_t)b * M;
+    const SegVectors v = seg_vectors(sMisc, a.S, ldm, M, O, false);
+    seg_queries(v, a.S, sQ, ldm, sC, ldm, am, sid, 0, M, G, true);
+    __syncthreads();
+    seg_readout_forward(v, sC, ldm, am, sid, M, a.S, G, O, a.ga_norm, a.wbf, a.bbf, a.wp, a.bp,
+                        a.mrelu, a.pred + (size_t)b * a.S);
+    for (int m = tid; m < M; m += kThreads) a.ga[(size_t)b * M + m] = v.ga[m];
+    return;
+  }
   float* qsum = sMisc;                 // [G]  sum_m mask * gq
   float* struc = sMisc + ldm;          // [G]  pooled context
   float* score = sMisc + 2 * ldm;      // [M]  agg, then ga
@@ -245,13 +262,17 @@ scann_forward_kernel(const Args a) {
 }  // namespace
 
 // The 49 pointers, 20 sizes, 4 scalars and 4 random-stream words are those of
-// unpack_forward_args (scann_common.cuh), in the order
-// scann_tpu_torch/kernels/scann_forward.py passes them; size 17 (the chunk
-// buffer) is the work region of make_plan.
+// unpack_forward_args (scann_common.cuh), followed by pointer 49, the segment
+// ids [B, M] (null unless packed), and size 20, the segments per slot S; in
+// the order scann_tpu_torch/kernels/scann_forward.py passes them. Size 17
+// (the chunk buffer) is the work region of make_plan.
 extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const float* scalars,
                                     const unsigned int* rng, void* stream) {
   Args a;
   unpack_forward_args(a, ptrs, dims, scalars, rng);
+  a.seg = (const int*)ptrs[49];
+  a.S = dims[20];
+  if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
 
   if (a.M > 64 || a.M < 1 || a.N < 1 || a.chunk_atoms < 1 || a.chunk_atoms > a.M ||
       a.chunk_atoms * a.N > kFwdMaxChunkRows || a.D > 128 || a.G > 128 ||

@@ -78,6 +78,8 @@ struct BackwardArgs {
   float* grad_rows;           // [B, P] ([B * cluster, P] in scann_loop_backward.cu)
   float* pred;                // [B]
   float* dcenters;            // [B, M, D]      d layer output (scann_loop_backward.cu only)
+  const int* seg;             // [B, M] segment of each row, -1 on padding (packed slots;
+                              //                ct is then [B, S], pred [B, S])
   long long P;                // floats of one gradient row
   int off[kNumGrads];         // offset of each gradient in a row (-1: absent)
   // sizes and switches
@@ -86,6 +88,7 @@ struct BackwardArgs {
   int chunk_atoms;            // atoms per chunk of rows (CA * N <= 32)
   int atom_block;             // atoms per per-atom product (scann_loop_backward.cu only)
   int cluster;                // blocks per structure (scann_loop_backward.cu only)
+  int S;                      // segments per slot (0: one structure per row block)
   int dropout, attn_dropout;
   unsigned int seed, mol_base, drop_threshold, attn_threshold;
   float drop_scale, attn_scale;
@@ -134,6 +137,8 @@ inline void unpack_backward_args(BackwardArgs& a, void* const* p, const int* dim
   a.chunk_atoms = dims[18]; a.dropout = dims[19]; a.attn_dropout = dims[20];
   a.atom_block = 0;
   a.cluster = 1;
+  a.seg = nullptr;
+  a.S = 0;
   a.dk = scalars[0];
   a.rbf_width = scalars[1];
   a.drop_scale = scalars[2];

@@ -2,12 +2,15 @@
 // per structure.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_loop.py:_fwd_kernel (the
-// Pallas loop forward) for unpacked batches. It computes what
+// Pallas loop forward). It computes what
 // scann_forward.cu computes (embedding, Gaussian RBF geometry, L x
 // (LocalAttention + ResidualNorm), after_Lc, the GA readout, the property
 // head, the Philox dropout masks of philox.cuh), for structures too large for
 // that kernel's shared-memory plan: MP2018 at (M=96, N=32, L=9) and Pt/graphene
-// at (M=128, N=32, L=11), D=128. Outputs pred [B] and ga [B, M], f32.
+// at (M=128, N=32, L=11), D=128. Outputs pred [B] and ga [B, M], f32; for
+// a packed batch (S > 0 segments per slot, each row's segment in seg [B, M])
+// the readout runs per segment (seg_scores of scann_common.cuh; the TPU
+// kernel's scann_loop.py:367-395) and pred is [B, S].
 //
 // Bound. At the MP2018 serving shape (B=64, M=96, N=32, L=9, D=128) the
 // products are ~1.85e11 FLOP. They run on the tensor cores in three TF32
@@ -80,9 +83,11 @@ __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   const int embed = AB * (p.lde + p.ldf);
   const int residual = AB * p.lds;
   const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
+  const int seg_readout = AB * p.wd + seg_forward_floats(a.S, p.wd, a.M, a.O);
   w = embed > w ? embed : w;
   w = residual > w ? residual : w;
   w = readout > w ? readout : w;
+  if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
   p.offQ = a.M * p.wd;
   p.offW = p.offQ + AB * p.lds;
@@ -222,7 +227,12 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   float* score = struc + wd;           // [M]  agg, then ga
   float* diag = score + round4(M);     // [M]  (mask k) . (mask q)
   float* hid = diag + round4(M);       // [O]
-  for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
+  // a packed slot: per-segment vectors past the block [AB, wd]
+  const int S = a.S;
+  const int* sid = S ? a.seg + (size_t)b * M : nullptr;
+  const SegVectors v = seg_vectors(work + AB * wd, S, wd, M, O, false);
+  if (!S)
+    for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
   for (int ab0 = 0; ab0 < M; ab0 += AB) {
     const int ab = min(AB, M - ab0);
     mma_gemm(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
@@ -240,20 +250,30 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
                                                   v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
     __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = qsum[g];
-      for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * lds + g];
-      qsum[g] = s;
-    }
-    for (int m = warp; m < ab; m += kWarps) {
-      const float mm = am[ab0 + m];
-      float dg = 0.f;
-      for (int g = lane; g < G; g += 32)
-        dg += (mm * sC[(ab0 + m) * wd + g]) * (mm * sQ[m * lds + g]);
-      dg = warp_sum(dg);
-      if (lane == 0) diag[ab0 + m] = dg;
+    if (S) {
+      seg_queries(v, S, sQ, lds, sC, wd, am, sid, ab0, ab, G, ab0 == 0);
+    } else {
+      for (int g = tid; g < G; g += kThreads) {
+        float s = qsum[g];
+        for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * lds + g];
+        qsum[g] = s;
+      }
+      for (int m = warp; m < ab; m += kWarps) {
+        const float mm = am[ab0 + m];
+        float dg = 0.f;
+        for (int g = lane; g < G; g += 32)
+          dg += (mm * sC[(ab0 + m) * wd + g]) * (mm * sQ[m * lds + g]);
+        dg = warp_sum(dg);
+        if (lane == 0) diag[ab0 + m] = dg;
+      }
     }
     __syncthreads();
+  }
+  if (S) {
+    seg_readout_forward(v, sC, wd, am, sid, M, S, G, O, a.ga_norm, a.wbf, a.bbf, a.wp, a.bp,
+                        a.mrelu, rank == 0 ? a.pred + (size_t)b * S : nullptr);
+    for (int m = m_lo + tid; m < m_hi; m += kThreads) a.ga[(size_t)b * M + m] = v.ga[m];
+    return;
   }
   // agg_m = mask_m * ((mask_m k_m) . qsum - (mask_m k_m) . (mask_m q_m))
   for (int m = warp; m < M; m += kWarps) {
@@ -334,6 +354,7 @@ void set_dims(ForwardArgs& a, const int* dims) {
   a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
   a.F = dims[10]; a.cgcnn = dims[11]; a.use_ring = dims[12]; a.chunk_atoms = dims[16];
   a.atom_block = dims[20];
+  a.S = dims[21];
 }
 
 }  // namespace
@@ -363,17 +384,22 @@ extern "C" int scann_loop_forward_max_clusters(const int* dims, int cluster) {
 
 // The pointers, sizes, scalars and random-stream words are those of
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the
-// next-centers scratch [B, M, D], size 20, the atom block, and size 21, the
-// blocks per structure C; in the order scann_tpu_torch/kernels/scann_loop.py
-// passes them. Size 17 (the chunk buffer) is the work region of make_plan.
+// next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
+// unless packed), size 20, the atom block, size 21, the segments per slot S,
+// and size 22, the blocks per structure C; in the order
+// scann_tpu_torch/kernels/scann_loop.py passes them. Size 17 (the chunk
+// buffer) is the work region of make_plan.
 extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
                                          const float* scalars, const unsigned int* rng,
                                          void* stream) {
   ForwardArgs a;
   unpack_forward_args(a, ptrs, dims, scalars, rng);
   a.next_centers = (float*)ptrs[49];
+  a.seg = (const int*)ptrs[50];
   a.atom_block = dims[20];
-  const int C = dims[21];
+  a.S = dims[21];
+  const int C = dims[22];
+  if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       a.chunk_atoms * a.N > kFwdMaxChunkRows || a.atom_block < 1 ||

@@ -3,7 +3,7 @@
 // that sums the per-block gradients in a fixed order.
 //
 // Replaces the TPU kernel scann_tpu/kernels/scann_loop.py:_bwd_kernel (the
-// Pallas loop backward) for unpacked batches. It computes what
+// Pallas loop backward). It computes what
 // scann_backward.cu computes (the forward with the Philox training dropout of
 // philox.cuh, pred, and the reverse walk: head and GA readout, then per layer
 // from the last the ResidualNorm, the attention LayerNorm, the softmax on the
@@ -13,7 +13,12 @@
 // in one-shot training mode (targets in, the residual pred - t formed here,
 // mrelu straight-through), for structures too large for that kernel's
 // shared-memory plan: MP2018 at (M=96, N=32, L=9) and Pt/graphene at (M=128,
-// N=32, L=11), D=128.
+// N=32, L=11), D=128. For a packed batch (S > 0 segments per slot, each row's
+// segment in seg [B, M], -1 on padding) d pred, the targets and pred are
+// [B, S] and the readout and its backward run per segment (scann_common.cuh's
+// seg_* routines; the TPU kernel's scann_loop.py:630-700), in every block of
+// the cluster as the unpacked readout does; the one-shot residual of a segment
+// without atoms is zeroed.
 //
 // Bound. loop_backward_flops (kernels/scann_loop.py) counts ~5.5e11 FLOP that
 // the function needs per MP2018 training batch (B=64, M=96, N=32, L=9,
@@ -111,10 +116,12 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   const int atoms = 5 * p.ABW + round4(AB);     // the reverse walk's per-atom recompute
   const int embed = AB * (2 * p.lde + p.ldf) + p.ABW;
   const int readout = p.ABW + 4 * p.wd + 5 * round4(a.M) + 3 * round4(a.O) + 4;
+  const int seg_readout = p.ABW + seg_backward_floats(a.S, p.wd, a.M, a.O);
   int w = chunk;
   w = atoms > w ? atoms : w;
   w = embed > w ? embed : w;
   w = readout > w ? readout : w;
+  if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
   p.offBlk = a.M * p.wd;
   p.offWork = p.offBlk + 5 * p.ABW;
@@ -511,9 +518,13 @@ scann_loop_backward_kernel(const Args a) {
     float* sb = sbf + round4(O);
     float* dsbf = sb + round4(O);
     float* scal = dsbf + round4(O);    // [0] norm, [1] d pred
+    // a packed slot: per-segment vectors past the block [AB, wd]
+    const int S = a.S;
+    const int* sid = S ? a.seg + (size_t)b * M : nullptr;
+    const SegVectors v = seg_vectors(work + ABW, S, wd, M, O, true);
     // pass 1, block by block over all M atoms, in every block of the cluster
     // (the scores need every key): the GA keys take the place of the centers
-    zero(qsum, G);
+    if (!S) zero(qsum, G);
     for (int ab0 = 0; ab0 < M; ab0 += AB) {
       const int ab = min(AB, M - ab0);
       float* RB = sCb;                 // cg = swish(cL @ Wal + bal)
@@ -532,129 +543,142 @@ scann_loop_backward_kernel(const Args a) {
                                                     v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
       });
       __syncthreads();
-      for (int g = tid; g < G; g += kThreads) {
-        float s = qsum[g];
-        for (int m = 0; m < ab; ++m) s += am[ab0 + m] * RC[m * wd + g];
-        qsum[g] = s;
-      }
-      for (int m = warp; m < ab; m += kWarps) {
-        const float mm = am[ab0 + m];
-        float dg = 0.f;
-        for (int g = lane; g < G; g += 32)
-          dg += (mm * sR[(ab0 + m) * wd + g]) * (mm * RC[m * wd + g]);
-        dg = warp_sum(dg);
-        if (lane == 0) diag[ab0 + m] = dg;
+      if (S) {
+        seg_queries(v, S, RC, wd, sR, wd, am, sid, ab0, ab, G, ab0 == 0);
+      } else {
+        for (int g = tid; g < G; g += kThreads) {
+          float s = qsum[g];
+          for (int m = 0; m < ab; ++m) s += am[ab0 + m] * RC[m * wd + g];
+          qsum[g] = s;
+        }
+        for (int m = warp; m < ab; m += kWarps) {
+          const float mm = am[ab0 + m];
+          float dg = 0.f;
+          for (int g = lane; g < G; g += 32)
+            dg += (mm * sR[(ab0 + m) * wd + g]) * (mm * RC[m * wd + g]);
+          dg = warp_sum(dg);
+          if (lane == 0) diag[ab0 + m] = dg;
+        }
       }
       __syncthreads();
     }
-    // agg_m = mask_m * ((mask_m k_m) . qsum - (mask_m k_m) . (mask_m q_m))
-    for (int m = warp; m < M; m += kWarps) {
-      const float mm = am[m];
-      float cross = 0.f;
-      for (int g = lane; g < G; g += 32) cross += (mm * sR[m * wd + g]) * qsum[g];
-      cross = warp_sum(cross);
-      if (lane == 0) agg0[m] = mm * (cross - diag[m]);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane holds atoms lane, lane + 32, ...
-      float nrm = 1.f;
-      if (a.ga_norm) {
-        float sq = 0.f;
-        for (int m = lane; m < M; m += 32) sq += agg0[m] * agg0[m];
-        nrm = sqrtf(warp_sum(sq));
-        if (nrm == 0.f) nrm = 1.f;     // single-atom structure: zero sum
+    if (S) {
+      // the head's gradients belong to the slot, not to an atom: the
+      // cluster's first block writes them, the others write zeros
+      seg_readout_backward(v, sR, wd, am, sid, M, S, G, O, a.ga_norm, a.mrelu, a.one_shot,
+                           a.ct + (size_t)b * S, a.one_shot ? nullptr : a.ct_ga + (size_t)b * M,
+                           a.wbf, a.bbf, a.wp, a.bp, lead ? a.pred + (size_t)b * S : nullptr,
+                           lead ? 1.f : 0.f, grad(gWP), grad(gBP), grad(gWBF), grad(gBBF));
+    } else {
+      // agg_m = mask_m * ((mask_m k_m) . qsum - (mask_m k_m) . (mask_m q_m))
+      for (int m = warp; m < M; m += kWarps) {
+        const float mm = am[m];
+        float cross = 0.f;
+        for (int g = lane; g < G; g += 32) cross += (mm * sR[m * wd + g]) * qsum[g];
+        cross = warp_sum(cross);
+        if (lane == 0) agg0[m] = mm * (cross - diag[m]);
       }
-      float mx = -INFINITY;
-      for (int m = lane; m < M; m += 32) {
-        ga[m] = agg0[m] / nrm + (1.0f - am[m]) * -1e9f;
-        mx = fmaxf(mx, ga[m]);
+      __syncthreads();
+      if (warp == 0) {
+        // lane holds atoms lane, lane + 32, ...
+        float nrm = 1.f;
+        if (a.ga_norm) {
+          float sq = 0.f;
+          for (int m = lane; m < M; m += 32) sq += agg0[m] * agg0[m];
+          nrm = sqrtf(warp_sum(sq));
+          if (nrm == 0.f) nrm = 1.f;     // single-atom structure: zero sum
+        }
+        float mx = -INFINITY;
+        for (int m = lane; m < M; m += 32) {
+          ga[m] = agg0[m] / nrm + (1.0f - am[m]) * -1e9f;
+          mx = fmaxf(mx, ga[m]);
+        }
+        mx = warp_max(mx);
+        float tot = 0.f;
+        for (int m = lane; m < M; m += 32) {
+          ga[m] = expf(ga[m] - mx);
+          tot += ga[m];
+        }
+        tot = warp_sum(tot);
+        for (int m = lane; m < M; m += 32) ga[m] /= tot;
+        if (lane == 0) scal[0] = nrm;
       }
-      mx = warp_max(mx);
-      float tot = 0.f;
-      for (int m = lane; m < M; m += 32) {
-        ga[m] = expf(ga[m] - mx);
-        tot += ga[m];
+      __syncthreads();
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += am[m] * ga[m] * sR[m * wd + g];
+        struc[g] = s;
       }
-      tot = warp_sum(tot);
-      for (int m = lane; m < M; m += 32) ga[m] /= tot;
-      if (lane == 0) scal[0] = nrm;
-    }
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += am[m] * ga[m] * sR[m * wd + g];
-      struc[g] = s;
-    }
-    __syncthreads();
-    tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
-      const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
-                                   v.w + a.bbf[c + 3]);
-      store4(sbf + c, s);
-      store4(sb + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
-    });
-    __syncthreads();
-    if (warp == 0) {
-      float p = 0.f;
-      for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
-      p = warp_sum(p) + a.bp[0];
-      if (a.mrelu) p = fmaxf(p, 0.f);
-      if (lane == 0) {
-        if (lead) a.pred[b] = p;
-        scal[1] = a.one_shot ? p - a.ct[b] : a.ct[b];   // straight-through mrelu
+      __syncthreads();
+      tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+        const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
+                                     v.w + a.bbf[c + 3]);
+        store4(sbf + c, s);
+        store4(sb + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
+      });
+      __syncthreads();
+      if (warp == 0) {
+        float p = 0.f;
+        for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
+        p = warp_sum(p) + a.bp[0];
+        if (a.mrelu) p = fmaxf(p, 0.f);
+        if (lane == 0) {
+          if (lead) a.pred[b] = p;
+          scal[1] = a.one_shot ? p - a.ct[b] : a.ct[b];   // straight-through mrelu
+        }
       }
-    }
-    __syncthreads();
-    // the head's gradients belong to the structure, not to an atom: the
-    // cluster's first block writes them, the others write zeros
-    const float ctp = scal[1], nrm = scal[0], mine = lead ? 1.f : 0.f;
-    if (tid == 0) grad(gBP)[0] = ctp * mine;
-    for (int o = tid; o < O; o += kThreads) {
-      grad(gWP)[o] = sb[o] * ctp * mine;
-      dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * O; i += kThreads) {
-      const int g = i / O, o = i - g * O;
-      grad(gWBF)[i] = struc[g] * dsbf[o] * mine;
-    }
-    for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o] * mine;
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
-      dstruc[g] = s;
-    }
-    __syncthreads();
-    for (int m = warp; m < M; m += kWarps) {
-      float s = 0.f;
-      for (int g = lane; g < G; g += 32) s += am[m] * sR[m * wd + g] * dstruc[g];
-      s = warp_sum(s);
-      if (lane == 0) dga[m] = s + (a.one_shot ? 0.f : a.ct_ga[(size_t)b * M + m]);
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float s = 0.f;
-      for (int m = lane; m < M; m += 32) s += ga[m] * dga[m];
-      s = warp_sum(s);
-      float inner = 0.f;
-      for (int m = lane; m < M; m += 32) {
-        dcd[m] = ga[m] * (dga[m] - s);   // softmax over the atoms
-        inner += agg0[m] * dcd[m];
+      __syncthreads();
+      // the head's gradients belong to the structure, not to an atom: the
+      // cluster's first block writes them, the others write zeros
+      const float ctp = scal[1], nrm = scal[0], mine = lead ? 1.f : 0.f;
+      if (tid == 0) grad(gBP)[0] = ctp * mine;
+      for (int o = tid; o < O; o += kThreads) {
+        grad(gWP)[o] = sb[o] * ctp * mine;
+        dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
       }
-      inner = warp_sum(inner);
-      for (int m = lane; m < M; m += 32) {
-        float da = dcd[m];
-        if (a.ga_norm) da = da / nrm - agg0[m] * (inner / (nrm * nrm * nrm));
-        dcd[m] = da * am[m];
+      __syncthreads();
+      for (int i = tid; i < G * O; i += kThreads) {
+        const int g = i / O, o = i - g * O;
+        grad(gWBF)[i] = struc[g] * dsbf[o] * mine;
       }
+      for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o] * mine;
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
+        dstruc[g] = s;
+      }
+      __syncthreads();
+      for (int m = warp; m < M; m += kWarps) {
+        float s = 0.f;
+        for (int g = lane; g < G; g += 32) s += am[m] * sR[m * wd + g] * dstruc[g];
+        s = warp_sum(s);
+        if (lane == 0) dga[m] = s + (a.one_shot ? 0.f : a.ct_ga[(size_t)b * M + m]);
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float s = 0.f;
+        for (int m = lane; m < M; m += 32) s += ga[m] * dga[m];
+        s = warp_sum(s);
+        float inner = 0.f;
+        for (int m = lane; m < M; m += 32) {
+          dcd[m] = ga[m] * (dga[m] - s);   // softmax over the atoms
+          inner += agg0[m] * dcd[m];
+        }
+        inner = warp_sum(inner);
+        for (int m = lane; m < M; m += 32) {
+          float da = dcd[m];
+          if (a.ga_norm) da = da / nrm - agg0[m] * (inner / (nrm * nrm * nrm));
+          dcd[m] = da * am[m];
+        }
+      }
+      __syncthreads();
+      for (int g = tid; g < G; g += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * sR[m * wd + g]);
+        dqsum[g] = s;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int g = tid; g < G; g += kThreads) {
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * sR[m * wd + g]);
-      dqsum[g] = s;
-    }
-    __syncthreads();
     // pass 2, block by block over this block's atoms: recompute s_al, cg and gq
     // from the stashed last centers, then the gradients of the GA projections
     // and of after_Lc
@@ -681,13 +705,17 @@ scann_loop_backward_kernel(const Args a) {
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
       __syncthreads();
-      for (int i = tid; i < ab * G; i += kThreads) {
-        const int r = i / G, g = i - r * G, m = ab0 + r;
-        const float mm = am[m], mk = mm * RD[r * wd + g], mq = mm * RC[r * wd + g];
-        const float dmk = dcd[m] * qsum[g] - dcd[m] * mq;
-        const float dmq = -dcd[m] * mk + dqsum[g];
-        RC[r * wd + g] = mm * dmq;
-        RD[r * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
+      if (S) {
+        seg_query_key_grads(v, RC, wd, RD, wd, am, sid, ab0, ab, G);
+      } else {
+        for (int i = tid; i < ab * G; i += kThreads) {
+          const int r = i / G, g = i - r * G, m = ab0 + r;
+          const float mm = am[m], mk = mm * RD[r * wd + g], mq = mm * RC[r * wd + g];
+          const float dmk = dcd[m] * qsum[g] - dcd[m] * mq;
+          const float dmq = -dcd[m] * mk + dqsum[g];
+          RC[r * wd + g] = mm * dmq;
+          RD[r * wd + g] = mm * ga[m] * dstruc[g] + mm * dmk;
+        }
       }
       __syncthreads();
       mma_gemm_tA(RB, wd, RC, wd, ab, G, G, grad(gWGQ), G, acc, grad(gBGQ), acc);
@@ -1071,6 +1099,7 @@ void set_dims(Args& a, const int* dims) {
   a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
   a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
   a.atom_block = dims[21];
+  a.S = dims[22];
 }
 
 // The launch of C blocks per structure, shared by the launcher and the
@@ -1117,19 +1146,23 @@ extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
 
 // The pointers, sizes, scalars, random-stream words and offsets are those of
 // unpack_backward_args (scann_grad_common.cuh), followed by pointer 54, the
-// d(layer output) scratch [B, M, D], size 21, the atom block, and size 22, the
-// blocks per structure C (grad_rows is then [B * C, P]); in the order
-// scann_tpu_torch/kernels/scann_loop.py passes them. Launches the backward
-// kernel (a cluster of C blocks per structure) and the reduction of its
-// gradient rows into out [P].
+// d(layer output) scratch [B, M, D], pointer 55, the segment ids [B, M] (null
+// unless packed), size 21, the atom block, size 22, the segments per slot S,
+// and size 23, the blocks per structure C (grad_rows is then [B * C, P]); in
+// the order scann_tpu_torch/kernels/scann_loop.py passes them. Launches the
+// backward kernel (a cluster of C blocks per structure) and the reduction of
+// its gradient rows into out [P].
 extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
                                           const float* scalars, const unsigned int* rng,
                                           const long long* offsets, float* out, void* stream) {
   Args a;
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
   a.dcenters = (float*)ptrs[54];
+  a.seg = (const int*)ptrs[55];
   a.atom_block = dims[21];
-  a.cluster = dims[22];
+  a.S = dims[22];
+  a.cluster = dims[23];
+  if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       a.chunk_atoms * a.N > kMaxChunkRows || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||

@@ -3,7 +3,7 @@
 
 Replaces ``scann_tpu/kernels/scann_backward.py:_kernel`` (the Pallas TPU
 kernel that recomputes the forward and returns every parameter gradient in
-one program) for unpacked batches.
+one program).
 
 - ``fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
   seed)``: the parameter gradients of (pred, ga) contracted with the
@@ -33,8 +33,12 @@ buckets train through the backward of the crystal loop kernel
 split-TF32 ``mma.sync`` (``csrc/scann_mma.cuh``: three TF32 passes per tile,
 accumulated in f32), which keeps f32 accuracy; ``reference_tf32x3_matmul``
 is that arithmetic in plain PyTorch and ``mma_selftest`` runs the header's
-three products on the card. Packed batches (``segment_onehot``) raise
-NotImplementedError: structure packing is not ported yet. Bound and design are in the source note of
+three products on the card. A packed batch (``segment_onehot`` [B, M, S],
+structure packing) takes the per-segment readout: the cotangent, the
+targets and pred are [B, S], and in one-shot mode the residual of a segment
+without atoms is zeroed, so the caller divides by the count of valid
+segments (``scann_backward.py:727-749``); the plan grows by the per-segment
+vectors (``max_segments``). Bound and design are in the source note of
 ``csrc/scann_backward.cu``; ``backward_flops`` counts the products the
 function needs, ``recompute_flops`` those the kernel's schedule adds.
 """
@@ -59,8 +63,13 @@ from scann_tpu_torch.kernels.scann_forward import (
     forward_flops,
     forward_fp32_flops,
     fused_scann_forward,
+    largest_segments,
     pack_params,
     rng_words,
+    seg_backward_floats,
+    segment_arguments,
+    segment_count,
+    segment_refusal,
 )
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 
@@ -137,9 +146,10 @@ def chunk_floats(rows: int, D: int, H: int) -> int:
     return rows * (2 * D + 4) + 3 * rows * (D + 4) + 3 * r4(rows * H)
 
 
-def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int]:
+def shared_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int]:
     """(atoms per chunk of rows, shared bytes per block): the layout
-    ``make_plan`` in the CUDA source walks."""
+    ``make_plan`` in the CUDA source walks (with the per-segment readout's
+    vectors for a packed batch of S segments a slot)."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -152,17 +162,21 @@ def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int]:
                5 * MW + 4 * wd + 4 * r4(M) + 3 * r4(O) + 4,
                6 * MW + r4(M),
                2 * M * lde + M * ldf + MW)
+    if S:
+        work = max(work, 5 * MW + seg_backward_floats(S, wd, M, O))
     floats = 7 * MW + work + N_WARPS * 2 * wd + 2 * wd
     return chunk_atoms, 4 * floats
 
 
-def refusal(cfm: ModelConfig, M: int, N: int,
-            inputs: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
-    """Why the backward kernel does not take (config, M, N) or this batch,
-    or None where it does: the gate, read by ``check_supported`` and by the
-    dispatch in ``Trainer.train_route``."""
-    if inputs is not None and ("segment_onehot" in inputs or "segment_mask" in inputs):
-        return "packed batches (segment_onehot): structure packing is not ported yet"
+def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
+    """The largest S a packed batch of shape (M, N) may have here."""
+    return largest_segments(lambda S: shared_memory_plan(cfm, M, N, S)[1])
+
+
+def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
+    """Why the backward kernel does not take (config, M, N) at S segments a
+    slot (0: unpacked), or None where it does: the gate, read by
+    ``check_supported`` and by the dispatch in ``Trainer.train_route``."""
     if M > MAX_ATOMS:
         return (f"M={M} atoms: the whole-model backward takes M <= {MAX_ATOMS}; larger "
                 "structures train through the backward of the crystal loop kernel "
@@ -178,25 +192,23 @@ def refusal(cfm: ModelConfig, M: int, N: int,
         return (f"sizes outside the backward kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
                 f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
                 f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
-    nbytes = shared_memory_plan(cfm, M, N)[1]
+    reason = segment_refusal(S)
+    if reason:
+        return reason
+    nbytes = shared_memory_plan(cfm, M, N, S)[1]
     if nbytes > MAX_SHARED_BYTES:
-        return (f"M={M}, N={N}: the backward's shared-memory plan of {nbytes} bytes exceeds "
-                f"{MAX_SHARED_BYTES}; larger structures train through the backward of the "
-                "crystal loop kernel (kernels.scann_loop.loop_scann_train_grads)")
+        return (f"M={M}, N={N}" + (f", S={S}" if S else "") + ": the backward's "
+                f"shared-memory plan of {nbytes} bytes exceeds {MAX_SHARED_BYTES}; larger "
+                "structures train through the backward of the crystal loop kernel "
+                "(kernels.scann_loop.loop_scann_train_grads)")
     return None
 
 
-def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
+def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
     """Raise NotImplementedError for what the backward kernel does not take."""
-    reason = refusal(cfm, M, N)
+    reason = refusal(cfm, M, N, S)
     if reason:
         raise NotImplementedError(reason)
-
-
-def _check_packed_inputs(inputs: Dict[str, torch.Tensor]) -> None:
-    if "segment_onehot" in inputs or "segment_mask" in inputs:
-        raise NotImplementedError(
-            "packed batches (segment_onehot): structure packing is not ported yet")
 
 
 # --- the plain version -------------------------------------------------------
@@ -205,14 +217,22 @@ def _as_rows(x, B: int, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(B, -1)
 
 
+def segment_valid(inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """[B, S]: 1 for a segment of a packed batch that holds atoms, 0 for an
+    empty one, as the TPU kernels count it (``scann_backward.py:348-352``)."""
+    seg = inputs["segment_onehot"].float()
+    return ((seg * inputs["atom_mask"].float()).sum(dim=1) > 0).float()
+
+
 def reference_fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                                cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
                                seed: int = 0, mol_base: int = 0) -> Dict[str, torch.Tensor]:
     """Gradients of sum(pred * ct_pred) + sum(ga * ct_ga) through the eager
-    training forward (head without mrelu, as the kernel's cotangent path)."""
+    training forward (head without mrelu, as the kernel's cotangent path);
+    ct_pred is [B, S] for a packed batch."""
     B, M = inputs["atomic"].shape[:2]
     dev = inputs["atomic"].device
-    ctp = _as_rows(ct_pred, B, dev)[:, :1]
+    ctp = _as_rows(ct_pred, B, dev)[:, :max(segment_count(inputs), 1)]
     ctg = _as_rows(ct_ga, B, dev).reshape(B, M, 1)
     masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
     with torch.enable_grad():
@@ -229,14 +249,20 @@ def reference_fused_scann_train_grads(params: Dict[str, torch.Tensor],
                                       mol_base: int = 0
                                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(pred [B, 1], gradients of 0.5 * sum((pred - t)^2)) through the eager
-    training forward; mrelu is straight-through."""
+    training forward; mrelu is straight-through. A packed batch has targets
+    and pred [B, S], and the residual of an empty segment is zeroed."""
     B = inputs["atomic"].shape[0]
-    y = _as_rows(targets, B, inputs["atomic"].device)[:, 0]
+    S = segment_count(inputs)
+    y = _as_rows(targets, B, inputs["atomic"].device)
     masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         pred, _ = scann_forward(leaves, inputs, cfm, mrelu_head, masks)
-        loss = 0.5 * ((pred[:, 0] - y) ** 2).sum()
+        if S:
+            err = (pred - y) * segment_valid(inputs)
+        else:
+            err = pred[:, 0] - y[:, 0]
+        loss = 0.5 * (err ** 2).sum()
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return pred.detach(), dict(zip(leaves, grads))
 
@@ -251,12 +277,12 @@ def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, tor
     """Check CUDA inputs and launch the backward kernel and its reduction
     with ``pack_params`` output (index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
-    pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``). Returns
-    (flat gradients [P], pred [B])."""
+    pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when
+    ``one_shot``). A packed batch has ``ct`` [B, S]. Returns (flat gradients
+    [P], pred [B], or [B * S] packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    _check_packed_inputs(inputs)
     _check_shapes(inputs, cfm, dev)
     return _launch(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed,
                    mol_base)
@@ -287,17 +313,19 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     """What the whole-model backwards (this kernel and the crystal loop
     backward) are launched with: (tensors in ``unpack_backward_args`` order,
     sizes, scalars, random-stream words, gradient offsets with the row
-    length last), and the outputs (flat gradients [P], pred [B])."""
+    length last), and the outputs (flat gradients [P], pred [B], or [B * S]
+    for a packed batch of S segments a slot, whose ``ct`` is [B, S])."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
+    S = segment_count(inputs)
     cgcnn = cfm.feature == "cgcnn"
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).reshape(B, -1).contiguous()
-    ct = f32(ct)[:, 0].contiguous()
+    ct = f32(ct)[:, :max(S, 1)].contiguous()
     ct_ga = f32(ct_ga) if ct_ga is not None and not one_shot else None
     offsets, P = grad_layout(packed)
     flat = torch.empty(P, device=dev, dtype=torch.float32)
-    pred = torch.empty(B, device=dev, dtype=torch.float32)
+    pred = torch.empty(B * max(S, 1), device=dev, dtype=torch.float32)
     tensors = ([None if cgcnn else inputs["atomic"], inputs["atomic"] if cgcnn else None,
                 inputs["atom_mask"], inputs["neighbors"], inputs["neighbor_mask"],
                 inputs["neighbor_weight"], inputs["neighbor_distance"],
@@ -322,14 +350,15 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     """The launch itself, on inputs ``_check_shapes`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
-    check_supported(cfm, M, N)
-    chunk_atoms, _ = shared_memory_plan(cfm, M, N)
+    seg, S = segment_arguments(inputs)
+    check_supported(cfm, M, N, S)
+    chunk_atoms, _ = shared_memory_plan(cfm, M, N, S)
     scratch = allocate_scratch(packed, cfm, B, M, N, cfm.n_attention)
     tensors, dims, scalars, rng, offsets, flat, pred = launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
-    call_kernel("scann_backward", "scann_backward", packed["wde"].device, tensors, dims,
-                scalars, rng, offsets, flat)
+    call_kernel("scann_backward", "scann_backward", packed["wde"].device, tensors + [seg],
+                dims + [S], scalars, rng, offsets, flat)
     launch_scann_backward.launches += 1
     return flat, pred
 
@@ -340,8 +369,8 @@ launch_scann_backward.launches = 0
 def fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                      cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
                      seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Parameter gradients of (pred, ga) contracted with (ct_pred, ct_ga)."""
-    _check_packed_inputs(inputs)
+    """Parameter gradients of (pred, ga) contracted with (ct_pred, ct_ga)
+    (ct_pred [B, S] for a packed batch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
         return reference_fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga,
@@ -362,8 +391,9 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-shot training: forward, residual and backward in one launch.
     Returns (pred [B, 1], raw gradients of 0.5 * sum((pred - t)^2)); the
-    caller turns them into RMSE + l2 gradients (``train.loop``)."""
-    _check_packed_inputs(inputs)
+    caller turns them into RMSE + l2 gradients (``train.loop``). A packed
+    batch has targets and pred [B, S]; an empty segment's residual is
+    zeroed, so the caller divides by the count of valid segments."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
         return reference_fused_scann_train_grads(params, inputs, targets, cfm, mrelu_head,
@@ -374,7 +404,7 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
     packed = pack_params(params, cfm)
     flat, pred = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
                                        None, True, mrelu_head, dropout_rate, seed)
-    return pred.view(-1, 1), grads_from_flat(flat, packed, cfm)
+    return pred.view(inputs["atomic"].shape[0], -1), grads_from_flat(flat, packed, cfm)
 
 
 # --- the products of csrc/scann_mma.cuh ------------------------------------------
@@ -442,7 +472,8 @@ class _ScannApply(torch.autograd.Function):
         params = dict(zip(keys, ctx.saved_tensors))
         B, M = ctx.inputs["atomic"].shape[:2]
         dev = ctx.saved_tensors[0].device
-        ct_pred = d_pred if d_pred is not None else torch.zeros(B, 1, device=dev)
+        S = max(segment_count(ctx.inputs), 1)
+        ct_pred = d_pred if d_pred is not None else torch.zeros(B, S, device=dev)
         ct_ga = d_ga if d_ga is not None else torch.zeros(B, M, 1, device=dev)
         # mrelu head: straight-through, so the cotangent passes unchanged
         grads = fused_scann_grad(params, ctx.inputs, cfm, ct_pred, ct_ga, dropout_rate, seed)

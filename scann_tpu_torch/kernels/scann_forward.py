@@ -2,10 +2,10 @@
 ``csrc/scann_forward.cu``.
 
 Replaces ``scann_tpu/kernels/scann_forward.py:_kernel`` (the Pallas TPU
-kernel that runs the whole model in one program) for unpacked batches: the
-deterministic forward that serving and evaluation run, and the training
-forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
-0, with the Philox masks of ``ops.dropout`` that the backward replays).
+kernel that runs the whole model in one program): the deterministic forward
+that serving and evaluation run, and the training forward of
+``kernels.scann_backward.scann_apply`` (dropout at a rate above 0, with the
+Philox masks of ``ops.dropout`` that the backward replays).
 
 - ``fused_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate,
   seed)`` keeps the JAX signature and layout: (property [B, 1], ga_score
@@ -13,10 +13,20 @@ forward of ``kernels.scann_backward.scann_apply`` (dropout at a rate above
   for CPU tensors it runs the plain version, ``reference_scann_forward``:
   the eager model called functionally, with the same masks.
   ``fused_scann_forward.launches`` counts kernel launches.
+- Packed batches (structure packing, ``data/packing.py``): the inputs carry
+  ``segment_onehot`` [B, M, S] (and, from ``Trainer._put_buckets``, the
+  ``segment_ids`` [B, M] of ``ops.attention.segment_ids``, -1 on padded
+  rows); the kernels launch from the ids and S, run the GA readout per
+  segment and give the property [B, S], one per segment (the JAX kernels'
+  [B, max(S, 1), 1] without its last axis). The plain versions run the
+  eager model's segmented readout.
 - The gate is the kernel's own shared-memory plan (``shared_memory_plan``)
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
   (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
   Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
+  A packed batch adds its per-segment vectors to the plan
+  (``max_segments`` is the largest S a shape takes, at most
+  ``MAX_SEGMENTS``).
 - The launch wrappers (``launch_scann_forward`` and the other kernels'
   ``launch_*``) check shapes, dtypes and devices from the tensors' metadata
   and read nothing back. The batch's index ranges are checked where data
@@ -42,6 +52,7 @@ import torch
 
 from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
+from scann_tpu_torch.ops.attention import segment_ids
 from scann_tpu_torch.ops.dropout import (
     DropoutMasks,
     keep_scale,
@@ -56,6 +67,7 @@ MAX_ATOMS = 64
 MAX_CHUNK_ROWS = 64
 MAX_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
+MAX_SEGMENTS = 32          # kMaxSegments of csrc/scann_common.cuh
 RBF_WIDTH = 0.25
 
 _LAYER_KEYS = (
@@ -145,23 +157,67 @@ def embedding_stage_floats(cfm: ModelConfig, atoms: int) -> int:
     return atoms * (lde + ldf)
 
 
-def shared_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int]:
+def seg_forward_floats(S: int, ld: int, M: int, O: int) -> int:
+    """Floats of the forward kernels' per-segment readout vectors
+    (``seg_forward_floats`` of ``csrc/scann_common.cuh``): qsum and the
+    pooled rows [S, ld], agg0, ga and diag [M], norm and sum [S], the
+    head's [O]."""
+    return 2 * S * ld + 3 * _r4(M) + 2 * _r4(S) + _r4(O)
+
+
+def seg_backward_floats(S: int, ld: int, M: int, O: int) -> int:
+    """Floats of the backward kernels' per-segment readout vectors
+    (``seg_backward_floats`` of ``csrc/scann_common.cuh``): qsum, the pooled
+    rows and their gradient [S, ld]; five [M]; four [S]; three [O]."""
+    return 3 * S * ld + 5 * _r4(M) + 4 * _r4(S) + 3 * _r4(O)
+
+
+def shared_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int]:
     """(atoms per chunk of rows, floats of the work region, shared bytes per
     block) -- the layout ``make_plan`` in the CUDA source walks: centers,
     query and a scratch [M, max(D, G) + 4] each, the work region (a chunk's
-    buffers or the embedding's staging), the readout's vectors."""
+    buffers or the embedding's staging), the readout's vectors (per segment
+    for a packed batch of S segments a slot)."""
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     ldm = max(D, G) + 4
     chunk_atoms = max(1, min(M, MAX_CHUNK_ROWS // N))
     work = max(forward_chunk_floats(chunk_atoms * N, D, H), embedding_stage_floats(cfm, M))
-    floats = 3 * M * ldm + work + 2 * ldm + _r4(M) + _r4(O)
+    misc = seg_forward_floats(S, ldm, M, O) if S else 2 * ldm + _r4(M) + _r4(O)
+    floats = 3 * M * ldm + work + misc
     return chunk_atoms, work, 4 * floats
 
 
-def refusal(cfm: ModelConfig, M: int, N: int) -> Optional[str]:
-    """Why the kernel does not take (config, M, N), or None where it does:
-    the gate, read by ``check_supported`` and by the dispatch in
-    ``Trainer.eval_route``."""
+def segment_count(inputs: Dict[str, torch.Tensor]) -> int:
+    """S of a packed batch (its ``segment_onehot`` [B, M, S]), 0 for an
+    unpacked one."""
+    seg = inputs.get("segment_onehot")
+    return 0 if seg is None else int(seg.shape[-1])
+
+
+def segment_refusal(S: int) -> Optional[str]:
+    """What every whole-model kernel refuses of a packed batch."""
+    if S > MAX_SEGMENTS:
+        return (f"S={S} segments a slot: the whole-model kernels take at most "
+                f"{MAX_SEGMENTS} (tpu.pack_max_segments)")
+    return None
+
+
+def largest_segments(plan_bytes) -> int:
+    """The largest S <= MAX_SEGMENTS with ``plan_bytes(S)`` within a
+    block's shared memory (0 where none is)."""
+    return max([S for S in range(1, MAX_SEGMENTS + 1) if plan_bytes(S) <= MAX_SHARED_BYTES],
+               default=0)
+
+
+def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
+    """The largest S a packed batch of shape (M, N) may have here."""
+    return largest_segments(lambda S: shared_memory_plan(cfm, M, N, S)[2])
+
+
+def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
+    """Why the kernel does not take (config, M, N) at S segments a slot (0:
+    unpacked), or None where it does: the gate, read by ``check_supported``
+    and by the dispatch in ``Trainer.eval_route``."""
     if M > MAX_ATOMS:
         return (f"M={M} atoms: the whole-model kernel takes M <= {MAX_ATOMS}; "
                 "larger structures go to the crystal loop kernel (kernels.scann_loop)")
@@ -169,10 +225,13 @@ def refusal(cfm: ModelConfig, M: int, N: int) -> Optional[str]:
         return ("use_attn_norm=False: the kernel always applies ResidualNorm; "
                 "that configuration runs in the per-layer model "
                 "(models.scann.scann_forward with use_pallas)")
-    reason = common_refusal(cfm, N)
-    nbytes = 0 if reason else shared_memory_plan(cfm, M, N)[2]
+    reason = common_refusal(cfm, N) or segment_refusal(S)
+    nbytes = 0 if reason else shared_memory_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
         reason = f"shared-memory plan of {nbytes} bytes exceeds {MAX_SHARED_BYTES}"
+        if S:
+            reason += (f" at S={S} segments a slot (this shape takes up to "
+                       f"{max_segments(cfm, M, N)})")
     return reason
 
 
@@ -191,9 +250,9 @@ def common_refusal(cfm: ModelConfig, N: int) -> Optional[str]:
     return None
 
 
-def check_supported(cfm: ModelConfig, M: int, N: int) -> None:
+def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
     """Raise NotImplementedError for what the kernel does not take."""
-    reason = refusal(cfm, M, N)
+    reason = refusal(cfm, M, N, S)
     if reason:
         raise NotImplementedError(reason)
 
@@ -254,6 +313,11 @@ def _check_shapes(inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
     }
     if cfm.use_ring:
         want["ring_aromatic"] = ((B, M, 2), torch.float32)
+    S = segment_count(inputs)
+    if S:
+        want["segment_onehot"] = ((B, M, S), torch.float32)
+        if "segment_ids" in inputs:
+            want["segment_ids"] = ((B, M), torch.int32)
     for k, (shape, dtype) in want.items():
         t = inputs[k]
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
@@ -295,14 +359,15 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     kernel) are launched with: (tensors in ``unpack_forward_args`` order,
     the outputs and the SCANN+ geometry scratch last; sizes, with the plan's
     chunk atoms and work floats; scalars; random-stream words), and the
-    outputs (pred [B], ga [B, M]). ``geo`` is the [B * M * N * D] geometry
-    scratch (SCANN+), allocated here when None."""
+    outputs (pred [B], or [B * S] for a packed batch of S segments a slot;
+    ga [B, M]). ``geo`` is the [B * M * N * D] geometry scratch (SCANN+),
+    allocated here when None."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     D = cfm.local_dim
     cgcnn = cfm.feature == "cgcnn"
-    pred = torch.empty(B, device=dev, dtype=torch.float32)
+    pred = torch.empty(B * max(segment_count(inputs), 1), device=dev, dtype=torch.float32)
     ga = torch.empty((B, M), device=dev, dtype=torch.float32)
     if cfm.g_update and geo is None:
         geo = torch.empty(B * M * N * D, device=dev, dtype=torch.float32)
@@ -324,6 +389,20 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
             int(mrelu_head), chunk_atoms, work]
     flags, scales, words = rng_words(cfm, dropout_rate, seed, mol_base)
     return order, dims + flags, [attention_scale(cfm), RBF_WIDTH, *scales], words, pred, ga
+
+
+def segment_arguments(inputs: Dict[str, torch.Tensor]) -> Tuple[Optional[torch.Tensor], int]:
+    """(segment ids [B, M] int32, S) a whole-model kernel launches a packed
+    batch with, (None, 0) for an unpacked one: the batch's ``segment_ids``
+    where ``Trainer._put_buckets`` put them, else computed on the device
+    from its ``segment_onehot`` (nothing is read back)."""
+    S = segment_count(inputs)
+    if not S:
+        return None, 0
+    ids = inputs.get("segment_ids")
+    if ids is None:
+        ids = segment_ids(inputs["segment_onehot"])
+    return ids.contiguous(), S
 
 
 def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, scalars,
@@ -362,14 +441,15 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     """The launch itself, on inputs ``_check_shapes`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
-    check_supported(cfm, M, N)
-    chunk_atoms, work, _ = shared_memory_plan(cfm, M, N)
+    seg, S = segment_arguments(inputs)
+    check_supported(cfm, M, N, S)
+    chunk_atoms, work, _ = shared_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
-    call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors, dims,
-                scalars, rng)
+    call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors + [seg],
+                dims + [S], scalars, rng)
     fused_scann_forward.launches += 1
-    return pred.view(B, 1), ga.view(B, M, 1)
+    return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
 def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -378,6 +458,7 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-model forward -> (property [B, 1], ga_score [B, M, 1]), f32;
     the training forward at ``dropout_rate`` > 0 (masks keyed on ``seed``).
+    A packed batch (``segment_onehot`` [B, M, S]) gives the property [B, S].
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise (unsupported shape, bad input, an index out of range, failed build

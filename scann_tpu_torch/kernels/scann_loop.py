@@ -3,7 +3,7 @@ wrappers around ``csrc/scann_loop.cu`` and ``csrc/scann_loop_backward.cu``.
 
 Replaces ``scann_tpu/kernels/scann_loop.py`` (the Pallas TPU kernels that run
 the whole model with a ``fori_loop`` over its layers: ``_fwd_kernel`` and
-``_bwd_kernel``) for unpacked batches whose structures are too large for the
+``_bwd_kernel``) for batches whose structures are too large for the
 molecule kernels of ``kernels.scann_forward`` / ``kernels.scann_backward``:
 MP2018 at (M=96, N=32, 9 layers), Pt/graphene at (M=128, N=32, 11 layers,
 ring features).
@@ -27,8 +27,15 @@ Forward:
   fits a block's 227 KB, and larger structures go through the per-layer
   kernel of ``kernels.local_attention``. It shares the molecule kernel's tiles: chunks
   of at most 64 (atom, neighbour) rows (N <= 64), D, G, O multiples of 4 up
-  to 128, float32. Packed batches (``segment_onehot``) and
-  ``use_attn_norm=False`` are refused.
+  to 128, float32. ``use_attn_norm=False`` is refused.
+- Packed batches (``segment_onehot`` [B, M, S], structure packing) run the
+  GA readout per segment in both kernels (``segment_ids`` and S, as
+  ``kernels.scann_forward`` says): pred, the cotangent and the targets are
+  [B, S], and the plans grow by the per-segment vectors (``max_segments``,
+  ``backward_max_segments``). The softmax is shifted by the slot's max, as
+  the molecule kernels and the JAX model shift it; the TPU loop kernels
+  shift by each segment's max, which differs only where a segment's sum
+  underflows to 0 (no published config: ``use_ga_norm`` bounds the scores).
 - Like the backward, it launches a cluster of ``cluster_size(B)`` blocks per
   structure (``launch_loop_forward(..., cluster=C)`` takes another C), each
   block on a contiguous share of the atoms; the new centers of a layer cross
@@ -96,7 +103,13 @@ from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_CHUNK_ROWS,
     MAX_SHARED_BYTES,
+    largest_segments,
     pack_params,
+    seg_backward_floats,
+    seg_forward_floats,
+    segment_arguments,
+    segment_count,
+    segment_refusal,
 )
 from scann_tpu_torch.models.scann import check_index_ranges
 
@@ -124,14 +137,16 @@ def supports_loop(cfm: ModelConfig) -> bool:
     return cfm.use_attn_norm
 
 
-def loop_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int, int]:
+def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
+                     ) -> Tuple[int, int, int, int]:
     """(atoms per chunk, atoms per block, floats of the work region, shared
     bytes per block) -- the layout ``make_plan`` in the CUDA source walks:
     the centers [M, max(D, G)], two slots [block, max(D, G) + 4], and a work
     region that holds a chunk's buffers, the embedding's staging, the
-    ResidualNorm's h2 or the readout's block and vectors. The atom block is
-    the largest of 32, 16, 8 whose plan fits a block's shared memory (the
-    smallest one's plan if none does)."""
+    ResidualNorm's h2 or the readout's block and vectors (per segment for a
+    packed batch of S segments a slot). The atom block is the largest of 32,
+    16, 8 whose plan fits a block's shared memory (the smallest one's plan
+    if none does)."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -141,39 +156,43 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int, i
         work = max(kfwd.forward_chunk_floats(chunk_atoms * N, D, H),
                    kfwd.embedding_stage_floats(cfm, block), block * (wd + 4),
                    block * wd + 2 * wd + 2 * r4(M) + r4(O))
+        if S:
+            work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
         floats = M * wd + 2 * block * (wd + 4) + work
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, work, 4 * floats
 
 
-def refusal(cfm: ModelConfig, M: int, N: int,
-            inputs: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
-    """Why the kernel does not take (config, M, N) or this batch, or None
-    where it does: the gate, read by ``check_supported`` and by the dispatch
-    in ``Trainer.eval_route``."""
-    if inputs is not None and ("segment_onehot" in inputs or "segment_mask" in inputs):
-        return ("packed batches (segment_onehot): the per-segment readout of the loop "
-                "kernel belongs to structure packing, which is not ported yet")
+def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
+    """The largest S a packed batch of shape (M, N) may have in the loop
+    forward."""
+    return largest_segments(lambda S: loop_memory_plan(cfm, M, N, S)[3])
+
+
+def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
+    """Why the kernel does not take (config, M, N) at S segments a slot (0:
+    unpacked), or None where it does: the gate, read by ``check_supported``
+    and by the dispatch in ``Trainer.eval_route``."""
     if not supports_loop(cfm):
         return ("use_attn_norm=False: the loop kernel always applies ResidualNorm; that "
                 "configuration runs in the per-layer model "
                 "(models.scann.scann_forward with use_pallas)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = kfwd.common_refusal(cfm, N)
-    nbytes = 0 if reason else loop_memory_plan(cfm, M, N)[3]
+    reason = kfwd.common_refusal(cfm, N) or segment_refusal(S)
+    nbytes = 0 if reason else loop_memory_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
-        reason = (f"M={M} atoms: the centers plus one atom block need {nbytes} bytes of "
-                  f"shared memory, a block has {MAX_SHARED_BYTES}; larger structures go "
-                  "through the per-layer kernel (kernels.local_attention)")
+        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the centers "
+                  f"plus one atom block need {nbytes} bytes of shared memory, a block has "
+                  f"{MAX_SHARED_BYTES}; larger structures go through the per-layer kernel "
+                  "(kernels.local_attention)")
     return reason
 
 
-def check_supported(cfm: ModelConfig, M: int, N: int,
-                    inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
     """Raise NotImplementedError for what the kernel does not take."""
-    reason = refusal(cfm, M, N, inputs)
+    reason = refusal(cfm, M, N, S)
     if reason:
         raise NotImplementedError(reason)
 
@@ -212,7 +231,8 @@ def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    check_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2], inputs)
+    check_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
+                    segment_count(inputs))
     kfwd._check_shapes(inputs, cfm, dev)
     return _launch(packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, cluster)
 
@@ -239,15 +259,16 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     elif tuple(scratch["next_centers"].shape) != (B, M, cfm.local_dim):
         raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} handed to "
                          f"a batch of shape {(B, M, cfm.local_dim)}")
-    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N)
+    seg, S = segment_arguments(inputs)
+    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
     kfwd.call_kernel("scann_loop", "scann_loop_forward", dev,
-                     tensors + [scratch["next_centers"]], dims + [atom_block, cluster], scalars,
-                     rng)
+                     tensors + [scratch["next_centers"], seg], dims + [atom_block, S, cluster],
+                     scalars, rng)
     launch_loop_forward.launches += 1
-    return pred.view(B, 1), ga.view(B, M, 1)
+    return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
 def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -256,13 +277,13 @@ def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Crystal-scale whole-model forward -> (property [B, 1], ga_score
     [B, M, 1]), f32; the training forward at ``dropout_rate`` > 0 (masks
-    keyed on ``dropout_seed``).
+    keyed on ``dropout_seed``). A packed batch gives the property [B, S].
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise (unsupported shape or config, bad input, failed build or launch)."""
     dev = inputs["atomic"].device
     M, N = inputs["atomic"].shape[1], inputs["neighbors"].shape[2]
-    check_supported(cfm, M, N, inputs)
+    check_supported(cfm, M, N, segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_forward(params, inputs, cfm, mrelu_head, dropout_rate,
                                       dropout_seed)
@@ -302,7 +323,7 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
-            chunk_atoms, work, 0, 0, atom_block]
+            chunk_atoms, work, 0, 0, atom_block, 0, cluster]
     fn = load_library("scann_loop").scann_loop_forward_max_clusters
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -314,11 +335,13 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
 
 # --- the backward ---------------------------------------------------------------
 
-def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, int, int]:
+def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
+                              ) -> Tuple[int, int, int]:
     """(atoms per chunk of rows, atoms per block, shared bytes per block) --
-    the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks. The
-    atom block is the largest of 32, 16, 8 whose plan fits a block's shared
-    memory (the smallest one's plan if none does)."""
+    the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks (with
+    the per-segment readout's vectors for a packed batch of S segments a
+    slot). The atom block is the largest of 32, 16, 8 whose plan fits a
+    block's shared memory (the smallest one's plan if none does)."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O = cfm.local_dim, cfm.global_dim, cfm.dense_out
     wd = max(D, G)
@@ -332,6 +355,8 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int) -> Tuple[int, in
                    5 * block * wd + r4(block),
                    block * (2 * lde + ldf) + block * wd,
                    block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
+        if S:
+            work = max(work, block * wd + seg_backward_floats(S, wd, M, O))
         floats = M * wd + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd + 2 * wd
         if 4 * floats <= MAX_SHARED_BYTES:
             break
@@ -350,14 +375,17 @@ def cluster_size(B: int) -> int:
     return 1
 
 
-def backward_refusal(cfm: ModelConfig, M: int, N: int,
-                     inputs: Optional[Dict[str, torch.Tensor]] = None) -> Optional[str]:
-    """Why the loop backward does not take (config, M, N) or this batch, or
-    None where it does: the gate, read by ``check_backward_supported`` and by
-    the dispatch in ``Trainer.train_route``."""
-    if inputs is not None and ("segment_onehot" in inputs or "segment_mask" in inputs):
-        return ("packed batches (segment_onehot): the per-segment readout of the loop "
-                "kernels belongs to structure packing, which is not ported yet")
+def backward_max_segments(cfm: ModelConfig, M: int, N: int) -> int:
+    """The largest S a packed batch of shape (M, N) may have in the loop
+    backward."""
+    return largest_segments(lambda S: loop_backward_memory_plan(cfm, M, N, S)[2])
+
+
+def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
+    """Why the loop backward does not take (config, M, N) at S segments a
+    slot (0: unpacked), or None where it does: the gate, read by
+    ``check_backward_supported`` and by the dispatch in
+    ``Trainer.train_route``."""
     if not supports_loop(cfm):
         return ("use_attn_norm=False: the loop kernels always apply ResidualNorm; that "
                 "configuration trains through the per-layer model "
@@ -369,18 +397,19 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int,
         reason = (f"N={N} neighbours: the loop backward walks chunks of at most "
                   f"{kbwd.MAX_CHUNK_ROWS} (atom, neighbour) rows; wider buckets train "
                   "through the per-layer model")
-    nbytes = 0 if reason else loop_backward_memory_plan(cfm, M, N)[2]
+    reason = reason or segment_refusal(S)
+    nbytes = 0 if reason else loop_backward_memory_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
-        reason = (f"M={M} atoms: the resident buffer plus one atom block need {nbytes} bytes "
-                  f"of shared memory, a block has {MAX_SHARED_BYTES}; larger structures "
-                  "train through the per-layer model")
+        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the resident "
+                  f"buffer plus one atom block need {nbytes} bytes of shared memory, a block "
+                  f"has {MAX_SHARED_BYTES}; larger structures train through the per-layer "
+                  "model")
     return reason
 
 
-def check_backward_supported(cfm: ModelConfig, M: int, N: int,
-                             inputs: Optional[Dict[str, torch.Tensor]] = None) -> None:
+def check_backward_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
     """Raise NotImplementedError for what the loop backward does not take."""
-    reason = backward_refusal(cfm, M, N, inputs)
+    reason = backward_refusal(cfm, M, N, S)
     if reason:
         raise NotImplementedError(reason)
 
@@ -431,15 +460,17 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
     """Check CUDA inputs and launch the loop backward and its row reduction
     with ``pack_params`` output (index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
-    pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when ``one_shot``); ``scratch``
+    pred, or the targets when ``one_shot`` ([B, S] for a packed batch); ``ct_ga``
+    [B, M] (ignored when ``one_shot``); ``scratch``
     from ``loop_backward_scratch`` at this batch shape and cluster size
     (allocated here when None); ``cluster`` blocks per structure (1, 2 or 4;
-    ``cluster_size(B)`` when None). Returns (flat gradients [P], pred [B])."""
+    ``cluster_size(B)`` when None). Returns (flat gradients [P], pred [B],
+    or [B * S] packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
-                             inputs)
+                             segment_count(inputs))
     kfwd._check_shapes(inputs, cfm, dev)
     return _launch_backward(packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate,
                             seed, mol_base, scratch, cluster)
@@ -457,7 +488,8 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     """The launch itself, on inputs ``launch_loop_backward`` accepted."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
-    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N)
+    seg, S = segment_arguments(inputs)
+    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N, S)
     cluster = cluster_size(B) if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
@@ -472,8 +504,8 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
     kfwd.call_kernel("scann_loop_backward", "scann_loop_backward", packed["wde"].device,
-                     tensors + [scratch["dcenters"]], dims + [atom_block, cluster], scalars,
-                     rng, offsets, flat)
+                     tensors + [scratch["dcenters"], seg], dims + [atom_block, S, cluster],
+                     scalars, rng, offsets, flat)
     launch_loop_backward.launches += 1
     return flat, pred
 
@@ -490,7 +522,7 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) 
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
-            atom_block]
+            atom_block, 0, cluster]
     fn = load_library("scann_loop_backward").scann_loop_backward_max_clusters
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -507,7 +539,7 @@ def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Ten
     [B, 1], ct_ga [B, M] or [B, M, 1]) through the loop backward kernel."""
     dev = inputs["atomic"].device
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
-                             inputs)
+                             segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
                                    dropout_seed)
@@ -530,7 +562,7 @@ def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     the caller turns them into RMSE + l2 gradients (``train.loop``)."""
     dev = inputs["atomic"].device
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
-                             inputs)
+                             segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_train_grads(params, inputs, targets, cfm, mrelu_head,
                                           dropout_rate, dropout_seed)
@@ -540,7 +572,7 @@ def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     packed = pack_params(params, cfm)
     flat, pred = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
                                       None, True, mrelu_head, dropout_rate, dropout_seed or 0)
-    return pred.view(-1, 1), kbwd.grads_from_flat(flat, packed, cfm)
+    return pred.view(inputs["atomic"].shape[0], -1), kbwd.grads_from_flat(flat, packed, cfm)
 
 
 class _LoopScannApply(torch.autograd.Function):
@@ -559,7 +591,8 @@ class _LoopScannApply(torch.autograd.Function):
         params = dict(zip(keys, ctx.saved_tensors))
         B, M = ctx.inputs["atomic"].shape[:2]
         dev = ctx.saved_tensors[0].device
-        ct_pred = d_pred if d_pred is not None else torch.zeros(B, 1, device=dev)
+        S = max(segment_count(ctx.inputs), 1)
+        ct_pred = d_pred if d_pred is not None else torch.zeros(B, S, device=dev)
         ct_ga = d_ga if d_ga is not None else torch.zeros(B, M, 1, device=dev)
         # mrelu head: straight-through, so the cotangent passes unchanged
         grads = loop_scann_grad(params, ctx.inputs, cfm, ct_pred, ct_ga, dropout_rate, seed)

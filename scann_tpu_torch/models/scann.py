@@ -18,6 +18,7 @@ Inputs (one padded batch, see ``api.prepare_input``):
     neighbor_weight   [B, M, N] float (solid angle)
     neighbor_distance [B, M, N] float
     ring_aromatic     [B, M, 2] float (only when use_ring)
+    segment_onehot    [B, M, S] float (only for packed slots, ``data/packing.py``)
 
 ``scann_forward`` is the forward as a plain function of (params, inputs):
 deterministic, or the training forward when it is handed the dropout masks
@@ -26,7 +27,8 @@ the attention dropout of ``use_drop``). ``ScannModel`` wraps it as an
 ``nn.Module`` that owns its parameters (``use_pallas=True``: the per-layer
 model, whose LocalAttention layers run in the kernel of
 ``kernels.local_attention`` on CUDA). ``l2_penalty`` is the reference's
-kernel regularisation. Structure packing is not ported yet.
+kernel regularisation. A packed batch (``segment_onehot`` in the inputs)
+gets the per-segment readout and a property of [B, S], one per segment.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -184,7 +186,9 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
                   cfm: ModelConfig, mrelu_head: bool = False,
                   masks: Optional[DropoutMasks] = None, use_pallas: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward -> (property [B, 1], ga_score [B, M, 1]), f32.
+    """Forward -> (property [B, 1], ga_score [B, M, 1]), f32; for a packed
+    batch (``segment_onehot`` [B, M, S]) the property is [B, S], one per
+    segment (an empty segment's is the head on a zero pooled vector).
 
     ``use_pallas`` (the JAX model's name for it) is the per-layer model: on
     CUDA tensors each LocalAttention layer without attention dropout is one
@@ -243,12 +247,15 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
     centers = swish(_dense(p, "after_Lc", centers))
     gq = _dense(p, "global_attention/query", centers)
     gk = _dense(p, "global_attention/key", centers)
-    ga_score, struc = global_attention_core(gq, gk, gk, atom_mask,
-                                            norm=cfm.use_ga_norm)
+    segments = inputs.get("segment_onehot")
+    ga_score, struc = global_attention_core(gq, gk, gk, atom_mask, norm=cfm.use_ga_norm,
+                                            segment_onehot=segments)
     struc = swish(_dense(p, "bf_property", struc))
     out = _dense(p, "predict_property", struc)
     if mrelu_head:
         out = mrelu(out)
+    if segments is not None:
+        out = out[..., 0]   # [B, S]
     return out, ga_score
 
 

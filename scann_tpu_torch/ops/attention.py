@@ -8,9 +8,11 @@
 
       agg_i = (m_i K_i) . (sum_j m_j Q_j) - m_i^2 (K_i . Q_i)
 
-  in O(B M D) instead of materializing the [B, M, M] energy.
-
-Packed segments (several structures per padded slot) are not ported yet.
+  in O(B M D) instead of materializing the [B, M, M] energy. With
+  ``segment_onehot`` (structure packing, ``data/packing.py``) every
+  per-structure reduction runs per segment of the slot.
+- ``segment_ids``: the per-row segment id [B, M] (-1 on padded rows) that
+  the whole-model kernels take in place of the one-hot.
 """
 
 from typing import Optional, Tuple
@@ -71,10 +73,16 @@ def global_attention_core(
     value: torch.Tensor,   # [B, M, G]
     mask: torch.Tensor,    # [B, M, 1] float atom mask
     norm: bool = True,
+    segment_onehot: Optional[torch.Tensor] = None,   # [B, M, S]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GA-score readout. Returns (attn [B, M, 1], context [B, G])."""
+    """GA-score readout. Returns (attn [B, M, 1], context [B, G]), or with
+    ``segment_onehot`` (several structures per slot) (attn [B, M, 1],
+    context [B, S, G]): one pooled representation per segment."""
     mk = mask * key
     mq = mask * query
+    if segment_onehot is not None:
+        return _segmented_global_attention(mk, mq, value, mask,
+                                           segment_onehot.to(mk.dtype), norm)
     q_sum = mq.sum(dim=1, keepdim=True)                  # [B, 1, G]
     cross = (mk * q_sum).sum(dim=-1, keepdim=True)      # [B, M, 1]
     diag = (mk * mq).sum(dim=-1, keepdim=True)          # [B, M, 1]
@@ -93,3 +101,59 @@ def global_attention_core(
     attn = torch.softmax(agg, dim=1)
     context = (mask * attn * value).sum(dim=1)          # [B, G]
     return attn, context
+
+
+def _segmented_global_attention(mk, mq, value, mask, seg, norm):
+    """Per-segment GA reductions for packed slots, as
+    ``scann_tpu/ops/attention.py:166-200``: ``seg`` [B, M, S] has one hot
+    per valid atom and zero rows on padding. The softmax is shifted by the
+    slot's max, which is constant within every segment; a segment whose
+    sum underflows to 0 gets attention 0, as does every padded row."""
+    qseg = torch.einsum("bms,bmg->bsg", seg, mq)
+    q_own = torch.einsum("bms,bsg->bmg", seg, qseg)
+    cross = (mk * q_own).sum(dim=-1, keepdim=True)
+    diag = (mk * mq).sum(dim=-1, keepdim=True)
+    agg = mask * (cross - diag)
+
+    if norm:
+        # per-segment euclidean norm, the guard around the sum as unpacked
+        sq = torch.einsum("bms,bm->bs", seg, agg[..., 0] * agg[..., 0])
+        nrm = torch.sqrt(torch.where(sq == 0, torch.ones_like(sq), sq))
+        nrm_own = torch.einsum("bms,bs->bm", seg, nrm)[..., None]
+        agg = agg / torch.where(nrm_own == 0, torch.ones_like(nrm_own), nrm_own)
+
+    agg = agg + (1.0 - mask) * -1e9
+    attn = _SegmentSoftmax.apply(agg - agg.amax(dim=1, keepdim=True).detach(), mask, seg)
+    context = torch.einsum("bms,bmg->bsg", seg, attn * value)
+    return attn, context
+
+
+class _SegmentSoftmax(torch.autograd.Function):
+    """attn = exp(z) mask / (its segment's sum, 1 where that is 0), with
+    the softmax's own backward, dz = attn (g - the segment's sum of attn g),
+    as the TPU kernels differentiate it (``scann_backward.py:367-374``):
+    autograd through the division would square a sum that underflowed to a
+    denormal and turn the gradient into NaN."""
+
+    @staticmethod
+    def forward(ctx, z, mask, seg):
+        e = torch.exp(z) * mask
+        den = torch.einsum("bms,bm->bs", seg, e[..., 0])
+        den_own = torch.einsum("bms,bs->bm", seg, den)[..., None]
+        attn = e / torch.where(den_own == 0, torch.ones_like(den_own), den_own)
+        ctx.save_for_backward(attn, seg)
+        return attn
+
+    @staticmethod
+    def backward(ctx, g):
+        attn, seg = ctx.saved_tensors
+        gd = torch.einsum("bms,bm->bs", seg, (attn * g)[..., 0])
+        return attn * (g - torch.einsum("bms,bs->bm", seg, gd)[..., None]), None, None
+
+
+def segment_ids(segment_onehot: torch.Tensor) -> torch.Tensor:
+    """[B, M, S] one-hot -> int32 [B, M]: each row's segment, -1 on a row
+    that belongs to none (padding). Computed where the one-hot lies, with
+    nothing read back."""
+    ids = segment_onehot.argmax(dim=-1).to(torch.int32)
+    return torch.where(segment_onehot.sum(dim=-1) > 0, ids, torch.full_like(ids, -1))

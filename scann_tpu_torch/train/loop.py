@@ -1,5 +1,4 @@
-"""Training on one GPU (port of ``scann_tpu/train/loop.py`` for unpacked
-buckets).
+"""Training on one GPU (port of ``scann_tpu/train/loop.py``).
 
 The reference recipe (``scann_model.py:42-319``): RMSE loss plus the Keras
 l2(1e-4) kernel penalties, Adam(b1=0.9, b2=0.999, eps=1e-7) with the
@@ -25,9 +24,17 @@ MAE, best-val checkpoints, a test report.
   l2 gradient is added, as at ``loop.py:391-427``. A kernel that fails to
   build or launch raises: no route gives way to another at run time. On the
   CPU the same routes run the kernels' plain versions.
+- Packed slots (``tpu.structure_packing``, ``data/packing.PackedSlots``):
+  a bucket's rows are slots of several structures, its targets [slots, S];
+  the device bucket also holds the per-row ``segment_ids`` (computed there
+  from the one-hot, nothing read back), which the kernels launch from. A
+  step takes ``packed_slot_batch`` slots (about ``batch_size`` structures,
+  ``tpu.pack_preserve_batch``), and its RMSE, MAE and gradient scale divide
+  by the count of valid segments (``loop.py:341-440``); evaluation and
+  prediction keep the valid segments, per structure, in dataset order.
 - The epoch order and the dropout seeds come from a ``torch.Generator``
   seeded from (seed, epoch, bucket) alone, so a resumed run replays an
-  uninterrupted one exactly (``loop.py:738-751``).
+  uninterrupted one exactly (``loop.py:738-751``), packed or not.
 - ``version`` counts parameter changes (``init_state``, ``load_params``,
   every optimizer step, a restore); the kernel layout of the weights
   (``pack_params``) is rebuilt when it moved.
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from scann_tpu_torch.config import ScannConfig, save_config
+from scann_tpu_torch.data.packing import packed_slot_batch
 from scann_tpu_torch.data.pipeline import PackedBucket
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -61,12 +69,14 @@ from scann_tpu_torch.kernels.scann_forward import (
     dropout_masks_for,
     launch_scann_forward,
     pack_params,
+    segment_count,
 )
 from scann_tpu_torch.kernels.scann_loop import (
     launch_loop_backward,
     launch_loop_forward,
     loop_scann_train_grads,
 )
+from scann_tpu_torch.ops.attention import segment_ids
 from scann_tpu_torch.models.scann import (
     check_index_ranges,
     init_params,
@@ -79,6 +89,22 @@ from scann_tpu_torch.train.schedules import SGDRSchedule, make_cosine_lr
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7   # Keras Adam (scann_model.py:212)
 TRAIN_DROPOUT = 0.1
+
+
+def bucket_structure_indices(b) -> np.ndarray:
+    """Per-structure dataset indices of a bucket, in its row order: a packed
+    bucket's valid segments in (slot, segment) order (its [slots, S]
+    indices hold -1 for an empty segment)."""
+    ix = np.asarray(b.indices)
+    return ix[ix >= 0] if ix.ndim == 2 else ix[: b.num_structures]
+
+
+def bucket_structure_targets(b) -> np.ndarray:
+    """Per-structure targets aligned with ``bucket_structure_indices``."""
+    y = np.asarray(b.targets)
+    if y.ndim == 2:
+        return y[np.asarray(b.indices) >= 0]
+    return y[: b.num_structures]
 
 
 def r2_score(y_true: np.ndarray, y_pred: np.ndarray) -> float:
@@ -117,6 +143,7 @@ class Trainer:
         self._packed: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
         self._device_buckets: Dict[Tuple[str, int], tuple] = {}
         self._loop_scratch: Dict[Tuple[int, int, int], dict] = {}
+        self._slot_batch: Optional[int] = None
         self.history: Optional[Dict[str, list]] = None
 
     # --- parameters and optimizer state ---------------------------------------
@@ -147,21 +174,23 @@ class Trainer:
             self._packed = (self.version, pack_params(self.params, self.config.model))
         return self._packed[1]
 
-    def eval_route(self, M: int, N: int) -> str:
-        """Which forward a CUDA batch of shape (M, N) takes, from the
-        kernels' gates alone: "fused" (the whole-model molecule kernel),
-        "loop" (the whole-model crystal kernel) or "per_layer" (the eager
-        model with one LocalAttention kernel launch per layer)."""
+    def eval_route(self, M: int, N: int, S: int = 0) -> str:
+        """Which forward a CUDA batch of shape (M, N) at S segments a slot
+        (0: unpacked) takes, from the kernels' gates alone: "fused" (the
+        whole-model molecule kernel), "loop" (the whole-model crystal
+        kernel) or "per_layer" (the eager model with one LocalAttention
+        kernel launch per layer)."""
         cfm = self.config.model
-        if kfwd.refusal(cfm, M, N) is None:
+        if kfwd.refusal(cfm, M, N, S) is None:
             return "fused"
-        if kloop.refusal(cfm, M, N) is None:
+        if kloop.refusal(cfm, M, N, S) is None:
             return "loop"
         return "per_layer"
 
     def forward_eval(self, params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Deterministic forward -> (property [B, 1], ga_score [B, M, 1]).
+        """Deterministic forward -> (property [B, 1], or [B, S] for packed
+        slots; ga_score [B, M, 1]).
 
         On CUDA the route is chosen from (config, M, N) before anything is
         launched (``eval_route``): the whole-model kernel where its gate
@@ -174,7 +203,8 @@ class Trainer:
         with torch.inference_mode():
             if self.device.type != "cuda":
                 return scann_forward(params, batch, cfm, self.mrelu_head)
-            route = self.eval_route(batch["atomic"].shape[1], batch["neighbors"].shape[2])
+            route = self.eval_route(batch["atomic"].shape[1], batch["neighbors"].shape[2],
+                                    segment_count(batch))
             if route == "per_layer":
                 return scann_forward(params, batch, cfm, self.mrelu_head, use_pallas=True)
             packed = (self.kernel_params() if params is self.params
@@ -187,37 +217,49 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, lr: float,
                    seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """One Adam step on one batch; returns (loss, mae) as device scalars
-        (the loss is RMSE + l2, as the JAX step reports it)."""
+        (the loss is RMSE + l2, as the JAX step reports it). For packed slots
+        (y [B, S]) RMSE, MAE and the gradient scale count the valid segments
+        only (``segment_mask``), as ``loop.py:371-379`` does."""
         l2 = self.config.hyper.l2_reg
         pred, raw = self.raw_grads(batch, y, seed)
-        err = pred - y
-        rmse = torch.sqrt(torch.mean(err * err))
-        mae = torch.mean(torch.abs(err))
+        if "segment_mask" in batch:
+            smask = batch["segment_mask"]
+            n = smask.sum()
+            err = (pred - y) * smask
+            rmse = torch.sqrt(torch.sum(err * err) / n)
+            mae = torch.sum(torch.abs(err)) / n
+        else:
+            n = y.shape[0]
+            err = pred - y
+            rmse = torch.sqrt(torch.mean(err * err))
+            mae = torch.mean(torch.abs(err))
         loss = rmse + l2_penalty(self.params, l2)
         keys = list(self.params)
         grads = [raw[k] for k in keys]
-        torch._foreach_mul_(grads, 1.0 / (y.shape[0] * rmse))
+        torch._foreach_mul_(grads, 1.0 / (n * rmse))
         reg = regularized_keys(self.params)
         torch._foreach_add_([raw[k] for k in reg], [self.params[k] for k in reg], alpha=2 * l2)
         self._adam(keys, grads, lr)
         return loss.detach(), mae.detach()
 
-    def train_route(self, M: int, N: int) -> str:
-        """Which backward a training batch of shape (M, N) takes, from the
-        kernels' gates alone: "fused" (the whole-model molecule backward),
-        "loop" (the whole-model crystal loop backward) or "per_layer" (the
-        per-layer model under ``torch.autograd``)."""
+    def train_route(self, M: int, N: int, S: int = 0) -> str:
+        """Which backward a training batch of shape (M, N) at S segments a
+        slot (0: unpacked) takes, from the kernels' gates alone: "fused"
+        (the whole-model molecule backward), "loop" (the whole-model crystal
+        loop backward) or "per_layer" (the per-layer model under
+        ``torch.autograd``)."""
         cfm = self.config.model
-        if kbwd.refusal(cfm, M, N) is None:
+        if kbwd.refusal(cfm, M, N, S) is None:
             return "fused"
-        if kloop.backward_refusal(cfm, M, N) is None:
+        if kloop.backward_refusal(cfm, M, N, S) is None:
             return "loop"
         return "per_layer"
 
     def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """(pred [B], gradients of 0.5 * sum((pred - y)^2)) at the training
-        dropout, by the route of ``train_route``: on CUDA one launch of the
+        """(pred [B], or [B, S] for packed slots, gradients of 0.5 *
+        sum((pred - y)^2) over the valid segments) at the training dropout,
+        by the route of ``train_route``: on CUDA one launch of the
         molecule or the loop backward kernel (the loop kernel's scratch is
         kept per batch shape), or the per-layer model under autograd; on the
         CPU the kernels' plain versions. Nothing is read back: ``fit``'s
@@ -226,7 +268,8 @@ class Trainer:
         cfm = self.config.model
         B, M = batch["atomic"].shape[:2]
         N = batch["neighbors"].shape[2]
-        route = self.train_route(M, N)
+        S = segment_count(batch)
+        route = self.train_route(M, N, S)
         if route == "per_layer":
             return self._per_layer_grads(batch, y, seed)
         if self.device.type == "cuda":
@@ -242,26 +285,30 @@ class Trainer:
                 flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
                                                   self.mrelu_head, self.dropout_rate, seed,
                                                   scratch=scratch)
-            return pred, grads_from_flat(flat, packed, cfm)
+            return (pred.view(B, S) if S else pred), grads_from_flat(flat, packed, cfm)
         grads_fn = fused_scann_train_grads if route == "fused" else loop_scann_train_grads
         pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed)
-        return pred[:, 0], raw
+        return (pred if S else pred[:, 0]), raw
 
     def _per_layer_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The third route: the training forward of the per-layer model
         (``scann_forward(use_pallas=True)``: on CUDA one LocalAttention
         kernel launch per layer, whose backward recomputes the plain layer)
-        differentiated by ``torch.autograd``; the same residual and the same
-        dropout masks as the whole-model kernels."""
+        differentiated by ``torch.autograd``; the same residual (an empty
+        segment's zeroed) and the same dropout masks as the whole-model
+        kernels."""
         cfm = self.config.model
         masks = dropout_masks_for(cfm, batch, self.dropout_rate, seed)
+        packed = "segment_onehot" in batch
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
             pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True)
-            loss = 0.5 * ((pred[:, 0] - y) ** 2).sum()
+            err = (pred - y) * kbwd.segment_valid(batch) if packed else pred[:, 0] - y
+            loss = 0.5 * (err ** 2).sum()
             grads = torch.autograd.grad(loss, list(leaves.values()))
-        return pred.detach()[:, 0], dict(zip(leaves, grads))
+        pred = pred.detach()
+        return (pred if packed else pred[:, 0]), dict(zip(leaves, grads))
 
     def _adam(self, keys: List[str], grads: List[torch.Tensor], lr: float) -> None:
         """optax.scale_by_adam(0.9, 0.999, eps=1e-7), then params -= lr * update."""
@@ -301,9 +348,10 @@ class Trainer:
         """Bucket arrays on the device, once per (tag, bucket), their index
         ranges checked on the host first (so no launch on them reads
         anything back); the entry keeps the bucket alive so its id() cannot
-        be reused by another one. Buckets of ``tag`` not in ``buckets`` are
-        dropped, and with them the loop scratch of shapes no live bucket
-        has."""
+        be reused by another one. A packed bucket also gets its
+        ``segment_ids`` [slots, M], computed on the device from the one-hot.
+        Buckets of ``tag`` not in ``buckets`` are dropped, and with them the
+        loop scratch of shapes no live bucket has."""
         live = {(tag, id(b)) for b in buckets}
         for key in [k for k in self._device_buckets if k[0] == tag and k not in live]:
             del self._device_buckets[key]
@@ -311,12 +359,12 @@ class Trainer:
         for b in buckets:
             key = (tag, id(b))
             if key not in self._device_buckets:
-                if "segment_mask" in b.inputs:
-                    raise NotImplementedError("packed buckets: structure packing is not "
-                                              "ported yet")
                 check_index_ranges(b.inputs, self.config.model)
+                inputs = _to_device(b.inputs, self.device)
+                if "segment_onehot" in inputs:
+                    inputs["segment_ids"] = segment_ids(inputs["segment_onehot"])
                 self._device_buckets[key] = (
-                    b, _to_device(b.inputs, self.device),
+                    b, inputs,
                     torch.as_tensor(np.asarray(b.targets, np.float32), device=self.device))
             out.append(self._device_buckets[key][1:])
         self._prune_loop_scratch()
@@ -334,11 +382,19 @@ class Trainer:
     def fit(self, train_buckets: List[PackedBucket], valid_buckets: List[PackedBucket],
             epochs: Optional[int] = None, log_fn=print, resume: bool = False) -> Dict[str, list]:
         """Train; ``resume=True`` continues from the workdir's 'last'
-        checkpoint (params, Adam state, step and schedule)."""
+        checkpoint (params, Adam state, step and schedule). Batches are of
+        rows (slots): for packed slots ``packed_slot_batch`` of them, so a
+        step sees about ``batch_size`` structures (``tpu.pack_preserve_batch``,
+        ``loop.py:647-665``)."""
         hyper = self.config.hyper
         epochs = epochs or hyper.epochs
         bs = hyper.batch_size
-        steps_per_epoch = sum(-(-b.num_structures // bs) for b in train_buckets)
+        n_train = sum(b.num_structures for b in train_buckets)
+        n_rows = sum(len(b.targets) for b in train_buckets)
+        if n_train > n_rows and self.config.tpu.pack_preserve_batch:
+            bs = packed_slot_batch(hyper.batch_size, n_rows, n_train)
+        self._slot_batch = bs
+        steps_per_epoch = sum(-(-len(b.targets) // bs) for b in train_buckets)
         sgdr = None
         if hyper.scheduler == "sgdr":
             sgdr = SGDRSchedule(lr_max=hyper.lr, lr_min=hyper.min_lr)
@@ -368,7 +424,6 @@ class Trainer:
                 sgdr.load_state_dict(meta)
             log_fn(f"resumed from epoch {start_epoch} (best val_mae {best_val:.5f})")
 
-        n_train = sum(b.num_structures for b in train_buckets)
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             epoch_lr = sgdr.epoch_begin() if sgdr else 0.0
@@ -424,22 +479,30 @@ class Trainer:
 
     def _predict_rows(self, binputs: Dict[str, torch.Tensor], n_rows: int,
                       batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(pred [n_rows], ga [n_rows, M]) of a device bucket, in batches of
-        ``batch_size`` with the last one wrap-padded."""
+        """(pred [n_rows], or [n_rows, S] for packed slots; ga [n_rows, M])
+        of a device bucket, in batches of ``batch_size`` rows with the last
+        one wrap-padded."""
+        packed = "segment_onehot" in binputs
         preds, gas = [], []
         for s0 in range(0, n_rows, batch_size):
             idx = torch.arange(s0, s0 + batch_size, device=self.device) % n_rows
             pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()})
-            preds.append(pred[:, 0])
+            preds.append(pred if packed else pred[:, 0])
             gas.append(ga[..., 0])
         return torch.cat(preds)[:n_rows], torch.cat(gas)[:n_rows]
 
     def _evaluate_buckets(self, buckets: List[PackedBucket], dev_buckets):
+        """(mae, r2, pred, y) over the buckets' structures: for packed slots
+        the valid segments, per structure (``loop.py:803-820``)."""
         preds, ys = [], []
+        bs = self._slot_batch or self.config.hyper.batch_size
         for b, (binputs, _) in zip(buckets, dev_buckets):
-            pred, _ = self._predict_rows(binputs, b.num_structures, self.config.hyper.batch_size)
-            preds.append(pred.cpu().numpy())
-            ys.append(np.asarray(b.targets))
+            pred, _ = self._predict_rows(binputs, len(b.targets), bs)
+            pred = pred.cpu().numpy()
+            if pred.ndim == 2:
+                pred = pred[np.asarray(b.indices) >= 0]
+            preds.append(pred)
+            ys.append(bucket_structure_targets(b))
         pred, y = np.concatenate(preds), np.concatenate(ys)
         return float(np.mean(np.abs(pred - y))), r2_score(y, pred), pred, y
 
@@ -467,23 +530,36 @@ class Trainer:
     def predict(self, buckets: List[PackedBucket], batch_size: Optional[int] = None,
                 with_ga: bool = False):
         """Un-standardized predictions (and per-atom GA scores) of the
-        buckets' structures, in ascending order of their dataset indices."""
+        buckets' structures, in ascending order of their dataset indices;
+        packed slots give one per valid segment (``loop.py:856-935``)."""
         bs = batch_size or self.config.hyper.batch_size
-        all_orig = np.concatenate([np.asarray(b.indices) for b in buckets])
+        all_orig = np.concatenate([bucket_structure_indices(b) for b in buckets])
         sorted_orig = np.sort(all_orig)
         if len(np.unique(sorted_orig)) != len(sorted_orig):
             raise ValueError("buckets contain duplicate structure indices")
         preds = np.zeros(len(sorted_orig), np.float32)
         gas: Dict[int, np.ndarray] = {}
         for b, (binputs, _) in zip(buckets, self._put_buckets(buckets, "predict")):
-            pred, ga = self._predict_rows(binputs, b.num_structures, bs)
-            pos = np.searchsorted(sorted_orig, np.asarray(b.indices))
-            preds[pos] = pred.cpu().numpy()
+            pred, ga = self._predict_rows(binputs, len(b.targets), bs)
+            pred = pred.cpu().numpy()
+            pos = np.searchsorted(sorted_orig, bucket_structure_indices(b))
+            packed = pred.ndim == 2
+            valid = np.asarray(b.indices) >= 0
+            preds[pos] = pred[valid] if packed else pred
             if with_ga:
                 ga = ga.cpu().numpy()
-                na = b.inputs["atom_mask"][:, :, 0].sum(-1).astype(int)
-                for j, pj in enumerate(pos):
-                    gas[int(pj)] = ga[j, : na[j]]
+                if packed:
+                    # structure j's rows: its segment's column of the one-hot,
+                    # a contiguous run in (slot, row) order
+                    sl, sg = np.nonzero(valid)
+                    member = b.inputs["segment_onehot"][sl, :, sg] > 0     # [n, M]
+                    parts = np.split(ga[sl][member], np.cumsum(member.sum(1))[:-1])
+                    for j, pj in enumerate(pos):
+                        gas[int(pj)] = parts[j]
+                else:
+                    na = b.inputs["atom_mask"][:, :, 0].sum(-1).astype(int)
+                    for j, pj in enumerate(pos):
+                        gas[int(pj)] = ga[j, : na[j]]
         preds = preds * self.config.hyper.target_std + self.config.hyper.target_mean
         if with_ga:
             return preds, [gas[i] for i in range(len(preds))]

@@ -168,9 +168,15 @@ def test_torch_backward_gate_and_layout():
         kbwd.check_supported(cfm, 40, 16)
     with pytest.raises(NotImplementedError, match="sizes"):
         kbwd.check_supported(cfm, 32, 40)
-    with pytest.raises(NotImplementedError, match="packing"):
-        kbwd.fused_scann_grad({}, {"atomic": torch.zeros(1, 8), "segment_onehot": None},
-                              cfm, None, None)
+    # packed slots: the per-segment vectors join the plan; at the QM9
+    # capacity of 32 the plan takes up to 15 segments a slot
+    assert kbwd.shared_memory_plan(cfm, 32, 16, 8) == (2, 222336)
+    assert kbwd.max_segments(cfm, 32, 16) == 15
+    assert kbwd.refusal(cfm, 32, 16, 15) is None
+    with pytest.raises(NotImplementedError, match="S=16: the backward's shared-memory plan"):
+        kbwd.check_supported(cfm, 32, 16, 16)
+    with pytest.raises(NotImplementedError, match="pack_max_segments"):
+        kbwd.check_supported(cfm, 16, 16, kfwd.MAX_SEGMENTS + 1)
     # the flat gradient round-trips into params-keyed views
     params = {k: torch.randn(v) for k, v in param_shapes(cfm).items()}
     packed = kfwd.pack_params(params, cfm)

@@ -94,18 +94,22 @@ def test_torch_loop_gate_refuses():
         kloop.check_supported(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 32)
     with pytest.raises(NotImplementedError, match="sizes"):
         kloop.check_supported(MP2018, 96, 72)
-    packed_batch = {"segment_onehot": torch.zeros(1, 2, 8)}
-    with pytest.raises(NotImplementedError, match="structure packing"):
-        kloop.check_supported(MP2018, 96, 32, packed_batch)
+    # packed slots: at most MAX_SEGMENTS segments a slot, within the plan
+    assert kloop.refusal(MP2018, 96, 32, 8) is None
+    with pytest.raises(NotImplementedError, match="pack_max_segments"):
+        kloop.check_supported(MP2018, 96, 32, kfwd.MAX_SEGMENTS + 1)
+    # the per-segment vectors fit beside the chunk buffers up to the gate's edge
+    assert kloop.max_segments(MP2018, 237, 32) == kfwd.MAX_SEGMENTS
 
 
 def test_torch_loop_wrapper_refuses_packed_and_cpu_launch(rng):
     cfm = ModelConfig(**SMALL, n_attention=2)
     inputs = _torch_inputs(make_synthetic_batch(rng, B=2, M=12, N=6))
     params = init_params(cfm, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="segment_onehot"):
-        kloop.loop_scann_forward(params, dict(inputs, segment_onehot=torch.zeros(2, 2, 12)),
-                                 cfm)
+    seg = torch.zeros(2, 12, kfwd.MAX_SEGMENTS + 1)
+    seg[:, :, 0] = 1.0
+    with pytest.raises(NotImplementedError, match="pack_max_segments"):
+        kloop.loop_scann_forward(params, dict(inputs, segment_onehot=seg), cfm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kloop.launch_loop_forward(kfwd.pack_params(params, cfm), inputs, cfm)
     assert kloop.launch_loop_forward.launches == 0

@@ -197,10 +197,14 @@ def test_torch_loop_backward_gate_and_layout():
         dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
     assert "float32" in kloop.backward_refusal(dataclasses.replace(MP2018, dtype="bfloat16"),
                                                96, 32)
-    with pytest.raises(NotImplementedError, match="packing"):
+    with pytest.raises(NotImplementedError, match="pack_max_segments"):
         kloop.loop_scann_train_grads({}, {"atomic": torch.zeros(1, 8),
                                           "neighbors": torch.zeros(1, 8, 4),
-                                          "segment_onehot": None}, None, MP2018)
+                                          "segment_onehot": torch.zeros(1, 8, 33)},
+                                     None, MP2018)
+    # packed slots: the per-segment vectors fit beside the chunk buffers
+    assert kloop.loop_backward_memory_plan(MP2018, 96, 32, 8) == (1, 32, 227328)
+    assert kloop.backward_max_segments(MP2018, 226, 32) == kfwd.MAX_SEGMENTS
     with pytest.raises(ValueError, match="CUDA tensors"):
         kloop.launch_loop_backward({"wde": torch.zeros(1)}, {}, MP2018, None, None, True)
     assert "scann_loop_backward" in _build.SOURCES

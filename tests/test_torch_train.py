@@ -306,7 +306,7 @@ def test_torch_train_and_predict_model_clis(tmp_path, capsys):
     out = pickle.load(open(os.path.join(run, "energy_pre_homo.pickle"), "rb"))
     assert out["prediction"].shape == out["target"].shape == (24,)
     with pytest.raises(SystemExit):
-        train.main(["homo", str(path), "--structure-packing", "--device", "cpu"])
+        train.main(["homo", str(path), "--distributed", "--device", "cpu"])
     assert "not ported" in capsys.readouterr().err
 
 
