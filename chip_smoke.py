@@ -2,9 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from ``scann_tpu_torch/csrc`` (one
-nvcc per source, all at once) and prints the registers and spills of the two
-backward kernels. Phases 1-5 run at the full width of the
+Builds every CUDA kernel of the port and the rate probes from
+``scann_tpu_torch/csrc`` (one nvcc per source, all at once) and prints the
+registers and spills of the two backward kernels. Phases 11 and 12 run
+first:
+
+11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
+   (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32
+   ``mma.sync``, HBM stream over 1 GiB) and prints each beside its
+   published peak (``utils.flops``), the SM clock and the power limit; a
+   rate over 105% of its peak fails (a wrong probe). Every later bound is
+   also taken at these rates (``measured_bound_ms``, beside the published
+   ``bound_ms``, which stays the bound); prints the step ceilings
+   (``step_ceiling``) of the QM9 and MP2018 shapes;
+12. featurizes the same structures by the native Voronoi path
+   (``native/voronoi_cell.cc``, the default) and the scipy/Qhull path:
+   MP2018-like crystals of phase 10's set, phase 8's served crystals (20-200
+   sites) and QM9-like molecules of phase 5's set; prints ms per structure
+   on each path and fails if the neighbour records differ.
+
+Phases 1-5 run at the full width of the
 flagship QM9 SCANN+ model (``configs/model_qm9.yaml``: 7 layers, D=128, 8
 heads, embedding 48), phases 6-10 at the full width of the crystal models
 (``configs/model_mp2018.yaml``: SCANN+, 9 layers, D=128, embedding 128,
@@ -17,7 +34,10 @@ layers); random weights from seeds:
    QM9 molecules of 3-29 atoms at the flagship's packing capacity 48 and at
    the derived 32);
 2. serves a few molecules over HTTP through ``PredictionServer`` (the
-   serving path) and checks every answer against the eager model;
+   serving path) and checks every answer against the eager model; spans
+   (``utils.Timer``, each ended by ``torch.cuda.synchronize()``) split each
+   request's wall time into queue wait, featurize, hand-off, pad/launch and
+   response (``ServingSpans``);
 3. times both kernels at the QM9 batch shape against their bounds and
    their plain versions, and the packed forward at capacity 48 and the
    packed backward at capacity 32;
@@ -65,7 +85,8 @@ layers); random weights from seeds:
    loaded from its run directory (``BatchedPredictor.from_model_dir``; the
    crystal serving path); prints each request's batch size (a group
    launches at its own size), checks every answer against the eager model
-   and the launches of each route against the batches that took it;
+   and the launches of each route against the batches that took it, and
+   splits each request's wall time by spans as phase 2 does;
 9. holds the crystal loop-backward kernel against its plain version (the
    eager training forward under ``torch.autograd``, same Philox masks): a
    small matrix in cotangent and one-shot mode at dropout 0 and 0.1, atom
@@ -92,10 +113,18 @@ layers); random weights from seeds:
    the per-layer route on structures beyond the loop backward's gate, held
    against the plain step; then one packed epoch of the same crystals at
    capacity 96 (eval by the loop forward, steps by the loop backward),
-   checked as phase 5's packed runs.
+   checked as phase 5's packed runs; and two training steps at (96, 32)
+   under ``utils.trace`` (``torch.profiler``, as ``cli/train.py --profile``
+   runs it): the Chrome trace must be written, and its CUDA kernel events
+   are counted and summed by name.
+
+Phases 5, 8 and 10 featurize through the native Voronoi path and pack
+through the native packer (``native/packer.cc``), both built with g++ at
+first use.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
-phase, then one ``{"kernels": [...]}`` line (the rows of the four
+phase, each kernel's share of both bounds, then one ``{"kernels": [...]}``
+line (every row with ``measured_bound_ms``; the rows of the four
 whole-model kernels with ``packed_launches``, their launches on the packed
 training runs, and ``packed``, their times at a packed shape) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
@@ -132,9 +161,21 @@ GRAD_RTOL = 1e-4             # of each gradient's max |plain|
 MMA_RTOL = 2e-6              # split-TF32 products, of max |float64 product|
 LOSS_RTOL = 1e-4
 TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
-H100_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
-H100_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 on the tensor cores
-H100_HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
+RATE_LIMIT = 1.05            # a measured rate over 105% of its published peak: a bad probe
+
+# The H100 SXM's published rates (utils/flops.py's table), which the bounds
+# use; ``MEASURED`` holds the rates the roofline phase measures on this card,
+# which ``bound_ms`` also applies to the same work (``measured_bound_ms``).
+H100 = "NVIDIA H100 80GB HBM3"
+MEASURED = {}
+
+
+def published_rates():
+    """(FP32 FLOP/s, TF32 FLOP/s, HBM bytes/s, expf/s) of the H100 SXM."""
+    from scann_tpu_torch.utils import flops
+
+    return (flops.peak_fp32_tflops(H100) * 1e12, flops.peak_tflops(H100) * 1e12,
+            flops.peak_hbm_bytes_s(H100), flops.peak_exp_per_s(H100))
 
 
 def card_line() -> str:
@@ -434,7 +475,7 @@ def time_backward(cfm, params, packed, inputs, card):
     nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
               + 4 * B * S + 4 * (P + B * S))  # targets in; gradients and pred out
-    bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
+    bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
     print(f"scann_backward at B={B} M={M} N={N}{packed_label(inputs)} (dropout 0.1, one-shot, "
           f"with its row "
           f"reduction; timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
@@ -445,7 +486,7 @@ def time_backward(cfm, params, packed, inputs, card):
           f"({operations_ms(recompute, 0):.4f} ms as split-TF32 products), which the bound "
           f"does not count", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "flops": flops,
-            "recompute_flops": recompute, "bound_by": by}
+            "recompute_flops": recompute, "bound_by": by, "measured_bound_ms": measured}
 
 
 def phase4(matrix, qm9_model, qm9_inputs, packed_qm9, failures, card):
@@ -850,20 +891,30 @@ def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, fa
     return launches
 
 
-def operations_ms(flops, fp32_flops):
+def operations_ms(flops, fp32_flops, rates=None):
     """The least time of ``flops``: ``fp32_flops`` of them at the FP32 rate
     outside the tensor cores and the rest as split-TF32 products, three TF32
-    passes each at the dense TF32 rate."""
-    return 1e3 * (3 * (flops - fp32_flops) / H100_TF32_FLOPS + fp32_flops / H100_FP32_FLOPS)
+    passes each at the dense TF32 rate; at the published rates, or at
+    ``rates`` (``measure_device_rates``'s) when given."""
+    if rates is None:
+        fp32, tf32 = published_rates()[:2]
+    else:
+        fp32, tf32 = rates["fp32_tflops"] * 1e12, rates["tf32_tflops"] * 1e12
+    return 1e3 * (3 * (flops - fp32_flops) / tf32 + fp32_flops / fp32)
 
 
 def bound_ms(flops, nbytes, fp32_flops):
-    """(bound, "operations" | "bytes"): the larger of the operations' time
-    (``operations_ms``) and the HBM time of one pass over inputs and
-    outputs."""
+    """(bound, "operations" | "bytes", measured bound): the larger of the
+    operations' time (``operations_ms``) and the HBM time of one pass over
+    inputs and outputs, at the published rates; the same at the rates the
+    roofline phase measured (None before it ran)."""
     ops_ms = operations_ms(flops, fp32_flops)
-    bytes_ms = 1e3 * nbytes / H100_HBM_BYTES_S
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    bytes_ms = 1e3 * nbytes / published_rates()[2]
+    measured = None
+    if MEASURED:
+        measured = max(operations_ms(flops, fp32_flops, MEASURED),
+                       1e3 * nbytes / (MEASURED["hbm_gbps"] * 1e9))
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", measured
 
 
 def tensor_bytes(*groups):
@@ -968,7 +1019,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     flops = kloop.loop_forward_flops(cfm, B, M, N)
     nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
               + kloop.loop_forward_bytes(cfm, B, M, N))
-    bound, by = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N))
+    bound, by, measured = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N))
     scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
     out = {}
     with torch.inference_mode():
@@ -986,7 +1037,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
                   f"bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  "
                   f"[{card}]", flush=True)
             out[C] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "flops": flops, "cluster": C}
+                      "measured_bound_ms": measured, "flops": flops, "cluster": C}
     return out
 
 
@@ -1064,7 +1115,8 @@ def phase6(matrix, mp2018, ptgp, mp_packed, failures, card):
                   bound_ms_ptgp=pt["bound_ms"])
     (pk,) = time_loop_forward("mp2018 capacity 96" + packed_label(mp_packed), mp2018, mp_packed,
                               card).values()
-    timing["packed"] = {k: pk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "flops")}
+    timing["packed"] = {k: pk[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "measured_bound_ms", "flops")}
     print(f"scann_loop at mp2018: B=128 ({doubled['cluster']} block per structure) takes "
           f"{doubled['ms'] / timing['ms']:.2f}x the time of B=64 ({timing['cluster']} blocks per "
           f"structure) for twice the work; one block per structure at B=64 "
@@ -1113,7 +1165,7 @@ def time_local_attention(args, card):
     nbytes = (tensor_bytes([centers, idx, geometry, mask, None if g_update else weight],
                            params.values())
               + 4 * (centers.numel() + B * M * N * H + (geometry.numel() if g_update else 0)))
-    bound, by = bound_ms(flops, nbytes, kla.layer_fp32_flops(B, M, N, D))
+    bound, by, measured = bound_ms(flops, nbytes, kla.layer_fp32_flops(B, M, N, D))
     with torch.inference_mode():
         ms, plain_ms = in_turns_ms(lambda: kla.reference_local_attention(*args),
                                    lambda: kla._launch(*args), 3, 10)
@@ -1125,7 +1177,7 @@ def time_local_attention(args, card):
           f"{flops:.4e} FLOP, {nbytes} bytes, bound {bound:.4f} ms by {by} "
           f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "flops": flops,
-            "ms_back_to_back": b2b}
+            "measured_bound_ms": measured, "ms_back_to_back": b2b}
 
 
 def phase7(mp2018, failures, card):
@@ -1200,6 +1252,180 @@ def phase7(mp2018, failures, card):
     return worst, timing
 
 
+def phase_rates(qm9_model, failures, card):
+    """Phase 11 (run first): the card's rates by the probes of
+    ``csrc/roofline_probe.cu`` (``utils.roofline.measure_device_rates``,
+    measured anew), each beside its published peak; a rate over
+    ``RATE_LIMIT`` x its peak means a probe is wrong and fails. Fills
+    ``MEASURED``, which every later bound is also taken at, and prints the
+    step ceilings of the QM9 and MP2018 training shapes."""
+    from scann_tpu_torch.utils.flops import peak_tflops
+    from scann_tpu_torch.utils.roofline import measure_device_rates, step_ceiling
+
+    t0 = time.time()
+    rates = measure_device_rates(use_cache=False)
+    fp32, tf32, hbm, exp = published_rates()
+    rows = [("expf on the special-function units", rates["exp_per_s"], exp, "/s"),
+            ("FP32 FMA on the CUDA cores (2 FLOP each)", 2 * rates["elem_per_s"], fp32, "FLOP/s"),
+            ("TF32 mma.sync m16n8k8 on the tensor cores", rates["tf32_tflops"] * 1e12, tf32,
+             "FLOP/s"),
+            ("HBM stream over 1 GiB (read + write)", rates["hbm_gbps"] * 1e9, hbm, "bytes/s")]
+    for what, got, peak, unit in rows:
+        print(f"phase 11 rate: {what}: {got:.4e} {unit}, {100 * got / peak:.1f}% of the "
+              f"published {peak:.4e}", flush=True)
+        if not got > 0 or got > RATE_LIMIT * peak:
+            failures.append(f"phase 11: measured {what} {got:.4e} {unit} is not within "
+                            f"(0, {RATE_LIMIT} x {peak:.4e}]: the probe is wrong")
+    print(f"phase 11: rates measured in {time.time() - t0:.1f} s on {rates['device_kind']}, SM "
+          f"clock {rates['sm_clock_mhz']} MHz under the HBM stream, power limit "
+          f"{rates['power_limit_w']} W  [{card}]", flush=True)
+    MEASURED.update(rates)
+    mp2018 = crystal_models()[0]
+    for name, cfm, M, N, B in (("QM9", qm9_model, 32, 16, 128), ("MP2018", mp2018, 96, 32, 64)):
+        for training in (True, False):
+            c = step_ceiling(cfm, M, N, B, rates=rates, training=training,
+                             peak_tflops_override=peak_tflops(H100))
+            print(f"phase 11 ceiling {name} ({M}, {N}) B={B} "
+                  f"{'training' if training else 'forward'}: tensor {c['t_tensor_us']:.3f} us, "
+                  f"CUDA cores {c['t_cuda_cores_us']:.3f} us, HBM {c['t_hbm_us']:.3f} us a "
+                  f"structure; bound by {c['binding_engine']}: {c['structs_per_s']:.1f} "
+                  f"structures/s (serial {c['structs_per_s_serial']:.1f}), MFU ceiling "
+                  f"{c['mfu_ceiling']:.4f} of {peak_tflops(H100)} TFLOP/s TF32", flush=True)
+    return rates
+
+
+def phase_featurizers(failures, card):
+    """Phase 12: the Voronoi featurizer of the dataset and serving paths
+    (``data/featurize.featurize_record``) by the native path
+    (``native/voronoi_cell.cc``, the default) and by the scipy/Qhull path
+    (``SCANN_TPU_NATIVE_VORONOI=0``) on the same structures: the first 48
+    MP2018-like crystals of phase 10's set (20-90 sites), the 6 crystals
+    phase 8 serves (20-200 sites) and the first 128 QM9-like molecules of
+    phase 5's set (5-29 atoms). Prints ms per structure on each path; the
+    neighbour records must agree: species and index in the same order, the
+    solid angles and distance to 1e-8. Returns {kind: (native ms, scipy ms)}."""
+    from scann_tpu_torch.data import native, native_voronoi
+    from scann_tpu_torch.data.featurize import featurize_record
+    from scann_tpu_torch.data.synthetic import _random_crystal, _random_molecule
+
+    t0 = time.time()
+    native_voronoi.get_lib()
+    native.get_lib()
+    print(f"phase 12: built the host libraries (g++ -O3 -march=native) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    def crystal(sp, xyz, lat):
+        return {"Atoms": sp, "Coords": xyz.astype(np.float32),
+                "Lattice": lat.astype(np.float32), "Cartesian": True}
+
+    rng = np.random.default_rng(0)                  # make_synthetic_dataset's draws
+    sets = {"crystal": [], "molecule": []}
+    for _ in range(48):
+        sets["crystal"].append(crystal(*_random_crystal(rng, int(rng.integers(20, 91)))))
+    rng = np.random.default_rng(8)                  # phase 8's crystals
+    sets["served crystal"] = [crystal(*_random_crystal(rng, n))
+                              for n in (20, 37, 54, 71, 90, 200)]
+    rng = np.random.default_rng(0)
+    for _ in range(128):
+        sp, xyz = _random_molecule(rng, int(rng.integers(5, 30)))
+        sets["molecule"].append({"Atoms": sp, "Coords": xyz.astype(np.float32)})
+
+    old = os.environ.get("SCANN_TPU_NATIVE_VORONOI")
+    out = {}
+    try:
+        for kind, recs in sets.items():
+            got = {}
+            for path, flag in (("native", "1"), ("scipy", "0")):
+                os.environ["SCANN_TPU_NATIVE_VORONOI"] = flag
+                t = time.perf_counter()
+                got[path] = [featurize_record(r) for r in recs]
+                got[path + " ms"] = 1e3 * (time.perf_counter() - t) / len(recs)
+            bad = 0
+            for a, b in zip(got["native"], got["scipy"]):
+                same = len(a) == len(b) and all(
+                    [(r[0], r[1]) for r in x] == [(r[0], r[1]) for r in y]
+                    and all(abs(p - q) <= 1e-8 for r, u in zip(x, y) for p, q in zip(r[2:], u[2:]))
+                    for x, y in zip(a, b))
+                bad += not same
+            sites = [len(r["Atoms"]) for r in recs]
+            print(f"phase 12 {kind}s ({len(recs)}, {min(sites)}-{max(sites)} sites): native "
+                  f"{got['native ms']:.3f} ms a structure, scipy {got['scipy ms']:.3f} ms "
+                  f"({got['scipy ms'] / got['native ms']:.1f}x); records differ in {bad} of "
+                  f"{len(recs)}  [{card}]", flush=True)
+            if bad:
+                failures.append(f"phase 12: native and scipy Voronoi records differ in {bad} of "
+                                f"{len(recs)} {kind}s")
+            out[kind] = (got["native ms"], got["scipy ms"])
+    finally:
+        if old is None:
+            os.environ.pop("SCANN_TPU_NATIVE_VORONOI", None)
+        else:
+            os.environ["SCANN_TPU_NATIVE_VORONOI"] = old
+    return out
+
+
+class ServingSpans:
+    """Spans of one serving run (``utils.Timer``): host featurization
+    (``Scann.featurize_structures``, on the featurizer thread) and pad +
+    launch + read-back (``Scann.predict_featurized``, on the device thread),
+    each ended by ``torch.cuda.synchronize()``; and, per device batch, when
+    each began and ended, so that a request's wall time splits into queue
+    wait (HTTP parse and the coalescing window), featurize, hand-off (the
+    double buffer), pad/launch and the response. Batches are told apart by
+    their structures' site counts."""
+
+    def __init__(self, scann):
+        from scann_tpu_torch.utils import Timer
+
+        self.scann, self.timer, self.batches = scann, Timer(), []
+        featurize, predict = scann.featurize_structures, scann.predict_featurized
+
+        def timed_featurize(structs, **kw):
+            t0 = time.perf_counter()
+            with self.timer("featurize"):
+                out = featurize(structs, **kw)
+                torch.cuda.synchronize()
+            self.batches.append({"sites": [len(s) for s in out[0]],
+                                 "featurize": (t0, time.perf_counter())})
+            return out
+
+        def timed_predict(structs, all_inputs, **kw):
+            t0 = time.perf_counter()
+            with self.timer("pad_launch"):
+                out = predict(structs, all_inputs, **kw)
+                torch.cuda.synchronize()
+            sites = [len(s) for s in structs]
+            for b in reversed(self.batches):
+                if b["sites"] == sites and "launch" not in b:
+                    b["launch"] = (t0, time.perf_counter())
+                    break
+            return out
+
+        scann.featurize_structures = timed_featurize
+        scann.predict_featurized = timed_predict
+
+    def close(self):
+        del self.scann.featurize_structures, self.scann.predict_featurized
+
+    def report(self, label, sent, card):
+        """One line per request: ``sent`` maps name -> (site count, start,
+        end) on ``time.perf_counter``'s clock."""
+        for name, (n, start, end) in sent.items():
+            b = next((b for b in self.batches if n in b["sites"] and "launch" in b), None)
+            if b is None:
+                print(f"{label} request {name}: no span (answered by the per-request "
+                      "fallback)", flush=True)
+                continue
+            (f0, f1), (l0, l1) = b["featurize"], b["launch"]
+            ms = lambda a, z: 1e3 * (z - a)
+            print(f"{label} request {name} ({n} sites, batch of {len(b['sites'])}): wall "
+                  f"{ms(start, end):.1f} ms = queue wait {ms(start, f0):.1f} + featurize "
+                  f"{ms(f0, f1):.1f} + hand-off {ms(f1, l0):.1f} + pad/launch "
+                  f"{ms(l0, l1):.1f} + response {ms(l1, end):.1f}  [{card}]", flush=True)
+        print(f"{label} spans (Timer):\n  " + self.timer.summary().replace("\n", "\n  "),
+              flush=True)
+
+
 def cif_text(name, species, coords, lattice):
     """A P1 CIF of an orthorhombic cell with cartesian ``coords``."""
     abc = np.diag(lattice)
@@ -1258,14 +1484,15 @@ def phase8(mp2018, run_dir, failures, card):
                 "species": sp, "coords": xyz.tolist(), "lattice": lat.tolist()}]}).encode(),
                             "application/json")
 
+    spans = ServingSpans(scann)
     server = PredictionServer(predictor, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://{server.host}:{server.port}"
-    answers, latencies = {}, {}
+    answers, latencies, wall = {}, {}, {}
 
     def post(name, body, ctype):
-        t = time.time()
+        t = time.perf_counter()
         req = urllib.request.Request(base + "/predict", data=body,
                                      headers={"Content-Type": ctype})
         try:
@@ -1273,7 +1500,8 @@ def phase8(mp2018, run_dir, failures, card):
                 answers[name] = (r.status, json.loads(r.read()))
         except Exception as e:  # recorded, then reported as a failure below
             answers[name] = (getattr(e, "code", None), {"error": repr(e)})
-        latencies[name] = 1e3 * (time.time() - t)
+        wall[name] = (len(crystals[name][0]), t, time.perf_counter())
+        latencies[name] = 1e3 * (wall[name][2] - t)
 
     try:
         threads = [threading.Thread(target=post, args=(n, *b)) for n, b in bodies.items()]
@@ -1288,6 +1516,8 @@ def phase8(mp2018, run_dir, failures, card):
     serve_s = time.time() - t_serve
     fused_n, loop_n, layer_n = (c.launches for c in counters)
     del scann.trainer.forward_eval
+    spans.close()
+    spans.report("phase 8", wall, card)
     from scann_tpu_torch.api import _ladder
 
     for name, (sp, xyz, lat) in crystals.items():
@@ -1449,7 +1679,7 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
         nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B * S + 4 * (P + B * S)
-        bound, by = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
+        bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         scratch_bytes = tensor_bytes(scratch.values())
         print(f"scann_loop_backward at {name} B={B} M={M} N={N}{packed_label(x)} "
               f"L={cfm.n_attention} (dropout "
@@ -1463,10 +1693,11 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
         del scratch
         if S > 1:
             packed_timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                   "bound_by": by, "flops": flops}
+                                   "bound_by": by, "measured_bound_ms": measured, "flops": flops}
         elif timing is None:
             timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                      "flops": flops, "recompute_flops": recompute, "cluster": C}
+                      "measured_bound_ms": measured, "flops": flops,
+                      "recompute_flops": recompute, "cluster": C}
             # what the cluster gives: the same batch at one block per structure, and the
             # batch doubled (one block per structure: 128 blocks either way)
             one = kloop.loop_backward_scratch(packed, cfm, B, M, N, 1)
@@ -1717,9 +1948,58 @@ def phase10(mp2018, failures, card):
         failures.append(f"per-layer training step: route {route}, {layer_n} layer launches, "
                         f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
                         f"{g_rel:.3e} at {g_key}")
+    trace_steps(cfg, buckets[-1], os.path.join(work, "trace"), failures, card)
     return loop_bwd, trainer.workdir, {"data": (energy, nbr), "work": work, "step_ms": med,
                                        "structures_s": n_train / hist["epoch_time"][1],
                                        "name": "phase 10"}
+
+
+def trace_steps(cfg, bucket, logdir, failures, card):
+    """Two training steps of a fresh Trainer on the first batch of
+    ``bucket`` under ``utils.trace`` (``torch.profiler``, CPU and CUDA
+    activities, as ``cli/train.py --profile`` runs it): the Chrome trace must
+    be written. Prints its count of CUDA kernel events and the device ops
+    with the most time; a trace without device events is printed as such
+    (the profiler's CUDA activity needs CUPTI access to the card)."""
+    import glob
+
+    from scann_tpu_torch.train.loop import Trainer, _to_device
+    from scann_tpu_torch.utils import trace
+
+    trainer = Trainer(cfg, "cuda", os.path.join(logdir, "run"))
+    trainer.init_state(0)
+    idx, seeds = trainer.epoch_plan(0, 0, bucket.num_structures, cfg.hyper.batch_size)
+    x = {k: v[idx[0].to(trainer.device)] for k, v in _to_device(bucket.inputs,
+                                                                 trainer.device).items()}
+    y = torch.as_tensor(np.asarray(bucket.targets, np.float32))[idx[0]].to(trainer.device)
+    trainer.train_step(x, y, 5e-4, int(seeds[0]))            # outside the trace: warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with trace(logdir, python_tracer=False):
+        for step in range(2):
+            trainer.train_step(x, y, 5e-4, int(seeds[0]) + step)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if not files:
+        failures.append(f"trace: no Chrome trace written under {logdir}")
+        return
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"trace: 2 training steps at {bucket.shape} (route {trainer.train_route(*bucket.shape)})"
+          f" under utils.trace in {time.time() - t0:.1f} s: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, {len(events)} events, {len(kernels)} CUDA kernel "
+          f"events  [{card}]", flush=True)
+    if kernels:
+        print("trace: device ops by time: " + "; ".join(
+            f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top), flush=True)
+    else:
+        print("trace: the trace holds no device events (torch.profiler's CUDA activity did not "
+              "reach the card here); host events only", flush=True)
 
 
 def main():
@@ -1736,8 +2016,8 @@ def main():
     card = card_line()
     print(card, flush=True)
     t0 = time.time()
-    _build.build_all(force=True)
-    print(f"built {list(_build.SOURCES)} with nvcc in {time.time() - t0:.1f} s "
+    _build.build_all(_build.SOURCES + _build.PROBES, force=True)
+    print(f"built {list(_build.SOURCES + _build.PROBES)} with nvcc in {time.time() - t0:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
     for name in ("scann_backward", "scann_loop_backward"):
         for entry, regs, stores, loads in _build.kernel_resources(name):
@@ -1747,6 +2027,14 @@ def main():
 
     failures = []
     max_err = 0.0
+    qm9_model = ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7, local_dim=128,
+                            num_head=8, global_dim=128, dense_out=128, scale=0.5,
+                            use_attn_norm=True, use_ga_norm=True, use_ring=False,
+                            g_update=True, gaussian_d=4.0)
+
+    # ---- phases 11 and 12 (run first): the card's rates, the featurizers ----
+    phase_rates(qm9_model, failures, card)
+    phase_featurizers(failures, card)
 
     # ---- phase 1: kernel vs plain version on the card ---------------------
     def compare(name, cfm, inputs, mrelu=False, seed=0):
@@ -1780,10 +2068,6 @@ def main():
     for name, cfm, mrelu in matrix:
         compare(name, cfm, synthetic_batch(rng, 8, 16, 8, cfm.use_ring,
                                            cfm.feature == "cgcnn"), mrelu)
-    qm9_model = ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7, local_dim=128,
-                            num_head=8, global_dim=128, dense_out=128, scale=0.5,
-                            use_attn_norm=True, use_ga_norm=True, use_ring=False,
-                            g_update=True, gaussian_d=4.0)
     qm9_inputs = synthetic_batch(rng, 128, 32, 16)
     compare("qm9 full width", qm9_model, qm9_inputs)
     compare("qm9 single atoms", qm9_model, synthetic_batch(rng, 16, 8, 8, min_atoms=1))
@@ -1829,14 +2113,15 @@ def main():
     t_serve = time.time()
     predictor = BatchedPredictor(scann, max_batch=64, window_ms=20.0,
                                  warmup_shapes=[(12, 16)])
+    spans = ServingSpans(scann)
     server = PredictionServer(predictor, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://{server.host}:{server.port}"
-    answers, latencies, sent = {}, {}, {}
+    answers, latencies, sent, wall = {}, {}, {}, {}
 
     def post(name, body, ctype):
-        t = time.time()
+        t = time.perf_counter()
         req = urllib.request.Request(base + "/predict", data=body,
                                      headers={"Content-Type": ctype})
         try:
@@ -1844,7 +2129,8 @@ def main():
                 answers[name] = (r.status, json.loads(r.read()))
         except Exception as e:  # recorded, then reported as a failure below
             answers[name] = (getattr(e, "code", None), {"error": repr(e)})
-        latencies[name] = 1e3 * (time.time() - t)
+        wall[name] = (len(mols[name][0]), t, time.perf_counter())
+        latencies[name] = 1e3 * (wall[name][2] - t)
 
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
@@ -1871,6 +2157,8 @@ def main():
     serve_s = time.time() - t_serve
     launches = kfwd.fused_scann_forward.launches
     device_batches = batches[0]
+    spans.close()
+    spans.report("phase 2", wall, card)
 
     print(f"healthz {health}", flush=True)
     if health[0] != 200 or health[1].get("status") != "ok":
@@ -1919,7 +2207,8 @@ def main():
     nbytes = (sum(t.numel() * t.element_size() for t in qm9_inputs.values())
               + sum(t.numel() * t.element_size() for t in packed.values())
               + 4 * (B + B * M))
-    fwd_bound, fwd_by = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(qm9_model, B, M, N))
+    fwd_bound, fwd_by, fwd_measured = bound_ms(flops, nbytes,
+                                               kfwd.forward_fp32_flops(qm9_model, B, M, N))
     print(f"scann_forward at B={B} M={M} N={N}: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
           f"{fwd_bound:.4f} ms by {fwd_by} ({100 * fwd_bound / kernel_ms:.1f}% of it reached)  "
@@ -1934,15 +2223,15 @@ def main():
     B, M = xp["atomic"].shape
     N = xp["neighbors"].shape[2]
     p_flops = kfwd.forward_flops(qm9_model, B, M, N)
-    p_bound, p_by = bound_ms(p_flops, tensor_bytes(xp.values(), packed.values())
-                             + 4 * (B * xp["segment_onehot"].shape[-1] + B * M),
-                             kfwd.forward_fp32_flops(qm9_model, B, M, N))
+    p_bound, p_by, p_measured = bound_ms(p_flops, tensor_bytes(xp.values(), packed.values())
+                                         + 4 * (B * xp["segment_onehot"].shape[-1] + B * M),
+                                         kfwd.forward_fp32_flops(qm9_model, B, M, N))
     print(f"scann_forward at B={B} M={M} N={N}{packed_label(xp)} (timed in turns: plain, "
           f"kernel, kernel, plain): kernel {p_ms:.4f} ms, plain {p_plain_ms:.4f} ms, "
           f"{p_flops:.4e} FLOP, bound {p_bound:.4f} ms by {p_by} "
           f"({100 * p_bound / p_ms:.1f}% of it reached)  [{card}]", flush=True)
     fwd_packed_time = {"ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_bound,
-                       "bound_by": p_by, "flops": p_flops}
+                       "bound_by": p_by, "measured_bound_ms": p_measured, "flops": p_flops}
     bwd_packed_time = time_backward(qm9_model, params, packed, packed_qm9[32], card)
 
     # ---- phase 4: the backward kernel against its plain version -------------
@@ -1991,18 +2280,19 @@ def main():
         "replaces": kfwd.REPLACES, "launches": launches,
         "max_abs_err": max(max_err, bwd_err["forward_dropout"]), "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
-        "library_ms": None, "flops": flops,
+        "measured_bound_ms": fwd_measured, "library_ms": None, "flops": flops,
         "packed_launches": packed_launches["scann_forward"], "packed": fwd_packed_time,
     }, {
         "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,
         "replaces": kbwd.REPLACES, "launches": train_launches,
         "max_abs_err": bwd_err["backward"], "ms": bwd_time["ms"],
         "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
-        "bound_by": bwd_time["bound_by"], "library_ms": None, "flops": bwd_time["flops"],
+        "bound_by": bwd_time["bound_by"], "measured_bound_ms": bwd_time["measured_bound_ms"],
+        "library_ms": None, "flops": bwd_time["flops"],
         "recompute_flops": bwd_time["recompute_flops"],
         "packed_launches": packed_launches["scann_backward"],
         "packed": {k: bwd_packed_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "flops")},
+                                                   "measured_bound_ms", "flops")},
     }, {
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
@@ -2017,6 +2307,11 @@ def main():
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
     }]
+    for k in kernels:
+        print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
+              f"at the published rates ({k['bound_ms']:.4f} ms), "
+              f"{100 * k['measured_bound_ms'] / k['ms']:.1f}% of it at the measured rates "
+              f"({k['measured_bound_ms']:.4f} ms)  [{card}]", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@ code it needs. The layout mirrors the JAX package:
 
 - ``scann_tpu_torch.config``  — the config dataclasses (yaml imported lazily).
 - ``scann_tpu_torch.data``    — element tables, ``Structure`` and parsers,
-  scipy/Qhull Voronoi featurization.
+  Voronoi featurization (the port's C++ in ``native/``, or scipy/Qhull) and
+  the dataset packer.
 - ``scann_tpu_torch.ops``     — plain PyTorch RBF, activations, attention cores.
 - ``scann_tpu_torch.models``  — the SCANN / SCANN+ model over a flat
   parameter dict keyed like the flax tree.
@@ -14,6 +15,8 @@ code it needs. The layout mirrors the JAX package:
   with nvcc at first use and loaded with ctypes, each beside its plain
   PyTorch version.
 - ``scann_tpu_torch.compat``  — Keras H5 weights and flax trees -> params.
+- ``scann_tpu_torch.utils``   — timing spans, ``torch.profiler`` traces, the
+  FLOP model and the card's measured rates.
 - ``scann_tpu_torch.api`` / ``serve`` / ``cli`` — inference, HTTP serving.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

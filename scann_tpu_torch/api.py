@@ -41,6 +41,7 @@ import torch
 
 from scann_tpu_torch.compat.from_jax import params_from_jax
 from scann_tpu_torch.config import ScannConfig, load_config
+from scann_tpu_torch.data import native_voronoi
 from scann_tpu_torch.data.packing import pack_dataset_slots
 from scann_tpu_torch.data.pipeline import (
     build_csr,
@@ -50,7 +51,7 @@ from scann_tpu_torch.data.pipeline import (
     subset_buckets,
 )
 from scann_tpu_torch.data.structure import Structure
-from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors
+from scann_tpu_torch.data.voronoi import compute_voronoi_neighbors, native_voronoi_enabled
 from scann_tpu_torch.models.scann import check_index_ranges
 from scann_tpu_torch.train.loop import Trainer, _to_device
 
@@ -449,6 +450,9 @@ class Scann:
         if featurize_pool > 1:
             from concurrent.futures.process import BrokenProcessPool
             from functools import partial
+
+            if native_voronoi_enabled():
+                native_voronoi.get_lib()    # built here, so the workers only load it
 
             try:
                 ex = self._featurize_executor(featurize_pool)

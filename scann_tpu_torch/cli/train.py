@@ -3,15 +3,16 @@
     python -m scann_tpu_torch.cli.train <target> <config.yaml> \\
         [--use_ring] [--use_ref] [--use_drop] [--feature atomic|cgcnn] \\
         [--pretrained W.h5] [--mode train|eval] [--epochs N] [--resume] \\
-        [--structure-packing] [--device cuda]
+        [--structure-packing] [--profile LOGDIR] [--device cuda]
 
 Flags merge into the config as in the reference ``train.py:37-43``. The
 run directory (``{save_path}_{target}``) gets config.yaml, metrics.jsonl,
 checkpoints/{best,last}.pt, report.txt and hist_data.json.
 ``--structure-packing`` sets ``tpu.structure_packing``: several structures
-per slot (``data/packing.py``). The flags of parts not ported yet
-(--exec-cache, --distributed, --profile) are accepted and refused with a
-message.
+per slot (``data/packing.py``). ``--profile LOGDIR`` writes a
+``torch.profiler`` Chrome trace of the training run under LOGDIR
+(``utils.trace``). The flags of parts not ported yet (--exec-cache,
+--distributed) are accepted and refused with a message.
 """
 
 import argparse
@@ -52,9 +53,9 @@ def main(argv=None):
     parser.add_argument("--exec-cache", type=str, nargs="?", const="auto", default=None,
                         metavar="DIR", help="not ported yet")
     parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
-                        help="not ported yet")
+                        help="write a torch.profiler Chrome trace of training to LOGDIR")
     args = parser.parse_args(argv)
-    for name in ("distributed", "exec_cache", "profile"):
+    for name in ("distributed", "exec_cache"):
         if getattr(args, name):
             parser.error(f"--{name.replace('_', '-')} is not ported to the PyTorch port yet")
 
@@ -78,7 +79,13 @@ def main(argv=None):
     if args.mode == "train":
         print("Training")
         t0 = time.time()
-        scann.train(args.epochs, resume=args.resume)
+        if args.profile:
+            from scann_tpu_torch.utils import trace
+
+            with trace(args.profile):
+                scann.train(args.epochs, resume=args.resume)
+        else:
+            scann.train(args.epochs, resume=args.resume)
         print(f"Training time: {time.time() - t0:.1f}s")
     print("Evaluating")
     scann.evaluate()

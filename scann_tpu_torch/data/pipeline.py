@@ -8,9 +8,11 @@
 - ``pack_dataset`` pads every structure into one of a few (M, N) shape
   buckets (``choose_buckets``), through a flat CSR view of the ragged
   neighbour lists (``CsrDataset``/``build_csr``, cached on disk next to the
-  neighbour file in the JAX package's format). The fill is the JAX
-  package's numpy path (``scann_tpu/data/native.py:127-148``); its C++
-  packer is not ported.
+  neighbour file in the JAX package's format). ``pack_bucket`` and
+  ``structure_sizes`` fill through the port's C++ packer
+  (``native/packer.cc`` via ``data/native.py``, built at first use);
+  ``pack_bucket_plain`` and ``structure_sizes_plain`` are the same fill in
+  numpy, which the tests hold the packer to.
 
 Same semantics as the reference: the raw solid angle is the neighbour
 weight for SCANN+ and the max-normalised one otherwise, atoms pad with 0 and
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from scann_tpu_torch.data.atomic_data import get_atomic_features
+from scann_tpu_torch.data.native import pack_bucket_native, structure_sizes_native
 
 
 # --- loading (reference .npy object-array format) ----------------------------
@@ -308,13 +311,13 @@ def pack_dataset(
 ) -> List[PackedBucket]:
     """Pad every structure into its (M, N) bucket and return the buckets.
 
+    The ragged->padded fill runs in the native packer (``pack_bucket``).
     ``converter`` mirrors the reference's optional eV->meV factor
     (``datagenerator.py:54-57``).
     """
     csr = build_csr(records, neighbors, csr_cache_path,
                     source_path=csr_source_path)
-    n_atoms_arr, max_nbrs_arr = structure_sizes(csr.atom_offsets,
-                                                       csr.nbr_offsets)
+    n_atoms_arr, max_nbrs_arr = structure_sizes(csr.atom_offsets, csr.nbr_offsets)
     sizes = list(zip(n_atoms_arr.tolist(), max_nbrs_arr.tolist()))
     buckets = choose_buckets(sizes, atoms_multiple, neighbors_multiple, max_buckets)
 
@@ -343,9 +346,8 @@ def pack_dataset(
         rows = np.nonzero(assign_idx == bi)[0]
         if len(rows) == 0:
             continue
-        inputs = pack_bucket(rows, csr.atom_offsets, csr.nbr_offsets,
-                                    csr.atomic, csr.nbr_index, weights,
-                                    csr.nbr_dist, bm, bn)
+        inputs = pack_bucket(rows, csr.atom_offsets, csr.nbr_offsets, csr.atomic,
+                             csr.nbr_index, weights, csr.nbr_dist, bm, bn)
         if feature == "cgcnn":
             am = inputs["atom_mask"][..., 0] > 0
             inputs["atomic"] = feat_table[inputs["atomic"]] * am[..., None]
@@ -383,8 +385,14 @@ def subset_buckets(buckets: List[PackedBucket], indices: np.ndarray) -> List[Pac
     return out
 
 
-def structure_sizes(atom_offsets: np.ndarray, nbr_offsets: np.ndarray):
-    """(atom count, largest neighbour count) of every structure."""
+# The fill of pack_dataset is the native packer (data/native.py); the two
+# *_plain functions below are the same fill in numpy, which the tests hold it to.
+structure_sizes = structure_sizes_native
+pack_bucket = pack_bucket_native
+
+
+def structure_sizes_plain(atom_offsets: np.ndarray, nbr_offsets: np.ndarray):
+    """``structure_sizes`` in numpy (the JAX package's fallback path)."""
     n_struct = len(atom_offsets) - 1
     n_atoms = np.diff(atom_offsets).astype(np.int32)
     counts = np.diff(nbr_offsets)
@@ -394,10 +402,10 @@ def structure_sizes(atom_offsets: np.ndarray, nbr_offsets: np.ndarray):
     return n_atoms, max_nbrs
 
 
-def pack_bucket(rows, atom_offsets, nbr_offsets, atomic, nbr_index, nbr_weight, nbr_dist,
-                M: int, N: int) -> Dict[str, np.ndarray]:
-    """The padded arrays of the structures ``rows`` (atomic numbers, before
-    any feature expansion)."""
+def pack_bucket_plain(rows, atom_offsets, nbr_offsets, atomic, nbr_index, nbr_weight,
+                      nbr_dist, M: int, N: int) -> Dict[str, np.ndarray]:
+    """``pack_bucket`` in numpy (the JAX package's fallback path,
+    ``scann_tpu/data/native.py:127-148``)."""
     S = len(rows)
     out = {
         "atomic": np.zeros((S, M), np.int32),

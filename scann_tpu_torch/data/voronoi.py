@@ -4,9 +4,12 @@ Re-implements the behavior of the reference featurizer
 (``scann/utils/voronoi_neighbor.py``, which delegates to pymatgen's
 ``VoronoiNN(weight="solid_angle")``) without pymatgen:
 
-- one scipy/Qhull Voronoi tessellation **per structure** over the home cell +
-  enough periodic images to cover ``cutoff`` — instead of the reference's
-  one tessellation per atom — an O(atoms) speedup of the offline step,
+- each home atom's Voronoi cell over the home cell + enough periodic images
+  to cover ``cutoff``: by default clipped per atom in C++
+  (``native/voronoi_cell.cc``), or from one scipy/Qhull tessellation per
+  structure (``SCANN_TPU_NATIVE_VORONOI=0``, and for a structure whose
+  cells the clipping flags as degenerate) — instead of the reference's one
+  tessellation per atom,
 - facet solid angles at each home atom via the van Oosterom–Strackee formula
   over the (plane-ordered) ridge polygon,
 - the same neighbor filters: ``solid_angle >= w_thresh`` AND
@@ -30,12 +33,14 @@ permutations + translations) reproduce records to fp noise
 from __future__ import annotations
 
 import itertools
+import os
 from typing import List
 
 import numpy as np
 from scipy.spatial import Voronoi
 from scipy.spatial import QhullError
 
+from scann_tpu_torch.data import native_voronoi
 from scann_tpu_torch.data.structure import Structure
 
 
@@ -236,17 +241,37 @@ def _image_cloud(home: np.ndarray, lattice: np.ndarray, n_home: int, cutoff: flo
     return np.concatenate(points, axis=0), np.concatenate(base_idx, axis=0)
 
 
-def _voronoi_facets(home: np.ndarray, lattice: np.ndarray, n_home: int, cutoff: float):
+def native_voronoi_enabled() -> bool:
+    """Whether the native path is on: it is unless
+    ``SCANN_TPU_NATIVE_VORONOI=0`` (the JAX package's switch)."""
+    return os.environ.get("SCANN_TPU_NATIVE_VORONOI", "1") != "0"
+
+
+def _voronoi_facets(home: np.ndarray, lattice: np.ndarray, n_home: int, cutoff: float,
+                    force: str | None = None):
     """All Voronoi facets of the home atoms.
 
     Returns per home atom a list of (neighbor_base_index, solid_angle,
-    distance) over every facet of its Voronoi cell, through the scipy/Qhull
-    tessellation. (The JAX package also has a native C++ cell-clipping
-    path; its facet values agree to floating-point noise and
-    ``compute_voronoi_neighbors`` re-sorts the records, so both packages
-    emit the same neighbor lists.)
+    distance) over every facet of its Voronoi cell. Takes the native C++
+    cell-clipping path (``native/voronoi_cell.cc`` through
+    ``data/native_voronoi.py``: exact per-atom cells, no global
+    tessellation) unless ``SCANN_TPU_NATIVE_VORONOI=0``, and the
+    scipy/Qhull path for a structure whose cells the clipping flags as
+    degenerate. ``force`` pins a path: "scipy" skips the native one,
+    "native" returns None instead of taking scipy for a degenerate
+    structure. A native library that fails to build raises.
+
+    Facet values agree between the paths to floating-point noise (both
+    compute the cells of the same point cloud); the per-atom facet order
+    differs (clipping emits in candidate-distance order, Qhull in ridge
+    order), and ``compute_voronoi_neighbors`` sorts the records, so its
+    neighbour lists are the same on both paths.
     """
     points, base_idx = _image_cloud(home, lattice, n_home, cutoff)
+    if force != "scipy" and (force == "native" or native_voronoi_enabled()):
+        res = native_voronoi.voronoi_facets_native(points, n_home, base_idx)
+        if res is not None or force == "native":
+            return res
     return _voronoi_facets_scipy(points, base_idx, n_home)
 
 

@@ -13,8 +13,10 @@ and every header it includes (``philox.cuh``, ``scann_common.cuh``,
 ``scann_grad_common.cuh``, ``scann_mma.cuh``, ``scann_forward_common.cuh``), so
 an edited header rebuilds every library that includes it. ``-Xptxas -v``
 makes the compiler report each kernel's registers and spills:
-``build_logs`` keeps what nvcc printed and ``kernel_resources`` reads it. ``build_all`` starts one nvcc
-per source, all at once. Nothing here is imported from or built at module
+``build_logs`` keeps what nvcc printed and ``kernel_resources`` reads it.
+``build_all`` starts one nvcc per source, all at once. ``SOURCES`` are the
+ports of the TPU kernels, ``PROBES`` the rate probes of
+``utils/roofline.py``. Nothing here is imported from or built at module
 import time, and nothing falls back: a failed build raises.
 """
 
@@ -36,6 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
            "local_attention")
+# Sources of the port that are not ports of a TPU kernel: the rate probes of
+# utils/roofline.py. Built and loaded the same way.
+PROBES = ("roofline_probe",)
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", re.S)

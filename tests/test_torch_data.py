@@ -1,7 +1,7 @@
 """The PyTorch port's featurization against the JAX package's, on the CPU:
-structures, Voronoi neighbour records and padded model inputs. The JAX side
-runs its scipy/Qhull path (``SCANN_TPU_NATIVE_VORONOI=0``), the only one the
-port has."""
+structures, Voronoi neighbour records and padded model inputs. Both sides
+run their scipy/Qhull path (``SCANN_TPU_NATIVE_VORONOI=0``); the native
+paths are held to it and to each other in ``test_torch_native.py``."""
 
 import numpy as np
 import pytest

@@ -33,8 +33,13 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
         "import scann_tpu_torch.train.loop, scann_tpu_torch.train.schedules\n"
         "import scann_tpu_torch.data.pipeline, scann_tpu_torch.data.synthetic\n"
         "import scann_tpu_torch.data.featurize, scann_tpu_torch.kernels._build\n"
-        "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model")
+        "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model\n"
+        "import scann_tpu_torch.utils, scann_tpu_torch.utils.flops\n"
+        "import scann_tpu_torch.utils.roofline, scann_tpu_torch.utils.profiling\n"
+        "import scann_tpu_torch.data.native, scann_tpu_torch.data.native_voronoi")
     assert "scann_tpu_torch.train.loop" in mods
+    assert "scann_tpu_torch.utils.roofline" in mods
+    assert "scann_tpu_torch.data.native_voronoi" in mods
     assert "scann_tpu_torch.api" in mods
     assert "scann_tpu_torch.kernels.scann_loop" in mods
     assert "scann_tpu_torch.kernels.local_attention" in mods
