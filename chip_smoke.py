@@ -46,12 +46,20 @@ layers); random weights from seeds:
    backward kernel (at dropout 0 and 0.1, one-shot and with a
    GA cotangent) and the forward kernel with dropout against their plain
    versions on the same Philox masks, unpacked and packed;
-5. trains 2 epochs through ``Scann.prepare_dataset -> train -> evaluate``
-   (the training path) on ~1000 synthetic QM9-like molecules in the
-   flagship recipe's two buckets; checks the launches, that each pass over
+5. writes 1000 synthetic QM9-like molecules with
+   ``builders.common.save_dataset`` and featurizes them through
+   ``cli.preprocess`` (the dataset path: ``parallel_compute_neighbors`` on 8
+   spawned processes), prints the pool's wall time beside the serial
+   ``featurize_record``'s on 128 of them and holds their records equal; then
+   trains 2 epochs on those two files through ``Scann.prepare_dataset ->
+   train -> evaluate`` (the training path) in the flagship recipe's two
+   buckets; checks the launches, that each pass over
    a bucket lowers that bucket's loss without dropout, that the same run
    with the plain step gives the same losses, 3 kernel steps against 3
-   plain steps and ``load_model_infer``; then trains 2 epochs in one
+   plain steps and ``load_model_infer``; resumes through
+   ``Scann(pretrained=<run>/checkpoints/last)`` and holds one step of the
+   loaded trainer equal, bit for bit, to the same step of the trainer put
+   back in that state (params, Adam moments, step); then trains 2 epochs in one
    bucket and checks that the epoch loss and the training-set loss fall;
    then, with ``tpu.structure_packing`` on the same molecules, 3 epochs at
    packing capacity 48 (eval by the molecule forward, steps by the loop
@@ -120,7 +128,7 @@ layers); random weights from seeds:
 
 Phases 5, 8 and 10 featurize through the native Voronoi path and pack
 through the native packer (``native/packer.cc``), both built with g++ at
-first use.
+first use; phase 5's featurization pool loads the library phase 12 built.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, each kernel's share of both bounds, then one ``{"kernels": [...]}``
@@ -626,8 +634,11 @@ def phase5(qm9_model, failures, card):
     import tempfile
 
     from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.cli import preprocess
     from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
-    from scann_tpu_torch.data.synthetic import make_synthetic_dataset
+    from scann_tpu_torch.data.builders.common import save_dataset
+    from scann_tpu_torch.data.featurize import featurize_record
+    from scann_tpu_torch.data.synthetic import synthetic_records
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.train.loop import Trainer
@@ -643,11 +654,30 @@ def phase5(qm9_model, failures, card):
 
     work = tempfile.mkdtemp(prefix="scann_chip_smoke_")
     t0 = time.time()
-    n_mol = 1000
-    energy, nbr = make_synthetic_dataset(work, "qm9like", n_structures=n_mol, min_atoms=5,
-                                         max_atoms=29, seed=0)
-    print(f"phase 5: {n_mol} synthetic molecules (5-29 atoms of H, C, N, O, F) written and "
-          f"featurized on the host in {time.time() - t0:.1f} s", flush=True)
+    n_mol, pool = 1000, 8
+    energy = save_dataset(synthetic_records("qm9like", n_mol, min_atoms=5, max_atoms=29, seed=0),
+                          work, "synthetic")
+    t1 = time.time()
+    preprocess.main(["synthetic", work, "--p", str(pool)])     # finds the energy file
+    pool_s = time.time() - t1
+    nbr = os.path.join(work, "synthetic", "synthetic_data_neighbor_dt4.0_wt0.4.npy")
+    # the serial featurizer on 128 of the molecules, spread over the file (it is
+    # sorted by size): the pool's records must be the same
+    records, pooled = (np.load(f, allow_pickle=True) for f in (energy, nbr))
+    pick = np.linspace(0, n_mol - 1, 128).astype(int)
+    t1 = time.perf_counter()
+    serial = [featurize_record(records[i]) for i in pick]
+    serial_ms = 1e3 * (time.perf_counter() - t1) / len(pick)
+    bad = sum(not same_neighbors(a, b) for a, b in zip(serial, pooled[pick]))
+    print(f"phase 5: {n_mol} synthetic molecules (5-29 atoms of H, C, N, O, F) written with "
+          f"builders.common.save_dataset, then cli.preprocess featurized them on {pool} "
+          f"processes in {pool_s:.2f} s wall ({1e3 * pool_s / n_mol:.3f} ms a molecule, pool "
+          f"start-up included); the serial featurize_record {serial_ms:.3f} ms a molecule on "
+          f"128 of them; their records differ from the pool's in {bad} of 128; "
+          f"{time.time() - t0:.1f} s in all  [{card}]", flush=True)
+    if bad or len(pooled) != n_mol:
+        failures.append(f"phase 5: the preprocess pool's neighbour records differ from the "
+                        f"serial featurizer's in {bad} of 128 molecules")
 
     def config(name, max_buckets):
         return ScannConfig(model=qm9_model,
@@ -760,6 +790,33 @@ def phase5(qm9_model, failures, card):
           f"{d:.3e} from the trainer's predictions", flush=True)
     if not (np.isfinite(p_loaded).all() and d <= ATOL + RTOL * np.abs(p_trained).max()):
         failures.append(f"load_model_infer predictions differ by {d:.3e}")
+
+    # ---- resume: load_pretrained(<run>/checkpoints/last) on the card ----------
+    # One step on the same rows, lr and dropout seed in the trainer put back
+    # in the state "last" recorded (evaluate() restored "best" into it) and in
+    # a fresh Scann loaded from that checkpoint: both launch kernel #2, whose
+    # launches repeat bit for bit, so every tensor must be equal.
+    last = os.path.join(trainer.workdir, "checkpoints", "last")
+    resumed = Scann(ScannConfig.from_dict(cfg.to_dict()), pretrained=last, device="cuda")
+    trainer.restore_checkpoint("last")
+    b = buckets[-1]
+    idx, seeds = trainer.epoch_plan(cfg.hyper.epochs, len(buckets) - 1, b.num_structures, 128)
+    rows = idx[0].cuda()
+    lr = cfg.hyper.lr / (1.0 + cfg.hyper.adam_decay * trainer.step)
+    for t in (trainer, resumed.trainer):
+        (binputs, btargets), = t._put_buckets([b], "resume")
+        t.train_step({n: v[rows] for n, v in binputs.items()}, btargets[rows], lr, seeds[0])
+    torch.cuda.synchronize()
+    pairs = [(getattr(trainer, a), getattr(resumed.trainer, a)) for a in ("params", "mu", "nu")]
+    equal = sum(torch.equal(x[k], y[k]) for x, y in pairs for k in x)
+    total = sum(len(x) for x, _ in pairs)
+    print(f"phase 5: resumed through load_pretrained({os.path.relpath(last, work)}): one step "
+          f"at step {trainer.step - 1} in both, {equal} of {total} tensors (params, mu, nu) "
+          f"equal, step {resumed.trainer.step} vs {trainer.step}", flush=True)
+    if equal != total or resumed.trainer.step != trainer.step:
+        failures.append(f"phase 5: the step after load_pretrained(checkpoints/last) differs "
+                        f"from the trainer's: {equal} of {total} tensors equal, step "
+                        f"{resumed.trainer.step} vs {trainer.step}")
 
     # ---- one bucket: the epoch loss and the training-set loss fall -----------
     one = Scann(config("one", 1), device="cuda")
@@ -1294,6 +1351,15 @@ def phase_rates(qm9_model, failures, card):
     return rates
 
 
+def same_neighbors(a, b):
+    """Whether two structures' neighbour records agree: species and index in
+    the same order, the solid angles and distance to 1e-8."""
+    return len(a) == len(b) and all(
+        [(r[0], r[1]) for r in x] == [(r[0], r[1]) for r in y]
+        and all(abs(p - q) <= 1e-8 for r, u in zip(x, y) for p, q in zip(r[2:], u[2:]))
+        for x, y in zip(a, b))
+
+
 def phase_featurizers(failures, card):
     """Phase 12: the Voronoi featurizer of the dataset and serving paths
     (``data/featurize.featurize_record``) by the native path
@@ -1340,13 +1406,7 @@ def phase_featurizers(failures, card):
                 t = time.perf_counter()
                 got[path] = [featurize_record(r) for r in recs]
                 got[path + " ms"] = 1e3 * (time.perf_counter() - t) / len(recs)
-            bad = 0
-            for a, b in zip(got["native"], got["scipy"]):
-                same = len(a) == len(b) and all(
-                    [(r[0], r[1]) for r in x] == [(r[0], r[1]) for r in y]
-                    and all(abs(p - q) <= 1e-8 for r, u in zip(x, y) for p, q in zip(r[2:], u[2:]))
-                    for x, y in zip(a, b))
-                bad += not same
+            bad = sum(not same_neighbors(a, b) for a, b in zip(got["native"], got["scipy"]))
             sites = [len(r["Atoms"]) for r in recs]
             print(f"phase 12 {kind}s ({len(recs)}, {min(sites)}-{max(sites)} sites): native "
                   f"{got['native ms']:.3f} ms a structure, scipy {got['scipy ms']:.3f} ms "

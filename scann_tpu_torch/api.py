@@ -24,10 +24,12 @@ and it predicts properties and per-atom GA scores for structures:
 The device defaults to CUDA, and a missing CUDA device raises: nothing
 falls back to the CPU unless the caller asks for ``device="cpu"``.
 Weights come from training, a torch checkpoint of this package
-(``load_model_infer``), a reference Keras H5 (``load_pretrained``, weights
-only) or any flax-layout tree (``load_params``). The orbax checkpoint format
-and the compiled-executable cache of the JAX package are not part of the
-port yet.
+(``load_model_infer``; ``load_pretrained`` of a run or checkpoint, with its
+Adam state and step), a reference Keras H5 (``load_pretrained``, with
+``with_optimizer=True`` its Adam state too) or any flax-layout tree
+(``load_params``); ``export_h5`` writes the reference's H5 layout back. The
+JAX package's orbax checkpoints (which need JAX to read) and its
+compiled-executable cache are not part of the port.
 """
 
 from __future__ import annotations
@@ -71,6 +73,22 @@ def _ladder(x: int, base: int) -> int:
         if x <= base * s:
             return base * s
     return _round_up(x, base * steps[-1])
+
+
+def _port_checkpoint(path: str) -> Optional[Tuple[str, str]]:
+    """(run directory, checkpoint name) of a checkpoint of this package:
+    ``<run>/checkpoints/<name>`` or ``<name>.pt`` (that name), or a run
+    directory (its ``best``); None for anything else."""
+    path = os.path.normpath(path)
+    head, tail = os.path.split(path)
+    if os.path.basename(head) == "checkpoints":
+        name = tail[:-3] if tail.endswith(".pt") else tail
+        if os.path.isfile(os.path.join(head, name + ".pt")):
+            return os.path.dirname(head), name
+        return None
+    if os.path.isfile(os.path.join(path, "checkpoints", "best.pt")):
+        return path, "best"
+    return None
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -202,14 +220,53 @@ class Scann:
         obj.trainer.restore_checkpoint("best")
         return obj
 
-    def load_pretrained(self, path: str):
-        """Load a reference Keras H5 checkpoint (full-model or weights-only)."""
-        if not path.endswith((".h5", ".hdf5")):
-            raise ValueError(f"{path}: the port loads Keras H5 checkpoints only; "
-                             "orbax checkpoint directories are not supported yet")
-        from scann_tpu_torch.compat.h5_loader import load_h5_params
+    def load_pretrained(self, path: str, with_optimizer: bool = False):
+        """Load one of three things (JAX ``Scann.load_pretrained``):
 
-        return self.load_params(load_h5_params(path, self.config.model))
+        - a reference Keras H5 file (``.h5``/``.hdf5``, full-model or
+          weights-only): its weights and, with ``with_optimizer``, the Adam
+          slots and iteration counter of a full-model H5, so a reference run
+          moves over mid-flight (``load_h5_optimizer``);
+        - a checkpoint of this package: ``<run>/checkpoints/<name>[.pt]``
+          restores that name, a run directory its ``best``. Like the JAX
+          package's own checkpoints it brings back parameters, Adam state
+          and step, and the run directory becomes the trainer's workdir;
+        - anything else raises. The port cannot read an orbax directory of
+          the JAX package (orbax imports JAX): restore it with ``scann_tpu``
+          and install its parameters with ``load_params``.
+        """
+        if path.endswith((".h5", ".hdf5")):
+            from scann_tpu_torch.compat.h5_loader import load_h5_optimizer, load_h5_params
+
+            self.load_params(load_h5_params(path, self.config.model))
+            if with_optimizer:
+                self.trainer.load_optimizer(*load_h5_optimizer(path, self.config.model))
+            return self.params
+        found = _port_checkpoint(path)
+        if found is None:
+            raise ValueError(
+                f"{path}: not a Keras H5 file nor a checkpoint of this package "
+                "(<run>/checkpoints/<name>.pt or a run directory holding "
+                "checkpoints/best.pt). An orbax checkpoint directory of the JAX package "
+                "cannot be read here: restore it with scann_tpu (Scann.load_pretrained or "
+                "Trainer.restore_checkpoint), then install its parameters with "
+                "Scann.load_params(jax.device_get(trainer.state.params))")
+        self.trainer.workdir, name = found
+        self.trainer.restore_checkpoint(name)
+        return self.params
+
+    def export_h5(self, path: str) -> str:
+        """Write the current parameters as a reference-layout Keras H5
+        (``model_weights`` groups, the reference's layer and variable names:
+        ``compat.save_h5_weights``), so a model trained here can be handed
+        to tooling keyed on the published H5 format (reference
+        ``scann_model.py:165-177``). Needs h5py."""
+        self._require_state("export_h5")
+        from scann_tpu_torch.compat.from_jax import params_to_flax
+        from scann_tpu_torch.compat.h5_loader import save_h5_weights
+
+        save_h5_weights(params_to_flax(self.params, self.config.model), self.config.model, path)
+        return path
 
     def _require_state(self, what: str):
         if self.params is None:

@@ -2,12 +2,16 @@
 
     python -m scann_tpu_torch.cli.train <target> <config.yaml> \\
         [--use_ring] [--use_ref] [--use_drop] [--feature atomic|cgcnn] \\
-        [--pretrained W.h5] [--mode train|eval] [--epochs N] [--resume] \\
+        [--pretrained W.h5|RUN_DIR|CKPT] [--mode train|eval] [--epochs N] [--resume] \\
         [--structure-packing] [--profile LOGDIR] [--device cuda]
 
 Flags merge into the config as in the reference ``train.py:37-43``. The
 run directory (``{save_path}_{target}``) gets config.yaml, metrics.jsonl,
 checkpoints/{best,last}.pt, report.txt and hist_data.json.
+``--pretrained`` takes what ``Scann.load_pretrained`` takes: a reference
+Keras H5 file (its weights), or a run directory or checkpoint
+(``<run>/checkpoints/<name>[.pt]``) of this package (parameters, Adam state
+and step).
 ``--structure-packing`` sets ``tpu.structure_packing``: several structures
 per slot (``data/packing.py``). ``--profile LOGDIR`` writes a
 ``torch.profiler`` Chrome trace of the training run under LOGDIR
@@ -41,7 +45,9 @@ def main(argv=None):
                         help="attention dropout during training")
     parser.add_argument("--feature", type=str, default="atomic", choices=["atomic", "cgcnn"])
     parser.add_argument("--pretrained", type=str, default="",
-                        help="Keras H5 checkpoint to start from (weights only)")
+                        help="start from a Keras H5 file (weights) or a run directory or "
+                             "checkpoints/<name>[.pt] of this package (weights, Adam "
+                             "state and step)")
     parser.add_argument("--mode", type=str, default="train", choices=["train", "eval"])
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--resume", action="store_true",

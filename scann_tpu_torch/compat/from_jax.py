@@ -1,4 +1,5 @@
-"""Carry a flax-layout parameter tree across to the port's flat tensor dict.
+"""Carry a flax-layout parameter tree across to the port's flat tensor dict,
+and back (``params_to_flax``, for the H5 export).
 
 The tree may come from the JAX package (``trainer.state.params``, moved to
 the host as numpy) or from ``compat.h5_loader.load_h5_params``; both are
@@ -48,3 +49,25 @@ def params_from_jax(tree, config: ModelConfig,
                          f"(got, expected): {bad}")
     return {k: torch.from_numpy(np.array(flat[k], np.float32)).to(device)
             for k in want}
+
+
+def params_to_flax(params: Dict[str, torch.Tensor], config: ModelConfig) -> dict:
+    """The inverse of ``params_from_jax``: the port's flat dict
+    ``{"a/b/kernel": tensor}`` -> the nested flax tree of f32 numpy arrays
+    (bare, without a ``"params"`` root). Keys and shapes are checked
+    against the config as ``params_from_jax`` checks them."""
+    want = param_shapes(config)
+    if set(params) != set(want):
+        raise ValueError(f"parameter keys do not match the config: "
+                         f"{sorted(set(params) ^ set(want))}")
+    tree: dict = {}
+    for key in want:
+        arr = params[key].detach().cpu().numpy().astype(np.float32)
+        if tuple(arr.shape) != want[key]:
+            raise ValueError(f"parameter {key}: shape {tuple(arr.shape)}, expected {want[key]}")
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree

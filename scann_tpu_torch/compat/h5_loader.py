@@ -1,5 +1,5 @@
-"""Keras H5 checkpoint -> parameter tree (port of
-``scann_tpu/compat/h5_loader.py``, weight loading only).
+"""Keras H5 checkpoints <-> parameter tree (port of
+``scann_tpu/compat/h5_loader.py``).
 
 Loads the reference's published full-model H5 checkpoints into the
 flax-layout tree of numpy arrays that the JAX package's loader returns, so
@@ -17,7 +17,10 @@ Two H5 layouts are supported:
   ``layers/<auto-name>/vars/{0,1}``), where anonymous Dense layers are
   resolved positionally from the build order of the reference graph.
 
-Optimizer-state loading and H5 export are not ported yet.
+``load_h5_optimizer`` reads the Adam slots and iteration counter of a
+full-model H5 (both slot layouts: the publisher's ``Adam/m/<var>`` and
+tf_keras' ``Adam/<var>/m``), and ``save_h5_weights`` writes a tree back in
+the ``model_weights`` layout with the reference's Keras names.
 """
 
 from __future__ import annotations
@@ -215,6 +218,99 @@ def _residual_norm_params(flat) -> dict:
     }
 
 
+# --- optimizer state from full-model H5 --------------------------------------
+
+def load_h5_optimizer(path: str, config: ModelConfig):
+    """Adam slot variables from a reference full-model H5 checkpoint.
+
+    The reference's ModelCheckpoint saves the WHOLE model (weights +
+    optimizer, reference scann_model.py:165-177), so a training run can be
+    migrated mid-flight: ``load_h5_params`` restores the weights and this
+    restores the Adam state. Returns ``(iterations, mu, nu)`` where mu/nu
+    mirror the flax param pytree (same mapping machinery as the weights).
+
+    Keras legacy-Adam H5 layout (verified on tf_keras-generated fixtures):
+    ``optimizer_weights/Adam/{m,v}/<trainable variable name>:0`` plus a
+    scalar ``iteration(s)``/``iter`` counter. Bias-correction semantics
+    line up: after k reference steps ``iterations == k``, and optax's
+    ``scale_by_adam`` with ``count == k`` applies t = k+1 on the next step,
+    exactly like Keras (and the port's ``Trainer._adam`` at ``step == k``).
+    """
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if "optimizer_weights" not in f:
+            raise ValueError(
+                f"{path}: no optimizer_weights group — the H5 was saved "
+                "weights-only; train state cannot be migrated (load weights "
+                "only via load_h5_params)")
+        flat = {k.split(":")[0]: np.asarray(v)
+                for k, v in _collect(f["optimizer_weights"]).items()}
+
+    # Two slot layouts exist in the wild: the Keras-2.10-era publisher
+    # layout "Adam/m/<var path>" (slot segment SECOND) and the tf_keras
+    # legacy-Adam layout "Adam/<var path>/m" (slot segment LAST).
+    count = None
+    slots = {"m": {}, "v": {}}
+    for k, arr in flat.items():
+        segs = k.split("/")
+        if re.fullmatch(r"iter(ation)?s?", segs[-1]):
+            count = int(arr)
+            continue
+        if segs[-1] in ("m", "v") and len(segs) >= 3:
+            slots[segs[-1]]["/".join(segs[1:-1])] = arr
+            continue
+        for i, s in enumerate(segs[:-1]):
+            if s in ("m", "v"):
+                slots[s]["/".join(segs[i + 1:])] = arr
+                break
+        # anything else (e.g. a serialized learning_rate variable) is ignored
+    if count is None:
+        raise ValueError(f"{path}: optimizer_weights has no iteration counter")
+    if not slots["m"] or not slots["v"]:
+        raise ValueError(
+            f"{path}: optimizer_weights has no m/v slot variables "
+            f"(found {sorted(flat)[:5]}...) — unsupported optimizer layout")
+
+    mu = _map_layer_flats(_slot_layer_flats(slots["m"]), config)
+    nu = _map_layer_flats(_slot_layer_flats(slots["v"]), config)
+    return count, mu, nu
+
+
+def _slot_layer_flats(slot_paths: dict) -> dict:
+    """Group Adam slot-variable paths into the per-layer flats that
+    ``_map_layer_flats`` expects.
+
+    Named layers carry their prefix ("local_attention_2/query/kernel");
+    ResidualNorm's two inner Dense layers are UNNAMED and appear with bare
+    global counters ("dense_7/kernel"). Global Dense counters follow
+    creation order — two per ResidualNorm, in residual_norm counter order —
+    so the 2i/2i+1-th bare dense (by counter rank) belong to the i-th
+    residual_norm (by counter rank).
+    """
+    named = {}
+    bare = {}
+    for path, arr in slot_paths.items():
+        head, _, rest = path.partition("/")
+        if re.fullmatch(r"dense(_\d+)?", head):
+            bare.setdefault(head, {})[path] = arr
+        else:
+            named.setdefault(head, {})[rest or head] = arr
+
+    rn_names = sorted(
+        (n for n in named if re.fullmatch(r"residual_norm(_\d+)?", n)),
+        key=lambda n: _suffix_num(n, "residual_norm"))
+    bare_names = sorted(bare, key=lambda n: _suffix_num(n, "dense"))
+    if len(bare_names) != 2 * len(rn_names):
+        raise ValueError(
+            f"cannot place {len(bare_names)} anonymous Dense slot groups "
+            f"onto {len(rn_names)} ResidualNorm layers (expected 2 each)")
+    for i, rn in enumerate(rn_names):
+        for dname in bare_names[2 * i: 2 * i + 2]:
+            named[rn].update(bare[dname])
+    return named
+
+
 # --- weights-only H5 (Keras 3 save_weights: layers/<name>/vars/...) ----------
 
 def _load_weights_only(layers, config: ModelConfig) -> dict:
@@ -301,3 +397,91 @@ def _load_weights_only(layers, config: ModelConfig) -> dict:
                 "key": _dense(var(g["proj_k"], 0), var(g["proj_k"], 1)),
             }
     return params
+
+
+# --- export: Flax pytree -> reference-layout H5 weights -----------------------
+
+def save_h5_weights(params: dict, config: ModelConfig, path: str) -> None:
+    """Write params (a flax-layout tree: ``compat.params_to_flax`` makes one
+    from the port's flat dict) as an H5 file in the reference's
+    ``model_weights`` layout (the inverse of ``load_h5_params`` for the
+    full-model format), so weights trained here can be inspected/consumed by
+    reference-ecosystem tooling.
+
+    Keras layer/variable naming follows the reference graph's creation order
+    (``scann_model.py:362-447``, ``attention.py:95-116``): LayerNorms get
+    globally-counted ``layer_normalization[_k]`` names, ResidualNorm Denses
+    get global ``dense[_k]`` names.
+    """
+    import h5py
+
+    params = params.get("params", params)
+    ln_counter = [0]
+    dense_counter = [0]
+
+    def ln_name():
+        k = ln_counter[0]
+        ln_counter[0] += 1
+        return "layer_normalization" + (f"_{k}" if k else "")
+
+    def dense_name():
+        k = dense_counter[0]
+        dense_counter[0] += 1
+        return "dense" + (f"_{k}" if k else "")
+
+    def suffixed(base, i):
+        return base + (f"_{i}" if i else "")
+
+    with h5py.File(path, "w") as f:
+        mw = f.create_group("model_weights")
+
+        def put(layer, inner, name, arr):
+            mw.create_dataset(f"{layer}/{inner}/{name}:0",
+                              data=np.asarray(arr, np.float32))
+
+        def put_dense(layer, inner, p):
+            put(layer, inner, "kernel", p["kernel"])
+            put(layer, inner, "bias", p["bias"])
+
+        if "embedding" in params["embed_atom"]:
+            put("embed_atom", "embed_atom", "embeddings",
+                params["embed_atom"]["embedding"])
+        else:
+            put_dense("embed_atom", "embed_atom", params["embed_atom"])
+        if "extra_embed" in params:
+            put_dense("extra_embed", "extra_embed", params["extra_embed"])
+        put_dense("dense_embed", "dense_embed", params["dense_embed"])
+        if config.g_update:
+            put_dense("neighbor_d", "neighbor_d", params["neighbor_d"])
+            put_dense("neighbor_w", "neighbor_w", params["neighbor_w"])
+
+        # creation order per layer i: LocalAttention (LN, then LN_g) then
+        # ResidualNorm (two denses + LN)
+        for i in range(config.n_attention):
+            la = params[f"local_attention_{i}"]
+            lname = suffixed("local_attention", i)
+            put_dense(lname, f"{lname}/query", la["query"])
+            put_dense(lname, f"{lname}/key", la["key"])
+            put_dense(lname, f"{lname}/filter_geo", la["filter_geo"])
+            n1 = ln_name()
+            put(lname, f"{lname}/{n1}", "gamma", la["layer_norm"]["scale"])
+            put(lname, f"{lname}/{n1}", "beta", la["layer_norm"]["bias"])
+            if config.g_update:
+                n2 = ln_name()
+                put(lname, f"{lname}/{n2}", "gamma", la["layer_norm_g"]["scale"])
+                put(lname, f"{lname}/{n2}", "beta", la["layer_norm_g"]["bias"])
+            if config.use_attn_norm and f"residual_norm_{i}" in params:
+                rn = params[f"residual_norm_{i}"]
+                rname = suffixed("residual_norm", i)
+                put_dense(rname, dense_name(), rn["dense_1"])
+                put_dense(rname, dense_name(), rn["dense_2"])
+                n3 = ln_name()
+                put(rname, f"{rname}/{n3}", "gamma", rn["layer_norm"]["scale"])
+                put(rname, f"{rname}/{n3}", "beta", rn["layer_norm"]["bias"])
+
+        put_dense("after_Lc", "after_Lc", params["after_Lc"])
+        ga = params["global_attention"]
+        put_dense("global_attention", "global_attention/query", ga["query"])
+        put_dense("global_attention", "global_attention/key", ga["key"])
+        put_dense("bf_property", "bf_property", params["bf_property"])
+        put_dense("predict_property", "predict_property", params["predict_property"])

@@ -63,23 +63,19 @@ def _synthetic_target(syms, coords) -> float:
     return float(0.05 * z.sum() + 0.2 * pair.sum() / len(syms))
 
 
-def make_synthetic_dataset(
-    out_dir: str,
+def synthetic_records(
     name: str = "synth",
     n_structures: int = 256,
     min_atoms: int = 5,
     max_atoms: int = 20,
     periodic: bool = False,
-    d_t: float = 4.0,
-    w_t: float = 0.4,
     seed: int = 0,
     with_ring: bool = False,
     target_names=("homo", "lumo"),
-):
-    """Write ``{name}_data_energy.npy`` + ``{name}_data_neighbor_dt..wt...npy``.
-
-    Returns the two paths.
-    """
+) -> list:
+    """The records ``make_synthetic_dataset`` writes, sorted by atom count
+    (the reference's implicit length bucketing, ``qm9.py:160``), without
+    featurizing them."""
     rng = np.random.default_rng(seed)
     records = []
     for i in range(n_structures):
@@ -107,11 +103,29 @@ def make_synthetic_dataset(
                 "Aromatic": rng.integers(0, 2, n_atoms).astype(np.float32),
             }
         records.append(rec)
-
-    # sort by atom count — the reference's implicit length bucketing
-    # (qm9.py:160); keeps our shape buckets dense too
     records.sort(key=lambda r: len(r["Atoms"]))
+    return records
 
+
+def make_synthetic_dataset(
+    out_dir: str,
+    name: str = "synth",
+    n_structures: int = 256,
+    min_atoms: int = 5,
+    max_atoms: int = 20,
+    periodic: bool = False,
+    d_t: float = 4.0,
+    w_t: float = 0.4,
+    seed: int = 0,
+    with_ring: bool = False,
+    target_names=("homo", "lumo"),
+):
+    """Write ``{name}_data_energy.npy`` + ``{name}_data_neighbor_dt..wt...npy``.
+
+    Returns the two paths.
+    """
+    records = synthetic_records(name, n_structures, min_atoms, max_atoms, periodic, seed,
+                                with_ring, target_names)
     os.makedirs(out_dir, exist_ok=True)
     energy_path = os.path.join(out_dir, f"{name}_data_energy.npy")
     np.save(energy_path, np.asarray(records, dtype=object))

@@ -37,8 +37,6 @@ import os
 from typing import List
 
 import numpy as np
-from scipy.spatial import Voronoi
-from scipy.spatial import QhullError
 
 from scann_tpu_torch.data import native_voronoi
 from scann_tpu_torch.data.structure import Structure
@@ -139,7 +137,7 @@ def compute_voronoi_neighbors(
         try:
             raw = _voronoi_facets(home, lattice, n_home, cutoff)
             break
-        except QhullError:
+        except _qhull_error():
             cutoff += 5.0
             if cutoff > max_cutoff:
                 raise RuntimeError(
@@ -275,10 +273,21 @@ def _voronoi_facets(home: np.ndarray, lattice: np.ndarray, n_home: int, cutoff: 
     return _voronoi_facets_scipy(points, base_idx, n_home)
 
 
+def _qhull_error():
+    """scipy's ``QhullError``, imported when an exception is matched against
+    it: the native path needs no scipy, and a featurization worker
+    (``featurize.parallel_compute_neighbors``) starts without importing it."""
+    from scipy.spatial import QhullError
+
+    return QhullError
+
+
 def _voronoi_facets_scipy(points: np.ndarray, base_idx: np.ndarray, n_home: int):
     """The scipy/Qhull path: one global Voronoi tessellation of the cloud,
     solid angles evaluated in vectorized batches grouped by facet vertex
     count (the scalar per-facet path was ~65% of featurization time)."""
+    from scipy.spatial import QhullError, Voronoi
+
     try:
         vor = Voronoi(points)
     except QhullError:

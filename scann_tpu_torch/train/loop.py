@@ -54,6 +54,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from scann_tpu_torch.compat.from_jax import params_from_jax
 from scann_tpu_torch.config import ScannConfig, save_config
 from scann_tpu_torch.data.packing import packed_slot_batch
 from scann_tpu_torch.data.pipeline import PackedBucket
@@ -155,6 +156,10 @@ class Trainer:
         if set(params) != set(want):
             raise ValueError(f"parameter keys do not match the config: "
                              f"{sorted(set(params) ^ set(want))}")
+        bad = {k: (tuple(params[k].shape), want[k]) for k in want
+               if tuple(params[k].shape) != want[k]}
+        if bad:
+            raise ValueError(f"parameter shapes do not match the config (got, expected): {bad}")
         self.params = {k: params[k].to(self.device, torch.float32).contiguous() for k in want}
         self.mu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in self.params.items()}
@@ -165,6 +170,22 @@ class Trainer:
     def init_state(self, seed: int = 0) -> Dict[str, torch.Tensor]:
         """Random parameters with the Keras initializers, from ``seed``."""
         return self.load_params(init_params(self.config.model, torch.Generator().manual_seed(seed)))
+
+    def load_optimizer(self, count: int, mu, nu) -> None:
+        """Install an Adam state carried over from another run (a reference
+        H5: ``compat.load_h5_optimizer``). ``mu`` and ``nu`` are flax-layout
+        trees like the parameters', checked key for key and shape for shape
+        against the config (a ``ValueError`` on a mismatch). ``count``
+        becomes ``step``: the next ``_adam`` applies t = count + 1, and the
+        inverse-time decay ``lr / (1 + adam_decay * step)`` goes on along the
+        reference's trajectory (JAX ``Trainer.load_optimizer``)."""
+        if self.params is None:
+            raise RuntimeError("load params before the optimizer state "
+                               "(Trainer.load_params / init_state)")
+        cfm = self.config.model
+        self.mu = params_from_jax(mu, cfm, self.device)
+        self.nu = params_from_jax(nu, cfm, self.device)
+        self.step = int(count)
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """The whole-model kernels' layout of the current weights (the

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and its API, training,
-serving and CLI modules) in a fresh interpreter loads neither JAX nor any
-module of the JAX package ``scann_tpu``, and needs neither yaml nor h5py."""
+serving, dataset builders and CLI modules) in a fresh interpreter loads
+neither JAX nor any module of the JAX package ``scann_tpu``, and needs
+neither yaml nor h5py."""
 
 import json
 import os
@@ -36,7 +37,9 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
         "import scann_tpu_torch.cli.train, scann_tpu_torch.cli.predict_model\n"
         "import scann_tpu_torch.utils, scann_tpu_torch.utils.flops\n"
         "import scann_tpu_torch.utils.roofline, scann_tpu_torch.utils.profiling\n"
-        "import scann_tpu_torch.data.native, scann_tpu_torch.data.native_voronoi")
+        "import scann_tpu_torch.data.native, scann_tpu_torch.data.native_voronoi\n"
+        "import scann_tpu_torch.data.builders, scann_tpu_torch.cli.preprocess\n"
+        "import scann_tpu_torch.cli.export")
     assert "scann_tpu_torch.train.loop" in mods
     assert "scann_tpu_torch.utils.roofline" in mods
     assert "scann_tpu_torch.data.native_voronoi" in mods
@@ -44,6 +47,8 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
     assert "scann_tpu_torch.kernels.scann_loop" in mods
     assert "scann_tpu_torch.kernels.local_attention" in mods
     assert "scann_tpu_torch.kernels._build" in mods
+    assert "scann_tpu_torch.data.builders.trajectories" in mods
+    assert "scann_tpu_torch.cli.export" in mods
     leaked = [m for m in mods
               if m in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py")
               or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "orbax."))
