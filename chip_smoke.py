@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port and the rate probes from
-``scann_tpu_torch/csrc`` (one nvcc per source, all at once) and prints the
-registers and spills of the two backward kernels. Phases 11 and 12 run
-first:
+``scann_tpu_torch/csrc`` (one nvcc per source, all at once) into a fresh
+kernel build cache, ``build/scann_tpu_torch/chip_smoke_exec_cache``
+(``utils/exec_cache.py``), and prints the registers and spills of the two
+backward kernels. Phases 11 and 12 run first:
 
 11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
    (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32
@@ -118,23 +119,40 @@ layers); random weights from seeds:
    against the routes, the same run with the plain step and
    ``load_model_infer``; trains 2 epochs in one bucket (96, 16), where every
    pass must lower the loss without dropout; and takes one training step by
-   the per-layer route on structures beyond the loop backward's gate, held
-   against the plain step; then one packed epoch of the same crystals at
+   the per-layer route on structures beyond the loop backward's gate (the
+   plain model under autograd, as the JAX Trainer trains: no launch of the
+   per-layer kernel), held against the plain step and timed beside it; then
+   one packed epoch of the same crystals at
    capacity 96 (eval by the loop forward, steps by the loop backward),
    checked as phase 5's packed runs; and two training steps at (96, 32)
    under ``utils.trace`` (``torch.profiler``, as ``cli/train.py --profile``
    runs it): the Chrome trace must be written, and its CUDA kernel events
    are counted and summed by name.
+13. (run last) spawns two processes on the one card, each a rank of the
+   Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
+   refuses two ranks on one device), both loading every kernel from the
+   build cache the first build filled (``stats["compiles"] == 0``, and
+   each prints its time from process start to its first finished step):
+   4 QM9 steps at the flagship width, batch 128 (64 a rank, #2), on phase
+   5's buckets, 2 MP2018 steps at (64, 96, 32) (32 a rank, #4) and one
+   sharded eval batch of each (#1, #3). Losses, every weight, predictions
+   and GA scores must equal, bit for bit, one process running the same
+   shards in rank order (and each other), and the whole-batch run within
+   1e-4 (of each tensor's max; losses relative). Rank 0 then serves one
+   QM9 request through ``BatchedPredictor(exec_cache=<that directory>)``
+   with no build. Prints the phase's wall time.
 
 Phases 5, 8 and 10 featurize through the native Voronoi path and pack
 through the native packer (``native/packer.cc``), both built with g++ at
 first use; phase 5's featurization pool loads the library phase 12 built.
 
 Prints the card (``nvidia-smi``), the build time, each comparison and
-phase, each kernel's share of both bounds, then one ``{"kernels": [...]}``
-line (every row with ``measured_bound_ms``; the rows of the four
-whole-model kernels with ``packed_launches``, their launches on the packed
-training runs, and ``packed``, their times at a packed shape) and, last,
+phase, each kernel's share of both bounds, the run's whole time, then one
+``{"kernels": [...]}`` line (every row with ``measured_bound_ms`` and
+``sharded_launches``, its launches in phase 13's two ranks together; the
+rows of the four whole-model kernels with ``packed_launches``, their
+launches on the packed training runs, and ``packed``, their times at a
+packed shape) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
@@ -153,6 +171,7 @@ to 1e-3 relative, since Adam carries the FP32 differences through 16 steps.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1999,11 +2018,12 @@ def phase10(mp2018, failures, card):
     g_rel, g_key, _ = grad_errors(raw_k, raw_p)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     print(f"phase 10: one {route} training step at B={B} M={M} N={N} (beyond the loop "
-          f"backward's gate): loss {loss_k:.6f} vs plain step {loss_p:.6f} (rel {rel:.3e}, "
-          f"limit {LOSS_RTOL}), gradients worst {g_rel:.2e} of max|plain| at {g_key}, {layer_n} "
-          f"per-layer kernel launches, {loop_n} loop-backward launches, {ms_k:.1f} ms (plain "
+          f"backward's gate; the plain model under autograd, as the JAX Trainer trains): loss "
+          f"{loss_k:.6f} vs plain step {loss_p:.6f} (rel {rel:.3e}, limit {LOSS_RTOL}), "
+          f"gradients worst {g_rel:.2e} of max|plain| at {g_key}, {layer_n} per-layer kernel "
+          f"launches (none wanted), {loop_n} loop-backward launches, {ms_k:.1f} ms (plain "
           f"step {ms_p:.1f} ms)  [{card}]", flush=True)
-    if (route != "per_layer" or layer_n != mp2018.n_attention or loop_n != 0
+    if (route != "per_layer" or layer_n != 0 or loop_n != 0
             or not rel <= LOSS_RTOL or not g_rel <= GRAD_RTOL):
         failures.append(f"per-layer training step: route {route}, {layer_n} layer launches, "
                         f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
@@ -2062,6 +2082,283 @@ def trace_steps(cfg, bucket, logdir, failures, card):
               "reach the card here); host events only", flush=True)
 
 
+def _model_dict(cfm):
+    import dataclasses
+
+    return dataclasses.asdict(cfm)
+
+
+def _run_shard_steps(trainer, steps, eval_batch, dev):
+    """Phase 13's steps and eval batch on ``trainer``: {"losses", "params"
+    (on the host), "pred", "ga" (on the host)} and the wall clock at the
+    end of the first step."""
+    from scann_tpu_torch.train.loop import _to_device
+
+    losses, first = [], None
+    for x, y, lr, seed in steps:
+        loss, _ = trainer.train_step(_to_device(x, dev), y.to(dev), lr, seed)
+        losses.append(loss.item())                 # waits for the step
+        first = first or time.time()
+    pred, ga = trainer.eval_batch(_to_device(eval_batch, dev))
+    return {"losses": torch.tensor(losses),
+            "params": {k: v.cpu() for k, v in trainer.params.items()},
+            "pred": pred.cpu(), "ga": ga.cpu()}, first
+
+
+def phase13_rank(rank, world, coordinator, spec_path, out_path, t_spawn):
+    """One rank of phase 13 (``python3 chip_smoke.py --phase13-rank ...``):
+    joins the gloo group, takes its kernels from the build cache the parent
+    filled, runs the QM9 and MP2018 steps and eval batches as one rank of
+    the Trainer's data parallelism, and writes what it got; rank 0 then
+    serves one QM9 request through ``BatchedPredictor(exec_cache=...)``."""
+    import torch.distributed as dist
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ModelConfig, ScannConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import _build
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.parallel import check_replicas_match, initialize, make_mesh
+    from scann_tpu_torch.serve import BatchedPredictor
+    from scann_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert initialize(coordinator, world, rank, backend="gloo")
+    spec = torch.load(spec_path, weights_only=True)
+    cache = _build.set_build_dir(spec["cache_dir"])
+    dev = torch.device(spec["device"])
+    check_replicas_match({k: spec[k] for k in ("qm9_steps", "mp_steps")}, what="phase 13 batches")
+    counters = (kfwd.fused_scann_forward, kbwd.launch_scann_backward, kloop.launch_loop_forward,
+                kloop.launch_loop_backward, kla.fused_local_attention)
+    for c in counters:
+        c.launches = 0
+    out, first = {"rank": rank}, None
+    for name, bs in (("qm9", 128), ("mp", 64)):
+        cfg = ScannConfig(model=ModelConfig(**spec[f"{name}_model"]),
+                          hyper=HyperConfig(batch_size=bs))
+        t = Trainer(cfg, dev, os.path.join(spec["work"], f"rank{rank}"), mesh=make_mesh())
+        assert t.mesh.world == world and t.mesh.rank == rank
+        t.load_params(spec[f"{name}_params"])
+        out[name], t_first = _run_shard_steps(t, spec[f"{name}_steps"], spec[f"{name}_eval"],
+                                              dev)
+        first = first or t_first
+    out["launches"] = [c.launches for c in counters]
+    out["first_step_s"] = first - t_spawn
+    out["stats"] = dict(cache.stats)
+    dist.barrier()
+    dist.destroy_process_group()
+    if cache.stats["compiles"]:
+        raise RuntimeError(f"rank {rank} built {cache.stats['compiles']} kernels: no warm start")
+    if rank == 0:
+        cfg = ScannConfig(model=ModelConfig(**spec["qm9_model"]),
+                          hyper=HyperConfig(batch_size=128, target="homo",
+                                            target_mean=-0.24, target_std=0.022))
+        scann = Scann(cfg, device=dev, workdir=os.path.join(spec["work"], "serve"))
+        scann.trainer.load_params(spec["qm9_params"])
+        t1 = time.perf_counter()
+        predictor = BatchedPredictor(scann, window_ms=0.0, warmup_shapes=[],
+                                     exec_cache=spec["cache_dir"])
+        try:
+            t2 = time.perf_counter()
+            (value, ga), = predictor.predict([Structure(*MOLECULES["water"])])
+            t3 = time.perf_counter()
+        finally:
+            predictor.close()
+        out["serve"] = {"predictor_ms": 1e3 * (t2 - t1), "first_request_ms": 1e3 * (t3 - t2),
+                        "finite": bool(np.isfinite(value) and np.isfinite(ga).all()),
+                        "stats": dict(scann.exec_cache.stats)}
+        if scann.exec_cache.stats["compiles"]:
+            raise RuntimeError("the served first request built a kernel: no warm start")
+    torch.save(out, out_path)
+    return 0
+
+
+def _ordered_shards(trainer, world):
+    """Make ``trainer`` (one process) run each step and eval batch as
+    ``world`` shards one after another in rank order, the gradients added
+    from rank 0 up: what the ranks of phase 13 must equal bit for bit."""
+    from scann_tpu_torch.parallel import RankLayout
+    from scann_tpu_torch.parallel.mesh import batch_sharding
+
+    def shards(batch):
+        for r in range(world):
+            rows = batch_sharding(RankLayout(world, r, trainer.device), batch["atomic"].shape[0])
+            yield rows, {k: v[rows] for k, v in batch.items()}
+
+    def raw_grads(batch, y, seed):
+        route = trainer.train_route(batch["atomic"].shape[1], batch["neighbors"].shape[2])
+        preds, total = [], None
+        for rows, x in shards(batch):
+            pred, g = trainer._whole_model_grads(route, x, y[rows], seed, rows.start)
+            preds.append(pred)
+            total = g if total is None else {k: total[k] + g[k] for k in total}
+        return torch.cat(preds), total
+
+    def eval_batch(batch):
+        outs = [trainer.forward_eval(trainer.params, x) for _, x in shards(batch)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    trainer.raw_grads, trainer.eval_batch = raw_grads, eval_batch
+    return trainer
+
+
+def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:0"):
+    """Two ranks of the Trainer's data parallelism on the one card (each a
+    process on cuda:0, over gloo, passed explicitly: NCCL refuses two ranks
+    on one device), both loading their kernels from the build cache that
+    the forced build filled: 4 QM9 steps at the flagship width (batch 128,
+    64 a rank, #2) on phase 5's buckets, 2 MP2018 steps at (64, 96, 32) (32
+    a rank, #4), one sharded eval batch of each (#1, #3). Holds them bit for
+    bit to one process that runs the same shards in rank order, and within
+    1e-4 to the whole-batch run. Returns the ranks' launches (``device``
+    "cpu" rehearses the phase on the kernels' plain versions)."""
+    import socket
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.models.scann import init_params
+    from scann_tpu_torch.parallel import RankLayout
+    from scann_tpu_torch.train.loop import Trainer
+
+    t0 = time.time()
+    energy, nbr = qm9_run["data"]
+    work = os.path.join(qm9_run["work"], "phase13")
+    cfg = ScannConfig(model=qm9_model,
+                      hyper=HyperConfig(batch_size=128, data_energy_path=energy,
+                                        data_nei_path=nbr, seed=0,
+                                        save_path=os.path.join(work, "run")),
+                      tpu=TpuConfig(max_buckets=2))
+    s = Scann(cfg, device=device)
+    s.prepare_dataset()
+    qm9_steps = []
+    for k in range(4):                       # two steps a bucket, in the epoch plan's order
+        b = s.train_buckets[k // 2]
+        idx, seeds = s.trainer.epoch_plan(0, k // 2, len(b.targets), 128)
+        rows = idx[(k % 2) % len(idx)].numpy()
+        qm9_steps.append(({n: torch.from_numpy(np.ascontiguousarray(v[rows]))
+                           for n, v in b.inputs.items()},
+                          torch.from_numpy(np.asarray(b.targets[rows], np.float32)),
+                          5e-4 / (1 + k), seeds[(k % 2) % len(seeds)]))
+    rng = np.random.default_rng(13)
+    mp_steps = [(synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20),
+                 torch.from_numpy(rng.normal(size=64).astype(np.float32)), 5e-4, 21 + k)
+                for k in range(2)]
+    mp_steps = [({n: v.cpu() for n, v in x.items()}, y, lr, seed) for x, y, lr, seed in mp_steps]
+    b0 = s.train_buckets[0]
+    spec = {"cache_dir": cache_dir, "work": work, "device": device,
+            "qm9_model": _model_dict(qm9_model), "mp_model": _model_dict(mp2018),
+            "qm9_params": init_params(qm9_model, torch.Generator().manual_seed(0)),
+            "mp_params": init_params(mp2018, torch.Generator().manual_seed(1)),
+            "qm9_steps": qm9_steps, "mp_steps": mp_steps,
+            "qm9_eval": {n: torch.from_numpy(np.ascontiguousarray(v[np.arange(128)
+                                                                    % len(b0.targets)]))
+                         for n, v in b0.inputs.items()},
+            "mp_eval": {n: v.cpu() for n, v in
+                        synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms,
+                                        min_atoms=20).items()}}
+    os.makedirs(work, exist_ok=True)
+    spec_path = os.path.join(work, "spec.pt")
+    torch.save(spec, spec_path)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    outs = [os.path.join(work, f"rank{r}.pt") for r in range(2)]
+    t_spawn = time.time()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, "--phase13-rank", str(r), "2",
+                               f"127.0.0.1:{port}", spec_path, outs[r], repr(t_spawn)],
+                              env=env, cwd=os.path.dirname(here), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            try:
+                logs[r], _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[r], _ = p.communicate()
+                logs[r] += "\n(timed out after 300 s)"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.time() - t_spawn
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            print(f"phase 13 rank {r} failed (exit {procs[r].returncode}):\n{logs[r][-6000:]}",
+                  flush=True)
+        failures.append(f"phase 13: ranks {bad} failed")
+        return None
+    got = [torch.load(o, weights_only=True) for o in outs]
+
+    # the references in this process: the same shards in rank order, and the
+    # whole batch
+    ref = {}
+    for how in ("ordered", "whole"):
+        for name, cfm, bs in (("qm9", qm9_model, 128), ("mp", mp2018, 64)):
+            t = Trainer(ScannConfig(model=cfm, hyper=HyperConfig(batch_size=bs)), device,
+                        os.path.join(work, how), mesh=RankLayout(1, 0, torch.device(device)))
+            if how == "ordered":
+                _ordered_shards(t, 2)
+            t.load_params(spec[f"{name}_params"])
+            ref[how, name], _ = _run_shard_steps(t, spec[f"{name}_steps"], spec[f"{name}_eval"],
+                                                 t.device)
+
+    def flat(out):
+        return {f"{what} {k}": v for what, d in out.items()
+                for k, v in list(d.items()) + list(d["params"].items()) if k != "params"}
+
+    mine, other = flat({n: got[0][n] for n in ("qm9", "mp")}), flat({n: got[1][n] for n in
+                                                                       ("qm9", "mp")})
+    ordered = flat({n: ref["ordered", n] for n in ("qm9", "mp")})
+    whole = flat({n: ref["whole", n] for n in ("qm9", "mp")})
+    unequal = [k for k in mine if not (torch.equal(mine[k], ordered[k])
+                                       and torch.equal(mine[k], other[k]))]
+    worst_l = max(float(((mine[k] - whole[k]).abs() / whole[k].abs()).max())
+                  for k in mine if k.endswith(" losses"))
+    worst_w = max(float((mine[k] - whole[k]).abs().max()) / max(float(whole[k].abs().max()), 1e-30)
+                  for k in mine if not k.endswith(" losses"))
+    names = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
+             "local_attention")
+    launches = {n: [g["launches"][i] for g in got] for i, n in enumerate(names)}
+    serve = got[0]["serve"]
+    wall = time.time() - t0
+    print(f"phase 13: 2 ranks on {device} over gloo, kernels from the build cache "
+          f"{os.path.relpath(cache_dir)}: builds {[g['stats']['compiles'] for g in got]}, "
+          f"library loads from disk {[g['stats']['disk_hits'] for g in got]}; from process start "
+          f"to the first finished step {[round(g['first_step_s'], 3) for g in got]} s; launches "
+          f"a rank {launches}  [{card}]", flush=True)
+    print(f"phase 13: QM9 losses {got[0]['qm9']['losses'].tolist()}, MP2018 losses "
+          f"{got[0]['mp']['losses'].tolist()}; {len(mine) - len(unequal)} of {len(mine)} "
+          f"tensors (losses, predictions, GA scores, every weight of both models) "
+          f"bit-identical to one process running the shards in rank order and between the "
+          f"ranks{'' if not unequal else ', unequal: ' + str(unequal)}; "
+          f"against the whole batch: weights, predictions and GA scores within "
+          f"{worst_w:.3e} x max (limit 1e-4), losses {worst_l:.3e} relative (limit 1e-4)  "
+          f"[{card}]", flush=True)
+    print(f"phase 13: rank 0 served one QM9 request through BatchedPredictor(exec_cache=...): "
+          f"predictor ready in {serve['predictor_ms']:.1f} ms, first request "
+          f"{serve['first_request_ms']:.1f} ms, builds {serve['stats']['compiles']}; ranks ran "
+          f"{ranks_s:.1f} s, the phase {wall:.1f} s  [{card}]", flush=True)
+    if (unequal or not worst_w <= 1e-4 or not worst_l <= 1e-4
+            or any(g["stats"]["compiles"] for g in got) or serve["stats"]["compiles"]
+            or not serve["finite"]
+            or any(min(launches[n]) < 1 for n in names[:4]) or max(launches["local_attention"])):
+        failures.append(f"phase 13: unequal {unequal}, whole-batch {worst_w:.3e} / {worst_l:.3e}, "
+                        f"builds {[g['stats']['compiles'] for g in got]} + "
+                        f"{serve['stats']['compiles']}, launches {launches}")
+    return {n: sum(v) for n, v in launches.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2070,15 +2367,24 @@ def main():
     from scann_tpu_torch.kernels import _build
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.models.scann import init_params, scann_forward
+    from scann_tpu_torch.utils import exec_cache
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    t0 = time.time()
+    t_start = t0 = time.time()
+    # a fresh kernel build cache: the forced build fills it, and phase 13's
+    # ranks and its served request must load from it without building
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "scann_tpu_torch", "chip_smoke_exec_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache = _build.set_build_dir(cache_dir)
     _build.build_all(_build.SOURCES + _build.PROBES, force=True)
     print(f"built {list(_build.SOURCES + _build.PROBES)} with nvcc in {time.time() - t0:.1f} s "
-          "(one nvcc per source, in parallel)", flush=True)
+          f"(one nvcc per source, in parallel) into the build cache "
+          f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
+          f"{exec_cache.env_fingerprint()})", flush=True)
     for name in ("scann_backward", "scann_loop_backward"):
         for entry, regs, stores, loads in _build.kernel_resources(name):
             if "reduce_rows" not in entry and "selftest" not in entry:
@@ -2327,6 +2633,10 @@ def main():
     packed_launches = {k: v + crystal_packed[k] for k, v in packed_launches.items()}
     loop_launches, layer_launches = phase8(mp2018, run_dir, failures, card)
 
+    # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
+    torch.cuda.empty_cache()
+    sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
+
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)
         return 1
@@ -2342,6 +2652,7 @@ def main():
         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
         "measured_bound_ms": fwd_measured, "library_ms": None, "flops": flops,
         "packed_launches": packed_launches["scann_forward"], "packed": fwd_packed_time,
+        "sharded_launches": sharded_launches["scann_forward"],
     }, {
         "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,
         "replaces": kbwd.REPLACES, "launches": train_launches,
@@ -2353,25 +2664,31 @@ def main():
         "packed_launches": packed_launches["scann_backward"],
         "packed": {k: bwd_packed_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "measured_bound_ms", "flops")},
+        "sharded_launches": sharded_launches["scann_backward"],
     }, {
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
         "library_ms": None, "packed_launches": packed_launches["scann_loop"], **loop_time,
+        "sharded_launches": sharded_launches["scann_loop"],
     }, {
         "name": "scann_loop_backward", "route": "cuda", "source": kloop.BACKWARD_SOURCE,
         "replaces": kloop.BACKWARD_REPLACES, "launches": loop_bwd_launches,
         "max_abs_err": loop_bwd_err, "library_ms": None,
         "packed_launches": packed_launches["scann_loop_backward"], **loop_bwd_time,
+        "sharded_launches": sharded_launches["scann_loop_backward"],
     }, {
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
+        "sharded_launches": sharded_launches["local_attention"],
     }]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "
               f"{100 * k['measured_bound_ms'] / k['ms']:.1f}% of it at the measured rates "
               f"({k['measured_bound_ms']:.4f} ms)  [{card}]", flush=True)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all, the build included  [{card}]",
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2382,4 +2699,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase13-rank"]:
+        rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
+        sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,
+                              float(t_spawn)))
     sys.exit(main())

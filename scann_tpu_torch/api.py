@@ -8,7 +8,7 @@ on one device. It trains and evaluates on a dataset pair:
       split)
       -> train (on the GPU one launch per step of the molecule backward
          kernel or, for crystal buckets, of the loop backward kernel; the
-         per-layer model under autograd beyond both: ``Trainer.train_route``)
+         plain model under autograd beyond both: ``Trainer.train_route``)
       -> evaluate / predict_data (the forward kernels)
 
 and it predicts properties and per-atom GA scores for structures:
@@ -28,8 +28,11 @@ Weights come from training, a torch checkpoint of this package
 Adam state and step), a reference Keras H5 (``load_pretrained``, with
 ``with_optimizer=True`` its Adam state too) or any flax-layout tree
 (``load_params``); ``export_h5`` writes the reference's H5 layout back. The
-JAX package's orbax checkpoints (which need JAX to read) and its
-compiled-executable cache are not part of the port.
+JAX package's orbax checkpoints (which need JAX to read) are not part of
+the port. ``enable_exec_cache`` points the kernel build cache
+(``utils/exec_cache.py``) at a directory, so a later process loads the
+kernels this one built; ``mesh`` (``parallel.make_mesh``) trains one rank
+of a data-parallel job over ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -175,14 +178,16 @@ class Scann:
     the reference ``SCANN`` class."""
 
     def __init__(self, config: Union[ScannConfig, dict, str], pretrained: str = "",
-                 device: Union[str, torch.device] = "cuda", workdir: Optional[str] = None):
+                 device: Union[str, torch.device] = "cuda", workdir: Optional[str] = None,
+                 mesh=None):
         if isinstance(config, str):
             config = load_config(config)
         elif isinstance(config, dict):
             config = ScannConfig.from_dict(config)
         self.config = config
         self.device = resolve_device(device)
-        self.trainer = Trainer(config, self.device, workdir)
+        self.trainer = Trainer(config, self.device, workdir, mesh=mesh)
+        self.exec_cache = self.trainer.exec_cache
         self._buckets = None
         self.train_buckets = self.valid_buckets = self.test_buckets = None
         self._feat_pool = None
@@ -267,6 +272,27 @@ class Scann:
 
         save_h5_weights(params_to_flax(self.params, self.config.model), self.config.model, path)
         return path
+
+    def enable_exec_cache(self, cache_dir: Optional[str] = None) -> Optional[str]:
+        """Build the kernels into, and load them from, ``cache_dir`` (default
+        ``{workdir}/exec_cache``: for a model from ``load_model_infer`` the
+        served run directory), for the whole process, so a later process
+        with the same directory, sources and toolchain starts without nvcc
+        (``utils/exec_cache.py``). Returns the directory; one that cannot be
+        created warns and returns None, and the kernels build where they
+        did: the cache is a speedup, never a condition of serving."""
+        cache_dir = cache_dir or os.path.join(self.trainer.workdir, "exec_cache")
+        from scann_tpu_torch.kernels import _build
+
+        try:
+            self.exec_cache = _build.set_build_dir(cache_dir)
+        except OSError as e:
+            import warnings
+
+            warnings.warn(f"exec cache disabled: cannot create {cache_dir!r} ({e}); the "
+                          "kernels build where they did without the cache")
+            return None
+        return self.exec_cache.cache_dir
 
     def _require_state(self, what: str):
         if self.params is None:
@@ -586,10 +612,16 @@ class Scann:
                        batch_size: int = 1) -> List[Tuple[int, int]]:
         """Run each distinct ladder rung of the (max_atoms, max_neighbors)
         shapes once on dummy inputs of ``batch_size`` structures, so the
-        first requests do not pay the build of the kernel that rung takes.
-        Served batches come at any size, so one structure does. Returns the
-        rungs run."""
+        first requests do not pay the build or the first launch of the
+        kernel that rung takes. On CUDA every kernel is built (or loaded
+        from the build cache) first, one nvcc each, all at once. Served
+        batches come at any size, so one structure does. Returns the rungs
+        run."""
         self._require_state("warmup_serving")
+        if self.device.type == "cuda":
+            from scann_tpu_torch.kernels import _build
+
+            _build.build_all()
         base_m = self.config.tpu.atoms_pad_multiple
         base_n = self.config.tpu.neighbors_pad_multiple
         done: List[Tuple[int, int]] = []

@@ -2,13 +2,16 @@
 
     python -m scann_tpu_torch.cli.serve <model_dir>
         [--host 127.0.0.1] [--port 8421] [--max-batch 64] [--window-ms 5]
-        [--device cuda]
+        [--device cuda] [--exec-cache [DIR]]
     python -m scann_tpu_torch.cli.serve --config X.yaml --weights W.h5 [...]
 
 Serves a training run directory of this package (``checkpoints/best.pt``,
 as ``scann_tpu.cli.serve`` takes the JAX package's), or a config and a Keras
 H5 checkpoint, over HTTP on the GPU; see ``scann_tpu_torch.serve`` for the
 request/response format. A run directory needs neither yaml nor h5py.
+``--exec-cache [DIR]`` builds the kernels into DIR (default
+``{model_dir}/exec_cache``) or loads them from there when an earlier
+process built them (``Scann.enable_exec_cache``).
 """
 
 import argparse
@@ -39,6 +42,10 @@ def main(argv=None):
                         help="comma-separated MxN shapes (atoms x neighbors) to run "
                              "once before accepting requests, e.g. '30x14,48x16'. "
                              "Default: the model's recorded tpu.observed_buckets")
+    parser.add_argument("--exec-cache", type=str, nargs="?", const="auto", default=None,
+                        metavar="DIR",
+                        help="build the kernels into DIR (default {model_dir}/exec_cache), "
+                             "or load them from there when an earlier process built them")
     parser.add_argument("--no-canonical-frame", dest="canonical_frame",
                         action="store_false",
                         help="serve raw client frames instead of rotating molecules "
@@ -58,7 +65,7 @@ def main(argv=None):
 
     kw = dict(device=args.device, max_batch=args.max_batch, window_ms=args.window_ms,
               featurize_pool=args.featurize_pool, canonical_frame=args.canonical_frame,
-              warmup_shapes=warmup)
+              warmup_shapes=warmup, exec_cache=args.exec_cache)
     if args.model_dir is not None:
         predictor = BatchedPredictor.from_model_dir(args.model_dir, **kw)
     else:

@@ -3,7 +3,8 @@
     python -m scann_tpu_torch.cli.train <target> <config.yaml> \\
         [--use_ring] [--use_ref] [--use_drop] [--feature atomic|cgcnn] \\
         [--pretrained W.h5|RUN_DIR|CKPT] [--mode train|eval] [--epochs N] [--resume] \\
-        [--structure-packing] [--profile LOGDIR] [--device cuda]
+        [--structure-packing] [--profile LOGDIR] [--device cuda] \\
+        [--exec-cache [DIR]] [--distributed]
 
 Flags merge into the config as in the reference ``train.py:37-43``. The
 run directory (``{save_path}_{target}``) gets config.yaml, metrics.jsonl,
@@ -15,8 +16,15 @@ and step).
 ``--structure-packing`` sets ``tpu.structure_packing``: several structures
 per slot (``data/packing.py``). ``--profile LOGDIR`` writes a
 ``torch.profiler`` Chrome trace of the training run under LOGDIR
-(``utils.trace``). The flags of parts not ported yet (--exec-cache,
---distributed) are accepted and refused with a message.
+(``utils.trace``). ``--exec-cache [DIR]`` sets ``tpu.exec_cache_dir`` (default
+``{save_path}/exec_cache``): the kernels are built there, or loaded from
+there when an earlier run built them (``utils/exec_cache.py``).
+``--distributed`` joins a data-parallel job before any CUDA use
+(``parallel.initialize``: one process a GPU, e.g. ``torchrun
+--nproc-per-node 4 -m scann_tpu_torch.cli.train ... --distributed``, or
+``SCANN_TPU_COORDINATOR`` / ``SCANN_TPU_NUM_PROCESSES`` /
+``SCANN_TPU_PROCESS_ID``; ``SCANN_TPU_DISTRIBUTED=1`` engages it too); each
+rank drives ``cuda:{LOCAL_RANK}`` and rank 0 writes the run directory.
 """
 
 import argparse
@@ -55,15 +63,30 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--structure-packing", action="store_true",
                         help="bin-pack several structures per padded slot")
-    parser.add_argument("--distributed", action="store_true", help="not ported yet")
+    parser.add_argument("--distributed", action="store_true",
+                        help="data parallelism over torch.distributed, one process a GPU: "
+                             "join the job (torchrun's env or SCANN_TPU_COORDINATOR / "
+                             "SCANN_TPU_NUM_PROCESSES / SCANN_TPU_PROCESS_ID) before any "
+                             "CUDA use")
     parser.add_argument("--exec-cache", type=str, nargs="?", const="auto", default=None,
-                        metavar="DIR", help="not ported yet")
+                        metavar="DIR",
+                        help="build the kernels into DIR (default {save_path}/exec_cache), "
+                             "or load them from there when an earlier run built them")
     parser.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                         help="write a torch.profiler Chrome trace of training to LOGDIR")
     args = parser.parse_args(argv)
-    for name in ("distributed", "exec_cache"):
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not ported to the PyTorch port yet")
+
+    # join the job before any CUDA use; the explicit flag overrides a
+    # launcher's SCANN_TPU_DISTRIBUTED=0
+    if args.distributed:
+        os.environ["SCANN_TPU_DISTRIBUTED"] = "1"
+    from scann_tpu_torch.parallel import initialize, make_mesh
+
+    initialize(backend="gloo" if args.device == "cpu" else None)
+    mesh = make_mesh()
+    device = args.device
+    if device == "cuda" and mesh.world > 1:
+        device = str(mesh.device)
 
     from scann_tpu_torch.api import Scann
     from scann_tpu_torch.config import load_config
@@ -78,8 +101,11 @@ def main(argv=None):
     config.hyper.pretrained = args.pretrained
     if args.structure_packing:
         config.tpu.structure_packing = True
+    if args.exec_cache:
+        config.tpu.exec_cache_dir = (os.path.join(config.hyper.save_path, "exec_cache")
+                                     if args.exec_cache == "auto" else args.exec_cache)
 
-    scann = Scann(config, pretrained=args.pretrained, device=args.device)
+    scann = Scann(config, pretrained=args.pretrained, device=device, mesh=mesh)
     print(f"Loading dataset for target {args.target}")
     scann.prepare_dataset()
     if args.mode == "train":

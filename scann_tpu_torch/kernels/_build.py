@@ -4,36 +4,43 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 nvcc compiles it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/scann_tpu_torch/lib<name>_<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/lib<name>_<hash>.so csrc/<name>.cu
 
-The build runs at first use, into ``build/scann_tpu_torch/`` beside the
-package, keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once. The hash covers the source
-and every header it includes (``philox.cuh``, ``scann_common.cuh``,
-``scann_grad_common.cuh``, ``scann_mma.cuh``, ``scann_forward_common.cuh``), so
-an edited header rebuilds every library that includes it. ``-Xptxas -v``
-makes the compiler report each kernel's registers and spills:
-``build_logs`` keeps what nvcc printed and ``kernel_resources`` reads it.
-``build_all`` starts one nvcc per source, all at once. ``SOURCES`` are the
-ports of the TPU kernels, ``PROBES`` the rate probes of
-``utils/roofline.py``. Nothing here is imported from or built at module
-import time, and nothing falls back: a failed build raises.
+The build runs at first use, keyed by a hash of the flags, the output of
+``nvcc --version`` and of the host compiler's ``--version`` (each read once
+a process), the source and every header it includes (``philox.cuh``,
+``scann_common.cuh``, ``scann_grad_common.cuh``, ``scann_mma.cuh``,
+``scann_forward_common.cuh``): an edited source or header or another
+toolchain rebuilds, an unchanged one loads at once. The libraries live in
+a build directory, the kernel build cache (``utils/exec_cache.py``,
+``ExecutableCache``): ``build/scann_tpu_torch/`` beside the package, or a
+per-user cache directory where that one cannot be written, or whatever
+``set_build_dir`` chose (``tpu.exec_cache_dir``,
+``Scann.enable_exec_cache``, ``--exec-cache``), so a second process loads
+what the first one built. ``-Xptxas -v`` makes the compiler report each
+kernel's registers and spills: the build keeps what nvcc printed beside
+the library (``<lib>.so.log``) and in ``build_logs``, and
+``kernel_resources`` reads it. ``build_all`` starts one nvcc per source,
+all at once. ``SOURCES`` are the ports of the TPU kernels, ``PROBES`` the
+rate probes of ``utils/roofline.py``. Nothing here is built at module
+import time, and nothing falls back: a failed build raises, and a library
+that fails to load is removed and rebuilt once, then raises.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
@@ -47,7 +54,7 @@ _ENTRY = re.compile(r"Compiling entry function '(\w+)'.*?Used (\d+) registers", 
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_cache = None       # the ExecutableCache that load_library and build_all go through
 build_logs: Dict[str, str] = {}   # name -> nvcc's output of the build made by this process
 
 
@@ -76,61 +83,133 @@ def source_files(name: str) -> List[str]:
     return seen
 
 
+@functools.lru_cache(maxsize=None)
+def tool_version(tool: str) -> str:
+    """What ``tool --version`` prints, read once a process ("<tool>: not
+    found" where there is no such program: the key still computes, and a
+    build would fail on its own)."""
+    try:
+        out = subprocess.run([tool, "--version"], capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return f"{tool}: not found"
+    return out.stdout + out.stderr
+
+
+def nvcc_version() -> str:
+    try:
+        return tool_version(nvcc_path())
+    except RuntimeError:
+        return "nvcc: not found"
+
+
+def host_compiler_version() -> str:
+    """The version of the host compiler nvcc runs (``NVCC_CCBIN``, which
+    nvcc reads too, else ``g++``)."""
+    return tool_version(os.environ.get("NVCC_CCBIN") or "g++")
+
+
+def _writable_dir(path: str) -> bool:
+    try:
+        os.makedirs(path, mode=0o700, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def user_cache_dir() -> str:
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(base, "scann_tpu_torch", "build")
+
+
+def default_build_dir() -> str:
+    """``build/scann_tpu_torch/`` beside the package where it can be written
+    (a checkout), else the per-user cache directory (an installed package)."""
+    return DEFAULT_BUILD_DIR if _writable_dir(DEFAULT_BUILD_DIR) else user_cache_dir()
+
+
+def cache():
+    """The kernel build cache this process builds into and loads from
+    (``default_build_dir()`` until ``set_build_dir``)."""
+    global _cache
+    with _lock:
+        if _cache is None:
+            from scann_tpu_torch.utils.exec_cache import ExecutableCache
+
+            _cache = ExecutableCache(default_build_dir())
+        return _cache
+
+
+def set_build_dir(path: str):
+    """Build into and load from ``path`` from now on, for the whole process
+    (libraries already loaded stay loaded); returns its ``ExecutableCache``.
+    Raises OSError where the directory cannot be created."""
+    global _cache
+    from scann_tpu_torch.utils.exec_cache import ExecutableCache
+
+    path = os.path.abspath(os.path.expanduser(path))
+    with _lock:
+        if _cache is None or _cache.cache_dir != path:
+            _cache = ExecutableCache(path)
+        return _cache
+
+
+def build_dir() -> str:
+    return cache().cache_dir
+
+
 def kernel_resources(name: str) -> List[Tuple[str, int, int, int]]:
     """(mangled kernel name, registers per thread, bytes of spill stores,
     bytes of spill loads) of every kernel of ``csrc/<name>.cu``, from what
-    ``ptxas -v`` printed when this process built it (empty if it did not)."""
+    ``ptxas -v`` printed when this process built it, else from the log kept
+    beside the cached library (empty if neither exists)."""
+    log = build_logs.get(name)
+    if log is None:
+        try:
+            with open(library_path(name) + ".log") as f:
+                log = f.read()
+        except OSError:
+            log = ""
     out = []
-    for m in _ENTRY.finditer(build_logs.get(name, "")):
+    for m in _ENTRY.finditer(log):
         spill = _SPILL.search(m.group(0))
         out.append((m.group(1), int(m.group(2)),
                     int(spill.group(1)) if spill else 0, int(spill.group(2)) if spill else 0))
     return out
 
 
-def library_path(name: str) -> str:
+def library_key(name: str) -> str:
+    """The hash of everything that changes the library of ``csrc/<name>.cu``."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(b"\0nvcc\0" + nvcc_version().encode())
+    digest.update(b"\0host\0" + host_compiler_version().encode())
     for path in source_files(name):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
 
 
-def _start(name: str) -> subprocess.Popen:
-    out = library_path(name)
+def library_path(name: str, directory: Optional[str] = None) -> str:
+    return os.path.join(directory or build_dir(), f"lib{name}_{library_key(name)}.so")
+
+
+def _start(name: str, out: str) -> subprocess.Popen:
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file beside ``out``
+    (``proc.scann_tmp``); the caller publishes it."""
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    proc.scann_paths = (tmp, out)  # type: ignore[attr-defined]
+    proc.scann_tmp = tmp  # type: ignore[attr-defined]
     return proc
 
 
 def build_all(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]:
     """Compile every missing library (every one with ``force``) in
-    parallel; returns name -> .so path."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {n: _start(n) for n in names
-             if force or not os.path.exists(library_path(n))}
-    errors = []
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        tmp, out = proc.scann_paths
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return {n: library_path(n) for n in names}
+    parallel, into the build cache; returns name -> .so path."""
+    return cache().build(tuple(names), force)
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = build_all([name])[name]
-            lib = _libs[name] = ctypes.CDLL(path)
-        return lib
+def load_library(name: str):
+    """The built library for ``csrc/<name>.cu`` (a ``ctypes.CDLL``),
+    through the build cache: building it if needed."""
+    return cache().get_or_compile(name)

@@ -368,26 +368,26 @@ launch_scann_backward.launches = 0
 
 def fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                      cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
-                     seed: int = 0) -> Dict[str, torch.Tensor]:
+                     seed: int = 0, mol_base: int = 0) -> Dict[str, torch.Tensor]:
     """Parameter gradients of (pred, ga) contracted with (ct_pred, ct_ga)
     (ct_pred [B, S] for a packed batch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
         return reference_fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga,
-                                          dropout_rate, seed)
+                                          dropout_rate, seed, mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, _ = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(ct_pred, device=dev),
                                     torch.as_tensor(ct_ga, device=dev), False, False,
-                                    dropout_rate, seed)
+                                    dropout_rate, seed, mol_base)
     return grads_from_flat(flat, packed, cfm)
 
 
 def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                             targets, cfm: ModelConfig, mrelu_head: bool = False,
-                            dropout_rate: float = 0.0, seed: int = 0
+                            dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-shot training: forward, residual and backward in one launch.
     Returns (pred [B, 1], raw gradients of 0.5 * sum((pred - t)^2)); the
@@ -397,13 +397,13 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
     dev = inputs["atomic"].device
     if dev.type == "cpu":
         return reference_fused_scann_train_grads(params, inputs, targets, cfm, mrelu_head,
-                                                 dropout_rate, seed)
+                                                 dropout_rate, seed, mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, pred = launch_scann_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
-                                       None, True, mrelu_head, dropout_rate, seed)
+                                       None, True, mrelu_head, dropout_rate, seed, mol_base)
     return pred.view(inputs["atomic"].shape[0], -1), grads_from_flat(flat, packed, cfm)
 
 

@@ -454,10 +454,11 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
 
 def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                         cfm: ModelConfig, mrelu_head: bool = False,
-                        dropout_rate: float = 0.0, seed: int = 0
+                        dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-model forward -> (property [B, 1], ga_score [B, M, 1]), f32;
-    the training forward at ``dropout_rate`` > 0 (masks keyed on ``seed``).
+    the training forward at ``dropout_rate`` > 0 (masks keyed on ``seed``
+    and on each molecule's global row, ``mol_base`` + its row here).
     A packed batch (``segment_onehot`` [B, M, S]) gives the property [B, S].
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
@@ -465,12 +466,13 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
     or launch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
-        return reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate, seed)
+        return reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate, seed,
+                                       mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     return launch_scann_forward(pack_params(params, cfm), inputs, cfm, mrelu_head,
-                                dropout_rate, seed)
+                                dropout_rate, seed, mol_base)
 
 
 fused_scann_forward.launches = 0

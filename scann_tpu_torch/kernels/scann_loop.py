@@ -273,8 +273,8 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
 
 def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                        cfm: ModelConfig, mrelu_head: bool = False,
-                       dropout_rate: float = 0.0, dropout_seed: Optional[int] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                       mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Crystal-scale whole-model forward -> (property [B, 1], ga_score
     [B, M, 1]), f32; the training forward at ``dropout_rate`` > 0 (masks
     keyed on ``dropout_seed``). A packed batch gives the property [B, S].
@@ -286,12 +286,12 @@ def loop_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.
     check_supported(cfm, M, N, segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_forward(params, inputs, cfm, mrelu_head, dropout_rate,
-                                      dropout_seed)
+                                      dropout_seed, mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     return launch_loop_forward(pack_params(params, cfm), inputs, cfm, mrelu_head,
-                               dropout_rate, dropout_seed or 0)
+                               dropout_rate, dropout_seed or 0, mol_base)
 
 
 def loop_forward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
@@ -534,7 +534,8 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) 
 
 def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                     cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                    dropout_seed: Optional[int] = None, mol_base: int = 0
+                    ) -> Dict[str, torch.Tensor]:
     """Parameter gradients of (pred, ga) contracted with (ct_pred [B] or
     [B, 1], ct_ga [B, M] or [B, M, 1]) through the loop backward kernel."""
     dev = inputs["atomic"].device
@@ -542,20 +543,21 @@ def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Ten
                              segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
-                                   dropout_seed)
+                                   dropout_seed, mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, _ = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(ct_pred, device=dev),
                                    torch.as_tensor(ct_ga, device=dev), False, False,
-                                   dropout_rate, dropout_seed or 0)
+                                   dropout_rate, dropout_seed or 0, mol_base)
     return kbwd.grads_from_flat(flat, packed, cfm)
 
 
 def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                            targets, cfm: ModelConfig, mrelu_head: bool = False,
-                           dropout_rate: float = 0.0, dropout_seed: Optional[int] = None
+                           dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                           mol_base: int = 0
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-shot crystal training: forward, residual and backward in one
     launch. Returns (pred [B, 1], raw gradients of 0.5 * sum((pred - t)^2));
@@ -565,13 +567,14 @@ def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, to
                              segment_count(inputs))
     if dev.type == "cpu":
         return reference_loop_train_grads(params, inputs, targets, cfm, mrelu_head,
-                                          dropout_rate, dropout_seed)
+                                          dropout_rate, dropout_seed, mol_base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     check_index_ranges(inputs, cfm)
     packed = pack_params(params, cfm)
     flat, pred = launch_loop_backward(packed, inputs, cfm, torch.as_tensor(targets, device=dev),
-                                      None, True, mrelu_head, dropout_rate, dropout_seed or 0)
+                                      None, True, mrelu_head, dropout_rate, dropout_seed or 0,
+                                      mol_base)
     return pred.view(inputs["atomic"].shape[0], -1), kbwd.grads_from_flat(flat, packed, cfm)
 
 

@@ -66,13 +66,16 @@ class BatchedPredictor:
 
     ``warmup_shapes`` lists (max_atoms, max_neighbors) shapes whose ladder
     rungs run once before the first request (default: the model's recorded
-    ``tpu.observed_buckets``; ``[]`` skips the warmup)."""
+    ``tpu.observed_buckets``; ``[]`` skips the warmup). ``exec_cache``
+    ("auto": ``{model_dir}/exec_cache``, or a directory) points the kernel
+    build cache there before the warmup (``Scann.enable_exec_cache``), so a
+    process started after one that built the kernels loads them instead."""
 
     def __init__(self, scann, max_batch: int = 64, window_ms: float = 5.0,
                  max_pending: int = 256, featurize_pool: int = 0,
                  owns_scann: bool = False, canonical_frame: bool = True,
                  warmup_shapes: Optional[List[Tuple[int, int]]] = None,
-                 overlap: bool = True):
+                 exec_cache: Optional[str] = None, overlap: bool = True):
         self.scann = scann
         self.max_batch = max_batch
         self.window_ms = window_ms
@@ -82,6 +85,8 @@ class BatchedPredictor:
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=max_pending)
         self._deferred: Optional[_Request] = None  # worker-thread only
         self._stop = threading.Event()
+        if exec_cache is not None:
+            scann.enable_exec_cache(None if exec_cache in ("", "auto") else exec_cache)
         if warmup_shapes is None:
             warmup_shapes = [tuple(s) for s in (scann.config.tpu.observed_buckets or [])]
         self.warmed = scann.warmup_serving(warmup_shapes) if warmup_shapes else []

@@ -1,4 +1,5 @@
-"""Training on one GPU (port of ``scann_tpu/train/loop.py``).
+"""Training on one GPU, or one rank of a data-parallel job (port of
+``scann_tpu/train/loop.py``).
 
 The reference recipe (``scann_model.py:42-319``): RMSE loss plus the Keras
 l2(1e-4) kernel penalties, Adam(b1=0.9, b2=0.999, eps=1e-7) with the
@@ -17,9 +18,10 @@ MAE, best-val checkpoints, a test report.
   molecule backward kernel (forward recompute, residual and every gradient)
   plus its row reduction where its gate passes (M <= 32 at D = 128); else
   "loop", ONE launch of the crystal loop backward kernel where its gate
-  passes (M <= 226 at N = 32, D = 128); else "per_layer", the per-layer
-  model under ``torch.autograd`` (one LocalAttention kernel launch per layer
-  going forward, the plain layer going back). All run at dropout 0.1 on the
+  passes (M <= 226 at N = 32, D = 128); else "per_layer", the plain model
+  under ``torch.autograd``, as the JAX Trainer trains its ``self.model``
+  (``loop.py:108-116``); the LocalAttention kernel is for eval, serving and
+  prediction. All run at dropout 0.1 on the
   same Philox masks; the raw gradients are scaled by 1 / (n * rmse) and the
   l2 gradient is added, as at ``loop.py:391-427``. A kernel that fails to
   build or launch raises: no route gives way to another at run time. On the
@@ -41,6 +43,20 @@ MAE, best-val checkpoints, a test report.
 - Checkpoints are ``torch.save`` files of params, Adam state, step, the
   run's meta (SGDR state included) and ``config.to_dict()``, loaded with
   ``weights_only=True``.
+- Data parallelism (``mesh``, a ``parallel.RankLayout``; by default
+  ``make_mesh()`` of the process group, one rank without one): every rank
+  holds the same buckets (digest-checked across ranks in
+  ``_put_buckets``), parameters and epoch plan; a "fused" or "loop" step
+  runs this rank's rows through its kernel (``kernels/sharded.py``, dropout
+  keyed on the global rows), gathers the predictions and sums the raw
+  gradients in rank order, so RMSE, MAE and the gradient scale come from
+  the whole batch and every rank applies the same update. The per-layer
+  route runs the whole batch on every rank. Eval and predict shard their
+  batches the same way. config.yaml, metrics.jsonl, report.txt,
+  hist_data.json and the checkpoints are written by rank 0 only.
+- Warm start: ``tpu.exec_cache_dir`` points the kernel build cache there
+  (``utils/exec_cache.py``); ``fit`` builds every kernel (or loads it from
+  the cache) before its first step, one nvcc each, all at once.
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ from scann_tpu_torch.data.pipeline import PackedBucket
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.kernels.sharded import eval_rows, train_rows
 from scann_tpu_torch.kernels.scann_backward import (
     fused_scann_train_grads,
     grads_from_flat,
@@ -78,6 +95,8 @@ from scann_tpu_torch.kernels.scann_loop import (
     loop_scann_train_grads,
 )
 from scann_tpu_torch.ops.attention import segment_ids
+from scann_tpu_torch.parallel.distributed import check_replicas_match, is_primary
+from scann_tpu_torch.parallel.mesh import RankLayout, make_mesh
 from scann_tpu_torch.models.scann import (
     check_index_ranges,
     init_params,
@@ -128,11 +147,19 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
 
 class Trainer:
     """Parameters, Adam state and the train / eval / predict loops of one
-    config on one device."""
+    config on one device: one rank of ``mesh``."""
 
-    def __init__(self, config: ScannConfig, device="cuda", workdir: Optional[str] = None):
+    def __init__(self, config: ScannConfig, device="cuda", workdir: Optional[str] = None,
+                 mesh: Optional[RankLayout] = None):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            config.tpu.mesh_shape[0] if config.tpu.mesh_shape else None)
+        self.exec_cache = None
+        if config.tpu.exec_cache_dir:
+            from scann_tpu_torch.kernels import _build
+
+            self.exec_cache = _build.set_build_dir(config.tpu.exec_cache_dir)
         self.mrelu_head = config.hyper.target == "e_b"
         self.workdir = workdir or "{}_{}".format(config.hyper.save_path, config.hyper.target)
         self.dropout_rate = TRAIN_DROPOUT
@@ -150,8 +177,9 @@ class Trainer:
     # --- parameters and optimizer state ---------------------------------------
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Take ``params`` (flat dict keyed like ``param_shapes``) with a
-        fresh Adam state at step 0."""
+        """Take a copy of ``params`` (flat dict keyed like ``param_shapes``)
+        with a fresh Adam state at step 0: the optimizer updates the copy in
+        place, never the caller's tensors."""
         want = param_shapes(self.config.model)
         if set(params) != set(want):
             raise ValueError(f"parameter keys do not match the config: "
@@ -160,7 +188,8 @@ class Trainer:
                if tuple(params[k].shape) != want[k]}
         if bad:
             raise ValueError(f"parameter shapes do not match the config (got, expected): {bad}")
-        self.params = {k: params[k].to(self.device, torch.float32).contiguous() for k in want}
+        self.params = {k: params[k].to(self.device, torch.float32, copy=True).contiguous()
+                       for k in want}
         self.mu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in self.params.items()}
         self.step = 0
@@ -240,7 +269,10 @@ class Trainer:
         """One Adam step on one batch; returns (loss, mae) as device scalars
         (the loss is RMSE + l2, as the JAX step reports it). For packed slots
         (y [B, S]) RMSE, MAE and the gradient scale count the valid segments
-        only (``segment_mask``), as ``loop.py:371-379`` does."""
+        only (``segment_mask``), as ``loop.py:371-379`` does. On a rank of a
+        data-parallel job ``raw_grads`` returns the whole batch's
+        predictions and gradients, so the sums of err^2, |err| and n are
+        global, and every rank applies the same update."""
         l2 = self.config.hyper.l2_reg
         pred, raw = self.raw_grads(batch, y, seed)
         if "segment_mask" in batch:
@@ -267,7 +299,7 @@ class Trainer:
         """Which backward a training batch of shape (M, N) at S segments a
         slot (0: unpacked) takes, from the kernels' gates alone: "fused"
         (the whole-model molecule backward), "loop" (the whole-model crystal
-        loop backward) or "per_layer" (the per-layer model under
+        loop backward) or "per_layer" (the plain model under
         ``torch.autograd``)."""
         cfm = self.config.model
         if kbwd.refusal(cfm, M, N, S) is None:
@@ -282,22 +314,35 @@ class Trainer:
         sum((pred - y)^2) over the valid segments) at the training dropout,
         by the route of ``train_route``: on CUDA one launch of the
         molecule or the loop backward kernel (the loop kernel's scratch is
-        kept per batch shape), or the per-layer model under autograd; on the
+        kept per batch shape), or the plain model under autograd; on the
         CPU the kernels' plain versions. Nothing is read back: ``fit``'s
         batches come from buckets whose index ranges ``_put_buckets``
         checked."""
+        M, N = batch["atomic"].shape[1], batch["neighbors"].shape[2]
+        route = self.train_route(M, N, segment_count(batch))
+        if route == "per_layer":
+            return self._per_layer_grads(batch, y, seed)
+        if self.mesh.world > 1:
+            return train_rows(self.mesh, lambda x, t, base: self._whole_model_grads(
+                route, x, t, seed, base), batch, y)
+        return self._whole_model_grads(route, batch, y, seed, 0)
+
+    def _whole_model_grads(self, route: str, batch: Dict[str, torch.Tensor], y: torch.Tensor,
+                           seed: int, mol_base: int
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``raw_grads`` of the "fused" or "loop" route on ``batch``, whose
+        first row is global row ``mol_base`` of the step's batch (the
+        dropout masks' key)."""
         cfm = self.config.model
         B, M = batch["atomic"].shape[:2]
         N = batch["neighbors"].shape[2]
         S = segment_count(batch)
-        route = self.train_route(M, N, S)
-        if route == "per_layer":
-            return self._per_layer_grads(batch, y, seed)
         if self.device.type == "cuda":
             packed = self.kernel_params()
             if route == "fused":
                 flat, pred = launch_scann_backward(packed, batch, cfm, y, None, True,
-                                                   self.mrelu_head, self.dropout_rate, seed)
+                                                   self.mrelu_head, self.dropout_rate, seed,
+                                                   mol_base)
             else:
                 scratch = self._loop_scratch.get((B, M, N))
                 if scratch is None:
@@ -305,18 +350,20 @@ class Trainer:
                         packed, cfm, B, M, N)
                 flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
                                                   self.mrelu_head, self.dropout_rate, seed,
-                                                  scratch=scratch)
+                                                  mol_base, scratch=scratch)
             return (pred.view(B, S) if S else pred), grads_from_flat(flat, packed, cfm)
         grads_fn = fused_scann_train_grads if route == "fused" else loop_scann_train_grads
-        pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed)
+        pred, raw = grads_fn(self.params, batch, y, cfm, self.mrelu_head, self.dropout_rate, seed,
+                             mol_base)
         return (pred if S else pred[:, 0]), raw
 
     def _per_layer_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The third route: the training forward of the per-layer model
-        (``scann_forward(use_pallas=True)``: on CUDA one LocalAttention
-        kernel launch per layer, whose backward recomputes the plain layer)
-        differentiated by ``torch.autograd``; the same residual (an empty
+        """The third route: the plain model's training forward
+        differentiated by ``torch.autograd``, which keeps each layer's
+        activations for the backward (the JAX Trainer's ``self.model``; the
+        LocalAttention kernel keeps nothing, so its backward would recompute
+        the plain layer after its forward); the same residual (an empty
         segment's zeroed) and the same dropout masks as the whole-model
         kernels."""
         cfm = self.config.model
@@ -324,7 +371,7 @@ class Trainer:
         packed = "segment_onehot" in batch
         with torch.enable_grad():
             leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks, use_pallas=True)
+            pred, _ = scann_forward(leaves, batch, cfm, self.mrelu_head, masks)
             err = (pred - y) * kbwd.segment_valid(batch) if packed else pred[:, 0] - y
             loss = 0.5 * (err ** 2).sum()
             grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -371,8 +418,11 @@ class Trainer:
         anything back); the entry keeps the bucket alive so its id() cannot
         be reused by another one. A packed bucket also gets its
         ``segment_ids`` [slots, M], computed on the device from the one-hot.
-        Buckets of ``tag`` not in ``buckets`` are dropped, and with them the
-        loop scratch of shapes no live bucket has."""
+        On a rank of a data-parallel job each bucket's host copy is first
+        checked against every other rank's (a crc32 digest each,
+        ``parallel.check_replicas_match``). Buckets of ``tag`` not in
+        ``buckets`` are dropped, and with them the loop scratch of shapes no
+        live bucket has."""
         live = {(tag, id(b)) for b in buckets}
         for key in [k for k in self._device_buckets if k[0] == tag and k not in live]:
             del self._device_buckets[key]
@@ -380,6 +430,8 @@ class Trainer:
         for b in buckets:
             key = (tag, id(b))
             if key not in self._device_buckets:
+                check_replicas_match({"inputs": b.inputs, "targets": b.targets},
+                                     what=f"{tag} bucket")
                 check_index_ranges(b.inputs, self.config.model)
                 inputs = _to_device(b.inputs, self.device)
                 if "segment_onehot" in inputs:
@@ -413,7 +465,10 @@ class Trainer:
         n_train = sum(b.num_structures for b in train_buckets)
         n_rows = sum(len(b.targets) for b in train_buckets)
         if n_train > n_rows and self.config.tpu.pack_preserve_batch:
-            bs = packed_slot_batch(hyper.batch_size, n_rows, n_train)
+            bs = packed_slot_batch(hyper.batch_size, n_rows, n_train, self.mesh.world)
+        if bs % self.mesh.world:
+            raise ValueError(f"batch of {bs} rows does not split over {self.mesh.world} ranks: "
+                             "hyper.batch_size must be a multiple of the world size")
         self._slot_batch = bs
         steps_per_epoch = sum(-(-len(b.targets) // bs) for b in train_buckets)
         sgdr = None
@@ -426,11 +481,17 @@ class Trainer:
             self.init_state(hyper.seed)
         dev_train = self._put_buckets(train_buckets, "train")
         dev_valid = self._put_buckets(valid_buckets, "valid")
+        if self.device.type == "cuda":
+            from scann_tpu_torch.kernels import _build
 
-        os.makedirs(self.workdir, exist_ok=True)
+            _build.build_all()
+
         self.config.tpu.observed_buckets = [
             list(s) for s in sorted({b.shape for b in list(train_buckets) + list(valid_buckets)})]
-        save_config(self.config, os.path.join(self.workdir, "config.yaml"))
+        primary = is_primary()
+        if primary:  # exactly-once artifacts of a multi-process run
+            os.makedirs(self.workdir, exist_ok=True)
+            save_config(self.config, os.path.join(self.workdir, "config.yaml"))
 
         history = {"loss": [], "mae": [], "val_mae": [], "val_r2": [], "lr": [],
                    "epoch_time": []}
@@ -477,18 +538,21 @@ class Trainer:
             rec = {"epoch": epoch, "loss": train_loss, "mae": train_mae, "val_mae": val_mae,
                    "val_r2": val_r2, "lr": lr_now, "time_s": round(dt, 3),
                    "structures_per_sec": round(n_train / dt, 1)}
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+            if primary:
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
             log_fn(f"epoch {epoch}: loss {train_loss:.5f} mae {train_mae:.5f} "
                    f"val_mae {val_mae:.5f} val_r2 {val_r2:.4f} lr {lr_now:.2e} "
                    f"({rec['structures_per_sec']:.0f} structs/s)")
             if val_mae < best_val:
                 best_val, best_epoch = val_mae, epoch
-                self.save_checkpoint("best")
+                if primary:
+                    self.save_checkpoint("best")
             meta = {"epoch": epoch, "best_val": best_val, "best_epoch": best_epoch}
             if sgdr:
                 meta.update(sgdr.state_dict())
-            self.save_checkpoint("last", meta=meta)
+            if primary:
+                self.save_checkpoint("last", meta=meta)
             if epoch - best_epoch >= hyper.patience:
                 log_fn(f"early stopping at epoch {epoch} "
                        f"(no val_mae improvement for {hyper.patience} epochs)")
@@ -502,15 +566,27 @@ class Trainer:
                       batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pred [n_rows], or [n_rows, S] for packed slots; ga [n_rows, M])
         of a device bucket, in batches of ``batch_size`` rows with the last
-        one wrap-padded."""
+        one wrap-padded; on a rank of a data-parallel job each batch is
+        sharded (``eval_batch``)."""
         packed = "segment_onehot" in binputs
         preds, gas = [], []
         for s0 in range(0, n_rows, batch_size):
             idx = torch.arange(s0, s0 + batch_size, device=self.device) % n_rows
-            pred, ga = self.forward_eval(self.params, {k: v[idx] for k, v in binputs.items()})
+            pred, ga = self.eval_batch({k: v[idx] for k, v in binputs.items()})
             preds.append(pred if packed else pred[:, 0])
             gas.append(ga[..., 0])
         return torch.cat(preds)[:n_rows], torch.cat(gas)[:n_rows]
+
+    def eval_batch(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward_eval`` of the current parameters on one batch of the
+        Trainer's own eval and predict; on a rank of a data-parallel job
+        this rank's rows of a whole-model route, gathered in rank order (the
+        per-layer route runs the whole batch on every rank)."""
+        M, N = batch["atomic"].shape[1], batch["neighbors"].shape[2]
+        if self.mesh.world == 1 or self.eval_route(M, N, segment_count(batch)) == "per_layer":
+            return self.forward_eval(self.params, batch)
+        with torch.inference_mode():
+            return eval_rows(self.mesh, lambda x: self.forward_eval(self.params, x), batch)
 
     def _evaluate_buckets(self, buckets: List[PackedBucket], dev_buckets):
         """(mae, r2, pred, y) over the buckets' structures: for packed slots
@@ -534,7 +610,7 @@ class Trainer:
         mae, r2, pred, y = self._evaluate_buckets(test_buckets, dev)
         std, mean = self.config.hyper.target_std, self.config.hyper.target_mean
         result = {"test_mae": mae * std, "test_r2": r2, "target": self.config.hyper.target}
-        if report:
+        if report and is_primary():
             os.makedirs(self.workdir, exist_ok=True)
             with open(os.path.join(self.workdir, "report.txt"), "w") as f:
                 if self.history:

@@ -236,10 +236,12 @@ def measure_device_rates(use_cache: bool = True, scale: int = 1,
     ``hbm_gbps`` (bytes read + written per second), and the
     ``power_limit_w`` and ``sm_clock_mhz`` that ``nvidia-smi`` read beside
     the run (None on the CPU). Cached in ~/.cache/scann_tpu_torch/
-    roofline.json under the card's name and power limit (``use_cache=False``
-    measures anew and rewrites the entry). ``scale`` divides the chain
-    depths; ``device="cpu"`` runs the chains as small torch loops (use
-    ``scale=64``), which checks the plumbing and bounds nothing.
+    roofline.json under the card's name, power limit and ``scale``
+    (``use_cache=False`` measures anew and rewrites the entry). ``scale``
+    divides the chain depths; ``device="cpu"`` runs the chains as small
+    torch loops (use ``scale=64``), which checks the plumbing and bounds
+    nothing. A scaled run is kept under its own key, so a default call
+    (and ``step_ceiling(rates=None)``) never reads it as the card's rates.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -251,7 +253,7 @@ def measure_device_rates(use_cache: bool = True, scale: int = 1,
         power = _float(smi[0]) if smi else None
     else:
         kind, power = "cpu", None
-    key = f"{kind}|{power}"
+    key = f"{kind}|{power}" + (f"|scale={scale}" if scale != 1 else "")
     if use_cache:
         try:
             with open(_CACHE_PATH) as f:

@@ -135,6 +135,17 @@ def test_torch_measure_device_rates_runs_on_the_cpu(tmp_path, monkeypatch):
     assert rates["power_limit_w"] is None and rates["sm_clock_mhz"] is None
     for key in ("exp_per_s", "elem_per_s", "fp32_tflops", "tf32_tflops", "hbm_gbps"):
         assert np.isfinite(rates[key]) and rates[key] > 0, key
-    # the second call reads the cache, keyed by name and power limit
-    assert roofline.measure_device_rates(use_cache=True, device="cpu") == rates
-    assert "cpu|None" in open(tmp_path / "roofline.json").read()
+    # a second call at the same scale reads the cache, keyed by name, power
+    # limit and scale
+    assert roofline.measure_device_rates(use_cache=True, scale=64, device="cpu") == rates
+    assert "cpu|None|scale=64" in open(tmp_path / "roofline.json").read()
+    # a default (scale 1) call never takes the scaled plumbing run as the
+    # device's rates (step_ceiling(rates=None) makes such a call): it measures
+    full = dict(rates, exp_per_s=1.0, tf32_tflops=1.0)
+    full.pop("device_kind"), full.pop("power_limit_w")
+    seen = []
+    monkeypatch.setattr(roofline, "_cpu_rates", lambda scale: seen.append(scale) or dict(full))
+    assert roofline.measure_device_rates(use_cache=True, device="cpu")["exp_per_s"] == 1.0
+    assert roofline.measure_device_rates(use_cache=True, device="cpu")["exp_per_s"] == 1.0
+    assert seen == [1]
+    assert roofline.measure_device_rates(use_cache=True, scale=64, device="cpu") == rates

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it (and its API, training,
-serving, dataset builders and CLI modules) in a fresh interpreter loads
+serving, dataset builders, CLI, build-cache and data-parallel modules) in a
+fresh interpreter loads
 neither JAX nor any module of the JAX package ``scann_tpu``, and needs
 neither yaml nor h5py."""
 
@@ -39,7 +40,9 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
         "import scann_tpu_torch.utils.roofline, scann_tpu_torch.utils.profiling\n"
         "import scann_tpu_torch.data.native, scann_tpu_torch.data.native_voronoi\n"
         "import scann_tpu_torch.data.builders, scann_tpu_torch.cli.preprocess\n"
-        "import scann_tpu_torch.cli.export")
+        "import scann_tpu_torch.cli.export, scann_tpu_torch.utils.exec_cache\n"
+        "import scann_tpu_torch.parallel, scann_tpu_torch.parallel.distributed\n"
+        "import scann_tpu_torch.parallel.mesh, scann_tpu_torch.kernels.sharded")
     assert "scann_tpu_torch.train.loop" in mods
     assert "scann_tpu_torch.utils.roofline" in mods
     assert "scann_tpu_torch.data.native_voronoi" in mods
@@ -49,6 +52,9 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
     assert "scann_tpu_torch.kernels._build" in mods
     assert "scann_tpu_torch.data.builders.trajectories" in mods
     assert "scann_tpu_torch.cli.export" in mods
+    for mod in ("utils.exec_cache", "parallel", "parallel.distributed", "parallel.mesh",
+                "kernels.sharded"):
+        assert f"scann_tpu_torch.{mod}" in mods
     leaked = [m for m in mods
               if m in ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py")
               or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "orbax."))

@@ -1,6 +1,7 @@
 """The PyTorch port's training path on the CPU: schedules and a 20-step
 loss trajectory against the JAX package, a crystal trajectory by the loop
-route and by the per-layer route against the JAX loop-kernel step, exact
+route and by the per-layer route against the JAX loop-kernel step, the
+per-layer step on the plain model (as the JAX Trainer trains), exact
 resume, the parameter version that keeps the kernels' weight layout fresh,
 yaml-free configs and checkpoints, and the two training CLIs."""
 
@@ -109,6 +110,54 @@ def test_torch_training_trajectory_matches_jax_step(rng):
         for k, r in ref.items():
             torch.testing.assert_close(mine[k], r, rtol=0,
                                        atol=1e-4 * float(r.abs().max()), msg=k)
+
+
+def test_torch_per_layer_step_trains_the_plain_model_as_jax_does(rng, monkeypatch):
+    """The per-layer route trains the plain model under autograd, as the JAX
+    Trainer trains its ``self.model`` (``use_pallas`` off): the step never
+    asks for the per-layer model and never reaches the LocalAttention
+    kernel's wrapper (patched here to raise). Its raw gradients equal
+    ``jax.grad`` of the JAX model's 0.5 * sum((pred - y)^2), and one Adam step
+    the JAX step, each tensor within 1e-4 x its max, the loss to 1e-4."""
+    from scann_tpu_torch.models import scann as tmodels
+
+    def refuse(*a, **k):
+        raise AssertionError("a per-layer training step reached the LocalAttention kernel")
+
+    monkeypatch.setattr(tmodels, "fused_local_attention", refuse)
+    asked, forward = [], loop.scann_forward
+    monkeypatch.setattr(loop, "scann_forward", lambda *a, **k: asked.append(
+        k.get("use_pallas", False)) or forward(*a, **k))
+    monkeypatch.setattr(loop.kbwd, "refusal", lambda *a, **k: "shut for this test")
+    monkeypatch.setattr(loop.kloop, "backward_refusal", lambda *a, **k: "shut for this test")
+    jcfg, tcfg = JaxModelConfig(**SMALL), ModelConfig(**SMALL)
+    batch = make_synthetic_batch(rng, B=6, M=12, N=6)
+    y = np.linspace(-1.0, 1.0, 6).astype(np.float32)
+    model = JaxScannModel(config=jcfg)
+    jparams = jit_init_vars(model, jax.random.PRNGKey(0), batch)["params"]
+    trainer = loop.Trainer(ScannConfig(model=tcfg, hyper=HyperConfig(batch_size=6)), "cpu")
+    trainer.load_params(params_from_jax(jax.device_get(jparams), tcfg))
+    trainer.dropout_rate = 0.0
+    assert trainer.train_route(12, 6) == "per_layer"
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+    _, raw = trainer.raw_grads(tb, torch.from_numpy(y), seed=0)
+    pred_of = lambda p: model.apply({"params": p}, batch, deterministic=True)["property"][:, 0]
+    want = jax.grad(lambda p: 0.5 * jnp.sum((pred_of(p) - y) ** 2))(jparams)
+    for k, r in params_from_jax(jax.device_get(want), tcfg).items():
+        torch.testing.assert_close(raw[k], r, rtol=0, atol=1e-4 * float(r.abs().max()), msg=k)
+
+    tx = optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-7)
+    loss_fn = lambda p: jnp.sqrt(jnp.mean((pred_of(p) - y) ** 2)) + jax_l2_penalty(p, 1e-4)
+    jloss, g = jax.value_and_grad(loss_fn)(jparams)
+    upd, _ = tx.update(g, tx.init(jparams), jparams)
+    jparams = optax.apply_updates(jparams, jax.tree.map(lambda u: -5e-4 * u, upd))
+    loss, _ = trainer.train_step(tb, torch.from_numpy(y), 5e-4, seed=0)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-4)
+    for k, r in params_from_jax(jax.device_get(jparams), tcfg).items():
+        torch.testing.assert_close(trainer.params[k], r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=k)
+    assert asked == [False, False]
 
 
 CRYSTAL_STEPS, CRYSTAL_BATCH = 6, 4
@@ -291,7 +340,7 @@ def test_torch_config_and_checkpoints_need_no_yaml(tmp_path, monkeypatch):
                                   s.predict_data(s.test_buckets))
 
 
-def test_torch_train_and_predict_model_clis(tmp_path, capsys):
+def test_torch_train_and_predict_model_clis(tmp_path, monkeypatch):
     from scann_tpu_torch.cli import predict_model, train
 
     cfg = _config(tmp_path, n=24, epochs=1)
@@ -305,9 +354,14 @@ def test_torch_train_and_predict_model_clis(tmp_path, capsys):
 
     out = pickle.load(open(os.path.join(run, "energy_pre_homo.pickle"), "rb"))
     assert out["prediction"].shape == out["target"].shape == (24,)
-    with pytest.raises(SystemExit):
+    # --distributed joins a job before any device use; with no job described
+    # (no coordinator, torchrun or SCANN_TPU_* variables) it says what is missing
+    for var in ("SCANN_TPU_COORDINATOR", "SCANN_TPU_NUM_PROCESSES", "SCANN_TPU_PROCESS_ID",
+                "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("SCANN_TPU_DISTRIBUTED", "0")     # the CLI sets it; undone after
+    with pytest.raises(ValueError, match="coordinator address"):
         train.main(["homo", str(path), "--distributed", "--device", "cpu"])
-    assert "not ported" in capsys.readouterr().err
 
 
 def test_torch_fit_refuses_a_bucket_with_an_out_of_range_neighbour(tmp_path):
