@@ -138,9 +138,15 @@ layers); random weights from seeds:
    sharded eval batch of each (#1, #3). Losses, every weight, predictions
    and GA scores must equal, bit for bit, one process running the same
    shards in rank order (and each other), and the whole-batch run within
-   1e-4 (of each tensor's max; losses relative). Rank 0 then serves one
-   QM9 request through ``BatchedPredictor(exec_cache=<that directory>)``
-   with no build. Prints the phase's wall time.
+   1e-4 (of each tensor's max; losses relative). The ranks' steps go
+   through the ``make_sharded_*_train`` wrappers and their loop eval
+   through ``make_sharded_loop_forward``; after the counted work each rank
+   also calls ``make_sharded_scann_apply`` and ``make_sharded_loop_apply``
+   on the eval batches at dropout 0.1 and differentiates them, held bit for
+   bit to the shards' forwards and gradients in rank order. A third,
+   fresh process then serves one QM9 request through
+   ``BatchedPredictor(exec_cache=<that directory>)``: it must load its
+   kernel from the disk and build nothing. Prints the phase's wall time.
 
 Phases 5, 8 and 10 featurize through the native Voronoi path and pack
 through the native packer (``native/packer.cc``), both built with g++ at
@@ -2105,25 +2111,36 @@ def _run_shard_steps(trainer, steps, eval_batch, dev):
             "pred": pred.cpu(), "ga": ga.cpu()}, first
 
 
+APPLY_SEED = 7
+
+
+def _apply_cotangents(spec, name):
+    """The fixed cotangents phase 13 contracts the ``make_sharded_*_apply``
+    outputs with (pred [B, 1], ga [B, M, 1] of ``spec``'s eval batch)."""
+    B, M = spec[f"{name}_eval"]["atomic"].shape[:2]
+    g = torch.Generator().manual_seed(17)
+    return torch.randn(B, 1, generator=g), torch.randn(B, M, 1, generator=g)
+
+
 def phase13_rank(rank, world, coordinator, spec_path, out_path, t_spawn):
     """One rank of phase 13 (``python3 chip_smoke.py --phase13-rank ...``):
     joins the gloo group, takes its kernels from the build cache the parent
     filled, runs the QM9 and MP2018 steps and eval batches as one rank of
-    the Trainer's data parallelism, and writes what it got; rank 0 then
-    serves one QM9 request through ``BatchedPredictor(exec_cache=...)``."""
+    the Trainer's data parallelism (its sharded steps are the
+    ``make_sharded_*_train`` wrappers, its loop eval
+    ``make_sharded_loop_forward``), counts the launches, then calls the two
+    ``make_sharded_*_apply`` wrappers on the eval batches at dropout 0.1
+    and differentiates them, and writes what it got."""
     import torch.distributed as dist
 
-    from scann_tpu_torch.api import Scann
     from scann_tpu_torch.config import HyperConfig, ModelConfig, ScannConfig
-    from scann_tpu_torch.data.structure import Structure
-    from scann_tpu_torch.kernels import _build
+    from scann_tpu_torch.kernels import _build, sharded
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.parallel import check_replicas_match, initialize, make_mesh
-    from scann_tpu_torch.serve import BatchedPredictor
-    from scann_tpu_torch.train.loop import Trainer
+    from scann_tpu_torch.train.loop import Trainer, _to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     assert initialize(coordinator, world, rank, backend="gloo")
@@ -2140,40 +2157,94 @@ def phase13_rank(rank, world, coordinator, spec_path, out_path, t_spawn):
         cfg = ScannConfig(model=ModelConfig(**spec[f"{name}_model"]),
                           hyper=HyperConfig(batch_size=bs))
         t = Trainer(cfg, dev, os.path.join(spec["work"], f"rank{rank}"), mesh=make_mesh())
-        assert t.mesh.world == world and t.mesh.rank == rank
+        assert t.mesh.world == world and t.mesh.rank == rank and t._sharded_train
         t.load_params(spec[f"{name}_params"])
         out[name], t_first = _run_shard_steps(t, spec[f"{name}_steps"], spec[f"{name}_eval"],
                                               dev)
         first = first or t_first
     out["launches"] = [c.launches for c in counters]
     out["first_step_s"] = first - t_spawn
+    mesh = make_mesh()
+    for name, kind in (("qm9", "scann"), ("mp", "loop")):
+        cfm = ModelConfig(**spec[f"{name}_model"])
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in spec[f"{name}_params"].items()}
+        apply = getattr(sharded, f"make_sharded_{kind}_apply")(mesh, cfm, False, 0.1)
+        pred, ga = apply(leaves, _to_device(spec[f"{name}_eval"], dev), APPLY_SEED)
+        ct_pred, ct_ga = (c.to(dev) for c in _apply_cotangents(spec, name))
+        grads = torch.autograd.grad((pred * ct_pred).sum() + (ga * ct_ga).sum(),
+                                    list(leaves.values()))
+        out[f"{name}_apply"] = {"pred": pred.detach().cpu(), "ga": ga.detach().cpu(),
+                                "params": {k: g.cpu() for k, g in zip(leaves, grads)}}
     out["stats"] = dict(cache.stats)
     dist.barrier()
     dist.destroy_process_group()
     if cache.stats["compiles"]:
         raise RuntimeError(f"rank {rank} built {cache.stats['compiles']} kernels: no warm start")
-    if rank == 0:
-        cfg = ScannConfig(model=ModelConfig(**spec["qm9_model"]),
-                          hyper=HyperConfig(batch_size=128, target="homo",
-                                            target_mean=-0.24, target_std=0.022))
-        scann = Scann(cfg, device=dev, workdir=os.path.join(spec["work"], "serve"))
-        scann.trainer.load_params(spec["qm9_params"])
-        t1 = time.perf_counter()
-        predictor = BatchedPredictor(scann, window_ms=0.0, warmup_shapes=[],
-                                     exec_cache=spec["cache_dir"])
-        try:
-            t2 = time.perf_counter()
-            (value, ga), = predictor.predict([Structure(*MOLECULES["water"])])
-            t3 = time.perf_counter()
-        finally:
-            predictor.close()
-        out["serve"] = {"predictor_ms": 1e3 * (t2 - t1), "first_request_ms": 1e3 * (t3 - t2),
-                        "finite": bool(np.isfinite(value) and np.isfinite(ga).all()),
-                        "stats": dict(scann.exec_cache.stats)}
-        if scann.exec_cache.stats["compiles"]:
-            raise RuntimeError("the served first request built a kernel: no warm start")
     torch.save(out, out_path)
     return 0
+
+
+def phase13_serve(spec_path, out_path, t_spawn):
+    """Phase 13's served request (``python3 chip_smoke.py --phase13-serve
+    ...``): a fresh process, with its own build cache on the directory the
+    parent filled, serves one QM9 request through
+    ``BatchedPredictor(exec_cache=<that directory>)``; it must load its
+    kernel from the disk and build nothing."""
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ModelConfig, ScannConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.serve import BatchedPredictor
+
+    spec = torch.load(spec_path, weights_only=True)
+    dev = torch.device(spec["device"])
+    cfg = ScannConfig(model=ModelConfig(**spec["qm9_model"]),
+                      hyper=HyperConfig(batch_size=128, target="homo",
+                                        target_mean=-0.24, target_std=0.022))
+    scann = Scann(cfg, device=dev, workdir=os.path.join(spec["work"], "serve"))
+    scann.trainer.load_params(spec["qm9_params"])
+    t1 = time.perf_counter()
+    predictor = BatchedPredictor(scann, window_ms=0.0, warmup_shapes=[],
+                                 exec_cache=spec["cache_dir"])
+    try:
+        t2 = time.perf_counter()
+        (value, ga), = predictor.predict([Structure(*MOLECULES["water"])])
+        t3 = time.perf_counter()
+        start_to_answer = time.time() - t_spawn
+    finally:
+        predictor.close()
+    stats = dict(scann.exec_cache.stats)
+    torch.save({"predictor_ms": 1e3 * (t2 - t1), "first_request_ms": 1e3 * (t3 - t2),
+                "start_to_answer_s": start_to_answer,
+                "finite": bool(np.isfinite(value) and np.isfinite(ga).all()),
+                "stats": stats}, out_path)
+    if stats["compiles"] or (dev.type == "cuda" and not stats["disk_hits"]):
+        raise RuntimeError(f"the served first request did not load its kernel from the cache "
+                           f"without a build: {stats}")
+    return 0
+
+
+def _spawn(args, env, cwd, timeout):
+    """Start ``chip_smoke.py args`` for each entry of ``args`` at once, wait
+    for all (each killed after ``timeout`` s); returns (return codes, logs)."""
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, here, *a], env=env, cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a in args]
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            try:
+                logs[r], _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs[r], _ = p.communicate()
+                logs[r] += f"\n(timed out after {timeout} s)"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [p.returncode for p in procs], logs
 
 
 def _ordered_shards(trainer, world):
@@ -2269,36 +2340,25 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
     outs = [os.path.join(work, f"rank{r}.pt") for r in range(2)]
+    serve_out = os.path.join(work, "serve.pt")
+    cwd = os.path.dirname(os.path.abspath(__file__))
     t_spawn = time.time()
-    here = os.path.abspath(__file__)
-    procs = [subprocess.Popen([sys.executable, here, "--phase13-rank", str(r), "2",
-                               f"127.0.0.1:{port}", spec_path, outs[r], repr(t_spawn)],
-                              env=env, cwd=os.path.dirname(here), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    logs = {}
-    try:
-        for r, p in enumerate(procs):
-            try:
-                logs[r], _ = p.communicate(timeout=300)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                logs[r], _ = p.communicate()
-                logs[r] += "\n(timed out after 300 s)"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    rcs, logs = _spawn([["--phase13-rank", str(r), "2", f"127.0.0.1:{port}", spec_path,
+                         outs[r], repr(t_spawn)] for r in range(2)], env, cwd, 300)
     ranks_s = time.time() - t_spawn
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    t_serve = time.time()
+    serve_rc, serve_log = _spawn([["--phase13-serve", spec_path, serve_out, repr(t_serve)]],
+                                 env, cwd, 300)
+    serve_s = time.time() - t_serve
+    bad = [(f"rank {r}", rc, logs[r]) for r, rc in enumerate(rcs) if rc != 0]
+    bad += [("the serving process", serve_rc[0], serve_log[0])] if serve_rc[0] != 0 else []
     if bad:
-        for r in bad:
-            print(f"phase 13 rank {r} failed (exit {procs[r].returncode}):\n{logs[r][-6000:]}",
-                  flush=True)
-        failures.append(f"phase 13: ranks {bad} failed")
+        for who, rc, log in bad:
+            print(f"phase 13: {who} failed (exit {rc}):\n{log[-6000:]}", flush=True)
+        failures.append(f"phase 13: {[who for who, _, _ in bad]} failed")
         return None
     got = [torch.load(o, weights_only=True) for o in outs]
+    serve = torch.load(serve_out, weights_only=True)
 
     # the references in this process: the same shards in rank order, and the
     # whole batch
@@ -2313,24 +2373,47 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
             ref[how, name], _ = _run_shard_steps(t, spec[f"{name}_steps"], spec[f"{name}_eval"],
                                                  t.device)
 
+    # the two make_sharded_*_apply wrappers: each shard's forward and
+    # gradient by the JAX-signature functions, in rank order, summed from rank 0
+    from scann_tpu_torch.kernels import sharded
+    from scann_tpu_torch.train.loop import _to_device
+
+    for name, cfm, fn in (("qm9", qm9_model, "fused_scann"), ("mp", mp2018, "loop_scann")):
+        x = _to_device(spec[f"{name}_eval"], device)
+        cts = [c.to(device) for c in _apply_cotangents(spec, name)]
+        params = {k: v.to(device) for k, v in spec[f"{name}_params"].items()}
+        preds, gas, total = [], [], None
+        for r in range(2):
+            rows, xr = sharded.local_rows(RankLayout(2, r, torch.device(device)), x)
+            p, ga = getattr(sharded, f"{fn}_forward")(params, xr, cfm, False, 0.1, APPLY_SEED,
+                                                      mol_base=rows.start)
+            g = getattr(sharded, f"{fn}_grad")(params, xr, cfm, cts[0][rows], cts[1][rows], 0.1,
+                                               APPLY_SEED, mol_base=rows.start)
+            preds.append(p)
+            gas.append(ga)
+            total = g if total is None else {k: total[k] + g[k] for k in total}
+        ref["ordered", f"{name}_apply"] = {"pred": torch.cat(preds).cpu(),
+                                           "ga": torch.cat(gas).cpu(),
+                                           "params": {k: v.cpu() for k, v in total.items()}}
+
     def flat(out):
         return {f"{what} {k}": v for what, d in out.items()
                 for k, v in list(d.items()) + list(d["params"].items()) if k != "params"}
 
-    mine, other = flat({n: got[0][n] for n in ("qm9", "mp")}), flat({n: got[1][n] for n in
-                                                                       ("qm9", "mp")})
-    ordered = flat({n: ref["ordered", n] for n in ("qm9", "mp")})
+    kinds = ("qm9", "mp", "qm9_apply", "mp_apply")
+    mine, other = flat({n: got[0][n] for n in kinds}), flat({n: got[1][n] for n in kinds})
+    ordered = flat({n: ref["ordered", n] for n in kinds})
     whole = flat({n: ref["whole", n] for n in ("qm9", "mp")})
     unequal = [k for k in mine if not (torch.equal(mine[k], ordered[k])
                                        and torch.equal(mine[k], other[k]))]
+    n_apply = sum(1 for k in mine if "_apply " in k)
     worst_l = max(float(((mine[k] - whole[k]).abs() / whole[k].abs()).max())
-                  for k in mine if k.endswith(" losses"))
+                  for k in whole if k.endswith(" losses"))
     worst_w = max(float((mine[k] - whole[k]).abs().max()) / max(float(whole[k].abs().max()), 1e-30)
-                  for k in mine if not k.endswith(" losses"))
+                  for k in whole if not k.endswith(" losses"))
     names = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
              "local_attention")
     launches = {n: [g["launches"][i] for g in got] for i, n in enumerate(names)}
-    serve = got[0]["serve"]
     wall = time.time() - t0
     print(f"phase 13: 2 ranks on {device} over gloo, kernels from the build cache "
           f"{os.path.relpath(cache_dir)}: builds {[g['stats']['compiles'] for g in got]}, "
@@ -2339,19 +2422,23 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
           f"a rank {launches}  [{card}]", flush=True)
     print(f"phase 13: QM9 losses {got[0]['qm9']['losses'].tolist()}, MP2018 losses "
           f"{got[0]['mp']['losses'].tolist()}; {len(mine) - len(unequal)} of {len(mine)} "
-          f"tensors (losses, predictions, GA scores, every weight of both models) "
-          f"bit-identical to one process running the shards in rank order and between the "
-          f"ranks{'' if not unequal else ', unequal: ' + str(unequal)}; "
+          f"tensors (losses, predictions, GA scores, every weight of both models, and the "
+          f"outputs and {n_apply - 4} gradients of make_sharded_scann_apply and "
+          f"make_sharded_loop_apply) bit-identical to one process running the shards in rank "
+          f"order and between the ranks{'' if not unequal else ', unequal: ' + str(unequal)}; "
           f"against the whole batch: weights, predictions and GA scores within "
           f"{worst_w:.3e} x max (limit 1e-4), losses {worst_l:.3e} relative (limit 1e-4)  "
           f"[{card}]", flush=True)
-    print(f"phase 13: rank 0 served one QM9 request through BatchedPredictor(exec_cache=...): "
-          f"predictor ready in {serve['predictor_ms']:.1f} ms, first request "
-          f"{serve['first_request_ms']:.1f} ms, builds {serve['stats']['compiles']}; ranks ran "
-          f"{ranks_s:.1f} s, the phase {wall:.1f} s  [{card}]", flush=True)
+    print(f"phase 13: a fresh process served one QM9 request through "
+          f"BatchedPredictor(exec_cache=...): from process start to the answer "
+          f"{serve['start_to_answer_s']:.3f} s, predictor ready in {serve['predictor_ms']:.1f} "
+          f"ms, first request {serve['first_request_ms']:.1f} ms (its kernel loaded from disk), "
+          f"builds {serve['stats']['compiles']}, loads from disk {serve['stats']['disk_hits']}; "
+          f"the ranks ran {ranks_s:.1f} s, the serving process {serve_s:.1f} s, the phase "
+          f"{wall:.1f} s  [{card}]", flush=True)
     if (unequal or not worst_w <= 1e-4 or not worst_l <= 1e-4
             or any(g["stats"]["compiles"] for g in got) or serve["stats"]["compiles"]
-            or not serve["finite"]
+            or (device != "cpu" and not serve["stats"]["disk_hits"]) or not serve["finite"]
             or any(min(launches[n]) < 1 for n in names[:4]) or max(launches["local_attention"])):
         failures.append(f"phase 13: unequal {unequal}, whole-batch {worst_w:.3e} / {worst_l:.3e}, "
                         f"builds {[g['stats']['compiles'] for g in got]} + "
@@ -2703,4 +2790,7 @@ if __name__ == "__main__":
         rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
         sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,
                               float(t_spawn)))
+    if sys.argv[1:2] == ["--phase13-serve"]:
+        spec_path, out_path, t_spawn = sys.argv[2:5]
+        sys.exit(phase13_serve(spec_path, out_path, float(t_spawn)))
     sys.exit(main())

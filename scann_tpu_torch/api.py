@@ -95,14 +95,14 @@ def _port_checkpoint(path: str) -> Optional[Tuple[str, str]]:
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The device a user asked for; CUDA must exist when it is asked for."""
+    """The device a user asked for; CUDA must exist when it is asked for.
+    A bare ``"cuda"`` stays bare: the Trainer gives it the rank's card
+    (``parallel.local_device``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' explicitly to run the eager model on the CPU")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -185,8 +185,8 @@ class Scann:
         elif isinstance(config, dict):
             config = ScannConfig.from_dict(config)
         self.config = config
-        self.device = resolve_device(device)
-        self.trainer = Trainer(config, self.device, workdir, mesh=mesh)
+        self.trainer = Trainer(config, resolve_device(device), workdir, mesh=mesh)
+        self.device = self.trainer.device
         self.exec_cache = self.trainer.exec_cache
         self._buckets = None
         self.train_buckets = self.valid_buckets = self.test_buckets = None

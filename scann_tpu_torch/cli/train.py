@@ -84,9 +84,6 @@ def main(argv=None):
 
     initialize(backend="gloo" if args.device == "cpu" else None)
     mesh = make_mesh()
-    device = args.device
-    if device == "cuda" and mesh.world > 1:
-        device = str(mesh.device)
 
     from scann_tpu_torch.api import Scann
     from scann_tpu_torch.config import load_config
@@ -105,7 +102,7 @@ def main(argv=None):
         config.tpu.exec_cache_dir = (os.path.join(config.hyper.save_path, "exec_cache")
                                      if args.exec_cache == "auto" else args.exec_cache)
 
-    scann = Scann(config, pretrained=args.pretrained, device=device, mesh=mesh)
+    scann = Scann(config, pretrained=args.pretrained, device=args.device, mesh=mesh)
     print(f"Loading dataset for target {args.target}")
     scann.prepare_dataset()
     if args.mode == "train":

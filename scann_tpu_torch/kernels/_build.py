@@ -12,10 +12,10 @@ a process), the source and every header it includes (``philox.cuh``,
 ``scann_common.cuh``, ``scann_grad_common.cuh``, ``scann_mma.cuh``,
 ``scann_forward_common.cuh``): an edited source or header or another
 toolchain rebuilds, an unchanged one loads at once. The libraries live in
-a build directory, the kernel build cache (``utils/exec_cache.py``,
-``ExecutableCache``): ``build/scann_tpu_torch/`` beside the package, or a
-per-user cache directory where that one cannot be written, or whatever
-``set_build_dir`` chose (``tpu.exec_cache_dir``,
+a build directory, the kernel build cache (``ExecutableCache``, under
+its JAX name in ``utils/exec_cache.py``): ``build/scann_tpu_torch/``
+beside the package, or a per-user cache directory where that one cannot
+be written, or whatever ``set_build_dir`` chose (``tpu.exec_cache_dir``,
 ``Scann.enable_exec_cache``, ``--exec-cache``), so a second process loads
 what the first one built. ``-Xptxas -v`` makes the compiler report each
 kernel's registers and spills: the build keeps what nvcc printed beside
@@ -25,17 +25,43 @@ all at once. ``SOURCES`` are the ports of the TPU kernels, ``PROBES`` the
 rate probes of ``utils/roofline.py``. Nothing here is built at module
 import time, and nothing falls back: a failed build raises, and a library
 that fails to load is removed and rebuilt once, then raises.
+
+``ExecutableCache`` keeps the JAX class's contract where it has a meaning
+here:
+
+- the key covers everything that changes the library (``library_key``:
+  flags, nvcc's and the host compiler's versions, the source and its
+  headers), so a stale build is never loaded;
+- directories are created with mode ``0o700``: a loaded library runs code
+  in the loading process, as an unpickled executable does, so whoever can
+  write the directory can run code in every process that shares it;
+- a library is published by ``os.replace`` of a finished file, so a
+  concurrent loader never sees half a file; a builder holds the
+  directory's lock (``flock``) while it builds, so the ranks of a job that
+  share a directory build each library once: the first builds, the others
+  wait and load what it published;
+- a library that fails to load is counted (``load_errors``), removed and
+  rebuilt once (``compiles``); if the rebuild fails to load too, the load
+  raises. This is a rebuild of the same source, never a fallback;
+- ``stats`` counts ``mem_hits`` (loaded by this process already),
+  ``disk_hits`` (loaded from the directory), ``compiles`` (nvcc runs that
+  published a library), ``load_errors``, ``save_errors`` (builds that
+  failed) and ``invalidated``; ``invalidate(name)`` drops an entry.
 """
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
 import functools
 import hashlib
+import json
 import os
 import re
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -133,8 +159,6 @@ def cache():
     global _cache
     with _lock:
         if _cache is None:
-            from scann_tpu_torch.utils.exec_cache import ExecutableCache
-
             _cache = ExecutableCache(default_build_dir())
         return _cache
 
@@ -144,8 +168,6 @@ def set_build_dir(path: str):
     (libraries already loaded stay loaded); returns its ``ExecutableCache``.
     Raises OSError where the directory cannot be created."""
     global _cache
-    from scann_tpu_torch.utils.exec_cache import ExecutableCache
-
     path = os.path.abspath(os.path.expanduser(path))
     with _lock:
         if _cache is None or _cache.cache_dir != path:
@@ -213,3 +235,118 @@ def load_library(name: str):
     """The built library for ``csrc/<name>.cu`` (a ``ctypes.CDLL``),
     through the build cache: building it if needed."""
     return cache().get_or_compile(name)
+
+
+def env_fingerprint() -> str:
+    """The environment of this process's builds and launches: torch and
+    its CUDA runtime, the card's name and compute capability, nvcc's
+    version (the part of it that changes a library is in the key)."""
+    import torch
+
+    dev = {"device": None, "capability": None}
+    if torch.cuda.is_available():
+        dev = {"device": torch.cuda.get_device_name(0),
+               "capability": list(torch.cuda.get_device_capability(0))}
+    return json.dumps({"torch": torch.__version__, "cuda_runtime": torch.version.cuda,
+                       "nvcc": nvcc_version().strip(), **dev},
+                      sort_keys=True)
+
+
+@contextmanager
+def _directory_lock(path: str):
+    """An exclusive ``flock`` on the directory ``path``, across processes
+    (and across the threads of one, each with its own descriptor)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)        # closing the descriptor releases the lock
+
+
+class ExecutableCache:
+    """Disk and in-process cache of the kernels' built libraries, keyed by
+    ``library_key`` (the contract is in the module docstring). Thread-safe:
+    one build or load at a time."""
+
+    def __init__(self, cache_dir: str):
+        self.cache_dir = os.path.abspath(cache_dir)
+        # mode= applies to the directories makedirs creates; one that exists
+        # keeps its permissions
+        os.makedirs(self.cache_dir, mode=0o700, exist_ok=True)
+        self._libs: Dict[str, ctypes.CDLL] = {}
+        self._lock = threading.Lock()
+        self.stats = {"mem_hits": 0, "disk_hits": 0, "compiles": 0,
+                      "load_errors": 0, "save_errors": 0, "invalidated": 0}
+
+    def path(self, name: str) -> str:
+        return library_path(name, self.cache_dir)
+
+    def _compile(self, names: Iterable[str], force: bool) -> Dict[str, str]:
+        paths = {n: self.path(n) for n in names}
+        with _directory_lock(self.cache_dir):
+            # what another process published while this one waited is not built again
+            procs = {n: _start(n, p) for n, p in paths.items()
+                     if force or not os.path.exists(p)}
+            errors = []
+            for name, proc in procs.items():
+                log, _ = proc.communicate()
+                build_logs[name] = log
+                out, tmp = paths[name], proc.scann_tmp
+                if proc.returncode != 0:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+                    self.stats["save_errors"] += 1
+                    errors.append(f"nvcc failed for {name}.cu:\n{log}")
+                    continue
+                with open(tmp + ".log", "w") as f:
+                    f.write(log)
+                os.replace(tmp + ".log", out + ".log")
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+                self.stats["compiles"] += 1
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return paths
+
+    def build(self, names: Iterable[str], force: bool = False) -> Dict[str, str]:
+        """Compile every missing library of ``names`` (every one with
+        ``force``), one nvcc each, all at once; returns name -> path."""
+        with self._lock:
+            return self._compile(names, force)
+
+    def get_or_compile(self, name: str) -> ctypes.CDLL:
+        """The loaded library of ``csrc/<name>.cu``: this process's, else
+        the directory's, else a fresh build. A library that fails to load
+        is removed and rebuilt once; a second failure raises OSError."""
+        with self._lock:
+            lib = self._libs.get(name)
+            if lib is not None:
+                self.stats["mem_hits"] += 1
+                return lib
+            path = self.path(name)
+            if os.path.exists(path):
+                try:
+                    lib = ctypes.CDLL(path)
+                    self.stats["disk_hits"] += 1
+                except OSError:
+                    self.stats["load_errors"] += 1
+                    os.remove(path)
+            if lib is None:
+                self._compile([name], force=False)
+                lib = ctypes.CDLL(path)
+            self._libs[name] = lib
+            return lib
+
+    def invalidate(self, name: str) -> None:
+        """Drop ``name``'s library from this cache and its directory, so the
+        next ``get_or_compile`` builds it anew (a library this process has
+        loaded stays mapped: the loader cannot take it back)."""
+        with self._lock:
+            self._libs.pop(name, None)
+            self.stats["invalidated"] += 1
+            path = self.path(name)
+            for f in (path, path + ".log"):
+                try:
+                    os.remove(f)
+                except FileNotFoundError:
+                    pass

@@ -11,8 +11,11 @@ the whole batch (replicated buckets, one epoch plan), takes its rows
 slices) and runs them through the same CUDA launch a single process
 would: #2 for ``make_sharded_scann_train`` and ``_apply``, #4 for
 ``make_sharded_loop_train`` and ``_apply``, #3 for
-``make_sharded_loop_forward`` (the Trainer's sharded eval takes #1 or #3 by
-``eval_route``). On CPU tensors the same wrappers run the plain versions.
+``make_sharded_loop_forward``. As in the JAX package, the Trainer builds
+its sharded steps from the two ``_train`` wrappers and its sharded loop
+eval from ``make_sharded_loop_forward``, each given the Trainer's own
+launch as ``local``; its sharded molecule eval (#1) is ``eval_rows``. On
+CPU tensors the same wrappers run the plain versions.
 
 - Dropout: a rank's masks start at ``mol_base = rank * b_local``
   (``ops/dropout.make_dropout_masks`` keys each mask on the molecule's
@@ -30,7 +33,7 @@ nothing here is traced. Nor has the JAX wrappers' ``interpret`` argument.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -101,42 +104,58 @@ def eval_rows(mesh: RankLayout, local_fn: Callable, inputs: Dict[str, torch.Tens
 
 
 def _train_wrapper(mesh: RankLayout, grads_fn: Callable, cfm: ModelConfig, mrelu_head: bool,
-                   dropout_rate: float) -> Callable:
+                   dropout_rate: float, local: Optional[Callable]) -> Callable:
+    if local is None:
+        def local(params, x, y, seed, base):
+            return grads_fn(params, x, y.reshape(y.shape[0], -1), cfm, mrelu_head,
+                            dropout_rate, seed or 0, mol_base=base)
+
     def wrapper(params: Grads, inputs: Dict[str, torch.Tensor], targets, seed):
         targets = torch.as_tensor(targets, dtype=torch.float32,
                                   device=inputs["atomic"].device)
-        targets = targets.reshape(targets.shape[0], -1)
-        return train_rows(
-            mesh, lambda x, y, base: grads_fn(params, x, y, cfm, mrelu_head, dropout_rate,
-                                              seed or 0, mol_base=base),
-            inputs, targets)
+        return train_rows(mesh, lambda x, y, base: local(params, x, y, seed, base),
+                          inputs, targets)
 
     return wrapper
 
 
 def make_sharded_scann_train(mesh: RankLayout, cfm: ModelConfig, mrelu_head: bool = False,
-                             dropout_rate: float = 0.0) -> Callable:
+                             dropout_rate: float = 0.0, local: Optional[Callable] = None
+                             ) -> Callable:
     """Data-parallel one-kernel training step (#2): ``wrapper(params,
     inputs, targets, seed) -> (pred [B, 1] or [B, S] gathered, raw
     gradients of 0.5 * sum((pred - t)^2) summed over ranks)``; the caller
-    applies the global 1 / (n * rmse) scale and the l2 term."""
-    return _train_wrapper(mesh, fused_scann_train_grads, cfm, mrelu_head, dropout_rate)
+    applies the global 1 / (n * rmse) scale and the l2 term.
+
+    ``local(params, rows, their targets, seed, mol_base) -> (pred, raw)``
+    is one rank's step on its rows; by default ``fused_scann_train_grads``
+    at ``mrelu_head`` and ``dropout_rate``, which packs the parameters and
+    checks the rows' index ranges each call. The Trainer passes its own
+    launch, on its cached kernel layout of the weights."""
+    return _train_wrapper(mesh, fused_scann_train_grads, cfm, mrelu_head, dropout_rate, local)
 
 
 def make_sharded_loop_train(mesh: RankLayout, cfm: ModelConfig, mrelu_head: bool = False,
-                            dropout_rate: float = 0.0) -> Callable:
-    """``make_sharded_scann_train`` by the crystal loop backward (#4)."""
-    return _train_wrapper(mesh, loop_scann_train_grads, cfm, mrelu_head, dropout_rate)
+                            dropout_rate: float = 0.0, local: Optional[Callable] = None
+                            ) -> Callable:
+    """``make_sharded_scann_train`` by the crystal loop backward (#4); the
+    Trainer's ``local`` also keeps the kernel's scratch per batch shape."""
+    return _train_wrapper(mesh, loop_scann_train_grads, cfm, mrelu_head, dropout_rate, local)
 
 
-def make_sharded_loop_forward(mesh: RankLayout, cfm: ModelConfig,
-                              mrelu_head: bool = False) -> Callable:
+def make_sharded_loop_forward(mesh: RankLayout, cfm: ModelConfig, mrelu_head: bool = False,
+                              local: Optional[Callable] = None) -> Callable:
     """Data-parallel eval by the crystal loop forward (#3): ``wrapper(params,
-    inputs) -> (pred, ga)`` of the whole batch, gathered in rank order."""
+    inputs) -> (pred, ga)`` of the whole batch, gathered in rank order.
+    ``local(params, rows) -> (pred, ga)`` is one rank's forward; by default
+    ``loop_scann_forward``, the Trainer passes its ``forward_eval``."""
+    if local is None:
+        def local(params, x):
+            return loop_scann_forward(params, x, cfm, mrelu_head)
+
     def wrapper(params: Grads, inputs: Dict[str, torch.Tensor]):
         with torch.inference_mode():
-            return eval_rows(mesh, lambda x: loop_scann_forward(params, x, cfm, mrelu_head),
-                             inputs)
+            return eval_rows(mesh, lambda x: local(params, x), inputs)
 
     return wrapper
 

@@ -12,12 +12,16 @@ for bit.
 - ``initialize`` joins the process group. Its arguments resolve as the JAX
   package's do: explicit arguments, then ``SCANN_TPU_COORDINATOR`` /
   ``SCANN_TPU_NUM_PROCESSES`` / ``SCANN_TPU_PROCESS_ID``, then torchrun's
-  ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE`` (and
-  ``LOCAL_RANK``, which picks the rank's card, ``mesh.make_mesh``);
+  ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``;
   ``SCANN_TPU_DISTRIBUTED=1`` asks for the job without naming it. The
   backend is the caller's or, by default, ``"nccl"`` for CUDA and
   ``"gloo"`` for the CPU; nothing switches it at run time. Two ranks on one
   card need ``"gloo"``: NCCL refuses them.
+- A rank drives one card, ``local_device()``: ``cuda:{LOCAL_RANK}``
+  (torchrun), else its rank modulo the host's cards. On NCCL ``initialize``
+  makes it the current device before it joins, and the collectives run
+  there; ``mesh.make_mesh`` and the Trainer, given just ``"cuda"``, place
+  the rank's work there too.
 - Replica consistency is checked, not assumed: ``put_replicated(check=True)``
   gathers a crc32 digest of each rank's copy and raises on divergence.
 - Exactly-once side effects (config.yaml, metrics.jsonl, report.txt,
@@ -44,6 +48,7 @@ __all__ = [
     "fetch",
     "check_replicas_match",
     "gather_ordered",
+    "local_device",
 ]
 
 
@@ -88,9 +93,28 @@ def initialize(coordinator_address: Optional[str] = None,
             "start under torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        # every rank's collectives on its own card: NCCL refuses two on one
+        torch.cuda.set_device(_local_index(int(process_id)))
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id))
     return True
+
+
+def _local_index(rank: int) -> int:
+    local = _env_int("LOCAL_RANK")
+    if local is not None:
+        return local
+    return rank % max(torch.cuda.device_count(), 1)
+
+
+def local_device() -> torch.device:
+    """The card this process drives: ``cuda:{LOCAL_RANK}`` where torchrun
+    set it, else, in a job, the rank modulo the host's cards (ranks are
+    numbered host by host), else the current device."""
+    if _env_int("LOCAL_RANK") is not None or dist.is_initialized():
+        return torch.device("cuda", _local_index(process_index()))
+    return torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
 
 
 def process_count() -> int:
@@ -143,7 +167,7 @@ def _tree_digest(tree: Any) -> int:
 def _collective_device() -> torch.device:
     """Where a tensor handed to a collective must live for this backend."""
     if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
+        return local_device()
     return torch.device("cpu")
 
 

@@ -4,7 +4,7 @@
 The JAX package lays a 1-D ``('data',)`` mesh over every chip of a job and
 lets XLA insert the gradient all-reduce. Here one process drives one GPU:
 the layout is this process's rank, the world size and its device,
-``cuda:{LOCAL_RANK}``. Parameters and buckets are replicated on every
+``distributed.local_device()`` (``cuda:{LOCAL_RANK}`` under torchrun). Parameters and buckets are replicated on every
 rank, and each step's batch rows are split into equal contiguous slices in
 rank order (``batch_shard``), which ``kernels/sharded.py`` runs and
 gathers back in that order.
@@ -12,12 +12,15 @@ gathers back in that order.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from scann_tpu_torch.parallel.distributed import process_count, process_index
+from scann_tpu_torch.parallel.distributed import (
+    local_device,
+    process_count,
+    process_index,
+)
 
 
 class RankLayout(NamedTuple):
@@ -46,14 +49,14 @@ def hierarchical_order(devices: Sequence) -> list:
 
 def make_mesh(n_devices: Optional[int] = None) -> RankLayout:
     """This process's place in the job: the process group's world size and
-    rank (1 and 0 without one) and ``cuda:{LOCAL_RANK}``. ``n_devices``, when
+    rank (1 and 0 without one) and its card, ``local_device()``. ``n_devices``, when
     given, must equal the world size: one process drives one GPU."""
     world, rank = process_count(), process_index()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"need {n_devices} processes (one a GPU), the job has {world}: start "
                          "one process a GPU (torchrun --nproc-per-node, or "
                          "parallel.initialize in each)")
-    return RankLayout(world, rank, torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
+    return RankLayout(world, rank, local_device())
 
 
 def batch_shard(rank: int, world: int, B: int) -> slice:

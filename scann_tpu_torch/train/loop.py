@@ -47,8 +47,9 @@ MAE, best-val checkpoints, a test report.
   ``make_mesh()`` of the process group, one rank without one): every rank
   holds the same buckets (digest-checked across ranks in
   ``_put_buckets``), parameters and epoch plan; a "fused" or "loop" step
-  runs this rank's rows through its kernel (``kernels/sharded.py``, dropout
-  keyed on the global rows), gathers the predictions and sums the raw
+  runs this rank's rows through its kernel (the ``make_sharded_*_train``
+  wrappers of ``kernels/sharded.py``, as the JAX Trainer builds its steps
+  from them; dropout keyed on the global rows), gathers the predictions and sums the raw
   gradients in rank order, so RMSE, MAE and the gradient scale come from
   the whole batch and every rank applies the same update. The per-layer
   route runs the whole batch on every rank. Eval and predict shard their
@@ -65,7 +66,7 @@ import json
 import math
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +78,12 @@ from scann_tpu_torch.data.pipeline import PackedBucket
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
-from scann_tpu_torch.kernels.sharded import eval_rows, train_rows
+from scann_tpu_torch.kernels.sharded import (
+    eval_rows,
+    make_sharded_loop_forward,
+    make_sharded_loop_train,
+    make_sharded_scann_train,
+)
 from scann_tpu_torch.kernels.scann_backward import (
     fused_scann_train_grads,
     grads_from_flat,
@@ -152,9 +158,11 @@ class Trainer:
     def __init__(self, config: ScannConfig, device="cuda", workdir: Optional[str] = None,
                  mesh: Optional[RankLayout] = None):
         self.config = config
-        self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else make_mesh(
             config.tpu.mesh_shape[0] if config.tpu.mesh_shape else None)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = self.mesh.device      # the rank's own card
         self.exec_cache = None
         if config.tpu.exec_cache_dir:
             from scann_tpu_torch.kernels import _build
@@ -163,6 +171,24 @@ class Trainer:
         self.mrelu_head = config.hyper.target == "e_b"
         self.workdir = workdir or "{}_{}".format(config.hyper.save_path, config.hyper.target)
         self.dropout_rate = TRAIN_DROPOUT
+        # a data-parallel job's steps and loop eval: the sharded wrappers, each
+        # running this Trainer's own launch on the rank's rows (its route's
+        # kernel, its cached weight layout and scratch, its dropout rate)
+        self._sharded_train: Dict[str, Callable] = {}
+        self._sharded_loop_fwd: Optional[Callable] = None
+        if self.mesh.world > 1:
+            def local(route):
+                return lambda params, x, y, seed, base: self._whole_model_grads(
+                    route, x, y, seed, base)
+
+            cfm = config.model
+            self._sharded_train = {
+                "fused": make_sharded_scann_train(self.mesh, cfm, self.mrelu_head,
+                                                  local=local("fused")),
+                "loop": make_sharded_loop_train(self.mesh, cfm, self.mrelu_head,
+                                                local=local("loop"))}
+            self._sharded_loop_fwd = make_sharded_loop_forward(
+                self.mesh, cfm, self.mrelu_head, local=self.forward_eval)
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
@@ -322,9 +348,8 @@ class Trainer:
         route = self.train_route(M, N, segment_count(batch))
         if route == "per_layer":
             return self._per_layer_grads(batch, y, seed)
-        if self.mesh.world > 1:
-            return train_rows(self.mesh, lambda x, t, base: self._whole_model_grads(
-                route, x, t, seed, base), batch, y)
+        if self._sharded_train:
+            return self._sharded_train[route](self.params, batch, y, seed)
         return self._whole_model_grads(route, batch, y, seed, 0)
 
     def _whole_model_grads(self, route: str, batch: Dict[str, torch.Tensor], y: torch.Tensor,
@@ -583,8 +608,11 @@ class Trainer:
         this rank's rows of a whole-model route, gathered in rank order (the
         per-layer route runs the whole batch on every rank)."""
         M, N = batch["atomic"].shape[1], batch["neighbors"].shape[2]
-        if self.mesh.world == 1 or self.eval_route(M, N, segment_count(batch)) == "per_layer":
+        route = self.eval_route(M, N, segment_count(batch))
+        if self.mesh.world == 1 or route == "per_layer":
             return self.forward_eval(self.params, batch)
+        if route == "loop":
+            return self._sharded_loop_fwd(self.params, batch)
         with torch.inference_mode():
             return eval_rows(self.mesh, lambda x: self.forward_eval(self.params, x), batch)
 

@@ -1,30 +1,13 @@
-"""The kernel build cache: warm start for serving and training (port of
+"""The kernel build cache under the JAX package's name (port of
 ``scann_tpu/utils/exec_cache.py``).
 
 What the JAX package caches as a compiled executable is, on this card, the
 library nvcc builds from ``csrc/<name>.cu``: the first process pays the
 build (about 100 s for the five kernels, in parallel), every later one
-loads it in milliseconds. ``ExecutableCache(cache_dir)`` owns one directory
-of such libraries; ``kernels/_build.load_library`` and ``build_all`` go
-through the process's cache (``_build.cache()``, chosen by
-``_build.set_build_dir``: ``tpu.exec_cache_dir``, ``Scann.enable_exec_cache``,
-``--exec-cache``). The JAX class's contract, where it has a meaning here:
-
-- the key covers everything that changes the library
-  (``_build.library_key``: flags, nvcc's and the host compiler's versions,
-  the source and its headers), so a stale build is never loaded;
-- directories are created with mode ``0o700``: a loaded library runs code
-  in the loading process, as an unpickled executable does, so whoever can
-  write the directory can run code in every process that shares it;
-- a library is published by ``os.replace`` of a finished file, so a
-  concurrent builder or loader never sees half a file;
-- a library that fails to load is counted (``load_errors``), removed and
-  rebuilt once (``compiles``); if the rebuild fails to load too, the load
-  raises. This is a rebuild of the same source, never a fallback;
-- ``stats`` counts ``mem_hits`` (loaded by this process already),
-  ``disk_hits`` (loaded from the directory), ``compiles`` (nvcc runs that
-  published a library), ``load_errors``, ``save_errors`` (builds that
-  failed) and ``invalidated``; ``invalidate(name)`` drops an entry.
+loads it in milliseconds. ``kernels/_build.py`` owns building, keying and
+publishing, ``ExecutableCache`` and ``env_fingerprint`` included, and its
+docstring states the JAX class's contract as it holds here; this module
+re-exports them.
 
 Not ported, for want of a CUDA meaning: executable serialization (the
 library is the serialized form), ``_placing_wrapper`` (a kernel launches
@@ -35,114 +18,6 @@ call, and each launch checks its own return code), ``args_signature`` and
 library serves every shape).
 """
 
-from __future__ import annotations
-
-import ctypes
-import json
-import os
-import threading
-from typing import Dict, Iterable
-
-from scann_tpu_torch.kernels import _build
+from scann_tpu_torch.kernels._build import ExecutableCache, env_fingerprint
 
 __all__ = ["ExecutableCache", "env_fingerprint"]
-
-
-def env_fingerprint() -> str:
-    """The environment of this process's builds and launches: torch and
-    its CUDA runtime, the card's name and compute capability, nvcc's
-    version (the part of it that changes a library is in the key)."""
-    import torch
-
-    dev = {"device": None, "capability": None}
-    if torch.cuda.is_available():
-        dev = {"device": torch.cuda.get_device_name(0),
-               "capability": list(torch.cuda.get_device_capability(0))}
-    return json.dumps({"torch": torch.__version__, "cuda_runtime": torch.version.cuda,
-                       "nvcc": _build.nvcc_version().strip(), **dev},
-                      sort_keys=True)
-
-
-class ExecutableCache:
-    """Disk and in-process cache of the kernels' built libraries, keyed by
-    ``_build.library_key``. Thread-safe: one build or load at a time."""
-
-    def __init__(self, cache_dir: str):
-        self.cache_dir = os.path.abspath(cache_dir)
-        # mode= applies to the directories makedirs creates; one that exists
-        # keeps its permissions
-        os.makedirs(self.cache_dir, mode=0o700, exist_ok=True)
-        self._libs: Dict[str, ctypes.CDLL] = {}
-        self._lock = threading.Lock()
-        self.stats = {"mem_hits": 0, "disk_hits": 0, "compiles": 0,
-                      "load_errors": 0, "save_errors": 0, "invalidated": 0}
-
-    def path(self, name: str) -> str:
-        return _build.library_path(name, self.cache_dir)
-
-    def _compile(self, names: Iterable[str], force: bool) -> Dict[str, str]:
-        paths = {n: self.path(n) for n in names}
-        procs = {n: _build._start(n, p) for n, p in paths.items()
-                 if force or not os.path.exists(p)}
-        errors = []
-        for name, proc in procs.items():
-            log, _ = proc.communicate()
-            _build.build_logs[name] = log
-            out, tmp = paths[name], proc.scann_tmp
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                self.stats["save_errors"] += 1
-                errors.append(f"nvcc failed for {name}.cu:\n{log}")
-                continue
-            with open(tmp + ".log", "w") as f:
-                f.write(log)
-            os.replace(tmp + ".log", out + ".log")
-            os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-            self.stats["compiles"] += 1
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        return paths
-
-    def build(self, names: Iterable[str], force: bool = False) -> Dict[str, str]:
-        """Compile every missing library of ``names`` (every one with
-        ``force``), one nvcc each, all at once; returns name -> path."""
-        with self._lock:
-            return self._compile(names, force)
-
-    def get_or_compile(self, name: str) -> ctypes.CDLL:
-        """The loaded library of ``csrc/<name>.cu``: this process's, else
-        the directory's, else a fresh build. A library that fails to load
-        is removed and rebuilt once; a second failure raises OSError."""
-        with self._lock:
-            lib = self._libs.get(name)
-            if lib is not None:
-                self.stats["mem_hits"] += 1
-                return lib
-            path = self.path(name)
-            if os.path.exists(path):
-                try:
-                    lib = ctypes.CDLL(path)
-                    self.stats["disk_hits"] += 1
-                except OSError:
-                    self.stats["load_errors"] += 1
-                    os.remove(path)
-            if lib is None:
-                self._compile([name], force=False)
-                lib = ctypes.CDLL(path)
-            self._libs[name] = lib
-            return lib
-
-    def invalidate(self, name: str) -> None:
-        """Drop ``name``'s library from this cache and its directory, so the
-        next ``get_or_compile`` builds it anew (a library this process has
-        loaded stays mapped: the loader cannot take it back)."""
-        with self._lock:
-            self._libs.pop(name, None)
-            self.stats["invalidated"] += 1
-            path = self.path(name)
-            for f in (path, path + ".log"):
-                try:
-                    os.remove(f)
-                except FileNotFoundError:
-                    pass

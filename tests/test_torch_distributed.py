@@ -108,6 +108,55 @@ def test_torch_initialize_is_idempotent(monkeypatch):
     assert distributed.initialize("127.0.0.1:1", 2, 0) is True
 
 
+def test_torch_nccl_rank_drives_its_own_card(no_job, monkeypatch, tmp_path):
+    """On NCCL a rank's work and collectives are on its own card,
+    cuda:{LOCAL_RANK} (else its rank modulo the host's cards): initialize
+    makes it the current device before it joins, and the collectives, the
+    mesh, and a Trainer or Scann given a bare "cuda" take it."""
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import ScannConfig
+    from scann_tpu_torch.train.loop import Trainer
+
+    order = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: order.append(("set_device", i)))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: order.append(("join", backend, kw["rank"])))
+    for var, v in (("MASTER_ADDR", "node0"), ("MASTER_PORT", "29400"), ("WORLD_SIZE", "8"),
+                   ("RANK", "7"), ("LOCAL_RANK", "3")):
+        monkeypatch.setenv(var, v)
+    assert distributed.initialize() is True
+    assert order == [("set_device", 3), ("join", "nccl", 7)]
+    order.clear()
+    monkeypatch.delenv("LOCAL_RANK")
+    assert distributed.initialize("10.0.0.1:1", 16, 13) is True
+    assert order == [("set_device", 5), ("join", "nccl", 13)]
+    order.clear()
+    assert distributed.initialize("10.0.0.1:1", 16, 13, backend="gloo") is True
+    assert order == [("join", "gloo", 13)]         # gloo leaves the current device alone
+
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 8)
+    monkeypatch.setattr(dist, "get_rank", lambda: 7)
+    monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
+    card = torch.device("cuda", 3)
+    assert distributed.local_device() == card
+    assert distributed._collective_device() == card
+    assert parallel.make_mesh() == (8, 7, card)
+    cfg = ScannConfig(model=ModelConfig(**TINY))
+    assert Trainer(cfg, "cuda", str(tmp_path / "t")).device == card
+    assert Scann(cfg, device="cuda", workdir=str(tmp_path / "s")).device == card
+    assert Trainer(cfg, "cuda:1", str(tmp_path / "t")).device == torch.device("cuda", 1)
+    assert Trainer(cfg, "cpu", str(tmp_path / "t")).device == torch.device("cpu")
+    monkeypatch.delenv("LOCAL_RANK")
+    assert distributed.local_device() == torch.device("cuda", 7)    # rank 7 of 8 cards
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    assert distributed._collective_device() == torch.device("cpu")
+
+
 def test_torch_single_process_helpers():
     assert parallel.process_count() == 1 and parallel.process_index() == 0
     assert not parallel.is_multiprocess() and parallel.is_primary()

@@ -1,7 +1,8 @@
 """The kernel build cache of the PyTorch port (``kernels/_build.py``,
 ``utils/exec_cache.py``) on the CPU, with no nvcc: the key covers the
 toolchain, a corrupt library is removed, rebuilt once and counted (a stub
-stands in for nvcc), directories are private, and ``Scann.enable_exec_cache``,
+stands in for nvcc), builders sharing a directory build each library once,
+directories are private, and ``Scann.enable_exec_cache``,
 ``BatchedPredictor(exec_cache=...)``, ``cli.train --exec-cache`` and
 ``cli.serve --exec-cache`` point the cache where the JAX package's
 counterparts point theirs."""
@@ -11,6 +12,7 @@ import os
 import stat
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
@@ -37,19 +39,20 @@ def _own_build_cache(monkeypatch):
     monkeypatch.setattr(_build, "build_logs", dict(_build.build_logs))
 
 
-def _stub_nvcc(monkeypatch, library):
-    """``_build._start`` without nvcc: a child process copies ``library``
-    to the temporary output and prints a ptxas report. Returns the list of
-    names it was started for."""
+def _stub_nvcc(monkeypatch, library, seconds=0.0):
+    """``_build._start`` without nvcc: a child process waits ``seconds``,
+    copies ``library`` to the temporary output and prints a ptxas report.
+    Returns the list of names it was started for."""
     started = []
 
     def start(name, out):
         started.append(name)
-        tmp = f"{out}.{os.getpid()}.stub.tmp"
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.stub.tmp"
         proc = subprocess.Popen(
             [sys.executable, "-c",
-             "import shutil, sys; shutil.copy(sys.argv[1], sys.argv[2]); "
-             "sys.stdout.write(sys.argv[3])", library, tmp, PTXAS],
+             "import shutil, sys, time; time.sleep(float(sys.argv[4])); "
+             "shutil.copy(sys.argv[1], sys.argv[2]); "
+             "sys.stdout.write(sys.argv[3])", library, tmp, PTXAS, str(seconds)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         proc.scann_tmp = tmp
         return proc
@@ -143,6 +146,39 @@ def test_torch_corrupt_library_is_removed_rebuilt_once_and_counted(tmp_path, mon
 
     other.invalidate("scann_loop")
     assert other.stats["invalidated"] == 1 and not os.path.exists(other.path("scann_loop"))
+
+
+def test_torch_builders_sharing_a_directory_build_each_library_once(tmp_path, monkeypatch):
+    """Two builders on one empty directory at once, as the ranks of a job on
+    one host start: the first builds each library, the other waits on the
+    directory's lock and loads what the first published."""
+    monkeypatch.setattr(_build, "nvcc_version", lambda: "stub nvcc")
+    started = _stub_nvcc(monkeypatch, _ctypes.__file__, seconds=0.5)
+    caches = [ExecutableCache(str(tmp_path / "cache")) for _ in range(2)]
+    names = ["scann_forward", "scann_loop"]
+    together, errors = threading.Barrier(2), []
+
+    def rank(cache):
+        together.wait()
+        try:
+            cache.build(names)
+        except Exception as e:        # reported below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank, args=(c,)) for c in caches]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert sorted(started) == names
+    assert sorted(c.stats["compiles"] for c in caches) == [0, 2]
+    for c in caches:
+        for n in names:
+            c.get_or_compile(n)
+        assert c.stats["disk_hits"] == 2 and c.stats["load_errors"] == 0
+    assert sorted(started) == names
+    assert not [f for f in os.listdir(caches[0].cache_dir) if f.endswith(".tmp")]
 
 
 def test_torch_failed_build_raises_and_counts(tmp_path, monkeypatch):
