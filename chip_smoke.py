@@ -9,8 +9,8 @@ kernel build cache, ``build/scann_tpu_torch/chip_smoke_exec_cache``
 backward kernels. Phases 11 and 12 run first:
 
 11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
-   (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32
-   ``mma.sync``, HBM stream over 1 GiB) and prints each beside its
+   (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32 and
+   BF16 ``mma.sync``, HBM stream over 1 GiB) and prints each beside its
    published peak (``utils.flops``), the SM clock and the power limit; a
    rate over 105% of its peak fails (a wrong probe). Every later bound is
    also taken at these rates (``measured_bound_ms``, beside the published
@@ -88,7 +88,7 @@ layers); random weights from seeds:
    last two shapes (and back to back, without the host's share of a call);
    holds the per-layer model against the eager model for
    ``use_attn_norm: false``;
-8. (run last) serves synthetic periodic crystals of 20-90 sites, posted as
+8. (run after phase 10) serves synthetic periodic crystals of 20-90 sites, posted as
    CIF and as JSON, and one of 200 sites that takes the per-layer route,
    through ``PredictionServer`` on the MP2018 model that phase 10 trained,
    loaded from its run directory (``BatchedPredictor.from_model_dir``; the
@@ -128,6 +128,30 @@ layers); random weights from seeds:
    under ``utils.trace`` (``torch.profiler``, as ``cli/train.py --profile``
    runs it): the Chrome trace must be written, and its CUDA kernel events
    are counted and summed by name.
+14. model.dtype bfloat16: holds kernels #1 and #3 in the bf16 operand mode
+   (``kernels/dots.py``: both operands of every product rounded to
+   bfloat16, f32 sums) and #5 on bfloat16 tensors against their bf16 plain
+   versions (``reference_bf16_forward``, ``reference_layer_kernel``) at full
+   width: #1 at QM9 and packed at capacity 48, #3 at MP2018 (B=64) and
+   packed at capacity 96 (relaunched on NaN- and constant-filled scratch,
+   bit for bit), #5 at one MP2018 layer and at (8, 256, 32) (relaunched
+   into NaN-filled outputs), and #1 and #3 again at the same widths,
+   inputs, clusters and packing with one layer; every full-depth output
+   within rtol 0.05 / atol 0.02 of the f32 kernel on the same inputs. The
+   mean difference must be at most 0.1 x the plain version's bf16-vs-f32
+   mean difference, or 2 x the f32-noise floor (the bf16 plain version with
+   f32 against f64 sums between its roundings) where that is larger: #3
+   with one layer and both at full depth, where the f32 sum order alone
+   moves the plain version by 0.18-0.76 x that gap. There the kernel must
+   also lie within 0.5 x (one layer) or 0.9 x (full depth) of the f32
+   kernel's own distance from the bf16 plain version, the reading of a
+   kernel that skipped the mode, printed for every case. Times each
+   bf16 kernel in turns with the f32 one. Then the main path: one request
+   of a bf16 QM9 model and one of a bf16 MP2018 model (a 90-site crystal by
+   the loop route, a 260-site one by the per-layer route) through
+   ``PredictionServer``, each answer equal, bit for bit, to
+   ``Scann.predict_structure``; the bf16 launch counts of #1, #3 and #5,
+   set to 0 before, must each be above 0 after.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -158,7 +182,9 @@ phase, each kernel's share of both bounds, the run's whole time, then one
 ``sharded_launches``, its launches in phase 13's two ranks together; the
 rows of the four whole-model kernels with ``packed_launches``, their
 launches on the packed training runs, and ``packed``, their times at a
-packed shape) and, last,
+packed shape; rows ``1-bf16``, ``3-bf16`` and ``5-bf16`` with their f32
+times from the same run, ``f32_ms``, and bounds that count #1's and #3's
+products once at the dense BF16 rate and #5's as in f32) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
@@ -173,6 +199,16 @@ kernels' tensor-core products within 2e-6 x max |exact| of a float64
 product, where a single TF32 pass reads about 3e-4. Training:
 3-step and single-step losses to 1e-4 relative; the two-epoch runs' losses
 to 1e-3 relative, since Adam carries the FP32 differences through 16 steps.
+bf16 (phase 14): a kernel's mean difference from its bf16 plain version at
+most 0.1 x the plain version's bf16-vs-f32 mean difference, or 2 x the
+f32-noise floor where that is larger (at full width, f32 sums in another
+order alone flip enough bf16 roundings to move the result by 0.04-0.05 x
+that gap for #1 with one layer, 0.18-0.30 x for #3 with one layer and
+0.35-0.76 x at full depth: the plain version against itself with f64
+arithmetic between the roundings, which the phase prints), and there also
+at most 0.5 x (one layer) or 0.9 x (full depth) the f32 kernel's distance
+from the bf16 plain version; at the full-depth shapes every output within
+rtol 0.05 / atol 0.02 (JAX's own bf16 bound) of the same kernel in f32.
 """
 
 import json
@@ -204,11 +240,13 @@ MEASURED = {}
 
 
 def published_rates():
-    """(FP32 FLOP/s, TF32 FLOP/s, HBM bytes/s, expf/s) of the H100 SXM."""
+    """(FP32 FLOP/s, TF32 FLOP/s, HBM bytes/s, expf/s, BF16 FLOP/s) of the
+    H100 SXM."""
     from scann_tpu_torch.utils import flops
 
     return (flops.peak_fp32_tflops(H100) * 1e12, flops.peak_tflops(H100) * 1e12,
-            flops.peak_hbm_bytes_s(H100), flops.peak_exp_per_s(H100))
+            flops.peak_hbm_bytes_s(H100), flops.peak_exp_per_s(H100),
+            flops.peak_bf16_tflops(H100) * 1e12)
 
 
 def card_line() -> str:
@@ -973,28 +1011,28 @@ def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, fa
     return launches
 
 
-def operations_ms(flops, fp32_flops, rates=None):
-    """The least time of ``flops``: ``fp32_flops`` of them at the FP32 rate
-    outside the tensor cores and the rest as split-TF32 products, three TF32
-    passes each at the dense TF32 rate; at the published rates, or at
-    ``rates`` (``measure_device_rates``'s) when given."""
-    if rates is None:
-        fp32, tf32 = published_rates()[:2]
-    else:
-        fp32, tf32 = rates["fp32_tflops"] * 1e12, rates["tf32_tflops"] * 1e12
-    return 1e3 * (3 * (flops - fp32_flops) / tf32 + fp32_flops / fp32)
+def operations_ms(flops, fp32_flops, rates=None, bf16=False):
+    """The least time of ``flops`` (``utils.flops.operations_seconds``):
+    ``fp32_flops`` of them at the FP32 rate outside the tensor cores and the
+    rest as split-TF32 products, three TF32 passes each at the dense TF32
+    rate, or with ``bf16`` (the bf16 operand mode) once each at the dense
+    BF16 rate; at the published rates, or at ``rates``
+    (``measure_device_rates``'s) when given."""
+    from scann_tpu_torch.utils.flops import operations_seconds
+
+    return 1e3 * operations_seconds(flops, fp32_flops, bf16, rates, H100)
 
 
-def bound_ms(flops, nbytes, fp32_flops):
+def bound_ms(flops, nbytes, fp32_flops, bf16=False):
     """(bound, "operations" | "bytes", measured bound): the larger of the
     operations' time (``operations_ms``) and the HBM time of one pass over
     inputs and outputs, at the published rates; the same at the rates the
     roofline phase measured (None before it ran)."""
-    ops_ms = operations_ms(flops, fp32_flops)
+    ops_ms = operations_ms(flops, fp32_flops, bf16=bf16)
     bytes_ms = 1e3 * nbytes / published_rates()[2]
     measured = None
     if MEASURED:
-        measured = max(operations_ms(flops, fp32_flops, MEASURED),
+        measured = max(operations_ms(flops, fp32_flops, MEASURED, bf16),
                        1e3 * nbytes / (MEASURED["hbm_gbps"] * 1e9))
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", measured
 
@@ -1346,10 +1384,12 @@ def phase_rates(qm9_model, failures, card):
 
     t0 = time.time()
     rates = measure_device_rates(use_cache=False)
-    fp32, tf32, hbm, exp = published_rates()
+    fp32, tf32, hbm, exp, bf16 = published_rates()
     rows = [("expf on the special-function units", rates["exp_per_s"], exp, "/s"),
             ("FP32 FMA on the CUDA cores (2 FLOP each)", 2 * rates["elem_per_s"], fp32, "FLOP/s"),
             ("TF32 mma.sync m16n8k8 on the tensor cores", rates["tf32_tflops"] * 1e12, tf32,
+             "FLOP/s"),
+            ("BF16 mma.sync m16n8k16 on the tensor cores", rates["bf16_tflops"] * 1e12, bf16,
              "FLOP/s"),
             ("HBM stream over 1 GiB (read + write)", rates["hbm_gbps"] * 1e9, hbm, "bytes/s")]
     for what, got, peak, unit in rows:
@@ -1649,6 +1689,360 @@ def phase8(mp2018, run_dir, failures, card):
         failures.append(f"launches do not match the routes taken: {taken}, molecule {fused_n}, "
                         f"loop {loop_n}, per-layer {layer_n} (L={L})")
     return loop_n, layer_n
+
+
+# ---- phase 14: model.dtype bfloat16 (the bf16 operand mode, #5 on bf16) ------
+
+BF16_RTOL, BF16_ATOL = 0.05, 0.02   # JAX's own bf16 bound (tests/test_kernels.py:236)
+BF16_GAP = 0.1                      # of the plain bf16-vs-f32 mean gap
+BF16_FLOOR = 2.0                    # of the f32-noise floor, where that is above the gap's share
+
+
+def hold_bf16(label, got16, plain16, plain32, got32, failures, plain16_f64=None,
+              versus_f32=True, below_f32=None):
+    """A kernel in bf16 against its bf16 plain version on the same inputs.
+
+    The mean absolute difference over all outputs must be at most
+    ``BF16_GAP`` x the plain version's own bf16-vs-f32 mean difference (the
+    rounding pattern, not merely values near f32). With ``plain16_f64``, the
+    bf16 plain version with f64 arithmetic between the same roundings, the
+    f32-noise floor is that version's distance from the f32 one: f32 sums in
+    another order alone flip bf16 roundings, and at full width they move
+    the result by 0.04-0.05 x the gap for #1 with one layer, 0.18-0.30 x for
+    #3 with one layer and 0.35-0.76 x at full depth. The limit is then the
+    larger of the gap's share and ``BF16_FLOOR`` x the floor, and with
+    ``below_f32`` the kernel must also lie within that share of the f32
+    kernel's own mean distance from the bf16 plain version: the reading of
+    a kernel that skipped the bf16 mode, printed for every case. With
+    ``versus_f32`` (the full-width shapes), every output must also lie
+    within rtol/atol ``BF16_RTOL``/``BF16_ATOL`` of the same kernel in f32
+    on the same inputs; random weights with one layer, or without ga_norm,
+    move the outputs further in bf16, in the plain version as in the
+    kernel. Returns the largest absolute difference from the bf16 plain
+    version."""
+    cat = lambda ts: torch.cat([t.double().reshape(-1) for t in ts])
+    k16, p16, p32, k32 = cat(got16), cat(plain16), cat(plain32), cat(got32)
+    gap = (k16 - p16).abs().mean().item()
+    rounding = max((p16 - p32).abs().mean().item(), 1e-30)
+    skipped = (k32 - p16).abs().mean().item()
+    worst = (k16 - p16).abs().max().item()
+    near = (bool(((k16 - k32).abs() <= BF16_ATOL + BF16_RTOL * k32.abs()).all())
+            and bool(torch.isfinite(k16).all()))
+    limit = BF16_GAP * rounding
+    line = (f"{label}: mean |bf16 kernel - bf16 plain| {gap:.3e} = {gap / rounding:.4f} x "
+            f"mean |bf16 plain - f32 plain| {rounding:.3e} (the f32 kernel at "
+            f"{skipped / rounding:.4f} x)")
+    if plain16_f64 is not None:
+        floor = (p16 - cat(plain16_f64)).abs().mean().item()
+        limit = max(limit, BF16_FLOOR * floor)
+        line += (f"; f32-noise floor (bf16 plain, f32 against f64 sums) {floor:.3e} = "
+                 f"{floor / rounding:.4f} x, the kernel at {gap / max(floor, 1e-30):.3f} x it")
+    ok = gap <= limit
+    line += f"; limit {limit / rounding:.4f} x"
+    if below_f32 is not None:
+        ok = ok and gap <= below_f32 * skipped
+        line += f" and {below_f32} x the f32 kernel's"
+    print(line + f"; max {worst:.3e}; max |bf16 kernel - f32 kernel| "
+          f"{(k16 - k32).abs().max().item():.3e} (rtol {BF16_RTOL}, atol {BF16_ATOL})", flush=True)
+    if not ok:
+        failures.append(f"{label}: mean gap {gap:.3e} to the bf16 plain version over its limit")
+    if versus_f32 and not near:
+        failures.append(f"{label}: outside rtol {BF16_RTOL} atol {BF16_ATOL} of the f32 kernel")
+    return worst
+
+
+def f64_params(params):
+    return {k: v.double() for k, v in params.items()}
+
+
+def bf16_row(name, kernel, source, replaces, launches, worst, t, plain_ms, flops, fp32_flops,
+             nbytes, card, bf16_products=True):
+    """One row of the {"kernels": ...} line for a kernel in bf16, with its
+    f32 time from the same run. With ``bf16_products`` (#1 and #3 in the
+    bf16 operand mode) its bound counts the products once at the dense BF16
+    rate; #5 on bf16 tensors keeps f32 products (its in-kernel LayerNorm
+    and geometry feed f32 operands), so only its bytes are bf16 sizes."""
+    bound, by, measured = bound_ms(flops, nbytes, fp32_flops, bf16=bf16_products)
+    ms, f32_ms = t
+    print(f"{name} ({kernel} in bf16): {ms:.4f} ms beside {f32_ms:.4f} ms in f32 (timed in "
+          f"turns), plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, bound "
+          f"{bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+    return {"name": name, "kernel": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": worst, "ms": ms,
+            "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "measured_bound_ms": measured, "library_ms": None, "flops": flops}
+
+
+def bf16_serve(label, scann, structs, failures):
+    """One request of ``structs`` through ``PredictionServer`` on ``scann``
+    -> (routes of its device batches, the answers (value, ga) or None)."""
+    from scann_tpu_torch.serve import BatchedPredictor, PredictionServer
+
+    routes = []
+    forward_eval = scann.trainer.forward_eval
+
+    def recorded_forward(params, batch):
+        routes.append(scann.trainer.eval_route(batch["atomic"].shape[1],
+                                               batch["neighbors"].shape[2]))
+        return forward_eval(params, batch)
+
+    scann.trainer.forward_eval = recorded_forward
+    predictor = BatchedPredictor(scann, max_batch=64, window_ms=5.0, warmup_shapes=[])
+    server = PredictionServer(predictor, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = json.dumps({"structures": [
+        {"species": list(s.species), "coords": np.asarray(s.coords).tolist(),
+         "lattice": None if s.lattice is None else np.asarray(s.lattice).tolist()}
+        for s in structs]}).encode()
+    t = time.perf_counter()
+    try:
+        req = urllib.request.Request(f"http://{server.host}:{server.port}/predict", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, out = r.status, json.loads(r.read())
+    except Exception as e:  # recorded, then reported as a failure below
+        status, out = getattr(e, "code", None), {"error": repr(e)}
+    finally:
+        server.shutdown()
+        thread.join(10)
+        predictor.close()
+    torch.cuda.synchronize()
+    del scann.trainer.forward_eval
+    print(f"{label}: one request of {len(structs)} structures: HTTP {status}, device batches "
+          f"by route {routes}, {1e3 * (time.perf_counter() - t):.1f} ms", flush=True)
+    if status != 200:
+        failures.append(f"{label}: HTTP {status} {out}")
+        return routes, None
+    return routes, list(zip(out["predictions"], out["ga_scores"]))
+
+
+def check_served(label, scann, structs, answers, failures):
+    """Every served answer equal, bit for bit, to ``Scann.predict_structure``
+    of the same structure in this process."""
+    for s, (value, ga) in zip(structs, answers or []):
+        ref, ref_ga = scann.predict_structure(s)
+        ga = np.asarray(ga)
+        same = value == ref and np.array_equal(ga, ref_ga)
+        print(f"{label}: {len(s)} sites: served {value:.6f}, predict_structure {ref:.6f}, "
+              f"equal: {same}", flush=True)
+        if not (same and np.isfinite(value) and np.isfinite(ga).all()):
+            failures.append(f"{label}: the served answer for {len(s)} sites differs from "
+                            "Scann.predict_structure")
+
+
+def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failures, card):
+    """model.dtype bfloat16. Kernels #1 and #3 in the bf16 operand mode and
+    #5 on bfloat16 tensors against their bf16 plain versions
+    (``hold_bf16``): #1 and #3 on the small matrix (unpacked and packed) at
+    0.1 x the plain bf16-vs-f32 gap; at full width (#1 at QM9 and packed at
+    capacity 48, #3 at MP2018 and packed at capacity 96, each relaunched on
+    NaN- and constant-filled scratch, bit for bit) within 2 x the f32-noise
+    floor and 0.9 x the f32 kernel's distance, and at the same widths and
+    inputs with one layer within the larger of 0.1 x the gap and 2 x the
+    floor and 0.5 x the f32 kernel's distance; #5 at one MP2018 layer and
+    at (8, 256, 32) at 0.1 x the gap
+    (relaunched into NaN-filled outputs); their times in turns with the f32
+    kernels'. Then the main path: one served request of a bf16 QM9 model
+    and one of a bf16 MP2018 model (a crystal group by the loop route, one
+    by the per-layer route) through ``PredictionServer``, with the bf16
+    launch counts set to 0 before and read after. Returns the three rows of
+    the {"kernels": ...} line."""
+    import dataclasses
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.data.synthetic import _random_crystal
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    t0 = time.time()
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    worst, times, plain_ms, work = {1: 0.0, 3: 0.0, 5: 0.0}, {}, {}, {}
+
+    # ---- #1 and #3 on the small matrix, unpacked and packed: the 0.1 x gap -------
+    rng = np.random.default_rng(14)
+    for name, cfm, mrelu in matrix:
+        p = init_params(cfm, torch.Generator().manual_seed(14), "cuda")
+        packed = kfwd.pack_params(p, cfm)
+        ring, cgcnn = cfm.use_ring, cfm.feature == "cgcnn"
+        for shape, x in (("", synthetic_batch(rng, 64, 16, 8, ring, cgcnn)),
+                         (" packed", pack_batch(synthetic_batch(rng, 96, 8, 8, ring, cgcnn), 16))):
+            for n, launch, plain in ((1, kfwd._launch, kfwd.reference_scann_forward),
+                                     (3, kloop._launch, kloop.reference_loop_forward)):
+                with torch.inference_mode():
+                    kfwd._check_inputs(x, cfm, packed["wde"].device)
+                    got = (launch(packed, x, bf16(cfm), mrelu), plain(p, x, bf16(cfm), mrelu),
+                           plain(p, x, cfm, mrelu), launch(packed, x, cfm, mrelu))
+                worst[n] = max(worst[n], hold_bf16(
+                    f"phase 14 #{n} bf16 {name}{shape}{packed_label(x)}", *got, failures,
+                    versus_f32=False))
+
+    # ---- #1 at full width: QM9 and packed at capacity 48 ---------------------------
+    qm9_16 = bf16(qm9_model)
+    params = init_params(qm9_model, torch.Generator().manual_seed(14), "cuda")
+    packed = kfwd.pack_params(params, qm9_model)
+    for label, x in (("qm9", qm9_inputs), ("qm9 capacity 48", packed_qm9[48])):
+        with torch.inference_mode():
+            kfwd._check_inputs(x, qm9_model, packed["wde"].device)
+            got = (kfwd._launch(packed, x, qm9_16, False),
+                   kfwd.reference_bf16_forward(params, x, qm9_16, exact_pools=True),
+                   kfwd.reference_scann_forward(params, x, qm9_model),
+                   kfwd._launch(packed, x, qm9_model, False))
+            f64 = kfwd.reference_bf16_forward(f64_params(params), x, qm9_16, exact_pools=True)
+        worst[1] = max(worst[1], hold_bf16(f"phase 14 #1 bf16 {label}{packed_label(x)}", *got,
+                                           failures, f64, below_f32=0.9))
+    x = qm9_inputs
+    B, M = x["atomic"].shape
+    N = x["neighbors"].shape[2]
+    with torch.inference_mode():
+        times[1] = in_turns_ms(lambda: kfwd._launch(packed, x, qm9_model, False),
+                               lambda: kfwd._launch(packed, x, qm9_16, False), 5, 10)
+        plain_ms[1] = cuda_ms(lambda: kfwd.reference_bf16_forward(params, x, qm9_16), 5)
+    work[1] = (kfwd.forward_flops(qm9_model, B, M, N), kfwd.forward_fp32_flops(qm9_model, B, M, N),
+               tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M))
+
+    # ---- #3 at full width: MP2018 and packed at capacity 96, relaunched ------------
+    mp_16 = bf16(mp2018)
+    params = init_params(mp2018, torch.Generator().manual_seed(14), "cuda")
+    packed = kfwd.pack_params(params, mp2018)
+    mp_x = synthetic_batch(np.random.default_rng(14), 64, 96, 32, n_atoms=mp2018.n_atoms,
+                           min_atoms=20)
+    for label, x in (("mp2018", mp_x), ("mp2018 capacity 96", mp_packed)):
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        with torch.inference_mode():
+            kfwd._check_inputs(x, mp2018, packed["wde"].device)
+            got = (kloop._launch(packed, x, mp_16, False), kloop.reference_loop_forward(params, x, mp_16),
+                   kloop.reference_loop_forward(params, x, mp2018), kloop._launch(packed, x, mp2018, False))
+            f64 = kfwd.reference_bf16_forward(f64_params(params), x, mp_16, exact_pools=False)
+            scratch = kloop.loop_forward_scratch(mp2018, B, M, N, "cuda")
+            differ = set()
+            for i in range(2):
+                for t in scratch.values():
+                    if t is not None:
+                        t.fill_(float("nan") if i % 2 == 0 else -3.0)
+                again = kloop._launch(packed, x, mp_16, False, scratch=scratch)
+                differ |= {w for w, a, b in zip(("pred", "ga"), again, got[0])
+                           if not torch.equal(a, b)}
+        tag = f"phase 14 #3 bf16 {label} B={B} M={M} N={N}{packed_label(x)}"
+        worst[3] = max(worst[3], hold_bf16(tag, *got, failures, f64,
+                                           below_f32=0.9))
+        del f64
+        print(f"{tag}: 2 launches on NaN- and constant-filled scratch bit-identical: "
+              f"{not differ}", flush=True)
+        if differ:
+            failures.append(f"{tag}: bf16 launches on the same inputs differ in {sorted(differ)}")
+    x = mp_x
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    scratch = kloop.loop_forward_scratch(mp2018, B, M, N, "cuda")
+    with torch.inference_mode():
+        times[3] = in_turns_ms(lambda: kloop._launch(packed, x, mp2018, False, scratch=scratch),
+                               lambda: kloop._launch(packed, x, mp_16, False, scratch=scratch),
+                               3, 10)
+        plain_ms[3] = cuda_ms(lambda: kloop.reference_loop_forward(params, x, mp_16), 3)
+    work[3] = (kloop.loop_forward_flops(mp2018, B, M, N),
+               kfwd.forward_fp32_flops(mp2018, B, M, N),
+               tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+               + kloop.loop_forward_bytes(mp2018, B, M, N))
+    del scratch
+
+    # ---- #1 and #3 at the same widths, inputs, tiles and clusters, one layer ---------
+    # One layer keeps the f32-noise floor low: #1 at 0.1 x the gap, #3 within
+    # 2 x its floor and half the f32 kernel's distance (no rtol/atol hold:
+    # one random layer moves the plain version as far in bf16).
+    for n, cfm, cases, launch, plain, exact in (
+            (1, qm9_model, (("qm9", qm9_inputs), ("qm9 capacity 48", packed_qm9[48])),
+             kfwd._launch, kfwd.reference_scann_forward, True),
+            (3, mp2018, (("mp2018", mp_x), ("mp2018 capacity 96", mp_packed)),
+             kloop._launch, kloop.reference_loop_forward, False)):
+        one = dataclasses.replace(cfm, n_attention=1)
+        params = init_params(one, torch.Generator().manual_seed(14), "cuda")
+        packed = kfwd.pack_params(params, one)
+        for label, x in cases:
+            with torch.inference_mode():
+                kfwd._check_inputs(x, one, packed["wde"].device)
+                got = (launch(packed, x, bf16(one), False), plain(params, x, bf16(one)),
+                       plain(params, x, one), launch(packed, x, one, False))
+                f64 = kfwd.reference_bf16_forward(f64_params(params), x, bf16(one),
+                                                  exact_pools=exact)
+            worst[n] = max(worst[n], hold_bf16(f"phase 14 #{n} bf16 {label} L=1{packed_label(x)}",
+                                               *got, failures, f64, versus_f32=False,
+                                               below_f32=0.5))
+
+    # ---- #5 on bfloat16 tensors: one MP2018 layer and (8, 256, 32) ---------------
+    rng = np.random.default_rng(15)
+    D, H = mp2018.local_dim, mp2018.num_head
+    for B, M, N in ((64, 96, 32), (8, 256, 32)):
+        args = layer_inputs(rng, B, M, N, D, H, True)
+        cast = lambda a, dt: (*[t if not t.is_floating_point() else t.to(dt) for t in a[:5]],
+                              {k: v.to(dt) for k, v in a[5].items()}, *a[6:])
+        args16 = cast(args, torch.bfloat16)
+        args32 = cast(args16, torch.float32)          # the same values in f32
+        kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
+        with torch.inference_mode():
+            k16 = kla._launch(*args16)
+            k32 = kla._launch(*args32)
+            p16 = kla.reference_layer_kernel(*args16)
+            p32 = kla.reference_local_attention(*args32)
+            again = kla._launch(*args16, outputs=tuple(torch.full_like(t, float("nan"))
+                                                        for t in k16))
+            torch.cuda.synchronize()
+        tag = f"phase 14 #5 bf16 B={B} M={M} N={N} D={D}"
+        order = lambda o: (o[0], o[2], o[1])           # out, attn, geometry
+        worst[5] = max(worst[5], hold_bf16(tag, order(k16), order(p16), order(p32), order(k32),
+                                           failures))
+        if not all(torch.equal(a, b) for a, b in zip(again, k16)):
+            failures.append(f"{tag}: a relaunch into NaN-filled outputs differs")
+        if M == 96:
+            with torch.inference_mode():
+                times[5] = in_turns_ms(lambda: kla._launch(*args32), lambda: kla._launch(*args16),
+                                       3, 10)
+                plain_ms[5] = cuda_ms(lambda: kla.reference_layer_kernel(*args16), 3)
+            nbytes = (tensor_bytes(args16[:4], args16[5].values())
+                      + 2 * (args16[0].numel() + B * M * N * H + args16[2].numel()))
+            work[5] = (kla.layer_flops(B, M, N, D, True), kla.layer_fp32_flops(B, M, N, D), nbytes)
+
+    # ---- the main path: bf16 models served through PredictionServer --------------
+    qm9 = Scann(ScannConfig(model=qm9_16, hyper=HyperConfig(batch_size=128, target="homo",
+                                                            target_mean=-0.24, target_std=0.022),
+                            tpu=TpuConfig(max_buckets=2)), device="cuda")
+    qm9.init_params(seed=14)
+    mp = Scann(ScannConfig(model=mp_16, hyper=HyperConfig(
+        batch_size=64, target="formation_energy_per_atom", target_mean=-1.5, target_std=1.0)),
+        device="cuda")
+    mp.init_params(seed=14)
+    mols = [Structure(*MOLECULES["benzene"])]
+    # 90 sites: the loop route; 260 (rung M=384): the per-layer route
+    crystals = [Structure(*_random_crystal(np.random.default_rng(14), n)) for n in (90, 260)]
+    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+    for c in counters:
+        c.bf16_launches = 0
+    kla.fused_local_attention.launches = 0
+    _, qm9_answers = bf16_serve("phase 14 bf16 QM9 model", qm9, mols, failures)
+    routes, mp_answers = bf16_serve("phase 14 bf16 MP2018 model", mp, crystals, failures)
+    launches = {1: kfwd.fused_scann_forward.bf16_launches,
+                3: kloop.launch_loop_forward.bf16_launches,
+                5: kla.fused_local_attention.bf16_launches}
+    layer_all = kla.fused_local_attention.launches
+    print(f"phase 14 main path: bf16 launches #1 {launches[1]}, #3 {launches[3]}, #5 "
+          f"{launches[5]}; per-layer kernel launches in all {layer_all} (the layers after the "
+          f"first take f32 centers from the f32 LayerNorm, as the flax model's do)", flush=True)
+    if (min(launches.values()) == 0 or "loop" not in routes or "per_layer" not in routes
+            or layer_all != mp_16.n_attention * routes.count("per_layer")):
+        failures.append(f"phase 14: launches {launches} (per-layer {layer_all}) do not match "
+                        f"the routes {routes}")
+    check_served("phase 14 bf16 QM9 model", qm9, mols, qm9_answers, failures)
+    check_served("phase 14 bf16 MP2018 model", mp, crystals, mp_answers, failures)
+    print(f"phase 14: {time.time() - t0:.1f} s  [{card}]", flush=True)
+    return [bf16_row(f"{n}-bf16", kernel, mod.SOURCE, mod.REPLACES, launches[n], worst[n],
+                     times[n], plain_ms[n], *work[n], card, bf16_products=n != 5)
+            for n, kernel, mod in ((1, "scann_forward", kfwd), (3, "scann_loop", kloop),
+                                   (5, "local_attention", kla))]
 
 
 def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
@@ -2720,6 +3114,10 @@ def main():
     packed_launches = {k: v + crystal_packed[k] for k, v in packed_launches.items()}
     loop_launches, layer_launches = phase8(mp2018, run_dir, failures, card)
 
+    # ---- phase 14: model.dtype bfloat16 ------------------------------------------
+    bf16_rows = phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failures,
+                        card)
+
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -2768,7 +3166,7 @@ def main():
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }]
+    }, *bf16_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "

@@ -62,6 +62,29 @@ from scann_tpu_torch.train.loop import Trainer, _to_device
 
 StructureLike = Union[Structure, str, os.PathLike]
 
+# One INFO line, once a process, when canonical-frame serving first meets a
+# molecule (``scann_tpu/api.py:58-80``): the default rotates molecules to their
+# principal-axes frame, a deliberate output change from the reference's
+# raw-frame featurization, and an operator should read that in the logs.
+_CANONICAL_NOTICE_EMITTED = [False]
+
+
+def _canonical_frame_notice(structs) -> None:
+    if _CANONICAL_NOTICE_EMITTED[0]:
+        return
+    if not any(not s.is_periodic for s in structs):
+        return  # periodic inputs are unaffected by construction
+    _CANONICAL_NOTICE_EMITTED[0] = True
+    import logging
+
+    logging.getLogger(__name__).info(
+        "canonical_frame=True (default since v0.4): molecule inputs are "
+        "rotated to their principal-axes frame before featurization — "
+        "predictions are frame-invariant but not bit-identical to the "
+        "reference's raw-frame featurization. Pass canonical_frame=False "
+        "(CLI: --no-canonical-frame) for reference-bit-compatible output. "
+        "See CHANGELOG.md and benchmarks/canonical_frame_study.json.")
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -527,6 +550,8 @@ class Scann:
         self._require_state("featurize_structures")
         structs = [self._as_structure(s) for s in structs]
         self._check_vocab(structs)
+        if canonical_frame:
+            _canonical_frame_notice(structs)
         cfm = self.config.model
         kw = dict(d_t=d_t, w_t=w_t, angle=cfm.g_update, use_ring=cfm.use_ring,
                   feature=cfm.feature, canonical_frame=canonical_frame)

@@ -6,9 +6,12 @@
 // SCANN distance filter -> key and query projections -> per-head masked
 // softmax over the N neighbours -> masked context sum -> + query ->
 // LayerNorm. Outputs out [B, M, D], the updated geometry [B, M, N, D]
-// (SCANN+) and the attention [B, M, N, H] before the neighbour mask, f32. The
+// (SCANN+) and the attention [B, M, N, H] before the neighbour mask. The
 // eager model runs the rest of the network around it, for shapes and
-// configurations the whole-model kernels refuse.
+// configurations the whole-model kernels refuse. Its tensors are all f32 or
+// all bfloat16 (model.dtype "bfloat16": the TPU kernel on bf16 inputs,
+// local_attention.py:139-205): a bfloat16 instantiation reads them, computes
+// in f32 exactly as the f32 one does and stores its outputs as bfloat16.
 //
 // Bound. At one MP2018 layer (B=64, M=96, N=32, D=128, SCANN+) the layer is
 // ~1.98e10 FLOP, 99.5% of it row products. They run on the tensor cores in
@@ -51,18 +54,20 @@ using namespace scann;
 
 constexpr int kAtomBlocks[] = {64, 48, 32, 16};
 
+// The kernel's tensors, of element type T (float or bfloat16).
+template <typename T>
 struct Args {
-  const float* centers;   // [B, M, D]
+  const T* centers;       // [B, M, D]
   const int* nbr;         // [B, M, N]
-  const float* geometry;  // [B, M, N, D] (SCANN+) or [B, M, N, K] (SCANN)
-  const float* nmask;     // [B, M, N]
-  const float* nweight;   // [B, M, N]    (SCANN)
-  const float* wq;        // [D, D]
-  const float* bq;
-  LayerWeights w;
-  float* out;             // [B, M, D]
-  float* geo_out;         // [B, M, N, D] (SCANN+)
-  float* attn;            // [B, M, N, H]
+  const T* geometry;      // [B, M, N, D] (SCANN+) or [B, M, N, K] (SCANN)
+  const T* nmask;         // [B, M, N]
+  const T* nweight;       // [B, M, N]    (SCANN)
+  const T* wq;            // [D, D]
+  const T* bq;
+  LayerWeightsT<T> w;
+  T* out;                 // [B, M, D]
+  T* geo_out;             // [B, M, N, D] (SCANN+)
+  T* attn;                // [B, M, N, H]
   int B, M, N, D, H, K, g_update, atom_block, chunk_atoms;
   float dk;               // hd ** -scale
 };
@@ -106,37 +111,54 @@ inline Plan make_plan(int B, int M, int N, int D, int H, int g_update, int n_sm)
   return best;
 }
 
+// Four consecutive bfloat16 values (8-byte aligned) as f32.
+__device__ __forceinline__ float4 load4_bf16(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// 4 floats (16 bytes) from global to shared memory: cp.async for f32, a load
+// and a conversion for bfloat16.
+__device__ __forceinline__ void stage4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src) {
+  store4(dst, load4_bf16(src));
+}
+
 // Stages the chunk's rows [0, rows) into sA for fwd_chunk: columns [0, D) the
 // SCANN+ geometry from geo [rows, D], or columns [0, round4(K)) the distance
 // RBF from geo [rows, K] with the pad columns zeroed (mma_gemm reads them);
 // columns [D, 2D) the neighbours' states gathered from the structure's
 // centers cen [M, D] in global memory. All copies of a thread are in flight
-// at once (cp.async, past L1); a K that is not a multiple of 4 leaves the RBF
-// rows unaligned, so they are loaded. Ends with a barrier.
-__device__ __forceinline__ void stage_chunk(const Args& a, float* sA, const float* cen,
-                                            const int* nbr, const float* geo, int rows) {
+// at once (cp.async, past L1; bfloat16 is loaded and converted); a K that is
+// not a multiple of 4 leaves the RBF rows unaligned, so they are loaded.
+// Ends with a barrier.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const Args<T>& a, float* sA, const T* cen,
+                                            const int* nbr, const T* geo, int rows) {
   const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D + 4, q4 = D / 4;
   if (a.g_update) {
     for (int i = tid; i < rows * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
-      cp_async16(sA + r * lda + c, geo + (size_t)r * D + c);
+      stage4(sA + r * lda + c, geo + (size_t)r * D + c);
     }
   } else if ((K & 3) == 0) {
     const int k4 = K / 4;
     for (int i = tid; i < rows * k4; i += kThreads) {
       const int r = i / k4, k = (i - r * k4) * 4;
-      cp_async16(sA + r * lda + k, geo + (size_t)r * K + k);
+      stage4(sA + r * lda + k, geo + (size_t)r * K + k);
     }
   } else {
     const int kp = round4(K);
     for (int i = tid; i < rows * kp; i += kThreads) {
       const int r = i / kp, k = i - r * kp;
-      sA[r * lda + k] = k < K ? __ldg(geo + (size_t)r * K + k) : 0.f;
+      sA[r * lda + k] = k < K ? to_float(__ldg(geo + (size_t)r * K + k)) : 0.f;
     }
   }
   for (int i = tid; i < rows * q4; i += kThreads) {
     const int r = i / q4, c = (i - r * q4) * 4;
-    cp_async16(sA + r * lda + D + c, cen + (size_t)__ldg(nbr + r) * D + c);
+    stage4(sA + r * lda + D + c, cen + (size_t)__ldg(nbr + r) * D + c);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -144,8 +166,9 @@ __device__ __forceinline__ void stage_chunk(const Args& a, float* sA, const floa
 
 // one block per SM (its shared memory takes most of the SM), so the compiler
 // may spend up to 255 registers a thread
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-local_attention_kernel(const Args a) {
+local_attention_kernel(const Args<T> a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
@@ -162,18 +185,18 @@ local_attention_kernel(const Args a) {
   const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
   const ChunkDims cd = {N, D, H, a.K, a.g_update, 0, a.dk};
 
-  const float* centers_b = a.centers + (size_t)b * M * D;
+  const T* centers_b = a.centers + (size_t)b * M * D;
   const int* nbr = a.nbr + (size_t)b * M * N;
-  const float* geometry = a.geometry + (size_t)b * M * N * (a.g_update ? D : a.K);
-  const float* nmask = a.nmask + (size_t)b * M * N;
-  const float* nweight = a.nweight + (size_t)b * M * N;
-  float* geo_out = a.geo_out + (size_t)b * M * N * D;
-  float* attn = a.attn + (size_t)b * M * N * H;
+  const T* geometry = a.geometry + (size_t)b * M * N * (a.g_update ? D : a.K);
+  const T* nmask = a.nmask + (size_t)b * M * N;
+  const T* nweight = a.nweight + (size_t)b * M * N;
+  T* geo_out = a.geo_out + (size_t)b * M * N * D;
+  T* attn = a.attn + (size_t)b * M * N * H;
 
   // the block's centers, then cw = centers @ Wfg[0:D] (SCANN+) and the query
   for (int i = tid; i < ab * q4; i += kThreads) {
     const int m = i / q4, c = (i - m * q4) * 4;
-    cp_async16(work + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
+    stage4(work + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -181,8 +204,9 @@ local_attention_kernel(const Args a) {
     mma_gemm(work, lds, ab, D, a.w.wfg, D, D,
              [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
   mma_gemm(work, lds, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
-    store4(sQ + r * lds + c, make_float4(v.x + a.bq[c], v.y + a.bq[c + 1], v.z + a.bq[c + 2],
-                                         v.w + a.bq[c + 3]));
+    const T* bq = a.bq + c;
+    store4(sQ + r * lds + c, make_float4(v.x + to_float(bq[0]), v.y + to_float(bq[1]),
+                                         v.z + to_float(bq[2]), v.w + to_float(bq[3])));
   });
   __syncthreads();
 
@@ -197,40 +221,39 @@ local_attention_kernel(const Args a) {
 
   for (int i = tid; i < ab * q4; i += kThreads) {
     const int m = i / q4, c = (i - m * q4) * 4;
-    store4(a.out + ((size_t)b * M + ab0 + m) * D + c,
-           *reinterpret_cast<const float4*>(sQ + m * lds + c));
+    T* o = a.out + ((size_t)b * M + ab0 + m) * D + c;
+    const float* v = sQ + m * lds + c;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      store4(reinterpret_cast<float*>(o), *reinterpret_cast<const float4*>(v));
+    } else {
+      __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(q);
+    }
   }
 }
 
-}  // namespace
-
-// ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
-// bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn;
-// dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's
-// plan: atom block, atoms per chunk, shared bytes per block; scalars: dk.
-// The order must match scann_tpu_torch/kernels/local_attention.py.
-extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const float* scalars,
-                                      void* stream) {
-  Args a;
+template <typename T>
+int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_t stream) {
+  Args<T> a;
   int i = 0;
-  a.centers = (const float*)ptrs[i++];
+  a.centers = (const T*)ptrs[i++];
   a.nbr = (const int*)ptrs[i++];
-  a.geometry = (const float*)ptrs[i++];
-  a.nmask = (const float*)ptrs[i++];
-  a.nweight = (const float*)ptrs[i++];
-  a.w.wfg = (const float*)ptrs[i++];
-  a.w.bfg = (const float*)ptrs[i++];
-  a.w.wk = (const float*)ptrs[i++];
-  a.w.bk = (const float*)ptrs[i++];
-  a.wq = (const float*)ptrs[i++];
-  a.bq = (const float*)ptrs[i++];
-  a.w.ln_s = (const float*)ptrs[i++];
-  a.w.ln_b = (const float*)ptrs[i++];
-  a.w.lng_s = (const float*)ptrs[i++];
-  a.w.lng_b = (const float*)ptrs[i++];
-  a.out = (float*)ptrs[i++];
-  a.geo_out = (float*)ptrs[i++];
-  a.attn = (float*)ptrs[i++];
+  a.geometry = (const T*)ptrs[i++];
+  a.nmask = (const T*)ptrs[i++];
+  a.nweight = (const T*)ptrs[i++];
+  a.w.wfg = (const T*)ptrs[i++];
+  a.w.bfg = (const T*)ptrs[i++];
+  a.w.wk = (const T*)ptrs[i++];
+  a.w.bk = (const T*)ptrs[i++];
+  a.wq = (const T*)ptrs[i++];
+  a.bq = (const T*)ptrs[i++];
+  a.w.ln_s = (const T*)ptrs[i++];
+  a.w.ln_b = (const T*)ptrs[i++];
+  a.w.lng_s = (const T*)ptrs[i++];
+  a.w.lng_b = (const T*)ptrs[i++];
+  a.out = (T*)ptrs[i++];
+  a.geo_out = (T*)ptrs[i++];
+  a.attn = (T*)ptrs[i++];
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4]; a.K = dims[5];
   a.g_update = dims[6];
   const int n_sm = dims[7];
@@ -248,15 +271,38 @@ extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const 
     return kErrShape;
   const long long blocks = (long long)a.B * ((a.M + a.atom_block - 1) / a.atom_block);
   if (blocks > 0x7fffffffLL) return kErrShape;
-  cudaError_t err = cudaFuncSetAttribute(local_attention_kernel,
+  cudaError_t err = cudaFuncSetAttribute(local_attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  local_attention_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(a);
+  local_attention_kernel<T><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
+// bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn (every
+// float tensor f32 for local_attention_launch, bfloat16 for
+// local_attention_bf16_launch);
+// dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's
+// plan: atom block, atoms per chunk, shared bytes per block; scalars: dk.
+// The order must match scann_tpu_torch/kernels/local_attention.py.
+extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const float* scalars,
+                                      void* stream) {
+  return launch<float>(ptrs, dims, scalars, (cudaStream_t)stream);
+}
+
+extern "C" int local_attention_bf16_launch(void* const* ptrs, const int* dims,
+                                           const float* scalars, void* stream) {
+  return launch<__nv_bfloat16>(ptrs, dims, scalars, (cudaStream_t)stream);
 }
 
 extern "C" const char* local_attention_error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes, or a plan not the kernel's";
   return cudaGetErrorString((cudaError_t)code);
+}
+
+extern "C" const char* local_attention_bf16_error_string(int code) {
+  return local_attention_error_string(code);
 }

@@ -5,7 +5,7 @@
 // eager PyTorch every op of such a chain would be a kernel of its own that
 // streams its operand through HBM, so the chains are written here.
 //
-// Four probes, each a kernel with a plain C launcher:
+// Five probes, each a kernel with a plain C launcher:
 //   - roofline_fma:    CHAINS independent dependent chains y = y * a + b a
 //                      thread (one FP32 FMA each step) on the CUDA cores;
 //   - roofline_exp:    the same with y = expf(-y), the expf the port's
@@ -13,6 +13,9 @@
 //   - roofline_mma:    MMA_CHAINS dependent chains of
 //                      mma.sync.aligned.m16n8k8 TF32 products a warp, from
 //                      registers: the instruction of csrc/scann_mma.cuh;
+//   - roofline_mma_bf16: the same chains of mma.sync.aligned.m16n8k16 with
+//                      bfloat16 operands, the card's dense BF16 rate (the
+//                      bound of the kernels' bf16 operand mode);
 //   - roofline_stream: x = x * a + b over a buffer (a grid-stride loop, four
 //                      float4s a thread in flight), each element read and
 //                      written once a pass.
@@ -25,6 +28,7 @@
 // Each launcher returns cudaGetLastError() after the launch (0 on success)
 // and launches on the stream it is given.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,6 +109,41 @@ __global__ void mma_chain(float* out, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
+__device__ __forceinline__ unsigned to_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+__global__ void mma_bf16_chain(float* out, int iters) {
+  const int lane = threadIdx.x & 31;
+  unsigned a[4], b[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = to_bf16x2(1e-3f * (lane + j), 1e-3f * (lane - j));
+#pragma unroll
+  for (int j = 0; j < 2; ++j) b[j] = to_bf16x2(1e-3f * (lane - j), 1e-3f * (lane + j));
+  float acc[MMA_CHAINS][4];
+#pragma unroll
+  for (int c = 0; c < MMA_CHAINS; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < MMA_UNROLL; ++u) {
+#pragma unroll
+      for (int c = 0; c < MMA_CHAINS; ++c)
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+            : "+f"(acc[c][0]), "+f"(acc[c][1]), "+f"(acc[c][2]), "+f"(acc[c][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < MMA_CHAINS; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 // Four float4s a thread in flight per step of the grid-stride loop: the
 // loads of a step are issued before its stores.
 constexpr int STREAM_UNROLL = 4;
@@ -157,6 +196,11 @@ int roofline_exp(float* out, int blocks, int threads, int iters, cudaStream_t st
 
 int roofline_mma(float* out, int blocks, int threads, int iters, cudaStream_t stream) {
   mma_chain<<<blocks, threads, 0, stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+
+int roofline_mma_bf16(float* out, int blocks, int threads, int iters, cudaStream_t stream) {
+  mma_bf16_chain<<<blocks, threads, 0, stream>>>(out, iters);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,15 @@
 // small products), the per-segment GA readout of a packed slot (structure
 // packing), warp-per-row LayerNorm, the argument block of the whole-model
 // forwards and the parameters of one LocalAttention layer.
+//
+// The bf16 operand mode of the whole-model forwards (model.dtype "bfloat16",
+// scann_tpu/kernels/dots.py) rounds both operands of every product to
+// bfloat16 (bf16r) and accumulates in f32; the helpers that take part in a
+// product have a template switch for it (kBf16), off by default.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -44,12 +50,44 @@ __device__ __forceinline__ void store4(float* dst, float4 v) {
   *reinterpret_cast<float4*>(dst) = v;
 }
 
+// x rounded to bfloat16 (to nearest, ties to even) and back to f32: the
+// operand rounding of the bf16 mode.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x rounded by the operand policy: bf16r in the bf16 mode, unchanged otherwise.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  return kBf16 ? bf16r(x) : x;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  return kBf16 ? make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w)) : v;
+}
+
+// Element types of the per-layer kernel's tensors (float or bfloat16): to
+// and from the f32 it computes in.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // out[r][c] = sum_k A[r * lda + k] * W[k * ldw + c] for r < rows (<= 64),
 // c < nc (a multiple of 4, <= 128). A lives in shared memory, W in global
 // memory. Each thread owns up to 8 consecutive rows x 4 columns and hands
 // every finished quad to epi(row, col, value). No barrier inside: the
-// caller synchronises before reading the results.
-template <typename Epi>
+// caller synchronises before reading the results. kBf16: both operands
+// rounded to bfloat16.
+template <bool kBf16 = false, typename Epi>
 __device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int K,
                                           const float* __restrict__ W, int ldw, int nc,
                                           Epi epi) {
@@ -75,7 +113,8 @@ __device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int
     p0 = __ldg(Wc); p1 = __ldg(Wc + ldw4); p2 = __ldg(Wc + 2 * ldw4); p3 = __ldg(Wc + 3 * ldw4);
   }
   for (; k + 4 <= K; k += 4) {
-    const float4 w0 = p0, w1 = p1, w2 = p2, w3 = p3;
+    const float4 w0 = operand4<kBf16>(p0), w1 = operand4<kBf16>(p1), w2 = operand4<kBf16>(p2),
+                 w3 = operand4<kBf16>(p3);
     if (k + 8 <= K) {
       const float4* q = Wc + (size_t)(k + 4) * ldw4;
       p0 = __ldg(q); p1 = __ldg(q + ldw4); p2 = __ldg(q + 2 * ldw4); p3 = __ldg(q + 3 * ldw4);
@@ -83,7 +122,7 @@ __device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       if (i < rpt && r0 + i < rows) {
-        const float4 av = *reinterpret_cast<const float4*>(A + (r0 + i) * lda + k);
+        const float4 av = operand4<kBf16>(*reinterpret_cast<const float4*>(A + (r0 + i) * lda + k));
         acc[i][0] = fmaf(av.x, w0.x, acc[i][0]);
         acc[i][1] = fmaf(av.x, w0.y, acc[i][1]);
         acc[i][2] = fmaf(av.x, w0.z, acc[i][2]);
@@ -104,11 +143,11 @@ __device__ __forceinline__ void tile_gemm(const float* A, int lda, int rows, int
     }
   }
   for (; k < K; ++k) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)k * ldw + c));
+    const float4 w = operand4<kBf16>(__ldg(reinterpret_cast<const float4*>(W + (size_t)k * ldw + c)));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       if (i < rpt && r0 + i < rows) {
-        const float av = A[(r0 + i) * lda + k];
+        const float av = operand<kBf16>(A[(r0 + i) * lda + k]);
         acc[i][0] = fmaf(av, w.x, acc[i][0]);
         acc[i][1] = fmaf(av, w.y, acc[i][1]);
         acc[i][2] = fmaf(av, w.z, acc[i][2]);
@@ -139,8 +178,10 @@ constexpr int kMaxSegments = 32;
 // out[s * ldo + g] += coef(m) * x[r * ldx + g] over the rows r < rows of the
 // slot (m = m0 + r) with seg[m] = s >= 0, for every s < S and g < G: one
 // thread per column, rows in order. With `first` the thread zeroes its
-// columns of all S rows first. No barrier inside.
-template <typename Coef>
+// columns of all S rows first. kRound: each term rounded to bfloat16 before
+// it is added (a pool as a bf16-mode product, scann_tpu/kernels/scann_loop.py:375).
+// No barrier inside.
+template <bool kRound = false, typename Coef>
 __device__ __forceinline__ void seg_pool(float* out, int ldo, int S, const float* x, int ldx,
                                          const int* seg, int m0, int rows, int G, bool first,
                                          Coef coef) {
@@ -149,22 +190,37 @@ __device__ __forceinline__ void seg_pool(float* out, int ldo, int S, const float
       for (int s = 0; s < S; ++s) out[s * ldo + g] = 0.f;
     for (int r = 0; r < rows; ++r) {
       const int s = seg[m0 + r];
-      if (s >= 0) out[s * ldo + g] += coef(m0 + r) * x[r * ldx + g];
+      if (s >= 0) out[s * ldo + g] += operand<kRound>(coef(m0 + r) * x[r * ldx + g]);
     }
   }
 }
 
 // v[s] = the sum of f(m) over the rows m < M with seg[m] = s, for s < S: one
 // warp per segment, lanes strided over the rows, then the warp's butterfly
-// sum, as the unpacked readout sums its rows. No barrier inside.
-template <typename F>
+// sum, as the unpacked readout sums its rows. kRound: each f(m) rounded to
+// bfloat16 first. No barrier inside.
+template <bool kRound = false, typename F>
 __device__ __forceinline__ void seg_sum(float* v, int S, const int* seg, int M, F f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int s = warp; s < S; s += kWarps) {
     float t = 0.f;
     for (int m = lane; m < M; m += 32)
-      if (seg[m] == s) t += f(m);
+      if (seg[m] == s) t += operand<kRound>(f(m));
     t = warp_sum(t);
+    if (lane == 0) v[s] = t;
+  }
+}
+
+// v[s] = the largest f(m) over the rows m < M with seg[m] = s (-inf for an
+// empty segment), one warp per segment. No barrier inside.
+template <typename F>
+__device__ __forceinline__ void seg_max(float* v, int S, const int* seg, int M, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int s = warp; s < S; s += kWarps) {
+    float t = -INFINITY;
+    for (int m = lane; m < M; m += 32)
+      if (seg[m] == s) t = fmaxf(t, f(m));
+    t = warp_max(t);
     if (lane == 0) v[s] = t;
   }
 }
@@ -178,6 +234,13 @@ __device__ __forceinline__ void seg_sum(float* v, int S, const int* seg, int M, 
 // scann_tpu/kernels/scann_forward.py:395-398 shifts it) and divided by the segment's sum (a zero sum, from underflow or
 // on a padded row, counted as 1), and den [S] = those sums. Barriers inside:
 // every thread of the block calls it.
+//
+// kBf16Pools: the pools as the bf16-mode products of the TPU loop kernel
+// (scann_tpu/kernels/scann_loop.py:367-388): each pooled term and each
+// pooled value broadcast back to its rows (qsum, the norm, the softmax sum)
+// rounded to bfloat16, and the softmax shifted by each segment's own max,
+// rounded to bfloat16 (den then holds that max until the sums replace it).
+template <bool kBf16Pools = false>
 __device__ inline void seg_scores(const float* keys, int ldk, const float* diag,
                                   const float* qsum, int ldq, const float* am, const int* seg,
                                   int M, int S, int G, bool ga_norm, float* agg0, float* nrm,
@@ -188,20 +251,33 @@ __device__ inline void seg_scores(const float* keys, int ldk, const float* diag,
     float cross = 0.f;
     if (s >= 0) {
       const float mm = am[m];
-      for (int g = lane; g < G; g += 32) cross += (mm * keys[m * ldk + g]) * qsum[s * ldq + g];
+      for (int g = lane; g < G; g += 32)
+        cross += (mm * keys[m * ldk + g]) * operand<kBf16Pools>(qsum[s * ldq + g]);
     }
     cross = warp_sum(cross);
     if (lane == 0) agg0[m] = s >= 0 ? am[m] * (cross - diag[m]) : 0.f;   // a padded row's mask is 0
   }
   __syncthreads();
-  if (ga_norm) seg_sum(nrm, S, seg, M, [&](int m) { return agg0[m] * agg0[m]; });
+  if (ga_norm) seg_sum<kBf16Pools>(nrm, S, seg, M, [&](int m) { return agg0[m] * agg0[m]; });
   __syncthreads();
   for (int s = tid; s < S; s += kThreads) {
-    const float n = ga_norm ? sqrtf(nrm[s]) : 1.f;
+    const float n = ga_norm ? operand<kBf16Pools>(sqrtf(nrm[s])) : 1.f;
     nrm[s] = n == 0.f ? 1.f : n;   // a single-atom structure: zero sum
   }
   __syncthreads();
-  if (warp == 0) {
+  if (kBf16Pools) {
+    for (int m = tid; m < M; m += kThreads) {
+      const int s = seg[m];
+      ga[m] = (s >= 0 ? agg0[m] / nrm[s] : agg0[m]) + (1.0f - am[m]) * -1e9f;
+    }
+    __syncthreads();
+    seg_max(den, S, seg, M, [&](int m) { return ga[m]; });
+    __syncthreads();
+    for (int m = tid; m < M; m += kThreads) {
+      const int s = seg[m];
+      ga[m] = s >= 0 ? expf(ga[m] - bf16r(den[s])) * am[m] : 0.f;
+    }
+  } else if (warp == 0) {
     float mx = -INFINITY;
     for (int m = lane; m < M; m += 32) {
       const int s = seg[m];
@@ -213,11 +289,11 @@ __device__ inline void seg_scores(const float* keys, int ldk, const float* diag,
     for (int m = lane; m < M; m += 32) ga[m] = expf(ga[m] - mx);
   }
   __syncthreads();
-  seg_sum(den, S, seg, M, [&](int m) { return ga[m]; });
+  seg_sum<kBf16Pools>(den, S, seg, M, [&](int m) { return ga[m]; });
   __syncthreads();
   for (int m = tid; m < M; m += kThreads) {
     const int s = seg[m];
-    const float d = s >= 0 ? den[s] : 0.f;
+    const float d = s >= 0 ? operand<kBf16Pools>(den[s]) : 0.f;
     ga[m] = ga[m] / (d == 0.f ? 1.f : d);
   }
   __syncthreads();
@@ -255,11 +331,13 @@ __device__ inline void seg_scores_backward(const float* dga, const float* ga,
 
 // The property head of one pooled row struc [G]: sb [O] = swish(sbf = struc
 // @ Wbf + bbf) (sbf kept when non-null), then pred = sb . wp + bp (mrelu on
-// request), returned to thread 0 (0 elsewhere). Barriers inside.
+// request), returned to thread 0 (0 elsewhere); kBf16: both products in the
+// bf16 operand mode. Barriers inside.
+template <bool kBf16 = false>
 __device__ inline float seg_head(const float* struc, int G, int O, const float* wbf,
                                  const float* bbf, const float* wp, const float* bp, bool mrelu,
                                  float* sbf, float* sb) {
-  tile_gemm(struc, G, 1, G, wbf, O, O, [&](int r, int c, float4 v) {
+  tile_gemm<kBf16>(struc, G, 1, G, wbf, O, O, [&](int r, int c, float4 v) {
     const float4 s = make_float4(v.x + bbf[c], v.y + bbf[c + 1], v.z + bbf[c + 2], v.w + bbf[c + 3]);
     if (sbf) *reinterpret_cast<float4*>(sbf + c) = s;
     *reinterpret_cast<float4*>(sb + c) =
@@ -268,7 +346,7 @@ __device__ inline float seg_head(const float* struc, int G, int O, const float* 
   __syncthreads();
   float p = 0.f;
   if (threadIdx.x < 32) {
-    for (int o = threadIdx.x; o < O; o += 32) p += sb[o] * wp[o];
+    for (int o = threadIdx.x; o < O; o += 32) p += operand<kBf16>(sb[o]) * operand<kBf16>(wp[o]);
     p = warp_sum(p) + bp[0];
     if (mrelu) p = fmaxf(p, 0.f);
   }
@@ -362,12 +440,15 @@ __device__ inline SegVectors seg_vectors(float* p, int S, int ld, int M, int O, 
 // Adds rows m0 .. m0 + rows of a packed slot to their segments' sums of
 // mask q (v.qsum, zeroed first with `first`) and writes their diag =
 // (mask k) . (mask q). q [rows, ldq] holds those rows' GA queries; keys the
-// slot's GA keys, row m at keys + m * ldk. No barrier inside.
+// slot's GA keys, row m at keys + m * ldk. kBf16Pools: the pool's terms
+// rounded to bfloat16 (seg_scores). No barrier inside.
+template <bool kBf16Pools = false>
 __device__ inline void seg_queries(const SegVectors& v, int S, const float* q, int ldq,
                                    const float* keys, int ldk, const float* am, const int* seg,
                                    int m0, int rows, int G, bool first) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  seg_pool(v.qsum, v.ld, S, q, ldq, seg, m0, rows, G, first, [&](int m) { return am[m]; });
+  seg_pool<kBf16Pools>(v.qsum, v.ld, S, q, ldq, seg, m0, rows, G, first,
+                       [&](int m) { return am[m]; });
   for (int r = warp; r < rows; r += kWarps) {
     const float mm = am[m0 + r];
     float dg = 0.f;
@@ -379,18 +460,22 @@ __device__ inline void seg_queries(const SegVectors& v, int S, const float* q, i
 
 // The forward readout of a packed slot once seg_queries has seen every row:
 // the GA scores (v.ga), the pooled rows and the head per segment; pred [S]
-// is written by thread 0 when non-null. Barriers inside.
+// is written by thread 0 when non-null. kBf16: the head's products in the
+// bf16 operand mode; kBf16Pools: the pools too (seg_scores). Barriers inside.
+template <bool kBf16 = false, bool kBf16Pools = false>
 __device__ inline void seg_readout_forward(const SegVectors& v, const float* keys, int ldk,
                                            const float* am, const int* seg, int M, int S, int G,
                                            int O, bool ga_norm, const float* wbf,
                                            const float* bbf, const float* wp, const float* bp,
                                            bool mrelu, float* pred) {
-  seg_scores(keys, ldk, v.diag, v.qsum, v.ld, am, seg, M, S, G, ga_norm, v.agg0, v.nrm, v.ga,
-             v.den);
-  seg_pool(v.struc, v.ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return am[m] * v.ga[m]; });
+  seg_scores<kBf16Pools>(keys, ldk, v.diag, v.qsum, v.ld, am, seg, M, S, G, ga_norm, v.agg0,
+                         v.nrm, v.ga, v.den);
+  seg_pool<kBf16Pools>(v.struc, v.ld, S, keys, ldk, seg, 0, M, G, true,
+                       [&](int m) { return am[m] * v.ga[m]; });
   __syncthreads();
   for (int s = 0; s < S; ++s) {
-    const float p = seg_head(v.struc + s * v.ld, G, O, wbf, bbf, wp, bp, mrelu, nullptr, v.sb);
+    const float p =
+        seg_head<kBf16>(v.struc + s * v.ld, G, O, wbf, bbf, wp, bp, mrelu, nullptr, v.sb);
     if (threadIdx.x == 0 && pred) pred[s] = p;
   }
 }
@@ -459,9 +544,11 @@ __device__ inline void seg_query_key_grads(const SegVectors& v, float* q, int ld
 }
 
 // Two-pass LayerNorm (eps 1e-6) of one row of D <= 128 values held by a
-// warp, lane l holding elements l, l+32, l+64, l+96.
-__device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const float* gamma,
-                                                const float* beta, int lane) {
+// warp, lane l holding elements l, l+32, l+64, l+96; gamma and beta of
+// element type T (float or bfloat16).
+template <typename T>
+__device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const T* gamma,
+                                                const T* beta, int lane) {
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -478,7 +565,7 @@ __device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const floa
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int d = lane + 32 * i;
-    if (d < D) v[i] = (v[i] - mean) * inv * gamma[d] + beta[d];
+    if (d < D) v[i] = (v[i] - mean) * inv * to_float(gamma[d]) + to_float(beta[d]);
   }
 }
 
@@ -595,17 +682,20 @@ inline void unpack_forward_args(ForwardArgs& a, void* const* ptrs, const int* di
   a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
 }
 
-// The parameters of one LocalAttention layer.
-struct LayerWeights {
-  const float* wfg;     // [3D, D] (SCANN+) or [K, D] (SCANN)
-  const float* bfg;
-  const float* wk;      // [D, D]
-  const float* bk;
-  const float* ln_s;
-  const float* ln_b;
-  const float* lng_s;   // geometry LayerNorm (SCANN+)
-  const float* lng_b;
+// The parameters of one LocalAttention layer, of element type T (float, or
+// bfloat16 in the per-layer kernel).
+template <typename T>
+struct LayerWeightsT {
+  const T* wfg;     // [3D, D] (SCANN+) or [K, D] (SCANN)
+  const T* bfg;
+  const T* wk;      // [D, D]
+  const T* bk;
+  const T* ln_s;
+  const T* ln_b;
+  const T* lng_s;   // geometry LayerNorm (SCANN+)
+  const T* lng_b;
 };
+using LayerWeights = LayerWeightsT<float>;
 
 // The LocalAttention parameters of layer l of the stacked [L, ...] arrays.
 __device__ __forceinline__ LayerWeights layer_weights(const ForwardArgs& a, int l) {

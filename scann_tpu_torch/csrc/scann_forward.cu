@@ -40,6 +40,13 @@
 //   warp per (atom, head) for the softmax, one thread per (atom, column) for
 //   the context.
 //
+// bf16 operand mode (model.dtype "bfloat16"): a second instantiation of the
+// kernel, kBf16, rounds the operands of every product to bfloat16 and sums in
+// f32, where and as the TPU kernel's dots do (scann_forward_common.cuh);
+// params, inputs, LayerNorm, softmax and swish stay f32. The packed readout's
+// segment pools stay exact sums (the TPU kernel's mm_hi, l.375-379); its head
+// products take the mode.
+//
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory / kErrShape).
@@ -80,6 +87,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
 
 // one block per SM (its shared memory takes most of the SM), so the
 // compiler may spend up to 255 registers a thread
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_forward_kernel(const Args a) {
   extern __shared__ float4 smem4[];
@@ -115,8 +123,8 @@ scann_forward_kernel(const Args a) {
 
   // ---- atom embedding -> centers = swish(emb @ Wde + bde) ----------------
   const int ke = a.E + (a.use_ring ? 10 : 0);
-  fwd_stage_embedding(a, b, 0, M, work, P.lde, work + M * P.lde, P.ldf);
-  mma_gemm(work, P.lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+  fwd_stage_embedding<kBf16>(a, b, 0, M, work, P.lde, work + M * P.lde, P.ldf);
+  mma_gemm<kBf16>(work, P.lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
     const float4 m = mask4(0, r, c);
     store4(sC + r * ldm + c,
            make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
@@ -125,7 +133,7 @@ scann_forward_kernel(const Args a) {
   __syncthreads();
 
   // ---- SCANN+ geometry embedding -> global scratch -----------------------
-  if (a.g_update) fwd_embed_geometry(a, sA, sU, ndist, nweight, geo_b, 0, M);
+  if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, 0, M);
 
   // ---- L x (LocalAttention + ResidualNorm) -------------------------------
   for (int l = 0; l < a.L; ++l) {
@@ -135,16 +143,17 @@ scann_forward_kernel(const Args a) {
 
     // per-atom projections: cw = centers @ Wfg[0:D] (SCANN+), query
     if (a.g_update)
-      mma_gemm(sC, ldm, M, D, w.wfg, D, D, [&](int r, int c, float4 v) { store4(sW + r * ldm + c, v); });
-    mma_gemm(sC, ldm, M, D, wq, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sC, ldm, M, D, w.wfg, D, D,
+                      [&](int r, int c, float4 v) { store4(sW + r * ldm + c, v); });
+    mma_gemm<kBf16>(sC, ldm, M, D, wq, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * ldm + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
     });
     __syncthreads();
 
     for (int m0 = 0; m0 < M; m0 += CA) {
       const int ca = min(CA, M - m0), base = m0 * N;
-      fwd_stage_chunk(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
-      fwd_chunk(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm,
+      fwd_stage_chunk<kBf16>(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
+      fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm,
                 nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
                 nullptr, [&](int at, int n, int h) {
                   return scann_philox::mask_value(
@@ -155,7 +164,7 @@ scann_forward_kernel(const Args a) {
 
     // ResidualNorm: centers = LN(out + swish(out @ W1 + b1) @ W2 + b2); the
     // centers of this layer are no longer needed, so they take h2
-    fwd_residual_norm(a, l, M, sQ, sW, sC, ldm,
+    fwd_residual_norm<kBf16>(a, l, M, sQ, sW, sC, ldm,
                       [&](int r, int c) { return mask4(1 + l, r, c); },
                       [&](int m, const float (&v)[4]) {
 #pragma unroll
@@ -165,16 +174,16 @@ scann_forward_kernel(const Args a) {
   }
 
   // ---- readout: after_Lc, GA scores, pooled context, head ----------------
-  mma_gemm(sC, ldm, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sC, ldm, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
     store4(sW + r * ldm + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                          swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
   });
   __syncthreads();
-  mma_gemm(sW, ldm, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sW, ldm, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
     store4(sQ + r * ldm + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                          v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
   });
-  mma_gemm(sW, ldm, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sW, ldm, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
     store4(sC + r * ldm + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                          v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
   });
@@ -185,8 +194,8 @@ scann_forward_kernel(const Args a) {
     const SegVectors v = seg_vectors(sMisc, a.S, ldm, M, O, false);
     seg_queries(v, a.S, sQ, ldm, sC, ldm, am, sid, 0, M, G, true);
     __syncthreads();
-    seg_readout_forward(v, sC, ldm, am, sid, M, a.S, G, O, a.ga_norm, a.wbf, a.bbf, a.wp, a.bp,
-                        a.mrelu, a.pred + (size_t)b * a.S);
+    seg_readout_forward<kBf16, false>(v, sC, ldm, am, sid, M, a.S, G, O, a.ga_norm, a.wbf, a.bbf,
+                                      a.wp, a.bp, a.mrelu, a.pred + (size_t)b * a.S);
     for (int m = tid; m < M; m += kThreads) a.ga[(size_t)b * M + m] = v.ga[m];
     return;
   }
@@ -245,14 +254,14 @@ scann_forward_kernel(const Args a) {
     struc[g] = s;
   }
   __syncthreads();
-  tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+  tile_gemm<kBf16>(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
     store4(hid + c, make_float4(swishf(v.x + a.bbf[c]), swishf(v.y + a.bbf[c + 1]),
                                 swishf(v.z + a.bbf[c + 2]), swishf(v.w + a.bbf[c + 3])));
   });
   __syncthreads();
   if (warp == 0) {
     float p = 0.f;
-    for (int o = lane; o < O; o += 32) p += hid[o] * a.wp[o];
+    for (int o = lane; o < O; o += 32) p += operand<kBf16>(hid[o]) * operand<kBf16>(a.wp[o]);
     p = warp_sum(p) + a.bp[0];
     if (a.mrelu) p = fmaxf(p, 0.f);
     if (lane == 0) a.pred[b] = p;
@@ -263,16 +272,19 @@ scann_forward_kernel(const Args a) {
 
 // The 49 pointers, 20 sizes, 4 scalars and 4 random-stream words are those of
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the segment
-// ids [B, M] (null unless packed), and size 20, the segments per slot S; in
-// the order scann_tpu_torch/kernels/scann_forward.py passes them. Size 17
-// (the chunk buffer) is the work region of make_plan.
+// ids [B, M] (null unless packed), size 20, the segments per slot S, and size
+// 21, the bf16 operand mode (0 or 1); in the order
+// scann_tpu_torch/kernels/scann_forward.py passes them. Size 17 (the chunk
+// buffer) is the work region of make_plan.
 extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const float* scalars,
                                     const unsigned int* rng, void* stream) {
   Args a;
   unpack_forward_args(a, ptrs, dims, scalars, rng);
   a.seg = (const int*)ptrs[49];
   a.S = dims[20];
+  const int bf16 = dims[21];
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
+  if (bf16 & ~1) return kErrShape;
 
   if (a.M > 64 || a.M < 1 || a.N < 1 || a.chunk_atoms < 1 || a.chunk_atoms > a.M ||
       a.chunk_atoms * a.N > kFwdMaxChunkRows || a.D > 128 || a.G > 128 ||
@@ -282,10 +294,11 @@ extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const fl
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  cudaError_t err = cudaFuncSetAttribute(scann_forward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const auto kernel = bf16 ? scann_forward_kernel<true> : scann_forward_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  scann_forward_kernel<<<a.B, kThreads, bytes, (cudaStream_t)stream>>>(a);
+  kernel<<<a.B, kThreads, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

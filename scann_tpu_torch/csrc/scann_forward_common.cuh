@@ -21,6 +21,19 @@
 // the geometry). Every sum runs
 // in a fixed order, so a launch repeats bit for bit.
 //
+// The bf16 operand mode (kBf16, model.dtype "bfloat16" in the whole-model
+// forwards): every product through mma_gemm<true> (both operands rounded to
+// bfloat16, one TF32 pass), and the operands the TPU kernels form as products
+// but this code does not are rounded where they arise, as
+// scann_tpu/kernels/scann_forward.py:_kernel and scann_loop.py:_fwd_kernel
+// compute them: the gathered neighbour states (a one-hot product there), each
+// q * k lane before the head sum of the energies (a product with the 0/1
+// head map), the attention before the context sum (its expansion to lanes),
+// the embedding row (a one-hot product) and the ring embedding's operands.
+// The per-layer kernel runs with kBf16 off on tensors of element type T
+// (float or bfloat16): it computes in f32 as the TPU kernel does with bf16
+// inputs (scann_tpu/kernels/local_attention.py:139) and stores T.
+//
 // The chunk's buffers (fwd_chunk_floats):
 //   sA [rows, 2D + 4]: columns [0, D) the geometry (SCANN+) or [0, K) the
 //                      distance RBF (SCANN), columns [D, 2D) the neighbours'
@@ -112,7 +125,9 @@ __device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, co
 // block; all of a thread's copies in flight at once, past L1) or the distance
 // RBF (pad columns up to a multiple of 4 zeroed), and the neighbours' states
 // gathered as float4 from the centers cen [M, ldc] in shared memory, eight
-// loads a thread before their stores. Ends with a barrier.
+// loads a thread before their stores (rounded to bfloat16 with kBf16). Ends
+// with a barrier.
+template <bool kBf16>
 __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA, const float* cen,
                                                 int ldc, const int* nbr, const float* ndist,
                                                 const float* geo_b, int base, int rows) {
@@ -145,7 +160,7 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = i0 + j * kThreads, r = i / q4, c = (i - r * q4) * 4;
-      if (i < total) store4(sA + r * lda + D + c, v[j]);
+      if (i < total) store4(sA + r * lda + D + c, operand4<kBf16>(v[j]));
     }
   }
   if (a.g_update) cp_async_wait_all();
@@ -159,30 +174,32 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
 // in sQ; geo_out [rows, D] (or null: the last layer) takes the updated
 // geometry (SCANN+), attn_out [rows, H] (or null) the attention before the
 // neighbour mask and the dropout; drop(atom, n, h) is the factor of the
-// attention dropout. Ends with a barrier.
-template <typename Drop>
-__device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights& w, int ca,
+// attention dropout. kBf16: the operand mode; T: the element type of the
+// weights, masks and outputs. Ends with a barrier.
+template <bool kBf16 = false, typename T, typename Drop>
+__device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeightsT<T>& w, int ca,
                                           float* sA, float* sU, float* sE, const float* sCW,
-                                          float* sQ, int ldq, const float* nmask,
-                                          const float* nweight, float* geo_out, float* attn_out,
-                                          Drop drop) {
+                                          float* sQ, int ldq, const T* nmask, const T* nweight,
+                                          T* geo_out, T* attn_out, Drop drop) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4, ldu = D + 4;
   const int rows = ca * N;
   if (a.g_update) {
     // u = cw + [geo | ns] @ Wfg[D:3D] + b; geo' = LN_g(swish(u) + geo); kin = ns * geo'
-    mma_gemm(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
       const float* cw = sCW + (r / N) * ldq + c;
-      store4(sU + r * ldu + c, make_float4(cw[0] + v.x + w.bfg[c], cw[1] + v.y + w.bfg[c + 1],
-                                           cw[2] + v.z + w.bfg[c + 2], cw[3] + v.w + w.bfg[c + 3]));
+      const T* b = w.bfg + c;
+      store4(sU + r * ldu + c,
+             make_float4(cw[0] + v.x + to_float(b[0]), cw[1] + v.y + to_float(b[1]),
+                         cw[2] + v.z + to_float(b[2]), cw[3] + v.w + to_float(b[3])));
     });
     __syncthreads();
     float g[4], bt[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int d = lane + 32 * i;
-      g[i] = d < D ? w.lng_s[d] : 0.f;
-      bt[i] = d < D ? w.lng_b[d] : 0.f;
+      g[i] = d < D ? to_float(w.lng_s[d]) : 0.f;
+      bt[i] = d < D ? to_float(w.lng_b[d]) : 0.f;
     }
     // four rows of the warp together: r0, r0 + kWarps, ...
     constexpr int kRows = 4;
@@ -206,7 +223,7 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
         for (int i = 0; i < 4; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
-            if (geo_out) geo_out[(size_t)r * D + d] = v[j][i];
+            if (geo_out) geo_out[(size_t)r * D + d] = from_float<T>(v[j][i]);
             sU[r * ldu + d] = sA[r * lda + D + d] * v[j][i];
           }
         }
@@ -214,23 +231,29 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
     }
   } else {
     // kin = ns * (swish(rbf(d) @ Wfg + b) * weight)
-    mma_gemm(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
       const float* ns = sA + r * lda + D + c;
-      const float wt = nweight[r];
+      const T* b = w.bfg + c;
+      const float wt = to_float(nweight[r]);
       store4(sU + r * ldu + c,
-             make_float4(ns[0] * (swishf(v.x + w.bfg[c]) * wt), ns[1] * (swishf(v.y + w.bfg[c + 1]) * wt),
-                         ns[2] * (swishf(v.z + w.bfg[c + 2]) * wt), ns[3] * (swishf(v.w + w.bfg[c + 3]) * wt)));
+             make_float4(ns[0] * (swishf(v.x + to_float(b[0])) * wt),
+                         ns[1] * (swishf(v.y + to_float(b[1])) * wt),
+                         ns[2] * (swishf(v.z + to_float(b[2])) * wt),
+                         ns[3] * (swishf(v.w + to_float(b[3])) * wt)));
     });
   }
   __syncthreads();
   // key = kin @ Wk + bk, into the neighbour half of sA
-  mma_gemm(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
-    store4(sA + r * lda + D + c, make_float4(v.x + w.bk[c], v.y + w.bk[c + 1],
-                                             v.z + w.bk[c + 2], v.w + w.bk[c + 3]));
+  mma_gemm<kBf16>(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+    const T* b = w.bk + c;
+    store4(sA + r * lda + D + c, make_float4(v.x + to_float(b[0]), v.y + to_float(b[1]),
+                                             v.z + to_float(b[2]), v.w + to_float(b[3])));
   });
   __syncthreads();
   // energies (query * dk) . key - 1e9 (1 - nmask) and the max-shifted softmax
-  // over the neighbours, one warp per (atom, head); stores attn * nmask
+  // over the neighbours, one warp per (atom, head); stores attn * nmask. The
+  // bf16 mode rounds each lane's product before the head sum and the
+  // attention before the context.
   for (int i = warp; i < ca * H; i += kWarps) {
     const int at = i / H, h = i - at * H;
     const float* q = sQ + at * ldq + h * hd;
@@ -242,10 +265,12 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
       nm[j] = 0.f;
       if (n < N) {
         const int r = at * N + n;
-        nm[j] = nmask[r];
+        nm[j] = to_float(nmask[r]);
         const float* kk = sA + r * lda + D + h * hd;
         float s = 0.f;
-        if ((hd & 3) == 0) {
+        if (kBf16) {
+          for (int t = 0; t < hd; ++t) s += bf16r((q[t] * a.dk) * kk[t]);
+        } else if ((hd & 3) == 0) {
           for (int t = 0; t < hd; t += 4) {
             const float4 qv = *reinterpret_cast<const float4*>(q + t);
             const float4 kv = *reinterpret_cast<const float4*>(kk + t);
@@ -271,8 +296,8 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
       const int n = lane + 32 * j;
       if (n < N) {
         const float pr = p[j] / tot;
-        if (attn_out) attn_out[(size_t)(at * N + n) * H + h] = pr;
-        sE[(at * N + n) * H + h] = (a.attn_dropout ? pr * drop(at, n, h) : pr) * nm[j];
+        if (attn_out) attn_out[(size_t)(at * N + n) * H + h] = from_float<T>(pr);
+        sE[(at * N + n) * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(at, n, h) : pr) * nm[j];
       }
     }
   }
@@ -305,7 +330,8 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
 // SCANN+ geometry embedding of atoms [m_lo, m_hi) of one structure, chunk by
 // chunk of CA atoms into its global scratch geo_b [M * N, D]:
 //   geo = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw).
-// sA and sU are the chunk buffers; ends with a barrier.
+// sA and sU are the chunk buffers; kBf16 the operand mode. Ends with a barrier.
+template <bool kBf16>
 __device__ __forceinline__ void fwd_embed_geometry(const ForwardArgs& a, float* sA, float* sU,
                                                    const float* ndist, const float* nweight,
                                                    float* geo_b, int m_lo, int m_hi) {
@@ -327,12 +353,12 @@ __device__ __forceinline__ void fwd_embed_geometry(const ForwardArgs& a, float* 
       sA[r * lda + D + k] = vw;
     }
     __syncthreads();
-    mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
       store4(sU + r * ldu + c, make_float4(swishf(v.x + a.bnd[c]), swishf(v.y + a.bnd[c + 1]),
                                            swishf(v.z + a.bnd[c + 2]), swishf(v.w + a.bnd[c + 3])));
     });
     __syncthreads();
-    mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
       const float* de = sU + r * ldu + c;
       store4(geo_b + (size_t)(base + r) * D + c,
              make_float4(de[0] * swishf(v.x + a.bnw[c]), de[1] * swishf(v.y + a.bnw[c + 1]),
@@ -344,8 +370,10 @@ __device__ __forceinline__ void fwd_embed_geometry(const ForwardArgs& a, float* 
 
 // The embedding operand of atoms [ab0, ab0 + ab) of structure b: sEmb [ab,
 // lde] = [lookup or cgcnn dense | ring embedding | zeros up to lde]; sFeat
-// [ab, ldf] stages the cgcnn features. The caller multiplies by Wde. Ends
-// with a barrier.
+// [ab, ldf] stages the cgcnn features. The caller multiplies by Wde. kBf16:
+// the operand mode (the looked-up row and the ring embedding's operands
+// rounded). Ends with a barrier.
+template <bool kBf16>
 __device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b, int ab0, int ab,
                                                     float* sEmb, int lde, float* sFeat, int ldf) {
   const int tid = threadIdx.x, M = a.M, E = a.E, ke = E + (a.use_ring ? 10 : 0);
@@ -356,21 +384,22 @@ __device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b,
       sFeat[i] = f < F ? a.feat[((size_t)b * M + ab0 + m) * F + f] : 0.f;
     }
     __syncthreads();
-    mma_gemm(sFeat, ldf, ab, F, a.embed, E, E, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sFeat, ldf, ab, F, a.embed, E, E, [&](int r, int c, float4 v) {
       store4(sEmb + r * lde + c, make_float4(v.x + a.bembed[c], v.y + a.bembed[c + 1],
                                              v.z + a.bembed[c + 2], v.w + a.bembed[c + 3]));
     });
   } else {
     for (int i = tid; i < ab * E; i += kThreads) {
       const int m = i / E, e = i - m * E;
-      sEmb[m * lde + e] = a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * E + e];
+      sEmb[m * lde + e] = operand<kBf16>(a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * E + e]);
     }
   }
   if (a.use_ring) {
     for (int i = tid; i < ab * 10; i += kThreads) {
       const int m = i / 10, j = i - m * 10;
       const float* ra = a.ring + ((size_t)b * M + ab0 + m) * 2;
-      sEmb[m * lde + E + j] = ra[0] * a.wring[j] + ra[1] * a.wring[10 + j] + a.bring[j];
+      sEmb[m * lde + E + j] = operand<kBf16>(ra[0]) * operand<kBf16>(a.wring[j]) +
+                              operand<kBf16>(ra[1]) * operand<kBf16>(a.wring[10 + j]) + a.bring[j];
     }
   }
   for (int i = tid; i < ab * (lde - ke); i += kThreads) {   // keep the pad columns finite
@@ -385,19 +414,20 @@ __device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b,
 // [ab, ld] are scratch (sH2 may be the centers the block no longer needs);
 // mask(c-quad) is the residual dropout of row r, and out(r, v) takes each
 // finished row as a warp's four values per lane (v[i] at column lane + 32 i).
-template <typename Mask, typename Out>
+// kBf16: the operand mode.
+template <bool kBf16, typename Mask, typename Out>
 __device__ __forceinline__ void fwd_residual_norm(const ForwardArgs& a, int l, int ab,
                                                   const float* sO, float* sH1, float* sH2, int ld,
                                                   Mask mask, Out out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, D = a.D;
   const float* br1 = a.br1 + (size_t)l * D;
   const float* br2 = a.br2 + (size_t)l * D;
-  mma_gemm(sO, ld, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sO, ld, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
     store4(sH1 + r * ld + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                          swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
   });
   __syncthreads();
-  mma_gemm(sH1, ld, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sH1, ld, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
     const float4 m = mask(r, c);
     store4(sH2 + r * ld + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                          (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));

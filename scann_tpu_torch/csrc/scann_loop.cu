@@ -47,6 +47,14 @@
 //   each block the GA scores of its own atoms. Launches at one C repeat bit
 //   for bit.
 //
+// bf16 operand mode (model.dtype "bfloat16"): a second instantiation, kBf16,
+// rounds the operands of every product to bfloat16 and sums in f32 where and
+// as the TPU kernel's dots do (scann_forward_common.cuh). Unlike the
+// molecule kernel, the TPU loop kernel pools a packed slot's segments with
+// bf16-mode products (scann_loop.py:367-395), so here the pools round their
+// terms and pooled values too, and the softmax is shifted by each segment's
+// own max rounded to bfloat16 (seg_scores<true>).
+//
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory / kErrShape).
@@ -96,6 +104,7 @@ __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   return p;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   extern __shared__ float4 smem4[];
@@ -154,8 +163,8 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   const int ke = a.E + (a.use_ring ? 10 : 0);
   for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
     const int ab = min(AB, m_hi - ab0);
-    fwd_stage_embedding(a, b, ab0, ab, work, P.lde, work + AB * P.lde, P.ldf);
-    mma_gemm(work, P.lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    fwd_stage_embedding<kBf16>(a, b, ab0, ab, work, P.lde, work + AB * P.lde, P.ldf);
+    mma_gemm<kBf16>(work, P.lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
       store4(next_b + (size_t)(ab0 + r) * D + c,
              make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
@@ -165,7 +174,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   }
 
   // ---- SCANN+ geometry embedding of this block's atoms -> global scratch --
-  if (a.g_update) fwd_embed_geometry(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
+  if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
   cluster_barrier();
   load_centers();
   cluster_barrier();
@@ -180,9 +189,9 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
       const int ab = min(AB, m_hi - ab0);
       // per-atom projections of the block: cw = centers @ Wfg[0:D] (SCANN+), query
       if (a.g_update)
-        mma_gemm(sC + ab0 * wd, wd, ab, D, w.wfg, D, D,
-                 [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
-      mma_gemm(sC + ab0 * wd, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
+        mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, w.wfg, D, D,
+                        [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+      mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
         store4(sQ + r * lds + c,
                make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
       });
@@ -190,8 +199,8 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
 
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-        fwd_stage_chunk(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
-        fwd_chunk(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
+        fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
+        fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
                   sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
                   l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
                   [&](int at, int n, int h) {
@@ -202,7 +211,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
       }
 
       // ResidualNorm of the block: next = LN(out + swish(out @ W1 + b1) @ W2 + b2)
-      fwd_residual_norm(a, l, ab, sQ, sW, work, lds,
+      fwd_residual_norm<kBf16>(a, l, ab, sQ, sW, work, lds,
                         [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
                         [&](int m, const float (&v)[4]) {
 #pragma unroll
@@ -235,23 +244,23 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
     for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
   for (int ab0 = 0; ab0 < M; ab0 += AB) {
     const int ab = min(AB, M - ab0);
-    mma_gemm(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
       store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                           swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
     });
     __syncthreads();
     // the block's GA queries, and its GA keys in place of its centers
-    mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
       store4(sQ + r * lds + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                            v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
     });
-    mma_gemm(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
       store4(sC + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                                   v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
     __syncthreads();
     if (S) {
-      seg_queries(v, S, sQ, lds, sC, wd, am, sid, ab0, ab, G, ab0 == 0);
+      seg_queries<kBf16>(v, S, sQ, lds, sC, wd, am, sid, ab0, ab, G, ab0 == 0);
     } else {
       for (int g = tid; g < G; g += kThreads) {
         float s = qsum[g];
@@ -270,8 +279,9 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
     __syncthreads();
   }
   if (S) {
-    seg_readout_forward(v, sC, wd, am, sid, M, S, G, O, a.ga_norm, a.wbf, a.bbf, a.wp, a.bp,
-                        a.mrelu, rank == 0 ? a.pred + (size_t)b * S : nullptr);
+    seg_readout_forward<kBf16, kBf16>(v, sC, wd, am, sid, M, S, G, O, a.ga_norm, a.wbf, a.bbf,
+                                      a.wp, a.bp, a.mrelu,
+                                      rank == 0 ? a.pred + (size_t)b * S : nullptr);
     for (int m = m_lo + tid; m < m_hi; m += kThreads) a.ga[(size_t)b * M + m] = v.ga[m];
     return;
   }
@@ -317,14 +327,14 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
     struc[g] = s;
   }
   __syncthreads();
-  tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+  tile_gemm<kBf16>(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
     store4(hid + c, make_float4(swishf(v.x + a.bbf[c]), swishf(v.y + a.bbf[c + 1]),
                                 swishf(v.z + a.bbf[c + 2]), swishf(v.w + a.bbf[c + 3])));
   });
   __syncthreads();
   if (warp == 0) {
     float p = 0.f;
-    for (int o = lane; o < O; o += 32) p += hid[o] * a.wp[o];
+    for (int o = lane; o < O; o += 32) p += operand<kBf16>(hid[o]) * operand<kBf16>(a.wp[o]);
     p = warp_sum(p) + a.bp[0];
     if (a.mrelu) p = fmaxf(p, 0.f);
     if (lane == 0 && rank == 0) a.pred[b] = p;
@@ -371,14 +381,14 @@ extern "C" int scann_loop_forward_max_clusters(const int* dims, int cluster) {
   ForwardArgs a = {};
   set_dims(a, dims);
   const int bytes = make_plan(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel,
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel<false>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -386,9 +396,9 @@ extern "C" int scann_loop_forward_max_clusters(const int* dims, int cluster) {
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the
 // next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
 // unless packed), size 20, the atom block, size 21, the segments per slot S,
-// and size 22, the blocks per structure C; in the order
-// scann_tpu_torch/kernels/scann_loop.py passes them. Size 17 (the chunk
-// buffer) is the work region of make_plan.
+// size 22, the bf16 operand mode (0 or 1), and size 23, the blocks per
+// structure C; in the order scann_tpu_torch/kernels/scann_loop.py passes them.
+// Size 17 (the chunk buffer) is the work region of make_plan.
 extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
                                          const float* scalars, const unsigned int* rng,
                                          void* stream) {
@@ -398,8 +408,10 @@ extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
   a.seg = (const int*)ptrs[50];
   a.atom_block = dims[20];
   a.S = dims[21];
-  const int C = dims[22];
+  const int bf16 = dims[22];
+  const int C = dims[23];
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
+  if (bf16 & ~1) return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       a.chunk_atoms * a.N > kFwdMaxChunkRows || a.atom_block < 1 ||
@@ -412,13 +424,14 @@ extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const auto kernel = bf16 ? scann_loop_forward_kernel<true> : scann_loop_forward_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, scann_loop_forward_kernel, a, C);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, C);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,14 @@
 // output columns of rows g and g + 8 and hands them to the epilogue as one
 // float4, as tile_gemm does.
 //
+// The bf16 operand mode (kBf16 of mma_gemm and mma_gemm_tB; the whole-model
+// forwards at model.dtype "bfloat16", scann_tpu/kernels/dots.py): each
+// operand element is rounded to bfloat16 (bf16r) and a tile is ONE TF32 pass.
+// A bfloat16 value is exact in TF32 and the product of two is exact in f32,
+// so the pass computes the bf16 product with f32 accumulation. (Native
+// m16n8k16 bf16 fragments would halve the passes' operand traffic; that is
+// speed work, not a change of the result.)
+//
 // Weight gradients (mma_gemm_tA, x^T dy, depth = the rows of a chunk): the
 // warps split the 32-row x 64-column output tiles; each thread adds its sums
 // into the block's gradient row as float4 (16 bytes a thread, 64 bytes a
@@ -57,6 +65,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The bits of x rounded to bfloat16: a TF32 operand that is exact.
+__device__ __forceinline__ unsigned bf16_bits(float x) { return __float_as_uint(bf16r(x)); }
+
 // c += a b at f32 accuracy: three TF32 passes, small terms first
 __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ahi)[4],
                                            const unsigned (&alo)[4], const unsigned (&bhi)[2],
@@ -69,6 +80,14 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ahi)[
 constexpr int kMmaMTiles = 2;      // m-tiles of 16 rows a warp holds at once
 constexpr int kMmaStage = 32;      // k-values per step of the B prefetch
 
+// Two consecutive weights as f32 (p 8-byte aligned for float, 4-byte for bfloat16).
+__device__ __forceinline__ float2 ldg_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
 // Four consecutive values of a row of W, those at k >= K read as zero. p is
 // 16-byte aligned wherever all four are inside.
 __device__ __forceinline__ float4 load4_guarded(const float* p, int k, int K) {
@@ -80,15 +99,17 @@ __device__ __forceinline__ float4 load4_guarded(const float* p, int k, int K) {
   return v;
 }
 
-// The shared body of mma_gemm (kTransB false: W[k * ldw + n]) and mma_gemm_tB
-// (kTransB true: W[n * ldw + k], rows n >= nvalid read as zero). The tensor
-// cores add into their accumulator with truncation, so every 16 k-values
-// (6 mma) start from a zero accumulator and join the running sum by a
-// rounded FP32 addition.
-template <bool kTransB, typename Epi>
+// The shared body of mma_gemm (kTransB false: W[k * ldw + n], of element
+// type TW, float or bfloat16) and mma_gemm_tB (kTransB true: W[n * ldw + k],
+// float, rows n >= nvalid read as zero); kBf16 the operand mode above. The
+// tensor cores add into their accumulator with truncation, so every 16
+// k-values (6 mma, 2 in the bf16 mode) start from a zero accumulator and
+// join the running sum by a rounded FP32 addition.
+template <bool kTransB, bool kBf16, typename TW, typename Epi>
 __device__ __forceinline__ void mma_gemm_body(const float* A, int lda, int rows, int K,
-                                              const float* __restrict__ W, int ldw, int nc,
+                                              const TW* __restrict__ W, int ldw, int nc,
                                               int nvalid, Epi epi) {
+  static_assert(!kTransB || sizeof(TW) == sizeof(float), "mma_gemm_tB reads float weights");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll 1
   for (int n0 = warp * 16; n0 < nc; n0 += kWarps * 16) {
@@ -97,7 +118,7 @@ __device__ __forceinline__ void mma_gemm_body(const float* A, int lda, int rows,
     // the lane's 8 k-values of both tiles for the step at ks: b[j][i] = B[ks + 8t + i][na + j]
     auto load_b = [&](int ks, float (&b)[2][8]) {
       const int k0 = ks + 8 * t;
-      if (kTransB) {
+      if constexpr (kTransB) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
@@ -119,7 +140,7 @@ __device__ __forceinline__ void mma_gemm_body(const float* A, int lda, int rows,
         for (int i = 0; i < 8; ++i) {
           float2 v = make_float2(0.f, 0.f);
           if (k0 + i < K && na < nc)   // nc is even, so na + 1 < nc too
-            v = __ldg(reinterpret_cast<const float2*>(W + (size_t)(k0 + i) * ldw + na));
+            v = ldg_pair(W + (size_t)(k0 + i) * ldw + na);
           b[0][i] = v.x;
           b[1][i] = v.y;
         }
@@ -164,6 +185,23 @@ __device__ __forceinline__ void mma_gemm_body(const float* A, int lda, int rows,
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
             // one m16n8k8 step: k-slot t is the lane's value 2 kk, slot t + 4 its value 2 kk + 1
+            if constexpr (kBf16) {
+              unsigned b[2][2];
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                b[j][0] = bf16_bits(bcur[j][4 * half + 2 * kk]);
+                b[j][1] = bf16_bits(bcur[j][4 * half + 2 * kk + 1]);
+              }
+#pragma unroll
+              for (int mt = 0; mt < kMmaMTiles; ++mt) {
+                const float4 r0 = av[mt][0], r1 = av[mt][1];
+                const unsigned a[4] = {bf16_bits(kk ? r0.z : r0.x), bf16_bits(kk ? r1.z : r1.x),
+                                       bf16_bits(kk ? r0.w : r0.y), bf16_bits(kk ? r1.w : r1.y)};
+                mma_tf32(part[mt][0], a, b[0][0], b[0][1]);
+                mma_tf32(part[mt][1], a, b[1][0], b[1][1]);
+              }
+              continue;
+            }
             unsigned bhi[2][2], blo[2][2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
@@ -215,23 +253,24 @@ __device__ __forceinline__ void mma_gemm_body(const float* A, int lda, int rows,
 // out[r][c] = sum_k A[r * lda + k] * W[k * ldw + c] for r < rows, c < nc (a
 // multiple of 4), any K. A lives in shared memory, 16-byte aligned, lda a
 // multiple of 4 and at least K rounded up to 4, with finite values in the
-// columns between K and that; W in global memory (ldw a multiple of 4). Every finished quad goes
-// to epi(row, col, value). No barrier inside: the caller synchronises before
-// reading the results.
-template <typename Epi>
+// columns between K and that; W in global memory (ldw a multiple of 4), float or
+// bfloat16. Every finished quad goes to epi(row, col, value). No barrier
+// inside: the caller synchronises before reading the results. kBf16: the
+// bf16 operand mode.
+template <bool kBf16 = false, typename TW, typename Epi>
 __device__ __forceinline__ void mma_gemm(const float* A, int lda, int rows, int K,
-                                         const float* __restrict__ W, int ldw, int nc, Epi epi) {
-  mma_gemm_body<false>(A, lda, rows, K, W, ldw, nc, nc, epi);
+                                         const TW* __restrict__ W, int ldw, int nc, Epi epi) {
+  mma_gemm_body<false, kBf16>(A, lda, rows, K, W, ldw, nc, nc, epi);
 }
 
 // out[r][c] = sum_k A[r * lda + k] * W[c * ldw + k]: a product with the
 // transpose of W, whose rows are read as float4. Rows c >= nvalid of W read
-// as zero.
-template <typename Epi>
+// as zero. kBf16: the bf16 operand mode.
+template <bool kBf16 = false, typename Epi>
 __device__ __forceinline__ void mma_gemm_tB(const float* A, int lda, int rows, int K,
                                             const float* __restrict__ W, int ldw, int nc,
                                             int nvalid, Epi epi) {
-  mma_gemm_body<true>(A, lda, rows, K, W, ldw, nc, nvalid, epi);
+  mma_gemm_body<true, kBf16>(A, lda, rows, K, W, ldw, nc, nvalid, epi);
 }
 
 // Gout[i * ldg + j] (+)= sum_{r < rows} X[r * ldx + i] * Y[r * ldy + j] for

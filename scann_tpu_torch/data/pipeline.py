@@ -13,6 +13,11 @@
   (``native/packer.cc`` via ``data/native.py``, built at first use);
   ``pack_bucket_plain`` and ``structure_sizes_plain`` are the same fill in
   numpy, which the tests hold the packer to.
+- ``BatchIterator`` yields fixed-shape batch plans from the buckets:
+  shuffled, wrap-around-filled training batches and padded evaluation
+  batches with a ``sample_mask``, from numpy's generator as the JAX
+  package draws them (the Trainer gathers its own batches on the device;
+  this is the host-side iterator of the public API).
 
 Same semantics as the reference: the raw solid angle is the neighbour
 weight for SCANN+ and the max-normalised one otherwise, atoms pad with 0 and
@@ -22,7 +27,8 @@ a mask, padded neighbours point at atom 0 with a separate mask.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -428,3 +434,70 @@ def pack_bucket_plain(rows, atom_offsets, nbr_offsets, atomic, nbr_index, nbr_we
             out["neighbor_weight"][r, a, :k] = nbr_weight[n0:n0 + k]
             out["neighbor_distance"][r, a, :k] = nbr_dist[n0:n0 + k]
     return out
+
+
+# --- batch iteration ---------------------------------------------------------
+
+class BatchIterator:
+    """Fixed-shape batches from packed buckets (``scann_tpu/data/pipeline.py:401``).
+
+    Each batch comes from a single bucket. Train mode (``shuffle``) shuffles
+    and wraps the final partial batch around to keep every batch full; eval
+    mode pads the final batch with repeated rows and a ``sample_mask`` so
+    metrics can be computed exactly. The plans are the JAX package's for the
+    same ``seed``."""
+
+    def __init__(self, buckets: List[PackedBucket], batch_size: int,
+                 shuffle: bool = False, seed: int = 0, drop_remainder: bool = False):
+        self.buckets = buckets
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        if self.drop_remainder:
+            return sum(b.num_structures // self.batch_size for b in self.buckets)
+        return sum(math.ceil(b.num_structures / self.batch_size) for b in self.buckets)
+
+    @property
+    def num_structures(self) -> int:
+        return sum(b.num_structures for b in self.buckets)
+
+    def plans(self) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+        """One epoch of batch plans: (bucket_id, index_vector, sample_mask)."""
+        plans = []
+        bs = self.batch_size
+        for bi, b in enumerate(self.buckets):
+            order = np.arange(b.num_structures)
+            if self.shuffle:
+                self._rng.shuffle(order)
+            n_full = b.num_structures // bs
+            rem = b.num_structures - n_full * bs
+            full_mask = np.ones(bs, np.float32)
+            for k in range(n_full):
+                plans.append((bi, order[k * bs:(k + 1) * bs], full_mask))
+            if rem and not self.drop_remainder:
+                tail = order[n_full * bs:]
+                if self.shuffle:
+                    # train: wrap around (modular, so a bucket smaller than
+                    # the fill still gives a full batch)
+                    fill = order[np.arange(bs - rem) % len(order)]
+                    plans.append((bi, np.concatenate([tail, fill]), full_mask))
+                else:
+                    # eval: pad by repeating a row, masked out of the metrics
+                    pad = np.full(bs - rem, tail[0])
+                    mask = np.zeros(bs, np.float32)
+                    mask[:rem] = 1.0
+                    plans.append((bi, np.concatenate([tail, pad]), mask))
+        if self.shuffle:
+            self._rng.shuffle(plans)
+        self._epoch += 1
+        return plans
+
+    def __iter__(self) -> Iterator[Tuple[int, Dict[str, np.ndarray], np.ndarray, np.ndarray]]:
+        """Materialized host batches: (bucket_id, inputs, targets, sample_mask)."""
+        for bi, idx, mask in self.plans():
+            b = self.buckets[bi]
+            yield bi, {k: v[idx] for k, v in b.inputs.items()}, b.targets[idx], mask

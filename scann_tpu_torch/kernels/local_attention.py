@@ -18,14 +18,27 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   launches the kernel for CUDA tensors (or raises) and runs the plain
   version for CPU tensors; the backward recomputes the plain layer under
   autograd, as the JAX package's VJP does (it has no backward kernel here).
-  ``fused_local_attention.launches`` counts kernel launches.
-- ``reference_local_attention`` is the plain version, with the attention
-  dropout of ``use_drop`` when it is handed a mask.
+  ``fused_local_attention.launches`` counts kernel launches
+  (``.bf16_launches`` those on bfloat16 tensors).
+- ``reference_local_attention`` is the plain layer in the tensors' own
+  dtypes (the flax model's layer: in the bf16 model its products and
+  elementwise ops round as the tensors do), with the attention dropout of
+  ``use_drop`` when it is handed a mask. ``reference_layer_kernel`` is the
+  kernel's plain version: the plain layer in f32 on the inputs, its outputs
+  in the centers' dtype, as the TPU kernel computes on bfloat16 inputs
+  (``local_attention.py:139-205``: f32 inside, bfloat16 stores). The two are
+  one function on f32 tensors.
+- Element types: the kernel takes all-f32 or all-bfloat16 tensors
+  (the bf16 model's first layer) and stores its outputs in that type. Where
+  the centers are f32 and other tensors bfloat16 (the bf16 model's later
+  layers, whose centers come out of an f32 LayerNorm), those are converted
+  to f32, exactly, and the f32 kernel runs, as the TPU kernel computes
+  there; bfloat16 centers with an f32 tensor are refused.
 - The kernel reads the previous layer's centers from global memory and tiles
   the atoms over the grid, so M is not limited. Its tiles limit the rest: D
   a multiple of 4 up to 128 and divisible by the heads, N <= 64 (one atom's
   neighbours fit a chunk of 64 rows), the SCANN filter's input K <= D,
-  float32.
+  float32 or bfloat16.
 - It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
   accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
   the whole-model forwards share. ``make_plan`` mirrors the launch plan of
@@ -49,7 +62,7 @@ import numpy as np
 import torch
 
 from scann_tpu_torch.ops.activations import swish
-from scann_tpu_torch.ops.attention import gather_neighbor_states, local_attention_core
+from scann_tpu_torch.ops.attention import gather_neighbor_states, local_attention_core, matmul
 
 REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
@@ -87,23 +100,39 @@ def reference_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
     ns = gather_neighbor_states(centers, neighbor_idx)
     w, b = params["filter_geo/kernel"], params["filter_geo/bias"]
     if g_update:
-        u = ((centers @ w[0:D])[:, :, None, :]
-             + geometry @ w[D:2 * D]
-             + ns @ w[2 * D:3 * D]
+        u = (matmul(centers, w[0:D])[:, :, None, :]
+             + matmul(geometry, w[D:2 * D])
+             + matmul(ns, w[2 * D:3 * D])
              + b)
         geometry = layer_norm(swish(u) + geometry, params["layer_norm_g/scale"],
                                params["layer_norm_g/bias"])
         geo_out = geometry
     else:
-        geometry = swish(geometry @ w + b) * neighbor_weight[..., None]
+        geometry = swish(matmul(geometry, w) + b) * neighbor_weight[..., None]
         geo_out = None
-    key = (ns * geometry) @ params["key/kernel"] + params["key/bias"]
-    query = centers @ params["query/kernel"] + params["query/bias"]
+    key = matmul(ns * geometry, params["key/kernel"]) + params["key/bias"]
+    query = matmul(centers, params["query/kernel"]) + params["query/bias"]
     attn, ctx = local_attention_core(
         query, key, key, neighbor_mask, num_head=num_head, scale=scale,
         dropout_mask=None if attn_mask is None else attn_mask.permute(0, 3, 1, 2))
     out = layer_norm(ctx + query, params["layer_norm/scale"], params["layer_norm/bias"])
     return out, geo_out, attn.permute(0, 2, 3, 1)
+
+
+def reference_layer_kernel(centers: torch.Tensor, neighbor_idx: torch.Tensor,
+                           geometry: torch.Tensor, neighbor_mask: torch.Tensor,
+                           neighbor_weight: Optional[torch.Tensor], params: Params,
+                           num_head: int, scale: float, g_update: bool
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """The kernel's plain version: ``reference_local_attention`` in f32 on
+    the inputs (a bfloat16 value is exact in f32), outputs in the centers'
+    dtype."""
+    dt = centers.dtype
+    f32 = lambda t: t if t is None else t.float()
+    out, geo_out, attn = reference_local_attention(
+        f32(centers), neighbor_idx, f32(geometry), f32(neighbor_mask), f32(neighbor_weight),
+        {k: v.float() for k, v in params.items()}, num_head, scale, g_update)
+    return out.to(dt), None if geo_out is None else geo_out.to(dt), attn.to(dt)
 
 
 def index_bounds(*arrays) -> list:
@@ -122,10 +151,14 @@ def check_neighbor_range(lo: int, hi: int, M: int) -> None:
         raise ValueError(f"neighbor indices span [{lo}, {hi}], outside [0, M={M})")
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -> None:
     """Raise NotImplementedError for what the kernel does not take."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: the kernel computes in float32 only")
+    if dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(f"dtype {dtype}: the kernel takes float32 or bfloat16 "
+                                  "tensors")
     if (D % 4 or D > MAX_WIDTH or D % num_head or N < 1 or N > MAX_CHUNK_ROWS
             or K < 1 or K > D):
         raise NotImplementedError(
@@ -180,28 +213,35 @@ def launch_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
                            num_head: int, scale: float, g_update: bool
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Check CUDA inputs and launch the kernel -> (out, geometry out or None
-    for SCANN, attn), as ``reference_local_attention`` returns them. The
+    for SCANN, attn), as ``reference_layer_kernel`` returns them. The
     check reads the tensors' metadata only and waits on nothing: the
     neighbour indices are the caller's to check (``check_neighbor_range``;
     the per-layer model's batches are checked where they enter, by
-    ``models.scann.check_index_ranges``)."""
+    ``models.scann.check_index_ranges``). The kernel runs in the centers'
+    dtype; with f32 centers, bfloat16 tensors are converted to f32 first."""
     dev = centers.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     B, M, D = centers.shape
     N = neighbor_idx.shape[2]
     K = geometry.shape[-1]
-    check_supported(D, N, K, num_head, centers.dtype)
-    want = {"centers": (centers, (B, M, D), torch.float32),
+    dt = centers.dtype
+    check_supported(D, N, K, num_head, dt)
+    if dt == torch.float32:
+        up = lambda t: t.float() if t is not None and t.dtype == torch.bfloat16 else t
+        geometry, neighbor_mask, neighbor_weight = (up(geometry), up(neighbor_mask),
+                                                    up(neighbor_weight))
+        params = {k: up(v) for k, v in params.items()}
+    want = {"centers": (centers, (B, M, D), dt),
             "neighbor_idx": (neighbor_idx, (B, M, N), torch.int32),
-            "geometry": (geometry, (B, M, N, D if g_update else K), torch.float32),
-            "neighbor_mask": (neighbor_mask, (B, M, N), torch.float32)}
+            "geometry": (geometry, (B, M, N, D if g_update else K), dt),
+            "neighbor_mask": (neighbor_mask, (B, M, N), dt)}
     if not g_update:
-        want["neighbor_weight"] = (neighbor_weight, (B, M, N), torch.float32)
+        want["neighbor_weight"] = (neighbor_weight, (B, M, N), dt)
     shapes = {"filter_geo/kernel": (3 * D if g_update else K, D), "key/kernel": (D, D),
               "query/kernel": (D, D)}
     for key in PARAM_KEYS[: 10 if g_update else 8]:
-        want[key] = (params[key], shapes.get(key, (D,)), torch.float32)
+        want[key] = (params[key], shapes.get(key, (D,)), dt)
     for name, (t, shape, dtype) in want.items():
         if (t is None or t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
@@ -223,11 +263,11 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     B, M, D = centers.shape
     N = neighbor_idx.shape[2]
     K = geometry.shape[-1]
+    dt = centers.dtype
     if outputs is None:
-        outputs = (torch.empty((B, M, D), device=dev, dtype=torch.float32),
-                   torch.empty((B, M, N, D), device=dev, dtype=torch.float32) if g_update
-                   else None,
-                   torch.empty((B, M, N, num_head), device=dev, dtype=torch.float32))
+        outputs = (torch.empty((B, M, D), device=dev, dtype=dt),
+                   torch.empty((B, M, N, D), device=dev, dtype=dt) if g_update else None,
+                   torch.empty((B, M, N, num_head), device=dev, dtype=dt))
     out, geo_out, attn = outputs
     tensors = ([centers, neighbor_idx, geometry, neighbor_mask,
                 None if g_update else neighbor_weight]
@@ -238,9 +278,11 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     dk = float(np.float32(hd) ** np.float32(-scale))
     n_sm = sm_count(dev)
     plan = make_plan(B, M, N, D, num_head, g_update, n_sm)
-    call_kernel("local_attention", "local_attention", dev, tensors,
-                [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
+    bf16 = int(dt == torch.bfloat16)
+    call_kernel("local_attention", "local_attention_bf16" if bf16 else "local_attention", dev,
+                tensors, [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
+    fused_local_attention.bf16_launches += bf16
     return out, geo_out, attn
 
 
@@ -261,7 +303,7 @@ class _FusedLocalAttention(torch.autograd.Function):
                 centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
                 num_head, scale, g_update)
         elif centers.device.type == "cpu":
-            out, geo_out, attn = reference_local_attention(
+            out, geo_out, attn = reference_layer_kernel(
                 centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, params,
                 num_head, scale, g_update)
         else:
@@ -304,9 +346,10 @@ def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused LocalAttention layer -> (out [B, M, D], geometry out
     [B, M, N, *], attn [B, M, N, H]); for SCANN the geometry out is the
-    unchanged input. CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise (unsupported sizes, bad input, failed build or
-    launch; neighbour indices as ``launch_local_attention`` says)."""
+    unchanged input. CPU tensors run the plain version
+    (``reference_layer_kernel``); CUDA tensors launch the kernel or raise
+    (unsupported sizes or dtype, bad input, failed build or launch; neighbour
+    indices as ``launch_local_attention`` says)."""
     keys = tuple(k for k in PARAM_KEYS if g_update or "layer_norm_g" not in k)
     return _FusedLocalAttention.apply(centers, neighbor_idx, geometry, neighbor_mask,
                                       neighbor_weight, num_head, scale, g_update, keys,
@@ -314,6 +357,7 @@ def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
 
 
 fused_local_attention.launches = 0
+fused_local_attention.bf16_launches = 0
 
 
 def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:

@@ -185,7 +185,7 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
         return ("use_attn_norm=False: the kernel always applies ResidualNorm; that "
                 "configuration trains through the per-layer model")
     if cfm.dtype != "float32":
-        return f"model.dtype={cfm.dtype!r}: float32 only"
+        return dtype_refusal(cfm)
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
@@ -202,6 +202,12 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
                 "structures train through the backward of the crystal loop kernel "
                 "(kernels.scann_loop.loop_scann_train_grads)")
     return None
+
+
+def dtype_refusal(cfm: ModelConfig) -> str:
+    """What both backward kernels say to a model.dtype other than float32."""
+    return (f"model.dtype={cfm.dtype!r}: float32 only (the backward kernels in the bf16 "
+            "operand mode are the next slice of the port)")
 
 
 def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:

@@ -12,7 +12,15 @@ Philox masks of ``ops.dropout`` that the backward replays).
   [B, M, 1]), f32. For CUDA tensors it launches the kernel (or raises);
   for CPU tensors it runs the plain version, ``reference_scann_forward``:
   the eager model called functionally, with the same masks.
-  ``fused_scann_forward.launches`` counts kernel launches.
+  ``fused_scann_forward.launches`` counts kernel launches
+  (``.bf16_launches`` those in the bf16 operand mode).
+- ``model.dtype: "bfloat16"`` is the bf16 operand mode of
+  ``kernels/dots.py``: the kernel rounds both operands of every product to
+  bfloat16 and sums in f32, as the TPU kernel's dots do, and its plain
+  version is ``reference_bf16_forward``, which rounds where that kernel body
+  rounds (not the eager bf16 model, which follows the flax modules' dtypes).
+  The mode serves and evaluates; training in it is the next slice, so a
+  dropout rate above 0 is refused.
 - Packed batches (structure packing, ``data/packing.py``): the inputs carry
   ``segment_onehot`` [B, M, S] (and, from ``Trainer._put_buckets``, the
   ``segment_ids`` [B, M] of ``ops.attention.segment_ids``, -1 on padded
@@ -51,15 +59,18 @@ import numpy as np
 import torch
 
 from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
+from scann_tpu_torch.kernels import dots
+from scann_tpu_torch.kernels.local_attention import layer_norm
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
-from scann_tpu_torch.ops.attention import segment_ids
+from scann_tpu_torch.ops.activations import mrelu, swish
+from scann_tpu_torch.ops.attention import gather_neighbor_states, segment_ids
 from scann_tpu_torch.ops.dropout import (
     DropoutMasks,
     keep_scale,
     keep_threshold,
     make_dropout_masks,
 )
-from scann_tpu_torch.ops.rbf import make_centers
+from scann_tpu_torch.ops.rbf import gaussian_expansion, make_centers
 
 REPLACES = "scann_tpu/kernels/scann_forward.py:222"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_forward.cu"
@@ -106,9 +117,142 @@ def reference_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, t
                             dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: the eager model, called functionally, with the
-    kernels' dropout masks at a rate above 0."""
+    kernels' dropout masks at a rate above 0; in the bf16 operand mode
+    ``reference_bf16_forward`` with the segment pools exact."""
+    if cfm.dtype == "bfloat16":
+        check_bf16_rate(dropout_rate)
+        return reference_bf16_forward(params, inputs, cfm, mrelu_head, exact_pools=True)
     return scann_forward(params, inputs, cfm, mrelu_head,
                          dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base))
+
+
+def check_bf16_rate(dropout_rate: float) -> None:
+    """The bf16 operand mode serves and evaluates; its training forward
+    (dropout above 0) belongs with the backward kernels' bf16 mode."""
+    if dropout_rate > 0.0:
+        raise NotImplementedError(
+            "model.dtype='bfloat16' at dropout > 0: training in the bf16 operand mode needs "
+            "kernels #2 and #4 in that mode, the next slice of the port")
+
+
+def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                           cfm: ModelConfig, mrelu_head: bool = False,
+                           exact_pools: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-model forward in the bf16 operand mode -> (property [B, 1]
+    or [B, S] for a packed batch, ga_score [B, M, 1]), f32: the arithmetic of
+    ``scann_tpu/kernels/scann_forward.py:_kernel`` and ``scann_loop.py:_fwd_kernel``
+    with ``dots.dot_fns(True)``. Every product rounds both operands to
+    bfloat16, also those the port does not form as products: the neighbour
+    gather (a one-hot product there, so the gathered states are rounded
+    centers), the energies (each q * k lane rounded before the head sum),
+    the attention expanded to lanes (rounded), the embedding lookup (the
+    rounded table row) and the head. A packed batch pools its segments
+    f32-exact with ``exact_pools`` (the molecule kernel's ``mm_hi``,
+    ``scann_forward.py:375-379``) or as bf16-mode products with the loop
+    kernel's per-segment max shift (``scann_loop.py:367-395``). The
+    arithmetic between the roundings is in the params' dtype: f32, or f64
+    to measure how far f32 sums alone move the result."""
+    mm, mm_tA, mm_tB, dot3, _, _ = dots.dot_fns(True)
+    r16 = dots.round_bf16
+    p = params
+    ft = p["dense_embed/kernel"].dtype
+    atomic = inputs["atomic"]
+    dev = atomic.device
+    D, H = cfm.local_dim, cfm.num_head
+    hd = D // H
+    am = inputs["atom_mask"].to(ft)                      # [B, M, 1]
+    nmask = inputs["neighbor_mask"].to(ft)               # [B, M, N]
+    weight = inputs["neighbor_weight"].to(ft)
+    dk = attention_scale(cfm)
+
+    if cfm.feature == "cgcnn":
+        emb = mm(atomic.to(ft), p["embed_atom/kernel"]) + p["embed_atom/bias"]
+    else:
+        emb = r16(p["embed_atom/embedding"])[atomic.long()]     # one-hot @ table
+    de_w = p["dense_embed/kernel"]
+    s_de = mm(emb, de_w[:cfm.embedding_dim]) + p["dense_embed/bias"]
+    if cfm.use_ring:
+        ring = mm(inputs["ring_aromatic"].to(ft), p["extra_embed/kernel"]) + p["extra_embed/bias"]
+        s_de = s_de + mm(ring, de_w[cfm.embedding_dim:])
+    centers = swish(s_de)
+
+    dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev)
+    rbf_d = gaussian_expansion(inputs["neighbor_distance"].to(ft), dist_c, RBF_WIDTH)
+    geometry = None
+    if cfm.g_update:
+        angle_c = torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)).to(dev)
+        rbf_w = gaussian_expansion(weight, angle_c, RBF_WIDTH)
+        geometry = (swish(dot3(rbf_d, p["neighbor_d/kernel"]) + p["neighbor_d/bias"])
+                    * swish(dot3(rbf_w, p["neighbor_w/kernel"]) + p["neighbor_w/bias"]))
+
+    for l in range(cfm.n_attention):
+        la, rn = f"local_attention_{l}", f"residual_norm_{l}"
+        ns = gather_neighbor_states(r16(centers), inputs["neighbors"])   # one-hot @ centers
+        wfg, bfg = p[f"{la}/filter_geo/kernel"], p[f"{la}/filter_geo/bias"]
+        if cfm.g_update:
+            u = (mm(centers, wfg[:D])[:, :, None, :] + dot3(geometry, wfg[D:2 * D])
+                 + dot3(ns, wfg[2 * D:]) + bfg)
+            geometry = layer_norm(swish(u) + geometry, p[f"{la}/layer_norm_g/scale"],
+                                  p[f"{la}/layer_norm_g/bias"])
+            geo_term = geometry
+        else:
+            geo_term = swish(dot3(rbf_d, wfg) + bfg) * weight[..., None]
+        key = dot3(ns * geo_term, p[f"{la}/key/kernel"]) + p[f"{la}/key/bias"]
+        query = mm(centers, p[f"{la}/query/kernel"]) + p[f"{la}/query/bias"]
+        prod = (query * dk)[:, :, None, :] * key
+        energy = r16(prod).unflatten(-1, (H, hd)).sum(-1)              # prod @ seg_sum
+        energy = energy + (1.0 - nmask)[..., None] * -1e9
+        energy = energy - energy.amax(dim=2, keepdim=True)
+        e = torch.exp(energy)
+        attn = e / e.sum(dim=2, keepdim=True)
+        a_lanes = r16(attn).repeat_interleave(hd, dim=-1)               # attn @ seg_expand
+        ctx = (a_lanes * nmask[..., None] * key).sum(dim=2)
+        out = layer_norm(ctx + query, p[f"{la}/layer_norm/scale"], p[f"{la}/layer_norm/bias"])
+        h = swish(mm(out, p[f"{rn}/dense_1/kernel"]) + p[f"{rn}/dense_1/bias"])
+        h = mm(h, p[f"{rn}/dense_2/kernel"]) + p[f"{rn}/dense_2/bias"]
+        centers = layer_norm(out + h, p[f"{rn}/layer_norm/scale"], p[f"{rn}/layer_norm/bias"])
+
+    centers = swish(mm(centers, p["after_Lc/kernel"]) + p["after_Lc/bias"])
+    gq = mm(centers, p["global_attention/query/kernel"]) + p["global_attention/query/bias"]
+    gk = mm(centers, p["global_attention/key/kernel"]) + p["global_attention/key/bias"]
+    mq, mk = am * gq, am * gk
+    seg = inputs.get("segment_onehot")
+    if seg is None:
+        qsum = mq.sum(dim=1, keepdim=True)
+        agg = am * ((mk * qsum).sum(-1, keepdim=True) - (mk * mq).sum(-1, keepdim=True))
+        if cfm.use_ga_norm:
+            nrm = torch.sqrt((agg * agg).sum(dim=1, keepdim=True))
+            agg = agg / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+        agg = agg + (1.0 - am) * -1e9
+        e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
+        ga = e / e.sum(dim=1, keepdim=True)
+        struc = (am * ga * gk).sum(dim=1)                                # [B, G]
+    else:
+        seg = seg.to(ft)
+        if exact_pools:
+            pool = lambda x: dots.mm_tA_hi(seg, x)                      # [B, S, C]
+            rows = lambda y: dots.mm_hi(seg, y)                         # [B, M, C]
+        else:
+            pool = lambda x: mm_tA(seg, x)
+            rows = lambda y: mm(seg, y)
+        agg = am * ((mk * rows(pool(mq))).sum(-1, keepdim=True) - (mk * mq).sum(-1, keepdim=True))
+        if cfm.use_ga_norm:
+            nrm = rows(torch.sqrt(pool(agg * agg)))
+            agg = agg / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+        agg = agg + (1.0 - am) * -1e9
+        if exact_pools:      # the slot's max: constant within each segment
+            e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
+        else:                # each segment's own max, as a bf16-mode product
+            segmax = (agg + (seg - 1.0) * 1e9).amax(dim=1, keepdim=True)     # [B, 1, S]
+            e = torch.exp(agg - mm_tB(seg, segmax)) * am
+        den = rows(pool(e))
+        ga = e / torch.where(den == 0, torch.ones_like(den), den)
+        struc = pool(ga * mk if exact_pools else am * ga * gk)          # [B, S, G]
+    struc = swish(mm(struc, p["bf_property/kernel"]) + p["bf_property/bias"])
+    pred = mm(struc, p["predict_property/kernel"]) + p["predict_property/bias"]
+    if mrelu_head:
+        pred = mrelu(pred)
+    return (pred if seg is None else pred[..., 0]), ga
 
 
 def rng_words(cfm: ModelConfig, dropout_rate: float, seed: int, mol_base: int):
@@ -237,10 +381,11 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
 
 def common_refusal(cfm: ModelConfig, N: int) -> Optional[str]:
     """What both whole-model forwards refuse: a dtype other than float32 and
-    sizes outside the tiles of ``csrc/scann_common.cuh``."""
-    if cfm.dtype != "float32":
-        return (f"model.dtype={cfm.dtype!r}: float32 only (the bf16 products of the TPU "
-                "kernels are not ported)")
+    bfloat16 (the bf16 operand mode) and sizes outside the tiles of
+    ``csrc/scann_common.cuh``."""
+    if cfm.dtype not in ("float32", "bfloat16"):
+        return (f"model.dtype={cfm.dtype!r}: the kernels take float32 and bfloat16 (the "
+                "bf16 operand mode)")
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
@@ -443,13 +588,24 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     check_supported(cfm, M, N, S)
+    bf16 = operand_mode(cfm, dropout_rate)
     chunk_atoms, work, _ = shared_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
     call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors + [seg],
-                dims + [S], scalars, rng)
+                dims + [S, bf16], scalars, rng)
     fused_scann_forward.launches += 1
+    fused_scann_forward.bf16_launches += bf16
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
+
+
+def operand_mode(cfm: ModelConfig, dropout_rate: float) -> int:
+    """1 for the bf16 operand mode (``model.dtype: bfloat16``), 0 for f32:
+    the flag the whole-model forwards launch with."""
+    if cfm.dtype != "bfloat16":
+        return 0
+    check_bf16_rate(dropout_rate)
+    return 1
 
 
 def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -476,6 +632,7 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
 
 
 fused_scann_forward.launches = 0
+fused_scann_forward.bf16_launches = 0
 
 
 def attention_scale(cfm: ModelConfig) -> float:

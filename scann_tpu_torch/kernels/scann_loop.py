@@ -16,7 +16,13 @@ Forward:
   raises); for CPU tensors it runs the plain version,
   ``reference_loop_forward``: the eager model with the Philox masks of
   ``ops.dropout`` at a rate above 0. ``launch_loop_forward.launches`` counts
-  kernel launches.
+  kernel launches (``.bf16_launches`` those in the bf16 operand mode).
+- ``model.dtype: "bfloat16"``: the bf16 operand mode of ``kernels/dots.py``
+  (``kernels.scann_forward`` says what it rounds); the plain version is
+  ``kfwd.reference_bf16_forward`` with the TPU loop kernel's bf16-mode
+  segment pools (``scann_loop.py:367-395``: pooled terms and values rounded,
+  each segment's own max as the softmax shift), which the CUDA kernel
+  follows.
 - The gate (``check_supported``) is the kernel's own shared-memory plan
   (``loop_memory_plan``). On the TPU the two whole-model kernels differ in
   compile time (unrolled layers against a loop); here both loop at run time
@@ -202,7 +208,11 @@ def reference_loop_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
                            dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
                            mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: the eager model, called functionally, with the
-    kernel's dropout masks at a rate above 0."""
+    kernel's dropout masks at a rate above 0; in the bf16 operand mode
+    ``kfwd.reference_bf16_forward`` with the loop kernel's segment pools."""
+    if cfm.dtype == "bfloat16":
+        kfwd.check_bf16_rate(dropout_rate)
+        return kfwd.reference_bf16_forward(params, inputs, cfm, mrelu_head, exact_pools=False)
     return kfwd.reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate,
                                         dropout_seed or 0, mol_base)
 
@@ -238,6 +248,7 @@ def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch
 
 
 launch_loop_forward.launches = 0
+launch_loop_forward.bf16_launches = 0
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -260,14 +271,16 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
         raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} handed to "
                          f"a batch of shape {(B, M, cfm.local_dim)}")
     seg, S = segment_arguments(inputs)
+    bf16 = kfwd.operand_mode(cfm, dropout_rate)
     chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
     kfwd.call_kernel("scann_loop", "scann_loop_forward", dev,
-                     tensors + [scratch["next_centers"], seg], dims + [atom_block, S, cluster],
-                     scalars, rng)
+                     tensors + [scratch["next_centers"], seg],
+                     dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
+    launch_loop_forward.bf16_launches += bf16
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -392,6 +405,8 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
                 "(models.scann.scann_forward with use_pallas, under torch.autograd)")
     if M < 1:
         return f"M={M}: no atoms"
+    if cfm.dtype != "float32":
+        return kbwd.dtype_refusal(cfm)
     reason = kfwd.common_refusal(cfm, N)
     if reason is None and N > kbwd.MAX_CHUNK_ROWS:
         reason = (f"N={N} neighbours: the loop backward walks chunks of at most "

@@ -29,6 +29,17 @@ model, whose LocalAttention layers run in the kernel of
 ``kernels.local_attention`` on CUDA). ``l2_penalty`` is the reference's
 kernel regularisation. A packed batch (``segment_onehot`` in the inputs)
 gets the per-segment readout and a property of [B, S], one per segment.
+
+``model.dtype: "bfloat16"`` runs the flax model's bf16 semantics
+(``scann_tpu/models/scann.py:55-64, 140, 171-177, 197-300``), op by op: the
+inputs, the embedding, every Dense but the head and the LocalAttention
+parameters are cast to bfloat16, so activations are bfloat16 where the
+flax modules' are; the ResidualNorm's LayerNorm and ``predict_property``
+compute in f32, and a product of a bfloat16 with an f32 tensor in f32 (jnp's
+promotion). The parameters stay f32. This is not what the whole-model
+kernels compute in that mode (``kernels/dots.py``: f32 activations, bf16
+operands); the per-layer model is this model with kernel #5 launched on its
+layers' tensors.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -145,8 +156,17 @@ def check_index_ranges(inputs: Dict, cfm: ModelConfig) -> None:
     check_neighbor_range(lo, hi, M)
 
 
-def _dense(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    return x @ params[f"{name}/kernel"] + params[f"{name}/bias"]
+def compute_dtype(cfm: ModelConfig) -> torch.dtype:
+    """The flax model's compute dtype: bfloat16 for ``model.dtype:
+    bfloat16``, else float32."""
+    return torch.bfloat16 if cfm.dtype == "bfloat16" else torch.float32
+
+
+def _dense(params: Params, name: str, x: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``."""
+    return (x.to(dtype) @ params[f"{name}/kernel"].to(dtype)
+            + params[f"{name}/bias"].to(dtype))
 
 
 def local_attention(params: Params, name: str, centers, neighbor_idx,
@@ -157,8 +177,11 @@ def local_attention(params: Params, name: str, centers, neighbor_idx,
     (training under ``use_drop``). With ``use_pallas`` a layer without
     attention dropout on CUDA tensors is one launch of the per-layer kernel
     (``kernels.local_attention.fused_local_attention``); every other layer
-    is the plain ``reference_local_attention``."""
-    layer = {k: params[f"{name}/{k}"] for k in PARAM_KEYS if f"{name}/{k}" in params}
+    is the plain ``reference_local_attention``. The layer's parameters are
+    cast to the model's compute dtype, as the flax layer casts them."""
+    dtype = compute_dtype(cfm)
+    layer = {k: params[f"{name}/{k}"].to(dtype) for k in PARAM_KEYS
+             if f"{name}/{k}" in params}
     if use_pallas and attn_mask is None and centers.device.type == "cuda":
         out, geo_out, _ = fused_local_attention(
             centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, layer,
@@ -171,14 +194,16 @@ def local_attention(params: Params, name: str, centers, neighbor_idx,
 
 
 def residual_norm(params: Params, name: str, x: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Post-attention FFN block with a residual and a LayerNorm; ``mask``
-    is its training dropout on the FFN output (reference ``:54-62``)."""
-    h = swish(_dense(params, f"{name}/dense_1", x))
-    h = _dense(params, f"{name}/dense_2", h)
+    is its training dropout on the FFN output (reference ``:54-62``). Its
+    Dense layers compute in ``dtype``, its LayerNorm in f32."""
+    h = swish(_dense(params, f"{name}/dense_1", x, dtype))
+    h = _dense(params, f"{name}/dense_2", h, dtype)
     if mask is not None:
         h = h * mask
-    return layer_norm(x + h, params[f"{name}/layer_norm/scale"],
+    return layer_norm((x + h).float(), params[f"{name}/layer_norm/scale"],
                        params[f"{name}/layer_norm/bias"])
 
 
@@ -199,38 +224,38 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
     dropout on the embedding (reference ``scann.py:228``), on each
     ResidualNorm's FFN output, and (``masks.attn``) on the attention
     probabilities."""
-    if cfm.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype={cfm.dtype!r}: the port computes in float32 only")
+    if cfm.dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"model.dtype={cfm.dtype!r}: float32 or bfloat16")
+    dt = compute_dtype(cfm)
     p = params
     atomic = inputs["atomic"]
     dev = atomic.device
-    atom_mask = inputs["atom_mask"].float()
+    atom_mask = inputs["atom_mask"].to(dt)
     neighbor_idx = inputs["neighbors"]
-    neighbor_mask = inputs["neighbor_mask"].float()
-    neighbor_weight = inputs["neighbor_weight"].float()
-    neighbor_distance = inputs["neighbor_distance"].float()
+    neighbor_mask = inputs["neighbor_mask"].to(dt)
+    neighbor_weight = inputs["neighbor_weight"].to(dt)
+    neighbor_distance = inputs["neighbor_distance"].to(dt)
 
     if cfm.feature == "atomic":
-        centers = p["embed_atom/embedding"][atomic.long()]
+        centers = p["embed_atom/embedding"].to(dt)[atomic.long()]
     elif cfm.feature == "cgcnn":
-        centers = _dense(p, "embed_atom", atomic.float())
+        centers = _dense(p, "embed_atom", atomic, dt)
     else:
         raise ValueError(f"unknown feature mode: {cfm.feature}")
     if cfm.use_ring:
-        ring = _dense(p, "extra_embed", inputs["ring_aromatic"].float())
+        ring = _dense(p, "extra_embed", inputs["ring_aromatic"], dt)
         centers = torch.cat([centers, ring], dim=-1)
-    centers = swish(_dense(p, "dense_embed", centers))
+    centers = swish(_dense(p, "dense_embed", centers, dt))
     if masks is not None:
         centers = centers * masks.embed
 
-    dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev)
+    dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev, dt)
     dist_rbf = gaussian_expansion(neighbor_distance, dist_c)
     if cfm.g_update:
-        angle_c = torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)).to(dev)
-        d_emb = swish(_dense(p, "neighbor_d", dist_rbf))
+        angle_c = torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)).to(dev, dt)
+        d_emb = swish(_dense(p, "neighbor_d", dist_rbf, dt))
         w_emb = swish(_dense(p, "neighbor_w",
-                             gaussian_expansion(neighbor_weight, angle_c)))
+                             gaussian_expansion(neighbor_weight, angle_c), dt))
         geometry = d_emb * w_emb
     else:
         geometry = dist_rbf
@@ -242,21 +267,22 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
             neighbor_mask, neighbor_weight, cfm, attn_mask, use_pallas)
         if cfm.use_attn_norm:
             centers = residual_norm(p, f"residual_norm_{i}", centers,
-                                    None if masks is None else masks.layers[i])
+                                    None if masks is None else masks.layers[i], dt)
 
-    centers = swish(_dense(p, "after_Lc", centers))
-    gq = _dense(p, "global_attention/query", centers)
-    gk = _dense(p, "global_attention/key", centers)
+    centers = swish(_dense(p, "after_Lc", centers, dt))
+    gq = _dense(p, "global_attention/query", centers, dt)
+    gk = _dense(p, "global_attention/key", centers, dt)
     segments = inputs.get("segment_onehot")
-    ga_score, struc = global_attention_core(gq, gk, gk, atom_mask, norm=cfm.use_ga_norm,
-                                            segment_onehot=segments)
-    struc = swish(_dense(p, "bf_property", struc))
-    out = _dense(p, "predict_property", struc)
+    ga_score, struc = global_attention_core(
+        gq, gk, gk, atom_mask, norm=cfm.use_ga_norm,
+        segment_onehot=None if segments is None else segments.to(dt))
+    struc = swish(_dense(p, "bf_property", struc, dt))
+    out = _dense(p, "predict_property", struc.float())
     if mrelu_head:
         out = mrelu(out)
     if segments is not None:
         out = out[..., 0]   # [B, S]
-    return out, ga_score
+    return out, ga_score.float()
 
 
 # --- L2 regularisation --------------------------------------------------------

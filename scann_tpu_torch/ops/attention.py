@@ -13,11 +13,29 @@
   per-structure reduction runs per segment of the slot.
 - ``segment_ids``: the per-row segment id [B, M] (-1 on padded rows) that
   the whole-model kernels take in place of the one-hot.
+
+Tensors of the bfloat16 model (``model.dtype: bfloat16``) may mix bfloat16
+and float32, as the flax modules' tensors do; ``promoted`` casts the
+operands of a product to their common type, as jnp promotes them.
 """
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
+
+
+def promoted(*ts: torch.Tensor) -> List[torch.Tensor]:
+    """``ts`` in their promoted dtype (bfloat16 with float32: float32, as jnp
+    promotes); a tensor already of that dtype is returned as it is."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t.to(dt) for t in ts]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted dtype."""
+    a, b = promoted(a, b)
+    return a @ b
 
 
 def gather_neighbor_states(states: torch.Tensor,
@@ -58,12 +76,12 @@ def local_attention_core(
     dk = torch.tensor(hd, dtype=q.dtype) ** torch.tensor(-scale, dtype=q.dtype)
     q = q * dk.to(q.device)
 
-    energy = torch.einsum("bmhd,bmnhd->bhmn", q, k)
+    energy = torch.einsum("bmhd,bmnhd->bhmn", *promoted(q, k))
     energy = energy + (1.0 - mask[:, None, :, :]) * -1e9
     attn = torch.softmax(energy, dim=-1)
     attn_used = attn if dropout_mask is None else attn * dropout_mask
 
-    context = torch.einsum("bhmn,bmn,bmnhd->bmhd", attn_used, mask, v)
+    context = torch.einsum("bhmn,bmn,bmnhd->bmhd", *promoted(attn_used, mask, v))
     return attn, context.reshape(B, M, D)
 
 

@@ -55,6 +55,11 @@ MAE, best-val checkpoints, a test report.
   route runs the whole batch on every rank. Eval and predict shard their
   batches the same way. config.yaml, metrics.jsonl, report.txt,
   hist_data.json and the checkpoints are written by rank 0 only.
+- ``model.dtype: bfloat16`` serves and evaluates through the forward
+  kernels in their bf16 operand mode (#1, #3) and the per-layer model on
+  bfloat16 tensors (#5); training in it raises ``NotImplementedError``
+  (``check_trainable``): the backward kernels (#2, #4) have no bf16 mode yet,
+  and their gates would send every batch to the per-layer route.
 - Warm start: ``tpu.exec_cache_dir`` points the kernel build cache there
   (``utils/exec_cache.py``); ``fit`` builds every kernel (or loads it from
   the cache) before its first step, one nvcc each, all at once.
@@ -334,6 +339,17 @@ class Trainer:
             return "loop"
         return "per_layer"
 
+    def check_trainable(self) -> None:
+        """Refuse training in the bf16 operand mode: the backward kernels'
+        gates refuse it, so every step would take the per-layer route and
+        hide kernels #2 and #4 (``kbwd.refusal``, ``kloop.backward_refusal``)."""
+        if self.config.model.dtype != "float32":
+            raise NotImplementedError(
+                f"training at model.dtype={self.config.model.dtype!r}: the backward kernels "
+                "#2 (scann_backward) and #4 (scann_loop_backward) in the bf16 operand mode "
+                "are the next slice of the port; train in float32 (the weights serve in "
+                "bfloat16 as they are)")
+
     def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(pred [B], or [B, S] for packed slots, gradients of 0.5 *
@@ -344,6 +360,7 @@ class Trainer:
         CPU the kernels' plain versions. Nothing is read back: ``fit``'s
         batches come from buckets whose index ranges ``_put_buckets``
         checked."""
+        self.check_trainable()
         M, N = batch["atomic"].shape[1], batch["neighbors"].shape[2]
         route = self.train_route(M, N, segment_count(batch))
         if route == "per_layer":
@@ -484,6 +501,7 @@ class Trainer:
         rows (slots): for packed slots ``packed_slot_batch`` of them, so a
         step sees about ``batch_size`` structures (``tpu.pack_preserve_batch``,
         ``loop.py:647-665``)."""
+        self.check_trainable()
         hyper = self.config.hyper
         epochs = epochs or hyper.epochs
         bs = hyper.batch_size

@@ -26,7 +26,10 @@ dense TF32 rate: one useful product FLOP costs three TF32 FLOPs, so a share
 against 495 TFLOP/s stays under 1/3 for the products and under 100% in
 all (the rest runs on the CUDA cores, at most 67/495 of it). Against the
 67 TFLOP/s of FP32 outside the tensor cores a share could read over 100%,
-a reading that no card gives.
+a reading that no card gives. In the bf16 operand mode (``model.dtype:
+bfloat16``) a product is one bf16 product, which the card's dense BF16 rate
+bounds (``peak_bf16_tflops``); ``operations_seconds`` counts a kernel's
+least time either way.
 """
 
 from typing import Optional
@@ -216,12 +219,13 @@ def _param_count(cfm: ModelConfig) -> float:
 
 
 # Published dense rates of NVIDIA's cards (data sheets, SXM parts, without
-# sparsity), at the full power limit (700 W for the H100 SXM): TF32 on the
-# tensor cores, FP32 outside them, and HBM bandwidth. "H100 80GB HBM3" is
+# sparsity), at the full power limit (700 W for the H100 SXM): TF32 and BF16 on
+# the tensor cores, FP32 outside them, and HBM bandwidth. "H100 80GB HBM3" is
 # the name torch.cuda.get_device_name gives the SXM part ("H100 PCIe" and
 # "H100 NVL" are other parts with other rates and are not listed).
 _PEAKS = {
-    "h100 80gb hbm3": {"tf32_tflops": 495.0, "fp32_tflops": 67.0, "hbm_bytes_s": 3.35e12},
+    "h100 80gb hbm3": {"tf32_tflops": 495.0, "bf16_tflops": 989.0, "fp32_tflops": 67.0,
+                       "hbm_bytes_s": 3.35e12},
 }
 # Results a streaming multiprocessor gives each clock (CUDA C++ Programming
 # Guide, "Arithmetic Instructions", compute capability 9.0): 128 FP32 FMAs
@@ -251,6 +255,13 @@ def peak_tflops(device_name: Optional[str] = None) -> Optional[float]:
     return p["tf32_tflops"] if p else None
 
 
+def peak_bf16_tflops(device_name: Optional[str] = None) -> Optional[float]:
+    """Dense BF16 tensor-core TFLOP/s (f32 accumulation), the rate that bounds
+    the products of the kernels' bf16 operand mode."""
+    p = _peaks(device_name)
+    return p["bf16_tflops"] if p else None
+
+
 def peak_fp32_tflops(device_name: Optional[str] = None) -> Optional[float]:
     """FP32 TFLOP/s outside the tensor cores (an FMA is two FLOPs)."""
     p = _peaks(device_name)
@@ -271,3 +282,25 @@ def peak_exp_per_s(device_name: Optional[str] = None) -> Optional[float]:
     if p is None:
         return None
     return p["fp32_tflops"] * 1e12 / (2 * _FMA_PER_SM_CLOCK) * _SFU_PER_SM_CLOCK
+
+
+TF32_PASSES = 3   # split TF32: hi*hi + hi*lo + lo*hi per useful product (csrc/scann_mma.cuh)
+
+
+def operations_seconds(flops: float, fp32_flops: float, bf16: bool = False,
+                       rates: Optional[dict] = None, device_name: Optional[str] = None) -> float:
+    """The least time of a kernel's ``flops`` on the card: ``fp32_flops`` of
+    them on the CUDA cores at the FP32 rate, the rest as products on the
+    tensor cores, three TF32 passes each (f32 accuracy) or, in the bf16
+    operand mode, once at the dense BF16 rate. At the published rates of
+    ``device_name`` (the current card when None), or at ``rates``
+    (``utils.roofline.measure_device_rates``: ``fp32_tflops``,
+    ``tf32_tflops``, ``bf16_tflops``)."""
+    if rates is None:
+        rates = {"fp32_tflops": peak_fp32_tflops(device_name),
+                 "tf32_tflops": peak_tflops(device_name),
+                 "bf16_tflops": peak_bf16_tflops(device_name)}
+    products = flops - fp32_flops
+    tensor = (products / rates["bf16_tflops"] if bf16
+              else TF32_PASSES * products / rates["tf32_tflops"])
+    return (tensor + fp32_flops / rates["fp32_tflops"]) / 1e12

@@ -3,7 +3,7 @@
 
 1. ``measure_device_rates()`` times this card's achievable rates, not the
    data sheet's: ``expf`` results/s and FP32 FMAs/s on the CUDA cores,
-   TF32 ``mma.sync`` TFLOP/s on the tensor cores, and HBM bytes/s, from
+   TF32 and BF16 ``mma.sync`` TFLOP/s on the tensor cores, and HBM bytes/s, from
    the probes of ``csrc/roofline_probe.cu`` (dependent chains, so neither
    launches nor memory can pass for compute). Each rate is a two-depth
    difference: time(deep) - time(shallow) cancels the launch, the store
@@ -43,6 +43,7 @@ import torch
 
 from scann_tpu_torch.config import ModelConfig
 from scann_tpu_torch.utils.flops import (
+    TF32_PASSES,
     forward_flops_per_structure,
     hbm_bytes_per_structure,
     peak_tflops,
@@ -52,8 +53,8 @@ from scann_tpu_torch.utils.flops import (
 
 _CACHE_PATH = os.path.join(os.path.expanduser("~"), ".cache", "scann_tpu_torch",
                            "roofline.json")
-TF32_PASSES = 3    # split TF32: hi*hi + hi*lo + lo*hi per useful product
 MMA_FLOPS = 2 * 16 * 8 * 8   # one mma.sync m16n8k8
+MMA_BF16_FLOPS = 2 * 16 * 8 * 16   # one mma.sync m16n8k16
 STREAM_BYTES = 1 << 30       # the HBM probe's buffer: 1 GiB, far past the 50 MB L2
 
 
@@ -99,8 +100,10 @@ def _cuda_rates(scale: int, device: torch.device) -> Dict[str, float]:
     lib.roofline_fma.argtypes = [vp, ci, ci, ci, cf, cf, vp]
     lib.roofline_exp.argtypes = [vp, ci, ci, ci, vp]
     lib.roofline_mma.argtypes = [vp, ci, ci, ci, vp]
+    lib.roofline_mma_bf16.argtypes = [vp, ci, ci, ci, vp]
     lib.roofline_stream.argtypes = [vp, ctypes.c_longlong, ci, ci, cf, cf, vp]
-    for fn in (lib.roofline_fma, lib.roofline_exp, lib.roofline_mma, lib.roofline_stream):
+    for fn in (lib.roofline_fma, lib.roofline_exp, lib.roofline_mma, lib.roofline_mma_bf16,
+               lib.roofline_stream):
         fn.restype = ci
     shape = (ctypes.c_int * 4)()
     lib.roofline_shape(shape)
@@ -136,6 +139,10 @@ def _cuda_rates(scale: int, device: torch.device) -> Dict[str, float]:
     tf32 = diff_rate(
         lambda n: check(lib.roofline_mma(out.data_ptr(), blocks, threads, n, stream()), "mma"),
         it(4096), it(32768), blocks * threads // 32 * mma_chains * mma_unroll * MMA_FLOPS)
+    bf16 = diff_rate(
+        lambda n: check(lib.roofline_mma_bf16(out.data_ptr(), blocks, threads, n, stream()),
+                        "mma_bf16"),
+        it(4096), it(32768), blocks * threads // 32 * mma_chains * mma_unroll * MMA_BF16_FLOPS)
 
     buf = torch.zeros(STREAM_BYTES // 4, dtype=torch.float32, device=device)
     n4 = buf.numel() // 4
@@ -167,6 +174,7 @@ def _cuda_rates(scale: int, device: torch.device) -> Dict[str, float]:
         "elem_per_s": elem_per_s,
         "fp32_tflops": 2 * elem_per_s / 1e12,
         "tf32_tflops": tf32 / 1e12,
+        "bf16_tflops": bf16 / 1e12,
         "hbm_gbps": hbm / 1e9,
         "sm_clock_mhz": _float(smi_out.strip().split("\n")[0]) if smi_out.strip() else None,
     }
@@ -206,6 +214,8 @@ def _cpu_rates(scale: int) -> Dict[str, float]:
         return run
 
     t_mm = _best_time(mm(KM), sync) - _best_time(mm(1), sync)
+    a = a.bfloat16()
+    t_bf16 = _best_time(mm(KM), sync) - _best_time(mm(1), sync)
     big = torch.zeros(STREAM_BYTES // 4 // (16 * scale))
     KS = max(2, 192 // scale)
 
@@ -221,6 +231,7 @@ def _cpu_rates(scale: int) -> Dict[str, float]:
         "elem_per_s": elem_per_s,
         "fp32_tflops": 2 * elem_per_s / 1e12,
         "tf32_tflops": (KM - 1) * 2 * D ** 3 / max(t_mm, 1e-9) / 1e12,
+        "bf16_tflops": (KM - 1) * 2 * D ** 3 / max(t_bf16, 1e-9) / 1e12,
         "hbm_gbps": (KS - 1) * 2 * big.numel() * 4 / max(t_hbm, 1e-9) / 1e9,
         "sm_clock_mhz": None,
     }
@@ -233,6 +244,7 @@ def measure_device_rates(use_cache: bool = True, scale: int = 1,
     Returns ``device_kind`` (``torch.cuda.get_device_name``, or "cpu"),
     ``exp_per_s``, ``elem_per_s`` (FP32 FMAs/s), ``fp32_tflops`` (2 x that),
     ``tf32_tflops`` (dense TF32 ``mma.sync``, one m16n8k8 = 2048 FLOPs),
+    ``bf16_tflops`` (dense BF16 ``mma.sync``, one m16n8k16 = 4096 FLOPs),
     ``hbm_gbps`` (bytes read + written per second), and the
     ``power_limit_w`` and ``sm_clock_mhz`` that ``nvidia-smi`` read beside
     the run (None on the CPU). Cached in ~/.cache/scann_tpu_torch/

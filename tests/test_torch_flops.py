@@ -133,7 +133,8 @@ def test_torch_measure_device_rates_runs_on_the_cpu(tmp_path, monkeypatch):
     rates = roofline.measure_device_rates(use_cache=False, scale=64, device="cpu")
     assert rates["device_kind"] == "cpu"
     assert rates["power_limit_w"] is None and rates["sm_clock_mhz"] is None
-    for key in ("exp_per_s", "elem_per_s", "fp32_tflops", "tf32_tflops", "hbm_gbps"):
+    for key in ("exp_per_s", "elem_per_s", "fp32_tflops", "tf32_tflops", "bf16_tflops",
+                "hbm_gbps"):
         assert np.isfinite(rates[key]) and rates[key] > 0, key
     # a second call at the same scale reads the cache, keyed by name, power
     # limit and scale
@@ -149,3 +150,33 @@ def test_torch_measure_device_rates_runs_on_the_cpu(tmp_path, monkeypatch):
     assert roofline.measure_device_rates(use_cache=True, device="cpu")["exp_per_s"] == 1.0
     assert seen == [1]
     assert roofline.measure_device_rates(use_cache=True, scale=64, device="cpu") == rates
+
+
+def test_torch_bf16_peak_and_operations_count():
+    """The dense BF16 rate of the H100 SXM (989 TFLOP/s), and a kernel's least
+    time of operations: its products three TF32 passes at the TF32 rate in
+    f32, once at the BF16 rate in the bf16 operand mode, the CUDA-core FLOPs
+    at the FP32 rate either way; at the published rates or at measured ones.
+    The QM9 forward (B=128, M=32, N=16, L=7, D=128) as the bound of kernel #1
+    in each mode."""
+    from scann_tpu_torch.config import ModelConfig
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+
+    name = "NVIDIA H100 80GB HBM3"
+    assert flops.peak_bf16_tflops(name) == 989.0
+    assert flops.peak_bf16_tflops("NVIDIA A100-SXM4-80GB") is None
+    f, f32 = 3.0e12, 1.0e11
+    assert flops.operations_seconds(f, f32, device_name=name) == pytest.approx(
+        3 * (f - f32) / 495e12 + f32 / 67e12, rel=1e-12)
+    assert flops.operations_seconds(f, f32, bf16=True, device_name=name) == pytest.approx(
+        (f - f32) / 989e12 + f32 / 67e12, rel=1e-12)
+    rates = dict(RATES, bf16_tflops=700.0)
+    assert flops.operations_seconds(f, f32, bf16=True, rates=rates) == pytest.approx(
+        (f - f32) / 700e12 + f32 / 66e12, rel=1e-12)
+    assert flops.operations_seconds(f, 0.0, rates=rates) == pytest.approx(3 * f / 330e12)
+    qm9 = ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7)
+    work = kfwd.forward_flops(qm9, 128, 32, 16), kfwd.forward_fp32_flops(qm9, 128, 32, 16)
+    f32_ms = 1e3 * flops.operations_seconds(*work, device_name=name)
+    bf16_ms = 1e3 * flops.operations_seconds(*work, bf16=True, device_name=name)
+    assert f32_ms == pytest.approx(0.31, abs=0.01)
+    assert bf16_ms == pytest.approx(0.0541, abs=1e-4)     # 5.99x less product time

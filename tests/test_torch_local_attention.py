@@ -192,8 +192,10 @@ def test_torch_local_attention_gate_and_flops():
                 (128, 32, 20, 7)):
         with pytest.raises(NotImplementedError, match="sizes"):
             kla.check_supported(*bad, torch.float32)
-    with pytest.raises(NotImplementedError, match="float32"):
-        kla.check_supported(128, 32, 128, 8, torch.bfloat16)
+    # bfloat16 tensors are taken; another dtype is refused
+    kla.check_supported(128, 32, 128, 8, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float16"):
+        kla.check_supported(128, 32, 128, 8, torch.float16)
     x = torch.zeros(1, 8, 32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kla.launch_local_attention(x, None, None, None, None, {}, 4, 0.5, True)

@@ -90,8 +90,10 @@ def test_torch_loop_gate_refuses():
     with pytest.raises(NotImplementedError, match="use_attn_norm"):
         kloop.check_supported(dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
     assert not kloop.supports_loop(dataclasses.replace(MP2018, use_attn_norm=False))
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        kloop.check_supported(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 32)
+    # the bf16 operand mode is taken; another dtype is refused
+    assert kloop.refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 32) is None
+    with pytest.raises(NotImplementedError, match="float16"):
+        kloop.check_supported(dataclasses.replace(MP2018, dtype="float16"), 96, 32)
     with pytest.raises(NotImplementedError, match="sizes"):
         kloop.check_supported(MP2018, 96, 72)
     # packed slots: at most MAX_SEGMENTS segments a slot, within the plan

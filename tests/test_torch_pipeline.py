@@ -74,3 +74,58 @@ def test_torch_choose_buckets_identical():
     rng = np.random.default_rng(0)
     sizes = list(zip(rng.integers(3, 30, 200).tolist(), rng.integers(1, 20, 200).tolist()))
     assert pipeline.choose_buckets(sizes, 8, 8, 2) == jax_pipeline.choose_buckets(sizes, 8, 8, 2)
+
+
+# --- BatchIterator (scann_tpu/data/pipeline.py:401; tests/test_pipeline.py:128-190) ---
+
+def _iterator_buckets(datasets, tmp_path):
+    (je, jn), (te, tn) = datasets
+    jb = jax_pipeline.pack_dataset(*jax_pipeline.load_dataset(je, jn, "homo"), max_buckets=2)
+    tb = pipeline.pack_dataset(*pipeline.load_dataset(te, tn, "homo"),
+                               csr_cache_path=str(tmp_path / "c.npz"), csr_source_path=tn,
+                               max_buckets=2)
+    return jb, tb
+
+
+@pytest.mark.parametrize("shuffle,drop", [(False, False), (True, False), (False, True),
+                                          (True, True)])
+def test_torch_batch_iterator_plans_match_jax(datasets, tmp_path, shuffle, drop):
+    """The same plans as the JAX iterator for the same seed, epoch after epoch
+    (shuffled wrap-around training batches, padded eval batches with their
+    sample_mask), the same length and the same materialized batches."""
+    jb, tb = _iterator_buckets(datasets, tmp_path)
+    jit_ = jax_pipeline.BatchIterator(jb, batch_size=8, shuffle=shuffle, seed=3,
+                                      drop_remainder=drop)
+    tit = pipeline.BatchIterator(tb, batch_size=8, shuffle=shuffle, seed=3, drop_remainder=drop)
+    assert len(tit) == len(jit_) and tit.num_structures == jit_.num_structures == 36
+    for _ in range(2):
+        tplans, jplans = tit.plans(), jit_.plans()
+        assert len(tplans) == len(jplans) == len(tit)
+        for (tbi, tidx, tmask), (jbi, jidx, jmask) in zip(tplans, jplans):
+            assert tbi == jbi and len(tidx) == 8
+            np.testing.assert_array_equal(tidx, jidx)
+            np.testing.assert_array_equal(tmask, jmask)
+    for (tbi, tin, ty, tm), (jbi, jin, jy, jm) in zip(tit, jit_):
+        assert tbi == jbi
+        np.testing.assert_array_equal(ty, jy)
+        np.testing.assert_array_equal(tm, jm)
+        for k in jin:
+            np.testing.assert_array_equal(tin[k], jin[k])
+
+
+def test_torch_batch_iterator_covers_eval_once_and_fills_train(datasets, tmp_path):
+    """Eval sees each structure exactly once under its mask; a train bucket
+    smaller than the batch still gives one full batch, as the JAX one does."""
+    jb, tb = _iterator_buckets(datasets, tmp_path)
+    seen = []
+    for bi, idx, mask in pipeline.BatchIterator(tb, batch_size=16).plans():
+        seen.extend(tb[bi].indices[idx][mask > 0].tolist())
+    assert sorted(seen) == list(range(36))
+    tiny = [pipeline.PackedBucket({k: v[:5] for k, v in tb[0].inputs.items()},
+                                  tb[0].targets[:5], tb[0].indices[:5])]
+    jtiny = [jax_pipeline.PackedBucket({k: v[:5] for k, v in jb[0].inputs.items()},
+                                       jb[0].targets[:5], jb[0].indices[:5])]
+    (bi, idx, mask), = pipeline.BatchIterator(tiny, batch_size=16, shuffle=True).plans()
+    (_, jidx, _), = jax_pipeline.BatchIterator(jtiny, batch_size=16, shuffle=True).plans()
+    assert len(idx) == 16 and mask.sum() == 16 and set(idx.tolist()) == set(range(5))
+    np.testing.assert_array_equal(idx, jidx)
