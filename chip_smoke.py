@@ -6,7 +6,7 @@ Builds every CUDA kernel of the port and the rate probes from
 ``scann_tpu_torch/csrc`` (one nvcc per source, all at once) into a fresh
 kernel build cache, ``build/scann_tpu_torch/chip_smoke_exec_cache``
 (``utils/exec_cache.py``), and prints the registers and spills of the two
-backward kernels. Phases 11 and 12 run first:
+backward kernels in f32 and in bf16. Phases 11 and 12 run first:
 
 11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
    (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32 and
@@ -152,6 +152,30 @@ layers); random weights from seeds:
    ``PredictionServer``, each answer equal, bit for bit, to
    ``Scann.predict_structure``; the bf16 launch counts of #1, #3 and #5,
    set to 0 before, must each be above 0 after.
+15. model.dtype bfloat16 training: holds kernels #2 and #4 in the bf16
+   operand mode against their bf16 plain versions (``reference_bf16_forward``
+   under ``torch.autograd``: every product rounds both operands, the
+   cotangent of a transposed product included) on the small matrix at
+   dropout 0.1 (unpacked and packed), then #2 at QM9 and packed at capacity
+   32 and #4 at MP2018 (B=64, 2 blocks a structure) and packed at QM9
+   capacity 48, each at dropout 0 and 0.1 at full depth and at 0.1 with one
+   layer at the same widths, inputs, clusters and packing. For each case it prints,
+   for the gradients flattened into one vector and for pred, (a) the bf16
+   kernel's mean distance from the bf16 plain version, (b) the plain
+   version's bf16-vs-f32 gap, (c) the f32-noise floor and (d) the f32
+   kernel's distance from the bf16 plain version (the reading of a kernel
+   that skipped the mode); (c) is the largest of the plain version against
+   itself with f64 arithmetic between the roundings and on weights moved by
+   about one f32 ulp in three draws. Both kernels relaunch bit for bit, #4 on NaN- and
+   constant-filled scratch at 1, 2 and 4 blocks a structure. Times #2 at QM9
+   and #4 at MP2018 in bf16 in turns with f32. Then the main path, each run
+   in one bucket: a bf16 QM9 model trains 2 epochs on phase 5's molecules
+   (steps by #2; a step resumed from ``checkpoints/last`` equal bit for
+   bit), a bf16 MP2018 model 2 epochs on phase 10's crystals at (96, 32)
+   (steps by #4) and 2 at (96, 64), beyond #4's gate (the per-layer route:
+   the eager bf16 model under autograd); every epoch loss and training-set
+   loss finite and falling, the bf16 launches of #2 and #4, set to 0 before
+   each run, equal to the steps of their routes.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -182,9 +206,10 @@ phase, each kernel's share of both bounds, the run's whole time, then one
 ``sharded_launches``, its launches in phase 13's two ranks together; the
 rows of the four whole-model kernels with ``packed_launches``, their
 launches on the packed training runs, and ``packed``, their times at a
-packed shape; rows ``1-bf16``, ``3-bf16`` and ``5-bf16`` with their f32
-times from the same run, ``f32_ms``, and bounds that count #1's and #3's
-products once at the dense BF16 rate and #5's as in f32) and, last,
+packed shape; rows ``1-bf16``, ``3-bf16``, ``5-bf16``, ``2-bf16`` and
+``4-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
+that count the products of #1-#4 once at the dense BF16 rate and #5's as in
+f32) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
@@ -209,6 +234,11 @@ arithmetic between the roundings, which the phase prints), and there also
 at most 0.5 x (one layer) or 0.9 x (full depth) the f32 kernel's distance
 from the bf16 plain version; at the full-depth shapes every output within
 rtol 0.05 / atol 0.02 (JAX's own bf16 bound) of the same kernel in f32.
+bf16 training (phase 15): readings (a)-(d) as above; (a) at most the larger
+of 0.1 x (b) and 2 x (c), and at most 0.5 x (d) with one layer and on the
+small matrix, 0.9 x (d) at full depth; the bf16 gradient's cosine with the
+f32 kernel's above 0.999 (the JAX package's own check,
+tests/test_kernels.py:273).
 """
 
 import json
@@ -1696,6 +1726,8 @@ def phase8(mp2018, run_dir, failures, card):
 BF16_RTOL, BF16_ATOL = 0.05, 0.02   # JAX's own bf16 bound (tests/test_kernels.py:236)
 BF16_GAP = 0.1                      # of the plain bf16-vs-f32 mean gap
 BF16_FLOOR = 2.0                    # of the f32-noise floor, where that is above the gap's share
+BF16_COSINE = 0.999                 # bf16 against f32 gradients (tests/test_kernels.py:273)
+JITTERS = 3                         # draws of about one f32 ulp on the weights (phase 15's floor)
 
 
 def hold_bf16(label, got16, plain16, plain32, got32, failures, plain16_f64=None,
@@ -2045,6 +2077,395 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
                                    (5, "local_attention", kla))]
 
 
+# ---- phase 15: model.dtype bfloat16 training (#2 and #4 in the bf16 operand mode) ----
+
+def chunked_train_grads(fn, params, x, y, cfm, mrelu, rate, seed, chunk):
+    """A plain training-gradient function (``fn``: ``kbwd.reference_fused_scann_
+    train_grads`` or ``kloop.reference_loop_train_grads``) over the batch in
+    chunks of ``chunk`` rows (each chunk's masks keyed on its global rows),
+    gradients summed from the first chunk on, preds concatenated: the
+    autograd of a full MP2018 batch does not fit the card in f64."""
+    B = x["atomic"].shape[0]
+    preds, total = [], None
+    for i in range(0, B, chunk):
+        pred, g = fn(params, {k: v[i:i + chunk] for k, v in x.items()}, y[i:i + chunk], cfm,
+                     mrelu, rate, seed, i)
+        preds.append(pred.detach())
+        total = g if total is None else {k: total[k] + g[k] for k in total}
+    return torch.cat(preds), total
+
+
+def backward_launch(n, packed, x, y, cfm, rate, seed, scratch=None, cluster=None, mrelu=False):
+    """(pred [B, S], gradients) of one one-shot launch of #2 (``n`` 2) or #4
+    in ``cfm``'s mode."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    if n == 2:
+        flat, pred = kbwd._launch(packed, x, cfm, y, None, True, mrelu, rate, seed)
+    else:
+        flat, pred = kloop._launch_backward(packed, x, cfm, y, None, True, mrelu, rate, seed, 0,
+                                            scratch, cluster)
+    return pred.view(x["atomic"].shape[0], -1), kbwd.grads_from_flat(flat, packed, cfm)
+
+
+def jittered(params, seed):
+    """``params`` each times 1 + 1e-7 x a seeded normal draw: a change of
+    about one f32 ulp, the size of the f32 sum-order differences between two
+    implementations."""
+    g = torch.Generator(device=next(iter(params.values())).device).manual_seed(seed)
+    return {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=g, device=v.device))
+            for k, v in params.items()}
+
+
+def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, below_f32):
+    """A backward kernel in bf16 against its bf16 plain version on the same
+    inputs, each a (pred, gradients) pair. For the gradients flattened into
+    one vector and for pred it prints (a) the bf16 kernel's mean distance
+    from the bf16 plain version, (b) the plain version's own bf16-vs-f32 mean
+    gap, (c) the f32-noise floor, the largest of the plain version's
+    distances from itself with f64 arithmetic between the same roundings and
+    from itself on weights moved by about one f32 ulp, in ``JITTERS`` draws
+    (``floors``: (pred, gradients) pairs, the f64 one first: one draw
+    understates how far f32 noise moves a bf16 result, which scatters from
+    draw to draw), and (d) the f32 kernel's mean distance from the bf16
+    plain version, the reading of a kernel that skipped the mode. It holds
+    (a) to the larger of ``BF16_GAP`` x (b) and ``BF16_FLOOR`` x (c), and to
+    ``below_f32`` x (d); and the bf16 kernel's gradient cosine with the f32
+    kernel's above ``BF16_COSINE``, or where the plain version's own bf16
+    gradient reads below that against its f32 one, no more than 1e-4 below
+    that reading. On a failure it prints the gradients that move (a) most.
+    Returns the largest absolute gradient difference from the bf16 plain
+    version."""
+    flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
+    dist = lambda u, v: (u - v).abs().mean().item()
+    line = [label]
+    for what, sel in (("grads", lambda o: flat(o[1])),
+                      ("pred", lambda o: o[0].double().reshape(-1))):
+        k16, p16, p32, k32 = (sel(o) for o in (got16, plain16, plain32, got32))
+        a, b, d = dist(k16, p16), max(dist(p16, p32), 1e-30), dist(k32, p16)
+        c64, *cjit = (dist(p16, sel(f)) for f in floors)
+        c = max(c64, *cjit)
+        limit = max(BF16_GAP * b, BF16_FLOOR * c)
+        ok = a <= limit and a <= below_f32 * d and bool(torch.isfinite(k16).all())
+        line.append(f"{what}: (a) {a:.3e} = {a / b:.4f} x (b) {b:.3e}, (c) {c / b:.4f} x (f64 "
+                    f"{c64 / b:.4f}, jitter {'/'.join(f'{j / b:.4f}' for j in cjit)}), (d) "
+                    f"{d / b:.4f} x; limit {min(limit, below_f32 * d) / b:.4f} x")
+        if not ok:
+            failures.append(f"{label} {what}: (a) {a:.3e} over min(max({BF16_GAP} (b), "
+                            f"{BF16_FLOOR} (c)), {below_f32} (d)) = "
+                            f"{min(limit, below_f32 * d):.3e}")
+            if what == "grads":
+                share = sorted(((got16[1][k] - plain16[1][k]).abs().sum().item(), k)
+                               for k in plain16[1])[::-1][:4]
+                line.append("largest shares of (a): " + ", ".join(
+                    f"{k} {v / max(k16.numel() * a, 1e-30):.3f}" for v, k in share))
+    cos = lambda u, v: (u @ v / (u.norm() * v.norm())).item()
+    mine, own = cos(flat(got16[1]), flat(got32[1])), cos(flat(plain16[1]), flat(plain32[1]))
+    line.append(f"gradient cosine with the f32 kernel's {mine:.6f} (the plain versions' "
+                f"{own:.6f})")
+    if not mine > min(BF16_COSINE, own - 1e-4):
+        failures.append(f"{label}: gradient cosine {mine:.6f} with the f32 kernel's (the plain "
+                        f"versions' {own:.6f})")
+    print("  ".join(line), flush=True)
+    return max((got16[1][k] - plain16[1][k]).abs().max().item() for k in plain16[1])
+
+
+def phase15_matrix(matrix, failures):
+    """#2 and #4 in bf16 on the small matrix of configurations (SCANN+,
+    SCANN, ring features with mrelu, cgcnn, ga_norm off; 64 molecules of up to
+    16 atoms, and 96 of up to 8 packed into slots of 16 rows) at dropout 0.1
+    against their bf16 plain versions (``hold_bf16_grads``: within the
+    larger of 0.1 x the gap and 2 x the f32-noise floor, and 0.5 x the f32
+    kernel's reading). Returns the largest gradient errors."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    worst = {2: 0.0, 4: 0.0}
+    rng = np.random.default_rng(150)
+    for name, cfm, mrelu in matrix:
+        cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+        p = init_params(cfm, torch.Generator().manual_seed(15), "cuda")
+        packed = kfwd.pack_params(p, cfm)
+        ring, cgcnn = cfm.use_ring, cfm.feature == "cgcnn"
+        for x in (synthetic_batch(rng, 64, 16, 8, ring, cgcnn),
+                  pack_batch(synthetic_batch(rng, 96, 8, 8, ring, cgcnn), 16)):
+            kfwd._check_inputs(x, cfm, packed["wde"].device)
+            B = x["atomic"].shape[0]
+            y = torch.from_numpy(rng.normal(size=(B, max(kfwd.segment_count(x), 1)))
+                                 .astype(np.float32)).cuda()
+            for n, plain in ((2, kbwd.reference_fused_scann_train_grads),
+                             (4, kloop.reference_loop_train_grads)):
+                run = lambda q, c: plain(q, x, y, c, mrelu, 0.1, 15)
+                got = [backward_launch(n, packed, x, y, c, 0.1, 15, mrelu=mrelu)
+                       for c in (cfm16, cfm)]
+                torch.cuda.synchronize()
+                floors = [run(f64_params(p), cfm16)] + [run(jittered(p, j), cfm16)
+                                                        for j in range(JITTERS)]
+                worst[n] = max(worst[n], hold_bf16_grads(
+                    f"phase 15 #{n} bf16 {name}{packed_label(x)} dropout 0.1", got[0],
+                    run(p, cfm16), run(p, cfm), floors, got[1], failures, 0.5))
+    return worst
+
+
+def phase15_holds(qm9_model, mp2018, qm9_inputs, packed_qm9, failures):
+    """#2 and #4 in the bf16 operand mode against their bf16 plain versions
+    (``hold_bf16_grads``): #2 at QM9 and packed at capacity 32, #4 at MP2018
+    (B=64, 2 blocks a structure) and packed at QM9 capacity 48, each at
+    dropout 0 and 0.1 at full depth (within 0.9 x the f32 kernel's reading)
+    and at dropout 0.1 with one layer at the same widths, inputs, clusters
+    and packing (0.5 x); both kernels relaunched, #4 on NaN- and constant-filled
+    scratch at 1, 2 and 4 blocks a structure, bit for bit. Returns (the
+    largest gradient errors, the MP2018 batch)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    mp_x = synthetic_batch(np.random.default_rng(15), 64, 96, 32, n_atoms=mp2018.n_atoms,
+                           min_atoms=20)
+    cases = ((2, qm9_model, "qm9", qm9_inputs, kbwd.reference_fused_scann_train_grads, 64),
+             (2, qm9_model, "qm9 capacity 32", packed_qm9[32], kbwd.reference_fused_scann_train_grads,
+              64),
+             (4, mp2018, "mp2018", mp_x, kloop.reference_loop_train_grads, 16),
+             (4, qm9_model, "qm9 capacity 48", packed_qm9[48], kloop.reference_loop_train_grads, 64))
+    worst = {2: 0.0, 4: 0.0}
+    rng = np.random.default_rng(15)
+    for depth, below in (("", 0.9), (" L=1", 0.5)):
+        for n, base, label, x, plain, chunk in cases:
+            cfm = base if not depth else dataclasses.replace(base, n_attention=1)
+            params = init_params(cfm, torch.Generator().manual_seed(15), "cuda")
+            packed = kfwd.pack_params(params, cfm)
+            kfwd._check_inputs(x, cfm, packed["wde"].device)
+            B = x["atomic"].shape[0]
+            S = max(kfwd.segment_count(x), 1)
+            y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
+            for rate in (0.0, 0.1) if not depth else (0.1,):
+                got16 = backward_launch(n, packed, x, y, bf16(cfm), rate, 15)
+                got32 = backward_launch(n, packed, x, y, cfm, rate, 15)
+                torch.cuda.synchronize()
+                run = lambda p, c: chunked_train_grads(plain, p, x, y, c, False, rate, 15, chunk)
+                plain16, plain32 = run(params, bf16(cfm)), run(params, cfm)
+                floors = [run(f64_params(params), bf16(cfm))] + [
+                    run(jittered(params, j), bf16(cfm)) for j in range(JITTERS)]
+                tag = (f"phase 15 #{n} bf16 {label}{depth} B={B} M={x['atomic'].shape[1]} "
+                       f"N={x['neighbors'].shape[2]}{packed_label(x)} dropout {rate}")
+                worst[n] = max(worst[n], hold_bf16_grads(tag, got16, plain16, plain32, floors,
+                                                         got32, failures, below))
+                del plain16, plain32, floors
+                if depth or rate == 0.0:
+                    continue
+                # the same launch again: bit for bit (#4 on kept scratch at every cluster size)
+                differ = set()
+                if n == 2:
+                    again = backward_launch(n, packed, x, y, bf16(cfm), rate, 15)
+                    differ |= {k for k in got16[1] if not torch.equal(got16[1][k], again[1][k])}
+                    what = "1 bf16 relaunch"
+                else:
+                    M, N = x["atomic"].shape[1], x["neighbors"].shape[2]
+                    for C in (1, 2, 4):
+                        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C)
+                        first = backward_launch(n, packed, x, y, bf16(cfm), rate, 15, scratch, C)
+                        first = (first[0].clone(), {k: v.clone() for k, v in first[1].items()})
+                        for fill in (float("nan"), -3.0):
+                            for t in scratch.values():
+                                if t is not None:
+                                    t.fill_(fill)
+                            again = backward_launch(n, packed, x, y, bf16(cfm), rate, 15, scratch, C)
+                            differ |= {f"{k} at C={C}" for k in first[1]
+                                       if not torch.equal(first[1][k], again[1][k])}
+                            if not torch.equal(first[0], again[0]):
+                                differ.add(f"pred at C={C}")
+                        del scratch
+                    what = ("2 bf16 relaunches on NaN- and constant-filled scratch at 1, 2 and 4 "
+                            "blocks a structure each")
+                print(f"{tag}: {what} bit-identical: {not differ}", flush=True)
+                if differ:
+                    failures.append(f"{tag}: bf16 relaunches differ in {sorted(differ)}")
+            del packed, params
+    return worst, mp_x
+
+
+def phase15_times(qm9_model, mp2018, qm9_inputs, mp_x, card):
+    """The bf16 and f32 ms of #2 at QM9 and #4 at MP2018, in turns in this
+    run (f32, bf16, bf16, f32), the bf16 plain version's ms, the work
+    (FLOP, of them on the CUDA cores, bytes) and the bounds."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    out = {}
+    for n, cfm, x, plain, chunk in ((2, qm9_model, qm9_inputs, kbwd.reference_fused_scann_train_grads,
+                                     128),
+                                    (4, mp2018, mp_x, kloop.reference_loop_train_grads, 32)):
+        cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+        params = init_params(cfm, torch.Generator().manual_seed(16), "cuda")
+        packed = kfwd.pack_params(params, cfm)
+        B, M = x["atomic"].shape[:2]
+        N = x["neighbors"].shape[2]
+        y = torch.from_numpy(np.random.default_rng(16).normal(size=(B, 1)).astype(np.float32)).cuda()
+        scratch = (kloop.loop_backward_scratch(packed, cfm, B, M, N) if n == 4 else None)
+        t = in_turns_ms(lambda: backward_launch(n, packed, x, y, cfm, 0.1, 7, scratch),
+                        lambda: backward_launch(n, packed, x, y, cfm16, 0.1, 7, scratch), 5, 10)
+        plain_ms = statistics.median(cuda_times(lambda: chunked_train_grads(
+            plain, params, x, y, cfm16, False, 0.1, 7, chunk), 2, warmup=1))
+        _, P = kbwd.grad_layout(packed)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        out[n] = (t, plain_ms, kbwd.backward_flops(cfm, B, M, N),
+                  kbwd.backward_fp32_flops(cfm, B, M, N), nbytes)
+        print(f"phase 15 #{n} at B={B} M={M} N={N} (dropout 0.1, one-shot; timed in turns: f32, "
+              f"bf16, bf16, f32): bf16 {t[0]:.4f} ms, f32 {t[1]:.4f} ms, bf16 plain "
+              f"{plain_ms:.4f} ms  [{card}]", flush=True)
+        del scratch, packed, params
+    return out
+
+
+def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
+    """The main path: a bf16 QM9 model trains 2 epochs through
+    ``Scann.prepare_dataset -> train -> evaluate`` on phase 5's molecules in
+    one bucket (32, 16) (the "fused" route, #2 in bf16; eval by #1 in bf16),
+    one step of it resumed from ``checkpoints/last`` must equal the same
+    step of the trainer bit for bit; a bf16 MP2018 model trains 2 epochs on
+    phase 10's crystals in one bucket (96, 32) (the "loop" route, #4 in
+    bf16) and 2 in one bucket with the neighbour axis padded to 64, beyond
+    #4's gate (the "per_layer" route: the eager bf16 model under autograd).
+    One bucket a run, as phases 5 and 10 hold their falling losses: a pass
+    over one of several buckets rides on the others' steps. Each run's epoch
+    loss and training-set loss without dropout must be finite and fall, and
+    the bf16 launches of #2 and #4, set to 0 just before, must equal the
+    steps that took their routes. Returns those launches."""
+    import dataclasses
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    counters = {2: kbwd.launch_scann_backward, 4: kloop.launch_loop_backward}
+    launches = {2: 0, 4: 0}
+
+    def train(label, cfm, info, target, bs, multiple, want):
+        energy, nbr = info["data"]
+        cfg = ScannConfig(model=bf16(cfm),
+                          hyper=HyperConfig(batch_size=bs, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                            target=target, data_energy_path=energy,
+                                            data_nei_path=nbr, epochs=2, seed=0,
+                                            save_path=os.path.join(info["work"],
+                                                                   label.replace(" ", "_"))),
+                          tpu=TpuConfig(max_buckets=1, neighbors_pad_multiple=multiple))
+        scann = Scann(cfg, device="cuda")
+        scann.prepare_dataset()
+        trainer = scann.trainer
+        buckets = scann.train_buckets
+        routes = [trainer.train_route(*b.shape) for b in buckets]
+        scann.init_params(cfg.hyper.seed)              # what fit() would draw
+        sizes = np.array([b.num_structures for b in buckets], np.float64)
+        set_loss = lambda: float(np.dot(bucket_losses(trainer, buckets), sizes) / sizes.sum())
+        before = set_loss()
+        steps = {r: 2 * sum(-(-b.num_structures // bs) for b, q in
+                            zip(scann.train_buckets, routes) if q == r)
+                 for r in ("fused", "loop", "per_layer")}
+        for c in counters.values():
+            c.launches = c.bf16_launches = 0
+        t1 = time.time()
+        hist = scann.train()
+        torch.cuda.synchronize()
+        got = {n: (c.launches, c.bf16_launches) for n, c in counters.items()}
+        seconds = time.time() - t1
+        after = set_loss()                             # before evaluate() restores "best"
+        result = scann.evaluate()
+        print(f"phase 15 {label}: buckets {[(b.shape, r) for b, r in zip(buckets, routes)]}, "
+              f"steps by route {steps}, epoch losses {hist['loss']}, training-set loss without "
+              f"dropout {before:.6f} -> {after:.6f}, test {result}; launches (all, bf16) #2 "
+              f"{got[2]}, #4 {got[4]}; {seconds:.1f} s  [{card}]", flush=True)
+        if not (np.isfinite(hist["loss"]).all() and hist["loss"][-1] < hist["loss"][0]
+                and np.isfinite(after) and after < before):
+            failures.append(f"phase 15 {label}: epoch losses {hist['loss']}, training-set loss "
+                            f"{before} -> {after}: not finite and falling")
+        if (want not in routes or got[2] != (steps["fused"],) * 2
+                or got[4] != (steps["loop"],) * 2):
+            failures.append(f"phase 15 {label}: routes {routes} (want {want}), launches {got} "
+                            f"for steps {steps}")
+        launches[2] += got[2][1]
+        launches[4] += got[4][1]
+        return scann, cfg
+
+    energy_t = "formation_energy_per_atom"
+    qm9, cfg = train("bf16 QM9", qm9_model, qm9_run, "homo", 128, 8, "fused")
+    # resume: one step of the trainer put back in "last" and of a Scann
+    # loaded from it, on the same rows, lr and dropout seed: bit for bit
+    trainer = qm9.trainer
+    last = os.path.join(trainer.workdir, "checkpoints", "last")
+    resumed = Scann(ScannConfig.from_dict(cfg.to_dict()), pretrained=last, device="cuda")
+    trainer.restore_checkpoint("last")
+    b = qm9.train_buckets[-1]
+    idx, seeds = trainer.epoch_plan(cfg.hyper.epochs, len(qm9.train_buckets) - 1,
+                                    b.num_structures, 128)
+    rows = idx[0].cuda()
+    lr = cfg.hyper.lr / (1.0 + cfg.hyper.adam_decay * trainer.step)
+    before = kbwd.launch_scann_backward.bf16_launches
+    for t in (trainer, resumed.trainer):
+        (binputs, btargets), = t._put_buckets([b], "resume")
+        t.train_step({k: v[rows] for k, v in binputs.items()}, btargets[rows], lr, seeds[0])
+    torch.cuda.synchronize()
+    launches[2] += kbwd.launch_scann_backward.bf16_launches - before
+    pairs = [(getattr(trainer, a), getattr(resumed.trainer, a)) for a in ("params", "mu", "nu")]
+    equal = sum(torch.equal(p[k], q[k]) for p, q in pairs for k in p)
+    total = sum(len(p) for p, _ in pairs)
+    print(f"phase 15 bf16 QM9: resumed through load_pretrained(checkpoints/last): one step in "
+          f"both, {equal} of {total} tensors (params, mu, nu) equal, #2 bf16 launches "
+          f"{kbwd.launch_scann_backward.bf16_launches - before} for the 2 steps", flush=True)
+    if (equal != total or resumed.trainer.step != trainer.step
+            or kbwd.launch_scann_backward.bf16_launches - before != 2):
+        failures.append(f"phase 15: the bf16 step after load_pretrained differs: {equal} of "
+                        f"{total} tensors equal")
+    del qm9, resumed, trainer
+    train("bf16 MP2018", mp2018, crystal_run, energy_t, 64, 32, "loop")
+    train("bf16 MP2018 N=64", mp2018, crystal_run, energy_t, 64, 64, "per_layer")
+    return launches
+
+
+def phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_run, failures,
+            card):
+    """model.dtype bfloat16 training: the holds (``phase15_matrix``,
+    ``phase15_holds``), the times (``phase15_times``) and the main path
+    (``phase15_train``). Returns the rows ``2-bf16`` and ``4-bf16`` of the
+    {"kernels": ...} line."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    small = phase15_matrix(matrix, failures)
+    worst, mp_x = phase15_holds(qm9_model, mp2018, qm9_inputs, packed_qm9, failures)
+    worst = {n: max(worst[n], small[n]) for n in worst}
+    times = phase15_times(qm9_model, mp2018, qm9_inputs, mp_x, card)
+    del mp_x
+    torch.cuda.empty_cache()
+    launches = phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card)
+    print(f"phase 15 main path: bf16 launches #2 {launches[2]}, #4 {launches[4]}; "
+          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+    if min(launches.values()) == 0:
+        failures.append(f"phase 15: a backward kernel was not launched in bf16 on the main path: "
+                        f"{launches}")
+    return [bf16_row(f"{n}-bf16", kernel, source, mod.REPLACES if n == 2 else mod.BACKWARD_REPLACES,
+                     launches[n], worst[n], times[n][0], times[n][1], *times[n][2:], card)
+            for n, kernel, source, mod in (
+                (2, "scann_backward", "scann_tpu_torch/csrc/scann_backward_bf16.cu", kbwd),
+                (4, "scann_loop_backward", "scann_tpu_torch/csrc/scann_loop_backward_bf16.cu",
+                 kloop))]
+
+
 def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
     """The crystal loop-backward kernel against its plain version (the eager
     training forward under torch.autograd, same Philox masks), at 1, 2 and 4
@@ -2106,12 +2527,12 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
     for M in (160, 208, 226):   # atom blocks of 16 and of 8, the last M the gate takes
         compare("mp2018 full width", mp2018,
                 synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms, min_atoms=100),
-                rate=0.1, cotangent=False, relaunches=12, clusters=every)
+                rate=0.1, cotangent=False, relaunches=4, clusters=every)
     # mostly padding: structures of 3 atoms up in the block-16 and block-8 buckets
     for M in (160, 208):
         compare("mp2018 full width, ragged", mp2018,
                 synthetic_batch(rng, 4, M, 32, n_atoms=mp2018.n_atoms), rate=0.1,
-                cotangent=False, relaunches=12, clusters=every)
+                cotangent=False, relaunches=4, clusters=every)
     mp_inputs = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
     compare("mp2018 full width", mp2018, mp_inputs, rate=0.1, relaunches=4, clusters=(1, 2))
     # N=16: two atoms per chunk of rows, the shape of phase 10's one-bucket run
@@ -2153,7 +2574,7 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
         ms, plain_ms = in_turns_ms(
             lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7),
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
-                                           scratch))
+                                           scratch), 3, 8)
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
@@ -2866,7 +3287,8 @@ def main():
           f"(one nvcc per source, in parallel) into the build cache "
           f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
           f"{exec_cache.env_fingerprint()})", flush=True)
-    for name in ("scann_backward", "scann_loop_backward"):
+    for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
+                 "scann_loop_backward_bf16"):
         for entry, regs, stores, loads in _build.kernel_resources(name):
             if "reduce_rows" not in entry and "selftest" not in entry:
                 print(f"{name}.cu: {regs} registers a thread, {stores} bytes of spill stores, "
@@ -2879,9 +3301,19 @@ def main():
                             use_attn_norm=True, use_ga_norm=True, use_ring=False,
                             g_update=True, gaussian_d=4.0)
 
+    # the wall time of each phase (the script's budget)
+    walls, mark = {}, [t_start]
+
+    def lap(name):
+        now = time.time()
+        walls[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    lap("build")
     # ---- phases 11 and 12 (run first): the card's rates, the featurizers ----
     phase_rates(qm9_model, failures, card)
     phase_featurizers(failures, card)
+    lap("11-12")
 
     # ---- phase 1: kernel vs plain version on the card ---------------------
     def compare(name, cfm, inputs, mrelu=False, seed=0):
@@ -2936,6 +3368,7 @@ def main():
     for cap, xp in packed_qm9.items():
         compare(f"qm9 full width capacity {cap}", qm9_model, xp)
 
+    lap("1")
     # ---- phase 2: the serving path, through HTTP --------------------------
     from scann_tpu_torch.api import Scann
     from scann_tpu_torch.data.structure import Structure
@@ -3040,6 +3473,7 @@ def main():
     if launches == 0 or launches != device_batches:
         failures.append(f"kernel launches {launches} != device batches {device_batches}")
 
+    lap("2")
     # ---- phase 3: time the kernel at the QM9 serving shape -----------------
     params = init_params(qm9_model, torch.Generator().manual_seed(0), "cuda")
     packed = kfwd.pack_params(params, qm9_model)
@@ -3081,18 +3515,22 @@ def main():
                        "bound_by": p_by, "measured_bound_ms": p_measured, "flops": p_flops}
     bwd_packed_time = time_backward(qm9_model, params, packed, packed_qm9[32], card)
 
+    lap("3")
     # ---- phase 4: the backward kernel against its plain version -------------
     check_products(failures, card)
     bwd_err = phase4(matrix, qm9_model, qm9_inputs, packed_qm9, failures, card)
 
+    lap("4")
     # ---- phase 5: the training path, then with structure packing --------------
     train_launches, qm9_run = phase5(qm9_model, failures, card)
+    lap("5")
     packed_launches = train_packed("phase 5 packed capacity 48", qm9_model, qm9_run, 48, 3, 128,
                                    ("fused", "loop"), failures, card, compare_unpacked=True)
     derived = train_packed("phase 5 packed derived capacity", qm9_model, qm9_run, None, 1, 128,
                            ("fused", "fused"), failures, card)
     packed_launches = {k: v + derived[k] for k, v in packed_launches.items()}
 
+    lap("5 packed")
     # ---- phases 6-8: crystals ---------------------------------------------------
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -3101,26 +3539,41 @@ def main():
     mp_packed = pack_batch(synthetic_batch(np.random.default_rng(66), 64, 90, 32,
                                            n_atoms=mp2018.n_atoms, min_atoms=20), 96)
     loop_err, loop_time = phase6(matrix, mp2018, ptgp, mp_packed, failures, card)
+    lap("6")
     layer_err, layer_time = phase7(mp2018, failures, card)
+    lap("7")
 
     # ---- phases 9-10: crystal training, then phase 8 serves what phase 10 trained --
     loop_bwd_err, loop_bwd_time = phase9(matrix, mp2018, ptgp, qm9_model,
                                          {"qm9": packed_qm9[48], "mp2018": mp_packed}, failures,
                                          card)
+    lap("9")
     loop_bwd_launches, run_dir, crystal_run = phase10(mp2018, failures, card)
+    lap("10")
     crystal_packed = train_packed("phase 10 packed capacity 96", mp2018, crystal_run, 96, 1, 64,
                                   ("loop", "loop"), failures, card, neighbors_multiple=32,
                                   compare_unpacked=True)
     packed_launches = {k: v + crystal_packed[k] for k, v in packed_launches.items()}
+    lap("10 packed")
     loop_launches, layer_launches = phase8(mp2018, run_dir, failures, card)
+    lap("8")
 
     # ---- phase 14: model.dtype bfloat16 ------------------------------------------
     bf16_rows = phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failures,
                         card)
 
+    lap("14")
+    # ---- phase 15: model.dtype bfloat16 training ------------------------------------
+    torch.cuda.empty_cache()
+    bf16_rows += phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_run,
+                         failures, card)
+
+    lap("15")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
+    lap("13")
+    print(f"wall time by phase (s): {walls}", flush=True)
 
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), flush=True)

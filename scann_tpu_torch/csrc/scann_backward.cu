@@ -65,6 +65,23 @@
 //   Bias sums and the LayerNorm parameter gradients (per-warp partials
 //   reduced in warp order) are also summed in a fixed order.
 //
+// bf16 operand mode (model.dtype "bfloat16"; scann_backward.py:661 bf16=):
+// the kernel is a template on kBf16. Every product takes it (scann_mma.cuh:
+// both operands rounded to bfloat16, one TF32 pass, the cotangent of a
+// transposed product included), and so do the operands the TPU kernel forms
+// as products and this one does not: in the forward recompute the gathered
+// neighbour states, each q * k lane before the head sum, the attention
+// before the context sum, the embedding row, the ring embedding's operands
+// and the head; in the backward each d ctx * key lane before its head sum
+// (warp_softmax_backward), d energy before its lane expansion, the attention
+// in d key, d(neighbour state) before the gather's scatter-add, d emb before
+// the one-hot embedding's scatter and the ring gradient's operands. Bias and
+// LayerNorm-parameter gradients stay f32 sums of the unrounded cotangent;
+// packed segments pool f32-exact, as scann_backward.py:296-300 does. This
+// file builds the f32 instantiation; scann_backward_bf16.cu includes it with
+// SCANN_BACKWARD_BF16 defined and builds the bf16 one in its own nvcc, so
+// the two compile in parallel. The shared-memory plan is the same.
+//
 // Interface: a plain C function, loaded with ctypes. It launches both
 // kernels on the given stream, synchronises nothing, allocates nothing,
 // and returns the cudaGetLastError() code of the launches (or an own code).
@@ -72,7 +89,9 @@
 // block, for a check against a float64 product.
 
 #include "philox.cuh"
+#ifndef SCANN_BACKWARD_BF16
 #define SCANN_MMA_SELFTEST
+#endif
 #include "scann_mma.cuh"
 
 namespace {
@@ -118,6 +137,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   return p;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_backward_kernel(const Args a) {
   extern __shared__ float4 smem4[];
@@ -199,7 +219,8 @@ scann_backward_kernel(const Args a) {
     }
     for (int i = tid; i < rows * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
-      store4(sA + r * lda + D + c, *reinterpret_cast<const float4*>(sC + nbr[base + r] * wd + c));
+      store4(sA + r * lda + D + c,
+             operand4<kBf16>(*reinterpret_cast<const float4*>(sC + nbr[base + r] * wd + c)));
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
@@ -216,7 +237,7 @@ scann_backward_kernel(const Args a) {
     const float* bk = a.bk + (size_t)l * D;
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
-      mma_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
         const float* cw = sCW + (m0 + r / N) * wd + c;
         store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
                                            cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
@@ -246,7 +267,7 @@ scann_backward_kernel(const Args a) {
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
-      mma_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
         store4(sU + r * ldu + c,
                make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
       });
@@ -258,12 +279,12 @@ scann_backward_kernel(const Args a) {
     }
     __syncthreads();
     // key = (ns * geo) @ Wk + bk
-    mma_gemm(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sW + r * ldu + c,
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    warp_energy_softmax(sQ + m0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
+    warp_energy_softmax<kBf16>(sQ + m0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
     __syncthreads();
   };
 
@@ -272,8 +293,8 @@ scann_backward_kernel(const Args a) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bq = a.bq + (size_t)l * D;
     if (a.g_update)
-      mma_gemm(sC, wd, M, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
-    mma_gemm(sC, wd, M, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sC, wd, M, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
+    mma_gemm<kBf16>(sC, wd, M, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * wd + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
     });
   };
@@ -292,21 +313,22 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
       const float* bemb = a.bembed;
-      mma_gemm(sFeat, ldf, M, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sFeat, ldf, M, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
         store4(sEmb + r * lde + c,
                make_float4(v.x + bemb[c], v.y + bemb[c + 1], v.z + bemb[c + 2], v.w + bemb[c + 3]));
       });
     } else {
       for (int i = tid; i < M * a.E; i += kThreads) {
         const int m = i / a.E, e = i - m * a.E;
-        sEmb[m * lde + e] = a.embed[(size_t)a.atomic[(size_t)b * M + m] * a.E + e];
+        sEmb[m * lde + e] = operand<kBf16>(a.embed[(size_t)a.atomic[(size_t)b * M + m] * a.E + e]);
       }
     }
     if (a.use_ring) {
       for (int i = tid; i < M * 10; i += kThreads) {
         const int m = i / 10, j = i - m * 10;
         const float r0 = a.ring[((size_t)b * M + m) * 2], r1 = a.ring[((size_t)b * M + m) * 2 + 1];
-        sEmb[m * lde + a.E + j] = r0 * a.wring[j] + r1 * a.wring[10 + j] + a.bring[j];
+        sEmb[m * lde + a.E + j] = operand<kBf16>(r0) * operand<kBf16>(a.wring[j]) +
+                                  operand<kBf16>(r1) * operand<kBf16>(a.wring[10 + j]) + a.bring[j];
       }
     }
     for (int i = tid; i < M * (lde - ke); i += kThreads) {   // keep the pad columns finite
@@ -318,7 +340,7 @@ scann_backward_kernel(const Args a) {
 
   // ======================= forward, stashing layer inputs ===================
   stage_embedding();
-  mma_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+  mma_gemm<kBf16>(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
     const float4 m = mask4(0, r, c);
     store4(sC + r * wd + c,
            make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
@@ -338,11 +360,11 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + D + k] = expf(-(u * u) / a.rbf_width);
       }
       __syncthreads();
-      mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
         store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
                                            v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
       });
-      mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
         store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
                                            v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
       });
@@ -373,7 +395,7 @@ scann_backward_kernel(const Args a) {
         for (int n = 0; n < N; ++n) {
           const int r = at * N + n;
           const float p = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-          s += p * nmask[base + r] * sW[r * ldu + d];
+          s += operand<kBf16>(p) * nmask[base + r] * sW[r * ldu + d];
         }
         sQ[(m0 + at) * wd + d] = s + sQ[(m0 + at) * wd + d];
       }
@@ -400,12 +422,12 @@ scann_backward_kernel(const Args a) {
     // ResidualNorm: centers = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
     const float* br1 = a.br1 + (size_t)l * D;
     const float* br2 = a.br2 + (size_t)l * D;
-    mma_gemm(sQ, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sQ, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sDQ + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                            swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
     });
     __syncthreads();
-    mma_gemm(sDQ, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sDQ, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       store4(sC + r * wd + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                           (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));
@@ -447,18 +469,18 @@ scann_backward_kernel(const Args a) {
     float* sb = sbf + round4(O);
     float* dsbf = sb + round4(O);
     float* scal = dsbf + round4(O);   // [0] norm, [1] d pred
-    mma_gemm(sC, wd, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sC, wd, M, D, a.wal, G, G, [&](int r, int c, float4 v) {
       const float4 s = make_float4(v.x + a.bal[c], v.y + a.bal[c + 1], v.z + a.bal[c + 2],
                                    v.w + a.bal[c + 3]);
       store4(RA + r * wd + c, s);
       store4(RB + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
     });
     __syncthreads();
-    mma_gemm(RB, wd, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(RB, wd, M, G, a.wgq, G, G, [&](int r, int c, float4 v) {
       store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                           v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
     });
-    mma_gemm(RB, wd, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(RB, wd, M, G, a.wgk, G, G, [&](int r, int c, float4 v) {
       store4(RD + r * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                           v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
@@ -469,7 +491,7 @@ scann_backward_kernel(const Args a) {
       const SegVectors v = seg_vectors(work + 5 * MW, a.S, wd, M, O, true);
       seg_queries(v, a.S, RC, wd, RD, wd, am, sid, 0, M, G, true);
       __syncthreads();
-      seg_readout_backward(v, RD, wd, am, sid, M, a.S, G, O, a.ga_norm, a.mrelu, a.one_shot,
+      seg_readout_backward<kBf16>(v, RD, wd, am, sid, M, a.S, G, O, a.ga_norm, a.mrelu, a.one_shot,
                            a.ct + (size_t)b * a.S,
                            a.one_shot ? nullptr : a.ct_ga + (size_t)b * M, a.wbf, a.bbf, a.wp,
                            a.bp, a.pred + (size_t)b * a.S, 1.f, grad(gWP), grad(gBP),
@@ -523,7 +545,7 @@ scann_backward_kernel(const Args a) {
         struc[g] = s;
       }
       __syncthreads();
-      tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+      tile_gemm<kBf16>(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
                                      v.w + a.bbf[c + 3]);
         store4(sbf + c, s);
@@ -532,7 +554,7 @@ scann_backward_kernel(const Args a) {
       __syncthreads();
       if (warp == 0) {
         float p = 0.f;
-        for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
+        for (int o = lane; o < O; o += 32) p += operand<kBf16>(sb[o]) * operand<kBf16>(a.wp[o]);
         p = warp_sum(p) + a.bp[0];
         if (a.mrelu) p = fmaxf(p, 0.f);
         if (lane == 0) {
@@ -541,21 +563,23 @@ scann_backward_kernel(const Args a) {
         }
       }
       __syncthreads();
-      const float ctp = scal[1], nrm = scal[0];
+      // the head's gradient products (d pred rounded too in the bf16 mode)
+      const float ctp = scal[1], nrm = scal[0], c = operand<kBf16>(ctp);
       if (tid == 0) grad(gBP)[0] = ctp;
       for (int o = tid; o < O; o += kThreads) {
-        grad(gWP)[o] = sb[o] * ctp;
-        dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
+        grad(gWP)[o] = operand<kBf16>(sb[o]) * c;
+        dsbf[o] = c * operand<kBf16>(a.wp[o]) * swish_grad(sbf[o]);
       }
       __syncthreads();
       for (int i = tid; i < G * O; i += kThreads) {
         const int g = i / O, o = i - g * O;
-        grad(gWBF)[i] = struc[g] * dsbf[o];
+        grad(gWBF)[i] = operand<kBf16>(struc[g]) * operand<kBf16>(dsbf[o]);
       }
       for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o];
       for (int g = tid; g < G; g += kThreads) {
         float s = 0.f;
-        for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
+        for (int o = 0; o < O; ++o)
+          s += operand<kBf16>(dsbf[o]) * operand<kBf16>(a.wbf[(size_t)g * O + o]);
         dstruc[g] = s;
       }
       __syncthreads();
@@ -598,21 +622,21 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
     }
-    mma_gemm_tA(RB, wd, RC, wd, M, G, G, grad(gWGQ), G, false, grad(gBGQ), false);
-    mma_gemm_tA(RB, wd, RD, wd, M, G, G, grad(gWGK), G, false, grad(gBGK), false);
-    mma_gemm_tB(RC, wd, M, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
+    mma_gemm_tA<kBf16>(RB, wd, RC, wd, M, G, G, grad(gWGQ), G, false, grad(gBGQ), false);
+    mma_gemm_tA<kBf16>(RB, wd, RD, wd, M, G, G, grad(gWGK), G, false, grad(gBGK), false);
+    mma_gemm_tB<kBf16>(RC, wd, M, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
       store4(RE + r * wd + c, v);
     });
     __syncthreads();
-    mma_gemm_tB(RD, wd, M, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
+    mma_gemm_tB<kBf16>(RD, wd, M, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
       const float* e = RE + r * wd + c;
       const float* s = RA + r * wd + c;
       store4(RE + r * wd + c, make_float4((e[0] + v.x) * swish_grad(s[0]), (e[1] + v.y) * swish_grad(s[1]),
                                           (e[2] + v.z) * swish_grad(s[2]), (e[3] + v.w) * swish_grad(s[3])));
     });
     __syncthreads();
-    mma_gemm_tA(sC, wd, RE, wd, M, D, G, grad(gWAL), G, false, grad(gBAL), false);
-    mma_gemm_tB(RE, wd, M, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tA<kBf16>(sC, wd, RE, wd, M, D, G, grad(gWAL), G, false, grad(gBAL), false);
+    mma_gemm_tB<kBf16>(RE, wd, M, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
       store4(sDC + r * wd + c, v);
     });
     __syncthreads();
@@ -663,13 +687,13 @@ scann_backward_kernel(const Args a) {
     __syncthreads();
     const float* br1 = a.br1 + (size_t)l * D;
     const float* br2 = a.br2 + (size_t)l * D;
-    mma_gemm(P1, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(P1, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
       store4(P2 + r * wd + c, s);
       store4(P3 + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
     });
     __syncthreads();
-    mma_gemm(P3, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(P3, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       const float* o1 = P1 + r * wd + c;
       store4(P4 + r * wd + c, make_float4(o1[0] + (v.x + br2[c]) * m.x, o1[1] + (v.y + br2[c + 1]) * m.y,
@@ -715,18 +739,18 @@ scann_backward_kernel(const Args a) {
       }
     };
     flush_ln(grad(gRLNS) + (size_t)l * D, grad(gRLNB) + (size_t)l * D);
-    mma_gemm_tA(P3, wd, P4, wd, M, D, D, grad(gWR2) + (size_t)l * D * D, D, false,
+    mma_gemm_tA<kBf16>(P3, wd, P4, wd, M, D, D, grad(gWR2) + (size_t)l * D * D, D, false,
                 grad(gBR2) + (size_t)l * D, false);
     __syncthreads();
-    mma_gemm_tB(P4, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tB<kBf16>(P4, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       const float* s = P2 + r * wd + c;
       store4(P3 + r * wd + c, make_float4(v.x * swish_grad(s[0]), v.y * swish_grad(s[1]),
                                           v.z * swish_grad(s[2]), v.w * swish_grad(s[3])));
     });
     __syncthreads();
-    mma_gemm_tA(P1, wd, P3, wd, M, D, D, grad(gWR1) + (size_t)l * D * D, D, false,
+    mma_gemm_tA<kBf16>(P1, wd, P3, wd, M, D, D, grad(gWR1) + (size_t)l * D * D, D, false,
                 grad(gBR1) + (size_t)l * D, false);
-    mma_gemm_tB(P3, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm_tB<kBf16>(P3, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       float* p = P5 + r * wd + c;
       store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
     });
@@ -767,7 +791,7 @@ scann_backward_kernel(const Args a) {
       row_forward(l, m0, ca, false);
       // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
       // backward over the N neighbours, on the pre-dropout attention
-      warp_softmax_backward(sDQ + m0 * wd, wd, sW, ldu, nmask + base,
+      warp_softmax_backward<kBf16>(sDQ + m0 * wd, wd, sW, ldu, nmask + base,
                             a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
       __syncthreads();
       // d key (in place of the key) and d query = d ctx + dk sum_n de key
@@ -779,7 +803,8 @@ scann_backward_kernel(const Args a) {
         for (int n = 0; n < N; ++n) {
           const int r = at * N + n;
           const float de = sF[r * H + h];
-          const float used = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
+          const float used =
+              operand<kBf16>(a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h]);
           ex += de * sW[r * ldu + d];
           sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
         }
@@ -787,9 +812,9 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
       // key = kin @ Wk + bk
-      mma_gemm_tA(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
+      mma_gemm_tA<kBf16>(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
       __syncthreads();
-      mma_gemm_tB(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
+      mma_gemm_tB<kBf16>(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
       __syncthreads();
       if (a.g_update) {
         // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
@@ -838,7 +863,7 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
       if (a.g_update) {
-        mma_gemm_tA(sA, lda, sU, ldu, rows, 2 * D, D,
+        mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, 2 * D, D,
                     grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
         for (int i = tid; i < ca * D; i += kThreads) {
           const int at = i / D, d = i - at * D;
@@ -848,16 +873,16 @@ scann_backward_kernel(const Args a) {
         }
         // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
         float* dg_out = dgb + (size_t)base * D;
-        mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
+        mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
           const float* dr = sW + r * ldu + c;
           store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
         });
-        mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
+        mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
           float* p = sV + r * ldu + c;
           store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
       } else {
-        mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
+        mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
                     sAcc + wd, true);
       }
       __syncthreads();
@@ -865,7 +890,7 @@ scann_backward_kernel(const Args a) {
       if (sc_part < np)
         for (int r = 0; r < rows; ++r) {
           const int idx = nbr[base + r];
-          if (idx % np == sc_part) sDCN[idx * wd + sc_d] += sV[r * ldu + sc_d];
+          if (idx % np == sc_part) sDCN[idx * wd + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
         }
       __syncthreads();
     }
@@ -876,17 +901,17 @@ scann_backward_kernel(const Args a) {
       grad(gBK)[(size_t)l * D + d] = sAcc[d];
       grad(gBFG)[(size_t)l * D + d] = sAcc[wd + d];
     }
-    mma_gemm_tA(sC, wd, sDQ, wd, M, D, D, grad(gWQ) + (size_t)l * D * D, D, false,
+    mma_gemm_tA<kBf16>(sC, wd, sDQ, wd, M, D, D, grad(gWQ) + (size_t)l * D * D, D, false,
                 grad(gBQ) + (size_t)l * D, false);
     if (a.g_update)
-      mma_gemm_tA(sC, wd, sDCW, wd, M, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, false);
-    mma_gemm_tB(sDQ, wd, M, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tA<kBf16>(sC, wd, sDCW, wd, M, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, false);
+    mma_gemm_tB<kBf16>(sDQ, wd, M, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
       float* p = sDCN + r * wd + c;
       store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
     });
     __syncthreads();
     if (a.g_update) {
-      mma_gemm_tB(sDCW, wd, M, D, wfg, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tB<kBf16>(sDCW, wd, M, D, wfg, D, D, D, [&](int r, int c, float4 v) {
         float* p = sDCN + r * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
@@ -902,7 +927,7 @@ scann_backward_kernel(const Args a) {
     float* E1 = work + 2 * M * lde + M * ldf;   // d s_de [M, wd]
     float* E2 = work + M * lde + M * ldf;       // d emb  [M, lde]
     stage_embedding();
-    mma_gemm(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sEmb, lde, M, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, r, c);
       const float* dc = sDC + r * wd + c;
       store4(E1 + r * wd + c,
@@ -912,20 +937,20 @@ scann_backward_kernel(const Args a) {
                          dc[3] * m.w * swish_grad(v.w + a.bde[c + 3])));
     });
     __syncthreads();
-    mma_gemm_tA(sEmb, lde, E1, wd, M, ke, D, grad(gWDE), D, false, grad(gBDE), false);
-    mma_gemm_tB(E1, wd, M, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
+    mma_gemm_tA<kBf16>(sEmb, lde, E1, wd, M, ke, D, grad(gWDE), D, false, grad(gBDE), false);
+    mma_gemm_tB<kBf16>(E1, wd, M, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
       store4(E2 + r * lde + c, v);
     });
     __syncthreads();
     if (a.cgcnn) {
-      mma_gemm_tA(sFeat, ldf, E2, lde, M, a.F, a.E, grad(gEMBED), a.E, false, grad(gBEMBED), false);
+      mma_gemm_tA<kBf16>(sFeat, ldf, E2, lde, M, a.F, a.E, grad(gEMBED), a.E, false, grad(gBEMBED), false);
     } else {
       // the one-hot embedding's transpose: scatter d emb into the rows of Z
       float* ge = grad(gEMBED);
       for (int e = tid; e < a.E; e += kThreads) {
         for (int z = 0; z < a.V; ++z) ge[(size_t)z * a.E + e] = 0.f;
         for (int m = 0; m < M; ++m)
-          ge[(size_t)a.atomic[(size_t)b * M + m] * a.E + e] += E2[m * lde + e];
+          ge[(size_t)a.atomic[(size_t)b * M + m] * a.E + e] += operand<kBf16>(E2[m * lde + e]);
       }
     }
     if (a.use_ring) {
@@ -934,7 +959,7 @@ scann_backward_kernel(const Args a) {
         float s = 0.f;
         for (int m = 0; m < M; ++m) {
           const float dr = E2[m * lde + a.E + j];
-          s += k < 2 ? a.ring[((size_t)b * M + m) * 2 + k] * dr : dr;
+          s += k < 2 ? operand<kBf16>(a.ring[((size_t)b * M + m) * 2 + k]) * operand<kBf16>(dr) : dr;
         }
         if (k < 2) grad(gWRING)[k * 10 + j] = s;
         else grad(gBRING)[j] = s;
@@ -956,11 +981,11 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + D + k] = expf(-(u * u) / a.rbf_width);
       }
       __syncthreads();
-      mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
         store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
                                            v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
       });
-      mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
         store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
                                            v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
       });
@@ -972,30 +997,20 @@ scann_backward_kernel(const Args a) {
         sV[r * ldu + d] = g * swishf(snd) * swish_grad(snw);
       }
       __syncthreads();
-      mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
-      mma_gemm_tA(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
+      mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
+      mma_gemm_tA<kBf16>(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
       __syncthreads();
     }
   }
 }
 
-}  // namespace
-
-extern "C" int scann_backward_shared_bytes(const int* dims) {
-  Args a = {};
-  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
-  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
-  a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
-  a.S = dims[21];
-  return make_plan(a).total * (int)sizeof(float);
-}
-
-// Launches the backward kernel (one block per molecule) and the reduction
-// of its gradient rows into out [P]. Pointer 54 is the segment ids [B, M]
-// (null unless packed) and size 21 the segments per slot S.
-extern "C" int scann_backward_launch(void* const* ptrs, const int* dims, const float* scalars,
-                                     const unsigned int* rng, const long long* offsets,
-                                     float* out, void* stream) {
+// Launches the backward kernel (one block per molecule) in the operand mode
+// kBf16 and the reduction of its gradient rows into out [P]. Pointer 54 is
+// the segment ids [B, M] (null unless packed) and size 21 the segments per
+// slot S.
+template <bool kBf16>
+int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
+                    const unsigned int* rng, const long long* offsets, float* out, void* stream) {
   Args a;
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
   a.seg = (const int*)ptrs[54];
@@ -1007,21 +1022,41 @@ extern "C" int scann_backward_launch(void* const* ptrs, const int* dims, const f
     return kErrShape;
   const int bytes = make_plan(a).total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  cudaError_t err = cudaFuncSetAttribute(scann_backward_kernel,
+  cudaError_t err = cudaFuncSetAttribute(scann_backward_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  scann_backward_kernel<<<a.B, kThreads, bytes, s>>>(a);
+  scann_backward_kernel<kBf16><<<a.B, kThreads, bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce_rows(a.grad_rows, a.B, a.P, out, s);
 }
 
-extern "C" const char* scann_backward_error_string(int code) {
+const char* error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes";
   return cudaGetErrorString((cudaError_t)code);
 }
+
+}  // namespace
+
+#ifndef SCANN_BACKWARD_BF16
+extern "C" int scann_backward_shared_bytes(const int* dims) {
+  Args a = {};
+  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
+  a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
+  a.F = dims[10]; a.cgcnn = dims[12]; a.use_ring = dims[13]; a.chunk_atoms = dims[18];
+  a.S = dims[21];
+  return make_plan(a).total * (int)sizeof(float);
+}
+
+extern "C" int scann_backward_launch(void* const* ptrs, const int* dims, const float* scalars,
+                                     const unsigned int* rng, const long long* offsets,
+                                     float* out, void* stream) {
+  return launch_backward<false>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* scann_backward_error_string(int code) { return error_string(code); }
 
 // ptrs: A [rows, K], W [K, nc], WT [nc, K], Y [rows, nc], then the outputs
 // A @ W [rows, nc], A @ WT^T [rows, nc], 2 A^T Y [K, nc] and 2 colsum(Y) [nc];
@@ -1034,6 +1069,15 @@ extern "C" int scann_mma_selftest_launch(void* const* ptrs, const int* dims, con
                              (cudaStream_t)stream);
 }
 
-extern "C" const char* scann_mma_selftest_error_string(int code) {
-  return scann_backward_error_string(code);
+extern "C" const char* scann_mma_selftest_error_string(int code) { return error_string(code); }
+#else
+// The bf16 operand mode (scann_backward_bf16.cu), with the f32 build's
+// arguments.
+extern "C" int scann_backward_bf16_launch(void* const* ptrs, const int* dims,
+                                          const float* scalars, const unsigned int* rng,
+                                          const long long* offsets, float* out, void* stream) {
+  return launch_backward<true>(ptrs, dims, scalars, rng, offsets, out, stream);
 }
+
+extern "C" const char* scann_backward_bf16_error_string(int code) { return error_string(code); }
+#endif

@@ -302,27 +302,30 @@ __device__ inline void seg_scores(const float* keys, int ldk, const float* diag,
 // The backward of seg_scores, per segment as
 // scann_tpu/kernels/scann_backward.py:367-388: from dga [M] (d ga) to dcd [M]
 // = mask d agg0, through each segment's softmax and norm. gd [S] and inner [S]
-// are scratch. Barriers inside.
+// are scratch. kBf16Pools: the pools as seg_scores<true> forms them (each
+// pooled term and each pooled value broadcast to its rows rounded,
+// scann_tpu/kernels/scann_loop.py:702-706). Barriers inside.
+template <bool kBf16Pools = false>
 __device__ inline void seg_scores_backward(const float* dga, const float* ga,
                                            const float* agg0, const float* nrm,
                                            const float* am, const int* seg, int M, int S,
                                            bool ga_norm, float* gd, float* inner, float* dcd) {
   const int tid = threadIdx.x;
-  seg_sum(gd, S, seg, M, [&](int m) { return ga[m] * dga[m]; });
+  seg_sum<kBf16Pools>(gd, S, seg, M, [&](int m) { return ga[m] * dga[m]; });
   __syncthreads();
   for (int m = tid; m < M; m += kThreads) {
     const int s = seg[m];
-    dcd[m] = ga[m] * (dga[m] - (s >= 0 ? gd[s] : 0.f));   // softmax over the segment
+    dcd[m] = ga[m] * (dga[m] - (s >= 0 ? operand<kBf16Pools>(gd[s]) : 0.f));   // softmax over the segment
   }
   __syncthreads();
-  if (ga_norm) seg_sum(inner, S, seg, M, [&](int m) { return agg0[m] * dcd[m]; });
+  if (ga_norm) seg_sum<kBf16Pools>(inner, S, seg, M, [&](int m) { return agg0[m] * dcd[m]; });
   __syncthreads();
   for (int m = tid; m < M; m += kThreads) {
     const int s = seg[m];
     float da = dcd[m];
     if (ga_norm && s >= 0) {
       const float n = nrm[s];
-      da = da / n - agg0[m] * (inner[s] / (n * n * n));
+      da = da / n - agg0[m] * (operand<kBf16Pools>(inner[s]) / (n * n * n));
     }
     dcd[m] = da * am[m];
   }
@@ -360,27 +363,31 @@ __device__ inline float seg_head(const float* struc, int G, int O, const float* 
 // [O]), each times `mine` (0 in the blocks of a cluster other than its
 // first, which write zeros), and writes dstruc [G] = d struc. dsbf [O] is
 // scratch. Each gradient element belongs to one thread at every call, so
-// the sums over the segments repeat bit for bit. Barriers inside.
+// the sums over the segments repeat bit for bit. kBf16: the head's
+// gradient products in the bf16 operand mode (d pred rounded too; the bias
+// gradients unrounded). Barriers inside.
+template <bool kBf16 = false>
 __device__ inline void seg_head_backward(float ctp, const float* sb, const float* sbf,
                                          const float* struc, int G, int O, const float* wp,
                                          const float* wbf, float mine, bool acc, float* gwp,
                                          float* gbp, float* gwbf, float* gbbf, float* dsbf,
                                          float* dstruc) {
   const int tid = threadIdx.x;
+  const float c = operand<kBf16>(ctp);
   if (tid == 0) gbp[0] = (acc ? gbp[0] : 0.f) + ctp * mine;
   for (int o = tid; o < O; o += kThreads) {
-    gwp[o] = (acc ? gwp[o] : 0.f) + sb[o] * ctp * mine;
-    dsbf[o] = ctp * wp[o] * swish_grad(sbf[o]);
+    gwp[o] = (acc ? gwp[o] : 0.f) + operand<kBf16>(sb[o]) * c * mine;
+    dsbf[o] = c * operand<kBf16>(wp[o]) * swish_grad(sbf[o]);
   }
   __syncthreads();
   for (int i = tid; i < G * O; i += kThreads) {
     const int g = i / O, o = i - g * O;
-    gwbf[i] = (acc ? gwbf[i] : 0.f) + struc[g] * dsbf[o] * mine;
+    gwbf[i] = (acc ? gwbf[i] : 0.f) + operand<kBf16>(struc[g]) * operand<kBf16>(dsbf[o]) * mine;
   }
   for (int o = tid; o < O; o += kThreads) gbbf[o] = (acc ? gbbf[o] : 0.f) + dsbf[o] * mine;
   for (int g = tid; g < G; g += kThreads) {
     float t = 0.f;
-    for (int o = 0; o < O; ++o) t += dsbf[o] * wbf[(size_t)g * O + o];
+    for (int o = 0; o < O; ++o) t += operand<kBf16>(dsbf[o]) * operand<kBf16>(wbf[(size_t)g * O + o]);
     dstruc[g] = t;
   }
   __syncthreads();
@@ -485,8 +492,11 @@ __device__ inline void seg_readout_forward(const SegVectors& v, const float* key
 // head per segment (pred [S] written by thread 0 when non-null), d pred =
 // ct[s], or in one-shot mode the residual pred - ct[s] zeroed for a segment
 // without atoms, the head's gradients (times `mine`), d struc, d ga (plus
-// ct_ga [M] when non-null), dcd, and d qsum in place of v.struc. Barriers
-// inside.
+// ct_ga [M] when non-null), dcd, and d qsum in place of v.struc. kBf16: the
+// head's products in the bf16 operand mode; kBf16Pools: the pools too, as
+// the TPU loop kernel forms them (scann_tpu/kernels/scann_loop.py:636-714;
+// d struc reaches the rows rounded). Barriers inside.
+template <bool kBf16 = false, bool kBf16Pools = false>
 __device__ inline void seg_readout_backward(const SegVectors& v, const float* keys, int ldk,
                                             const float* am, const int* seg, int M, int S, int G,
                                             int O, bool ga_norm, bool mrelu, bool one_shot,
@@ -495,38 +505,46 @@ __device__ inline void seg_readout_backward(const SegVectors& v, const float* ke
                                             const float* bp, float* pred, float mine, float* gwp,
                                             float* gbp, float* gwbf, float* gbbf) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, ld = v.ld;
-  seg_scores(keys, ldk, v.diag, v.qsum, ld, am, seg, M, S, G, ga_norm, v.agg0, v.nrm, v.ga, v.den);
-  seg_pool(v.struc, ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return am[m] * v.ga[m]; });
+  seg_scores<kBf16Pools>(keys, ldk, v.diag, v.qsum, ld, am, seg, M, S, G, ga_norm, v.agg0, v.nrm,
+                         v.ga, v.den);
+  seg_pool<kBf16Pools>(v.struc, ld, S, keys, ldk, seg, 0, M, G, true,
+                       [&](int m) { return am[m] * v.ga[m]; });
   seg_sum(v.cnt, S, seg, M, [&](int m) { return am[m]; });
   __syncthreads();
   for (int s = 0; s < S; ++s) {
-    const float p = seg_head(v.struc + s * ld, G, O, wbf, bbf, wp, bp, mrelu, v.sbf, v.sb);
+    const float p = seg_head<kBf16>(v.struc + s * ld, G, O, wbf, bbf, wp, bp, mrelu, v.sbf, v.sb);
     if (threadIdx.x == 0) {
       if (pred) pred[s] = p;
       // one-shot: the residual of a segment without atoms is zeroed
       v.ctp[s] = one_shot ? (p - ct[s]) * (v.cnt[s] > 0.f ? 1.f : 0.f) : ct[s];
     }
     __syncthreads();
-    seg_head_backward(v.ctp[s], v.sb, v.sbf, v.struc + s * ld, G, O, wp, wbf, mine, s > 0, gwp,
-                      gbp, gwbf, gbbf, v.dsbf, v.dstruc + s * ld);
+    seg_head_backward<kBf16>(v.ctp[s], v.sb, v.sbf, v.struc + s * ld, G, O, wp, wbf, mine, s > 0,
+                             gwp, gbp, gwbf, gbbf, v.dsbf, v.dstruc + s * ld);
   }
   for (int m = warp; m < M; m += kWarps) {
     const int sg = seg[m];
     float t = 0.f;
     if (sg >= 0)
-      for (int g = lane; g < G; g += 32) t += am[m] * keys[m * ldk + g] * v.dstruc[sg * ld + g];
+      for (int g = lane; g < G; g += 32)
+        t += am[m] * keys[m * ldk + g] * operand<kBf16Pools>(v.dstruc[sg * ld + g]);
     t = warp_sum(t);
     if (lane == 0) v.dga[m] = t + (ct_ga ? ct_ga[m] : 0.f);
   }
   __syncthreads();
-  seg_scores_backward(v.dga, v.ga, v.agg0, v.nrm, am, seg, M, S, ga_norm, v.cnt, v.den, v.dcd);
-  seg_pool(v.struc, ld, S, keys, ldk, seg, 0, M, G, true, [&](int m) { return v.dcd[m] * am[m]; });
+  seg_scores_backward<kBf16Pools>(v.dga, v.ga, v.agg0, v.nrm, am, seg, M, S, ga_norm, v.cnt, v.den,
+                                  v.dcd);
+  seg_pool<kBf16Pools>(v.struc, ld, S, keys, ldk, seg, 0, M, G, true,
+                       [&](int m) { return v.dcd[m] * am[m]; });
   __syncthreads();
 }
 
 // The gradients of the GA queries and keys of rows m0 .. m0 + rows of a
 // packed slot, after seg_readout_backward, in place: q [rows, ldq] from gq
-// to d gq, k [rows, ldk] from gk to d gk. No barrier inside.
+// to d gq, k [rows, ldk] from gk to d gk. kBf16Pools: the pooled values
+// reach the rows rounded, as seg_readout_backward<kBf16, true> forms them.
+// No barrier inside.
+template <bool kBf16Pools = false>
 __device__ inline void seg_query_key_grads(const SegVectors& v, float* q, int ldq, float* k,
                                            int ldk, const float* am, const int* seg, int m0,
                                            int rows, int G) {
@@ -534,9 +552,9 @@ __device__ inline void seg_query_key_grads(const SegVectors& v, float* q, int ld
   for (int i = threadIdx.x; i < rows * G; i += kThreads) {
     const int r = i / G, g = i - r * G, m = m0 + r, sg = seg[m];
     const float mm = am[m], mk = mm * k[r * ldk + g], mq = mm * q[r * ldq + g];
-    const float qs = sg >= 0 ? v.qsum[sg * ld + g] : 0.f;
-    const float dq = sg >= 0 ? v.struc[sg * ld + g] : 0.f;
-    const float ds = sg >= 0 ? v.dstruc[sg * ld + g] : 0.f;
+    const float qs = sg >= 0 ? operand<kBf16Pools>(v.qsum[sg * ld + g]) : 0.f;
+    const float dq = sg >= 0 ? operand<kBf16Pools>(v.struc[sg * ld + g]) : 0.f;
+    const float ds = sg >= 0 ? operand<kBf16Pools>(v.dstruc[sg * ld + g]) : 0.f;
     const float dcd = v.dcd[m];
     q[r * ldq + g] = mm * (-dcd * mk + dq);
     k[r * ldk + g] = mm * v.ga[m] * ds + mm * (dcd * qs - dcd * mq);

@@ -75,6 +75,15 @@
 // - Dropout masks are drawn where they are used, forward and reverse, keyed
 //   as in scann_loop.cu and ops/dropout.py.
 //
+// - bf16 operand mode (model.dtype "bfloat16"; scann_loop.py:1096 bf16=): the
+//   kernel is a template on kBf16 and rounds where scann_backward.cu does
+//   (its note lists the places); packed segments pool as bf16-mode
+//   products with each segment's own max shift (seg_*<true> of
+//   scann_common.cuh, scann_loop.py:636-714), as kernel #3 does. This file
+//   builds the f32 instantiation; scann_loop_backward_bf16.cu includes it
+//   with SCANN_LOOP_BACKWARD_BF16 defined and builds the bf16 one in its own
+//   nvcc, so the two compile in parallel.
+//
 // Interface: a plain C function, loaded with ctypes. It launches both kernels
 // on the given stream, synchronises nothing, allocates nothing, and returns
 // the cudaGetLastError() code of the launches (or kErrSharedMemory / kErrShape).
@@ -131,6 +140,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   return p;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_backward_kernel(const Args a) {
   extern __shared__ float4 smem4[];
@@ -232,7 +242,7 @@ scann_loop_backward_kernel(const Args a) {
     for (int i = tid; i < rows * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
       store4(sA + r * lda + D + c,
-             *reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c));
+             operand4<kBf16>(*reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c)));
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
@@ -250,7 +260,7 @@ scann_loop_backward_kernel(const Args a) {
     const float* bk = a.bk + (size_t)l * D;
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
-      mma_gemm(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
         const float* cw = sCW + (lm0 + r / N) * wd + c;
         store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
                                              cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
@@ -280,7 +290,7 @@ scann_loop_backward_kernel(const Args a) {
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
-      mma_gemm(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
         store4(sU + r * ldu + c,
                make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
       });
@@ -292,12 +302,12 @@ scann_loop_backward_kernel(const Args a) {
     }
     __syncthreads();
     // key = (ns * geo) @ Wk + bk
-    mma_gemm(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sW + r * ldu + c,
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    warp_energy_softmax(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
+    warp_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
     __syncthreads();
   };
 
@@ -307,8 +317,8 @@ scann_loop_backward_kernel(const Args a) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bq = a.bq + (size_t)l * D;
     if (a.g_update)
-      mma_gemm(cb, wd, ab, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
-    mma_gemm(cb, wd, ab, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(cb, wd, ab, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
+    mma_gemm<kBf16>(cb, wd, ab, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * wd + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
     });
   };
@@ -342,21 +352,22 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       const float* bemb = a.bembed;
-      mma_gemm(sFeat, ldf, ab, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sFeat, ldf, ab, F, a.embed, a.E, a.E, [&](int r, int c, float4 v) {
         store4(sEmb + r * lde + c,
                make_float4(v.x + bemb[c], v.y + bemb[c + 1], v.z + bemb[c + 2], v.w + bemb[c + 3]));
       });
     } else {
       for (int i = tid; i < ab * a.E; i += kThreads) {
         const int m = i / a.E, e = i - m * a.E;
-        sEmb[m * lde + e] = a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * a.E + e];
+        sEmb[m * lde + e] = operand<kBf16>(a.embed[(size_t)a.atomic[(size_t)b * M + ab0 + m] * a.E + e]);
       }
     }
     if (a.use_ring) {
       for (int i = tid; i < ab * 10; i += kThreads) {
         const int m = i / 10, j = i - m * 10;
         const float* ra = a.ring + ((size_t)b * M + ab0 + m) * 2;
-        sEmb[m * lde + a.E + j] = ra[0] * a.wring[j] + ra[1] * a.wring[10 + j] + a.bring[j];
+        sEmb[m * lde + a.E + j] = operand<kBf16>(ra[0]) * operand<kBf16>(a.wring[j]) +
+                                  operand<kBf16>(ra[1]) * operand<kBf16>(a.wring[10 + j]) + a.bring[j];
       }
     }
     for (int i = tid; i < ab * (lde - ke); i += kThreads) {   // keep the pad columns finite
@@ -379,11 +390,11 @@ scann_loop_backward_kernel(const Args a) {
   };
   // s_nd = rbf(d) @ Wnd + bnd -> sU, s_nw = rbf(w) @ Wnw + bnw -> sV; the caller synchronises
   auto geometry_products = [&](int rows) {
-    mma_gemm(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA, lda, rows, K, a.wnd, D, D, [&](int r, int c, float4 v) {
       store4(sU + r * ldu + c, make_float4(v.x + a.bnd[c], v.y + a.bnd[c + 1],
                                            v.z + a.bnd[c + 2], v.w + a.bnd[c + 3]));
     });
-    mma_gemm(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sA + D, lda, rows, K, a.wnw, D, D, [&](int r, int c, float4 v) {
       store4(sV + r * ldu + c, make_float4(v.x + a.bnw[c], v.y + a.bnw[c + 1],
                                            v.z + a.bnw[c + 2], v.w + a.bnw[c + 3]));
     });
@@ -393,7 +404,7 @@ scann_loop_backward_kernel(const Args a) {
   for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
     const int ab = min(AB, m_hi - ab0);
     stage_embedding(ab0, ab);
-    mma_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
       store4(c_st + (size_t)(ab0 + r) * D + c,
              make_float4(swishf(v.x + a.bde[c]) * m.x, swishf(v.y + a.bde[c + 1]) * m.y,
@@ -447,7 +458,7 @@ scann_loop_backward_kernel(const Args a) {
           for (int n = 0; n < N; ++n) {
             const int r = at * N + n;
             const float p = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
-            s += p * nmask[base + r] * sW[r * ldu + d];
+            s += operand<kBf16>(p) * nmask[base + r] * sW[r * ldu + d];
           }
           sQ[(lm0 + at) * wd + d] = s + sQ[(lm0 + at) * wd + d];
         }
@@ -470,12 +481,12 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       // ResidualNorm: next = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
-      mma_gemm(sQ, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sQ, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         store4(sH1 + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                              swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
       });
       __syncthreads();
-      mma_gemm(sH1, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sH1, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 m = mask4(1 + l, ab0 + r, c);
         store4(sH2 + r * wd + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                              (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));
@@ -529,22 +540,22 @@ scann_loop_backward_kernel(const Args a) {
       const int ab = min(AB, M - ab0);
       float* RB = sCb;                 // cg = swish(cL @ Wal + bal)
       float* RC = sQ;                  // gq
-      mma_gemm(sR + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(sR + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                             swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
       });
       __syncthreads();
-      mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
         store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
-      mma_gemm(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
         store4(sR + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
                                                     v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
       });
       __syncthreads();
       if (S) {
-        seg_queries(v, S, RC, wd, sR, wd, am, sid, ab0, ab, G, ab0 == 0);
+        seg_queries<kBf16>(v, S, RC, wd, sR, wd, am, sid, ab0, ab, G, ab0 == 0);
       } else {
         for (int g = tid; g < G; g += kThreads) {
           float s = qsum[g];
@@ -565,7 +576,8 @@ scann_loop_backward_kernel(const Args a) {
     if (S) {
       // the head's gradients belong to the slot, not to an atom: the
       // cluster's first block writes them, the others write zeros
-      seg_readout_backward(v, sR, wd, am, sid, M, S, G, O, a.ga_norm, a.mrelu, a.one_shot,
+      seg_readout_backward<kBf16, kBf16>(v, sR, wd, am, sid, M, S, G, O, a.ga_norm, a.mrelu,
+                                         a.one_shot,
                            a.ct + (size_t)b * S, a.one_shot ? nullptr : a.ct_ga + (size_t)b * M,
                            a.wbf, a.bbf, a.wp, a.bp, lead ? a.pred + (size_t)b * S : nullptr,
                            lead ? 1.f : 0.f, grad(gWP), grad(gBP), grad(gWBF), grad(gBBF));
@@ -610,7 +622,7 @@ scann_loop_backward_kernel(const Args a) {
         struc[g] = s;
       }
       __syncthreads();
-      tile_gemm(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
+      tile_gemm<kBf16>(struc, G, 1, G, a.wbf, O, O, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + a.bbf[c], v.y + a.bbf[c + 1], v.z + a.bbf[c + 2],
                                      v.w + a.bbf[c + 3]);
         store4(sbf + c, s);
@@ -619,7 +631,7 @@ scann_loop_backward_kernel(const Args a) {
       __syncthreads();
       if (warp == 0) {
         float p = 0.f;
-        for (int o = lane; o < O; o += 32) p += sb[o] * a.wp[o];
+        for (int o = lane; o < O; o += 32) p += operand<kBf16>(sb[o]) * operand<kBf16>(a.wp[o]);
         p = warp_sum(p) + a.bp[0];
         if (a.mrelu) p = fmaxf(p, 0.f);
         if (lane == 0) {
@@ -630,21 +642,23 @@ scann_loop_backward_kernel(const Args a) {
       __syncthreads();
       // the head's gradients belong to the structure, not to an atom: the
       // cluster's first block writes them, the others write zeros
-      const float ctp = scal[1], nrm = scal[0], mine = lead ? 1.f : 0.f;
+      // (d pred rounded too in the bf16 mode)
+      const float ctp = scal[1], nrm = scal[0], mine = lead ? 1.f : 0.f, c = operand<kBf16>(ctp);
       if (tid == 0) grad(gBP)[0] = ctp * mine;
       for (int o = tid; o < O; o += kThreads) {
-        grad(gWP)[o] = sb[o] * ctp * mine;
-        dsbf[o] = ctp * a.wp[o] * swish_grad(sbf[o]);
+        grad(gWP)[o] = operand<kBf16>(sb[o]) * c * mine;
+        dsbf[o] = c * operand<kBf16>(a.wp[o]) * swish_grad(sbf[o]);
       }
       __syncthreads();
       for (int i = tid; i < G * O; i += kThreads) {
         const int g = i / O, o = i - g * O;
-        grad(gWBF)[i] = struc[g] * dsbf[o] * mine;
+        grad(gWBF)[i] = operand<kBf16>(struc[g]) * operand<kBf16>(dsbf[o]) * mine;
       }
       for (int o = tid; o < O; o += kThreads) grad(gBBF)[o] = dsbf[o] * mine;
       for (int g = tid; g < G; g += kThreads) {
         float s = 0.f;
-        for (int o = 0; o < O; ++o) s += dsbf[o] * a.wbf[(size_t)g * O + o];
+        for (int o = 0; o < O; ++o)
+          s += operand<kBf16>(dsbf[o]) * operand<kBf16>(a.wbf[(size_t)g * O + o]);
         dstruc[g] = s;
       }
       __syncthreads();
@@ -693,20 +707,20 @@ scann_loop_backward_kernel(const Args a) {
       float* RE = work;                // d cg, then d s_al
       load_rows(cLb, c_last, ab0, ab);
       __syncthreads();
-      mma_gemm(cLb, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(cLb, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + a.bal[c], v.y + a.bal[c + 1], v.z + a.bal[c + 2],
                                      v.w + a.bal[c + 3]);
         store4(RA + r * wd + c, s);
         store4(RB + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
       });
       __syncthreads();
-      mma_gemm(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
         store4(RC + r * wd + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
       __syncthreads();
       if (S) {
-        seg_query_key_grads(v, RC, wd, RD, wd, am, sid, ab0, ab, G);
+        seg_query_key_grads<kBf16>(v, RC, wd, RD, wd, am, sid, ab0, ab, G);
       } else {
         for (int i = tid; i < ab * G; i += kThreads) {
           const int r = i / G, g = i - r * G, m = ab0 + r;
@@ -718,21 +732,21 @@ scann_loop_backward_kernel(const Args a) {
         }
       }
       __syncthreads();
-      mma_gemm_tA(RB, wd, RC, wd, ab, G, G, grad(gWGQ), G, acc, grad(gBGQ), acc);
-      mma_gemm_tA(RB, wd, RD, wd, ab, G, G, grad(gWGK), G, acc, grad(gBGK), acc);
-      mma_gemm_tB(RC, wd, ab, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
+      mma_gemm_tA<kBf16>(RB, wd, RC, wd, ab, G, G, grad(gWGQ), G, acc, grad(gBGQ), acc);
+      mma_gemm_tA<kBf16>(RB, wd, RD, wd, ab, G, G, grad(gWGK), G, acc, grad(gBGK), acc);
+      mma_gemm_tB<kBf16>(RC, wd, ab, G, a.wgq, G, G, G, [&](int r, int c, float4 v) {
         store4(RE + r * wd + c, v);
       });
       __syncthreads();
-      mma_gemm_tB(RD, wd, ab, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
+      mma_gemm_tB<kBf16>(RD, wd, ab, G, a.wgk, G, G, G, [&](int r, int c, float4 v) {
         const float* e = RE + r * wd + c;
         const float* s = RA + r * wd + c;
         store4(RE + r * wd + c, make_float4((e[0] + v.x) * swish_grad(s[0]), (e[1] + v.y) * swish_grad(s[1]),
                                             (e[2] + v.z) * swish_grad(s[2]), (e[3] + v.w) * swish_grad(s[3])));
       });
       __syncthreads();
-      mma_gemm_tA(cLb, wd, RE, wd, ab, D, G, grad(gWAL), G, acc, grad(gBAL), acc);
-      mma_gemm_tB(RE, wd, ab, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tA<kBf16>(cLb, wd, RE, wd, ab, D, G, grad(gWAL), G, acc, grad(gBAL), acc);
+      mma_gemm_tB<kBf16>(RE, wd, ab, G, a.wal, G, D, D, [&](int r, int c, float4 v) {
         store4(dcen + (size_t)(ab0 + r) * D + c, v);
       });
       __syncthreads();
@@ -789,13 +803,13 @@ scann_loop_backward_kernel(const Args a) {
         if (lane == 0) oinv[m] = inv;
       }
       __syncthreads();
-      mma_gemm(P1, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(P1, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
         store4(P2 + r * wd + c, s);
         store4(P3 + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
       });
       __syncthreads();
-      mma_gemm(P3, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(P3, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
         const float4 m = mask4(1 + l, ab0 + r, c);
         const float* o1 = P1 + r * wd + c;
         store4(P4 + r * wd + c, make_float4(o1[0] + (v.x + br2[c]) * m.x, o1[1] + (v.y + br2[c + 1]) * m.y,
@@ -828,18 +842,18 @@ scann_loop_backward_kernel(const Args a) {
       }
       __syncthreads();
       flush_ln(grad(gRLNS) + (size_t)l * D, grad(gRLNB) + (size_t)l * D, acc);
-      mma_gemm_tA(P3, wd, P4, wd, ab, D, D, grad(gWR2) + (size_t)l * D * D, D, acc,
+      mma_gemm_tA<kBf16>(P3, wd, P4, wd, ab, D, D, grad(gWR2) + (size_t)l * D * D, D, acc,
                   grad(gBR2) + (size_t)l * D, acc);
       __syncthreads();
-      mma_gemm_tB(P4, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tB<kBf16>(P4, wd, ab, D, a.wr2 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         const float* s = P2 + r * wd + c;
         store4(P3 + r * wd + c, make_float4(v.x * swish_grad(s[0]), v.y * swish_grad(s[1]),
                                             v.z * swish_grad(s[2]), v.w * swish_grad(s[3])));
       });
       __syncthreads();
-      mma_gemm_tA(P1, wd, P3, wd, ab, D, D, grad(gWR1) + (size_t)l * D * D, D, acc,
+      mma_gemm_tA<kBf16>(P1, wd, P3, wd, ab, D, D, grad(gWR1) + (size_t)l * D * D, D, acc,
                   grad(gBR1) + (size_t)l * D, acc);
-      mma_gemm_tB(P3, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+      mma_gemm_tB<kBf16>(P3, wd, ab, D, a.wr1 + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         float* p = P5 + r * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
@@ -877,7 +891,7 @@ scann_loop_backward_kernel(const Args a) {
         row_forward(l, m0, lm0, ca, false);
         // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
         // backward over the N neighbours, on the pre-dropout attention
-        warp_softmax_backward(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
+        warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
                               a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
         __syncthreads();
         // d key (in place of the key) and d query = d ctx + dk sum_n de key
@@ -889,7 +903,8 @@ scann_loop_backward_kernel(const Args a) {
           for (int n = 0; n < N; ++n) {
             const int r = at * N + n;
             const float de = sF[r * H + h];
-            const float used = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
+            const float used =
+                operand<kBf16>(a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h]);
             ex += de * sW[r * ldu + d];
             sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
           }
@@ -897,9 +912,9 @@ scann_loop_backward_kernel(const Args a) {
         }
         __syncthreads();
         // key = kin @ Wk + bk
-        mma_gemm_tA(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
+        mma_gemm_tA<kBf16>(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
         __syncthreads();
-        mma_gemm_tB(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
+        mma_gemm_tB<kBf16>(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
         __syncthreads();
         if (a.g_update) {
           // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
@@ -948,7 +963,7 @@ scann_loop_backward_kernel(const Args a) {
         }
         __syncthreads();
         if (a.g_update) {
-          mma_gemm_tA(sA, lda, sU, ldu, rows, 2 * D, D,
+          mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, 2 * D, D,
                       grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
           for (int i = tid; i < ca * D; i += kThreads) {
             const int at = i / D, d = i - at * D;
@@ -958,16 +973,16 @@ scann_loop_backward_kernel(const Args a) {
           }
           // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
           float* dg_out = dgb + (size_t)base * D;
-          mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
+          mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
             const float* dr = sW + r * ldu + c;
             store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
           });
-          mma_gemm_tB(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
+          mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
             float* p = sV + r * ldu + c;
             store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
           });
         } else {
-          mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
+          mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
                       sAcc + wd, true);
         }
         __syncthreads();
@@ -975,24 +990,24 @@ scann_loop_backward_kernel(const Args a) {
         if (sc_part < np)
           for (int r = 0; r < rows; ++r) {
             const int idx = nbr[base + r];
-            if (idx % np == sc_part) sDCN[idx * wd + sc_d] += sV[r * ldu + sc_d];
+            if (idx % np == sc_part) sDCN[idx * wd + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
           }
         __syncthreads();
       }
 
       // ---- per-atom gradients of the block -----------------------------------
       if (a.g_update) flush_ln(grad(gLNGS) + (size_t)l * D, grad(gLNGB) + (size_t)l * D, acc);
-      mma_gemm_tA(sCb, wd, sDQ, wd, ab, D, D, grad(gWQ) + (size_t)l * D * D, D, acc,
+      mma_gemm_tA<kBf16>(sCb, wd, sDQ, wd, ab, D, D, grad(gWQ) + (size_t)l * D * D, D, acc,
                   grad(gBQ) + (size_t)l * D, acc);
       if (a.g_update)
-        mma_gemm_tA(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
-      mma_gemm_tB(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
+        mma_gemm_tA<kBf16>(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
+      mma_gemm_tB<kBf16>(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         float* p = sDCN + (ab0 + r) * wd + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
       __syncthreads();
       if (a.g_update) {
-        mma_gemm_tB(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
+        mma_gemm_tB<kBf16>(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
           float* p = sDCN + (ab0 + r) * wd + c;
           store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
@@ -1028,7 +1043,7 @@ scann_loop_backward_kernel(const Args a) {
     float* E1 = work + AB * (2 * lde + ldf);   // d s_de [AB, wd]
     float* E2 = work + AB * (lde + ldf);       // d emb  [AB, lde]
     stage_embedding(ab0, ab);
-    mma_gemm(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
+    mma_gemm<kBf16>(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
       const float* dc = sDCN + (ab0 + r) * wd + c;
       store4(E1 + r * wd + c,
@@ -1038,13 +1053,13 @@ scann_loop_backward_kernel(const Args a) {
                          dc[3] * m.w * swish_grad(v.w + a.bde[c + 3])));
     });
     __syncthreads();
-    mma_gemm_tA(sEmb, lde, E1, wd, ab, ke, D, grad(gWDE), D, acc, grad(gBDE), acc);
-    mma_gemm_tB(E1, wd, ab, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
+    mma_gemm_tA<kBf16>(sEmb, lde, E1, wd, ab, ke, D, grad(gWDE), D, acc, grad(gBDE), acc);
+    mma_gemm_tB<kBf16>(E1, wd, ab, D, a.wde, D, lde, ke, [&](int r, int c, float4 v) {
       store4(E2 + r * lde + c, v);
     });
     __syncthreads();
     if (a.cgcnn) {
-      mma_gemm_tA(sFeat, ldf, E2, lde, ab, a.F, a.E, grad(gEMBED), a.E, acc, grad(gBEMBED), acc);
+      mma_gemm_tA<kBf16>(sFeat, ldf, E2, lde, ab, a.F, a.E, grad(gEMBED), a.E, acc, grad(gBEMBED), acc);
     } else {
       // the one-hot embedding's transpose: scatter d emb into the rows of Z
       float* ge = grad(gEMBED);
@@ -1052,7 +1067,7 @@ scann_loop_backward_kernel(const Args a) {
         if (!acc)
           for (int z = 0; z < a.V; ++z) ge[(size_t)z * a.E + e] = 0.f;
         for (int m = 0; m < ab; ++m)
-          ge[(size_t)a.atomic[(size_t)b * M + ab0 + m] * a.E + e] += E2[m * lde + e];
+          ge[(size_t)a.atomic[(size_t)b * M + ab0 + m] * a.E + e] += operand<kBf16>(E2[m * lde + e]);
       }
     }
     if (a.use_ring) {
@@ -1061,7 +1076,8 @@ scann_loop_backward_kernel(const Args a) {
         float s = 0.f;
         for (int m = 0; m < ab; ++m) {
           const float dr = E2[m * lde + a.E + j];
-          s += k < 2 ? a.ring[((size_t)b * M + ab0 + m) * 2 + k] * dr : dr;
+          s += k < 2 ? operand<kBf16>(a.ring[((size_t)b * M + ab0 + m) * 2 + k]) * operand<kBf16>(dr)
+                     : dr;
         }
         float* dst = k < 2 ? grad(gWRING) + k * 10 + j : grad(gBRING) + j;
         *dst = acc ? *dst + s : s;
@@ -1086,8 +1102,8 @@ scann_loop_backward_kernel(const Args a) {
         sV[r * ldu + d] = g * swishf(snd) * swish_grad(snw);
       }
       __syncthreads();
-      mma_gemm_tA(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
-      mma_gemm_tA(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
+      mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWND), D, ci > 0, grad(gBND), ci > 0);
+      mma_gemm_tA<kBf16>(sA + D, lda, sV, ldu, rows, K, D, grad(gWNW), D, ci > 0, grad(gBNW), ci > 0);
       __syncthreads();
     }
   }
@@ -1119,42 +1135,17 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
   cfg.numAttrs = 1;
 }
 
-}  // namespace
-
-extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
-  Args a = {};
-  set_dims(a, dims);
-  return make_plan(a).total * (int)sizeof(float);
-}
-
-// How many clusters of `cluster` blocks with this shape's shared memory the
-// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
-extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
-  Args a = {};
-  set_dims(a, dims);
-  const int bytes = make_plan(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
 // The pointers, sizes, scalars, random-stream words and offsets are those of
 // unpack_backward_args (scann_grad_common.cuh), followed by pointer 54, the
 // d(layer output) scratch [B, M, D], pointer 55, the segment ids [B, M] (null
 // unless packed), size 21, the atom block, size 22, the segments per slot S,
 // and size 23, the blocks per structure C (grad_rows is then [B * C, P]); in
 // the order scann_tpu_torch/kernels/scann_loop.py passes them. Launches the
-// backward kernel (a cluster of C blocks per structure) and the reduction of
-// its gradient rows into out [P].
-extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
-                                          const float* scalars, const unsigned int* rng,
-                                          const long long* offsets, float* out, void* stream) {
+// backward kernel in the operand mode kBf16 (a cluster of C blocks per
+// structure) and the reduction of its gradient rows into out [P].
+template <bool kBf16>
+int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
+                    const unsigned int* rng, const long long* offsets, float* out, void* stream) {
   Args a;
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
   a.dcenters = (float*)ptrs[54];
@@ -1172,22 +1163,70 @@ extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
     return kErrShape;
   const int bytes = make_plan(a).total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel,
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, a.cluster, bytes, s);
-  err = cudaLaunchKernelEx(&cfg, scann_loop_backward_kernel, a);
+  err = cudaLaunchKernelEx(&cfg, scann_loop_backward_kernel<kBf16>, a);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_reduce_rows(a.grad_rows, a.B * a.cluster, a.P, out, s);
 }
 
-extern "C" const char* scann_loop_backward_error_string(int code) {
+const char* error_string(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes";
   return cudaGetErrorString((cudaError_t)code);
 }
+
+}  // namespace
+
+#ifndef SCANN_LOOP_BACKWARD_BF16
+extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
+  Args a = {};
+  set_dims(a, dims);
+  return make_plan(a).total * (int)sizeof(float);
+}
+
+// How many clusters of `cluster` blocks with this shape's shared memory the
+// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
+  Args a = {};
+  set_dims(a, dims);
+  const int bytes = make_plan(a).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel<false>, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
+                                          const float* scalars, const unsigned int* rng,
+                                          const long long* offsets, float* out, void* stream) {
+  return launch_backward<false>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* scann_loop_backward_error_string(int code) { return error_string(code); }
+#else
+// The bf16 operand mode (scann_loop_backward_bf16.cu), with the f32 build's
+// arguments.
+extern "C" int scann_loop_backward_bf16_launch(void* const* ptrs, const int* dims,
+                                               const float* scalars, const unsigned int* rng,
+                                               const long long* offsets, float* out,
+                                               void* stream) {
+  return launch_backward<true>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* scann_loop_backward_bf16_error_string(int code) {
+  return error_string(code);
+}
+#endif

@@ -36,7 +36,11 @@
 // into the block's gradient row as float4 (16 bytes a thread, 64 bytes a
 // quad), the same thread for the same element at every call, so the sums
 // repeat from run to run. The column sums of dy (the bias gradient) fall out
-// of the same fragments.
+// of the same fragments. In the bf16 operand mode the backward kernels round
+// the cotangent too, as the TPU kernels' transposed products do
+// (scann_tpu/kernels/scann_backward.py:359-530): mma_gemm_tA<true> rounds
+// both x and dy and makes one pass, while its column sums stay the sums of
+// the unrounded dy, and mma_gemm_tB<true> rounds dy and W.
 
 #pragma once
 
@@ -278,7 +282,9 @@ __device__ __forceinline__ void mma_gemm_tB(const float* A, int lda, int rows, i
 // in shared memory (ldy a multiple of 4); Gout is the block's own gradient
 // row in global memory (16-byte aligned, ldg a multiple of 4), overwritten
 // when accumulate is false. With colsum, colsum[j] (+)= sum_r Y[r * ldy + j]
-// as well (sum_accumulate): the bias gradient that goes with Gout.
+// as well (sum_accumulate): the bias gradient that goes with Gout. kBf16:
+// the bf16 operand mode (X and Y rounded, one TF32 pass; colsum unrounded).
+template <bool kBf16 = false>
 __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float* Y, int ldy,
                                             int rows, int I, int J, float* Gout, int ldg,
                                             bool accumulate, float* colsum = nullptr,
@@ -309,10 +315,17 @@ __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const int ia = i0 + 16 * m + g, ib = ia + 8;
-        split_tf32(va && ia < I ? X[ra * ldx + ia] : 0.f, ahi[m][0], alo[m][0]);
-        split_tf32(va && ib < I ? X[ra * ldx + ib] : 0.f, ahi[m][1], alo[m][1]);
-        split_tf32(vb && ia < I ? X[rb * ldx + ia] : 0.f, ahi[m][2], alo[m][2]);
-        split_tf32(vb && ib < I ? X[rb * ldx + ib] : 0.f, ahi[m][3], alo[m][3]);
+        if constexpr (kBf16) {
+          ahi[m][0] = bf16_bits(va && ia < I ? X[ra * ldx + ia] : 0.f);
+          ahi[m][1] = bf16_bits(va && ib < I ? X[ra * ldx + ib] : 0.f);
+          ahi[m][2] = bf16_bits(vb && ia < I ? X[rb * ldx + ia] : 0.f);
+          ahi[m][3] = bf16_bits(vb && ib < I ? X[rb * ldx + ib] : 0.f);
+        } else {
+          split_tf32(va && ia < I ? X[ra * ldx + ia] : 0.f, ahi[m][0], alo[m][0]);
+          split_tf32(va && ib < I ? X[ra * ldx + ib] : 0.f, ahi[m][1], alo[m][1]);
+          split_tf32(vb && ia < I ? X[rb * ldx + ia] : 0.f, ahi[m][2], alo[m][2]);
+          split_tf32(vb && ib < I ? X[rb * ldx + ib] : 0.f, ahi[m][3], alo[m][3]);
+        }
       }
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -329,15 +342,25 @@ __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float
           cs[p][1] += ya.y;
           cs[p][1] += yb.y;
         }
-        unsigned bhi[2][2], blo[2][2];
-        split_tf32(ya.x, bhi[0][0], blo[0][0]);
-        split_tf32(yb.x, bhi[0][1], blo[0][1]);
-        split_tf32(ya.y, bhi[1][0], blo[1][0]);
-        split_tf32(yb.y, bhi[1][1], blo[1][1]);
+        if constexpr (kBf16) {
+          const unsigned b0a = bf16_bits(ya.x), b0b = bf16_bits(yb.x);
+          const unsigned b1a = bf16_bits(ya.y), b1b = bf16_bits(yb.y);
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma_3xtf32(acc[m][2 * p], ahi[m], alo[m], bhi[0], blo[0]);
-          mma_3xtf32(acc[m][2 * p + 1], ahi[m], alo[m], bhi[1], blo[1]);
+          for (int m = 0; m < 2; ++m) {
+            mma_tf32(acc[m][2 * p], ahi[m], b0a, b0b);
+            mma_tf32(acc[m][2 * p + 1], ahi[m], b1a, b1b);
+          }
+        } else {
+          unsigned bhi[2][2], blo[2][2];
+          split_tf32(ya.x, bhi[0][0], blo[0][0]);
+          split_tf32(yb.x, bhi[0][1], blo[0][1]);
+          split_tf32(ya.y, bhi[1][0], blo[1][0]);
+          split_tf32(yb.y, bhi[1][1], blo[1][1]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_3xtf32(acc[m][2 * p], ahi[m], alo[m], bhi[0], blo[0]);
+            mma_3xtf32(acc[m][2 * p + 1], ahi[m], alo[m], bhi[1], blo[1]);
+          }
         }
       }
     }
@@ -394,7 +417,10 @@ __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float
 // lane n holding neighbour n (N <= 32):
 //   e[n] = sum_j (q[j] * dk) * key[n][j] - 1e9 (1 - nmask[n]),  sE[(at N + n) H + h] = softmax_n e.
 // sQ [ca, ldq] are the chunk's queries, sKey [ca N, ldk] its keys, nmask
-// points at the chunk's first row. The caller synchronises.
+// points at the chunk's first row. kBf16: each product rounded to bfloat16
+// before the head sum (the TPU kernels' product with the 0/1 head map), as
+// the forwards' fwd_chunk rounds it. The caller synchronises.
+template <bool kBf16 = false>
 __device__ __forceinline__ void warp_energy_softmax(const float* sQ, int ldq, const float* sKey,
                                                     int ldk, const float* nmask, float* sE, int ca,
                                                     int N, int H, int hd, float dk) {
@@ -406,7 +432,11 @@ __device__ __forceinline__ void warp_energy_softmax(const float* sQ, int ldq, co
       const float* q = sQ + at * ldq + h * hd;
       const float* kk = sKey + r * ldk + h * hd;
       e = 0.f;
-      for (int j = 0; j < hd; ++j) e = fmaf(q[j] * dk, kk[j], e);
+      if (kBf16) {
+        for (int j = 0; j < hd; ++j) e += bf16r((q[j] * dk) * kk[j]);
+      } else {
+        for (int j = 0; j < hd; ++j) e = fmaf(q[j] * dk, kk[j], e);
+      }
       e += (1.0f - nmask[r]) * -1e9f;
     }
     const float mx = warp_max(e);
@@ -419,7 +449,11 @@ __device__ __forceinline__ void warp_energy_softmax(const float* sQ, int ldq, co
 // d attention and the softmax backward of one chunk, one warp per (atom,
 // head), on the attention before dropout sE:
 //   f[n] = nmask[n] * drop[n] * sum_j dctx[j] * key[n][j],  sF[..] = p[n] (f[n] - sum_n p f).
-// sDrop (or null) is the attention dropout mask [ca N, H]. The caller synchronises.
+// sDrop (or null) is the attention dropout mask [ca N, H]. kBf16: each
+// product dctx * key rounded before the head sum, and sF rounded (the TPU
+// kernels expand d energy to lanes as a bf16-mode product,
+// scann_backward.py:446-452). The caller synchronises.
+template <bool kBf16 = false>
 __device__ __forceinline__ void warp_softmax_backward(const float* sDCtx, int ldq,
                                                       const float* sKey, int ldk,
                                                       const float* nmask, const float* sDrop,
@@ -432,13 +466,17 @@ __device__ __forceinline__ void warp_softmax_backward(const float* sDCtx, int ld
     if (lane < N) {
       const float* dq = sDCtx + at * ldq + h * hd;
       const float* kk = sKey + r * ldk + h * hd;
-      for (int j = 0; j < hd; ++j) f = fmaf(dq[j], kk[j], f);
+      if (kBf16) {
+        for (int j = 0; j < hd; ++j) f += bf16r(dq[j] * kk[j]);
+      } else {
+        for (int j = 0; j < hd; ++j) f = fmaf(dq[j], kk[j], f);
+      }
       f *= nmask[r];
       if (sDrop) f *= sDrop[r * H + h];
       p = sE[r * H + h];
     }
     const float s = warp_sum(p * f);
-    if (lane < N) sF[r * H + h] = p * (f - s);
+    if (lane < N) sF[r * H + h] = operand<kBf16>(p * (f - s));
   }
 }
 

@@ -69,8 +69,11 @@ SRC_DIR = os.path.join(PKG_DIR, "csrc")
 DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scann_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The two backward kernels' bf16 operand mode (model.dtype "bfloat16") is a
+# source of its own each, which includes the f32 one: nvcc compiles the two
+# instantiations of the longest builds in parallel.
 SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
-           "local_attention")
+           "local_attention", "scann_backward_bf16", "scann_loop_backward_bf16")
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
 # utils/roofline.py. Built and loaded the same way.
 PROBES = ("roofline_probe",)

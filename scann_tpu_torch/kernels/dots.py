@@ -16,9 +16,23 @@ Rounding applies to activations and one-hot or RBF operands alike: a
 Gaussian value is not exact in bfloat16. ``mm_hi`` and ``mm_tA_hi`` are the
 f32-exact products the molecule kernel pools packed segments with, in
 either mode.
+
+The TPU backward kernels (``scann_backward.py:_kernel``,
+``scann_loop.py:_bwd_kernel``) form every gradient product in the same
+mode, the transposed ones included, so the cotangent is rounded too: for
+``y = r(a) @ r(w)`` they compute ``da = r(dy) @ r(w)^T`` and ``dw = r(a)^T
+@ r(dy)``, the weight's own rounding being straight-through. ``product``
+is that pair as a ``torch.autograd.Function``; ``one_hot`` the same for the
+operands the port forms without a product (the neighbour gather, the
+embedding lookup, the energies' head sum and the attention's lane
+expansion): ``y = P(r(x))`` for a 0/1 map P, whose backward is ``P^T(r(dy))``
+(the cotangent rounded before the sum, never after it). Bias gradients stay
+f32 sums of the unrounded cotangent, as autograd forms them.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -64,3 +78,46 @@ def dot_fns(bf16: bool):
     if not bf16:
         return fns
     return tuple((lambda f: lambda a, b: f(round_bf16(a), round_bf16(b)))(f) for f in fns)
+
+
+class _Product(torch.autograd.Function):
+    """a [..., X] @ w [X, C] in the bf16 operand mode, with the TPU backward
+    kernels' transposed products as its gradient."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ra, rw = round_bf16(a), round_bf16(w)
+        ctx.save_for_backward(ra, rw)
+        return ra @ rw
+
+    @staticmethod
+    def backward(ctx, g):
+        ra, rw = ctx.saved_tensors
+        rg = round_bf16(g)
+        da = rg @ rw.transpose(0, 1) if ctx.needs_input_grad[0] else None
+        dw = mm3_tA(ra, rg) if ctx.needs_input_grad[1] else None
+        return da, dw
+
+
+def product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``round_bf16(a) @ round_bf16(w)`` (w [X, C]); its gradients are
+    ``r(dy) @ r(w)^T`` and ``r(a)^T @ r(dy)``, summed over a's leading axes."""
+    return _Product.apply(a, w)
+
+
+class _OneHot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(round_bf16(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(round_bf16(g)), None, None
+
+
+def one_hot(x: torch.Tensor, fwd: Callable, bwd: Callable) -> torch.Tensor:
+    """``fwd(round_bf16(x))`` for a 0/1 map ``fwd`` that the TPU kernels form
+    as a product with a one-hot matrix; its gradient is ``bwd(round_bf16(dy))``,
+    ``bwd`` the transpose of that map."""
+    return _OneHot.apply(x, fwd, bwd)

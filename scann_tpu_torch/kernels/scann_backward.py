@@ -24,7 +24,17 @@ CUDA tensors the wrapper launches the kernel or raises; for CPU tensors it
 runs the plain version, ``reference_*``: the eager training forward with
 the same Philox masks, differentiated with ``torch.autograd.grad``.
 ``launch_scann_backward.launches`` counts kernel launches (each launch is
-the backward kernel plus its row reduction).
+the backward kernel plus its row reduction), ``.bf16_launches`` those in
+the bf16 operand mode.
+
+``model.dtype: "bfloat16"`` trains in the bf16 operand mode of
+``kernels/dots.py``, as ``scann_backward.py:661`` does (``bf16=``): every
+product of the forward recompute and of the backward rounds both operands
+to bfloat16, the cotangent of a transposed product included, and sums in
+f32; the kernel is ``csrc/scann_backward_bf16.cu`` (the same source built
+for that mode). Its plain version is ``kfwd.reference_bf16_forward``
+differentiated by ``torch.autograd`` (``training_forward``). Params, their
+gradients and the packed pools stay f32.
 
 The gate (``refusal``) is the kernel's own shared-memory plan: seven
 [M, max(D, G)] buffers stay resident, so M <= 32 at D = G = 128; larger
@@ -64,7 +74,9 @@ from scann_tpu_torch.kernels.scann_forward import (
     forward_fp32_flops,
     fused_scann_forward,
     largest_segments,
+    operand_mode,
     pack_params,
+    reference_bf16_forward,
     rng_words,
     seg_backward_floats,
     segment_arguments,
@@ -184,8 +196,9 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     if not cfm.use_attn_norm:
         return ("use_attn_norm=False: the kernel always applies ResidualNorm; that "
                 "configuration trains through the per-layer model")
-    if cfm.dtype != "float32":
-        return dtype_refusal(cfm)
+    reason = dtype_refusal(cfm)
+    if reason:
+        return reason
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
@@ -204,10 +217,13 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     return None
 
 
-def dtype_refusal(cfm: ModelConfig) -> str:
-    """What both backward kernels say to a model.dtype other than float32."""
-    return (f"model.dtype={cfm.dtype!r}: float32 only (the backward kernels in the bf16 "
-            "operand mode are the next slice of the port)")
+def dtype_refusal(cfm: ModelConfig) -> Optional[str]:
+    """What both backward kernels say to a model.dtype other than float32
+    and bfloat16 (the bf16 operand mode), None for those two."""
+    if cfm.dtype in ("float32", "bfloat16"):
+        return None
+    return (f"model.dtype={cfm.dtype!r}: the backward kernels take float32 and bfloat16 "
+            "(the bf16 operand mode)")
 
 
 def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
@@ -230,12 +246,26 @@ def segment_valid(inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
     return ((seg * inputs["atom_mask"].float()).sum(dim=1) > 0).float()
 
 
+def training_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                     cfm: ModelConfig, mrelu_head: bool, masks, exact_pools: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward the plain versions of the backward kernels differentiate:
+    the eager model in f32; in the bf16 operand mode
+    ``kfwd.reference_bf16_forward``, whose products round the cotangent as
+    the TPU backward kernels do (the segment pools f32-exact for this
+    kernel, ``exact_pools=False`` the loop kernel's bf16-mode pools)."""
+    if cfm.dtype == "bfloat16":
+        return reference_bf16_forward(params, inputs, cfm, mrelu_head, exact_pools, masks)
+    return scann_forward(params, inputs, cfm, mrelu_head, masks)
+
+
 def reference_fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                                cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
-                               seed: int = 0, mol_base: int = 0) -> Dict[str, torch.Tensor]:
-    """Gradients of sum(pred * ct_pred) + sum(ga * ct_ga) through the eager
-    training forward (head without mrelu, as the kernel's cotangent path);
-    ct_pred is [B, S] for a packed batch."""
+                               seed: int = 0, mol_base: int = 0, exact_pools: bool = True
+                               ) -> Dict[str, torch.Tensor]:
+    """Gradients of sum(pred * ct_pred) + sum(ga * ct_ga) through the
+    training forward (``training_forward``; head without mrelu, as the
+    kernel's cotangent path); ct_pred is [B, S] for a packed batch."""
     B, M = inputs["atomic"].shape[:2]
     dev = inputs["atomic"].device
     ctp = _as_rows(ct_pred, B, dev)[:, :max(segment_count(inputs), 1)]
@@ -243,8 +273,9 @@ def reference_fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str
     masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        pred, ga = scann_forward(leaves, inputs, cfm, False, masks)
-        loss = (pred * ctp).sum() + (ga * ctg).sum()
+        pred, ga = training_forward(leaves, inputs, cfm, False, masks, exact_pools)
+        ft = pred.dtype
+        loss = (pred * ctp.to(ft)).sum() + (ga * ctg.to(ft)).sum()
         return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
@@ -252,20 +283,22 @@ def reference_fused_scann_train_grads(params: Dict[str, torch.Tensor],
                                       inputs: Dict[str, torch.Tensor], targets,
                                       cfm: ModelConfig, mrelu_head: bool = False,
                                       dropout_rate: float = 0.0, seed: int = 0,
-                                      mol_base: int = 0
+                                      mol_base: int = 0, exact_pools: bool = True
                                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(pred [B, 1], gradients of 0.5 * sum((pred - t)^2)) through the eager
-    training forward; mrelu is straight-through. A packed batch has targets
-    and pred [B, S], and the residual of an empty segment is zeroed."""
+    """(pred [B, 1], gradients of 0.5 * sum((pred - t)^2)) through the
+    training forward (``training_forward``); mrelu is straight-through. A
+    packed batch has targets and pred [B, S], and the residual of an empty
+    segment is zeroed."""
     B = inputs["atomic"].shape[0]
     S = segment_count(inputs)
     y = _as_rows(targets, B, inputs["atomic"].device)
     masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        pred, _ = scann_forward(leaves, inputs, cfm, mrelu_head, masks)
+        pred, _ = training_forward(leaves, inputs, cfm, mrelu_head, masks, exact_pools)
+        y = y.to(pred.dtype)
         if S:
-            err = (pred - y) * segment_valid(inputs)
+            err = (pred - y) * segment_valid(inputs).to(pred.dtype)
         else:
             err = pred[:, 0] - y[:, 0]
         loss = 0.5 * (err ** 2).sum()
@@ -363,13 +396,23 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     tensors, dims, scalars, rng, offsets, flat, pred = launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
-    call_kernel("scann_backward", "scann_backward", packed["wde"].device, tensors + [seg],
-                dims + [S], scalars, rng, offsets, flat)
+    name = kernel_name("scann_backward", cfm)
+    call_kernel(name, name, packed["wde"].device, tensors + [seg], dims + [S], scalars, rng,
+                offsets, flat)
     launch_scann_backward.launches += 1
+    launch_scann_backward.bf16_launches += operand_mode(cfm)
     return flat, pred
 
 
 launch_scann_backward.launches = 0
+launch_scann_backward.bf16_launches = 0
+
+
+def kernel_name(base: str, cfm: ModelConfig) -> str:
+    """The library and entry point of a backward kernel in ``cfm``'s mode:
+    ``<base>`` in f32, ``<base>_bf16`` (its own build of the same source,
+    ``csrc/<base>_bf16.cu``) in the bf16 operand mode."""
+    return base + "_bf16" if operand_mode(cfm) else base
 
 
 def fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],

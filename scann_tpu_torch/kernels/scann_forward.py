@@ -19,8 +19,9 @@ Philox masks of ``ops.dropout`` that the backward replays).
   bfloat16 and sums in f32, as the TPU kernel's dots do, and its plain
   version is ``reference_bf16_forward``, which rounds where that kernel body
   rounds (not the eager bf16 model, which follows the flax modules' dtypes).
-  The mode serves and evaluates; training in it is the next slice, so a
-  dropout rate above 0 is refused.
+  Its training forward (dropout above 0) draws the same masks as in f32;
+  ``reference_bf16_forward`` under ``torch.autograd`` is also the plain
+  version of the backward kernels in that mode.
 - Packed batches (structure packing, ``data/packing.py``): the inputs carry
   ``segment_onehot`` [B, M, S] (and, from ``Trainer._put_buckets``, the
   ``segment_ids`` [B, M] of ``ops.attention.segment_ids``, -1 on padded
@@ -119,25 +120,83 @@ def reference_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, t
     """The plain version: the eager model, called functionally, with the
     kernels' dropout masks at a rate above 0; in the bf16 operand mode
     ``reference_bf16_forward`` with the segment pools exact."""
+    masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
     if cfm.dtype == "bfloat16":
-        check_bf16_rate(dropout_rate)
-        return reference_bf16_forward(params, inputs, cfm, mrelu_head, exact_pools=True)
-    return scann_forward(params, inputs, cfm, mrelu_head,
-                         dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base))
+        return reference_bf16_forward(params, inputs, cfm, mrelu_head, True, masks)
+    return scann_forward(params, inputs, cfm, mrelu_head, masks)
 
 
-def check_bf16_rate(dropout_rate: float) -> None:
-    """The bf16 operand mode serves and evaluates; its training forward
-    (dropout above 0) belongs with the backward kernels' bf16 mode."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "model.dtype='bfloat16' at dropout > 0: training in the bf16 operand mode needs "
-            "kernels #2 and #4 in that mode, the next slice of the port")
+def _pools(seg: Optional[torch.Tensor], exact: bool):
+    """(pool, rows) of the GA readout: the sums over a structure's atoms and
+    their broadcast back to its rows. Unpacked the atom axis's sum and the
+    identity; packed the products with the [B, M, S] one-hot, f32-exact
+    (the molecule kernel) or as bf16-mode products (the loop kernel)."""
+    if seg is None:
+        return (lambda x: x.sum(dim=1, keepdim=True)), (lambda y: y)
+    if exact:
+        return (lambda x: dots.mm_tA_hi(seg, x)), (lambda y: dots.mm_hi(seg, y))
+    mm, mm_tA = dots.dot_fns(True)[:2]
+    return (lambda x: mm_tA(seg, x)), (lambda y: mm(seg, y))
+
+
+class _Readout(torch.autograd.Function):
+    """The GA readout of the bf16 plain versions, from the GA queries and
+    keys [B, M, G] to (ga [B, M, 1], the pooled rows struc [B, G], or [B, S,
+    G] for a packed batch), whose backward is the TPU kernels' own
+    (``scann_backward.py:359-398``, ``scann_loop.py:692-714``): it rounds
+    where their pools round, and the softmax's shift takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, gq, gk, am, seg, ga_norm, exact):
+        pool, rows = _pools(seg, exact)
+        mq, mk = am * gq, am * gk
+        qrows = rows(pool(mq))
+        agg0 = am * ((mk * qrows).sum(-1, keepdim=True) - (mk * mq).sum(-1, keepdim=True))
+        agg, nrm = agg0, None
+        if ga_norm:
+            nrm = rows(torch.sqrt(pool(agg0 * agg0)))
+            nrm = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+            agg = agg0 / nrm
+        agg = agg + (1.0 - am) * -1e9
+        if seg is None:
+            e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
+            ga = e / e.sum(dim=1, keepdim=True)
+            struc = (am * ga * gk).sum(dim=1)                              # [B, G]
+        else:
+            if exact:        # the slot's max: constant within each segment
+                e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
+            else:            # each segment's own max, as a bf16-mode product
+                segmax = (agg + (seg - 1.0) * 1e9).amax(dim=1, keepdim=True)   # [B, 1, S]
+                e = torch.exp(agg - dots.dot_fns(True)[2](seg, segmax)) * am
+            den = rows(pool(e))
+            ga = e / torch.where(den == 0, torch.ones_like(den), den)
+            struc = pool(ga * mk if exact else am * ga * gk)               # [B, S, G]
+        ctx.save_for_backward(gk, am, seg, mq, mk, qrows, agg0, nrm, ga)
+        ctx.ga_norm, ctx.exact = ga_norm, exact
+        return ga, struc
+
+    @staticmethod
+    def backward(ctx, dga_in, dstruc):
+        gk, am, seg, mq, mk, qrows, agg0, nrm, ga = ctx.saved_tensors
+        pool, rows = _pools(seg, ctx.exact)
+        ds = dstruc[:, None, :] if seg is None else rows(dstruc)
+        dga = (am * gk * ds).sum(-1, keepdim=True)
+        if dga_in is not None:
+            dga = dga + dga_in
+        dgk = am * ga * ds
+        dagg = ga * (dga - rows(pool(ga * dga)))
+        if ctx.ga_norm:
+            dagg = dagg / nrm - agg0 * (rows(pool(agg0 * dagg)) / (nrm * nrm * nrm))
+        dcd = dagg * am
+        dmk = dcd * qrows - dcd * mq
+        dmq = -dcd * mk + rows(pool(dcd * mk))
+        return am * dmq, dgk + am * dmk, None, None, None, None
 
 
 def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                            cfm: ModelConfig, mrelu_head: bool = False,
-                           exact_pools: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                           exact_pools: bool = True, masks: Optional[DropoutMasks] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole-model forward in the bf16 operand mode -> (property [B, 1]
     or [B, S] for a packed batch, ga_score [B, M, 1]), f32: the arithmetic of
     ``scann_tpu/kernels/scann_forward.py:_kernel`` and ``scann_loop.py:_fwd_kernel``
@@ -149,15 +208,23 @@ def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     rounded table row) and the head. A packed batch pools its segments
     f32-exact with ``exact_pools`` (the molecule kernel's ``mm_hi``,
     ``scann_forward.py:375-379``) or as bf16-mode products with the loop
-    kernel's per-segment max shift (``scann_loop.py:367-395``). The
-    arithmetic between the roundings is in the params' dtype: f32, or f64
-    to measure how far f32 sums alone move the result."""
-    mm, mm_tA, mm_tB, dot3, _, _ = dots.dot_fns(True)
-    r16 = dots.round_bf16
+    kernel's per-segment max shift (``scann_loop.py:367-395``). ``masks``
+    (``dropout_masks_for``) is the training dropout: the embedding, each
+    layer's attention before its lane expansion and its ResidualNorm FFN
+    output. The arithmetic between the roundings is in the params' dtype:
+    f32, or f64 to measure how far f32 sums alone move the result.
+
+    Differentiated by ``torch.autograd`` it is the plain version of the
+    backward kernels in that mode (``scann_backward.py:_kernel``,
+    ``scann_loop.py:_bwd_kernel``): its products are ``dots.product`` and
+    ``dots.one_hot``, which round the cotangent where those kernels round
+    it, and the readout is ``_Readout``."""
+    mm, one_hot = dots.product, dots.one_hot
     p = params
     ft = p["dense_embed/kernel"].dtype
     atomic = inputs["atomic"]
     dev = atomic.device
+    B, M = atomic.shape[:2]
     D, H = cfm.local_dim, cfm.num_head
     hd = D // H
     am = inputs["atom_mask"].to(ft)                      # [B, M, 1]
@@ -167,14 +234,19 @@ def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
 
     if cfm.feature == "cgcnn":
         emb = mm(atomic.to(ft), p["embed_atom/kernel"]) + p["embed_atom/bias"]
-    else:
-        emb = r16(p["embed_atom/embedding"])[atomic.long()]     # one-hot @ table
+    else:                                                # one-hot @ table
+        z = atomic.long()
+        emb = one_hot(p["embed_atom/embedding"], lambda t: t[z],
+                      lambda g: g.new_zeros(p["embed_atom/embedding"].shape).index_add_(
+                          0, z.reshape(-1), g.reshape(-1, g.shape[-1])))
     de_w = p["dense_embed/kernel"]
     s_de = mm(emb, de_w[:cfm.embedding_dim]) + p["dense_embed/bias"]
     if cfm.use_ring:
         ring = mm(inputs["ring_aromatic"].to(ft), p["extra_embed/kernel"]) + p["extra_embed/bias"]
         s_de = s_de + mm(ring, de_w[cfm.embedding_dim:])
     centers = swish(s_de)
+    if masks is not None:
+        centers = centers * masks.embed
 
     dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev)
     rbf_d = gaussian_expansion(inputs["neighbor_distance"].to(ft), dist_c, RBF_WIDTH)
@@ -182,72 +254,54 @@ def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     if cfm.g_update:
         angle_c = torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)).to(dev)
         rbf_w = gaussian_expansion(weight, angle_c, RBF_WIDTH)
-        geometry = (swish(dot3(rbf_d, p["neighbor_d/kernel"]) + p["neighbor_d/bias"])
-                    * swish(dot3(rbf_w, p["neighbor_w/kernel"]) + p["neighbor_w/bias"]))
+        geometry = (swish(mm(rbf_d, p["neighbor_d/kernel"]) + p["neighbor_d/bias"])
+                    * swish(mm(rbf_w, p["neighbor_w/kernel"]) + p["neighbor_w/bias"]))
 
+    # one-hot @ centers; its transpose adds each neighbour row into its atom
+    nbr = inputs["neighbors"]
+    rows = (nbr.long() + M * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
+    gather = lambda c: one_hot(c, lambda t: gather_neighbor_states(t, nbr),
+                               lambda g: g.new_zeros(B * M, D).index_add_(
+                                   0, rows, g.reshape(-1, D)).view(B, M, D))
+    head_sum = lambda x: x.unflatten(-1, (H, hd)).sum(-1)      # x @ seg_sum
+    lanes = lambda x: x.repeat_interleave(hd, dim=-1)           # x @ seg_expand
     for l in range(cfm.n_attention):
         la, rn = f"local_attention_{l}", f"residual_norm_{l}"
-        ns = gather_neighbor_states(r16(centers), inputs["neighbors"])   # one-hot @ centers
+        ns = gather(centers)
         wfg, bfg = p[f"{la}/filter_geo/kernel"], p[f"{la}/filter_geo/bias"]
         if cfm.g_update:
-            u = (mm(centers, wfg[:D])[:, :, None, :] + dot3(geometry, wfg[D:2 * D])
-                 + dot3(ns, wfg[2 * D:]) + bfg)
+            u = (mm(centers, wfg[:D])[:, :, None, :] + mm(geometry, wfg[D:2 * D])
+                 + mm(ns, wfg[2 * D:]) + bfg)
             geometry = layer_norm(swish(u) + geometry, p[f"{la}/layer_norm_g/scale"],
                                   p[f"{la}/layer_norm_g/bias"])
             geo_term = geometry
         else:
-            geo_term = swish(dot3(rbf_d, wfg) + bfg) * weight[..., None]
-        key = dot3(ns * geo_term, p[f"{la}/key/kernel"]) + p[f"{la}/key/bias"]
+            geo_term = swish(mm(rbf_d, wfg) + bfg) * weight[..., None]
+        key = mm(ns * geo_term, p[f"{la}/key/kernel"]) + p[f"{la}/key/bias"]
         query = mm(centers, p[f"{la}/query/kernel"]) + p[f"{la}/query/bias"]
         prod = (query * dk)[:, :, None, :] * key
-        energy = r16(prod).unflatten(-1, (H, hd)).sum(-1)              # prod @ seg_sum
+        energy = one_hot(prod, head_sum, lanes)
         energy = energy + (1.0 - nmask)[..., None] * -1e9
-        energy = energy - energy.amax(dim=2, keepdim=True)
+        energy = energy - energy.amax(dim=2, keepdim=True).detach()
         e = torch.exp(energy)
         attn = e / e.sum(dim=2, keepdim=True)
-        a_lanes = r16(attn).repeat_interleave(hd, dim=-1)               # attn @ seg_expand
+        if masks is not None and masks.attn is not None:
+            attn = attn * masks.attn[l]
+        a_lanes = one_hot(attn, lanes, head_sum)
         ctx = (a_lanes * nmask[..., None] * key).sum(dim=2)
         out = layer_norm(ctx + query, p[f"{la}/layer_norm/scale"], p[f"{la}/layer_norm/bias"])
         h = swish(mm(out, p[f"{rn}/dense_1/kernel"]) + p[f"{rn}/dense_1/bias"])
         h = mm(h, p[f"{rn}/dense_2/kernel"]) + p[f"{rn}/dense_2/bias"]
+        if masks is not None:
+            h = h * masks.layers[l]
         centers = layer_norm(out + h, p[f"{rn}/layer_norm/scale"], p[f"{rn}/layer_norm/bias"])
 
     centers = swish(mm(centers, p["after_Lc/kernel"]) + p["after_Lc/bias"])
     gq = mm(centers, p["global_attention/query/kernel"]) + p["global_attention/query/bias"]
     gk = mm(centers, p["global_attention/key/kernel"]) + p["global_attention/key/bias"]
-    mq, mk = am * gq, am * gk
     seg = inputs.get("segment_onehot")
-    if seg is None:
-        qsum = mq.sum(dim=1, keepdim=True)
-        agg = am * ((mk * qsum).sum(-1, keepdim=True) - (mk * mq).sum(-1, keepdim=True))
-        if cfm.use_ga_norm:
-            nrm = torch.sqrt((agg * agg).sum(dim=1, keepdim=True))
-            agg = agg / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-        agg = agg + (1.0 - am) * -1e9
-        e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
-        ga = e / e.sum(dim=1, keepdim=True)
-        struc = (am * ga * gk).sum(dim=1)                                # [B, G]
-    else:
-        seg = seg.to(ft)
-        if exact_pools:
-            pool = lambda x: dots.mm_tA_hi(seg, x)                      # [B, S, C]
-            rows = lambda y: dots.mm_hi(seg, y)                         # [B, M, C]
-        else:
-            pool = lambda x: mm_tA(seg, x)
-            rows = lambda y: mm(seg, y)
-        agg = am * ((mk * rows(pool(mq))).sum(-1, keepdim=True) - (mk * mq).sum(-1, keepdim=True))
-        if cfm.use_ga_norm:
-            nrm = rows(torch.sqrt(pool(agg * agg)))
-            agg = agg / torch.where(nrm == 0, torch.ones_like(nrm), nrm)
-        agg = agg + (1.0 - am) * -1e9
-        if exact_pools:      # the slot's max: constant within each segment
-            e = torch.exp(agg - agg.amax(dim=1, keepdim=True))
-        else:                # each segment's own max, as a bf16-mode product
-            segmax = (agg + (seg - 1.0) * 1e9).amax(dim=1, keepdim=True)     # [B, 1, S]
-            e = torch.exp(agg - mm_tB(seg, segmax)) * am
-        den = rows(pool(e))
-        ga = e / torch.where(den == 0, torch.ones_like(den), den)
-        struc = pool(ga * mk if exact_pools else am * ga * gk)          # [B, S, G]
+    ga, struc = _Readout.apply(gq, gk, am, None if seg is None else seg.to(ft),
+                               cfm.use_ga_norm, exact_pools)
     struc = swish(mm(struc, p["bf_property/kernel"]) + p["bf_property/bias"])
     pred = mm(struc, p["predict_property/kernel"]) + p["predict_property/bias"]
     if mrelu_head:
@@ -588,7 +642,7 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     check_supported(cfm, M, N, S)
-    bf16 = operand_mode(cfm, dropout_rate)
+    bf16 = operand_mode(cfm)
     chunk_atoms, work, _ = shared_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
@@ -599,13 +653,10 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
-def operand_mode(cfm: ModelConfig, dropout_rate: float) -> int:
+def operand_mode(cfm: ModelConfig) -> int:
     """1 for the bf16 operand mode (``model.dtype: bfloat16``), 0 for f32:
     the flag the whole-model forwards launch with."""
-    if cfm.dtype != "bfloat16":
-        return 0
-    check_bf16_rate(dropout_rate)
-    return 1
+    return int(cfm.dtype == "bfloat16")
 
 
 def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],

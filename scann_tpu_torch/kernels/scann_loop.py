@@ -62,10 +62,17 @@ Backward (crystal training):
   backward = the loop backward kernel, on the same dropout masks. Gradients
   come back as a flat dict keyed like the params. CUDA tensors launch the
   kernel (``launch_loop_backward``, whose ``.launches`` counts launches: the
-  backward kernel plus its row reduction) or raise; CPU tensors run the plain
-  versions ``reference_loop_grad`` / ``reference_loop_train_grads``: the eager
-  training forward under ``torch.autograd``, the code of
+  backward kernel plus its row reduction; ``.bf16_launches`` those in the
+  bf16 operand mode) or raise; CPU tensors run the plain versions
+  ``reference_loop_grad`` / ``reference_loop_train_grads``: the training
+  forward under ``torch.autograd``, the code of
   ``kernels.scann_backward.reference_fused_scann_*``.
+- ``model.dtype: "bfloat16"`` trains in the bf16 operand mode, as
+  ``scann_loop.py:1096`` does: ``csrc/scann_loop_backward_bf16.cu`` (the same
+  source built for that mode) rounds where kernel #2 does and pools packed
+  segments as bf16-mode products with each segment's own max, as kernel #3
+  does; its plain version is ``kfwd.reference_bf16_forward`` with those
+  pools under ``torch.autograd``.
 - Its gate (``backward_refusal``) is again the kernel's own plan
   (``loop_backward_memory_plan``): one resident [M, max(D, G)] buffer (the
   centers going forward, the accumulating d(layer input) going back), five
@@ -211,8 +218,9 @@ def reference_loop_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     kernel's dropout masks at a rate above 0; in the bf16 operand mode
     ``kfwd.reference_bf16_forward`` with the loop kernel's segment pools."""
     if cfm.dtype == "bfloat16":
-        kfwd.check_bf16_rate(dropout_rate)
-        return kfwd.reference_bf16_forward(params, inputs, cfm, mrelu_head, exact_pools=False)
+        return kfwd.reference_bf16_forward(
+            params, inputs, cfm, mrelu_head, False,
+            kfwd.dropout_masks_for(cfm, inputs, dropout_rate, dropout_seed or 0, mol_base))
     return kfwd.reference_scann_forward(params, inputs, cfm, mrelu_head, dropout_rate,
                                         dropout_seed or 0, mol_base)
 
@@ -271,7 +279,7 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
         raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} handed to "
                          f"a batch of shape {(B, M, cfm.local_dim)}")
     seg, S = segment_arguments(inputs)
-    bf16 = kfwd.operand_mode(cfm, dropout_rate)
+    bf16 = kfwd.operand_mode(cfm)
     chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
@@ -405,9 +413,7 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
                 "(models.scann.scann_forward with use_pallas, under torch.autograd)")
     if M < 1:
         return f"M={M}: no atoms"
-    if cfm.dtype != "float32":
-        return kbwd.dtype_refusal(cfm)
-    reason = kfwd.common_refusal(cfm, N)
+    reason = kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N)
     if reason is None and N > kbwd.MAX_CHUNK_ROWS:
         reason = (f"N={N} neighbours: the loop backward walks chunks of at most "
                   f"{kbwd.MAX_CHUNK_ROWS} (atom, neighbour) rows; wider buckets train "
@@ -434,9 +440,10 @@ def reference_loop_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
                         dropout_seed: Optional[int] = None, mol_base: int = 0
                         ) -> Dict[str, torch.Tensor]:
     """The plain version of ``loop_scann_grad``: gradients of sum(pred *
-    ct_pred) + sum(ga * ct_ga) through the eager training forward."""
+    ct_pred) + sum(ga * ct_ga) through the training forward
+    (``kbwd.training_forward``; in bf16 with this kernel's segment pools)."""
     return kbwd.reference_fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
-                                           dropout_seed or 0, mol_base)
+                                           dropout_seed or 0, mol_base, exact_pools=False)
 
 
 def reference_loop_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -447,7 +454,8 @@ def reference_loop_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str
     """The plain version of ``loop_scann_train_grads``: (pred [B, 1],
     gradients of 0.5 * sum((pred - t)^2)); mrelu is straight-through."""
     return kbwd.reference_fused_scann_train_grads(params, inputs, targets, cfm, mrelu_head,
-                                                  dropout_rate, dropout_seed or 0, mol_base)
+                                                  dropout_rate, dropout_seed or 0, mol_base,
+                                                  exact_pools=False)
 
 
 def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int,
@@ -492,6 +500,7 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
 
 
 launch_loop_backward.launches = 0
+launch_loop_backward.bf16_launches = 0
 
 
 def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -518,10 +527,11 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
-    kfwd.call_kernel("scann_loop_backward", "scann_loop_backward", packed["wde"].device,
-                     tensors + [scratch["dcenters"], seg], dims + [atom_block, S, cluster],
-                     scalars, rng, offsets, flat)
+    name = kbwd.kernel_name("scann_loop_backward", cfm)
+    kfwd.call_kernel(name, name, packed["wde"].device, tensors + [scratch["dcenters"], seg],
+                     dims + [atom_block, S, cluster], scalars, rng, offsets, flat)
     launch_loop_backward.launches += 1
+    launch_loop_backward.bf16_launches += kfwd.operand_mode(cfm)
     return flat, pred
 
 

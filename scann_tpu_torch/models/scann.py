@@ -202,7 +202,7 @@ def residual_norm(params: Params, name: str, x: torch.Tensor,
     h = swish(_dense(params, f"{name}/dense_1", x, dtype))
     h = _dense(params, f"{name}/dense_2", h, dtype)
     if mask is not None:
-        h = h * mask
+        h = (h * mask).to(h.dtype)      # flax's dropout keeps its input's dtype
     return layer_norm((x + h).float(), params[f"{name}/layer_norm/scale"],
                        params[f"{name}/layer_norm/bias"])
 
@@ -223,7 +223,11 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
     Deterministic without ``masks``; with them, the training forward:
     dropout on the embedding (reference ``scann.py:228``), on each
     ResidualNorm's FFN output, and (``masks.attn``) on the attention
-    probabilities."""
+    probabilities; each dropped-out tensor keeps its dtype, as flax's
+    ``nn.Dropout`` keeps it (bfloat16 at ``model.dtype: bfloat16``).
+    Differentiated by ``torch.autograd`` it is the per-layer training
+    route's step, as ``jax.value_and_grad`` of the flax model is the JAX
+    Trainer's, in either dtype."""
     if cfm.dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"model.dtype={cfm.dtype!r}: float32 or bfloat16")
     dt = compute_dtype(cfm)
@@ -247,7 +251,7 @@ def scann_forward(params: Params, inputs: Dict[str, torch.Tensor],
         centers = torch.cat([centers, ring], dim=-1)
     centers = swish(_dense(p, "dense_embed", centers, dt))
     if masks is not None:
-        centers = centers * masks.embed
+        centers = (centers * masks.embed).to(centers.dtype)
 
     dist_c = torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)).to(dev, dt)
     dist_rbf = gaussian_expansion(neighbor_distance, dist_c)

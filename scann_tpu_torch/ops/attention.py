@@ -79,7 +79,8 @@ def local_attention_core(
     energy = torch.einsum("bmhd,bmnhd->bhmn", *promoted(q, k))
     energy = energy + (1.0 - mask[:, None, :, :]) * -1e9
     attn = torch.softmax(energy, dim=-1)
-    attn_used = attn if dropout_mask is None else attn * dropout_mask
+    # the dropped-out probabilities keep their dtype, as flax's dropout keeps it
+    attn_used = attn if dropout_mask is None else (attn * dropout_mask).to(attn.dtype)
 
     context = torch.einsum("bhmn,bmn,bmnhd->bmhd", *promoted(attn_used, mask, v))
     return attn, context.reshape(B, M, D)

@@ -55,11 +55,13 @@ MAE, best-val checkpoints, a test report.
   route runs the whole batch on every rank. Eval and predict shard their
   batches the same way. config.yaml, metrics.jsonl, report.txt,
   hist_data.json and the checkpoints are written by rank 0 only.
-- ``model.dtype: bfloat16`` serves and evaluates through the forward
-  kernels in their bf16 operand mode (#1, #3) and the per-layer model on
-  bfloat16 tensors (#5); training in it raises ``NotImplementedError``
-  (``check_trainable``): the backward kernels (#2, #4) have no bf16 mode yet,
-  and their gates would send every batch to the per-layer route.
+- ``model.dtype: bfloat16`` trains on the same three routes, as the JAX
+  Trainer does: "fused" and "loop" launch the backward kernels in their
+  bf16 operand mode (#2, #4; ``kernels/dots.py``), "per_layer"
+  differentiates the eager model in the flax bf16 semantics
+  (``models.scann``). It evaluates through the forward kernels in that mode
+  (#1, #3) and the per-layer model on bfloat16 tensors (#5). Params, Adam
+  state and the l2 term stay f32, as in the JAX package.
 - Warm start: ``tpu.exec_cache_dir`` points the kernel build cache there
   (``utils/exec_cache.py``); ``fit`` builds every kernel (or loads it from
   the cache) before its first step, one nvcc each, all at once.
@@ -339,17 +341,6 @@ class Trainer:
             return "loop"
         return "per_layer"
 
-    def check_trainable(self) -> None:
-        """Refuse training in the bf16 operand mode: the backward kernels'
-        gates refuse it, so every step would take the per-layer route and
-        hide kernels #2 and #4 (``kbwd.refusal``, ``kloop.backward_refusal``)."""
-        if self.config.model.dtype != "float32":
-            raise NotImplementedError(
-                f"training at model.dtype={self.config.model.dtype!r}: the backward kernels "
-                "#2 (scann_backward) and #4 (scann_loop_backward) in the bf16 operand mode "
-                "are the next slice of the port; train in float32 (the weights serve in "
-                "bfloat16 as they are)")
-
     def raw_grads(self, batch: Dict[str, torch.Tensor], y: torch.Tensor, seed: int
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(pred [B], or [B, S] for packed slots, gradients of 0.5 *
@@ -360,7 +351,6 @@ class Trainer:
         CPU the kernels' plain versions. Nothing is read back: ``fit``'s
         batches come from buckets whose index ranges ``_put_buckets``
         checked."""
-        self.check_trainable()
         M, N = batch["atomic"].shape[1], batch["neighbors"].shape[2]
         route = self.train_route(M, N, segment_count(batch))
         if route == "per_layer":
@@ -407,7 +397,9 @@ class Trainer:
         LocalAttention kernel keeps nothing, so its backward would recompute
         the plain layer after its forward); the same residual (an empty
         segment's zeroed) and the same dropout masks as the whole-model
-        kernels."""
+        kernels. At ``model.dtype: bfloat16`` the model computes in the flax
+        bf16 semantics and the f32 params get f32 gradients, as
+        ``jax.value_and_grad`` of the flax bf16 model gives them."""
         cfm = self.config.model
         masks = dropout_masks_for(cfm, batch, self.dropout_rate, seed)
         packed = "segment_onehot" in batch
@@ -501,7 +493,6 @@ class Trainer:
         rows (slots): for packed slots ``packed_slot_batch`` of them, so a
         step sees about ``batch_size`` structures (``tpu.pack_preserve_batch``,
         ``loop.py:647-665``)."""
-        self.check_trainable()
         hyper = self.config.hyper
         epochs = epochs or hyper.epochs
         bs = hyper.batch_size

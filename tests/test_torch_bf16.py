@@ -3,8 +3,9 @@ the CPU, at small sizes: ``kernels/dots.py`` shape for shape, the plain
 versions of kernels #1 and #3 in the bf16 operand mode against the JAX
 Pallas kernels in interpret mode (unpacked and packed), #5's plain version
 against ``local_attention._pallas_forward`` on bfloat16 inputs, the eager
-bf16 model against the flax bf16 model, ``Scann.predict_structure``, and
-the refusal to train. Weights move across from the flax parameters
+bf16 model against the flax bf16 model, ``Scann.predict_structure``, the
+training rates the mode takes and a bf16 ``fit`` (the bf16 gradients are
+in ``tests/test_torch_bf16_train.py``). Weights move across from the flax parameters
 (``params_from_jax``), inputs come from seeded numpy.
 
 Tolerances: JAX's own bf16 bound, rtol 0.05 and atol 0.02
@@ -49,6 +50,7 @@ from scann_tpu_torch.data import packing
 from scann_tpu_torch.data.structure import Structure
 from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels import local_attention as kla
+from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
 from scann_tpu_torch.models import ScannModel
@@ -192,16 +194,27 @@ def test_torch_bf16_f32_plain_is_still_the_eager_model():
 
 
 def test_torch_bf16_whole_model_refuses_training_rates():
-    """The bf16 operand mode serves and evaluates; its training forward is the
-    next slice, so a dropout rate above 0 is refused (the plain versions and
-    the launchers alike)."""
+    """The bf16 operand mode trains too, so its training forward takes a
+    dropout rate above 0 (the plain versions of #1 and #3 apply the
+    kernels' masks), the launch flag follows the dtype alone, and only a
+    dtype the kernels do not take (float16) is refused, by the forwards' and
+    the backwards' gates alike."""
     _, _, tcfg = _configs(g_update=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        kfwd.reference_scann_forward({}, {}, tcfg, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        kfwd.operand_mode(tcfg, 0.1)
-    assert kfwd.operand_mode(tcfg, 0.0) == 1
-    assert kfwd.operand_mode(dataclasses.replace(tcfg, dtype="float32"), 0.1) == 0
+    x = _torch(make_synthetic_batch(np.random.default_rng(2), B=2, M=8, N=4))
+    params = ScannModel(tcfg, generator=torch.Generator().manual_seed(2)).params
+    params = {k: v.data for k, v in params.items()}
+    with torch.no_grad():
+        for plain in (kfwd.reference_scann_forward, kloop.reference_loop_forward):
+            dropped, _ = plain(params, x, tcfg, False, 0.1, 3)
+            kept, _ = plain(params, x, tcfg)
+            assert torch.isfinite(dropped).all() and not torch.equal(dropped, kept)
+    assert kfwd.operand_mode(tcfg) == 1
+    assert kfwd.operand_mode(dataclasses.replace(tcfg, dtype="float32")) == 0
+    f16 = dataclasses.replace(tcfg, dtype="float16")
+    for reason in (kfwd.refusal(f16, 8, 4), kloop.refusal(f16, 8, 4),
+                   kbwd.refusal(f16, 8, 4), kloop.backward_refusal(f16, 8, 4)):
+        assert "'float16'" in reason
+    assert kbwd.refusal(tcfg, 8, 4) is None and kloop.backward_refusal(tcfg, 8, 4) is None
 
 
 # --- #5 on bfloat16 tensors -----------------------------------------------------
@@ -334,22 +347,27 @@ def test_torch_bf16_canonical_notice_matches_jax(caplog):
 
 
 def test_torch_bf16_training_raises_naming_the_next_slice(tmp_path):
-    """``Trainer.fit`` (and ``Scann.train``) at model.dtype bfloat16 raise
-    before any step: the backward kernels have no bf16 mode yet."""
+    """``Trainer.fit`` (and ``Scann.train``) at model.dtype bfloat16 take
+    their steps, the backward kernels having the bf16 operand mode: a finite
+    loss, one step a batch, f32 params that moved, and ``raw_grads`` gives
+    an f32 gradient for every parameter."""
     from scann_tpu_torch.data.pipeline import PackedBucket
 
     ts = Scann(ScannConfig(model=ModelConfig(**SMALL, dtype="bfloat16")), device="cpu",
                workdir=str(tmp_path / "run"))
     ts.init_params(seed=0)
+    before = {k: v.clone() for k, v in ts.trainer.params.items()}
     x = make_synthetic_batch(np.random.default_rng(0), B=4, M=8, N=4)
-    bucket = PackedBucket(x, np.zeros(4, np.float32), np.arange(4))
-    with pytest.raises(NotImplementedError, match=r"#2 .*#4 .*next slice"):
-        ts.trainer.fit([bucket], [bucket], epochs=1)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ts.trainer.raw_grads(_torch(x), torch.zeros(4), 0)
+    bucket = PackedBucket(x, np.linspace(-1, 1, 4).astype(np.float32), np.arange(4))
+    hist = ts.trainer.fit([bucket], [bucket], epochs=1, log_fn=lambda *_: None)
+    assert np.isfinite(hist["loss"]).all() and ts.trainer.step == 1
+    assert all(v.dtype == torch.float32 for v in ts.trainer.params.values())
+    assert any(not torch.equal(v, before[k]) for k, v in ts.trainer.params.items())
+    _, raw = ts.trainer.raw_grads(_torch(x), torch.zeros(4), 0)
+    assert set(raw) == set(before) and all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                                           for g in raw.values())
     ts.train_buckets, ts.valid_buckets = [bucket], [bucket]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ts.train(epochs=1)
+    assert np.isfinite(ts.train(epochs=1)["loss"]).all()
 
 
 def test_torch_bf16_weights_stay_f32_across_packages(tmp_path):

@@ -180,3 +180,34 @@ def test_torch_bf16_peak_and_operations_count():
     bf16_ms = 1e3 * flops.operations_seconds(*work, bf16=True, device_name=name)
     assert f32_ms == pytest.approx(0.31, abs=0.01)
     assert bf16_ms == pytest.approx(0.0541, abs=1e-4)     # 5.99x less product time
+
+
+def test_torch_bf16_backward_bounds_count_products_once():
+    """The bounds of the bf16 rows of the backward kernels (chip_smoke phase
+    15): #2 at QM9 (B=128, M=32, N=16, L=7) and #4 at MP2018 (B=64, M=96,
+    N=32, L=9) keep the counts of their f32 rows (``backward_flops``,
+    ``loop_backward_flops``, ``backward_fp32_flops``) and take the products
+    once at the dense 989 TFLOP/s BF16 where f32 takes three TF32 passes at
+    495, the energies, softmax and LayerNorm work at 67 TFLOP/s FP32 in both."""
+    from scann_tpu_torch.config import ModelConfig
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    name = "NVIDIA H100 80GB HBM3"
+    qm9 = ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7)
+    mp = ModelConfig(n_atoms=95, embedding_dim=128, n_attention=9, gaussian_d=6.0)
+    for f, f32, lo, hi in (
+            (kbwd.backward_flops(qm9, 128, 32, 16), kbwd.backward_fp32_flops(qm9, 128, 32, 16),
+             1.45e11, 1.55e11),
+            (kloop.loop_backward_flops(mp, 64, 96, 32), kbwd.backward_fp32_flops(mp, 64, 96, 32),
+             5.4e11, 5.6e11)):
+        assert lo < f < hi and 0 < f32 < f
+        bf16 = flops.operations_seconds(f, f32, bf16=True, device_name=name)
+        assert bf16 == pytest.approx((f - f32) / 989e12 + f32 / 67e12, rel=1e-12)
+        assert flops.operations_seconds(f, f32, device_name=name) == pytest.approx(
+            3 * (f - f32) / 495e12 + f32 / 67e12, rel=1e-12)
+    bound_ms = lambda cfm, *shape: 1e3 * flops.operations_seconds(
+        kbwd.backward_flops(cfm, *shape), kbwd.backward_fp32_flops(cfm, *shape), bf16=True,
+        device_name=name)
+    assert bound_ms(qm9, 128, 32, 16) == pytest.approx(0.1618, abs=1e-4)   # f32: 0.9155
+    assert bound_ms(mp, 64, 96, 32) == pytest.approx(0.5970, abs=1e-4)     # f32: 3.3744

@@ -87,7 +87,8 @@ def test_torch_port_kernel_sources_stand_alone():
     from scann_tpu_torch.kernels import _build, scann_loop
 
     assert set(_build.SOURCES) == {"scann_forward", "scann_backward", "scann_loop",
-                                   "scann_loop_backward", "local_attention"}
+                                   "scann_loop_backward", "local_attention",
+                                   "scann_backward_bf16", "scann_loop_backward_bf16"}
     for name in _build.SOURCES:
         files = _build.source_files(name)
         assert files[0].endswith(f"{name}.cu")

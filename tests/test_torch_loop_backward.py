@@ -195,7 +195,9 @@ def test_torch_loop_backward_gate_and_layout():
     assert kloop.refusal(MP2018, 96, 40) is None
     assert "use_attn_norm" in kloop.backward_refusal(
         dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
-    assert "float32" in kloop.backward_refusal(dataclasses.replace(MP2018, dtype="bfloat16"),
+    # bf16 trains through the kernel's bf16 operand mode; another dtype is refused
+    assert kloop.backward_refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 32) is None
+    assert "float16" in kloop.backward_refusal(dataclasses.replace(MP2018, dtype="float16"),
                                                96, 32)
     with pytest.raises(NotImplementedError, match="pack_max_segments"):
         kloop.loop_scann_train_grads({}, {"atomic": torch.zeros(1, 8),
