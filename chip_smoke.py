@@ -176,6 +176,28 @@ layers); random weights from seeds:
    the eager bf16 model under autograd); every epoch loss and training-set
    loss finite and falling, the bf16 launches of #2 and #4, set to 0 before
    each run, equal to the steps of their routes.
+16. the activation stashes of #2 and #4, the TPU kernels' default training
+   schedules, which the main paths above run (phases 5, 10, 13 and 15
+   print their launches by schedule; phases 5, 10 and 13 fail without an
+   f32-stash launch, and phase 9's relaunches on NaN- and constant-filled
+   scratch run in the f32 stash at every cluster size). #4's selective
+   stash at MP2018 (64, 96, 32) with 2 blocks a structure, Pt/graphene
+   (64, 128, 32), QM9 packed at capacity 48 and MP2018 packed at 96, #2's
+   keep-acts stash at QM9 (128, 32, 16) and packed at 32, at dropout 0.1:
+   the f32 stash bit for bit against the recompute launch, with f32 and
+   with bf16 operands; the bf16 stash against its plain version (its mean
+   distance (a) at most 0.1 x the plain bf16 stash's gap (b) to the f32
+   plain version or 2 x the f32 kernel's distance (c) from it, and at most
+   0.5 x the recompute kernel's distance (d) from the bf16 plain version);
+   #4's bf16 stash relaunched on NaN- and constant-filled scratch at 1, 2
+   and 4 blocks a structure, bit for bit. Times the f32 stash at every
+   shape and the bf16 stash at the unpacked ones in turns with the
+   recompute schedule (recompute, stash, stash, recompute; 3 + 8 reps),
+   beside the stash's bytes. Then the bf16 stashes on the main path,
+   through ``fused_scann_train_grads`` (QM9, ``SCANN_TPU_STASH_BF16=1``)
+   and ``loop_scann_train_grads`` (Pt/graphene at B=128, whose 9.0 GB f32
+   stash exceeds the budget, ``SCANN_TPU_LOOP_STASH_BF16=1``): one
+   bf16-stash launch each, held as above.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -209,9 +231,21 @@ launches on the packed training runs, and ``packed``, their times at a
 packed shape; rows ``1-bf16``, ``3-bf16``, ``5-bf16``, ``2-bf16`` and
 ``4-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
 that count the products of #1-#4 once at the dense BF16 rate and #5's as in
-f32) and, last,
+f32; every row of #2 and #4 names its ``schedule``: rows
+``scann_backward`` and ``scann_loop_backward`` are the recompute schedule,
+rows ``2-stash``, ``2-stash-bf16``, ``4-stash`` and ``4-stash-bf16`` the
+stashes, each with its own schedule's launches on the main, packed and
+sharded paths and its own error against its plain version, and with the
+recompute schedule's time from the same turns, ``recompute_ms``, the
+stash's bytes written and read, ``stash_bytes``, and their time at the
+published and the measured HBM rate; the f32 stash rows' ``packed`` is the
+f32 stash at the packed shape) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
+
+``python3 chip_smoke.py --backward-ab ROOT`` runs one turn of an A/B
+comparison of #2 and #4 against another checkout ROOT instead
+(``backward_ab``).
 
 Tolerances. Forward (molecule and crystal kernels, per-layer kernel's out
 and geometry): rtol 1e-4, atol 1e-5: the kernels sum their products (three
@@ -420,6 +454,23 @@ MOLECULES = {  # name -> (species, cartesian coordinates in Angstrom)
 }
 
 
+SCHEDULES = ("f32", "bf16", "recompute")
+
+
+def schedules(c):
+    """A backward launcher's launches by schedule (``kbwd.count_launch``):
+    with the f32 stash, with the bf16 stash, and the recompute schedule's."""
+    return {"f32": c.stash_launches, "bf16": c.bf16_stash_launches,
+            "recompute": c.launches - c.stash_launches - c.bf16_stash_launches}
+
+
+def mode_counts(c):
+    """``schedules(c)`` as one line."""
+    n = schedules(c)
+    return (f"{c.launches} ({n['f32']} with the f32 stash, {n['bf16']} with the bf16 stash, "
+            f"{n['recompute']} recompute)")
+
+
 def grad_errors(got, want):
     """(worst |got - want| / max |want| over the gradient tensors, its key,
     the largest absolute difference)."""
@@ -516,8 +567,8 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
                 differ |= {k for k in g if not torch.equal(g[k], again[k])}
                 if not torch.equal(pred_i.view(B, -1), pred):
                     differ.add("pred")
-            line.append(f"{relaunches} launches on NaN- and constant-filled scratch "
-                        f"bit-identical: {not differ}")
+            line.append(f"{relaunches} launches on NaN- and constant-filled scratch (stash "
+                        f"{kloop.scratch_stash_mode(scratch)}) bit-identical: {not differ}")
             if differ:
                 failures.append(f"{tag}: launches on the same inputs differ in {sorted(differ)}")
             del scratch
@@ -569,7 +620,7 @@ def time_backward(cfm, params, packed, inputs, card):
     kfwd._check_inputs(inputs, cfm, packed["wde"].device)
     ms, plain_ms = in_turns_ms(
         lambda: kbwd.reference_fused_scann_train_grads(params, inputs, y, cfm, False, 0.1, 7),
-        lambda: kbwd._launch(packed, inputs, cfm, y, None, True, False, 0.1, 7), 5, 12)
+        lambda: kbwd._launch(packed, inputs, cfm, y, None, True, False, 0.1, 7, 0, None), 5, 12)
     flops = kbwd.backward_flops(cfm, B, M, N)
     recompute = kbwd.recompute_flops(cfm, B, M, N)
     _, P = kbwd.grad_layout(packed)
@@ -577,8 +628,8 @@ def time_backward(cfm, params, packed, inputs, card):
               + sum(t.numel() * t.element_size() for t in packed.values())
               + 4 * B * S + 4 * (P + B * S))  # targets in; gradients and pred out
     bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
-    print(f"scann_backward at B={B} M={M} N={N}{packed_label(inputs)} (dropout 0.1, one-shot, "
-          f"with its row "
+    print(f"scann_backward at B={B} M={M} N={N}{packed_label(inputs)} (the recompute schedule; "
+          f"dropout 0.1, one-shot, with its row "
           f"reduction; timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {flops:.4e} FLOP, "
           f"{nbytes} bytes, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it reached)  "
@@ -807,7 +858,7 @@ def phase5(qm9_model, failures, card):
         return forward_eval(*args)
 
     trainer.train_step, trainer.forward_eval = timed_step, counted_eval
-    kbwd.launch_scann_backward.launches = 0          # counts of the training path only
+    kbwd.reset_counts(kbwd.launch_scann_backward)    # counts of the training path only
     kfwd.fused_scann_forward.launches = 0
     t1 = time.time()
     hist = scann.train()
@@ -816,6 +867,10 @@ def phase5(qm9_model, failures, card):
     torch.cuda.synchronize()
     bwd_launches = kbwd.launch_scann_backward.launches
     fwd_launches = kfwd.fused_scann_forward.launches
+    by_schedule = schedules(kbwd.launch_scann_backward)
+    print(f"phase 5: #2 launches by schedule {mode_counts(kbwd.launch_scann_backward)}", flush=True)
+    if by_schedule["f32"] == 0:
+        failures.append("phase 5: no launch of #2 with the f32 keep-acts stash on the main path")
     del trainer.train_step, trainer.forward_eval, trainer.epoch_plan
     med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
     n_train = sum(b.num_structures for b in buckets)
@@ -928,7 +983,8 @@ def phase5(qm9_model, failures, card):
         failures.append(f"one-bucket training loss not finite and falling: epochs "
                         f"{one_hist['loss']}, training set without dropout {before} -> {after}")
     return bwd_launches, {"data": (energy, nbr), "work": work, "step_ms": med,
-                          "structures_s": n_train / hist["epoch_time"][1], "name": "phase 5"}
+                          "structures_s": n_train / hist["epoch_time"][1], "name": "phase 5",
+                          "schedules": by_schedule}
 
 
 def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, failures, card,
@@ -942,7 +998,8 @@ def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, fa
     the others, a finite loss that falls over more than one epoch and, with
     ``compare_unpacked``, that ``predict_data`` per structure equals the
     unpacked pipeline's with the same parameters. Returns the launches by
-    kernel."""
+    kernel, and the backward kernels' as ``<kernel>/<schedule>`` too
+    (``schedules``)."""
     from scann_tpu_torch.api import Scann
     from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
     from scann_tpu_torch.kernels import local_attention as kla
@@ -990,9 +1047,13 @@ def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, fa
                 "local_attention": kla.fused_local_attention}
     for c in counters.values():
         c.launches = 0                               # counts of this packed path only
+    for name in ("scann_backward", "scann_loop_backward"):
+        kbwd.reset_counts(counters[name])
     hist = scann.train()
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
+    by_schedule = {f"{k}/{m}": n for k in ("scann_backward", "scann_loop_backward")
+                   for m, n in schedules(counters[k]).items()}
     del trainer.train_step
     slot_bs = trainer._slot_batch
     steps = epochs * -(-len(b.targets) // slot_bs)
@@ -1038,7 +1099,7 @@ def train_packed(label, cfm, info, capacity, epochs, batch_size, want_routes, fa
         if not ok:
             failures.append(f"{label}: packed predictions differ from unpacked: {d:.3e}, "
                             f"ga {d_ga:.3e}")
-    return launches
+    return {**launches, **by_schedule}
 
 
 def operations_ms(flops, fp32_flops, rates=None, bf16=False):
@@ -1086,6 +1147,15 @@ def hold(label, named, failures):
             failures.append(f"{label} {what}: max_abs {ab:.3e} outside rtol {RTOL} atol {atol}")
     print("  ".join(line), flush=True)
     return worst
+
+
+def qm9_config():
+    """The QM9 model at its published width (configs/model_qm9.yaml)."""
+    from scann_tpu_torch.config import ModelConfig
+
+    return ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7, local_dim=128, num_head=8,
+                       global_dim=128, dense_out=128, scale=0.5, use_attn_norm=True,
+                       use_ga_norm=True, use_ring=False, g_update=True, gaussian_d=4.0)
 
 
 def crystal_models():
@@ -2095,17 +2165,19 @@ def chunked_train_grads(fn, params, x, y, cfm, mrelu, rate, seed, chunk):
     return torch.cat(preds), total
 
 
-def backward_launch(n, packed, x, y, cfm, rate, seed, scratch=None, cluster=None, mrelu=False):
+def backward_launch(n, packed, x, y, cfm, rate, seed, scratch=None, cluster=None, mrelu=False,
+                    stash="auto"):
     """(pred [B, S], gradients) of one one-shot launch of #2 (``n`` 2) or #4
-    in ``cfm``'s mode."""
+    in ``cfm``'s mode, with the activation stash ``stash`` (the mode rule's
+    by default; None: the recompute schedule)."""
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     if n == 2:
-        flat, pred = kbwd._launch(packed, x, cfm, y, None, True, mrelu, rate, seed)
+        flat, pred = kbwd._launch(packed, x, cfm, y, None, True, mrelu, rate, seed, 0, stash)
     else:
         flat, pred = kloop._launch_backward(packed, x, cfm, y, None, True, mrelu, rate, seed, 0,
-                                            scratch, cluster)
+                                            scratch, cluster, stash)
     return pred.view(x["atomic"].shape[0], -1), kbwd.grads_from_flat(flat, packed, cfm)
 
 
@@ -2377,11 +2449,13 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
                             zip(scann.train_buckets, routes) if q == r)
                  for r in ("fused", "loop", "per_layer")}
         for c in counters.values():
-            c.launches = c.bf16_launches = 0
+            kbwd.reset_counts(c)
         t1 = time.time()
         hist = scann.train()
         torch.cuda.synchronize()
         got = {n: (c.launches, c.bf16_launches) for n, c in counters.items()}
+        print(f"phase 15 {label}: launches by schedule #2 {mode_counts(counters[2])}, #4 "
+              f"{mode_counts(counters[4])}", flush=True)
         seconds = time.time() - t1
         after = set_loss()                             # before evaluate() restores "best"
         result = scann.evaluate()
@@ -2464,6 +2538,249 @@ def phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_
                 (2, "scann_backward", "scann_tpu_torch/csrc/scann_backward_bf16.cu", kbwd),
                 (4, "scann_loop_backward", "scann_tpu_torch/csrc/scann_loop_backward_bf16.cu",
                  kloop))]
+
+
+# ---- phase 16: the activation stashes of #2 and #4 -------------------------------------
+
+STASH_GAP = 0.1      # a bf16 stash's mean distance from its plain version, of the plain gap
+STASH_FLOOR = 2.0    # ... or of the f32 kernel's distance from the f32 plain version
+STASH_BELOW = 0.5    # ... and at most this of the recompute kernel's from the bf16 plain version
+
+
+def hold_bf16_stash(label, got, plain16, plain32, rec, failures):
+    """A bf16 stash launch against its plain version (the reverse walk of
+    ``kbwd.reference_stash_*`` / ``kloop.reference_loop_stash_*``), each a
+    (pred, gradients) pair, the gradients flattened into one vector: (a) its
+    mean distance from the plain bf16-stash gradient, (b) the plain bf16
+    stash's own mean distance from the plain f32 gradient, (c) the f32-noise
+    floor, the recompute kernel's distance from the plain f32 gradient, and
+    (d) the recompute kernel's distance from the plain bf16-stash gradient,
+    what a kernel that ignored the stash's rounding reads. Holds (a) to the
+    larger of ``STASH_GAP`` x (b) and ``STASH_FLOOR`` x (c), and to
+    ``STASH_BELOW`` x (d); pred within the forward's rtol and atol."""
+    flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
+    dist = lambda u, v: (u - v).abs().mean().item()
+    k16, p16, p32, k32 = (flat(o[1]) for o in (got, plain16, plain32, rec))
+    a, b, c, d = dist(k16, p16), max(dist(p16, p32), 1e-30), dist(k32, p32), dist(k32, p16)
+    limit = min(max(STASH_GAP * b, STASH_FLOOR * c), STASH_BELOW * d)
+    pred_ok = bool(((got[0] - plain16[0]).abs() <= ATOL + RTOL * plain16[0].abs()).all())
+    ok = a <= limit and pred_ok and bool(torch.isfinite(k16).all())
+    print(f"{label}: (a) {a:.3e} = {a / b:.4f} x (b) {b:.3e}, (c) {c / b:.4f} x, (d) {d / b:.4f} "
+          f"x; limit {limit / b:.4f} x; pred within rtol {RTOL} atol {ATOL}: {pred_ok}",
+          flush=True)
+    if not ok:
+        failures.append(f"{label}: (a) {a:.3e} over {limit:.3e} or pred off ({pred_ok})")
+    return (k16 - p16).abs().max().item()
+
+
+def phase16(qm9_model, mp2018, ptgp, qm9_inputs, packed_qm9, mp_packed, main, held, failures,
+            card):
+    """The activation stashes of the two backward kernels (the TPU kernels'
+    default training schedules): #4's selective stash at MP2018 (64, 96, 32)
+    (2 blocks a structure), Pt/graphene (64, 128, 32), QM9 packed at
+    capacity 48 and MP2018 packed at 96; #2's keep-acts stash at QM9 (128,
+    32, 16) and packed at 32.
+    At dropout 0.1, each: the f32 stash bit for bit against the recompute
+    launch, in f32 and in the bf16 operand mode; the bf16 stash against its
+    plain version (``hold_bf16_stash``); #4's bf16 stash relaunched on NaN-
+    and constant-filled scratch at 1, 2 and 4 blocks a structure, bit for
+    bit. Each shape times the f32 stash in turns with the recompute schedule
+    (3 + 8 reps), the unpacked shapes the bf16 stash too. Then the bf16
+    stashes on the main path, through
+    the public entry points, with their switches set: #2 at QM9 under
+    ``SCANN_TPU_STASH_BF16=1`` and #4 at Pt/graphene's batch of 128, whose
+    f32 stash exceeds the budget, under ``SCANN_TPU_LOOP_STASH_BF16=1``
+    (counts set to 0 just before, read just after). ``main``: the launches
+    of #2 and #4 on the main training paths (phases 5 and 10) by schedule
+    (``schedules``); ``held``: the largest absolute errors of phases 4 and 9,
+    whose launches took the f32 stash. Returns the stash rows of the
+    ``{"kernels": ...}`` line, and the largest absolute errors of the
+    recompute launches (rows ``scann_backward``, ``scann_loop_backward``)
+    against the plain f32 versions."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    t0 = time.time()
+    rng = np.random.default_rng(16)
+    mp_x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
+    pt_x = synthetic_batch(rng, 64, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=20)
+    plains = {2: (kbwd.reference_fused_scann_train_grads, kbwd.reference_stash_train_grads),
+              4: (kloop.reference_loop_train_grads, kloop.reference_loop_stash_train_grads)}
+    cases = ((4, mp2018, "mp2018", mp_x, 16), (4, ptgp, "ptgp", pt_x, 16),
+             (4, qm9_model, "qm9 capacity 48", packed_qm9[48], 64),
+             (4, mp2018, "mp2018 capacity 96", mp_packed, 16),
+             (2, qm9_model, "qm9", qm9_inputs, 128),
+             (2, qm9_model, "qm9 capacity 32", packed_qm9[32], 128))
+    worst = {2: 0.0, 4: 0.0}
+    err = {(n, m): held.get(n, 0.0) if m == "f32" else 0.0 for n in (2, 4)
+           for m in ("f32", "recompute")}
+    times = {}
+    for n, cfm, label, x, chunk in cases:
+        params = init_params(cfm, torch.Generator().manual_seed(16), "cuda")
+        packed = kfwd.pack_params(params, cfm)
+        kfwd._check_inputs(x, cfm, packed["wde"].device)
+        B, M = x["atomic"].shape[:2]
+        N = x["neighbors"].shape[2]
+        S = max(kfwd.segment_count(x), 1)
+        y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
+        cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+        tag = f"phase 16 #{n} {label} B={B} M={M} N={N}{packed_label(x)} dropout 0.1"
+        run = lambda mode, c=cfm: backward_launch(n, packed, x, y, c, 0.1, 16, stash=mode)
+        got = {(c.dtype, mode): run(mode, c) for c in (cfm, cfm16) for mode in (None, "f32")}
+        got["float32", "bf16"] = run("bf16")
+        torch.cuda.synchronize()
+        line = [tag]
+        for dtype in ("float32", "bfloat16"):
+            r, f = got[dtype, None], got[dtype, "f32"]
+            differ = [k for k in r[1] if not torch.equal(r[1][k], f[1][k])]
+            if not torch.equal(r[0], f[0]):
+                differ.append("pred")
+            line.append(f"{dtype} operands: the f32 stash bit-equal to the recompute launch: "
+                        f"{not differ}")
+            if differ:
+                failures.append(f"{tag} ({dtype} operands): the f32 stash differs from the "
+                                f"recompute launch in {differ[:6]}")
+        print("  ".join(line), flush=True)
+        plain32 = chunked_train_grads(plains[n][0], params, x, y, cfm, False, 0.1, 16, chunk)
+        plain16 = chunked_train_grads(plains[n][1], params, x, y, cfm, False, 0.1, 16, chunk)
+        worst[n] = max(worst[n], hold_bf16_stash(f"{tag}: the bf16 stash", got["float32", "bf16"],
+                                                 plain16, plain32, got["float32", None],
+                                                 failures))
+        for m, mode in (("recompute", None), ("f32", "f32")):
+            out = got["float32", mode]
+            err[n, m] = max(err[n, m], (out[0] - plain32[0]).abs().max().item(),
+                            grad_errors(out[1], plain32[1])[2])
+        del got, plain16, plain32
+        if n == 4 and label == "mp2018":
+            differ = set()
+            for C in (1, 2, 4):
+                scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, "bf16")
+                first = None
+                for fill in (None, float("nan"), -3.0):
+                    if fill is not None:
+                        for t in scratch.values():
+                            if t is not None:
+                                t.fill_(fill)
+                    out = backward_launch(n, packed, x, y, cfm, 0.1, 16, scratch, C, stash="bf16")
+                    out = (out[0].clone(), {k: v.clone() for k, v in out[1].items()})
+                    if first is None:
+                        first = out
+                        continue
+                    differ |= {f"{k} at C={C}" for k in first[1]
+                               if not torch.equal(first[1][k], out[1][k])}
+                    if not torch.equal(first[0], out[0]):
+                        differ.add(f"pred at C={C}")
+                del scratch
+            print(f"{tag}: the bf16 stash relaunched on NaN- and constant-filled scratch at 1, "
+                  f"2 and 4 blocks a structure bit-identical: {not differ}", flush=True)
+            if differ:
+                failures.append(f"{tag}: bf16-stash relaunches differ in {sorted(differ)[:6]}")
+        # ---- each stash in turns with the recompute schedule (packed: the f32 stash,
+        # the packed paths' schedule) ---------------------------------------------------
+        modes = ("f32",) if S > 1 else ("f32", "bf16")
+        scratch = {m: (kloop.loop_backward_scratch(packed, cfm, B, M, N, None, m)
+                       if n == 4 else None) for m in (None, *modes)}
+        launch = lambda m: backward_launch(n, packed, x, y, cfm, 0.1, 16, scratch[m], stash=m)
+        t = {m: in_turns_ms(lambda: launch(None), lambda m=m: launch(m), 3, 8) for m in modes}
+        plain_ms = {m: statistics.median(cuda_times(lambda m=m: chunked_train_grads(
+            plains[n][m == "bf16"], params, x, y, cfm, False, 0.1, 16, chunk), 2, warmup=1))
+            for m in modes}
+        _, P = kbwd.grad_layout(packed)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B * S + 4 * (P + B * S)
+        stash_bytes = {m: (kloop.loop_stash_bytes if n == 4 else kbwd.keep_acts_stash_bytes)(
+            cfm, B, M, N, m) for m in modes}
+        recompute = {m: (kloop.loop_recompute_flops if n == 4 else kbwd.recompute_flops)(
+            cfm, B, M, N, m) for m in modes}
+        times[n, label] = (t, plain_ms, kbwd.backward_flops(cfm, B, M, N),
+                           kbwd.backward_fp32_flops(cfm, B, M, N), nbytes, stash_bytes,
+                           recompute)
+        for m in modes:
+            print(f"phase 16 #{n} {label} B={B} M={M} N={N}{packed_label(x)} the {m} stash "
+                  f"(dropout 0.1, one-shot; "
+                  f"timed in turns: recompute, stash, stash, recompute): {t[m][0]:.4f} ms against "
+                  f"the recompute schedule's {t[m][1]:.4f} ms ({100 * (t[m][0] / t[m][1] - 1):+.1f}"
+                  f"%); the stash {stash_bytes[m] / 1e9:.3f} GB written once and read once "
+                  f"({2e3 * stash_bytes[m] / published_rates()[2]:.4f} ms at the "
+                  f"published HBM rate); plain {plain_ms[m]:.4f} ms  [{card}]", flush=True)
+        del scratch
+    # ---- the bf16 stashes on the main path, through the public entry points ------------
+    counters = {2: kbwd.launch_scann_backward, 4: kloop.launch_loop_backward}
+    pt128 = synthetic_batch(rng, 128, 128, 32, use_ring=True, n_atoms=ptgp.n_atoms,
+                            min_atoms=20)
+    switched = ((2, qm9_model, "qm9", qm9_inputs, "SCANN_TPU_STASH_BF16",
+                 kbwd.fused_scann_train_grads, 128),
+                (4, ptgp, "ptgp B=128", pt128, "SCANN_TPU_LOOP_STASH_BF16",
+                 kloop.loop_scann_train_grads, 16))
+    bf16_main = {}
+    for n, cfm, label, x, switch, entry, chunk in switched:
+        params = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
+        B, M = x["atomic"].shape[:2]
+        N = x["neighbors"].shape[2]
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        os.environ[switch] = "1"
+        try:
+            mode = (kloop.loop_stash_mode if n == 4 else kbwd.keep_acts_mode)(cfm, B, M, N)
+            kbwd.reset_counts(counters[n])
+            got = entry(params, x, y, cfm, False, 0.1, 16)
+            torch.cuda.synchronize()
+            bf16_main[n] = counters[n].bf16_stash_launches
+            counts = mode_counts(counters[n])
+        finally:
+            del os.environ[switch]
+        print(f"phase 16 main path: #{n} {label} under {switch}=1 (the mode rule says {mode}; "
+              f"the f32 stash would take {(kloop.loop_stash_bytes if n == 4 else kbwd.keep_acts_stash_bytes)(cfm, B, M, N, 'f32') / 1e9:.3f} GB of "
+              f"the {kbwd.STASH_BUDGET_BYTES / 2 ** 30:.0f} GiB budget): launches {counts}",
+              flush=True)
+        if mode != "bf16" or bf16_main[n] != 1:
+            failures.append(f"phase 16 main path #{n} {label}: mode {mode}, bf16-stash launches "
+                            f"{bf16_main[n]} (want 1)")
+        plain16 = chunked_train_grads(plains[n][1], params, x, y, cfm, False, 0.1, 16, chunk)
+        plain32 = chunked_train_grads(plains[n][0], params, x, y, cfm, False, 0.1, 16, chunk)
+        rec = backward_launch(n, kfwd.pack_params(params, cfm), x, y, cfm, 0.1, 16, stash=None)
+        worst[n] = max(worst[n], hold_bf16_stash(f"phase 16 main path #{n} {label}", got,
+                                                 plain16, plain32, rec, failures))
+        del got, plain16, plain32, rec
+    print(f"phase 16: {time.time() - t0:.1f} s  [{card}]", flush=True)
+    rows = []
+    for n, mod, label, packed_cases in ((2, kbwd, "qm9", ("qm9 capacity 32",)),
+                                        (4, kloop, "mp2018",
+                                         ("qm9 capacity 48", "mp2018 capacity 96"))):
+        t, plain_ms, flops, fp32, nbytes, stash_bytes, recompute = times[n, label]
+        for m in ("f32", "bf16"):
+            bound, by, measured = bound_ms(flops, nbytes, fp32)
+            row = {"name": f"{n}-stash" + ("-bf16" if m == "bf16" else ""),
+                   "kernel": "scann_loop_backward" if n == 4 else "scann_backward",
+                   "schedule": m, "route": "cuda",
+                   "source": mod.BACKWARD_SOURCE if n == 4 else mod.SOURCE,
+                   "replaces": mod.BACKWARD_REPLACES if n == 4 else mod.REPLACES,
+                   "launches": main[n]["f32"] if m == "f32" else bf16_main[n],
+                   "max_abs_err": err[n, "f32"] if m == "f32" else worst[n],
+                   "ms": t[m][0], "recompute_ms": t[m][1],
+                   "plain_ms": plain_ms[m], "bound_ms": bound, "bound_by": by,
+                   "measured_bound_ms": measured, "library_ms": None, "flops": flops,
+                   "recompute_flops": recompute[m], "stash_bytes": 2 * stash_bytes[m],
+                   "stash_ms": 2e3 * stash_bytes[m] / published_rates()[2],
+                   "measured_stash_ms": (2e3 * stash_bytes[m] / (MEASURED["hbm_gbps"] * 1e9)
+                                         if MEASURED else None)}
+            if n == 4:
+                pt, pt_plain = times[4, "ptgp"][0][m], times[4, "ptgp"][1][m]
+                row["ptgp"] = {"ms": pt[0], "recompute_ms": pt[1], "plain_ms": pt_plain}
+            if m == "f32":      # keyed as rows scann_backward and scann_loop_backward key it
+                packed_times = {}
+                for case in packed_cases:
+                    pt, pt_plain, p_flops, p_fp32, p_bytes = times[n, case][:5]
+                    p_bound, p_by, p_measured = bound_ms(p_flops, p_bytes, p_fp32)
+                    packed_times[case] = {"ms": pt["f32"][0], "recompute_ms": pt["f32"][1],
+                                          "plain_ms": pt_plain["f32"], "bound_ms": p_bound,
+                                          "bound_by": p_by, "measured_bound_ms": p_measured,
+                                          "flops": p_flops}
+                row["packed"] = packed_times if n == 4 else packed_times[packed_cases[0]]
+            rows.append(row)
+    return rows, {n: err[n, "recompute"] for n in (2, 4)}
 
 
 def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
@@ -2570,11 +2887,11 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
                              ).cuda()
         kloop.check_backward_supported(cfm, M, N)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
-        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, stash=None)
         ms, plain_ms = in_turns_ms(
             lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7),
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
-                                           scratch), 3, 8)
+                                           scratch, stash=None), 3, 8)
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
@@ -2582,7 +2899,7 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
         bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         scratch_bytes = tensor_bytes(scratch.values())
         print(f"scann_loop_backward at {name} B={B} M={M} N={N}{packed_label(x)} "
-              f"L={cfm.n_attention} (dropout "
+              f"L={cfm.n_attention} (the recompute schedule; dropout "
               f"0.1, one-shot, with its row reduction; timed in turns: plain, kernel, kernel, "
               f"plain): kernel {ms:.4f} ms on {B} clusters of {C} blocks on {sms} SMs "
               f"({kloop.max_active_clusters(cfm, B, M, N, C)} such clusters run at once), plain "
@@ -2600,16 +2917,17 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
                       "recompute_flops": recompute, "cluster": C}
             # what the cluster gives: the same batch at one block per structure, and the
             # batch doubled (one block per structure: 128 blocks either way)
-            one = kloop.loop_backward_scratch(packed, cfm, B, M, N, 1)
+            one = kloop.loop_backward_scratch(packed, cfm, B, M, N, 1, None)
             ms1 = cuda_ms(lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False,
-                                                         0.1, 7, 0, one, 1), reps=10)
+                                                         0.1, 7, 0, one, 1, None), reps=10)
             del one
             twice = {k: torch.cat([v, v]) for k, v in x.items()}
             y2 = torch.cat([y, y])
             C2 = kloop.cluster_size(2 * B)
-            two = kloop.loop_backward_scratch(packed, cfm, 2 * B, M, N)
+            two = kloop.loop_backward_scratch(packed, cfm, 2 * B, M, N, stash=None)
             ms2 = cuda_ms(lambda: kloop._launch_backward(packed, twice, cfm, y2, None, True,
-                                                         False, 0.1, 7, 0, two), reps=10)
+                                                         False, 0.1, 7, 0, two, stash=None),
+                          reps=10)
             del two, twice
             timing["ms_one_block"], timing["ms_batch_doubled"] = ms1, ms2
             print(f"scann_loop_backward at {name} B={B}: {ms1:.4f} ms at one block per "
@@ -2726,12 +3044,19 @@ def phase10(mp2018, failures, card):
                 kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
     for c in counters:
         c.launches = 0                               # counts of the training path only
+    kbwd.reset_counts(kbwd.launch_scann_backward)
+    kbwd.reset_counts(kloop.launch_loop_backward)
     t1 = time.time()
     hist = scann.train()
     final = bucket_losses(trainer, buckets)        # before evaluate() restores "best"
     result = scann.evaluate()
     torch.cuda.synchronize()
     fused_bwd, loop_bwd, fused_fwd, loop_fwd, layer_fwd = (c.launches for c in counters)
+    by_schedule = schedules(kloop.launch_loop_backward)
+    print(f"phase 10: #4 launches by schedule {mode_counts(kloop.launch_loop_backward)}",
+          flush=True)
+    if by_schedule["f32"] == 0:
+        failures.append("phase 10: no launch of #4 with the f32 selective stash on the main path")
     del trainer.train_step, trainer.epoch_plan
     med = statistics.median(s.elapsed_time(e) for s, e in step_ms)
     n_train = sum(b.num_structures for b in buckets)
@@ -2850,7 +3175,8 @@ def phase10(mp2018, failures, card):
                         f"{loop_n} loop-backward launches, loss rel {rel:.3e}, gradients "
                         f"{g_rel:.3e} at {g_key}")
     trace_steps(cfg, buckets[-1], os.path.join(work, "trace"), failures, card)
-    return loop_bwd, trainer.workdir, {"data": (energy, nbr), "work": work, "step_ms": med,
+    return loop_bwd, trainer.workdir, {"schedules": by_schedule,
+                                       "data": (energy, nbr), "work": work, "step_ms": med,
                                        "structures_s": n_train / hist["epoch_time"][1],
                                        "name": "phase 10"}
 
@@ -2967,6 +3293,8 @@ def phase13_rank(rank, world, coordinator, spec_path, out_path, t_spawn):
                 kloop.launch_loop_backward, kla.fused_local_attention)
     for c in counters:
         c.launches = 0
+    kbwd.reset_counts(kbwd.launch_scann_backward)
+    kbwd.reset_counts(kloop.launch_loop_backward)
     out, first = {"rank": rank}, None
     for name, bs in (("qm9", 128), ("mp", 64)):
         cfg = ScannConfig(model=ModelConfig(**spec[f"{name}_model"]),
@@ -2978,6 +3306,8 @@ def phase13_rank(rank, world, coordinator, spec_path, out_path, t_spawn):
                                               dev)
         first = first or t_first
     out["launches"] = [c.launches for c in counters]
+    out["schedules"] = [schedules(kbwd.launch_scann_backward),
+                        schedules(kloop.launch_loop_backward)]
     out["first_step_s"] = first - t_spawn
     mesh = make_mesh()
     for name, kind in (("qm9", "scann"), ("mp", "loop")):
@@ -3099,8 +3429,9 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
     64 a rank, #2) on phase 5's buckets, 2 MP2018 steps at (64, 96, 32) (32
     a rank, #4), one sharded eval batch of each (#1, #3). Holds them bit for
     bit to one process that runs the same shards in rank order, and within
-    1e-4 to the whole-batch run. Returns the ranks' launches (``device``
-    "cpu" rehearses the phase on the kernels' plain versions)."""
+    1e-4 to the whole-batch run. Returns the ranks' launches, the backward
+    kernels' also by schedule (``<kernel>/<schedule>``; ``device`` "cpu"
+    rehearses the phase on the kernels' plain versions)."""
     import socket
 
     from scann_tpu_torch.api import Scann
@@ -3229,12 +3560,13 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
     names = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
              "local_attention")
     launches = {n: [g["launches"][i] for g in got] for i, n in enumerate(names)}
+    stash = {n: [g["schedules"][i]["f32"] for g in got] for i, n in enumerate(names[1:4:2])}
     wall = time.time() - t0
     print(f"phase 13: 2 ranks on {device} over gloo, kernels from the build cache "
           f"{os.path.relpath(cache_dir)}: builds {[g['stats']['compiles'] for g in got]}, "
           f"library loads from disk {[g['stats']['disk_hits'] for g in got]}; from process start "
           f"to the first finished step {[round(g['first_step_s'], 3) for g in got]} s; launches "
-          f"a rank {launches}  [{card}]", flush=True)
+          f"a rank {launches}, of them with the f32 stash {stash}  [{card}]", flush=True)
     print(f"phase 13: QM9 losses {got[0]['qm9']['losses'].tolist()}, MP2018 losses "
           f"{got[0]['mp']['losses'].tolist()}; {len(mine) - len(unequal)} of {len(mine)} "
           f"tensors (losses, predictions, GA scores, every weight of both models, and the "
@@ -3254,11 +3586,15 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
     if (unequal or not worst_w <= 1e-4 or not worst_l <= 1e-4
             or any(g["stats"]["compiles"] for g in got) or serve["stats"]["compiles"]
             or (device != "cpu" and not serve["stats"]["disk_hits"]) or not serve["finite"]
-            or any(min(launches[n]) < 1 for n in names[:4]) or max(launches["local_attention"])):
+            or any(min(launches[n]) < 1 for n in names[:4]) or max(launches["local_attention"])
+            or any(min(v) < 1 for v in stash.values())):
         failures.append(f"phase 13: unequal {unequal}, whole-batch {worst_w:.3e} / {worst_l:.3e}, "
                         f"builds {[g['stats']['compiles'] for g in got]} + "
-                        f"{serve['stats']['compiles']}, launches {launches}")
-    return {n: sum(v) for n, v in launches.items()}
+                        f"{serve['stats']['compiles']}, launches {launches}, with the f32 "
+                        f"stash {stash}")
+    return {**{n: sum(v) for n, v in launches.items()},
+            **{f"{n}/{m}": sum(g["schedules"][i][m] for g in got)
+               for i, n in enumerate(names[1:4:2]) for m in SCHEDULES}}
 
 
 def main():
@@ -3296,10 +3632,7 @@ def main():
 
     failures = []
     max_err = 0.0
-    qm9_model = ModelConfig(n_atoms=10, embedding_dim=48, n_attention=7, local_dim=128,
-                            num_head=8, global_dim=128, dense_out=128, scale=0.5,
-                            use_attn_norm=True, use_ga_norm=True, use_ring=False,
-                            g_update=True, gaussian_d=4.0)
+    qm9_model = qm9_config()
 
     # the wall time of each phase (the script's budget)
     walls, mark = {}, [t_start]
@@ -3522,7 +3855,7 @@ def main():
 
     lap("4")
     # ---- phase 5: the training path, then with structure packing --------------
-    train_launches, qm9_run = phase5(qm9_model, failures, card)
+    _, qm9_run = phase5(qm9_model, failures, card)
     lap("5")
     packed_launches = train_packed("phase 5 packed capacity 48", qm9_model, qm9_run, 48, 3, 128,
                                    ("fused", "loop"), failures, card, compare_unpacked=True)
@@ -3548,7 +3881,7 @@ def main():
                                          {"qm9": packed_qm9[48], "mp2018": mp_packed}, failures,
                                          card)
     lap("9")
-    loop_bwd_launches, run_dir, crystal_run = phase10(mp2018, failures, card)
+    _, run_dir, crystal_run = phase10(mp2018, failures, card)
     lap("10")
     crystal_packed = train_packed("phase 10 packed capacity 96", mp2018, crystal_run, 96, 1, 64,
                                   ("loop", "loop"), failures, card, neighbors_multiple=32,
@@ -3569,6 +3902,14 @@ def main():
                          failures, card)
 
     lap("15")
+    # ---- phase 16: the activation stashes of #2 and #4 ----------------------------------
+    torch.cuda.empty_cache()
+    stash_rows, recompute_err = phase16(
+        qm9_model, mp2018, ptgp, qm9_inputs, packed_qm9, mp_packed,
+        {2: qm9_run["schedules"], 4: crystal_run["schedules"]},
+        {2: bwd_err["backward"], 4: loop_bwd_err}, failures, card)
+
+    lap("16")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -3582,7 +3923,14 @@ def main():
 
     # "packed_launches": the packed training paths' launches (phase 5 packed at
     # capacities 48 and 32, phase 10 packed at 96); "packed": the segmented
-    # kernel timed at a packed shape
+    # kernel timed at a packed shape. The rows scann_backward and
+    # scann_loop_backward are the recompute schedule, timed by phases 3 and 9;
+    # their launches are the recompute launches, and the stash rows of phase 16
+    # take the launches of their own schedule
+    for row in stash_rows:
+        for key, counts in (("packed_launches", packed_launches),
+                            ("sharded_launches", sharded_launches)):
+            row[key] = counts[f"{row['kernel']}/{row['schedule']}"]
     kernels = [{
         "name": "scann_forward", "route": "cuda", "source": kfwd.SOURCE,
         "replaces": kfwd.REPLACES, "launches": launches,
@@ -3592,34 +3940,36 @@ def main():
         "packed_launches": packed_launches["scann_forward"], "packed": fwd_packed_time,
         "sharded_launches": sharded_launches["scann_forward"],
     }, {
-        "name": "scann_backward", "route": "cuda", "source": kbwd.SOURCE,
-        "replaces": kbwd.REPLACES, "launches": train_launches,
-        "max_abs_err": bwd_err["backward"], "ms": bwd_time["ms"],
+        "name": "scann_backward", "schedule": "recompute", "route": "cuda",
+        "source": kbwd.SOURCE, "replaces": kbwd.REPLACES,
+        "launches": qm9_run["schedules"]["recompute"],
+        "max_abs_err": recompute_err[2], "ms": bwd_time["ms"],
         "plain_ms": bwd_time["plain_ms"], "bound_ms": bwd_time["bound_ms"],
         "bound_by": bwd_time["bound_by"], "measured_bound_ms": bwd_time["measured_bound_ms"],
         "library_ms": None, "flops": bwd_time["flops"],
         "recompute_flops": bwd_time["recompute_flops"],
-        "packed_launches": packed_launches["scann_backward"],
+        "packed_launches": packed_launches["scann_backward/recompute"],
         "packed": {k: bwd_packed_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "measured_bound_ms", "flops")},
-        "sharded_launches": sharded_launches["scann_backward"],
+        "sharded_launches": sharded_launches["scann_backward/recompute"],
     }, {
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
         "library_ms": None, "packed_launches": packed_launches["scann_loop"], **loop_time,
         "sharded_launches": sharded_launches["scann_loop"],
     }, {
-        "name": "scann_loop_backward", "route": "cuda", "source": kloop.BACKWARD_SOURCE,
-        "replaces": kloop.BACKWARD_REPLACES, "launches": loop_bwd_launches,
-        "max_abs_err": loop_bwd_err, "library_ms": None,
-        "packed_launches": packed_launches["scann_loop_backward"], **loop_bwd_time,
-        "sharded_launches": sharded_launches["scann_loop_backward"],
+        "name": "scann_loop_backward", "schedule": "recompute", "route": "cuda",
+        "source": kloop.BACKWARD_SOURCE, "replaces": kloop.BACKWARD_REPLACES,
+        "launches": crystal_run["schedules"]["recompute"],
+        "max_abs_err": recompute_err[4], "library_ms": None,
+        "packed_launches": packed_launches["scann_loop_backward/recompute"], **loop_bwd_time,
+        "sharded_launches": sharded_launches["scann_loop_backward/recompute"],
     }, {
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }, *bf16_rows]
+    }, *bf16_rows, *stash_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "
@@ -3636,7 +3986,56 @@ def main():
     return 0
 
 
+def backward_ab(root):
+    """``--backward-ab ROOT``: one turn of an A/B comparison of the two
+    backward kernels between two checkouts on one card. Imports
+    ``scann_tpu_torch`` from the checkout ROOT, builds #2 and #4 there, and
+    times one-shot launches at dropout 0.1 through the public launchers, in
+    the schedule that checkout picks for this environment: #2 at QM9 (128,
+    32, 16) and #4 at MP2018 (64, 96, 32), each 3 warm-up and 10 timed
+    launches (CUDA events). Prints the medians as one JSON line. Run the
+    turns A, B, B, A, each a process of its own."""
+    sys.path.insert(0, os.path.abspath(root))
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    where = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(kbwd.__file__))))
+    if where != os.path.abspath(root):
+        print(f"chip_smoke: scann_tpu_torch came from {where}, not {root}", file=sys.stderr)
+        return 1
+    rng = np.random.default_rng(17)
+    out = {"root": root, "env": {k: v for k, v in os.environ.items() if "STASH" in k}}
+    mp2018 = crystal_models()[0]
+    for name, cfm, x in (("scann_backward", qm9_config(), synthetic_batch(rng, 128, 32, 16)),
+                         ("scann_loop_backward", mp2018,
+                          synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms,
+                                          min_atoms=20))):
+        packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17), "cuda"),
+                                  cfm)
+        B, M = x["atomic"].shape[:2]
+        N = x["neighbors"].shape[2]
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        if name == "scann_backward":
+            launch = lambda: kbwd.launch_scann_backward(packed, x, cfm, y, None, True, False,
+                                                        0.1, 7)
+        else:
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
+            launch = lambda: kloop.launch_loop_backward(packed, x, cfm, y, None, True, False,
+                                                        0.1, 7, 0, scratch)
+        out[name] = statistics.median(cuda_times(launch, 10, warmup=3))
+    out["card"] = card_line()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--backward-ab"]:
+        sys.exit(backward_ab(sys.argv[2]))
     if sys.argv[1:2] == ["--phase13-rank"]:
         rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
         sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,

@@ -27,8 +27,9 @@
 // TF32 passes per product at the H100 SXM's dense 495 TFLOP/s TF32 (the
 // energies and context on the CUDA cores at 67 TFLOP/s FP32) that is ~0.92
 // ms, above the time the inputs, weights and gradients take to move at HBM
-// rate, so the bound is set by operations. This schedule's recompute
-// adds 5.0e10 FLOP (recompute_flops), which the bound does not count.
+// rate, so the bound is set by operations. The recompute schedule adds
+// 5.0e10 FLOP (recompute_flops), the keep-acts stash 1.1e9 and 2.6 GB of
+// stash traffic at B=128; the bound counts neither.
 //
 // Design.
 // - No sequential grid. The TPU adds every program's gradients into the
@@ -37,13 +38,24 @@
 //   and scann_reduce_rows sums the rows in order b = 0..B-1: the result is
 //   the same from run to run.
 // - Stash. Each layer's inputs go to global scratch in the forward pass:
-//   the centers [L, M, D], the pre-LayerNorm attention output ctx + query
-//   [L, M, D] and, for SCANN+, the geometry [L, M*N, D] (~1.8 MB per QM9
-//   molecule, streamed through L2). The reverse walk recomputes a layer's
-//   per-atom activations from the two [M, D] stashes and its (atom,
-//   neighbour) rows chunk by chunk from the geometry stash (the TPU
-//   kernel's SCANN_TPU_UNROLL_STASH=0 schedule, with ctx + query kept so
-//   the rows are recomputed once, not twice).
+//   the centers [L, M, D] and, for SCANN+, the geometry [L, M*N, D] (~1.8 MB
+//   per QM9 molecule, streamed through L2). Two schedules, a runtime argument
+//   of the launch (a.stash):
+//   - keep-acts (the TPU kernel's default, SCANN_TPU_UNROLL_STASH=1,
+//     scann_backward.py:242-278; here wherever keep_acts_mode admits it): the
+//     forward pass also keeps what the TPU kernel's acts dict holds, its
+//     (atom, neighbour) rows chunk by chunk straight from the chunk buffers
+//     and its per-atom tensors, and the reverse walk reads them back in
+//     place of the gather, the row and per-atom products, the softmax and the
+//     LayerNorm statistics. The attention after dropout is rebuilt from the
+//     stashed attention and the mask replayed from Philox, the same product.
+//     The f32 stash runs the recompute schedule's arithmetic on the same
+//     values, so its gradients are the same bits; the bf16 stash
+//     (SCANN_TPU_STASH_BF16) rounds the five row tensors of _BF16_KEYS;
+//   - recompute (SCANN_TPU_UNROLL_STASH=0, or a shape whose stash exceeds the
+//     budget): ctx + query [L, M, D] is kept, and the reverse walk recomputes
+//     a layer's per-atom activations from it and from the centers, and its
+//     rows chunk by chunk from the geometry stash (once, not twice).
 // - The (atom, neighbour) rows go through shared memory in chunks of CA
 //   whole atoms (CA*N <= 32 rows), so a softmax over N neighbours stays in
 //   one chunk: one warp per (atom, head), lane n holding neighbour n. The
@@ -87,6 +99,8 @@
 // and returns the cudaGetLastError() code of the launches (or an own code).
 // scann_mma_selftest_launch runs the three products of scann_mma.cuh on one
 // block, for a check against a float64 product.
+
+#include <type_traits>
 
 #include "philox.cuh"
 #ifndef SCANN_BACKWARD_BF16
@@ -201,14 +215,32 @@ scann_backward_kernel(const Args a) {
     for (int i = tid; i < n; i += kThreads) p[i] = 0.f;
   };
 
+  // The keep-acts stash (a.stash 4 or 2: the element bytes of its row
+  // buffers): the forward pass keeps what the TPU kernel's acts dict holds
+  // (scann_backward.py:242-246). Rows [L, k, M*N, D]: 0 neighbour states, 1
+  // u_pre, 2 key, 3 geo_term, 4 LN_g's x-hat (SCANN+); f32 always: the
+  // attention [L, M*N, H] before dropout, LN_g's rsqrt [L, M*N] (SCANN+), the
+  // per-atom tensors [L, 6, M, D] (0 query, 1 o1, 2 the attention LayerNorm's
+  // x-hat, 3 s1, 4 h1, 5 the ResidualNorm's x-hat) and the two LayerNorms'
+  // rsqrt [L, 2, M]. The bf16 stash (SCANN_TPU_STASH_BF16) rounds the row
+  // buffers only, as _BF16_KEYS does (scann_backward.py:264-271).
+  const int sb = a.stash;
+  const int nk = a.g_update ? 5 : 4;
+  const size_t lay_rows = (size_t)R * D;
+  auto st_row = [&](int l, int k) { return (((size_t)b * L + l) * nk + k) * lay_rows; };
+  auto st_atom = [&](int l, int k) { return a.st_atoms + (((size_t)b * L + l) * 6 + k) * M * D; };
+  auto st_inv = [&](int l, int k) { return a.st_inv + (((size_t)b * L + l) * 2 + k) * M; };
+
   // ---- a chunk of rows: stage, then recompute u_pre, key input, key, attention
-  auto stage_chunk = [&](int l, int m0, int rows) {
+  // (`stashed`: stage the neighbour states, u_pre, keys and attention from the
+  // stash instead)
+  auto stage_chunk = [&](int l, int m0, int rows, bool stashed) {
     const int base = m0 * N;
     if (a.g_update) {
       const float* g_in = g_st + ((size_t)l * R + base) * D;
       for (int i = tid; i < rows * q4; i += kThreads) {
         const int r = i / q4, c = (i - r * q4) * 4;
-        store4(sA + r * lda + c, *reinterpret_cast<const float4*>(g_in + (size_t)r * D + c));
+        cp_async16(sA + r * lda + c, g_in + (size_t)r * D + c);
       }
     } else {
       for (int i = tid; i < rows * K; i += kThreads) {
@@ -217,24 +249,57 @@ scann_backward_kernel(const Args a) {
         sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
       }
     }
-    for (int i = tid; i < rows * q4; i += kThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      store4(sA + r * lda + D + c,
-             operand4<kBf16>(*reinterpret_cast<const float4*>(sC + nbr[base + r] * wd + c)));
+    if (stashed) {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        const size_t e = (size_t)(base + r) * D + c;
+        if (sb == 4) {               // f32: straight into the chunk buffers
+          const float* st = static_cast<const float*>(a.st_rows);
+          cp_async16(sA + r * lda + D + c, st + st_row(l, 0) + e);
+          cp_async16(sU + r * ldu + c, st + st_row(l, 1) + e);
+          cp_async16(sW + r * ldu + c, st + st_row(l, 2) + e);
+        } else {                     // bf16: widened on the way
+          store4(sA + r * lda + D + c, stash_get4(a.st_rows, st_row(l, 0) + e, sb));
+          store4(sU + r * ldu + c, stash_get4(a.st_rows, st_row(l, 1) + e, sb));
+          store4(sW + r * ldu + c, stash_get4(a.st_rows, st_row(l, 2) + e, sb));
+        }
+      }
+      const float* at = static_cast<const float*>(a.st_attn) + (((size_t)b * L + l) * R + base) * H;
+      for (int i = tid; i < rows * H; i += kThreads) cp_async4(sE + i, at + i);
+    } else {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        store4(sA + r * lda + D + c,
+               operand4<kBf16>(*reinterpret_cast<const float4*>(sC + nbr[base + r] * wd + c)));
+      }
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
         sM[i] = scann_philox::mask_value(a.seed, mol, 1 + L + l, (unsigned)(base * H + i),
                                          a.attn_threshold, a.attn_scale);
     }
+    cp_async_wait_all();
     __syncthreads();
   };
 
-  auto row_forward = [&](int l, int m0, int ca, bool write_g) {
+  // `keep`: the forward pass with the stash, which also writes the chunk's rows
+  // there; `stashed`: the reverse walk from the stash, which only forms the
+  // key input ns * geo_term from the stashed rows
+  auto row_forward = [&](int l, int m0, int ca, bool write_g, bool keep, bool stashed) {
     const int rows = ca * N, base = m0 * N;
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bfg = a.bfg + (size_t)l * D;
     const float* bk = a.bk + (size_t)l * D;
+    if (stashed) {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        const float4 g = stash_get4(a.st_rows, st_row(l, 3) + (size_t)(base + r) * D + c, sb);
+        const float* ns = sA + r * lda + D + c;
+        store4(sV + r * ldu + c, make_float4(ns[0] * g.x, ns[1] * g.y, ns[2] * g.z, ns[3] * g.w));
+      }
+      __syncthreads();
+      return;
+    }
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
       mma_gemm<kBf16>(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
@@ -259,11 +324,17 @@ scann_backward_kernel(const Args a) {
         for (int i = 0; i < 4; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
-            const float g = (v[i] - mean) * inv * gs[d] + gb[d];
+            const float xh = (v[i] - mean) * inv;
+            const float g = xh * gs[d] + gb[d];
             if (write_g) g_out[(size_t)r * D + d] = g;
             sV[r * ldu + d] = sA[r * lda + D + d] * g;   // ns * geo'
+            if (keep) {
+              stash_put(a.st_rows, st_row(l, 3) + (size_t)(base + r) * D + d, g, sb);
+              stash_put(a.st_rows, st_row(l, 4) + (size_t)(base + r) * D + d, xh, sb);
+            }
           }
         }
+        if (keep && lane == 0) a.st_ginv[((size_t)b * L + l) * R + base + r] = inv;
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
@@ -274,7 +345,9 @@ scann_backward_kernel(const Args a) {
       __syncthreads();
       for (int i = tid; i < rows * D; i += kThreads) {
         const int r = i / D, d = i - r * D;
-        sV[r * ldu + d] = sA[r * lda + D + d] * (swishf(sU[r * ldu + d]) * nweight[base + r]);
+        const float g = swishf(sU[r * ldu + d]) * nweight[base + r];
+        sV[r * ldu + d] = sA[r * lda + D + d] * g;
+        if (keep) stash_put(a.st_rows, st_row(l, 3) + (size_t)(base + r) * D + d, g, sb);
       }
     }
     __syncthreads();
@@ -286,6 +359,17 @@ scann_backward_kernel(const Args a) {
     __syncthreads();
     warp_energy_softmax<kBf16>(sQ + m0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
     __syncthreads();
+    if (keep) {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        const size_t e = (size_t)(base + r) * D + c;
+        stash_put4(a.st_rows, st_row(l, 0) + e, *reinterpret_cast<const float4*>(sA + r * lda + D + c), sb);
+        stash_put4(a.st_rows, st_row(l, 1) + e, *reinterpret_cast<const float4*>(sU + r * ldu + c), sb);
+        stash_put4(a.st_rows, st_row(l, 2) + e, *reinterpret_cast<const float4*>(sW + r * ldu + c), sb);
+      }
+      float* at = static_cast<float*>(a.st_attn) + (((size_t)b * L + l) * R + base) * H;
+      for (int i = tid; i < rows * H; i += kThreads) __stcs(at + i, sE[i]);
+    }
   };
 
   // per-atom projections of a layer's input: query (and cw for SCANN+)
@@ -384,10 +468,15 @@ scann_backward_kernel(const Args a) {
     }
     project_atoms(l);
     __syncthreads();
+    if (sb)
+      for (int i = tid; i < M * q4; i += kThreads) {
+        const int m = i / q4, c = (i - m * q4) * 4;
+        store4(st_atom(l, 0) + m * D + c, *reinterpret_cast<const float4*>(sQ + m * wd + c));
+      }
     for (int m0 = 0; m0 < M; m0 += CA) {
       const int ca = min(CA, M - m0), base = m0 * N;
-      stage_chunk(l, m0, ca * N);
-      row_forward(l, m0, ca, l + 1 < L);
+      stage_chunk(l, m0, ca * N, false);
+      row_forward(l, m0, ca, l + 1 < L, sb != 0, false);
       // ctx = sum_n attn * mask * nmask * key, added to the query
       for (int i = tid; i < ca * D; i += kThreads) {
         const int at = i / D, d = i - at * D, h = d / hd;
@@ -401,32 +490,53 @@ scann_backward_kernel(const Args a) {
       }
       __syncthreads();
     }
-    // stash ctx + query, then o1 = LN(ctx + query)
+    // stash ctx + query (the keep-acts stash: o1, its x-hat and rsqrt), then
+    // o1 = LN(ctx + query)
     const float* ls = a.ln_s + (size_t)l * D;
     const float* lb = a.ln_b + (size_t)l * D;
     for (int m = warp; m < M; m += kWarps) {
       float* row = sQ + m * wd;
-      float v[4];
+      float v[4], mean, inv;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int d = lane + 32 * i;
         v[i] = d < D ? row[d] : 0.f;
-        if (d < D) o_st[((size_t)l * M + m) * D + d] = v[i];
+        if (d < D && !sb) o_st[((size_t)l * M + m) * D + d] = v[i];
       }
-      warp_layer_norm(v, D, ls, lb, lane);
+      warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+      for (int i = 0; i < 4; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          const float xh = (v[i] - mean) * inv;
+          row[d] = xh * ls[d] + lb[d];
+          if (sb) {
+            st_atom(l, 1)[m * D + d] = row[d];
+            st_atom(l, 2)[m * D + d] = xh;
+          }
+        }
+      }
+      if (sb && lane == 0) st_inv(l, 0)[m] = inv;
     }
     __syncthreads();
     // ResidualNorm: centers = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
     const float* br1 = a.br1 + (size_t)l * D;
     const float* br2 = a.br2 + (size_t)l * D;
+    // (the keep-acts stash: s1 in sDCW, free in the forward pass, then both to the stash)
     mma_gemm<kBf16>(sQ, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
-      store4(sDQ + r * wd + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
-                                           swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
+      const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
+      store4(sDQ + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
+      if (sb) store4(sDCW + r * wd + c, s);
     });
     __syncthreads();
+    if (sb)
+      for (int i = tid; i < M * q4; i += kThreads) {
+        const int m = i / q4, c = (i - m * q4) * 4;
+        __stcs(reinterpret_cast<float4*>(st_atom(l, 3) + m * D + c),
+               *reinterpret_cast<const float4*>(sDCW + m * wd + c));
+        __stcs(reinterpret_cast<float4*>(st_atom(l, 4) + m * D + c),
+               *reinterpret_cast<const float4*>(sDQ + m * wd + c));
+      }
     mma_gemm<kBf16>(sDQ, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       store4(sC + r * wd + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
@@ -436,16 +546,23 @@ scann_backward_kernel(const Args a) {
     const float* rs = a.rln_s + (size_t)l * D;
     const float* rb = a.rln_b + (size_t)l * D;
     for (int m = warp; m < M; m += kWarps) {
-      float v[4];
+      float v[4], mean, inv;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int d = lane + 32 * i;
         v[i] = d < D ? sQ[m * wd + d] + sC[m * wd + d] : 0.f;
       }
-      warp_layer_norm(v, D, rs, rb, lane);
+      warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (lane + 32 * i < D) sC[m * wd + lane + 32 * i] = v[i];
+      for (int i = 0; i < 4; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          const float xh = (v[i] - mean) * inv;
+          sC[m * wd + d] = xh * rs[d] + rb[d];
+          if (sb) st_atom(l, 5)[m * D + d] = xh;
+        }
+      }
+      if (sb && lane == 0) st_inv(l, 1)[m] = inv;
     }
     __syncthreads();
   }
@@ -664,10 +781,23 @@ scann_backward_kernel(const Args a) {
     for (int i = tid; i < M * D; i += kThreads) {
       const int m = i / D, d = i - m * D;
       sC[m * wd + d] = c_st[(size_t)l * M * D + i];
-      P0[m * wd + d] = o_st[(size_t)l * M * D + i];
+      if (sb) {   // the layer's per-atom tensors from the stash
+        sQ[m * wd + d] = st_atom(l, 0)[i];
+        P1[m * wd + d] = st_atom(l, 1)[i];
+        P0[m * wd + d] = st_atom(l, 2)[i];
+        P2[m * wd + d] = st_atom(l, 3)[i];
+        P3[m * wd + d] = st_atom(l, 4)[i];
+      } else {
+        P0[m * wd + d] = o_st[(size_t)l * M * D + i];
+      }
     }
+    if (sb)
+      for (int m = tid; m < M; m += kThreads) oinv[m] = st_inv(l, 0)[m];
     __syncthreads();
+    const float* br1 = a.br1 + (size_t)l * D;
+    const float* br2 = a.br2 + (size_t)l * D;
     // recompute o1 and the ResidualNorm
+    if (!sb) {
     for (int m = warp; m < M; m += kWarps) {
       float v[4], mean, inv;
 #pragma unroll
@@ -685,33 +815,44 @@ scann_backward_kernel(const Args a) {
       if (lane == 0) oinv[m] = inv;
     }
     __syncthreads();
-    const float* br1 = a.br1 + (size_t)l * D;
-    const float* br2 = a.br2 + (size_t)l * D;
     mma_gemm<kBf16>(P1, wd, M, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 s = make_float4(v.x + br1[c], v.y + br1[c + 1], v.z + br1[c + 2], v.w + br1[c + 3]);
       store4(P2 + r * wd + c, s);
       store4(P3 + r * wd + c, make_float4(swishf(s.x), swishf(s.y), swishf(s.z), swishf(s.w)));
     });
     __syncthreads();
+    // o1 + h2 rounded as the forward pass rounds it: h2 = (x + b) * mask first
+    // (__fmul_rn keeps the compiler from fusing it into the sum), so the
+    // ResidualNorm's statistics are the forward's, as the keep-acts stash holds them
     mma_gemm<kBf16>(P3, wd, M, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(1 + l, r, c);
       const float* o1 = P1 + r * wd + c;
-      store4(P4 + r * wd + c, make_float4(o1[0] + (v.x + br2[c]) * m.x, o1[1] + (v.y + br2[c + 1]) * m.y,
-                                          o1[2] + (v.z + br2[c + 2]) * m.z, o1[3] + (v.w + br2[c + 3]) * m.w));
+      store4(P4 + r * wd + c, make_float4(o1[0] + __fmul_rn(v.x + br2[c], m.x),
+                                          o1[1] + __fmul_rn(v.y + br2[c + 1], m.y),
+                                          o1[2] + __fmul_rn(v.z + br2[c + 2], m.z),
+                                          o1[3] + __fmul_rn(v.w + br2[c + 3], m.w)));
     });
     __syncthreads();
+    }
     // ResidualNorm's LayerNorm backward: P5 = d sum, P4 = d h2 = d sum * mask
+    // (its x-hat and rsqrt from the stash, or from o1 + h2)
     for (int m = warp; m < M; m += kWarps) {
       float v[4], dy[4], xh[4], dx[4], mean, inv;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int d = lane + 32 * i;
-        v[i] = d < D ? P4[m * wd + d] : 0.f;
+        v[i] = d < D ? (sb ? st_atom(l, 5)[m * D + d] : P4[m * wd + d]) : 0.f;
         dy[i] = d < D ? sDC[m * wd + d] : 0.f;
       }
-      warp_ln_stats(v, D, lane, mean, inv);
+      if (sb) {
+        inv = st_inv(l, 1)[m];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) xh[i] = lane + 32 * i < D ? (v[i] - mean) * inv : 0.f;
+        for (int i = 0; i < 4; ++i) xh[i] = v[i];
+      } else {
+        warp_ln_stats(v, D, lane, mean, inv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xh[i] = lane + 32 * i < D ? (v[i] - mean) * inv : 0.f;
+      }
       warp_ln_backward(xh, inv, dy, rls, D, lane, dx);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -777,7 +918,7 @@ scann_backward_kernel(const Args a) {
     }
     __syncthreads();
     flush_ln(grad(gLNS) + (size_t)l * D, grad(gLNB) + (size_t)l * D);
-    project_atoms(l);
+    if (!sb) project_atoms(l);   // the stash holds the query, and u_pre in place of cw
     zero(sDCW, MW);
     zero(sDCN, MW);
     zero(sAcc, 2 * wd);
@@ -787,8 +928,8 @@ scann_backward_kernel(const Args a) {
     int ci = 0;
     for (int m0 = 0; m0 < M; m0 += CA, ++ci) {
       const int ca = min(CA, M - m0), rows = ca * N, base = m0 * N;
-      stage_chunk(l, m0, rows);
-      row_forward(l, m0, ca, false);
+      stage_chunk(l, m0, rows, sb != 0);
+      row_forward(l, m0, ca, false, false, sb != 0);
       // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
       // backward over the N neighbours, on the pre-dropout attention
       warp_softmax_backward<kBf16>(sDQ + m0 * wd, wd, sW, ldu, nmask + base,
@@ -817,47 +958,70 @@ scann_backward_kernel(const Args a) {
       mma_gemm_tB<kBf16>(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
       __syncthreads();
       if (a.g_update) {
-        // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
+        // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo); geo' and LN_g's
+        // x-hat and rsqrt from the stash, or recomputed (one instantiation
+        // each, so the recompute schedule's loop is free of the stash's code)
         const float* gs = a.lng_s + (size_t)l * D;
         const float* gb = a.lng_b + (size_t)l * D;
-        for (int r = warp; r < rows; r += kWarps) {
-          float v[4], xh[4], dy[4], dx[4], mean, inv;
+        auto lng_rows = [&](auto from_stash) {
+          constexpr bool kStashed = decltype(from_stash)::value;
+          for (int r = warp; r < rows; r += kWarps) {
+            float v[4], xh[4], g[4], dy[4], dx[4], mean, inv;
+            const size_t e = (size_t)(base + r) * D;
+            if constexpr (kStashed) {
+              inv = a.st_ginv[((size_t)b * L + l) * R + base + r];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = lane + 32 * i;
-            v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
-          }
-          warp_ln_stats(v, D, lane, mean, inv);
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                xh[i] = d < D ? stash_get(a.st_rows, st_row(l, 4) + e + d, sb) : 0.f;
+                g[i] = d < D ? stash_get(a.st_rows, st_row(l, 3) + e + d, sb) : 0.f;
+              }
+            } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = lane + 32 * i;
-            xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
-            dy[i] = 0.f;
-            if (d < D) {
-              const float g = xh[i] * gs[d] + gb[d];
-              const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
-              sV[r * ldu + d] = dkin * g;   // d ns from the key input
-              dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
+              }
+              warp_ln_stats(v, D, lane, mean, inv);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
+                g[i] = d < D ? xh[i] * gs[d] + gb[d] : 0.f;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int d = lane + 32 * i;
+              dy[i] = 0.f;
+              if (d < D) {
+                const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
+                sV[r * ldu + d] = dkin * g[i];   // d ns from the key input
+                dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
+              }
+            }
+            warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int d = lane + 32 * i;
+              if (d < D) {
+                sW[r * ldu + d] = dx[i];                                // d r (residual into geo)
+                sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
+                sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
+                sPart[(warp * 2 + 1) * wd + d] += dy[i];
+              }
             }
           }
-          warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) {
-              sW[r * ldu + d] = dx[i];                                // d r (residual into geo)
-              sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
-              sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
-              sPart[(warp * 2 + 1) * wd + d] += dy[i];
-            }
-          }
-        }
+        };
+        if (sb) lng_rows(std::true_type{});
+        else lng_rows(std::false_type{});
       } else {
         for (int i = tid; i < rows * D; i += kThreads) {
           const int r = i / D, d = i - r * D;
           const float u = sU[r * ldu + d], w = nweight[base + r];
           const float dkin = sV[r * ldu + d];
-          sV[r * ldu + d] = dkin * (swishf(u) * w);
+          sV[r * ldu + d] = dkin * (sb ? stash_get(a.st_rows, st_row(l, 3) + (size_t)(base + r) * D + d, sb)
+                                       : swishf(u) * w);
           sU[r * ldu + d] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
         }
       }
@@ -1006,8 +1170,12 @@ scann_backward_kernel(const Args a) {
 
 // Launches the backward kernel (one block per molecule) in the operand mode
 // kBf16 and the reduction of its gradient rows into out [P]. Pointer 54 is
-// the segment ids [B, M] (null unless packed) and size 21 the segments per
-// slot S.
+// the segment ids [B, M] (null unless packed), pointers 55-59 the keep-acts
+// stash (rows [B, L, 4 or 5, M*N, D] in the stash's element type, attention
+// [B, L, M*N, H], LN_g's rsqrt [B, L, M*N] (SCANN+), per-atom tensors [B, L,
+// 6, M, D] and rsqrt [B, L, 2, M], all null in the recompute schedule), size
+// 21 the segments per slot S and size 22 the stash's element bytes (0, 4 or
+// 2).
 template <bool kBf16>
 int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
                     const unsigned int* rng, const long long* offsets, float* out, void* stream) {
@@ -1015,6 +1183,16 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   unpack_backward_args(a, ptrs, dims, scalars, rng, offsets);
   a.seg = (const int*)ptrs[54];
   a.S = dims[21];
+  a.stash = dims[22];
+  a.st_rows = ptrs[55];
+  a.st_attn = ptrs[56];
+  a.st_ginv = (float*)ptrs[57];
+  a.st_atoms = (float*)ptrs[58];
+  a.st_inv = (float*)ptrs[59];
+  if ((a.stash != 0 && a.stash != 4 && a.stash != 2) ||
+      (a.stash != 0) != (a.st_rows && a.st_attn && a.st_atoms && a.st_inv) ||
+      (a.stash != 0 && a.g_update) != (a.st_ginv != nullptr))
+    return kErrShape;
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M > 64 || a.M < 1 || a.chunk_atoms < 1 || a.chunk_atoms * a.N > kMaxChunkRows ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||

@@ -67,17 +67,6 @@ __host__ __device__ inline int fwd_chunk_floats(int rows, int D, int H) {
   return rows * (2 * D + 4) + rows * (D + 4) + round4(rows * H);
 }
 
-// 16 bytes from global to shared memory without passing through registers
-// (cp.async, past L1); cp_async_wait_all waits for all of the thread's.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // warp_layer_norm (scann_common.cuh) of R rows at once, the same arithmetic
 // on each, their shuffles interleaved; g and bt are the lane's values of
 // gamma and beta (columns lane + 32 i).

@@ -80,6 +80,15 @@ struct BackwardArgs {
   float* dcenters;            // [B, M, D]      d layer output (scann_loop_backward.cu only)
   const int* seg;             // [B, M] segment of each row, -1 on padding (packed slots;
                               //                ct is then [B, S], pred [B, S])
+  // the activation stash (kernels/*.py keep_acts_mode, loop_stash_mode): 0 runs
+  // the recompute schedule and every st_* is null; 4 or 2 the element bytes of
+  // the stash's big row buffers (f32, or bfloat16 rounded to nearest even)
+  int stash;
+  void* st_rows;              // [B, L, k, M*N, D]   the per-row tensors of a layer
+  void* st_attn;              // [B, L, M*N, H]      attention before dropout
+  float* st_ginv;             // [B, L, M*N]         LN_g's rsqrt(var + eps) (molecules, g_update)
+  float* st_atoms;            // [B, L, k, M, D]     per-atom tensors
+  float* st_inv;              // [B, L, 2, M]        LayerNorm rsqrt(var + eps) (molecules)
   long long P;                // floats of one gradient row
   int off[kNumGrads];         // offset of each gradient in a row (-1: absent)
   // sizes and switches
@@ -128,6 +137,9 @@ inline void unpack_backward_args(BackwardArgs& a, void* const* p, const int* dim
   a.grad_rows = (float*)p[i++];
   a.pred = (float*)p[i++];
   a.dcenters = nullptr;
+  a.stash = 0;
+  a.st_rows = a.st_attn = nullptr;
+  a.st_ginv = a.st_atoms = a.st_inv = nullptr;
 
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
   a.E = dims[5]; a.K = dims[6]; a.G = dims[7]; a.O = dims[8]; a.L = dims[9];
@@ -146,6 +158,62 @@ inline void unpack_backward_args(BackwardArgs& a, void* const* p, const int* dim
   a.seed = rng[0]; a.mol_base = rng[1]; a.drop_threshold = rng[2]; a.attn_threshold = rng[3];
   a.P = offsets[kNumGrads];
   for (int j = 0; j < kNumGrads; ++j) a.off[j] = (int)offsets[j];
+}
+
+// The stash's elements: f32 (bytes 4) or bfloat16 (bytes 2), rounded to
+// nearest even on the way in and widened on the way out; i is an element
+// index, a multiple of 4 for the quads. Each is written once and read once,
+// so the stores and loads are streaming ones (.cs), which leave L2 to the
+// weights and gradient rows.
+__device__ __forceinline__ void stash_put4(void* base, size_t i, float4 v, int bytes) {
+  if (bytes == 2) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned int*>(&lo);
+    u.y = *reinterpret_cast<const unsigned int*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(base) + i), u);
+  } else {
+    __stcs(reinterpret_cast<float4*>(static_cast<float*>(base) + i), v);
+  }
+}
+
+__device__ __forceinline__ float4 stash_get4(const void* base, size_t i, int bytes) {
+  if (bytes == 2) {
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(base) + i));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return __ldcs(reinterpret_cast<const float4*>(static_cast<const float*>(base) + i));
+}
+
+__device__ __forceinline__ void stash_put(void* base, size_t i, float v, int bytes) {
+  if (bytes == 2) static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16_rn(v);
+  else __stcs(static_cast<float*>(base) + i, v);
+}
+
+__device__ __forceinline__ float stash_get(const void* base, size_t i, int bytes) {
+  if (bytes == 2) return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+  return static_cast<const float*>(base)[i];
+}
+
+// Copies from global to shared memory that do not pass through registers
+// (cp.async, past L1; the forwards' staging uses them too): a chunk's loads
+// are all in flight at once, and the thread waits for them with
+// cp_async_wait_all before the block's barrier. 16 bytes need 16-byte
+// aligned addresses on both sides.
+__device__ __forceinline__ void cp_async16(float* dst, const void* src) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // LayerNorm statistics of one row held by a warp as in warp_layer_norm:

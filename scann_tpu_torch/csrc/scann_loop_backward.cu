@@ -24,18 +24,34 @@
 // the function needs per MP2018 training batch (B=64, M=96, N=32, L=9,
 // D=128): bound by operations, ~3.37 ms as three TF32 passes per product at
 // the H100 SXM's dense 495 TFLOP/s TF32 (the energies and context on the
-// CUDA cores at 67 TFLOP/s FP32). This schedule's recompute
-// (loop_recompute_flops) comes on top and is not in the bound.
+// CUDA cores at 67 TFLOP/s FP32). The recompute schedule's 1.8e11 FLOP of
+// recompute (loop_recompute_flops), or the selective stash's 8.1e9 and 5.5
+// GB of stash traffic, come on top and are not in the bound.
 //
 // Design.
-// - Schedule: that of scann_backward.cu, exact f32. The forward pass stashes
-//   in global scratch each layer's input centers [L + 1, M, D], its ctx +
-//   query before the attention LayerNorm [L, M, D] and, for SCANN+, its input
-//   geometry [L, M*N, D]; the reverse walk recomputes a layer's per-atom
-//   activations from the two [M, D] stashes and its (atom, neighbour) rows
-//   once, chunk by chunk, from the geometry stash. (The TPU kernel's selective
-//   stash of neighbour states, keys, attention, u_pre and o1 is another
-//   schedule of the same function; it is not ported.)
+// - Schedule. The forward pass stashes in global scratch each layer's input
+//   centers [L + 1, M, D], its ctx + query before the attention LayerNorm
+//   [L, M, D] and, for SCANN+, its input geometry [L, M*N, D]; the reverse
+//   walk recomputes a layer's per-atom activations from the two [M, D]
+//   stashes. Its (atom, neighbour) rows come, chunk by chunk, from one of two
+//   schedules, a runtime argument of the launch (a.stash):
+//   - the selective activation stash (scann_loop.py:597-622, 726-769; the
+//     default wherever loop_stash_mode admits it): the forward pass also
+//     writes each chunk's neighbour states, u_pre and keys [L, M*N, D] and
+//     attention [L, M*N, H], straight from the chunk buffers, and the reverse
+//     walk reads them back in the same chunk order in place of the gather,
+//     the u_pre and key products and the energies' softmax; it rebuilds the
+//     key input (SCANN+: LN_g of swish(u_pre) + the input geometry), the
+//     query from the layer's input centers, and o1 and the attention
+//     LayerNorm's statistics from the ctx + query stash. The f32 stash runs
+//     the recompute schedule's arithmetic on the same values, so its
+//     gradients are the same bits. The bf16 stash (SCANN_TPU_LOOP_STASH_BF16)
+//     rounds the four row buffers to bfloat16 on the way in, and, as the TPU
+//     kernel rebuilds ctx from the rounded attention and keys, the forward
+//     stashes ctx + query from those rounded values and o1 itself [L, M, D] in
+//     f32. Dropout masks are replayed from Philox, never stashed;
+//   - the recompute schedule (SCANN_TPU_LOOP_STASH=0, or a shape whose stash
+//     exceeds the budget): the rows once more from the gather, exact f32.
 // - Products: split-TF32 mma.sync (scann_mma.cuh): each warp owns 16 output
 //   columns, so a weight element leaves L2 once per chunk of rows; the chunk's
 //   buffers have row strides of 2D + 4 and D + 4 floats, which keeps the
@@ -221,16 +237,26 @@ scann_loop_backward_kernel(const Args a) {
   if (m_lo >= m_hi)
     for (long long i = tid; i < a.P; i += kThreads) grow[i] = 0.f;
 
+  // The activation stash (a.stash 4 or 2: the element bytes of its row
+  // buffers): the forward pass writes each chunk's neighbour states, u_pre,
+  // keys [L, M*N, D] and attention [L, M*N, H] (before dropout), and in the
+  // bf16 stash o1 [L, M, D] in f32; the reverse walk reads them back.
+  const int sb = a.stash;
+  const size_t lay_rows = (size_t)R * D;
+  auto st_row = [&](int l, int k) { return ((size_t)b * L + l) * 3 + k; };
+
   // ---- a chunk of rows: stage, then recompute u_pre, key input, key, attention.
   // cen [M, ldc] holds the layer's input centers: the resident buffer in the
-  // forward pass, the stash in global memory in the reverse walk.
-  auto stage_chunk = [&](int l, int m0, int rows, const float* cen, int ldc) {
+  // forward pass, the stash in global memory in the reverse walk. With
+  // `stashed` the neighbour states, u_pre, keys and attention come from the
+  // activation stash instead.
+  auto stage_chunk = [&](int l, int m0, int rows, const float* cen, int ldc, bool stashed) {
     const int base = m0 * N;
     if (a.g_update) {
       const float* g_in = g_st + ((size_t)l * R + base) * D;
       for (int i = tid; i < rows * q4; i += kThreads) {
         const int r = i / q4, c = (i - r * q4) * 4;
-        store4(sA + r * lda + c, *reinterpret_cast<const float4*>(g_in + (size_t)r * D + c));
+        cp_async16(sA + r * lda + c, g_in + (size_t)r * D + c);
       }
     } else {
       for (int i = tid; i < rows * K; i += kThreads) {
@@ -239,33 +265,78 @@ scann_loop_backward_kernel(const Args a) {
         sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
       }
     }
-    for (int i = tid; i < rows * q4; i += kThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      store4(sA + r * lda + D + c,
-             operand4<kBf16>(*reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c)));
+    if (stashed && sb == 4) {        // f32: straight into the chunk buffers
+      const float* st = static_cast<const float*>(a.st_rows);
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        const size_t e = (size_t)(base + r) * D + c;
+        cp_async16(sA + r * lda + D + c, st + st_row(l, 0) * lay_rows + e);
+        cp_async16(sU + r * ldu + c, st + st_row(l, 1) * lay_rows + e);
+        cp_async16(sW + r * ldu + c, st + st_row(l, 2) * lay_rows + e);
+      }
+      const float* at = static_cast<const float*>(a.st_attn) + (((size_t)b * L + l) * R + base) * H;
+      for (int i = tid; i < rows * H; i += kThreads) cp_async4(sE + i, at + i);
+    } else if (stashed) {            // bf16: widened on the way
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        const size_t e = (size_t)(base + r) * D + c;
+        store4(sA + r * lda + D + c, stash_get4(a.st_rows, st_row(l, 0) * lay_rows + e, sb));
+        store4(sU + r * ldu + c, stash_get4(a.st_rows, st_row(l, 1) * lay_rows + e, sb));
+        store4(sW + r * ldu + c, stash_get4(a.st_rows, st_row(l, 2) * lay_rows + e, sb));
+      }
+      for (int i = tid; i < rows * H; i += kThreads)
+        sE[i] = stash_get(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sb);
+    } else {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        store4(sA + r * lda + D + c,
+               operand4<kBf16>(*reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c)));
+      }
     }
     if (a.attn_dropout) {
       for (int i = tid; i < rows * H; i += kThreads)
         sM[i] = scann_philox::mask_value(a.seed, mol, 1 + L + l, (unsigned)(base * H + i),
                                          a.attn_threshold, a.attn_scale);
     }
+    cp_async_wait_all();
     __syncthreads();
   };
 
-  // lm0: the chunk's first atom within its atom block
-  auto row_forward = [&](int l, int m0, int lm0, int ca, bool write_g) {
+  // the forward pass's writes of a chunk's rows into the stash
+  auto stash_chunk = [&](int l, int m0, int rows) {
+    const int base = m0 * N;
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      const size_t e = (size_t)(base + r) * D + c;
+      stash_put4(a.st_rows, st_row(l, 0) * lay_rows + e,
+                 *reinterpret_cast<const float4*>(sA + r * lda + D + c), sb);
+      stash_put4(a.st_rows, st_row(l, 1) * lay_rows + e,
+                 *reinterpret_cast<const float4*>(sU + r * ldu + c), sb);
+      stash_put4(a.st_rows, st_row(l, 2) * lay_rows + e,
+                 *reinterpret_cast<const float4*>(sW + r * ldu + c), sb);
+    }
+    for (int i = tid; i < rows * H; i += kThreads)
+      stash_put(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sE[i], sb);
+  };
+
+  // lm0: the chunk's first atom within its atom block; `stashed`: u_pre, the
+  // keys and the attention were staged from the stash, and only the key input
+  // (SCANN+: the LN_g rebuild from u_pre and the input geometry) is computed
+  auto row_forward = [&](int l, int m0, int lm0, int ca, bool write_g, bool stashed) {
     const int rows = ca * N, base = m0 * N;
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bfg = a.bfg + (size_t)l * D;
     const float* bk = a.bk + (size_t)l * D;
     if (a.g_update) {
       // u_pre = cw + [geo | ns] @ Wfg[D:3D] + b
-      mma_gemm<kBf16>(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
-        const float* cw = sCW + (lm0 + r / N) * wd + c;
-        store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
-                                             cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
-      });
-      __syncthreads();
+      if (!stashed) {
+        mma_gemm<kBf16>(sA, lda, rows, 2 * D, wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+          const float* cw = sCW + (lm0 + r / N) * wd + c;
+          store4(sU + r * ldu + c, make_float4(cw[0] + v.x + bfg[c], cw[1] + v.y + bfg[c + 1],
+                                               cw[2] + v.z + bfg[c + 2], cw[3] + v.w + bfg[c + 3]));
+        });
+        __syncthreads();
+      }
       const float* gs = a.lng_s + (size_t)l * D;
       const float* gb = a.lng_b + (size_t)l * D;
       float* g_out = write_g ? g_st + ((size_t)(l + 1) * R + base) * D : nullptr;
@@ -290,17 +361,20 @@ scann_loop_backward_kernel(const Args a) {
       }
     } else {
       // geo_term = swish(rbf(d) @ Wfg + b) * weight
-      mma_gemm<kBf16>(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
-        store4(sU + r * ldu + c,
-               make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
-      });
-      __syncthreads();
+      if (!stashed) {
+        mma_gemm<kBf16>(sA, lda, rows, K, wfg, D, D, [&](int r, int c, float4 v) {
+          store4(sU + r * ldu + c,
+                 make_float4(v.x + bfg[c], v.y + bfg[c + 1], v.z + bfg[c + 2], v.w + bfg[c + 3]));
+        });
+        __syncthreads();
+      }
       for (int i = tid; i < rows * D; i += kThreads) {
         const int r = i / D, d = i - r * D;
         sV[r * ldu + d] = sA[r * lda + D + d] * (swishf(sU[r * ldu + d]) * nweight[base + r]);
       }
     }
     __syncthreads();
+    if (stashed) return;
     // key = (ns * geo) @ Wk + bk
     mma_gemm<kBf16>(sV, ldu, rows, D, a.wk + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sW + r * ldu + c,
@@ -312,11 +386,12 @@ scann_loop_backward_kernel(const Args a) {
   };
 
   // per-atom projections of the block's layer input cb [ab, wd]: query (and
-  // cw for SCANN+); the caller synchronises
-  auto project_atoms = [&](int l, const float* cb, int ab) {
+  // cw for SCANN+, unless `cw` is false: the stash holds u_pre); the caller
+  // synchronises
+  auto project_atoms = [&](int l, const float* cb, int ab, bool cw) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bq = a.bq + (size_t)l * D;
-    if (a.g_update)
+    if (a.g_update && cw)
       mma_gemm<kBf16>(cb, wd, ab, D, wfg, D, D, [&](int r, int c, float4 v) { store4(sCW + r * wd + c, v); });
     mma_gemm<kBf16>(cb, wd, ab, D, a.wq + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
       store4(sQ + r * wd + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
@@ -445,13 +520,18 @@ scann_loop_backward_kernel(const Args a) {
     float* sH2 = sDCW;                 // (h1 @ W2 + b2) * mask
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
       const int ab = min(AB, m_hi - ab0);
-      project_atoms(l, sR + ab0 * wd, ab);
+      project_atoms(l, sR + ab0 * wd, ab, true);
       __syncthreads();
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N, lm0 = m0 - ab0;
-        stage_chunk(l, m0, ca * N, sR, wd);
-        row_forward(l, m0, lm0, ca, l + 1 < L);
-        // ctx = sum_n attn * mask * nmask * key, added to the query
+        stage_chunk(l, m0, ca * N, sR, wd, false);
+        row_forward(l, m0, lm0, ca, l + 1 < L, false);
+        if (sb) stash_chunk(l, m0, ca * N);
+        // ctx = sum_n attn * mask * nmask * key, added to the query. The bf16
+        // stash's reverse walk takes the attention LayerNorm's statistics from
+        // ctx + query rebuilt from the rounded attention and keys, as the TPU
+        // kernel's acts_from_stash does (scann_loop.py:330-332): that sum goes
+        // to the ctx + query stash in place of the exact one.
         for (int i = tid; i < ca * D; i += kThreads) {
           const int at = i / D, d = i - at * D, h = d / hd;
           float s = 0.f;
@@ -460,11 +540,22 @@ scann_loop_backward_kernel(const Args a) {
             const float p = a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h];
             s += operand<kBf16>(p) * nmask[base + r] * sW[r * ldu + d];
           }
+          if (sb == 2) {
+            float s2 = 0.f;
+            for (int n = 0; n < N; ++n) {
+              const int r = at * N + n;
+              const float e2 = bf16r(sE[r * H + h]);
+              const float p2 = a.attn_dropout ? e2 * sM[r * H + h] : e2;
+              s2 += operand<kBf16>(p2) * nmask[base + r] * bf16r(sW[r * ldu + d]);
+            }
+            o_st[((size_t)l * M + m0 + at) * D + d] = s2 + sQ[(lm0 + at) * wd + d];
+          }
           sQ[(lm0 + at) * wd + d] = s + sQ[(lm0 + at) * wd + d];
         }
         __syncthreads();
       }
-      // stash ctx + query, then o1 = LN(ctx + query)
+      // stash ctx + query (the bf16 stash: the rebuilt one, above, and o1
+      // itself), then o1 = LN(ctx + query)
       for (int m = warp; m < ab; m += kWarps) {
         float* row = sQ + m * wd;
         float v[4];
@@ -472,12 +563,17 @@ scann_loop_backward_kernel(const Args a) {
         for (int i = 0; i < 4; ++i) {
           const int d = lane + 32 * i;
           v[i] = d < D ? row[d] : 0.f;
-          if (d < D) o_st[((size_t)l * M + ab0 + m) * D + d] = v[i];
+          if (d < D && sb != 2) o_st[((size_t)l * M + ab0 + m) * D + d] = v[i];
         }
         warp_layer_norm(v, D, ls, lb, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) {
+            row[d] = v[i];
+            if (sb == 2) a.st_atoms[(((size_t)b * L + l) * M + ab0 + m) * D + d] = v[i];
+          }
+        }
       }
       __syncthreads();
       // ResidualNorm: next = LN(o1 + mask * (swish(o1 @ W1 + b1) @ W2 + b2))
@@ -797,7 +893,8 @@ scann_loop_backward_kernel(const Args a) {
           if (d < D) {
             const float xh = (v[i] - mean) * inv;
             P0[m * wd + d] = xh;
-            P1[m * wd + d] = xh * lns[d] + a.ln_b[(size_t)l * D + d];
+            P1[m * wd + d] = sb == 2 ? a.st_atoms[(((size_t)b * L + l) * M + ab0 + m) * D + d]
+                                     : xh * lns[d] + a.ln_b[(size_t)l * D + d];
           }
         }
         if (lane == 0) oinv[m] = inv;
@@ -881,14 +978,14 @@ scann_loop_backward_kernel(const Args a) {
       load_rows(sCb, c_in, ab0, ab);
       __syncthreads();
       flush_ln(grad(gLNS) + (size_t)l * D, grad(gLNB) + (size_t)l * D, acc);
-      project_atoms(l, sCb, ab);
+      project_atoms(l, sCb, ab, sb == 0);
       __syncthreads();
 
       // ---- the block's (atom, neighbour) rows, chunk by chunk ----------------
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA, ++ci) {
         const int ca = min(CA, ab0 + ab - m0), rows = ca * N, base = m0 * N, lm0 = m0 - ab0;
-        stage_chunk(l, m0, rows, c_in, D);
-        row_forward(l, m0, lm0, ca, false);
+        stage_chunk(l, m0, rows, c_in, D, sb != 0);
+        row_forward(l, m0, lm0, ca, false, sb != 0);
         // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
         // backward over the N neighbours, on the pre-dropout attention
         warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
@@ -1138,8 +1235,11 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
 // The pointers, sizes, scalars, random-stream words and offsets are those of
 // unpack_backward_args (scann_grad_common.cuh), followed by pointer 54, the
 // d(layer output) scratch [B, M, D], pointer 55, the segment ids [B, M] (null
-// unless packed), size 21, the atom block, size 22, the segments per slot S,
-// and size 23, the blocks per structure C (grad_rows is then [B * C, P]); in
+// unless packed), pointers 56-58, the activation stash's rows [B, L, 3, M*N,
+// D], attention [B, L, M*N, H] (both null in the recompute schedule) and o1
+// [B, L, M, D] (f32; the bf16 stash only), size 21, the atom block, size 22,
+// the segments per slot S, size 23, the blocks per structure C (grad_rows is
+// then [B * C, P]), and size 24, the stash's element bytes (0, 4 or 2); in
 // the order scann_tpu_torch/kernels/scann_loop.py passes them. Launches the
 // backward kernel in the operand mode kBf16 (a cluster of C blocks per
 // structure) and the reduction of its gradient rows into out [P].
@@ -1153,6 +1253,14 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   a.atom_block = dims[21];
   a.S = dims[22];
   a.cluster = dims[23];
+  a.stash = dims[24];
+  a.st_rows = ptrs[56];
+  a.st_attn = ptrs[57];
+  a.st_atoms = (float*)ptrs[58];
+  if ((a.stash != 0 && a.stash != 4 && a.stash != 2) ||
+      (a.stash != 0) != (a.st_rows != nullptr && a.st_attn != nullptr) ||
+      (a.stash == 2) != (a.st_atoms != nullptr))
+    return kErrShape;
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       a.chunk_atoms * a.N > kMaxChunkRows || a.atom_block < 1 ||

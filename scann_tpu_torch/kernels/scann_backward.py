@@ -25,7 +25,23 @@ runs the plain version, ``reference_*``: the eager training forward with
 the same Philox masks, differentiated with ``torch.autograd.grad``.
 ``launch_scann_backward.launches`` counts kernel launches (each launch is
 the backward kernel plus its row reduction), ``.bf16_launches`` those in
-the bf16 operand mode.
+the bf16 operand mode, ``.stash_launches`` and ``.bf16_stash_launches``
+those with the f32 and the bf16 keep-acts stash (``count_launch``).
+
+Schedule (the TPU kernel's ``SCANN_TPU_UNROLL_STASH``, l.258-278): by
+default the kernel keeps every layer's activations from its forward pass
+(the keep-acts stash) and reads them back in the reverse walk instead of
+recomputing them, wherever ``keep_acts_mode`` admits it: the stash's bytes
+(``keep_acts_stash_bytes``, 1.28 GB at QM9's batch of 128) against
+``STASH_BUDGET_BYTES`` (6 GiB of device memory a launch, a constant).
+``SCANN_TPU_UNROLL_STASH=0`` runs the recompute schedule;
+``SCANN_TPU_STASH_BF16=1`` keeps the five row tensors of ``_BF16_KEYS`` in
+bfloat16 (l.264-271), whatever the f32 stash's size. The f32 stash computes
+the recompute schedule's function, bit for bit on the card; the bf16 stash
+rebuilds gradients from rounded activations, and its plain version is the
+reverse walk of ``reference_stash_*`` (the TPU kernel's reverse body on the
+kept acts, one ``torch.autograd.Function`` a layer). ``_launch(...,
+stash=)`` takes another schedule (None, ``"f32"``, ``"bf16"``).
 
 ``model.dtype: "bfloat16"`` trains in the bf16 operand mode of
 ``kernels/dots.py``, as ``scann_backward.py:661`` does (``bf16=``): every
@@ -55,17 +71,20 @@ function needs, ``recompute_flops`` those the kernel's schedule adds.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from scann_tpu_torch.config import ModelConfig
+from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_ATOMS,
     MAX_SHARED_BYTES,
     MAX_WIDTH,
     RBF_WIDTH,
     _LAYER_KEYS,
+    AttentionLayer,
     _check_shapes,
     attention_scale,
     call_kernel,
@@ -74,6 +93,7 @@ from scann_tpu_torch.kernels.scann_forward import (
     forward_fp32_flops,
     fused_scann_forward,
     largest_segments,
+    layer_weights,
     operand_mode,
     pack_params,
     reference_bf16_forward,
@@ -82,6 +102,7 @@ from scann_tpu_torch.kernels.scann_forward import (
     segment_arguments,
     segment_count,
     segment_refusal,
+    whole_model_forward,
 )
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 
@@ -89,6 +110,17 @@ REPLACES = "scann_tpu/kernels/scann_backward.py:77"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_backward.cu"
 MAX_CHUNK_ROWS = 32
 N_WARPS = 8
+# The device memory one backward launch may give its activation stash (this
+# kernel's keep-acts stash, the loop backward's selective stash): 6 GiB. It
+# admits the f32 stash of every published shape: QM9 (B=128, M=32, N=16) 1.28
+# GB, MP2018 (64, 96, 32) 2.78 GB and its B=128 5.55 GB, Pt/graphene (64, 128,
+# 32) 4.52 GB; Pt/graphene at B=128 (9.04 GB) takes the bf16 stash (4.52 GB)
+# under SCANN_TPU_LOOP_STASH_BF16=1, else the recompute schedule. A constant,
+# never what the card has free: the schedule, and with it the gradients' bits,
+# must not depend on what else holds the card.
+STASH_BUDGET_BYTES = 6 << 30
+AUTO = "auto"   # a launch's stash argument: the mode rule's choice
+STASH_MODES = (None, "f32", "bf16")
 
 # the kernel's gradient order (scann_backward.py:90-97), as pack_params names
 GRAD_NAMES = ("embed", "bembed", "wring", "bring", "wde", "bde", "wnd", "bnd", "wnw", "bnw",
@@ -233,6 +265,70 @@ def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
         raise NotImplementedError(reason)
 
 
+# --- the keep-acts stash ------------------------------------------------------
+
+def keep_acts_stash_bytes(cfm: ModelConfig, B: int, M: int, N: int, mode: Optional[str]) -> int:
+    """Bytes of the keep-acts stash of one launch at batch shape (B, M, N)
+    (``keep_acts_scratch``): the row tensors ns, u_pre, key, geo_term and
+    (SCANN+) LN_g's x-hat [L, M*N, D] at 4 bytes (``"f32"``) or 2
+    (``"bf16"``), the attention [L, M*N, H] and (SCANN+) LN_g's rsqrt
+    [L, M*N] in f32, six per-atom tensors [L, M, D] and two rsqrt [L, M] in
+    f32; 0 for the recompute schedule (None)."""
+    if mode is None:
+        return 0
+    L, D, H, R = cfm.n_attention, cfm.local_dim, cfm.num_head, M * N
+    big = 2 if mode == "bf16" else 4
+    rows = (5 if cfm.g_update else 4) * R * D * big
+    return B * L * (rows + 4 * (R * H + (R if cfm.g_update else 0) + 6 * M * D + 2 * M))
+
+
+def keep_acts_mode(cfm: ModelConfig, B: int, M: int, N: int) -> Optional[str]:
+    """The schedule of a molecule-backward launch at (B, M, N), as
+    ``scann_backward.py:258-271`` chooses it: ``"f32"`` (keep-acts, exact),
+    ``"bf16"`` (keep-acts with the five row tensors of ``_BF16_KEYS``
+    rounded to bfloat16) or None (recompute). ``SCANN_TPU_UNROLL_STASH=0``
+    forces None; ``SCANN_TPU_STASH_BF16=1`` makes the stash bf16
+    unconditionally (the JAX package's experiment switch, whatever the f32
+    stash's size). A stash larger than ``STASH_BUDGET_BYTES`` gives None. A pure
+    function of the config, the shape and the environment."""
+    if os.environ.get("SCANN_TPU_UNROLL_STASH", "1") == "0":
+        return None
+    mode = "bf16" if os.environ.get("SCANN_TPU_STASH_BF16", "0") == "1" else "f32"
+    return mode if keep_acts_stash_bytes(cfm, B, M, N, mode) <= STASH_BUDGET_BYTES else None
+
+
+def keep_acts_scratch(cfm: ModelConfig, B: int, M: int, N: int, mode: Optional[str],
+                      device) -> Dict[str, Optional[torch.Tensor]]:
+    """The keep-acts stash of one launch (all None for the recompute
+    schedule), in ``csrc/scann_backward.cu``'s layout: ``stash_rows`` [B, L,
+    4 or 5, M*N, D] (f32 or bfloat16), ``stash_attn`` [B, L, M*N, H],
+    ``stash_ginv`` [B, L, M*N] (SCANN+), ``stash_atoms`` [B, L, 6, M, D] and
+    ``stash_inv`` [B, L, 2, M]."""
+    keys = ("stash_rows", "stash_attn", "stash_ginv", "stash_atoms", "stash_inv")
+    if mode is None:
+        return dict.fromkeys(keys)
+    L, D, H, R = cfm.n_attention, cfm.local_dim, cfm.num_head, M * N
+    f32 = lambda *shape: torch.empty(shape, device=device, dtype=torch.float32)
+    big = torch.bfloat16 if mode == "bf16" else torch.float32
+    return {"stash_rows": torch.empty((B, L, 5 if cfm.g_update else 4, R, D), device=device,
+                                      dtype=big),
+            "stash_attn": f32(B, L, R, H), "stash_ginv": f32(B, L, R) if cfm.g_update else None,
+            "stash_atoms": f32(B, L, 6, M, D), "stash_inv": f32(B, L, 2, M)}
+
+
+def stash_element_bytes(mode: Optional[str]) -> int:
+    """The kernels' stash flag: 0 (recompute), 4 (f32) or 2 (bf16)."""
+    return {None: 0, "f32": 4, "bf16": 2}[mode]
+
+
+def resolve_stash(stash, rule, cfm: ModelConfig, B: int, M: int, N: int) -> Optional[str]:
+    """A launch's ``stash`` argument as a mode: ``AUTO`` asks ``rule``."""
+    mode = rule(cfm, B, M, N) if stash == AUTO else stash
+    if mode not in STASH_MODES:
+        raise ValueError(f"stash={stash!r}: one of {STASH_MODES} or {AUTO!r}")
+    return mode
+
+
 # --- the plain version -------------------------------------------------------
 
 def _as_rows(x, B: int, dev) -> torch.Tensor:
@@ -306,19 +402,219 @@ def reference_fused_scann_train_grads(params: Dict[str, torch.Tensor],
     return pred.detach(), dict(zip(leaves, grads))
 
 
+# --- the plain versions of the activation stashes ------------------------------
+#
+# The f32 stashes compute the same function as the recompute schedule, so their
+# plain version is the one above. A bf16 stash does not: its reverse walk
+# rebuilds gradients from rounded activations, which autograd through the
+# forward cannot give (it saves products of f32 values). Here each attention
+# layer is a torch.autograd.Function whose forward is the TPU kernels'
+# layer_fwd and keeps the stash, and whose backward is their reverse body on
+# what the stash holds (scann_backward.py:412-530, scann_loop.py:762-886); the
+# embedding and the readout around the layers are differentiated by autograd
+# as in the plain versions above.
+
+def _swish_grad(x: torch.Tensor) -> torch.Tensor:
+    sg = torch.sigmoid(x)
+    return sg * (1.0 + x * (1.0 - sg))
+
+
+def _ln_bwd(dy: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor, gamma: torch.Tensor):
+    """(dx, d gamma rows, d beta rows), as the TPU kernels' _ln_bwd."""
+    dxhat = dy * gamma
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return inv * (dxhat - m1 - xhat * m2), dy * xhat, dy
+
+
+class _Layer(AttentionLayer):
+    """``kfwd.AttentionLayer`` in ``cfm``'s operand mode, with the TPU
+    kernels' reverse body of the layer."""
+
+    def __init__(self, inputs, cfm: ModelConfig, masks, l: int, rbf_d):
+        super().__init__(inputs, cfm, masks, l, rbf_d, operand_mode(cfm) == 1)
+        _, _, self.mm_tB, _, self.dot3_tB, self.mm3_tA = dots.dot_fns(self.bf16)
+
+    def gather_t(self, dns):     # mm_tA(n_oh, dns): each neighbour row into its atom
+        return self.scatter(self.r(dns))
+
+    def backward(self, w, a, c_in, g_in, dc, dg):
+        """The TPU kernels' reverse body of one layer on the acts ``a``:
+        (d c_in, d g_in, the layer's weight gradients)."""
+        mm_tB, dot3_tB, mm3_tA, D = self.mm_tB, self.dot3_tB, self.mm3_tA, self.D
+        rows = lambda x: x.reshape(-1, x.shape[-1]).sum(0)
+        gr = {}
+        dsum, dgam, dbet = _ln_bwd(dc, a["c_xhat"], a["c_inv"], w["rln_s"])
+        gr["rln_s"], gr["rln_b"] = rows(dgam), rows(dbet)
+        dh2 = dsum * self.res_mask if self.res_mask is not None else dsum
+        gr["wr2"], gr["br2"] = mm3_tA(a["h1"], dh2), rows(dh2)
+        ds1 = mm_tB(dh2, w["wr2"]) * _swish_grad(a["s1"])
+        gr["wr1"], gr["br1"] = mm3_tA(a["o1"], ds1), rows(ds1)
+        do1 = dsum + mm_tB(ds1, w["wr1"])
+        dcq, dgam, dbet = _ln_bwd(do1, a["o_xhat"], a["o_inv"], w["ln_s"])
+        gr["ln_s"], gr["ln_b"] = rows(dgam), rows(dbet)
+        # ctx from the post-dropout attention; the softmax backward on the
+        # pre-dropout one, d attn gated by the mask
+        dctx3 = dcq[:, :, None, :]
+        nm3 = self.nmask[..., None]
+        key, attn, ns = a["key"], a["attn"], a["ns"]
+        dkey = dctx3 * self.lanes(a["attn_used"]) * nm3
+        dattn = self.head_sum(dctx3 * nm3 * key)
+        if self.amask is not None:
+            dattn = dattn * self.amask
+        de = attn * (dattn - (attn * dattn).sum(dim=2, keepdim=True))
+        dprod = self.lanes(de)
+        dkey = dkey + dprod * (a["query"] * self.dk)[:, :, None, :]
+        dquery = dcq + (dprod * key).sum(dim=2) * self.dk
+        gr["wk"], gr["bk"] = mm3_tA(ns * a["geo_term"], dkey), rows(dkey)
+        dkin = dot3_tB(dkey, w["wk"])
+        dns = dkin * a["geo_term"]
+        dgeo_term = dkin * ns
+        gr["wq"], gr["bq"] = mm3_tA(c_in, dquery), rows(dquery)
+        dc_new = mm_tB(dquery, w["wq"])
+        dg_new = None
+        if self.cfm.g_update:
+            dgout = dgeo_term if dg is None else dgeo_term + dg
+            dr, dgam3, dbet3 = _ln_bwd(dgout, a["g_xhat"], a["g_inv"], w["lng_s"])
+            gr["lng_s"], gr["lng_b"] = rows(dgam3), rows(dbet3)
+            du_pre = dr * _swish_grad(a["u_pre"])
+            dcw = du_pre.sum(dim=2)
+            wfg = w["wfg"]
+            gr["wfg"] = torch.cat([mm3_tA(c_in, dcw), mm3_tA(g_in, du_pre), mm3_tA(ns, du_pre)])
+            gr["bfg"] = rows(du_pre)
+            dc_new = dc_new + mm_tB(dcw, wfg[:D])
+            dg_new = dr + dot3_tB(du_pre, wfg[D:2 * D])
+            dns = dns + dot3_tB(du_pre, wfg[2 * D:])
+        else:
+            du_pre = dgeo_term * self.weight[..., None] * _swish_grad(a["u_pre"])
+            gr["wfg"], gr["bfg"] = mm3_tA(self.rbf_d, du_pre), rows(du_pre)
+        return dc_new + self.gather_t(dns), dg_new, gr
+
+
+# what this kernel's bf16 stash rounds: _BF16_KEYS of scann_backward.py:264
+KEEP_ACTS_BF16_KEYS = ("ns", "u_pre", "geo_term", "g_xhat", "key")
+
+
+def keep_acts_stash(acts, mode: str):
+    """This kernel's keep-acts stash of a layer's acts (``_stash_cast``): in
+    the bf16 stash ``KEEP_ACTS_BF16_KEYS`` rounded to bfloat16."""
+    if mode != "bf16":
+        return acts
+    return {k: (dots.round_bf16(v) if k in KEEP_ACTS_BF16_KEYS and v is not None else v)
+            for k, v in acts.items()}
+
+
+def keep_acts_rebuild(stash, layer: _Layer, w, c_in, g_in):
+    """The reverse walk's acts from this kernel's stash: as kept."""
+    return stash
+
+
+class _StashedLayer(torch.autograd.Function):
+    """One attention layer whose backward runs from an activation stash:
+    ``spec`` = (layer, weight names, keep, rebuild, mode); ``keep(acts,
+    mode)`` is what the forward pass stashes, ``rebuild(stash, layer, w,
+    c_in, g_in)`` the acts the reverse walk takes from it."""
+
+    @staticmethod
+    def forward(ctx, spec, c, g, *values):
+        layer, names, keep, rebuild, mode = spec
+        w = dict(zip(names, values))
+        g_in = g if layer.cfm.g_update else None
+        c_out, g_out, acts = layer.forward(w, c, g_in)
+        ctx.spec, ctx.stash = spec, keep(acts, mode)
+        ctx.save_for_backward(c, g, *values)
+        return c_out, (g_out if layer.cfm.g_update else g.clone())
+
+    @staticmethod
+    def backward(ctx, dc, dg):
+        layer, names, keep, rebuild, mode = ctx.spec
+        c, g, *values = ctx.saved_tensors
+        w = dict(zip(names, values))
+        g_in = g if layer.cfm.g_update else None
+        acts = rebuild(ctx.stash, layer, w, c, g_in)
+        dc_in, dg_in, gr = layer.backward(w, acts, c, g_in, dc, dg)
+        return (None, dc_in, dg_in, *[gr.get(n) for n in names])
+
+
+def stash_training_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                           cfm: ModelConfig, mrelu_head: bool, masks, mode: str, keep, rebuild,
+                           exact_pools: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (``kfwd.whole_model_forward`` in ``cfm``'s
+    operand mode) whose attention layers are ``_StashedLayer``s: under
+    ``torch.autograd`` it gives the gradients of a backward kernel with the
+    activation stash ``mode``, kept by ``keep`` and read back by
+    ``rebuild``."""
+    def layer(l, centers, geometry, rbf_d):
+        w = layer_weights(params, l, cfm.g_update)
+        names, values = list(w), list(w.values())
+        spec = (_Layer(inputs, cfm, masks, l, rbf_d), names, keep, rebuild, mode)
+        g = geometry if cfm.g_update else centers.new_zeros(0)
+        c_out, g_out = _StashedLayer.apply(spec, centers, g, *values)
+        return c_out, (g_out if cfm.g_update else None)
+
+    return whole_model_forward(params, inputs, cfm, mrelu_head, exact_pools, masks,
+                               operand_mode(cfm) == 1, layer)
+
+
+def reference_stash_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                         cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
+                         seed: int = 0, mol_base: int = 0, mode: str = "bf16",
+                         keep=keep_acts_stash, rebuild=keep_acts_rebuild,
+                         exact_pools: bool = True) -> Dict[str, torch.Tensor]:
+    """The plain version of a backward kernel's cotangent launch with the
+    activation stash ``mode`` (this kernel's keep-acts stash by default; the
+    loop kernel passes its own ``keep`` and ``rebuild``): gradients of
+    sum(pred * ct_pred) + sum(ga * ct_ga)."""
+    B, M = inputs["atomic"].shape[:2]
+    dev = inputs["atomic"].device
+    ctp = _as_rows(ct_pred, B, dev)[:, :max(segment_count(inputs), 1)]
+    ctg = _as_rows(ct_ga, B, dev).reshape(B, M, 1)
+    masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        pred, ga = stash_training_forward(leaves, inputs, cfm, False, masks, mode, keep,
+                                          rebuild, exact_pools)
+        loss = (pred * ctp.to(pred.dtype)).sum() + (ga * ctg.to(pred.dtype)).sum()
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def reference_stash_train_grads(params: Dict[str, torch.Tensor],
+                                inputs: Dict[str, torch.Tensor], targets, cfm: ModelConfig,
+                                mrelu_head: bool = False, dropout_rate: float = 0.0,
+                                seed: int = 0, mol_base: int = 0, mode: str = "bf16",
+                                keep=keep_acts_stash, rebuild=keep_acts_rebuild,
+                                exact_pools: bool = True
+                                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The plain version of a one-shot launch with the activation stash
+    ``mode``: (pred [B, 1] or [B, S], gradients of 0.5 * sum((pred - t)^2)),
+    as ``reference_fused_scann_train_grads``."""
+    B = inputs["atomic"].shape[0]
+    S = segment_count(inputs)
+    y = _as_rows(targets, B, inputs["atomic"].device)
+    masks = dropout_masks_for(cfm, inputs, dropout_rate, seed, mol_base)
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        pred, _ = stash_training_forward(leaves, inputs, cfm, mrelu_head, masks, mode, keep,
+                                         rebuild, exact_pools)
+        y = y.to(pred.dtype)
+        err = (pred - y) * segment_valid(inputs).to(pred.dtype) if S else pred[:, 0] - y[:, 0]
+        grads = torch.autograd.grad(0.5 * (err ** 2).sum(), list(leaves.values()))
+    return pred.detach(), dict(zip(leaves, grads))
+
+
 # --- the kernel --------------------------------------------------------------
 
 def launch_scann_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                           cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor],
                           one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
-                          seed: int = 0, mol_base: int = 0
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the backward kernel and its reduction
     with ``pack_params`` output (index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
     pred, or the targets when ``one_shot``; ``ct_ga`` [B, M] (ignored when
-    ``one_shot``). A packed batch has ``ct`` [B, S]. Returns (flat gradients
-    [P], pred [B], or [B * S] packed)."""
+    ``one_shot``). A packed batch has ``ct`` [B, S]. The schedule is
+    ``keep_acts_mode``'s. Returns (flat gradients [P], pred [B], or [B * S]
+    packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -385,27 +681,50 @@ def launch_arguments(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, ct: torch.Tensor, ct_ga: Optional[torch.Tensor], one_shot: bool,
             mrelu_head: bool = False, dropout_rate: float = 0.0, seed: int = 0,
-            mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``_check_shapes`` accepted."""
+            mol_base: int = 0, stash=AUTO) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``_check_shapes`` accepted, with the
+    schedule ``stash`` (``AUTO``: ``keep_acts_mode``'s; None, ``"f32"`` or
+    ``"bf16"`` force one, for the checks that hold one schedule against
+    another)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     check_supported(cfm, M, N, S)
+    mode = resolve_stash(stash, keep_acts_mode, cfm, B, M, N)
     chunk_atoms, _ = shared_memory_plan(cfm, M, N, S)
+    dev = packed["wde"].device
     scratch = allocate_scratch(packed, cfm, B, M, N, cfm.n_attention)
+    scratch.update(keep_acts_scratch(cfm, B, M, N, mode, dev))
     tensors, dims, scalars, rng, offsets, flat, pred = launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
     name = kernel_name("scann_backward", cfm)
-    call_kernel(name, name, packed["wde"].device, tensors + [seg], dims + [S], scalars, rng,
-                offsets, flat)
-    launch_scann_backward.launches += 1
-    launch_scann_backward.bf16_launches += operand_mode(cfm)
+    call_kernel(name, name, dev,
+                tensors + [seg] + [scratch[k] for k in ("stash_rows", "stash_attn", "stash_ginv",
+                                                        "stash_atoms", "stash_inv")],
+                dims + [S, stash_element_bytes(mode)], scalars, rng, offsets, flat)
+    count_launch(launch_scann_backward, cfm, mode)
     return flat, pred
 
 
-launch_scann_backward.launches = 0
-launch_scann_backward.bf16_launches = 0
+def count_launch(launcher, cfm: ModelConfig, mode: Optional[str]) -> None:
+    """Add a backward launch to ``launcher``'s counts: ``.launches`` all,
+    ``.bf16_launches`` those in the bf16 operand mode, ``.stash_launches``
+    those with the f32 activation stash, ``.bf16_stash_launches`` those with
+    the bf16 one (the rest ran the recompute schedule)."""
+    launcher.launches += 1
+    launcher.bf16_launches += operand_mode(cfm)
+    launcher.stash_launches += mode == "f32"
+    launcher.bf16_stash_launches += mode == "bf16"
+
+
+def reset_counts(launcher) -> None:
+    """Set a backward launcher's four counts to 0."""
+    for name in ("launches", "bf16_launches", "stash_launches", "bf16_stash_launches"):
+        setattr(launcher, name, 0)
+
+
+reset_counts(launch_scann_backward)
 
 
 def kernel_name(base: str, cfm: ModelConfig) -> str:
@@ -422,6 +741,10 @@ def fused_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     (ct_pred [B, S] for a packed batch)."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
+        B, M = inputs["atomic"].shape[:2]
+        if keep_acts_mode(cfm, B, M, inputs["neighbors"].shape[2]) == "bf16":
+            return reference_stash_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+                                        seed, mol_base)
         return reference_fused_scann_grad(params, inputs, cfm, ct_pred, ct_ga,
                                           dropout_rate, seed, mol_base)
     if dev.type != "cuda":
@@ -445,6 +768,10 @@ def fused_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, t
     zeroed, so the caller divides by the count of valid segments."""
     dev = inputs["atomic"].device
     if dev.type == "cpu":
+        B, M = inputs["atomic"].shape[:2]
+        if keep_acts_mode(cfm, B, M, inputs["neighbors"].shape[2]) == "bf16":
+            return reference_stash_train_grads(params, inputs, targets, cfm, mrelu_head,
+                                               dropout_rate, seed, mol_base)
         return reference_fused_scann_train_grads(params, inputs, targets, cfm, mrelu_head,
                                                  dropout_rate, seed, mol_base)
     if dev.type != "cuda":
@@ -565,11 +892,15 @@ def backward_fp32_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     return 3 * forward_fp32_flops(cfm, B, M, N)
 
 
-def recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+def recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
+                    stash: Optional[str] = None) -> int:
     """FLOPs that the kernel's schedule adds to ``backward_flops`` at one
-    padded batch: the forward again in the reverse walk, except each
-    layer's context, which the stash keeps. Elementwise work, softmax and
-    LayerNorm are left out, as in ``forward_flops``."""
+    padded batch. The recompute schedule (``stash`` None): the forward again
+    in the reverse walk, except each layer's context, which the stash keeps.
+    The keep-acts stash (``"f32"``, ``"bf16"``) keeps every layer's
+    activations, so only the readout, the embedding and the SCANN+ geometry
+    embedding are formed again. Elementwise work, softmax and LayerNorm are
+    left out, as in ``forward_flops``."""
     D, K, E, G, O = (cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim,
                      cfm.global_dim, cfm.dense_out)
     R = M * N
@@ -579,7 +910,7 @@ def recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)         # query (and cw)
     per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
     per_layer += 2 * R * D                                        # energies
-    f += cfm.n_attention * per_layer
+    f += 0 if stash else cfm.n_attention * per_layer
     f += mm(M, E + (10 if cfm.use_ring else 0), D)                # embedding
     if cfm.feature == "cgcnn":
         f += mm(M, CGCNN_FEATURES, E)

@@ -61,7 +61,6 @@ import torch
 
 from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
 from scann_tpu_torch.kernels import dots
-from scann_tpu_torch.kernels.local_attention import layer_norm
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 from scann_tpu_torch.ops.activations import mrelu, swish
 from scann_tpu_torch.ops.attention import gather_neighbor_states, segment_ids
@@ -219,18 +218,136 @@ def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     ``scann_loop.py:_bwd_kernel``): its products are ``dots.product`` and
     ``dots.one_hot``, which round the cotangent where those kernels round
     it, and the readout is ``_Readout``."""
-    mm, one_hot = dots.product, dots.one_hot
+    return whole_model_forward(params, inputs, cfm, mrelu_head, exact_pools, masks, True)
+
+
+def _ln_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6):
+    """(LayerNorm(x), x-hat, rsqrt(var + eps)), as the TPU kernels' _ln_fwd."""
+    mu = x.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (x - mu) * inv
+    return xhat * gamma + beta, xhat, inv
+
+
+def layer_weights(params: Dict[str, torch.Tensor], l: int,
+                  g_update: bool) -> Dict[str, torch.Tensor]:
+    """Layer ``l``'s LocalAttention/ResidualNorm params under the kernels'
+    names (``_LAYER_KEYS``, then ``lng_s``/``lng_b`` for SCANN+)."""
+    w = {name: params[key.format(l)] for name, key in _LAYER_KEYS}
+    if g_update:
+        w["lng_s"] = params[f"local_attention_{l}/layer_norm_g/scale"]
+        w["lng_b"] = params[f"local_attention_{l}/layer_norm_g/bias"]
+    return w
+
+
+class AttentionLayer:
+    """One attention layer of a batch as the TPU kernels' layer_fwd computes
+    it (LocalAttention, then ResidualNorm), in the operand mode ``bf16``:
+    the inputs' neighbour indices, masks and weights, the RBF of the
+    distances and the layer's dropout masks. In the bf16 mode its products
+    are ``dots.product`` and ``dots.one_hot``, so under ``torch.autograd``
+    they round the cotangent where the TPU backward kernels do; in f32 they
+    are plain products and maps. The one plain body of the layer: the
+    whole-model forward runs it, and the plain versions of the activation
+    stashes take its acts."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], cfm: ModelConfig,
+                 masks: Optional[DropoutMasks], l: int, rbf_d: torch.Tensor, bf16: bool):
+        B, M = inputs["atomic"].shape[:2]
+        ft = rbf_d.dtype
+        self.cfm, self.rbf_d, self.bf16 = cfm, rbf_d, bf16
+        self.nbr = inputs["neighbors"]
+        self.nmask = inputs["neighbor_mask"].to(ft)
+        self.weight = inputs["neighbor_weight"].to(ft)
+        self.D, self.H = cfm.local_dim, cfm.num_head
+        self.hd = self.D // self.H
+        self.dk = attention_scale(cfm)
+        self.res_mask = masks.layers[l] if masks is not None else None
+        self.amask = masks.attn[l] if masks is not None and masks.attn is not None else None
+        self.r = dots.round_bf16 if bf16 else (lambda x: x)
+        if bf16:
+            self.mm, self.one_hot = dots.product, dots.one_hot
+        else:
+            self.mm, self.one_hot = (lambda a, w: a @ w), (lambda x, fwd, bwd: fwd(x))
+        self.rows = (self.nbr.long() + M * torch.arange(B, device=self.nbr.device)[:, None, None]
+                     ).reshape(-1)
+
+    def _lanes(self, x):         # x @ seg_expand: [.., H] -> [.., D]
+        return x.repeat_interleave(self.hd, dim=-1)
+
+    def _head_sum(self, x):      # x @ seg_sum: [.., D] -> [.., H]
+        return x.unflatten(-1, (self.H, self.hd)).sum(-1)
+
+    def scatter(self, dns):      # n_oh^T @ dns: each neighbour row into its atom
+        B, M = dns.shape[:2]
+        return dns.new_zeros(B * M, self.D).index_add_(
+            0, self.rows, dns.reshape(-1, self.D)).view(B, M, self.D)
+
+    def lanes(self, x):
+        return self.one_hot(x, self._lanes, self._head_sum)
+
+    def head_sum(self, x):
+        return self.one_hot(x, self._head_sum, self._lanes)
+
+    def gather(self, c):         # n_oh @ c
+        return self.one_hot(c, lambda t: gather_neighbor_states(t, self.nbr), self.scatter)
+
+    def forward(self, w: Dict[str, torch.Tensor], c: torch.Tensor, g: Optional[torch.Tensor]):
+        """(c_out, g_out, acts) for the layer weights ``w``
+        (``layer_weights``), centers ``c`` and, for SCANN+, geometry ``g``."""
+        mm, D = self.mm, self.D
+        ns = self.gather(c)
+        if self.cfm.g_update:
+            wfg = w["wfg"]
+            u_pre = (mm(c, wfg[:D])[:, :, None, :] + mm(g, wfg[D:2 * D])
+                     + mm(ns, wfg[2 * D:]) + w["bfg"])
+            g_out, g_xhat, g_inv = _ln_fwd(swish(u_pre) + g, w["lng_s"], w["lng_b"])
+            geo_term = g_out
+        else:
+            u_pre = mm(self.rbf_d, w["wfg"]) + w["bfg"]
+            geo_term = swish(u_pre) * self.weight[..., None]
+            g_out, g_xhat, g_inv = g, None, None
+        key = mm(ns * geo_term, w["wk"]) + w["bk"]
+        query = mm(c, w["wq"]) + w["bq"]
+        energy = self.head_sum((query * self.dk)[:, :, None, :] * key)
+        energy = energy + (1.0 - self.nmask)[..., None] * -1e9
+        e = torch.exp(energy - energy.amax(dim=2, keepdim=True).detach())
+        attn = e / e.sum(dim=2, keepdim=True)
+        attn_used = attn * self.amask if self.amask is not None else attn
+        ctx = (self.lanes(attn_used) * self.nmask[..., None] * key).sum(dim=2)
+        o1, o_xhat, o_inv = _ln_fwd(ctx + query, w["ln_s"], w["ln_b"])
+        s1 = mm(o1, w["wr1"]) + w["br1"]
+        h1 = swish(s1)
+        h2 = mm(h1, w["wr2"]) + w["br2"]
+        if self.res_mask is not None:
+            h2 = h2 * self.res_mask
+        c_out, c_xhat, c_inv = _ln_fwd(o1 + h2, w["rln_s"], w["rln_b"])
+        acts = dict(ns=ns, u_pre=u_pre, geo_term=geo_term, g_xhat=g_xhat, g_inv=g_inv, key=key,
+                    query=query, attn=attn, attn_used=attn_used, o1=o1, o_xhat=o_xhat,
+                    o_inv=o_inv, s1=s1, h1=h1, c_xhat=c_xhat, c_inv=c_inv)
+        return c_out, g_out, acts
+
+
+def whole_model_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                        cfm: ModelConfig, mrelu_head: bool, exact_pools: bool,
+                        masks: Optional[DropoutMasks], bf16: bool, layer=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The body of ``reference_bf16_forward``; with ``bf16`` False the same
+    arithmetic in f32 (plain products, segment pools f32-exact). Each
+    attention layer is ``layer(l, centers, geometry, rbf_d) -> (centers,
+    geometry)`` (geometry None for SCANN): ``AttentionLayer.forward`` by
+    default; the plain versions of the backward kernels' activation stashes
+    pass a hook that runs the same body under their own layer backward."""
+    if bf16:
+        mm, one_hot = dots.product, dots.one_hot
+    else:
+        mm, one_hot = (lambda a, w: a @ w), (lambda x, fwd, bwd: fwd(x))
+        exact_pools = True
     p = params
     ft = p["dense_embed/kernel"].dtype
     atomic = inputs["atomic"]
     dev = atomic.device
-    B, M = atomic.shape[:2]
-    D, H = cfm.local_dim, cfm.num_head
-    hd = D // H
     am = inputs["atom_mask"].to(ft)                      # [B, M, 1]
-    nmask = inputs["neighbor_mask"].to(ft)               # [B, M, N]
-    weight = inputs["neighbor_weight"].to(ft)
-    dk = attention_scale(cfm)
 
     if cfm.feature == "cgcnn":
         emb = mm(atomic.to(ft), p["embed_atom/kernel"]) + p["embed_atom/bias"]
@@ -253,48 +370,18 @@ def reference_bf16_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     geometry = None
     if cfm.g_update:
         angle_c = torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)).to(dev)
-        rbf_w = gaussian_expansion(weight, angle_c, RBF_WIDTH)
+        rbf_w = gaussian_expansion(inputs["neighbor_weight"].to(ft), angle_c, RBF_WIDTH)
         geometry = (swish(mm(rbf_d, p["neighbor_d/kernel"]) + p["neighbor_d/bias"])
                     * swish(mm(rbf_w, p["neighbor_w/kernel"]) + p["neighbor_w/bias"]))
 
-    # one-hot @ centers; its transpose adds each neighbour row into its atom
-    nbr = inputs["neighbors"]
-    rows = (nbr.long() + M * torch.arange(B, device=dev)[:, None, None]).reshape(-1)
-    gather = lambda c: one_hot(c, lambda t: gather_neighbor_states(t, nbr),
-                               lambda g: g.new_zeros(B * M, D).index_add_(
-                                   0, rows, g.reshape(-1, D)).view(B, M, D))
-    head_sum = lambda x: x.unflatten(-1, (H, hd)).sum(-1)      # x @ seg_sum
-    lanes = lambda x: x.repeat_interleave(hd, dim=-1)           # x @ seg_expand
+    if layer is None:
+        def layer(l, centers, geometry, rbf_d):
+            c, g, _ = AttentionLayer(inputs, cfm, masks, l, rbf_d, bf16).forward(
+                layer_weights(p, l, cfm.g_update), centers, geometry)
+            return c, g
+
     for l in range(cfm.n_attention):
-        la, rn = f"local_attention_{l}", f"residual_norm_{l}"
-        ns = gather(centers)
-        wfg, bfg = p[f"{la}/filter_geo/kernel"], p[f"{la}/filter_geo/bias"]
-        if cfm.g_update:
-            u = (mm(centers, wfg[:D])[:, :, None, :] + mm(geometry, wfg[D:2 * D])
-                 + mm(ns, wfg[2 * D:]) + bfg)
-            geometry = layer_norm(swish(u) + geometry, p[f"{la}/layer_norm_g/scale"],
-                                  p[f"{la}/layer_norm_g/bias"])
-            geo_term = geometry
-        else:
-            geo_term = swish(mm(rbf_d, wfg) + bfg) * weight[..., None]
-        key = mm(ns * geo_term, p[f"{la}/key/kernel"]) + p[f"{la}/key/bias"]
-        query = mm(centers, p[f"{la}/query/kernel"]) + p[f"{la}/query/bias"]
-        prod = (query * dk)[:, :, None, :] * key
-        energy = one_hot(prod, head_sum, lanes)
-        energy = energy + (1.0 - nmask)[..., None] * -1e9
-        energy = energy - energy.amax(dim=2, keepdim=True).detach()
-        e = torch.exp(energy)
-        attn = e / e.sum(dim=2, keepdim=True)
-        if masks is not None and masks.attn is not None:
-            attn = attn * masks.attn[l]
-        a_lanes = one_hot(attn, lanes, head_sum)
-        ctx = (a_lanes * nmask[..., None] * key).sum(dim=2)
-        out = layer_norm(ctx + query, p[f"{la}/layer_norm/scale"], p[f"{la}/layer_norm/bias"])
-        h = swish(mm(out, p[f"{rn}/dense_1/kernel"]) + p[f"{rn}/dense_1/bias"])
-        h = mm(h, p[f"{rn}/dense_2/kernel"]) + p[f"{rn}/dense_2/bias"]
-        if masks is not None:
-            h = h * masks.layers[l]
-        centers = layer_norm(out + h, p[f"{rn}/layer_norm/scale"], p[f"{rn}/layer_norm/bias"])
+        centers, geometry = layer(l, centers, geometry, rbf_d)
 
     centers = swish(mm(centers, p["after_Lc/kernel"]) + p["after_Lc/bias"])
     gq = mm(centers, p["global_attention/query/kernel"]) + p["global_attention/query/bias"]
@@ -326,14 +413,8 @@ def stack_layer_params(params: Dict[str, torch.Tensor], n_layers: int,
                        g_update: bool) -> Dict[str, torch.Tensor]:
     """Per-layer LocalAttention/ResidualNorm params stacked on a leading
     [L] axis (the layout the kernel indexes)."""
-    out = {name: torch.stack([params[key.format(i)] for i in range(n_layers)])
-           for name, key in _LAYER_KEYS}
-    if g_update:
-        out["lng_s"] = torch.stack([params[f"local_attention_{i}/layer_norm_g/scale"]
-                                    for i in range(n_layers)])
-        out["lng_b"] = torch.stack([params[f"local_attention_{i}/layer_norm_g/bias"]
-                                    for i in range(n_layers)])
-    return out
+    ws = [layer_weights(params, i, g_update) for i in range(n_layers)]
+    return {name: torch.stack([w[name] for w in ws]) for name in ws[0]}
 
 
 def _r4(x: int) -> int:

@@ -90,9 +90,26 @@ Backward (crystal training):
   version. The products run on the tensor cores as split-TF32 ``mma.sync``
   at f32 accuracy (``csrc/scann_mma.cuh``).
 - The global scratch of a launch (``loop_backward_scratch``: the stashes of
-  layer inputs and, for SCANN+, 0.9 GB of geometry at the MP2018 batch, and
-  the [B * C, P] gradient rows, one per block) can be allocated once per batch
-  shape and handed to every launch.
+  layer inputs and, for SCANN+, 0.9 GB of geometry at the MP2018 batch, the
+  [B * C, P] gradient rows, one per block, and the selective stash) can be
+  allocated once per batch shape and handed to every launch.
+- Schedule (the TPU kernel's ``loop_stash_mode``, ``scann_loop.py:165-183``):
+  by default the selective activation stash, wherever ``loop_stash_mode``
+  admits it: the forward pass writes each layer's neighbour states, u_pre,
+  keys [B, L, M*N, D] and attention [B, L, M*N, H] (2.77 GB at the MP2018
+  batch, ``loop_stash_bytes``), and the reverse walk reads them back in
+  place of the gather, the u_pre and key products and the softmax, and
+  rebuilds the rest as ``acts_from_stash`` does. "Fits" is the card's rule:
+  the stash against ``kbwd.STASH_BUDGET_BYTES`` (6 GiB a launch, a
+  constant), which every published shape's f32 stash meets.
+  ``SCANN_TPU_LOOP_STASH=0`` runs the recompute schedule;
+  ``SCANN_TPU_LOOP_STASH_BF16=1`` takes the bf16 stash (the four row
+  buffers rounded, o1 kept in f32) only where the f32 stash does not fit and
+  the halved one does. The f32 stash is bit for bit the recompute
+  schedule's gradient; the bf16 stash's plain version is
+  ``reference_loop_stash_*`` (``loop_rebuild``: ``acts_from_stash``).
+  ``launch_loop_backward.stash_launches`` / ``.bf16_stash_launches`` count
+  launches by schedule.
 
 Bounds and designs are in the source notes of the two CUDA files: about
 1.85e11 FLOP per MP2018 batch (B=64, M=96, N=32, L=9, D=128) for the forward
@@ -106,11 +123,13 @@ which ``loop_forward_bytes`` counts) and 5.5e11 for the backward (~3.37 ms);
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from scann_tpu_torch.config import ModelConfig
+from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels.scann_forward import (
@@ -125,6 +144,7 @@ from scann_tpu_torch.kernels.scann_forward import (
     segment_refusal,
 )
 from scann_tpu_torch.models.scann import check_index_ranges
+from scann_tpu_torch.ops.activations import swish
 
 REPLACES = "scann_tpu/kernels/scann_loop.py:208"  # _fwd_kernel
 SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
@@ -458,18 +478,146 @@ def reference_loop_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str
                                                   exact_pools=False)
 
 
+def loop_stash_bytes(cfm: ModelConfig, B: int, M: int, N: int, mode: Optional[str]) -> int:
+    """Bytes of the selective activation stash of one loop-backward launch
+    at batch shape (B, M, N) (``loop_stash_scratch``): ns, u_pre and key
+    [L, M*N, D] and the attention [L, M*N, H] at 4 bytes (``"f32"``) or 2
+    (``"bf16"``), and in the bf16 stash o1 [L, M, D] in f32; 0 for the
+    recompute schedule (None)."""
+    if mode is None:
+        return 0
+    L, D, H, R = cfm.n_attention, cfm.local_dim, cfm.num_head, M * N
+    big = 2 if mode == "bf16" else 4
+    return B * L * (R * (3 * D + H) * big + (4 * M * D if mode == "bf16" else 0))
+
+
+def loop_stash_mode(cfm: ModelConfig, B: int, M: int, N: int) -> Optional[str]:
+    """The schedule of a loop-backward launch at (B, M, N), as
+    ``scann_loop.py:165-183`` chooses it with the card's rule for "fits" (the
+    stash against ``kbwd.STASH_BUDGET_BYTES`` of device memory per launch,
+    not VMEM): ``"f32"`` (the selective stash, exact) where the f32 stash
+    fits; ``"bf16"`` only where it does not, the halved one does and
+    ``SCANN_TPU_LOOP_STASH_BF16=1``; else None (recompute).
+    ``SCANN_TPU_LOOP_STASH=0`` forces None. A pure function of the config,
+    the shape and the environment."""
+    if os.environ.get("SCANN_TPU_LOOP_STASH", "1") == "0":
+        return None
+    if loop_stash_bytes(cfm, B, M, N, "f32") <= kbwd.STASH_BUDGET_BYTES:
+        return "f32"
+    if (os.environ.get("SCANN_TPU_LOOP_STASH_BF16", "0") == "1"
+            and loop_stash_bytes(cfm, B, M, N, "bf16") <= kbwd.STASH_BUDGET_BYTES):
+        return "bf16"
+    return None
+
+
+def loop_stash_scratch(cfm: ModelConfig, B: int, M: int, N: int, mode: Optional[str], device
+                       ) -> Dict[str, Optional[torch.Tensor]]:
+    """The selective stash of one launch (all None for the recompute
+    schedule), in ``csrc/scann_loop_backward.cu``'s layout: ``stash_rows``
+    [B, L, 3, M*N, D] (ns, u_pre, key) and ``stash_attn`` [B, L, M*N, H], f32
+    or bfloat16, and ``stash_o1`` [B, L, M, D] f32 (the bf16 stash only)."""
+    if mode is None:
+        return dict.fromkeys(("stash_rows", "stash_attn", "stash_o1"))
+    L, D, H, R = cfm.n_attention, cfm.local_dim, cfm.num_head, M * N
+    big = torch.bfloat16 if mode == "bf16" else torch.float32
+    return {"stash_rows": torch.empty((B, L, 3, R, D), device=device, dtype=big),
+            "stash_attn": torch.empty((B, L, R, H), device=device, dtype=big),
+            "stash_o1": (torch.empty((B, L, M, D), device=device, dtype=torch.float32)
+                         if mode == "bf16" else None)}
+
+
+def scratch_stash_mode(scratch: Dict[str, Optional[torch.Tensor]]) -> Optional[str]:
+    """The stash mode a loop-backward scratch was allocated for."""
+    rows = scratch.get("stash_rows")
+    if rows is None:
+        return None
+    return "bf16" if rows.dtype == torch.bfloat16 else "f32"
+
+
+# --- the plain version of the selective stash -----------------------------------
+
+LOOP_STASH_BF16_KEYS = ("ns", "u_pre", "key", "attn")
+
+
+def loop_stash(acts, mode: str):
+    """What the loop kernel's forward pass stashes of a layer
+    (``scann_loop.py:597-622``): ns, u_pre, key and attn (before dropout),
+    rounded to bfloat16 in the bf16 stash, and o1 in f32."""
+    r = dots.round_bf16 if mode == "bf16" else (lambda x: x)
+    out = {k: r(acts[k]) for k in LOOP_STASH_BF16_KEYS}
+    out["o1"] = acts["o1"]
+    return out
+
+
+def loop_rebuild(st, layer, w, c_in, g_in):
+    """The reverse walk's acts from the selective stash, as ``acts_from_stash``
+    (``scann_loop.py:726-760``): geo_term, LN_g's x-hat and rsqrt from u_pre
+    and the layer's input geometry; the query from its input centers; ctx
+    from the stashed attention (dropout replayed) and keys, for the attention
+    LayerNorm's statistics; s1, h1 and the ResidualNorm's statistics from
+    the stashed o1."""
+    cfm = layer.cfm
+    ns, u_pre, key, attn, o1 = st["ns"], st["u_pre"], st["key"], st["attn"], st["o1"]
+    if cfm.g_update:
+        geo_term, g_xhat, g_inv = kfwd._ln_fwd(swish(u_pre) + g_in, w["lng_s"], w["lng_b"])
+    else:
+        geo_term, g_xhat, g_inv = swish(u_pre) * layer.weight[..., None], None, None
+    query = layer.mm(c_in, w["wq"]) + w["bq"]
+    attn_used = attn * layer.amask if layer.amask is not None else attn
+    ctx = (layer.lanes(attn_used) * layer.nmask[..., None] * key).sum(dim=2)
+    _, o_xhat, o_inv = kfwd._ln_fwd(ctx + query, w["ln_s"], w["ln_b"])
+    s1 = layer.mm(o1, w["wr1"]) + w["br1"]
+    h1 = swish(s1)
+    h2 = layer.mm(h1, w["wr2"]) + w["br2"]
+    if layer.res_mask is not None:
+        h2 = h2 * layer.res_mask
+    _, c_xhat, c_inv = kfwd._ln_fwd(o1 + h2, w["rln_s"], w["rln_b"])
+    return dict(ns=ns, u_pre=u_pre, geo_term=geo_term, g_xhat=g_xhat, g_inv=g_inv, key=key,
+                query=query, attn=attn, attn_used=attn_used, o1=o1, o_xhat=o_xhat, o_inv=o_inv,
+                s1=s1, h1=h1, c_xhat=c_xhat, c_inv=c_inv)
+
+
+def reference_loop_stash_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
+                              cfm: ModelConfig, ct_pred, ct_ga, dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None, mol_base: int = 0,
+                              mode: str = "bf16") -> Dict[str, torch.Tensor]:
+    """The plain version of ``loop_scann_grad`` with the selective stash
+    ``mode``: the reverse walk of ``scann_loop.py:762-886`` on
+    ``loop_rebuild``'s acts (``kbwd.reference_stash_grad``). In the f32
+    stash it computes the function ``reference_loop_grad`` does."""
+    return kbwd.reference_stash_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+                                     dropout_seed or 0, mol_base, mode, loop_stash,
+                                     loop_rebuild, exact_pools=False)
+
+
+def reference_loop_stash_train_grads(params: Dict[str, torch.Tensor],
+                                     inputs: Dict[str, torch.Tensor], targets, cfm: ModelConfig,
+                                     mrelu_head: bool = False, dropout_rate: float = 0.0,
+                                     dropout_seed: Optional[int] = None, mol_base: int = 0,
+                                     mode: str = "bf16"
+                                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The plain version of ``loop_scann_train_grads`` with the selective
+    stash ``mode``: (pred, gradients of 0.5 * sum((pred - t)^2))."""
+    return kbwd.reference_stash_train_grads(params, inputs, targets, cfm, mrelu_head,
+                                            dropout_rate, dropout_seed or 0, mol_base, mode,
+                                            loop_stash, loop_rebuild, exact_pools=False)
+
+
 def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int,
-                          N: int, cluster: Optional[int] = None
+                          N: int, cluster: Optional[int] = None, stash=kbwd.AUTO
                           ) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-backward launch at batch shape (B, M,
     N): that of the molecule backward with the last centers stashed too and
     one gradient row per block ([B * cluster, P]; ``cluster`` defaults to
-    ``cluster_size(B)``), plus the [B, M, D] d(layer output). A trainer
-    allocates it once per shape."""
+    ``cluster_size(B)``), plus the [B, M, D] d(layer output) and the
+    selective stash of ``stash`` (``loop_stash_mode``'s by default). A
+    trainer allocates it once per shape."""
     cluster = cluster_size(B) if cluster is None else cluster
+    dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
-    scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=packed["wde"].device,
-                                      dtype=torch.float32)
+    scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
+    scratch.update(loop_stash_scratch(
+        cfm, B, M, N, kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N), dev))
     return scratch
 
 
@@ -478,17 +626,17 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                          one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                          seed: int = 0, mol_base: int = 0,
                          scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                         cluster: Optional[int] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the loop backward and its row reduction
     with ``pack_params`` output (index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
     pred, or the targets when ``one_shot`` ([B, S] for a packed batch); ``ct_ga``
     [B, M] (ignored when ``one_shot``); ``scratch``
-    from ``loop_backward_scratch`` at this batch shape and cluster size
-    (allocated here when None); ``cluster`` blocks per structure (1, 2 or 4;
-    ``cluster_size(B)`` when None). Returns (flat gradients [P], pred [B],
-    or [B * S] packed)."""
+    from ``loop_backward_scratch`` at this batch shape, cluster size and
+    stash mode (allocated here when None; one of another mode raises);
+    ``cluster`` blocks per structure (1, 2 or 4; ``cluster_size(B)`` when
+    None). The schedule is ``loop_stash_mode``'s. Returns (flat gradients
+    [P], pred [B], or [B * S] packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -499,8 +647,7 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
                             seed, mol_base, scratch, cluster)
 
 
-launch_loop_backward.launches = 0
-launch_loop_backward.bf16_launches = 0
+kbwd.reset_counts(launch_loop_backward)
 
 
 def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -508,30 +655,39 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
                      one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                      seed: int = 0, mol_base: int = 0,
                      scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                     cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``launch_loop_backward`` accepted."""
+                     cluster: Optional[int] = None, stash=kbwd.AUTO
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``launch_loop_backward`` accepted, with
+    the schedule ``stash`` (``kbwd.AUTO``: ``loop_stash_mode``'s; None,
+    ``"f32"`` or ``"bf16"`` force one, for the checks that hold one schedule
+    against another)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N, S)
+    mode = kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N)
     cluster = cluster_size(B) if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
     if scratch is None:
-        scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster)
+        scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
-          or scratch["rows"].shape[0] != B * cluster):
+          or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode):
         raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
-                         f"{scratch['rows'].shape[0]} gradient rows handed to a batch of shape "
-                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure")
+                         f"{scratch['rows'].shape[0]} gradient rows and stash "
+                         f"{scratch_stash_mode(scratch)} handed to a batch of shape "
+                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure, stash "
+                         f"{mode}")
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
     name = kbwd.kernel_name("scann_loop_backward", cfm)
-    kfwd.call_kernel(name, name, packed["wde"].device, tensors + [scratch["dcenters"], seg],
-                     dims + [atom_block, S, cluster], scalars, rng, offsets, flat)
-    launch_loop_backward.launches += 1
-    launch_loop_backward.bf16_launches += kfwd.operand_mode(cfm)
+    kfwd.call_kernel(name, name, packed["wde"].device,
+                     tensors + [scratch["dcenters"], seg, scratch["stash_rows"],
+                                scratch["stash_attn"], scratch["stash_o1"]],
+                     dims + [atom_block, S, cluster, kbwd.stash_element_bytes(mode)], scalars,
+                     rng, offsets, flat)
+    kbwd.count_launch(launch_loop_backward, cfm, mode)
     return flat, pred
 
 
@@ -567,6 +723,10 @@ def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Ten
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
                              segment_count(inputs))
     if dev.type == "cpu":
+        B, M = inputs["atomic"].shape[:2]
+        if loop_stash_mode(cfm, B, M, inputs["neighbors"].shape[2]) == "bf16":
+            return reference_loop_stash_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
+                                             dropout_seed, mol_base)
         return reference_loop_grad(params, inputs, cfm, ct_pred, ct_ga, dropout_rate,
                                    dropout_seed, mol_base)
     if dev.type != "cuda":
@@ -591,6 +751,10 @@ def loop_scann_train_grads(params: Dict[str, torch.Tensor], inputs: Dict[str, to
     check_backward_supported(cfm, inputs["atomic"].shape[1], inputs["neighbors"].shape[2],
                              segment_count(inputs))
     if dev.type == "cpu":
+        B, M = inputs["atomic"].shape[:2]
+        if loop_stash_mode(cfm, B, M, inputs["neighbors"].shape[2]) == "bf16":
+            return reference_loop_stash_train_grads(params, inputs, targets, cfm, mrelu_head,
+                                                    dropout_rate, dropout_seed, mol_base)
         return reference_loop_train_grads(params, inputs, targets, cfm, mrelu_head,
                                           dropout_rate, dropout_seed, mol_base)
     if dev.type != "cuda":
@@ -645,21 +809,28 @@ def loop_backward_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     return kbwd.backward_flops(cfm, B, M, N)
 
 
-def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int) -> int:
+def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
+                         stash: Optional[str] = None) -> int:
     """FLOPs that the loop backward's schedule adds to ``loop_backward_flops``
     at one padded batch: in the reverse walk each layer's ResidualNorm, query
     (and cw), (atom, neighbour) rows and energies again (the context is
     stashed); in the readout's second pass after_Lc and the GA queries; the
-    embedding and the SCANN+ geometry embedding. Elementwise work, softmax
-    and LayerNorm are left out, as in ``forward_flops``."""
+    embedding and the SCANN+ geometry embedding. Under the selective stash
+    (``"f32"``, ``"bf16"``) a layer forms only its [M, D] products again
+    (query and the ResidualNorm's two), and the bf16 stash also its context
+    from the rounded attention and keys in the forward pass. Elementwise
+    work, softmax and LayerNorm are left out, as in ``forward_flops``."""
     D, K, E, G = cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim, cfm.global_dim
     R = M * N
     mm = lambda rows, k, n: 2 * rows * k * n
     f = mm(M, D, G) + mm(M, G, G)                                  # readout, second pass
-    per_layer = 2 * mm(M, D, D)                                    # ResidualNorm
-    per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)          # query (and cw)
-    per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
-    per_layer += 2 * R * D                                         # energies
+    if stash:
+        per_layer = 3 * mm(M, D, D) + (2 * R * D if stash == "bf16" else 0)
+    else:
+        per_layer = 2 * mm(M, D, D)                                # ResidualNorm
+        per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)      # query (and cw)
+        per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
+        per_layer += 2 * R * D                                     # energies
     f += cfm.n_attention * per_layer
     f += mm(M, E + (10 if cfm.use_ring else 0), D)                 # embedding
     if cfm.feature == "cgcnn":

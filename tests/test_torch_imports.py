@@ -63,19 +63,20 @@ def test_torch_port_imports_no_jax_and_no_scann_tpu():
 
 
 def test_torch_port_sources_name_no_jax_package():
-    """No source file of the port imports JAX or the JAX package."""
+    """No source file of the port, nor ``chip_smoke.py``, imports JAX or the
+    JAX package, at module level or inside a function."""
     pkg = os.path.join(ROOT, "scann_tpu_torch")
-    bad = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            for line in open(os.path.join(dirpath, f)):
-                words = line.split()
-                if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                    mod = words[1].split(".")[0].rstrip(",")
-                    if mod in ("jax", "jaxlib", "flax", "optax", "orbax", "scann_tpu"):
-                        bad.append(f"{f}: {line.strip()}")
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    bad = []
+    for path in paths:
+        for line in open(path):
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0].rstrip(",")
+                if mod in ("jax", "jaxlib", "flax", "optax", "orbax", "scann_tpu"):
+                    bad.append(f"{os.path.relpath(path, ROOT)}: {line.strip()}")
     assert bad == []
 
 
