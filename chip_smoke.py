@@ -5,8 +5,9 @@
 Builds every CUDA kernel of the port and the rate probes from
 ``scann_tpu_torch/csrc`` (one nvcc per source, all at once) into a fresh
 kernel build cache, ``build/scann_tpu_torch/chip_smoke_exec_cache``
-(``utils/exec_cache.py``), and prints the registers and spills of the two
-backward kernels in f32 and in bf16. Phases 11 and 12 run first:
+(``utils/exec_cache.py``), and prints the registers and spills (``ptxas
+-v``) of the two backward kernels in f32 and in bf16, of #3 and #5, and of
+the wide builds of #5, #3 and #4. Phases 11 and 12 run first:
 
 11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
    (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32 and
@@ -198,6 +199,30 @@ layers); random weights from seeds:
    and ``loop_scann_train_grads`` (Pt/graphene at B=128, whose 9.0 GB f32
    stash exceeds the budget, ``SCANN_TPU_LOOP_STASH_BF16=1``): one
    bf16-stash launch each, held as above.
+17. wide neighbour lists (the wide builds of #5, #3 and #4, N > 64 for the
+   forwards and N > 32 for #4, up to 256): #5 at one MP2018 layer at (8,
+   96, 96), (8, 64, 128), (4, 32, 256) and (8, 96, 72), SCANN+ and SCANN,
+   on f32 tensors (against the plain layer at the forward tolerances,
+   relaunched into NaN-filled outputs bit for bit) and bfloat16 tensors
+   (within one bf16 ulp of the plain version); #3 and #4 at MP2018 (8, 80,
+   96), (8, 60, 128) and (4, 96, 72), Pt/graphene (8, 120, 96) and a packed
+   wide slot (capacity 96, N = 96), and #4 alone at MP2018 (4, 64, 48) and
+   (4, 96, 40) (a short last sub-chunk of 16 and 8 rows), at 1, 2 and 4
+   blocks a structure, each with NaN- and constant-filled relaunches bit for
+   bit; #4 at dropout 0.1 with attention dropout in its three schedules (the
+   f32 stash against the plain gradients at 1e-4 x max, recompute bit for
+   bit equal to it, the bf16 stash held as phase 16 holds it). The inputs'
+   neighbour lists are live past one chunk and carry an atom with every
+   neighbour masked, one with whole sub-chunks masked and one with only its
+   last neighbour live. Times #3 and #4 (f32 stash and
+   recompute) at MP2018 (16, 80, 96) and #5 at (8, 96, 96) in turns with
+   their plain versions. Then the main paths, the launch counts set to 0
+   just before each: ``Scann.predict_featurized`` serves a crystal of 40
+   sites with 80 neighbours (ladder (48, 96): #3's wide build) and one of
+   300 (ladder (384, 96): the per-layer model on #5's wide build), held to
+   the eager model; ``Trainer.fit`` trains a synthetic MP2018 model 2 epochs
+   in a (64, 48) and a (48, 96) bucket, every step by the "loop" route
+   (#4's wide build in both), with finite losses.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -1204,7 +1229,7 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
         worst = max(worst, hold(tag, [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)],
                                 failures))
         if relaunches:
-            scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C)
             differ = set()
             with torch.inference_mode():
                 for i in range(relaunches):
@@ -1240,13 +1265,13 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
     nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
               + kloop.loop_forward_bytes(cfm, B, M, N))
     bound, by, measured = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N))
-    scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
     out = {}
     with torch.inference_mode():
         kloop.check_supported(cfm, M, N)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         for C in clusters:
             C = kloop.cluster_size(B) if C is None else C
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C)
             ms, plain_ms = in_turns_ms(
                 lambda: kloop.reference_loop_forward(params, x, cfm),
                 lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 3, 10)
@@ -3597,6 +3622,369 @@ def phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card, device="cuda:
                for i, n in enumerate(names[1:4:2]) for m in SCHEDULES}}
 
 
+# ---- phase 17: wide neighbour lists in #5, #3 and #4 ----------------------------------------
+
+WIDE_ATTN_RTOL = 2.0 ** -7   # #5 on bfloat16 tensors: one bf16 ulp between two roundings
+
+
+def wide_masks(mask):
+    """Masked edges of a wide neighbour list in a [B, M, N] neighbour mask on
+    the card: structure 0's atom 0 with every neighbour masked, its atom 1
+    with the neighbours past the first 64 masked (N > 64: a wholly masked
+    sub-chunk of #3 and #5, one or more of #4) or past the first 32 (N <=
+    64: #4's last sub-chunk) and its atom 2 with only the last one live."""
+    N = mask.shape[2]
+    mask[0, 0] = 0.0
+    mask[0, 1, 64 if N > 64 else 32:] = 0.0
+    mask[0, 2, : N - 1] = 0.0
+    mask[0, 2, N - 1] = 1.0
+    return mask
+
+
+def wide_batch(rng, B, M, N, cfm, min_atoms=20, edges=True):
+    """``synthetic_batch`` whose atoms have up to N neighbours (indices may
+    repeat, as periodic images do), so that lists longer than a chunk are
+    live, with the masked edges of ``wide_masks`` (``edges``)."""
+    x = synthetic_batch(rng, B, M, N, use_ring=cfm.use_ring, n_atoms=cfm.n_atoms,
+                        min_atoms=min_atoms)
+    counts = x["atom_mask"][:, :, 0].sum(1).long().tolist()
+    for b, na in enumerate(counts):
+        k = torch.from_numpy(rng.integers(N // 2, N + 1, size=na)).cuda()
+        live = (torch.arange(N, device=k.device)[None, :] < k[:, None]).float()
+        x["neighbors"][b, :na] = torch.from_numpy(
+            rng.integers(0, na, size=(na, N)).astype(np.int32)).cuda()
+        x["neighbor_mask"][b, :na] = live
+        x["neighbor_weight"][b, :na] = torch.from_numpy(
+            rng.uniform(0.3, 3.0, size=(na, N)).astype(np.float32)).cuda() * live
+        x["neighbor_distance"][b, :na] = torch.from_numpy(
+            rng.uniform(0.8, 4.0, size=(na, N)).astype(np.float32)).cuda() * live
+    if edges:
+        wide_masks(x["neighbor_mask"])
+    return x
+
+
+def phase17_layers(mp2018, failures, card):
+    """#5's wide build against its plain version: one MP2018 layer at (8, 96,
+    96), (8, 64, 128), (4, 32, 256) and (8, 96, 72), SCANN+ and SCANN, on f32 tensors
+    (out, geometry, attention at the forward tolerances; a relaunch into
+    NaN-filled outputs bit for bit) and on bfloat16 tensors (within one bf16
+    ulp of the plain version; the f32 kernel's outputs rounded to bf16
+    alongside). Returns (worst abs error, times at (8, 96, 96) SCANN+)."""
+    from scann_tpu_torch.kernels import local_attention as kla
+
+    rng = np.random.default_rng(17)
+    D, H = mp2018.local_dim, mp2018.num_head
+    worst, timing = 0.0, None
+    cast = lambda a, dt: (*[t if not t.is_floating_point() else t.to(dt) for t in a[:5]],
+                          {k: v.to(dt) for k, v in a[5].items()}, *a[6:])
+    for g_update in (True, False):
+        what = "scann+" if g_update else "scann"
+        for B, M, N in ((8, 96, 96), (8, 64, 128), (4, 32, 256), (8, 96, 72)):
+            args = layer_inputs(rng, B, M, N, D, H, g_update)
+            wide_masks(args[3])
+            kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
+            tag = f"phase 17 #5 wide {what} B={B} M={M} N={N} D={D}"
+            with torch.inference_mode():
+                out, geo, attn = kla.fused_local_attention(*args)
+                torch.cuda.synchronize()
+                out0, geo0, attn0 = kla.reference_local_attention(*args)
+                again = kla._launch(*args, outputs=tuple(
+                    None if t is None else torch.full_like(t, float("nan"))
+                    for t in (out, geo if g_update else None, attn)))
+                args16 = cast(args, torch.bfloat16)
+                k16 = kla._launch(*args16)
+                k32 = kla._launch(*cast(args16, torch.float32))
+                p16 = kla.reference_layer_kernel(*args16)
+                torch.cuda.synchronize()
+            named = [("out", out, out0, ATOL), ("attn", attn, attn0, ATTN_ATOL)]
+            if g_update:
+                named.append(("geometry", geo, geo0, ATOL))
+            worst = max(worst, hold(tag, named, failures))
+            differ = [w for w, a, b in zip(("out", "geometry", "attn"), again,
+                                           (out, geo if g_update else None, attn))
+                      if a is not None and not torch.equal(a, b)]
+            if differ:
+                failures.append(f"{tag}: a relaunch into NaN-filled outputs differs in {differ}")
+            line = [f"{tag} bf16 tensors (a relaunch bit-identical: {not differ})"]
+            for i, name in enumerate(("out", "geometry", "attn")):
+                if k16[i] is None:
+                    continue
+                got, want = k16[i].float(), p16[i].float()
+                diff = (got - want).abs()
+                ok = bool((diff <= ATOL + WIDE_ATTN_RTOL * want.abs()).all())
+                same = torch.equal(k16[i], k32[i].to(torch.bfloat16))
+                line.append(f"{name} {diff.max().item():.2e} (= the f32 kernel rounded: {same})")
+                if not ok or not bool(torch.isfinite(got).all()):
+                    failures.append(f"{tag} bf16 {name}: max_abs {diff.max().item():.3e} "
+                                    f"beyond one bf16 ulp of the plain version")
+            print("  ".join(line), flush=True)
+            if (g_update, B, M, N) == (True, 8, 96, 96):
+                timing = time_local_attention(args, card)
+    return worst, timing
+
+
+def hold_wide_backward(label, cfm, p, x, y, rate, seed, failures, clusters=(1, 2, 4),
+                       relaunches=2):
+    """#4's wide build at every cluster size of ``clusters``, in its three
+    schedules (``_launch_backward(..., stash=)``): the f32 stash against the
+    plain f32 gradients, the recompute schedule bit-equal to it, the bf16
+    stash held as phase 16 holds it (``hold_bf16_stash``); ``relaunches``
+    further launches of the f32 stash and of recompute on a kept scratch
+    filled with NaN, then a constant, bit for bit. Returns the worst abs
+    error against the f32 plain version."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    S = kfwd.segment_count(x)
+    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N, S)
+    packed = kfwd.pack_params(p, cfm)
+    plain32 = kloop.reference_loop_train_grads(p, x, y, cfm, False, rate, seed)
+    plain16 = kloop.reference_loop_stash_train_grads(p, x, y, cfm, False, rate, seed,
+                                                      mode="bf16")
+    worst = 0.0
+    for C in clusters:
+        tag = (f"{label} B={B} M={M} N={N}{packed_label(x)} (atom block {block}, {C} blocks "
+               f"per structure) dropout {rate}")
+        got, differ = {}, set()
+        for mode in ("f32", None, "bf16"):
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, mode)
+            for i in range(1 + (relaunches if mode != "bf16" else 0)):
+                if i:
+                    for t in scratch.values():
+                        if t is not None:
+                            t.fill_(float("nan") if i % 2 else -3.0)
+                flat, pred = kloop._launch_backward(packed, x, cfm, y, None, True, False, rate,
+                                                    seed, 0, scratch, C, stash=mode)
+                g = (pred.view(B, -1), kbwd.grads_from_flat(flat, packed, cfm))
+                if i == 0:
+                    got[mode] = g
+                else:
+                    differ |= {f"{mode} {k}" for k in g[1] if not torch.equal(g[1][k],
+                                                                              got[mode][1][k])}
+                    if not torch.equal(g[0], got[mode][0]):
+                        differ.add(f"{mode} pred")
+            del scratch
+        torch.cuda.synchronize()
+        line = [tag]
+        worst = max(worst, hold_backward(tag, "f32 stash", *got["f32"][:1], plain32[0],
+                                         got["f32"][1], plain32[1], line, failures))
+        same = (torch.equal(got["f32"][0], got[None][0])
+                and all(torch.equal(got["f32"][1][k], got[None][1][k]) for k in got["f32"][1]))
+        line.append(f"recompute bit-equal to the f32 stash: {same}; {relaunches} relaunches of "
+                    f"each on NaN- and constant-filled scratch bit-identical: {not differ}")
+        print("  ".join(line), flush=True)
+        if not same:
+            failures.append(f"{tag}: the recompute schedule differs from the f32 stash")
+        if differ:
+            failures.append(f"{tag}: launches on the same inputs differ in {sorted(differ)}")
+        hold_bf16_stash(f"{tag} bf16 stash", got["bf16"], plain16, plain32, got[None], failures)
+    return worst
+
+
+def phase17_loops(mp2018, ptgp, failures, card):
+    """#3's and #4's wide builds against their plain versions at MP2018 (80,
+    96), (60, 128) and (96, 72), Pt/graphene (120, 96) and a packed wide slot
+    (MP2018-like crystals at capacity 96, N = 96), and #4's alone at MP2018
+    (64, 48) and (96, 40), where #3 runs narrow and #4's last sub-chunk of
+    an atom is short (16 and 8 rows), at 1, 2 and 4 blocks a structure, each
+    with NaN- and constant-filled relaunches; #4 in its three schedules at
+    dropout 0.1 with attention dropout. The holds run at
+    B = 8 (4 at N = 40, 48 and 72; the plain versions' time bounds the
+    phase's), the times at B = 16,
+    MP2018 (16, 80, 96), in turns with the plain versions. Returns (worst #3
+    error, worst #4 error, #3 timing, #4 timing)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(170)
+    mp_drop = dataclasses.replace(mp2018, use_drop=True)
+    ptgp_drop = dataclasses.replace(ptgp, use_drop=True)
+    cases = (("MP2018", mp_drop, wide_batch(rng, 8, 80, 96, mp2018)),
+             ("MP2018", mp_drop, wide_batch(rng, 8, 60, 128, mp2018)),
+             ("Pt/graphene", ptgp_drop, wide_batch(rng, 8, 120, 96, ptgp)),
+             ("MP2018 packed", mp_drop, pack_batch(wide_batch(rng, 12, 48, 96, mp2018), 96)),
+             ("MP2018", mp_drop, wide_batch(rng, 4, 64, 48, mp2018)),
+             ("MP2018", mp_drop, wide_batch(rng, 4, 96, 40, mp2018)),
+             ("MP2018", mp_drop, wide_batch(rng, 4, 96, 72, mp2018)))
+    worst3 = worst4 = 0.0
+    for name, cfm, x in cases:
+        t0 = time.time()
+        p = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
+        B = x["atom_mask"].shape[0]
+        S = max(kfwd.segment_count(x), 1)
+        y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
+        if kloop.is_wide(x["neighbors"].shape[2]):
+            worst3 = max(worst3, hold_loop_forward(f"phase 17 #3 wide {name}", cfm, p, x,
+                                                   failures, clusters=(1, 2, 4), relaunches=2))
+        worst4 = max(worst4, hold_wide_backward(f"phase 17 #4 wide {name}", cfm, p, x, y, 0.1,
+                                                7, failures))
+        print(f"phase 17 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
+              f"{time.time() - t0:.1f} s", flush=True)
+    x = wide_batch(rng, 16, 80, 96, mp2018)
+    fwd = time_loop_forward("MP2018 wide", mp2018, x, card)[kloop.cluster_size(16)]
+    params = init_params(mp2018, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(params, mp2018)
+    B, M, N = 16, 80, 96
+    y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+    bwd = {}
+    for mode in ("f32", None):
+        scratch = kloop.loop_backward_scratch(packed, mp2018, B, M, N, stash=mode)
+        ms, plain_ms = in_turns_ms(
+            lambda: kloop.reference_loop_train_grads(params, x, y, mp2018, False, 0.1, 7),
+            lambda: kloop._launch_backward(packed, x, mp2018, y, None, True, False, 0.1, 7, 0,
+                                           scratch, stash=mode), 3, 8)
+        del scratch
+        flops = kloop.loop_backward_flops(mp2018, B, M, N)
+        _, P = kbwd.grad_layout(packed)
+        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(mp2018, B, M, N))
+        print(f"scann_loop_backward (wide) at MP2018 B={B} M={M} N={N} L={mp2018.n_attention} "
+              f"({'the f32 stash' if mode else 'the recompute schedule'}; dropout 0.1, one-shot; "
+              f"timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
+              f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+        bwd[mode or "recompute"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                    "bound_by": by, "measured_bound_ms": measured,
+                                    "flops": flops}
+    timing4 = dict(bwd["f32"], schedule="f32", recompute_ms=bwd["recompute"]["ms"],
+                   recompute_plain_ms=bwd["recompute"]["plain_ms"])
+    return worst3, worst4, fwd, timing4
+
+
+def phase17_paths(mp2018, failures, card):
+    """The main paths at wide N, through the entry points a user calls, with
+    the launch counts set to 0 just before: ``Scann.predict_featurized`` of a
+    crystal whose ladder N is 96 (through #3's wide build) and of one with M
+    beyond #3's gate (the per-layer model through #5's wide build), held to
+    the eager model; then ``Trainer.fit`` for 2 epochs of a synthetic MP2018
+    model in a (64, 48) and a (48, 96) bucket, whose steps must all take the
+    "loop" route (#4's wide build in both) with finite losses. Returns
+    the launches of #3, #4 and #5 (wide) on these paths."""
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.pipeline import PackedBucket
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+    from scann_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(171)
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_wide_")
+    cfg = ScannConfig(model=mp2018,
+                      hyper=HyperConfig(batch_size=16, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                        epochs=2, seed=0, save_path=os.path.join(work, "run")),
+                      tpu=TpuConfig(max_buckets=2))
+    scann = Scann(cfg, device="cuda")
+    scann.init_params(0)
+
+    def record(na, nmax):
+        x = wide_batch(rng, 1, na, nmax, mp2018, min_atoms=na, edges=False)
+        return {k: v.cpu().numpy() for k, v in x.items()}
+
+    structs = [Structure(["Si"] * na, rng.uniform(0, 9, size=(na, 3)), np.eye(3) * 9.0)
+               for na in (40, 300)]
+    inputs = [record(40, 80), record(300, 80)]
+    counters = (kloop.launch_loop_forward, kla.fused_local_attention, kfwd.fused_scann_forward)
+    for c in counters:
+        c.launches = c.wide_launches = 0
+    answers = scann.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    loop_wide, layer_wide = (kloop.launch_loop_forward.wide_launches,
+                             kla.fused_local_attention.wide_launches)
+    print(f"phase 17 served: a crystal of 40 sites, 80 neighbours (ladder (48, 96), route "
+          f"{scann.trainer.eval_route(48, 96)}) and one of 300 sites (ladder (384, 96), route "
+          f"{scann.trainer.eval_route(384, 96)}): wide launches #3 {loop_wide}, #5 {layer_wide}, "
+          f"#1 {kfwd.fused_scann_forward.launches}", flush=True)
+    if (loop_wide, layer_wide) != (1, mp2018.n_attention):
+        failures.append(f"phase 17 served: wide launches #3 {loop_wide}, #5 {layer_wide}; "
+                        f"want 1 and {mp2018.n_attention}")
+    hyper = cfg.hyper
+    for (pred, ga), x, s in zip(answers, inputs, structs):
+        with torch.inference_mode():
+            want, _ = scann_forward(scann.params, {k: torch.from_numpy(v).cuda()
+                                                   for k, v in x.items()}, mp2018)
+        want = want[0, 0].item() * hyper.target_std + hyper.target_mean
+        if not (abs(pred - want) <= ATOL + RTOL * abs(want)) or len(ga) != len(s):
+            failures.append(f"phase 17 served {len(s)} sites: {pred} against the eager "
+                            f"model's {want}")
+    print(f"phase 17 served answers {[round(a[0], 6) for a in answers]} held to the eager "
+          f"model at rtol {RTOL} atol {ATOL}", flush=True)
+
+    def bucket(n, M, N):
+        x = {k: v.cpu().numpy() for k, v in wide_batch(rng, n, M, N, mp2018).items()}
+        return PackedBucket(x, rng.normal(size=n).astype(np.float32), np.arange(n))
+
+    train = [bucket(32, 64, 48), bucket(32, 48, 96)]
+    valid = [bucket(16, 64, 48), bucket(16, 48, 96)]
+    trainer = Trainer(cfg, device="cuda", workdir=os.path.join(work, "fit"))
+    routes = [trainer.train_route(*b.shape) for b in train]
+    kbwd.reset_counts(kloop.launch_loop_backward)
+    kbwd.reset_counts(kbwd.launch_scann_backward)
+    for c in counters:
+        c.launches = c.wide_launches = 0
+    t0 = time.time()
+    hist = trainer.fit(train, valid, epochs=2, log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    steps = 2 * sum(-(-b.num_structures // hyper.batch_size) for b in train)
+    wide_steps = 2 * sum(-(-b.num_structures // hyper.batch_size) for b in train
+                         if kloop.is_wide_backward(b.shape[1]))
+    c4 = kloop.launch_loop_backward
+    print(f"phase 17 trained 2 epochs in buckets {[b.shape for b in train]} (routes {routes}) "
+          f"in {wall:.1f} s: {steps} steps, #4 launches {c4.launches} ({c4.wide_launches} "
+          f"wide; {mode_counts(c4)}), #2 {kbwd.launch_scann_backward.launches}; losses "
+          f"{[round(v, 5) for v in hist['loss']]}  [{card}]", flush=True)
+    if (routes != ["loop", "loop"] or c4.launches != steps or c4.wide_launches != wide_steps
+            or kbwd.launch_scann_backward.launches):
+        failures.append(f"phase 17 training: routes {routes}, #4 launches {c4.launches} "
+                        f"({c4.wide_launches} wide) for {steps} steps ({wide_steps} wide)")
+    if not all(np.isfinite(hist["loss"])):
+        failures.append(f"phase 17 training: losses {hist['loss']}")
+    return {"scann_loop_wide": loop_wide, "scann_loop_backward_wide": c4.wide_launches,
+            "local_attention_wide": layer_wide}
+
+
+def phase17(mp2018, ptgp, failures, card):
+    """Phase 17: wide neighbour lists. Returns the kernels line's rows of the
+    three wide builds."""
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    err5, t5 = phase17_layers(mp2018, failures, card)
+    t1 = time.time()
+    err3, err4, t3, t4 = phase17_loops(mp2018, ptgp, failures, card)
+    t2 = time.time()
+    launches = phase17_paths(mp2018, failures, card)
+    print(f"phase 17 wall (s): #5 {t1 - t0:.1f}, #3 and #4 {t2 - t1:.1f}, main paths "
+          f"{time.time() - t2:.1f}", flush=True)
+    rows = []
+    for name, source, replaces, err, t in (
+            ("scann_loop_wide", "scann_tpu_torch/csrc/scann_loop_wide.cu", kloop.REPLACES,
+             err3, t3),
+            ("scann_loop_backward_wide", "scann_tpu_torch/csrc/scann_loop_backward_wide.cu",
+             kloop.BACKWARD_REPLACES, err4, t4),
+            ("local_attention_wide", "scann_tpu_torch/csrc/local_attention_wide.cu",
+             kla.REPLACES, err5, t5)):
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": err, "library_ms": None,
+                     **{k: v for k, v in t.items() if k != "cluster"}})
+    return rows
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3618,17 +4006,19 @@ def main():
                              "scann_tpu_torch", "chip_smoke_exec_cache")
     shutil.rmtree(cache_dir, ignore_errors=True)
     cache = _build.set_build_dir(cache_dir)
-    _build.build_all(_build.SOURCES + _build.PROBES, force=True)
-    print(f"built {list(_build.SOURCES + _build.PROBES)} with nvcc in {time.time() - t0:.1f} s "
+    _build.build_all(_build.SOURCES + _build.WIDE_SOURCES + _build.PROBES, force=True)
+    print(f"built {list(_build.SOURCES + _build.WIDE_SOURCES + _build.PROBES)} with nvcc in "
+          f"{time.time() - t0:.1f} s "
           f"(one nvcc per source, in parallel) into the build cache "
           f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
           f"{exec_cache.env_fingerprint()})", flush=True)
     for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
-                 "scann_loop_backward_bf16"):
+                 "scann_loop_backward_bf16", "scann_loop", "local_attention",
+                 *_build.WIDE_SOURCES):
         for entry, regs, stores, loads in _build.kernel_resources(name):
             if "reduce_rows" not in entry and "selftest" not in entry:
                 print(f"{name}.cu: {regs} registers a thread, {stores} bytes of spill stores, "
-                      f"{loads} bytes of spill loads (ptxas -v)", flush=True)
+                      f"{loads} bytes of spill loads (ptxas -v; {entry[-24:]})", flush=True)
 
     failures = []
     max_err = 0.0
@@ -3910,6 +4300,10 @@ def main():
         {2: bwd_err["backward"], 4: loop_bwd_err}, failures, card)
 
     lap("16")
+    # ---- phase 17: wide neighbour lists in #5, #3 and #4 -------------------------------
+    torch.cuda.empty_cache()
+    wide_rows = phase17(mp2018, ptgp, failures, card)
+    lap("17")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -3969,7 +4363,7 @@ def main():
         "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }, *bf16_rows, *stash_rows]
+    }, *bf16_rows, *stash_rows, *wide_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "
@@ -3986,19 +4380,24 @@ def main():
     return 0
 
 
-def backward_ab(root):
-    """``--backward-ab ROOT``: one turn of an A/B comparison of the two
-    backward kernels between two checkouts on one card. Imports
-    ``scann_tpu_torch`` from the checkout ROOT, builds #2 and #4 there, and
-    times one-shot launches at dropout 0.1 through the public launchers, in
-    the schedule that checkout picks for this environment: #2 at QM9 (128,
-    32, 16) and #4 at MP2018 (64, 96, 32), each 3 warm-up and 10 timed
-    launches (CUDA events). Prints the medians as one JSON line. Run the
-    turns A, B, B, A, each a process of its own."""
+def backward_ab(root, out_path=None):
+    """``--backward-ab ROOT [OUT]``: one turn of an A/B comparison of the
+    narrow builds of #2, #3, #4 and #5 between two checkouts on one card.
+    Imports ``scann_tpu_torch`` from the checkout ROOT (its kernels built
+    there first) and times each kernel at its main shape: #2 at QM9 (128,
+    32, 16) and #4 at MP2018 (64, 96, 32), one-shot launches at dropout 0.1
+    through the public launchers in the schedule that checkout picks for
+    this environment; #3 at MP2018 (64, 96, 32) and #5 at one MP2018 layer
+    (64, 96, 32), SCANN+; each 3 warm-up and 10 timed launches (CUDA
+    events). Prints the medians as one JSON line; with OUT, saves every
+    kernel's outputs there (``torch.save``), so that two checkouts' outputs
+    can be held bit for bit. Run the turns A, B, B, A, each a process of its
+    own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -4010,11 +4409,11 @@ def backward_ab(root):
         return 1
     rng = np.random.default_rng(17)
     out = {"root": root, "env": {k: v for k, v in os.environ.items() if "STASH" in k}}
+    saved = {}
     mp2018 = crystal_models()[0]
+    mp_x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
     for name, cfm, x in (("scann_backward", qm9_config(), synthetic_batch(rng, 128, 32, 16)),
-                         ("scann_loop_backward", mp2018,
-                          synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms,
-                                          min_atoms=20))):
+                         ("scann_loop_backward", mp2018, mp_x), ("scann_loop", mp2018, mp_x)):
         packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17), "cuda"),
                                   cfm)
         B, M = x["atomic"].shape[:2]
@@ -4023,19 +4422,31 @@ def backward_ab(root):
         if name == "scann_backward":
             launch = lambda: kbwd.launch_scann_backward(packed, x, cfm, y, None, True, False,
                                                         0.1, 7)
-        else:
+        elif name == "scann_loop_backward":
             scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
             launch = lambda: kloop.launch_loop_backward(packed, x, cfm, y, None, True, False,
                                                         0.1, 7, 0, scratch)
+        else:
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
+            launch = lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, None, scratch)
         out[name] = statistics.median(cuda_times(launch, 10, warmup=3))
+        saved[name] = [t.cpu() for t in launch()]
+    args = layer_inputs(np.random.default_rng(7), 64, 96, 32, mp2018.local_dim,
+                        mp2018.num_head, True)
+    with torch.inference_mode():
+        out["local_attention"] = statistics.median(cuda_times(lambda: kla._launch(*args), 10,
+                                                              warmup=3))
+        saved["local_attention"] = [t.cpu() for t in kla._launch(*args)]
     out["card"] = card_line()
+    if out_path:
+        torch.save(saved, out_path)
     print(json.dumps(out), flush=True)
     return 0
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--backward-ab"]:
-        sys.exit(backward_ab(sys.argv[2]))
+        sys.exit(backward_ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--phase13-rank"]:
         rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
         sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,

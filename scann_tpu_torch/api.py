@@ -639,16 +639,18 @@ class Scann:
         shapes once on dummy inputs of ``batch_size`` structures, so the
         first requests do not pay the build or the first launch of the
         kernel that rung takes. On CUDA every kernel is built (or loaded
-        from the build cache) first, one nvcc each, all at once. Served
+        from the build cache) first, one nvcc each, all at once: the narrow
+        builds, and the wide builds that a rung's route takes. Served
         batches come at any size, so one structure does. Returns the rungs
         run."""
         self._require_state("warmup_serving")
+        base_m = self.config.tpu.atoms_pad_multiple
+        base_n = self.config.tpu.neighbors_pad_multiple
         if self.device.type == "cuda":
             from scann_tpu_torch.kernels import _build
 
-            _build.build_all()
-        base_m = self.config.tpu.atoms_pad_multiple
-        base_n = self.config.tpu.neighbors_pad_multiple
+            rungs = {(_ladder(int(m), base_m), _ladder(int(n), base_n), 0) for m, n in shapes}
+            _build.build_all(_build.SOURCES + self.trainer.wide_libraries(sorted(rungs)))
         done: List[Tuple[int, int]] = []
         for m, n in shapes:
             rung = (_ladder(int(m), base_m), _ladder(int(n), base_n))

@@ -39,8 +39,13 @@
 //   one warp per (atom, head), the context one thread per (atom, column). A
 //   chunk's geometry (or its distance RBF) and its neighbours' states,
 //   gathered from the centers in global memory, arrive by cp.async.
+// - Wide neighbour lists (64 < N <= 256, the wide build of
+//   local_attention_wide.cu): one atom at a time through fwd_atom_wide, its
+//   rows in sub-chunks of 64, its energies [N, H] in shared memory (4 KiB at
+//   N = 128, f32) and its keys in a global scratch [blocks, N, D] that the
+//   block writes and reads back through L2 for the context.
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
-//   lane), N <= 64 (one atom's neighbours fit a chunk), K <= D, D % H == 0.
+//   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
@@ -75,7 +80,7 @@ struct Args {
 // Shared-memory plan of one atom block, in floats: the queries (then the
 // outputs) and, for SCANN+, cw [AB, D + 4] each; the work region, which
 // holds the block's centers [AB, D + 4] for the per-atom products and then a
-// chunk's buffers (fwd_chunk_floats).
+// chunk's buffers (fwd_chunk_floats; wide: fwd_wide_chunk_floats).
 struct Plan {
   int atom_block, chunk_atoms, work, total;
 };
@@ -85,7 +90,8 @@ inline Plan plan_for(int AB, int N, int D, int H, int g_update) {
   p.atom_block = AB;
   const int fit = kFwdMaxChunkRows / N;
   p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;
-  const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);
+  const int chunk = N > kFwdMaxChunkRows ? fwd_wide_chunk_floats(N, D, H)
+                                         : fwd_chunk_floats(p.chunk_atoms * N, D, H);
   const int centers = AB * (D + 4);
   p.work = chunk > centers ? chunk : centers;
   p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;
@@ -165,14 +171,16 @@ __device__ __forceinline__ void stage_chunk(const Args<T>& a, float* sA, const T
 }
 
 // one block per SM (its shared memory takes most of the SM), so the compiler
-// may spend up to 255 registers a thread
-template <typename T>
+// may spend up to 255 registers a thread. kWide: N > kFwdMaxChunkRows, one
+// atom at a time through fwd_atom_wide (its own build, local_attention_wide.cu),
+// with the block's keys of one atom in wide_keys [blocks, N, D] (f32).
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-local_attention_kernel(const Args<T> a) {
+local_attention_kernel(const Args<T> a, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
-  const int lds = D + 4, rows_max = CA * N, q4 = D / 4;
+  const int lds = D + 4, rows_max = kWide ? kFwdMaxChunkRows : CA * N, q4 = D / 4;
   float* sQ = smem;                                    // query, then out   [AB, D + 4]
   float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
   float* work = sW + (a.g_update ? AB * lds : 0);      // centers, then:
@@ -210,13 +218,27 @@ local_attention_kernel(const Args<T> a) {
   });
   __syncthreads();
 
-  for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
-    const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-    stage_chunk(a, sA, centers_b, nbr + base,
-                geometry + (size_t)base * (a.g_update ? D : a.K), ca * N);
-    fwd_chunk(cd, a.w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
-              nmask + base, nweight + base, a.g_update ? geo_out + (size_t)base * D : nullptr,
-              attn + (size_t)base * H, [](int, int, int) { return 1.0f; });
+  if constexpr (kWide) {
+    float* keys = wide_keys + (size_t)blockIdx.x * N * D;
+    for (int m = ab0; m < ab0 + ab; ++m) {
+      const size_t base = (size_t)m * N;
+      fwd_atom_wide(cd, a.w, [&](int n0, int rows) {
+                      stage_chunk(a, sA, centers_b, nbr + base + n0,
+                                  geometry + (base + n0) * (a.g_update ? D : a.K), rows);
+                    },
+                    sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
+                    nweight + base, a.g_update ? geo_out + base * D : nullptr, attn + base * H,
+                    keys, [](int, int) { return 1.0f; });
+    }
+  } else {
+    for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
+      const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+      stage_chunk(a, sA, centers_b, nbr + base,
+                  geometry + (size_t)base * (a.g_update ? D : a.K), ca * N);
+      fwd_chunk(cd, a.w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
+                nmask + base, nweight + base, a.g_update ? geo_out + (size_t)base * D : nullptr,
+                attn + (size_t)base * H, [](int, int, int) { return 1.0f; });
+    }
   }
 
   for (int i = tid; i < ab * q4; i += kThreads) {
@@ -232,7 +254,7 @@ local_attention_kernel(const Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool kWide>
 int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_t stream) {
   Args<T> a;
   int i = 0;
@@ -254,13 +276,17 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
   a.out = (T*)ptrs[i++];
   a.geo_out = (T*)ptrs[i++];
   a.attn = (T*)ptrs[i++];
+  float* wide_keys = (float*)ptrs[i++];
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4]; a.K = dims[5];
   a.g_update = dims[6];
   const int n_sm = dims[7];
   a.atom_block = dims[8]; a.chunk_atoms = dims[9];
   a.dk = scalars[0];
 
-  if (a.B < 1 || a.M < 1 || a.N < 1 || a.N > kFwdMaxChunkRows || a.D < 4 || a.D > 128 ||
+  // the narrow build takes N <= kFwdMaxChunkRows, the wide one the rest, with
+  // its key scratch
+  if (a.B < 1 || a.M < 1 || a.N < 1 || (a.N > kFwdMaxChunkRows) != kWide ||
+      a.N > kWideMaxN || (wide_keys != nullptr) != kWide || a.D < 4 || a.D > 128 ||
       (a.D & 3) || a.H < 1 || a.D % a.H || a.K < 1 || a.K > a.D || n_sm < 1)
     return kErrShape;
   const Plan plan = make_plan(a.B, a.M, a.N, a.D, a.H, a.g_update, n_sm);
@@ -271,38 +297,53 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
     return kErrShape;
   const long long blocks = (long long)a.B * ((a.M + a.atom_block - 1) / a.atom_block);
   if (blocks > 0x7fffffffLL) return kErrShape;
-  cudaError_t err = cudaFuncSetAttribute(local_attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(local_attention_kernel<T, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  local_attention_kernel<T><<<(unsigned)blocks, kThreads, bytes, stream>>>(a);
+  local_attention_kernel<T, kWide><<<(unsigned)blocks, kThreads, bytes, stream>>>(a, wide_keys);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
-// bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn (every
+// bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn, the wide
+// key scratch [blocks, N, D] (f32; null in the narrow build) (every other
 // float tensor f32 for local_attention_launch, bfloat16 for
 // local_attention_bf16_launch);
 // dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's
 // plan: atom block, atoms per chunk, shared bytes per block; scalars: dk.
-// The order must match scann_tpu_torch/kernels/local_attention.py.
-extern "C" int local_attention_launch(void* const* ptrs, const int* dims, const float* scalars,
-                                      void* stream) {
-  return launch<float>(ptrs, dims, scalars, (cudaStream_t)stream);
+// The order must match scann_tpu_torch/kernels/local_attention.py. This
+// file builds the narrow kernels (N <= kFwdMaxChunkRows);
+// local_attention_wide.cu includes it with SCANN_LOCAL_ATTENTION_WIDE defined
+// and builds the wide ones (local_attention_wide_launch,
+// local_attention_wide_bf16_launch), at the first wide launch.
+#ifndef SCANN_LOCAL_ATTENTION_WIDE
+#define SCANN_LA_F32(x) local_attention_##x
+#define SCANN_LA_BF16(x) local_attention_bf16_##x
+constexpr bool kWideBuild = false;
+#else
+#define SCANN_LA_F32(x) local_attention_wide_##x
+#define SCANN_LA_BF16(x) local_attention_wide_bf16_##x
+constexpr bool kWideBuild = true;
+#endif
+
+extern "C" int SCANN_LA_F32(launch)(void* const* ptrs, const int* dims, const float* scalars,
+                                   void* stream) {
+  return launch<float, kWideBuild>(ptrs, dims, scalars, (cudaStream_t)stream);
 }
 
-extern "C" int local_attention_bf16_launch(void* const* ptrs, const int* dims,
-                                           const float* scalars, void* stream) {
-  return launch<__nv_bfloat16>(ptrs, dims, scalars, (cudaStream_t)stream);
+extern "C" int SCANN_LA_BF16(launch)(void* const* ptrs, const int* dims, const float* scalars,
+                                    void* stream) {
+  return launch<__nv_bfloat16, kWideBuild>(ptrs, dims, scalars, (cudaStream_t)stream);
 }
 
-extern "C" const char* local_attention_error_string(int code) {
+extern "C" const char* SCANN_LA_F32(error_string)(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes, or a plan not the kernel's";
   return cudaGetErrorString((cudaError_t)code);
 }
 
-extern "C" const char* local_attention_bf16_error_string(int code) {
-  return local_attention_error_string(code);
+extern "C" const char* SCANN_LA_BF16(error_string)(int code) {
+  return SCANN_LA_F32(error_string)(code);
 }

@@ -16,7 +16,9 @@
 // neighbours one warp per (atom, head) (lane n holds neighbours n and n + 32,
 // reductions by shuffles in a fixed tree), which also folds the neighbour
 // mask into the attention it stores; the context one thread per (atom,
-// column) walking the neighbours in order; the geometry LayerNorm four rows a
+// column) walking the neighbours in order (a wider list: fwd_atom_wide, one
+// atom's rows in sub-chunks with its energies [N, H] kept for wide_softmax
+// of scann_mma.cuh and its keys in global scratch for the context); the geometry LayerNorm four rows a
 // warp with their shuffles interleaved; the staging in float4 (cp.async for
 // the geometry). Every sum runs
 // in a fixed order, so a launch repeats bit for bit.
@@ -51,6 +53,13 @@
 namespace scann {
 
 constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
+
+// The chunk region of the wide forwards (N > kFwdMaxChunkRows, one atom at a
+// time): a sub-chunk's buffers and the atom's energy row [N, H] in place of
+// the chunk's attention.
+__host__ __device__ inline int fwd_wide_chunk_floats(int N, int D, int H) {
+  return kFwdMaxChunkRows * (2 * D + 4) + kFwdMaxChunkRows * (D + 4) + round4(N * H);
+}
 
 // The sizes fwd_chunk reads: the whole-model forwards take them from their
 // ForwardArgs (forward_chunk_dims), the per-layer kernel fills them itself.
@@ -153,6 +162,107 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
     }
   }
   if (a.g_update) cp_async_wait_all();
+  __syncthreads();
+}
+
+// The row part of fwd_chunk (the same code, which fwd_chunk keeps inline)
+// for a sub-chunk of `rows` staged rows of one atom's wide neighbour list:
+// the SCANN+ geometry update (geo_out, or null, takes LN_g's output) or the
+// SCANN filter, the key input in sU and the keys in the neighbour half of
+// sA. sCW [atoms, ldq] holds the center terms, row r belonging to atom r /
+// a.N, which is 0 for every row of a sub-chunk (rows < a.N). nweight and
+// geo_out point at the first row. Ends with a barrier.
+template <bool kBf16 = false, typename T>
+__device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWeightsT<T>& w,
+                                               int rows, float* sA, float* sU, const float* sCW,
+                                               int ldq, const T* nweight, T* geo_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int N = a.N, D = a.D, lda = 2 * D + 4, ldu = D + 4;
+  if (a.g_update) {
+    // u = cw + [geo | ns] @ Wfg[D:3D] + b; geo' = LN_g(swish(u) + geo); kin = ns * geo'
+    mma_gemm<kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+      const float* cw = sCW + (r / N) * ldq + c;
+      const T* b = w.bfg + c;
+      store4(sU + r * ldu + c,
+             make_float4(cw[0] + v.x + to_float(b[0]), cw[1] + v.y + to_float(b[1]),
+                         cw[2] + v.z + to_float(b[2]), cw[3] + v.w + to_float(b[3])));
+    });
+    __syncthreads();
+    float g[4], bt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i;
+      g[i] = d < D ? to_float(w.lng_s[d]) : 0.f;
+      bt[i] = d < D ? to_float(w.lng_b[d]) : 0.f;
+    }
+    // four rows of the warp together: r0, r0 + kWarps, ...
+    constexpr int kRows = 4;
+    for (int r0 = warp; r0 < rows; r0 += kRows * kWarps) {
+      float v[kRows][4];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int r = r0 + j * kWarps;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          v[j][i] = d < D && r < rows ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
+        }
+      }
+      warp_layer_norm_rows(v, D, g, bt, lane);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int r = r0 + j * kWarps;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) {
+            if (geo_out) geo_out[(size_t)r * D + d] = from_float<T>(v[j][i]);
+            sU[r * ldu + d] = sA[r * lda + D + d] * v[j][i];
+          }
+        }
+      }
+    }
+  } else {
+    // kin = ns * (swish(rbf(d) @ Wfg + b) * weight)
+    mma_gemm<kBf16>(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
+      const float* ns = sA + r * lda + D + c;
+      const T* b = w.bfg + c;
+      const float wt = to_float(nweight[r]);
+      store4(sU + r * ldu + c,
+             make_float4(ns[0] * (swishf(v.x + to_float(b[0])) * wt),
+                         ns[1] * (swishf(v.y + to_float(b[1])) * wt),
+                         ns[2] * (swishf(v.z + to_float(b[2])) * wt),
+                         ns[3] * (swishf(v.w + to_float(b[3])) * wt)));
+    });
+  }
+  __syncthreads();
+  // key = kin @ Wk + bk, into the neighbour half of sA
+  mma_gemm<kBf16>(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+    const T* b = w.bk + c;
+    store4(sA + r * lda + D + c, make_float4(v.x + to_float(b[0]), v.y + to_float(b[1]),
+                                             v.z + to_float(b[2]), v.w + to_float(b[3])));
+  });
+  __syncthreads();
+}
+
+// out = LN(ctx + query) of ca atoms whose rows of sQ [ca, ldq] hold ctx +
+// query, one warp per atom (fwd_chunk's tail, for fwd_atom_wide). Ends with a
+// barrier.
+template <typename T>
+__device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, float* sQ,
+                                             int ldq, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int at = warp; at < ca; at += kWarps) {
+    float* row = sQ + at * ldq;
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
+    warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+  }
   __syncthreads();
 }
 
@@ -314,6 +424,53 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
       if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
   }
   __syncthreads();
+}
+
+// The wide form of fwd_chunk for one atom whose N neighbours (64 < N <=
+// kWideMaxN) exceed a chunk: its rows go through fwd_chunk_rows in sub-chunks
+// of at most kFwdMaxChunkRows, stage(n0, rows) staging rows [n0, n0 + rows)
+// of the atom into sA (ending with a barrier), each sub-chunk's energies into
+// the atom's energy row sE [N, H] and its keys to keys [N, D] (global scratch
+// of the block, read back through L2); then wide_softmax over all N, which
+// stores attn_out and folds the dropout and the neighbour mask into sE, and
+// the context, one thread per column walking the N neighbours in order, as
+// fwd_chunk's does. sCW and sQ are the atom's rows; nmask, nweight, geo_out
+// and attn_out point at the atom's first row; drop(n, h) takes the
+// neighbour's index in the atom. Ends with a barrier.
+template <bool kBf16 = false, typename T, typename Stage, typename Drop>
+__device__ __forceinline__ void fwd_atom_wide(const ChunkDims& a, const LayerWeightsT<T>& w,
+                                              Stage stage, float* sA, float* sU, float* sE,
+                                              const float* sCW, float* sQ, const T* nmask,
+                                              const T* nweight, T* geo_out, T* attn_out,
+                                              float* keys, Drop drop) {
+  const int tid = threadIdx.x, N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4;
+  const int q4 = D / 4;
+  for (int n0 = 0; n0 < N; n0 += kFwdMaxChunkRows) {
+    const int rows = min(kFwdMaxChunkRows, N - n0);
+    stage(n0, rows);
+    fwd_chunk_rows<kBf16>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
+                          geo_out ? geo_out + (size_t)n0 * D : nullptr);
+    warp_energies<kBf16>(sQ, sA + D, lda, nmask + n0, sE + n0 * H, rows, H, hd, a.dk);
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      store4(keys + (size_t)(n0 + r) * D + c, *reinterpret_cast<const float4*>(sA + r * lda + D + c));
+    }
+    __syncthreads();
+  }
+  wide_softmax(sE, N, H, [&](int n, int h, float pr) {
+    if (attn_out) attn_out[(size_t)n * H + h] = from_float<T>(pr);
+    sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * to_float(nmask[n]);
+  });
+  __syncthreads();
+  for (int d = tid; d < D; d += kThreads) {
+    const float* e = sE + d / hd;
+    float s = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * D + d);
+    sQ[d] = s + sQ[d];
+  }
+  __syncthreads();
+  fwd_out_norm(w, 1, sQ, 0, D);
 }
 
 // SCANN+ geometry embedding of atoms [m_lo, m_hi) of one structure, chunk by

@@ -41,6 +41,12 @@
 //   mma.sync products, the softmax one warp per (atom, head), the context
 //   one thread per (atom, column); the SCANN+ geometry is streamed from and
 //   to the global scratch.
+// - Wide neighbour lists (64 < N <= 256; the wide build, scann_loop_wide.cu):
+//   one atom at a time through fwd_atom_wide, its rows in sub-chunks of 64,
+//   its energies [N, H] in shared memory (8 KiB at N = 256) for a softmax over
+//   all N, its keys in a per-block global scratch [B * C, N, D] read back for
+//   the context; the plan's chunk region is a sub-chunk's buffers and that
+//   energy row, so M reaches 225-235 at D = 128 for every N up to 256.
 // - The readout (after_Lc, GA queries and keys, the scores, the pooled
 //   context, the head) runs over all M atoms in every block of the cluster,
 //   in the same order, so every block has the scores; rank 0 writes pred and
@@ -72,22 +78,23 @@ constexpr int kMaxAtomBlock = 32;
 constexpr int kMaxCluster = 4;
 
 // Shared-memory plan, in floats: centers [M, wd]; two per-block slots [AB,
-// wd + 4]; the work region: a chunk's buffers, the embedding's staging, the
-// ResidualNorm's h2 [AB, wd + 4], or the readout's [AB, wd] block and
-// vectors.
+// wd + 4]; the work region: a chunk's buffers (wide: a sub-chunk's and the
+// atom's energy row), the embedding's staging, the ResidualNorm's h2 [AB, wd
+// + 4], or the readout's [AB, wd] block and vectors.
 struct Plan {
   int wd, lds, rows, lde, ldf, work, offQ, offW, offWork, total;
 };
 
+template <bool kWide>
 __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   Plan p;
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.lds = p.wd + 4;
-  p.rows = a.chunk_atoms * a.N;
+  p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
-  int w = fwd_chunk_floats(p.rows, a.D, a.H);
+  int w = kWide ? fwd_wide_chunk_floats(a.N, a.D, a.H) : fwd_chunk_floats(p.rows, a.D, a.H);
   const int embed = AB * (p.lde + p.ldf);
   const int residual = AB * p.lds;
   const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
@@ -104,12 +111,20 @@ __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   return p;
 }
 
-template <bool kBf16>
+// The plan of either build, by N (host side).
+inline Plan plan_of(const ForwardArgs& a) {
+  return a.N > kFwdMaxChunkRows ? make_plan<true>(a) : make_plan<false>(a);
+}
+
+// kWide: N > kFwdMaxChunkRows (the wide build, scann_loop_wide.cu), one atom
+// at a time through fwd_atom_wide with the block's keys in wide_keys [N, D]
+// (global, one slice a block).
+template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-scann_loop_forward_kernel(const ForwardArgs a, const int C) {
+scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan P = make_plan(a);
+  const Plan P = make_plan<kWide>(a);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
@@ -174,7 +189,17 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
   }
 
   // ---- SCANN+ geometry embedding of this block's atoms -> global scratch --
-  if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
+  if constexpr (kWide) {
+    // row by row: rows [m_lo N, m_hi N) as atoms of one neighbour each, in
+    // sub-chunks of kFwdMaxChunkRows
+    ForwardArgs by_row = a;
+    by_row.N = 1;
+    by_row.chunk_atoms = kFwdMaxChunkRows;
+    if (a.g_update)
+      fwd_embed_geometry<kBf16>(by_row, sA, sU, ndist, nweight, geo_b, m_lo * N, m_hi * N);
+  } else {
+    if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
+  }
   cluster_barrier();
   load_centers();
   cluster_barrier();
@@ -197,17 +222,35 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C) {
       });
       __syncthreads();
 
-      for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
-        const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-        fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
-        fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
-                  sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
-                  l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
-                  [&](int at, int n, int h) {
-                    return scann_philox::mask_value(
-                        a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
-                        a.attn_threshold, a.attn_scale);
-                  });
+      if constexpr (kWide) {
+        for (int m = ab0; m < ab0 + ab; ++m) {
+          const int base = m * N;
+          fwd_atom_wide<kBf16, float>(
+              forward_chunk_dims(a), w,
+              [&](int n0, int rows) {
+                fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base + n0, rows);
+              },
+              sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
+              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+              wide_keys + (size_t)blockIdx.x * N * D, [&](int n, int h) {
+                return scann_philox::mask_value(a.seed, mol, 1 + a.L + l,
+                                                (unsigned)((base + n) * H + h),
+                                                a.attn_threshold, a.attn_scale);
+              });
+        }
+      } else {
+        for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
+          const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+          fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
+          fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
+                    sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
+                    l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+                    [&](int at, int n, int h) {
+                      return scann_philox::mask_value(
+                          a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                          a.attn_threshold, a.attn_scale);
+                    });
+        }
       }
 
       // ResidualNorm of the block: next = LN(out + swish(out @ W1 + b1) @ W2 + b2)
@@ -369,74 +412,98 @@ void set_dims(ForwardArgs& a, const int* dims) {
 
 }  // namespace
 
+#ifndef SCANN_LOOP_WIDE
 extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
   ForwardArgs a = {};
   set_dims(a, dims);
-  return make_plan(a).total * (int)sizeof(float);
+  return plan_of(a).total * (int)sizeof(float);
 }
 
+#endif
+
+// The pointers, sizes, scalars and random-stream words are those of
+// unpack_forward_args (scann_common.cuh), followed by pointer 49, the
+// next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
+// unless packed), pointer 51, the wide key scratch [B * C, N, D] (the wide
+// build; null in the narrow one), size 20, the atom block, size 21, the
+// segments per slot S, size 22, the bf16 operand mode (0 or 1; the wide build
+// takes 0), and size 23, the blocks per structure C; in the order
+// scann_tpu_torch/kernels/scann_loop.py passes them. Size 17 (the chunk
+// buffer) is the work region of make_plan. This file builds the narrow
+// kernels (N <= kFwdMaxChunkRows); scann_loop_wide.cu includes it with
+// SCANN_LOOP_WIDE defined and builds the wide one
+// (scann_loop_forward_wide_launch, scann_loop_forward_wide_max_clusters), at
+// the first wide launch.
+#ifndef SCANN_LOOP_WIDE
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_##x
+constexpr bool kWideBuild = false;
+#else
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_##x
+constexpr bool kWideBuild = true;
+#endif
+
 // How many clusters of `cluster` blocks with this shape's shared memory the
-// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
-extern "C" int scann_loop_forward_max_clusters(const int* dims, int cluster) {
+// card runs at once (cudaOccupancyMaxActiveClusters) in this build's f32
+// kernel, or minus the CUDA error.
+extern "C" int SCANN_LOOP_ENTRY(max_clusters)(const int* dims, int cluster) {
   ForwardArgs a = {};
   set_dims(a, dims);
-  const int bytes = make_plan(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel<false>,
+  const int bytes = make_plan<kWideBuild>(a).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel<false, kWideBuild>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel<false>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel<false, kWideBuild>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// The pointers, sizes, scalars and random-stream words are those of
-// unpack_forward_args (scann_common.cuh), followed by pointer 49, the
-// next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
-// unless packed), size 20, the atom block, size 21, the segments per slot S,
-// size 22, the bf16 operand mode (0 or 1), and size 23, the blocks per
-// structure C; in the order scann_tpu_torch/kernels/scann_loop.py passes them.
-// Size 17 (the chunk buffer) is the work region of make_plan.
-extern "C" int scann_loop_forward_launch(void* const* ptrs, const int* dims,
-                                         const float* scalars, const unsigned int* rng,
-                                         void* stream) {
+extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, const float* scalars,
+                                        const unsigned int* rng, void* stream) {
   ForwardArgs a;
   unpack_forward_args(a, ptrs, dims, scalars, rng);
   a.next_centers = (float*)ptrs[49];
   a.seg = (const int*)ptrs[50];
+  float* wide_keys = (float*)ptrs[51];
   a.atom_block = dims[20];
   a.S = dims[21];
   const int bf16 = dims[22];
   const int C = dims[23];
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
+  // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk, its
+  // key scratch, f32 operands
+  if ((a.N > kFwdMaxChunkRows) != kWideBuild || (wide_keys != nullptr) != kWideBuild ||
+      (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1 || bf16)))
+    return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
-      a.chunk_atoms * a.N > kFwdMaxChunkRows || a.atom_block < 1 ||
+      (!kWideBuild && a.chunk_atoms * a.N > kFwdMaxChunkRows) || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       C < 1 || C > kMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D)
     return kErrShape;
-  const Plan plan = make_plan(a);
+  const Plan plan = make_plan<kWideBuild>(a);
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  const auto kernel = bf16 ? scann_loop_forward_kernel<true> : scann_loop_forward_kernel<false>;
+  const auto kernel = bf16 ? scann_loop_forward_kernel<!kWideBuild, kWideBuild>
+                           : scann_loop_forward_kernel<false, kWideBuild>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a, C);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, C, wide_keys);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* scann_loop_forward_error_string(int code) {
+extern "C" const char* SCANN_LOOP_ENTRY(error_string)(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes";
   return cudaGetErrorString((cudaError_t)code);

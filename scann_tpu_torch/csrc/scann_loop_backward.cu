@@ -80,6 +80,18 @@
 //   through a [B, M, D] global scratch. The plan is M * 512 bytes + 107 to
 //   175 KB at D=128 (atom blocks of 8 to 32): M <= 106 with blocks of 32,
 //   M <= 186 with blocks of 16, M <= 226 with blocks of 8, at N=32.
+// - Wide neighbour lists (32 < N <= 256; the wide build,
+//   scann_loop_backward_wide.cu, f32 operands, all three schedules): one atom
+//   at a time, its rows in sub-chunks of 32. The forward pass keeps the atom's
+//   energies [N, H] in shared memory for a softmax over all N (wide_softmax of
+//   scann_mma.cuh) and its keys in a per-block global scratch for the context.
+//   The reverse walk takes two passes over an atom: the first forms every
+//   row's attention (recomputed from the energies, or staged from the stash)
+//   and d attention, then the softmax backward over all N, which needs sum_n
+//   p f before any row's p (f - s); the second runs the rows' backward sub-chunk
+//   by sub-chunk, the d query's sum over the neighbours carried from one
+//   sub-chunk to the next. The recompute schedule thus forms the rows twice in
+//   the reverse walk. The plan fits atom blocks down to 4.
 // - No sequential grid, no atomics: each block writes its share of the
 //   gradients into its own row of a [B * C, P] scratch, added to from the
 //   second atom block (or chunk) on by the same thread, and scann_reduce_rows
@@ -122,22 +134,27 @@ constexpr int kMaxCluster = 4;
 
 // Shared-memory plan, in floats: the resident [M, wd] buffer; five per-block
 // slots [AB, wd]; the work region (the readout keeps its vectors there, past
-// one [AB, wd] buffer); per-warp LayerNorm partials and bias sums.
+// one [AB, wd] buffer); per-warp LayerNorm partials and bias sums. kWide:
+// the chunk holds a sub-chunk of kMaxChunkRows rows of one atom, the atom's
+// attention and d attention [N, H] and the d query sum [wd].
 struct Plan {
   int wd, ABW, rows, lda, ldu, lde, ldf, work, offBlk, offWork, offPart, offAcc, total;
 };
 
+template <bool kWide>
 __host__ __device__ inline Plan make_plan(const Args& a) {
   Plan p;
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.ABW = AB * p.wd;
-  p.rows = a.chunk_atoms * a.N;
+  p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;
   p.lda = 2 * a.D + 4;
   p.ldu = a.D + 4;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
-  const int chunk = p.rows * p.lda + 3 * p.rows * p.ldu + 3 * round4(p.rows * a.H);
+  const int chunk = kWide ? p.rows * p.lda + 3 * p.rows * p.ldu + 2 * round4(a.N * a.H) +
+                                round4(p.rows * a.H) + p.wd
+                          : p.rows * p.lda + 3 * p.rows * p.ldu + 3 * round4(p.rows * a.H);
   const int atoms = 5 * p.ABW + round4(AB);     // the reverse walk's per-atom recompute
   const int embed = AB * (2 * p.lde + p.ldf) + p.ABW;
   const int readout = p.ABW + 4 * p.wd + 5 * round4(a.M) + 3 * round4(a.O) + 4;
@@ -156,12 +173,21 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   return p;
 }
 
-template <bool kBf16>
+// The plan of either build, by N (host side).
+inline Plan plan_of(const Args& a) {
+  return a.N > kMaxChunkRows ? make_plan<true>(a) : make_plan<false>(a);
+}
+
+// kWide: N > kMaxChunkRows (the wide build, scann_loop_backward_wide.cu), one
+// atom at a time, its rows in sub-chunks of kMaxChunkRows, with the block's
+// keys of one atom in wide_keys [N, D] (global, one slice a block) for the
+// forward pass's context.
+template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-scann_loop_backward_kernel(const Args a) {
+scann_loop_backward_kernel(const Args a, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan P = make_plan(a);
+  const Plan P = make_plan<kWide>(a);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster, rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
@@ -190,9 +216,14 @@ scann_loop_backward_kernel(const Args a) {
   float* sU = sA + CR * lda;           // [CR, ldu]: u_pre, then d u_pre
   float* sV = sU + CR * ldu;           // [CR, ldu]: key input, then d key input
   float* sW = sV + CR * ldu;           // [CR, ldu]: key, then d key, then d LN_g input
+  // wide: sE and sF point into the atom's rows [N, H] at the sub-chunk's first
+  const int EH = kWide ? round4(N * H) : round4(CR * H);
   float* sE = sW + CR * ldu;           // [CR, H]: attention (before dropout)
-  float* sF = sE + round4(CR * H);     // [CR, H]: d attention
-  float* sM = sF + round4(CR * H);     // [CR, H]: attention dropout mask
+  float* sF = sE + EH;                 // [CR, H]: d attention
+  float* sM = sF + EH;                 // [CR, H]: attention dropout mask
+  float* const sEa = sE;               // wide: the atom's attention [N, H]
+  float* const sFa = sF;               // wide: the atom's d attention [N, H]
+  float* const sEx = sM + round4(CR * H);   // wide: [wd] sum_n de key of the d query
 
   const float* am = a.atom_mask + (size_t)b * M;
   const int* nbr = a.nbr + (size_t)b * R;
@@ -250,8 +281,7 @@ scann_loop_backward_kernel(const Args a) {
   // forward pass, the stash in global memory in the reverse walk. With
   // `stashed` the neighbour states, u_pre, keys and attention come from the
   // activation stash instead.
-  auto stage_chunk = [&](int l, int m0, int rows, const float* cen, int ldc, bool stashed) {
-    const int base = m0 * N;
+  auto stage_chunk = [&](int l, int base, int rows, const float* cen, int ldc, bool stashed) {
     if (a.g_update) {
       const float* g_in = g_st + ((size_t)l * R + base) * D;
       for (int i = tid; i < rows * q4; i += kThreads) {
@@ -302,9 +332,9 @@ scann_loop_backward_kernel(const Args a) {
     __syncthreads();
   };
 
-  // the forward pass's writes of a chunk's rows into the stash
-  auto stash_chunk = [&](int l, int m0, int rows) {
-    const int base = m0 * N;
+  // the forward pass's writes of a chunk's rows into the stash (wide: the
+  // atom's attention goes in once its softmax is done)
+  auto stash_chunk = [&](int l, int base, int rows) {
     for (int i = tid; i < rows * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
       const size_t e = (size_t)(base + r) * D + c;
@@ -315,15 +345,18 @@ scann_loop_backward_kernel(const Args a) {
       stash_put4(a.st_rows, st_row(l, 2) * lay_rows + e,
                  *reinterpret_cast<const float4*>(sW + r * ldu + c), sb);
     }
-    for (int i = tid; i < rows * H; i += kThreads)
-      stash_put(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sE[i], sb);
+    if constexpr (!kWide)
+      for (int i = tid; i < rows * H; i += kThreads)
+        stash_put(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sE[i], sb);
   };
 
   // lm0: the chunk's first atom within its atom block; `stashed`: u_pre, the
   // keys and the attention were staged from the stash, and only the key input
-  // (SCANN+: the LN_g rebuild from u_pre and the input geometry) is computed
-  auto row_forward = [&](int l, int m0, int lm0, int ca, bool write_g, bool stashed) {
-    const int rows = ca * N, base = m0 * N;
+  // (SCANN+: the LN_g rebuild from u_pre and the input geometry) is computed.
+  // base: the chunk's first row; wide: `rows` rows of one atom (rows < N, so
+  // r / N is 0), and no softmax
+  auto row_forward = [&](int l, int base, int lm0, int ca, int rows, bool write_g,
+                         bool stashed) {
     const float* wfg = a.wfg + (size_t)l * fg_in * D;
     const float* bfg = a.bfg + (size_t)l * D;
     const float* bk = a.bk + (size_t)l * D;
@@ -381,8 +414,10 @@ scann_loop_backward_kernel(const Args a) {
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    warp_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
-    __syncthreads();
+    if constexpr (!kWide) {
+      warp_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
+      __syncthreads();
+    }
   };
 
   // per-atom projections of the block's layer input cb [ab, wd]: query (and
@@ -489,9 +524,11 @@ scann_loop_backward_kernel(const Args a) {
   }
 
   // SCANN+ geometry embedding: geo_0 = swish(rbf(d) @ Wnd + bnd) * swish(rbf(w) @ Wnw + bnw)
+  // m0: the chunk's first atom (kWide: its first row, sub-chunks of CR rows)
   if (a.g_update) {
-    for (int m0 = m_lo; m0 < m_hi; m0 += CA) {
-      const int ca = min(CA, m_hi - m0), rows = ca * N, base = m0 * N;
+    for (int m0 = kWide ? m_lo * N : m_lo; m0 < (kWide ? m_hi * N : m_hi); m0 += kWide ? CR : CA) {
+      const int ca = min(CA, m_hi - m0), rows = kWide ? min(CR, m_hi * N - m0) : ca * N,
+                base = kWide ? m0 : m0 * N;
       stage_rbf(base, rows);
       __syncthreads();
       geometry_products(rows);
@@ -524,9 +561,61 @@ scann_loop_backward_kernel(const Args a) {
       __syncthreads();
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N, lm0 = m0 - ab0;
-        stage_chunk(l, m0, ca * N, sR, wd, false);
-        row_forward(l, m0, lm0, ca, l + 1 < L, false);
-        if (sb) stash_chunk(l, m0, ca * N);
+        if constexpr (kWide) {
+          // The forward pass over one atom's wide neighbour list (kWide): its rows in
+          // sub-chunks, their energies into the atom's row sEa and their keys to the
+          // block's slice of wide_keys; the softmax over all N (its attention to the
+          // stash); then ctx + query, the context summed over the N neighbours in
+          // order from the keys in global memory, as the narrow chunk sums it.
+          const int m = m0, lm = lm0;
+          float* keys = wide_keys + (size_t)blockIdx.x * N * D;
+          for (int n0 = 0; n0 < N; n0 += CR) {
+            const int rows = min(CR, N - n0), rb = base + n0;
+            stage_chunk(l, rb, rows, sR, wd, false);
+            row_forward(l, rb, lm, 1, rows, l + 1 < L, false);
+            warp_energies<kBf16>(sQ + lm * wd, sW, ldu, nmask + rb, sEa + n0 * H, rows, H, hd, a.dk);
+            for (int i = tid; i < rows * q4; i += kThreads) {
+              const int r = i / q4, c = (i - r * q4) * 4;
+              store4(keys + (size_t)(n0 + r) * D + c, *reinterpret_cast<const float4*>(sW + r * ldu + c));
+            }
+            if (sb) stash_chunk(l, rb, rows);
+            __syncthreads();
+          }
+          wide_softmax(sEa, N, H, [&](int n, int h, float p) { sEa[n * H + h] = p; });
+          __syncthreads();
+          // sFa: the attention as the context uses it; the bf16 stash's rebuilt
+          // one (rounded attention) in place of sEa
+          for (int i = tid; i < N * H; i += kThreads) {
+            const float p = sEa[i], nm = nmask[base + i / H];
+            if (sb) stash_put(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, p, sb);
+            const float dr = a.attn_dropout ? scann_philox::mask_value(a.seed, mol, 1 + L + l,
+                                                                       (unsigned)(base * H + i),
+                                                                       a.attn_threshold, a.attn_scale)
+                                            : 1.f;
+            sFa[i] = operand<kBf16>(a.attn_dropout ? p * dr : p) * nm;
+            if (sb == 2) {
+              const float e2 = bf16r(p);
+              sEa[i] = operand<kBf16>(a.attn_dropout ? e2 * dr : e2) * nm;
+            }
+          }
+          __syncthreads();
+          for (int d = tid; d < D; d += kThreads) {
+            const int h = d / hd;
+            float s = 0.f, s2 = 0.f;
+            for (int n = 0; n < N; ++n) {
+              const float k = __ldcg(keys + (size_t)n * D + d);
+              s += sFa[n * H + h] * k;
+              if (sb == 2) s2 += sEa[n * H + h] * bf16r(k);
+            }
+            if (sb == 2) o_st[((size_t)l * M + m) * D + d] = s2 + sQ[lm * wd + d];
+            sQ[lm * wd + d] = s + sQ[lm * wd + d];
+          }
+          __syncthreads();
+          continue;
+        }
+        stage_chunk(l, base, ca * N, sR, wd, false);
+        row_forward(l, base, lm0, ca, ca * N, l + 1 < L, false);
+        if (sb) stash_chunk(l, base, ca * N);
         // ctx = sum_n attn * mask * nmask * key, added to the query. The bf16
         // stash's reverse walk takes the attention LayerNorm's statistics from
         // ctx + query rebuilt from the rounded attention and keys, as the TPU
@@ -982,114 +1071,159 @@ scann_loop_backward_kernel(const Args a) {
       __syncthreads();
 
       // ---- the block's (atom, neighbour) rows, chunk by chunk ----------------
-      for (int m0 = ab0; m0 < ab0 + ab; m0 += CA, ++ci) {
-        const int ca = min(CA, ab0 + ab - m0), rows = ca * N, base = m0 * N, lm0 = m0 - ab0;
-        stage_chunk(l, m0, rows, c_in, D, sb != 0);
-        row_forward(l, m0, lm0, ca, false, sb != 0);
-        // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
-        // backward over the N neighbours, on the pre-dropout attention
-        warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
-                              a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
-        __syncthreads();
-        // d key (in place of the key) and d query = d ctx + dk sum_n de key
-        for (int i = tid; i < ca * D; i += kThreads) {
-          const int at = i / D, d = i - at * D, h = d / hd, m = lm0 + at;
-          const float dctx = sDQ[m * wd + d];
-          const float qs = sQ[m * wd + d] * a.dk;
-          float ex = 0.f;
-          for (int n = 0; n < N; ++n) {
-            const int r = at * N + n;
-            const float de = sF[r * H + h];
-            const float used =
-                operand<kBf16>(a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h]);
-            ex += de * sW[r * ldu + d];
-            sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
+      // (wide: atom by atom, the attention and its backward over all N first,
+      // then the rows' backward sub-chunk by sub-chunk)
+      for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
+        const int ca = min(CA, ab0 + ab - m0), lm0 = m0 - ab0;
+        if constexpr (kWide) {
+          // The reverse walk's first pass over one atom's wide neighbour list (kWide):
+          // the attention of every row (recomputed: each sub-chunk's energies, then
+          // the softmax over all N, the forward pass's arithmetic on the same values;
+          // stashed: staged) and its d attention f, then the softmax backward over all
+          // N into sFa, which the second pass, the rows' backward sub-chunk by
+          // sub-chunk, reads.
+          const int base = m0 * N, lm = lm0;
+          for (int n0 = 0; n0 < N; n0 += CR) {
+            const int rows = min(CR, N - n0), rb = base + n0;
+            sE = sEa + n0 * H;
+            stage_chunk(l, rb, rows, c_in, D, sb != 0);
+            if (!sb) {
+              row_forward(l, rb, lm, 1, rows, false, false);
+              warp_energies<kBf16>(sQ + lm * wd, sW, ldu, nmask + rb, sE, rows, H, hd, a.dk);
+            }
+            warp_attention_grad<kBf16>(sDQ + lm * wd, sW, ldu, nmask + rb,
+                                       a.attn_dropout ? sM : nullptr, sFa + n0 * H, rows, H, hd);
+            __syncthreads();
           }
-          sDQ[m * wd + d] = dctx + ex * a.dk;
+          if (!sb) {
+            wide_softmax(sEa, N, H, [&](int n, int h, float p) { sEa[n * H + h] = p; });
+            __syncthreads();
+          }
+          wide_softmax_backward<kBf16>(sEa, sFa, N, H);
+          __syncthreads();
         }
-        __syncthreads();
-        // key = kin @ Wk + bk
-        mma_gemm_tA<kBf16>(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
-        __syncthreads();
-        mma_gemm_tB<kBf16>(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
-        __syncthreads();
-        if (a.g_update) {
-          // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
-          const float* gs = a.lng_s + (size_t)l * D;
-          const float* gb = a.lng_b + (size_t)l * D;
-          for (int r = warp; r < rows; r += kWarps) {
-            float v[4], xh[4], dy[4], dx[4], mean, inv;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int d = lane + 32 * i;
-              v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
-            }
-            warp_ln_stats(v, D, lane, mean, inv);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int d = lane + 32 * i;
-              xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
-              dy[i] = 0.f;
-              if (d < D) {
-                const float g = xh[i] * gs[d] + gb[d];
-                const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
-                sV[r * ldu + d] = dkin * g;   // d ns from the key input
-                dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
-              }
-            }
-            warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int d = lane + 32 * i;
-              if (d < D) {
-                sW[r * ldu + d] = dx[i];                                  // d r (residual into geo)
-                sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
-                sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
-                sPart[(warp * 2 + 1) * wd + d] += dy[i];
-              }
-            }
+        for (int n0 = 0; n0 < (kWide ? N : 1); n0 += kWide ? CR : 1, ++ci) {
+          const int rows = kWide ? min(CR, N - n0) : ca * N, base = m0 * N + n0;
+          if constexpr (kWide) {
+            sE = sEa + n0 * H;
+            sF = sFa + n0 * H;
           }
-        } else {
-          for (int i = tid; i < rows * D; i += kThreads) {
-            const int r = i / D, d = i - r * D;
-            const float u = sU[r * ldu + d], w = nweight[base + r];
-            const float dkin = sV[r * ldu + d];
-            sV[r * ldu + d] = dkin * (swishf(u) * w);
-            sU[r * ldu + d] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
+          stage_chunk(l, base, rows, c_in, D, sb != 0);
+          row_forward(l, base, lm0, ca, rows, false, sb != 0);
+          if constexpr (!kWide) {
+            // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
+            // backward over the N neighbours, on the pre-dropout attention
+            warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
+                                  a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
+            __syncthreads();
           }
-        }
-        __syncthreads();
-        if (a.g_update) {
-          mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, 2 * D, D,
-                      grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
+          // d key (in place of the key) and d query = d ctx + dk sum_n de key
+          // (wide: the sum carried in sEx from sub-chunk to sub-chunk)
           for (int i = tid; i < ca * D; i += kThreads) {
-            const int at = i / D, d = i - at * D;
-            float s = 0.f;
-            for (int n = 0; n < N; ++n) s += sU[(at * N + n) * ldu + d];
-            sDCW[(lm0 + at) * wd + d] = s;
+            const int at = i / D, d = i - at * D, h = d / hd, m = lm0 + at;
+            const float dctx = sDQ[m * wd + d];
+            const float qs = sQ[m * wd + d] * a.dk;
+            float ex = kWide && n0 > 0 ? sEx[d] : 0.f;
+            for (int n = 0; n < (kWide ? rows : N); ++n) {
+              const int r = at * N + n;
+              const float de = sF[r * H + h];
+              const float used =
+                  operand<kBf16>(a.attn_dropout ? sE[r * H + h] * sM[r * H + h] : sE[r * H + h]);
+              ex += de * sW[r * ldu + d];
+              sW[r * ldu + d] = dctx * used * nmask[base + r] + de * qs;
+            }
+            if constexpr (kWide) sEx[d] = ex;
+            else sDQ[m * wd + d] = dctx + ex * a.dk;
           }
-          // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
-          float* dg_out = dgb + (size_t)base * D;
-          mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
-            const float* dr = sW + r * ldu + c;
-            store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
-          });
-          mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
-            float* p = sV + r * ldu + c;
-            store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
-          });
-        } else {
-          mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
-                      sAcc + wd, true);
+          __syncthreads();
+          // key = kin @ Wk + bk
+          mma_gemm_tA<kBf16>(sV, ldu, sW, ldu, rows, D, D, grad(gWK) + (size_t)l * D * D, D, ci > 0, sAcc, true);
+          __syncthreads();
+          mma_gemm_tB<kBf16>(sW, ldu, rows, D, wk, D, D, D, [&](int r, int c, float4 v) { store4(sV + r * ldu + c, v); });
+          __syncthreads();
+          if (a.g_update) {
+            // kin = ns * geo', geo' = LN_g(swish(u_pre) + geo)
+            const float* gs = a.lng_s + (size_t)l * D;
+            const float* gb = a.lng_b + (size_t)l * D;
+            for (int r = warp; r < rows; r += kWarps) {
+              float v[4], xh[4], dy[4], dx[4], mean, inv;
+  #pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
+              }
+              warp_ln_stats(v, D, lane, mean, inv);
+  #pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
+                dy[i] = 0.f;
+                if (d < D) {
+                  const float g = xh[i] * gs[d] + gb[d];
+                  const float dkin = sV[r * ldu + d], ns = sA[r * lda + D + d];
+                  sV[r * ldu + d] = dkin * g;   // d ns from the key input
+                  dy[i] = dkin * ns + (l + 1 < L ? dgb[(size_t)(base + r) * D + d] : 0.f);
+                }
+              }
+              warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
+  #pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int d = lane + 32 * i;
+                if (d < D) {
+                  sW[r * ldu + d] = dx[i];                                  // d r (residual into geo)
+                  sU[r * ldu + d] = dx[i] * swish_grad(sU[r * ldu + d]);    // d u_pre
+                  sPart[(warp * 2) * wd + d] += dy[i] * xh[i];
+                  sPart[(warp * 2 + 1) * wd + d] += dy[i];
+                }
+              }
+            }
+          } else {
+            for (int i = tid; i < rows * D; i += kThreads) {
+              const int r = i / D, d = i - r * D;
+              const float u = sU[r * ldu + d], w = nweight[base + r];
+              const float dkin = sV[r * ldu + d];
+              sV[r * ldu + d] = dkin * (swishf(u) * w);
+              sU[r * ldu + d] = dkin * sA[r * lda + D + d] * w * swish_grad(u);
+            }
+          }
+          __syncthreads();
+          if (a.g_update) {
+            mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, 2 * D, D,
+                        grad(gWFG) + (size_t)l * fg_in * D + (size_t)D * D, D, ci > 0, sAcc + wd, true);
+            for (int i = tid; i < ca * D; i += kThreads) {
+              const int at = i / D, d = i - at * D;
+              float s = kWide && n0 > 0 ? sDCW[(lm0 + at) * wd + d] : 0.f;
+              for (int n = 0; n < (kWide ? rows : N); ++n) s += sU[(at * N + n) * ldu + d];
+              sDCW[(lm0 + at) * wd + d] = s;
+            }
+            // d geo_in = d r + d u_pre @ Wg^T;  d ns += d u_pre @ Wn^T
+            float* dg_out = dgb + (size_t)base * D;
+            mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)D * D, D, D, D, [&](int r, int c, float4 v) {
+              const float* dr = sW + r * ldu + c;
+              store4(dg_out + (size_t)r * D + c, make_float4(dr[0] + v.x, dr[1] + v.y, dr[2] + v.z, dr[3] + v.w));
+            });
+            mma_gemm_tB<kBf16>(sU, ldu, rows, D, wfg + (size_t)2 * D * D, D, D, D, [&](int r, int c, float4 v) {
+              float* p = sV + r * ldu + c;
+              store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
+            });
+          } else {
+            mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
+                        sAcc + wd, true);
+          }
+          __syncthreads();
+          // the gather's transpose: d centers[idx] += d ns, in row order
+          if (sc_part < np)
+            for (int r = 0; r < rows; ++r) {
+              const int idx = nbr[base + r];
+              if (idx % np == sc_part) sDCN[idx * wd + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
+            }
+          __syncthreads();
         }
-        __syncthreads();
-        // the gather's transpose: d centers[idx] += d ns, in row order
-        if (sc_part < np)
-          for (int r = 0; r < rows; ++r) {
-            const int idx = nbr[base + r];
-            if (idx % np == sc_part) sDCN[idx * wd + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
-          }
-        __syncthreads();
+        if constexpr (kWide) {
+          for (int d = tid; d < D; d += kThreads)
+            sDQ[lm0 * wd + d] = sDQ[lm0 * wd + d] + sEx[d] * a.dk;
+          __syncthreads();
+        }
       }
 
       // ---- per-atom gradients of the block -----------------------------------
@@ -1186,8 +1320,10 @@ scann_loop_backward_kernel(const Args a) {
   // ======================= SCANN+ geometry embedding backward ===============
   if (a.g_update) {
     int ci = 0;
-    for (int m0 = m_lo; m0 < m_hi; m0 += CA, ++ci) {
-      const int ca = min(CA, m_hi - m0), rows = ca * N, base = m0 * N;
+    for (int m0 = kWide ? m_lo * N : m_lo; m0 < (kWide ? m_hi * N : m_hi);
+         m0 += kWide ? CR : CA, ++ci) {
+      const int ca = min(CA, m_hi - m0), rows = kWide ? min(CR, m_hi * N - m0) : ca * N,
+                base = kWide ? m0 : m0 * N;
       stage_rbf(base, rows);
       __syncthreads();
       geometry_products(rows);
@@ -1240,10 +1376,12 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
 // [B, L, M, D] (f32; the bf16 stash only), size 21, the atom block, size 22,
 // the segments per slot S, size 23, the blocks per structure C (grad_rows is
 // then [B * C, P]), and size 24, the stash's element bytes (0, 4 or 2); in
-// the order scann_tpu_torch/kernels/scann_loop.py passes them. Launches the
-// backward kernel in the operand mode kBf16 (a cluster of C blocks per
-// structure) and the reduction of its gradient rows into out [P].
-template <bool kBf16>
+// the order scann_tpu_torch/kernels/scann_loop.py passes them, and pointer
+// 59, the wide key scratch [B * C, N, D] (the wide build; null in the
+// others). Launches the backward kernel in the operand mode kBf16 (a cluster
+// of C blocks per structure; kWide: N > kMaxChunkRows) and the reduction of
+// its gradient rows into out [P].
+template <bool kBf16, bool kWide>
 int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
                     const unsigned int* rng, const long long* offsets, float* out, void* stream) {
   Args a;
@@ -1257,28 +1395,34 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   a.st_rows = ptrs[56];
   a.st_attn = ptrs[57];
   a.st_atoms = (float*)ptrs[58];
+  float* wide_keys = (float*)ptrs[59];
+  // the wide build: kMaxChunkRows < N <= kWideMaxN, one atom a chunk, its key
+  // scratch
+  if ((a.N > kMaxChunkRows) != kWide || (wide_keys != nullptr) != kWide ||
+      (kWide && (a.N > kWideMaxN || a.chunk_atoms != 1)))
+    return kErrShape;
   if ((a.stash != 0 && a.stash != 4 && a.stash != 2) ||
       (a.stash != 0) != (a.st_rows != nullptr && a.st_attn != nullptr) ||
       (a.stash == 2) != (a.st_atoms != nullptr))
     return kErrShape;
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
-      a.chunk_atoms * a.N > kMaxChunkRows || a.atom_block < 1 ||
+      (!kWide && a.chunk_atoms * a.N > kMaxChunkRows) || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       a.cluster < 1 || a.cluster > kMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D || a.P <= 0)
     return kErrShape;
-  const int bytes = make_plan(a).total * (int)sizeof(float);
+  const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16>,
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, a.cluster, bytes, s);
-  err = cudaLaunchKernelEx(&cfg, scann_loop_backward_kernel<kBf16>, a);
+  err = cudaLaunchKernelEx(&cfg, scann_loop_backward_kernel<kBf16, kWide>, a, wide_keys);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1291,39 +1435,62 @@ const char* error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-}  // namespace
-
-#ifndef SCANN_LOOP_BACKWARD_BF16
-extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
-  Args a = {};
-  set_dims(a, dims);
-  return make_plan(a).total * (int)sizeof(float);
-}
-
 // How many clusters of `cluster` blocks with this shape's shared memory the
-// card runs at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
-extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
+// card runs at once (cudaOccupancyMaxActiveClusters) in the f32 kernel of the
+// narrow or the wide build, or minus the CUDA error.
+template <bool kWide>
+int max_clusters(const int* dims, int cluster) {
   Args a = {};
   set_dims(a, dims);
-  const int bytes = make_plan(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<false>,
+  const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<false, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel<false>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel<false, kWide>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+}  // namespace
+
+#if !defined(SCANN_LOOP_BACKWARD_BF16) && !defined(SCANN_LOOP_BACKWARD_WIDE)
+extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
+  Args a = {};
+  set_dims(a, dims);
+  return plan_of(a).total * (int)sizeof(float);
+}
+
+extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
+  return max_clusters<false>(dims, cluster);
 }
 
 extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
                                           const float* scalars, const unsigned int* rng,
                                           const long long* offsets, float* out, void* stream) {
-  return launch_backward<false>(ptrs, dims, scalars, rng, offsets, out, stream);
+  return launch_backward<false, false>(ptrs, dims, scalars, rng, offsets, out, stream);
 }
 
 extern "C" const char* scann_loop_backward_error_string(int code) { return error_string(code); }
+#elif defined(SCANN_LOOP_BACKWARD_WIDE)
+// Wide neighbour lists (scann_loop_backward_wide.cu), f32 operands, with the
+// f32 build's arguments.
+extern "C" int scann_loop_backward_wide_launch(void* const* ptrs, const int* dims,
+                                               const float* scalars, const unsigned int* rng,
+                                               const long long* offsets, float* out,
+                                               void* stream) {
+  return launch_backward<false, true>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* scann_loop_backward_wide_error_string(int code) {
+  return error_string(code);
+}
+
+extern "C" int scann_loop_backward_wide_max_clusters(const int* dims, int cluster) {
+  return max_clusters<true>(dims, cluster);
+}
 #else
 // The bf16 operand mode (scann_loop_backward_bf16.cu), with the f32 build's
 // arguments.
@@ -1331,7 +1498,7 @@ extern "C" int scann_loop_backward_bf16_launch(void* const* ptrs, const int* dim
                                                const float* scalars, const unsigned int* rng,
                                                const long long* offsets, float* out,
                                                void* stream) {
-  return launch_backward<true>(ptrs, dims, scalars, rng, offsets, out, stream);
+  return launch_backward<true, false>(ptrs, dims, scalars, rng, offsets, out, stream);
 }
 
 extern "C" const char* scann_loop_backward_bf16_error_string(int code) {

@@ -480,6 +480,121 @@ __device__ __forceinline__ void warp_softmax_backward(const float* sDCtx, int ld
   }
 }
 
+// ---- wide neighbour lists ---------------------------------------------------
+// Where one atom's N neighbours exceed a chunk of rows (the wide instantiations
+// of kernels #3, #4 and #5, N <= kWideMaxN), its rows go through the chunk
+// code in sub-chunks, and the softmax over all N runs from an energy row
+// [N, H] kept in shared memory: every energy of the atom first, then one warp
+// per head over all N, lane n holding neighbours n, n + 32, ... (at most
+// kWideMaxN / 32 a lane). The sums run lane by lane in that order, then
+// across the warp in warp_sum's fixed tree (kernels.local_attention.
+// wide_softmax mirrors the arithmetic in PyTorch). A wholly masked sub-chunk
+// cannot shift the max (the max runs over all N at once), and an atom whose
+// neighbours are all masked gets the plain version's near-uniform softmax.
+constexpr int kWideMaxN = 256;
+constexpr int kWideLane = kWideMaxN / 32;
+
+// Energies of `rows` rows of one atom, one warp per head, lane r holding rows
+// r, r + 32, ...: e[r] = sum_j (q[j] * dk) * key[r][j] - 1e9 (1 - nmask[r])
+// into sEn[r H + h], with the arithmetic of warp_energy_softmax (kBf16: each
+// product rounded before the head sum). q is the atom's query row, sKey
+// [rows, ldk] the rows' keys, nmask the rows' mask. The caller synchronises.
+template <bool kBf16, typename T>
+__device__ __forceinline__ void warp_energies(const float* q, const float* sKey, int ldk,
+                                              const T* nmask, float* sEn, int rows, int H, int hd,
+                                              float dk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = warp; h < H; h += kWarps)
+    for (int r = lane; r < rows; r += 32) {
+      const float* qh = q + h * hd;
+      const float* kk = sKey + r * ldk + h * hd;
+      float e = 0.f;
+      if (kBf16) {
+        for (int j = 0; j < hd; ++j) e += bf16r((qh[j] * dk) * kk[j]);
+      } else {
+        for (int j = 0; j < hd; ++j) e = fmaf(qh[j] * dk, kk[j], e);
+      }
+      sEn[r * H + h] = e + (1.0f - to_float(nmask[r])) * -1e9f;
+    }
+}
+
+// The max-shifted softmax over the N energies sEn [N, H] of one atom, one
+// warp per head; out(n, h, p) takes each probability (before dropout and the
+// neighbour mask). The caller synchronises.
+template <typename Out>
+__device__ __forceinline__ void wide_softmax(const float* sEn, int N, int H, Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = warp; h < H; h += kWarps) {
+    float e[kWideLane], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kWideLane; ++j) {
+      const int n = lane + 32 * j;
+      e[j] = n < N ? sEn[n * H + h] : -INFINITY;
+      mx = fmaxf(mx, e[j]);
+    }
+    mx = warp_max(mx);
+    float tot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideLane; ++j) {
+      e[j] = lane + 32 * j < N ? expf(e[j] - mx) : 0.f;
+      tot += e[j];
+    }
+    tot = warp_sum(tot);
+#pragma unroll
+    for (int j = 0; j < kWideLane; ++j)
+      if (lane + 32 * j < N) out(lane + 32 * j, h, e[j] / tot);
+  }
+}
+
+// d attention of `rows` rows of one atom, one warp per head, lane r holding
+// rows r, r + 32, ...: sF[r H + h] = nmask[r] * drop[r] * sum_j dctx[j] *
+// key[r][j] (warp_softmax_backward's f; kBf16: each product rounded). dctx is
+// the atom's d ctx row, sDrop (or null) the rows' attention dropout mask. The
+// caller synchronises.
+template <bool kBf16>
+__device__ __forceinline__ void warp_attention_grad(const float* dctx, const float* sKey, int ldk,
+                                                    const float* nmask, const float* sDrop,
+                                                    float* sF, int rows, int H, int hd) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = warp; h < H; h += kWarps)
+    for (int r = lane; r < rows; r += 32) {
+      const float* dq = dctx + h * hd;
+      const float* kk = sKey + r * ldk + h * hd;
+      float f = 0.f;
+      if (kBf16) {
+        for (int j = 0; j < hd; ++j) f += bf16r(dq[j] * kk[j]);
+      } else {
+        for (int j = 0; j < hd; ++j) f = fmaf(dq[j], kk[j], f);
+      }
+      f *= nmask[r];
+      if (sDrop) f *= sDrop[r * H + h];
+      sF[r * H + h] = f;
+    }
+}
+
+// The softmax backward over all N neighbours of one atom, one warp per head,
+// from its attention sP [N, H] (before dropout) and d attention sF [N, H]:
+// sF[n H + h] = p[n] (f[n] - sum_n p f), the sum lane by lane as in
+// wide_softmax. The caller synchronises.
+template <bool kBf16>
+__device__ __forceinline__ void wide_softmax_backward(const float* sP, float* sF, int N, int H) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = warp; h < H; h += kWarps) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWideLane; ++j) {
+      const int n = lane + 32 * j;
+      if (n < N) s += sP[n * H + h] * sF[n * H + h];
+    }
+    s = warp_sum(s);
+#pragma unroll
+    for (int j = 0; j < kWideLane; ++j) {
+      const int n = lane + 32 * j;
+      if (n < N) sF[n * H + h] = operand<kBf16>(sP[n * H + h] * (sF[n * H + h] - s));
+    }
+  }
+}
+
 #ifdef SCANN_MMA_SELFTEST
 // One block multiplies A [rows, K] by W [K, nc] (mma_gemm), by WT [nc, K]
 // transposed (mma_gemm_tB), and forms A^T Y with Y [rows, nc] and Y's column

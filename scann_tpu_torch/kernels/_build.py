@@ -21,8 +21,9 @@ what the first one built. ``-Xptxas -v`` makes the compiler report each
 kernel's registers and spills: the build keeps what nvcc printed beside
 the library (``<lib>.so.log``) and in ``build_logs``, and
 ``kernel_resources`` reads it. ``build_all`` starts one nvcc per source,
-all at once. ``SOURCES`` are the ports of the TPU kernels, ``PROBES`` the
-rate probes of ``utils/roofline.py``. Nothing here is built at module
+all at once. ``SOURCES`` are the ports of the TPU kernels, ``WIDE_SOURCES``
+their wide builds (built when a shape needs one), ``PROBES`` the rate
+probes of ``utils/roofline.py``. Nothing here is built at module
 import time, and nothing falls back: a failed build raises, and a library
 that fails to load is removed and rebuilt once, then raises.
 
@@ -74,6 +75,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # instantiations of the longest builds in parallel.
 SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward",
            "local_attention", "scann_backward_bf16", "scann_loop_backward_bf16")
+# The wide builds of kernels #5, #3 and #4 (neighbour lists longer than a
+# chunk of rows): sources of their own that include the narrow ones, built
+# at the first wide launch (or by ``build_all`` where a caller knows that a
+# shape needs one), so the default build is the narrow one.
+WIDE_SOURCES = ("local_attention_wide", "scann_loop_wide", "scann_loop_backward_wide")
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
 # utils/roofline.py. Built and loaded the same way.
 PROBES = ("roofline_probe",)

@@ -19,7 +19,8 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   version for CPU tensors; the backward recomputes the plain layer under
   autograd, as the JAX package's VJP does (it has no backward kernel here).
   ``fused_local_attention.launches`` counts kernel launches
-  (``.bf16_launches`` those on bfloat16 tensors).
+  (``.bf16_launches`` those on bfloat16 tensors, ``.wide_launches`` those
+  of the wide build).
 - ``reference_local_attention`` is the plain layer in the tensors' own
   dtypes (the flax model's layer: in the bf16 model its products and
   elementwise ops round as the tensors do), with the attention dropout of
@@ -36,9 +37,14 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   there; bfloat16 centers with an f32 tensor are refused.
 - The kernel reads the previous layer's centers from global memory and tiles
   the atoms over the grid, so M is not limited. Its tiles limit the rest: D
-  a multiple of 4 up to 128 and divisible by the heads, N <= 64 (one atom's
-  neighbours fit a chunk of 64 rows), the SCANN filter's input K <= D,
-  float32 or bfloat16.
+  a multiple of 4 up to 128 and divisible by the heads, N <= 256, the SCANN
+  filter's input K <= D, float32 or bfloat16. Up to N = 64 one atom's
+  neighbours fit a chunk of 64 rows (``csrc/local_attention.cu``); a wider
+  list launches the wide build (``csrc/local_attention_wide.cu``, built at
+  its first launch): one atom at a time, its rows in sub-chunks of 64, the
+  softmax over all N from an energy row in shared memory (``wide_softmax``
+  of ``csrc/scann_mma.cuh``) and the context from the atom's keys, which
+  the block keeps in a global scratch [blocks, N, D].
 - It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
   accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
   the whole-model forwards share. ``make_plan`` mirrors the launch plan of
@@ -67,6 +73,7 @@ from scann_tpu_torch.ops.attention import gather_neighbor_states, local_attentio
 REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
 MAX_CHUNK_ROWS = 64
+MAX_NEIGHBORS = 256   # the wide builds' limit (csrc/scann_mma.cuh kWideMaxN)
 MAX_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 ATOM_BLOCKS = (64, 48, 32, 16)
@@ -159,12 +166,25 @@ def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -
     if dtype not in KERNEL_DTYPES:
         raise NotImplementedError(f"dtype {dtype}: the kernel takes float32 or bfloat16 "
                                   "tensors")
-    if (D % 4 or D > MAX_WIDTH or D % num_head or N < 1 or N > MAX_CHUNK_ROWS
+    if (D % 4 or D > MAX_WIDTH or D % num_head or N < 1 or N > MAX_NEIGHBORS
             or K < 1 or K > D):
         raise NotImplementedError(
             f"sizes outside the kernel's tiles: D={D} (multiple of 4, <= {MAX_WIDTH}, "
-            f"divisible by num_head={num_head}), N={N} (<= {MAX_CHUNK_ROWS}), filter "
+            f"divisible by num_head={num_head}), N={N} (<= {MAX_NEIGHBORS}), filter "
             f"input K={K} (<= D)")
+
+
+def is_wide(N: int) -> bool:
+    """Whether N neighbours take the wide build (more than a chunk's rows):
+    the rule of the forwards #5 and #3 (``kernels.scann_loop`` takes it)."""
+    return N > MAX_CHUNK_ROWS
+
+
+def library(N: int) -> str:
+    """The build that takes N neighbours, the name of its library and its
+    entry points' prefix: ``local_attention_wide`` where ``is_wide``, else
+    ``local_attention``."""
+    return "local_attention_wide" if is_wide(N) else "local_attention"
 
 
 def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple[int, int]:
@@ -172,10 +192,11 @@ def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple
     ``plan_for`` of the CUDA source. A block holds the queries and, for
     SCANN+, cw of its atoms [AB, D + 4] each, and a work region for the
     atoms' centers [AB, D + 4] or a chunk's buffers (rows of 2D + 4 and D + 4
-    floats and the attention [rows, H], rows = atoms per chunk x N <= 64)."""
+    floats and the attention [rows, H], rows = atoms per chunk x N <= 64;
+    wide: 64 rows and the atom's energies [N, H])."""
     chunk_atoms = min(atom_block, max(1, MAX_CHUNK_ROWS // N))
-    rows = chunk_atoms * N
-    chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-rows * H // 4) * 4
+    rows = MAX_CHUNK_ROWS if is_wide(N) else chunk_atoms * N
+    chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-max(rows, N) * H // 4) * 4
     work = max(chunk, atom_block * (D + 4))
     return chunk_atoms, 4 * ((2 if g_update else 1) * atom_block * (D + 4) + work)
 
@@ -279,10 +300,14 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     n_sm = sm_count(dev)
     plan = make_plan(B, M, N, D, num_head, g_update, n_sm)
     bf16 = int(dt == torch.bfloat16)
-    call_kernel("local_attention", "local_attention_bf16" if bf16 else "local_attention", dev,
-                tensors, [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
+    lib = library(N)
+    keys = (torch.empty((B * -(-M // plan[0]), N, D), device=dev, dtype=torch.float32)
+            if is_wide(N) else None)
+    call_kernel(lib, lib + ("_bf16" if bf16 else ""), dev, tensors + [keys],
+                [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
     fused_local_attention.bf16_launches += bf16
+    fused_local_attention.wide_launches += is_wide(N)
     return out, geo_out, attn
 
 
@@ -358,6 +383,7 @@ def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
 
 fused_local_attention.launches = 0
 fused_local_attention.bf16_launches = 0
+fused_local_attention.wide_launches = 0
 
 
 def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:

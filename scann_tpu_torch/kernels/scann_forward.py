@@ -76,6 +76,7 @@ REPLACES = "scann_tpu/kernels/scann_forward.py:222"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_forward.cu"
 MAX_ATOMS = 64
 MAX_CHUNK_ROWS = 64
+MAX_NEIGHBORS = 256   # kernels #3, #5 and #4 in their wide builds (kWideMaxN)
 MAX_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 MAX_SEGMENTS = 32          # kMaxSegments of csrc/scann_common.cuh
@@ -428,6 +429,14 @@ def forward_chunk_floats(rows: int, D: int, H: int) -> int:
     return rows * (2 * D + 4) + rows * (D + 4) + _r4(rows * H)
 
 
+def forward_wide_chunk_floats(N: int, D: int, H: int) -> int:
+    """Floats of the chunk region of the wide forwards, one atom of N >
+    ``MAX_CHUNK_ROWS`` neighbours at a time (``fwd_wide_chunk_floats``): a
+    sub-chunk's operand and product of ``MAX_CHUNK_ROWS`` rows and the
+    atom's energies [N, H]."""
+    return MAX_CHUNK_ROWS * (2 * D + 4) + MAX_CHUNK_ROWS * (D + 4) + _r4(N * H)
+
+
 def embedding_stage_floats(cfm: ModelConfig, atoms: int) -> int:
     """Floats of the embedding's staging of ``atoms`` atoms: [atoms, lde]
     (embedding and ring columns) and, for cgcnn, [atoms, ldf] (features)."""
@@ -514,17 +523,18 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     return reason
 
 
-def common_refusal(cfm: ModelConfig, N: int) -> Optional[str]:
-    """What both whole-model forwards refuse: a dtype other than float32 and
+def common_refusal(cfm: ModelConfig, N: int, max_n: int = MAX_CHUNK_ROWS) -> Optional[str]:
+    """What the whole-model kernels refuse: a dtype other than float32 and
     bfloat16 (the bf16 operand mode) and sizes outside the tiles of
-    ``csrc/scann_common.cuh``."""
+    ``csrc/scann_common.cuh``, with N up to ``max_n`` (#1: one chunk of
+    rows; the loop kernels #3 and #4: ``MAX_NEIGHBORS``)."""
     if cfm.dtype not in ("float32", "bfloat16"):
         return (f"model.dtype={cfm.dtype!r}: the kernels take float32 and bfloat16 (the "
                 "bf16 operand mode)")
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
-    if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
+    if (N < 1 or N > max_n or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
-        return (f"sizes outside the kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
+        return (f"sizes outside the kernel's tiles: N={N} (<= {max_n}), "
                 f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
                 f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
     return None

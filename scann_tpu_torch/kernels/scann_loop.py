@@ -32,8 +32,15 @@ Forward:
   needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
   fits a block's 227 KB, and larger structures go through the per-layer
   kernel of ``kernels.local_attention``. It shares the molecule kernel's tiles: chunks
-  of at most 64 (atom, neighbour) rows (N <= 64), D, G, O multiples of 4 up
-  to 128, float32. ``use_attn_norm=False`` is refused.
+  of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 128.
+  ``use_attn_norm=False`` is refused.
+- Wide neighbour lists, 64 < N <= 256 (``MAX_NEIGHBORS``): the wide build
+  ``csrc/scann_loop_wide.cu`` (built at its first launch), f32 operands
+  (the bf16 operand mode at such N takes the per-layer model): one atom at
+  a time, its rows in sub-chunks of 64, the softmax over all N from its
+  energy row in shared memory, its keys in a per-block scratch
+  (``loop_forward_scratch``'s ``wide_keys``, [B * C, N, D]).
+  ``.wide_launches`` counts these launches.
 - Packed batches (``segment_onehot`` [B, M, S], structure packing) run the
   GA readout per segment in both kernels (``segment_ids`` and S, as
   ``kernels.scann_forward`` says): pred, the cotangent and the targets are
@@ -77,11 +84,17 @@ Backward (crystal training):
   (``loop_backward_memory_plan``): one resident [M, max(D, G)] buffer (the
   centers going forward, the accumulating d(layer input) going back), five
   slots for a block of 32, 16 or 8 atoms, and a work region for a chunk of at
-  most 32 (atom, neighbour) rows, so N <= 32 and, at D = G = 128 and N = 32,
-  M <= 106 with blocks of 32, M <= 186 with blocks of 16 and M <= 226 with
-  blocks of 8: lower than the forward's 232. Beyond it a bucket trains
-  through the per-layer model under ``torch.autograd``
-  (``Trainer.train_route``).
+  most 32 (atom, neighbour) rows, so, at D = G = 128 and N = 32, M <= 106
+  with blocks of 32, M <= 186 with blocks of 16 and M <= 226 with blocks of
+  8: lower than the forward's 232. Beyond it a bucket trains through the
+  per-layer model under ``torch.autograd`` (``Trainer.train_route``).
+- Wide neighbour lists, 32 < N <= 256: the wide build
+  ``csrc/scann_loop_backward_wide.cu`` (f32 operands, all three
+  schedules; ``.wide_launches``), one atom at a time in sub-chunks of 32
+  rows beside the atom's attention and d attention [N, H], with atom blocks
+  down to 4 (``WIDE_BACKWARD_ATOM_BLOCKS``): M up to 217-243 at D = 128.
+  Its reverse walk runs the softmax backward over all N before the rows'
+  backward, so the recompute schedule forms each row twice there.
 - A cluster of C thread blocks works on each structure, each block on its
   share of the atoms (``cluster_size``: C is a function of the batch size
   alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
@@ -123,6 +136,7 @@ which ``loop_forward_bytes`` counts) and 5.5e11 for the backward (~3.37 ms);
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional, Tuple
 
@@ -132,8 +146,10 @@ from scann_tpu_torch.config import ModelConfig
 from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels.local_attention import is_wide
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_CHUNK_ROWS,
+    MAX_NEIGHBORS,
     MAX_SHARED_BYTES,
     largest_segments,
     pack_params,
@@ -151,6 +167,9 @@ SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
 BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
 BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
+# the wide loop backward (N > kbwd.MAX_CHUNK_ROWS) also takes blocks of 4
+# atoms, where 8 do not fit beside its atom-wide attention rows
+WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -175,7 +194,8 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     """(atoms per chunk, atoms per block, floats of the work region, shared
     bytes per block) -- the layout ``make_plan`` in the CUDA source walks:
     the centers [M, max(D, G)], two slots [block, max(D, G) + 4], and a work
-    region that holds a chunk's buffers, the embedding's staging, the
+    region that holds a chunk's buffers (wide, N > 64: a sub-chunk's and the
+    atom's energies [N, H], one atom a chunk), the embedding's staging, the
     ResidualNorm's h2 or the readout's block and vectors (per segment for a
     packed batch of S segments a slot). The atom block is the largest of 32,
     16, 8 whose plan fits a block's shared memory (the smallest one's plan
@@ -183,10 +203,13 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
+    wide = is_wide(N)
     for block in ATOM_BLOCKS:
         block = min(block, M)
         chunk_atoms = max(1, min(block, MAX_CHUNK_ROWS // max(N, 1)))
-        work = max(kfwd.forward_chunk_floats(chunk_atoms * N, D, H),
+        chunk = (kfwd.forward_wide_chunk_floats(N, D, H) if wide
+                 else kfwd.forward_chunk_floats(chunk_atoms * N, D, H))
+        work = max(chunk,
                    kfwd.embedding_stage_floats(cfm, block), block * (wd + 4),
                    block * wd + 2 * wd + 2 * r4(M) + r4(O))
         if S:
@@ -195,6 +218,39 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, work, 4 * floats
+
+
+def is_wide_backward(N: int) -> bool:
+    """Whether the loop backward takes N neighbours in its wide build
+    (``csrc/scann_loop_backward_wide.cu``)."""
+    return N > kbwd.MAX_CHUNK_ROWS
+
+
+def forward_library(N: int) -> Tuple[str, str]:
+    """(library, entry-point prefix) of the loop forward's build that takes N
+    neighbours: the wide one (``csrc/scann_loop_wide.cu``) where ``is_wide``,
+    else the narrow one."""
+    return (("scann_loop_wide", "scann_loop_forward_wide") if is_wide(N)
+            else ("scann_loop", "scann_loop_forward"))
+
+
+def backward_library(cfm: ModelConfig, N: int) -> str:
+    """The loop backward's build that takes (config, N), the name of its
+    library and its entry points: the wide one (f32 operands) where
+    ``is_wide_backward``, else the narrow one in the config's operand
+    mode."""
+    if is_wide_backward(N):
+        return "scann_loop_backward_wide"
+    return kbwd.kernel_name("scann_loop_backward", cfm)
+
+
+def wide_refusal(cfm: ModelConfig, wide: bool) -> Optional[str]:
+    """What the wide builds refuse: the bf16 operand mode (they are built in
+    f32 only; such a bucket takes the per-layer model)."""
+    if wide and kfwd.operand_mode(cfm):
+        return ("model.dtype='bfloat16' with a wide neighbour list: the wide builds of the "
+                "loop kernels run f32 operands; the bucket runs the per-layer model")
+    return None
 
 
 def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
@@ -213,7 +269,8 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
                 "(models.scann.scann_forward with use_pallas)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = kfwd.common_refusal(cfm, N) or segment_refusal(S)
+    reason = (kfwd.common_refusal(cfm, N, MAX_NEIGHBORS) or wide_refusal(cfm, is_wide(N))
+              or segment_refusal(S))
     nbytes = 0 if reason else loop_memory_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the centers "
@@ -245,16 +302,35 @@ def reference_loop_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
                                         dropout_seed or 0, mol_base)
 
 
-def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device
-                         ) -> Dict[str, Optional[torch.Tensor]]:
+def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
+                         cluster: Optional[int] = None) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-forward launch at batch shape (B, M,
-    N): the SCANN+ geometry [B * M * N * D] (None for SCANN) and the new
-    centers [B, M, D]. Its contents mean nothing between launches; a launch
+    N) and ``cluster`` blocks per structure (``cluster_size(B)`` when None):
+    the SCANN+ geometry [B * M * N * D] (None for SCANN), the new centers
+    [B, M, D] and, for a wide N, each block's keys of one atom [B * C, N, D]
+    (else None). Its contents mean nothing between launches; a launch
     allocates its own unless it is handed one."""
     D = cfm.local_dim
+    cluster = cluster_size(B) if cluster is None else cluster
+    shape = wide_keys_shape_for(cfm, B, N, cluster)
     return {"geo": (torch.empty(B * M * N * D, device=device, dtype=torch.float32)
                     if cfm.g_update else None),
-            "next_centers": torch.empty((B, M, D), device=device, dtype=torch.float32)}
+            "next_centers": torch.empty((B, M, D), device=device, dtype=torch.float32),
+            "wide_keys": (None if shape is None
+                          else torch.empty(shape, device=device, dtype=torch.float32))}
+
+
+def wide_keys_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int,
+                        wide: Optional[bool] = None) -> Optional[Tuple[int, int, int]]:
+    """The wide builds' key scratch [B * C, N, D] (one atom's keys a block),
+    None where N is not wide (``wide`` defaults to the forward's rule)."""
+    wide = is_wide(N) if wide is None else wide
+    return (B * cluster, N, cfm.local_dim) if wide else None
+
+
+def wide_keys_shape(t: Optional[torch.Tensor]) -> Optional[Tuple[int, ...]]:
+    """The shape of a kept scratch's key scratch (None where it has none)."""
+    return None if t is None else tuple(t.shape)
 
 
 def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -277,6 +353,7 @@ def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch
 
 launch_loop_forward.launches = 0
 launch_loop_forward.bf16_launches = 0
+launch_loop_forward.wide_launches = 0
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -294,21 +371,26 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop forward launches with {CLUSTER_SIZES}")
     if scratch is None:
-        scratch = loop_forward_scratch(cfm, B, M, N, dev)
-    elif tuple(scratch["next_centers"].shape) != (B, M, cfm.local_dim):
-        raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} handed to "
-                         f"a batch of shape {(B, M, cfm.local_dim)}")
+        scratch = loop_forward_scratch(cfm, B, M, N, dev, cluster)
+    elif (tuple(scratch["next_centers"].shape) != (B, M, cfm.local_dim)
+          or wide_keys_shape(scratch["wide_keys"]) != wide_keys_shape_for(cfm, B, N, cluster)):
+        raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} (wide keys "
+                         f"{wide_keys_shape(scratch['wide_keys'])}) handed to a batch of shape "
+                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure")
     seg, S = segment_arguments(inputs)
     bf16 = kfwd.operand_mode(cfm)
     chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
-    kfwd.call_kernel("scann_loop", "scann_loop_forward", dev,
-                     tensors + [scratch["next_centers"], seg],
+    wide = is_wide(N)
+    library, symbol = forward_library(N)
+    kfwd.call_kernel(library, symbol, dev,
+                     tensors + [scratch["next_centers"], seg, scratch["wide_keys"]],
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
     launch_loop_forward.bf16_launches += bf16
+    launch_loop_forward.wide_launches += wide
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -355,7 +437,8 @@ def loop_forward_bytes(cfm: ModelConfig, B: int, M: int, N: int) -> int:
 
 def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
     """How many clusters of ``cluster`` loop-forward blocks at this shape the
-    card runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    card runs at once (``cudaOccupancyMaxActiveClusters``), in the f32
+    kernel of the build that launches N neighbours (``forward_library``)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
@@ -365,7 +448,8 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
             chunk_atoms, work, 0, 0, atom_block, 0, cluster]
-    fn = load_library("scann_loop").scann_loop_forward_max_clusters
+    library, symbol = forward_library(N)
+    fn = getattr(load_library(library), symbol + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     n = fn((ctypes.c_int * len(dims))(*dims), cluster)
@@ -381,18 +465,27 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     """(atoms per chunk of rows, atoms per block, shared bytes per block) --
     the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks (with
     the per-segment readout's vectors for a packed batch of S segments a
-    slot). The atom block is the largest of 32, 16, 8 whose plan fits a
-    block's shared memory (the smallest one's plan if none does)."""
+    slot). The atom block is the largest of 32, 16, 8 (wide: and 4) whose
+    plan fits a block's shared memory (the smallest one's plan if none
+    does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``) walks one atom at a
+    time in sub-chunks of that many rows, beside the atom's attention and d
+    attention [N, H]."""
     r4 = lambda x: -(-x // 4) * 4
-    D, G, O = cfm.local_dim, cfm.global_dim, cfm.dense_out
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
-    for block in ATOM_BLOCKS:
+    wide = is_wide_backward(N)
+    for block in WIDE_BACKWARD_ATOM_BLOCKS if wide else ATOM_BLOCKS:
         block = min(block, M)
         chunk_atoms = max(1, min(block, kbwd.MAX_CHUNK_ROWS // max(N, 1)))
-        rows = chunk_atoms * N
-        work = max(kbwd.chunk_floats(rows, D, cfm.num_head),
+        if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
+            rows = kbwd.MAX_CHUNK_ROWS
+            chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H)
+                     + wd)
+        else:
+            chunk = kbwd.chunk_floats(chunk_atoms * N, D, H)
+        work = max(chunk,
                    5 * block * wd + r4(block),
                    block * (2 * lde + ldf) + block * wd,
                    block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
@@ -433,12 +526,8 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
                 "(models.scann.scann_forward with use_pallas, under torch.autograd)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N)
-    if reason is None and N > kbwd.MAX_CHUNK_ROWS:
-        reason = (f"N={N} neighbours: the loop backward walks chunks of at most "
-                  f"{kbwd.MAX_CHUNK_ROWS} (atom, neighbour) rows; wider buckets train "
-                  "through the per-layer model")
-    reason = reason or segment_refusal(S)
+    reason = (kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
+              or wide_refusal(cfm, is_wide_backward(N)) or segment_refusal(S))
     nbytes = 0 if reason else loop_backward_memory_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the resident "
@@ -616,6 +705,9 @@ def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: 
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
+    shape = wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))
+    scratch["wide_keys"] = (None if shape is None
+                            else torch.empty(shape, device=dev, dtype=torch.float32))
     scratch.update(loop_stash_scratch(
         cfm, B, M, N, kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N), dev))
     return scratch
@@ -672,7 +764,9 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     if scratch is None:
         scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
-          or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode):
+          or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode
+          or wide_keys_shape(scratch["wide_keys"])
+          != wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))):
         raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
                          f"{scratch['rows'].shape[0]} gradient rows and stash "
                          f"{scratch_stash_mode(scratch)} handed to a batch of shape "
@@ -681,20 +775,26 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
-    name = kbwd.kernel_name("scann_loop_backward", cfm)
+    wide = is_wide_backward(N)
+    name = backward_library(cfm, N)
     kfwd.call_kernel(name, name, packed["wde"].device,
                      tensors + [scratch["dcenters"], seg, scratch["stash_rows"],
-                                scratch["stash_attn"], scratch["stash_o1"]],
+                                scratch["stash_attn"], scratch["stash_o1"],
+                                scratch["wide_keys"]],
                      dims + [atom_block, S, cluster, kbwd.stash_element_bytes(mode)], scalars,
                      rng, offsets, flat)
     kbwd.count_launch(launch_loop_backward, cfm, mode)
+    launch_loop_backward.wide_launches += wide
     return flat, pred
 
 
 def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
     """How many clusters of ``cluster`` loop-backward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``); a launch of more
-    than that many structures takes more than one wave."""
+    than that many structures takes more than one wave. The f32 kernel of
+    the build that launches N neighbours answers (``backward_library``; the
+    bf16 build, with the same launch bounds and shared memory, exports no
+    such entry)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
@@ -704,7 +804,8 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) 
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
             atom_block, 0, cluster]
-    fn = load_library("scann_loop_backward").scann_loop_backward_max_clusters
+    name = backward_library(dataclasses.replace(cfm, dtype="float32"), N)
+    fn = getattr(load_library(name), name + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     n = fn((ctypes.c_int * len(dims))(*dims), cluster)
@@ -818,8 +919,10 @@ def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
     embedding and the SCANN+ geometry embedding. Under the selective stash
     (``"f32"``, ``"bf16"``) a layer forms only its [M, D] products again
     (query and the ResidualNorm's two), and the bf16 stash also its context
-    from the rounded attention and keys in the forward pass. Elementwise
-    work, softmax and LayerNorm are left out, as in ``forward_flops``."""
+    from the rounded attention and keys in the forward pass. At a wide N the
+    recompute schedule forms the rows in both passes of the reverse walk.
+    Elementwise work, softmax and LayerNorm are left out, as in
+    ``forward_flops``."""
     D, K, E, G = cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim, cfm.global_dim
     R = M * N
     mm = lambda rows, k, n: 2 * rows * k * n
@@ -829,7 +932,8 @@ def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
     else:
         per_layer = 2 * mm(M, D, D)                                # ResidualNorm
         per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)      # query (and cw)
-        per_layer += (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)  # rows
+        rows = (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)
+        per_layer += rows * (2 if is_wide_backward(N) else 1)     # rows (wide: both passes)
         per_layer += 2 * R * D                                     # energies
     f += cfm.n_attention * per_layer
     f += mm(M, E + (10 if cfm.use_ring else 0), D)                 # embedding

@@ -82,6 +82,7 @@ from scann_tpu_torch.compat.from_jax import params_from_jax
 from scann_tpu_torch.config import ScannConfig, save_config
 from scann_tpu_torch.data.packing import packed_slot_batch
 from scann_tpu_torch.data.pipeline import PackedBucket
+from scann_tpu_torch.kernels import local_attention as kla
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
@@ -156,6 +157,12 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
                  else torch.float32)
         out[k] = torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
     return out
+
+
+def bucket_shape(b: PackedBucket) -> Tuple[int, int, int]:
+    """(M, N, S) of a bucket (S: its segments a slot, 0 unpacked)."""
+    seg = b.inputs.get("segment_onehot")
+    return (*b.shape, 0 if seg is None else seg.shape[2])
 
 
 class Trainer:
@@ -256,6 +263,26 @@ class Trainer:
         if self._packed is None or self._packed[0] != self.version:
             self._packed = (self.version, pack_params(self.params, self.config.model))
         return self._packed[1]
+
+    def wide_libraries(self, shapes, training: bool = False) -> Tuple[str, ...]:
+        """The wide builds (``_build.WIDE_SOURCES``) that batches of these
+        (M, N, S) shapes launch, by their routes: the loop forward's and
+        the per-layer kernel's in eval, the loop backward's in training; the
+        kernel modules name each route's build (``kloop.forward_library``,
+        ``kla.library``, ``kloop.backward_library``)."""
+        from scann_tpu_torch.kernels._build import WIDE_SOURCES
+
+        cfm = self.config.model
+        libs = set()
+        for M, N, S in shapes:
+            route = self.eval_route(M, N, S)
+            if route == "loop":
+                libs.add(kloop.forward_library(N)[0])
+            if route == "per_layer":
+                libs.add(kla.library(N))
+            if training and self.train_route(M, N, S) == "loop":
+                libs.add(kloop.backward_library(cfm, N))
+        return tuple(sorted(libs & set(WIDE_SOURCES)))
 
     def eval_route(self, M: int, N: int, S: int = 0) -> str:
         """Which forward a CUDA batch of shape (M, N) at S segments a slot
@@ -518,7 +545,9 @@ class Trainer:
         if self.device.type == "cuda":
             from scann_tpu_torch.kernels import _build
 
-            _build.build_all()
+            _build.build_all(_build.SOURCES + self.wide_libraries(
+                [bucket_shape(b) for b in train_buckets], training=True)
+                + self.wide_libraries([bucket_shape(b) for b in valid_buckets]))
 
         self.config.tpu.observed_buckets = [
             list(s) for s in sorted({b.shape for b in list(train_buckets) + list(valid_buckets)})]

@@ -188,7 +188,7 @@ def test_torch_training_refuses_crystal_buckets_naming_the_loop_backward():
 def test_torch_local_attention_gate_and_flops():
     kla.check_supported(128, 32, 128, 8, torch.float32)
     kla.check_supported(128, 64, 20, 8, torch.float32)
-    for bad in ((130, 32, 20, 8), (256, 32, 20, 8), (128, 72, 20, 8), (128, 32, 200, 8),
+    for bad in ((130, 32, 20, 8), (256, 32, 20, 8), (128, 264, 20, 8), (128, 32, 200, 8),
                 (128, 32, 20, 7)):
         with pytest.raises(NotImplementedError, match="sizes"):
             kla.check_supported(*bad, torch.float32)
@@ -238,7 +238,8 @@ def test_torch_local_attention_plan_matches_cuda_source(monkeypatch):
         src = f.read()
     for term in ("constexpr int kAtomBlocks[] = {64, 48, 32, 16};",
                  "p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;",
-                 "const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);",
+                 "const int chunk = N > kFwdMaxChunkRows ? fwd_wide_chunk_floats(N, D, H)\n"
+                 "                                         : fwd_chunk_floats(p.chunk_atoms * N, D, H);",
                  "const int centers = AB * (D + 4);",
                  "p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;",
                  "const long long cost = (blocks + n_sm - 1) / n_sm * AB;",
@@ -265,7 +266,7 @@ def test_torch_local_attention_plan_matches_cuda_source(monkeypatch):
     assert all(a is b for a, b in zip(again, kept))
     (_, _, _, tensors, dims, scalars), _ = seen
     assert dims == [2, 20, 8, 32, 4, 32, 1, 132, *kla.make_plan(2, 20, 8, 32, 4, True, 132)]
-    assert tensors[-3:] == [out, geo, attn]
+    assert tensors[-4:-1] == [out, geo, attn] and tensors[-1] is None   # no wide key scratch
     assert scalars == [pytest.approx(8 ** -0.5)]
     kla.fused_local_attention.launches = 0
 

@@ -95,7 +95,7 @@ def test_torch_loop_gate_refuses():
     with pytest.raises(NotImplementedError, match="float16"):
         kloop.check_supported(dataclasses.replace(MP2018, dtype="float16"), 96, 32)
     with pytest.raises(NotImplementedError, match="sizes"):
-        kloop.check_supported(MP2018, 96, 72)
+        kloop.check_supported(MP2018, 96, 264)
     # packed slots: at most MAX_SEGMENTS segments a slot, within the plan
     assert kloop.refusal(MP2018, 96, 32, 8) is None
     with pytest.raises(NotImplementedError, match="pack_max_segments"):

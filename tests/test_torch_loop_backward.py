@@ -191,7 +191,7 @@ def test_torch_loop_backward_gate_and_layout():
         kloop.check_backward_supported(MP2018, 232, 32)
     # the forward still takes what the backward leaves to the per-layer model
     assert kloop.refusal(MP2018, 232, 32) is None
-    assert "chunks of at most 32" in kloop.backward_refusal(MP2018, 96, 40)
+    assert "sizes" in kloop.backward_refusal(MP2018, 96, 264)
     assert kloop.refusal(MP2018, 96, 40) is None
     assert "use_attn_norm" in kloop.backward_refusal(
         dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
@@ -246,7 +246,8 @@ TRAIN_ROUTES = [
     (MP2018, 208, 32, "loop"),
     (MP2018, 216, 32, "loop"),
     (MP2018, 232, 32, "per_layer"),
-    (MP2018, 96, 40, "per_layer"),
+    (MP2018, 96, 40, "loop"),
+    (MP2018, 240, 96, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 24, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
 ]
@@ -364,8 +365,8 @@ def test_torch_loop_backward_plan_matches_cuda_source():
         src = f.read()
     plan = src[src.index("inline Plan make_plan"):src.index("__global__")]
     assert "p.lda = 2 * a.D + 4;" in plan and "p.ldu = a.D + 4;" in plan
-    assert re.search(r"chunk = p\.rows \* p\.lda \+ 3 \* p\.rows \* p\.ldu \+ 3 \* "
-                     r"round4\(p\.rows \* a\.H\)", plan)
+    assert re.search(r": p\.rows \* p\.lda \+ 3 \* p\.rows \* p\.ldu \+ 3 \* "
+                     r"round4\(p\.rows \* a\.H\);", plan)
     assert "p.total = p.offAcc + 2 * p.wd;" in plan
     D, H = MP2018.local_dim, MP2018.num_head
     assert kbwd.chunk_floats(32, D, H) == 32 * (2 * D + 4) + 3 * 32 * (D + 4) + 3 * 32 * H

@@ -1,0 +1,558 @@
+"""Wide neighbour lists in the PyTorch port (kernels #5, #3 and #4 past one
+chunk of rows: N up to 256) against the JAX package on the CPU, in float32.
+
+- The port's plain versions against the JAX kernels in interpret mode at
+  wide N, on seeded numpy inputs whose neighbour lists are live past one
+  chunk and carry masked edges (an atom with every neighbour masked, one
+  whose neighbours past the first 32 are masked, one with only its last
+  neighbour live): #5 (``_pallas_forward``) at N = 72 and 130, #3
+  (``loop_scann_forward``) and #4 (``loop_scann_train_grads``, at dropout
+  0.1 with attention dropout on the JAX kernel's own masks) at B = 2, M =
+  12, N = 40 and 72, L = 2, SCANN+ and SCANN. Tolerances: rtol 1e-5 / atol
+  1e-6, gradients 2e-5 x max.
+- ``split_softmax`` and ``split_softmax_backward`` (here), the wide
+  kernels' split softmax in PyTorch, against ``torch.softmax`` and its gradient at N
+  = 33 ... 256 with the -1e9 mask, an all-masked atom and an all-masked
+  sub-chunk included.
+- The gates and routes at wide N, the wide builds' launch arguments (a
+  stub in place of the CUDA library) and the plans' terms read from the
+  CUDA sources.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import scann_tpu.kernels.local_attention as jla
+from conftest import jit_init_vars
+from scann_tpu.config import ModelConfig as JaxModelConfig
+from scann_tpu.kernels import scann_loop as jax_loop
+from scann_tpu.models import ScannModel as JaxScannModel
+from scann_tpu_torch.compat import params_from_jax
+from scann_tpu_torch.config import ModelConfig, ScannConfig
+from scann_tpu_torch.kernels import _build
+from scann_tpu_torch.kernels import local_attention as kla
+from scann_tpu_torch.kernels import scann_backward as kbwd
+from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.models import init_params
+from scann_tpu_torch.train import loop as train_loop
+from test_kernels import make_layer_inputs
+from test_torch_stash import _interpreted, _jax_masks
+
+torch.set_num_threads(1)
+
+GRAD_TOL = 2e-5
+SMALL = dict(n_atoms=10, embedding_dim=16, n_attention=2, local_dim=32, num_head=4,
+             global_dim=32, dense_out=16)
+WIDE = dict(local_dim=128, num_head=8, global_dim=128, dense_out=128, scale=0.5,
+            use_attn_norm=True, use_ga_norm=True)
+MP2018 = ModelConfig(n_atoms=95, embedding_dim=128, n_attention=9, g_update=True,
+                     gaussian_d=6.0, **WIDE)
+
+
+def _masked_edges(mask):
+    """Structure 0: atom 0 with every neighbour masked, atom 1 with those past
+    the first 32 masked (whole sub-chunks of #4, most of #3's and #5's),
+    atom 2 with only its last neighbour live."""
+    N = mask.shape[2]
+    mask[0, 0] = 0.0
+    mask[0, 1, 32:] = 0.0
+    mask[0, 2] = 0.0
+    mask[0, 2, N - 1] = 1.0
+    return mask
+
+
+def _wide_batch(rng, B, M, N, use_ring=False):
+    """Valid inputs whose atoms have N/2 to N neighbours (indices repeat, as
+    periodic images do), with ``_masked_edges``."""
+    counts = rng.integers(M // 2, M + 1, size=B)
+    counts[0] = M
+    x = {"atomic": np.zeros((B, M), np.int32), "atom_mask": np.zeros((B, M, 1), np.float32),
+         "neighbors": np.zeros((B, M, N), np.int32),
+         "neighbor_mask": np.zeros((B, M, N), np.float32),
+         "neighbor_weight": np.zeros((B, M, N), np.float32),
+         "neighbor_distance": np.zeros((B, M, N), np.float32)}
+    for b, na in enumerate(counts):
+        x["atomic"][b, :na] = rng.integers(1, SMALL["n_atoms"], size=na)
+        x["atom_mask"][b, :na, 0] = 1.0
+        for m in range(na):
+            k = rng.integers(N // 2, N + 1)
+            x["neighbors"][b, m, :k] = rng.integers(0, na, size=k)
+            x["neighbor_mask"][b, m, :k] = 1.0
+            x["neighbor_weight"][b, m, :k] = rng.uniform(0.3, 3.0, size=k)
+            x["neighbor_distance"][b, m, :k] = rng.uniform(0.8, 4.0, size=k)
+    _masked_edges(x["neighbor_mask"])
+    if use_ring:
+        x["ring_aromatic"] = (rng.integers(0, 2, size=(B, M, 2)) * x["atom_mask"]
+                              ).astype(np.float32)
+    return x
+
+
+# --- #5: one LocalAttention layer -----------------------------------------------------
+
+@pytest.mark.parametrize("N", [72, 130])
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_wide_layer_matches_jax_kernel(N, g_update):
+    """The plain layer (what ``fused_local_attention`` runs on CPU tensors)
+    against the JAX per-layer kernel in interpret mode at N past one chunk of
+    64 rows, masked edges included."""
+    rng = np.random.default_rng(N)
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(
+        rng, B=2, M=10, N=N, D=32, g_update=g_update)
+    _masked_edges(mask)
+    H, scale = 4, 0.5
+    kla.check_supported(32, N, geometry.shape[-1], H, torch.float32)
+    jargs = [jnp.asarray(a) for a in (centers, idx, geometry, mask, weight)]
+    want_out, want_geo, want_attn = jla._pallas_forward(*jargs, params, H, scale, g_update,
+                                                        interpret=True)
+    flat = {f"{mod}/{name}": torch.from_numpy(np.asarray(v))
+            for mod, leaves in params.items() for name, v in leaves.items()}
+    with torch.no_grad():
+        out, geo, attn = kla.fused_local_attention(
+            *[torch.from_numpy(a) for a in (centers, idx, geometry, mask, weight)], flat, H,
+            scale, g_update)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), rtol=1e-5, atol=1e-6)
+    if g_update:
+        np.testing.assert_allclose(geo.numpy(), np.asarray(want_geo), rtol=1e-5, atol=1e-6)
+    # the all-masked atom: a uniform softmax over its N neighbours, as the JAX kernel's
+    np.testing.assert_allclose(attn[0, 0].numpy(), np.full((N, H), 1.0 / N), rtol=1e-6)
+    assert kla.fused_local_attention.launches == 0
+
+
+# --- #3 and #4: the whole-model loop kernels ----------------------------------------------
+
+CASES = {"scann+": dict(g_update=True), "scann ring": dict(g_update=False, use_ring=True)}
+
+
+def _setup(seed, N, dropout=False, **kw):
+    jcfg = JaxModelConfig(**SMALL, use_drop=dropout, **kw)
+    tcfg = ModelConfig(**SMALL, use_drop=dropout, **kw)
+    x = _wide_batch(np.random.default_rng(seed), 2, 12, N, tcfg.use_ring)
+    jparams = jax.device_get(jit_init_vars(JaxScannModel(config=jcfg), jax.random.PRNGKey(seed),
+                                           x))
+    tx = {k: torch.from_numpy(v) for k, v in x.items()}
+    return jcfg, tcfg, jparams, params_from_jax(jparams, tcfg), x, tx
+
+
+def _flat(tree):
+    return {"/".join(p.key for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("N", [40, 72])
+@pytest.mark.parametrize("case", list(CASES))
+def test_torch_wide_loop_forward_matches_jax_kernel(case, N):
+    """#3's plain version (``loop_scann_forward`` on CPU tensors) against the
+    JAX loop forward in interpret mode at N = 40 and 72 (the port's #3 takes
+    72 in its wide build)."""
+    jcfg, tcfg, jp, tp, x, tx = _setup(3, N, **CASES[case])
+    assert kloop.refusal(tcfg, 12, N) is None and kloop.is_wide(N) == (N > 64)
+    want_pred, want_ga = jax_loop.loop_scann_forward(jp, x, jcfg, interpret=True)
+    with torch.no_grad():
+        pred, ga = kloop.loop_scann_forward(tp, tx, tcfg)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want_pred), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(want_ga), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [40, 72])
+@pytest.mark.parametrize("case", list(CASES))
+def test_torch_wide_loop_train_grads_match_jax_kernel(case, N, monkeypatch):
+    """#4's plain version (``loop_scann_train_grads`` on CPU tensors) against
+    the JAX loop backward in interpret mode at N = 40 and 72 (both wide in
+    the port's #4), at dropout 0.1 with attention dropout on the JAX
+    kernel's own masks (drawn in the TPU interpret mode, as
+    ``tests/test_torch_stash.py`` draws them)."""
+    rate = 0.1
+    jcfg, tcfg, jp, tp, x, tx = _setup(4, N, dropout=True, **CASES[case])
+    assert kloop.backward_refusal(tcfg, 12, N) is None and kloop.is_wide_backward(N)
+    masks = _jax_masks("loop", 42, 2, 12, N, tcfg, rate)
+    monkeypatch.setattr(kbwd, "dropout_masks_for", lambda *a, **k: masks)
+    y = np.random.default_rng(5).normal(size=(2, 1)).astype(np.float32)
+    with _interpreted(rate) as interpret:
+        want_pred, want = jax_loop.loop_scann_train_grads(jp, x, y, jcfg, interpret=interpret,
+                                                          dropout_rate=rate, dropout_seed=42)
+    pred, got = kloop.loop_scann_train_grads(tp, tx, torch.from_numpy(y), tcfg,
+                                             dropout_rate=rate, dropout_seed=42)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want_pred).reshape(2, -1), rtol=1e-5,
+                               atol=1e-6)
+    want = _flat(want)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].detach().numpy(), w, rtol=0,
+                                   atol=GRAD_TOL * (np.abs(w).max() + 1e-8),
+                                   err_msg=f"gradient of {k}")
+
+
+# --- the split softmax of the wide kernels -----------------------------------------------
+
+def split_softmax(energies: torch.Tensor) -> torch.Tensor:
+    """The wide kernels' softmax over an atom's N neighbours (``wide_softmax``
+    of ``csrc/scann_mma.cuh``) in PyTorch, operation for operation:
+    ``energies`` [..., N] (the masked energies, -1e9 added where the mask
+    is 0) -> probabilities. Lane l of a warp holds neighbours l, l + 32,
+    ...; the max and the sum run lane by lane in that order (the sum from 0,
+    padding lanes adding 0), then across the 32 lanes in the warp's xor tree
+    (offsets 16, 8, 4, 2, 1), whose result every lane shares."""
+    N = energies.shape[-1]
+    lanes = -(-N // 32)
+    e = torch.nn.functional.pad(energies, (0, 32 * lanes - N), value=float("-inf"))
+    e = e.unflatten(-1, (lanes, 32))                       # [..., j, lane]
+    mx = _warp_tree(e.amax(-2), torch.maximum)
+    p = torch.exp(e - mx[..., None, :])
+    tot = torch.zeros_like(mx)
+    for j in range(lanes):                                 # lane by lane, in j order
+        tot = tot + p[..., j, :]
+    tot = _warp_tree(tot, torch.add)
+    return (p / tot[..., None, :]).flatten(-2)[..., :N]
+
+
+def split_softmax_backward(p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """``wide_softmax_backward`` of ``csrc/scann_mma.cuh`` in PyTorch: p and
+    f [..., N] (the attention before dropout and d attention) -> p (f - s),
+    s = sum_n p f lane by lane, then across the warp, as ``split_softmax``."""
+    N = p.shape[-1]
+    lanes = -(-N // 32)
+    pf = torch.nn.functional.pad(p * f, (0, 32 * lanes - N)).unflatten(-1, (lanes, 32))
+    s = torch.zeros_like(pf[..., 0, :])
+    for j in range(lanes):
+        s = s + pf[..., j, :]
+    s = _warp_tree(s, torch.add)[..., :1]
+    return p * (f - s)
+
+
+def _warp_tree(v: torch.Tensor, op) -> torch.Tensor:
+    """A warp's xor butterfly over the last axis of 32 lanes (``warp_sum``,
+    ``warp_max``): after offsets 16, 8, 4, 2, 1 every lane holds the same
+    value."""
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = op(v, v[..., idx ^ o])
+    return v
+
+
+
+@pytest.mark.parametrize("N", [33, 65, 96, 128, 256])
+def test_torch_wide_softmax_mirror_matches_torch_softmax(N):
+    """``split_softmax`` (lanes of 32, each summing its neighbours in order,
+    then the warp's xor tree) against ``torch.softmax`` of the same masked
+    energies, and ``split_softmax_backward`` against autograd through
+    ``torch.softmax``; rows: live, an all-masked atom (a uniform 1/N), a
+    wholly masked sub-chunk (neighbours 32-63 of a live atom), only the last
+    neighbour live, and large energies."""
+    rng = np.random.default_rng(N)
+    e = torch.from_numpy(rng.normal(size=(6, N)).astype(np.float32)) * 4.0
+    e[5] *= 20.0
+    mask = torch.ones(6, N)
+    mask[1] = 0.0
+    mask[2, 32:64] = 0.0
+    mask[3] = 0.0
+    mask[3, -1] = 1.0
+    energies = e + (1.0 - mask) * -1e9
+    p = split_softmax(energies)
+    want = torch.softmax(energies, dim=-1)
+    torch.testing.assert_close(p, want, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(p[1], torch.full((N,), 1.0 / N), rtol=1e-6, atol=0)
+    assert torch.all(p[2, 32:64] == 0) and torch.allclose(p[2].sum(), torch.tensor(1.0))
+    assert p[3, -1] == 1.0
+    f = torch.from_numpy(rng.normal(size=(6, N)).astype(np.float32))
+    leaf = energies.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(torch.softmax(leaf, dim=-1), leaf, f)
+    torch.testing.assert_close(split_softmax_backward(p, f), grad, rtol=1e-5, atol=1e-6)
+
+
+def test_torch_wide_softmax_mirror_sums_lane_by_lane():
+    """The mirror's sum is the kernel's order, not a plain sum: lane l adds
+    neighbours l, l + 32, ... in order from 0, then the 32 lane sums meet in
+    the xor tree. Held bit for bit against that order written out."""
+    rng = np.random.default_rng(1)
+    e = torch.from_numpy(rng.normal(size=(1, 200)).astype(np.float32)) * 3
+    lanes = torch.nn.functional.pad(e, (0, 24), value=float("-inf")).view(7, 32)
+    mx = lanes.max()
+    p = torch.exp(lanes - mx)
+    acc = torch.zeros(32)
+    for j in range(7):
+        acc = acc + p[j]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[torch.arange(32) ^ o]
+    assert len(set(acc.tolist())) == 1
+    want = (p / acc[0]).reshape(-1)[:200]
+    assert torch.equal(split_softmax(e)[0], want)
+
+
+# --- gates, routes, builds ------------------------------------------------------------------
+
+ROUTES = [
+    # (config, M, N, training route, eval route)
+    (MP2018, 96, 40, "loop", "fused_or_loop"),
+    (MP2018, 80, 96, "loop", "loop"),
+    (MP2018, 96, 96, "loop", "loop"),
+    (MP2018, 240, 96, "per_layer", "per_layer"),
+    (MP2018, 256, 96, "per_layer", "per_layer"),
+    (MP2018, 61, 128, "loop", "loop"),
+    (MP2018, 30, 256, "loop", "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96, "per_layer", "per_layer"),
+]
+
+
+@pytest.mark.parametrize("cfm,M,N,train,evaluate", ROUTES)
+def test_torch_wide_routes(cfm, M, N, train, evaluate):
+    """The Trainer's routes at wide N come from the gates alone: MP2018 at
+    (96, 40) and (80, 96) trains on #4's wide build, (96, 96) evaluates on
+    #3's, (240, 96) and (256, 96) go per-layer with #5's wide build taking
+    the layer; the bf16 operand mode keeps the per-layer route at wide N (the
+    wide builds run f32 operands). ``wide_libraries`` names the builds those
+    routes launch."""
+    trainer = train_loop.Trainer(ScannConfig(model=cfm), "cpu", "unused")
+    assert trainer.train_route(M, N) == train
+    got = trainer.eval_route(M, N)
+    assert got == evaluate or (evaluate == "fused_or_loop" and got in ("fused", "loop"))
+    if evaluate == "per_layer":
+        kla.check_supported(cfm.local_dim, N, cfm.num_gaussian, cfm.num_head, torch.float32)
+    libs = trainer.wide_libraries([(M, N, 0)], training=True)
+    want = set()
+    if train == "loop" and N > kbwd.MAX_CHUNK_ROWS:
+        want.add("scann_loop_backward_wide")
+    if got == "loop" and N > kfwd.MAX_CHUNK_ROWS:
+        want.add("scann_loop_wide")
+    if got == "per_layer" and N > kla.MAX_CHUNK_ROWS:
+        want.add("local_attention_wide")
+    assert set(libs) == want and set(libs) <= set(_build.WIDE_SOURCES)
+
+
+def test_torch_wide_gates_at_the_edges():
+    """The wide builds stop at N = 256 (``MAX_NEIGHBORS``, the CUDA sources'
+    kWideMaxN) in all three kernels; #1 and #2 keep their chunk limits."""
+    assert kla.MAX_NEIGHBORS == kfwd.MAX_NEIGHBORS == 256
+    for src in ("scann_mma.cuh",):
+        with open(f"{_build.SRC_DIR}/{src}") as f:
+            assert "constexpr int kWideMaxN = 256;" in f.read()
+    kla.check_supported(128, 256, 20, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="sizes"):
+        kla.check_supported(128, 257, 20, 8, torch.float32)
+    assert kloop.refusal(MP2018, 30, 256) is None and "sizes" in kloop.refusal(MP2018, 30, 257)
+    assert kloop.backward_refusal(MP2018, 30, 256) is None
+    assert "sizes" in kloop.backward_refusal(MP2018, 30, 257)
+    assert "sizes" in kfwd.refusal(MP2018, 32, 65) and kfwd.refusal(MP2018, 32, 64) is None
+    assert kbwd.refusal(ModelConfig(), 32, 33) is not None
+    assert "bfloat16" in kloop.refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96)
+    assert kloop.refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 64) is None
+
+
+def _stub(monkeypatch):
+    """A recorder in place of the CUDA library; the launch counts it moves are
+    put back after the test."""
+    calls = []
+    for launcher in (kla.fused_local_attention, kloop.launch_loop_forward,
+                     kloop.launch_loop_backward):
+        for name in ("launches", "bf16_launches", "wide_launches", "stash_launches",
+                     "bf16_stash_launches"):
+            if hasattr(launcher, name):
+                monkeypatch.setattr(launcher, name, getattr(launcher, name))
+
+    def stub(library, symbol, dev, tensors, dims, *rest):
+        calls.append((library, symbol, tensors, dims))
+        out = rest[-1] if len(rest) == 4 else None
+        if out is not None:
+            out.zero_()
+
+    monkeypatch.setattr(kfwd, "call_kernel", stub)
+    monkeypatch.setattr(kbwd, "call_kernel", stub)
+    return calls
+
+
+@pytest.mark.parametrize("N", [32, 48, 96])
+def test_torch_wide_launch_arguments(N, monkeypatch):
+    """A wide N launches the wide builds: #3 above 64, #4 above 32, each with
+    a key scratch of [B * C, N, D] f32 last among its pointers (None in the
+    narrow builds), and counts ``.wide_launches``; a kept scratch without the
+    key scratch is refused at a wide N."""
+    calls = _stub(monkeypatch)
+    cfm = ModelConfig(**SMALL, g_update=True)
+    x = {k: torch.from_numpy(v) for k, v in _wide_batch(np.random.default_rng(0), 2, 12, N)
+         .items()}
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cpu"), cfm)
+    fwd0, bwd0 = kloop.launch_loop_forward.wide_launches, kloop.launch_loop_backward.wide_launches
+    kloop._launch(packed, x, cfm, False, 0.0, 0, 0, 2)
+    kloop._launch_backward(packed, x, cfm, torch.zeros(2, 1), None, True, cluster=2)
+    (lib_f, sym_f, t_f, d_f), (lib_b, sym_b, t_b, d_b) = calls
+    wide3, wide4 = N > 64, N > 32
+    assert (lib_f, sym_f) == (("scann_loop_wide", "scann_loop_forward_wide") if wide3
+                              else ("scann_loop", "scann_loop_forward"))
+    assert lib_b == sym_b == ("scann_loop_backward_wide" if wide4 else "scann_loop_backward")
+    assert len(t_f) == 52 and len(t_b) == 60
+    for wide, keys in ((wide3, t_f[-1]), (wide4, t_b[-1])):
+        assert (keys is None) == (not wide)
+        if wide:
+            assert tuple(keys.shape) == (2 * 2, N, cfm.local_dim) and keys.dtype == torch.float32
+    chunk_atoms = d_f[16]
+    assert chunk_atoms == (1 if wide3 else max(1, 64 // N))
+    assert kloop.launch_loop_forward.wide_launches - fwd0 == wide3
+    assert kloop.launch_loop_backward.wide_launches - bwd0 == wide4
+    if wide4:
+        narrow = kloop.loop_backward_scratch(packed, cfm, 2, 12, 32, 2)
+        bad = dict(kloop.loop_backward_scratch(packed, cfm, 2, 12, N, 2), wide_keys=None)
+        assert narrow["wide_keys"] is None
+        with pytest.raises(ValueError, match="wide keys|scratch"):
+            kloop._launch_backward(packed, x, cfm, torch.zeros(2, 1), None, True,
+                                   scratch=bad, cluster=2)
+
+
+@pytest.mark.parametrize("N", [64, 96, 200])
+def test_torch_wide_layer_launch_arguments(N, monkeypatch):
+    """#5 at N past 64 launches ``local_attention_wide`` (f32) or
+    ``local_attention_wide_bf16`` with the per-block key scratch [blocks, N,
+    D], and its plan (one atom a chunk, 64-row sub-chunks and the atom's
+    energies [N, H]) is ``block_plan``'s."""
+    calls = _stub(monkeypatch)
+    monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
+    rng = np.random.default_rng(N)
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(rng, B=2, M=20, N=N, D=32)
+    flat = {f"{mod}/{name}": torch.from_numpy(np.asarray(v))
+            for mod, leaves in params.items() for name, v in leaves.items()}
+    t = [torch.from_numpy(a) for a in (centers, idx, geometry, mask, weight)]
+    before = kla.fused_local_attention.wide_launches
+    for dt in (torch.float32, torch.bfloat16):
+        kla._launch(*[a.to(dt) if a.is_floating_point() else a for a in t],
+                    {k: v.to(dt) for k, v in flat.items()}, 4, 0.5, True)
+    plan = kla.make_plan(2, 20, N, 32, 4, True, 132)
+    wide = N > 64
+    for (lib, sym, tensors, dims), suffix in zip(calls, ("", "_bf16")):
+        assert lib == ("local_attention_wide" if wide else "local_attention")
+        assert sym == lib + suffix
+        assert len(tensors) == 19 and (tensors[-1] is None) == (not wide)
+        if wide:
+            assert tuple(tensors[-1].shape) == (2 * -(-20 // plan[0]), N, 32)
+        assert dims[8:] == list(plan)
+    assert kla.fused_local_attention.wide_launches - before == 2 * wide
+    r4 = lambda v: -(-v // 4) * 4
+    ab = plan[0]
+    chunk = (64 * (2 * 32 + 4) + 64 * (32 + 4) + r4(N * 4) if wide
+             else kfwd.forward_chunk_floats(plan[1] * N, 32, 4))
+    assert plan[2] == 4 * (2 * ab * 36 + max(chunk, ab * 36))
+
+
+def test_torch_wide_plans_match_cuda_sources():
+    """The wide plans' terms as the CUDA sources write them: the forwards'
+    chunk region (a 64-row sub-chunk and the atom's energies [N, H],
+    ``fwd_wide_chunk_floats``), #3's and #5's choice of it by N, and #4's
+    wide chunk (a 32-row sub-chunk, the atom's attention and d attention [N,
+    H], the dropout mask of the sub-chunk and the d query sum [wd]); the
+    Python mirrors give the same floats."""
+    with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
+        common = f.read()
+    assert ("return kFwdMaxChunkRows * (2 * D + 4) + kFwdMaxChunkRows * (D + 4) + "
+            "round4(N * H);") in common
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        loop = f.read()
+    assert "p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;" in loop
+    assert ("int w = kWide ? fwd_wide_chunk_floats(a.N, a.D, a.H) : "
+            "fwd_chunk_floats(p.rows, a.D, a.H);") in loop
+    with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
+        bwd = f.read()
+    assert "p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert ("const int chunk = kWide ? p.rows * p.lda + 3 * p.rows * p.ldu + "
+            "2 * round4(a.N * a.H) +\n                                round4(p.rows * a.H) + p.wd"
+            ) in bwd
+    for name in _build.WIDE_SOURCES:
+        files = _build.source_files(name)
+        assert files[1].endswith(name.replace("_wide", "") + ".cu"), files
+    r4 = lambda v: -(-v // 4) * 4
+    D, H, wd = 128, 8, 128
+    for N in (72, 96, 256):
+        assert kfwd.forward_wide_chunk_floats(N, D, H) == 64 * (2 * D + 4) + 64 * (D + 4) + r4(
+            N * H)
+        _, block, work, nbytes = kloop.loop_memory_plan(MP2018, 80, N)
+        assert work >= kfwd.forward_wide_chunk_floats(N, D, H)
+        assert nbytes == 4 * (80 * wd + 2 * block * (wd + 4) + work)
+    for N in (40, 96, 256):
+        chunk_atoms, block, nbytes = kloop.loop_backward_memory_plan(MP2018, 60, N)
+        rows = 32
+        chunk = rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H) + wd
+        O = MP2018.dense_out
+        work = max(chunk, 5 * block * wd + r4(block), block * 2 * 128 + block * wd,
+                   block * wd + 4 * wd + 5 * 60 + 3 * O + 4)
+        assert chunk_atoms == 1
+        assert nbytes == 4 * (60 * wd + 5 * block * wd + work + 8 * 2 * wd + 2 * wd)
+    # the wide backward falls back to blocks of 4 atoms where 8 do not fit
+    assert kloop.loop_backward_memory_plan(MP2018, 240, 48)[1] == 4
+    assert kloop.loop_backward_memory_plan(MP2018, 220, 48)[1] == 8
+    assert kloop.loop_backward_memory_plan(MP2018, 226, 32)[1] == 8
+
+
+def _between(text, start, end):
+    """The text of ``text`` from the first ``start`` up to the next ``end``."""
+    i = text.index(start)
+    return text[i:text.index(end, i + len(start))]
+
+
+def test_torch_wide_row_copy_matches_fwd_chunk():
+    """The wide forward's copies of ``fwd_chunk``'s code in
+    ``csrc/scann_forward_common.cuh`` (kept apart so that the narrow builds
+    compile as they did) are that code, character for character:
+    ``fwd_chunk_rows`` is its row part (the geometry update or the filter,
+    the LayerNorm of the geometry, the key product) and ``fwd_out_norm``'s
+    loop its LayerNorm of ctx + query."""
+    with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
+        common = f.read()
+    chunk = _between(common, "__device__ __forceinline__ void fwd_chunk(",
+                     "\n// The wide form of fwd_chunk")
+    rows = _between(common, "__device__ __forceinline__ void fwd_chunk_rows(",
+                    "\n// out = LN(ctx + query)")
+    norm = _between(common, "__device__ __forceinline__ void fwd_out_norm(",
+                    "\n// LocalAttention of one staged chunk")
+    body = _between(rows, "  if (a.g_update) {\n", "\n}\n")
+    assert body.count("mma_gemm<kBf16>") == 3 and "warp_layer_norm_rows" in body
+    assert _between(chunk, "  if (a.g_update) {\n", "  // energies (query * dk)") == body + "\n"
+    loop = _between(norm, "  for (int at = warp; at < ca; at += kWarps) {", "\n}\n")
+    assert "warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);" in loop
+    assert _between(chunk, "  // out = LN(ctx + query), one warp per atom\n",
+                    "\n}\n") == "  // out = LN(ctx + query), one warp per atom\n" + loop
+
+
+@pytest.mark.parametrize("N", [32, 48, 64, 96])
+def test_torch_wide_max_clusters_read_the_launched_build(N, monkeypatch):
+    """``max_active_forward_clusters`` and ``max_active_clusters`` ask the
+    build that a launch at N takes (``forward_library``,
+    ``backward_library``: the wide one past 64 and 32 neighbours), with that
+    build's plan, and each build exports its own entry (read from the CUDA
+    sources)."""
+    asked = []
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, symbol):
+            def entry(dims, cluster):
+                asked.append((self.name, symbol, list(dims), cluster))
+                return 7
+            return entry
+
+    monkeypatch.setattr(_build, "load_library", Lib)
+    assert kloop.max_active_forward_clusters(MP2018, 16, 60, N, 4) == 7
+    assert kloop.max_active_clusters(MP2018, 16, 60, N, 4) == 7
+    assert kloop.max_active_clusters(dataclasses.replace(MP2018, dtype="bfloat16"), 16, 60,
+                                     min(N, 32), 2) == 7
+    (lib_f, sym_f, dims_f, _), (lib_b, sym_b, dims_b, _), (lib_16, _, _, _) = asked
+    assert (lib_f, sym_f) == ((("scann_loop_wide", "scann_loop_forward_wide_max_clusters"))
+                              if N > 64 else ("scann_loop", "scann_loop_forward_max_clusters"))
+    assert (lib_b, sym_b) == ((("scann_loop_backward_wide",
+                                "scann_loop_backward_wide_max_clusters"))
+                              if N > 32 else ("scann_loop_backward",
+                                              "scann_loop_backward_max_clusters"))
+    assert lib_16 == "scann_loop_backward"   # the bf16 build's occupancy is the f32 kernel's
+    chunk_atoms, block, work, _ = kloop.loop_memory_plan(MP2018, 60, N)
+    assert (dims_f[16], dims_f[17], dims_f[20]) == (chunk_atoms, work, block)
+    assert dims_b[21] == kloop.loop_backward_memory_plan(MP2018, 60, N)[1]
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        assert 'extern "C" int SCANN_LOOP_ENTRY(max_clusters)(' in f.read()
+    with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
+        bwd = f.read()
+    assert "return max_clusters<true>(dims, cluster);" in bwd
+    assert 'extern "C" int scann_loop_backward_wide_max_clusters(' in bwd
