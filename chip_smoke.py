@@ -552,7 +552,7 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
     S = kfwd.segment_count(x)
-    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N, S)
+    chunk_atoms, block, _ = kloop.backward_plan(cfm, M, N, S)
     own = kloop.cluster_size(B)
     packed = kfwd.pack_params(p, cfm)
     pred0, g0 = kloop.reference_loop_train_grads(p, x, y, cfm, mrelu, rate, seed)
@@ -580,7 +580,7 @@ def hold_loop_backward(label, cfm, p, x, y, mrelu, rate, seed, failures, ct=None
             torch.cuda.synchronize()
             worst = max(worst, hold_backward(tag, "ct_ga", None, None, g1, g2, line, failures))
         if relaunches:
-            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C)
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, S=S)
             differ = set()
             for i in range(relaunches):
                 for t in scratch.values():
@@ -1211,7 +1211,7 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
 
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    chunk_atoms, block, _, _ = kloop.loop_memory_plan(cfm, M, N, kfwd.segment_count(x))
+    chunk_atoms, block, _, _ = kloop.forward_plan(cfm, M, N, kfwd.segment_count(x))
     own = kloop.cluster_size(B)
     packed = kfwd.pack_params(p, cfm)
     with torch.inference_mode():
@@ -1229,7 +1229,8 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
         worst = max(worst, hold(tag, [("pred", pred, pred0, ATOL), ("ga", ga, ga0, ATOL)],
                                 failures))
         if relaunches:
-            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C)
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C,
+                                                 kfwd.segment_count(x))
             differ = set()
             with torch.inference_mode():
                 for i in range(relaunches):
@@ -1271,7 +1272,8 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         for C in clusters:
             C = kloop.cluster_size(B) if C is None else C
-            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C)
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C,
+                                                 kfwd.segment_count(x))
             ms, plain_ms = in_turns_ms(
                 lambda: kloop.reference_loop_forward(params, x, cfm),
                 lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 3, 10)
@@ -1691,8 +1693,10 @@ def phase8(mp2018, run_dir, failures, card):
     """The crystal serving path: PredictionServer over the MP2018 model that
     phase 10 trained, loaded from its run directory
     (``BatchedPredictor.from_model_dir``), synthetic periodic crystals posted
-    as CIF and as JSON. Returns the launches of (the loop kernel, the
-    per-layer kernel) on that path."""
+    as CIF and as JSON; every rung takes the loop kernel (the 200-site
+    crystal's rung M = 256 its tall build), none the per-layer kernel.
+    Returns the launches of (the loop kernel, the per-layer kernel) on that
+    path."""
     from scann_tpu_torch.data.cif import parse_cif
     from scann_tpu_torch.data.structure import Structure
     from scann_tpu_torch.data.synthetic import _random_crystal
@@ -1705,6 +1709,7 @@ def phase8(mp2018, run_dir, failures, card):
     counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
     for c in counters:
         c.launches = 0                               # counts of the serving path only
+    kloop.launch_loop_forward.tall_launches = 0
     t_serve = time.time()
     predictor = BatchedPredictor.from_model_dir(run_dir, max_batch=64, window_ms=20.0,
                                                 warmup_shapes=[])
@@ -1765,6 +1770,7 @@ def phase8(mp2018, run_dir, failures, card):
     torch.cuda.synchronize()
     serve_s = time.time() - t_serve
     fused_n, loop_n, layer_n = (c.launches for c in counters)
+    tall_n = kloop.launch_loop_forward.tall_launches
     del scann.trainer.forward_eval
     spans.close()
     spans.report("phase 8", wall, card)
@@ -1801,18 +1807,20 @@ def phase8(mp2018, run_dir, failures, card):
                             f"({err_v:.3e}, {err_g:.3e})")
     taken = {r: [(M, N, B) for q, M, N, B in routes if q == r]
              for r in ("fused", "loop", "per_layer")}
+    tall_want = sum(kloop.is_tall(mp2018, M, N) for M, N, _ in taken["loop"])
     print(f"crystal serving from {run_dir}: {len(answers)} requests, {len(routes)} device "
           f"batches (the warm-up's included) by route, as (M, N, B): {taken}; launches: "
-          f"molecule kernel {fused_n}, loop kernel {loop_n}, per-layer kernel {layer_n}; "
-          f"{serve_s:.1f} s from predictor start  [{card}]", flush=True)
+          f"molecule kernel {fused_n}, loop kernel {loop_n} ({tall_n} of its tall build), "
+          f"per-layer kernel {layer_n}; {serve_s:.1f} s from predictor start  [{card}]",
+          flush=True)
     if sum(B for _, _, _, B in routes[1:]) != len(crystals):
         failures.append(f"served batches {routes[1:]} do not hold each of the {len(crystals)} "
                         "crystals once")
-    L = mp2018.n_attention
     if (loop_n == 0 or loop_n != len(taken["loop"]) or fused_n != len(taken["fused"])
-            or len(taken["per_layer"]) != 1 or layer_n != L * len(taken["per_layer"])):
+            or taken["per_layer"] or layer_n != 0 or tall_n != tall_want or tall_n == 0):
         failures.append(f"launches do not match the routes taken: {taken}, molecule {fused_n}, "
-                        f"loop {loop_n}, per-layer {layer_n} (L={L})")
+                        f"loop {loop_n} ({tall_n} tall, {tall_want} wanted), per-layer "
+                        f"{layer_n}")
     return loop_n, layer_n
 
 
@@ -2166,10 +2174,13 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
     check_served("phase 14 bf16 QM9 model", qm9, mols, qm9_answers, failures)
     check_served("phase 14 bf16 MP2018 model", mp, crystals, mp_answers, failures)
     print(f"phase 14: {time.time() - t0:.1f} s  [{card}]", flush=True)
-    return [bf16_row(f"{n}-bf16", kernel, mod.SOURCE, mod.REPLACES, launches[n], worst[n],
+    rows = [bf16_row(f"{n}-bf16", kernel, mod.SOURCE, mod.REPLACES, launches[n], worst[n],
                      times[n], plain_ms[n], *work[n], card, bf16_products=n != 5)
             for n, kernel, mod in ((1, "scann_forward", kfwd), (3, "scann_loop", kloop),
                                    (5, "local_attention", kla))]
+    # the per-layer group's later layers: #5's f32 entry, on this main path
+    rows[-1]["f32_entry_launches"] = layer_all - launches[5]
+    return rows
 
 
 # ---- phase 15: model.dtype bfloat16 training (#2 and #4 in the bf16 operand mode) ----
@@ -2969,6 +2980,25 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
     return worst, timing
 
 
+def plain_loop_trainer():
+    """The Trainer class with the plain version of the crystal backward in
+    place of every kernel step (the loop route's ``reference_loop_train_grads``
+    on the same rows, parameters and dropout seed)."""
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.train.loop import Trainer
+
+    class PlainTrainer(Trainer):
+        """The same Trainer with the plain version of every backward."""
+
+        def raw_grads(self, batch, y, seed):
+            pred, raw = kloop.reference_loop_train_grads(
+                self.params, batch, y, self.config.model, self.mrelu_head,
+                self.dropout_rate, seed)
+            return pred[:, 0], raw
+
+    return PlainTrainer
+
+
 def phase10(mp2018, failures, card):
     """The crystal training path: 2 epochs through Scann.prepare_dataset ->
     train -> evaluate on synthetic periodic crystals of 20-90 sites at the
@@ -2988,15 +3018,7 @@ def phase10(mp2018, failures, card):
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.train.loop import Trainer, _to_device
 
-    class PlainTrainer(Trainer):
-        """The same Trainer with the plain version of every backward."""
-
-        def raw_grads(self, batch, y, seed):
-            pred, raw = kloop.reference_loop_train_grads(
-                self.params, batch, y, self.config.model, self.mrelu_head,
-                self.dropout_rate, seed)
-            return pred[:, 0], raw
-
+    PlainTrainer = plain_loop_trainer()
     work = tempfile.mkdtemp(prefix="scann_chip_smoke_crystals_")
     n_crystals = 480       # host Voronoi of periodic cells: 0.065-0.085 s a crystal
     t0 = time.time()
@@ -3166,8 +3188,10 @@ def phase10(mp2018, failures, card):
     del one
 
     # ---- the third route: one step on structures beyond the backward's gate --
+    # (past the wide build's plan at N = 64: the tall build takes M past the
+    # narrow plan only at N <= 32)
     rng = np.random.default_rng(10)
-    M, N, B = 240, 32, 8
+    M, N, B = 248, 64, 8
     x = synthetic_batch(rng, B, M, N, n_atoms=mp2018.n_atoms, min_atoms=150)
     y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
     outcome = []
@@ -3739,7 +3763,7 @@ def hold_wide_backward(label, cfm, p, x, y, rate, seed, failures, clusters=(1, 2
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
     S = kfwd.segment_count(x)
-    chunk_atoms, block, _ = kloop.loop_backward_memory_plan(cfm, M, N, S)
+    chunk_atoms, block, _ = kloop.backward_plan(cfm, M, N, S)
     packed = kfwd.pack_params(p, cfm)
     plain32 = kloop.reference_loop_train_grads(p, x, y, cfm, False, rate, seed)
     plain16 = kloop.reference_loop_stash_train_grads(p, x, y, cfm, False, rate, seed,
@@ -3750,7 +3774,7 @@ def hold_wide_backward(label, cfm, p, x, y, rate, seed, failures, clusters=(1, 2
                f"per structure) dropout {rate}")
         got, differ = {}, set()
         for mode in ("f32", None, "bf16"):
-            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, mode)
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, mode, S)
             for i in range(1 + (relaunches if mode != "bf16" else 0)):
                 if i:
                     for t in scratch.values():
@@ -3798,7 +3822,6 @@ def phase17_loops(mp2018, ptgp, failures, card):
     error, worst #4 error, #3 timing, #4 timing)."""
     import dataclasses
 
-    from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
@@ -3829,23 +3852,38 @@ def phase17_loops(mp2018, ptgp, failures, card):
               f"{time.time() - t0:.1f} s", flush=True)
     x = wide_batch(rng, 16, 80, 96, mp2018)
     fwd = time_loop_forward("MP2018 wide", mp2018, x, card)[kloop.cluster_size(16)]
-    params = init_params(mp2018, torch.Generator().manual_seed(0), "cuda")
-    packed = kfwd.pack_params(params, mp2018)
-    B, M, N = 16, 80, 96
-    y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+    return worst3, worst4, fwd, time_loop_schedules("wide", "MP2018", mp2018, x, card)
+
+
+def time_loop_schedules(build, name, cfm, x, card):
+    """#4 at one batch shape in the f32 stash and in the recompute schedule
+    (dropout 0.1, one-shot), each in turns with its plain version (plain,
+    kernel, kernel, plain), against its bound; ``build`` names the build in
+    the printed lines. Returns the f32 stash's times with the recompute
+    schedule's beside them."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(params, cfm)
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    y = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 1)).astype(np.float32)).cuda()
     bwd = {}
     for mode in ("f32", None):
-        scratch = kloop.loop_backward_scratch(packed, mp2018, B, M, N, stash=mode)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, stash=mode)
         ms, plain_ms = in_turns_ms(
-            lambda: kloop.reference_loop_train_grads(params, x, y, mp2018, False, 0.1, 7),
-            lambda: kloop._launch_backward(packed, x, mp2018, y, None, True, False, 0.1, 7, 0,
+            lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7),
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
                                            scratch, stash=mode), 3, 8)
         del scratch
-        flops = kloop.loop_backward_flops(mp2018, B, M, N)
+        flops = kloop.loop_backward_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
         nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
-        bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(mp2018, B, M, N))
-        print(f"scann_loop_backward (wide) at MP2018 B={B} M={M} N={N} L={mp2018.n_attention} "
+        bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
+        print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention} "
               f"({'the f32 stash' if mode else 'the recompute schedule'}; dropout 0.1, one-shot; "
               f"timed in turns: plain, kernel, kernel, plain): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
@@ -3853,9 +3891,8 @@ def phase17_loops(mp2018, ptgp, failures, card):
         bwd[mode or "recompute"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                                     "bound_by": by, "measured_bound_ms": measured,
                                     "flops": flops}
-    timing4 = dict(bwd["f32"], schedule="f32", recompute_ms=bwd["recompute"]["ms"],
-                   recompute_plain_ms=bwd["recompute"]["plain_ms"])
-    return worst3, worst4, fwd, timing4
+    return dict(bwd["f32"], schedule="f32", recompute_ms=bwd["recompute"]["ms"],
+                recompute_plain_ms=bwd["recompute"]["plain_ms"])
 
 
 def phase17_paths(mp2018, failures, card):
@@ -3985,6 +4022,306 @@ def phase17(mp2018, ptgp, failures, card):
 
 
 
+# ---- phase 18: tall structures in #3 and #4 (the centers read from L2) ----------------------
+
+def tall_against_narrow(label, cfm, x, failures):
+    """The tall builds forced (``tall=True``) at a shape the narrow builds
+    take, against the narrow builds at 1, 2 and 4 blocks a structure: #3 at
+    dropout 0.1 and #4 (one-shot, dropout 0.1) in its three schedules, bit
+    for bit (the same atom blocks; only where the rows live differs).
+    Returns whether every pair was equal."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(18), "cuda"), cfm)
+    y = torch.from_numpy(np.random.default_rng(18).normal(size=(B, 1)).astype(np.float32)).cuda()
+    differ, before = [], (kloop.launch_loop_forward.tall_launches,
+                          kloop.launch_loop_backward.tall_launches)
+    with torch.inference_mode():
+        for C in (1, 2, 4):
+            narrow = kloop._launch(packed, x, cfm, False, 0.1, 11, 0, C)
+            tall = kloop._launch(packed, x, cfm, False, 0.1, 11, 0, C, tall=True)
+            differ += [f"#3 C={C} {w}" for w, a, b in zip(("pred", "ga"), narrow, tall)
+                       if not torch.equal(a, b)]
+            for mode in ("f32", None, "bf16"):
+                # the gradients by name (the flat vector's alignment gaps are not written)
+                got = [(pred, kbwd.grads_from_flat(flat, packed, cfm)) for flat, pred in (
+                    kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0, None,
+                                           C, stash=mode, tall=t) for t in (False, True))]
+                (p0, g0), (p1, g1) = got
+                if not (torch.equal(p0, p1) and all(torch.equal(g0[k], g1[k]) for k in g0)):
+                    differ.append(f"#4 C={C} stash {mode}")
+    torch.cuda.synchronize()
+    ran = (kloop.launch_loop_forward.tall_launches - before[0],
+           kloop.launch_loop_backward.tall_launches - before[1])
+    blocks = (kloop.forward_plan(cfm, M, N)[1], kloop.backward_plan(cfm, M, N)[1])
+    print(f"{label} B={B} M={M} N={N}: tall=True against the narrow build at C = 1, 2, 4 "
+          f"(atom blocks #3 {blocks[0]}, #4 {blocks[1]}; #3 at dropout 0.1, #4 in its three "
+          f"schedules; {ran} tall launches): bit-identical {not differ}", flush=True)
+    if differ or ran != (3, 9):
+        failures.append(f"{label}: the tall build differs from the narrow one in {differ} "
+                        f"({ran} tall launches)")
+    return not differ
+
+
+def phase18_holds(mp2018, ptgp, failures):
+    """#3's and #4's tall builds against their plain versions at the TPU
+    gates' edges, full width, B = 2: Pt/graphene (322, 32) and (573, 16),
+    MP2018 (428, 16), and MP2018-like crystals packed at capacity 300 (N =
+    32, up to 8 segments a slot); at 1, 2 and 4 blocks a structure, with
+    NaN- and constant-filled relaunches; #4 in its three schedules at
+    dropout 0.1 with attention dropout (``hold_wide_backward``: the f32
+    stash bit-equal to recompute). Then ``tall=True`` against the narrow
+    builds at MP2018 (4, 96, 32) and Pt/graphene (4, 128, 32). Returns (worst
+    #3 error, worst #4 error)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(18)
+    mp_drop = dataclasses.replace(mp2018, use_drop=True)
+    pt_drop = dataclasses.replace(ptgp, use_drop=True)
+    pt = dict(use_ring=True, n_atoms=ptgp.n_atoms)
+    cases = (("Pt/graphene", pt_drop, synthetic_batch(rng, 2, 322, 32, min_atoms=300, **pt)),
+             ("Pt/graphene", pt_drop, synthetic_batch(rng, 2, 573, 16, min_atoms=540, **pt)),
+             ("MP2018", mp_drop, synthetic_batch(rng, 2, 428, 16, n_atoms=mp2018.n_atoms,
+                                                 min_atoms=400)),
+             ("MP2018 packed", mp_drop, pack_batch(synthetic_batch(
+                 rng, 10, 100, 32, n_atoms=mp2018.n_atoms, min_atoms=60), 300)))
+    worst3 = worst4 = 0.0
+    for name, cfm, x in cases:
+        t0 = time.time()
+        B, M = x["atom_mask"].shape[:2]
+        N, S = x["neighbors"].shape[2], kfwd.segment_count(x)
+        if not (kloop.is_tall(cfm, M, N, S) and kloop.is_tall_backward(cfm, M, N, S)):
+            raise AssertionError(f"phase 18: {name} {(B, M, N, S)} is not a tall shape")
+        p = init_params(cfm, torch.Generator().manual_seed(18), "cuda")
+        y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
+        worst3 = max(worst3, hold_loop_forward(f"phase 18 #3 tall {name}", cfm, p, x, failures,
+                                               rate=0.1, clusters=(1, 2, 4), relaunches=2))
+        worst4 = max(worst4, hold_wide_backward(f"phase 18 #4 tall {name}", cfm, p, x, y, 0.1,
+                                                7, failures))
+        print(f"phase 18 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
+              f"{time.time() - t0:.1f} s", flush=True)
+    tall_against_narrow("phase 18 MP2018", mp2018,
+                        synthetic_batch(rng, 4, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20),
+                        failures)
+    tall_against_narrow("phase 18 Pt/graphene", ptgp,
+                        synthetic_batch(rng, 4, 128, 32, min_atoms=20, **pt), failures)
+    return worst3, worst4
+
+
+def phase18_times(mp2018, ptgp, card):
+    """#3's and #4's tall builds at the Pt/graphene batch of 16 at (322,
+    32), in turns with their plain versions (#4 in the f32 stash and the
+    recompute schedule); then each tall build against its narrow build at
+    MP2018 (64, 96, 32) in turns (narrow, tall, tall, narrow; #4 in the
+    schedule the shape takes, the f32 stash). Returns (#3 timing, #4
+    timing), the latter two with the tall-against-narrow times."""
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(181)
+    x = synthetic_batch(rng, 16, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
+    t3 = time_loop_forward("Pt/graphene tall", ptgp, x, card)[kloop.cluster_size(16)]
+    t4 = time_loop_schedules("tall", "Pt/graphene", ptgp, x, card)
+    del x
+    x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
+    B, M, N = 64, 96, 32
+    packed = kfwd.pack_params(init_params(mp2018, torch.Generator().manual_seed(0), "cuda"),
+                              mp2018)
+    y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        scratch = [kloop.loop_forward_scratch(mp2018, B, M, N, "cuda", tall=t)
+                   for t in (False, True)]
+        fwd = in_turns_ms(lambda: kloop._launch(packed, x, mp2018, False, 0.0, 0, 0, None,
+                                                scratch[0]),
+                          lambda: kloop._launch(packed, x, mp2018, False, 0.0, 0, 0, None,
+                                                scratch[1], tall=True), 10, 10)
+    del scratch
+    mode = kloop.loop_stash_mode(mp2018, B, M, N)
+    scratch = [kloop.loop_backward_scratch(packed, mp2018, B, M, N, stash=mode, tall=t)
+               for t in (False, True)]
+    bwd = in_turns_ms(lambda: kloop._launch_backward(packed, x, mp2018, y, None, True, False,
+                                                     0.1, 7, 0, scratch[0]),
+                      lambda: kloop._launch_backward(packed, x, mp2018, y, None, True, False,
+                                                     0.1, 7, 0, scratch[1], tall=True), 5, 5)
+    del scratch
+    C = kloop.cluster_size(B)
+    for what, (tall_ms, narrow_ms), t in (("scann_loop", fwd, t3),
+                                          (f"scann_loop_backward ({mode} stash)", bwd, t4)):
+        print(f"{what} at MP2018 B={B} M={M} N={N}, C={C} (timed in turns: narrow, tall, tall, "
+              f"narrow): tall build {tall_ms:.4f} ms, narrow build {narrow_ms:.4f} ms "
+              f"({100 * (tall_ms / narrow_ms - 1):+.1f}%)  [{card}]", flush=True)
+        t.update(tall_ms_mp2018=tall_ms, narrow_ms_mp2018=narrow_ms)
+    return t3, t4
+
+
+def phase18_paths(mp2018, failures, card):
+    """The main paths at tall M, through the entry points a user calls, with
+    the launch counts set to 0 just before: ``Scann.predict_featurized`` of
+    a 300-site crystal with up to 24 neighbours (ladder (384, 24): #3's tall
+    build, no #5 launch), held to the eager model; then ``Scann.train`` for
+    2 epochs of an MP2018 model at the recipes' learning rate on 120
+    synthetic periodic crystals of 240-300 sites (the data phase 10 trains
+    on: featurized on the host, a target that is a function of the
+    structure) in one bucket padded to 32 neighbours, whose steps must all
+    take the "loop" route (#4's tall build, one launch a step), with finite
+    epoch losses, the last lower than the first, and the bucket's loss
+    without dropout lower after training than before (the first epoch's
+    6 Adam steps from random weights overshoot: the loss falls from the
+    second). The Trainer's first step (B = 16 at its cluster size, on the
+    scratch it keeps for the fit) is held to the plain version on the same
+    batch first, and the same epochs with the plain step
+    (``plain_loop_trainer``) must give the same losses. Returns the
+    launches of #3 and #4 (tall) on these paths."""
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.data.synthetic import make_synthetic_dataset
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+
+    rng = np.random.default_rng(182)
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_tall_")
+    cfg = ScannConfig(model=mp2018,
+                      hyper=HyperConfig(batch_size=16, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                        epochs=1, seed=0, save_path=os.path.join(work, "run")),
+                      tpu=TpuConfig(max_buckets=1))
+    scann = Scann(cfg, device="cuda")
+    scann.init_params(0)
+    x = wide_batch(rng, 1, 300, 24, mp2018, min_atoms=300, edges=False)
+    inputs = [{k: v.cpu().numpy() for k, v in x.items()}]
+    structs = [Structure(["Si"] * 300, rng.uniform(0, 15, size=(300, 3)), np.eye(3) * 15.0)]
+    f3, f5 = kloop.launch_loop_forward, kla.fused_local_attention
+    f3.launches = f3.tall_launches = f5.launches = 0
+    answers = scann.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    served = (f3.launches, f3.tall_launches, f5.launches)
+    (pred, ga), = answers
+    with torch.inference_mode():
+        want, _ = scann_forward(scann.params, {k: torch.from_numpy(v).cuda()
+                                               for k, v in inputs[0].items()}, mp2018)
+    want = want[0, 0].item() * cfg.hyper.target_std + cfg.hyper.target_mean
+    print(f"phase 18 served a crystal of 300 sites, 24 neighbours (ladder (384, 24), route "
+          f"{scann.trainer.eval_route(384, 24)}): #3 launches {served[0]} ({served[1]} tall), "
+          f"#5 {served[2]}; {pred:.6f} against the eager model's {want:.6f}", flush=True)
+    if served != (1, 1, 0):
+        failures.append(f"phase 18 served: #3 launches {served[0]} ({served[1]} tall), #5 "
+                        f"{served[2]}; want 1, 1 and 0")
+    if not (abs(pred - want) <= ATOL + RTOL * abs(want)) or len(ga) != 300:
+        failures.append(f"phase 18 served 300 sites: {pred} against the eager model's {want}")
+
+    t0 = time.time()
+    energy, nbr = make_synthetic_dataset(os.path.join(work, "data"), "tall", n_structures=120,
+                                         min_atoms=240, max_atoms=300, periodic=True, seed=0,
+                                         target_names=("formation_energy_per_atom",))
+    cfg = ScannConfig(model=mp2018,
+                      hyper=HyperConfig(batch_size=16, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                        target="formation_energy_per_atom",
+                                        data_energy_path=energy, data_nei_path=nbr, epochs=2,
+                                        seed=0, save_path=os.path.join(work, "fit")),
+                      tpu=TpuConfig(max_buckets=1, neighbors_pad_multiple=32))
+    fit = Scann(cfg, device="cuda")
+    fit.prepare_dataset()
+    fit.init_params(cfg.hyper.seed)                # what fit() would draw
+    trainer, train = fit.trainer, fit.train_buckets
+    print(f"phase 18: 120 synthetic periodic crystals of 240-300 sites written and featurized "
+          f"on the host in {time.time() - t0:.1f} s; buckets {[b.shape for b in train]} "
+          f"({[b.num_structures for b in train]} structures)", flush=True)
+    route = trainer.train_route(*train[0].shape)
+    before = bucket_losses(trainer, train)
+    # the fit's first step through the Trainer against the plain version
+    idx, seeds = trainer.epoch_plan(0, 0, train[0].num_structures, cfg.hyper.batch_size)
+    xb, yb = trainer._put_buckets(train, "train")[0]
+    rows = idx[0].cuda()
+    xb, yb = {k: v[rows] for k, v in xb.items()}, yb[rows]
+    pred, raw = trainer.raw_grads(xb, yb, seeds[0])
+    want_pred, want = kloop.reference_loop_train_grads(
+        trainer.params, xb, yb, mp2018, trainer.mrelu_head, trainer.dropout_rate, seeds[0])
+    step_err = max(float((raw[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-30))
+                   for k in want)
+    pred_err = float((pred - want_pred[:, 0]).abs().max())
+    print(f"phase 18 the Trainer's first step at {tuple(xb['neighbors'].shape)} (C = "
+          f"{kloop.cluster_size(len(rows))}, its kept scratch {sorted(trainer._loop_scratch)}): "
+          f"gradients within {step_err:.3e} x max of the plain version (limit {GRAD_RTOL}), "
+          f"pred {pred_err:.3e}", flush=True)
+    if not (step_err <= GRAD_RTOL and pred_err <= ATOL + RTOL * float(want_pred.abs().max())):
+        failures.append(f"phase 18 the Trainer's first tall step: gradients {step_err:.3e} x "
+                        f"max, pred {pred_err:.3e} from the plain version")
+    c4 = kloop.launch_loop_backward
+    kbwd.reset_counts(c4)
+    f3.tall_launches = 0
+    t0 = time.time()
+    hist = fit.train()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    trained = (c4.launches, c4.tall_launches, f3.tall_launches)
+    after = bucket_losses(trainer, train)
+    steps = 2 * -(-train[0].num_structures // cfg.hyper.batch_size)
+    print(f"phase 18 trained 2 epochs in the bucket {train[0].shape} (route {route}) in "
+          f"{wall:.1f} s: {steps} steps, #4 launches {trained[0]} ({trained[1]} tall; "
+          f"{mode_counts(c4)}), #3 tall launches {trained[2]} (validation); loss "
+          f"{hist['loss']}; the bucket's loss without dropout {before[0]:.6f} -> "
+          f"{after[0]:.6f}  [{card}]", flush=True)
+    if (len(train) != 1 or route != "loop" or trained[:2] != (steps, steps)
+            or trained[2] < 1):
+        failures.append(f"phase 18 training: buckets {[b.shape for b in train]}, route {route}, "
+                        f"#4 launches {trained[0]} ({trained[1]} tall) for {steps} steps, #3 "
+                        f"tall {trained[2]}")
+    if not (all(np.isfinite(hist["loss"])) and hist["loss"][-1] < hist["loss"][0]
+            and np.isfinite(after[0]) and after[0] < before[0]):
+        failures.append(f"phase 18 training: losses {hist['loss']}, the bucket's "
+                        f"{before[0]} -> {after[0]}")
+    plain = plain_loop_trainer()(cfg, "cuda", os.path.join(work, "plain"))
+    plain.init_state(cfg.hyper.seed)
+    plain_hist = plain.fit(train, fit.valid_buckets, log_fn=lambda *a: None)
+    plain_after = bucket_losses(plain, train)
+    mine = hist["loss"] + hist["val_mae"] + after
+    ref = plain_hist["loss"] + plain_hist["val_mae"] + plain_after
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mine, ref))
+    print(f"phase 18 the same epochs with the plain step: losses {plain_hist['loss']}, the "
+          f"bucket's {plain_after[0]:.6f}; max rel {rel:.3e} from the kernel's (limit "
+          f"{TRAIN_RTOL})", flush=True)
+    if not rel <= TRAIN_RTOL:
+        failures.append(f"phase 18 kernel and plain epochs at {train[0].shape} differ: "
+                        f"{rel:.3e}")
+    return {"scann_loop_tall": served[1] + trained[2], "scann_loop_backward_tall": trained[1]}
+
+
+def phase18(mp2018, ptgp, failures, card):
+    """Phase 18: tall structures. Returns the kernels line's rows of the two
+    tall builds."""
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    err3, err4 = phase18_holds(mp2018, ptgp, failures)
+    t1 = time.time()
+    t3, t4 = phase18_times(mp2018, ptgp, card)
+    t2 = time.time()
+    launches = phase18_paths(mp2018, failures, card)
+    print(f"phase 18 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
+          f"{time.time() - t2:.1f}", flush=True)
+    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[name], "max_abs_err": err, "library_ms": None,
+             **{k: v for k, v in t.items() if k != "cluster"}}
+            for name, source, replaces, err, t in (
+                ("scann_loop_tall", "scann_tpu_torch/csrc/scann_loop_tall.cu", kloop.REPLACES,
+                 err3, t3),
+                ("scann_loop_backward_tall", "scann_tpu_torch/csrc/scann_loop_backward_tall.cu",
+                 kloop.BACKWARD_REPLACES, err4, t4))]
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4006,15 +4343,16 @@ def main():
                              "scann_tpu_torch", "chip_smoke_exec_cache")
     shutil.rmtree(cache_dir, ignore_errors=True)
     cache = _build.set_build_dir(cache_dir)
-    _build.build_all(_build.SOURCES + _build.WIDE_SOURCES + _build.PROBES, force=True)
-    print(f"built {list(_build.SOURCES + _build.WIDE_SOURCES + _build.PROBES)} with nvcc in "
+    every = _build.SOURCES + _build.WIDE_SOURCES + _build.TALL_SOURCES + _build.PROBES
+    _build.build_all(every, force=True)
+    print(f"built {list(every)} with nvcc in "
           f"{time.time() - t0:.1f} s "
           f"(one nvcc per source, in parallel) into the build cache "
           f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
           f"{exec_cache.env_fingerprint()})", flush=True)
     for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
                  "scann_loop_backward_bf16", "scann_loop", "local_attention",
-                 *_build.WIDE_SOURCES):
+                 *_build.WIDE_SOURCES, *_build.TALL_SOURCES):
         for entry, regs, stores, loads in _build.kernel_resources(name):
             if "reduce_rows" not in entry and "selftest" not in entry:
                 print(f"{name}.cu: {regs} registers a thread, {stores} bytes of spill stores, "
@@ -4304,6 +4642,10 @@ def main():
     torch.cuda.empty_cache()
     wide_rows = phase17(mp2018, ptgp, failures, card)
     lap("17")
+    # ---- phase 18: tall structures in #3 and #4 ----------------------------------------
+    torch.cuda.empty_cache()
+    tall_rows = phase18(mp2018, ptgp, failures, card)
+    lap("18")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -4359,11 +4701,15 @@ def main():
         "packed_launches": packed_launches["scann_loop_backward/recompute"], **loop_bwd_time,
         "sharded_launches": sharded_launches["scann_loop_backward/recompute"],
     }, {
+        # phase 8's per-layer launches (none since the tall #3 serves every
+        # f32 crystal rung at N <= 64) and phase 14's bf16 group's later layers
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
-        "replaces": kla.REPLACES, "launches": layer_launches, "max_abs_err": layer_err,
+        "replaces": kla.REPLACES,
+        "launches": layer_launches + bf16_rows[2]["f32_entry_launches"],
+        "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }, *bf16_rows, *stash_rows, *wide_rows]
+    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "

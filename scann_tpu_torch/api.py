@@ -640,7 +640,7 @@ class Scann:
         first requests do not pay the build or the first launch of the
         kernel that rung takes. On CUDA every kernel is built (or loaded
         from the build cache) first, one nvcc each, all at once: the narrow
-        builds, and the wide builds that a rung's route takes. Served
+        builds, and the wide or tall builds that a rung's route takes. Served
         batches come at any size, so one structure does. Returns the rungs
         run."""
         self._require_state("warmup_serving")
@@ -650,7 +650,7 @@ class Scann:
             from scann_tpu_torch.kernels import _build
 
             rungs = {(_ladder(int(m), base_m), _ladder(int(n), base_n), 0) for m, n in shapes}
-            _build.build_all(_build.SOURCES + self.trainer.wide_libraries(sorted(rungs)))
+            _build.build_all(_build.SOURCES + self.trainer.shape_libraries(sorted(rungs)))
         done: List[Tuple[int, int]] = []
         for m, n in shapes:
             rung = (_ladder(int(m), base_m), _ladder(int(n), base_n))

@@ -123,9 +123,11 @@ __device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, co
 // block; all of a thread's copies in flight at once, past L1) or the distance
 // RBF (pad columns up to a multiple of 4 zeroed), and the neighbours' states
 // gathered as float4 from the centers cen [M, ldc] in shared memory, eight
-// loads a thread before their stores (rounded to bfloat16 with kBf16). Ends
-// with a barrier.
-template <bool kBf16>
+// loads a thread before their stores (rounded to bfloat16 with kBf16). With
+// kL2 the centers are global rows that other SMs wrote in the same launch,
+// read past L1 (ld.global.cg), where a line of an earlier write could be
+// stale. Ends with a barrier.
+template <bool kBf16, bool kL2 = false>
 __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA, const float* cen,
                                                 int ldc, const int* nbr, const float* ndist,
                                                 const float* geo_b, int base, int rows) {
@@ -153,7 +155,10 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = i0 + j * kThreads, r = i / q4, c = (i - r * q4) * 4;
-      if (i < total) v[j] = *reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c);
+      if (i < total) {
+        const float4* src = reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c);
+        v[j] = kL2 ? __ldcg(src) : *src;
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {

@@ -41,6 +41,20 @@
 //   mma.sync products, the softmax one warp per (atom, head), the context
 //   one thread per (atom, column); the SCANN+ geometry is streamed from and
 //   to the global scratch.
+// - Tall structures (N <= kFwdMaxChunkRows, M past that plan; the tall build,
+//   scann_loop_tall.cu, f32 operands): the centers leave shared memory. A
+//   layer's input centers sit in one half of a ping-pong global scratch [2, B,
+//   M, D] (L2 holds it: 14 MB at B = 64, M = 428) and its new centers go to
+//   the other half, so one cluster barrier a layer suffices: no block
+//   writes the rows others still gather. The gather reads those rows past L1
+//   (another SM wrote them, and this SM may hold a line of them from two
+//   layers before); the per-atom projections and the readout's after_Lc
+//   stage a block's rows into a slot first (cp.async, past L1 too); the GA
+//   keys go to the block's own slice of a global [B * C, M, G] scratch. The
+//   arithmetic and the order of every sum are the narrow build's, so at a
+//   shape both builds take, with the same atom block and C, the outputs are
+//   the same bits. The plan drops the M * 512 bytes: atom blocks of 32 for M
+//   into the thousands.
 // - Wide neighbour lists (64 < N <= 256; the wide build, scann_loop_wide.cu):
 //   one atom at a time through fwd_atom_wide, its rows in sub-chunks of 64,
 //   its energies [N, H] in shared memory (8 KiB at N = 256) for a softmax over
@@ -77,10 +91,19 @@ using namespace scann;
 constexpr int kMaxAtomBlock = 32;
 constexpr int kMaxCluster = 4;
 
-// Shared-memory plan, in floats: centers [M, wd]; two per-block slots [AB,
-// wd + 4]; the work region: a chunk's buffers (wide: a sub-chunk's and the
-// atom's energy row), the embedding's staging, the ResidualNorm's h2 [AB, wd
-// + 4], or the readout's [AB, wd] block and vectors.
+// The tall build (scann_loop_tall.cu defines SCANN_LOOP_TALL): the centers in
+// global memory; every other build keeps them in shared memory.
+#ifdef SCANN_LOOP_TALL
+constexpr bool kTall = true;
+#else
+constexpr bool kTall = false;
+#endif
+
+// Shared-memory plan, in floats: centers [M, wd] (none in the tall build);
+// two per-block slots [AB, wd + 4]; the work region: a chunk's buffers (wide:
+// a sub-chunk's and the atom's energy row), the embedding's staging, the
+// ResidualNorm's h2 [AB, wd + 4], or the readout's [AB, wd] block and
+// vectors.
 struct Plan {
   int wd, lds, rows, lde, ldf, work, offQ, offW, offWork, total;
 };
@@ -104,7 +127,7 @@ __host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
   w = readout > w ? readout : w;
   if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
-  p.offQ = a.M * p.wd;
+  p.offQ = kTall ? 0 : a.M * p.wd;
   p.offW = p.offQ + AB * p.lds;
   p.offWork = p.offW + AB * p.lds;
   p.total = p.offWork + w;
@@ -118,7 +141,9 @@ inline Plan plan_of(const ForwardArgs& a) {
 
 // kWide: N > kFwdMaxChunkRows (the wide build, scann_loop_wide.cu), one atom
 // at a time through fwd_atom_wide with the block's keys in wide_keys [N, D]
-// (global, one slice a block).
+// (global, one slice a block). kTall (the tall build): wide_keys is the GA
+// key scratch [B * C, M, G], one slice a block, and a.next_centers the
+// ping-pong centers [2, B, M, D].
 template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
@@ -148,7 +173,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     if (C > 1) cluster.sync();
     else __syncthreads();
   };
-  float* sC = smem;               // centers / GA keys  [M, wd]
+  float* sC = smem;               // centers / GA keys  [M, wd] (not tall)
   float* sQ = smem + P.offQ;      // query / out        [AB, lds]
   float* sW = smem + P.offW;      // cw, then h1        [AB, lds]
   float* work = smem + P.offWork;
@@ -164,6 +189,23 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   const float* ndist = a.ndist + (size_t)b * M * N;
   float* geo_b = a.geo + (size_t)b * M * N * D;
   float* next_b = a.next_centers + (size_t)b * M * D;
+  // tall: the centers of layer l's input, half l & 1 of the ping-pong scratch
+  // (half 0 is next_b), and this block's GA keys
+  auto centers_of = [&](int l) {
+    return a.next_centers + ((size_t)(l & 1) * a.B + b) * M * D;
+  };
+  float* const keys_b = kTall ? wide_keys + (size_t)blockIdx.x * M * G : sC;
+  const int ldk = kTall ? G : wd;
+  // tall: rows [m0, m0 + n) of layer l's input centers into dst [n, ld], past
+  // L1; the caller synchronises
+  auto stage_rows = [&](float* dst, int ld, int l, int m0, int n) {
+    const float* src = centers_of(l) + (size_t)m0 * D;
+    for (int i = tid; i < n * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      cp_async16(dst + r * ld + c, src + (size_t)r * D + c);
+    }
+    cp_async_wait_all();
+  };
   // all M rows of the scratch into the centers, past L1 (the rows of the other
   // blocks were written on other SMs), every copy of a thread in flight at once
   auto load_centers = [&]() {
@@ -201,22 +243,35 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
   }
   cluster_barrier();
-  load_centers();
-  cluster_barrier();
+  if constexpr (!kTall) {
+    load_centers();
+    cluster_barrier();
+  }
 
   // ---- L x (LocalAttention + ResidualNorm) -------------------------------
   for (int l = 0; l < a.L; ++l) {
     const LayerWeights w = layer_weights(a, l);
     const float* wq = a.wq + (size_t)l * D * D;
     const float* bq = a.bq + (size_t)l * D;
+    // the gather's rows: the resident centers, or (tall) the global ones
+    const float* cen = kTall ? centers_of(l) : sC;
+    const int ldc = kTall ? D : wd;
+    float* out_b = kTall ? centers_of(l + 1) : next_b;
 
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
       const int ab = min(AB, m_hi - ab0);
-      // per-atom projections of the block: cw = centers @ Wfg[0:D] (SCANN+), query
+      // per-atom projections of the block: cw = centers @ Wfg[0:D] (SCANN+),
+      // query (tall: from the block's rows staged in the work region)
+      const float* cb = sC + ab0 * wd;
+      if constexpr (kTall) {
+        stage_rows(work, wd, l, ab0, ab);
+        __syncthreads();
+        cb = work;
+      }
       if (a.g_update)
-        mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, w.wfg, D, D,
+        mma_gemm<kBf16>(cb, wd, ab, D, w.wfg, D, D,
                         [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
-      mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
+      mma_gemm<kBf16>(cb, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
         store4(sQ + r * lds + c,
                make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
       });
@@ -228,7 +283,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
           fwd_atom_wide<kBf16, float>(
               forward_chunk_dims(a), w,
               [&](int n0, int rows) {
-                fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base + n0, rows);
+                fwd_stage_chunk<kBf16>(a, sA, cen, ldc, nbr, ndist, geo_b, base + n0, rows);
               },
               sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
               nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
@@ -241,7 +296,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
       } else {
         for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
           const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-          fwd_stage_chunk<kBf16>(a, sA, sC, wd, nbr, ndist, geo_b, base, ca * N);
+          fwd_stage_chunk<kBf16, kTall>(a, sA, cen, ldc, nbr, ndist, geo_b, base, ca * N);
           fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
                     sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
                     l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
@@ -260,15 +315,18 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
 #pragma unroll
                           for (int i = 0; i < 4; ++i)
                             if (lane + 32 * i < D)
-                              next_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
+                              out_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
                         });
     }
 
     // every atom of the structure has gathered from this layer's input and
-    // every block has written its atoms' new centers: take all M rows
+    // every block has written its atoms' new centers: take all M rows (tall:
+    // the barrier alone; the next layer writes the other half)
     cluster_barrier();
-    load_centers();
-    cluster_barrier();
+    if constexpr (!kTall) {
+      load_centers();
+      cluster_barrier();
+    }
   }
 
   // ---- readout: after_Lc, GA scores, pooled context, head ----------------
@@ -287,7 +345,16 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
   for (int ab0 = 0; ab0 < M; ab0 += AB) {
     const int ab = min(AB, M - ab0);
-    mma_gemm<kBf16>(sC + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+    // the block's last centers (tall: staged into the free slot sW)
+    const float* cl = sC + ab0 * wd;
+    int ldl = wd;
+    if constexpr (kTall) {
+      stage_rows(sW, lds, a.L, ab0, ab);
+      __syncthreads();
+      cl = sW;
+      ldl = lds;
+    }
+    mma_gemm<kBf16>(cl, ldl, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
       store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                           swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
     });
@@ -298,12 +365,12 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
                                            v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
     });
     mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
-      store4(sC + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
-                                                  v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
+      store4(keys_b + (ab0 + r) * ldk + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
+                                                       v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
     });
     __syncthreads();
     if (S) {
-      seg_queries<kBf16>(v, S, sQ, lds, sC, wd, am, sid, ab0, ab, G, ab0 == 0);
+      seg_queries<kBf16>(v, S, sQ, lds, keys_b, ldk, am, sid, ab0, ab, G, ab0 == 0);
     } else {
       for (int g = tid; g < G; g += kThreads) {
         float s = qsum[g];
@@ -314,7 +381,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
         const float mm = am[ab0 + m];
         float dg = 0.f;
         for (int g = lane; g < G; g += 32)
-          dg += (mm * sC[(ab0 + m) * wd + g]) * (mm * sQ[m * lds + g]);
+          dg += (mm * keys_b[(ab0 + m) * ldk + g]) * (mm * sQ[m * lds + g]);
         dg = warp_sum(dg);
         if (lane == 0) diag[ab0 + m] = dg;
       }
@@ -322,8 +389,8 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     __syncthreads();
   }
   if (S) {
-    seg_readout_forward<kBf16, kBf16>(v, sC, wd, am, sid, M, S, G, O, a.ga_norm, a.wbf, a.bbf,
-                                      a.wp, a.bp, a.mrelu,
+    seg_readout_forward<kBf16, kBf16>(v, keys_b, ldk, am, sid, M, S, G, O, a.ga_norm, a.wbf,
+                                      a.bbf, a.wp, a.bp, a.mrelu,
                                       rank == 0 ? a.pred + (size_t)b * S : nullptr);
     for (int m = m_lo + tid; m < m_hi; m += kThreads) a.ga[(size_t)b * M + m] = v.ga[m];
     return;
@@ -332,7 +399,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   for (int m = warp; m < M; m += kWarps) {
     const float mm = am[m];
     float cross = 0.f;
-    for (int g = lane; g < G; g += 32) cross += (mm * sC[m * wd + g]) * qsum[g];
+    for (int g = lane; g < G; g += 32) cross += (mm * keys_b[m * ldk + g]) * qsum[g];
     cross = warp_sum(cross);
     if (lane == 0) score[m] = mm * (cross - diag[m]);
   }
@@ -366,7 +433,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   __syncthreads();
   for (int g = tid; g < G; g += kThreads) {
     float s = 0.f;
-    for (int m = 0; m < M; ++m) s += am[m] * score[m] * sC[m * wd + g];
+    for (int m = 0; m < M; ++m) s += am[m] * score[m] * keys_b[m * ldk + g];
     struc[g] = s;
   }
   __syncthreads();
@@ -412,7 +479,7 @@ void set_dims(ForwardArgs& a, const int* dims) {
 
 }  // namespace
 
-#ifndef SCANN_LOOP_WIDE
+#if !defined(SCANN_LOOP_WIDE) && !defined(SCANN_LOOP_TALL)
 extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
   ForwardArgs a = {};
   set_dims(a, dims);
@@ -425,7 +492,9 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the
 // next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
 // unless packed), pointer 51, the wide key scratch [B * C, N, D] (the wide
-// build; null in the narrow one), size 20, the atom block, size 21, the
+// build), or the GA key scratch [B * C, M, G] (the tall build, whose
+// pointer 49 is the ping-pong centers [2, B, M, D]), null in the narrow one,
+// size 20, the atom block, size 21, the
 // segments per slot S, size 22, the bf16 operand mode (0 or 1; the wide build
 // takes 0), and size 23, the blocks per structure C; in the order
 // scann_tpu_torch/kernels/scann_loop.py passes them. Size 17 (the chunk
@@ -433,13 +502,18 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // kernels (N <= kFwdMaxChunkRows); scann_loop_wide.cu includes it with
 // SCANN_LOOP_WIDE defined and builds the wide one
 // (scann_loop_forward_wide_launch, scann_loop_forward_wide_max_clusters), at
-// the first wide launch.
-#ifndef SCANN_LOOP_WIDE
-#define SCANN_LOOP_ENTRY(x) scann_loop_forward_##x
-constexpr bool kWideBuild = false;
-#else
+// the first wide launch; scann_loop_tall.cu with SCANN_LOOP_TALL, the tall
+// one (scann_loop_forward_tall_*, N <= kFwdMaxChunkRows, f32 operands), at the
+// first tall launch.
+#if defined(SCANN_LOOP_WIDE)
 #define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_##x
 constexpr bool kWideBuild = true;
+#elif defined(SCANN_LOOP_TALL)
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_tall_##x
+constexpr bool kWideBuild = false;
+#else
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_##x
+constexpr bool kWideBuild = false;
 #endif
 
 // How many clusters of `cluster` blocks with this shape's shared memory the
@@ -474,9 +548,10 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
   // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk, its
-  // key scratch, f32 operands
-  if ((a.N > kFwdMaxChunkRows) != kWideBuild || (wide_keys != nullptr) != kWideBuild ||
-      (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1 || bf16)))
+  // key scratch, f32 operands; the tall one: its GA key scratch, f32 operands
+  if ((a.N > kFwdMaxChunkRows) != kWideBuild ||
+      (wide_keys != nullptr) != (kWideBuild || kTall) ||
+      (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1 || bf16)) || (kTall && bf16))
     return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
@@ -490,7 +565,7 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  const auto kernel = bf16 ? scann_loop_forward_kernel<!kWideBuild, kWideBuild>
+  const auto kernel = bf16 ? scann_loop_forward_kernel<!kWideBuild && !kTall, kWideBuild>
                            : scann_loop_forward_kernel<false, kWideBuild>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -80,6 +80,23 @@
 //   through a [B, M, D] global scratch. The plan is M * 512 bytes + 107 to
 //   175 KB at D=128 (atom blocks of 8 to 32): M <= 106 with blocks of 32,
 //   M <= 186 with blocks of 16, M <= 226 with blocks of 8, at N=32.
+// - Tall structures (N <= kMaxChunkRows, M past that plan; the tall build,
+//   scann_loop_backward_tall.cu, f32 operands, all three schedules): the
+//   resident buffer leaves shared memory, each of its three roles for a
+//   global home. The forward pass gathers from the layer-input stash, as the
+//   reverse walk does (each layer's rows are written once, before the
+//   barrier that precedes their reads), and stages a block's own rows into a
+//   slot for its projections. The readout's GA keys go to the block's own
+//   slice of a global scratch, d gk of pass 2 to a free slot. The reverse
+//   walk's d(layer input) partial is the block's own global [M, D], scattered
+//   into by the same threads in the same order, zeroed each layer; the
+//   cluster sums the C partials in rank order, read past L1 (other SMs wrote
+//   them, and this SM read them a layer before), into the d(layer output)
+//   scratch, which the embedding backward reads in place of the resident
+//   copy. So the arithmetic and the order of every sum are the narrow
+//   build's: at a shape both take, with the same atom block and C, the
+//   gradients are the same bits. The plan drops M * 512 bytes: atom blocks
+//   of 32 for M into the thousands.
 // - Wide neighbour lists (32 < N <= 256; the wide build,
 //   scann_loop_backward_wide.cu, f32 operands, all three schedules): one atom
 //   at a time, its rows in sub-chunks of 32. The forward pass keeps the atom's
@@ -132,7 +149,17 @@ constexpr int kMaxChunkRows = 32;
 constexpr int kMaxAtomBlock = 32;
 constexpr int kMaxCluster = 4;
 
-// Shared-memory plan, in floats: the resident [M, wd] buffer; five per-block
+// The tall build (scann_loop_backward_tall.cu defines
+// SCANN_LOOP_BACKWARD_TALL): no resident [M, wd] buffer; every other build
+// keeps it in shared memory.
+#ifdef SCANN_LOOP_BACKWARD_TALL
+constexpr bool kTall = true;
+#else
+constexpr bool kTall = false;
+#endif
+
+// Shared-memory plan, in floats: the resident [M, wd] buffer (none in the
+// tall build); five per-block
 // slots [AB, wd]; the work region (the readout keeps its vectors there, past
 // one [AB, wd] buffer); per-warp LayerNorm partials and bias sums. kWide:
 // the chunk holds a sub-chunk of kMaxChunkRows rows of one atom, the atom's
@@ -165,7 +192,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   w = readout > w ? readout : w;
   if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
-  p.offBlk = a.M * p.wd;
+  p.offBlk = kTall ? 0 : a.M * p.wd;
   p.offWork = p.offBlk + 5 * p.ABW;
   p.offPart = p.offWork + w;
   p.offAcc = p.offPart + kWarps * 2 * p.wd;
@@ -181,7 +208,9 @@ inline Plan plan_of(const Args& a) {
 // kWide: N > kMaxChunkRows (the wide build, scann_loop_backward_wide.cu), one
 // atom at a time, its rows in sub-chunks of kMaxChunkRows, with the block's
 // keys of one atom in wide_keys [N, D] (global, one slice a block) for the
-// forward pass's context.
+// forward pass's context. kTall (the tall build): wide_keys is the tall
+// scratch [B * C, M, G + D], a slice a block: its GA keys [M, G], then its
+// d(layer input) partial [M, D].
 template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_backward_kernel(const Args a, float* wide_keys) {
@@ -202,6 +231,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   const int m_lo = min(M, rank * per), m_hi = min(M, m_lo + per);
 
   float* sR = smem;                    // resident [M, wd]: centers / GA keys / d layer input
+                                       // (not tall)
   float* sCb = smem + P.offBlk;        // the block's layer input centers   [AB, wd]
   float* sQ = sCb + ABW;               // query (forward: ctx + query, o1)
   float* sCW = sQ + ABW;               // centers @ Wfg[0:D] (SCANN+)
@@ -236,6 +266,11 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   float* dgb = a.g_update ? a.dgeo + (size_t)b * R * D : nullptr;
   float* dcen = a.dcenters + (size_t)b * M * D;
   float* grow = a.grad_rows + (size_t)blockIdx.x * a.P;
+  // tall: the block's slice of the tall scratch, and where the forward pass
+  // and the readout read what the resident buffer holds in the other builds
+  auto tall_slice = [&](int q) { return wide_keys + ((size_t)b * a.cluster + q) * M * (G + D); };
+  float* const keys_b = kTall ? tall_slice(rank) : sR;          // GA keys
+  const int ldk = kTall ? G : wd;
   auto grad = [&](int g) { return grow + a.off[g]; };
   const int fg_in = a.g_update ? 3 * D : K;
   const int q4 = D / 4;
@@ -541,8 +576,9 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     }
   }
   // every block of the cluster has written its atoms' embeddings: take all M rows
+  // (tall: the gather reads them from the stash)
   cluster.sync();
-  load_rows(sR, c_st, 0, M);
+  if constexpr (!kTall) load_rows(sR, c_st, 0, M);
   __syncthreads();
 
   for (int l = 0; l < L; ++l) {
@@ -555,9 +591,18 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     float* c_next = c_st + (size_t)(l + 1) * M * D;
     float* sH1 = sDQ;                  // swish(o1 @ W1 + b1)
     float* sH2 = sDCW;                 // (h1 @ W2 + b2) * mask
+    // the gather's rows: the resident centers, or (tall) the layer-input stash
+    const float* cen = kTall ? c_st + (size_t)l * M * D : sR;
+    const int ldc = kTall ? D : wd;
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
       const int ab = min(AB, m_hi - ab0);
-      project_atoms(l, sR + ab0 * wd, ab, true);
+      if constexpr (kTall) {
+        load_rows(sCb, cen, ab0, ab);
+        __syncthreads();
+        project_atoms(l, sCb, ab, true);
+      } else {
+        project_atoms(l, sR + ab0 * wd, ab, true);
+      }
       __syncthreads();
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N, lm0 = m0 - ab0;
@@ -613,7 +658,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           __syncthreads();
           continue;
         }
-        stage_chunk(l, base, ca * N, sR, wd, false);
+        stage_chunk(l, base, ca * N, cen, ldc, false);
         row_forward(l, base, lm0, ca, ca * N, l + 1 < L, false);
         if (sb) stash_chunk(l, base, ca * N);
         // ctx = sum_n attn * mask * nmask * key, added to the query. The bf16
@@ -694,7 +739,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     // every atom of the structure has gathered from this layer's input and
     // every block has written its atoms' new centers: take all M rows
     cluster.sync();
-    load_rows(sR, c_next, 0, M);
+    if constexpr (!kTall) load_rows(sR, c_next, 0, M);
     __syncthreads();
   }
 
@@ -725,7 +770,13 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       const int ab = min(AB, M - ab0);
       float* RB = sCb;                 // cg = swish(cL @ Wal + bal)
       float* RC = sQ;                  // gq
-      mma_gemm<kBf16>(sR + ab0 * wd, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+      const float* cl = sR + ab0 * wd; // the last centers (tall: staged into sCW)
+      if constexpr (kTall) {
+        load_rows(sCW, c_last, ab0, ab);
+        __syncthreads();
+        cl = sCW;
+      }
+      mma_gemm<kBf16>(cl, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
                                             swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
       });
@@ -735,12 +786,12 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
       });
       mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
-        store4(sR + (ab0 + r) * wd + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
-                                                    v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
+        store4(keys_b + (ab0 + r) * ldk + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
+                                                         v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
       });
       __syncthreads();
       if (S) {
-        seg_queries<kBf16>(v, S, RC, wd, sR, wd, am, sid, ab0, ab, G, ab0 == 0);
+        seg_queries<kBf16>(v, S, RC, wd, keys_b, ldk, am, sid, ab0, ab, G, ab0 == 0);
       } else {
         for (int g = tid; g < G; g += kThreads) {
           float s = qsum[g];
@@ -751,7 +802,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           const float mm = am[ab0 + m];
           float dg = 0.f;
           for (int g = lane; g < G; g += 32)
-            dg += (mm * sR[(ab0 + m) * wd + g]) * (mm * RC[m * wd + g]);
+            dg += (mm * keys_b[(ab0 + m) * ldk + g]) * (mm * RC[m * wd + g]);
           dg = warp_sum(dg);
           if (lane == 0) diag[ab0 + m] = dg;
         }
@@ -761,8 +812,8 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     if (S) {
       // the head's gradients belong to the slot, not to an atom: the
       // cluster's first block writes them, the others write zeros
-      seg_readout_backward<kBf16, kBf16>(v, sR, wd, am, sid, M, S, G, O, a.ga_norm, a.mrelu,
-                                         a.one_shot,
+      seg_readout_backward<kBf16, kBf16>(v, keys_b, ldk, am, sid, M, S, G, O, a.ga_norm,
+                                         a.mrelu, a.one_shot,
                            a.ct + (size_t)b * S, a.one_shot ? nullptr : a.ct_ga + (size_t)b * M,
                            a.wbf, a.bbf, a.wp, a.bp, lead ? a.pred + (size_t)b * S : nullptr,
                            lead ? 1.f : 0.f, grad(gWP), grad(gBP), grad(gWBF), grad(gBBF));
@@ -771,7 +822,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       for (int m = warp; m < M; m += kWarps) {
         const float mm = am[m];
         float cross = 0.f;
-        for (int g = lane; g < G; g += 32) cross += (mm * sR[m * wd + g]) * qsum[g];
+        for (int g = lane; g < G; g += 32) cross += (mm * keys_b[m * ldk + g]) * qsum[g];
         cross = warp_sum(cross);
         if (lane == 0) agg0[m] = mm * (cross - diag[m]);
       }
@@ -803,7 +854,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       for (int g = tid; g < G; g += kThreads) {
         float s = 0.f;
-        for (int m = 0; m < M; ++m) s += am[m] * ga[m] * sR[m * wd + g];
+        for (int m = 0; m < M; ++m) s += am[m] * ga[m] * keys_b[m * ldk + g];
         struc[g] = s;
       }
       __syncthreads();
@@ -849,7 +900,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       for (int m = warp; m < M; m += kWarps) {
         float s = 0.f;
-        for (int g = lane; g < G; g += 32) s += am[m] * sR[m * wd + g] * dstruc[g];
+        for (int g = lane; g < G; g += 32) s += am[m] * keys_b[m * ldk + g] * dstruc[g];
         s = warp_sum(s);
         if (lane == 0) dga[m] = s + (a.one_shot ? 0.f : a.ct_ga[(size_t)b * M + m]);
       }
@@ -873,7 +924,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       for (int g = tid; g < G; g += kThreads) {
         float s = 0.f;
-        for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * sR[m * wd + g]);
+        for (int m = 0; m < M; ++m) s += dcd[m] * (am[m] * keys_b[m * ldk + g]);
         dqsum[g] = s;
       }
       __syncthreads();
@@ -891,6 +942,14 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       float* RD = sR + ab0 * wd;       // gk, then d gk (in the resident buffer)
       float* RE = work;                // d cg, then d s_al
       load_rows(cLb, c_last, ab0, ab);
+      if constexpr (kTall) {           // gk from the block's keys into the free slot sDCW
+        RD = sDCW;
+        const int g4 = G / 4;
+        for (int i = tid; i < ab * g4; i += kThreads) {
+          const int r = i / g4, c = (i - r * g4) * 4;
+          store4(RD + r * wd + c, *reinterpret_cast<const float4*>(keys_b + (ab0 + r) * ldk + c));
+        }
+      }
       __syncthreads();
       mma_gemm<kBf16>(cLb, wd, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
         const float4 s = make_float4(v.x + a.bal[c], v.y + a.bal[c + 1], v.z + a.bal[c + 2],
@@ -939,7 +998,9 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   }
 
   // ======================= reverse walk over the layers =====================
-  float* sDCN = sR;                    // d layer input, accumulated over the atom blocks
+  // d layer input, accumulated over the atom blocks (tall: the block's global partial)
+  float* sDCN = kTall ? tall_slice(rank) + (size_t)M * G : sR;
+  const int ldn = kTall ? D : wd;
   // the gather's transpose: column d of the targets with index % np == part
   // belongs to thread part * D + d, which walks the chunk's rows in order
   const int np = kThreads / D > 0 ? kThreads / D : 1;
@@ -961,7 +1022,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     float* P4 = work + 4 * ABW;        // o1 + h2, then d h2
     float* P5 = sDCW;                  // d (o1 + h2), then d o1
     float* oinv = work + 5 * ABW;      // [AB] rsqrt(var + eps) of ctx + query
-    zero(sDCN, M * wd);
+    zero(sDCN, M * ldn);
     zero(sAcc, 2 * wd);
     __syncthreads();
     int ci = 0;                        // chunks of rows done in this layer
@@ -1215,7 +1276,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           if (sc_part < np)
             for (int r = 0; r < rows; ++r) {
               const int idx = nbr[base + r];
-              if (idx % np == sc_part) sDCN[idx * wd + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
+              if (idx % np == sc_part) sDCN[idx * ldn + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
             }
           __syncthreads();
         }
@@ -1233,13 +1294,13 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       if (a.g_update)
         mma_gemm_tA<kBf16>(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
       mma_gemm_tB<kBf16>(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
-        float* p = sDCN + (ab0 + r) * wd + c;
+        float* p = sDCN + (ab0 + r) * ldn + c;
         store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
       __syncthreads();
       if (a.g_update) {
         mma_gemm_tB<kBf16>(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
-          float* p = sDCN + (ab0 + r) * wd + c;
+          float* p = sDCN + (ab0 + r) * ldn + c;
           store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
       }
@@ -1250,18 +1311,24 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       grad(gBFG)[(size_t)l * D + d] = sAcc[wd + d];
     }
     // d (this layer's input) is d (the output of the layer below): for this
-    // block's atoms, the sum of the cluster's partial rows in rank order
+    // block's atoms, the sum of the cluster's partial rows in rank order (tall:
+    // the partials in global memory, past L1; the sum to dcen alone)
     if (C > 1) cluster.sync();
     for (int i = tid; i < (m_hi - m_lo) * q4; i += kThreads) {
       const int m = m_lo + i / q4, c = (i % q4) * 4;
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < C; ++q) {
-        const float* part = C > 1 ? cluster.map_shared_rank(sDCN, q) : sDCN;
-        const float4 v = *reinterpret_cast<const float4*>(part + m * wd + c);
+        float4 v;
+        if constexpr (kTall) {
+          v = __ldcg(reinterpret_cast<const float4*>(tall_slice(q) + (size_t)M * G + m * D + c));
+        } else {
+          const float* part = C > 1 ? cluster.map_shared_rank(sDCN, q) : sDCN;
+          v = *reinterpret_cast<const float4*>(part + m * wd + c);
+        }
         s = q == 0 ? v : make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
       }
       store4(dcen + (size_t)m * D + c, s);
-      store4(sDCN + m * wd + c, s);
+      if constexpr (!kTall) store4(sDCN + m * wd + c, s);
     }
     if (C > 1) cluster.sync();
     __syncthreads();
@@ -1276,7 +1343,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     stage_embedding(ab0, ab);
     mma_gemm<kBf16>(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
-      const float* dc = sDCN + (ab0 + r) * wd + c;
+      const float* dc = kTall ? dcen + (size_t)(ab0 + r) * D + c : sDCN + (ab0 + r) * wd + c;
       store4(E1 + r * wd + c,
              make_float4(dc[0] * m.x * swish_grad(v.x + a.bde[c]),
                          dc[1] * m.y * swish_grad(v.y + a.bde[c + 1]),
@@ -1377,8 +1444,9 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
 // the segments per slot S, size 23, the blocks per structure C (grad_rows is
 // then [B * C, P]), and size 24, the stash's element bytes (0, 4 or 2); in
 // the order scann_tpu_torch/kernels/scann_loop.py passes them, and pointer
-// 59, the wide key scratch [B * C, N, D] (the wide build; null in the
-// others). Launches the backward kernel in the operand mode kBf16 (a cluster
+// 59, the wide key scratch [B * C, N, D] (the wide build) or the tall scratch
+// [B * C, M, G + D] (the tall build), null in the others. Launches the
+// backward kernel in the operand mode kBf16 (a cluster
 // of C blocks per structure; kWide: N > kMaxChunkRows) and the reduction of
 // its gradient rows into out [P].
 template <bool kBf16, bool kWide>
@@ -1397,8 +1465,8 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   a.st_atoms = (float*)ptrs[58];
   float* wide_keys = (float*)ptrs[59];
   // the wide build: kMaxChunkRows < N <= kWideMaxN, one atom a chunk, its key
-  // scratch
-  if ((a.N > kMaxChunkRows) != kWide || (wide_keys != nullptr) != kWide ||
+  // scratch; the tall one: its scratch
+  if ((a.N > kMaxChunkRows) != kWide || (wide_keys != nullptr) != (kWide || kTall) ||
       (kWide && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;
   if ((a.stash != 0 && a.stash != 4 && a.stash != 2) ||
@@ -1456,7 +1524,8 @@ int max_clusters(const int* dims, int cluster) {
 
 }  // namespace
 
-#if !defined(SCANN_LOOP_BACKWARD_BF16) && !defined(SCANN_LOOP_BACKWARD_WIDE)
+#if !defined(SCANN_LOOP_BACKWARD_BF16) && !defined(SCANN_LOOP_BACKWARD_WIDE) && \
+    !defined(SCANN_LOOP_BACKWARD_TALL)
 extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
   Args a = {};
   set_dims(a, dims);
@@ -1490,6 +1559,23 @@ extern "C" const char* scann_loop_backward_wide_error_string(int code) {
 
 extern "C" int scann_loop_backward_wide_max_clusters(const int* dims, int cluster) {
   return max_clusters<true>(dims, cluster);
+}
+#elif defined(SCANN_LOOP_BACKWARD_TALL)
+// Tall structures (scann_loop_backward_tall.cu), f32 operands, with the f32
+// build's arguments.
+extern "C" int scann_loop_backward_tall_launch(void* const* ptrs, const int* dims,
+                                               const float* scalars, const unsigned int* rng,
+                                               const long long* offsets, float* out,
+                                               void* stream) {
+  return launch_backward<false, false>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* scann_loop_backward_tall_error_string(int code) {
+  return error_string(code);
+}
+
+extern "C" int scann_loop_backward_tall_max_clusters(const int* dims, int cluster) {
+  return max_clusters<false>(dims, cluster);
 }
 #else
 // The bf16 operand mode (scann_loop_backward_bf16.cu), with the f32 build's

@@ -22,7 +22,8 @@ kernel's registers and spills: the build keeps what nvcc printed beside
 the library (``<lib>.so.log``) and in ``build_logs``, and
 ``kernel_resources`` reads it. ``build_all`` starts one nvcc per source,
 all at once. ``SOURCES`` are the ports of the TPU kernels, ``WIDE_SOURCES``
-their wide builds (built when a shape needs one), ``PROBES`` the rate
+and ``TALL_SOURCES`` their wide and tall builds (built when a shape needs
+one), ``PROBES`` the rate
 probes of ``utils/roofline.py``. Nothing here is built at module
 import time, and nothing falls back: a failed build raises, and a library
 that fails to load is removed and rebuilt once, then raises.
@@ -80,6 +81,10 @@ SOURCES = ("scann_forward", "scann_backward", "scann_loop", "scann_loop_backward
 # at the first wide launch (or by ``build_all`` where a caller knows that a
 # shape needs one), so the default build is the narrow one.
 WIDE_SOURCES = ("local_attention_wide", "scann_loop_wide", "scann_loop_backward_wide")
+# The tall builds of kernels #3 and #4 (structures whose centers do not fit a
+# block's shared memory beside the narrow plan): the same arrangement, built
+# at the first tall launch.
+TALL_SOURCES = ("scann_loop_tall", "scann_loop_backward_tall")
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
 # utils/roofline.py. Built and loaded the same way.
 PROBES = ("roofline_probe",)

@@ -719,10 +719,10 @@ def count_launch(launcher, cfm: ModelConfig, mode: Optional[str]) -> None:
 
 
 def reset_counts(launcher) -> None:
-    """Set a backward launcher's counts to 0 (``.wide_launches``: the loop
-    backward's wide build)."""
+    """Set a backward launcher's counts to 0 (``.wide_launches`` and
+    ``.tall_launches``: the loop backward's wide and tall builds)."""
     for name in ("launches", "bf16_launches", "stash_launches", "bf16_stash_launches",
-                 "wide_launches"):
+                 "wide_launches", "tall_launches"):
         setattr(launcher, name, 0)
 
 

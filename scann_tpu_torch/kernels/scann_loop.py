@@ -30,10 +30,21 @@ Forward:
   current centers [M, max(D, G)] in shared memory for a whole layer and every
   other per-atom tensor for one block of 32, 16 or 8 atoms at a time, so it
   needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
-  fits a block's 227 KB, and larger structures go through the per-layer
-  kernel of ``kernels.local_attention``. It shares the molecule kernel's tiles: chunks
+  fits a block's 227 KB. It shares the molecule kernel's tiles: chunks
   of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 128.
   ``use_attn_norm=False`` is refused.
+- Tall structures, N <= 64 and M past that plan: the tall build
+  ``csrc/scann_loop_tall.cu`` (built at its first launch; f32 operands, the
+  bf16 operand mode there takes the per-layer model, ``f32_build_refusal``)
+  keeps the centers in global memory, which L2 holds: a ping-pong [2, B,
+  M, D] (``loop_forward_scratch``'s ``next_centers``) and each block's GA
+  keys (its ``tall``, [B * C, M, G]). Its plan drops the M * 512 bytes, so
+  atom blocks of 32 take M into the thousands, past every M the TPU kernel
+  takes. Its arithmetic and sums are the narrow build's: at a shape both
+  take (the private ``_launch(..., tall=True)`` forces it there, with the
+  narrow atom blocks) the outputs are the same bits. ``is_tall`` is its
+  rule, ``forward_library`` names the build of every launch, and
+  ``.tall_launches`` counts these launches.
 - Wide neighbour lists, 64 < N <= 256 (``MAX_NEIGHBORS``): the wide build
   ``csrc/scann_loop_wide.cu`` (built at its first launch), f32 operands
   (the bf16 operand mode at such N takes the per-layer model): one atom at
@@ -86,8 +97,16 @@ Backward (crystal training):
   slots for a block of 32, 16 or 8 atoms, and a work region for a chunk of at
   most 32 (atom, neighbour) rows, so, at D = G = 128 and N = 32, M <= 106
   with blocks of 32, M <= 186 with blocks of 16 and M <= 226 with blocks of
-  8: lower than the forward's 232. Beyond it a bucket trains through the
-  per-layer model under ``torch.autograd`` (``Trainer.train_route``).
+  8: lower than the forward's 232. Beyond it, at N <= 32, the tall build
+  ``csrc/scann_loop_backward_tall.cu`` (f32 operands, all three schedules;
+  ``is_tall_backward``, ``.tall_launches``) gives the resident buffer's
+  three roles global homes: the forward pass gathers from the layer-input
+  stash, the GA keys and each block's d(layer input) partial go to the
+  ``tall`` scratch [B * C, M, G + D], and the cluster sums the partials in
+  rank order as the narrow build sums them through distributed shared
+  memory, so both builds give the same bits at a shape both take
+  (``_launch_backward(..., tall=True)``). What no build takes trains through
+  the per-layer model under ``torch.autograd`` (``Trainer.train_route``).
 - Wide neighbour lists, 32 < N <= 256: the wide build
   ``csrc/scann_loop_backward_wide.cu`` (f32 operands, all three
   schedules; ``.wide_launches``), one atom at a time in sub-chunks of 32
@@ -189,17 +208,18 @@ def supports_loop(cfm: ModelConfig) -> bool:
     return cfm.use_attn_norm
 
 
-def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
+def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
                      ) -> Tuple[int, int, int, int]:
     """(atoms per chunk, atoms per block, floats of the work region, shared
     bytes per block) -- the layout ``make_plan`` in the CUDA source walks:
-    the centers [M, max(D, G)], two slots [block, max(D, G) + 4], and a work
+    the centers [M, max(D, G)] (none in the tall build, ``tall``), two
+    slots [block, max(D, G) + 4], and a work
     region that holds a chunk's buffers (wide, N > 64: a sub-chunk's and the
     atom's energies [N, H], one atom a chunk), the embedding's staging, the
     ResidualNorm's h2 or the readout's block and vectors (per segment for a
     packed batch of S segments a slot). The atom block is the largest of 32,
     16, 8 whose plan fits a block's shared memory (the smallest one's plan
-    if none does)."""
+    if none does). ``forward_plan`` is the plan of the build a launch takes."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -214,10 +234,26 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
                    block * wd + 2 * wd + 2 * r4(M) + r4(O))
         if S:
             work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
-        floats = M * wd + 2 * block * (wd + 4) + work
+        floats = (0 if tall else M * wd) + 2 * block * (wd + 4) + work
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, work, 4 * floats
+
+
+def is_tall(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
+    """Whether the loop forward takes (config, M, N, S) in its tall build
+    (``csrc/scann_loop_tall.cu``): a narrow N (not ``is_wide``) whose narrow
+    plan does not fit a block's shared memory, so the centers live in global
+    memory."""
+    return not is_wide(N) and loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES
+
+
+def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int, int]:
+    """``loop_memory_plan`` of the build the gate picks for (config, M, N, S):
+    the narrow (or wide) plan where it fits, else the tall one. A launch
+    forced into the tall build (``tall=True``) keeps this plan, so it runs
+    the narrow build's atom blocks."""
+    return loop_memory_plan(cfm, M, N, S, is_tall(cfm, M, N, S))
 
 
 def is_wide_backward(N: int) -> bool:
@@ -226,37 +262,47 @@ def is_wide_backward(N: int) -> bool:
     return N > kbwd.MAX_CHUNK_ROWS
 
 
-def forward_library(N: int) -> Tuple[str, str]:
-    """(library, entry-point prefix) of the loop forward's build that takes N
-    neighbours: the wide one (``csrc/scann_loop_wide.cu``) where ``is_wide``,
-    else the narrow one."""
-    return (("scann_loop_wide", "scann_loop_forward_wide") if is_wide(N)
-            else ("scann_loop", "scann_loop_forward"))
+def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
+                    ) -> Tuple[str, str]:
+    """(library, entry-point prefix) of the loop forward's build that takes
+    (config, M, N, S): the wide one (``csrc/scann_loop_wide.cu``) where
+    ``is_wide``, the tall one (``csrc/scann_loop_tall.cu``) where ``is_tall``
+    or ``tall`` forces it, else the narrow one. The one place that chooses."""
+    if is_wide(N):
+        return "scann_loop_wide", "scann_loop_forward_wide"
+    if tall or is_tall(cfm, M, N, S):
+        return "scann_loop_tall", "scann_loop_forward_tall"
+    return "scann_loop", "scann_loop_forward"
 
 
-def backward_library(cfm: ModelConfig, N: int) -> str:
-    """The loop backward's build that takes (config, N), the name of its
-    library and its entry points: the wide one (f32 operands) where
-    ``is_wide_backward``, else the narrow one in the config's operand
-    mode."""
+def backward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False) -> str:
+    """The loop backward's build that takes (config, M, N, S), the name of
+    its library and its entry points: the wide one (f32 operands) where
+    ``is_wide_backward``, the tall one (f32 operands) where
+    ``is_tall_backward`` or ``tall`` forces it, else the narrow one in the
+    config's operand mode. The one place that chooses."""
     if is_wide_backward(N):
         return "scann_loop_backward_wide"
+    if tall or is_tall_backward(cfm, M, N, S):
+        return "scann_loop_backward_tall"
     return kbwd.kernel_name("scann_loop_backward", cfm)
 
 
-def wide_refusal(cfm: ModelConfig, wide: bool) -> Optional[str]:
-    """What the wide builds refuse: the bf16 operand mode (they are built in
-    f32 only; such a bucket takes the per-layer model)."""
-    if wide and kfwd.operand_mode(cfm):
-        return ("model.dtype='bfloat16' with a wide neighbour list: the wide builds of the "
-                "loop kernels run f32 operands; the bucket runs the per-layer model")
+def f32_build_refusal(cfm: ModelConfig, build: Optional[str]) -> Optional[str]:
+    """What the wide and tall builds (``build``: "wide", "tall", or None for
+    the narrow one) refuse: the bf16 operand mode (they are built in f32
+    only; such a bucket takes the per-layer model)."""
+    if build and kfwd.operand_mode(cfm):
+        shape = "a wide neighbour list" if build == "wide" else "M past the narrow plan"
+        return (f"model.dtype='bfloat16' with {shape}: the {build} builds of the loop kernels "
+                "run f32 operands; the bucket runs the per-layer model")
     return None
 
 
 def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
     """The largest S a packed batch of shape (M, N) may have in the loop
-    forward."""
-    return largest_segments(lambda S: loop_memory_plan(cfm, M, N, S)[3])
+    forward (in the build each S takes)."""
+    return largest_segments(lambda S: forward_plan(cfm, M, N, S)[3])
 
 
 def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
@@ -269,14 +315,19 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
                 "(models.scann.scann_forward with use_pallas)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = (kfwd.common_refusal(cfm, N, MAX_NEIGHBORS) or wide_refusal(cfm, is_wide(N))
-              or segment_refusal(S))
-    nbytes = 0 if reason else loop_memory_plan(cfm, M, N, S)[3]
+    reason = (kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
+              or f32_build_refusal(cfm, "wide" if is_wide(N) else None) or segment_refusal(S))
+    if reason:
+        return reason
+    tall = is_tall(cfm, M, N, S)
+    reason = f32_build_refusal(cfm, "tall" if tall else None)
+    nbytes = 0 if reason else forward_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
-        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the centers "
-                  f"plus one atom block need {nbytes} bytes of shared memory, a block has "
-                  f"{MAX_SHARED_BYTES}; larger structures go through the per-layer kernel "
-                  "(kernels.local_attention)")
+        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
+                  + ("one atom block and the readout's vectors" if tall
+                     else "the centers plus one atom block") + f" need {nbytes} bytes of "
+                  f"shared memory, a block has {MAX_SHARED_BYTES}; larger structures go "
+                  "through the per-layer kernel (kernels.local_attention)")
     return reason
 
 
@@ -303,21 +354,27 @@ def reference_loop_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, to
 
 
 def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
-                         cluster: Optional[int] = None) -> Dict[str, Optional[torch.Tensor]]:
+                         cluster: Optional[int] = None, S: int = 0,
+                         tall: Optional[bool] = None) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-forward launch at batch shape (B, M,
-    N) and ``cluster`` blocks per structure (``cluster_size(B)`` when None):
-    the SCANN+ geometry [B * M * N * D] (None for SCANN), the new centers
-    [B, M, D] and, for a wide N, each block's keys of one atom [B * C, N, D]
-    (else None). Its contents mean nothing between launches; a launch
-    allocates its own unless it is handed one."""
+    N), S segments a slot and ``cluster`` blocks per structure
+    (``cluster_size(B)`` when None): the SCANN+ geometry [B * M * N * D]
+    (None for SCANN), the new centers [B, M, D] (the tall build's ping-pong
+    centers [2, B, M, D]), for a wide N each block's keys of one atom [B * C,
+    N, D] (else None) and for the tall build each block's GA keys ``tall``
+    [B * C, M, G] (else None). ``tall`` defaults to ``is_tall``; True is the
+    scratch of a launch forced into the tall build. Its contents mean
+    nothing between launches; a launch allocates its own unless it is handed
+    one, and refuses one of another build."""
     D = cfm.local_dim
     cluster = cluster_size(B) if cluster is None else cluster
+    tall = is_tall(cfm, M, N, S) if tall is None else tall
+    empty = lambda *shape: torch.empty(shape, device=device, dtype=torch.float32)
     shape = wide_keys_shape_for(cfm, B, N, cluster)
-    return {"geo": (torch.empty(B * M * N * D, device=device, dtype=torch.float32)
-                    if cfm.g_update else None),
-            "next_centers": torch.empty((B, M, D), device=device, dtype=torch.float32),
-            "wide_keys": (None if shape is None
-                          else torch.empty(shape, device=device, dtype=torch.float32))}
+    return {"geo": empty(B * M * N * D) if cfm.g_update else None,
+            "next_centers": empty(2, B, M, D) if tall else empty(B, M, D),
+            "wide_keys": None if shape is None else empty(*shape),
+            "tall": empty(*tall_shape_for(cfm, B, M, cluster, True)) if tall else None}
 
 
 def wide_keys_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int,
@@ -333,14 +390,23 @@ def wide_keys_shape(t: Optional[torch.Tensor]) -> Optional[Tuple[int, ...]]:
     return None if t is None else tuple(t.shape)
 
 
+def tall_shape_for(cfm: ModelConfig, B: int, M: int, cluster: int, tall: bool,
+                   backward: bool = False) -> Optional[Tuple[int, int, int]]:
+    """The tall builds' scratch: each block's GA keys [B * C, M, G] in the
+    forward, its GA keys and d(layer input) partial [B * C, M, G + D] in the
+    backward; None for the other builds."""
+    if not tall:
+        return None
+    return (B * cluster, M, cfm.global_dim + (cfm.local_dim if backward else 0))
+
+
 def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
                         cfm: ModelConfig, mrelu_head: bool = False,
                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
-                        cluster: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the kernel with ``pack_params`` output,
-    at ``cluster`` blocks per structure (``cluster_size(B)`` when None).
-    Index ranges are the caller's, as
+    at ``cluster`` blocks per structure (``cluster_size(B)`` when None), in
+    the build ``forward_library`` names. Index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says."""
     dev = packed["wde"].device
     if dev.type != "cuda":
@@ -354,43 +420,56 @@ def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch
 launch_loop_forward.launches = 0
 launch_loop_forward.bf16_launches = 0
 launch_loop_forward.wide_launches = 0
+launch_loop_forward.tall_launches = 0
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
             seed: int = 0, mol_base: int = 0, cluster: Optional[int] = None,
-            scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None
+            scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None, tall: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``launch_loop_forward`` accepted, at
     ``cluster`` blocks per structure (``cluster_size(B)`` when None), on
-    ``scratch`` from ``loop_forward_scratch`` (allocated here when None)."""
+    ``scratch`` from ``loop_forward_scratch`` (allocated here when None; one
+    of another build raises), in the tall build where ``is_tall`` or
+    ``tall`` (True forces it at a shape the narrow build takes, with the
+    narrow plan's atom blocks, for the checks that hold the two builds bit
+    for bit)."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
+    seg, S = segment_arguments(inputs)
     cluster = cluster_size(B) if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop forward launches with {CLUSTER_SIZES}")
+    library, symbol = forward_library(cfm, M, N, S, tall)
+    tall = library == "scann_loop_tall"
+    if tall and kfwd.operand_mode(cfm):
+        raise NotImplementedError(f32_build_refusal(cfm, "tall"))
+    want = loop_forward_scratch(cfm, B, M, N, "meta", cluster, S, tall)
     if scratch is None:
-        scratch = loop_forward_scratch(cfm, B, M, N, dev, cluster)
-    elif (tuple(scratch["next_centers"].shape) != (B, M, cfm.local_dim)
-          or wide_keys_shape(scratch["wide_keys"]) != wide_keys_shape_for(cfm, B, N, cluster)):
-        raise ValueError(f"scratch of shape {tuple(scratch['next_centers'].shape)} (wide keys "
-                         f"{wide_keys_shape(scratch['wide_keys'])}) handed to a batch of shape "
-                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure")
-    seg, S = segment_arguments(inputs)
+        scratch = loop_forward_scratch(cfm, B, M, N, dev, cluster, S, tall)
+    elif any(wide_keys_shape(scratch.get(k)) != wide_keys_shape(want[k])
+             for k in ("next_centers", "wide_keys", "tall")):
+        raise ValueError(f"scratch of shape {wide_keys_shape(scratch['next_centers'])} (wide "
+                         f"keys {wide_keys_shape(scratch['wide_keys'])}, tall "
+                         f"{wide_keys_shape(scratch.get('tall'))}) handed to a batch of shape "
+                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure in the "
+                         f"{library} build")
     bf16 = kfwd.operand_mode(cfm)
-    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N, S)
+    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
     wide = is_wide(N)
-    library, symbol = forward_library(N)
     kfwd.call_kernel(library, symbol, dev,
-                     tensors + [scratch["next_centers"], seg, scratch["wide_keys"]],
+                     tensors + [scratch["next_centers"], seg,
+                                scratch["tall"] if tall else scratch["wide_keys"]],
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
     launch_loop_forward.bf16_launches += bf16
     launch_loop_forward.wide_launches += wide
+    launch_loop_forward.tall_launches += tall
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -438,17 +517,17 @@ def loop_forward_bytes(cfm: ModelConfig, B: int, M: int, N: int) -> int:
 def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
     """How many clusters of ``cluster`` loop-forward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``), in the f32
-    kernel of the build that launches N neighbours (``forward_library``)."""
+    kernel of the build that launches (M, N) (``forward_library``)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
 
-    chunk_atoms, atom_block, work, _ = loop_memory_plan(cfm, M, N)
+    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
             chunk_atoms, work, 0, 0, atom_block, 0, cluster]
-    library, symbol = forward_library(N)
+    library, symbol = forward_library(cfm, M, N)
     fn = getattr(load_library(library), symbol + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -460,16 +539,18 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
 
 # --- the backward ---------------------------------------------------------------
 
-def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
-                              ) -> Tuple[int, int, int]:
+def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
+                              tall: bool = False) -> Tuple[int, int, int]:
     """(atoms per chunk of rows, atoms per block, shared bytes per block) --
     the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks (with
     the per-segment readout's vectors for a packed batch of S segments a
-    slot). The atom block is the largest of 32, 16, 8 (wide: and 4) whose
+    slot; without the resident [M, max(D, G)] buffer in the tall build,
+    ``tall``). The atom block is the largest of 32, 16, 8 (wide: and 4) whose
     plan fits a block's shared memory (the smallest one's plan if none
     does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``) walks one atom at a
     time in sub-chunks of that many rows, beside the atom's attention and d
-    attention [N, H]."""
+    attention [N, H]. ``backward_plan`` is the plan of the build a launch
+    takes."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -491,10 +572,27 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
                    block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
         if S:
             work = max(work, block * wd + seg_backward_floats(S, wd, M, O))
-        floats = M * wd + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd + 2 * wd
+        floats = ((0 if tall else M * wd) + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd
+                  + 2 * wd)
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, 4 * floats
+
+
+def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
+    """Whether the loop backward takes (config, M, N, S) in its tall build
+    (``csrc/scann_loop_backward_tall.cu``): a narrow N (not
+    ``is_wide_backward``) whose narrow plan does not fit a block's shared
+    memory."""
+    return (not is_wide_backward(N)
+            and loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
+
+
+def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int]:
+    """``loop_backward_memory_plan`` of the build the gate picks for
+    (config, M, N, S): the narrow (or wide) plan where it fits, else the tall
+    one; a launch forced into the tall build keeps this plan."""
+    return loop_backward_memory_plan(cfm, M, N, S, is_tall_backward(cfm, M, N, S))
 
 
 def cluster_size(B: int) -> int:
@@ -512,7 +610,7 @@ def cluster_size(B: int) -> int:
 def backward_max_segments(cfm: ModelConfig, M: int, N: int) -> int:
     """The largest S a packed batch of shape (M, N) may have in the loop
     backward."""
-    return largest_segments(lambda S: loop_backward_memory_plan(cfm, M, N, S)[2])
+    return largest_segments(lambda S: backward_plan(cfm, M, N, S)[2])
 
 
 def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
@@ -527,13 +625,19 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
     if M < 1:
         return f"M={M}: no atoms"
     reason = (kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
-              or wide_refusal(cfm, is_wide_backward(N)) or segment_refusal(S))
-    nbytes = 0 if reason else loop_backward_memory_plan(cfm, M, N, S)[2]
+              or f32_build_refusal(cfm, "wide" if is_wide_backward(N) else None)
+              or segment_refusal(S))
+    if reason:
+        return reason
+    tall = is_tall_backward(cfm, M, N, S)
+    reason = f32_build_refusal(cfm, "tall" if tall else None)
+    nbytes = 0 if reason else backward_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
-        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": the resident "
-                  f"buffer plus one atom block need {nbytes} bytes of shared memory, a block "
-                  f"has {MAX_SHARED_BYTES}; larger structures train through the per-layer "
-                  "model")
+        reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
+                  + ("one atom block and the readout's vectors" if tall
+                     else "the resident buffer plus one atom block") + f" need {nbytes} "
+                  f"bytes of shared memory, a block has {MAX_SHARED_BYTES}; larger "
+                  "structures train through the per-layer model")
     return reason
 
 
@@ -693,21 +797,26 @@ def reference_loop_stash_train_grads(params: Dict[str, torch.Tensor],
 
 
 def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: int, M: int,
-                          N: int, cluster: Optional[int] = None, stash=kbwd.AUTO
-                          ) -> Dict[str, Optional[torch.Tensor]]:
+                          N: int, cluster: Optional[int] = None, stash=kbwd.AUTO, S: int = 0,
+                          tall: Optional[bool] = None) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-backward launch at batch shape (B, M,
-    N): that of the molecule backward with the last centers stashed too and
-    one gradient row per block ([B * cluster, P]; ``cluster`` defaults to
-    ``cluster_size(B)``), plus the [B, M, D] d(layer output) and the
-    selective stash of ``stash`` (``loop_stash_mode``'s by default). A
-    trainer allocates it once per shape."""
+    N) and S segments a slot: that of the molecule backward with the last
+    centers stashed too and one gradient row per block ([B * cluster, P];
+    ``cluster`` defaults to ``cluster_size(B)``), plus the [B, M, D] d(layer
+    output), the selective stash of ``stash`` (``loop_stash_mode``'s by
+    default) and, for the tall build (``tall``, ``is_tall_backward`` by
+    default), each block's GA keys and d(layer input) partial ``tall`` [B *
+    C, M, G + D]. A trainer allocates it once per shape."""
     cluster = cluster_size(B) if cluster is None else cluster
+    tall = is_tall_backward(cfm, M, N, S) if tall is None else tall
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
-    shape = wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))
-    scratch["wide_keys"] = (None if shape is None
-                            else torch.empty(shape, device=dev, dtype=torch.float32))
+    for key, shape in (("wide_keys", wide_keys_shape_for(cfm, B, N, cluster,
+                                                         is_wide_backward(N))),
+                       ("tall", tall_shape_for(cfm, B, M, cluster, tall, backward=True))):
+        scratch[key] = (None if shape is None
+                        else torch.empty(shape, device=dev, dtype=torch.float32))
     scratch.update(loop_stash_scratch(
         cfm, B, M, N, kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N), dev))
     return scratch
@@ -724,11 +833,12 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
     ``kernels.scann_forward.launch_scann_forward`` says). ``ct`` [B] is d
     pred, or the targets when ``one_shot`` ([B, S] for a packed batch); ``ct_ga``
     [B, M] (ignored when ``one_shot``); ``scratch``
-    from ``loop_backward_scratch`` at this batch shape, cluster size and
-    stash mode (allocated here when None; one of another mode raises);
-    ``cluster`` blocks per structure (1, 2 or 4; ``cluster_size(B)`` when
-    None). The schedule is ``loop_stash_mode``'s. Returns (flat gradients
-    [P], pred [B], or [B * S] packed)."""
+    from ``loop_backward_scratch`` at this batch shape, cluster size, stash
+    mode and build (allocated here when None; one of another mode or build
+    raises); ``cluster`` blocks per structure (1, 2 or 4; ``cluster_size(B)``
+    when None). The build is ``backward_library``'s, the schedule
+    ``loop_stash_mode``'s. Returns
+    (flat gradients [P], pred [B], or [B * S] packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -747,44 +857,53 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
                      one_shot: bool, mrelu_head: bool = False, dropout_rate: float = 0.0,
                      seed: int = 0, mol_base: int = 0,
                      scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                     cluster: Optional[int] = None, stash=kbwd.AUTO
+                     cluster: Optional[int] = None, stash=kbwd.AUTO, tall: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``launch_loop_backward`` accepted, with
     the schedule ``stash`` (``kbwd.AUTO``: ``loop_stash_mode``'s; None,
     ``"f32"`` or ``"bf16"`` force one, for the checks that hold one schedule
-    against another)."""
+    against another), in the tall build where ``is_tall_backward`` or
+    ``tall`` (True forces it at a shape the narrow build takes, for the
+    checks that hold the two builds bit for bit)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
-    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N, S)
+    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S)
     mode = kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N)
     cluster = cluster_size(B) if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
+    name = backward_library(cfm, M, N, S, tall)
+    tall = name == "scann_loop_backward_tall"
+    if tall and kfwd.operand_mode(cfm):
+        raise NotImplementedError(f32_build_refusal(cfm, "tall"))
     if scratch is None:
-        scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode)
+        scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode, S, tall)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
           or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode
           or wide_keys_shape(scratch["wide_keys"])
-          != wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))):
+          != wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))
+          or wide_keys_shape(scratch.get("tall"))
+          != tall_shape_for(cfm, B, M, cluster, tall, backward=True)):
         raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
-                         f"{scratch['rows'].shape[0]} gradient rows and stash "
-                         f"{scratch_stash_mode(scratch)} handed to a batch of shape "
+                         f"{scratch['rows'].shape[0]} gradient rows, stash "
+                         f"{scratch_stash_mode(scratch)} and tall scratch "
+                         f"{wide_keys_shape(scratch.get('tall'))} handed to a batch of shape "
                          f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure, stash "
-                         f"{mode}")
+                         f"{mode}, in the {name} build")
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
     wide = is_wide_backward(N)
-    name = backward_library(cfm, N)
     kfwd.call_kernel(name, name, packed["wde"].device,
                      tensors + [scratch["dcenters"], seg, scratch["stash_rows"],
                                 scratch["stash_attn"], scratch["stash_o1"],
-                                scratch["wide_keys"]],
+                                scratch["tall"] if tall else scratch["wide_keys"]],
                      dims + [atom_block, S, cluster, kbwd.stash_element_bytes(mode)], scalars,
                      rng, offsets, flat)
     kbwd.count_launch(launch_loop_backward, cfm, mode)
     launch_loop_backward.wide_launches += wide
+    launch_loop_backward.tall_launches += tall
     return flat, pred
 
 
@@ -792,19 +911,19 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) 
     """How many clusters of ``cluster`` loop-backward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``); a launch of more
     than that many structures takes more than one wave. The f32 kernel of
-    the build that launches N neighbours answers (``backward_library``; the
-    bf16 build, with the same launch bounds and shared memory, exports no
-    such entry)."""
+    the build that launches (M, N) answers (``backward_library``; the bf16
+    build, with the same launch bounds and shared memory, exports no such
+    entry)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
 
-    chunk_atoms, atom_block, _ = loop_backward_memory_plan(cfm, M, N)
+    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
             atom_block, 0, cluster]
-    name = backward_library(dataclasses.replace(cfm, dtype="float32"), N)
+    name = backward_library(dataclasses.replace(cfm, dtype="float32"), M, N)
     fn = getattr(load_library(name), name + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int

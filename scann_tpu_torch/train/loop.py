@@ -210,7 +210,7 @@ class Trainer:
         self.version = 0
         self._packed: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
         self._device_buckets: Dict[Tuple[str, int], tuple] = {}
-        self._loop_scratch: Dict[Tuple[int, int, int], dict] = {}
+        self._loop_scratch: Dict[Tuple[int, int, int, int], dict] = {}
         self._slot_batch: Optional[int] = None
         self.history: Optional[Dict[str, list]] = None
 
@@ -264,25 +264,26 @@ class Trainer:
             self._packed = (self.version, pack_params(self.params, self.config.model))
         return self._packed[1]
 
-    def wide_libraries(self, shapes, training: bool = False) -> Tuple[str, ...]:
-        """The wide builds (``_build.WIDE_SOURCES``) that batches of these
-        (M, N, S) shapes launch, by their routes: the loop forward's and
-        the per-layer kernel's in eval, the loop backward's in training; the
-        kernel modules name each route's build (``kloop.forward_library``,
-        ``kla.library``, ``kloop.backward_library``)."""
-        from scann_tpu_torch.kernels._build import WIDE_SOURCES
+    def shape_libraries(self, shapes, training: bool = False) -> Tuple[str, ...]:
+        """The builds made for some shapes only (``_build.WIDE_SOURCES``,
+        ``_build.TALL_SOURCES``) that batches of these (M, N, S) shapes
+        launch, by their routes: the loop forward's and the per-layer
+        kernel's in eval, the loop backward's in training; the kernel modules
+        name each route's build (``kloop.forward_library``, ``kla.library``,
+        ``kloop.backward_library``)."""
+        from scann_tpu_torch.kernels._build import TALL_SOURCES, WIDE_SOURCES
 
         cfm = self.config.model
         libs = set()
         for M, N, S in shapes:
             route = self.eval_route(M, N, S)
             if route == "loop":
-                libs.add(kloop.forward_library(N)[0])
+                libs.add(kloop.forward_library(cfm, M, N, S)[0])
             if route == "per_layer":
                 libs.add(kla.library(N))
             if training and self.train_route(M, N, S) == "loop":
-                libs.add(kloop.backward_library(cfm, N))
-        return tuple(sorted(libs & set(WIDE_SOURCES)))
+                libs.add(kloop.backward_library(cfm, M, N, S))
+        return tuple(sorted(libs & set(WIDE_SOURCES + TALL_SOURCES)))
 
     def eval_route(self, M: int, N: int, S: int = 0) -> str:
         """Which forward a CUDA batch of shape (M, N) at S segments a slot
@@ -403,10 +404,11 @@ class Trainer:
                                                    self.mrelu_head, self.dropout_rate, seed,
                                                    mol_base)
             else:
-                scratch = self._loop_scratch.get((B, M, N))
+                # S picks the build (``is_tall_backward``) and the scratch's shape
+                scratch = self._loop_scratch.get((B, M, N, S))
                 if scratch is None:
-                    scratch = self._loop_scratch[(B, M, N)] = kloop.loop_backward_scratch(
-                        packed, cfm, B, M, N)
+                    scratch = self._loop_scratch[(B, M, N, S)] = kloop.loop_backward_scratch(
+                        packed, cfm, B, M, N, S=S)
                 flat, pred = launch_loop_backward(packed, batch, cfm, y, None, True,
                                                   self.mrelu_head, self.dropout_rate, seed,
                                                   mol_base, scratch=scratch)
@@ -505,9 +507,9 @@ class Trainer:
         return out
 
     def _prune_loop_scratch(self) -> None:
-        """Drop the loop backward's scratch of every (B, M, N) whose (M, N)
-        no device bucket has (it holds 1.5 GB at the MP2018 batch)."""
-        shapes = {tuple(v[0].shape) for v in self._device_buckets.values()}
+        """Drop the loop backward's scratch of every (B, M, N, S) whose (M,
+        N, S) no device bucket has (it holds 1.5 GB at the MP2018 batch)."""
+        shapes = {(*v[0].shape, segment_count(v[1])) for v in self._device_buckets.values()}
         for key in [k for k in self._loop_scratch if k[1:] not in shapes]:
             del self._loop_scratch[key]
 
@@ -545,9 +547,9 @@ class Trainer:
         if self.device.type == "cuda":
             from scann_tpu_torch.kernels import _build
 
-            _build.build_all(_build.SOURCES + self.wide_libraries(
+            _build.build_all(_build.SOURCES + self.shape_libraries(
                 [bucket_shape(b) for b in train_buckets], training=True)
-                + self.wide_libraries([bucket_shape(b) for b in valid_buckets]))
+                + self.shape_libraries([bucket_shape(b) for b in valid_buckets]))
 
         self.config.tpu.observed_buckets = [
             list(s) for s in sorted({b.shape for b in list(train_buckets) + list(valid_buckets)})]

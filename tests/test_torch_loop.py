@@ -84,9 +84,11 @@ def test_torch_loop_gate_accepts_crystal_shapes(cfm, M, N):
 
 
 def test_torch_loop_gate_refuses():
+    # past the wide plan (N > 64), and past the tall plan's readout vectors
     with pytest.raises(NotImplementedError, match="per-layer kernel"):
-        kloop.check_supported(MP2018, 512, 32)
-    assert kloop.refusal(MP2018, 512, 32) is not None
+        kloop.check_supported(MP2018, 512, 96)
+    assert kloop.refusal(MP2018, 512, 96) is not None
+    assert "readout's vectors" in kloop.refusal(MP2018, 30000, 32)
     with pytest.raises(NotImplementedError, match="use_attn_norm"):
         kloop.check_supported(dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
     assert not kloop.supports_loop(dataclasses.replace(MP2018, use_attn_norm=False))
@@ -147,14 +149,21 @@ def test_torch_loop_forward_flops_crystal_batches():
 @pytest.mark.parametrize("M_,N_,ok", [(96, 32, True), (232, 32, True), (237, 32, True),
                                       (238, 32, False), (232, 64, True), (237, 64, True)])
 def test_torch_loop_forward_plan_keeps_its_gate(M_, N_, ok):
-    """The plan of the tensor-core loop forward still takes M = 232 at N = 32
-    (and N up to 64 there); one past its own edge, M = 238, goes to the
-    per-layer kernel."""
+    """The narrow plan of the tensor-core loop forward still takes M = 232 at
+    N = 32 (and N up to 64 there), with its atom blocks; one past its own
+    edge, M = 238, is the first tall shape: the tall build (centers in
+    global memory) takes it with atom blocks of 32 again."""
     chunk_atoms, block, work, nbytes = kloop.loop_memory_plan(MP2018, M_, N_)
-    assert (kloop.refusal(MP2018, M_, N_) is None) == ok
-    assert (nbytes <= kfwd.MAX_SHARED_BYTES) == ok
+    assert kloop.refusal(MP2018, M_, N_) is None
+    assert (nbytes <= kfwd.MAX_SHARED_BYTES) == ok and kloop.is_tall(MP2018, M_, N_) != ok
     assert chunk_atoms * N_ <= 64 and chunk_atoms <= block
     assert block == (32 if M_ <= 189 else 16 if M_ <= 221 else 8)
+    assert kloop.forward_plan(MP2018, M_, N_) == (
+        (chunk_atoms, block, work, nbytes) if ok
+        else kloop.loop_memory_plan(MP2018, M_, N_, tall=True))
+    if not ok:
+        tall = kloop.forward_plan(MP2018, M_, N_)
+        assert tall == (chunk_atoms, 32, work, 4 * (2 * 32 * (128 + 4) + work))
 
 
 def test_torch_molecule_forward_plan_keeps_its_gate():

@@ -187,8 +187,11 @@ def test_torch_loop_backward_gate_and_layout():
         kloop.check_backward_supported(MP2018, M_ok, 32)
     assert kloop.loop_backward_memory_plan(MP2018, 226, 32)[2] <= kfwd.MAX_SHARED_BYTES
     assert kloop.loop_backward_memory_plan(MP2018, 227, 32)[2] > kfwd.MAX_SHARED_BYTES
+    # past the narrow plan at N <= 32, the tall build; past the wide plan, none
+    assert kloop.backward_refusal(MP2018, 232, 32) is None
+    assert kloop.is_tall_backward(MP2018, 232, 32) and not kloop.is_tall_backward(MP2018, 226, 32)
     with pytest.raises(NotImplementedError, match="per-layer model"):
-        kloop.check_backward_supported(MP2018, 232, 32)
+        kloop.check_backward_supported(MP2018, 250, 48)
     # the forward still takes what the backward leaves to the per-layer model
     assert kloop.refusal(MP2018, 232, 32) is None
     assert "sizes" in kloop.backward_refusal(MP2018, 96, 264)
@@ -245,9 +248,12 @@ TRAIN_ROUTES = [
     (PTGP, 128, 32, "loop"),
     (MP2018, 208, 32, "loop"),
     (MP2018, 216, 32, "loop"),
-    (MP2018, 232, 32, "per_layer"),
+    (MP2018, 232, 32, "loop"),
+    (MP2018, 300, 32, "loop"),
+    (MP2018, 573, 16, "loop"),
     (MP2018, 96, 40, "loop"),
     (MP2018, 240, 96, "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 24, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
 ]
@@ -276,7 +282,7 @@ def test_torch_train_route_dispatch(cfm, M, N, route, monkeypatch):
         calls.append(("per_layer", None))
         return torch.zeros(1), {}
 
-    def fake_scratch(packed, cfm_, B_, M_, N_):
+    def fake_scratch(packed, cfm_, B_, M_, N_, S=0):
         scratches.append((B_, M_, N_))
         return {"id": len(scratches)}
 
@@ -294,6 +300,41 @@ def test_torch_train_route_dispatch(cfm, M, N, route, monkeypatch):
         assert scratches == [(1, M, N)] and calls[0][1] == calls[1][1] == {"id": 1}
     else:
         assert scratches == []
+
+
+@pytest.mark.parametrize("M,N", [(96, 32), (300, 32)])
+def test_torch_train_loop_scratch_per_segment_count(M, N, monkeypatch):
+    """The Trainer keeps one loop-backward scratch per (B, M, N, S): S picks
+    the build (``is_tall_backward``) and sizes its plan, so a packed bucket
+    and an unpacked one of the same (B, M, N) never share a scratch. The
+    launcher is patched to a counter; nothing is launched."""
+    cfm = dataclasses.replace(MP2018, n_attention=1, embedding_dim=8)
+    trainer = train_loop.Trainer(ScannConfig(model=cfm), "cpu", "unused")
+    trainer.load_params(init_params(cfm, torch.Generator().manual_seed(0)))
+    trainer.device = torch.device("cuda")       # only the dispatch reads it here
+    P = kbwd.grad_layout(trainer.kernel_params())[1]
+    used, made = [], []
+
+    def fake_launch(packed, batch, cfm_, y, *args, scratch=None, **kw):
+        used.append(scratch)
+        return torch.zeros(P), torch.zeros(y.numel())
+
+    def fake_scratch(packed, cfm_, B_, M_, N_, S=0):
+        made.append((B_, M_, N_, S))
+        return {"id": len(made)}
+
+    monkeypatch.setattr(train_loop, "launch_loop_backward", fake_launch)
+    monkeypatch.setattr(train_loop.kloop, "loop_backward_scratch", fake_scratch)
+    batch = {"atomic": torch.zeros(1, M, dtype=torch.int32),
+             "neighbors": torch.zeros(1, M, N, dtype=torch.int32)}
+    packed = dict(batch, segment_onehot=torch.zeros(1, M, 8))
+    for b, y in ((batch, torch.zeros(1)), (packed, torch.zeros(1, 8)), (batch, torch.zeros(1)),
+                 (packed, torch.zeros(1, 8))):
+        assert trainer.train_route(M, N, kfwd.segment_count(b)) == "loop"
+        trainer.raw_grads(b, y, 0)
+    assert made == [(1, M, N, 0), (1, M, N, 8)]
+    assert [s["id"] for s in used] == [1, 2, 1, 2]
+    assert set(trainer._loop_scratch) == {(1, M, N, 0), (1, M, N, 8)}
 
 
 def test_torch_per_layer_route_matches_loop_route():

@@ -576,30 +576,32 @@ def test_torch_bf16_stash_reference_differs_from_f32():
 
 # --- the gates of the backward kernels against the TPU kernels' ------------------------
 
-GATE_N = (16, 32, 48, 64, 96, 128, 192, 256)
-# the largest M (up to 399) that each gate takes at each N, for QM9, MP2018 and
-# Pt/graphene (configs/model_*.yaml): the TPU's loop backward (#4,
+GATE_N = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+GATE_M = 1024      # past the TPU gates' largest edge, 968 (Pt/graphene at N = 8)
+# the largest M (up to GATE_M) that each gate takes at each N, for QM9, MP2018
+# and Pt/graphene (configs/model_*.yaml): the TPU's loop backward (#4,
 # fits_loop_vmem training) and loop forward (#3, fits_loop_vmem eval), the
 # port's #4 (backward_refusal), #3 (refusal) and #2 (kbwd.refusal). The port's
 # loop kernels take N up to 256 in their wide builds (N > 32 for #4, N > 64
-# for #3); their resident centers [M, 128] cap M near 230 at every N, which is
-# below the TPU's gate at N = 16 and 32 only
-PORT4 = (226, 226, 243, 241, 237, 233, 225, 217)
-PORT3 = (237, 237, 287, 237, 235, 233, 229, 225)
-PORT2 = (33, 33, 0, 0, 0, 0, 0, 0)
-TPU = {"qm9": (399, 254, 170, 128, 88, 66, 44, 33),
-       "mp2018": (399, 232, 156, 121, 81, 61, 40, 30),
-       "ptgp": (399, 322, 228, 172, 121, 91, 61, 45)}
+# for #3), where their resident centers [M, 128] cap M near 230; at a narrower
+# N their tall builds (centers in global memory) take M into the thousands
+PORT4 = (1024, 1024, 1024, 1024, 243, 241, 237, 233, 225, 217)
+PORT3 = (1024, 1024, 1024, 1024, 1024, 1024, 235, 233, 229, 225)
+PORT2 = (33, 33, 33, 33, 0, 0, 0, 0, 0, 0)
+TPU = {"qm9": (828, 467, 325, 254, 170, 128, 88, 66, 44, 33),
+       "mp2018": (768, 428, 298, 232, 156, 121, 81, 61, 40, 30),
+       "ptgp": (968, 573, 407, 322, 228, 172, 121, 91, 61, 45)}
 GATES = {name: {"tpu4": t, "port4": PORT4, "tpu3": t, "port3": PORT3, "port2": PORT2}
          for name, t in TPU.items()}
 
 
 @pytest.mark.parametrize("name", sorted(GATES))
 def test_torch_backward_gates_against_the_tpu_kernels(name):
-    """The table of ``ROADMAP.md`` §B1 item 4: where the port's whole-model
-    kernels stop (N <= 32 for #2, N <= 256 for #3 and #4 in their wide
-    builds) and where the TPU kernels' VMEM gates stop, at each published
-    config's widths."""
+    """The table of ``ROADMAP.md`` §B1: where the port's whole-model kernels
+    stop (N <= 32 for #2, N <= 256 for #3 and #4 in their wide builds, M
+    into the thousands in their tall builds) and where the TPU kernels' VMEM
+    gates stop, at each published config's widths; the port's loop kernels
+    take every M the TPU's take at every N."""
     jax_kw = dict(local_dim=128, num_head=8, global_dim=128, dense_out=128, scale=0.5,
                   use_attn_norm=True, use_ga_norm=True)
     kw = {"qm9": dict(n_atoms=10, embedding_dim=48, n_attention=7, g_update=True,
@@ -611,7 +613,7 @@ def test_torch_backward_gates_against_the_tpu_kernels(name):
     jcfg, tcfg = JaxModelConfig(**kw, **jax_kw), ModelConfig(**kw, **jax_kw)
 
     def largest(ok):
-        return max([M for M in range(1, 400) if ok(M)], default=0)
+        return max([M for M in range(1, GATE_M + 1) if ok(M)], default=0)
 
     got = {
         "tpu4": tuple(largest(lambda M: jax_loop.fits_loop_vmem(jcfg, M, N, training=True))
@@ -625,8 +627,8 @@ def test_torch_backward_gates_against_the_tpu_kernels(name):
     }
     print(name, {k: dict(zip(GATE_N, v)) for k, v in got.items()})
     assert got == GATES[name]
-    # from N = 48 on (the wide builds and #3's chunks of 64 rows) the port's loop
+    # the search reaches past every TPU edge, and at every N the port's loop
     # kernels take every M the TPU's take
+    assert max(got["tpu3"] + got["tpu4"]) < GATE_M
     for i, N in enumerate(GATE_N):
-        if N >= 48:
-            assert got["port3"][i] >= got["tpu3"][i] and got["port4"][i] >= got["tpu4"][i], N
+        assert got["port3"][i] >= got["tpu3"][i] and got["port4"][i] >= got["tpu4"][i], N

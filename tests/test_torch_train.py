@@ -378,19 +378,20 @@ def test_torch_fit_refuses_a_bucket_with_an_out_of_range_neighbour(tmp_path):
 
 
 def test_torch_loop_scratch_is_dropped_with_the_buckets(tmp_path):
-    """The loop backward's scratch, kept per (B, M, N), lives while a device
-    bucket has that (M, N): ``_put_buckets`` drops the rest when it drops
-    buckets."""
+    """The loop backward's scratch, kept per (B, M, N, S), lives while a
+    device bucket has that (M, N, S): ``_put_buckets`` drops the rest when it
+    drops buckets, and a packed scratch of an unpacked bucket's (M, N)."""
     s = Scann(_config(tmp_path, n=40, epochs=1), device="cpu")
     s.prepare_dataset()
     t, buckets = s.trainer, s.train_buckets
     shapes = [b.shape for b in buckets]
     assert len(set(shapes)) == 2
-    t._loop_scratch = {(8, *shapes[0]): "a", (8, *shapes[1]): "b", (8, 200, 32): "stale"}
+    t._loop_scratch = {(8, *shapes[0], 0): "a", (8, *shapes[1], 0): "b",
+                       (8, 200, 32, 0): "stale", (8, *shapes[0], 8): "packed"}
     t._put_buckets(buckets, "train")
-    assert set(t._loop_scratch) == {(8, *shapes[0]), (8, *shapes[1])}
+    assert set(t._loop_scratch) == {(8, *shapes[0], 0), (8, *shapes[1], 0)}
     t._put_buckets(buckets[:1], "valid")
     t._put_buckets(buckets[1:], "train")
-    assert set(t._loop_scratch) == {(8, *shapes[0]), (8, *shapes[1])}
+    assert set(t._loop_scratch) == {(8, *shapes[0], 0), (8, *shapes[1], 0)}
     t._put_buckets([], "valid")
-    assert set(t._loop_scratch) == {(8, *shapes[1])}
+    assert set(t._loop_scratch) == {(8, *shapes[1], 0)}

@@ -297,6 +297,9 @@ ROUTES = [
     (MP2018, 61, 128, "loop", "loop"),
     (MP2018, 30, 256, "loop", "loop"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96, "per_layer", "per_layer"),
+    (MP2018, 300, 32, "loop", "loop"),
+    (MP2018, 573, 16, "loop", "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "per_layer", "per_layer"),
 ]
 
 
@@ -306,23 +309,34 @@ def test_torch_wide_routes(cfm, M, N, train, evaluate):
     (96, 40) and (80, 96) trains on #4's wide build, (96, 96) evaluates on
     #3's, (240, 96) and (256, 96) go per-layer with #5's wide build taking
     the layer; the bf16 operand mode keeps the per-layer route at wide N (the
-    wide builds run f32 operands). ``wide_libraries`` names the builds those
-    routes launch."""
+    wide builds run f32 operands). At a narrow N past the narrow plans,
+    (300, 32) and (573, 16) train and evaluate on #4's and #3's tall builds;
+    bf16 there keeps the per-layer route (the tall builds run f32 operands).
+    ``shape_libraries`` names the builds those routes launch."""
     trainer = train_loop.Trainer(ScannConfig(model=cfm), "cpu", "unused")
     assert trainer.train_route(M, N) == train
     got = trainer.eval_route(M, N)
     assert got == evaluate or (evaluate == "fused_or_loop" and got in ("fused", "loop"))
     if evaluate == "per_layer":
         kla.check_supported(cfm.local_dim, N, cfm.num_gaussian, cfm.num_head, torch.float32)
-    libs = trainer.wide_libraries([(M, N, 0)], training=True)
+    libs = trainer.shape_libraries([(M, N, 0)], training=True)
     want = set()
+    tall = M > 237     # past both narrow plans at these N
     if train == "loop" and N > kbwd.MAX_CHUNK_ROWS:
         want.add("scann_loop_backward_wide")
+    if train == "loop" and N <= kbwd.MAX_CHUNK_ROWS and tall:
+        want.add("scann_loop_backward_tall")
     if got == "loop" and N > kfwd.MAX_CHUNK_ROWS:
         want.add("scann_loop_wide")
+    if got == "loop" and N <= kfwd.MAX_CHUNK_ROWS and tall:
+        want.add("scann_loop_tall")
     if got == "per_layer" and N > kla.MAX_CHUNK_ROWS:
         want.add("local_attention_wide")
-    assert set(libs) == want and set(libs) <= set(_build.WIDE_SOURCES)
+    assert set(libs) == want
+    assert set(libs) <= set(_build.WIDE_SOURCES + _build.TALL_SOURCES)
+    if cfm.dtype == "bfloat16" and N <= kbwd.MAX_CHUNK_ROWS:
+        assert "tall builds" in kloop.refusal(cfm, M, N)
+        assert "tall builds" in kloop.backward_refusal(cfm, M, N)
 
 
 def test_torch_wide_gates_at_the_edges():
