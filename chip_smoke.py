@@ -7,7 +7,8 @@ Builds every CUDA kernel of the port and the rate probes from
 kernel build cache, ``build/scann_tpu_torch/chip_smoke_exec_cache``
 (``utils/exec_cache.py``), and prints the registers and spills (``ptxas
 -v``) of the two backward kernels in f32 and in bf16, of #3 and #5, and of
-the wide builds of #5, #3 and #4. Phases 11 and 12 run first:
+the wide and tall builds of #5, #3 and #4 (#4's in both operand modes).
+Phases 11 and 12 run first:
 
 11. measures the card's rates with the probes of ``csrc/roofline_probe.cu``
    (``utils.roofline.measure_device_rates``: ``expf``, FP32 FMA, TF32 and
@@ -149,10 +150,14 @@ layers); random weights from seeds:
    kernel that skipped the mode, printed for every case. Times each
    bf16 kernel in turns with the f32 one. Then the main path: one request
    of a bf16 QM9 model and one of a bf16 MP2018 model (a 90-site crystal by
-   the loop route, a 260-site one by the per-layer route) through
-   ``PredictionServer``, each answer equal, bit for bit, to
-   ``Scann.predict_structure``; the bf16 launch counts of #1, #3 and #5,
-   set to 0 before, must each be above 0 after.
+   #3's narrow build, a 260-site one at the rung M = 384 by its tall build)
+   through ``PredictionServer``, then one request of the 90-site crystal to
+   an MP2018 model with ``use_attn_norm: false``, which no whole-model
+   kernel takes (the per-layer route: #5 on every layer), in bf16 and in
+   f32; each answer equal, bit for bit, to ``Scann.predict_structure``; the
+   launch counts, set to 0 before, must match the routes: #1 and #3 in bf16
+   above 0, #3's tall build once, #5's bf16 entry on the 9 layers of the
+   bf16 model and its f32 entry on those of the f32 one.
 15. model.dtype bfloat16 training: holds kernels #2 and #4 in the bf16
    operand mode against their bf16 plain versions (``reference_bf16_forward``
    under ``torch.autograd``: every product rounds both operands, the
@@ -173,10 +178,10 @@ layers); random weights from seeds:
    in one bucket: a bf16 QM9 model trains 2 epochs on phase 5's molecules
    (steps by #2; a step resumed from ``checkpoints/last`` equal bit for
    bit), a bf16 MP2018 model 2 epochs on phase 10's crystals at (96, 32)
-   (steps by #4) and 2 at (96, 64), beyond #4's gate (the per-layer route:
-   the eager bf16 model under autograd); every epoch loss and training-set
-   loss finite and falling, the bf16 launches of #2 and #4, set to 0 before
-   each run, equal to the steps of their routes.
+   (steps by #4) and 2 at (96, 64) (steps by #4's wide build in bf16);
+   every epoch loss and training-set loss finite and falling, the bf16
+   launches of #2 and #4, set to 0 before each run, equal to the steps of
+   their routes, #4's wide launches to the steps of the (96, 64) run.
 16. the activation stashes of #2 and #4, the TPU kernels' default training
    schedules, which the main paths above run (phases 5, 10, 13 and 15
    print their launches by schedule; phases 5, 10 and 13 fail without an
@@ -223,6 +228,34 @@ layers); random weights from seeds:
    the eager model; ``Trainer.fit`` trains a synthetic MP2018 model 2 epochs
    in a (64, 48) and a (48, 96) bucket, every step by the "loop" route
    (#4's wide build in both), with finite losses.
+18. tall structures (the tall builds of #3 and #4, M past the narrow plans
+   at a narrow N): holds, ``tall=True`` against the narrow builds bit for
+   bit, times, a served 300-site crystal and 2 epochs at (304, 32) through
+   ``Scann.train`` (``phase18``'s docstrings say what each holds).
+19. the bf16 operand mode in the wide and tall builds of #3 and #4
+   (``model.dtype: bfloat16`` at every shape the f32 builds take): #3 and
+   #4 in bf16 at MP2018 (4, 96, 72) and (4, 80, 96) (wide) and Pt/graphene
+   (2, 322, 32) and MP2018 (2, 428, 16) (tall), full width and depth,
+   attention dropout on, and with one layer over 16 structures, against
+   their bf16 plain versions with phases 14-15's criteria (0.9 x and, with
+   one layer, 0.5 x the f32 kernel's reading, #4's training pred 0.9 x
+   there too: its f32-noise floor alone is 1.1-1.7 x its bf16 gap; #3 at
+   dropout 0 at 1, 2 and 4 blocks a structure,
+   relaunched on NaN- and constant-filled scratch bit for bit, and at
+   dropout 0.1; #4 one-shot at dropout 0.1 at 1, 2 and 4 blocks in its three
+   schedules: recompute and the bf16 stash each against its own bf16 plain
+   version, the f32 stash bit-equal to recompute, both relaunched bit for
+   bit); the tall builds forced at MP2018 (4, 96, 32) and Pt/graphene (4,
+   128, 32) in bf16, bit for bit equal to the narrow bf16 builds; each bf16
+   build timed in turns with its f32 build at the f32 rows' shapes (wide
+   MP2018 (16, 80, 96), tall Pt/graphene (16, 322, 32), C = 4). Then the
+   main paths, the launch counts set to 0 just before each: a bf16 MP2018
+   model serves a crystal at the rung (48, 96) (#3's wide build in bf16)
+   and one at (384, 96) (the per-layer route); it trains 2 epochs on phase
+   18's crystals at (304, 32) (#4's tall build in bf16, one launch a step;
+   validation by #3's tall build in bf16), the Trainer's first step held to
+   the bf16 plain version; and one training step at (248, 64), past #4's
+   wide plan, keeps the per-layer route in bf16 as in f32.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -253,8 +286,9 @@ phase, each kernel's share of both bounds, the run's whole time, then one
 ``sharded_launches``, its launches in phase 13's two ranks together; the
 rows of the four whole-model kernels with ``packed_launches``, their
 launches on the packed training runs, and ``packed``, their times at a
-packed shape; rows ``1-bf16``, ``3-bf16``, ``5-bf16``, ``2-bf16`` and
-``4-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
+packed shape; rows ``1-bf16``, ``3-bf16``, ``5-bf16``, ``2-bf16``,
+``4-bf16``, ``3-wide-bf16``, ``3-tall-bf16``, ``4-wide-bf16`` and
+``4-tall-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
 that count the products of #1-#4 once at the dense BF16 rate and #5's as in
 f32; every row of #2 and #4 names its ``schedule``: rows
 ``scann_backward`` and ``scann_loop_backward`` are the recompute schedule,
@@ -268,9 +302,11 @@ f32 stash at the packed shape) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, and
 without printing a result when CUDA is not available.
 
-``python3 chip_smoke.py --backward-ab ROOT`` runs one turn of an A/B
-comparison of #2 and #4 against another checkout ROOT instead
-(``backward_ab``).
+``python3 chip_smoke.py --backward-ab ROOT [OUT]`` runs one turn of an A/B
+comparison of #2-#5 against another checkout ROOT instead (``backward_ab``;
+with OUT it saves the outputs of every build both checkouts have), and
+``python3 chip_smoke.py --ab-compare A.pt B.pt`` holds two turns' outputs
+bit for bit (``ab_compare``).
 
 Tolerances. Forward (molecule and crystal kernels, per-layer kernel's out
 and geometry): rtol 1e-4, atol 1e-5: the kernels sum their products (three
@@ -1979,10 +2015,14 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
     at (8, 256, 32) at 0.1 x the gap
     (relaunched into NaN-filled outputs); their times in turns with the f32
     kernels'. Then the main path: one served request of a bf16 QM9 model
-    and one of a bf16 MP2018 model (a crystal group by the loop route, one
-    by the per-layer route) through ``PredictionServer``, with the bf16
-    launch counts set to 0 before and read after. Returns the three rows of
-    the {"kernels": ...} line."""
+    and one of a bf16 MP2018 model (a 90-site crystal by #3's narrow build,
+    a 260-site one at the rung M = 384 by its tall build) through
+    ``PredictionServer``, then one request of the 90-site crystal to an
+    MP2018 model with ``use_attn_norm: false`` (which no whole-model kernel
+    takes: the per-layer route, #5 on every layer), in bf16 (#5's bf16
+    entry) and in f32 (its f32 entry), with the launch counts set to 0
+    before and read after. Returns the three rows of the {"kernels": ...}
+    line and the launches of #3's tall build in bf16 (``3-tall-bf16``)."""
     import dataclasses
 
     from scann_tpu_torch.api import Scann
@@ -2153,34 +2193,56 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
     mp.init_params(seed=14)
     mols = [Structure(*MOLECULES["benzene"])]
     # 90 sites: the loop route; 260 (rung M=384): the per-layer route
+    # 90 sites: #3's narrow build; 260 (rung M=384): its tall build
     crystals = [Structure(*_random_crystal(np.random.default_rng(14), n)) for n in (90, 260)]
     counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
     for c in counters:
-        c.bf16_launches = 0
-    kla.fused_local_attention.launches = 0
+        c.bf16_launches = c.launches = 0
+    kloop.launch_loop_forward.tall_launches = 0
     _, qm9_answers = bf16_serve("phase 14 bf16 QM9 model", qm9, mols, failures)
     routes, mp_answers = bf16_serve("phase 14 bf16 MP2018 model", mp, crystals, failures)
+    tall16 = kloop.launch_loop_forward.tall_launches
+    # use_attn_norm: false, which no whole-model kernel takes: #5 on every layer,
+    # its bf16 entry in the bf16 model (no f32 LayerNorm between the layers), its
+    # f32 entry in the f32 one
+    layer_models, layer_routes, layer_answers = {}, [], {}
+    for dtype in ("bfloat16", "float32"):
+        model = Scann(ScannConfig(model=dataclasses.replace(mp2018, dtype=dtype,
+                                                            use_attn_norm=False),
+                                  hyper=mp.config.hyper), device="cuda")
+        model.init_params(seed=14)
+        before = kla.fused_local_attention.launches
+        got, layer_answers[dtype] = bf16_serve(f"phase 14 {dtype} MP2018 model, "
+                                               "use_attn_norm false", model, crystals[:1],
+                                               failures)
+        layer_routes += got
+        layer_models[dtype] = (model, kla.fused_local_attention.launches - before)
     launches = {1: kfwd.fused_scann_forward.bf16_launches,
-                3: kloop.launch_loop_forward.bf16_launches,
+                3: kloop.launch_loop_forward.bf16_launches - tall16,
                 5: kla.fused_local_attention.bf16_launches}
-    layer_all = kla.fused_local_attention.launches
-    print(f"phase 14 main path: bf16 launches #1 {launches[1]}, #3 {launches[3]}, #5 "
-          f"{launches[5]}; per-layer kernel launches in all {layer_all} (the layers after the "
-          f"first take f32 centers from the f32 LayerNorm, as the flax model's do)", flush=True)
-    if (min(launches.values()) == 0 or "loop" not in routes or "per_layer" not in routes
-            or layer_all != mp_16.n_attention * routes.count("per_layer")):
-        failures.append(f"phase 14: launches {launches} (per-layer {layer_all}) do not match "
-                        f"the routes {routes}")
+    f32_entry = layer_models["float32"][1]
+    print(f"phase 14 main path: bf16 launches #1 {launches[1]}, #3 {launches[3]} narrow and "
+          f"{tall16} tall, #5 {launches[5]}; #5 launches of the f32 model {f32_entry}",
+          flush=True)
+    if (min(launches.values()) == 0 or routes != ["loop", "loop"] or tall16 != 1
+            or layer_routes != ["per_layer", "per_layer"]
+            or not launches[5] == layer_models["bfloat16"][1] == mp_16.n_attention
+            or f32_entry != mp2018.n_attention):
+        failures.append(f"phase 14: launches {launches} (tall {tall16}, #5 of the f32 model "
+                        f"{f32_entry}) do not match the routes {routes} and {layer_routes}")
     check_served("phase 14 bf16 QM9 model", qm9, mols, qm9_answers, failures)
     check_served("phase 14 bf16 MP2018 model", mp, crystals, mp_answers, failures)
+    for dtype, (model, _) in layer_models.items():
+        check_served(f"phase 14 {dtype} MP2018 model, use_attn_norm false", model,
+                     crystals[:1], layer_answers[dtype], failures)
     print(f"phase 14: {time.time() - t0:.1f} s  [{card}]", flush=True)
     rows = [bf16_row(f"{n}-bf16", kernel, mod.SOURCE, mod.REPLACES, launches[n], worst[n],
                      times[n], plain_ms[n], *work[n], card, bf16_products=n != 5)
             for n, kernel, mod in ((1, "scann_forward", kfwd), (3, "scann_loop", kloop),
                                    (5, "local_attention", kla))]
-    # the per-layer group's later layers: #5's f32 entry, on this main path
-    rows[-1]["f32_entry_launches"] = layer_all - launches[5]
-    return rows
+    # the f32 model's per-layer request: #5's f32 entry, on this main path
+    rows[-1]["f32_entry_launches"] = f32_entry
+    return rows, {"scann_loop_tall_bf16": tall16}
 
 
 # ---- phase 15: model.dtype bfloat16 training (#2 and #4 in the bf16 operand mode) ----
@@ -2226,7 +2288,8 @@ def jittered(params, seed):
             for k, v in params.items()}
 
 
-def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, below_f32):
+def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, below_f32,
+                    below_pred=None):
     """A backward kernel in bf16 against its bf16 plain version on the same
     inputs, each a (pred, gradients) pair. For the gradients flattened into
     one vector and for pred it prints (a) the bf16 kernel's mean distance
@@ -2239,7 +2302,8 @@ def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, bel
     draw to draw), and (d) the f32 kernel's mean distance from the bf16
     plain version, the reading of a kernel that skipped the mode. It holds
     (a) to the larger of ``BF16_GAP`` x (b) and ``BF16_FLOOR`` x (c), and to
-    ``below_f32`` x (d); and the bf16 kernel's gradient cosine with the f32
+    ``below_f32`` x (d) (pred to ``below_pred`` x (d) where given); and the
+    bf16 kernel's gradient cosine with the f32
     kernel's above ``BF16_COSINE``, or where the plain version's own bf16
     gradient reads below that against its f32 one, no more than 1e-4 below
     that reading. On a failure it prints the gradients that move (a) most.
@@ -2248,21 +2312,22 @@ def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, bel
     flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
     dist = lambda u, v: (u - v).abs().mean().item()
     line = [label]
-    for what, sel in (("grads", lambda o: flat(o[1])),
-                      ("pred", lambda o: o[0].double().reshape(-1))):
+    for what, sel, below in (("grads", lambda o: flat(o[1]), below_f32),
+                             ("pred", lambda o: o[0].double().reshape(-1),
+                              below_f32 if below_pred is None else below_pred)):
         k16, p16, p32, k32 = (sel(o) for o in (got16, plain16, plain32, got32))
         a, b, d = dist(k16, p16), max(dist(p16, p32), 1e-30), dist(k32, p16)
         c64, *cjit = (dist(p16, sel(f)) for f in floors)
         c = max(c64, *cjit)
         limit = max(BF16_GAP * b, BF16_FLOOR * c)
-        ok = a <= limit and a <= below_f32 * d and bool(torch.isfinite(k16).all())
+        ok = a <= limit and a <= below * d and bool(torch.isfinite(k16).all())
         line.append(f"{what}: (a) {a:.3e} = {a / b:.4f} x (b) {b:.3e}, (c) {c / b:.4f} x (f64 "
                     f"{c64 / b:.4f}, jitter {'/'.join(f'{j / b:.4f}' for j in cjit)}), (d) "
-                    f"{d / b:.4f} x; limit {min(limit, below_f32 * d) / b:.4f} x")
+                    f"{d / b:.4f} x; limit {min(limit, below * d) / b:.4f} x")
         if not ok:
             failures.append(f"{label} {what}: (a) {a:.3e} over min(max({BF16_GAP} (b), "
-                            f"{BF16_FLOOR} (c)), {below_f32} (d)) = "
-                            f"{min(limit, below_f32 * d):.3e}")
+                            f"{BF16_FLOOR} (c)), {below} (d)) = "
+                            f"{min(limit, below * d):.3e}")
             if what == "grads":
                 share = sorted(((got16[1][k] - plain16[1][k]).abs().sum().item(), k)
                                for k in plain16[1])[::-1][:4]
@@ -2445,13 +2510,15 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
     one step of it resumed from ``checkpoints/last`` must equal the same
     step of the trainer bit for bit; a bf16 MP2018 model trains 2 epochs on
     phase 10's crystals in one bucket (96, 32) (the "loop" route, #4 in
-    bf16) and 2 in one bucket with the neighbour axis padded to 64, beyond
-    #4's gate (the "per_layer" route: the eager bf16 model under autograd).
+    bf16) and 2 in one bucket with the neighbour axis padded to 64 (the
+    "loop" route on #4's wide build in bf16).
     One bucket a run, as phases 5 and 10 hold their falling losses: a pass
     over one of several buckets rides on the others' steps. Each run's epoch
     loss and training-set loss without dropout must be finite and fall, and
     the bf16 launches of #2 and #4, set to 0 just before, must equal the
-    steps that took their routes. Returns those launches."""
+    steps that took their routes, and #4's wide launches the steps of a wide
+    bucket. Returns those launches (#4's narrow build, and its wide build
+    under ``"scann_loop_backward_wide_bf16"``)."""
     import dataclasses
 
     from scann_tpu_torch.api import Scann
@@ -2461,7 +2528,7 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
 
     bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
     counters = {2: kbwd.launch_scann_backward, 4: kloop.launch_loop_backward}
-    launches = {2: 0, 4: 0}
+    launches = {2: 0, 4: 0, "scann_loop_backward_wide_bf16": 0}
 
     def train(label, cfm, info, target, bs, multiple, want):
         energy, nbr = info["data"]
@@ -2490,8 +2557,9 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
         hist = scann.train()
         torch.cuda.synchronize()
         got = {n: (c.launches, c.bf16_launches) for n, c in counters.items()}
+        wide, tall = counters[4].wide_launches, counters[4].tall_launches
         print(f"phase 15 {label}: launches by schedule #2 {mode_counts(counters[2])}, #4 "
-              f"{mode_counts(counters[4])}", flush=True)
+              f"{mode_counts(counters[4])} ({wide} wide, {tall} tall)", flush=True)
         seconds = time.time() - t1
         after = set_loss()                             # before evaluate() restores "best"
         result = scann.evaluate()
@@ -2503,12 +2571,14 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
                 and np.isfinite(after) and after < before):
             failures.append(f"phase 15 {label}: epoch losses {hist['loss']}, training-set loss "
                             f"{before} -> {after}: not finite and falling")
+        wide_steps = steps["loop"] if multiple > 32 else 0
         if (want not in routes or got[2] != (steps["fused"],) * 2
-                or got[4] != (steps["loop"],) * 2):
+                or got[4] != (steps["loop"],) * 2 or (wide, tall) != (wide_steps, 0)):
             failures.append(f"phase 15 {label}: routes {routes} (want {want}), launches {got} "
-                            f"for steps {steps}")
+                            f"({wide} wide, {tall} tall) for steps {steps}")
         launches[2] += got[2][1]
-        launches[4] += got[4][1]
+        launches[4] += got[4][1] - wide - tall
+        launches["scann_loop_backward_wide_bf16"] += wide
         return scann, cfg
 
     energy_t = "formation_energy_per_atom"
@@ -2542,7 +2612,7 @@ def phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card):
                         f"{total} tensors equal")
     del qm9, resumed, trainer
     train("bf16 MP2018", mp2018, crystal_run, energy_t, 64, 32, "loop")
-    train("bf16 MP2018 N=64", mp2018, crystal_run, energy_t, 64, 64, "per_layer")
+    train("bf16 MP2018 N=64", mp2018, crystal_run, energy_t, 64, 64, "loop")
     return launches
 
 
@@ -2551,7 +2621,8 @@ def phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_
     """model.dtype bfloat16 training: the holds (``phase15_matrix``,
     ``phase15_holds``), the times (``phase15_times``) and the main path
     (``phase15_train``). Returns the rows ``2-bf16`` and ``4-bf16`` of the
-    {"kernels": ...} line."""
+    {"kernels": ...} line, and the launches of #4's wide build in bf16
+    (``4-wide-bf16``) on the main path."""
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_loop as kloop
 
@@ -2563,17 +2634,20 @@ def phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_
     del mp_x
     torch.cuda.empty_cache()
     launches = phase15_train(qm9_model, mp2018, qm9_run, crystal_run, failures, card)
-    print(f"phase 15 main path: bf16 launches #2 {launches[2]}, #4 {launches[4]}; "
-          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
-    if min(launches.values()) == 0:
+    wide = launches.pop("scann_loop_backward_wide_bf16")
+    print(f"phase 15 main path: bf16 launches #2 {launches[2]}, #4 {launches[4]} narrow and "
+          f"{wide} wide; {time.time() - t0:.1f} s  [{card}]", flush=True)
+    if min(launches.values()) == 0 or wide == 0:
         failures.append(f"phase 15: a backward kernel was not launched in bf16 on the main path: "
-                        f"{launches}")
-    return [bf16_row(f"{n}-bf16", kernel, source, mod.REPLACES if n == 2 else mod.BACKWARD_REPLACES,
-                     launches[n], worst[n], times[n][0], times[n][1], *times[n][2:], card)
+                        f"{launches}, {wide} wide")
+    rows = [bf16_row(f"{n}-bf16", kernel, source,
+                     mod.REPLACES if n == 2 else mod.BACKWARD_REPLACES, launches[n], worst[n],
+                     times[n][0], times[n][1], *times[n][2:], card)
             for n, kernel, source, mod in (
                 (2, "scann_backward", "scann_tpu_torch/csrc/scann_backward_bf16.cu", kbwd),
                 (4, "scann_loop_backward", "scann_tpu_torch/csrc/scann_loop_backward_bf16.cu",
                  kloop))]
+    return {"scann_loop_backward_wide_bf16": wide}, rows
 
 
 # ---- phase 16: the activation stashes of #2 and #4 -------------------------------------
@@ -4181,7 +4255,8 @@ def phase18_paths(mp2018, failures, card):
     scratch it keeps for the fit) is held to the plain version on the same
     batch first, and the same epochs with the plain step
     (``plain_loop_trainer``) must give the same losses. Returns the
-    launches of #3 and #4 (tall) on these paths."""
+    launches of #3 and #4 (tall) on these paths and the dataset's two files
+    (phase 19 trains on them again in bf16)."""
     import tempfile
 
     from scann_tpu_torch.api import Scann
@@ -4297,12 +4372,13 @@ def phase18_paths(mp2018, failures, card):
     if not rel <= TRAIN_RTOL:
         failures.append(f"phase 18 kernel and plain epochs at {train[0].shape} differ: "
                         f"{rel:.3e}")
-    return {"scann_loop_tall": served[1] + trained[2], "scann_loop_backward_tall": trained[1]}
+    return ({"scann_loop_tall": served[1] + trained[2], "scann_loop_backward_tall": trained[1]},
+            (energy, nbr))
 
 
 def phase18(mp2018, ptgp, failures, card):
     """Phase 18: tall structures. Returns the kernels line's rows of the two
-    tall builds."""
+    tall builds and the files of its training set."""
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     t0 = time.time()
@@ -4310,10 +4386,10 @@ def phase18(mp2018, ptgp, failures, card):
     t1 = time.time()
     t3, t4 = phase18_times(mp2018, ptgp, card)
     t2 = time.time()
-    launches = phase18_paths(mp2018, failures, card)
+    launches, data = phase18_paths(mp2018, failures, card)
     print(f"phase 18 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
           f"{time.time() - t2:.1f}", flush=True)
-    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+    return data, [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "max_abs_err": err, "library_ms": None,
              **{k: v for k, v in t.items() if k != "cluster"}}
             for name, source, replaces, err, t in (
@@ -4321,6 +4397,415 @@ def phase18(mp2018, ptgp, failures, card):
                  err3, t3),
                 ("scann_loop_backward_tall", "scann_tpu_torch/csrc/scann_loop_backward_tall.cu",
                  kloop.BACKWARD_REPLACES, err4, t4))]
+
+# ---- phase 19: the bf16 operand mode in the wide and tall builds of #3 and #4 ---------------
+
+def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=0.9,
+                    below_pred=None):
+    """#3 and #4 in the bf16 operand mode in the build that (``cfm``, ``x``)
+    takes, against their bf16 plain versions with phases 14-15's criteria.
+    #3 (``hold_bf16``: within the larger of 0.1 x the plain bf16-vs-f32 gap
+    and 2 x the f32-noise floor, and ``below`` x the f32 kernel's reading;
+    at full depth every output within rtol 0.05 / atol 0.02 of the f32
+    kernel) at dropout 0 at each of ``clusters`` blocks a structure, each
+    relaunched on NaN- and constant-filled scratch bit for bit, and at
+    dropout 0.1 with attention dropout at the batch's cluster size. #4
+    (one-shot, dropout 0.1) at each of ``clusters`` in its three schedules:
+    recompute against the bf16 plain version (``hold_bf16_grads``,
+    ``below`` x the f32 kernel's reading), the f32 stash bit-equal to it,
+    the bf16 stash against its own plain version
+    (``kloop.reference_loop_stash_train_grads`` in the bf16 operand mode),
+    the f32 stash and recompute each relaunched on NaN- and constant-filled
+    scratch bit for bit. Phases 14-15 hold at 0.9 x with the model's
+    layers and at 0.5 x with one, where the f32-noise floor is lower;
+    ``below_pred`` sets #4's pred apart (``hold_bf16_grads``).
+    Returns (worst #3 error, worst #4 error)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    build3, build4 = kloop.forward_library(cfm16, M, N)[0], kloop.backward_library(cfm16, M, N)
+    p = init_params(cfm, torch.Generator().manual_seed(seed), "cuda")
+    packed = kfwd.pack_params(p, cfm)
+    kfwd._check_inputs(x, cfm, packed["wde"].device)
+    tag = f"{label} B={B} M={M} N={N}"
+    worst3 = worst4 = 0.0
+    full = cfm.n_attention > 1
+    for rate, at in ((0.0, clusters), (0.1, (kloop.cluster_size(B),))):
+        with torch.inference_mode():
+            plain16 = kloop.reference_loop_forward(p, x, cfm16, False, rate, 11)
+            plain32 = kloop.reference_loop_forward(p, x, cfm, False, rate, 11)
+            f64 = kloop.reference_loop_forward(f64_params(p), x, cfm16, False, rate, 11)
+        for C in at:
+            differ = set()
+            with torch.inference_mode():
+                got16 = kloop._launch(packed, x, cfm16, False, rate, 11, 0, C)
+                got32 = kloop._launch(packed, x, cfm, False, rate, 11, 0, C)
+                if not rate:
+                    scratch = kloop.loop_forward_scratch(cfm16, B, M, N, "cuda", C)
+                    for fill in (float("nan"), -3.0):
+                        for t in scratch.values():
+                            if t is not None:
+                                t.fill_(fill)
+                        again = kloop._launch(packed, x, cfm16, False, rate, 11, 0, C, scratch)
+                        differ |= {w for w, a, b in zip(("pred", "ga"), again, got16)
+                                   if not torch.equal(a, b)}
+                    del scratch
+            torch.cuda.synchronize()
+            name = f"{tag} #3 bf16 ({build3}) C={C} dropout {rate}"
+            worst3 = max(worst3, hold_bf16(name, got16, plain16, plain32, got32, failures, f64,
+                                           versus_f32=full, below_f32=below))
+            if not rate:
+                print(f"{name}: 2 launches on NaN- and constant-filled scratch bit-identical: "
+                      f"{not differ}", flush=True)
+                if differ:
+                    failures.append(f"{name}: relaunches differ in {sorted(differ)}")
+        del plain16, plain32, f64
+    rate = 0.1
+    y = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, 1)).astype(np.float32)).cuda()
+    run = lambda q, c: kloop.reference_loop_train_grads(q, x, y, c, False, rate, 7)
+    stash = lambda q: kloop.reference_loop_stash_train_grads(q, x, y, cfm16, False, rate, 7,
+                                                             mode="bf16")
+    plain16, plain32, plain_st = run(p, cfm16), run(p, cfm), stash(p)
+    floors = [run(f64_params(p), cfm16)] + [run(jittered(p, j), cfm16) for j in range(JITTERS)]
+    st_floors = [stash(f64_params(p))] + [stash(jittered(p, j)) for j in range(JITTERS)]
+    for C in clusters:
+        got, differ = {}, set()
+        for mode in ("f32", None, "bf16"):
+            scratch = kloop.loop_backward_scratch(packed, cfm16, B, M, N, C, mode)
+            for i in range(1 if mode == "bf16" else 3):
+                if i:
+                    for t in scratch.values():
+                        if t is not None:
+                            t.fill_(float("nan") if i == 1 else -3.0)
+                out = backward_launch(4, packed, x, y, cfm16, rate, 7, scratch, C, stash=mode)
+                if not i:
+                    got[mode] = (out[0].clone(), {k: v.clone() for k, v in out[1].items()})
+                    continue
+                differ |= {f"{mode} {k}" for k in out[1] if not torch.equal(out[1][k],
+                                                                           got[mode][1][k])}
+                if not torch.equal(out[0], got[mode][0]):
+                    differ.add(f"{mode} pred")
+            del scratch
+        got32 = backward_launch(4, packed, x, y, cfm, rate, 7, None, C, stash=None)
+        torch.cuda.synchronize()
+        name = f"{tag} #4 bf16 ({build4}) C={C} dropout {rate}"
+        worst4 = max(worst4, hold_bf16_grads(f"{name} recompute", got[None], plain16, plain32,
+                                             floors, got32, failures, below, below_pred))
+        same = (torch.equal(got["f32"][0], got[None][0])
+                and all(torch.equal(got["f32"][1][k], got[None][1][k]) for k in got[None][1]))
+        print(f"{name}: the f32 stash bit-equal to recompute: {same}; 2 relaunches each of the "
+              f"f32 stash and recompute on NaN- and constant-filled scratch bit-identical: "
+              f"{not differ}", flush=True)
+        if not same:
+            failures.append(f"{name}: the f32 stash differs from recompute")
+        if differ:
+            failures.append(f"{name}: relaunches differ in {sorted(differ)[:6]}")
+        worst4 = max(worst4, hold_bf16_grads(f"{name} bf16 stash", got["bf16"], plain_st, plain32,
+                                             st_floors, got32, failures, below, below_pred))
+    return worst3, worst4
+
+
+def phase19_holds(mp2018, ptgp, failures):
+    """The four bf16 builds against their plain versions (``hold_bf16_shape``)
+    at the wide shapes MP2018 (4, 96, 72) and (4, 80, 96) and the tall ones
+    Pt/graphene (2, 322, 32) and MP2018 (2, 428, 16), full width and depth,
+    attention dropout on, and again with one layer over 16 structures at
+    their cluster size (0.5 x the f32 kernel's reading, #4's pred 0.9 x);
+    then the tall builds in bf16 forced (``tall=True``) at MP2018 (4, 96,
+    32) and Pt/graphene (4, 128, 32) against the narrow bf16 builds, bit
+    for bit (``tall_against_narrow``). Returns the worst errors by row
+    name."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    rng = np.random.default_rng(19)
+    mp_drop = dataclasses.replace(mp2018, use_drop=True)
+    pt_drop = dataclasses.replace(ptgp, use_drop=True)
+    pt = dict(use_ring=True, n_atoms=ptgp.n_atoms)
+    # (build, name, config, the batch of B structures at the shape)
+    cases = (("wide", "MP2018", mp_drop, lambda B: wide_batch(rng, B, 96, 72, mp2018)),
+             ("wide", "MP2018", mp_drop, lambda B: wide_batch(rng, B, 80, 96, mp2018)),
+             ("tall", "Pt/graphene", pt_drop,
+              lambda B: synthetic_batch(rng, B, 322, 32, min_atoms=300, **pt)),
+             ("tall", "MP2018", mp_drop,
+              lambda B: synthetic_batch(rng, B, 428, 16, n_atoms=mp2018.n_atoms, min_atoms=400)))
+    worst = {}
+    for build, name, cfm, batch in cases:
+        t0 = time.time()
+        x = batch(4 if build == "wide" else 2)
+        M, N = x["atom_mask"].shape[1], x["neighbors"].shape[2]
+        shaped = (kloop.is_wide_backward(N) if build == "wide"
+                  else kloop.is_tall(cfm, M, N) and kloop.is_tall_backward(cfm, M, N))
+        if not shaped:
+            raise AssertionError(f"phase 19: {name} {(M, N)} is not a {build} shape")
+        w3, w4 = hold_bf16_shape(f"phase 19 {name}", cfm, x, failures)
+        # one layer over 16 structures at 0.5 x the f32 kernel's reading, but
+        # #4's training pred at 0.9 x: at these shapes its f32-noise floor
+        # (the plain version against itself on weights moved by 1e-7) is
+        # 1.1-1.7 x its whole bf16-vs-f32 gap at one layer, 2 or 16
+        # structures alike, where no kernel, the plain version included,
+        # reads below 0.5 x the f32 kernel's distance
+        one = hold_bf16_shape(f"phase 19 {name} L=1", dataclasses.replace(cfm, n_attention=1),
+                              batch(16), failures, clusters=(kloop.cluster_size(16),), below=0.5,
+                              below_pred=0.9)
+        w3, w4 = max(w3, one[0]), max(w4, one[1])
+        # #3 runs narrow at N = 72 and below: its wide row takes N > 64 only
+        if build == "tall" or kloop.is_wide(N):
+            worst[f"3-{build}-bf16"] = max(worst.get(f"3-{build}-bf16", 0.0), w3)
+        worst[f"4-{build}-bf16"] = max(worst.get(f"4-{build}-bf16", 0.0), w4)
+        print(f"phase 19 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
+              f"{time.time() - t0:.1f} s", flush=True)
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    tall_against_narrow("phase 19 MP2018 bf16", bf16(mp2018),
+                        synthetic_batch(rng, 4, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20),
+                        failures)
+    tall_against_narrow("phase 19 Pt/graphene bf16", bf16(ptgp),
+                        synthetic_batch(rng, 4, 128, 32, min_atoms=20, **pt), failures)
+    return worst
+
+
+def phase19_times(mp2018, ptgp, card):
+    """Each bf16 build in turns with its f32 build (f32, bf16, bf16, f32) at
+    the f32 rows' shapes, C = 4: the wide builds at MP2018 (16, 80, 96), the
+    tall ones at Pt/graphene (16, 322, 32); #4 one-shot at dropout 0.1 in
+    the schedule both take there (the f32 stash). Beside them the bf16
+    plain versions' times and the work. Returns {row name: ((bf16 ms, f32
+    ms), plain ms, FLOP, FLOP on the CUDA cores, bytes)}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(191)
+    out = {}
+    for build, name, cfm, x in (
+            ("wide", "MP2018", mp2018, wide_batch(rng, 16, 80, 96, mp2018)),
+            ("tall", "Pt/graphene", ptgp, synthetic_batch(rng, 16, 322, 32, use_ring=True,
+                                                          n_atoms=ptgp.n_atoms, min_atoms=240))):
+        cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+        params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+        packed = kfwd.pack_params(params, cfm)
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        with torch.inference_mode():
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
+            t3 = in_turns_ms(lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, None, scratch),
+                             lambda: kloop._launch(packed, x, cfm16, False, 0.0, 0, 0, None,
+                                                   scratch), 3, 10)
+            plain3 = cuda_ms(lambda: kloop.reference_loop_forward(params, x, cfm16), 3)
+            del scratch
+        mode = kloop.loop_stash_mode(cfm, B, M, N)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, stash=mode)
+        launch = lambda c: kloop._launch_backward(packed, x, c, y, None, True, False, 0.1, 7, 0,
+                                                  scratch, stash=mode)
+        t4 = in_turns_ms(lambda: launch(cfm), lambda: launch(cfm16), 3, 8)
+        del scratch
+        plain4 = statistics.median(cuda_times(lambda: chunked_train_grads(
+            kloop.reference_loop_train_grads, params, x, y, cfm16, False, 0.1, 7, 4), 2,
+            warmup=1))
+        _, P = kbwd.grad_layout(packed)
+        common = tensor_bytes(x.values(), packed.values())
+        out[f"3-{build}-bf16"] = (t3, plain3, kloop.loop_forward_flops(cfm, B, M, N),
+                                  kfwd.forward_fp32_flops(cfm, B, M, N),
+                                  common + 4 * (B + B * M) + kloop.loop_forward_bytes(cfm, B, M, N))
+        out[f"4-{build}-bf16"] = (t4, plain4, kloop.loop_backward_flops(cfm, B, M, N),
+                                  kbwd.backward_fp32_flops(cfm, B, M, N),
+                                  common + 4 * B + 4 * (P + B))
+        C = kloop.cluster_size(B)
+        for n, (t, plain) in ((3, (t3, plain3)), (4, (t4, plain4))):
+            print(f"phase 19 #{n} {build} at {name} B={B} M={M} N={N}, C={C}"
+                  f"{'' if n == 3 else f' (the {mode} stash, dropout 0.1, one-shot)'} (timed in "
+                  f"turns: f32, bf16, bf16, f32): bf16 {t[0]:.4f} ms, f32 {t[1]:.4f} ms "
+                  f"({100 * (t[0] / t[1] - 1):+.1f}%), bf16 plain {plain:.4f} ms  [{card}]",
+                  flush=True)
+    return out
+
+
+def phase19_paths(mp2018, data, failures, card):
+    """The main paths in bf16 at wide and tall shapes, through the entry points
+    a user calls, with the launch counts set to 0 just before:
+    ``Scann.predict_featurized`` on a bf16 MP2018 model of a crystal whose
+    ladder N is 96 (48, 96: #3's wide build in bf16) and of one past #3's
+    wide plan (384, 96: the per-layer model), held to the bf16 plain
+    version and the eager bf16 model within rtol 0.05 / atol 0.02; then
+    ``Scann.train`` of a bf16 MP2018 model, 2 epochs on phase 18's crystals
+    in its bucket (304, 32) (#4's tall build in bf16, one launch a step;
+    the validation batches by #3's tall build in bf16), whose first step
+    through the Trainer is held to the bf16 plain version first
+    (``hold_bf16_grads``, 0.9 x the f32 kernel's reading), every epoch loss
+    finite; then one training step of a bf16 and of an f32 MP2018 model at
+    (248, 64), past #4's wide plan: the per-layer route in both, no kernel
+    launch, the bf16 loss finite and within rtol 0.05 of the f32 one.
+    Returns the launches of the four builds on these paths."""
+    import dataclasses
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+    from scann_tpu_torch.train.loop import Trainer
+
+    mp16 = dataclasses.replace(mp2018, dtype="bfloat16")
+    rng = np.random.default_rng(192)
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_bf16_shapes_")
+    scann = Scann(ScannConfig(model=mp16, hyper=HyperConfig(batch_size=16, seed=0,
+                                                            save_path=os.path.join(work, "run"))),
+                  device="cuda")
+    scann.init_params(0)
+    records = [wide_batch(rng, 1, na, 80, mp2018, min_atoms=na, edges=False) for na in (40, 300)]
+    inputs = [{k: v.cpu().numpy() for k, v in x.items()} for x in records]
+    structs = [Structure(["Si"] * na, rng.uniform(0, 9, size=(na, 3)), np.eye(3) * 9.0)
+               for na in (40, 300)]
+    f3, f5, f4 = kloop.launch_loop_forward, kla.fused_local_attention, kloop.launch_loop_backward
+    for c in (f3, f5):
+        c.launches = c.bf16_launches = c.wide_launches = 0
+    answers = scann.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    served = {"loop": (f3.launches, f3.bf16_launches, f3.wide_launches),
+              "per_layer": (f5.launches, f5.bf16_launches, f5.wide_launches)}
+    routes = [scann.trainer.eval_route(48, 96), scann.trainer.eval_route(384, 96)]
+    hyper = scann.config.hyper
+    held = []
+    for (pred, ga), x, route in zip(answers, records, routes):
+        with torch.inference_mode():
+            want = (kloop.reference_loop_forward(scann.params, x, mp16) if route == "loop"
+                    else scann_forward(scann.params, x, mp16))[0]
+        want = want[0, 0].item() * hyper.target_std + hyper.target_mean
+        held.append(abs(pred - want) <= BF16_ATOL + BF16_RTOL * abs(want)
+                    and len(ga) == x["atomic"].shape[1])
+        print(f"phase 19 served {x['atomic'].shape[1]} sites (route {route}): {pred:.6f} against "
+              f"the bf16 {'plain version' if route == 'loop' else 'eager model'}'s {want:.6f}",
+              flush=True)
+    print(f"phase 19 served on a bf16 MP2018 model: routes {routes}; launches (all, bf16, "
+          f"wide) {served}", flush=True)
+    if (routes != ["loop", "per_layer"] or served["loop"] != (1, 1, 1)
+            or served["per_layer"][2] != mp2018.n_attention or not all(held)):
+        failures.append(f"phase 19 served: routes {routes}, launches {served}, answers held "
+                        f"{held}")
+
+    energy, nbr = data
+    cfg = ScannConfig(model=mp16,
+                      hyper=HyperConfig(batch_size=16, scheduler="sgdr", lr=5e-4, min_lr=1e-4,
+                                        target="formation_energy_per_atom",
+                                        data_energy_path=energy, data_nei_path=nbr, epochs=2,
+                                        seed=0, save_path=os.path.join(work, "fit")),
+                      tpu=TpuConfig(max_buckets=1, neighbors_pad_multiple=32))
+    fit = Scann(cfg, device="cuda")
+    fit.prepare_dataset()
+    fit.init_params(cfg.hyper.seed)
+    trainer, train = fit.trainer, fit.train_buckets
+    route = trainer.train_route(*train[0].shape)
+    idx, seeds = trainer.epoch_plan(0, 0, train[0].num_structures, cfg.hyper.batch_size)
+    xb, yb = trainer._put_buckets(train, "train")[0]
+    rows = idx[0].cuda()
+    xb, yb = {k: v[rows] for k, v in xb.items()}, yb[rows]
+    got16 = trainer.raw_grads(xb, yb, seeds[0])
+    got16 = (got16[0].clone(), {k: v.clone() for k, v in got16[1].items()})
+    packed = kfwd.pack_params(trainer.params, mp2018)
+    flat, pred = kloop._launch_backward(packed, xb, mp2018, yb, None, True, trainer.mrelu_head,
+                                        trainer.dropout_rate, seeds[0], 0)
+    got32 = (pred, kbwd.grads_from_flat(flat, packed, mp2018))
+    run = lambda p, c: chunked_train_grads(kloop.reference_loop_train_grads, p, xb, yb, c,
+                                           trainer.mrelu_head, trainer.dropout_rate, seeds[0], 4)
+    params = trainer.params
+    err = hold_bf16_grads(
+        f"phase 19 the Trainer's first bf16 step at {tuple(xb['neighbors'].shape)} (C = "
+        f"{kloop.cluster_size(len(rows))}, {kloop.backward_library(mp16, *train[0].shape)})",
+        got16, run(params, mp16), run(params, mp2018),
+        [run(f64_params(params), mp16)] + [run(jittered(params, j), mp16) for j in range(JITTERS)],
+        got32, failures, 0.9)
+    kbwd.reset_counts(f4)
+    f3.launches = f3.bf16_launches = f3.tall_launches = 0
+    t0 = time.time()
+    hist = fit.train()
+    torch.cuda.synchronize()
+    trained = (f4.launches, f4.bf16_launches, f4.tall_launches)
+    valid = (f3.bf16_launches, f3.tall_launches)
+    steps = 2 * -(-train[0].num_structures // cfg.hyper.batch_size)
+    print(f"phase 19 trained a bf16 MP2018 model 2 epochs in the bucket {train[0].shape} (route "
+          f"{route}) in {time.time() - t0:.1f} s: {steps} steps, #4 launches (all, bf16, tall) "
+          f"{trained} ({mode_counts(f4)}), #3 (bf16, tall) {valid} (validation); loss "
+          f"{hist['loss']}  [{card}]", flush=True)
+    if (len(train) != 1 or route != "loop" or trained != (steps,) * 3 or valid[1] < 1
+            or valid[0] != valid[1] or not all(np.isfinite(hist["loss"]))):
+        failures.append(f"phase 19 bf16 training: buckets {[b.shape for b in train]}, route "
+                        f"{route}, #4 launches {trained} for {steps} steps, #3 {valid}, losses "
+                        f"{hist['loss']}")
+
+    # one step of the third route in bf16, past #4's wide plan at N = 64
+    M, N, B = 248, 64, 8
+    x = synthetic_batch(np.random.default_rng(10), B, M, N, n_atoms=mp2018.n_atoms,
+                        min_atoms=150)
+    y = torch.from_numpy(np.random.default_rng(11).normal(size=B).astype(np.float32)).cuda()
+    step = {}
+    for cfm in (mp16, mp2018):
+        t = Trainer(ScannConfig(model=cfm, hyper=HyperConfig(batch_size=B, seed=0)), "cuda",
+                    os.path.join(work, f"third_{cfm.dtype}"))
+        t.init_state(5)
+        before = (f5.launches, f4.launches)
+        loss, _ = t.train_step(x, y, 5e-4, 3)
+        step[cfm.dtype] = (t.train_route(M, N), float(loss),
+                           (f5.launches - before[0], f4.launches - before[1]))
+    rel = abs(step["bfloat16"][1] - step["float32"][1]) / abs(step["float32"][1])
+    print(f"phase 19 one training step at B={B} M={M} N={N} (past #4's wide plan): (route, loss, "
+          f"launches of #5 and #4) bf16 {step['bfloat16']}, f32 {step['float32']}; rel "
+          f"{rel:.3e} (limit {BF16_RTOL})", flush=True)
+    if (any(r != "per_layer" or n != (0, 0) for r, _, n in step.values())
+            or not np.isfinite(step["bfloat16"][1]) or not rel <= BF16_RTOL):
+        failures.append(f"phase 19 per-layer bf16 step: {step}")
+    return {"3-wide-bf16": served["loop"][2], "3-tall-bf16": valid[1],
+            "4-tall-bf16": trained[2]}, err
+
+
+def phase19(mp2018, ptgp, data, launched, failures, card):
+    """Phase 19: the bf16 operand mode in the wide and tall builds of #3 and
+    #4 (holds, times, main paths). ``data``: phase 18's training set;
+    ``launched``: the launches of these builds on earlier phases' main paths
+    (phase 14's served 260-site crystal, #3 tall; phase 15's (96, 64)
+    bucket, #4 wide). Returns the kernels line's four rows."""
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    worst = phase19_holds(mp2018, ptgp, failures)
+    t1 = time.time()
+    times = phase19_times(mp2018, ptgp, card)
+    t2 = time.time()
+    launches, step_err = phase19_paths(mp2018, data, failures, card)
+    worst["4-tall-bf16"] = max(worst["4-tall-bf16"], step_err)
+    print(f"phase 19 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
+          f"{time.time() - t2:.1f}", flush=True)
+    launches["3-tall-bf16"] += launched["scann_loop_tall_bf16"]
+    launches["4-wide-bf16"] = launched["scann_loop_backward_wide_bf16"]
+    rows = []
+    for name, kernel, source in (
+            ("3-wide-bf16", "scann_loop_wide", "scann_tpu_torch/csrc/scann_loop_wide.cu"),
+            ("3-tall-bf16", "scann_loop_tall", "scann_tpu_torch/csrc/scann_loop_tall.cu"),
+            ("4-wide-bf16", "scann_loop_backward_wide_bf16",
+             "scann_tpu_torch/csrc/scann_loop_backward_wide_bf16.cu"),
+            ("4-tall-bf16", "scann_loop_backward_tall_bf16",
+             "scann_tpu_torch/csrc/scann_loop_backward_tall_bf16.cu")):
+        replaces = kloop.REPLACES if name[0] == "3" else kloop.BACKWARD_REPLACES
+        rows.append(bf16_row(name, kernel, source, replaces, launches[name], worst[name],
+                             *times[name], card))
+        if not launches[name]:
+            failures.append(f"phase 19: {name} was not launched on a main path")
+    return rows
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4343,7 +4828,7 @@ def main():
                              "scann_tpu_torch", "chip_smoke_exec_cache")
     shutil.rmtree(cache_dir, ignore_errors=True)
     cache = _build.set_build_dir(cache_dir)
-    every = _build.SOURCES + _build.WIDE_SOURCES + _build.TALL_SOURCES + _build.PROBES
+    every = _build.SOURCES + _build.SHAPE_SOURCES + _build.PROBES
     _build.build_all(every, force=True)
     print(f"built {list(every)} with nvcc in "
           f"{time.time() - t0:.1f} s "
@@ -4352,7 +4837,7 @@ def main():
           f"{exec_cache.env_fingerprint()})", flush=True)
     for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
                  "scann_loop_backward_bf16", "scann_loop", "local_attention",
-                 *_build.WIDE_SOURCES, *_build.TALL_SOURCES):
+                 *_build.SHAPE_SOURCES):
         for entry, regs, stores, loads in _build.kernel_resources(name):
             if "reduce_rows" not in entry and "selftest" not in entry:
                 print(f"{name}.cu: {regs} registers a thread, {stores} bytes of spill stores, "
@@ -4620,14 +5105,16 @@ def main():
     lap("8")
 
     # ---- phase 14: model.dtype bfloat16 ------------------------------------------
-    bf16_rows = phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failures,
-                        card)
+    bf16_rows, shape16 = phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed,
+                                 failures, card)
 
     lap("14")
     # ---- phase 15: model.dtype bfloat16 training ------------------------------------
     torch.cuda.empty_cache()
-    bf16_rows += phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run, crystal_run,
-                         failures, card)
+    wide16, rows15 = phase15(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, qm9_run,
+                             crystal_run, failures, card)
+    bf16_rows += rows15
+    shape16.update(wide16)
 
     lap("15")
     # ---- phase 16: the activation stashes of #2 and #4 ----------------------------------
@@ -4644,8 +5131,12 @@ def main():
     lap("17")
     # ---- phase 18: tall structures in #3 and #4 ----------------------------------------
     torch.cuda.empty_cache()
-    tall_rows = phase18(mp2018, ptgp, failures, card)
+    tall_data, tall_rows = phase18(mp2018, ptgp, failures, card)
     lap("18")
+    # ---- phase 19: the bf16 operand mode in the wide and tall builds of #3 and #4 ------
+    torch.cuda.empty_cache()
+    shape16_rows = phase19(mp2018, ptgp, tall_data, shape16, failures, card)
+    lap("19")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -4702,14 +5193,15 @@ def main():
         "sharded_launches": sharded_launches["scann_loop_backward/recompute"],
     }, {
         # phase 8's per-layer launches (none since the tall #3 serves every
-        # f32 crystal rung at N <= 64) and phase 14's bf16 group's later layers
+        # f32 crystal rung at N <= 64) and phase 14's f32 request to a model
+        # with use_attn_norm: false
         "name": "local_attention", "route": "cuda", "source": kla.SOURCE,
         "replaces": kla.REPLACES,
         "launches": layer_launches + bf16_rows[2]["f32_entry_launches"],
         "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows]
+    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "
@@ -4736,13 +5228,20 @@ def backward_ab(root, out_path=None):
     this environment; #3 at MP2018 (64, 96, 32) and #5 at one MP2018 layer
     (64, 96, 32), SCANN+; each 3 warm-up and 10 timed launches (CUDA
     events). Prints the medians as one JSON line; with OUT, saves every
-    kernel's outputs there (``torch.save``), so that two checkouts' outputs
-    can be held bit for bit. Run the turns A, B, B, A, each a process of its
+    kernel's outputs there (``torch.save``; gradients by name), and one
+    launch's outputs of every other build both checkouts have: #1 at QM9,
+    #2 and #4 in bf16 (QM9, MP2018 (64, 96, 32)), #3 in bf16 (MP2018), the
+    wide builds of #3 and #4 at MP2018 (8, 80, 96) and of #5 at one MP2018
+    layer (8, 96, 96), the tall builds of #3 and #4 at Pt/graphene (4, 322,
+    32), so that two checkouts' outputs can be held bit for bit
+    (``--ab-compare``). Run the turns A, B, B, A, each a process of its
     own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    import dataclasses
+
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -4756,43 +5255,102 @@ def backward_ab(root, out_path=None):
     rng = np.random.default_rng(17)
     out = {"root": root, "env": {k: v for k, v in os.environ.items() if "STASH" in k}}
     saved = {}
-    mp2018 = crystal_models()[0]
+    mp2018, ptgp = crystal_models()
     mp_x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
-    for name, cfm, x in (("scann_backward", qm9_config(), synthetic_batch(rng, 128, 32, 16)),
-                         ("scann_loop_backward", mp2018, mp_x), ("scann_loop", mp2018, mp_x)):
-        packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17), "cuda"),
-                                  cfm)
+    qm9_x = synthetic_batch(rng, 128, 32, 16)
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+
+    def launcher(name, cfm, x, packed):
+        """One launch of ``name``'s kernel at ``x`` -> its outputs (the
+        backward kernels' gradients by name)."""
         B, M = x["atomic"].shape[:2]
         N = x["neighbors"].shape[2]
         y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
-        if name == "scann_backward":
-            launch = lambda: kbwd.launch_scann_backward(packed, x, cfm, y, None, True, False,
-                                                        0.1, 7)
-        elif name == "scann_loop_backward":
+        if name.startswith("scann_backward"):
+            run = lambda: kbwd.launch_scann_backward(packed, x, cfm, y, None, True, False, 0.1, 7)
+        elif name.startswith("scann_loop_backward"):
             scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N)
-            launch = lambda: kloop.launch_loop_backward(packed, x, cfm, y, None, True, False,
-                                                        0.1, 7, 0, scratch)
-        else:
+            run = lambda: kloop.launch_loop_backward(packed, x, cfm, y, None, True, False, 0.1,
+                                                     7, 0, scratch)
+        elif name.startswith("scann_loop"):
             scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda")
-            launch = lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, None, scratch)
-        out[name] = statistics.median(cuda_times(launch, 10, warmup=3))
-        saved[name] = [t.cpu() for t in launch()]
+            run = lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, None, scratch)
+        else:
+            run = lambda: kfwd._launch(packed, x, cfm, False)
+
+        def outputs():
+            got = run()
+            if "backward" in name:
+                flat, pred = got
+                return {"pred": pred.cpu(), **{k: v.cpu() for k, v in
+                                               kbwd.grads_from_flat(flat, packed, cfm).items()}}
+            return [t.cpu() for t in got]
+        return run, outputs
+
+    for name, cfm, x in (("scann_backward", qm9_config(), qm9_x),
+                         ("scann_loop_backward", mp2018, mp_x), ("scann_loop", mp2018, mp_x)):
+        packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17), "cuda"),
+                                  cfm)
+        run, outputs = launcher(name, cfm, x, packed)
+        out[name] = statistics.median(cuda_times(run, 10, warmup=3))
+        saved[name] = outputs()
     args = layer_inputs(np.random.default_rng(7), 64, 96, 32, mp2018.local_dim,
                         mp2018.num_head, True)
     with torch.inference_mode():
         out["local_attention"] = statistics.median(cuda_times(lambda: kla._launch(*args), 10,
                                                               warmup=3))
         saved["local_attention"] = [t.cpu() for t in kla._launch(*args)]
-    out["card"] = card_line()
     if out_path:
+        wide_x = wide_batch(rng, 8, 80, 96, mp2018)
+        tall_x = synthetic_batch(rng, 4, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms,
+                                 min_atoms=240)
+        for name, cfm, x in (("scann_forward", qm9_config(), qm9_x),
+                             ("scann_backward_bf16", bf16(qm9_config()), qm9_x),
+                             ("scann_loop_bf16", bf16(mp2018), mp_x),
+                             ("scann_loop_backward_bf16", bf16(mp2018), mp_x),
+                             ("scann_loop_wide", mp2018, wide_x),
+                             ("scann_loop_backward_wide", mp2018, wide_x),
+                             ("scann_loop_tall", ptgp, tall_x),
+                             ("scann_loop_backward_tall", ptgp, tall_x)):
+            packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17),
+                                                  "cuda"), cfm)
+            with torch.inference_mode(name.startswith("scann_loop") and "backward" not in name):
+                saved[name] = launcher(name, cfm, x, packed)[1]()
+        args = layer_inputs(np.random.default_rng(8), 8, 96, 96, mp2018.local_dim,
+                            mp2018.num_head, True)
+        with torch.inference_mode():
+            saved["local_attention_wide"] = [t.cpu() for t in kla._launch(*args)]
         torch.save(saved, out_path)
+    out["card"] = card_line()
     print(json.dumps(out), flush=True)
     return 0
+
+
+def ab_compare(path_a, path_b):
+    """``--ab-compare A.pt B.pt``: the outputs two ``--backward-ab`` turns
+    saved, held bit for bit output by output (gradients by name). Prints one
+    JSON line, name -> equal, and exits 1 on any difference."""
+    a, b = (torch.load(p, weights_only=True) for p in (path_a, path_b))
+    same = {}
+    for name in sorted(set(a) | set(b)):
+        x, y = a.get(name), b.get(name)
+        if isinstance(x, dict) and isinstance(y, dict):
+            same[name] = x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        elif isinstance(x, list) and isinstance(y, list):
+            same[name] = len(x) == len(y) and all(
+                (u is None and v is None) or (u is not None and v is not None and torch.equal(u, v))
+                for u, v in zip(x, y))
+        else:
+            same[name] = False
+    print(json.dumps({"bit_identical": same}), flush=True)
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--backward-ab"]:
         sys.exit(backward_ab(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--ab-compare"]:
+        sys.exit(ab_compare(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--phase13-rank"]:
         rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
         sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,

@@ -42,7 +42,7 @@
 //   one thread per (atom, column); the SCANN+ geometry is streamed from and
 //   to the global scratch.
 // - Tall structures (N <= kFwdMaxChunkRows, M past that plan; the tall build,
-//   scann_loop_tall.cu, f32 operands): the centers leave shared memory. A
+//   scann_loop_tall.cu, both operand modes): the centers leave shared memory. A
 //   layer's input centers sit in one half of a ping-pong global scratch [2, B,
 //   M, D] (L2 holds it: 14 MB at B = 64, M = 428) and its new centers go to
 //   the other half, so one cluster barrier a layer suffices: no block
@@ -69,7 +69,13 @@
 //
 // bf16 operand mode (model.dtype "bfloat16"): a second instantiation, kBf16,
 // rounds the operands of every product to bfloat16 and sums in f32 where and
-// as the TPU kernel's dots do (scann_forward_common.cuh). Unlike the
+// as the TPU kernel's dots do (scann_forward_common.cuh); every build (narrow,
+// wide, tall) holds both instantiations and a launch picks one. The wide
+// build's atom walk (fwd_atom_wide) rounds where fwd_chunk does: the gathered
+// neighbour states as they are staged, each q * k lane before the head sum
+// (warp_energies), the attention before the context; the context reads the
+// unrounded keys back from the block's scratch, as fwd_chunk reads them from
+// shared memory. Unlike the
 // molecule kernel, the TPU loop kernel pools a packed slot's segments with
 // bf16-mode products (scann_loop.py:367-395), so here the pools round their
 // terms and pooled values too, and the softmax is shifted by each segment's
@@ -495,16 +501,16 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // build), or the GA key scratch [B * C, M, G] (the tall build, whose
 // pointer 49 is the ping-pong centers [2, B, M, D]), null in the narrow one,
 // size 20, the atom block, size 21, the
-// segments per slot S, size 22, the bf16 operand mode (0 or 1; the wide build
-// takes 0), and size 23, the blocks per structure C; in the order
+// segments per slot S, size 22, the bf16 operand mode (0 or 1), and size 23,
+// the blocks per structure C; in the order
 // scann_tpu_torch/kernels/scann_loop.py passes them. Size 17 (the chunk
 // buffer) is the work region of make_plan. This file builds the narrow
 // kernels (N <= kFwdMaxChunkRows); scann_loop_wide.cu includes it with
 // SCANN_LOOP_WIDE defined and builds the wide one
 // (scann_loop_forward_wide_launch, scann_loop_forward_wide_max_clusters), at
 // the first wide launch; scann_loop_tall.cu with SCANN_LOOP_TALL, the tall
-// one (scann_loop_forward_tall_*, N <= kFwdMaxChunkRows, f32 operands), at the
-// first tall launch.
+// one (scann_loop_forward_tall_*, N <= kFwdMaxChunkRows), at the first tall
+// launch. Each build takes both operand modes.
 #if defined(SCANN_LOOP_WIDE)
 #define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_##x
 constexpr bool kWideBuild = true;
@@ -516,21 +522,29 @@ constexpr bool kWideBuild = false;
 constexpr bool kWideBuild = false;
 #endif
 
+// The kernel of this build in the operand mode bf16 (0 or 1).
+static auto build_kernel(int bf16) {
+  return bf16 ? scann_loop_forward_kernel<true, kWideBuild>
+              : scann_loop_forward_kernel<false, kWideBuild>;
+}
+
 // How many clusters of `cluster` blocks with this shape's shared memory the
-// card runs at once (cudaOccupancyMaxActiveClusters) in this build's f32
-// kernel, or minus the CUDA error.
+// card runs at once (cudaOccupancyMaxActiveClusters) in this build's kernel
+// of the operand mode in size 22, or minus the CUDA error.
 extern "C" int SCANN_LOOP_ENTRY(max_clusters)(const int* dims, int cluster) {
   ForwardArgs a = {};
   set_dims(a, dims);
+  if (dims[22] & ~1) return -(int)cudaErrorInvalidValue;
+  const auto kernel = build_kernel(dims[22]);
   const int bytes = make_plan<kWideBuild>(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_forward_kernel<false, kWideBuild>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_forward_kernel<false, kWideBuild>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -548,10 +562,10 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
   // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk, its
-  // key scratch, f32 operands; the tall one: its GA key scratch, f32 operands
+  // key scratch; the tall one: its GA key scratch
   if ((a.N > kFwdMaxChunkRows) != kWideBuild ||
       (wide_keys != nullptr) != (kWideBuild || kTall) ||
-      (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1 || bf16)) || (kTall && bf16))
+      (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
@@ -565,8 +579,7 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
-  const auto kernel = bf16 ? scann_loop_forward_kernel<!kWideBuild && !kTall, kWideBuild>
-                           : scann_loop_forward_kernel<false, kWideBuild>;
+  const auto kernel = build_kernel(bf16);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

@@ -80,8 +80,8 @@
 //   through a [B, M, D] global scratch. The plan is M * 512 bytes + 107 to
 //   175 KB at D=128 (atom blocks of 8 to 32): M <= 106 with blocks of 32,
 //   M <= 186 with blocks of 16, M <= 226 with blocks of 8, at N=32.
-// - Tall structures (N <= kMaxChunkRows, M past that plan; the tall build,
-//   scann_loop_backward_tall.cu, f32 operands, all three schedules): the
+// - Tall structures (N <= kMaxChunkRows, M past that plan; the tall builds,
+//   scann_loop_backward_tall.cu and _tall_bf16.cu, all three schedules): the
 //   resident buffer leaves shared memory, each of its three roles for a
 //   global home. The forward pass gathers from the layer-input stash, as the
 //   reverse walk does (each layer's rows are written once, before the
@@ -97,8 +97,8 @@
 //   build's: at a shape both take, with the same atom block and C, the
 //   gradients are the same bits. The plan drops M * 512 bytes: atom blocks
 //   of 32 for M into the thousands.
-// - Wide neighbour lists (32 < N <= 256; the wide build,
-//   scann_loop_backward_wide.cu, f32 operands, all three schedules): one atom
+// - Wide neighbour lists (32 < N <= 256; the wide builds,
+//   scann_loop_backward_wide.cu and _wide_bf16.cu, all three schedules): one atom
 //   at a time, its rows in sub-chunks of 32. The forward pass keeps the atom's
 //   energies [N, H] in shared memory for a softmax over all N (wide_softmax of
 //   scann_mma.cuh) and its keys in a per-block global scratch for the context.
@@ -127,7 +127,14 @@
 //   scann_common.cuh, scann_loop.py:636-714), as kernel #3 does. This file
 //   builds the f32 instantiation; scann_loop_backward_bf16.cu includes it
 //   with SCANN_LOOP_BACKWARD_BF16 defined and builds the bf16 one in its own
-//   nvcc, so the two compile in parallel.
+//   nvcc, so the two compile in parallel (the wide and tall builds the same
+//   way, a source for each mode). The wide walk rounds where the narrow one
+//   does: warp_energies<true> and warp_attention_grad<true> round each lane's
+//   product before the head sum as warp_energy_softmax<true> and
+//   warp_softmax_backward<true> do, wide_softmax_backward<true> rounds d
+//   energy, and both passes over an atom's rows form the attention the
+//   context uses as operand<kBf16>(attention x dropout) x mask, as the narrow
+//   chunk does.
 //
 // Interface: a plain C function, loaded with ctypes. It launches both kernels
 // on the given stream, synchronises nothing, allocates nothing, and returns
@@ -1504,90 +1511,74 @@ const char* error_string(int code) {
 }
 
 // How many clusters of `cluster` blocks with this shape's shared memory the
-// card runs at once (cudaOccupancyMaxActiveClusters) in the f32 kernel of the
-// narrow or the wide build, or minus the CUDA error.
-template <bool kWide>
+// card runs at once (cudaOccupancyMaxActiveClusters) in the kernel of the
+// operand mode kBf16 of the narrow or the wide build, or minus the CUDA error.
+template <bool kBf16, bool kWide>
 int max_clusters(const int* dims, int cluster) {
   Args a = {};
   set_dims(a, dims);
   const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<false, kWide>,
+  cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel<false, kWide>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, scann_loop_backward_kernel<kBf16, kWide>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
-#if !defined(SCANN_LOOP_BACKWARD_BF16) && !defined(SCANN_LOOP_BACKWARD_WIDE) && \
-    !defined(SCANN_LOOP_BACKWARD_TALL)
+// Six builds of this file, each its own library (so that nvcc compiles them
+// in parallel) with its own entry points: the f32 narrow one (no define), the
+// bf16 one (scann_loop_backward_bf16.cu: SCANN_LOOP_BACKWARD_BF16), the wide
+// ones (scann_loop_backward_wide.cu, _wide_bf16.cu: SCANN_LOOP_BACKWARD_WIDE)
+// and the tall ones (scann_loop_backward_tall.cu, _tall_bf16.cu:
+// SCANN_LOOP_BACKWARD_TALL), each with <name>_launch, <name>_error_string and
+// <name>_max_clusters, the launcher taking the f32 narrow build's arguments.
+#if defined(SCANN_LOOP_BACKWARD_BF16)
+constexpr bool kBf16Build = true;
+#else
+constexpr bool kBf16Build = false;
+#endif
+#if defined(SCANN_LOOP_BACKWARD_WIDE)
+constexpr bool kWideBuild = true;
+#else
+constexpr bool kWideBuild = false;
+#endif
+#if defined(SCANN_LOOP_BACKWARD_WIDE) && defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_bf16_##x
+#elif defined(SCANN_LOOP_BACKWARD_WIDE)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_##x
+#elif defined(SCANN_LOOP_BACKWARD_TALL) && defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_bf16_##x
+#elif defined(SCANN_LOOP_BACKWARD_TALL)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_##x
+#elif defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_bf16_##x
+#else
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_##x
+
 extern "C" int scann_loop_backward_shared_bytes(const int* dims) {
   Args a = {};
   set_dims(a, dims);
   return plan_of(a).total * (int)sizeof(float);
 }
-
-extern "C" int scann_loop_backward_max_clusters(const int* dims, int cluster) {
-  return max_clusters<false>(dims, cluster);
-}
-
-extern "C" int scann_loop_backward_launch(void* const* ptrs, const int* dims,
-                                          const float* scalars, const unsigned int* rng,
-                                          const long long* offsets, float* out, void* stream) {
-  return launch_backward<false, false>(ptrs, dims, scalars, rng, offsets, out, stream);
-}
-
-extern "C" const char* scann_loop_backward_error_string(int code) { return error_string(code); }
-#elif defined(SCANN_LOOP_BACKWARD_WIDE)
-// Wide neighbour lists (scann_loop_backward_wide.cu), f32 operands, with the
-// f32 build's arguments.
-extern "C" int scann_loop_backward_wide_launch(void* const* ptrs, const int* dims,
-                                               const float* scalars, const unsigned int* rng,
-                                               const long long* offsets, float* out,
-                                               void* stream) {
-  return launch_backward<false, true>(ptrs, dims, scalars, rng, offsets, out, stream);
-}
-
-extern "C" const char* scann_loop_backward_wide_error_string(int code) {
-  return error_string(code);
-}
-
-extern "C" int scann_loop_backward_wide_max_clusters(const int* dims, int cluster) {
-  return max_clusters<true>(dims, cluster);
-}
-#elif defined(SCANN_LOOP_BACKWARD_TALL)
-// Tall structures (scann_loop_backward_tall.cu), f32 operands, with the f32
-// build's arguments.
-extern "C" int scann_loop_backward_tall_launch(void* const* ptrs, const int* dims,
-                                               const float* scalars, const unsigned int* rng,
-                                               const long long* offsets, float* out,
-                                               void* stream) {
-  return launch_backward<false, false>(ptrs, dims, scalars, rng, offsets, out, stream);
-}
-
-extern "C" const char* scann_loop_backward_tall_error_string(int code) {
-  return error_string(code);
-}
-
-extern "C" int scann_loop_backward_tall_max_clusters(const int* dims, int cluster) {
-  return max_clusters<false>(dims, cluster);
-}
-#else
-// The bf16 operand mode (scann_loop_backward_bf16.cu), with the f32 build's
-// arguments.
-extern "C" int scann_loop_backward_bf16_launch(void* const* ptrs, const int* dims,
-                                               const float* scalars, const unsigned int* rng,
-                                               const long long* offsets, float* out,
-                                               void* stream) {
-  return launch_backward<true, false>(ptrs, dims, scalars, rng, offsets, out, stream);
-}
-
-extern "C" const char* scann_loop_backward_bf16_error_string(int code) {
-  return error_string(code);
-}
 #endif
+
+extern "C" int SCANN_LOOP_BACKWARD_ENTRY(max_clusters)(const int* dims, int cluster) {
+  return max_clusters<kBf16Build, kWideBuild>(dims, cluster);
+}
+
+extern "C" int SCANN_LOOP_BACKWARD_ENTRY(launch)(void* const* ptrs, const int* dims,
+                                                 const float* scalars, const unsigned int* rng,
+                                                 const long long* offsets, float* out,
+                                                 void* stream) {
+  return launch_backward<kBf16Build, kWideBuild>(ptrs, dims, scalars, rng, offsets, out, stream);
+}
+
+extern "C" const char* SCANN_LOOP_BACKWARD_ENTRY(error_string)(int code) {
+  return error_string(code);
+}

@@ -22,8 +22,9 @@ kernel's registers and spills: the build keeps what nvcc printed beside
 the library (``<lib>.so.log``) and in ``build_logs``, and
 ``kernel_resources`` reads it. ``build_all`` starts one nvcc per source,
 all at once. ``SOURCES`` are the ports of the TPU kernels, ``WIDE_SOURCES``
-and ``TALL_SOURCES`` their wide and tall builds (built when a shape needs
-one), ``PROBES`` the rate
+and ``TALL_SOURCES`` their wide and tall builds, ``BF16_SHAPE_SOURCES`` the
+wide and tall builds of #4 in the bf16 operand mode (built when a shape
+needs one; ``SHAPE_SOURCES`` all of these), ``PROBES`` the rate
 probes of ``utils/roofline.py``. Nothing here is built at module
 import time, and nothing falls back: a failed build raises, and a library
 that fails to load is removed and rebuilt once, then raises.
@@ -85,6 +86,13 @@ WIDE_SOURCES = ("local_attention_wide", "scann_loop_wide", "scann_loop_backward_
 # block's shared memory beside the narrow plan): the same arrangement, built
 # at the first tall launch.
 TALL_SOURCES = ("scann_loop_tall", "scann_loop_backward_tall")
+# The wide and tall builds of kernel #4 in the bf16 operand mode: a source of
+# their own each, as the narrow one has (#3's wide and tall builds hold both
+# modes in one library, as its narrow build does), built at the first bf16
+# wide or tall launch.
+BF16_SHAPE_SOURCES = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall_bf16")
+# Every build made for some shapes only.
+SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
 # utils/roofline.py. Built and loaded the same way.
 PROBES = ("roofline_probe",)

@@ -34,24 +34,27 @@ Forward:
   of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 128.
   ``use_attn_norm=False`` is refused.
 - Tall structures, N <= 64 and M past that plan: the tall build
-  ``csrc/scann_loop_tall.cu`` (built at its first launch; f32 operands, the
-  bf16 operand mode there takes the per-layer model, ``f32_build_refusal``)
-  keeps the centers in global memory, which L2 holds: a ping-pong [2, B,
+  ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
+  modes) keeps the centers in global memory, which L2 holds: a ping-pong [2, B,
   M, D] (``loop_forward_scratch``'s ``next_centers``) and each block's GA
   keys (its ``tall``, [B * C, M, G]). Its plan drops the M * 512 bytes, so
   atom blocks of 32 take M into the thousands, past every M the TPU kernel
   takes. Its arithmetic and sums are the narrow build's: at a shape both
   take (the private ``_launch(..., tall=True)`` forces it there, with the
-  narrow atom blocks) the outputs are the same bits. ``is_tall`` is its
-  rule, ``forward_library`` names the build of every launch, and
-  ``.tall_launches`` counts these launches.
+  narrow atom blocks) the outputs are the same bits, in either operand mode.
+  ``is_tall`` is its rule, ``forward_library`` names the build of every
+  launch, and ``.tall_launches`` counts these launches.
 - Wide neighbour lists, 64 < N <= 256 (``MAX_NEIGHBORS``): the wide build
-  ``csrc/scann_loop_wide.cu`` (built at its first launch), f32 operands
-  (the bf16 operand mode at such N takes the per-layer model): one atom at
-  a time, its rows in sub-chunks of 64, the softmax over all N from its
-  energy row in shared memory, its keys in a per-block scratch
-  (``loop_forward_scratch``'s ``wide_keys``, [B * C, N, D]).
+  ``csrc/scann_loop_wide.cu`` (built at its first launch, both operand
+  modes): one atom at a time, its rows in sub-chunks of 64, the softmax
+  over all N from its energy row in shared memory, its keys in a per-block
+  scratch (``loop_forward_scratch``'s ``wide_keys``, [B * C, N, D]).
   ``.wide_launches`` counts these launches.
+- The gates do not depend on the operand mode, as ``fits_loop_vmem`` on
+  the TPU does not: a ``model.dtype: bfloat16`` batch takes the build an
+  f32 batch of its shape takes, and every build holds the bf16
+  instantiation beside the f32 one (``.bf16_launches`` counts bf16 launches
+  in every build, beside ``.wide_launches`` and ``.tall_launches``).
 - Packed batches (``segment_onehot`` [B, M, S], structure packing) run the
   GA readout per segment in both kernels (``segment_ids`` and S, as
   ``kernels.scann_forward`` says): pred, the cotangent and the targets are
@@ -90,7 +93,10 @@ Backward (crystal training):
   source built for that mode) rounds where kernel #2 does and pools packed
   segments as bf16-mode products with each segment's own max, as kernel #3
   does; its plain version is ``kfwd.reference_bf16_forward`` with those
-  pools under ``torch.autograd``.
+  pools under ``torch.autograd``. The wide and tall builds have their bf16
+  builds too (``scann_loop_backward_wide_bf16.cu``,
+  ``scann_loop_backward_tall_bf16.cu``), so the mode trains on a kernel at
+  every shape an f32 model does (``backward_library`` names the build).
 - Its gate (``backward_refusal``) is again the kernel's own plan
   (``loop_backward_memory_plan``): one resident [M, max(D, G)] buffer (the
   centers going forward, the accumulating d(layer input) going back), five
@@ -98,7 +104,7 @@ Backward (crystal training):
   most 32 (atom, neighbour) rows, so, at D = G = 128 and N = 32, M <= 106
   with blocks of 32, M <= 186 with blocks of 16 and M <= 226 with blocks of
   8: lower than the forward's 232. Beyond it, at N <= 32, the tall build
-  ``csrc/scann_loop_backward_tall.cu`` (f32 operands, all three schedules;
+  ``csrc/scann_loop_backward_tall.cu`` (all three schedules;
   ``is_tall_backward``, ``.tall_launches``) gives the resident buffer's
   three roles global homes: the forward pass gathers from the layer-input
   stash, the GA keys and each block's d(layer input) partial go to the
@@ -108,8 +114,8 @@ Backward (crystal training):
   (``_launch_backward(..., tall=True)``). What no build takes trains through
   the per-layer model under ``torch.autograd`` (``Trainer.train_route``).
 - Wide neighbour lists, 32 < N <= 256: the wide build
-  ``csrc/scann_loop_backward_wide.cu`` (f32 operands, all three
-  schedules; ``.wide_launches``), one atom at a time in sub-chunks of 32
+  ``csrc/scann_loop_backward_wide.cu`` (all three schedules;
+  ``.wide_launches``), one atom at a time in sub-chunks of 32
   rows beside the atom's attention and d attention [N, H], with atom blocks
   down to 4 (``WIDE_BACKWARD_ATOM_BLOCKS``): M up to 217-243 at D = 128.
   Its reverse walk runs the softmax backward over all N before the rows'
@@ -155,7 +161,6 @@ which ``loop_forward_bytes`` counts) and 5.5e11 for the backward (~3.37 ms);
 
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Dict, Optional, Tuple
 
@@ -267,7 +272,9 @@ def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = F
     """(library, entry-point prefix) of the loop forward's build that takes
     (config, M, N, S): the wide one (``csrc/scann_loop_wide.cu``) where
     ``is_wide``, the tall one (``csrc/scann_loop_tall.cu``) where ``is_tall``
-    or ``tall`` forces it, else the narrow one. The one place that chooses."""
+    or ``tall`` forces it, else the narrow one. Each build holds both
+    operand modes (``kfwd.operand_mode(cfm)`` is a launch argument), so the
+    library is the same for f32 and bf16. The one place that chooses."""
     if is_wide(N):
         return "scann_loop_wide", "scann_loop_forward_wide"
     if tall or is_tall(cfm, M, N, S):
@@ -277,26 +284,16 @@ def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = F
 
 def backward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False) -> str:
     """The loop backward's build that takes (config, M, N, S), the name of
-    its library and its entry points: the wide one (f32 operands) where
-    ``is_wide_backward``, the tall one (f32 operands) where
-    ``is_tall_backward`` or ``tall`` forces it, else the narrow one in the
-    config's operand mode. The one place that chooses."""
+    its library and its entry points: the wide one where
+    ``is_wide_backward``, the tall one where ``is_tall_backward`` or
+    ``tall`` forces it, else the narrow one; each in the config's operand
+    mode (``kbwd.kernel_name``: ``<build>_bf16`` in bf16, a source of its
+    own). The one place that chooses."""
     if is_wide_backward(N):
-        return "scann_loop_backward_wide"
+        return kbwd.kernel_name("scann_loop_backward_wide", cfm)
     if tall or is_tall_backward(cfm, M, N, S):
-        return "scann_loop_backward_tall"
+        return kbwd.kernel_name("scann_loop_backward_tall", cfm)
     return kbwd.kernel_name("scann_loop_backward", cfm)
-
-
-def f32_build_refusal(cfm: ModelConfig, build: Optional[str]) -> Optional[str]:
-    """What the wide and tall builds (``build``: "wide", "tall", or None for
-    the narrow one) refuse: the bf16 operand mode (they are built in f32
-    only; such a bucket takes the per-layer model)."""
-    if build and kfwd.operand_mode(cfm):
-        shape = "a wide neighbour list" if build == "wide" else "M past the narrow plan"
-        return (f"model.dtype='bfloat16' with {shape}: the {build} builds of the loop kernels "
-                "run f32 operands; the bucket runs the per-layer model")
-    return None
 
 
 def max_segments(cfm: ModelConfig, M: int, N: int) -> int:
@@ -315,13 +312,11 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
                 "(models.scann.scann_forward with use_pallas)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = (kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
-              or f32_build_refusal(cfm, "wide" if is_wide(N) else None) or segment_refusal(S))
+    reason = kfwd.common_refusal(cfm, N, MAX_NEIGHBORS) or segment_refusal(S)
     if reason:
         return reason
     tall = is_tall(cfm, M, N, S)
-    reason = f32_build_refusal(cfm, "tall" if tall else None)
-    nbytes = 0 if reason else forward_plan(cfm, M, N, S)[3]
+    nbytes = forward_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
                   + ("one atom block and the readout's vectors" if tall
@@ -444,8 +439,6 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
         raise ValueError(f"cluster={cluster}: the loop forward launches with {CLUSTER_SIZES}")
     library, symbol = forward_library(cfm, M, N, S, tall)
     tall = library == "scann_loop_tall"
-    if tall and kfwd.operand_mode(cfm):
-        raise NotImplementedError(f32_build_refusal(cfm, "tall"))
     want = loop_forward_scratch(cfm, B, M, N, "meta", cluster, S, tall)
     if scratch is None:
         scratch = loop_forward_scratch(cfm, B, M, N, dev, cluster, S, tall)
@@ -516,8 +509,9 @@ def loop_forward_bytes(cfm: ModelConfig, B: int, M: int, N: int) -> int:
 
 def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
     """How many clusters of ``cluster`` loop-forward blocks at this shape the
-    card runs at once (``cudaOccupancyMaxActiveClusters``), in the f32
-    kernel of the build that launches (M, N) (``forward_library``)."""
+    card runs at once (``cudaOccupancyMaxActiveClusters``), in the kernel of
+    the build and operand mode that launches (M, N) (``forward_library``,
+    ``kfwd.operand_mode``)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
@@ -526,7 +520,7 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
-            chunk_atoms, work, 0, 0, atom_block, 0, cluster]
+            chunk_atoms, work, 0, 0, atom_block, 0, kfwd.operand_mode(cfm), cluster]
     library, symbol = forward_library(cfm, M, N)
     fn = getattr(load_library(library), symbol + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -625,13 +619,11 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
     if M < 1:
         return f"M={M}: no atoms"
     reason = (kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
-              or f32_build_refusal(cfm, "wide" if is_wide_backward(N) else None)
               or segment_refusal(S))
     if reason:
         return reason
     tall = is_tall_backward(cfm, M, N, S)
-    reason = f32_build_refusal(cfm, "tall" if tall else None)
-    nbytes = 0 if reason else backward_plan(cfm, M, N, S)[2]
+    nbytes = backward_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
                   + ("one atom block and the readout's vectors" if tall
@@ -874,9 +866,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
     name = backward_library(cfm, M, N, S, tall)
-    tall = name == "scann_loop_backward_tall"
-    if tall and kfwd.operand_mode(cfm):
-        raise NotImplementedError(f32_build_refusal(cfm, "tall"))
+    tall = name.startswith("scann_loop_backward_tall")
     if scratch is None:
         scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode, S, tall)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
@@ -910,10 +900,9 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
 def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
     """How many clusters of ``cluster`` loop-backward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``); a launch of more
-    than that many structures takes more than one wave. The f32 kernel of
-    the build that launches (M, N) answers (``backward_library``; the bf16
-    build, with the same launch bounds and shared memory, exports no such
-    entry)."""
+    than that many structures takes more than one wave. The kernel of the
+    build that launches (M, N) in the config's operand mode answers
+    (``backward_library``; every build exports its own)."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
@@ -923,7 +912,7 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) 
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
             atom_block, 0, cluster]
-    name = backward_library(dataclasses.replace(cfm, dtype="float32"), M, N)
+    name = backward_library(cfm, M, N)
     fn = getattr(load_library(name), name + "_max_clusters")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int

@@ -265,13 +265,14 @@ class Trainer:
         return self._packed[1]
 
     def shape_libraries(self, shapes, training: bool = False) -> Tuple[str, ...]:
-        """The builds made for some shapes only (``_build.WIDE_SOURCES``,
-        ``_build.TALL_SOURCES``) that batches of these (M, N, S) shapes
-        launch, by their routes: the loop forward's and the per-layer
-        kernel's in eval, the loop backward's in training; the kernel modules
-        name each route's build (``kloop.forward_library``, ``kla.library``,
+        """The builds made for some shapes only (``_build.SHAPE_SOURCES``:
+        the wide and tall builds, #4's in the model's operand mode) that
+        batches of these (M, N, S) shapes launch, by their routes: the loop
+        forward's and the per-layer kernel's in eval, the loop backward's in
+        training; the kernel modules name each route's build
+        (``kloop.forward_library``, ``kla.library``,
         ``kloop.backward_library``)."""
-        from scann_tpu_torch.kernels._build import TALL_SOURCES, WIDE_SOURCES
+        from scann_tpu_torch.kernels._build import SHAPE_SOURCES
 
         cfm = self.config.model
         libs = set()
@@ -283,7 +284,7 @@ class Trainer:
                 libs.add(kla.library(N))
             if training and self.train_route(M, N, S) == "loop":
                 libs.add(kloop.backward_library(cfm, M, N, S))
-        return tuple(sorted(libs & set(WIDE_SOURCES + TALL_SOURCES)))
+        return tuple(sorted(libs & set(SHAPE_SOURCES)))
 
     def eval_route(self, M: int, N: int, S: int = 0) -> str:
         """Which forward a CUDA batch of shape (M, N) at S segments a slot

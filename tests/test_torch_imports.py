@@ -90,7 +90,11 @@ def test_torch_port_kernel_sources_stand_alone():
     assert set(_build.SOURCES) == {"scann_forward", "scann_backward", "scann_loop",
                                    "scann_loop_backward", "local_attention",
                                    "scann_backward_bf16", "scann_loop_backward_bf16"}
-    for name in _build.SOURCES:
+    assert set(_build.SHAPE_SOURCES) == {
+        "local_attention_wide", "scann_loop_wide", "scann_loop_backward_wide",
+        "scann_loop_tall", "scann_loop_backward_tall", "scann_loop_backward_wide_bf16",
+        "scann_loop_backward_tall_bf16"}
+    for name in _build.SOURCES + _build.SHAPE_SOURCES:
         files = _build.source_files(name)
         assert files[0].endswith(f"{name}.cu")
         for f in files:

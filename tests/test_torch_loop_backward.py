@@ -253,7 +253,9 @@ TRAIN_ROUTES = [
     (MP2018, 573, 16, "loop"),
     (MP2018, 96, 40, "loop"),
     (MP2018, 240, 96, "per_layer"),
-    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 40, "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 24, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
 ]

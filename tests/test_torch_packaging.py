@@ -34,7 +34,7 @@ def test_torch_wheel_ships_kernel_sources_native_code_and_assets(tmp_path):
     names = set(zipfile.ZipFile(wheel).namelist())
 
     want = set()
-    for name in _build.SOURCES + _build.PROBES:
+    for name in _build.SOURCES + _build.SHAPE_SOURCES + _build.PROBES:
         for path in _build.source_files(name):
             want.add(os.path.relpath(path, ROOT))
     native = glob.glob(os.path.join(ROOT, "scann_tpu_torch", "native", "*.cc"))

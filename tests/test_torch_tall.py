@@ -138,14 +138,20 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
             cfm, edge4, N)
         assert kloop.backward_refusal(cfm, edge4 + 1, N) is None
         assert kloop.backward_refusal(cfm, 968, N) is None
-    # bf16 operands: the narrow bf16 build below the edge, the per-layer model past it
+    # bf16 operands: the same builds at the same edges, #4's in their bf16 sources
     b16 = dataclasses.replace(cfm, dtype="bfloat16")
     if not kloop.is_wide_backward(N):
         assert kloop.backward_library(b16, edge4, N) == "scann_loop_backward_bf16"
-        assert "tall builds" in kloop.backward_refusal(b16, edge4 + 1, N)
+        assert kloop.backward_library(b16, edge4 + 1, N) == "scann_loop_backward_tall_bf16"
+        assert kloop.backward_library(b16, 96, N, tall=True) == "scann_loop_backward_tall_bf16"
+        assert kloop.backward_refusal(b16, edge4 + 1, N) is None
+        assert kloop.backward_plan(b16, edge4 + 1, N) == kloop.backward_plan(cfm, edge4 + 1, N)
+    else:
+        assert kloop.backward_library(b16, edge4 + 1, N) == "scann_loop_backward_wide_bf16"
     if not kloop.is_wide(N):
         assert kloop.refusal(b16, edge3, N) is None
-        assert "tall builds" in kloop.refusal(b16, edge3 + 1, N)
+        assert kloop.refusal(b16, edge3 + 1, N) is None
+        assert kloop.forward_library(b16, edge3 + 1, N) == kloop.forward_library(cfm, edge3 + 1, N)
 
 
 def test_torch_tall_packed_segments_fit():
@@ -231,20 +237,29 @@ def test_torch_tall_launch_arguments(M, force, monkeypatch):
                                scratch=kloop.loop_backward_scratch(packed, cfm, B, M, N, 2, None,
                                                                    tall=other),
                                cluster=2, stash=None, tall=force)
-    # bf16 operands never reach a tall build
+    # bf16 operands: the same tall build of #3 with the mode flag, #4's bf16 tall build
     b16 = dataclasses.replace(cfm, dtype="bfloat16")
-    if tall:
-        with pytest.raises(NotImplementedError, match="tall builds"):
-            kloop._launch(packed, x, b16, False, 0.0, 0, 0, 2, tall=force)
+    del calls[:]
+    kloop._launch(packed, x, b16, False, 0.0, 0, 0, 2, tall=force)
+    kloop._launch_backward(packed, x, b16, torch.zeros(B, 1), None, True, cluster=2, stash=None,
+                           tall=force)
+    (lib_f, _, t_f, d_f), (lib_b, sym_b, t_b, d_b) = calls
+    assert lib_f == ("scann_loop_tall" if tall else "scann_loop") and d_f[22] == 1
+    assert lib_b == sym_b == ("scann_loop_backward_tall_bf16" if tall
+                              else "scann_loop_backward_bf16")
+    assert (t_f[-1] is None) != tall and (t_b[-1] is None) != tall
+    assert kloop.launch_loop_forward.tall_launches == 2 * tall
+    assert kloop.launch_loop_backward.tall_launches == 2 * tall
 
 
 def test_torch_tall_sources():
-    """The narrow and wide builds take ``kTall = false``: only the two tall
-    sources define the macro that sets it, each includes its narrow source,
-    and the plans drop the resident rows only under it."""
+    """The narrow and wide builds take ``kTall = false``: only the tall
+    sources (#4's in both modes) define the macro that sets it, each
+    includes its narrow source, and the plans drop the resident rows only
+    under it."""
     src = {}
-    for name in ("scann_loop", "scann_loop_backward") + _build.WIDE_SOURCES + \
-            _build.TALL_SOURCES + ("scann_loop_backward_bf16",):
+    for name in ("scann_loop", "scann_loop_backward") + _build.SHAPE_SOURCES + \
+            ("scann_loop_backward_bf16",):
         with open(f"{_build.SRC_DIR}/{name}.cu") as f:
             src[name] = f.read()
     assert _build.TALL_SOURCES == ("scann_loop_tall", "scann_loop_backward_tall")
@@ -257,12 +272,15 @@ def test_torch_tall_sources():
         assert f"#define {macro}\n#include \"{narrow}.cu\"" in src[narrow + "_tall"]
         assert _build.source_files(narrow + "_tall")[1].endswith(f"/{narrow}.cu")
         for other, body in src.items():
-            if other != narrow + "_tall":
+            if not other.startswith(narrow + "_tall"):
                 assert f"#define {macro}" not in body, other
+    assert ('#define SCANN_LOOP_BACKWARD_TALL\n#define SCANN_LOOP_BACKWARD_BF16\n'
+            '#include "scann_loop_backward.cu"') in src["scann_loop_backward_tall_bf16"]
     assert "p.offQ = kTall ? 0 : a.M * p.wd;" in src["scann_loop"]
     assert "p.offBlk = kTall ? 0 : a.M * p.wd;" in src["scann_loop_backward"]
-    # the tall builds refuse bf16 operands and want their scratch
-    assert "(kTall && bf16)" in src["scann_loop"]
+    # the tall builds take both operand modes and want their scratch
+    assert "(kTall && bf16)" not in src["scann_loop"]
+    assert "(wide_keys != nullptr) != (kWideBuild || kTall)" in src["scann_loop"]
     assert "(wide_keys != nullptr) != (kWide || kTall)" in src["scann_loop_backward"]
     # the gather of the tall #3 reads past L1
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:

@@ -296,10 +296,10 @@ ROUTES = [
     (MP2018, 256, 96, "per_layer", "per_layer"),
     (MP2018, 61, 128, "loop", "loop"),
     (MP2018, 30, 256, "loop", "loop"),
-    (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96, "per_layer", "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96, "loop", "loop"),
     (MP2018, 300, 32, "loop", "loop"),
     (MP2018, 573, 16, "loop", "loop"),
-    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "per_layer", "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "loop", "loop"),
 ]
 
 
@@ -308,11 +308,11 @@ def test_torch_wide_routes(cfm, M, N, train, evaluate):
     """The Trainer's routes at wide N come from the gates alone: MP2018 at
     (96, 40) and (80, 96) trains on #4's wide build, (96, 96) evaluates on
     #3's, (240, 96) and (256, 96) go per-layer with #5's wide build taking
-    the layer; the bf16 operand mode keeps the per-layer route at wide N (the
-    wide builds run f32 operands). At a narrow N past the narrow plans,
-    (300, 32) and (573, 16) train and evaluate on #4's and #3's tall builds;
-    bf16 there keeps the per-layer route (the tall builds run f32 operands).
-    ``shape_libraries`` names the builds those routes launch."""
+    the layer. At a narrow N past the narrow plans, (300, 32) and (573, 16)
+    train and evaluate on #4's and #3's tall builds. The bf16 operand mode
+    takes the routes of f32 at (96, 96) and (300, 32), #4 in its bf16 wide
+    and tall builds. ``shape_libraries`` names the builds those routes
+    launch."""
     trainer = train_loop.Trainer(ScannConfig(model=cfm), "cpu", "unused")
     assert trainer.train_route(M, N) == train
     got = trainer.eval_route(M, N)
@@ -322,10 +322,11 @@ def test_torch_wide_routes(cfm, M, N, train, evaluate):
     libs = trainer.shape_libraries([(M, N, 0)], training=True)
     want = set()
     tall = M > 237     # past both narrow plans at these N
+    mode = "_bf16" if cfm.dtype == "bfloat16" else ""
     if train == "loop" and N > kbwd.MAX_CHUNK_ROWS:
-        want.add("scann_loop_backward_wide")
+        want.add("scann_loop_backward_wide" + mode)
     if train == "loop" and N <= kbwd.MAX_CHUNK_ROWS and tall:
-        want.add("scann_loop_backward_tall")
+        want.add("scann_loop_backward_tall" + mode)
     if got == "loop" and N > kfwd.MAX_CHUNK_ROWS:
         want.add("scann_loop_wide")
     if got == "loop" and N <= kfwd.MAX_CHUNK_ROWS and tall:
@@ -333,10 +334,13 @@ def test_torch_wide_routes(cfm, M, N, train, evaluate):
     if got == "per_layer" and N > kla.MAX_CHUNK_ROWS:
         want.add("local_attention_wide")
     assert set(libs) == want
-    assert set(libs) <= set(_build.WIDE_SOURCES + _build.TALL_SOURCES)
-    if cfm.dtype == "bfloat16" and N <= kbwd.MAX_CHUNK_ROWS:
-        assert "tall builds" in kloop.refusal(cfm, M, N)
-        assert "tall builds" in kloop.backward_refusal(cfm, M, N)
+    assert set(libs) <= set(_build.SHAPE_SOURCES)
+    if cfm.dtype == "bfloat16":     # the routes and plans of the f32 model
+        f32 = train_loop.Trainer(ScannConfig(model=dataclasses.replace(cfm, dtype="float32")),
+                                 "cpu", "unused")
+        assert (f32.train_route(M, N), f32.eval_route(M, N)) == (train, got)
+        assert kloop.refusal(cfm, M, N) is None and kloop.backward_refusal(cfm, M, N) is None
+        assert kloop.backward_plan(cfm, M, N) == kloop.backward_plan(f32.config.model, M, N)
 
 
 def test_torch_wide_gates_at_the_edges():
@@ -354,8 +358,11 @@ def test_torch_wide_gates_at_the_edges():
     assert "sizes" in kloop.backward_refusal(MP2018, 30, 257)
     assert "sizes" in kfwd.refusal(MP2018, 32, 65) and kfwd.refusal(MP2018, 32, 64) is None
     assert kbwd.refusal(ModelConfig(), 32, 33) is not None
-    assert "bfloat16" in kloop.refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96)
-    assert kloop.refusal(dataclasses.replace(MP2018, dtype="bfloat16"), 96, 64) is None
+    b16 = dataclasses.replace(MP2018, dtype="bfloat16")
+    assert kloop.refusal(b16, 96, 96) is None and kloop.refusal(b16, 96, 64) is None
+    assert kloop.refusal(b16, 30, 256) is None and "sizes" in kloop.refusal(b16, 30, 257)
+    assert kloop.backward_refusal(b16, 30, 256) is None
+    assert "sizes" in kloop.backward_refusal(b16, 30, 257)
 
 
 def _stub(monkeypatch):
@@ -551,16 +558,22 @@ def test_torch_wide_max_clusters_read_the_launched_build(N, monkeypatch):
     monkeypatch.setattr(_build, "load_library", Lib)
     assert kloop.max_active_forward_clusters(MP2018, 16, 60, N, 4) == 7
     assert kloop.max_active_clusters(MP2018, 16, 60, N, 4) == 7
-    assert kloop.max_active_clusters(dataclasses.replace(MP2018, dtype="bfloat16"), 16, 60,
-                                     min(N, 32), 2) == 7
-    (lib_f, sym_f, dims_f, _), (lib_b, sym_b, dims_b, _), (lib_16, _, _, _) = asked
+    b16 = dataclasses.replace(MP2018, dtype="bfloat16")
+    assert kloop.max_active_clusters(b16, 16, 60, N, 2) == 7
+    assert kloop.max_active_forward_clusters(b16, 16, 60, N, 2) == 7
+    ((lib_f, sym_f, dims_f, _), (lib_b, sym_b, dims_b, _), (lib_16, sym_16, _, _),
+     (lib_f16, sym_f16, dims_f16, _)) = asked
     assert (lib_f, sym_f) == ((("scann_loop_wide", "scann_loop_forward_wide_max_clusters"))
                               if N > 64 else ("scann_loop", "scann_loop_forward_max_clusters"))
     assert (lib_b, sym_b) == ((("scann_loop_backward_wide",
                                 "scann_loop_backward_wide_max_clusters"))
                               if N > 32 else ("scann_loop_backward",
                                               "scann_loop_backward_max_clusters"))
-    assert lib_16 == "scann_loop_backward"   # the bf16 build's occupancy is the f32 kernel's
+    # the bf16 builds answer for their own kernels: #4's its own library, #3's
+    # its build's bf16 kernel (the operand mode in size 22, as a launch has it)
+    assert lib_16 == lib_b + "_bf16" and sym_16 == lib_16 + "_max_clusters"
+    assert (lib_f16, sym_f16) == (lib_f, sym_f)
+    assert (dims_f[22], dims_f16[22], dims_f[23]) == (0, 1, 4)
     chunk_atoms, block, work, _ = kloop.loop_memory_plan(MP2018, 60, N)
     assert (dims_f[16], dims_f[17], dims_f[20]) == (chunk_atoms, work, block)
     assert dims_b[21] == kloop.loop_backward_memory_plan(MP2018, 60, N)[1]
@@ -568,5 +581,7 @@ def test_torch_wide_max_clusters_read_the_launched_build(N, monkeypatch):
         assert 'extern "C" int SCANN_LOOP_ENTRY(max_clusters)(' in f.read()
     with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
         bwd = f.read()
-    assert "return max_clusters<true>(dims, cluster);" in bwd
-    assert 'extern "C" int scann_loop_backward_wide_max_clusters(' in bwd
+    assert "return max_clusters<kBf16Build, kWideBuild>(dims, cluster);" in bwd
+    assert 'extern "C" int SCANN_LOOP_BACKWARD_ENTRY(max_clusters)(' in bwd
+    for name in ("wide", "wide_bf16", "tall", "tall_bf16", "bf16"):
+        assert f"#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_{name}_##x" in bwd
