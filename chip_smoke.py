@@ -229,8 +229,10 @@ layers); random weights from seeds:
    in a (64, 48) and a (48, 96) bucket, every step by the "loop" route
    (#4's wide build in both), with finite losses.
 18. tall structures (the tall builds of #3 and #4, M past the narrow plans
-   at a narrow N): holds, ``tall=True`` against the narrow builds bit for
-   bit, times, a served 300-site crystal and 2 epochs at (304, 32) through
+   at a narrow N): holds, ``tall=True`` against the narrow builds (#3 bit
+   for bit, #4 within its gradient limit: its 64-row chunks sum the weight
+   gradients in another order), times (#4 also at the recipe batch of 64),
+   a served 300-site crystal and 2 epochs at (304, 32) through
    ``Scann.train`` (``phase18``'s docstrings say what each holds).
 19. the bf16 operand mode in the wide and tall builds of #3 and #4
    (``model.dtype: bfloat16`` at every shape the f32 builds take): #3 and
@@ -246,7 +248,8 @@ layers); random weights from seeds:
    schedules: recompute and the bf16 stash each against its own bf16 plain
    version, the f32 stash bit-equal to recompute, both relaunched bit for
    bit); the tall builds forced at MP2018 (4, 96, 32) and Pt/graphene (4,
-   128, 32) in bf16, bit for bit equal to the narrow bf16 builds; each bf16
+   128, 32) in bf16 against the narrow bf16 builds (#3 bit for bit, #4
+   within its gradient limit); each bf16
    build timed in turns with its f32 build at the f32 rows' shapes (wide
    MP2018 (16, 80, 96), tall Pt/graphene (16, 322, 32), C = 4). Then the
    main paths, the launch counts set to 0 just before each: a bf16 MP2018
@@ -306,7 +309,9 @@ without printing a result when CUDA is not available.
 comparison of #2-#5 against another checkout ROOT instead (``backward_ab``;
 with OUT it saves the outputs of every build both checkouts have), and
 ``python3 chip_smoke.py --ab-compare A.pt B.pt`` holds two turns' outputs
-bit for bit (``ab_compare``).
+bit for bit (``ab_compare``; the tall #4 within its gradient limit), and
+``python3 chip_smoke.py --tall-table [OUT]`` times #4's tall build against
+its narrow build in turns at shapes both take (``tall_table``).
 
 Tolerances. Forward (molecule and crystal kernels, per-layer kernel's out
 and geometry): rtol 1e-4, atol 1e-5: the kernels sum their products (three
@@ -4101,9 +4106,23 @@ def phase17(mp2018, ptgp, failures, card):
 def tall_against_narrow(label, cfm, x, failures):
     """The tall builds forced (``tall=True``) at a shape the narrow builds
     take, against the narrow builds at 1, 2 and 4 blocks a structure: #3 at
-    dropout 0.1 and #4 (one-shot, dropout 0.1) in its three schedules, bit
-    for bit (the same atom blocks; only where the rows live differs).
-    Returns whether every pair was equal."""
+    dropout 0.1 bit for bit (the same atom blocks; only where the rows live
+    differs); #4 (one-shot, dropout 0.1) in its three schedules, whose
+    64-row chunks and atom blocks of 16 sum the weight gradients and the
+    d(layer input) partials in another order than the narrow build. At f32
+    operands the two builds within #4's gradient limit, GRAD_RTOL x max, of
+    each other, and each against its plain version: the f32 stash and
+    recompute within GRAD_RTOL x max, the bf16 stash as phase 16 holds it
+    (``hold_bf16_stash``). At bf16 operands, where an f32 sum order flips
+    bf16 roundings (phase 14), each build's recompute and bf16 stash against
+    its bf16 plain version with phase 19's full-depth criteria
+    (``hold_bf16_grads``, 0.9 x the f32 kernel's reading), the f32 stash
+    bit-equal to recompute, and the two builds' mean distance within
+    BF16_FLOOR x the f32-noise floor of the plain version. Returns the
+    worst distance of the two builds: at f32 as a share of max |narrow|, at
+    bf16 as a share of BF16_FLOOR x the floor."""
+    import dataclasses
+
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -4111,35 +4130,89 @@ def tall_against_narrow(label, cfm, x, failures):
 
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(18), "cuda"), cfm)
+    params = init_params(cfm, torch.Generator().manual_seed(18), "cuda")
+    packed = kfwd.pack_params(params, cfm)
     y = torch.from_numpy(np.random.default_rng(18).normal(size=(B, 1)).astype(np.float32)).cuda()
-    differ, before = [], (kloop.launch_loop_forward.tall_launches,
-                          kloop.launch_loop_backward.tall_launches)
-    with torch.inference_mode():
-        for C in (1, 2, 4):
+    f32 = cfm.dtype != "bfloat16"
+    cfm32 = dataclasses.replace(cfm, dtype="float32")
+    run = lambda q, c: kloop.reference_loop_train_grads(q, x, y, c, False, 0.1, 7)
+    stash = lambda q: kloop.reference_loop_stash_train_grads(q, x, y, cfm, False, 0.1, 7,
+                                                             mode="bf16")
+    plain32, plain_st = run(params, cfm32), stash(params)
+    flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
+    dist = lambda u, v: (u - v).abs().mean().item()
+    if not f32:
+        plain16 = run(params, cfm)
+        floors = [run(f64_params(params), cfm)] + [run(jittered(params, j), cfm)
+                                                   for j in range(JITTERS)]
+        st_floors = [stash(f64_params(params))] + [stash(jittered(params, j))
+                                                   for j in range(JITTERS)]
+        floor = {m: max(dist(flat(want[1]), flat(f[1])) for f in fl)
+                 for m, want, fl in ((None, plain16, floors), ("bf16", plain_st, st_floors))}
+        floor["f32"] = floor[None]
+    differ, worst, before = [], 0.0, (kloop.launch_loop_forward.tall_launches,
+                                      kloop.launch_loop_backward.tall_launches)
+    for C in (1, 2, 4):
+        with torch.inference_mode():
             narrow = kloop._launch(packed, x, cfm, False, 0.1, 11, 0, C)
             tall = kloop._launch(packed, x, cfm, False, 0.1, 11, 0, C, tall=True)
-            differ += [f"#3 C={C} {w}" for w, a, b in zip(("pred", "ga"), narrow, tall)
-                       if not torch.equal(a, b)]
-            for mode in ("f32", None, "bf16"):
-                # the gradients by name (the flat vector's alignment gaps are not written)
-                got = [(pred, kbwd.grads_from_flat(flat, packed, cfm)) for flat, pred in (
-                    kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0, None,
-                                           C, stash=mode, tall=t) for t in (False, True))]
-                (p0, g0), (p1, g1) = got
-                if not (torch.equal(p0, p1) and all(torch.equal(g0[k], g1[k]) for k in g0)):
-                    differ.append(f"#4 C={C} stash {mode}")
+        differ += [f"#3 C={C} {w}" for w, a, b in zip(("pred", "ga"), narrow, tall)
+                   if not torch.equal(a, b)]
+        got = {}
+        for mode in ("f32", None, "bf16"):
+            # the gradients by name (the flat vector's alignment gaps are not written)
+            got[mode] = [(pred.view(B, -1), kbwd.grads_from_flat(flat_g, packed, cfm))
+                         for flat_g, pred in (
+                kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0, None,
+                                       C, stash=mode, tall=t) for t in (False, True))]
+            (p0, g0), (p1, g1) = got[mode]
+            if f32:
+                rel, key, _ = grad_errors(g1, g0)
+            else:
+                rel, key = dist(flat(g1), flat(g0)) / (BF16_FLOOR * floor[mode]), "the mean"
+            worst = max(worst, rel)
+            if not ((rel <= GRAD_RTOL if f32 else rel <= 1.0) and errors(p1, p0)[2]
+                    and all(bool(torch.isfinite(v).all()) for v in g1.values())):
+                differ.append(f"#4 C={C} stash {mode}: {rel:.3e} at {key}")
+        tag = f"{label} B={B} M={M} N={N} C={C} #4"
+        if f32:
+            line = [f"{tag} against its plain version"]
+            for build, i in (("narrow", 0), ("tall", 1)):
+                for mode in ("f32", None):
+                    hold_backward(tag, f"{build} {mode or 'recompute'}", *got[mode][i][:1],
+                                  plain32[0], got[mode][i][1], plain32[1], line, failures)
+                hold_bf16_stash(f"{tag}, {build} bf16 stash", got["bf16"][i], plain_st, plain32,
+                                got[None][i], failures)
+            print("  ".join(line), flush=True)
+            continue
+        got32 = kloop._launch_backward(packed, x, cfm32, y, None, True, False, 0.1, 7, 0, None,
+                                       C, stash=None)
+        got32 = (got32[1].view(B, -1), kbwd.grads_from_flat(got32[0], packed, cfm32))
+        for build, i in (("narrow", 0), ("tall", 1)):
+            hold_bf16_grads(f"{tag} {build} recompute", got[None][i], plain16, plain32, floors,
+                            got32, failures, 0.9)
+            hold_bf16_grads(f"{tag} {build} bf16 stash", got["bf16"][i], plain_st, plain32,
+                            st_floors, got32, failures, 0.9)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    [got["f32"][i][0], *got["f32"][i][1].values()],
+                    [got[None][i][0], *got[None][i][1].values()])):
+                failures.append(f"{tag} {build}: the f32 stash differs from recompute")
     torch.cuda.synchronize()
     ran = (kloop.launch_loop_forward.tall_launches - before[0],
            kloop.launch_loop_backward.tall_launches - before[1])
-    blocks = (kloop.forward_plan(cfm, M, N)[1], kloop.backward_plan(cfm, M, N)[1])
-    print(f"{label} B={B} M={M} N={N}: tall=True against the narrow build at C = 1, 2, 4 "
-          f"(atom blocks #3 {blocks[0]}, #4 {blocks[1]}; #3 at dropout 0.1, #4 in its three "
-          f"schedules; {ran} tall launches): bit-identical {not differ}", flush=True)
+    blocks = (kloop.forward_plan(cfm, M, N)[1], kloop.backward_plan(cfm, M, N)[1],
+              kloop.backward_plan(cfm, M, N, tall=True)[:2])
+    limit = (f"within {worst:.3e} x max of each other, limit {GRAD_RTOL}" if f32 else
+             f"mean distance {worst:.3f} x the limit, {BF16_FLOOR} x the f32-noise floor")
+    print(f"{label} B={B} M={M} N={N}: tall=True against the narrow build at C = 1, 2, 4 (#3 "
+          f"at dropout 0.1, atom blocks {blocks[0]}: bit-identical "
+          f"{not any(d.startswith('#3') for d in differ)}; #4 in its three schedules, narrow "
+          f"atom block {blocks[1]}, tall (chunk atoms, block) {blocks[2]}: {limit}; {ran} tall "
+          f"launches)", flush=True)
     if differ or ran != (3, 9):
         failures.append(f"{label}: the tall build differs from the narrow one in {differ} "
                         f"({ran} tall launches)")
-    return not differ
+    return worst
 
 
 def phase18_holds(mp2018, ptgp, failures):
@@ -4150,8 +4223,8 @@ def phase18_holds(mp2018, ptgp, failures):
     NaN- and constant-filled relaunches; #4 in its three schedules at
     dropout 0.1 with attention dropout (``hold_wide_backward``: the f32
     stash bit-equal to recompute). Then ``tall=True`` against the narrow
-    builds at MP2018 (4, 96, 32) and Pt/graphene (4, 128, 32). Returns (worst
-    #3 error, worst #4 error)."""
+    builds at MP2018 (4, 96, 32) and Pt/graphene (4, 128, 32)
+    (``tall_against_narrow``). Returns (worst #3 error, worst #4 error)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -4194,10 +4267,13 @@ def phase18_holds(mp2018, ptgp, failures):
 def phase18_times(mp2018, ptgp, card):
     """#3's and #4's tall builds at the Pt/graphene batch of 16 at (322,
     32), in turns with their plain versions (#4 in the f32 stash and the
-    recompute schedule); then each tall build against its narrow build at
-    MP2018 (64, 96, 32) in turns (narrow, tall, tall, narrow; #4 in the
-    schedule the shape takes, the f32 stash). Returns (#3 timing, #4
-    timing), the latter two with the tall-against-narrow times."""
+    recompute schedule), and #4's alone at the recipe batch of 64 there
+    (C = 2, recompute: ``recipe_ms`` of its row); then each tall build
+    against its narrow build at MP2018 (64, 96, 32) in turns (narrow, tall,
+    tall, narrow; #4 in the schedule the shape takes, the f32 stash).
+    Returns (#3 timing, #4 timing), the latter two with the
+    tall-against-narrow times."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
@@ -4206,6 +4282,27 @@ def phase18_times(mp2018, ptgp, card):
     x = synthetic_batch(rng, 16, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
     t3 = time_loop_forward("Pt/graphene tall", ptgp, x, card)[kloop.cluster_size(16)]
     t4 = time_loop_schedules("tall", "Pt/graphene", ptgp, x, card)
+    # the recipe batch of 64 at that M: 2 blocks a structure, in the schedule
+    # its f32 stash's size gives (recompute)
+    B, M, N = 64, 322, 32
+    x = synthetic_batch(rng, B, M, N, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
+    packed = kfwd.pack_params(init_params(ptgp, torch.Generator().manual_seed(0), "cuda"), ptgp)
+    y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+    mode = kloop.loop_stash_mode(ptgp, B, M, N)
+    scratch = kloop.loop_backward_scratch(packed, ptgp, B, M, N, stash=mode)
+    ms = cuda_ms(lambda: kloop._launch_backward(packed, x, ptgp, y, None, True, False, 0.1, 7, 0,
+                                                scratch, stash=mode), 5)
+    del scratch
+    _, P = kbwd.grad_layout(packed)
+    flops = kloop.loop_backward_flops(ptgp, B, M, N)
+    bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
+                                   + 4 * (P + B), kbwd.backward_fp32_flops(ptgp, B, M, N))
+    print(f"scann_loop_backward (tall) at Pt/graphene B={B} M={M} N={N} L={ptgp.n_attention}, "
+          f"C={kloop.cluster_size(B)} (the {mode or 'recompute'} schedule; dropout 0.1, "
+          f"one-shot): kernel {ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
+          f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+    t4.update(recipe_ms=ms, recipe_bound_ms=bound, recipe_measured_bound_ms=measured,
+              recipe_schedule=mode or "recompute")
     del x
     x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
     B, M, N = 64, 96, 32
@@ -4518,9 +4615,9 @@ def phase19_holds(mp2018, ptgp, failures):
     attention dropout on, and again with one layer over 16 structures at
     their cluster size (0.5 x the f32 kernel's reading, #4's pred 0.9 x);
     then the tall builds in bf16 forced (``tall=True``) at MP2018 (4, 96,
-    32) and Pt/graphene (4, 128, 32) against the narrow bf16 builds, bit
-    for bit (``tall_against_narrow``). Returns the worst errors by row
-    name."""
+    32) and Pt/graphene (4, 128, 32) against the narrow bf16 builds
+    (``tall_against_narrow``: #3 bit for bit, #4 within its gradient
+    limit). Returns the worst errors by row name."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -5232,10 +5329,13 @@ def backward_ab(root, out_path=None):
     launch's outputs of every other build both checkouts have: #1 at QM9,
     #2 and #4 in bf16 (QM9, MP2018 (64, 96, 32)), #3 in bf16 (MP2018), the
     wide builds of #3 and #4 at MP2018 (8, 80, 96) and of #5 at one MP2018
-    layer (8, 96, 96), the tall builds of #3 and #4 at Pt/graphene (4, 322,
-    32), so that two checkouts' outputs can be held bit for bit
-    (``--ab-compare``). Run the turns A, B, B, A, each a process of its
-    own."""
+    layer (8, 96, 96), the tall builds of #3 and #4 (f32 and bf16) at
+    Pt/graphene (4, 322, 32), so that two checkouts' outputs can be held
+    (``--ab-compare``). Also times #4's tall build (one-shot, dropout 0.1,
+    5 timed launches after 2) at M = 322, N = 32: Pt/graphene and MP2018 at
+    the recipe batch of 64 (C = 2, recompute), Pt/graphene at 16 (C = 4)
+    with the f32 stash and recompute and in bf16 with the f32 stash. Run the
+    turns A, B, B, A, each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5300,6 +5400,27 @@ def backward_ab(root, out_path=None):
         out["local_attention"] = statistics.median(cuda_times(lambda: kla._launch(*args), 10,
                                                               warmup=3))
         saved["local_attention"] = [t.cpu() for t in kla._launch(*args)]
+    # #4's tall build at M = 322, N = 32: the recipe batch of 64 (2 blocks a
+    # structure, the recompute schedule its f32 stash's size gives there) and
+    # the batch of 16 (4 blocks) in both f32 schedules and in bf16
+    out["tall"] = {}
+    for label, cfm, B, mode, C in (
+            ("Pt/graphene (64, 322, 32) recompute C=2", ptgp, 64, None, 2),
+            ("MP2018 (64, 322, 32) recompute C=2", mp2018, 64, None, 2),
+            ("Pt/graphene (16, 322, 32) f32 stash C=4", ptgp, 16, "f32", 4),
+            ("Pt/graphene (16, 322, 32) recompute C=4", ptgp, 16, None, 4),
+            ("Pt/graphene bf16 (16, 322, 32) f32 stash C=4", bf16(ptgp), 16, "f32", 4)):
+        x = synthetic_batch(np.random.default_rng(181), B, 322, 32, use_ring=cfm.use_ring,
+                            n_atoms=cfm.n_atoms, min_atoms=240)
+        f32 = dataclasses.replace(cfm, dtype="float32")
+        packed = kfwd.pack_params(init_params(f32, torch.Generator().manual_seed(0), "cuda"),
+                                  f32)
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, 322, 32, C, mode, tall=True)
+        out["tall"][label] = statistics.median(cuda_times(
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch, C, stash=mode, tall=True), 5, warmup=2))
+        del scratch, x
     if out_path:
         wide_x = wide_batch(rng, 8, 80, 96, mp2018)
         tall_x = synthetic_batch(rng, 4, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms,
@@ -5311,7 +5432,8 @@ def backward_ab(root, out_path=None):
                              ("scann_loop_wide", mp2018, wide_x),
                              ("scann_loop_backward_wide", mp2018, wide_x),
                              ("scann_loop_tall", ptgp, tall_x),
-                             ("scann_loop_backward_tall", ptgp, tall_x)):
+                             ("scann_loop_backward_tall", ptgp, tall_x),
+                             ("scann_loop_backward_tall_bf16", bf16(ptgp), tall_x)):
             packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17),
                                                   "cuda"), cfm)
             with torch.inference_mode(name.startswith("scann_loop") and "backward" not in name):
@@ -5326,15 +5448,30 @@ def backward_ab(root, out_path=None):
     return 0
 
 
+# Builds whose outputs --ab-compare holds within GRAD_RTOL x max rather than
+# bit for bit: the tall #4, whose 64-row chunks sum the weight gradients in
+# another order than a build with 32-row chunks
+AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16")
+
+
 def ab_compare(path_a, path_b):
     """``--ab-compare A.pt B.pt``: the outputs two ``--backward-ab`` turns
-    saved, held bit for bit output by output (gradients by name). Prints one
-    JSON line, name -> equal, and exits 1 on any difference."""
+    saved, held bit for bit output by output (gradients by name), those of
+    ``AB_WITHIN`` within GRAD_RTOL x max |A| of each gradient (pred at RTOL
+    / ATOL). Prints one JSON line, name -> equal (``AB_WITHIN``: within the
+    limit, beside the worst share of max as ``<name>_rel``), and exits 1 on
+    any difference."""
     a, b = (torch.load(p, weights_only=True) for p in (path_a, path_b))
-    same = {}
+    same, rels = {}, {}
     for name in sorted(set(a) | set(b)):
         x, y = a.get(name), b.get(name)
-        if isinstance(x, dict) and isinstance(y, dict):
+        if name in AB_WITHIN and isinstance(x, dict) and isinstance(y, dict):
+            grads = {k: v for k, v in x.items() if k != "pred"}
+            rel = grad_errors({k: y[k] for k in grads}, grads)[0] if x.keys() == y.keys() else 1.0
+            rels[f"{name}_rel"] = rel
+            same[name] = rel <= GRAD_RTOL and x.keys() == y.keys() and errors(y["pred"],
+                                                                            x["pred"])[2]
+        elif isinstance(x, dict) and isinstance(y, dict):
             same[name] = x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
         elif isinstance(x, list) and isinstance(y, list):
             same[name] = len(x) == len(y) and all(
@@ -5342,8 +5479,70 @@ def ab_compare(path_a, path_b):
                 for u, v in zip(x, y))
         else:
             same[name] = False
-    print(json.dumps({"bit_identical": same}), flush=True)
+    print(json.dumps({"bit_identical": same, **rels}), flush=True)
     return 0 if all(same.values()) else 1
+
+
+def tall_table(out_path=None):
+    """``--tall-table [OUT]``: #4's tall build against its narrow build at
+    shapes both take, in turns (narrow, tall, tall, narrow; 5 timed launches
+    a round, one-shot at dropout 0.1, the default cluster size, the f32
+    stash where ``loop_stash_mode`` admits it, else recompute): MP2018 (64,
+    96, 32); MP2018 (B, 200, 32), (B, 216, 32) and (B, 226, 32) at B = 16
+    and 64, where the narrow plan falls to atom blocks of 16 or 8; and
+    Pt/graphene (64, 128, 32). Prints a line a shape and one JSON line (with
+    OUT, also saved there)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    mp2018, ptgp = crystal_models()
+    card = card_line()
+    rows = []
+    for name, cfm, B, M in (("MP2018", mp2018, 64, 96),
+                            *[("MP2018", mp2018, B, M) for M in (200, 216, 226) for B in (16, 64)],
+                            ("Pt/graphene", ptgp, 64, 128)):
+        N = 32
+        rng = np.random.default_rng(M + B)
+        x = synthetic_batch(rng, B, M, N, use_ring=cfm.use_ring, n_atoms=cfm.n_atoms,
+                            min_atoms=M // 2)
+        packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cuda"),
+                                  cfm)
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        mode = kloop.loop_stash_mode(cfm, B, M, N)
+        scratch = [kloop.loop_backward_scratch(packed, cfm, B, M, N, stash=mode, tall=t)
+                   for t in (False, True)]
+        tall_ms, narrow_ms = in_turns_ms(
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch[0], stash=mode),
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch[1], stash=mode, tall=True), 5, 5)
+        del scratch
+        _, P = kbwd.grad_layout(packed)
+        flops = kloop.loop_backward_flops(cfm, B, M, N)
+        bound, by, _ = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
+                                + 4 * (P + B), kbwd.backward_fp32_flops(cfm, B, M, N))
+        row = {"shape": [name, B, M, N], "cluster": kloop.cluster_size(B),
+               "schedule": mode or "recompute", "narrow_ms": narrow_ms, "tall_ms": tall_ms,
+               "narrow_plan": kloop.loop_backward_memory_plan(cfm, M, N)[:2],
+               "tall_plan": kloop.loop_backward_memory_plan(cfm, M, N, tall=True)[:2],
+               "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        print(f"tall against narrow #4 at {name} B={B} M={M} N={N}, C={row['cluster']}, "
+              f"{row['schedule']} (timed in turns: narrow, tall, tall, narrow): tall "
+              f"{tall_ms:.4f} ms (chunk atoms, block {row['tall_plan']}), narrow "
+              f"{narrow_ms:.4f} ms ({row['narrow_plan']}), {100 * (tall_ms / narrow_ms - 1):+.1f}%"
+              f"; bound {bound:.4f} ms by {by}  [{card}]", flush=True)
+    out = {"tall_against_narrow": rows, "card": card}
+    print(json.dumps(out), flush=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
 
 
 if __name__ == "__main__":
@@ -5351,6 +5550,8 @@ if __name__ == "__main__":
         sys.exit(backward_ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ab-compare"]:
         sys.exit(ab_compare(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--tall-table"]:
+        sys.exit(tall_table(*sys.argv[2:3]))
     if sys.argv[1:2] == ["--phase13-rank"]:
         rank, world, coordinator, spec_path, out_path, t_spawn = sys.argv[2:8]
         sys.exit(phase13_rank(int(rank), int(world), coordinator, spec_path, out_path,

@@ -93,10 +93,32 @@
 //   cluster sums the C partials in rank order, read past L1 (other SMs wrote
 //   them, and this SM read them a layer before), into the d(layer output)
 //   scratch, which the embedding backward reads in place of the resident
-//   copy. So the arithmetic and the order of every sum are the narrow
-//   build's: at a shape both take, with the same atom block and C, the
-//   gradients are the same bits. The plan drops M * 512 bytes: atom blocks
-//   of 32 for M into the thousands.
+//   copy. The plan drops M * 512 bytes and spends them on chunks of up to
+//   kTallChunkRows = 64 rows (two atoms at N = 32) with atom blocks of 16 at
+//   D = 128 (32 at N = 24), for M into the thousands. What bounds the build
+//   (clock64() marks, Pt/graphene and MP2018 at M = 322, N = 32) is latency
+//   at 8 warps an SM, spread over the chunk's steps: the rows' forward
+//   (staging, the u_pre and key products, the elementwise pass, the softmax)
+//   takes ~45% of the recompute schedule's time in its two passes, the
+//   weight gradients ~15%, the scatter ~10%, the rows' backward products,
+//   the elementwise backward and the per-atom work most of the rest. So a
+//   chunk of twice the rows pays each fixed cost once for 64 rows: each
+//   mma_gemm_tA sums 64 rows in its accumulators before its
+//   read-modify-write of the block's gradient row (half the gradient-row
+//   traffic), a barrier waits once, the LayerNorm partials flush once.
+//   Beside that, tall-only code (under kTall, so the other builds compile
+//   as before): the gather loads four quads a thread before storing them,
+//   tall_scatter overlaps the L2 round trips of 16 rows, the softmax passes
+//   read the head's values as float4, and a weight gradient with few rows
+//   (SCANN's [K, D] filter) spreads over all 8 warps (tall_gemm_tA). The
+//   row products stay scann_mma.cuh's: a four-m-tile product (each weight
+//   fragment for 64 rows) was faster at Pt/graphene but its registers
+//   spilled and cost MP2018 10%. A row's products, activations and
+//   cotangents are the narrow build's bits; the weight gradients, their
+//   bias and LayerNorm-parameter sums, and the d(layer input) partials
+//   (the per-atom adds come per block of 16) are summed in another order,
+//   so they differ from the narrow build's in the last bits (within 1e-4 x
+//   max in f32), and repeat bit for bit from run to run at one cluster size.
 // - Wide neighbour lists (32 < N <= 256; the wide builds,
 //   scann_loop_backward_wide.cu and _wide_bf16.cu, all three schedules): one atom
 //   at a time, its rows in sub-chunks of 32. The forward pass keeps the atom's
@@ -164,6 +186,231 @@ constexpr bool kTall = true;
 #else
 constexpr bool kTall = false;
 #endif
+
+// The tall build's chunk of (atom, neighbour) rows: up to 64 (two atoms at
+// N = 32, four at N = 16, eight at N = 8), in the shared memory the resident
+// buffer left.
+constexpr int kTallChunkRows = 64;
+
+// The gather's transpose into the tall build's global d(layer input)
+// partial [M, ldd] for one thread: column d of the targets with index % np ==
+// part, dst[idx * ldd + d] += operand(src[r * lds + d]) for the chunk's rows r
+// in order (nbr: their neighbour indices). Sixteen rows' targets are loaded
+// at once, so their L2 latencies overlap; a target met again among the
+// sixteen takes the running sum, so each element's additions are those of
+// the one-row-at-a-time walk, in its order.
+template <bool kBf16>
+__device__ __forceinline__ void tall_scatter(float* dst, const int* nbr, const float* src,
+                                             int lds, int ldd, int rows, int np, int part,
+                                             int d) {
+  constexpr int kGroup = 16;
+#pragma unroll 1
+  for (int r0 = 0; r0 < rows; r0 += kGroup) {
+    int idx[kGroup];
+    float v[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      idx[j] = r0 + j < rows ? __ldg(nbr + r0 + j) : -1;
+      if (idx[j] % np != part) idx[j] = -1;
+      v[j] = idx[j] >= 0 ? dst[(size_t)idx[j] * ldd + d] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (idx[j] < 0) continue;
+      float s = v[j];
+#pragma unroll
+      for (int i = 0; i < j; ++i)
+        if (idx[i] == idx[j]) s = v[i];
+      v[j] = s + operand<kBf16>(src[(r0 + j) * lds + d]);
+      dst[(size_t)idx[j] * ldd + d] = v[j];
+    }
+  }
+}
+
+// mma_gemm_tA of scann_mma.cuh for the tall build's weight gradients of a
+// chunk's rows: where the header's units of 32 rows x 64 columns of Gout
+// would leave warps idle (a gradient with few rows, as SCANN's RBF filter
+// [K, D] at K = 20: 2 units for 8 warps), units of 32 x 16 columns, so
+// every warp takes one. Each element's sum (over the rows in order, then
+// one addition into Gout; the column sums by the same tree) is the
+// header's: the same bits.
+template <bool kBf16>
+__device__ __forceinline__ void tall_gemm_tA(const float* X, int ldx, const float* Y, int ldy,
+                                             int rows, int I, int J, float* Gout, int ldg,
+                                             bool accumulate, float* colsum, bool sum_accumulate) {
+  if (((I + 31) >> 5) * ((J + 63) >> 6) >= kWarps) {
+    mma_gemm_tA<kBf16>(X, ldx, Y, ldy, rows, I, J, Gout, ldg, accumulate, colsum, sum_accumulate);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int jgroups = (J + 15) >> 4;
+#pragma unroll 1
+  for (int u = warp; u < ((I + 31) >> 5) * jgroups; u += kWarps) {
+    const int i0 = (u / jgroups) * 32, j0 = (u % jgroups) * 16, jc = j0 + 2 * g;
+    const bool sums = colsum != nullptr && i0 == 0;
+    float acc[2][2][4] = {}, cs[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int r0 = 0; r0 < rows; r0 += 8) {
+      const int ra = r0 + 2 * t, rb = ra + 1;
+      const bool va = ra < rows, vb = rb < rows;
+      unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int ia = i0 + 16 * m + g, ib = ia + 8;
+        const float x[4] = {va && ia < I ? X[ra * ldx + ia] : 0.f, va && ib < I ? X[ra * ldx + ib] : 0.f,
+                            vb && ia < I ? X[rb * ldx + ia] : 0.f, vb && ib < I ? X[rb * ldx + ib] : 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kBf16) ahi[m][e] = bf16_bits(x[e]);
+          else split_tf32(x[e], ahi[m][e], alo[m][e]);
+        }
+      }
+      float2 ya = make_float2(0.f, 0.f), yb = ya;
+      if (jc < J) {
+        if (va) ya = *reinterpret_cast<const float2*>(Y + ra * ldy + jc);
+        if (vb) yb = *reinterpret_cast<const float2*>(Y + rb * ldy + jc);
+      }
+      if (sums) {
+        cs[0] += ya.x;
+        cs[0] += yb.x;
+        cs[1] += ya.y;
+        cs[1] += yb.y;
+      }
+      if constexpr (kBf16) {
+        const unsigned b0a = bf16_bits(ya.x), b0b = bf16_bits(yb.x);
+        const unsigned b1a = bf16_bits(ya.y), b1b = bf16_bits(yb.y);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_tf32(acc[m][0], ahi[m], b0a, b0b);
+          mma_tf32(acc[m][1], ahi[m], b1a, b1b);
+        }
+      } else {
+        unsigned bhi[2][2], blo[2][2];
+        split_tf32(ya.x, bhi[0][0], blo[0][0]);
+        split_tf32(yb.x, bhi[0][1], blo[0][1]);
+        split_tf32(ya.y, bhi[1][0], blo[1][0]);
+        split_tf32(yb.y, bhi[1][1], blo[1][1]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_3xtf32(acc[m][0], ahi[m], alo[m], bhi[0], blo[0]);
+          mma_3xtf32(acc[m][1], ahi[m], alo[m], bhi[1], blo[1]);
+        }
+      }
+    }
+    // add into the gradient row, the four quads' loads before their stores
+    const int jw = j0 + 4 * t;
+    float4 prev[4];
+#pragma unroll
+    for (int mh = 0; mh < 4; ++mh) {
+      const int i = i0 + 16 * (mh >> 1) + g + 8 * (mh & 1);
+      prev[mh] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (accumulate && jw < J && i < I)
+        prev[mh] = __ldcg(reinterpret_cast<const float4*>(Gout + (size_t)i * ldg + jw));
+    }
+#pragma unroll
+    for (int mh = 0; mh < 4; ++mh) {
+      const int m = mh >> 1, h = mh & 1, i = i0 + 16 * m + g + 8 * h;
+      if (jw < J && i < I) {
+        const float4 o = prev[mh];
+        store4(Gout + (size_t)i * ldg + jw,
+               make_float4(o.x + acc[m][0][2 * h], o.y + acc[m][1][2 * h],
+                           o.z + acc[m][0][2 * h + 1], o.w + acc[m][1][2 * h + 1]));
+      }
+    }
+    if (sums) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float sum = cs[q];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (t == 0 && jc + q < J) colsum[jc + q] = sum_accumulate ? colsum[jc + q] + sum : sum;
+      }
+    }
+  }
+}
+
+// warp_energy_softmax and warp_softmax_backward of scann_mma.cuh for the
+// tall build's chunks (2 to 8 atoms, ca * H pairs of (atom, head) over 8
+// warps): each lane's dot product over the head's hd values (a multiple of
+// 4) reads its key row as float4 and its mask first, so the loads of a pair
+// are in flight together; the sums run in the header's order.
+template <bool kBf16>
+__device__ __forceinline__ void tall_energy_softmax(const float* sQ, int ldq, const float* sKey,
+                                                    int ldk, const float* nmask, float* sE,
+                                                    int ca, int N, int H, int hd, float dk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < ca * H; i += kWarps) {
+    const int at = i / H, h = i - at * H, r = at * N + lane;
+    float e = -INFINITY;
+    if (lane < N) {
+      const float* q = sQ + at * ldq + h * hd;
+      const float* kk = sKey + r * ldk + h * hd;
+      const float nm = __ldg(nmask + r);
+      e = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < hd; j += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kk + j);
+        const float4 q4 = *reinterpret_cast<const float4*>(q + j);
+        if (kBf16) {
+          e += bf16r((q4.x * dk) * k4.x);
+          e += bf16r((q4.y * dk) * k4.y);
+          e += bf16r((q4.z * dk) * k4.z);
+          e += bf16r((q4.w * dk) * k4.w);
+        } else {
+          e = fmaf(q4.x * dk, k4.x, e);
+          e = fmaf(q4.y * dk, k4.y, e);
+          e = fmaf(q4.z * dk, k4.z, e);
+          e = fmaf(q4.w * dk, k4.w, e);
+        }
+      }
+      e += (1.0f - nm) * -1e9f;
+    }
+    const float mx = warp_max(e);
+    const float p = lane < N ? expf(e - mx) : 0.f;
+    const float sum = warp_sum(p);
+    if (lane < N) sE[r * H + h] = p / sum;
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void tall_softmax_backward(const float* sDCtx, int ldq,
+                                                      const float* sKey, int ldk,
+                                                      const float* nmask, const float* sDrop,
+                                                      const float* sE, float* sF, int ca, int N,
+                                                      int H, int hd) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < ca * H; i += kWarps) {
+    const int at = i / H, h = i - at * H, r = at * N + lane;
+    float f = 0.f, p = 0.f;
+    if (lane < N) {
+      const float* dq = sDCtx + at * ldq + h * hd;
+      const float* kk = sKey + r * ldk + h * hd;
+      const float nm = __ldg(nmask + r), dr = sDrop ? sDrop[r * H + h] : 1.f;
+      p = sE[r * H + h];
+#pragma unroll 4
+      for (int j = 0; j < hd; j += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(kk + j);
+        const float4 d4 = *reinterpret_cast<const float4*>(dq + j);
+        if (kBf16) {
+          f += bf16r(d4.x * k4.x);
+          f += bf16r(d4.y * k4.y);
+          f += bf16r(d4.z * k4.z);
+          f += bf16r(d4.w * k4.w);
+        } else {
+          f = fmaf(d4.x, k4.x, f);
+          f = fmaf(d4.y, k4.y, f);
+          f = fmaf(d4.z, k4.z, f);
+          f = fmaf(d4.w, k4.w, f);
+        }
+      }
+      f *= nm;
+      if (sDrop) f *= dr;
+    }
+    const float sum = warp_sum(p * f);
+    if (lane < N) sF[r * H + h] = operand<kBf16>(p * (f - sum));
+  }
+}
+
 
 // Shared-memory plan, in floats: the resident [M, wd] buffer (none in the
 // tall build); five per-block
@@ -358,6 +605,23 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       }
       for (int i = tid; i < rows * H; i += kThreads)
         sE[i] = stash_get(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sb);
+    } else if constexpr (kTall) {
+      // the neighbours' centers from L2, four quads a thread in flight at once
+      constexpr int kInFlight = 4;
+      for (int i0 = tid; i0 < rows * q4; i0 += kInFlight * kThreads) {
+        float4 v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const int i = i0 + u * kThreads, r = i / q4, c = (i - r * q4) * 4;
+          if (i < rows * q4)
+            v[u] = __ldcg(reinterpret_cast<const float4*>(cen + (size_t)__ldg(nbr + base + r) * ldc + c));
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const int i = i0 + u * kThreads, r = i / q4, c = (i - r * q4) * 4;
+          if (i < rows * q4) store4(sA + r * lda + D + c, operand4<kBf16>(v[u]));
+        }
+      }
     } else {
       for (int i = tid; i < rows * q4; i += kThreads) {
         const int r = i / q4, c = (i - r * q4) * 4;
@@ -456,7 +720,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
              make_float4(v.x + bk[c], v.y + bk[c + 1], v.z + bk[c + 2], v.w + bk[c + 3]));
     });
     __syncthreads();
-    if constexpr (!kWide) {
+    if constexpr (kTall) {
+      if (hd % 4 == 0)
+        tall_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd,
+                                   a.dk);
+      else
+        warp_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd,
+                                   a.dk);
+      __syncthreads();
+    } else if constexpr (!kWide) {
       warp_energy_softmax<kBf16>(sQ + lm0 * wd, wd, sW, ldu, nmask + base, sE, ca, N, H, hd, a.dk);
       __syncthreads();
     }
@@ -1178,7 +1450,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           }
           stage_chunk(l, base, rows, c_in, D, sb != 0);
           row_forward(l, base, lm0, ca, rows, false, sb != 0);
-          if constexpr (!kWide) {
+          if constexpr (kTall) {
+            if (hd % 4 == 0)
+              tall_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
+                                           a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
+            else
+              warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
+                                           a.attn_dropout ? sM : nullptr, sE, sF, ca, N, H, hd);
+            __syncthreads();
+          } else if constexpr (!kWide) {
             // d attn = mask * nmask * sum_{d in head} d ctx * key, then the softmax
             // backward over the N neighbours, on the pre-dropout attention
             warp_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
@@ -1215,13 +1495,13 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
             const float* gb = a.lng_b + (size_t)l * D;
             for (int r = warp; r < rows; r += kWarps) {
               float v[4], xh[4], dy[4], dx[4], mean, inv;
-  #pragma unroll
+#pragma unroll
               for (int i = 0; i < 4; ++i) {
                 const int d = lane + 32 * i;
                 v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
               }
               warp_ln_stats(v, D, lane, mean, inv);
-  #pragma unroll
+#pragma unroll
               for (int i = 0; i < 4; ++i) {
                 const int d = lane + 32 * i;
                 xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
@@ -1234,7 +1514,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
                 }
               }
               warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
-  #pragma unroll
+#pragma unroll
               for (int i = 0; i < 4; ++i) {
                 const int d = lane + 32 * i;
                 if (d < D) {
@@ -1274,13 +1554,20 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
               float* p = sV + r * ldu + c;
               store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
             });
+          } else if constexpr (kTall) {
+            tall_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D,
+                                ci > 0, sAcc + wd, true);
           } else {
             mma_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D, ci > 0,
                         sAcc + wd, true);
           }
           __syncthreads();
           // the gather's transpose: d centers[idx] += d ns, in row order
-          if (sc_part < np)
+          // (tall: the partial in global memory, 16 rows' targets loaded at once)
+          if constexpr (kTall) {
+            if (sc_part < np)
+              tall_scatter<kBf16>(sDCN, nbr + base, sV, ldu, ldn, rows, np, sc_part, sc_d);
+          } else if (sc_part < np)
             for (int r = 0; r < rows; ++r) {
               const int idx = nbr[base + r];
               if (idx % np == sc_part) sDCN[idx * ldn + sc_d] += operand<kBf16>(sV[r * ldu + sc_d]);
@@ -1482,7 +1769,8 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
     return kErrShape;
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
-      (!kWide && a.chunk_atoms * a.N > kMaxChunkRows) || a.atom_block < 1 ||
+      (!kWide && a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)) ||
+      a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       a.cluster < 1 || a.cluster > kMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||

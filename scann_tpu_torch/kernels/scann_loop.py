@@ -194,6 +194,10 @@ ATOM_BLOCKS = (32, 16, 8)
 # the wide loop backward (N > kbwd.MAX_CHUNK_ROWS) also takes blocks of 4
 # atoms, where 8 do not fit beside its atom-wide attention rows
 WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
+# the tall loop backward's chunk of (atom, neighbour) rows (kTallChunkRows of
+# csrc/scann_loop_backward.cu): two atoms at N = 32, in the shared memory the
+# resident buffer left; the narrow and wide builds keep kbwd.MAX_CHUNK_ROWS
+TALL_CHUNK_ROWS = 64
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -539,21 +543,23 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     the layout ``make_plan`` in ``csrc/scann_loop_backward.cu`` walks (with
     the per-segment readout's vectors for a packed batch of S segments a
     slot; without the resident [M, max(D, G)] buffer in the tall build,
-    ``tall``). The atom block is the largest of 32, 16, 8 (wide: and 4) whose
-    plan fits a block's shared memory (the smallest one's plan if none
-    does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``) walks one atom at a
-    time in sub-chunks of that many rows, beside the atom's attention and d
-    attention [N, H]. ``backward_plan`` is the plan of the build a launch
-    takes."""
+    ``tall``, whose chunks hold up to ``TALL_CHUNK_ROWS`` rows in the shared
+    memory that buffer left). The atom block is the largest of 32, 16, 8
+    (wide: and 4) whose plan fits a block's shared memory (the smallest
+    one's plan if none does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``)
+    walks one atom at a time in sub-chunks of that many rows, beside the
+    atom's attention and d attention [N, H]. ``backward_plan`` is the plan
+    of the build a launch takes."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
     wide = is_wide_backward(N)
+    cap = TALL_CHUNK_ROWS if tall and not wide else kbwd.MAX_CHUNK_ROWS
     for block in WIDE_BACKWARD_ATOM_BLOCKS if wide else ATOM_BLOCKS:
         block = min(block, M)
-        chunk_atoms = max(1, min(block, kbwd.MAX_CHUNK_ROWS // max(N, 1)))
+        chunk_atoms = max(1, min(block, cap // max(N, 1)))
         if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
             rows = kbwd.MAX_CHUNK_ROWS
             chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H)
@@ -582,11 +588,14 @@ def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
             and loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
 
 
-def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int]:
-    """``loop_backward_memory_plan`` of the build the gate picks for
-    (config, M, N, S): the narrow (or wide) plan where it fits, else the tall
-    one; a launch forced into the tall build keeps this plan."""
-    return loop_backward_memory_plan(cfm, M, N, S, is_tall_backward(cfm, M, N, S))
+def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
+                  ) -> Tuple[int, int, int]:
+    """``loop_backward_memory_plan`` of the build that takes (config, M, N,
+    S): the narrow (or wide) plan where it fits, else the tall one; the tall
+    one too where ``tall`` forces the tall build at a narrow N (the build
+    runs its own plan at every shape)."""
+    tall = not is_wide_backward(N) and (tall or is_tall_backward(cfm, M, N, S))
+    return loop_backward_memory_plan(cfm, M, N, S, tall)
 
 
 def cluster_size(B: int) -> int:
@@ -855,18 +864,19 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     the schedule ``stash`` (``kbwd.AUTO``: ``loop_stash_mode``'s; None,
     ``"f32"`` or ``"bf16"`` force one, for the checks that hold one schedule
     against another), in the tall build where ``is_tall_backward`` or
-    ``tall`` (True forces it at a shape the narrow build takes, for the
-    checks that hold the two builds bit for bit)."""
+    ``tall`` (True forces it at a shape the narrow build takes, with the
+    tall plan, for the checks that hold the two builds against each
+    other)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
-    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S)
     mode = kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N)
     cluster = cluster_size(B) if cluster is None else cluster
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
     name = backward_library(cfm, M, N, S, tall)
     tall = name.startswith("scann_loop_backward_tall")
+    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S, tall)
     if scratch is None:
         scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode, S, tall)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)

@@ -3,15 +3,18 @@ past the narrow builds' shared-memory plans: the centers in global memory)
 against the JAX package on the CPU, in float32.
 
 - The plans and gates: the tall plans drop the resident [M, max(D, G)]
-  buffer, so they do not grow with M apart from the readout's vectors, and
-  take atom blocks of 32 again; ``forward_library`` / ``backward_library``
+  buffer, so they do not grow with M apart from the readout's vectors; #3's
+  takes atom blocks of 32 again, #4's chunks of 64 rows with atom blocks of
+  16 at D = 128 (the narrow and wide plans keep chunks of 32 rows, and the
+  gates take what they took); ``forward_library`` / ``backward_library``
   name the tall build past the narrow plan and only there (``tall=True``
   forces it), the wide build at a wide N.
 - The scratch of each build (``loop_forward_scratch``,
   ``loop_backward_scratch``), a kept scratch of another build refused, and
   the launch arguments with a stub in place of the CUDA library.
 - The CUDA sources: the narrow and wide builds take ``kTall = false``, the
-  two tall sources define it, and the plans' terms.
+  two tall sources define it, only they take 64-row chunks and the tall-only
+  helpers, and the plans' terms.
 - The plain versions against the JAX loop kernels in interpret mode at a
   tall shape, B = 1, M = 240, N = 8, one layer at the kernels' full width
   (D = G = 128, where the narrow plans stop below 240; a narrower model's
@@ -66,13 +69,39 @@ def _narrow_edge(plan_bytes):
 
 # --- plans, gates, builds -----------------------------------------------------------------
 
+def _plan_32(cfm, M, N, S=0, resident=True):
+    """The loop backward's plan with chunks of at most 32 rows, term by term
+    as ``make_plan`` adds them: what the narrow and wide builds run (with
+    the resident [M, wd] buffer, or without it, ``resident``)."""
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    wd = max(D, G)
+    lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+    ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
+    wide = N > 32
+    for block in (32, 16, 8, 4) if wide else (32, 16, 8):
+        block = min(block, M)
+        ca = 1 if wide else max(1, min(block, 32 // N))
+        chunk = (32 * (2 * D + 4) + 3 * 32 * (D + 4) + 2 * r4(N * H) + r4(32 * H) + wd if wide
+                 else ca * N * (2 * D + 4) + 3 * ca * N * (D + 4) + 3 * r4(ca * N * H))
+        work = max(chunk, 5 * block * wd + r4(block), block * (2 * lde + ldf) + block * wd,
+                   block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)
+        if S:
+            work = max(work, block * wd + kfwd.seg_backward_floats(S, wd, M, O))
+        floats = (M * wd if resident else 0) + 5 * block * wd + work + 8 * 2 * wd + 2 * wd
+        if 4 * floats <= kfwd.MAX_SHARED_BYTES:
+            break
+    return ca, block, 4 * floats
+
+
 @pytest.mark.parametrize("N", [8, 16, 24, 32, 48, 64])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_torch_tall_plans_do_not_grow_with_m(name, N):
-    """Past the narrow plans, the tall plans take atom blocks of 32 and the
-    same bytes at every M up to thousands of atoms: only the readout's
-    vectors (2 [M] in #3, 5 in #4) grow, and they take over the work region
-    only where they outgrow a chunk's buffers."""
+    """Past the narrow plans, the tall plans take the same atom blocks and
+    bytes at every M up to thousands of atoms (#3 blocks of 32; #4 chunks of
+    64 rows and blocks of 16 at D = 128, 32 at N = 24, whose chunk is 48
+    rows): only the readout's vectors (2 [M] in #3, 5 in #4) grow, and they
+    take over the work region only where they outgrow a chunk's buffers.
+    The narrow and wide plans of #4 keep chunks of 32 rows."""
     cfm = CONFIGS[name]
     wd, O = 128, cfm.dense_out
     fwd = [kloop.loop_memory_plan(cfm, M, N, tall=True) for M in (240, 600, 1000, 4000)]
@@ -83,26 +112,55 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
     assert kloop.loop_memory_plan(cfm, big, N, tall=True) == (
         chunk_atoms, 32, 32 * wd + 2 * wd + 2 * r4(big) + r4(O),
         4 * (2 * 32 * (wd + 4) + 32 * wd + 2 * wd + 2 * r4(big) + r4(O)))
+    for M in (96, 200, 240, 600):
+        assert kloop.loop_backward_memory_plan(cfm, M, N) == _plan_32(cfm, M, N)
     if N > kbwd.MAX_CHUNK_ROWS:
         return
     bwd = [kloop.loop_backward_memory_plan(cfm, M, N, tall=True) for M in (240, 600, 1000, 3000)]
-    assert len({p for p in bwd}) == 1 and bwd[0][1] == 32
-    rest = 5 * 32 * wd + kbwd.N_WARPS * 2 * wd + 2 * wd
-    assert bwd[0][2] - 4 * rest == 4 * max(kbwd.chunk_floats(bwd[0][0] * N, 128, 8),
-                                           5 * 32 * wd + 32, 32 * wd + 4 * wd + 5 * r4(3000)
-                                           + 3 * r4(O) + 4,
-                                           32 * (2 * r4(cfm.embedding_dim
-                                                        + (10 if cfm.use_ring else 0)))
-                                           + 32 * wd)
-    big = 6000
-    assert kloop.loop_backward_memory_plan(cfm, big, N, tall=True)[2] == 4 * (
-        rest + 32 * wd + 4 * wd + 5 * r4(big) + 3 * r4(O) + 4)
-    # the narrow plans hold M * 512 bytes more at one atom block
+    assert len({p for p in bwd}) == 1
+    chunk_atoms, block, nbytes = bwd[0]
+    assert (chunk_atoms, block) == (kloop.TALL_CHUNK_ROWS // N, 32 if N == 24 else 16)
+    lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+    rest = 5 * block * wd + kbwd.N_WARPS * 2 * wd + 2 * wd
+    assert nbytes - 4 * rest == 4 * max(kbwd.chunk_floats(chunk_atoms * N, 128, 8),
+                                        5 * block * wd + block, block * wd + 4 * wd
+                                        + 5 * r4(3000) + 3 * r4(O) + 4,
+                                        block * 2 * lde + block * wd)
+    big = 9000        # the readout outgrows a 64-row chunk, and blocks of 16 no longer fit
+    rest8 = 5 * 8 * wd + kbwd.N_WARPS * 2 * wd + 2 * wd
+    assert kloop.loop_backward_memory_plan(cfm, big, N, tall=True) == (
+        min(8, kloop.TALL_CHUNK_ROWS // N), 8,
+        4 * (rest8 + 8 * wd + 4 * wd + 5 * r4(big) + 3 * r4(O) + 4))
+    # the narrow plans hold the resident buffer and keep chunks of 32 rows
     for M in (96, 200):
-        narrow = kloop.loop_backward_memory_plan(cfm, M, N)
-        tall = kloop.loop_backward_memory_plan(cfm, M, N, tall=True)
-        if narrow[1] == 32:
-            assert narrow[2] - tall[2] == 4 * M * wd
+        assert kloop.loop_backward_memory_plan(cfm, M, N) == _plan_32(cfm, M, N)
+        assert kloop.loop_backward_memory_plan(cfm, M, N, tall=True) != _plan_32(
+            cfm, M, N, resident=False)
+
+
+@pytest.mark.parametrize("N", [8, 16, 24, 32])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_torch_tall_backward_chunks_of_64_rows(name, N):
+    """#4's tall plan at every M from 240 to 4000 and S up to
+    ``backward_max_segments``: a chunk of ``(64 // N) * N`` rows, at most
+    64, within a block's shared memory; the narrow and wide plans at the
+    same shapes keep chunks of 32 rows, and every gate takes what it took
+    with them."""
+    cfm = CONFIGS[name]
+    for M in (240, 322, 444, 600, 968, 1500, 2500, 4000):
+        S_max = kloop.backward_max_segments(cfm, M, N)
+        for S in sorted({0, 1, 8, S_max}):
+            chunk_atoms, block, nbytes = kloop.loop_backward_memory_plan(cfm, M, N, S, tall=True)
+            assert chunk_atoms * N == (kloop.TALL_CHUNK_ROWS // N) * N <= 64
+            assert chunk_atoms <= block and nbytes <= kfwd.MAX_SHARED_BYTES, (M, S)
+            assert kloop.loop_backward_memory_plan(cfm, M, N, S) == _plan_32(cfm, M, N, S)
+            # the gate's bytes: the tall plan fits wherever the 32-row one did
+            assert ((_plan_32(cfm, M, N, S, resident=False)[2] <= kfwd.MAX_SHARED_BYTES)
+                    == (kloop.backward_refusal(cfm, M, N, S) is None))
+            if kloop.is_tall_backward(cfm, M, N, S):
+                assert kloop.backward_plan(cfm, M, N, S) == (chunk_atoms, block, nbytes)
+        for Nw in (48, 96):
+            assert kloop.loop_backward_memory_plan(cfm, M // 4, Nw) == _plan_32(cfm, M // 4, Nw)
 
 
 @pytest.mark.parametrize("N", [8, 16, 24, 32, 48, 64, 96])
@@ -110,9 +168,9 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
 def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
     """``forward_library`` and ``backward_library`` name the tall build one
     atom past the narrow plan's edge and not at it; a wide N takes the wide
-    build at any M; ``tall=True`` forces the tall build at a narrow N and
-    the gate's plan (``forward_plan``, ``backward_plan``) stays the narrow
-    one there."""
+    build at any M; ``tall=True`` forces the tall build at a narrow N,
+    where #3 keeps the gate's plan (``forward_plan``, the narrow one) and #4
+    runs its tall plan (``backward_plan(..., tall=True)``)."""
     cfm = CONFIGS[name]
     edge3 = _narrow_edge(lambda M: kloop.loop_memory_plan(cfm, M, N)[3])
     if kloop.is_wide(N):
@@ -136,6 +194,10 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
         assert kloop.backward_library(cfm, 96, N, tall=True) == "scann_loop_backward_tall"
         assert kloop.backward_plan(cfm, edge4, N) == kloop.loop_backward_memory_plan(
             cfm, edge4, N)
+        assert kloop.backward_plan(cfm, edge4 + 1, N) == kloop.loop_backward_memory_plan(
+            cfm, edge4 + 1, N, tall=True)
+        assert kloop.backward_plan(cfm, 96, N, tall=True) == kloop.loop_backward_memory_plan(
+            cfm, 96, N, tall=True) != kloop.backward_plan(cfm, 96, N)
         assert kloop.backward_refusal(cfm, edge4 + 1, N) is None
         assert kloop.backward_refusal(cfm, 968, N) is None
     # bf16 operands: the same builds at the same edges, #4's in their bf16 sources
@@ -197,9 +259,11 @@ def test_torch_tall_scratch_sizes():
 def test_torch_tall_launch_arguments(M, force, monkeypatch):
     """A tall launch (past the narrow plan, or ``tall=True``) calls the tall
     builds with the tall scratch in the last pointer slot, the ping-pong
-    centers in #3's slot 49, the gate's plan (the narrow one where it fits,
-    so a forced launch runs the narrow atom blocks) and counts
-    ``.tall_launches``; a kept scratch of the other build is refused."""
+    centers in #3's slot 49, #3 at the gate's plan (the narrow one where it
+    fits, so a forced launch runs the narrow atom blocks), #4 at the plan of
+    the build it calls (a forced launch: the tall plan's chunk and atom
+    block), and counts ``.tall_launches``; a kept scratch of the other build
+    is refused."""
     calls = _stub(monkeypatch)
     for launcher in (kloop.launch_loop_forward, kloop.launch_loop_backward):
         monkeypatch.setattr(launcher, "tall_launches", 0)
@@ -223,9 +287,11 @@ def test_torch_tall_launch_arguments(M, force, monkeypatch):
         if tall:
             assert tuple(keys.shape) == (B * 2, M, cols) and keys.dtype == torch.float32
     assert (d_f[16], d_f[20], d_f[17]) == tuple(kloop.forward_plan(cfm, M, N)[:3])
-    assert d_b[21] == kloop.backward_plan(cfm, M, N)[1]
-    if force:     # the narrow plan's atom blocks, not the tall plan's
+    assert (d_b[18], d_b[21]) == kloop.backward_plan(cfm, M, N, tall=force)[:2]
+    if force:     # #3: the narrow plan's atom blocks; #4: the tall plan's chunk and block
         assert d_f[20] == kloop.loop_memory_plan(cfm, M, N)[1]
+        assert (d_b[18], d_b[21]) == kloop.loop_backward_memory_plan(cfm, M, N, tall=True)[:2]
+        assert (d_b[18], d_b[21]) != kloop.loop_backward_memory_plan(cfm, M, N)[:2]
     assert kloop.launch_loop_forward.tall_launches == tall
     assert kloop.launch_loop_backward.tall_launches == tall
     other = not tall
@@ -278,6 +344,29 @@ def test_torch_tall_sources():
             '#include "scann_loop_backward.cu"') in src["scann_loop_backward_tall_bf16"]
     assert "p.offQ = kTall ? 0 : a.M * p.wd;" in src["scann_loop"]
     assert "p.offBlk = kTall ? 0 : a.M * p.wd;" in src["scann_loop_backward"]
+    # only the tall builds take chunks of 64 rows: the narrow and wide builds
+    # keep kMaxChunkRows = 32 (the wide sub-chunk, the launcher's cap)
+    bwd = src["scann_loop_backward"]
+    assert "constexpr int kMaxChunkRows = 32;" in bwd
+    assert "constexpr int kTallChunkRows = 64;" in bwd
+    assert "p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert "a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)" in bwd
+    assert "(a.N > kMaxChunkRows) != kWide" in bwd
+    assert (kloop.TALL_CHUNK_ROWS, kbwd.MAX_CHUNK_ROWS) == (64, 32)
+    # the tall build's own helpers run only under kTall, each beside the
+    # narrow code it stands in for
+    kernel = bwd[bwd.index("scann_loop_backward_kernel(const Args a"):bwd.index("void set_dims")]
+    for call in ("tall_scatter<kBf16>(", "tall_energy_softmax<kBf16>(",
+                 "tall_softmax_backward<kBf16>(", "tall_gemm_tA<kBf16>("):
+        at = kernel.index(call)
+        assert kernel.rfind("if constexpr (kTall)", 0, at) > kernel.rfind("} else", 0, at), call
+    assert kernel.count("warp_energy_softmax<kBf16>(") == 2
+    assert kernel.count("warp_softmax_backward<kBf16>(") == 2
+    for other in ("scann_mma.cuh", "scann_loop.cu", "scann_backward.cu"):
+        with open(f"{_build.SRC_DIR}/{other}") as f:
+            text = f.read()
+        assert not any(w in text for w in ("kTallChunkRows", "tall_scatter", "tall_gemm_tA",
+                                           "tall_energy_softmax"))
     # the tall builds take both operand modes and want their scratch
     assert "(kTall && bf16)" not in src["scann_loop"]
     assert "(wide_keys != nullptr) != (kWideBuild || kTall)" in src["scann_loop"]
