@@ -121,7 +121,8 @@ layers); random weights from seeds:
    against the routes, the same run with the plain step and
    ``load_model_infer``; trains 2 epochs in one bucket (96, 16), where every
    pass must lower the loss without dropout; and takes one training step by
-   the per-layer route on structures beyond the loop backward's gate (the
+   the per-layer route at (248, 64) of the model without the attention
+   LayerNorm, which the loop backward refuses (the
    plain model under autograd, as the JAX Trainer trains: no launch of the
    per-layer kernel), held against the plain step and timed beside it; then
    one packed epoch of the same crystals at
@@ -257,8 +258,9 @@ layers); random weights from seeds:
    and one at (384, 96) (the per-layer route); it trains 2 epochs on phase
    18's crystals at (304, 32) (#4's tall build in bf16, one launch a step;
    validation by #3's tall build in bf16), the Trainer's first step held to
-   the bf16 plain version; and one training step at (248, 64), past #4's
-   wide plan, keeps the per-layer route in bf16 as in f32.
+   the bf16 plain version; and one training step at (248, 64) of the model
+   without the attention LayerNorm (which #4 refuses) keeps the per-layer
+   route in bf16 as in f32.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -3083,9 +3085,9 @@ def phase10(mp2018, failures, card):
     train -> evaluate on synthetic periodic crystals of 20-90 sites at the
     full width and depth of the MP2018 model, batch 64, the recipe's 4
     buckets; the same run with the plain step; load_model_infer; and one
-    training step by the per-layer route on structures beyond the loop
-    backward's gate. Returns (the loop-backward launches of the main path,
-    its run directory)."""
+    training step by the per-layer route of the model without the attention
+    LayerNorm, which the loop backward refuses. Returns (the loop-backward
+    launches of the main path, its run directory)."""
     import tempfile
 
     from scann_tpu_torch.api import Scann
@@ -3266,16 +3268,19 @@ def phase10(mp2018, failures, card):
                         f"for {one_steps} steps")
     del one
 
-    # ---- the third route: one step on structures beyond the backward's gate --
-    # (past the wide build's plan at N = 64: the tall build takes M past the
-    # narrow plan only at N <= 32)
+    # ---- the third route: one step of a model the loop backward refuses ----
+    # (MP2018 without the attention LayerNorm; with it the wide build takes
+    # (248, 64) as the tall build takes every M at N <= 32)
+    import dataclasses
+
     rng = np.random.default_rng(10)
     M, N, B = 248, 64, 8
     x = synthetic_batch(rng, B, M, N, n_atoms=mp2018.n_atoms, min_atoms=150)
     y = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    no_norm = dataclasses.replace(cfg, model=dataclasses.replace(mp2018, use_attn_norm=False))
     outcome = []
     for cls in (Trainer, PlainTrainer):
-        t = cls(cfg, "cuda", os.path.join(work, "third_" + cls.__name__))
+        t = cls(no_norm, "cuda", os.path.join(work, "third_" + cls.__name__))
         t.init_state(5)
         route = t.train_route(M, N)
         _, raw = t.raw_grads(x, y, 3)
@@ -3291,8 +3296,9 @@ def phase10(mp2018, failures, card):
     (loss_k, raw_k, ms_k, layer_n, loop_n), (loss_p, raw_p, ms_p, _, _) = outcome
     g_rel, g_key, _ = grad_errors(raw_k, raw_p)
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"phase 10: one {route} training step at B={B} M={M} N={N} (beyond the loop "
-          f"backward's gate; the plain model under autograd, as the JAX Trainer trains): loss "
+    print(f"phase 10: one {route} training step at B={B} M={M} N={N} of MP2018 without the "
+          f"attention LayerNorm (which the loop backward refuses; the plain model under "
+          f"autograd, as the JAX Trainer trains): loss "
           f"{loss_k:.6f} vs plain step {loss_p:.6f} (rel {rel:.3e}, limit {LOSS_RTOL}), "
           f"gradients worst {g_rel:.2e} of max|plain| at {g_key}, {layer_n} per-layer kernel "
           f"launches (none wanted), {loop_n} loop-backward launches, {ms_k:.1f} ms (plain "
@@ -3891,14 +3897,16 @@ def phase17_loops(mp2018, ptgp, failures, card):
     """#3's and #4's wide builds against their plain versions at MP2018 (80,
     96), (60, 128) and (96, 72), Pt/graphene (120, 96) and a packed wide slot
     (MP2018-like crystals at capacity 96, N = 96), and #4's alone at MP2018
-    (64, 48) and (96, 40), where #3 runs narrow and #4's last sub-chunk of
-    an atom is short (16 and 8 rows), at 1, 2 and 4 blocks a structure, each
+    (64, 48) and (96, 40), where #3 runs narrow and one 64-row sub-chunk
+    holds an atom's list, past #4's old edge at (300, 48) and at (40, 256),
+    where its atom blocks fall to 8, at 1, 2 and 4 blocks a structure, each
     with NaN- and constant-filled relaunches; #4 in its three schedules at
     dropout 0.1 with attention dropout. The holds run at
-    B = 8 (4 at N = 40, 48 and 72; the plain versions' time bounds the
-    phase's), the times at B = 16,
-    MP2018 (16, 80, 96), in turns with the plain versions. Returns (worst #3
-    error, worst #4 error, #3 timing, #4 timing)."""
+    B = 8 (4 at N = 40, 48 and 72, 2 at the last two; the plain versions'
+    time bounds the phase's), the times at B = 16,
+    MP2018 (16, 80, 96), in turns with the plain versions, and #4's alone at
+    the recipe batch of 64 there (C = 2, recompute: ``recipe_ms`` of its
+    row). Returns (worst #3 error, worst #4 error, #3 timing, #4 timing)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -3914,7 +3922,11 @@ def phase17_loops(mp2018, ptgp, failures, card):
              ("MP2018 packed", mp_drop, pack_batch(wide_batch(rng, 12, 48, 96, mp2018), 96)),
              ("MP2018", mp_drop, wide_batch(rng, 4, 64, 48, mp2018)),
              ("MP2018", mp_drop, wide_batch(rng, 4, 96, 40, mp2018)),
-             ("MP2018", mp_drop, wide_batch(rng, 4, 96, 72, mp2018)))
+             ("MP2018", mp_drop, wide_batch(rng, 4, 96, 72, mp2018)),
+             # past the wide #4's old edge (243 atoms at N = 48 with the resident
+             # buffer), and at N = 256, where its atom blocks fall to 8
+             ("MP2018", mp_drop, wide_batch(rng, 2, 300, 48, mp2018, min_atoms=250)),
+             ("MP2018", mp_drop, wide_batch(rng, 2, 40, 256, mp2018)))
     worst3 = worst4 = 0.0
     for name, cfm, x in cases:
         t0 = time.time()
@@ -3931,7 +3943,11 @@ def phase17_loops(mp2018, ptgp, failures, card):
               f"{time.time() - t0:.1f} s", flush=True)
     x = wide_batch(rng, 16, 80, 96, mp2018)
     fwd = time_loop_forward("MP2018 wide", mp2018, x, card)[kloop.cluster_size(16)]
-    return worst3, worst4, fwd, time_loop_schedules("wide", "MP2018", mp2018, x, card)
+    t4 = time_loop_schedules("wide", "MP2018", mp2018, x, card)
+    del x
+    t4.update(time_recipe_batch("wide", "MP2018", mp2018, wide_batch(rng, 64, 80, 96, mp2018),
+                                card))
+    return worst3, worst4, fwd, t4
 
 
 def time_loop_schedules(build, name, cfm, x, card):
@@ -4273,7 +4289,6 @@ def phase18_times(mp2018, ptgp, card):
     tall, narrow; #4 in the schedule the shape takes, the f32 stash).
     Returns (#3 timing, #4 timing), the latter two with the
     tall-against-narrow times."""
-    from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
@@ -4284,25 +4299,8 @@ def phase18_times(mp2018, ptgp, card):
     t4 = time_loop_schedules("tall", "Pt/graphene", ptgp, x, card)
     # the recipe batch of 64 at that M: 2 blocks a structure, in the schedule
     # its f32 stash's size gives (recompute)
-    B, M, N = 64, 322, 32
-    x = synthetic_batch(rng, B, M, N, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
-    packed = kfwd.pack_params(init_params(ptgp, torch.Generator().manual_seed(0), "cuda"), ptgp)
-    y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
-    mode = kloop.loop_stash_mode(ptgp, B, M, N)
-    scratch = kloop.loop_backward_scratch(packed, ptgp, B, M, N, stash=mode)
-    ms = cuda_ms(lambda: kloop._launch_backward(packed, x, ptgp, y, None, True, False, 0.1, 7, 0,
-                                                scratch, stash=mode), 5)
-    del scratch
-    _, P = kbwd.grad_layout(packed)
-    flops = kloop.loop_backward_flops(ptgp, B, M, N)
-    bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
-                                   + 4 * (P + B), kbwd.backward_fp32_flops(ptgp, B, M, N))
-    print(f"scann_loop_backward (tall) at Pt/graphene B={B} M={M} N={N} L={ptgp.n_attention}, "
-          f"C={kloop.cluster_size(B)} (the {mode or 'recompute'} schedule; dropout 0.1, "
-          f"one-shot): kernel {ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
-          f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
-    t4.update(recipe_ms=ms, recipe_bound_ms=bound, recipe_measured_bound_ms=measured,
-              recipe_schedule=mode or "recompute")
+    x = synthetic_batch(rng, 64, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
+    t4.update(time_recipe_batch("tall", "Pt/graphene", ptgp, x, card))
     del x
     x = synthetic_batch(rng, 64, 96, 32, n_atoms=mp2018.n_atoms, min_atoms=20)
     B, M, N = 64, 96, 32
@@ -4333,6 +4331,37 @@ def phase18_times(mp2018, ptgp, card):
               f"({100 * (tall_ms / narrow_ms - 1):+.1f}%)  [{card}]", flush=True)
         t.update(tall_ms_mp2018=tall_ms, narrow_ms_mp2018=narrow_ms)
     return t3, t4
+
+
+def time_recipe_batch(build, name, cfm, x, card):
+    """#4 alone at a recipe batch ``x`` (B = 64: 2 blocks a structure), in
+    the schedule its f32 stash's size gives (dropout 0.1, one-shot), 5 timed
+    launches after 3, against its bound; ``build`` names the build in the
+    printed line. Returns the ``recipe_*`` keys of a kernels-line row."""
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cuda"), cfm)
+    y = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 1)).astype(np.float32)).cuda()
+    mode = kloop.loop_stash_mode(cfm, B, M, N)
+    scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, stash=mode)
+    ms = cuda_ms(lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                                scratch, stash=mode), 5)
+    del scratch
+    _, P = kbwd.grad_layout(packed)
+    flops = kloop.loop_backward_flops(cfm, B, M, N)
+    bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
+                                   + 4 * (P + B), kbwd.backward_fp32_flops(cfm, B, M, N))
+    print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention}, "
+          f"C={kloop.cluster_size(B)} (the {mode or 'recompute'} schedule; dropout 0.1, "
+          f"one-shot): kernel {ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
+          f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+    return {"recipe_ms": ms, "recipe_bound_ms": bound, "recipe_measured_bound_ms": measured,
+            "recipe_schedule": mode or "recompute"}
 
 
 def phase18_paths(mp2018, failures, card):
@@ -4740,9 +4769,10 @@ def phase19_paths(mp2018, data, failures, card):
     the validation batches by #3's tall build in bf16), whose first step
     through the Trainer is held to the bf16 plain version first
     (``hold_bf16_grads``, 0.9 x the f32 kernel's reading), every epoch loss
-    finite; then one training step of a bf16 and of an f32 MP2018 model at
-    (248, 64), past #4's wide plan: the per-layer route in both, no kernel
-    launch, the bf16 loss finite and within rtol 0.05 of the f32 one.
+    finite; then one training step of a bf16 and of an f32 MP2018 model
+    without the attention LayerNorm at (248, 64), which #4 refuses: the
+    per-layer route in both, no kernel launch, the bf16 loss finite and
+    within rtol 0.05 of the f32 one.
     Returns the launches of the four builds on these paths."""
     import dataclasses
     import tempfile
@@ -4844,13 +4874,16 @@ def phase19_paths(mp2018, data, failures, card):
                         f"{route}, #4 launches {trained} for {steps} steps, #3 {valid}, losses "
                         f"{hist['loss']}")
 
-    # one step of the third route in bf16, past #4's wide plan at N = 64
+    # one step of the third route in bf16 and f32: MP2018 without the
+    # attention LayerNorm, which the loop backward refuses (with it the wide
+    # #4 takes (248, 64))
     M, N, B = 248, 64, 8
     x = synthetic_batch(np.random.default_rng(10), B, M, N, n_atoms=mp2018.n_atoms,
                         min_atoms=150)
     y = torch.from_numpy(np.random.default_rng(11).normal(size=B).astype(np.float32)).cuda()
     step = {}
-    for cfm in (mp16, mp2018):
+    for cfm in (dataclasses.replace(mp16, use_attn_norm=False),
+                dataclasses.replace(mp2018, use_attn_norm=False)):
         t = Trainer(ScannConfig(model=cfm, hyper=HyperConfig(batch_size=B, seed=0)), "cuda",
                     os.path.join(work, f"third_{cfm.dtype}"))
         t.init_state(5)
@@ -4859,7 +4892,8 @@ def phase19_paths(mp2018, data, failures, card):
         step[cfm.dtype] = (t.train_route(M, N), float(loss),
                            (f5.launches - before[0], f4.launches - before[1]))
     rel = abs(step["bfloat16"][1] - step["float32"][1]) / abs(step["float32"][1])
-    print(f"phase 19 one training step at B={B} M={M} N={N} (past #4's wide plan): (route, loss, "
+    print(f"phase 19 one training step at B={B} M={M} N={N} (MP2018 without the attention "
+          f"LayerNorm, which #4 refuses): (route, loss, "
           f"launches of #5 and #4) bf16 {step['bfloat16']}, f32 {step['float32']}; rel "
           f"{rel:.3e} (limit {BF16_RTOL})", flush=True)
     if (any(r != "per_layer" or n != (0, 0) for r, _, n in step.values())
@@ -5328,14 +5362,18 @@ def backward_ab(root, out_path=None):
     kernel's outputs there (``torch.save``; gradients by name), and one
     launch's outputs of every other build both checkouts have: #1 at QM9,
     #2 and #4 in bf16 (QM9, MP2018 (64, 96, 32)), #3 in bf16 (MP2018), the
-    wide builds of #3 and #4 at MP2018 (8, 80, 96) and of #5 at one MP2018
+    wide builds of #3 and #4 at MP2018 (8, 80, 96) (#4 in bf16 too, and at
+    (8, 64, 48)) and of #5 at one MP2018
     layer (8, 96, 96), the tall builds of #3 and #4 (f32 and bf16) at
     Pt/graphene (4, 322, 32), so that two checkouts' outputs can be held
     (``--ab-compare``). Also times #4's tall build (one-shot, dropout 0.1,
     5 timed launches after 2) at M = 322, N = 32: Pt/graphene and MP2018 at
     the recipe batch of 64 (C = 2, recompute), Pt/graphene at 16 (C = 4)
-    with the f32 stash and recompute and in bf16 with the f32 stash. Run the
-    turns A, B, B, A, each a process of its own."""
+    with the f32 stash and recompute and in bf16 with the f32 stash; and
+    #4's wide build the same way at MP2018 (64, 80, 96) recompute and (64,
+    64, 48) f32 stash (C = 2), (16, 80, 96) f32 stash and recompute and bf16
+    f32 stash (C = 4). Run the turns A, B, B, A, each a process of its
+    own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5360,9 +5398,10 @@ def backward_ab(root, out_path=None):
     qm9_x = synthetic_batch(rng, 128, 32, 16)
     bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
 
-    def launcher(name, cfm, x, packed):
+    def launcher(name, cfm, x, packed, params=None):
         """One launch of ``name``'s kernel at ``x`` -> its outputs (the
-        backward kernels' gradients by name)."""
+        backward kernels' gradients by name; for ``AB_FLOOR`` also the
+        f32-noise floor of the plain version at ``params``)."""
         B, M = x["atomic"].shape[:2]
         N = x["neighbors"].shape[2]
         y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
@@ -5382,8 +5421,11 @@ def backward_ab(root, out_path=None):
             got = run()
             if "backward" in name:
                 flat, pred = got
-                return {"pred": pred.cpu(), **{k: v.cpu() for k, v in
-                                               kbwd.grads_from_flat(flat, packed, cfm).items()}}
+                out = {"pred": pred.cpu(), **{k: v.cpu() for k, v in
+                                              kbwd.grads_from_flat(flat, packed, cfm).items()}}
+                if name in AB_FLOOR:
+                    out["floor"] = torch.tensor(bf16_grad_floor(params, x, y, cfm))
+                return out
             return [t.cpu() for t in got]
         return run, outputs
 
@@ -5421,8 +5463,28 @@ def backward_ab(root, out_path=None):
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
                                            scratch, C, stash=mode, tall=True), 5, warmup=2))
         del scratch, x
+    # #4's wide build at the recipe batch of 64 (C = 2: recompute at (80, 96),
+    # whose f32 stash exceeds the budget; the f32 stash at (64, 48)) and at 16
+    # (C = 4) in both f32 schedules and in bf16 with the f32 stash
+    out["wide"] = {}
+    for label, cfm, B, M, N, mode, C in (
+            ("MP2018 (64, 80, 96) recompute C=2", mp2018, 64, 80, 96, None, 2),
+            ("MP2018 (64, 64, 48) f32 stash C=2", mp2018, 64, 64, 48, "f32", 2),
+            ("MP2018 (16, 80, 96) f32 stash C=4", mp2018, 16, 80, 96, "f32", 4),
+            ("MP2018 (16, 80, 96) recompute C=4", mp2018, 16, 80, 96, None, 4),
+            ("MP2018 bf16 (16, 80, 96) f32 stash C=4", bf16(mp2018), 16, 80, 96, "f32", 4)):
+        x = wide_batch(np.random.default_rng(191), B, M, N, cfm)
+        packed = kfwd.pack_params(init_params(mp2018, torch.Generator().manual_seed(0), "cuda"),
+                                  mp2018)
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, mode)
+        out["wide"][label] = statistics.median(cuda_times(
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch, C, stash=mode), 5, warmup=2))
+        del scratch, x
     if out_path:
         wide_x = wide_batch(rng, 8, 80, 96, mp2018)
+        wide48_x = wide_batch(rng, 8, 64, 48, mp2018)
         tall_x = synthetic_batch(rng, 4, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms,
                                  min_atoms=240)
         for name, cfm, x in (("scann_forward", qm9_config(), qm9_x),
@@ -5431,13 +5493,15 @@ def backward_ab(root, out_path=None):
                              ("scann_loop_backward_bf16", bf16(mp2018), mp_x),
                              ("scann_loop_wide", mp2018, wide_x),
                              ("scann_loop_backward_wide", mp2018, wide_x),
+                             ("scann_loop_backward_wide_bf16", bf16(mp2018), wide_x),
+                             ("scann_loop_backward_wide_n48", mp2018, wide48_x),
                              ("scann_loop_tall", ptgp, tall_x),
                              ("scann_loop_backward_tall", ptgp, tall_x),
                              ("scann_loop_backward_tall_bf16", bf16(ptgp), tall_x)):
-            packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(17),
-                                                  "cuda"), cfm)
+            params = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
+            packed = kfwd.pack_params(params, cfm)
             with torch.inference_mode(name.startswith("scann_loop") and "backward" not in name):
-                saved[name] = launcher(name, cfm, x, packed)[1]()
+                saved[name] = launcher(name, cfm, x, packed, params)[1]()
         args = layer_inputs(np.random.default_rng(8), 8, 96, 96, mp2018.local_dim,
                             mp2018.num_head, True)
         with torch.inference_mode():
@@ -5450,27 +5514,60 @@ def backward_ab(root, out_path=None):
 
 # Builds whose outputs --ab-compare holds within GRAD_RTOL x max rather than
 # bit for bit: the tall #4, whose 64-row chunks sum the weight gradients in
-# another order than a build with 32-row chunks
-AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16")
+# another order than a build with 32-row chunks, and the wide #4 (against a
+# build with 32-row sub-chunks and the resident buffer), whose 64-row
+# sub-chunks and atom blocks of 16 sum the weight gradients and the d(layer
+# input) partials in another order; its forward pass sums in the order it
+# did, so its pred is held bit for bit (AB_PRED_EXACT). In the bf16 operand
+# mode that order flips bf16 roundings (1e-2 x max at MP2018), so the bf16
+# wide #4 is held as phases 18-19 hold bf16 builds against each other: the
+# mean distance within BF16_FLOOR x the f32-noise floor of its plain version
+# (AB_FLOOR, the floor saved beside its outputs)
+AB_PRED_EXACT = ("scann_loop_backward_wide", "scann_loop_backward_wide_bf16",
+                 "scann_loop_backward_wide_n48")
+AB_FLOOR = ("scann_loop_backward_wide_bf16",)
+AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16") + AB_PRED_EXACT
+
+
+def bf16_grad_floor(params, x, y, cfm):
+    """The f32-noise floor of #4's plain version in ``cfm``'s operand mode
+    (one-shot, dropout 0.1, seed 7): the largest mean distance of its
+    gradients from the same function on f64 weights or on weights jittered
+    by about one f32 ulp."""
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    run = lambda q: kloop.reference_loop_train_grads(q, x, y, cfm, False, 0.1, 7)[1]
+    flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
+    want = flat(run(params))
+    return max((want - flat(run(q))).abs().mean().item()
+               for q in [f64_params(params)] + [jittered(params, j) for j in range(JITTERS)])
 
 
 def ab_compare(path_a, path_b):
     """``--ab-compare A.pt B.pt``: the outputs two ``--backward-ab`` turns
     saved, held bit for bit output by output (gradients by name), those of
-    ``AB_WITHIN`` within GRAD_RTOL x max |A| of each gradient (pred at RTOL
-    / ATOL). Prints one JSON line, name -> equal (``AB_WITHIN``: within the
-    limit, beside the worst share of max as ``<name>_rel``), and exits 1 on
-    any difference."""
+    ``AB_WITHIN`` within GRAD_RTOL x max |A| of each gradient (``AB_FLOOR``:
+    the mean distance within BF16_FLOOR x A's floor; pred at RTOL / ATOL,
+    bit for bit in ``AB_PRED_EXACT``). Prints one JSON line, name -> equal
+    (``AB_WITHIN``: within the limit, beside the worst share of it as
+    ``<name>_rel``), and exits 1 on any difference."""
     a, b = (torch.load(p, weights_only=True) for p in (path_a, path_b))
     same, rels = {}, {}
     for name in sorted(set(a) | set(b)):
         x, y = a.get(name), b.get(name)
         if name in AB_WITHIN and isinstance(x, dict) and isinstance(y, dict):
-            grads = {k: v for k, v in x.items() if k != "pred"}
-            rel = grad_errors({k: y[k] for k in grads}, grads)[0] if x.keys() == y.keys() else 1.0
+            grads = {k: v for k, v in x.items() if k not in ("pred", "floor")}
+            if x.keys() != y.keys():
+                rel = float("inf")
+            elif name in AB_FLOOR:
+                flat = lambda g: torch.cat([g[k].double().reshape(-1) for k in sorted(grads)])
+                rel = ((flat(y) - flat(x)).abs().mean() / (BF16_FLOOR * x["floor"])).item()
+            else:
+                rel = grad_errors({k: y[k] for k in grads}, grads)[0] / GRAD_RTOL
             rels[f"{name}_rel"] = rel
-            same[name] = rel <= GRAD_RTOL and x.keys() == y.keys() and errors(y["pred"],
-                                                                            x["pred"])[2]
+            pred = (torch.equal(y["pred"], x["pred"]) if name in AB_PRED_EXACT
+                    else errors(y["pred"], x["pred"])[2])
+            same[name] = rel <= 1.0 and pred
         elif isinstance(x, dict) and isinstance(y, dict):
             same[name] = x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
         elif isinstance(x, list) and isinstance(y, list):

@@ -68,8 +68,9 @@
 //   reverse walk each block scatters d(neighbour state) into its own [M, D]
 //   buffer, and after a cluster barrier each block sums, for its own atoms,
 //   the C partial rows in rank order through distributed shared memory.
-// - Where the state lives. Only one [M, max(D, G)] buffer stays in shared
-//   memory: the current centers in the forward pass (every atom's gather may
+// - Where the state lives (the narrow build; the tall and wide builds below
+//   move the resident buffer to global memory). Only one [M, max(D, G)]
+//   buffer stays in shared memory: the current centers in the forward pass (every atom's gather may
 //   read any row), the GA keys in the readout, and in the reverse walk the
 //   accumulating d(layer input), the target of the gather's transpose. Every
 //   other per-atom tensor exists for one block of AB <= 32 atoms at a time
@@ -120,17 +121,37 @@
 //   so they differ from the narrow build's in the last bits (within 1e-4 x
 //   max in f32), and repeat bit for bit from run to run at one cluster size.
 // - Wide neighbour lists (32 < N <= 256; the wide builds,
-//   scann_loop_backward_wide.cu and _wide_bf16.cu, all three schedules): one atom
-//   at a time, its rows in sub-chunks of 32. The forward pass keeps the atom's
-//   energies [N, H] in shared memory for a softmax over all N (wide_softmax of
-//   scann_mma.cuh) and its keys in a per-block global scratch for the context.
-//   The reverse walk takes two passes over an atom: the first forms every
-//   row's attention (recomputed from the energies, or staged from the stash)
-//   and d attention, then the softmax backward over all N, which needs sum_n
-//   p f before any row's p (f - s); the second runs the rows' backward sub-chunk
-//   by sub-chunk, the d query's sum over the neighbours carried from one
-//   sub-chunk to the next. The recompute schedule thus forms the rows twice in
-//   the reverse walk. The plan fits atom blocks down to 4.
+//   scann_loop_backward_wide.cu and _wide_bf16.cu, all three schedules): one
+//   atom at a time, its rows in sub-chunks of kWideChunkRows = 64. The forward
+//   pass keeps the atom's energies [N, H] in shared memory for a softmax over
+//   all N (wide_softmax of scann_mma.cuh). The reverse walk runs the softmax
+//   backward over all N, which needs sum_n p f before any row's p (f - s), so
+//   it takes two passes over an atom: the first forms every row's attention
+//   (recomputed from the energies, or staged from the stash) and d attention,
+//   the second runs the rows' backward sub-chunk by sub-chunk, the d query's
+//   sum over the neighbours carried from one sub-chunk to the next. A phase
+//   split (clock64() marks, MP2018 (64, 80, 96) recompute) found the rows
+//   formed three times there, ~51% of the time, with 32-row sub-chunks that
+//   each paid the weight gradients' read-modify-write and the fixed costs.
+//   So the resident buffer's three roles take the tall build's global
+//   homes, so the plan does not grow with M (atom blocks of 16 up to N = 184
+//   and 8 beyond at D = 128) and spends the shared memory on 64-row
+//   sub-chunks; where one sub-chunk holds an atom's list (N <= 64) the
+//   forward's context reads the keys from the chunk and the reverse walk's
+//   second pass keeps the first pass's rows; past it the forward's keys go to
+//   the block's rows of the atom in global memory, and the recompute
+//   schedule's first pass keeps each sub-chunk's ns, u_pre and key there too
+//   (L2), so that its second pass stages them as the f32 stash does instead
+//   of forming them again: the reverse walk forms a row once in every
+//   schedule (a stash's first pass stages only the keys and the attention).
+//   What bounds the build now (the same split): latency at 8 warps an SM,
+//   spread over the rows' forward in the forward pass and the reverse
+//   walk's first pass (~38% at the recipe batch), the weight gradients
+//   (~15%), the rows' backward products (~13%) and the elementwise backward
+//   (~11%); the scatter into L2 (~4.5%, from ~3% into shared memory) and
+//   the 16-atom blocks' per-atom work (2-4%, twice the 32-atom blocks') are
+//   what the global homes cost. The context's key loads, eight in flight a
+//   thread, measured no faster than the plain loop, which stays.
 // - No sequential grid, no atomics: each block writes its share of the
 //   gradients into its own row of a [B * C, P] scratch, added to from the
 //   second atom block (or chunk) on by the same thread, and scann_reduce_rows
@@ -191,6 +212,12 @@ constexpr bool kTall = false;
 // N = 32, four at N = 16, eight at N = 8), in the shared memory the resident
 // buffer left.
 constexpr int kTallChunkRows = 64;
+
+// The wide build's sub-chunk of one atom's (atom, neighbour) rows: 64, in the
+// shared memory the resident buffer left (that buffer's roles take the tall
+// build's global homes in the wide build too); at N <= 64 one sub-chunk holds
+// the atom's whole list.
+constexpr int kWideChunkRows = 64;
 
 // The gather's transpose into the tall build's global d(layer input)
 // partial [M, ldd] for one thread: column d of the targets with index % np ==
@@ -413,10 +440,10 @@ __device__ __forceinline__ void tall_softmax_backward(const float* sDCtx, int ld
 
 
 // Shared-memory plan, in floats: the resident [M, wd] buffer (none in the
-// tall build); five per-block
+// tall and wide builds); five per-block
 // slots [AB, wd]; the work region (the readout keeps its vectors there, past
 // one [AB, wd] buffer); per-warp LayerNorm partials and bias sums. kWide:
-// the chunk holds a sub-chunk of kMaxChunkRows rows of one atom, the atom's
+// the chunk holds a sub-chunk of kWideChunkRows rows of one atom, the atom's
 // attention and d attention [N, H] and the d query sum [wd].
 struct Plan {
   int wd, ABW, rows, lda, ldu, lde, ldf, work, offBlk, offWork, offPart, offAcc, total;
@@ -428,7 +455,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.ABW = AB * p.wd;
-  p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;
+  p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;
   p.lda = 2 * a.D + 4;
   p.ldu = a.D + 4;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
@@ -446,7 +473,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   w = readout > w ? readout : w;
   if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
-  p.offBlk = kTall ? 0 : a.M * p.wd;
+  p.offBlk = kTall || kWide ? 0 : a.M * p.wd;
   p.offWork = p.offBlk + 5 * p.ABW;
   p.offPart = p.offWork + w;
   p.offAcc = p.offPart + kWarps * 2 * p.wd;
@@ -460,17 +487,20 @@ inline Plan plan_of(const Args& a) {
 }
 
 // kWide: N > kMaxChunkRows (the wide build, scann_loop_backward_wide.cu), one
-// atom at a time, its rows in sub-chunks of kMaxChunkRows, with the block's
-// keys of one atom in wide_keys [N, D] (global, one slice a block) for the
-// forward pass's context. kTall (the tall build): wide_keys is the tall
-// scratch [B * C, M, G + D], a slice a block: its GA keys [M, G], then its
-// d(layer input) partial [M, D].
+// atom at a time, its rows in sub-chunks of kWideChunkRows. kTall (the tall
+// build) and kWide: wide_keys is the tall scratch [B * C, M, G + D], a slice a
+// block: its GA keys [M, G], then its d(layer input) partial [M, D]; in the
+// wide build the key scratch [B * C, N, D] follows it, the block's keys of
+// one atom (global, one slice a block) for the forward pass's context where
+// an atom's list takes more than one sub-chunk.
 template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_backward_kernel(const Args a, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan<kWide>(a);
+  // the resident buffer's three roles in global memory (the tall and wide builds)
+  constexpr bool kHomes = kTall || kWide;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster, rank = (int)cluster.block_rank();
   const int b = blockIdx.x / C;
@@ -485,7 +515,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   const int m_lo = min(M, rank * per), m_hi = min(M, m_lo + per);
 
   float* sR = smem;                    // resident [M, wd]: centers / GA keys / d layer input
-                                       // (not tall)
+                                       // (not tall or wide)
   float* sCb = smem + P.offBlk;        // the block's layer input centers   [AB, wd]
   float* sQ = sCb + ABW;               // query (forward: ctx + query, o1)
   float* sCW = sQ + ABW;               // centers @ Wfg[0:D] (SCANN+)
@@ -520,11 +550,17 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   float* dgb = a.g_update ? a.dgeo + (size_t)b * R * D : nullptr;
   float* dcen = a.dcenters + (size_t)b * M * D;
   float* grow = a.grad_rows + (size_t)blockIdx.x * a.P;
-  // tall: the block's slice of the tall scratch, and where the forward pass
-  // and the readout read what the resident buffer holds in the other builds
+  // tall and wide: the block's slice of the tall scratch, and where the
+  // forward pass and the readout read what the resident buffer holds in the
+  // other builds
   auto tall_slice = [&](int q) { return wide_keys + ((size_t)b * a.cluster + q) * M * (G + D); };
-  float* const keys_b = kTall ? tall_slice(rank) : sR;          // GA keys
-  const int ldk = kTall ? G : wd;
+  float* const keys_b = kHomes ? tall_slice(rank) : sR;         // GA keys
+  const int ldk = kHomes ? G : wd;
+  // wide: past the tall scratch, the block's rows of one atom [3, N, D] (ns,
+  // u_pre, key): the forward pass's context reads the keys, the recompute
+  // schedule's second pass over an atom the three
+  float* const arows = kWide ? wide_keys + (size_t)a.B * C * M * (G + D) + (size_t)blockIdx.x * 3 * N * D
+                             : nullptr;
   auto grad = [&](int g) { return grow + a.off[g]; };
   const int fg_in = a.g_update ? 3 * D : K;
   const int q4 = D / 4;
@@ -605,7 +641,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       }
       for (int i = tid; i < rows * H; i += kThreads)
         sE[i] = stash_get(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sb);
-    } else if constexpr (kTall) {
+    } else if constexpr (kHomes) {
       // the neighbours' centers from L2, four quads a thread in flight at once
       constexpr int kInFlight = 4;
       for (int i0 = tid; i0 < rows * q4; i0 += kInFlight * kThreads) {
@@ -654,6 +690,79 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     if constexpr (!kWide)
       for (int i = tid; i < rows * H; i += kThreads)
         stash_put(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sE[i], sb);
+  };
+
+  // wide, the recompute schedule at N > kWideChunkRows: the first pass over an
+  // atom keeps each sub-chunk's ns, u_pre and key (rows n0..) in the block's
+  // rows of the atom, and the second pass stages them back as the f32 stash
+  // stages its rows (the geometry and the dropout mask as stage_chunk has
+  // them), so a row's products are formed once in the reverse walk, not twice
+  auto keep_rows = [&](int n0, int rows) {
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      float* dst = arows + (size_t)(n0 + r) * D + c;
+      store4(dst, *reinterpret_cast<const float4*>(sA + r * lda + D + c));
+      store4(dst + (size_t)N * D, *reinterpret_cast<const float4*>(sU + r * ldu + c));
+      store4(dst + (size_t)2 * N * D, *reinterpret_cast<const float4*>(sW + r * ldu + c));
+    }
+  };
+  auto stage_kept = [&](int l, int base, int n0, int rows) {
+    if (a.g_update) {
+      const float* g_in = g_st + ((size_t)l * R + base) * D;
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        cp_async16(sA + r * lda + c, g_in + (size_t)r * D + c);
+      }
+    } else {
+      for (int i = tid; i < rows * K; i += kThreads) {
+        const int r = i / K, k = i - r * K;
+        const float t = ndist[base + r] - a.dist_centers[k];
+        sA[r * lda + k] = expf(-(t * t) / a.rbf_width);
+      }
+    }
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      const float* src = arows + (size_t)(n0 + r) * D + c;
+      cp_async16(sA + r * lda + D + c, src);
+      cp_async16(sU + r * ldu + c, src + (size_t)N * D);
+      cp_async16(sW + r * ldu + c, src + (size_t)2 * N * D);
+    }
+    if (a.attn_dropout) {
+      for (int i = tid; i < rows * H; i += kThreads)
+        sM[i] = scann_philox::mask_value(a.seed, mol, 1 + L + l, (unsigned)(base * H + i),
+                                         a.attn_threshold, a.attn_scale);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  };
+
+  // wide, a stash at N > kWideChunkRows: the first pass over an atom stages
+  // only what the d attention needs, a sub-chunk's keys and attention (and
+  // the dropout mask); the second pass stages all its rows
+  auto stage_keys = [&](int l, int base, int rows) {
+    if (sb == 4) {
+      const float* st = static_cast<const float*>(a.st_rows);
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        cp_async16(sW + r * ldu + c, st + st_row(l, 2) * lay_rows + (size_t)(base + r) * D + c);
+      }
+      const float* at = static_cast<const float*>(a.st_attn) + (((size_t)b * L + l) * R + base) * H;
+      for (int i = tid; i < rows * H; i += kThreads) cp_async4(sE + i, at + i);
+    } else {
+      for (int i = tid; i < rows * q4; i += kThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        store4(sW + r * ldu + c, stash_get4(a.st_rows, st_row(l, 2) * lay_rows + (size_t)(base + r) * D + c, sb));
+      }
+      for (int i = tid; i < rows * H; i += kThreads)
+        sE[i] = stash_get(a.st_attn, (((size_t)b * L + l) * R + base) * H + i, sb);
+    }
+    if (a.attn_dropout) {
+      for (int i = tid; i < rows * H; i += kThreads)
+        sM[i] = scann_philox::mask_value(a.seed, mol, 1 + L + l, (unsigned)(base * H + i),
+                                         a.attn_threshold, a.attn_scale);
+    }
+    cp_async_wait_all();
+    __syncthreads();
   };
 
   // lm0: the chunk's first atom within its atom block; `stashed`: u_pre, the
@@ -855,9 +964,9 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     }
   }
   // every block of the cluster has written its atoms' embeddings: take all M rows
-  // (tall: the gather reads them from the stash)
+  // (tall and wide: the gather reads them from the stash)
   cluster.sync();
-  if constexpr (!kTall) load_rows(sR, c_st, 0, M);
+  if constexpr (!kHomes) load_rows(sR, c_st, 0, M);
   __syncthreads();
 
   for (int l = 0; l < L; ++l) {
@@ -870,12 +979,12 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     float* c_next = c_st + (size_t)(l + 1) * M * D;
     float* sH1 = sDQ;                  // swish(o1 @ W1 + b1)
     float* sH2 = sDCW;                 // (h1 @ W2 + b2) * mask
-    // the gather's rows: the resident centers, or (tall) the layer-input stash
-    const float* cen = kTall ? c_st + (size_t)l * M * D : sR;
-    const int ldc = kTall ? D : wd;
+    // the gather's rows: the resident centers, or (tall, wide) the layer-input stash
+    const float* cen = kHomes ? c_st + (size_t)l * M * D : sR;
+    const int ldc = kHomes ? D : wd;
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
       const int ab = min(AB, m_hi - ab0);
-      if constexpr (kTall) {
+      if constexpr (kHomes) {
         load_rows(sCb, cen, ab0, ab);
         __syncthreads();
         project_atoms(l, sCb, ab, true);
@@ -887,21 +996,25 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
         const int ca = min(CA, ab0 + ab - m0), base = m0 * N, lm0 = m0 - ab0;
         if constexpr (kWide) {
           // The forward pass over one atom's wide neighbour list (kWide): its rows in
-          // sub-chunks, their energies into the atom's row sEa and their keys to the
-          // block's slice of wide_keys; the softmax over all N (its attention to the
-          // stash); then ctx + query, the context summed over the N neighbours in
-          // order from the keys in global memory, as the narrow chunk sums it.
+          // sub-chunks, their energies into the atom's row sEa and, where the list
+          // takes more than one sub-chunk, their keys to the block's key scratch in
+          // global memory; the softmax over all N (its attention to the stash); then
+          // ctx + query, the context summed over the N neighbours in order, as the
+          // narrow chunk sums it, from the chunk's keys (one sub-chunk) or the
+          // scratch's.
           const int m = m0, lm = lm0;
-          float* keys = wide_keys + (size_t)blockIdx.x * N * D;
+          const bool one = N <= CR;
+          float* keys = arows + (size_t)2 * N * D;
           for (int n0 = 0; n0 < N; n0 += CR) {
             const int rows = min(CR, N - n0), rb = base + n0;
-            stage_chunk(l, rb, rows, sR, wd, false);
+            stage_chunk(l, rb, rows, cen, ldc, false);
             row_forward(l, rb, lm, 1, rows, l + 1 < L, false);
             warp_energies<kBf16>(sQ + lm * wd, sW, ldu, nmask + rb, sEa + n0 * H, rows, H, hd, a.dk);
-            for (int i = tid; i < rows * q4; i += kThreads) {
-              const int r = i / q4, c = (i - r * q4) * 4;
-              store4(keys + (size_t)(n0 + r) * D + c, *reinterpret_cast<const float4*>(sW + r * ldu + c));
-            }
+            if (!one)
+              for (int i = tid; i < rows * q4; i += kThreads) {
+                const int r = i / q4, c = (i - r * q4) * 4;
+                store4(keys + (size_t)(n0 + r) * D + c, *reinterpret_cast<const float4*>(sW + r * ldu + c));
+              }
             if (sb) stash_chunk(l, rb, rows);
             __syncthreads();
           }
@@ -926,10 +1039,18 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           for (int d = tid; d < D; d += kThreads) {
             const int h = d / hd;
             float s = 0.f, s2 = 0.f;
-            for (int n = 0; n < N; ++n) {
-              const float k = __ldcg(keys + (size_t)n * D + d);
-              s += sFa[n * H + h] * k;
-              if (sb == 2) s2 += sEa[n * H + h] * bf16r(k);
+            if (one) {
+              for (int n = 0; n < N; ++n) {
+                const float k = sW[n * ldu + d];
+                s += sFa[n * H + h] * k;
+                if (sb == 2) s2 += sEa[n * H + h] * bf16r(k);
+              }
+            } else {
+              for (int n = 0; n < N; ++n) {
+                const float k = __ldcg(keys + (size_t)n * D + d);
+                s += sFa[n * H + h] * k;
+                if (sb == 2) s2 += sEa[n * H + h] * bf16r(k);
+              }
             }
             if (sb == 2) o_st[((size_t)l * M + m) * D + d] = s2 + sQ[lm * wd + d];
             sQ[lm * wd + d] = s + sQ[lm * wd + d];
@@ -1018,7 +1139,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     // every atom of the structure has gathered from this layer's input and
     // every block has written its atoms' new centers: take all M rows
     cluster.sync();
-    if constexpr (!kTall) load_rows(sR, c_next, 0, M);
+    if constexpr (!kHomes) load_rows(sR, c_next, 0, M);
     __syncthreads();
   }
 
@@ -1049,8 +1170,8 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       const int ab = min(AB, M - ab0);
       float* RB = sCb;                 // cg = swish(cL @ Wal + bal)
       float* RC = sQ;                  // gq
-      const float* cl = sR + ab0 * wd; // the last centers (tall: staged into sCW)
-      if constexpr (kTall) {
+      const float* cl = sR + ab0 * wd; // the last centers (tall, wide: staged into sCW)
+      if constexpr (kHomes) {
         load_rows(sCW, c_last, ab0, ab);
         __syncthreads();
         cl = sCW;
@@ -1221,7 +1342,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       float* RD = sR + ab0 * wd;       // gk, then d gk (in the resident buffer)
       float* RE = work;                // d cg, then d s_al
       load_rows(cLb, c_last, ab0, ab);
-      if constexpr (kTall) {           // gk from the block's keys into the free slot sDCW
+      if constexpr (kHomes) {          // gk from the block's keys into the free slot sDCW
         RD = sDCW;
         const int g4 = G / 4;
         for (int i = tid; i < ab * g4; i += kThreads) {
@@ -1277,9 +1398,9 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   }
 
   // ======================= reverse walk over the layers =====================
-  // d layer input, accumulated over the atom blocks (tall: the block's global partial)
-  float* sDCN = kTall ? tall_slice(rank) + (size_t)M * G : sR;
-  const int ldn = kTall ? D : wd;
+  // d layer input, accumulated over the atom blocks (tall, wide: the block's global partial)
+  float* sDCN = kHomes ? tall_slice(rank) + (size_t)M * G : sR;
+  const int ldn = kHomes ? D : wd;
   // the gather's transpose: column d of the targets with index % np == part
   // belongs to thread part * D + d, which walks the chunk's rows in order
   const int np = kThreads / D > 0 ? kThreads / D : 1;
@@ -1415,21 +1536,32 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       // then the rows' backward sub-chunk by sub-chunk)
       for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
         const int ca = min(CA, ab0 + ab - m0), lm0 = m0 - ab0;
+        // wide: one pass over the atom where one sub-chunk holds its list
+        const bool one = kWide && N <= CR;
         if constexpr (kWide) {
           // The reverse walk's first pass over one atom's wide neighbour list (kWide):
           // the attention of every row (recomputed: each sub-chunk's energies, then
           // the softmax over all N, the forward pass's arithmetic on the same values;
           // stashed: staged) and its d attention f, then the softmax backward over all
           // N into sFa, which the second pass, the rows' backward sub-chunk by
-          // sub-chunk, reads.
+          // sub-chunk, reads. Where one sub-chunk holds the list (N <= kWideChunkRows)
+          // the second pass keeps the rows of the first (the stash: with the key
+          // input rebuilt) in place of staging and forming them again; past it
+          // the recompute schedule's second pass stages the first pass's rows
+          // from the block's rows of the atom (keep_rows, stage_kept) and, as the
+          // stashes do, rebuilds only the key input.
           const int base = m0 * N, lm = lm0;
           for (int n0 = 0; n0 < N; n0 += CR) {
             const int rows = min(CR, N - n0), rb = base + n0;
             sE = sEa + n0 * H;
-            stage_chunk(l, rb, rows, c_in, D, sb != 0);
+            if (sb && !one) stage_keys(l, rb, rows);
+            else stage_chunk(l, rb, rows, c_in, D, sb != 0);
             if (!sb) {
               row_forward(l, rb, lm, 1, rows, false, false);
               warp_energies<kBf16>(sQ + lm * wd, sW, ldu, nmask + rb, sE, rows, H, hd, a.dk);
+              if (!one) keep_rows(n0, rows);
+            } else if (one) {
+              row_forward(l, rb, lm, 1, rows, false, true);
             }
             warp_attention_grad<kBf16>(sDQ + lm * wd, sW, ldu, nmask + rb,
                                        a.attn_dropout ? sM : nullptr, sFa + n0 * H, rows, H, hd);
@@ -1447,9 +1579,17 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           if constexpr (kWide) {
             sE = sEa + n0 * H;
             sF = sFa + n0 * H;
+            if (!one && !sb) {
+              stage_kept(l, base, n0, rows);
+              row_forward(l, base, lm0, ca, rows, false, true);
+            } else if (!one) {
+              stage_chunk(l, base, rows, c_in, D, true);
+              row_forward(l, base, lm0, ca, rows, false, true);
+            }
+          } else {
+            stage_chunk(l, base, rows, c_in, D, sb != 0);
+            row_forward(l, base, lm0, ca, rows, false, sb != 0);
           }
-          stage_chunk(l, base, rows, c_in, D, sb != 0);
-          row_forward(l, base, lm0, ca, rows, false, sb != 0);
           if constexpr (kTall) {
             if (hd % 4 == 0)
               tall_softmax_backward<kBf16>(sDQ + lm0 * wd, wd, sW, ldu, nmask + base,
@@ -1554,7 +1694,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
               float* p = sV + r * ldu + c;
               store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
             });
-          } else if constexpr (kTall) {
+          } else if constexpr (kHomes) {
             tall_gemm_tA<kBf16>(sA, lda, sU, ldu, rows, K, D, grad(gWFG) + (size_t)l * fg_in * D, D,
                                 ci > 0, sAcc + wd, true);
           } else {
@@ -1563,8 +1703,8 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           }
           __syncthreads();
           // the gather's transpose: d centers[idx] += d ns, in row order
-          // (tall: the partial in global memory, 16 rows' targets loaded at once)
-          if constexpr (kTall) {
+          // (tall, wide: the partial in global memory, 16 rows' targets loaded at once)
+          if constexpr (kHomes) {
             if (sc_part < np)
               tall_scatter<kBf16>(sDCN, nbr + base, sV, ldu, ldn, rows, np, sc_part, sc_d);
           } else if (sc_part < np)
@@ -1605,15 +1745,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       grad(gBFG)[(size_t)l * D + d] = sAcc[wd + d];
     }
     // d (this layer's input) is d (the output of the layer below): for this
-    // block's atoms, the sum of the cluster's partial rows in rank order (tall:
-    // the partials in global memory, past L1; the sum to dcen alone)
+    // block's atoms, the sum of the cluster's partial rows in rank order (tall,
+    // wide: the partials in global memory, past L1; the sum to dcen alone)
     if (C > 1) cluster.sync();
     for (int i = tid; i < (m_hi - m_lo) * q4; i += kThreads) {
       const int m = m_lo + i / q4, c = (i % q4) * 4;
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < C; ++q) {
         float4 v;
-        if constexpr (kTall) {
+        if constexpr (kHomes) {
           v = __ldcg(reinterpret_cast<const float4*>(tall_slice(q) + (size_t)M * G + m * D + c));
         } else {
           const float* part = C > 1 ? cluster.map_shared_rank(sDCN, q) : sDCN;
@@ -1622,7 +1762,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
         s = q == 0 ? v : make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
       }
       store4(dcen + (size_t)m * D + c, s);
-      if constexpr (!kTall) store4(sDCN + m * wd + c, s);
+      if constexpr (!kHomes) store4(sDCN + m * wd + c, s);
     }
     if (C > 1) cluster.sync();
     __syncthreads();
@@ -1637,7 +1777,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
     stage_embedding(ab0, ab);
     mma_gemm<kBf16>(sEmb, lde, ab, ke, a.wde, D, D, [&](int r, int c, float4 v) {
       const float4 m = mask4(0, ab0 + r, c);
-      const float* dc = kTall ? dcen + (size_t)(ab0 + r) * D + c : sDCN + (ab0 + r) * wd + c;
+      const float* dc = kHomes ? dcen + (size_t)(ab0 + r) * D + c : sDCN + (ab0 + r) * wd + c;
       store4(E1 + r * wd + c,
              make_float4(dc[0] * m.x * swish_grad(v.x + a.bde[c]),
                          dc[1] * m.y * swish_grad(v.y + a.bde[c + 1]),
@@ -1738,8 +1878,9 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
 // the segments per slot S, size 23, the blocks per structure C (grad_rows is
 // then [B * C, P]), and size 24, the stash's element bytes (0, 4 or 2); in
 // the order scann_tpu_torch/kernels/scann_loop.py passes them, and pointer
-// 59, the wide key scratch [B * C, N, D] (the wide build) or the tall scratch
-// [B * C, M, G + D] (the tall build), null in the others. Launches the
+// 59, the tall scratch [B * C, M, G + D] (the tall build; the wide build: with
+// the key scratch [B * C, N, D] right after it), null in the narrow builds.
+// Launches the
 // backward kernel in the operand mode kBf16 (a cluster
 // of C blocks per structure; kWide: N > kMaxChunkRows) and the reduction of
 // its gradient rows into out [P].
@@ -1758,8 +1899,8 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   a.st_attn = ptrs[57];
   a.st_atoms = (float*)ptrs[58];
   float* wide_keys = (float*)ptrs[59];
-  // the wide build: kMaxChunkRows < N <= kWideMaxN, one atom a chunk, its key
-  // scratch; the tall one: its scratch
+  // the wide build: kMaxChunkRows < N <= kWideMaxN, one atom a chunk; the
+  // wide and tall builds: their scratch
   if ((a.N > kMaxChunkRows) != kWide || (wide_keys != nullptr) != (kWide || kTall) ||
       (kWide && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;

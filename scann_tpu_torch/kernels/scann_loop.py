@@ -115,11 +115,17 @@ Backward (crystal training):
   the per-layer model under ``torch.autograd`` (``Trainer.train_route``).
 - Wide neighbour lists, 32 < N <= 256: the wide build
   ``csrc/scann_loop_backward_wide.cu`` (all three schedules;
-  ``.wide_launches``), one atom at a time in sub-chunks of 32
-  rows beside the atom's attention and d attention [N, H], with atom blocks
-  down to 4 (``WIDE_BACKWARD_ATOM_BLOCKS``): M up to 217-243 at D = 128.
-  Its reverse walk runs the softmax backward over all N before the rows'
-  backward, so the recompute schedule forms each row twice there.
+  ``.wide_launches``), one atom at a time in sub-chunks of
+  ``WIDE_CHUNK_ROWS`` = 64 rows beside the atom's attention and d attention
+  [N, H]. The resident buffer's roles take the tall build's global homes
+  there too (the ``tall`` scratch, with each block's rows of one atom
+  ``wide_rows`` [B * C, 3, N, D] right after it in one allocation), so its
+  plan does not grow with M: atom blocks of 16 up to N = 184 and 8 beyond
+  at D = 128 (``WIDE_BACKWARD_ATOM_BLOCKS``), M into the thousands. Its reverse walk
+  runs the softmax backward over all N before the rows' backward; where one
+  sub-chunk holds an atom's list (N <= 64) it keeps the first pass's rows,
+  past it the recompute schedule's second pass stages them back from
+  ``wide_rows``, so the reverse walk forms each row once.
 - A cluster of C thread blocks works on each structure, each block on its
   share of the atoms (``cluster_size``: C is a function of the batch size
   alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
@@ -161,6 +167,7 @@ which ``loop_forward_bytes`` counts) and 5.5e11 for the backward (~3.37 ms);
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -192,12 +199,16 @@ BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
 BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
 # the wide loop backward (N > kbwd.MAX_CHUNK_ROWS) also takes blocks of 4
-# atoms, where 8 do not fit beside its atom-wide attention rows
+# atoms, where 8 do not fit beside the readout's [M] vectors (M near 10^4 at
+# D = 128)
 WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
 # the tall loop backward's chunk of (atom, neighbour) rows (kTallChunkRows of
 # csrc/scann_loop_backward.cu): two atoms at N = 32, in the shared memory the
-# resident buffer left; the narrow and wide builds keep kbwd.MAX_CHUNK_ROWS
+# resident buffer left; the narrow build keeps kbwd.MAX_CHUNK_ROWS
 TALL_CHUNK_ROWS = 64
+# the wide loop backward's sub-chunk of one atom's rows (kWideChunkRows), in the
+# shared memory the resident buffer left there too
+WIDE_CHUNK_ROWS = 64
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -376,12 +387,11 @@ def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
             "tall": empty(*tall_shape_for(cfm, B, M, cluster, True)) if tall else None}
 
 
-def wide_keys_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int,
-                        wide: Optional[bool] = None) -> Optional[Tuple[int, int, int]]:
-    """The wide builds' key scratch [B * C, N, D] (one atom's keys a block),
-    None where N is not wide (``wide`` defaults to the forward's rule)."""
-    wide = is_wide(N) if wide is None else wide
-    return (B * cluster, N, cfm.local_dim) if wide else None
+def wide_keys_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int
+                        ) -> Optional[Tuple[int, int, int]]:
+    """The wide loop forward's key scratch [B * C, N, D] (one atom's keys a
+    block), None where N is not wide (``is_wide``)."""
+    return (B * cluster, N, cfm.local_dim) if is_wide(N) else None
 
 
 def wide_keys_shape(t: Optional[torch.Tensor]) -> Optional[Tuple[int, ...]]:
@@ -389,11 +399,21 @@ def wide_keys_shape(t: Optional[torch.Tensor]) -> Optional[Tuple[int, ...]]:
     return None if t is None else tuple(t.shape)
 
 
+def wide_rows_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int
+                        ) -> Optional[Tuple[int, int, int, int]]:
+    """The wide loop backward's rows of one atom a block [B * C, 3, N, D]
+    (ns, u_pre, key: the forward pass's context reads the keys, the
+    recompute schedule's second pass over an atom past one sub-chunk all
+    three), None where N is not wide for #4."""
+    return (B * cluster, 3, N, cfm.local_dim) if is_wide_backward(N) else None
+
+
 def tall_shape_for(cfm: ModelConfig, B: int, M: int, cluster: int, tall: bool,
                    backward: bool = False) -> Optional[Tuple[int, int, int]]:
     """The tall builds' scratch: each block's GA keys [B * C, M, G] in the
     forward, its GA keys and d(layer input) partial [B * C, M, G + D] in the
-    backward; None for the other builds."""
+    backward (the wide backward's too, ``tall`` True there); None for the
+    other builds."""
     if not tall:
         return None
     return (B * cluster, M, cfm.global_dim + (cfm.local_dim if backward else 0))
@@ -547,9 +567,10 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     memory that buffer left). The atom block is the largest of 32, 16, 8
     (wide: and 4) whose plan fits a block's shared memory (the smallest
     one's plan if none does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``)
-    walks one atom at a time in sub-chunks of that many rows, beside the
-    atom's attention and d attention [N, H]. ``backward_plan`` is the plan
-    of the build a launch takes."""
+    walks one atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows,
+    beside the atom's attention and d attention [N, H], without the
+    resident buffer. ``backward_plan`` is the plan of the build a launch
+    takes."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -561,7 +582,7 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
         block = min(block, M)
         chunk_atoms = max(1, min(block, cap // max(N, 1)))
         if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
-            rows = kbwd.MAX_CHUNK_ROWS
+            rows = WIDE_CHUNK_ROWS
             chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H)
                      + wd)
         else:
@@ -572,7 +593,7 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
                    block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
         if S:
             work = max(work, block * wd + seg_backward_floats(S, wd, M, O))
-        floats = ((0 if tall else M * wd) + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd
+        floats = ((0 if tall or wide else M * wd) + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd
                   + 2 * wd)
         if 4 * floats <= MAX_SHARED_BYTES:
             break
@@ -631,11 +652,11 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
               or segment_refusal(S))
     if reason:
         return reason
-    tall = is_tall_backward(cfm, M, N, S)
+    homes = is_tall_backward(cfm, M, N, S) or is_wide_backward(N)
     nbytes = backward_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
-                  + ("one atom block and the readout's vectors" if tall
+                  + ("one atom block and the readout's vectors" if homes
                      else "the resident buffer plus one atom block") + f" need {nbytes} "
                   f"bytes of shared memory, a block has {MAX_SHARED_BYTES}; larger "
                   "structures train through the per-layer model")
@@ -806,18 +827,27 @@ def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: 
     ``cluster`` defaults to ``cluster_size(B)``), plus the [B, M, D] d(layer
     output), the selective stash of ``stash`` (``loop_stash_mode``'s by
     default) and, for the tall build (``tall``, ``is_tall_backward`` by
-    default), each block's GA keys and d(layer input) partial ``tall`` [B *
-    C, M, G + D]. A trainer allocates it once per shape."""
+    default) and the wide build, each block's GA keys and d(layer input)
+    partial ``tall`` [B * C, M, G + D]; in the wide build each block's rows
+    of one atom ``wide_rows`` [B * C, 3, N, D] (``wide_rows_shape_for``)
+    follow it in the same allocation (the kernel takes one pointer). A
+    trainer allocates it once per shape."""
     cluster = cluster_size(B) if cluster is None else cluster
     tall = is_tall_backward(cfm, M, N, S) if tall is None else tall
+    wide = is_wide_backward(N)
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
-    for key, shape in (("wide_keys", wide_keys_shape_for(cfm, B, N, cluster,
-                                                         is_wide_backward(N))),
-                       ("tall", tall_shape_for(cfm, B, M, cluster, tall, backward=True))):
-        scratch[key] = (None if shape is None
-                        else torch.empty(shape, device=dev, dtype=torch.float32))
+    homes = tall_shape_for(cfm, B, M, cluster, tall or wide, backward=True)
+    rows = wide_rows_shape_for(cfm, B, N, cluster)
+    scratch["tall"] = scratch["wide_rows"] = None
+    if homes is not None:
+        n_homes = math.prod(homes)
+        buf = torch.empty(n_homes + (math.prod(rows) if rows else 0), device=dev,
+                          dtype=torch.float32)
+        scratch["tall"] = buf[:n_homes].view(homes)
+        if rows is not None:
+            scratch["wide_rows"] = buf[n_homes:].view(rows)
     scratch.update(loop_stash_scratch(
         cfm, B, M, N, kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N), dev))
     return scratch
@@ -876,35 +906,43 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
         raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
     name = backward_library(cfm, M, N, S, tall)
     tall = name.startswith("scann_loop_backward_tall")
+    wide = is_wide_backward(N)
     chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S, tall)
     if scratch is None:
         scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode, S, tall)
     elif (scratch["dcenters"].shape != (B, M, cfm.local_dim)
           or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode
-          or wide_keys_shape(scratch["wide_keys"])
-          != wide_keys_shape_for(cfm, B, N, cluster, is_wide_backward(N))
+          or wide_keys_shape(scratch.get("wide_rows")) != wide_rows_shape_for(cfm, B, N, cluster)
           or wide_keys_shape(scratch.get("tall"))
-          != tall_shape_for(cfm, B, M, cluster, tall, backward=True)):
+          != tall_shape_for(cfm, B, M, cluster, tall or wide, backward=True)
+          or (wide and not _rows_follow(scratch))):
         raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
                          f"{scratch['rows'].shape[0]} gradient rows, stash "
-                         f"{scratch_stash_mode(scratch)} and tall scratch "
-                         f"{wide_keys_shape(scratch.get('tall'))} handed to a batch of shape "
+                         f"{scratch_stash_mode(scratch)}, tall scratch "
+                         f"{wide_keys_shape(scratch.get('tall'))} and wide rows "
+                         f"{wide_keys_shape(scratch.get('wide_rows'))} handed to a batch of shape "
                          f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure, stash "
                          f"{mode}, in the {name} build")
     tensors, dims, scalars, rng, offsets, flat, pred = kbwd.launch_arguments(
         packed, inputs, cfm, ct, ct_ga, one_shot, mrelu_head, dropout_rate, seed, mol_base,
         chunk_atoms, scratch)
-    wide = is_wide_backward(N)
     kfwd.call_kernel(name, name, packed["wde"].device,
                      tensors + [scratch["dcenters"], seg, scratch["stash_rows"],
-                                scratch["stash_attn"], scratch["stash_o1"],
-                                scratch["tall"] if tall else scratch["wide_keys"]],
+                                scratch["stash_attn"], scratch["stash_o1"], scratch["tall"]],
                      dims + [atom_block, S, cluster, kbwd.stash_element_bytes(mode)], scalars,
                      rng, offsets, flat)
     kbwd.count_launch(launch_loop_backward, cfm, mode)
     launch_loop_backward.wide_launches += wide
     launch_loop_backward.tall_launches += tall
     return flat, pred
+
+
+def _rows_follow(scratch: Dict[str, Optional[torch.Tensor]]) -> bool:
+    """Whether a wide scratch's rows of one atom start where its ``tall``
+    scratch ends (the wide build reads both from the ``tall`` pointer)."""
+    homes, rows = scratch["tall"], scratch["wide_rows"]
+    return (homes.is_contiguous() and rows.is_contiguous()
+            and rows.data_ptr() == homes.data_ptr() + 4 * homes.numel())
 
 
 def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
@@ -1037,8 +1075,9 @@ def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
     embedding and the SCANN+ geometry embedding. Under the selective stash
     (``"f32"``, ``"bf16"``) a layer forms only its [M, D] products again
     (query and the ResidualNorm's two), and the bf16 stash also its context
-    from the rounded attention and keys in the forward pass. At a wide N the
-    recompute schedule forms the rows in both passes of the reverse walk.
+    from the rounded attention and keys in the forward pass. At a wide N
+    the reverse walk forms the rows once too (its second pass over an atom
+    keeps or stages the first pass's rows).
     Elementwise work, softmax and LayerNorm are left out, as in
     ``forward_flops``."""
     D, K, E, G = cfm.local_dim, cfm.num_gaussian, cfm.embedding_dim, cfm.global_dim
@@ -1051,7 +1090,7 @@ def loop_recompute_flops(cfm: ModelConfig, B: int, M: int, N: int,
         per_layer = 2 * mm(M, D, D)                                # ResidualNorm
         per_layer += (2 if cfm.g_update else 1) * mm(M, D, D)      # query (and cw)
         rows = (mm(R, 2 * D, D) if cfm.g_update else mm(R, K, D)) + mm(R, D, D)
-        per_layer += rows * (2 if is_wide_backward(N) else 1)     # rows (wide: both passes)
+        per_layer += rows                                          # (atom, neighbour) rows
         per_layer += 2 * R * D                                     # energies
     f += cfm.n_attention * per_layer
     f += mm(M, E + (10 if cfm.use_ring else 0), D)                 # embedding

@@ -190,8 +190,11 @@ def test_torch_loop_backward_gate_and_layout():
     # past the narrow plan at N <= 32, the tall build; past the wide plan, none
     assert kloop.backward_refusal(MP2018, 232, 32) is None
     assert kloop.is_tall_backward(MP2018, 232, 32) and not kloop.is_tall_backward(MP2018, 226, 32)
+    # the wide build keeps its centers in global memory: past the old edge
+    # (the resident buffer's) at N = 48 it trains, until the readout's [M] vectors outgrow a block
+    kloop.check_backward_supported(MP2018, 250, 48)
     with pytest.raises(NotImplementedError, match="per-layer model"):
-        kloop.check_backward_supported(MP2018, 250, 48)
+        kloop.check_backward_supported(MP2018, 20000, 48)
     # the forward still takes what the backward leaves to the per-layer model
     assert kloop.refusal(MP2018, 232, 32) is None
     assert "sizes" in kloop.backward_refusal(MP2018, 96, 264)
@@ -252,12 +255,14 @@ TRAIN_ROUTES = [
     (MP2018, 300, 32, "loop"),
     (MP2018, 573, 16, "loop"),
     (MP2018, 96, 40, "loop"),
-    (MP2018, 240, 96, "per_layer"),
+    (dataclasses.replace(MP2018, use_attn_norm=False), 240, 96, "per_layer"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "loop"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 40, "loop"),
-    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16", use_attn_norm=False), 240, 96, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 24, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
+    (MP2018, 240, 96, "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "loop"),
 ]
 
 

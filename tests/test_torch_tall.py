@@ -5,8 +5,9 @@ against the JAX package on the CPU, in float32.
 - The plans and gates: the tall plans drop the resident [M, max(D, G)]
   buffer, so they do not grow with M apart from the readout's vectors; #3's
   takes atom blocks of 32 again, #4's chunks of 64 rows with atom blocks of
-  16 at D = 128 (the narrow and wide plans keep chunks of 32 rows, and the
-  gates take what they took); ``forward_library`` / ``backward_library``
+  16 at D = 128 (the narrow plans keep chunks of 32 rows, the wide #4's
+  sub-chunks of 64 rows without the resident buffer, and the narrow gates
+  take what they took); ``forward_library`` / ``backward_library``
   name the tall build past the narrow plan and only there (``tall=True``
   forces it), the wide build at a wide N.
 - The scratch of each build (``loop_forward_scratch``,
@@ -69,10 +70,11 @@ def _narrow_edge(plan_bytes):
 
 # --- plans, gates, builds -----------------------------------------------------------------
 
-def _plan_32(cfm, M, N, S=0, resident=True):
+def _plan_32(cfm, M, N, S=0, resident=True, wide_rows=32):
     """The loop backward's plan with chunks of at most 32 rows, term by term
-    as ``make_plan`` adds them: what the narrow and wide builds run (with
-    the resident [M, wd] buffer, or without it, ``resident``)."""
+    as ``make_plan`` adds them: what the narrow build runs (with the
+    resident [M, wd] buffer, or without it, ``resident``); at a wide N with
+    sub-chunks of ``wide_rows`` rows."""
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
@@ -81,8 +83,9 @@ def _plan_32(cfm, M, N, S=0, resident=True):
     for block in (32, 16, 8, 4) if wide else (32, 16, 8):
         block = min(block, M)
         ca = 1 if wide else max(1, min(block, 32 // N))
-        chunk = (32 * (2 * D + 4) + 3 * 32 * (D + 4) + 2 * r4(N * H) + r4(32 * H) + wd if wide
-                 else ca * N * (2 * D + 4) + 3 * ca * N * (D + 4) + 3 * r4(ca * N * H))
+        rows = wide_rows
+        chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H) + wd
+                 if wide else ca * N * (2 * D + 4) + 3 * ca * N * (D + 4) + 3 * r4(ca * N * H))
         work = max(chunk, 5 * block * wd + r4(block), block * (2 * lde + ldf) + block * wd,
                    block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)
         if S:
@@ -93,6 +96,12 @@ def _plan_32(cfm, M, N, S=0, resident=True):
     return ca, block, 4 * floats
 
 
+def _plan_wide(cfm, M, N, S=0):
+    """The wide loop backward's plan: sub-chunks of 64 rows of one atom and
+    no resident buffer, term by term as ``make_plan`` adds them."""
+    return _plan_32(cfm, M, N, S, resident=False, wide_rows=kloop.WIDE_CHUNK_ROWS)
+
+
 @pytest.mark.parametrize("N", [8, 16, 24, 32, 48, 64])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_torch_tall_plans_do_not_grow_with_m(name, N):
@@ -101,7 +110,8 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
     64 rows and blocks of 16 at D = 128, 32 at N = 24, whose chunk is 48
     rows): only the readout's vectors (2 [M] in #3, 5 in #4) grow, and they
     take over the work region only where they outgrow a chunk's buffers.
-    The narrow and wide plans of #4 keep chunks of 32 rows."""
+    The narrow plans of #4 keep chunks of 32 rows; its wide plans take
+    sub-chunks of 64 rows without the resident buffer."""
     cfm = CONFIGS[name]
     wd, O = 128, cfm.dense_out
     fwd = [kloop.loop_memory_plan(cfm, M, N, tall=True) for M in (240, 600, 1000, 4000)]
@@ -113,7 +123,8 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
         chunk_atoms, 32, 32 * wd + 2 * wd + 2 * r4(big) + r4(O),
         4 * (2 * 32 * (wd + 4) + 32 * wd + 2 * wd + 2 * r4(big) + r4(O)))
     for M in (96, 200, 240, 600):
-        assert kloop.loop_backward_memory_plan(cfm, M, N) == _plan_32(cfm, M, N)
+        assert kloop.loop_backward_memory_plan(cfm, M, N) == (
+            _plan_wide(cfm, M, N) if N > kbwd.MAX_CHUNK_ROWS else _plan_32(cfm, M, N))
     if N > kbwd.MAX_CHUNK_ROWS:
         return
     bwd = [kloop.loop_backward_memory_plan(cfm, M, N, tall=True) for M in (240, 600, 1000, 3000)]
@@ -143,9 +154,9 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
 def test_torch_tall_backward_chunks_of_64_rows(name, N):
     """#4's tall plan at every M from 240 to 4000 and S up to
     ``backward_max_segments``: a chunk of ``(64 // N) * N`` rows, at most
-    64, within a block's shared memory; the narrow and wide plans at the
-    same shapes keep chunks of 32 rows, and every gate takes what it took
-    with them."""
+    64, within a block's shared memory; the narrow plans at the same shapes
+    keep chunks of 32 rows, the wide ones sub-chunks of 64 rows without the
+    resident buffer, and every narrow gate takes what it took with them."""
     cfm = CONFIGS[name]
     for M in (240, 322, 444, 600, 968, 1500, 2500, 4000):
         S_max = kloop.backward_max_segments(cfm, M, N)
@@ -160,7 +171,7 @@ def test_torch_tall_backward_chunks_of_64_rows(name, N):
             if kloop.is_tall_backward(cfm, M, N, S):
                 assert kloop.backward_plan(cfm, M, N, S) == (chunk_atoms, block, nbytes)
         for Nw in (48, 96):
-            assert kloop.loop_backward_memory_plan(cfm, M // 4, Nw) == _plan_32(cfm, M // 4, Nw)
+            assert kloop.loop_backward_memory_plan(cfm, M // 4, Nw) == _plan_wide(cfm, M // 4, Nw)
 
 
 @pytest.mark.parametrize("N", [8, 16, 24, 32, 48, 64, 96])
@@ -234,7 +245,8 @@ def test_torch_tall_scratch_sizes():
     """The scratch of each build: #3's new centers [B, M, D] narrow, a
     ping-pong [2, B, M, D] tall beside the GA keys [B * C, M, G]; #4's tall
     scratch [B * C, M, G + D] (GA keys, then the d(layer input) partial),
-    None in the narrow and wide builds."""
+    None in the narrow build; the wide #4 takes it too, with its rows of one
+    atom [B * C, 3, N, D] right after it in the same allocation."""
     cfm = dataclasses.replace(MP2018, global_dim=64)
     B, N, D, G = 3, 16, 128, 64
     packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cpu"), cfm)
@@ -247,12 +259,14 @@ def test_torch_tall_scratch_sizes():
             assert tuple(f["tall"].shape) == (B * C, M, G)
         s = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, None,
                                         tall=tall if M < 200 else None)
-        assert (s["tall"] is None) != tall and s["wide_keys"] is None
+        assert (s["tall"] is None) != tall and s["wide_rows"] is None
         if tall:
             assert tuple(s["tall"].shape) == (B * C, M, G + D)
         assert tuple(s["dcenters"].shape) == (B, M, D) and s["rows"].shape[0] == B * C
     wide = kloop.loop_backward_scratch(packed, cfm, B, 96, 48, 2, None)
-    assert wide["tall"] is None and wide["wide_keys"] is not None
+    assert tuple(wide["tall"].shape) == (B * 2, 96, G + D)
+    assert tuple(wide["wide_rows"].shape) == (B * 2, 3, 48, D)
+    assert wide["wide_rows"].data_ptr() == wide["tall"].data_ptr() + 4 * wide["tall"].numel()
 
 
 @pytest.mark.parametrize("M,force", [(96, False), (96, True), (300, False)])
@@ -343,23 +357,29 @@ def test_torch_tall_sources():
     assert ('#define SCANN_LOOP_BACKWARD_TALL\n#define SCANN_LOOP_BACKWARD_BF16\n'
             '#include "scann_loop_backward.cu"') in src["scann_loop_backward_tall_bf16"]
     assert "p.offQ = kTall ? 0 : a.M * p.wd;" in src["scann_loop"]
-    assert "p.offBlk = kTall ? 0 : a.M * p.wd;" in src["scann_loop_backward"]
-    # only the tall builds take chunks of 64 rows: the narrow and wide builds
-    # keep kMaxChunkRows = 32 (the wide sub-chunk, the launcher's cap)
+    assert "p.offBlk = kTall || kWide ? 0 : a.M * p.wd;" in src["scann_loop_backward"]
+    # only the tall builds take chunks of 64 rows of several atoms: the narrow
+    # build keeps kMaxChunkRows = 32 (the launcher's cap); the wide build takes
+    # sub-chunks of 64 rows of one atom
     bwd = src["scann_loop_backward"]
     assert "constexpr int kMaxChunkRows = 32;" in bwd
     assert "constexpr int kTallChunkRows = 64;" in bwd
-    assert "p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert "constexpr int kWideChunkRows = 64;" in bwd
+    assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
     assert "a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)" in bwd
     assert "(a.N > kMaxChunkRows) != kWide" in bwd
     assert (kloop.TALL_CHUNK_ROWS, kbwd.MAX_CHUNK_ROWS) == (64, 32)
-    # the tall build's own helpers run only under kTall, each beside the
-    # narrow code it stands in for
+    # the tall build's own helpers run only under kTall (the scatter and the
+    # small weight gradient under kHomes, kTall || kWide: the wide build's
+    # global homes too), each beside the narrow code it stands in for
     kernel = bwd[bwd.index("scann_loop_backward_kernel(const Args a"):bwd.index("void set_dims")]
-    for call in ("tall_scatter<kBf16>(", "tall_energy_softmax<kBf16>(",
-                 "tall_softmax_backward<kBf16>(", "tall_gemm_tA<kBf16>("):
+    assert "constexpr bool kHomes = kTall || kWide;" in kernel
+    for call, under in (("tall_scatter<kBf16>(", "kHomes"),
+                        ("tall_energy_softmax<kBf16>(", "kTall"),
+                        ("tall_softmax_backward<kBf16>(", "kTall"),
+                        ("tall_gemm_tA<kBf16>(", "kHomes")):
         at = kernel.index(call)
-        assert kernel.rfind("if constexpr (kTall)", 0, at) > kernel.rfind("} else", 0, at), call
+        assert kernel.rfind(f"if constexpr ({under})", 0, at) > kernel.rfind("} else", 0, at), call
     assert kernel.count("warp_energy_softmax<kBf16>(") == 2
     assert kernel.count("warp_softmax_backward<kBf16>(") == 2
     for other in ("scann_mma.cuh", "scann_loop.cu", "scann_backward.cu"):

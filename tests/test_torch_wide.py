@@ -14,9 +14,12 @@ chunk of rows: N up to 256) against the JAX package on the CPU, in float32.
   kernels' split softmax in PyTorch, against ``torch.softmax`` and its gradient at N
   = 33 ... 256 with the -1e9 mask, an all-masked atom and an all-masked
   sub-chunk included.
+- #4's plain version against the JAX kernel past the wide #4's old edge
+  (M = 250 at N = 40, one layer at D = 128).
 - The gates and routes at wide N, the wide builds' launch arguments (a
   stub in place of the CUDA library) and the plans' terms read from the
-  CUDA sources.
+  CUDA sources; the wide #4's plan (64-row sub-chunks, no resident
+  buffer) for every ``configs/*.yaml``.
 """
 
 import dataclasses
@@ -189,6 +192,38 @@ def test_torch_wide_loop_train_grads_match_jax_kernel(case, N, monkeypatch):
                                    err_msg=f"gradient of {k}")
 
 
+EDGE_M, EDGE_N = 250, 40
+
+
+def test_torch_wide_loop_train_grads_past_the_old_edge():
+    """#4's plain version against the JAX loop backward in interpret mode at
+    a wide shape past the wide plan's old edge (M = 244 at N = 40 with the
+    resident [M, 128] buffer; the JAX kernel's VMEM takes up to 260 there
+    without dropout, 242 with it): one structure, one SCANN+ layer at D = G
+    = 128, no dropout. The wide #4 trains this shape now
+    (``backward_refusal``)."""
+    widths = dict(SMALL, n_attention=1, local_dim=128, num_head=8, global_dim=128)
+    jcfg = JaxModelConfig(**widths, g_update=True)
+    tcfg = ModelConfig(**widths, g_update=True)
+    assert jax_loop.fits_loop_vmem(jcfg, EDGE_M, EDGE_N, training=True)
+    assert kloop.backward_refusal(tcfg, EDGE_M, EDGE_N) is None
+    assert kloop.backward_library(tcfg, EDGE_M, EDGE_N) == "scann_loop_backward_wide"
+    x = _wide_batch(np.random.default_rng(25), 1, EDGE_M, EDGE_N)
+    jp = jax.device_get(jit_init_vars(JaxScannModel(config=jcfg), jax.random.PRNGKey(25), x))
+    tp, tx = params_from_jax(jp, tcfg), {k: torch.from_numpy(v) for k, v in x.items()}
+    y = np.random.default_rng(5).normal(size=(1, 1)).astype(np.float32)
+    want_pred, want = jax_loop.loop_scann_train_grads(jp, x, y, jcfg, interpret=True)
+    pred, got = kloop.loop_scann_train_grads(tp, tx, torch.from_numpy(y), tcfg)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want_pred).reshape(1, -1), rtol=1e-5,
+                               atol=1e-6)
+    want = _flat(want)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].detach().numpy(), w, rtol=0,
+                                   atol=GRAD_TOL * (np.abs(w).max() + 1e-8),
+                                   err_msg=f"gradient of {k}")
+
+
 # --- the split softmax of the wide kernels -----------------------------------------------
 
 def split_softmax(energies: torch.Tensor) -> torch.Tensor:
@@ -287,19 +322,26 @@ def test_torch_wide_softmax_mirror_sums_lane_by_lane():
 
 # --- gates, routes, builds ------------------------------------------------------------------
 
+# MP2018 without the attention LayerNorm: no loop kernel takes it, so it
+# trains and evaluates per layer at every shape
+NO_NORM = dataclasses.replace(MP2018, use_attn_norm=False)
+
 ROUTES = [
     # (config, M, N, training route, eval route)
     (MP2018, 96, 40, "loop", "fused_or_loop"),
     (MP2018, 80, 96, "loop", "loop"),
     (MP2018, 96, 96, "loop", "loop"),
-    (MP2018, 240, 96, "per_layer", "per_layer"),
-    (MP2018, 256, 96, "per_layer", "per_layer"),
+    (NO_NORM, 240, 96, "per_layer", "per_layer"),
+    (NO_NORM, 256, 96, "per_layer", "per_layer"),
     (MP2018, 61, 128, "loop", "loop"),
     (MP2018, 30, 256, "loop", "loop"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 96, 96, "loop", "loop"),
     (MP2018, 300, 32, "loop", "loop"),
     (MP2018, 573, 16, "loop", "loop"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "loop", "loop"),
+    (MP2018, 240, 96, "loop", "per_layer"),
+    (MP2018, 256, 96, "loop", "per_layer"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "loop", "per_layer"),
 ]
 
 
@@ -307,8 +349,10 @@ ROUTES = [
 def test_torch_wide_routes(cfm, M, N, train, evaluate):
     """The Trainer's routes at wide N come from the gates alone: MP2018 at
     (96, 40) and (80, 96) trains on #4's wide build, (96, 96) evaluates on
-    #3's, (240, 96) and (256, 96) go per-layer with #5's wide build taking
-    the layer. At a narrow N past the narrow plans, (300, 32) and (573, 16)
+    #3's; (240, 96) and (256, 96) train on #4's wide build (its plan does not
+    grow with M) and evaluate per layer with #5's wide build taking the
+    layer, and without the attention LayerNorm both routes are per layer.
+    At a narrow N past the narrow plans, (300, 32) and (573, 16)
     train and evaluate on #4's and #3's tall builds. The bf16 operand mode
     takes the routes of f32 at (96, 96) and (300, 32), #4 in its bf16 wide
     and tall builds. ``shape_libraries`` names the builds those routes
@@ -339,7 +383,9 @@ def test_torch_wide_routes(cfm, M, N, train, evaluate):
         f32 = train_loop.Trainer(ScannConfig(model=dataclasses.replace(cfm, dtype="float32")),
                                  "cpu", "unused")
         assert (f32.train_route(M, N), f32.eval_route(M, N)) == (train, got)
-        assert kloop.refusal(cfm, M, N) is None and kloop.backward_refusal(cfm, M, N) is None
+        assert (kloop.refusal(cfm, M, N) is None) == (got == "loop")
+        assert (kloop.backward_refusal(cfm, M, N) is None) == (train == "loop")
+        assert kloop.refusal(cfm, M, N) == kloop.refusal(f32.config.model, M, N)
         assert kloop.backward_plan(cfm, M, N) == kloop.backward_plan(f32.config.model, M, N)
 
 
@@ -389,10 +435,12 @@ def _stub(monkeypatch):
 
 @pytest.mark.parametrize("N", [32, 48, 96])
 def test_torch_wide_launch_arguments(N, monkeypatch):
-    """A wide N launches the wide builds: #3 above 64, #4 above 32, each with
-    a key scratch of [B * C, N, D] f32 last among its pointers (None in the
-    narrow builds), and counts ``.wide_launches``; a kept scratch without the
-    key scratch is refused at a wide N."""
+    """A wide N launches the wide builds: #3 above 64 with a key scratch of
+    [B * C, N, D] f32 last among its pointers, #4 above 32 with the tall
+    scratch [B * C, M, G + D] there, its rows of one atom [B * C, 3, N, D]
+    right after it in one allocation (both None in the narrow builds), and
+    counts ``.wide_launches``; a kept scratch without the rows, or with rows
+    that do not follow the tall scratch, is refused at a wide N."""
     calls = _stub(monkeypatch)
     cfm = ModelConfig(**SMALL, g_update=True)
     x = {k: torch.from_numpy(v) for k, v in _wide_batch(np.random.default_rng(0), 2, 12, N)
@@ -407,21 +455,31 @@ def test_torch_wide_launch_arguments(N, monkeypatch):
                               else ("scann_loop", "scann_loop_forward"))
     assert lib_b == sym_b == ("scann_loop_backward_wide" if wide4 else "scann_loop_backward")
     assert len(t_f) == 52 and len(t_b) == 60
-    for wide, keys in ((wide3, t_f[-1]), (wide4, t_b[-1])):
-        assert (keys is None) == (not wide)
-        if wide:
-            assert tuple(keys.shape) == (2 * 2, N, cfm.local_dim) and keys.dtype == torch.float32
+    assert (t_f[-1] is None) == (not wide3) and (t_b[-1] is None) == (not wide4)
+    if wide3:
+        assert tuple(t_f[-1].shape) == (2 * 2, N, cfm.local_dim)
+        assert t_f[-1].dtype == torch.float32
+    if wide4:
+        homes = t_b[-1]
+        assert tuple(homes.shape) == (2 * 2, 12, cfm.global_dim + cfm.local_dim)
+        assert homes.dtype == torch.float32
+        # the rows of one atom [B * C, 3, N, D] fill the rest of the allocation
+        assert homes.storage_offset() == 0
+        assert homes.untyped_storage().nbytes() == 4 * (homes.numel()
+                                                        + 2 * 2 * 3 * N * cfm.local_dim)
     chunk_atoms = d_f[16]
     assert chunk_atoms == (1 if wide3 else max(1, 64 // N))
     assert kloop.launch_loop_forward.wide_launches - fwd0 == wide3
     assert kloop.launch_loop_backward.wide_launches - bwd0 == wide4
     if wide4:
         narrow = kloop.loop_backward_scratch(packed, cfm, 2, 12, 32, 2)
-        bad = dict(kloop.loop_backward_scratch(packed, cfm, 2, 12, N, 2), wide_keys=None)
-        assert narrow["wide_keys"] is None
-        with pytest.raises(ValueError, match="wide keys|scratch"):
-            kloop._launch_backward(packed, x, cfm, torch.zeros(2, 1), None, True,
-                                   scratch=bad, cluster=2)
+        kept = kloop.loop_backward_scratch(packed, cfm, 2, 12, N, 2)
+        assert narrow["wide_rows"] is None and narrow["tall"] is None
+        apart = dict(kept, wide_rows=kept["wide_rows"].clone())
+        for bad in (dict(kept, wide_rows=None), apart):
+            with pytest.raises(ValueError, match="scratch"):
+                kloop._launch_backward(packed, x, cfm, torch.zeros(2, 1), None, True,
+                                       scratch=bad, cluster=2)
 
 
 @pytest.mark.parametrize("N", [64, 96, 200])
@@ -462,9 +520,9 @@ def test_torch_wide_plans_match_cuda_sources():
     """The wide plans' terms as the CUDA sources write them: the forwards'
     chunk region (a 64-row sub-chunk and the atom's energies [N, H],
     ``fwd_wide_chunk_floats``), #3's and #5's choice of it by N, and #4's
-    wide chunk (a 32-row sub-chunk, the atom's attention and d attention [N,
-    H], the dropout mask of the sub-chunk and the d query sum [wd]); the
-    Python mirrors give the same floats."""
+    wide chunk (a 64-row sub-chunk, the atom's attention and d attention [N,
+    H], the dropout mask of the sub-chunk and the d query sum [wd]) without
+    the resident buffer; the Python mirrors give the same floats."""
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
         common = f.read()
     assert ("return kFwdMaxChunkRows * (2 * D + 4) + kFwdMaxChunkRows * (D + 4) + "
@@ -476,7 +534,9 @@ def test_torch_wide_plans_match_cuda_sources():
             "fwd_chunk_floats(p.rows, a.D, a.H);") in loop
     with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
         bwd = f.read()
-    assert "p.rows = kWide ? kMaxChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert "constexpr int kWideChunkRows = 64;" in bwd
+    assert "p.offBlk = kTall || kWide ? 0 : a.M * p.wd;" in bwd
     assert ("const int chunk = kWide ? p.rows * p.lda + 3 * p.rows * p.ldu + "
             "2 * round4(a.N * a.H) +\n                                round4(p.rows * a.H) + p.wd"
             ) in bwd
@@ -493,17 +553,87 @@ def test_torch_wide_plans_match_cuda_sources():
         assert nbytes == 4 * (80 * wd + 2 * block * (wd + 4) + work)
     for N in (40, 96, 256):
         chunk_atoms, block, nbytes = kloop.loop_backward_memory_plan(MP2018, 60, N)
-        rows = 32
+        rows = 64
         chunk = rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H) + wd
         O = MP2018.dense_out
         work = max(chunk, 5 * block * wd + r4(block), block * 2 * 128 + block * wd,
                    block * wd + 4 * wd + 5 * 60 + 3 * O + 4)
-        assert chunk_atoms == 1
-        assert nbytes == 4 * (60 * wd + 5 * block * wd + work + 8 * 2 * wd + 2 * wd)
-    # the wide backward falls back to blocks of 4 atoms where 8 do not fit
-    assert kloop.loop_backward_memory_plan(MP2018, 240, 48)[1] == 4
-    assert kloop.loop_backward_memory_plan(MP2018, 220, 48)[1] == 8
+        assert chunk_atoms == 1 and block == (16 if N <= 184 else 8)
+        assert nbytes == 4 * (5 * block * wd + work + 8 * 2 * wd + 2 * wd)
+    # past the old edge (M * 512 resident bytes: blocks of 4 at (240, 48)) the
+    # plan keeps its blocks; the narrow build keeps its resident buffer
+    assert kloop.loop_backward_memory_plan(MP2018, 240, 48)[1] == 16
+    assert kloop.loop_backward_memory_plan(MP2018, 2000, 184)[1] == 16
+    assert kloop.loop_backward_memory_plan(MP2018, 40, 185)[1] == 8
     assert kloop.loop_backward_memory_plan(MP2018, 226, 32)[1] == 8
+
+
+def _yaml_models():
+    """The model block of every ``configs/*.yaml``, by file name."""
+    import glob
+    import os
+
+    from scann_tpu_torch.config import load_config
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+    return {os.path.basename(p)[:-5]: load_config(p).model
+            for p in sorted(glob.glob(os.path.join(root, "*.yaml")))}
+
+
+YAML_MODELS = _yaml_models()
+
+
+def _parent_plan(cfm, M, N, S, rows, resident):
+    """The loop backward's plan term by term as ``make_plan`` adds it, with
+    chunks of ``rows`` rows (narrow: whole atoms up to that many; wide: one
+    atom's sub-chunk of that many) and the resident [M, wd] buffer or not."""
+    r4 = lambda v: -(-v // 4) * 4
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    wd = max(D, G)
+    lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+    ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
+    wide = N > 32
+    for block in (32, 16, 8, 4) if wide else (32, 16, 8):
+        block = min(block, M)
+        ca = 1 if wide else max(1, min(block, rows // N))
+        chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H) + wd
+                 if wide else kbwd.chunk_floats(ca * N, D, H))
+        work = max(chunk, 5 * block * wd + r4(block), block * (2 * lde + ldf) + block * wd,
+                   block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)
+        if S:
+            work = max(work, block * wd + kfwd.seg_backward_floats(S, wd, M, O))
+        floats = (M * wd if resident else 0) + 5 * block * wd + work + 8 * 2 * wd + 2 * wd
+        if 4 * floats <= kfwd.MAX_SHARED_BYTES:
+            break
+    return ca, block, 4 * floats
+
+
+@pytest.mark.parametrize("N", [40, 48, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("name", sorted(YAML_MODELS))
+def test_torch_wide_backward_plans_take_64_rows(name, N):
+    """#4's wide plan for every ``configs/*.yaml`` at M from 48 to 2000 and
+    S up to ``backward_max_segments``: sub-chunks of 64 rows of one atom and
+    no resident buffer, within a block's shared memory with atom blocks of
+    16 up to N = 184 and 8 beyond (at D = G = 128), so the gate takes every
+    such M; the narrow and tall plans (N = 16 and 32) are the ones they
+    were, term by term."""
+    cfm = YAML_MODELS[name]
+    assert kloop.WIDE_CHUNK_ROWS == 64 and kloop.is_wide_backward(N)
+    for M in (48, 80, 96, 128, 217, 243, 244, 300, 600, 1000, 2000):
+        S_max = kloop.backward_max_segments(cfm, M, N)
+        assert S_max == kfwd.MAX_SEGMENTS, (M, S_max)
+        for S in sorted({0, 1, 8, S_max}):
+            plan = kloop.loop_backward_memory_plan(cfm, M, N, S)
+            assert plan == _parent_plan(cfm, M, N, S, 64, resident=False), (M, S)
+            assert plan == kloop.backward_plan(cfm, M, N, S)
+            assert plan[0] == 1 and plan[2] <= kfwd.MAX_SHARED_BYTES, (M, S)
+            if max(cfm.local_dim, cfm.global_dim) == 128 and cfm.num_head == 8:
+                assert plan[1] == min(16 if N <= 184 else 8, M), (M, S)
+            assert kloop.backward_refusal(cfm, M, N, S) is None
+        for n in (16, 32):
+            assert kloop.loop_backward_memory_plan(cfm, M, n) == _parent_plan(
+                cfm, M, n, 0, 32, resident=True)
+            assert kloop.loop_backward_memory_plan(cfm, M, n, tall=True) == _parent_plan(
+                cfm, M, n, 0, kloop.TALL_CHUNK_ROWS, resident=False)
 
 
 def _between(text, start, end):
