@@ -213,26 +213,34 @@ layers); random weights from seeds:
    (within one bf16 ulp of the plain version); #3 and #4 at MP2018 (8, 80,
    96), (8, 60, 128) and (4, 96, 72), Pt/graphene (8, 120, 96) and a packed
    wide slot (capacity 96, N = 96), and #4 alone at MP2018 (4, 64, 48) and
-   (4, 96, 40) (a short last sub-chunk of 16 and 8 rows), at 1, 2 and 4
-   blocks a structure, each with NaN- and constant-filled relaunches bit for
-   bit; #4 at dropout 0.1 with attention dropout in its three schedules (the
+   (4, 96, 40) (a short last sub-chunk of 16 and 8 rows), #3 alone past its
+   old edge at (2, 300, 96), with its keys in global memory at (2, 40,
+   256) and at the odd N of (2, 73, 81) and (2, 30, 199); #4 at 1, 2 and 4
+   blocks a structure, #3 at 1, 2, 4, 8 and 16 and at
+   its own choice (``kloop.forward_cluster``), each with NaN- and
+   constant-filled relaunches bit for bit; #4 at dropout 0.1 with attention
+   dropout in its three schedules (the
    f32 stash against the plain gradients at 1e-4 x max, recompute bit for
    bit equal to it, the bf16 stash held as phase 16 holds it). The inputs'
    neighbour lists are live past one chunk and carry an atom with every
    neighbour masked, one with whole sub-chunks masked and one with only its
    last neighbour live. Times #3 and #4 (f32 stash and
    recompute) at MP2018 (16, 80, 96) and #5 at (8, 96, 96) in turns with
-   their plain versions. Then the main paths, the launch counts set to 0
-   just before each: ``Scann.predict_featurized`` serves a crystal of 40
-   sites with 80 neighbours (ladder (48, 96): #3's wide build) and one of
-   300 (ladder (384, 96): the per-layer model on #5's wide build), held to
+   their plain versions, #3 also at B = 1 and 64 (its own cluster sizes).
+   Then the main paths, the launch counts set to 0 just before each:
+   ``Scann.predict_featurized`` serves a crystal of 40 sites with 80
+   neighbours (ladder (48, 96)) and one of 300 (ladder (384, 96)), both on
+   #3's wide build, and the first again to an MP2018 model without the
+   attention LayerNorm (the per-layer model on #5's wide build), held to
    the eager model; ``Trainer.fit`` trains a synthetic MP2018 model 2 epochs
    in a (64, 48) and a (48, 96) bucket, every step by the "loop" route
    (#4's wide build in both), with finite losses.
 18. tall structures (the tall builds of #3 and #4, M past the narrow plans
-   at a narrow N): holds, ``tall=True`` against the narrow builds (#3 bit
+   at a narrow N): holds (#3 at 1, 2, 4, 8 and 16 blocks a structure and
+   its own choice), ``tall=True`` against the narrow builds (#3 bit
    for bit, #4 within its gradient limit: its 64-row chunks sum the weight
-   gradients in another order), times (#4 also at the recipe batch of 64),
+   gradients in another order), times (#3 also at B = 1 and 64, #4 at the
+   recipe batch of 64),
    a served 300-site crystal and 2 epochs at (304, 32) through
    ``Scann.train`` (``phase18``'s docstrings say what each holds).
 19. the bf16 operand mode in the wide and tall builds of #3 and #4
@@ -243,7 +251,7 @@ layers); random weights from seeds:
    their bf16 plain versions with phases 14-15's criteria (0.9 x and, with
    one layer, 0.5 x the f32 kernel's reading, #4's training pred 0.9 x
    there too: its f32-noise floor alone is 1.1-1.7 x its bf16 gap; #3 at
-   dropout 0 at 1, 2 and 4 blocks a structure,
+   dropout 0 at 1, 2, 4, 8 and 16 blocks a structure and its own choice,
    relaunched on NaN- and constant-filled scratch bit for bit, and at
    dropout 0.1; #4 one-shot at dropout 0.1 at 1, 2 and 4 blocks in its three
    schedules: recompute and the bf16 stash each against its own bf16 plain
@@ -252,10 +260,12 @@ layers); random weights from seeds:
    128, 32) in bf16 against the narrow bf16 builds (#3 bit for bit, #4
    within its gradient limit); each bf16
    build timed in turns with its f32 build at the f32 rows' shapes (wide
-   MP2018 (16, 80, 96), tall Pt/graphene (16, 322, 32), C = 4). Then the
-   main paths, the launch counts set to 0 just before each: a bf16 MP2018
-   model serves a crystal at the rung (48, 96) (#3's wide build in bf16)
-   and one at (384, 96) (the per-layer route); it trains 2 epochs on phase
+   MP2018 (16, 80, 96), tall Pt/graphene (16, 322, 32); #3 at its own
+   cluster size, #4 at C = 4). Then the main paths, the launch counts set
+   to 0 just before each: a bf16 MP2018 model serves a crystal at the rung
+   (48, 96) and one at (384, 96), both on #3's wide build in bf16, and a
+   bf16 model without the attention LayerNorm serves the second (the
+   per-layer model on #5's wide build in bf16); it trains 2 epochs on phase
    18's crystals at (304, 32) (#4's tall build in bf16, one launch a step;
    validation by #3's tall build in bf16), the Trainer's first step held to
    the bf16 plain version; and one training step at (248, 64) of the model
@@ -291,7 +301,9 @@ phase, each kernel's share of both bounds, the run's whole time, then one
 ``sharded_launches``, its launches in phase 13's two ranks together; the
 rows of the four whole-model kernels with ``packed_launches``, their
 launches on the packed training runs, and ``packed``, their times at a
-packed shape; rows ``1-bf16``, ``3-bf16``, ``5-bf16``, ``2-bf16``,
+packed shape; the tall and wide #3 rows also ``b1_*`` and ``recipe_*``,
+their times, bounds and cluster sizes at B = 1 and 64; rows ``1-bf16``,
+``3-bf16``, ``5-bf16``, ``2-bf16``,
 ``4-bf16``, ``3-wide-bf16``, ``3-tall-bf16``, ``4-wide-bf16`` and
 ``4-tall-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
 that count the products of #1-#4 once at the dense BF16 rate and #5's as in
@@ -309,9 +321,12 @@ without printing a result when CUDA is not available.
 
 ``python3 chip_smoke.py --backward-ab ROOT [OUT]`` runs one turn of an A/B
 comparison of #2-#5 against another checkout ROOT instead (``backward_ab``;
-with OUT it saves the outputs of every build both checkouts have), and
+also the tall and wide #3 at B = 1, 16 and 64 in f32 and bf16; with OUT it
+saves the outputs of every build both checkouts have), and
 ``python3 chip_smoke.py --ab-compare A.pt B.pt`` holds two turns' outputs
-bit for bit (``ab_compare``; the tall #4 within its gradient limit), and
+bit for bit (``ab_compare``; the tall and wide #4 within their gradient
+limit, the tall and wide #3 at the forward tolerance and, in bf16, the
+floor rule), and
 ``python3 chip_smoke.py --tall-table [OUT]`` times #4's tall build against
 its narrow build in turns at shapes both take (``tall_table``).
 
@@ -363,6 +378,9 @@ MMA_RTOL = 2e-6              # split-TF32 products, of max |float64 product|
 LOSS_RTOL = 1e-4
 TRAIN_RTOL = 1e-3            # two epochs, kernel against plain step
 RATE_LIMIT = 1.05            # a measured rate over 105% of its published peak: a bad probe
+# blocks per structure at which phases 17-19 hold the tall and wide #3 (beside
+# the wrapper's own choice, kloop.forward_cluster)
+HOLD_CLUSTERS = (1, 2, 4, 8, 16)
 
 # The H100 SXM's published rates (utils/flops.py's table), which the bounds
 # use; ``MEASURED`` holds the rates the roofline phase measures on this card,
@@ -1242,25 +1260,27 @@ def crystal_models():
 def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, clusters=None,
                       relaunches=0):
     """Hold the crystal loop-forward kernel against its plain version on one
-    batch, at every cluster size of ``clusters`` (blocks per structure; the
-    wrapper's own choice for this batch size when None, through the public
-    entry point). With ``relaunches``, that many further launches run at each
-    cluster size on a kept scratch (geometry and new centers) filled with NaN
-    before one launch and with a finite constant before the next: each must
-    return the first launch's pred and ga bit for bit. Returns the largest
-    absolute difference from the plain version."""
+    batch, at every cluster size of ``clusters`` (blocks per structure) and
+    at the wrapper's own choice for this batch (``kloop.forward_cluster``),
+    which runs through the public entry point. With ``relaunches``, that
+    many further launches run at each cluster size on a kept scratch
+    (geometry, centers, readout rows, keys) filled with NaN before one
+    launch and with a finite constant before the next: each must return the
+    first launch's pred and ga bit for bit. Returns the largest absolute
+    difference from the plain version."""
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    chunk_atoms, block, _, _ = kloop.forward_plan(cfm, M, N, kfwd.segment_count(x))
-    own = kloop.cluster_size(B)
+    S = kfwd.segment_count(x)
+    chunk_atoms, block, _, _ = kloop.forward_plan(cfm, M, N, S)
+    own = kloop.forward_cluster(cfm, B, M, N, S)
     packed = kfwd.pack_params(p, cfm)
     with torch.inference_mode():
         pred0, ga0 = kloop.reference_loop_forward(p, x, cfm, mrelu, rate, 11)
     worst = 0.0
-    for C in clusters or (own,):
+    for C in sorted(set(clusters or ()) | {own}):
         tag = (f"{label} B={B} M={M} N={N}{packed_label(x)} (atom block {block}, "
                f"{chunk_atoms} per chunk, {C} blocks per structure) dropout {rate}")
         with torch.inference_mode():
@@ -1290,13 +1310,14 @@ def hold_loop_forward(label, cfm, p, x, failures, mrelu=False, rate=0.0, cluster
     return worst
 
 
-def time_loop_forward(name, cfm, x, card, clusters=(None,)):
+def time_loop_forward(name, cfm, x, card, clusters=(None,), plain=True):
     """Kernel #3 at one batch shape, at each cluster size of ``clusters`` (None:
-    the wrapper's own), in turns with its plain version (plain, kernel,
-    kernel, plain), against its bound: the larger of the operations' time
-    (``operations_ms``) and the HBM time of the inputs, weights and outputs
-    read or written once plus the geometry scratch's round trips
-    (``loop_forward_bytes``)."""
+    the wrapper's own, ``kloop.forward_cluster``), in turns with its plain
+    version (plain, kernel, kernel, plain; without ``plain``, 10 timed
+    launches after 3 and no plain time), against its bound: the larger of
+    the operations' time (``operations_ms``) and the HBM time of the inputs,
+    weights and outputs read or written once plus the geometry scratch's
+    round trips (``loop_forward_bytes``). Returns {C: timing}."""
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
@@ -1314,20 +1335,42 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,)):
         kloop.check_supported(cfm, M, N)
         kfwd._check_inputs(x, cfm, packed["wde"].device)
         for C in clusters:
-            C = kloop.cluster_size(B) if C is None else C
+            C = kloop.forward_cluster(cfm, B, M, N) if C is None else C
             scratch = kloop.loop_forward_scratch(cfm, B, M, N, x["atomic"].device, C,
                                                  kfwd.segment_count(x))
-            ms, plain_ms = in_turns_ms(
-                lambda: kloop.reference_loop_forward(params, x, cfm),
-                lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 3, 10)
-            print(f"scann_loop at {name} B={B} M={M} N={N} L={cfm.n_attention} (timed in turns: "
-                  f"plain, kernel, kernel, plain): kernel {ms:.4f} ms on {B} clusters of {C} "
-                  f"blocks ({kloop.max_active_forward_clusters(cfm, B, M, N, C)} such clusters "
-                  f"run at once), plain {plain_ms:.4f} ms, {flops:.4e} FLOP, {nbytes} bytes, "
-                  f"bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of it reached)  "
-                  f"[{card}]", flush=True)
+            run = lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch)
+            if plain:
+                ms, plain_ms = in_turns_ms(
+                    lambda: kloop.reference_loop_forward(params, x, cfm), run, 3, 10)
+            else:
+                ms, plain_ms = cuda_ms(run, 10), None
+            how = "timed in turns: plain, kernel, kernel, plain" if plain else "10 launches"
+            print(f"scann_loop ({kloop.forward_library(cfm, M, N)[0]}) at {name} B={B} M={M} "
+                  f"N={N} L={cfm.n_attention} ({how}): kernel {ms:.4f} ms on {B} clusters of "
+                  f"{C} blocks ({kloop.max_active_forward_clusters(cfm, B, M, N, C)} such "
+                  f"clusters run at once), plain "
+                  f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+                  f"{flops:.4e} FLOP, {nbytes} bytes, bound {bound:.4f} ms by {by} "
+                  f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
             out[C] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                       "measured_bound_ms": measured, "flops": flops, "cluster": C}
+    return out
+
+
+def time_forward_batches(name, cfm, batch, card):
+    """#3 alone at B = 1 and at the recipe batch of 64 of one shape
+    (``batch(B)`` makes the inputs), each at the wrapper's own cluster size
+    (``kloop.forward_cluster``: 16 blocks for one structure in the tall and
+    wide builds, 2 at 64), 10 timed launches after 3 (``time_loop_forward``
+    without its plain version): the ``b1_*`` and ``recipe_*`` keys of a
+    kernels-line row."""
+    out = {}
+    for B, tag in ((1, "b1"), (64, "recipe")):
+        x = batch(B)
+        t = next(iter(time_loop_forward(name, cfm, x, card, plain=False).values()))
+        del x
+        out.update({f"{tag}_{k}": t[k] for k in ("ms", "bound_ms", "measured_bound_ms",
+                                                 "cluster")})
     return out
 
 
@@ -3899,14 +3942,18 @@ def phase17_loops(mp2018, ptgp, failures, card):
     (MP2018-like crystals at capacity 96, N = 96), and #4's alone at MP2018
     (64, 48) and (96, 40), where #3 runs narrow and one 64-row sub-chunk
     holds an atom's list, past #4's old edge at (300, 48) and at (40, 256),
-    where its atom blocks fall to 8, at 1, 2 and 4 blocks a structure, each
-    with NaN- and constant-filled relaunches; #4 in its three schedules at
-    dropout 0.1 with attention dropout. The holds run at
-    B = 8 (4 at N = 40, 48 and 72, 2 at the last two; the plain versions'
-    time bounds the phase's), the times at B = 16,
-    MP2018 (16, 80, 96), in turns with the plain versions, and #4's alone at
-    the recipe batch of 64 there (C = 2, recompute: ``recipe_ms`` of its
-    row). Returns (worst #3 error, worst #4 error, #3 timing, #4 timing)."""
+    where its atom blocks fall to 8 and #3's keys leave shared memory, and
+    #3 alone past its old edge at (300, 96) and at the odd N of (73, 81) and
+    (30, 199) (B = 2); #4 at 1, 2 and 4 blocks a
+    structure, #3 at ``HOLD_CLUSTERS`` and its own choice, each with NaN-
+    and constant-filled relaunches; #4 in its three schedules at dropout 0.1
+    with attention dropout. The holds run at B = 8 (4 at N = 40, 48 and 72,
+    2 at the last three; the plain versions' time bounds the phase's), the
+    times at B = 16, MP2018 (16, 80, 96), in turns with the plain versions,
+    #3 alone also at B = 1 and the recipe batch of 64 (``b1_*`` and
+    ``recipe_*`` of its row, at its own cluster sizes), #4's alone at the
+    recipe batch (C = 2, recompute: ``recipe_ms`` of its row). Returns
+    (worst #3 error, worst #4 error, #3 timing, #4 timing)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -3936,15 +3983,29 @@ def phase17_loops(mp2018, ptgp, failures, card):
         y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
         if kloop.is_wide(x["neighbors"].shape[2]):
             worst3 = max(worst3, hold_loop_forward(f"phase 17 #3 wide {name}", cfm, p, x,
-                                                   failures, clusters=(1, 2, 4), relaunches=2))
+                                                   failures, clusters=HOLD_CLUSTERS,
+                                                   relaunches=2))
         worst4 = max(worst4, hold_wide_backward(f"phase 17 #4 wide {name}", cfm, p, x, y, 0.1,
                                                 7, failures))
         print(f"phase 17 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
               f"{time.time() - t0:.1f} s", flush=True)
+    # #3 alone past its old edge (M = 235 at N = 96, the resident centers)
+    p = init_params(mp_drop, torch.Generator().manual_seed(17), "cuda")
+    x = wide_batch(rng, 2, 300, 96, mp2018, min_atoms=250)
+    worst3 = max(worst3, hold_loop_forward("phase 17 #3 wide MP2018", mp_drop, p, x, failures,
+                                           clusters=HOLD_CLUSTERS, relaunches=2))
+    # odd N: the index ring [2][N] is rounded up so the atom's keys in shared
+    # memory stay 16-byte aligned (N = 199: the last N whose keys fit there)
+    for M, N in ((73, 81), (30, 199)):
+        x = wide_batch(rng, 2, M, N, mp2018)
+        worst3 = max(worst3, hold_loop_forward("phase 17 #3 wide MP2018 odd N", mp_drop, p, x,
+                                               failures, clusters=HOLD_CLUSTERS, relaunches=2))
     x = wide_batch(rng, 16, 80, 96, mp2018)
-    fwd = time_loop_forward("MP2018 wide", mp2018, x, card)[kloop.cluster_size(16)]
+    fwd = next(iter(time_loop_forward("MP2018 wide", mp2018, x, card).values()))
     t4 = time_loop_schedules("wide", "MP2018", mp2018, x, card)
     del x
+    fwd.update(time_forward_batches("MP2018 wide", mp2018,
+                                    lambda B: wide_batch(rng, B, 80, 96, mp2018), card))
     t4.update(time_recipe_batch("wide", "MP2018", mp2018, wide_batch(rng, 64, 80, 96, mp2018),
                                 card))
     return worst3, worst4, fwd, t4
@@ -3993,12 +4054,16 @@ def time_loop_schedules(build, name, cfm, x, card):
 def phase17_paths(mp2018, failures, card):
     """The main paths at wide N, through the entry points a user calls, with
     the launch counts set to 0 just before: ``Scann.predict_featurized`` of a
-    crystal whose ladder N is 96 (through #3's wide build) and of one with M
-    beyond #3's gate (the per-layer model through #5's wide build), held to
-    the eager model; then ``Trainer.fit`` for 2 epochs of a synthetic MP2018
-    model in a (64, 48) and a (48, 96) bucket, whose steps must all take the
-    "loop" route (#4's wide build in both) with finite losses. Returns
-    the launches of #3, #4 and #5 (wide) on these paths."""
+    crystal whose ladder N is 96 and of one of 300 sites (ladder (384, 96),
+    past the wide #3's old edge of M = 235), both through #3's wide build,
+    and of a crystal to an MP2018 model without the attention LayerNorm,
+    which no whole-model kernel takes (the per-layer model through #5's wide
+    build), each held to the eager model; then ``Trainer.fit`` for 2 epochs
+    of a synthetic MP2018 model in a (64, 48) and a (48, 96) bucket, whose
+    steps must all take the "loop" route (#4's wide build in both) with
+    finite losses. Returns the launches of #3, #4 and #5 (wide) on these
+    paths."""
+    import dataclasses
     import tempfile
 
     from scann_tpu_torch.api import Scann
@@ -4035,24 +4100,38 @@ def phase17_paths(mp2018, failures, card):
     torch.cuda.synchronize()
     loop_wide, layer_wide = (kloop.launch_loop_forward.wide_launches,
                              kla.fused_local_attention.wide_launches)
+    routes = [scann.trainer.eval_route(48, 96), scann.trainer.eval_route(384, 96)]
+    # the same crystal of 40 sites to a model without the attention
+    # LayerNorm: the per-layer model, #5's wide build on each layer
+    plain_cfg = dataclasses.replace(cfg, model=dataclasses.replace(mp2018, use_attn_norm=False))
+    layered = Scann(plain_cfg, device="cuda")
+    layered.init_params(0)
+    answers += layered.predict_featurized(structs[:1], inputs[:1], batch_size=4)
+    torch.cuda.synchronize()
+    loop_wide = kloop.launch_loop_forward.wide_launches
+    layer_wide = kla.fused_local_attention.wide_launches
+    routes.append(layered.trainer.eval_route(48, 96))
     print(f"phase 17 served: a crystal of 40 sites, 80 neighbours (ladder (48, 96), route "
-          f"{scann.trainer.eval_route(48, 96)}) and one of 300 sites (ladder (384, 96), route "
-          f"{scann.trainer.eval_route(384, 96)}): wide launches #3 {loop_wide}, #5 {layer_wide}, "
-          f"#1 {kfwd.fused_scann_forward.launches}", flush=True)
-    if (loop_wide, layer_wide) != (1, mp2018.n_attention):
-        failures.append(f"phase 17 served: wide launches #3 {loop_wide}, #5 {layer_wide}; "
-                        f"want 1 and {mp2018.n_attention}")
-    hyper = cfg.hyper
-    for (pred, ga), x, s in zip(answers, inputs, structs):
+          f"{routes[0]}), one of 300 sites (ladder (384, 96), route {routes[1]}) and the first "
+          f"to a model without the attention LayerNorm (route {routes[2]}): wide launches #3 "
+          f"{loop_wide}, #5 {layer_wide}, #1 {kfwd.fused_scann_forward.launches}", flush=True)
+    if (routes != ["loop", "loop", "per_layer"]
+            or (loop_wide, layer_wide) != (2, mp2018.n_attention)):
+        failures.append(f"phase 17 served: routes {routes}, wide launches #3 {loop_wide}, #5 "
+                        f"{layer_wide}; want 2 and {mp2018.n_attention}")
+    for (pred, ga), x, s, who in zip(answers, inputs + inputs[:1], structs + structs[:1],
+                                     (scann, scann, layered)):
         with torch.inference_mode():
-            want, _ = scann_forward(scann.params, {k: torch.from_numpy(v).cuda()
-                                                   for k, v in x.items()}, mp2018)
+            want, _ = scann_forward(who.params, {k: torch.from_numpy(v).cuda()
+                                                 for k, v in x.items()}, who.config.model)
+        hyper = who.config.hyper
         want = want[0, 0].item() * hyper.target_std + hyper.target_mean
         if not (abs(pred - want) <= ATOL + RTOL * abs(want)) or len(ga) != len(s):
             failures.append(f"phase 17 served {len(s)} sites: {pred} against the eager "
                             f"model's {want}")
     print(f"phase 17 served answers {[round(a[0], 6) for a in answers]} held to the eager "
           f"model at rtol {RTOL} atol {ATOL}", flush=True)
+    hyper = cfg.hyper
 
     def bucket(n, M, N):
         x = {k: v.cpu().numpy() for k, v in wide_batch(rng, n, M, N, mp2018).items()}
@@ -4235,8 +4314,9 @@ def phase18_holds(mp2018, ptgp, failures):
     """#3's and #4's tall builds against their plain versions at the TPU
     gates' edges, full width, B = 2: Pt/graphene (322, 32) and (573, 16),
     MP2018 (428, 16), and MP2018-like crystals packed at capacity 300 (N =
-    32, up to 8 segments a slot); at 1, 2 and 4 blocks a structure, with
-    NaN- and constant-filled relaunches; #4 in its three schedules at
+    32, up to 8 segments a slot); #4 at 1, 2 and 4 blocks a structure, #3
+    at ``HOLD_CLUSTERS`` and its own choice, with NaN- and constant-filled
+    relaunches; #4 in its three schedules at
     dropout 0.1 with attention dropout (``hold_wide_backward``: the f32
     stash bit-equal to recompute). Then ``tall=True`` against the narrow
     builds at MP2018 (4, 96, 32) and Pt/graphene (4, 128, 32)
@@ -4267,7 +4347,7 @@ def phase18_holds(mp2018, ptgp, failures):
         p = init_params(cfm, torch.Generator().manual_seed(18), "cuda")
         y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
         worst3 = max(worst3, hold_loop_forward(f"phase 18 #3 tall {name}", cfm, p, x, failures,
-                                               rate=0.1, clusters=(1, 2, 4), relaunches=2))
+                                               rate=0.1, clusters=HOLD_CLUSTERS, relaunches=2))
         worst4 = max(worst4, hold_wide_backward(f"phase 18 #4 tall {name}", cfm, p, x, y, 0.1,
                                                 7, failures))
         print(f"phase 18 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
@@ -4283,8 +4363,9 @@ def phase18_holds(mp2018, ptgp, failures):
 def phase18_times(mp2018, ptgp, card):
     """#3's and #4's tall builds at the Pt/graphene batch of 16 at (322,
     32), in turns with their plain versions (#4 in the f32 stash and the
-    recompute schedule), and #4's alone at the recipe batch of 64 there
-    (C = 2, recompute: ``recipe_ms`` of its row); then each tall build
+    recompute schedule), #3 alone also at B = 1 and the recipe batch of 64
+    (``time_forward_batches``), and #4's alone at the recipe batch of 64
+    there (C = 2, recompute: ``recipe_ms`` of its row); then each tall build
     against its narrow build at MP2018 (64, 96, 32) in turns (narrow, tall,
     tall, narrow; #4 in the schedule the shape takes, the f32 stash).
     Returns (#3 timing, #4 timing), the latter two with the
@@ -4295,8 +4376,11 @@ def phase18_times(mp2018, ptgp, card):
 
     rng = np.random.default_rng(181)
     x = synthetic_batch(rng, 16, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
-    t3 = time_loop_forward("Pt/graphene tall", ptgp, x, card)[kloop.cluster_size(16)]
+    t3 = next(iter(time_loop_forward("Pt/graphene tall", ptgp, x, card).values()))
     t4 = time_loop_schedules("tall", "Pt/graphene", ptgp, x, card)
+    t3.update(time_forward_batches(
+        "Pt/graphene tall", ptgp, lambda B: synthetic_batch(
+            rng, B, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240), card))
     # the recipe batch of 64 at that M: 2 blocks a structure, in the schedule
     # its f32 stash's size gives (recompute)
     x = synthetic_batch(rng, 64, 322, 32, use_ring=True, n_atoms=ptgp.n_atoms, min_atoms=240)
@@ -4527,15 +4611,16 @@ def phase18(mp2018, ptgp, failures, card):
 # ---- phase 19: the bf16 operand mode in the wide and tall builds of #3 and #4 ---------------
 
 def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=0.9,
-                    below_pred=None):
+                    below_pred=None, clusters3=HOLD_CLUSTERS):
     """#3 and #4 in the bf16 operand mode in the build that (``cfm``, ``x``)
     takes, against their bf16 plain versions with phases 14-15's criteria.
     #3 (``hold_bf16``: within the larger of 0.1 x the plain bf16-vs-f32 gap
     and 2 x the f32-noise floor, and ``below`` x the f32 kernel's reading;
     at full depth every output within rtol 0.05 / atol 0.02 of the f32
-    kernel) at dropout 0 at each of ``clusters`` blocks a structure, each
-    relaunched on NaN- and constant-filled scratch bit for bit, and at
-    dropout 0.1 with attention dropout at the batch's cluster size. #4
+    kernel) at dropout 0 at each of ``clusters3`` blocks a structure and at
+    the wrapper's own (``kloop.forward_cluster``), each relaunched on NaN-
+    and constant-filled scratch bit for bit, and at dropout 0.1 with
+    attention dropout at its own. #4
     (one-shot, dropout 0.1) at each of ``clusters`` in its three schedules:
     recompute against the bf16 plain version (``hold_bf16_grads``,
     ``below`` x the f32 kernel's reading), the f32 stash bit-equal to it,
@@ -4562,7 +4647,8 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
     tag = f"{label} B={B} M={M} N={N}"
     worst3 = worst4 = 0.0
     full = cfm.n_attention > 1
-    for rate, at in ((0.0, clusters), (0.1, (kloop.cluster_size(B),))):
+    own3 = kloop.forward_cluster(cfm16, B, M, N)
+    for rate, at in ((0.0, sorted(set(clusters3) | {own3})), (0.1, (own3,))):
         with torch.inference_mode():
             plain16 = kloop.reference_loop_forward(p, x, cfm16, False, rate, 11)
             plain32 = kloop.reference_loop_forward(p, x, cfm, False, rate, 11)
@@ -4680,7 +4766,7 @@ def phase19_holds(mp2018, ptgp, failures):
         # reads below 0.5 x the f32 kernel's distance
         one = hold_bf16_shape(f"phase 19 {name} L=1", dataclasses.replace(cfm, n_attention=1),
                               batch(16), failures, clusters=(kloop.cluster_size(16),), below=0.5,
-                              below_pred=0.9)
+                              below_pred=0.9, clusters3=())
         w3, w4 = max(w3, one[0]), max(w4, one[1])
         # #3 runs narrow at N = 72 and below: its wide row takes N > 64 only
         if build == "tall" or kloop.is_wide(N):
@@ -4747,9 +4833,9 @@ def phase19_times(mp2018, ptgp, card):
         out[f"4-{build}-bf16"] = (t4, plain4, kloop.loop_backward_flops(cfm, B, M, N),
                                   kbwd.backward_fp32_flops(cfm, B, M, N),
                                   common + 4 * B + 4 * (P + B))
-        C = kloop.cluster_size(B)
+        clusters = {3: kloop.forward_cluster(cfm, B, M, N), 4: kloop.cluster_size(B)}
         for n, (t, plain) in ((3, (t3, plain3)), (4, (t4, plain4))):
-            print(f"phase 19 #{n} {build} at {name} B={B} M={M} N={N}, C={C}"
+            print(f"phase 19 #{n} {build} at {name} B={B} M={M} N={N}, C={clusters[n]}"
                   f"{'' if n == 3 else f' (the {mode} stash, dropout 0.1, one-shot)'} (timed in "
                   f"turns: f32, bf16, bf16, f32): bf16 {t[0]:.4f} ms, f32 {t[1]:.4f} ms "
                   f"({100 * (t[0] / t[1] - 1):+.1f}%), bf16 plain {plain:.4f} ms  [{card}]",
@@ -4761,9 +4847,11 @@ def phase19_paths(mp2018, data, failures, card):
     """The main paths in bf16 at wide and tall shapes, through the entry points
     a user calls, with the launch counts set to 0 just before:
     ``Scann.predict_featurized`` on a bf16 MP2018 model of a crystal whose
-    ladder N is 96 (48, 96: #3's wide build in bf16) and of one past #3's
-    wide plan (384, 96: the per-layer model), held to the bf16 plain
-    version and the eager bf16 model within rtol 0.05 / atol 0.02; then
+    ladder N is 96 (48, 96) and of one of 300 sites (384, 96), both through
+    #3's wide build in bf16, held to the bf16 plain version within rtol
+    0.05 / atol 0.02, and of the 300-site crystal to a bf16 MP2018 model
+    without the attention LayerNorm (the per-layer route: #5's wide build in
+    bf16 on each layer), held to the bf16 eager model alike; then
     ``Scann.train`` of a bf16 MP2018 model, 2 epochs on phase 18's crystals
     in its bucket (304, 32) (#4's tall build in bf16, one launch a step;
     the validation batches by #3's tall build in bf16), whose first step
@@ -4820,10 +4908,37 @@ def phase19_paths(mp2018, data, failures, card):
               flush=True)
     print(f"phase 19 served on a bf16 MP2018 model: routes {routes}; launches (all, bf16, "
           f"wide) {served}", flush=True)
-    if (routes != ["loop", "per_layer"] or served["loop"] != (1, 1, 1)
-            or served["per_layer"][2] != mp2018.n_attention or not all(held)):
+    if (routes != ["loop", "loop"] or served["loop"] != (2, 2, 2)
+            or served["per_layer"][0] or not all(held)):
         failures.append(f"phase 19 served: routes {routes}, launches {served}, answers held "
                         f"{held}")
+    # the crystal of 300 sites to a bf16 model without the attention
+    # LayerNorm, which no whole-model kernel takes: the per-layer model, #5's
+    # wide build in bf16 on each layer
+    plain = Scann(ScannConfig(model=dataclasses.replace(mp16, use_attn_norm=False),
+                              hyper=HyperConfig(batch_size=16, seed=0,
+                                                save_path=os.path.join(work, "plain"))),
+                  device="cuda")
+    plain.init_params(0)
+    for c in (f3, f5):
+        c.launches = c.bf16_launches = c.wide_launches = 0
+    (pred, ga), = plain.predict_featurized(structs[1:], inputs[1:], batch_size=4)
+    torch.cuda.synchronize()
+    layered = {"loop": f3.launches, "per_layer": (f5.launches, f5.bf16_launches, f5.wide_launches)}
+    layer_route = plain.trainer.eval_route(384, 96)
+    with torch.inference_mode():
+        want = scann_forward(plain.params, records[1], plain.config.model)[0]
+    want = want[0, 0].item() * plain.config.hyper.target_std + plain.config.hyper.target_mean
+    layer_held = (abs(pred - want) <= BF16_ATOL + BF16_RTOL * abs(want)
+                  and len(ga) == records[1]["atomic"].shape[1])
+    print(f"phase 19 served 300 sites to a bf16 MP2018 model without the attention LayerNorm "
+          f"(route {layer_route}): {pred:.6f} against the bf16 eager model's {want:.6f}; "
+          f"launches #3 {layered['loop']}, #5 (all, bf16, wide) {layered['per_layer']}",
+          flush=True)
+    if (layer_route != "per_layer" or layered["loop"]
+            or layered["per_layer"] != (mp2018.n_attention,) * 3 or not layer_held):
+        failures.append(f"phase 19 served without the attention LayerNorm: route {layer_route}, "
+                        f"launches {layered}, answer held {layer_held}")
 
     energy, nbr = data
     cfg = ScannConfig(model=mp16,
@@ -5372,8 +5487,13 @@ def backward_ab(root, out_path=None):
     with the f32 stash and recompute and in bf16 with the f32 stash; and
     #4's wide build the same way at MP2018 (64, 80, 96) recompute and (64,
     64, 48) f32 stash (C = 2), (16, 80, 96) f32 stash and recompute and bf16
-    f32 stash (C = 4). Run the turns A, B, B, A, each a process of its
-    own."""
+    f32 stash (C = 4). Times #3's tall build at Pt/graphene (B, 322, 32)
+    and its wide build at MP2018 (B, 80, 96), B = 1, 16 and 64, in f32 and
+    in bf16 (10 timed launches after 3, at the checkout's own cluster size:
+    ``forward_cluster`` where it has one, else ``cluster_size``), and saves
+    their outputs at Pt/graphene (4, 322, 32) and MP2018 (8, 80, 96) in
+    both modes (the bf16 ones with the f32-noise floor of their plain
+    version). Run the turns A, B, B, A, each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5482,6 +5602,30 @@ def backward_ab(root, out_path=None):
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
                                            scratch, C, stash=mode), 5, warmup=2))
         del scratch, x
+    # #3's tall and wide builds at B = 1, 16 and the recipe batch of 64, in f32
+    # and bf16, at the checkout's own cluster size
+    out["forward"] = {}
+    own = getattr(kloop, "forward_cluster", None)
+    for build, cfm in (("tall Pt/graphene", ptgp), ("wide MP2018", mp2018)):
+        packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cuda"),
+                                  cfm)
+        for B in (1, 16, 64):
+            if build.startswith("tall"):
+                x = synthetic_batch(np.random.default_rng(181), B, 322, 32, use_ring=True,
+                                    n_atoms=cfm.n_atoms, min_atoms=240)
+            else:
+                x = wide_batch(np.random.default_rng(191), B, 80, 96, cfm)
+            M, N = x["atomic"].shape[1], x["neighbors"].shape[2]
+            for mode in (cfm, bf16(cfm)):
+                C = own(mode, B, M, N) if own else kloop.cluster_size(B)
+                scratch = kloop.loop_forward_scratch(mode, B, M, N, "cuda", C)
+                with torch.inference_mode():
+                    ms = statistics.median(cuda_times(
+                        lambda: kloop._launch(packed, x, mode, False, 0.0, 0, 0, C, scratch), 10,
+                        warmup=3))
+                out["forward"][f"{build} {mode.dtype} ({B}, {M}, {N}) C={C}"] = ms
+                del scratch
+            del x
     if out_path:
         wide_x = wide_batch(rng, 8, 80, 96, mp2018)
         wide48_x = wide_batch(rng, 8, 64, 48, mp2018)
@@ -5502,6 +5646,17 @@ def backward_ab(root, out_path=None):
             packed = kfwd.pack_params(params, cfm)
             with torch.inference_mode(name.startswith("scann_loop") and "backward" not in name):
                 saved[name] = launcher(name, cfm, x, packed, params)[1]()
+        for name, cfm, x in (("scann_loop_wide_bf16", bf16(mp2018), wide_x),
+                             ("scann_loop_tall_bf16", bf16(ptgp), tall_x)):
+            params = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
+            packed = kfwd.pack_params(params, cfm)
+            with torch.inference_mode():
+                got = launcher(name, cfm, x, packed)[1]()
+                cat = lambda ts: torch.cat([t.double().reshape(-1) for t in ts])
+                floor = (cat(kloop.reference_loop_forward(params, x, cfm))
+                         - cat(kloop.reference_loop_forward(f64_params(params), x, cfm))
+                         ).abs().mean()
+            saved[name] = {"pred": got[0], "ga": got[1], "floor": floor.cpu()}
         args = layer_inputs(np.random.default_rng(8), 8, 96, 96, mp2018.local_dim,
                             mp2018.num_head, True)
         with torch.inference_mode():
@@ -5527,6 +5682,14 @@ AB_PRED_EXACT = ("scann_loop_backward_wide", "scann_loop_backward_wide_bf16",
                  "scann_loop_backward_wide_n48")
 AB_FLOOR = ("scann_loop_backward_wide_bf16",)
 AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16") + AB_PRED_EXACT
+# The tall and wide #3 against a build before their redesign: the wide
+# build's context sums each half of the neighbours, then adds the halves, so
+# its outputs are held at the forward's RTOL / ATOL; the tall build's sums
+# keep their order (held the same way, bit-equal in practice), and in bf16
+# both as the bf16 #4 above (the mean distance within BF16_FLOOR x the
+# f32-noise floor saved beside the outputs)
+AB_FORWARD = ("scann_loop_wide", "scann_loop_tall")
+AB_FORWARD_FLOOR = ("scann_loop_wide_bf16", "scann_loop_tall_bf16")
 
 
 def bf16_grad_floor(params, x, y, cfm):
@@ -5548,13 +5711,25 @@ def ab_compare(path_a, path_b):
     saved, held bit for bit output by output (gradients by name), those of
     ``AB_WITHIN`` within GRAD_RTOL x max |A| of each gradient (``AB_FLOOR``:
     the mean distance within BF16_FLOOR x A's floor; pred at RTOL / ATOL,
-    bit for bit in ``AB_PRED_EXACT``). Prints one JSON line, name -> equal
-    (``AB_WITHIN``: within the limit, beside the worst share of it as
-    ``<name>_rel``), and exits 1 on any difference."""
+    bit for bit in ``AB_PRED_EXACT``), those of ``AB_FORWARD`` at RTOL /
+    ATOL and of ``AB_FORWARD_FLOOR`` within BF16_FLOOR x A's floor. Prints
+    one JSON line, name -> equal (within the limit, beside the worst share
+    of it as ``<name>_rel``, or the largest difference as
+    ``<name>_max_abs``), and exits 1 on any difference."""
     a, b = (torch.load(p, weights_only=True) for p in (path_a, path_b))
     same, rels = {}, {}
     for name in sorted(set(a) | set(b)):
         x, y = a.get(name), b.get(name)
+        if name in AB_FORWARD and isinstance(x, list) and isinstance(y, list):
+            same[name] = len(x) == len(y) and all(errors(v, u)[2] for u, v in zip(x, y))
+            rels[f"{name}_max_abs"] = max(errors(v, u)[0] for u, v in zip(x, y))
+            continue
+        if name in AB_FORWARD_FLOOR and isinstance(x, dict) and isinstance(y, dict):
+            cat = lambda d: torch.cat([d[k].double().reshape(-1) for k in ("pred", "ga")])
+            rel = ((cat(y) - cat(x)).abs().mean() / (BF16_FLOOR * x["floor"])).item()
+            rels[f"{name}_rel"] = rel
+            same[name] = rel <= 1.0
+            continue
         if name in AB_WITHIN and isinstance(x, dict) and isinstance(y, dict):
             grads = {k: v for k, v in x.items() if k not in ("pred", "floor")}
             if x.keys() != y.keys():

@@ -123,11 +123,9 @@ __device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, co
 // block; all of a thread's copies in flight at once, past L1) or the distance
 // RBF (pad columns up to a multiple of 4 zeroed), and the neighbours' states
 // gathered as float4 from the centers cen [M, ldc] in shared memory, eight
-// loads a thread before their stores (rounded to bfloat16 with kBf16). With
-// kL2 the centers are global rows that other SMs wrote in the same launch,
-// read past L1 (ld.global.cg), where a line of an earlier write could be
-// stale. Ends with a barrier.
-template <bool kBf16, bool kL2 = false>
+// loads a thread before their stores (rounded to bfloat16 with kBf16). Ends
+// with a barrier.
+template <bool kBf16>
 __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA, const float* cen,
                                                 int ldc, const int* nbr, const float* ndist,
                                                 const float* geo_b, int base, int rows) {
@@ -156,8 +154,7 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
     for (int j = 0; j < 8; ++j) {
       const int i = i0 + j * kThreads, r = i / q4, c = (i - r * q4) * 4;
       if (i < total) {
-        const float4* src = reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c);
-        v[j] = kL2 ? __ldcg(src) : *src;
+        v[j] = *reinterpret_cast<const float4*>(cen + (size_t)nbr[base + r] * ldc + c);
       }
     }
 #pragma unroll
@@ -167,6 +164,97 @@ __device__ __forceinline__ void fwd_stage_chunk(const ForwardArgs& a, float* sA,
     }
   }
   if (a.g_update) cp_async_wait_all();
+  __syncthreads();
+}
+
+// The shared-memory barriers (mbarrier) that the copy engine signals: init
+// with one arrival a phase; wait until the phase of the given parity has
+// completed.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// orders this thread's earlier accesses to shared memory before the copy
+// engine's later writes there
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// orders this thread's earlier writes to global memory before the copy
+// engine's later reads there (a barrier between them carries the order to
+// the thread that issues the copies)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// before the memory of an mbarrier is used for anything else
+__device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// fwd_stage_chunk for the tall and wide builds, by the copy engine, in two
+// halves, so that the tall build stages a chunk while the one before it
+// runs. fwd_stage_chunk_bulk issues one bulk copy (cp.async.bulk, through
+// L2) a row for rows [base, base + rows): the neighbour's state gathered
+// from the global centers cen [M, D] (its index from idx, a ring in shared
+// memory the caller filled ahead), and the SCANN+ geometry from geo_b [M *
+// N, D] or the SCANN distance RBF from the launch's table rbf [M * N,
+// round4(K)]; bar counts their bytes (thread 0 sets them). The thread that
+// issues a copy spends no registers on it. fwd_stage_chunk_wait waits for
+// the phase of parity `parity` of bar and for the thread's cp.async copies
+// (the ring), rounds the neighbour states to bfloat16 (kBf16, as
+// fwd_stage_chunk rounds them before its stores), fences this thread's
+// accesses to shared memory before the next bulk copies and ends with a
+// barrier. The staged values are fwd_stage_chunk's bit for bit. The caller
+// fences (fence_proxy_async) every thread's earlier accesses to sA before
+// the barrier that precedes the bulk copies.
+__device__ __forceinline__ void fwd_stage_chunk_bulk(const ForwardArgs& a, float* sA,
+                                                     const float* cen, const int* idx,
+                                                     const float* geo_b, const float* rbf,
+                                                     int base, int rows, unsigned long long* bar) {
+  const int tid = threadIdx.x, D = a.D, lda = 2 * D + 4, k4 = round4(a.K);
+  const unsigned own = (a.g_update ? D : k4) * 4;   // bytes of a row's own columns
+  if (tid == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"((unsigned)rows * (D * 4 + own))
+                 : "memory");
+  for (int t = tid; t < 2 * rows; t += kThreads) {
+    const int r = t < rows ? t : t - rows;
+    const float* src = t < rows      ? cen + (size_t)idx[r] * D
+                       : a.g_update ? geo_b + (size_t)(base + r) * D
+                                    : rbf + (size_t)(base + r) * k4;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(sA + r * lda + (t < rows ? D : 0))),
+        "l"(src), "r"(t < rows ? (unsigned)D * 4 : own), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void fwd_stage_chunk_wait(const ForwardArgs& a, float* sA, int rows,
+                                                     unsigned long long* bar, unsigned parity) {
+  mbar_wait(bar, parity);
+  cp_async_wait_all();
+  if constexpr (kBf16) {
+    const int tid = threadIdx.x, D = a.D, lda = 2 * D + 4, q4 = D / 4;
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      float4* p = reinterpret_cast<float4*>(sA + r * lda + D + c);
+      *p = operand4<true>(*p);
+    }
+  }
+  fence_proxy_async();
   __syncthreads();
 }
 
@@ -474,6 +562,60 @@ __device__ __forceinline__ void fwd_atom_wide(const ChunkDims& a, const LayerWei
     for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * D + d);
     sQ[d] = s + sQ[d];
   }
+  __syncthreads();
+  fwd_out_norm(w, 1, sQ, 0, D);
+}
+
+// fwd_atom_wide for the whole-model crystal forward's wide build
+// (scann_loop_wide.cu), which stores no attention: the atom's keys go to
+// keys [N, ldk], in shared memory where the plan holds them (smem_keys) or in
+// the block's global scratch past that, and the context splits the N
+// neighbours into two halves over the block's threads (thread t: column t %
+// D of half t / D, D <= 128), each half summed in order, then first half +
+// second half + query. sU [D] passes the second half's sums (the sub-chunk's
+// product buffer, free by then). Ends with a barrier.
+template <bool kBf16, typename Stage, typename Drop>
+__device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const LayerWeights& w,
+                                                   Stage stage, float* sA, float* sU, float* sE,
+                                                   const float* sCW, float* sQ,
+                                                   const float* nmask, const float* nweight,
+                                                   float* geo_out, float* keys, int ldk,
+                                                   bool smem_keys, Drop drop) {
+  const int tid = threadIdx.x, N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4;
+  const int q4 = D / 4;
+  for (int n0 = 0; n0 < N; n0 += kFwdMaxChunkRows) {
+    const int rows = min(kFwdMaxChunkRows, N - n0);
+    stage(n0, rows);
+    fwd_chunk_rows<kBf16>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
+                          geo_out ? geo_out + (size_t)n0 * D : nullptr);
+    warp_energies<kBf16>(sQ, sA + D, lda, nmask + n0, sE + n0 * H, rows, H, hd, a.dk);
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      store4(keys + (size_t)(n0 + r) * ldk + c,
+             *reinterpret_cast<const float4*>(sA + r * lda + D + c));
+    }
+    __syncthreads();
+  }
+  wide_softmax(sE, N, H, [&](int n, int h, float pr) {
+    sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * nmask[n];
+  });
+  __syncthreads();
+  const int d = tid % D, part = tid / D, half = (N + 1) / 2;
+  float s = 0.f;
+  if (part < 2) {
+    const int n1 = part ? N : half;
+    const float* e = sE + d / hd;
+    if (smem_keys) {
+#pragma unroll 4
+      for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * keys[n * ldk + d];
+    } else {
+#pragma unroll 4
+      for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + d);
+    }
+    if (part == 1) sU[d] = s;
+  }
+  __syncthreads();
+  if (tid < D) sQ[d] = (s + sU[d]) + sQ[d];
   __syncthreads();
   fwd_out_norm(w, 1, sQ, 0, D);
 }

@@ -23,59 +23,75 @@
 // below the operations bound; loop_forward_bytes counts it.
 //
 // Design.
-// - A cluster of C blocks per structure (C = 1, 2 or 4, chosen by the wrapper
-//   from the batch size, so that a batch of 64 fills 128 of the card's 132
-//   SMs). Each block owns a contiguous range of the structure's atoms; what
-//   crosses blocks is the new centers of a layer: each block writes its
-//   atoms' rows to a global scratch [B, M, D], then a cluster barrier, then
-//   every block reloads all M rows, then a second barrier before the scratch
-//   is written again.
-// - Only the current centers [M, max(D, G)] stay in shared memory for the
-//   whole layer, because every atom's gather may read any row of them. All
-//   other per-atom state (query, cw, the ResidualNorm hidden) exists for one
-//   block of AB <= 32 atoms at a time, in two slots of stride max(D, G) + 4.
-//   The plan is M * 512 bytes + 108 to 133 KB at D=128 (atom blocks of 8 to
-//   32): M <= 237 at N=32.
+// - A cluster of C blocks per structure. Each block owns a contiguous range
+//   of the structure's atoms; what crosses blocks is the new centers of a
+//   layer. The narrow build takes C = 1, 2 or 4, chosen by the wrapper from
+//   the batch size (a batch of 64 fills 128 of the card's 132 SMs); each
+//   block writes its atoms' rows to a global scratch [B, M, D], then a
+//   cluster barrier, then every block reloads all M rows, then a second
+//   barrier before the scratch is written again. The tall and wide builds
+//   take C up to 16 (kMaxL2Cluster; past 8 a non-portable size the launch
+//   opts into): the wrapper takes the largest C whose B clusters the card
+//   runs at once, so a lone structure runs on 16 SMs, not 4.
+// - Narrow build: only the current centers [M, max(D, G)] stay in shared
+//   memory for the whole layer, because every atom's gather may read any row
+//   of them. All other per-atom state (query, cw, the ResidualNorm hidden)
+//   exists for one block of AB <= 32 atoms at a time, in two slots of stride
+//   max(D, G) + 4. The plan is M * 512 bytes + 108 to 133 KB at D=128 (atom
+//   blocks of 8 to 32): M <= 237 at N=32.
 // - Within an atom block the (atom, neighbour) rows go through fwd_chunk
 //   (scann_forward_common.cuh) in chunks of at most 64 rows: split-TF32
 //   mma.sync products, the softmax one warp per (atom, head), the context
 //   one thread per (atom, column); the SCANN+ geometry is streamed from and
 //   to the global scratch.
 // - Tall structures (N <= kFwdMaxChunkRows, M past that plan; the tall build,
-//   scann_loop_tall.cu, both operand modes): the centers leave shared memory. A
-//   layer's input centers sit in one half of a ping-pong global scratch [2, B,
-//   M, D] (L2 holds it: 14 MB at B = 64, M = 428) and its new centers go to
-//   the other half, so one cluster barrier a layer suffices: no block
-//   writes the rows others still gather. The gather reads those rows past L1
-//   (another SM wrote them, and this SM may hold a line of them from two
-//   layers before); the per-atom projections and the readout's after_Lc
-//   stage a block's rows into a slot first (cp.async, past L1 too); the GA
-//   keys go to the block's own slice of a global [B * C, M, G] scratch. The
-//   arithmetic and the order of every sum are the narrow build's, so at a
-//   shape both builds take, with the same atom block and C, the outputs are
-//   the same bits. The plan drops the M * 512 bytes: atom blocks of 32 for M
-//   into the thousands.
-// - Wide neighbour lists (64 < N <= 256; the wide build, scann_loop_wide.cu):
-//   one atom at a time through fwd_atom_wide, its rows in sub-chunks of 64,
-//   its energies [N, H] in shared memory (8 KiB at N = 256) for a softmax over
-//   all N, its keys in a per-block global scratch [B * C, N, D] read back for
-//   the context; the plan's chunk region is a sub-chunk's buffers and that
-//   energy row, so M reaches 225-235 at D = 128 for every N up to 256.
-// - The readout (after_Lc, GA queries and keys, the scores, the pooled
-//   context, the head) runs over all M atoms in every block of the cluster,
-//   in the same order, so every block has the scores; rank 0 writes pred and
-//   each block the GA scores of its own atoms. Launches at one C repeat bit
-//   for bit.
+//   scann_loop_tall.cu) and wide neighbour lists (64 < N <= 256; the wide
+//   build, scann_loop_wide.cu), both operand modes: the centers live in
+//   global memory (L2; l2_plan). A layer's input centers sit in one half of a
+//   ping-pong scratch [2, B, M, D] (14 MB at B = 64, M = 428) and its new
+//   centers go to the other half, so one cluster barrier a layer suffices:
+//   no block writes the rows others still gather. The gather reads those
+//   rows by bulk copies through L2 (another SM wrote them); the per-atom
+//   projections and the readout stage a block's rows past L1 (__ldcg). The
+//   bulk copies read in the async proxy what ordinary stores wrote in the
+//   same launch (the centers, the SCANN+ geometry, SCANN's RBF table), so
+//   every thread fences its global writes to the async proxy
+//   (fence.proxy.async.global) before the cluster barrier that ends the
+//   embedding and each layer: one fence a layer. Each
+//   chunk's neighbour indices (and SCANN distances) are copied into a small
+//   ring in shared memory one chunk (tall) or one atom (wide) ahead, so the
+//   staging never waits on an index load. The tall build stages each chunk
+//   into one of two operand buffers while the chunk before it runs in the
+//   other (fwd_stage_chunk_bulk / _wait: one bulk copy a row, by the copy
+//   engine, its completion on an mbarrier); its arithmetic and the order
+//   of every sum are the narrow build's, so at a shape both take the
+//   outputs are the same bits. Its plan does not grow with M but for the
+//   readout's vectors: atom blocks of 32 for M into the thousands.
+// - The wide build walks one atom at a time (fwd_atom_wide_keys), its rows
+//   in sub-chunks of 64, its energies [N, H] in shared memory for a softmax
+//   over all N, its keys in shared memory [N, D] where the plan holds them
+//   (N <= 200 at D = 128), else in a per-block global scratch [B * C, N,
+//   D]; the context splits the N neighbours into two halves over the
+//   block's 256 threads and adds the halves in order. Its plan does not
+//   grow with M either.
+// - The readout: the narrow build runs after_Lc, the GA queries and keys,
+//   the scores, the pooled context and the head over all M atoms in every
+//   block of the cluster, in the same order. In the tall and wide builds
+//   each block forms after_Lc and the GA keys and queries of its own atoms
+//   into the structure's readout rows [B, M, 2G] (global), then one cluster
+//   barrier, then every block takes the queries' sums, the scores and the
+//   pooled context over all M in atom order, the narrow build's order. Rank
+//   0 writes pred and each block the GA scores of its own atoms. Launches at
+//   one C repeat bit for bit.
 //
 // bf16 operand mode (model.dtype "bfloat16"): a second instantiation, kBf16,
 // rounds the operands of every product to bfloat16 and sums in f32 where and
 // as the TPU kernel's dots do (scann_forward_common.cuh); every build (narrow,
 // wide, tall) holds both instantiations and a launch picks one. The wide
-// build's atom walk (fwd_atom_wide) rounds where fwd_chunk does: the gathered
-// neighbour states as they are staged, each q * k lane before the head sum
-// (warp_energies), the attention before the context; the context reads the
-// unrounded keys back from the block's scratch, as fwd_chunk reads them from
-// shared memory. Unlike the
+// build's atom walk (fwd_atom_wide_keys) rounds where fwd_chunk does: the
+// gathered neighbour states once they land, each q * k lane before the head
+// sum (warp_energies), the attention before the context; the context reads
+// the unrounded keys, as fwd_chunk reads them. Unlike the
 // molecule kernel, the TPU loop kernel pools a packed slot's segments with
 // bf16-mode products (scann_loop.py:367-395), so here the pools round their
 // terms and pooled values too, and the softmax is shifted by each segment's
@@ -96,6 +112,9 @@ using namespace scann;
 
 constexpr int kMaxAtomBlock = 32;
 constexpr int kMaxCluster = 4;
+// the tall and wide builds take clusters of up to 16 blocks (past 8, a
+// non-portable size the launch opts into), to fill the card at small batches
+constexpr int kMaxL2Cluster = 16;
 
 // The tall build (scann_loop_tall.cu defines SCANN_LOOP_TALL): the centers in
 // global memory; every other build keeps them in shared memory.
@@ -105,39 +124,107 @@ constexpr bool kTall = true;
 constexpr bool kTall = false;
 #endif
 
-// Shared-memory plan, in floats: centers [M, wd] (none in the tall build);
-// two per-block slots [AB, wd + 4]; the work region: a chunk's buffers (wide:
-// a sub-chunk's and the atom's energy row), the embedding's staging, the
-// ResidualNorm's h2 [AB, wd + 4], or the readout's [AB, wd] block and
-// vectors.
+// Shared-memory plan, in floats: centers [M, wd] (none in the tall and wide
+// builds, l2_plan); two per-block slots [AB, wd + 4]; the work region: a
+// chunk's buffers, the embedding's staging, the ResidualNorm's h2 [AB, wd +
+// 4], or the readout's [AB, wd] block and vectors.
 struct Plan {
   int wd, lds, rows, lde, ldf, work, offQ, offW, offWork, total;
 };
 
-template <bool kWide>
-__host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
+// The tall and wide builds' plan: Plan's sizes, and where in the work region
+// the chunk operand buffers, the index ring and the wide atom's keys sit
+// (smem_keys: whether the keys are in shared memory).
+struct L2Plan {
   Plan p;
+  int offA, offA1, offI, offK, smem_keys;
+};
+
+// The plan of the tall and wide builds, whose centers live in global memory
+// (L2): the two slots, then the work region. In a layer the work region
+// holds the front, max(rows x (D + 4) + attention, AB x (wd + 4)) (a chunk's
+// product and attention, the wide atom's energy row [N, H] in place of the
+// attention; between chunks the ResidualNorm's h2 and the rows the per-atom
+// projections read), then the chunk operand buffers [rows, 2D + 4] (two in
+// the tall build: the next chunk is staged into one while the other runs; one
+// in the wide build), the index ring [2][n] (two slots of a chunk's rows, n =
+// rows, or of a wide atom's N: the neighbour indices, copied in a chunk or
+// an atom ahead of their staging; round4(2n) floats, so that what follows
+// stays 16-byte aligned at an odd n), the operand buffers' two mbarriers (4
+// floats) and, in the wide build with smem_keys, the atom's keys [N, D].
+// Outside the layers it holds the embedding's staging or the readout's
+// block and vectors.
+template <bool kWide>
+__host__ __device__ inline L2Plan l2_plan(const ForwardArgs& a, bool smem_keys) {
+  L2Plan q;
+  Plan& p = q.p;
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.lds = p.wd + 4;
   p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
-  int w = kWide ? fwd_wide_chunk_floats(a.N, a.D, a.H) : fwd_chunk_floats(p.rows, a.D, a.H);
+  const int att = round4(kWide ? a.N * a.H : p.rows * a.H);
+  int front = p.rows * (a.D + 4) + att;
+  front = AB * p.lds > front ? AB * p.lds : front;
+  q.offA = front;
+  q.offA1 = front + p.rows * (2 * a.D + 4);
+  q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);
+  // the ring rounded up to 4 floats: the keys take 16-byte stores at any N
+  q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;
+  q.smem_keys = kWide && smem_keys;
+  int w = q.offK + (q.smem_keys ? a.N * a.D : 0);
   const int embed = AB * (p.lde + p.ldf);
-  const int residual = AB * p.lds;
   const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
   const int seg_readout = AB * p.wd + seg_forward_floats(a.S, p.wd, a.M, a.O);
   w = embed > w ? embed : w;
-  w = residual > w ? residual : w;
   w = readout > w ? readout : w;
   if (a.S) w = seg_readout > w ? seg_readout : w;
   p.work = w;
-  p.offQ = kTall ? 0 : a.M * p.wd;
-  p.offW = p.offQ + AB * p.lds;
-  p.offWork = p.offW + AB * p.lds;
+  p.offQ = 0;
+  p.offW = AB * p.lds;
+  p.offWork = 2 * AB * p.lds;
   p.total = p.offWork + w;
-  return p;
+  return q;
+}
+
+// The plan a tall or wide launch runs: the wide build keeps the atom's keys
+// in shared memory where they fit.
+template <bool kWide>
+__host__ __device__ inline L2Plan make_l2_plan(const ForwardArgs& a) {
+  const L2Plan q = l2_plan<kWide>(a, true);
+  if (!kWide || q.p.total * (int)sizeof(float) <= kMaxSharedBytes) return q;
+  return l2_plan<kWide>(a, false);
+}
+
+template <bool kWide>
+__host__ __device__ inline Plan make_plan(const ForwardArgs& a) {
+  if constexpr (kTall || kWide) {
+    return make_l2_plan<kWide>(a).p;
+  } else {
+    Plan p;
+    const int AB = a.atom_block;
+    p.wd = a.D > a.G ? a.D : a.G;
+    p.lds = p.wd + 4;
+    p.rows = a.chunk_atoms * a.N;
+    p.lde = round4(a.E + (a.use_ring ? 10 : 0));
+    p.ldf = a.cgcnn ? round4(a.F) : 0;
+    int w = fwd_chunk_floats(p.rows, a.D, a.H);
+    const int embed = AB * (p.lde + p.ldf);
+    const int residual = AB * p.lds;
+    const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);
+    const int seg_readout = AB * p.wd + seg_forward_floats(a.S, p.wd, a.M, a.O);
+    w = embed > w ? embed : w;
+    w = residual > w ? residual : w;
+    w = readout > w ? readout : w;
+    if (a.S) w = seg_readout > w ? seg_readout : w;
+    p.work = w;
+    p.offQ = a.M * p.wd;
+    p.offW = p.offQ + AB * p.lds;
+    p.offWork = p.offW + AB * p.lds;
+    p.total = p.offWork + w;
+    return p;
+  }
 }
 
 // The plan of either build, by N (host side).
@@ -146,13 +233,15 @@ inline Plan plan_of(const ForwardArgs& a) {
 }
 
 // kWide: N > kFwdMaxChunkRows (the wide build, scann_loop_wide.cu), one atom
-// at a time through fwd_atom_wide with the block's keys in wide_keys [N, D]
-// (global, one slice a block). kTall (the tall build): wide_keys is the GA
-// key scratch [B * C, M, G], one slice a block, and a.next_centers the
-// ping-pong centers [2, B, M, D].
+// at a time. kL2 (the tall and the wide builds): a.next_centers is the
+// ping-pong centers [2, B, M, D] and l2 the readout's rows [B, M, 2G] (each
+// atom's GA keys, then its GA queries, written by the block that owns the
+// atom), followed in the wide build whose plan keeps the atom's keys out of
+// shared memory by each block's keys [B * C, N, D]; null in the narrow build.
 template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
+scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
+  constexpr bool kL2 = kTall || kWide;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan<kWide>(a);
@@ -179,13 +268,36 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     if (C > 1) cluster.sync();
     else __syncthreads();
   };
-  float* sC = smem;               // centers / GA keys  [M, wd] (not tall)
+  float* sC = smem;               // centers / GA keys  [M, wd] (narrow)
   float* sQ = smem + P.offQ;      // query / out        [AB, lds]
   float* sW = smem + P.offW;      // cw, then h1        [AB, lds]
   float* work = smem + P.offWork;
   float* sA = work;                        // chunk operand [rows, 2D + 4]
   float* sU = sA + P.rows * lda;           // chunk product [rows, D + 4]
   float* sE = sU + P.rows * ldu;           // attention     [rows, H]
+  float* sA1 = nullptr;        // tall: the second chunk operand buffer
+  int* ring = nullptr;         // the index ring [2][ring_n]
+  unsigned long long* bars = nullptr;   // the operand buffers' mbarriers [2]
+  // SCANN: the distance RBF of the structure's rows [M * N, round4(K)], a
+  // table the launch's geometry scratch holds (SCANN has no geometry), each
+  // block's rows computed once for all layers
+  float* rbf_b = nullptr;
+  float* atom_keys = nullptr;  // wide: the atom's keys [N, D]
+  bool smem_keys = false;      // wide: in shared memory, else in l2
+  const int ring_n = kWide ? N : P.rows;
+  if constexpr (kL2) {   // the front of the work region, then the operand buffers
+    const L2Plan Q = make_l2_plan<kWide>(a);
+    sU = work;
+    sE = sU + P.rows * ldu;
+    sA = work + Q.offA;
+    if constexpr (kTall) sA1 = work + Q.offA1;
+    ring = reinterpret_cast<int*>(work + Q.offI);
+    bars = reinterpret_cast<unsigned long long*>(ring + 2 * ring_n);
+    if (!a.g_update) rbf_b = a.geo + (size_t)b * M * N * round4(a.K);
+    smem_keys = Q.smem_keys;
+    atom_keys = smem_keys ? work + Q.offK
+                          : l2 + (size_t)a.B * M * 2 * G + (size_t)blockIdx.x * N * D;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const float* am = a.atom_mask + (size_t)b * M;
@@ -195,22 +307,32 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   const float* ndist = a.ndist + (size_t)b * M * N;
   float* geo_b = a.geo + (size_t)b * M * N * D;
   float* next_b = a.next_centers + (size_t)b * M * D;
-  // tall: the centers of layer l's input, half l & 1 of the ping-pong scratch
-  // (half 0 is next_b), and this block's GA keys
+  // kL2: the centers of layer l's input, half l & 1 of the ping-pong scratch
+  // (half 0 is next_b); the structure's readout rows
   auto centers_of = [&](int l) {
     return a.next_centers + ((size_t)(l & 1) * a.B + b) * M * D;
   };
-  float* const keys_b = kTall ? wide_keys + (size_t)blockIdx.x * M * G : sC;
-  const int ldk = kTall ? G : wd;
-  // tall: rows [m0, m0 + n) of layer l's input centers into dst [n, ld], past
-  // L1; the caller synchronises
+  const int ldr = 2 * G;
+  float* const rows_b = kL2 ? l2 + (size_t)b * M * ldr : nullptr;
+  float* const keys_b = kL2 ? rows_b : sC;
+  const int ldk = kL2 ? ldr : wd;
+  // kL2: the neighbour indices of rows [base, base + n) into slot s of the
+  // index ring, as copies in flight (cp.async); the caller waits for them
+  // before the staging that reads them
+  auto ring_idx = [&](int slot) { return ring + slot * ring_n; };
+  auto fetch_ring = [&](int slot, int base, int n) {
+    for (int i = tid; i < n; i += kThreads)
+      cp_async4(reinterpret_cast<float*>(ring_idx(slot) + i), nbr + base + i);
+  };
+
+  // kL2: rows [m0, m0 + n) of layer l's input centers into dst [n, ld], read
+  // past L1 (other SMs wrote them); the caller synchronises
   auto stage_rows = [&](float* dst, int ld, int l, int m0, int n) {
     const float* src = centers_of(l) + (size_t)m0 * D;
     for (int i = tid; i < n * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
-      cp_async16(dst + r * ld + c, src + (size_t)r * D + c);
+      store4(dst + r * ld + c, __ldcg(reinterpret_cast<const float4*>(src + (size_t)r * D + c)));
     }
-    cp_async_wait_all();
   };
   // all M rows of the scratch into the centers, past L1 (the rows of the other
   // blocks were written on other SMs), every copy of a thread in flight at once
@@ -221,6 +343,15 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     }
     cp_async_wait_all();
   };
+
+  if constexpr (kL2) {   // the mbarriers outlive every use of the work region before the readout
+    if (tid == 0) {
+      mbar_init(bars);
+      mbar_init(bars + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  unsigned phases = 0;   // bit k: the parity of buffer k's mbarrier's next phase
 
   // ---- atom embedding of this block's atoms -> the scratch ----------------
   const int ke = a.E + (a.use_ring ? 10 : 0);
@@ -248,8 +379,28 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   } else {
     if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
   }
+  if constexpr (kL2) {
+    if (!a.g_update) {   // SCANN: the RBF table of this block's rows, as fwd_stage_chunk forms it
+      float* rbf_c = work;   // the RBF centers (the work region is free here)
+      for (int k = tid; k < a.K; k += kThreads) rbf_c[k] = a.dist_centers[k];
+      __syncthreads();
+      const int k4 = round4(a.K);
+      const size_t n = (size_t)(m_hi - m_lo) * N * k4;
+#pragma unroll 4
+      for (size_t i = tid; i < n; i += kThreads) {
+        const int r = m_lo * N + (int)(i / k4), k = (int)(i % k4);
+        float v = 0.f;
+        if (k < a.K) {
+          const float t = ndist[r] - rbf_c[k];
+          v = expf(-(t * t) / a.rbf_width);
+        }
+        rbf_b[(size_t)r * k4 + k] = v;
+      }
+    }
+    fence_proxy_async_global();   // the centers, geometry and RBF table, before the bulk reads
+  }
   cluster_barrier();
-  if constexpr (!kTall) {
+  if constexpr (!kL2) {
     load_centers();
     cluster_barrier();
   }
@@ -259,17 +410,58 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     const LayerWeights w = layer_weights(a, l);
     const float* wq = a.wq + (size_t)l * D * D;
     const float* bq = a.bq + (size_t)l * D;
-    // the gather's rows: the resident centers, or (tall) the global ones
-    const float* cen = kTall ? centers_of(l) : sC;
-    const int ldc = kTall ? D : wd;
-    float* out_b = kTall ? centers_of(l + 1) : next_b;
+    // the gather's rows: the resident centers, or (kL2) the global ones
+    const float* cen = kL2 ? centers_of(l) : sC;
+    const int ldc = kL2 ? D : wd;
+    float* out_b = kL2 ? centers_of(l + 1) : next_b;
+    // tall: the layer's chunks run in order, each staged into one of two
+    // operand buffers while the chunk before it runs in the other, from the
+    // indices the ring took in one chunk earlier. The first chunk is staged
+    // now (the layer's input centers are complete only after the barrier
+    // that ended the layer before). next_chunk(m0) is the chunk after the one
+    // at m0: the next of its atom block, else the first of the next block.
+    int cur = 0;
+    auto chunk_buf = [&](int i) { return i ? sA1 : sA; };
+    auto chunk_atoms = [&](int m0) {
+      return min(CA, min(m_lo + ((m0 - m_lo) / AB + 1) * AB, m_hi) - m0);
+    };
+    auto next_chunk = [&](int m0) { return m0 + chunk_atoms(m0); };
+    auto wide_atom_ring = [&](int m) {   // wide: atom m's indices, slot (m - m_lo) & 1
+      if (m < m_hi) fetch_ring((m - m_lo) & 1, m * N, N);
+    };
+    // stage rows [base, base + rows) into buffer k, their indices at idx; wait for them
+    auto stage = [&](int k, const int* idx, int base, int rows) {
+      fwd_stage_chunk_bulk(a, chunk_buf(k), cen, idx, geo_b, rbf_b, base, rows, bars + k);
+    };
+    auto wait = [&](int k, int rows) {
+      fwd_stage_chunk_wait<kBf16>(a, chunk_buf(k), rows, bars + k, (phases >> k) & 1u);
+      phases ^= 1u << k;
+    };
+    if constexpr (kTall) {
+      if (m_lo < m_hi) {
+        const int m1 = next_chunk(m_lo);
+        fetch_ring(0, m_lo * N, chunk_atoms(m_lo) * N);
+        if (m1 < m_hi) fetch_ring(1, m1 * N, chunk_atoms(m1) * N);
+        cp_async_wait_all();
+        fence_proxy_async();   // the buffers' last writers: the geometry, the last layer
+        __syncthreads();
+        stage(0, ring_idx(0), m_lo * N, chunk_atoms(m_lo) * N);
+        wait(0, chunk_atoms(m_lo) * N);
+      }
+    }
+    if constexpr (kWide) {
+      wide_atom_ring(m_lo);
+      cp_async_wait_all();
+      __syncthreads();
+    }
 
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
       const int ab = min(AB, m_hi - ab0);
       // per-atom projections of the block: cw = centers @ Wfg[0:D] (SCANN+),
-      // query (tall: from the block's rows staged in the work region)
+      // query (kL2: from the block's rows staged into the front of the work
+      // region)
       const float* cb = sC + ab0 * wd;
-      if constexpr (kTall) {
+      if constexpr (kL2) {
         stage_rows(work, wd, l, ab0, ab);
         __syncthreads();
         cb = work;
@@ -285,24 +477,48 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
 
       if constexpr (kWide) {
         for (int m = ab0; m < ab0 + ab; ++m) {
-          const int base = m * N;
-          fwd_atom_wide<kBf16, float>(
+          const int base = m * N, slot = (m - m_lo) & 1;
+          // the next atom's indices, waited for with this atom's first staging
+          wide_atom_ring(m + 1);
+          fwd_atom_wide_keys<kBf16>(
               forward_chunk_dims(a), w,
               [&](int n0, int rows) {
-                fwd_stage_chunk<kBf16>(a, sA, cen, ldc, nbr, ndist, geo_b, base + n0, rows);
+                fence_proxy_async();   // the last sub-chunk's accesses to sA
+                __syncthreads();
+                stage(0, ring_idx(slot) + n0, base + n0, rows);
+                wait(0, rows);
               },
               sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
-              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
-              wide_keys + (size_t)blockIdx.x * N * D, [&](int n, int h) {
+              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, atom_keys,
+              D, smem_keys, [&](int n, int h) {
                 return scann_philox::mask_value(a.seed, mol, 1 + a.L + l,
                                                 (unsigned)((base + n) * H + h),
                                                 a.attn_threshold, a.attn_scale);
               });
         }
+      } else if constexpr (kTall) {
+        for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
+          const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+          // the next chunk, staged from its slot while this one runs; the
+          // indices of the one after it into this chunk's slot
+          const int n0 = next_chunk(m0), n1 = n0 < m_hi ? next_chunk(n0) : m_hi;
+          if (n1 < m_hi) fetch_ring(cur, n1 * N, chunk_atoms(n1) * N);
+          if (n0 < m_hi) stage(cur ^ 1, ring_idx(cur ^ 1), n0 * N, chunk_atoms(n0) * N);
+          fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, chunk_buf(cur), sU, sE,
+                    sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds, nmask + base,
+                    nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+                    [&](int at, int n, int h) {
+                      return scann_philox::mask_value(
+                          a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                          a.attn_threshold, a.attn_scale);
+                    });
+          if (n0 < m_hi) wait(cur ^ 1, chunk_atoms(n0) * N);
+          cur ^= 1;
+        }
       } else {
         for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
           const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-          fwd_stage_chunk<kBf16, kTall>(a, sA, cen, ldc, nbr, ndist, geo_b, base, ca * N);
+          fwd_stage_chunk<kBf16>(a, sA, cen, ldc, nbr, ndist, geo_b, base, ca * N);
           fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + (m0 - ab0) * lds,
                     sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
                     l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
@@ -326,17 +542,26 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
     }
 
     // every atom of the structure has gathered from this layer's input and
-    // every block has written its atoms' new centers: take all M rows (tall:
-    // the barrier alone; the next layer writes the other half)
+    // every block has written its atoms' new centers: take all M rows (kL2:
+    // the barrier alone, after the fence that orders this layer's centers
+    // and geometry before the next layer's bulk reads; the next layer writes
+    // the other half)
+    if constexpr (kL2) fence_proxy_async_global();
     cluster_barrier();
-    if constexpr (!kTall) {
+    if constexpr (!kL2) {
       load_centers();
       cluster_barrier();
     }
   }
+  if constexpr (kL2) {   // the readout may take the mbarriers' memory
+    if (tid == 0) {
+      mbar_inval(bars);
+      mbar_inval(bars + 1);
+    }
+    __syncthreads();
+  }
 
   // ---- readout: after_Lc, GA scores, pooled context, head ----------------
-  // over all M atoms in every block, in the same order
   float* RB = work;                    // cg = swish(cL @ Wal + bal) of an atom block [AB, wd]
   float* qsum = work + AB * wd;        // [G]  sum_m mask * gq
   float* struc = qsum + wd;            // [G]  pooled context
@@ -347,52 +572,93 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* wide_keys) {
   const int S = a.S;
   const int* sid = S ? a.seg + (size_t)b * M : nullptr;
   const SegVectors v = seg_vectors(work + AB * wd, S, wd, M, O, false);
-  if (!S)
-    for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
-  for (int ab0 = 0; ab0 < M; ab0 += AB) {
-    const int ab = min(AB, M - ab0);
-    // the block's last centers (tall: staged into the free slot sW)
-    const float* cl = sC + ab0 * wd;
-    int ldl = wd;
-    if constexpr (kTall) {
+  if constexpr (kL2) {
+    // each block: after_Lc, the GA keys and queries of its own atoms into the
+    // structure's readout rows; then one barrier, and every block takes the
+    // sums over all M atoms in atom order, as the narrow build does
+    for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
+      const int ab = min(AB, m_hi - ab0);
       stage_rows(sW, lds, a.L, ab0, ab);
       __syncthreads();
-      cl = sW;
-      ldl = lds;
+      mma_gemm<kBf16>(sW, lds, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+        store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
+                                            swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
+      });
+      __syncthreads();
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+        store4(rows_b + (size_t)(ab0 + r) * ldr + G + c,
+               make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1], v.z + a.bgq[c + 2],
+                           v.w + a.bgq[c + 3]));
+      });
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+        store4(rows_b + (size_t)(ab0 + r) * ldr + c,
+               make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1], v.z + a.bgk[c + 2],
+                           v.w + a.bgk[c + 3]));
+      });
+      __syncthreads();
     }
-    mma_gemm<kBf16>(cl, ldl, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
-      store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
-                                          swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
-    });
-    __syncthreads();
-    // the block's GA queries, and its GA keys in place of its centers
-    mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
-      store4(sQ + r * lds + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
-                                           v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
-    });
-    mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
-      store4(keys_b + (ab0 + r) * ldk + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
-                                                       v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
-    });
-    __syncthreads();
+    cluster_barrier();
+    const float* gq = rows_b + G;
     if (S) {
-      seg_queries<kBf16>(v, S, sQ, lds, keys_b, ldk, am, sid, ab0, ab, G, ab0 == 0);
+      seg_queries<kBf16>(v, S, gq, ldr, keys_b, ldk, am, sid, 0, M, G, true);
     } else {
       for (int g = tid; g < G; g += kThreads) {
-        float s = qsum[g];
-        for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * lds + g];
+        float s = 0.f;
+        for (int m = 0; m < M; ++m) s += am[m] * gq[(size_t)m * ldr + g];
         qsum[g] = s;
       }
-      for (int m = warp; m < ab; m += kWarps) {
-        const float mm = am[ab0 + m];
+      for (int m = warp; m < M; m += kWarps) {
+        const float mm = am[m];
         float dg = 0.f;
         for (int g = lane; g < G; g += 32)
-          dg += (mm * keys_b[(ab0 + m) * ldk + g]) * (mm * sQ[m * lds + g]);
+          dg += (mm * keys_b[(size_t)m * ldk + g]) * (mm * gq[(size_t)m * ldr + g]);
         dg = warp_sum(dg);
-        if (lane == 0) diag[ab0 + m] = dg;
+        if (lane == 0) diag[m] = dg;
       }
     }
     __syncthreads();
+  } else {
+    // over all M atoms in every block, in the same order
+    if (!S)
+      for (int g = tid; g < G; g += kThreads) qsum[g] = 0.f;
+    for (int ab0 = 0; ab0 < M; ab0 += AB) {
+      const int ab = min(AB, M - ab0);
+      const float* cl = sC + ab0 * wd;
+      int ldl = wd;
+      mma_gemm<kBf16>(cl, ldl, ab, D, a.wal, G, G, [&](int r, int c, float4 v) {
+        store4(RB + r * wd + c, make_float4(swishf(v.x + a.bal[c]), swishf(v.y + a.bal[c + 1]),
+                                            swishf(v.z + a.bal[c + 2]), swishf(v.w + a.bal[c + 3])));
+      });
+      __syncthreads();
+      // the block's GA queries, and its GA keys in place of its centers
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgq, G, G, [&](int r, int c, float4 v) {
+        store4(sQ + r * lds + c, make_float4(v.x + a.bgq[c], v.y + a.bgq[c + 1],
+                                             v.z + a.bgq[c + 2], v.w + a.bgq[c + 3]));
+      });
+      mma_gemm<kBf16>(RB, wd, ab, G, a.wgk, G, G, [&](int r, int c, float4 v) {
+        store4(keys_b + (ab0 + r) * ldk + c, make_float4(v.x + a.bgk[c], v.y + a.bgk[c + 1],
+                                                         v.z + a.bgk[c + 2], v.w + a.bgk[c + 3]));
+      });
+      __syncthreads();
+      if (S) {
+        seg_queries<kBf16>(v, S, sQ, lds, keys_b, ldk, am, sid, ab0, ab, G, ab0 == 0);
+      } else {
+        for (int g = tid; g < G; g += kThreads) {
+          float s = qsum[g];
+          for (int m = 0; m < ab; ++m) s += am[ab0 + m] * sQ[m * lds + g];
+          qsum[g] = s;
+        }
+        for (int m = warp; m < ab; m += kWarps) {
+          const float mm = am[ab0 + m];
+          float dg = 0.f;
+          for (int g = lane; g < G; g += 32)
+            dg += (mm * keys_b[(ab0 + m) * ldk + g]) * (mm * sQ[m * lds + g]);
+          dg = warp_sum(dg);
+          if (lane == 0) diag[ab0 + m] = dg;
+        }
+      }
+      __syncthreads();
+    }
   }
   if (S) {
     seg_readout_forward<kBf16, kBf16>(v, keys_b, ldk, am, sid, M, S, G, O, a.ga_norm, a.wbf,
@@ -496,10 +762,11 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 
 // The pointers, sizes, scalars and random-stream words are those of
 // unpack_forward_args (scann_common.cuh), followed by pointer 49, the
-// next-centers scratch [B, M, D], pointer 50, the segment ids [B, M] (null
-// unless packed), pointer 51, the wide key scratch [B * C, N, D] (the wide
-// build), or the GA key scratch [B * C, M, G] (the tall build, whose
-// pointer 49 is the ping-pong centers [2, B, M, D]), null in the narrow one,
+// next-centers scratch [B, M, D] (the tall and wide builds: the ping-pong
+// centers [2, B, M, D]), pointer 50, the segment ids [B, M] (null unless
+// packed), pointer 51, the tall and wide builds' readout rows [B, M, 2G]
+// (the wide build's per-block keys [B * C, N, D] right after them where its
+// plan keeps the keys out of shared memory), null in the narrow one,
 // size 20, the atom block, size 21, the
 // segments per slot S, size 22, the bf16 operand mode (0 or 1), and size 23,
 // the blocks per structure C; in the order
@@ -528,6 +795,18 @@ static auto build_kernel(int bf16) {
               : scann_loop_forward_kernel<false, kWideBuild>;
 }
 
+// The largest cluster this build launches; the tall and wide builds opt into
+// the non-portable sizes past 8.
+constexpr int kBuildMaxCluster = (kWideBuild || kTall) ? kMaxL2Cluster : kMaxCluster;
+
+static cudaError_t set_kernel_attributes(const void* kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && kBuildMaxCluster > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
 // How many clusters of `cluster` blocks with this shape's shared memory the
 // card runs at once (cudaOccupancyMaxActiveClusters) in this build's kernel
 // of the operand mode in size 22, or minus the CUDA error.
@@ -535,10 +814,10 @@ extern "C" int SCANN_LOOP_ENTRY(max_clusters)(const int* dims, int cluster) {
   ForwardArgs a = {};
   set_dims(a, dims);
   if (dims[22] & ~1) return -(int)cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > kBuildMaxCluster) return -(int)cudaErrorInvalidValue;
   const auto kernel = build_kernel(dims[22]);
   const int bytes = make_plan<kWideBuild>(a).total * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = set_kernel_attributes((const void*)kernel, bytes);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -554,24 +833,23 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   unpack_forward_args(a, ptrs, dims, scalars, rng);
   a.next_centers = (float*)ptrs[49];
   a.seg = (const int*)ptrs[50];
-  float* wide_keys = (float*)ptrs[51];
+  float* l2 = (float*)ptrs[51];
   a.atom_block = dims[20];
   a.S = dims[21];
   const int bf16 = dims[22];
   const int C = dims[23];
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
-  // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk, its
-  // key scratch; the tall one: its GA key scratch
-  if ((a.N > kFwdMaxChunkRows) != kWideBuild ||
-      (wide_keys != nullptr) != (kWideBuild || kTall) ||
+  // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk; the
+  // tall and wide builds: their readout rows
+  if ((a.N > kFwdMaxChunkRows) != kWideBuild || (l2 != nullptr) != (kWideBuild || kTall) ||
       (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;
 
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       (!kWideBuild && a.chunk_atoms * a.N > kFwdMaxChunkRows) || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
-      C < 1 || C > kMaxCluster ||
+      C < 1 || C > kBuildMaxCluster ||
       a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
       a.D % a.H || a.K > a.D)
     return kErrShape;
@@ -580,13 +858,12 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
   const auto kernel = build_kernel(bf16);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t err = set_kernel_attributes((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a, C, wide_keys);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, C, l2);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

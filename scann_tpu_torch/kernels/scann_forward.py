@@ -429,14 +429,6 @@ def forward_chunk_floats(rows: int, D: int, H: int) -> int:
     return rows * (2 * D + 4) + rows * (D + 4) + _r4(rows * H)
 
 
-def forward_wide_chunk_floats(N: int, D: int, H: int) -> int:
-    """Floats of the chunk region of the wide forwards, one atom of N >
-    ``MAX_CHUNK_ROWS`` neighbours at a time (``fwd_wide_chunk_floats``): a
-    sub-chunk's operand and product of ``MAX_CHUNK_ROWS`` rows and the
-    atom's energies [N, H]."""
-    return MAX_CHUNK_ROWS * (2 * D + 4) + MAX_CHUNK_ROWS * (D + 4) + _r4(N * H)
-
-
 def embedding_stage_floats(cfm: ModelConfig, atoms: int) -> int:
     """Floats of the embedding's staging of ``atoms`` atoms: [atoms, lde]
     (embedding and ring columns) and, for cgcnn, [atoms, ldf] (features)."""

@@ -26,8 +26,8 @@ Forward:
 - The gate (``check_supported``) is the kernel's own shared-memory plan
   (``loop_memory_plan``). On the TPU the two whole-model kernels differ in
   compile time (unrolled layers against a loop); here both loop at run time
-  and differ in where a structure's state lives. This kernel keeps only the
-  current centers [M, max(D, G)] in shared memory for a whole layer and every
+  and differ in where a structure's state lives. The narrow build keeps only
+  the current centers [M, max(D, G)] in shared memory for a whole layer and every
   other per-atom tensor for one block of 32, 16 or 8 atoms at a time, so it
   needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
   fits a block's 227 KB. It shares the molecule kernel's tiles: chunks
@@ -35,21 +35,29 @@ Forward:
   ``use_attn_norm=False`` is refused.
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
-  modes) keeps the centers in global memory, which L2 holds: a ping-pong [2, B,
-  M, D] (``loop_forward_scratch``'s ``next_centers``) and each block's GA
-  keys (its ``tall``, [B * C, M, G]). Its plan drops the M * 512 bytes, so
-  atom blocks of 32 take M into the thousands, past every M the TPU kernel
-  takes. Its arithmetic and sums are the narrow build's: at a shape both
-  take (the private ``_launch(..., tall=True)`` forces it there, with the
-  narrow atom blocks) the outputs are the same bits, in either operand mode.
+  modes) keeps the centers in global memory, which L2 holds: a ping-pong [2,
+  B, M, D] (``loop_forward_scratch``'s ``next_centers``), and the readout's
+  GA keys and queries in ``readout`` [B, M, 2G]. Its plan
+  (``l2_memory_plan``) drops the M * 512 bytes and holds two chunk operand
+  buffers: each chunk is staged by the copy engine (one bulk copy a row,
+  through L2) while the one before it runs. Atom blocks of 32 take M into
+  the thousands, past every M the TPU kernel takes. Its arithmetic and sums
+  are the narrow build's: at a shape both take (the private ``_launch(...,
+  tall=True)`` forces it there) the outputs are the same bits, in either
+  operand mode.
   ``is_tall`` is its rule, ``forward_library`` names the build of every
   launch, and ``.tall_launches`` counts these launches.
 - Wide neighbour lists, 64 < N <= 256 (``MAX_NEIGHBORS``): the wide build
   ``csrc/scann_loop_wide.cu`` (built at its first launch, both operand
-  modes): one atom at a time, its rows in sub-chunks of 64, the softmax
-  over all N from its energy row in shared memory, its keys in a per-block
-  scratch (``loop_forward_scratch``'s ``wide_keys``, [B * C, N, D]).
-  ``.wide_launches`` counts these launches.
+  modes), with the tall build's centers in global memory and readout rows:
+  one atom at a time, its rows in sub-chunks of 64, the softmax over all N
+  from its energy row in shared memory, its keys in shared memory where the
+  plan holds them (N <= 200 at D = 128) or else in a per-block scratch
+  (``wide_keys``, [B * C, N, D], right after ``readout`` in one
+  allocation), the context over all 256 threads (each half of the
+  neighbours summed, then the halves added). No resident centers, so its
+  gate too takes M into the thousands at every N. ``.wide_launches`` counts
+  these launches.
 - The gates do not depend on the operand mode, as ``fits_loop_vmem`` on
   the TPU does not: a ``model.dtype: bfloat16`` batch takes the build an
   f32 batch of its shape takes, and every build holds the bf16
@@ -63,10 +71,14 @@ Forward:
   the molecule kernels and the JAX model shift it; the TPU loop kernels
   shift by each segment's max, which differs only where a segment's sum
   underflows to 0 (no published config: ``use_ga_norm`` bounds the scores).
-- Like the backward, it launches a cluster of ``cluster_size(B)`` blocks per
+- It launches a cluster of ``forward_cluster(cfm, B, M, N, S)`` blocks per
   structure (``launch_loop_forward(..., cluster=C)`` takes another C), each
   block on a contiguous share of the atoms; the new centers of a layer cross
-  the cluster through a global [B, M, D] scratch. Its products run as
+  the cluster through global memory. The narrow build takes the backward's
+  ``cluster_size(B)`` (1, 2 or 4); the tall and wide builds the largest C
+  up to 16 whose B clusters the card runs at once
+  (``max_active_forward_clusters``: 16 for one structure, 6 at B = 16, 2 at
+  64 on an H100 SXM), so that small batches fill the card. Its products run as
   split-TF32 ``mma.sync`` (``csrc/scann_forward_common.cuh``). Launches at one
   C repeat bit for bit, also on a kept scratch (``loop_forward_scratch``)
   that holds garbage.
@@ -219,6 +231,12 @@ WIDE_CHUNK_ROWS = 64
 # the card the kernel was measured on; chip_smoke.py prints it).
 CLUSTERS_AT_ONCE = {4: 28, 2: 66, 1: 132}
 CLUSTER_SIZES = tuple(CLUSTERS_AT_ONCE)
+# Blocks per structure the tall and wide forwards (whose centers live in L2)
+# may launch with: any size up to 16 (past 8 a non-portable cluster, which
+# their launchers opt into). ``forward_cluster`` takes the largest whose B
+# clusters the card runs at once, so that small batches fill it (one
+# structure: 16 blocks rather than 4).
+FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -231,33 +249,75 @@ def supports_loop(cfm: ModelConfig) -> bool:
 def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
                      ) -> Tuple[int, int, int, int]:
     """(atoms per chunk, atoms per block, floats of the work region, shared
-    bytes per block) -- the layout ``make_plan`` in the CUDA source walks:
-    the centers [M, max(D, G)] (none in the tall build, ``tall``), two
-    slots [block, max(D, G) + 4], and a work
-    region that holds a chunk's buffers (wide, N > 64: a sub-chunk's and the
-    atom's energies [N, H], one atom a chunk), the embedding's staging, the
-    ResidualNorm's h2 or the readout's block and vectors (per segment for a
-    packed batch of S segments a slot). The atom block is the largest of 32,
-    16, 8 whose plan fits a block's shared memory (the smallest one's plan
-    if none does). ``forward_plan`` is the plan of the build a launch takes."""
+    bytes per block) -- the layout ``make_plan`` in the CUDA source walks.
+    The narrow build: the centers [M, max(D, G)], two slots [block, max(D,
+    G) + 4], and a work region that holds a chunk's buffers, the embedding's
+    staging, the ResidualNorm's h2 or the readout's block and vectors (per
+    segment for a packed batch of S segments a slot). The tall (``tall``)
+    and wide (N > 64) builds keep the centers in global memory:
+    ``l2_memory_plan``. The atom block is the largest of 32, 16, 8 whose plan
+    fits a block's shared memory (the smallest one's plan if none does).
+    ``forward_plan`` is the plan of the build a launch takes."""
+    if tall or is_wide(N):
+        return l2_memory_plan(cfm, M, N, S)[:4]
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
-    wide = is_wide(N)
     for block in ATOM_BLOCKS:
         block = min(block, M)
         chunk_atoms = max(1, min(block, MAX_CHUNK_ROWS // max(N, 1)))
-        chunk = (kfwd.forward_wide_chunk_floats(N, D, H) if wide
-                 else kfwd.forward_chunk_floats(chunk_atoms * N, D, H))
-        work = max(chunk,
+        work = max(kfwd.forward_chunk_floats(chunk_atoms * N, D, H),
                    kfwd.embedding_stage_floats(cfm, block), block * (wd + 4),
                    block * wd + 2 * wd + 2 * r4(M) + r4(O))
         if S:
             work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
-        floats = (0 if tall else M * wd) + 2 * block * (wd + 4) + work
+        floats = M * wd + 2 * block * (wd + 4) + work
         if 4 * floats <= MAX_SHARED_BYTES:
             break
     return chunk_atoms, block, work, 4 * floats
+
+
+def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
+                   ) -> Tuple[int, int, int, int, bool]:
+    """The plan of the tall and wide builds (``l2_plan`` in the CUDA source),
+    whose centers live in global memory: (atoms per chunk, atoms per block,
+    floats of the work region, shared bytes per block, whether the wide
+    atom's keys are in shared memory). Two slots [block, max(D, G) + 4],
+    then the work region: the front, max(rows (D + 4) + attention, block
+    (max(D, G) + 4)) (a chunk's product and attention, the wide atom's
+    energies [N, H] in place of the attention; the ResidualNorm's h2), the
+    chunk operand buffers [rows, 2D + 4] (two in the tall build, which
+    stages the next chunk while one runs; one sub-chunk of 64 rows in the
+    wide build), the index ring (two slots of a chunk's or a wide atom's
+    neighbour indices, 2 x rows or 2 N rounded up to 4 floats, so that the
+    keys after it stay 16-byte aligned at an odd N), the buffers' two
+    mbarriers (4 floats) and, in the wide build where they fit, the atom's
+    keys [N, D]; or the embedding's staging, or the readout's block and
+    vectors. The wide
+    build takes the keys into shared memory at the largest atom block that
+    fits them, else leaves them in global memory (``loop_forward_scratch``'s
+    ``wide_keys``). None of it grows with M but the readout's [M] vectors,
+    so the plan takes M into the thousands."""
+    r4 = lambda x: -(-x // 4) * 4
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    wd = max(D, G)
+    wide = is_wide(N)
+    for smem_keys in ((True, False) if wide else (False,)):
+        for block in ATOM_BLOCKS:
+            block = min(block, M)
+            chunk_atoms = max(1, min(block, MAX_CHUNK_ROWS // max(N, 1)))
+            rows = MAX_CHUNK_ROWS if wide else chunk_atoms * N
+            front = max(rows * (D + 4) + r4(N * H if wide else rows * H), block * (wd + 4))
+            chunk = (front + (1 if wide else 2) * rows * (2 * D + 4)
+                     + r4(2 * (N if wide else rows)) + 4 + (N * D if smem_keys else 0))
+            work = max(chunk, kfwd.embedding_stage_floats(cfm, block),
+                       block * wd + 2 * wd + 2 * r4(M) + r4(O))
+            if S:
+                work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
+            floats = 2 * block * (wd + 4) + work
+            if 4 * floats <= MAX_SHARED_BYTES:
+                return chunk_atoms, block, work, 4 * floats, smem_keys
+    return chunk_atoms, block, work, 4 * floats, smem_keys
 
 
 def is_tall(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
@@ -268,12 +328,13 @@ def is_tall(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     return not is_wide(N) and loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES
 
 
-def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int, int]:
-    """``loop_memory_plan`` of the build the gate picks for (config, M, N, S):
-    the narrow (or wide) plan where it fits, else the tall one. A launch
-    forced into the tall build (``tall=True``) keeps this plan, so it runs
-    the narrow build's atom blocks."""
-    return loop_memory_plan(cfm, M, N, S, is_tall(cfm, M, N, S))
+def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
+                 ) -> Tuple[int, int, int, int]:
+    """``loop_memory_plan`` of the build that takes (config, M, N, S): the
+    narrow (or wide) plan where it fits, else the tall one; the tall one too
+    where ``tall`` forces the tall build at a narrow N (the build runs its
+    own plan at every shape)."""
+    return loop_memory_plan(cfm, M, N, S, tall or is_tall(cfm, M, N, S))
 
 
 def is_wide_backward(N: int) -> bool:
@@ -330,11 +391,11 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     reason = kfwd.common_refusal(cfm, N, MAX_NEIGHBORS) or segment_refusal(S)
     if reason:
         return reason
-    tall = is_tall(cfm, M, N, S)
+    l2 = is_wide(N) or is_tall(cfm, M, N, S)
     nbytes = forward_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
-                  + ("one atom block and the readout's vectors" if tall
+                  + ("one atom block and the readout's vectors" if l2
                      else "the centers plus one atom block") + f" need {nbytes} bytes of "
                   f"shared memory, a block has {MAX_SHARED_BYTES}; larger structures go "
                   "through the per-layer kernel (kernels.local_attention)")
@@ -368,30 +429,58 @@ def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
                          tall: Optional[bool] = None) -> Dict[str, Optional[torch.Tensor]]:
     """The global scratch of one loop-forward launch at batch shape (B, M,
     N), S segments a slot and ``cluster`` blocks per structure
-    (``cluster_size(B)`` when None): the SCANN+ geometry [B * M * N * D]
-    (None for SCANN), the new centers [B, M, D] (the tall build's ping-pong
-    centers [2, B, M, D]), for a wide N each block's keys of one atom [B * C,
-    N, D] (else None) and for the tall build each block's GA keys ``tall``
-    [B * C, M, G] (else None). ``tall`` defaults to ``is_tall``; True is the
-    scratch of a launch forced into the tall build. Its contents mean
-    nothing between launches; a launch allocates its own unless it is handed
-    one, and refuses one of another build."""
+    (``forward_cluster`` when None): the SCANN+ geometry [B * M * N * D]
+    (for SCANN, None in the narrow build and in the tall and wide builds the
+    distance RBF table [B * M * N * round4(K)], formed once a launch), the
+    new centers [B, M, D] (the tall and wide builds' ping-pong centers [2,
+    B, M, D]), for the tall and wide builds the readout
+    rows ``readout`` [B, M, 2G] (each atom's GA keys and queries) and, for a
+    wide N whose plan keeps the atom's keys out of shared memory, each
+    block's keys ``wide_keys`` [B * C, N, D] right after them in the same
+    allocation (the kernel takes one pointer; else None). ``tall`` defaults
+    to ``is_tall``; True is the scratch of a launch forced into the tall
+    build. Its contents mean nothing between launches; a launch allocates its
+    own unless it is handed one, and refuses one of another build."""
     D = cfm.local_dim
-    cluster = cluster_size(B) if cluster is None else cluster
     tall = is_tall(cfm, M, N, S) if tall is None else tall
+    l2 = tall or is_wide(N)
     empty = lambda *shape: torch.empty(shape, device=device, dtype=torch.float32)
-    shape = wide_keys_shape_for(cfm, B, N, cluster)
-    return {"geo": empty(B * M * N * D) if cfm.g_update else None,
-            "next_centers": empty(2, B, M, D) if tall else empty(B, M, D),
-            "wide_keys": None if shape is None else empty(*shape),
-            "tall": empty(*tall_shape_for(cfm, B, M, cluster, True)) if tall else None}
+    # SCANN+: the geometry, D columns a row; SCANN in the tall and wide
+    # builds: the distance RBF table, round4(K) columns a row
+    cols = D if cfm.g_update else (-(-cfm.num_gaussian // 4) * 4 if l2 else 0)
+    scratch = {"geo": empty(B * M * N * cols) if cols else None,
+               "next_centers": empty(2, B, M, D) if l2 else empty(B, M, D),
+               "readout": None, "wide_keys": None}
+    if l2:
+        rows = readout_shape_for(cfm, B, M)
+        keys = None
+        if is_wide(N) and not l2_memory_plan(cfm, M, N, S)[4]:
+            C = forward_cluster(cfm, B, M, N, S) if cluster is None else cluster
+            keys = wide_keys_shape_for(cfm, B, M, N, C, S)
+        n = math.prod(rows)
+        buf = empty(n + (math.prod(keys) if keys else 0))
+        scratch["readout"] = buf[:n].view(rows)
+        if keys:
+            scratch["wide_keys"] = buf[n:].view(keys)
+    return scratch
 
 
-def wide_keys_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int
+def readout_shape_for(cfm: ModelConfig, B: int, M: int) -> Tuple[int, int, int]:
+    """The tall and wide loop forwards' readout rows [B, M, 2G]: each atom's
+    GA keys, then its GA queries, written by the block that owns the atom
+    and read by every block of its cluster."""
+    return (B, M, 2 * cfm.global_dim)
+
+
+def wide_keys_shape_for(cfm: ModelConfig, B: int, M: int, N: int, cluster: int, S: int = 0
                         ) -> Optional[Tuple[int, int, int]]:
-    """The wide loop forward's key scratch [B * C, N, D] (one atom's keys a
-    block), None where N is not wide (``is_wide``)."""
-    return (B * cluster, N, cfm.local_dim) if is_wide(N) else None
+    """The wide loop forward's global key scratch [B * C, N, D] (one atom's
+    keys a block), where ``l2_memory_plan`` leaves them out of shared
+    memory; None where N is not wide (``is_wide``) or the keys are in shared
+    memory."""
+    if not is_wide(N) or l2_memory_plan(cfm, M, N, S)[4]:
+        return None
+    return (B * cluster, N, cfm.local_dim)
 
 
 def wide_keys_shape(t: Optional[torch.Tensor]) -> Optional[Tuple[int, ...]]:
@@ -408,15 +497,14 @@ def wide_rows_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int
     return (B * cluster, 3, N, cfm.local_dim) if is_wide_backward(N) else None
 
 
-def tall_shape_for(cfm: ModelConfig, B: int, M: int, cluster: int, tall: bool,
-                   backward: bool = False) -> Optional[Tuple[int, int, int]]:
-    """The tall builds' scratch: each block's GA keys [B * C, M, G] in the
-    forward, its GA keys and d(layer input) partial [B * C, M, G + D] in the
-    backward (the wide backward's too, ``tall`` True there); None for the
-    other builds."""
+def tall_shape_for(cfm: ModelConfig, B: int, M: int, cluster: int, tall: bool
+                   ) -> Optional[Tuple[int, int, int]]:
+    """The tall loop backward's scratch: each block's GA keys and d(layer
+    input) partial [B * C, M, G + D] (the wide backward's too, ``tall`` True
+    there); None for the other builds."""
     if not tall:
         return None
-    return (B * cluster, M, cfm.global_dim + (cfm.local_dim if backward else 0))
+    return (B * cluster, M, cfm.global_dim + cfm.local_dim)
 
 
 def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -424,7 +512,7 @@ def launch_loop_forward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch
                         dropout_rate: float = 0.0, seed: int = 0, mol_base: int = 0,
                         cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check CUDA inputs and launch the kernel with ``pack_params`` output,
-    at ``cluster`` blocks per structure (``cluster_size(B)`` when None), in
+    at ``cluster`` blocks per structure (``forward_cluster`` when None), in
     the build ``forward_library`` names. Index ranges are the caller's, as
     ``kernels.scann_forward.launch_scann_forward`` says."""
     dev = packed["wde"].device
@@ -448,40 +536,45 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             scratch: Optional[Dict[str, Optional[torch.Tensor]]] = None, tall: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``launch_loop_forward`` accepted, at
-    ``cluster`` blocks per structure (``cluster_size(B)`` when None), on
+    ``cluster`` blocks per structure (``forward_cluster`` when None), on
     ``scratch`` from ``loop_forward_scratch`` (allocated here when None; one
     of another build raises), in the tall build where ``is_tall`` or
     ``tall`` (True forces it at a shape the narrow build takes, with the
-    narrow plan's atom blocks, for the checks that hold the two builds bit
-    for bit)."""
+    tall plan, for the checks that hold the two builds against each
+    other)."""
     dev = packed["wde"].device
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
-    cluster = cluster_size(B) if cluster is None else cluster
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster={cluster}: the loop forward launches with {CLUSTER_SIZES}")
     library, symbol = forward_library(cfm, M, N, S, tall)
     tall = library == "scann_loop_tall"
+    wide = is_wide(N)
+    sizes = FORWARD_CLUSTER_SIZES if tall or wide else CLUSTER_SIZES
+    if cluster is None:
+        cluster = forward_cluster(cfm, B, M, N, S, tall)
+    if cluster not in sizes:
+        raise ValueError(f"cluster={cluster}: the {library} build of the loop forward launches "
+                         f"with {sizes}")
     want = loop_forward_scratch(cfm, B, M, N, "meta", cluster, S, tall)
     if scratch is None:
         scratch = loop_forward_scratch(cfm, B, M, N, dev, cluster, S, tall)
     elif any(wide_keys_shape(scratch.get(k)) != wide_keys_shape(want[k])
-             for k in ("next_centers", "wide_keys", "tall")):
-        raise ValueError(f"scratch of shape {wide_keys_shape(scratch['next_centers'])} (wide "
-                         f"keys {wide_keys_shape(scratch['wide_keys'])}, tall "
-                         f"{wide_keys_shape(scratch.get('tall'))}) handed to a batch of shape "
-                         f"{(B, M, cfm.local_dim)} at {cluster} blocks per structure in the "
-                         f"{library} build")
+             for k in ("geo", "next_centers", "readout", "wide_keys")):
+        raise ValueError(f"scratch of shape {wide_keys_shape(scratch['next_centers'])} "
+                         f"(readout {wide_keys_shape(scratch.get('readout'))}, wide keys "
+                         f"{wide_keys_shape(scratch.get('wide_keys'))}) handed to a batch of "
+                         f"shape {(B, M, cfm.local_dim)} at {cluster} blocks per structure in "
+                         f"the {library} build")
+    rows, keys = scratch["readout"], scratch["wide_keys"]
+    if keys is not None and keys.data_ptr() != rows.data_ptr() + 4 * rows.numel():
+        raise ValueError("the wide keys of a kept scratch must follow its readout rows in "
+                         "one allocation (loop_forward_scratch)")
     bf16 = kfwd.operand_mode(cfm)
-    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N, S)
+    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N, S, tall)
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
-    wide = is_wide(N)
-    kfwd.call_kernel(library, symbol, dev,
-                     tensors + [scratch["next_centers"], seg,
-                                scratch["tall"] if tall else scratch["wide_keys"]],
+    kfwd.call_kernel(library, symbol, dev, tensors + [scratch["next_centers"], seg, rows],
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
     launch_loop_forward.bf16_launches += bf16
@@ -531,28 +624,53 @@ def loop_forward_bytes(cfm: ModelConfig, B: int, M: int, N: int) -> int:
     return 2 * cfm.n_attention * B * M * N * cfm.local_dim * 4
 
 
-def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
+def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int,
+                                S: int = 0, tall: bool = False) -> int:
     """How many clusters of ``cluster`` loop-forward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``), in the kernel of
-    the build and operand mode that launches (M, N) (``forward_library``,
-    ``kfwd.operand_mode``)."""
+    the build and operand mode that launches (M, N, S) (``forward_library``,
+    ``kfwd.operand_mode``; ``tall`` forces the tall build). Each entry
+    point's answers are kept, so a launch asks the card once a shape."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
 
-    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N)
+    chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N, S, tall)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
-            chunk_atoms, work, 0, 0, atom_block, 0, kfwd.operand_mode(cfm), cluster]
-    library, symbol = forward_library(cfm, M, N)
+            chunk_atoms, work, 0, 0, atom_block, S, kfwd.operand_mode(cfm), cluster]
+    library, symbol = forward_library(cfm, M, N, S, tall)
     fn = getattr(load_library(library), symbol + "_max_clusters")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    n = fn((ctypes.c_int * len(dims))(*dims), cluster)
-    if n < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
-    return n
+    known = getattr(fn, "answers", None)
+    if known is None:
+        known = fn.answers = {}
+    key = (tuple(dims), cluster)
+    if key not in known:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = fn((ctypes.c_int * len(dims))(*dims), cluster)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
+        known[key] = n
+    return known[key]
+
+
+def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0,
+                    tall: bool = False) -> int:
+    """Thread blocks per structure of a loop-forward launch: in the tall and
+    wide builds (``tall`` forces the tall one) the largest of
+    ``FORWARD_CLUSTER_SIZES`` whose B clusters the card runs at once by that
+    build's own ``max_active_forward_clusters`` (16 for one structure; 7 at
+    B = 16 on a card that runs 15 clusters of 8 and 16 of 7), so a small
+    batch fills the card; in the narrow build ``cluster_size(B)``, as the
+    loop backward."""
+    if not (tall or is_wide(N) or is_tall(cfm, M, N, S)):
+        return cluster_size(B)
+    for C in FORWARD_CLUSTER_SIZES:
+        if B <= max_active_forward_clusters(cfm, B, M, N, C, S, tall):
+            return C
+    return 1
 
 
 # --- the backward ---------------------------------------------------------------
@@ -838,7 +956,7 @@ def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: 
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
-    homes = tall_shape_for(cfm, B, M, cluster, tall or wide, backward=True)
+    homes = tall_shape_for(cfm, B, M, cluster, tall or wide)
     rows = wide_rows_shape_for(cfm, B, N, cluster)
     scratch["tall"] = scratch["wide_rows"] = None
     if homes is not None:
@@ -914,7 +1032,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
           or scratch["rows"].shape[0] != B * cluster or scratch_stash_mode(scratch) != mode
           or wide_keys_shape(scratch.get("wide_rows")) != wide_rows_shape_for(cfm, B, N, cluster)
           or wide_keys_shape(scratch.get("tall"))
-          != tall_shape_for(cfm, B, M, cluster, tall or wide, backward=True)
+          != tall_shape_for(cfm, B, M, cluster, tall or wide)
           or (wide and not _rows_follow(scratch))):
         raise ValueError(f"scratch of shape {tuple(scratch['dcenters'].shape)} with "
                          f"{scratch['rows'].shape[0]} gradient rows, stash "

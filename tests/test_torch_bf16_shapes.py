@@ -250,10 +250,9 @@ def test_torch_bf16_shapes_gates_equal_the_f32_gates(name):
             got = (t16.eval_route(M, N), t16.train_route(M, N))
             assert got == (t32.eval_route(M, N), t32.train_route(M, N)), (M, N)
             routes.add(got)
-    # both routes of the eval show up at these widths; as the wide #4 keeps
-    # its centers in global memory, every one of these shapes trains on a
-    # kernel
-    assert {r for r, _ in routes} >= {"loop", "per_layer"}
+    # as the wide #3 and #4 keep their centers in global memory, every one of
+    # these shapes evaluates and trains on a kernel
+    assert "loop" in {r for r, _ in routes} and {r for r, _ in routes} <= {"fused", "loop"}
     assert "loop" in {r for _, r in routes} and "per_layer" not in {r for _, r in routes}
 
 
@@ -263,8 +262,7 @@ def test_torch_bf16_shapes_name_the_bf16_builds():
     and ``Trainer.shape_libraries`` (what ``fit`` and ``warmup_serving``
     build first) the builds a bf16 model's buckets launch: MP2018 (96, 96)
     evaluates wide, (80, 96) and (64, 64) train wide, (300, 32) and (573,
-    16) evaluate and train tall, (240, 96) trains wide and evaluates per
-    layer."""
+    16) evaluate and train tall, (240, 96) trains and evaluates wide."""
     mp = CONFIGS["mp2018"]
     b16 = dataclasses.replace(mp, dtype="bfloat16")
     assert kloop.forward_library(b16, 96, 96) == ("scann_loop_wide", "scann_loop_forward_wide")
@@ -279,14 +277,14 @@ def test_torch_bf16_shapes_name_the_bf16_builds():
     shapes = [(96, 96, 0), (80, 96, 0), (64, 64, 0), (300, 32, 0), (573, 16, 0), (240, 96, 0)]
     t16 = train_loop.Trainer(ScannConfig(model=b16), "cpu", "unused")
     t32 = train_loop.Trainer(ScannConfig(model=mp), "cpu", "unused")
-    assert t16.train_route(240, 96) == "loop" and t16.eval_route(240, 96) == "per_layer"
+    assert t16.train_route(240, 96) == "loop" and t16.eval_route(240, 96) == "loop"
     assert t16.shape_libraries(shapes) == t32.shape_libraries(shapes) == (
-        "local_attention_wide", "scann_loop_tall", "scann_loop_wide")
+        "scann_loop_tall", "scann_loop_wide")
     assert t16.shape_libraries(shapes, training=True) == (
-        "local_attention_wide", "scann_loop_backward_tall_bf16", "scann_loop_backward_wide_bf16",
+        "scann_loop_backward_tall_bf16", "scann_loop_backward_wide_bf16",
         "scann_loop_tall", "scann_loop_wide")
     assert t32.shape_libraries(shapes, training=True) == (
-        "local_attention_wide", "scann_loop_backward_tall", "scann_loop_backward_wide",
+        "scann_loop_backward_tall", "scann_loop_backward_wide",
         "scann_loop_tall", "scann_loop_wide")
     assert set(_build.BF16_SHAPE_SOURCES) <= set(_build.SHAPE_SOURCES)
     assert not set(_build.SHAPE_SOURCES) & set(_build.SOURCES)

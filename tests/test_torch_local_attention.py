@@ -141,7 +141,8 @@ ROUTES = [
     (MP2018, 192, 32, "loop"),
     (MP2018, 256, 32, "loop"),
     (MP2018, 1024, 48, "loop"),
-    (MP2018, 256, 96, "per_layer"),
+    (MP2018, 256, 96, "loop"),
+    (dataclasses.replace(MP2018, use_attn_norm=False), 256, 96, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 32, 16, "per_layer"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer"),
 ]

@@ -84,10 +84,12 @@ def test_torch_loop_gate_accepts_crystal_shapes(cfm, M, N):
 
 
 def test_torch_loop_gate_refuses():
-    # past the wide plan (N > 64), and past the tall plan's readout vectors
+    # past the wide and tall plans' readout vectors (N > 64 and N <= 64):
+    # neither keeps resident centers, so both take M into the thousands
     with pytest.raises(NotImplementedError, match="per-layer kernel"):
-        kloop.check_supported(MP2018, 512, 96)
-    assert kloop.refusal(MP2018, 512, 96) is not None
+        kloop.check_supported(MP2018, 30000, 96)
+    assert kloop.refusal(MP2018, 512, 96) is None
+    assert "readout's vectors" in kloop.refusal(MP2018, 30000, 96)
     assert "readout's vectors" in kloop.refusal(MP2018, 30000, 32)
     with pytest.raises(NotImplementedError, match="use_attn_norm"):
         kloop.check_supported(dataclasses.replace(MP2018, use_attn_norm=False), 96, 32)
@@ -152,7 +154,8 @@ def test_torch_loop_forward_plan_keeps_its_gate(M_, N_, ok):
     """The narrow plan of the tensor-core loop forward still takes M = 232 at
     N = 32 (and N up to 64 there), with its atom blocks; one past its own
     edge, M = 238, is the first tall shape: the tall build (centers in
-    global memory) takes it with atom blocks of 32 again."""
+    global memory) takes it with atom blocks of 32 again and two chunk
+    operand buffers (``l2_memory_plan``)."""
     chunk_atoms, block, work, nbytes = kloop.loop_memory_plan(MP2018, M_, N_)
     assert kloop.refusal(MP2018, M_, N_) is None
     assert (nbytes <= kfwd.MAX_SHARED_BYTES) == ok and kloop.is_tall(MP2018, M_, N_) != ok
@@ -163,7 +166,8 @@ def test_torch_loop_forward_plan_keeps_its_gate(M_, N_, ok):
         else kloop.loop_memory_plan(MP2018, M_, N_, tall=True))
     if not ok:
         tall = kloop.forward_plan(MP2018, M_, N_)
-        assert tall == (chunk_atoms, 32, work, 4 * (2 * 32 * (128 + 4) + work))
+        assert tall == kloop.l2_memory_plan(MP2018, M_, N_)[:4]
+        assert tall[:2] == (chunk_atoms, 32) and tall[3] == 4 * (2 * 32 * (128 + 4) + tall[2])
 
 
 def test_torch_molecule_forward_plan_keeps_its_gate():

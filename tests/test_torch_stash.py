@@ -583,11 +583,10 @@ GATE_M = 1024      # past the TPU gates' largest edge, 968 (Pt/graphene at N = 8
 # fits_loop_vmem training) and loop forward (#3, fits_loop_vmem eval), the
 # port's #4 (backward_refusal), #3 (refusal) and #2 (kbwd.refusal). The port's
 # loop kernels take N up to 256 in their wide builds (N > 32 for #4, N > 64
-# for #3); #3's resident centers [M, 128] cap M near 230 there, while #4's
-# wide build keeps its centers in global memory, as the tall builds do at a
-# narrower N, and takes M into the thousands
+# for #3); both wide builds keep their centers in global memory, as the tall
+# builds do at a narrower N, and take M into the thousands
 PORT4 = (1024,) * 10
-PORT3 = (1024, 1024, 1024, 1024, 1024, 1024, 235, 233, 229, 225)
+PORT3 = (1024,) * 10
 PORT2 = (33, 33, 33, 33, 0, 0, 0, 0, 0, 0)
 TPU = {"qm9": (828, 467, 325, 254, 170, 128, 88, 66, 44, 33),
        "mp2018": (768, 428, 298, 232, 156, 121, 81, 61, 40, 30),
@@ -600,7 +599,7 @@ GATES = {name: {"tpu4": t, "port4": PORT4, "tpu3": t, "port3": PORT3, "port2": P
 def test_torch_backward_gates_against_the_tpu_kernels(name):
     """The table of ``ROADMAP.md`` §B1: where the port's whole-model kernels
     stop (N <= 32 for #2, N <= 256 for #3 and #4 in their wide builds, M
-    into the thousands in their tall builds and #4's wide one) and where the TPU kernels' VMEM
+    into the thousands in their tall and wide builds) and where the TPU kernels' VMEM
     gates stop, at each published config's widths; the port's loop kernels
     take every M the TPU's take at every N."""
     jax_kw = dict(local_dim=128, num_head=8, global_dim=128, dense_out=128, scale=0.5,

@@ -4,7 +4,8 @@ against the JAX package on the CPU, in float32.
 
 - The plans and gates: the tall plans drop the resident [M, max(D, G)]
   buffer, so they do not grow with M apart from the readout's vectors; #3's
-  takes atom blocks of 32 again, #4's chunks of 64 rows with atom blocks of
+  takes atom blocks of 32 again and two chunk operand buffers (the next
+  chunk staged while one runs), #4's chunks of 64 rows with atom blocks of
   16 at D = 128 (the narrow plans keep chunks of 32 rows, the wide #4's
   sub-chunks of 64 rows without the resident buffer, and the narrow gates
   take what they took); ``forward_library`` / ``backward_library``
@@ -106,10 +107,11 @@ def _plan_wide(cfm, M, N, S=0):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_torch_tall_plans_do_not_grow_with_m(name, N):
     """Past the narrow plans, the tall plans take the same atom blocks and
-    bytes at every M up to thousands of atoms (#3 blocks of 32; #4 chunks of
-    64 rows and blocks of 16 at D = 128, 32 at N = 24, whose chunk is 48
-    rows): only the readout's vectors (2 [M] in #3, 5 in #4) grow, and they
-    take over the work region only where they outgrow a chunk's buffers.
+    bytes at every M up to thousands of atoms (#3 blocks of 32 and two chunk
+    operand buffers; #4 chunks of 64 rows and blocks of 16 at D = 128, 32 at
+    N = 24, whose chunk is 48 rows): only the readout's vectors (2 [M] in
+    #3, 5 in #4) grow, and they take over the work region only where they
+    outgrow a chunk's buffers (#3: past M = 18880).
     The narrow plans of #4 keep chunks of 32 rows; its wide plans take
     sub-chunks of 64 rows without the resident buffer."""
     cfm = CONFIGS[name]
@@ -118,7 +120,7 @@ def test_torch_tall_plans_do_not_grow_with_m(name, N):
     assert len({p for p in fwd}) == 1 and fwd[0][1] == 32
     chunk_atoms, block, work, nbytes = fwd[0]
     assert nbytes == 4 * (2 * 32 * (wd + 4) + work)
-    big = 16000       # the readout's [AB, wd] block and vectors outgrow a chunk's buffers
+    big = 20000       # the readout's [AB, wd] block and vectors outgrow a chunk's buffers
     assert kloop.loop_memory_plan(cfm, big, N, tall=True) == (
         chunk_atoms, 32, 32 * wd + 2 * wd + 2 * r4(big) + r4(O),
         4 * (2 * 32 * (wd + 4) + 32 * wd + 2 * wd + 2 * r4(big) + r4(O)))
@@ -243,7 +245,8 @@ def test_torch_tall_packed_segments_fit():
 
 def test_torch_tall_scratch_sizes():
     """The scratch of each build: #3's new centers [B, M, D] narrow, a
-    ping-pong [2, B, M, D] tall beside the GA keys [B * C, M, G]; #4's tall
+    ping-pong [2, B, M, D] tall beside the readout rows [B, M, 2G] (each
+    atom's GA keys and queries, whatever C); #4's tall
     scratch [B * C, M, G + D] (GA keys, then the d(layer input) partial),
     None in the narrow build; the wide #4 takes it too, with its rows of one
     atom [B * C, 3, N, D] right after it in the same allocation."""
@@ -254,9 +257,9 @@ def test_torch_tall_scratch_sizes():
         assert kloop.is_tall(cfm, M, N) == (M > 200)
         f = kloop.loop_forward_scratch(cfm, B, M, N, "cpu", C, tall=tall if M < 200 else None)
         assert tuple(f["next_centers"].shape) == ((2, B, M, D) if tall else (B, M, D))
-        assert (f["tall"] is None) != tall and f["wide_keys"] is None
+        assert (f["readout"] is None) != tall and f["wide_keys"] is None
         if tall:
-            assert tuple(f["tall"].shape) == (B * C, M, G)
+            assert tuple(f["readout"].shape) == (B, M, 2 * G)
         s = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, None,
                                         tall=tall if M < 200 else None)
         assert (s["tall"] is None) != tall and s["wide_rows"] is None
@@ -269,15 +272,84 @@ def test_torch_tall_scratch_sizes():
     assert wide["wide_rows"].data_ptr() == wide["tall"].data_ptr() + 4 * wide["tall"].numel()
 
 
+# clusters of 1 to 16 blocks the card runs at once, as the H100 reported them
+# for both builds (``cudaOccupancyMaxActiveClusters``)
+AT_ONCE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, 10: 7, 11: 7,
+           12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("B,want", [(1, 16), (7, 16), (8, 9), (16, 6), (30, 4), (64, 2),
+                                    (67, 1)])
+@pytest.mark.parametrize("M,N", [(322, 32), (80, 96)])
+def test_torch_forward_cluster_fills_the_card(B, want, M, N, monkeypatch):
+    """The tall and wide #3 launch the largest of 16 ... 1 blocks per
+    structure whose B clusters run at once by the launched build's own
+    ``max_active_forward_clusters`` (16 for one structure, 6 at B = 16
+    where 15 clusters of 8 or 7 fit, 2 at the recipe batch of 64); the
+    narrow #3 and every #4 build keep ``cluster_size(B)``, whose sizes they
+    take (a launch outside them is refused)."""
+    asked = []
+
+    def at_once(cfm, B_, M_, N_, C, S=0, tall=False):
+        asked.append((kloop.forward_library(cfm, M_, N_, S, tall)[0], C))
+        return AT_ONCE[C]
+
+    monkeypatch.setattr(kloop, "max_active_forward_clusters", at_once)
+    cfm = MP2018
+    assert kloop.is_tall(cfm, M, N) or kloop.is_wide(N)
+    assert kloop.forward_cluster(cfm, B, M, N) == want
+    assert {lib for lib, _ in asked} == {kloop.forward_library(cfm, M, N)[0]}
+    assert asked[0][1] == 16 and asked[-1][1] == want
+    # the narrow #3 (and a forced tall launch at a narrow shape asks the tall build)
+    del asked[:]
+    assert kloop.forward_cluster(cfm, B, 96, 32) == kloop.cluster_size(B) and not asked
+    kloop.forward_cluster(cfm, B, 96, 32, tall=True)
+    assert {lib for lib, _ in asked} == {"scann_loop_tall"}
+    assert kloop.cluster_size(B) in kloop.CLUSTER_SIZES == (4, 2, 1)
+    assert kloop.FORWARD_CLUSTER_SIZES == tuple(range(16, 0, -1))
+
+
+def test_torch_forward_cluster_sizes_in_the_sources():
+    """The tall and wide builds' launcher takes up to 16 blocks a structure
+    and opts into the non-portable sizes past 8 (the launch and the
+    occupancy query alike); the narrow build keeps its 4."""
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        src = f.read()
+    assert "constexpr int kMaxCluster = 4;" in src and "constexpr int kMaxL2Cluster = 16;" in src
+    assert ("constexpr int kBuildMaxCluster = (kWideBuild || kTall) ? kMaxL2Cluster : "
+            "kMaxCluster;") in src
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
+    assert src.count("set_kernel_attributes((const void*)kernel, bytes)") == 2
+    assert "C < 1 || C > kBuildMaxCluster ||" in src
+
+
+@pytest.mark.parametrize("M,N,tall", [(322, 32, True), (96, 32, False), (80, 96, True)])
+def test_torch_scann_rbf_table_scratch(M, N, tall):
+    """SCANN (no geometry) in the tall and wide builds: the geometry scratch
+    holds the distance RBF table [B * M * N * round4(K)], which each launch
+    forms once for all layers and the staging copies from; the narrow build
+    keeps none. A kept scratch without it is refused."""
+    cfm = dataclasses.replace(CONFIGS["ptgp"], n_attention=1)
+    B = 2
+    f = kloop.loop_forward_scratch(cfm, B, M, N, "cpu", 2)
+    l2 = kloop.is_tall(cfm, M, N) or kloop.is_wide(N)
+    assert l2 == tall
+    assert (f["geo"] is None) != tall
+    if tall:
+        assert tuple(f["geo"].shape) == (B * M * N * r4(cfm.num_gaussian),)
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as src:
+        text = src.read()
+    assert "if (!a.g_update) rbf_b = a.geo + (size_t)b * M * N * round4(a.K);" in text
+
+
 @pytest.mark.parametrize("M,force", [(96, False), (96, True), (300, False)])
 def test_torch_tall_launch_arguments(M, force, monkeypatch):
     """A tall launch (past the narrow plan, or ``tall=True``) calls the tall
-    builds with the tall scratch in the last pointer slot, the ping-pong
-    centers in #3's slot 49, #3 at the gate's plan (the narrow one where it
-    fits, so a forced launch runs the narrow atom blocks), #4 at the plan of
-    the build it calls (a forced launch: the tall plan's chunk and atom
-    block), and counts ``.tall_launches``; a kept scratch of the other build
-    is refused."""
+    builds with their scratch in the last pointer slot (#3's readout rows
+    [B, M, 2G], #4's per-block [B * C, M, G + D]), the ping-pong centers in
+    #3's slot 49, each at the plan of the build it calls (a forced launch:
+    the tall plan's chunk buffers and atom block), and counts
+    ``.tall_launches``; a kept scratch of the other build is refused."""
     calls = _stub(monkeypatch)
     for launcher in (kloop.launch_loop_forward, kloop.launch_loop_backward):
         monkeypatch.setattr(launcher, "tall_launches", 0)
@@ -296,14 +368,15 @@ def test_torch_tall_launch_arguments(M, force, monkeypatch):
     assert lib_b == sym_b == ("scann_loop_backward_tall" if tall else "scann_loop_backward")
     assert len(t_f) == 52 and len(t_b) == 60
     assert tuple(t_f[49].shape) == ((2, B, M, 128) if tall else (B, M, 128))
-    for keys, cols in ((t_f[-1], 128), (t_b[-1], 256)):
+    for keys, shape in ((t_f[-1], (B, M, 2 * 128)), (t_b[-1], (B * 2, M, 128 + 128))):
         assert (keys is None) != tall
         if tall:
-            assert tuple(keys.shape) == (B * 2, M, cols) and keys.dtype == torch.float32
-    assert (d_f[16], d_f[20], d_f[17]) == tuple(kloop.forward_plan(cfm, M, N)[:3])
+            assert tuple(keys.shape) == shape and keys.dtype == torch.float32
+    assert (d_f[16], d_f[20], d_f[17]) == tuple(kloop.forward_plan(cfm, M, N, tall=force)[:3])
     assert (d_b[18], d_b[21]) == kloop.backward_plan(cfm, M, N, tall=force)[:2]
-    if force:     # #3: the narrow plan's atom blocks; #4: the tall plan's chunk and block
-        assert d_f[20] == kloop.loop_memory_plan(cfm, M, N)[1]
+    if force:     # the tall plans' chunk buffers, chunk and atom block
+        assert (d_f[16], d_f[20], d_f[17]) == kloop.l2_memory_plan(cfm, M, N)[:3]
+        assert d_f[17] != kloop.loop_memory_plan(cfm, M, N)[2]
         assert (d_b[18], d_b[21]) == kloop.loop_backward_memory_plan(cfm, M, N, tall=True)[:2]
         assert (d_b[18], d_b[21]) != kloop.loop_backward_memory_plan(cfm, M, N)[:2]
     assert kloop.launch_loop_forward.tall_launches == tall
@@ -356,7 +429,9 @@ def test_torch_tall_sources():
                 assert f"#define {macro}" not in body, other
     assert ('#define SCANN_LOOP_BACKWARD_TALL\n#define SCANN_LOOP_BACKWARD_BF16\n'
             '#include "scann_loop_backward.cu"') in src["scann_loop_backward_tall_bf16"]
-    assert "p.offQ = kTall ? 0 : a.M * p.wd;" in src["scann_loop"]
+    plan = src["scann_loop"][src["scann_loop"].index("inline Plan make_plan("):]
+    assert "if constexpr (kTall || kWide) {" in plan and "p.offQ = a.M * p.wd;" in plan
+    assert "p.offQ = 0;" in src["scann_loop"][src["scann_loop"].index("inline L2Plan l2_plan("):]
     assert "p.offBlk = kTall || kWide ? 0 : a.M * p.wd;" in src["scann_loop_backward"]
     # only the tall builds take chunks of 64 rows of several atoms: the narrow
     # build keeps kMaxChunkRows = 32 (the launcher's cap); the wide build takes
@@ -389,11 +464,16 @@ def test_torch_tall_sources():
                                            "tall_energy_softmax"))
     # the tall builds take both operand modes and want their scratch
     assert "(kTall && bf16)" not in src["scann_loop"]
-    assert "(wide_keys != nullptr) != (kWideBuild || kTall)" in src["scann_loop"]
+    assert "(l2 != nullptr) != (kWideBuild || kTall)" in src["scann_loop"]
     assert "(wide_keys != nullptr) != (kWide || kTall)" in src["scann_loop_backward"]
-    # the gather of the tall #3 reads past L1
+    # the tall and wide #3 gather by bulk copies through L2 (other SMs wrote
+    # the rows), a chunk staged while the one before it runs (tall)
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
-        assert "v[j] = kL2 ? __ldcg(src) : *src;" in f.read()
+        common = f.read()
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in common
+    assert src["scann_loop"].count("fwd_stage_chunk_bulk(") == 1
+    assert "if (n0 < m_hi) stage(cur ^ 1, ring_idx(cur ^ 1), n0 * N, chunk_atoms(n0) * N);" in (
+        src["scann_loop"])
 
 
 # --- the plain versions at a tall shape against the JAX kernels ---------------------------

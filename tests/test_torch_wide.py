@@ -31,7 +31,7 @@ import pytest
 import torch
 
 import scann_tpu.kernels.local_attention as jla
-from conftest import jit_init_vars
+from conftest import jit_apply, jit_init_vars
 from scann_tpu.config import ModelConfig as JaxModelConfig
 from scann_tpu.kernels import scann_loop as jax_loop
 from scann_tpu.models import ScannModel as JaxScannModel
@@ -339,9 +339,9 @@ ROUTES = [
     (MP2018, 300, 32, "loop", "loop"),
     (MP2018, 573, 16, "loop", "loop"),
     (dataclasses.replace(MP2018, dtype="bfloat16"), 300, 32, "loop", "loop"),
-    (MP2018, 240, 96, "loop", "per_layer"),
-    (MP2018, 256, 96, "loop", "per_layer"),
-    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "loop", "per_layer"),
+    (MP2018, 240, 96, "loop", "loop"),
+    (MP2018, 256, 96, "loop", "loop"),
+    (dataclasses.replace(MP2018, dtype="bfloat16"), 240, 96, "loop", "loop"),
 ]
 
 
@@ -349,9 +349,9 @@ ROUTES = [
 def test_torch_wide_routes(cfm, M, N, train, evaluate):
     """The Trainer's routes at wide N come from the gates alone: MP2018 at
     (96, 40) and (80, 96) trains on #4's wide build, (96, 96) evaluates on
-    #3's; (240, 96) and (256, 96) train on #4's wide build (its plan does not
-    grow with M) and evaluate per layer with #5's wide build taking the
-    layer, and without the attention LayerNorm both routes are per layer.
+    #3's; (240, 96) and (256, 96) train on #4's wide build and evaluate on
+    #3's (neither plan grows with M), and without the attention LayerNorm
+    both routes are per layer, #5's wide build taking the layer.
     At a narrow N past the narrow plans, (300, 32) and (573, 16)
     train and evaluate on #4's and #3's tall builds. The bf16 operand mode
     takes the routes of f32 at (96, 96) and (300, 32), #4 in its bf16 wide
@@ -435,8 +435,9 @@ def _stub(monkeypatch):
 
 @pytest.mark.parametrize("N", [32, 48, 96])
 def test_torch_wide_launch_arguments(N, monkeypatch):
-    """A wide N launches the wide builds: #3 above 64 with a key scratch of
-    [B * C, N, D] f32 last among its pointers, #4 above 32 with the tall
+    """A wide N launches the wide builds: #3 above 64 with its readout rows
+    [B, M, 2G] f32 last among its pointers (the atom's keys in shared
+    memory at this width), #4 above 32 with the tall
     scratch [B * C, M, G + D] there, its rows of one atom [B * C, 3, N, D]
     right after it in one allocation (both None in the narrow builds), and
     counts ``.wide_launches``; a kept scratch without the rows, or with rows
@@ -457,8 +458,9 @@ def test_torch_wide_launch_arguments(N, monkeypatch):
     assert len(t_f) == 52 and len(t_b) == 60
     assert (t_f[-1] is None) == (not wide3) and (t_b[-1] is None) == (not wide4)
     if wide3:
-        assert tuple(t_f[-1].shape) == (2 * 2, N, cfm.local_dim)
+        assert tuple(t_f[-1].shape) == (2, 12, 2 * cfm.global_dim)
         assert t_f[-1].dtype == torch.float32
+        assert t_f[-1].untyped_storage().nbytes() == 4 * t_f[-1].numel()
     if wide4:
         homes = t_b[-1]
         assert tuple(homes.shape) == (2 * 2, 12, cfm.global_dim + cfm.local_dim)
@@ -517,9 +519,11 @@ def test_torch_wide_layer_launch_arguments(N, monkeypatch):
 
 
 def test_torch_wide_plans_match_cuda_sources():
-    """The wide plans' terms as the CUDA sources write them: the forwards'
-    chunk region (a 64-row sub-chunk and the atom's energies [N, H],
-    ``fwd_wide_chunk_floats``), #3's and #5's choice of it by N, and #4's
+    """The wide plans' terms as the CUDA sources write them: #5's chunk
+    region (a 64-row sub-chunk and the atom's energies [N, H],
+    ``fwd_wide_chunk_floats``) and its choice by N, #3's without the
+    resident centers (``l2_plan``: the same sub-chunk and energies, and the
+    atom's keys [N, D] in shared memory where they fit), and #4's
     wide chunk (a 64-row sub-chunk, the atom's attention and d attention [N,
     H], the dropout mask of the sub-chunk and the d query sum [wd]) without
     the resident buffer; the Python mirrors give the same floats."""
@@ -530,8 +534,12 @@ def test_torch_wide_plans_match_cuda_sources():
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()
     assert "p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;" in loop
-    assert ("int w = kWide ? fwd_wide_chunk_floats(a.N, a.D, a.H) : "
-            "fwd_chunk_floats(p.rows, a.D, a.H);") in loop
+    for term in ("const int att = round4(kWide ? a.N * a.H : p.rows * a.H);",
+                 "int front = p.rows * (a.D + 4) + att;",
+                 "q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);",
+                 "q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;",
+                 "int w = q.offK + (q.smem_keys ? a.N * a.D : 0);"):
+        assert term in loop
     with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
         bwd = f.read()
     assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
@@ -546,11 +554,12 @@ def test_torch_wide_plans_match_cuda_sources():
     r4 = lambda v: -(-v // 4) * 4
     D, H, wd = 128, 8, 128
     for N in (72, 96, 256):
-        assert kfwd.forward_wide_chunk_floats(N, D, H) == 64 * (2 * D + 4) + 64 * (D + 4) + r4(
-            N * H)
         _, block, work, nbytes = kloop.loop_memory_plan(MP2018, 80, N)
-        assert work >= kfwd.forward_wide_chunk_floats(N, D, H)
-        assert nbytes == 4 * (80 * wd + 2 * block * (wd + 4) + work)
+        keys = kloop.l2_memory_plan(MP2018, 80, N)[4]
+        # a 64-row sub-chunk's buffers and the energy row, then the index ring
+        assert work == (64 * (2 * D + 4) + 64 * (D + 4) + r4(N * H) + r4(2 * N) + 4
+                        + (N * D if keys else 0))
+        assert keys == (N <= 200) and nbytes == 4 * (2 * block * (wd + 4) + work)
     for N in (40, 96, 256):
         chunk_atoms, block, nbytes = kloop.loop_backward_memory_plan(MP2018, 60, N)
         rows = 64
@@ -566,6 +575,170 @@ def test_torch_wide_plans_match_cuda_sources():
     assert kloop.loop_backward_memory_plan(MP2018, 2000, 184)[1] == 16
     assert kloop.loop_backward_memory_plan(MP2018, 40, 185)[1] == 8
     assert kloop.loop_backward_memory_plan(MP2018, 226, 32)[1] == 8
+
+
+@pytest.mark.parametrize("name,M,N,S", [
+    ("mp2018", 80, 96, 0), ("mp2018", 300, 96, 0), ("mp2018", 1000, 128, 0),
+    ("mp2018", 40, 200, 0), ("mp2018", 40, 256, 0), ("mp2018", 3000, 256, 0),
+    ("mp2018", 96, 96, 8), ("ptgp", 322, 32, 0), ("ptgp", 573, 16, 0), ("mp2018", 428, 16, 0),
+    ("mp2018", 300, 32, 8), ("mp2018", 20000, 32, 0), ("small", 12, 72, 0),
+    ("mp2018", 73, 81, 0), ("mp2018", 40, 199, 0), ("ptgp", 300, 21, 0)])
+def test_torch_l2_plan_matches_cuda_source(name, M, N, S):
+    """``l2_memory_plan``, the Python mirror of ``l2_plan`` and ``make_plan``
+    of ``csrc/scann_loop.cu`` for the tall and wide builds, term by term as
+    the source writes them: two slots, the front (a chunk's product and
+    attention, or the wide atom's energy row, at least the ResidualNorm's
+    h2), two chunk operand buffers in the tall build and one 64-row sub-chunk
+    in the wide one, the index ring (two slots of a chunk's or an atom's
+    neighbour indices) and two mbarriers, and the wide atom's keys [N, D]
+    where the plan with them fits (else in L2); the atom block the largest
+    that fits."""
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        loop = f.read()
+    plan = loop[loop.index("inline L2Plan l2_plan("):loop.index("inline L2Plan make_l2_plan(")]
+    for term in ("p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;",
+                 "const int att = round4(kWide ? a.N * a.H : p.rows * a.H);",
+                 "int front = p.rows * (a.D + 4) + att;",
+                 "front = AB * p.lds > front ? AB * p.lds : front;",
+                 "q.offA1 = front + p.rows * (2 * a.D + 4);",
+                 "q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);",
+                 "q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;",
+                 "int w = q.offK + (q.smem_keys ? a.N * a.D : 0);",
+                 "const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);",
+                 "p.offWork = 2 * AB * p.lds;", "p.total = p.offWork + w;"):
+        assert term in plan, term
+    make = loop[loop.index("inline L2Plan make_l2_plan("):]
+    assert ("const L2Plan q = l2_plan<kWide>(a, true);\n"
+            "  if (!kWide || q.p.total * (int)sizeof(float) <= kMaxSharedBytes) return q;\n"
+            "  return l2_plan<kWide>(a, false);") in make
+    cfm = {"mp2018": MP2018, "ptgp": dataclasses.replace(MP2018, embedding_dim=48,
+                                                         use_ring=True, g_update=False),
+           "small": ModelConfig(**SMALL)}[name]
+    r4 = lambda v: -(-v // 4) * 4
+    D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
+    wd, wide = max(D, G), N > 64
+    lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
+
+    def plan(block, keys):
+        ca = 1 if wide else max(1, min(block, 64 // N))
+        rows = 64 if wide else ca * N
+        front = max(rows * (D + 4) + r4((N if wide else rows) * H), block * (wd + 4))
+        w = (front + (1 if wide else 2) * rows * (2 * D + 4) + r4(2 * (N if wide else rows))
+             + 4 + (N * D if keys else 0))
+        w = max(w, block * lde, block * wd + 2 * wd + 2 * r4(M) + r4(O))
+        if S:
+            w = max(w, block * wd + kfwd.seg_forward_floats(S, wd, M, O))
+        return ca, block, w, 4 * (2 * block * (wd + 4) + w), keys
+
+    tries = [plan(min(b, M), k) for k in ((True, False) if wide else (False,))
+             for b in (32, 16, 8)]
+    want = next((t for t in tries if t[3] <= kfwd.MAX_SHARED_BYTES), tries[-1])
+    assert kloop.l2_memory_plan(cfm, M, N, S) == want
+    assert kloop.forward_plan(cfm, M, N, S, tall=not wide) == want[:4]
+    # the kernel's own choice of where the keys go, at the atom block chosen
+    assert want[4] == (wide and plan(want[1], True)[3] <= kfwd.MAX_SHARED_BYTES)
+    keys = kloop.wide_keys_shape_for(cfm, 2, M, N, 3, S)
+    assert keys == (None if not wide or want[4] else (6, N, D))
+
+
+@pytest.mark.parametrize("N", [65, 73, 81, 99, 127, 150, 199, 255, 9, 21, 31])
+def test_torch_l2_plan_keeps_the_keys_aligned(N):
+    """At an odd N the index ring [2][N] ends 8 bytes off a 16-byte
+    boundary; ``l2_plan`` rounds it up to 4 floats, so the wide atom's keys
+    after it (written as float4) start on a 16-byte boundary, and the
+    mbarriers after the ring on an 8-byte one, at every N and at the atom
+    block the plan takes."""
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        loop = f.read()
+    assert "q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;" in loop
+    assert "bars = reinterpret_cast<unsigned long long*>(ring + 2 * ring_n);" in loop
+    r4 = lambda v: -(-v // 4) * 4
+    D, H, wd = MP2018.local_dim, MP2018.num_head, max(MP2018.local_dim, MP2018.global_dim)
+    wide = N > 64
+    chunk_atoms, block, work, _, keys = kloop.l2_memory_plan(MP2018, 80, N)
+    rows = 64 if wide else chunk_atoms * N
+    ring = N if wide else rows
+    front = max(rows * (D + 4) + r4((N if wide else rows) * H), block * (wd + 4))
+    off_i = front + (1 if wide else 2) * rows * (2 * D + 4)
+    off_k = off_i + r4(2 * ring) + 4
+    work_base = 2 * block * (wd + 4)   # the work region's own offset, in floats
+    assert (work_base + off_i) % 4 == 0 and (work_base + off_k) % 4 == 0
+    assert (4 * (work_base + off_i) + 4 * 2 * ring) % 8 == 0   # the mbarriers
+    assert off_i + 2 * ring + 4 <= off_k   # the ring and the mbarriers fit before the keys
+    assert work >= off_k + (N * D if keys else 0)
+    assert keys == (wide and N <= 200)
+
+
+@pytest.mark.parametrize("M", [240, 300, 1000])
+def test_torch_wide_gate_takes_m_into_the_thousands(M):
+    """Without resident centers the wide #3's plan does not grow with M but
+    for the readout's vectors: MP2018 at N = 96 (and 256) evaluates on #3
+    at M = 240, 300 and 1000, past the old edge of 235, in f32 and bf16,
+    with the same plan as at M = 80; the Trainer's ``eval_route`` sends
+    these buckets to "loop" (#3) rather than to the per-layer model."""
+    for cfm in (MP2018, dataclasses.replace(MP2018, dtype="bfloat16")):
+        for N in (96, 256):
+            assert kloop.refusal(cfm, M, N) is None
+            assert kloop.forward_plan(cfm, M, N) == kloop.forward_plan(cfm, 80, N)
+            assert kloop.forward_library(cfm, M, N) == ("scann_loop_wide",
+                                                        "scann_loop_forward_wide")
+        trainer = train_loop.Trainer(ScannConfig(model=cfm), "cpu", "unused")
+        assert trainer.eval_route(M, 96) == "loop"
+        assert tuple(trainer.shape_libraries([(M, 96, 0)], training=False)) == ("scann_loop_wide",)
+    assert "readout's vectors" in kloop.refusal(MP2018, 30000, 96)
+
+
+PAST_EDGE_M, PAST_EDGE_N = 240, 72
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_torch_wide_loop_forward_past_the_old_edge(case):
+    """#3's plain version (``loop_scann_forward`` on CPU tensors) at a wide
+    shape past the wide #3's old edge (M = 235 with the resident centers):
+    one structure of 240 atoms, N = 72, one layer at D = G = 128, against
+    the JAX model (the JAX loop kernel's VMEM refuses this shape). The wide
+    #3 takes it now (``refusal``, ``forward_library``)."""
+    widths = dict(SMALL, n_attention=1, local_dim=128, num_head=8, global_dim=128)
+    jcfg = JaxModelConfig(**widths, **CASES[case])
+    tcfg = ModelConfig(**widths, **CASES[case])
+    assert kloop.refusal(tcfg, PAST_EDGE_M, PAST_EDGE_N) is None
+    assert kloop.forward_library(tcfg, PAST_EDGE_M, PAST_EDGE_N)[0] == "scann_loop_wide"
+    assert not jax_loop.fits_loop_vmem(jcfg, PAST_EDGE_M, PAST_EDGE_N, training=False)
+    x = _wide_batch(np.random.default_rng(26), 1, PAST_EDGE_M, PAST_EDGE_N, tcfg.use_ring)
+    jp = jax.device_get(jit_init_vars(JaxScannModel(config=jcfg), jax.random.PRNGKey(26), x))
+    tp, tx = params_from_jax(jp, tcfg), {k: torch.from_numpy(v) for k, v in x.items()}
+    want = jit_apply(JaxScannModel(config=jcfg))(jp, x)
+    with torch.no_grad():
+        pred, ga = kloop.loop_scann_forward(tp, tx, tcfg)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(want["property"]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(want["ga_score"]), rtol=1e-5, atol=1e-6)
+    assert kloop.launch_loop_forward.launches == 0
+
+
+def test_torch_wide_keys_in_l2_follow_the_readout_rows(monkeypatch):
+    """Where the wide plan leaves the atom's keys out of shared memory (N =
+    256 at D = 128), the launch hands #3 one allocation: the readout rows
+    [B, M, 2G] followed by each block's keys [B * C, N, D]; a kept scratch
+    whose keys do not follow is refused."""
+    calls = _stub(monkeypatch)
+    cfm = dataclasses.replace(MP2018, n_attention=1, embedding_dim=8)
+    B, M, N = 2, 12, 256
+    assert not kloop.l2_memory_plan(cfm, M, N)[4]
+    x = {k: torch.from_numpy(v) for k, v in _wide_batch(np.random.default_rng(3), B, M, N)
+         .items()}
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0), "cpu"), cfm)
+    kloop._launch(packed, x, cfm, False, 0.0, 0, 0, 3)
+    (_, _, t_f, d_f), = calls
+    rows = t_f[-1]
+    assert tuple(rows.shape) == (B, M, 2 * cfm.global_dim) and d_f[-1] == 3
+    assert rows.untyped_storage().nbytes() == 4 * (rows.numel() + B * 3 * N * cfm.local_dim)
+    kept = kloop.loop_forward_scratch(cfm, B, M, N, "cpu", 3)
+    assert kept["wide_keys"].data_ptr() == kept["readout"].data_ptr() + 4 * kept["readout"].numel()
+    with pytest.raises(ValueError, match="follow"):
+        kloop._launch(packed, x, cfm, False, 0.0, 0, 0, 3,
+                      dict(kept, wide_keys=kept["wide_keys"].clone()))
+    with pytest.raises(ValueError, match="launches with"):
+        kloop._launch(packed, x, cfm, False, 0.0, 0, 0, 17)
 
 
 def _yaml_models():
