@@ -207,11 +207,14 @@ layers); random weights from seeds:
    bf16-stash launch each, held as above.
 17. wide neighbour lists (the wide builds of #5, #3 and #4, N > 64 for the
    forwards and N > 32 for #4, up to 256): #5 at one MP2018 layer at (8,
-   96, 96), (8, 64, 128), (4, 32, 256) and (8, 96, 72), SCANN+ and SCANN,
-   on f32 tensors (against the plain layer at the forward tolerances,
-   relaunched into NaN-filled outputs bit for bit) and bfloat16 tensors
-   (within one bf16 ulp of the plain version); #3 and #4 at MP2018 (8, 80,
-   96), (8, 60, 128) and (4, 96, 72), Pt/graphene (8, 120, 96) and a packed
+   96, 96), (8, 64, 128), (4, 32, 256), (8, 96, 72) and the odd N of (2,
+   73, 81), SCANN+ and SCANN, and at (8, 96, 96) at every atom block its
+   plan can take (forced through the wrapper's plan by the SM count it
+   plans for), on f32 tensors (against the plain layer at the forward
+   tolerances) and bfloat16 tensors (within one bf16 ulp of the plain
+   version), each relaunched into NaN-filled outputs bit for bit; #3 and
+   #4 at MP2018 (8, 80, 96), (8, 60, 128) and (4, 96, 72), Pt/graphene (8,
+   120, 96) and a packed
    wide slot (capacity 96, N = 96), and #4 alone at MP2018 (4, 64, 48) and
    (4, 96, 40) (a short last sub-chunk of 16 and 8 rows), #3 alone past its
    old edge at (2, 300, 96), with its keys in global memory at (2, 40,
@@ -225,8 +228,10 @@ layers); random weights from seeds:
    neighbour lists are live past one chunk and carry an atom with every
    neighbour masked, one with whole sub-chunks masked and one with only its
    last neighbour live. Times #3 and #4 (f32 stash and
-   recompute) at MP2018 (16, 80, 96) and #5 at (8, 96, 96) in turns with
-   their plain versions, #3 also at B = 1 and 64 (its own cluster sizes).
+   recompute) at MP2018 (16, 80, 96) and #5 at (8, 96, 96) and at the
+   served crystal's (1, 48, 96) in turns with their plain versions (#5 on
+   bf16 tensors at (8, 96, 96) in turns with f32, for phase 19's row), #3
+   also at B = 1 and 64 (its own cluster sizes).
    Then the main paths, the launch counts set to 0 just before each:
    ``Scann.predict_featurized`` serves a crystal of 40 sites with 80
    neighbours (ladder (48, 96)) and one of 300 (ladder (384, 96)), both on
@@ -304,8 +309,9 @@ launches on the packed training runs, and ``packed``, their times at a
 packed shape; the tall and wide #3 rows also ``b1_*`` and ``recipe_*``,
 their times, bounds and cluster sizes at B = 1 and 64; rows ``1-bf16``,
 ``3-bf16``, ``5-bf16``, ``2-bf16``,
-``4-bf16``, ``3-wide-bf16``, ``3-tall-bf16``, ``4-wide-bf16`` and
-``4-tall-bf16`` with their f32 times from the same run, ``f32_ms``, and bounds
+``4-bf16``, ``3-wide-bf16``, ``3-tall-bf16``, ``4-wide-bf16``,
+``4-tall-bf16`` and ``5-wide-bf16`` with their f32 times from the same run,
+``f32_ms``, and bounds
 that count the products of #1-#4 once at the dense BF16 rate and #5's as in
 f32; every row of #2 and #4 names its ``schedule``: rows
 ``scann_backward`` and ``scann_loop_backward`` are the recompute schedule,
@@ -321,12 +327,13 @@ without printing a result when CUDA is not available.
 
 ``python3 chip_smoke.py --backward-ab ROOT [OUT]`` runs one turn of an A/B
 comparison of #2-#5 against another checkout ROOT instead (``backward_ab``;
-also the tall and wide #3 at B = 1, 16 and 64 in f32 and bf16; with OUT it
+also the tall and wide #3 at B = 1, 16 and 64 and the wide #5 at (1, 48,
+96), (8, 96, 96) and (64, 96, 96), in f32 and bf16; with OUT it
 saves the outputs of every build both checkouts have), and
 ``python3 chip_smoke.py --ab-compare A.pt B.pt`` holds two turns' outputs
 bit for bit (``ab_compare``; the tall and wide #4 within their gradient
-limit, the tall and wide #3 at the forward tolerance and, in bf16, the
-floor rule), and
+limit, the tall and wide #3 and the wide #5 at the forward tolerance and,
+in bf16, the floor rule), and
 ``python3 chip_smoke.py --tall-table [OUT]`` times #4's tall build against
 its narrow build in turns at shapes both take (``tall_table``).
 
@@ -1484,6 +1491,13 @@ def layer_inputs(rng, B, M, N, D, H, g_update, K=20):
             f32(rng.uniform(0.3, 3.0, size=(B, M, N))), params, H, 0.5, g_update)
 
 
+def layer_cast(args, dt):
+    """``layer_inputs``' tensors and parameters in dtype ``dt`` (the neighbour
+    indices stay int32)."""
+    return (*[t if not t.is_floating_point() else t.to(dt) for t in args[:5]],
+            {k: v.to(dt) for k, v in args[5].items()}, *args[6:])
+
+
 def time_local_attention(args, card):
     """Kernel #5 on one layer's inputs, in turns with its plain version
     (plain, kernel, kernel, plain), against its bound: the products as three
@@ -1517,7 +1531,8 @@ def phase7(mp2018, failures, card):
     """The per-layer LocalAttention kernel against its plain version at a
     ragged small layer, an M beyond the loop kernel's gate and one MP2018
     layer (SCANN+ and SCANN), each relaunched into outputs filled with NaN
-    that must come back bit for bit; its time at the last two shapes; the
+    that must come back bit for bit; its time at the last two shapes (SCANN
+    at the MP2018 layer only); the
     per-layer model against the eager model. Returns (largest abs error,
     timing at the MP2018 layer, SCANN+, with the other three beside it)."""
     import dataclasses
@@ -1554,7 +1569,7 @@ def phase7(mp2018, failures, card):
                   flush=True)
             if differ:
                 failures.append(f"{tag}: a relaunch into NaN-filled outputs differs in {differ}")
-            if M > 40:
+            if M > 40 and (g_update or M == 96):   # SCANN timed at the MP2018 layer only
                 times[(what, M)] = time_local_attention(args, card)
     timing = dict(times[("scann+", 96)])
     for (what, M), t in times.items():
@@ -2204,10 +2219,8 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
     D, H = mp2018.local_dim, mp2018.num_head
     for B, M, N in ((64, 96, 32), (8, 256, 32)):
         args = layer_inputs(rng, B, M, N, D, H, True)
-        cast = lambda a, dt: (*[t if not t.is_floating_point() else t.to(dt) for t in a[:5]],
-                              {k: v.to(dt) for k, v in a[5].items()}, *a[6:])
-        args16 = cast(args, torch.bfloat16)
-        args32 = cast(args16, torch.float32)          # the same values in f32
+        args16 = layer_cast(args, torch.bfloat16)
+        args32 = layer_cast(args16, torch.float32)    # the same values in f32
         kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
         with torch.inference_mode():
             k16 = kla._launch(*args16)
@@ -3815,64 +3828,116 @@ def wide_batch(rng, B, M, N, cfm, min_atoms=20, edges=True):
     return x
 
 
+def hold_wide_layer(tag, args, failures):
+    """#5's wide build on one layer's inputs against its plain version, on f32
+    tensors (out, geometry, attention at the forward tolerances) and on the
+    same values as bfloat16 tensors (within one bf16 ulp of the plain
+    version; the f32 kernel's outputs rounded to bf16 alongside), each
+    relaunched into NaN-filled outputs, which must come back bit for bit.
+    Returns (worst f32 error, worst bf16 error)."""
+    from scann_tpu_torch.kernels import local_attention as kla
+
+    g_update = args[-1]
+    B, M, D = args[0].shape
+    plan = kla.make_plan(B, M, args[1].shape[2], D, args[6], g_update,
+                         kla.sm_count(args[0].device))
+    tag = f"{tag} (atom block {plan[0]})"
+    nan_like = lambda ts: tuple(None if t is None else torch.full_like(t, float("nan"))
+                                for t in ts)
+    with torch.inference_mode():
+        out, geo, attn = kla.fused_local_attention(*args)
+        torch.cuda.synchronize()
+        out0, geo0, attn0 = kla.reference_local_attention(*args)
+        again = kla._launch(*args, outputs=nan_like((out, geo if g_update else None, attn)))
+        args16 = layer_cast(args, torch.bfloat16)
+        k16 = kla._launch(*args16)
+        k32 = kla._launch(*layer_cast(args16, torch.float32))
+        p16 = kla.reference_layer_kernel(*args16)
+        again16 = kla._launch(*args16, outputs=nan_like(k16))
+        torch.cuda.synchronize()
+    named = [("out", out, out0, ATOL), ("attn", attn, attn0, ATTN_ATOL)]
+    if g_update:
+        named.append(("geometry", geo, geo0, ATOL))
+    worst, worst16 = hold(tag, named, failures), 0.0
+    differ = [w for w, a, b in zip(("out", "geometry", "attn"), again,
+                                   (out, geo if g_update else None, attn))
+              if a is not None and not torch.equal(a, b)]
+    differ += [f"bf16 {w}" for w, a, b in zip(("out", "geometry", "attn"), again16, k16)
+               if a is not None and not torch.equal(a, b)]
+    if differ:
+        failures.append(f"{tag}: a relaunch into NaN-filled outputs differs in {differ}")
+    line = [f"{tag} bf16 tensors (relaunches bit-identical: {not differ})"]
+    for i, name in enumerate(("out", "geometry", "attn")):
+        if k16[i] is None:
+            continue
+        got, want = k16[i].float(), p16[i].float()
+        diff = (got - want).abs()
+        ok = bool((diff <= ATOL + WIDE_ATTN_RTOL * want.abs()).all())
+        same = torch.equal(k16[i], k32[i].to(torch.bfloat16))
+        worst16 = max(worst16, diff.max().item())
+        line.append(f"{name} {diff.max().item():.2e} (= the f32 kernel rounded: {same})")
+        if not ok or not bool(torch.isfinite(got).all()):
+            failures.append(f"{tag} bf16 {name}: max_abs {diff.max().item():.3e} beyond one "
+                            f"bf16 ulp of the plain version")
+    print("  ".join(line), flush=True)
+    return worst, worst16
+
+
 def phase17_layers(mp2018, failures, card):
-    """#5's wide build against its plain version: one MP2018 layer at (8, 96,
-    96), (8, 64, 128), (4, 32, 256) and (8, 96, 72), SCANN+ and SCANN, on f32 tensors
-    (out, geometry, attention at the forward tolerances; a relaunch into
-    NaN-filled outputs bit for bit) and on bfloat16 tensors (within one bf16
-    ulp of the plain version; the f32 kernel's outputs rounded to bf16
-    alongside). Returns (worst abs error, times at (8, 96, 96) SCANN+)."""
+    """#5's wide build against its plain version (``hold_wide_layer``: f32
+    and bf16 tensors, NaN-filled relaunches): one MP2018 layer at (8, 96,
+    96), (8, 64, 128), (4, 32, 256), (8, 96, 72) and the odd N of (2, 73,
+    81), SCANN+ and SCANN, at the plan's own atom blocks, then at (8, 96, 96)
+    SCANN+ at every atom block of ``kla.WIDE_ATOM_BLOCKS``, each forced
+    through the wrapper's plan by the SM count it plans for (the kernel
+    plans from the count it is given). Times SCANN+ at (8, 96, 96) and at
+    the served crystal's (1, 48, 96) (``b1_*`` keys) in turns with the
+    plain version, and on bf16 tensors at (8, 96, 96) in turns with f32.
+    Returns (worst abs error, the f32 times, the bf16 row's (worst error,
+    (ms, f32 ms), plain ms, FLOP, FP32 FLOP, bytes))."""
     from scann_tpu_torch.kernels import local_attention as kla
 
     rng = np.random.default_rng(17)
     D, H = mp2018.local_dim, mp2018.num_head
-    worst, timing = 0.0, None
-    cast = lambda a, dt: (*[t if not t.is_floating_point() else t.to(dt) for t in a[:5]],
-                          {k: v.to(dt) for k, v in a[5].items()}, *a[6:])
+    worst, worst16, timing, layer16 = 0.0, 0.0, None, None
     for g_update in (True, False):
         what = "scann+" if g_update else "scann"
-        for B, M, N in ((8, 96, 96), (8, 64, 128), (4, 32, 256), (8, 96, 72)):
+        for B, M, N in ((8, 96, 96), (8, 64, 128), (4, 32, 256), (8, 96, 72), (2, 73, 81)):
             args = layer_inputs(rng, B, M, N, D, H, g_update)
             wide_masks(args[3])
             kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
-            tag = f"phase 17 #5 wide {what} B={B} M={M} N={N} D={D}"
-            with torch.inference_mode():
-                out, geo, attn = kla.fused_local_attention(*args)
-                torch.cuda.synchronize()
-                out0, geo0, attn0 = kla.reference_local_attention(*args)
-                again = kla._launch(*args, outputs=tuple(
-                    None if t is None else torch.full_like(t, float("nan"))
-                    for t in (out, geo if g_update else None, attn)))
-                args16 = cast(args, torch.bfloat16)
-                k16 = kla._launch(*args16)
-                k32 = kla._launch(*cast(args16, torch.float32))
-                p16 = kla.reference_layer_kernel(*args16)
-                torch.cuda.synchronize()
-            named = [("out", out, out0, ATOL), ("attn", attn, attn0, ATTN_ATOL)]
-            if g_update:
-                named.append(("geometry", geo, geo0, ATOL))
-            worst = max(worst, hold(tag, named, failures))
-            differ = [w for w, a, b in zip(("out", "geometry", "attn"), again,
-                                           (out, geo if g_update else None, attn))
-                      if a is not None and not torch.equal(a, b)]
-            if differ:
-                failures.append(f"{tag}: a relaunch into NaN-filled outputs differs in {differ}")
-            line = [f"{tag} bf16 tensors (a relaunch bit-identical: {not differ})"]
-            for i, name in enumerate(("out", "geometry", "attn")):
-                if k16[i] is None:
-                    continue
-                got, want = k16[i].float(), p16[i].float()
-                diff = (got - want).abs()
-                ok = bool((diff <= ATOL + WIDE_ATTN_RTOL * want.abs()).all())
-                same = torch.equal(k16[i], k32[i].to(torch.bfloat16))
-                line.append(f"{name} {diff.max().item():.2e} (= the f32 kernel rounded: {same})")
-                if not ok or not bool(torch.isfinite(got).all()):
-                    failures.append(f"{tag} bf16 {name}: max_abs {diff.max().item():.3e} "
-                                    f"beyond one bf16 ulp of the plain version")
-            print("  ".join(line), flush=True)
+            errs = hold_wide_layer(f"phase 17 #5 wide {what} B={B} M={M} N={N} D={D}", args,
+                                   failures)
+            worst, worst16 = max(worst, errs[0]), max(worst16, errs[1])
             if (g_update, B, M, N) == (True, 8, 96, 96):
+                forced = args
                 timing = time_local_attention(args, card)
-    return worst, timing
+                args16 = layer_cast(args, torch.bfloat16)
+                args32 = layer_cast(args16, torch.float32)    # the same values in f32
+                with torch.inference_mode():
+                    t16 = in_turns_ms(lambda: kla._launch(*args32), lambda: kla._launch(*args16),
+                                      10, 10)
+                    plain16 = cuda_ms(lambda: kla.reference_layer_kernel(*args16), 3)
+                nbytes = (tensor_bytes(args16[:4], args16[5].values())
+                          + 2 * (args16[0].numel() + B * M * N * H + args16[2].numel()))
+                layer16 = [t16, plain16, kla.layer_flops(B, M, N, D, True),
+                           kla.layer_fp32_flops(B, M, N, D), nbytes]
+    real = kla.sm_count
+    try:
+        for ab in kla.WIDE_ATOM_BLOCKS:
+            n_sm = next(n for n in range(1, 4096)
+                        if kla.make_plan(8, 96, 96, D, H, True, n)[0] == ab)
+            kla.sm_count = lambda dev, n=n_sm: n
+            errs = hold_wide_layer(f"phase 17 #5 wide scann+ B=8 M=96 N=96 D={D} planned for "
+                                   f"{n_sm} SMs", forced, failures)
+            worst, worst16 = max(worst, errs[0]), max(worst16, errs[1])
+    finally:
+        kla.sm_count = real
+    # the served crystal's shape: one structure of 48 sites at N = 96
+    served = time_local_attention(layer_inputs(rng, 1, 48, 96, D, H, True), card)
+    timing.update({f"b1_{k}": served[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "measured_bound_ms", "ms_back_to_back")})
+    return worst, timing, (worst16, *layer16)
 
 
 def hold_wide_backward(label, cfm, p, x, y, rate, seed, failures, clusters=(1, 2, 4),
@@ -4169,12 +4234,13 @@ def phase17_paths(mp2018, failures, card):
 
 def phase17(mp2018, ptgp, failures, card):
     """Phase 17: wide neighbour lists. Returns the kernels line's rows of the
-    three wide builds."""
+    three wide builds, and the holds and times of #5's wide build on bf16
+    tensors for phase 19's row."""
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     t0 = time.time()
-    err5, t5 = phase17_layers(mp2018, failures, card)
+    err5, t5, layer16 = phase17_layers(mp2018, failures, card)
     t1 = time.time()
     err3, err4, t3, t4 = phase17_loops(mp2018, ptgp, failures, card)
     t2 = time.time()
@@ -4192,7 +4258,7 @@ def phase17(mp2018, ptgp, failures, card):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": err, "library_ms": None,
                      **{k: v for k, v in t.items() if k != "cluster"}})
-    return rows
+    return rows, layer16
 
 
 
@@ -5015,15 +5081,19 @@ def phase19_paths(mp2018, data, failures, card):
             or not np.isfinite(step["bfloat16"][1]) or not rel <= BF16_RTOL):
         failures.append(f"phase 19 per-layer bf16 step: {step}")
     return {"3-wide-bf16": served["loop"][2], "3-tall-bf16": valid[1],
-            "4-tall-bf16": trained[2]}, err
+            "4-tall-bf16": trained[2], "5-wide-bf16": layered["per_layer"][1]}, err
 
 
-def phase19(mp2018, ptgp, data, launched, failures, card):
+def phase19(mp2018, ptgp, data, launched, layer16, failures, card):
     """Phase 19: the bf16 operand mode in the wide and tall builds of #3 and
     #4 (holds, times, main paths). ``data``: phase 18's training set;
     ``launched``: the launches of these builds on earlier phases' main paths
     (phase 14's served 260-site crystal, #3 tall; phase 15's (96, 64)
-    bucket, #4 wide). Returns the kernels line's four rows."""
+    bucket, #4 wide); ``layer16``: phase 17's holds and times of #5's wide
+    build on bf16 tensors, whose main-path launches are this phase's
+    request to a bf16 model without the attention LayerNorm. Returns the
+    kernels line's five rows."""
+    from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     t0 = time.time()
@@ -5050,6 +5120,9 @@ def phase19(mp2018, ptgp, data, launched, failures, card):
                              *times[name], card))
         if not launches[name]:
             failures.append(f"phase 19: {name} was not launched on a main path")
+    rows.append(bf16_row("5-wide-bf16", "local_attention_wide_bf16",
+                         "scann_tpu_torch/csrc/local_attention_wide.cu", kla.REPLACES,
+                         launches["5-wide-bf16"], *layer16, card, bf16_products=False))
     return rows
 
 
@@ -5373,7 +5446,7 @@ def main():
     lap("16")
     # ---- phase 17: wide neighbour lists in #5, #3 and #4 -------------------------------
     torch.cuda.empty_cache()
-    wide_rows = phase17(mp2018, ptgp, failures, card)
+    wide_rows, layer16 = phase17(mp2018, ptgp, failures, card)
     lap("17")
     # ---- phase 18: tall structures in #3 and #4 ----------------------------------------
     torch.cuda.empty_cache()
@@ -5381,7 +5454,7 @@ def main():
     lap("18")
     # ---- phase 19: the bf16 operand mode in the wide and tall builds of #3 and #4 ------
     torch.cuda.empty_cache()
-    shape16_rows = phase19(mp2018, ptgp, tall_data, shape16, failures, card)
+    shape16_rows = phase19(mp2018, ptgp, tall_data, shape16, layer16, failures, card)
     lap("19")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
@@ -5487,7 +5560,9 @@ def backward_ab(root, out_path=None):
     with the f32 stash and recompute and in bf16 with the f32 stash; and
     #4's wide build the same way at MP2018 (64, 80, 96) recompute and (64,
     64, 48) f32 stash (C = 2), (16, 80, 96) f32 stash and recompute and bf16
-    f32 stash (C = 4). Times #3's tall build at Pt/graphene (B, 322, 32)
+    f32 stash (C = 4). Times #5's wide build, SCANN+, in f32 and on bf16
+    tensors at (1, 48, 96), (8, 96, 96) and (64, 96, 96) (10 timed launches
+    after 3; ``out["layer_wide"]``). Times #3's tall build at Pt/graphene (B, 322, 32)
     and its wide build at MP2018 (B, 80, 96), B = 1, 16 and 64, in f32 and
     in bf16 (10 timed launches after 3, at the checkout's own cluster size:
     ``forward_cluster`` where it has one, else ``cluster_size``), and saves
@@ -5562,6 +5637,18 @@ def backward_ab(root, out_path=None):
         out["local_attention"] = statistics.median(cuda_times(lambda: kla._launch(*args), 10,
                                                               warmup=3))
         saved["local_attention"] = [t.cpu() for t in kla._launch(*args)]
+    # #5's wide build, SCANN+, in f32 and on bf16 tensors: the served crystal's
+    # (1, 48, 96), one MP2018 layer at (8, 96, 96) and an eval batch of 64
+    out["layer_wide"] = {}
+    for B, M in ((1, 48), (8, 96), (64, 96)):
+        args = layer_inputs(np.random.default_rng(8), B, M, 96, mp2018.local_dim,
+                            mp2018.num_head, True)
+        for dt in (torch.float32, torch.bfloat16):
+            typed = layer_cast(args, dt)
+            with torch.inference_mode():
+                out["layer_wide"][f"{str(dt)[6:]} ({B}, {M}, 96)"] = statistics.median(
+                    cuda_times(lambda: kla._launch(*typed), 10, warmup=3))
+        del args, typed
     # #4's tall build at M = 322, N = 32: the recipe batch of 64 (2 blocks a
     # structure, the recompute schedule its f32 stash's size gives there) and
     # the batch of 16 (4 blocks) in both f32 schedules and in bf16
@@ -5690,6 +5777,10 @@ AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16") + AB_P
 # f32-noise floor saved beside the outputs)
 AB_FORWARD = ("scann_loop_wide", "scann_loop_tall")
 AB_FORWARD_FLOOR = ("scann_loop_wide_bf16", "scann_loop_tall_bf16")
+# The wide #5 against a build before its redesign: its context sums each half
+# of the neighbours, then adds the halves, so its out and geometry are held
+# at the forward's RTOL / ATOL and its attention at RTOL / ATTN_ATOL
+AB_LAYER = ("local_attention_wide",)
 
 
 def bf16_grad_floor(params, x, y, cfm):
@@ -5712,7 +5803,8 @@ def ab_compare(path_a, path_b):
     ``AB_WITHIN`` within GRAD_RTOL x max |A| of each gradient (``AB_FLOOR``:
     the mean distance within BF16_FLOOR x A's floor; pred at RTOL / ATOL,
     bit for bit in ``AB_PRED_EXACT``), those of ``AB_FORWARD`` at RTOL /
-    ATOL and of ``AB_FORWARD_FLOOR`` within BF16_FLOOR x A's floor. Prints
+    ATOL, of ``AB_FORWARD_FLOOR`` within BF16_FLOOR x A's floor and of
+    ``AB_LAYER`` at RTOL / ATOL (the attention at ATTN_ATOL). Prints
     one JSON line, name -> equal (within the limit, beside the worst share
     of it as ``<name>_rel``, or the largest difference as
     ``<name>_max_abs``), and exits 1 on any difference."""
@@ -5720,6 +5812,20 @@ def ab_compare(path_a, path_b):
     same, rels = {}, {}
     for name in sorted(set(a) | set(b)):
         x, y = a.get(name), b.get(name)
+        if name in AB_LAYER and isinstance(x, list) and isinstance(y, list):
+            held, worst = len(x) == len(y), 0.0
+            for i, (u, v) in enumerate(zip(x, y)):
+                if u is None or v is None:
+                    held = held and u is None and v is None
+                    continue
+                diff = (v - u).abs()
+                atol = ATTN_ATOL if i == 2 else ATOL
+                held = (held and bool((diff <= atol + RTOL * u.abs()).all())
+                        and bool(torch.isfinite(v).all()))
+                worst = max(worst, diff.max().item())
+            same[name] = held
+            rels[f"{name}_max_abs"] = worst
+            continue
         if name in AB_FORWARD and isinstance(x, list) and isinstance(y, list):
             same[name] = len(x) == len(y) and all(errors(v, u)[2] for u, v in zip(x, y))
             rels[f"{name}_max_abs"] = max(errors(v, u)[0] for u, v in zip(x, y))

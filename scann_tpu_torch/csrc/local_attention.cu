@@ -19,7 +19,10 @@
 // H100 SXM's dense 495 TFLOP/s TF32, with the energies and context (1.0e8
 // FLOP) at 67 TFLOP/s FP32. The layer reads and writes the geometry once each
 // (2 x 100 MB) beside ~10 MB of other tensors, ~0.06 ms at 3.35 TB/s: bound
-// by operations.
+// by operations. The wide build's timed shapes (N = 96, M = 48 or 96): 4.58e8
+// FLOP at (1, 48, 96), 0.0028 ms; 7.34e9 at (8, 96, 96), 0.0448 ms; 5.87e10
+// at (64, 96, 96), 0.3584 ms; each by operations (the bytes: 0.0016, 0.0238,
+// 0.1893 ms).
 //
 // Design.
 // - The launch plan (make_plan) picks the atom block AB of {64, 48, 32, 16}
@@ -40,12 +43,42 @@
 //   chunk's geometry (or its distance RBF) and its neighbours' states,
 //   gathered from the centers in global memory, arrive by cp.async.
 // - Wide neighbour lists (64 < N <= 256, the wide build of
-//   local_attention_wide.cu): one atom at a time through fwd_atom_wide, its
-//   rows in sub-chunks of 64, its energies [N, H] in shared memory (4 KiB at
-//   N = 128, f32) and its keys in a global scratch [blocks, N, D] that the
-//   block writes and reads back through L2 for the context.
+//   local_attention_wide.cu, wide_block): one atom at a time through
+//   fwd_atom_wide_keys, the atom walk the wide #3 shares, its rows in
+//   sub-chunks of 64. An atom is already 2-4 sub-chunks of work, so the plan
+//   (make_wide_plan) takes its atom block from {16, 8, 4, 2, 1} by the waves'
+//   cost, ceil(blocks / n_sm) x (20 AB + 3): a block's head (its atoms' cw
+//   and query products, which read Wfg[0:D] and Wq from L2 whatever the
+//   block's atoms) costs about 0.15 of an atom. AB = 1 at (1, 48, 96) (48
+//   blocks, not 3 of 16), 2 at (8, 96, 96) (384 blocks, not 48), 16 at
+//   (64, 96, 96). The atom's energies [N, H] stay in shared memory for
+//   wide_softmax over all N, its keys [N, D] too where the plan holds them
+//   (at D = 128: N <= 237 at AB = 1, 208 at AB = 16), else in a per-block
+//   global scratch [blocks, N, D] read back past L1; the context splits the
+//   N neighbours into two halves over the block's 256 threads (thread t:
+//   column t % D of half t / D), each summed in neighbour order, then first
+//   half + second half + query. Staging: each atom's neighbour indices go
+//   into a ring in shared memory one atom ahead (cp.async), so no staging
+//   waits on an index load; where the plan holds a second operand buffer (at
+//   D = 128: N <= 116 at AB = 1, 88 at AB = 16) the next sub-chunk, or the
+//   next atom's first, is staged into it as soon as this one has landed, and
+//   the first one while the block forms its queries. f32 rows arrive by
+//   cp.async behind the products; bfloat16 rows (and an RBF whose K is not a
+//   multiple of 4) are loaded, converted to f32 and stored, in the open. On
+//   bfloat16 tensors the plan takes the smallest layout instead (one buffer,
+//   the keys in the scratch): the L1 beside it holds the bf16 weights of the
+//   row products, which their 32-row passes read again; on an H100 that is
+//   ~10% faster at (64, 96, 96) than the f32 layout, and the keys in shared
+//   memory and the second buffer buy no time there.
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
 //   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0.
+//
+// Summation orders (a launch repeats bit for bit): every product as
+// mma_gemm sums (scann_mma.cuh); the energies over the head's lanes in
+// order; the softmax lane by lane, then warp_sum's fixed tree; the narrow
+// context over the chunk's neighbours in order; the wide context over each
+// half in order, then the halves in order; the LayerNorms as
+// warp_layer_norm.
 //
 // Interface: a plain C function, loaded with ctypes. It launches on the
 // given stream, synchronises nothing, allocates nothing, and returns the
@@ -80,7 +113,7 @@ struct Args {
 // Shared-memory plan of one atom block, in floats: the queries (then the
 // outputs) and, for SCANN+, cw [AB, D + 4] each; the work region, which
 // holds the block's centers [AB, D + 4] for the per-atom products and then a
-// chunk's buffers (fwd_chunk_floats; wide: fwd_wide_chunk_floats).
+// chunk's buffers (fwd_chunk_floats).
 struct Plan {
   int atom_block, chunk_atoms, work, total;
 };
@@ -90,8 +123,7 @@ inline Plan plan_for(int AB, int N, int D, int H, int g_update) {
   p.atom_block = AB;
   const int fit = kFwdMaxChunkRows / N;
   p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;
-  const int chunk = N > kFwdMaxChunkRows ? fwd_wide_chunk_floats(N, D, H)
-                                         : fwd_chunk_floats(p.chunk_atoms * N, D, H);
+  const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);
   const int centers = AB * (D + 4);
   p.work = chunk > centers ? chunk : centers;
   p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;
@@ -110,6 +142,82 @@ inline Plan make_plan(int B, int M, int N, int D, int H, int g_update, int n_sm)
     const long long blocks = (long long)B * ((M + AB - 1) / AB);
     const long long cost = (blocks + n_sm - 1) / n_sm * AB;
     if (best_cost < 0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The wide build's atom blocks and the cost of its plan's waves: an atom of N
+// > kFwdMaxChunkRows neighbours is 2-4 sub-chunks of work already, so the
+// blocks go down to one atom; a block's head (its atoms' centers staged, and
+// their cw and query products: an m16 tile each, which reads Wfg[0:D] and
+// Wq from L2 whatever the block's atoms) costs about 0.15 of an atom's rows
+// (~18k of ~120k cycles on an H100 at N = 96, D = 128), so a wave of AB
+// atoms costs kWideAtomCost * AB + kWideHeadCost.
+constexpr int kWideAtomBlocks[] = {16, 8, 4, 2, 1};
+constexpr int kWideAtomCost = 20;
+constexpr int kWideHeadCost = 3;
+
+// Shared-memory plan of the wide build, in floats: the queries and cw [AB, D
+// + 4] as in Plan, then the work region: the front (the block's centers [AB,
+// D + 4] for the per-atom products, then a sub-chunk's product [64, D + 4]
+// and the atom's energy row [N, H]), `buffers` operand buffers [64, 2D + 4]
+// (offA, offA1: the same where there is one), the index ring [2][N] (two
+// atoms' neighbour indices; round4(2N) floats, so what follows stays 16-byte
+// aligned at an odd N) and, with smem_keys, the atom's keys [N, D].
+struct WidePlan {
+  int atom_block, buffers, smem_keys, offA, offA1, offI, offK, total;
+};
+
+__host__ __device__ inline WidePlan wide_plan_for(int AB, int N, int D, int H, int g_update,
+                                                  int smem_keys, int buffers) {
+  WidePlan p;
+  p.atom_block = AB;
+  p.buffers = buffers;
+  p.smem_keys = smem_keys;
+  const int front = kFwdMaxChunkRows * (D + 4) + round4(N * H);
+  const int centers = AB * (D + 4);
+  p.offA = front > centers ? front : centers;
+  p.offA1 = p.offA + (buffers - 1) * kFwdMaxChunkRows * (2 * D + 4);
+  p.offI = p.offA + buffers * kFwdMaxChunkRows * (2 * D + 4);
+  p.offK = p.offI + round4(2 * N);
+  p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.offK + (smem_keys ? N * D : 0);
+  return p;
+}
+
+// The layout of a wide block of AB atoms: on f32 tensors the keys in shared
+// memory where they fit beside one operand buffer, and a second buffer where
+// that fits too; on bfloat16 tensors (bf16) the smallest layout, one buffer
+// and the keys in L2, so that the L1 beside it (~124 KB at D = 128) holds
+// the bf16 weights of the row products (Wfg[D:3D] and Wk, 96 KB), which
+// their 32-row passes read again (f32 weights, 192 KB, never fit);
+// atom_block 0 if nothing fits.
+__host__ __device__ inline WidePlan wide_block_plan(int AB, int N, int D, int H, int g_update,
+                                                    int bf16) {
+  WidePlan p = {0, 0, 0, 0, 0, 0, 0, 0};
+  // layouts i = 0-3: {smem_keys, buffers} = {1, 2}, {1, 1}, {0, 2}, {0, 1}
+  for (int i = bf16 ? 3 : 0; i < 4; ++i) {
+    const WidePlan q = wide_plan_for(AB, N, D, H, g_update, i < 2, 2 - (i & 1));
+    if (q.total * (int)sizeof(float) <= kMaxSharedBytes) return q;
+  }
+  return p;
+}
+
+// make_plan for the wide build: the atom block of kWideAtomBlocks whose waves
+// cost least, ceil(blocks / n_sm) * (kWideAtomCost * AB + kWideHeadCost),
+// the smaller block where two tie.
+inline WidePlan make_wide_plan(int B, int M, int N, int D, int H, int g_update, int bf16,
+                               int n_sm) {
+  WidePlan best = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long best_cost = -1;
+  for (int AB : kWideAtomBlocks) {
+    const WidePlan p = wide_block_plan(AB, N, D, H, g_update, bf16);
+    if (p.atom_block == 0) continue;
+    const long long blocks = (long long)B * ((M + AB - 1) / AB);
+    const long long cost = (blocks + n_sm - 1) / n_sm * (kWideAtomCost * AB + kWideHeadCost);
+    if (best_cost < 0 || cost <= best_cost) {
       best = p;
       best_cost = cost;
     }
@@ -170,24 +278,70 @@ __device__ __forceinline__ void stage_chunk(const Args<T>& a, float* sA, const T
   __syncthreads();
 }
 
-// one block per SM (its shared memory takes most of the SM), so the compiler
-// may spend up to 255 registers a thread. kWide: N > kFwdMaxChunkRows, one
-// atom at a time through fwd_atom_wide (its own build, local_attention_wide.cu),
-// with the block's keys of one atom in wide_keys [blocks, N, D] (f32).
-template <typename T, bool kWide>
-__global__ void __launch_bounds__(kThreads, 1)
-local_attention_kernel(const Args<T> a, float* wide_keys) {
+// stage_chunk for the wide build, without its wait: rows [0, rows) of one
+// atom's sub-chunk into sA, the neighbours' indices read from idx (the index
+// ring in shared memory, filled an atom ahead). f32 rows go by cp.async and
+// land while the caller works (it waits with cp_async_wait_all and a
+// barrier); bfloat16 rows, and an RBF whose K is not a multiple of 4, are
+// loaded, converted and stored here, four loads of a thread in flight. The
+// staged values are stage_chunk's; the copy keeps the narrow build's code as
+// it was.
+template <typename T>
+__device__ __forceinline__ void stage_wide(const Args<T>& a, float* sA, const T* cen,
+                                           const int* idx, const T* geo, int rows) {
+  const int tid = threadIdx.x, D = a.D, K = a.K, lda = 2 * D + 4, q4 = D / 4;
+  if (a.g_update) {
+#pragma unroll 4
+    for (int i = tid; i < rows * q4; i += kThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      stage4(sA + r * lda + c, geo + (size_t)r * D + c);
+    }
+  } else if ((K & 3) == 0) {
+    const int k4 = K / 4;
+#pragma unroll 4
+    for (int i = tid; i < rows * k4; i += kThreads) {
+      const int r = i / k4, k = (i - r * k4) * 4;
+      stage4(sA + r * lda + k, geo + (size_t)r * K + k);
+    }
+  } else {
+    const int kp = round4(K);
+    for (int i = tid; i < rows * kp; i += kThreads) {
+      const int r = i / kp, k = i - r * kp;
+      sA[r * lda + k] = k < K ? to_float(__ldg(geo + (size_t)r * K + k)) : 0.f;
+    }
+  }
+#pragma unroll 4
+  for (int i = tid; i < rows * q4; i += kThreads) {
+    const int r = i / q4, c = (i - r * q4) * 4;
+    stage4(sA + r * lda + D + c, cen + (size_t)idx[r] * D + c);
+  }
+}
+
+// The wide build's block (N > kFwdMaxChunkRows): ab atoms of one structure on
+// wide_block_plan's layout, one atom at a time through fwd_atom_wide_keys.
+// wide_keys [blocks, N, D] (f32) is the key scratch where the keys are not in
+// shared memory, else null. The block's sub-chunks j = 0, 1, ... (atom ab0 +
+// j / S, rows from 64 (j % S), S sub-chunks an atom) are staged in order:
+// sub-chunk 0 while the block forms its queries; with two buffers (f32),
+// sub-chunk j + 1 into the other one once sub-chunk j has landed, so that it
+// arrives while j runs; with one, sub-chunk j when its turn comes.
+template <typename T>
+__device__ __forceinline__ void wide_block(const Args<T>& a, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
-  const int lds = D + 4, rows_max = kWide ? kFwdMaxChunkRows : CA * N, q4 = D / 4;
+  const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block;
+  const int lds = D + 4, q4 = D / 4, G = a.g_update ? D : a.K, tid = threadIdx.x;
+  const WidePlan P = wide_block_plan(AB, N, D, H, a.g_update, sizeof(T) != sizeof(float));
   float* sQ = smem;                                    // query, then out   [AB, D + 4]
   float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
-  float* work = sW + (a.g_update ? AB * lds : 0);      // centers, then:
-  float* sA = work;                                    // chunk operand     [rows, 2D + 4]
-  float* sU = sA + rows_max * (2 * D + 4);             // chunk product     [rows, D + 4]
-  float* sE = sU + rows_max * (D + 4);                 // attention         [rows, H]
-  const int tid = threadIdx.x;
+  float* work = sW + (a.g_update ? AB * lds : 0);
+  float* sU = work;                      // centers, then the sub-chunk product [64, D + 4]
+  float* sE = sU + kFwdMaxChunkRows * lds;             // the atom's energies [N, H]
+  float* const buf0 = work + P.offA;                   // operand buffers [64, 2D + 4]
+  float* const buf1 = work + P.offA1;
+  auto buf = [&](int j) { return (j & 1) ? buf1 : buf0; };
+  int* ring = reinterpret_cast<int*>(work + P.offI);   // neighbour indices [2][N]
+  float* keys = P.smem_keys ? work + P.offK : wide_keys + (size_t)blockIdx.x * N * D;
   const int blocks_per_structure = (M + AB - 1) / AB;
   const int b = blockIdx.x / blocks_per_structure;
   const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
@@ -195,50 +349,63 @@ local_attention_kernel(const Args<T> a, float* wide_keys) {
 
   const T* centers_b = a.centers + (size_t)b * M * D;
   const int* nbr = a.nbr + (size_t)b * M * N;
-  const T* geometry = a.geometry + (size_t)b * M * N * (a.g_update ? D : a.K);
+  const T* geometry = a.geometry + (size_t)b * M * N * G;
   const T* nmask = a.nmask + (size_t)b * M * N;
   const T* nweight = a.nweight + (size_t)b * M * N;
   T* geo_out = a.geo_out + (size_t)b * M * N * D;
   T* attn = a.attn + (size_t)b * M * N * H;
 
-  // the block's centers, then cw = centers @ Wfg[0:D] (SCANN+) and the query
+  // atom m's neighbour indices into its slot of the ring, as copies in flight
+  auto fetch_ring = [&](int m) {
+    if (m < ab0 + ab)
+      for (int i = tid; i < N; i += kThreads)
+        cp_async4(reinterpret_cast<float*>(ring + ((m - ab0) & 1) * N + i),
+                  nbr + (size_t)m * N + i);
+  };
+  const int S = (N + kFwdMaxChunkRows - 1) / kFwdMaxChunkRows;
+  auto issue = [&](int j) {   // sub-chunk j into buffer j & 1
+    if (j >= ab * S) return;
+    const int at = j / S, n0 = (j - at * S) * kFwdMaxChunkRows;
+    stage_wide(a, buf(j), centers_b, ring + (at & 1) * N + n0,
+               geometry + ((size_t)(ab0 + at) * N + n0) * G, min(kFwdMaxChunkRows, N - n0));
+  };
+  int next = 0;   // the sub-chunk the walk takes next
+  auto stage = [&](int, int) {
+    const int j = next++;
+    if (P.buffers == 1 && j > 0) issue(j);
+    cp_async_wait_all();
+    __syncthreads();
+    if (P.buffers == 2) issue(j + 1);
+    return buf(j);
+  };
+
+  // the block's centers and the first atom's indices, then sub-chunk 0 in
+  // flight while the block forms cw = centers @ Wfg[0:D] (SCANN+) and the query
+  fetch_ring(ab0);
   for (int i = tid; i < ab * q4; i += kThreads) {
     const int m = i / q4, c = (i - m * q4) * 4;
-    stage4(work + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
+    stage4(sU + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
   }
   cp_async_wait_all();
   __syncthreads();
+  issue(0);
   if (a.g_update)
-    mma_gemm(work, lds, ab, D, a.w.wfg, D, D,
+    mma_gemm(sU, lds, ab, D, a.w.wfg, D, D,
              [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
-  mma_gemm(work, lds, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
+  mma_gemm(sU, lds, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
     const T* bq = a.bq + c;
     store4(sQ + r * lds + c, make_float4(v.x + to_float(bq[0]), v.y + to_float(bq[1]),
                                          v.z + to_float(bq[2]), v.w + to_float(bq[3])));
   });
   __syncthreads();
 
-  if constexpr (kWide) {
-    float* keys = wide_keys + (size_t)blockIdx.x * N * D;
-    for (int m = ab0; m < ab0 + ab; ++m) {
-      const size_t base = (size_t)m * N;
-      fwd_atom_wide(cd, a.w, [&](int n0, int rows) {
-                      stage_chunk(a, sA, centers_b, nbr + base + n0,
-                                  geometry + (base + n0) * (a.g_update ? D : a.K), rows);
-                    },
-                    sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
-                    nweight + base, a.g_update ? geo_out + base * D : nullptr, attn + base * H,
-                    keys, [](int, int) { return 1.0f; });
-    }
-  } else {
-    for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
-      const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
-      stage_chunk(a, sA, centers_b, nbr + base,
-                  geometry + (size_t)base * (a.g_update ? D : a.K), ca * N);
-      fwd_chunk(cd, a.w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
-                nmask + base, nweight + base, a.g_update ? geo_out + (size_t)base * D : nullptr,
-                attn + (size_t)base * H, [](int, int, int) { return 1.0f; });
-    }
+  for (int m = ab0; m < ab0 + ab; ++m) {
+    const size_t base = (size_t)m * N;
+    fetch_ring(m + 1);   // waited for with this atom's first sub-chunk
+    fwd_atom_wide_keys<false>(cd, a.w, stage, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds,
+                              nmask + base, nweight + base,
+                              a.g_update ? geo_out + base * D : nullptr, attn + base * H, keys, D,
+                              P.smem_keys != 0, [](int, int) { return 1.0f; });
   }
 
   for (int i = tid; i < ab * q4; i += kThreads) {
@@ -250,6 +417,80 @@ local_attention_kernel(const Args<T> a, float* wide_keys) {
     } else {
       __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
       *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(q);
+    }
+  }
+}
+
+// one block per SM (its shared memory takes most of the SM), so the compiler
+// may spend up to 255 registers a thread. kWide: N > kFwdMaxChunkRows, the
+// wide build (local_attention_wide.cu), wide_block.
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+local_attention_kernel(const Args<T> a, float* wide_keys) {
+  if constexpr (kWide) {
+    wide_block(a, wide_keys);
+  } else {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
+    const int lds = D + 4, rows_max = CA * N, q4 = D / 4;
+    float* sQ = smem;                                    // query, then out   [AB, D + 4]
+    float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
+    float* work = sW + (a.g_update ? AB * lds : 0);      // centers, then:
+    float* sA = work;                                    // chunk operand     [rows, 2D + 4]
+    float* sU = sA + rows_max * (2 * D + 4);             // chunk product     [rows, D + 4]
+    float* sE = sU + rows_max * (D + 4);                 // attention         [rows, H]
+    const int tid = threadIdx.x;
+    const int blocks_per_structure = (M + AB - 1) / AB;
+    const int b = blockIdx.x / blocks_per_structure;
+    const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
+    const ChunkDims cd = {N, D, H, a.K, a.g_update, 0, a.dk};
+
+    const T* centers_b = a.centers + (size_t)b * M * D;
+    const int* nbr = a.nbr + (size_t)b * M * N;
+    const T* geometry = a.geometry + (size_t)b * M * N * (a.g_update ? D : a.K);
+    const T* nmask = a.nmask + (size_t)b * M * N;
+    const T* nweight = a.nweight + (size_t)b * M * N;
+    T* geo_out = a.geo_out + (size_t)b * M * N * D;
+    T* attn = a.attn + (size_t)b * M * N * H;
+
+    // the block's centers, then cw = centers @ Wfg[0:D] (SCANN+) and the query
+    for (int i = tid; i < ab * q4; i += kThreads) {
+      const int m = i / q4, c = (i - m * q4) * 4;
+      stage4(work + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (a.g_update)
+      mma_gemm(work, lds, ab, D, a.w.wfg, D, D,
+               [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+    mma_gemm(work, lds, ab, D, a.wq, D, D, [&](int r, int c, float4 v) {
+      const T* bq = a.bq + c;
+      store4(sQ + r * lds + c, make_float4(v.x + to_float(bq[0]), v.y + to_float(bq[1]),
+                                           v.z + to_float(bq[2]), v.w + to_float(bq[3])));
+    });
+    __syncthreads();
+
+    for (int m0 = ab0; m0 < ab0 + ab; m0 += CA) {
+      const int ca = min(CA, ab0 + ab - m0), base = m0 * N;
+      stage_chunk(a, sA, centers_b, nbr + base,
+                  geometry + (size_t)base * (a.g_update ? D : a.K), ca * N);
+      fwd_chunk(cd, a.w, ca, sA, sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
+                nmask + base, nweight + base, a.g_update ? geo_out + (size_t)base * D : nullptr,
+                attn + (size_t)base * H, [](int, int, int) { return 1.0f; });
+    }
+
+    for (int i = tid; i < ab * q4; i += kThreads) {
+      const int m = i / q4, c = (i - m * q4) * 4;
+      T* o = a.out + ((size_t)b * M + ab0 + m) * D + c;
+      const float* v = sQ + m * lds + c;
+      if constexpr (sizeof(T) == sizeof(float)) {
+        store4(reinterpret_cast<float*>(o), *reinterpret_cast<const float4*>(v));
+      } else {
+        __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                               __floats2bfloat162_rn(v[2], v[3])};
+        *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(q);
+      }
     }
   }
 }
@@ -283,18 +524,30 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
   a.atom_block = dims[8]; a.chunk_atoms = dims[9];
   a.dk = scalars[0];
 
-  // the narrow build takes N <= kFwdMaxChunkRows, the wide one the rest, with
-  // its key scratch
+  // the narrow build takes N <= kFwdMaxChunkRows, the wide one the rest
   if (a.B < 1 || a.M < 1 || a.N < 1 || (a.N > kFwdMaxChunkRows) != kWide ||
-      a.N > kWideMaxN || (wide_keys != nullptr) != kWide || a.D < 4 || a.D > 128 ||
+      a.N > kWideMaxN || (!kWide && wide_keys != nullptr) || a.D < 4 || a.D > 128 ||
       (a.D & 3) || a.H < 1 || a.D % a.H || a.K < 1 || a.K > a.D || n_sm < 1)
     return kErrShape;
-  const Plan plan = make_plan(a.B, a.M, a.N, a.D, a.H, a.g_update, n_sm);
-  if (plan.atom_block == 0) return kErrSharedMemory;
-  const int bytes = plan.total * (int)sizeof(float);
-  // the wrapper's plan is this one
-  if (a.atom_block != plan.atom_block || a.chunk_atoms != plan.chunk_atoms || dims[10] != bytes)
-    return kErrShape;
+  int bytes;
+  if constexpr (kWide) {
+    const WidePlan plan = make_wide_plan(a.B, a.M, a.N, a.D, a.H, a.g_update,
+                                                sizeof(T) != sizeof(float), n_sm);
+    if (plan.atom_block == 0) return kErrSharedMemory;
+    bytes = plan.total * (int)sizeof(float);
+    // the wrapper's plan is this one, with a key scratch where the keys are
+    // not in shared memory
+    if (a.atom_block != plan.atom_block || a.chunk_atoms != 1 || dims[10] != bytes ||
+        (wide_keys == nullptr) != (plan.smem_keys != 0))
+      return kErrShape;
+  } else {
+    const Plan plan = make_plan(a.B, a.M, a.N, a.D, a.H, a.g_update, n_sm);
+    if (plan.atom_block == 0) return kErrSharedMemory;
+    bytes = plan.total * (int)sizeof(float);
+    // the wrapper's plan is this one
+    if (a.atom_block != plan.atom_block || a.chunk_atoms != plan.chunk_atoms || dims[10] != bytes)
+      return kErrShape;
+  }
   const long long blocks = (long long)a.B * ((a.M + a.atom_block - 1) / a.atom_block);
   if (blocks > 0x7fffffffLL) return kErrShape;
   cudaError_t err = cudaFuncSetAttribute(local_attention_kernel<T, kWide>,
@@ -308,11 +561,13 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 
 // ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
 // bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn, the wide
-// key scratch [blocks, N, D] (f32; null in the narrow build) (every other
+// key scratch [blocks, N, D] (f32; null in the narrow build, and in the wide
+// one where its plan keeps the keys in shared memory) (every other
 // float tensor f32 for local_attention_launch, bfloat16 for
 // local_attention_bf16_launch);
 // dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's
-// plan: atom block, atoms per chunk, shared bytes per block; scalars: dk.
+// plan: atom block, atoms per chunk (1 in the wide build), shared bytes per
+// block; scalars: dk.
 // The order must match scann_tpu_torch/kernels/local_attention.py. This
 // file builds the narrow kernels (N <= kFwdMaxChunkRows);
 // local_attention_wide.cu includes it with SCANN_LOCAL_ATTENTION_WIDE defined

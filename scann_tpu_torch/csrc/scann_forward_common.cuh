@@ -16,12 +16,13 @@
 // neighbours one warp per (atom, head) (lane n holds neighbours n and n + 32,
 // reductions by shuffles in a fixed tree), which also folds the neighbour
 // mask into the attention it stores; the context one thread per (atom,
-// column) walking the neighbours in order (a wider list: fwd_atom_wide, one
-// atom's rows in sub-chunks with its energies [N, H] kept for wide_softmax
-// of scann_mma.cuh and its keys in global scratch for the context); the geometry LayerNorm four rows a
-// warp with their shuffles interleaved; the staging in float4 (cp.async for
-// the geometry). Every sum runs
-// in a fixed order, so a launch repeats bit for bit.
+// column) walking the neighbours in order (a wider list: fwd_atom_wide_keys,
+// one atom's rows in sub-chunks with its energies [N, H] kept for
+// wide_softmax of scann_mma.cuh and its keys kept for the context, which
+// splits the neighbours into two halves over the block); the geometry
+// LayerNorm four rows a warp with their shuffles interleaved; the staging in
+// float4 (cp.async for the geometry). Every sum runs in a fixed order, so a
+// launch repeats bit for bit.
 //
 // The bf16 operand mode (kBf16, model.dtype "bfloat16" in the whole-model
 // forwards): every product through mma_gemm<true> (both operands rounded to
@@ -53,13 +54,6 @@
 namespace scann {
 
 constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
-
-// The chunk region of the wide forwards (N > kFwdMaxChunkRows, one atom at a
-// time): a sub-chunk's buffers and the atom's energy row [N, H] in place of
-// the chunk's attention.
-__host__ __device__ inline int fwd_wide_chunk_floats(int N, int D, int H) {
-  return kFwdMaxChunkRows * (2 * D + 4) + kFwdMaxChunkRows * (D + 4) + round4(N * H);
-}
 
 // The sizes fwd_chunk reads: the whole-model forwards take them from their
 // ForwardArgs (forward_chunk_dims), the per-layer kernel fills them itself.
@@ -340,7 +334,7 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
 }
 
 // out = LN(ctx + query) of ca atoms whose rows of sQ [ca, ldq] hold ctx +
-// query, one warp per atom (fwd_chunk's tail, for fwd_atom_wide). Ends with a
+// query, one warp per atom (fwd_chunk's tail, for fwd_atom_wide_keys). Ends with a
 // barrier.
 template <typename T>
 __device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, float* sQ,
@@ -520,72 +514,35 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
 }
 
 // The wide form of fwd_chunk for one atom whose N neighbours (64 < N <=
-// kWideMaxN) exceed a chunk: its rows go through fwd_chunk_rows in sub-chunks
-// of at most kFwdMaxChunkRows, stage(n0, rows) staging rows [n0, n0 + rows)
-// of the atom into sA (ending with a barrier), each sub-chunk's energies into
-// the atom's energy row sE [N, H] and its keys to keys [N, D] (global scratch
-// of the block, read back through L2); then wide_softmax over all N, which
-// stores attn_out and folds the dropout and the neighbour mask into sE, and
-// the context, one thread per column walking the N neighbours in order, as
-// fwd_chunk's does. sCW and sQ are the atom's rows; nmask, nweight, geo_out
-// and attn_out point at the atom's first row; drop(n, h) takes the
-// neighbour's index in the atom. Ends with a barrier.
-template <bool kBf16 = false, typename T, typename Stage, typename Drop>
-__device__ __forceinline__ void fwd_atom_wide(const ChunkDims& a, const LayerWeightsT<T>& w,
-                                              Stage stage, float* sA, float* sU, float* sE,
-                                              const float* sCW, float* sQ, const T* nmask,
-                                              const T* nweight, T* geo_out, T* attn_out,
-                                              float* keys, Drop drop) {
-  const int tid = threadIdx.x, N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4;
-  const int q4 = D / 4;
-  for (int n0 = 0; n0 < N; n0 += kFwdMaxChunkRows) {
-    const int rows = min(kFwdMaxChunkRows, N - n0);
-    stage(n0, rows);
-    fwd_chunk_rows<kBf16>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
-                          geo_out ? geo_out + (size_t)n0 * D : nullptr);
-    warp_energies<kBf16>(sQ, sA + D, lda, nmask + n0, sE + n0 * H, rows, H, hd, a.dk);
-    for (int i = tid; i < rows * q4; i += kThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      store4(keys + (size_t)(n0 + r) * D + c, *reinterpret_cast<const float4*>(sA + r * lda + D + c));
-    }
-    __syncthreads();
-  }
-  wide_softmax(sE, N, H, [&](int n, int h, float pr) {
-    if (attn_out) attn_out[(size_t)n * H + h] = from_float<T>(pr);
-    sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * to_float(nmask[n]);
-  });
-  __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
-    const float* e = sE + d / hd;
-    float s = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * D + d);
-    sQ[d] = s + sQ[d];
-  }
-  __syncthreads();
-  fwd_out_norm(w, 1, sQ, 0, D);
-}
-
-// fwd_atom_wide for the whole-model crystal forward's wide build
-// (scann_loop_wide.cu), which stores no attention: the atom's keys go to
-// keys [N, ldk], in shared memory where the plan holds them (smem_keys) or in
-// the block's global scratch past that, and the context splits the N
+// kWideMaxN) exceed a chunk: the atom walk of the wide builds of #3
+// (scann_loop_wide.cu) and #5 (local_attention_wide.cu). Its rows go through
+// fwd_chunk_rows in sub-chunks of at most kFwdMaxChunkRows, stage(n0, rows)
+// staging rows [n0, n0 + rows) of the atom and returning the operand buffer
+// that holds them (after a barrier); each sub-chunk's energies go into the
+// atom's energy row sE [N, H] and its keys to keys [N, ldk], in shared
+// memory where the plan holds them (smem_keys) or in the block's global
+// scratch past that (read back past L1). Then wide_softmax over all N, which
+// stores attn_out (null in #3, which stores no attention) and folds the
+// dropout and the neighbour mask into sE, and the context, which splits the N
 // neighbours into two halves over the block's threads (thread t: column t %
 // D of half t / D, D <= 128), each half summed in order, then first half +
 // second half + query. sU [D] passes the second half's sums (the sub-chunk's
-// product buffer, free by then). Ends with a barrier.
-template <bool kBf16, typename Stage, typename Drop>
-__device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const LayerWeights& w,
-                                                   Stage stage, float* sA, float* sU, float* sE,
-                                                   const float* sCW, float* sQ,
-                                                   const float* nmask, const float* nweight,
-                                                   float* geo_out, float* keys, int ldk,
-                                                   bool smem_keys, Drop drop) {
+// product buffer, free by then). sCW and sQ are the atom's rows; nmask,
+// nweight, geo_out and attn_out point at the atom's first row; drop(n, h)
+// takes the neighbour's index in the atom. kBf16: the operand mode; T: the
+// element type of the weights, masks and outputs. Ends with a barrier.
+template <bool kBf16, typename T, typename Stage, typename Drop>
+__device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const LayerWeightsT<T>& w,
+                                                   Stage stage, float* sU, float* sE,
+                                                   const float* sCW, float* sQ, const T* nmask,
+                                                   const T* nweight, T* geo_out, T* attn_out,
+                                                   float* keys, int ldk, bool smem_keys,
+                                                   Drop drop) {
   const int tid = threadIdx.x, N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4;
   const int q4 = D / 4;
   for (int n0 = 0; n0 < N; n0 += kFwdMaxChunkRows) {
     const int rows = min(kFwdMaxChunkRows, N - n0);
-    stage(n0, rows);
+    float* sA = stage(n0, rows);
     fwd_chunk_rows<kBf16>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
                           geo_out ? geo_out + (size_t)n0 * D : nullptr);
     warp_energies<kBf16>(sQ, sA + D, lda, nmask + n0, sE + n0 * H, rows, H, hd, a.dk);
@@ -597,7 +554,8 @@ __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const Lay
     __syncthreads();
   }
   wide_softmax(sE, N, H, [&](int n, int h, float pr) {
-    sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * nmask[n];
+    if (attn_out) attn_out[(size_t)n * H + h] = from_float<T>(pr);
+    sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * to_float(nmask[n]);
   });
   __syncthreads();
   const int d = tid % D, part = tid / D, half = (N + 1) / 2;

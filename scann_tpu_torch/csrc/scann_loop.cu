@@ -487,10 +487,11 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
                 __syncthreads();
                 stage(0, ring_idx(slot) + n0, base + n0, rows);
                 wait(0, rows);
+                return sA;
               },
-              sA, sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
-              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, atom_keys,
-              D, smem_keys, [&](int n, int h) {
+              sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
+              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+              static_cast<float*>(nullptr), atom_keys, D, smem_keys, [&](int n, int h) {
                 return scann_philox::mask_value(a.seed, mol, 1 + a.L + l,
                                                 (unsigned)((base + n) * H + h),
                                                 a.attn_threshold, a.attn_scale);

@@ -43,14 +43,17 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   list launches the wide build (``csrc/local_attention_wide.cu``, built at
   its first launch): one atom at a time, its rows in sub-chunks of 64, the
   softmax over all N from an energy row in shared memory (``wide_softmax``
-  of ``csrc/scann_mma.cuh``) and the context from the atom's keys, which
-  the block keeps in a global scratch [blocks, N, D].
+  of ``csrc/scann_mma.cuh``) and the context from the atom's keys, kept in
+  shared memory where ``wide_block_plan`` holds them (f32), else in a
+  per-block scratch [blocks, N, D] the wrapper allocates (bf16: always,
+  since the L1 the smallest layout leaves holds the bf16 weights).
 - It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
   accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
   the whole-model forwards share. ``make_plan`` mirrors the launch plan of
-  the CUDA source (which refuses any other): the atom block of
-  ``ATOM_BLOCKS`` with the fewest atoms per SM over the card's SMs, one block
-  per SM.
+  the CUDA source (which refuses any other), one block per SM: the narrow
+  build's atom block of ``ATOM_BLOCKS`` with the fewest atoms per SM over
+  the card's SMs, the wide build's of ``WIDE_ATOM_BLOCKS`` whose waves cost
+  least, counting each block's head.
 
 Bound: ``layer_flops`` (~2.0e10 at one MP2018 layer, B=64, M=96, N=32,
 D=128) against one read and one write of the [B, M, N, D] geometry; bound by
@@ -77,6 +80,8 @@ MAX_NEIGHBORS = 256   # the wide builds' limit (csrc/scann_mma.cuh kWideMaxN)
 MAX_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 ATOM_BLOCKS = (64, 48, 32, 16)
+WIDE_ATOM_BLOCKS = (16, 8, 4, 2, 1)
+WIDE_ATOM_COST, WIDE_HEAD_COST = 20, 3   # the wide plan's cost of a wave: 20 AB + 3
 PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
               "query/kernel", "query/bias", "layer_norm/scale", "layer_norm/bias",
               "layer_norm_g/scale", "layer_norm_g/bias")
@@ -188,34 +193,72 @@ def library(N: int) -> str:
 
 
 def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple[int, int]:
-    """(atoms per chunk, shared bytes) of one block of ``atom_block`` atoms --
-    ``plan_for`` of the CUDA source. A block holds the queries and, for
-    SCANN+, cw of its atoms [AB, D + 4] each, and a work region for the
-    atoms' centers [AB, D + 4] or a chunk's buffers (rows of 2D + 4 and D + 4
-    floats and the attention [rows, H], rows = atoms per chunk x N <= 64;
-    wide: 64 rows and the atom's energies [N, H])."""
+    """(atoms per chunk, shared bytes) of one block of ``atom_block`` atoms of
+    the narrow build (N <= 64) -- ``plan_for`` of the CUDA source. A block
+    holds the queries and, for SCANN+, cw of its atoms [AB, D + 4] each, and a
+    work region for the atoms' centers [AB, D + 4] or a chunk's buffers (rows
+    of 2D + 4 and D + 4 floats and the attention [rows, H], rows = atoms per
+    chunk x N <= 64)."""
     chunk_atoms = min(atom_block, max(1, MAX_CHUNK_ROWS // N))
-    rows = MAX_CHUNK_ROWS if is_wide(N) else chunk_atoms * N
-    chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-max(rows, N) * H // 4) * 4
+    rows = chunk_atoms * N
+    chunk = rows * (2 * D + 4) + rows * (D + 4) + -(-rows * H // 4) * 4
     work = max(chunk, atom_block * (D + 4))
     return chunk_atoms, 4 * ((2 if g_update else 1) * atom_block * (D + 4) + work)
 
 
+def wide_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
+                    bf16: bool = False) -> Optional[Tuple[int, bool, int]]:
+    """(operand buffers, keys in shared memory, shared bytes) of one block of
+    ``atom_block`` atoms of the wide build (N > 64) -- ``wide_block_plan`` of
+    the CUDA source, or None if nothing fits. A block holds the queries and,
+    for SCANN+, cw [AB, D + 4] each; the front (the block's centers [AB, D +
+    4], then a 64-row sub-chunk's product [64, D + 4] and the atom's
+    energies [N, H]); one or two operand buffers [64, 2D + 4]; the index
+    ring [2][N] (round4(2N) floats); on f32 tensors the atom's keys [N, D]
+    where they fit beside one buffer, and a second buffer where that fits
+    too; on ``bf16`` tensors one buffer and the keys in L2, the smallest
+    layout, whose L1 holds the bf16 weights of the row products."""
+    r4 = lambda v: -(-v // 4) * 4
+    off_a = max(MAX_CHUNK_ROWS * (D + 4) + r4(N * H), atom_block * (D + 4))
+    layouts = ((True, 2), (True, 1), (False, 2), (False, 1))
+    for smem_keys, buffers in layouts[3 if bf16 else 0:]:
+        floats = ((2 if g_update else 1) * atom_block * (D + 4) + off_a
+                  + buffers * MAX_CHUNK_ROWS * (2 * D + 4) + r4(2 * N)
+                  + (N * D if smem_keys else 0))
+        if 4 * floats <= MAX_SHARED_BYTES:
+            return buffers, smem_keys, 4 * floats
+    return None
+
+
 def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
-              n_sm: int) -> Tuple[int, int, int]:
+              n_sm: int, bf16: bool = False) -> Tuple[int, int, int]:
     """(atom block, atoms per chunk, shared bytes per block) of the launch --
-    ``make_plan`` of the CUDA source, which refuses any other. A block takes
-    a whole SM, so the B * ceil(M / AB) blocks run in ceil(blocks / n_sm)
-    waves of AB atoms: the plan takes the atom block of ``ATOM_BLOCKS`` whose
-    ``block_plan`` fits with the fewest atoms per SM, the larger where two
-    tie."""
+    ``make_plan`` and ``make_wide_plan`` of the CUDA source, which refuses
+    any other. A block takes a whole SM, so the B * ceil(M / AB) blocks run
+    in ceil(blocks / n_sm) waves of AB atoms. The narrow build takes the
+    atom block of ``ATOM_BLOCKS`` whose ``block_plan`` fits with the fewest
+    atoms per SM, the larger where two tie. The wide build (one atom a
+    chunk, ``wide_block_plan`` on f32 or ``bf16`` tensors) takes the atom
+    block of ``WIDE_ATOM_BLOCKS`` whose waves cost least, a wave costing
+    ``WIDE_ATOM_COST`` x AB + ``WIDE_HEAD_COST`` (a block's head, its
+    atoms' cw and query products, costs about 0.15 of an atom's rows), the
+    smaller where two tie."""
+    wide = is_wide(N)
     best = None
-    for ab in ATOM_BLOCKS:
-        chunk_atoms, nbytes = block_plan(ab, N, D, H, g_update)
-        if nbytes > MAX_SHARED_BYTES:
-            continue
-        cost = -(-B * -(-M // ab) // n_sm) * ab
-        if best is None or cost < best[0]:
+    for ab in WIDE_ATOM_BLOCKS if wide else ATOM_BLOCKS:
+        waves = -(-B * -(-M // ab) // n_sm)
+        if wide:
+            plan = wide_block_plan(ab, N, D, H, g_update, bf16)
+            if plan is None:
+                continue
+            chunk_atoms, nbytes = 1, plan[2]
+            cost = waves * (WIDE_ATOM_COST * ab + WIDE_HEAD_COST)
+        else:
+            chunk_atoms, nbytes = block_plan(ab, N, D, H, g_update)
+            if nbytes > MAX_SHARED_BYTES:
+                continue
+            cost = waves * ab
+        if best is None or cost < best[0] or (wide and cost == best[0]):
             best = (cost, ab, chunk_atoms, nbytes)
     if best is None:
         raise NotImplementedError(f"no atom block fits a block's shared memory at N={N}, D={D}")
@@ -298,11 +341,13 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     hd = D // num_head
     dk = float(np.float32(hd) ** np.float32(-scale))
     n_sm = sm_count(dev)
-    plan = make_plan(B, M, N, D, num_head, g_update, n_sm)
     bf16 = int(dt == torch.bfloat16)
+    plan = make_plan(B, M, N, D, num_head, g_update, n_sm, bool(bf16))
     lib = library(N)
     keys = (torch.empty((B * -(-M // plan[0]), N, D), device=dev, dtype=torch.float32)
-            if is_wide(N) else None)
+            if is_wide(N) and not wide_block_plan(plan[0], N, D, num_head, g_update,
+                                                  bool(bf16))[1]
+            else None)
     call_kernel(lib, lib + ("_bf16" if bf16 else ""), dev, tensors + [keys],
                 [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1

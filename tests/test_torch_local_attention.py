@@ -240,8 +240,7 @@ def test_torch_local_attention_plan_matches_cuda_source(monkeypatch):
         src = f.read()
     for term in ("constexpr int kAtomBlocks[] = {64, 48, 32, 16};",
                  "p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;",
-                 "const int chunk = N > kFwdMaxChunkRows ? fwd_wide_chunk_floats(N, D, H)\n"
-                 "                                         : fwd_chunk_floats(p.chunk_atoms * N, D, H);",
+                 "const int chunk = fwd_chunk_floats(p.chunk_atoms * N, D, H);",
                  "const int centers = AB * (D + 4);",
                  "p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.work;",
                  "const long long cost = (blocks + n_sm - 1) / n_sm * AB;",

@@ -320,6 +320,65 @@ def test_torch_wide_softmax_mirror_sums_lane_by_lane():
     assert torch.equal(split_softmax(e)[0], want)
 
 
+
+def split_context(p: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """The wide kernels' context (``fwd_atom_wide_keys`` of
+    ``csrc/scann_forward_common.cuh``) in PyTorch: p [..., N, H] (the
+    attention times the neighbour mask) and keys [..., N, D] -> the context
+    [..., D]. Column d (head d // (D / H)) sums p * key over the first half
+    of the neighbours, n < ceil(N / 2), in order from 0, and over the second
+    half in order (the kernel's two halves of the block's threads), then
+    adds the halves, first + second; the caller adds the query after. The
+    kernel fuses each multiply-add, so the mirror follows its order, not
+    its bits."""
+    N, H = p.shape[-2:]
+    e = p.repeat_interleave(keys.shape[-1] // H, dim=-1)       # [..., N, D]
+    half = (N + 1) // 2
+    first = torch.zeros_like(keys[..., 0, :])
+    second = torch.zeros_like(first)
+    for n in range(half):
+        first = first + e[..., n, :] * keys[..., n, :]
+    for n in range(half, N):
+        second = second + e[..., n, :] * keys[..., n, :]
+    return first + second
+
+
+@pytest.mark.parametrize("N", [65, 81, 96, 130, 256])
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_wide_context_mirror_matches_reference_layer(N, g_update, monkeypatch):
+    """The plain layer with the wide kernels' orders in place of
+    ``local_attention_core``'s (the softmax lane by lane, ``split_softmax``;
+    the context in two halves, ``split_context``; then ctx + query) against
+    ``reference_local_attention`` itself, at N past one chunk (an odd one
+    included), masked edges included: out, geometry and attention within
+    f32 rounding."""
+    rng = np.random.default_rng(N)
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(
+        rng, B=2, M=6, N=N, D=32, g_update=g_update)
+    _masked_edges(mask)
+    flat = {f"{mod}/{name}": torch.from_numpy(np.asarray(v))
+            for mod, leaves in params.items() for name, v in leaves.items()}
+    args = (*[torch.from_numpy(a) for a in (centers, idx, geometry, mask, weight)], flat, 4,
+            0.5, g_update)
+    want = kla.reference_local_attention(*args)
+
+    def wide_core(query, key, value, nmask, num_head, scale, dropout_mask=None):
+        B, M, D = query.shape
+        hd = D // num_head
+        q = query.reshape(B, M, num_head, hd) * float(np.float32(hd) ** np.float32(-scale))
+        energy = torch.einsum("bmhd,bmnhd->bhmn", q, key.reshape(B, M, N, num_head, hd))
+        attn = split_softmax(energy + (1.0 - nmask[:, None]) * -1e9)
+        used = attn.permute(0, 2, 3, 1) * nmask[..., None]          # [B, M, N, H]
+        return attn, split_context(used, value)
+
+    monkeypatch.setattr(kla, "local_attention_core", wide_core)
+    got = kla.reference_local_attention(*args)
+    for g, w in zip(got, want):
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    # the all-masked atom: a uniform attention over its N neighbours, as the reference's
+    assert torch.allclose(got[2][0, 0], torch.full((N, 4), 1.0 / N))
+
 # --- gates, routes, builds ------------------------------------------------------------------
 
 # MP2018 without the attention LayerNorm: no loop kernel takes it, so it
@@ -487,9 +546,12 @@ def test_torch_wide_launch_arguments(N, monkeypatch):
 @pytest.mark.parametrize("N", [64, 96, 200])
 def test_torch_wide_layer_launch_arguments(N, monkeypatch):
     """#5 at N past 64 launches ``local_attention_wide`` (f32) or
-    ``local_attention_wide_bf16`` with the per-block key scratch [blocks, N,
-    D], and its plan (one atom a chunk, 64-row sub-chunks and the atom's
-    energies [N, H]) is ``block_plan``'s."""
+    ``local_attention_wide_bf16``, with one atom a chunk and the bytes of
+    ``wide_block_plan``: on f32 tensors the front, two 64-row operand
+    buffers, the index ring and the atom's keys [N, D] (at D = 32 they
+    always fit: no key scratch); on bf16 tensors one buffer and the keys in
+    the per-block scratch [blocks, N, D] (f32). N = 64 takes the narrow
+    plan."""
     calls = _stub(monkeypatch)
     monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
     rng = np.random.default_rng(N)
@@ -501,36 +563,132 @@ def test_torch_wide_layer_launch_arguments(N, monkeypatch):
     for dt in (torch.float32, torch.bfloat16):
         kla._launch(*[a.to(dt) if a.is_floating_point() else a for a in t],
                     {k: v.to(dt) for k, v in flat.items()}, 4, 0.5, True)
-    plan = kla.make_plan(2, 20, N, 32, 4, True, 132)
     wide = N > 64
-    for (lib, sym, tensors, dims), suffix in zip(calls, ("", "_bf16")):
-        assert lib == ("local_attention_wide" if wide else "local_attention")
-        assert sym == lib + suffix
-        assert len(tensors) == 19 and (tensors[-1] is None) == (not wide)
-        if wide:
-            assert tuple(tensors[-1].shape) == (2 * -(-20 // plan[0]), N, 32)
-        assert dims[8:] == list(plan)
-    assert kla.fused_local_attention.wide_launches - before == 2 * wide
     r4 = lambda v: -(-v // 4) * 4
-    ab = plan[0]
-    chunk = (64 * (2 * 32 + 4) + 64 * (32 + 4) + r4(N * 4) if wide
-             else kfwd.forward_chunk_floats(plan[1] * N, 32, 4))
-    assert plan[2] == 4 * (2 * ab * 36 + max(chunk, ab * 36))
+    for (lib, sym, tensors, dims), bf16 in zip(calls, (False, True)):
+        plan = kla.make_plan(2, 20, N, 32, 4, True, 132, bf16)
+        assert lib == ("local_attention_wide" if wide else "local_attention")
+        assert sym == lib + ("_bf16" if bf16 else "")
+        assert len(tensors) == 19 and dims[8:] == list(plan)
+        ab = plan[0]
+        if wide:
+            buffers, smem_keys, nbytes = kla.wide_block_plan(ab, N, 32, 4, True, bf16)
+            assert (ab, plan[1], buffers, smem_keys) == (1, 1, 1 if bf16 else 2, not bf16)
+            front = max(64 * (32 + 4) + r4(N * 4), ab * 36)
+            assert plan[2] == nbytes == 4 * (2 * ab * 36 + front + buffers * 64 * (2 * 32 + 4)
+                                             + r4(2 * N) + (0 if bf16 else N * 32))
+            if bf16:
+                keys = tensors[-1]
+                assert keys.dtype == torch.float32 and tuple(keys.shape) == (2 * 20, N, 32)
+            else:
+                assert tensors[-1] is None
+        else:
+            assert tensors[-1] is None
+            chunk = kfwd.forward_chunk_floats(plan[1] * N, 32, 4)
+            assert plan[2] == 4 * (2 * ab * 36 + max(chunk, ab * 36))
+    assert kla.fused_local_attention.wide_launches - before == 2 * wide
+
+
+@pytest.mark.parametrize("B,M,N,block", [(1, 48, 96, 1), (8, 96, 96, 2), (64, 96, 96, 16),
+                                         (1, 384, 96, 1), (8, 64, 128, 4), (4, 32, 256, 1),
+                                         (2, 73, 81, 2), (1, 300, 200, 1)])
+def test_torch_wide_layer_plan_fills_the_card(B, M, N, block):
+    """The wide #5's plan takes its atom block from ``WIDE_ATOM_BLOCKS`` by
+    the waves' cost on the H100's 132 SMs, ceil(blocks / 132) x (20 AB + 3)
+    (a block's head costs about 0.15 of an atom), the smaller block where
+    two tie: one atom a block for the served (1, 48, 96), 48 blocks (the
+    parent's 16 atoms a block gave 3), 2 at (8, 96, 96), 384 blocks (the
+    parent: 48), 16 at the eval batch (64, 96, 96). No block costs less, on
+    f32 and bf16 tensors alike; every block it may return fits 227 KB."""
+    for g_update in (True, False):
+        for bf16 in (False, True):
+            ab, chunk_atoms, nbytes = kla.make_plan(B, M, N, 128, 8, g_update, 132, bf16)
+            blocks = B * -(-M // ab)
+            assert (ab, chunk_atoms) == (block, 1)
+            assert blocks >= {(1, 48, 96): 48, (8, 96, 96): 132}.get((B, M, N), 1)
+            plan = kla.wide_block_plan(ab, N, 128, 8, g_update, bf16)
+            assert nbytes == plan[2] <= kla.MAX_SHARED_BYTES
+            cost = -(-blocks // 132) * (20 * ab + 3)
+            for other in kla.WIDE_ATOM_BLOCKS:     # no block costs less; ties go down
+                c = -(-B * -(-M // other) // 132) * (20 * other + 3)
+                assert c > cost or (c == cost and other >= ab)
+    for n in range(65, 257):
+        for D in range(4, 129, 4):
+            for ab in kla.WIDE_ATOM_BLOCKS:
+                for bf16 in (False, True):
+                    assert kla.wide_block_plan(ab, n, D, 1, True, bf16) is not None
+
+
+@pytest.mark.parametrize("N", [65, 81, 96, 116, 117, 199, 237, 238, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_torch_wide_layer_keys_in_shared_memory_where_the_plan_holds_them(N, dtype, monkeypatch):
+    """At one MP2018 layer's width (D = 128, 8 heads) the wide #5 on f32
+    tensors keeps an atom's keys in shared memory exactly where its plan
+    holds them beside one operand buffer (N <= 237 at one atom a block), a
+    second buffer where that fits too (N <= 116), and launches no key
+    scratch then; past that it passes the per-block scratch [blocks, N, D]
+    (f32) and stages with two buffers. On bf16 tensors the plan is the
+    smallest, one buffer and the key scratch at every N, so that the L1 left
+    beside it holds the bf16 weights. The layout's offsets keep the keys and
+    the buffers 16-byte aligned at an odd N."""
+    calls = _stub(monkeypatch)
+    monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
+    B, M, D, H = 2, 5, 128, 8
+    bf16 = dtype == torch.bfloat16
+    buffers, smem_keys, nbytes = kla.wide_block_plan(1, N, D, H, True, bf16)
+    if bf16:
+        assert (buffers, smem_keys) == (1, False)
+    else:
+        assert smem_keys == (N <= 237) and buffers == (2 if N <= 116 or N > 237 else 1)
+    rng = np.random.default_rng(N)
+    centers, idx, geometry, mask, weight, params = make_layer_inputs(rng, B=B, M=M, N=N, D=D)
+    flat = {f"{mod}/{name}": torch.from_numpy(np.asarray(v)).to(dtype)
+            for mod, leaves in params.items() for name, v in leaves.items()}
+    kla._launch(*[torch.from_numpy(a).to(dtype) if a.dtype == np.float32 else torch.from_numpy(a)
+                  for a in (centers, idx, geometry, mask, weight)], flat, H, 0.5, True)
+    ((lib, sym, tensors, dims),) = calls
+    assert sym == lib + ("_bf16" if bf16 else "") and dims[8:] == [1, 1, nbytes]
+    keys = tensors[-1]
+    if smem_keys:
+        assert keys is None
+    else:
+        assert keys.dtype == torch.float32 and tuple(keys.shape) == (B * M, N, D)
+    r4 = lambda v: -(-v // 4) * 4
+    off_a = max(64 * (D + 4) + r4(N * H), D + 4)
+    off_k = off_a + buffers * 64 * (2 * D + 4) + r4(2 * N)
+    assert off_a % 4 == 0 and off_k % 4 == 0
+    assert nbytes == 4 * (2 * (D + 4) + off_k + (N * D if smem_keys else 0))
 
 
 def test_torch_wide_plans_match_cuda_sources():
-    """The wide plans' terms as the CUDA sources write them: #5's chunk
-    region (a 64-row sub-chunk and the atom's energies [N, H],
-    ``fwd_wide_chunk_floats``) and its choice by N, #3's without the
+    """The wide plans' terms as the CUDA sources write them: #5's
+    (``wide_plan_for``: the front, one or two 64-row operand buffers, the
+    index ring, the keys where they fit; ``make_wide_plan``'s atom blocks,
+    wave cost and ties), #3's without the
     resident centers (``l2_plan``: the same sub-chunk and energies, and the
     atom's keys [N, D] in shared memory where they fit), and #4's
     wide chunk (a 64-row sub-chunk, the atom's attention and d attention [N,
     H], the dropout mask of the sub-chunk and the d query sum [wd]) without
     the resident buffer; the Python mirrors give the same floats."""
-    with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
-        common = f.read()
-    assert ("return kFwdMaxChunkRows * (2 * D + 4) + kFwdMaxChunkRows * (D + 4) + "
-            "round4(N * H);") in common
+    with open(f"{_build.SRC_DIR}/local_attention.cu") as f:
+        layer = f.read()
+    for term in ("constexpr int kWideAtomBlocks[] = {16, 8, 4, 2, 1};",
+                 "constexpr int kWideAtomCost = 20;", "constexpr int kWideHeadCost = 3;",
+                 "const long long cost = (blocks + n_sm - 1) / n_sm * (kWideAtomCost * AB + "
+                 "kWideHeadCost);",
+                 "const int front = kFwdMaxChunkRows * (D + 4) + round4(N * H);",
+                 "p.offA = front > centers ? front : centers;",
+                 "p.offI = p.offA + buffers * kFwdMaxChunkRows * (2 * D + 4);",
+                 "p.offK = p.offI + round4(2 * N);",
+                 "p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.offK + (smem_keys ? N * D : 0);",
+                 "// layouts i = 0-3: {smem_keys, buffers} = {1, 2}, {1, 1}, {0, 2}, {0, 1}",
+                 "for (int i = bf16 ? 3 : 0; i < 4; ++i) {",
+                 "const WidePlan q = wide_plan_for(AB, N, D, H, g_update, i < 2, 2 - (i & 1));",
+                 "if (best_cost < 0 || cost <= best_cost) {",
+                 "(wide_keys == nullptr) != (plan.smem_keys != 0)"):
+        assert term in layer, term
+    assert tuple(kla.WIDE_ATOM_BLOCKS) == (16, 8, 4, 2, 1)
+    assert (kla.WIDE_ATOM_COST, kla.WIDE_HEAD_COST) == (20, 3)
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()
     assert "p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;" in loop
