@@ -367,6 +367,7 @@ tests/test_kernels.py:273).
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1935,7 +1936,7 @@ JITTERS = 3                         # draws of about one f32 ulp on the weights 
 
 
 def hold_bf16(label, got16, plain16, plain32, got32, failures, plain16_f64=None,
-              versus_f32=True, below_f32=None):
+              versus_f32=True, below_f32=None, plain16_moved=()):
     """A kernel in bf16 against its bf16 plain version on the same inputs.
 
     The mean absolute difference over all outputs must be at most
@@ -1946,7 +1947,10 @@ def hold_bf16(label, got16, plain16, plain32, got32, failures, plain16_f64=None,
     another order alone flip bf16 roundings, and at full width they move
     the result by 0.04-0.05 x the gap for #1 with one layer, 0.18-0.30 x for
     #3 with one layer and 0.35-0.76 x at full depth. The limit is then the
-    larger of the gap's share and ``BF16_FLOOR`` x the floor, and with
+    larger of the gap's share and ``BF16_FLOOR`` x the floor (with
+    ``plain16_moved``, the bf16 plain version on weights moved by about one
+    f32 ulp, the largest distance of the two kinds, as phase 15 and
+    ``tests/test_torch_bf16_shapes.py`` take it), and with
     ``below_f32`` the kernel must also lie within that share of the f32
     kernel's own mean distance from the bf16 plain version: the reading of
     a kernel that skipped the bf16 mode, printed for every case. With
@@ -1969,9 +1973,10 @@ def hold_bf16(label, got16, plain16, plain32, got32, failures, plain16_f64=None,
             f"mean |bf16 plain - f32 plain| {rounding:.3e} (the f32 kernel at "
             f"{skipped / rounding:.4f} x)")
     if plain16_f64 is not None:
-        floor = (p16 - cat(plain16_f64)).abs().mean().item()
+        floor = max((p16 - cat(q)).abs().mean().item() for q in (plain16_f64, *plain16_moved))
         limit = max(limit, BF16_FLOOR * floor)
-        line += (f"; f32-noise floor (bf16 plain, f32 against f64 sums) {floor:.3e} = "
+        how = "f32 against f64 sums" + (" and moved weights" if plain16_moved else "")
+        line += (f"; f32-noise floor (bf16 plain, {how}) {floor:.3e} = "
                  f"{floor / rounding:.4f} x, the kernel at {gap / max(floor, 1e-30):.3f} x it")
     ok = gap <= limit
     line += f"; limit {limit / rounding:.4f} x"
@@ -4677,7 +4682,7 @@ def phase18(mp2018, ptgp, failures, card):
 # ---- phase 19: the bf16 operand mode in the wide and tall builds of #3 and #4 ---------------
 
 def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=0.9,
-                    below_pred=None, clusters3=HOLD_CLUSTERS):
+                    below_pred=None, clusters3=HOLD_CLUSTERS, grads=True, jitters=0):
     """#3 and #4 in the bf16 operand mode in the build that (``cfm``, ``x``)
     takes, against their bf16 plain versions with phases 14-15's criteria.
     #3 (``hold_bf16``: within the larger of 0.1 x the plain bf16-vs-f32 gap
@@ -4695,8 +4700,11 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
     the f32 stash and recompute each relaunched on NaN- and constant-filled
     scratch bit for bit. Phases 14-15 hold at 0.9 x with the model's
     layers and at 0.5 x with one, where the f32-noise floor is lower;
-    ``below_pred`` sets #4's pred apart (``hold_bf16_grads``).
-    Returns (worst #3 error, worst #4 error)."""
+    ``below_pred`` sets #4's pred apart (``hold_bf16_grads``). Without
+    ``grads`` (a width past #4's), #3 alone. With ``jitters``, #3's
+    f32-noise floor also takes that many runs of its bf16 plain version on
+    moved weights (``jittered``). Returns (worst #3 error, worst #4 error
+    or None)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -4706,7 +4714,7 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
     cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
-    build3, build4 = kloop.forward_library(cfm16, M, N)[0], kloop.backward_library(cfm16, M, N)
+    build3 = kloop.forward_library(cfm16, M, N)[0]
     p = init_params(cfm, torch.Generator().manual_seed(seed), "cuda")
     packed = kfwd.pack_params(p, cfm)
     kfwd._check_inputs(x, cfm, packed["wde"].device)
@@ -4719,6 +4727,8 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
             plain16 = kloop.reference_loop_forward(p, x, cfm16, False, rate, 11)
             plain32 = kloop.reference_loop_forward(p, x, cfm, False, rate, 11)
             f64 = kloop.reference_loop_forward(f64_params(p), x, cfm16, False, rate, 11)
+            moved = [kloop.reference_loop_forward(jittered(p, j), x, cfm16, False, rate, 11)
+                     for j in range(jitters)]
         for C in at:
             differ = set()
             with torch.inference_mode():
@@ -4737,13 +4747,17 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
             torch.cuda.synchronize()
             name = f"{tag} #3 bf16 ({build3}) C={C} dropout {rate}"
             worst3 = max(worst3, hold_bf16(name, got16, plain16, plain32, got32, failures, f64,
-                                           versus_f32=full, below_f32=below))
+                                           versus_f32=full, below_f32=below,
+                                           plain16_moved=moved))
             if not rate:
                 print(f"{name}: 2 launches on NaN- and constant-filled scratch bit-identical: "
                       f"{not differ}", flush=True)
                 if differ:
                     failures.append(f"{name}: relaunches differ in {sorted(differ)}")
-        del plain16, plain32, f64
+        del plain16, plain32, f64, moved
+    if not grads:
+        return worst3, None
+    build4 = kloop.backward_library(cfm16, M, N)
     rate = 0.1
     y = torch.from_numpy(np.random.default_rng(seed).normal(size=(B, 1)).astype(np.float32)).cuda()
     run = lambda q, c: kloop.reference_loop_train_grads(q, x, y, c, False, rate, 7)
@@ -5126,6 +5140,350 @@ def phase19(mp2018, ptgp, data, launched, layer16, failures, card):
     return rows
 
 
+# ---- phase 20: widths above 128 (D, G, O up to 256) in #1, #3 and #5 ------------------------
+
+D256_WIDTHS = ((136, 132, 140), (256, 256, 256))   # one that does not divide 256, and 256
+
+
+def widened(cfm, D, G, O):
+    """``cfm`` at widths (D, G, O), 8 heads as published."""
+    import dataclasses
+
+    return dataclasses.replace(cfm, local_dim=D, global_dim=G, dense_out=O)
+
+
+def phase20_holds(qm9_model, mp2018, failures):
+    """Every *_d256 build against its plain version at (D, G, O) =
+    (136, 132, 140) and (256, 256, 256), f32 and bf16: #1 at QM9 (16, 32,
+    16) and (8, 8, 8) of 1-8 atoms (rtol/atol, a relaunch bit-identical;
+    bf16 by ``hold_bf16`` at 2 x the f32-noise floor and 0.9 x the f32
+    kernel's reading; the floor of every phase 20 bf16 hold is phase 15's,
+    the plain version's largest distance from itself with f64 sums or on
+    ``JITTERS`` weights moved by about one f32 ulp); #3 at MP2018 (4, 96, 32) (the tall build) and (4, 80,
+    96) and (3, 40, 48) (the wide one, which takes N > 32 past 128 columns)
+    at C = 1, 2, 4 and the rule's C, each relaunched on NaN- and
+    constant-filled scratch bit for bit (``hold_loop_forward``; bf16 by
+    ``hold_bf16_shape`` without #4: within 2 x the f32-noise floor at full
+    depth, and under 0.5 x the f32 kernel's reading with one layer over 16
+    structures); #5 on one layer at (8, 96, 32) and (4,
+    40, 64) (the narrow build, atom blocks down to 8) and (8, 96, 96), (2,
+    73, 81) and (2, 32, 256) (the wide one), SCANN+, and SCANN at (8, 96,
+    32) and (8, 96, 96), f32 and bf16 tensors, each relaunched into
+    NaN-filled outputs (``hold_wide_layer``). Returns {build: worst f32
+    error} and {build: worst bf16 error}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(20)
+    worst, worst16 = {}, {}
+    note = lambda d, k, v: d.__setitem__(k, max(d.get(k, 0.0), v))
+    for D, G, O in D256_WIDTHS:
+        qm9, mp = widened(qm9_model, D, G, O), widened(mp2018, D, G, O)
+        qm9_16 = dataclasses.replace(qm9, dtype="bfloat16")
+        p = init_params(qm9, torch.Generator().manual_seed(20), "cuda")
+        packed = kfwd.pack_params(p, qm9)
+        for x in (synthetic_batch(rng, 16, 32, 16), synthetic_batch(rng, 8, 8, 8, min_atoms=1)):
+            B, M = x["atomic"].shape
+            N = x["neighbors"].shape[2]
+            tag = f"phase 20 #1 ({kfwd.library(qm9)}) D={D} G={G} O={O} B={B} M={M} N={N}"
+            with torch.inference_mode():
+                pred, ga = kfwd.fused_scann_forward(p, x, qm9)
+                again = kfwd._launch(packed, x, qm9, False)
+                pred0, ga0 = kfwd.reference_scann_forward(p, x, qm9)
+                got16 = (kfwd._launch(packed, x, qm9_16, False),
+                         kfwd.reference_bf16_forward(p, x, qm9_16, exact_pools=True),
+                         (pred0, ga0), (pred, ga))
+                f64 = kfwd.reference_bf16_forward(f64_params(p), x, qm9_16, exact_pools=True)
+                moved = [kfwd.reference_bf16_forward(jittered(p, j), x, qm9_16, exact_pools=True)
+                         for j in range(JITTERS)]
+                torch.cuda.synchronize()
+            note(worst, kfwd.library(qm9), hold(tag, [("pred", pred, pred0, ATOL),
+                                                     ("ga", ga, ga0, ATOL)], failures))
+            same = all(torch.equal(a, b) for a, b in zip(again, (pred, ga)))
+            print(f"{tag}: a relaunch bit-identical: {same}", flush=True)
+            if not same:
+                failures.append(f"{tag}: a relaunch differs")
+            note(worst16, kfwd.library(qm9), hold_bf16(f"{tag} bf16", *got16, failures, f64,
+                                                       below_f32=0.9, plain16_moved=moved))
+        p = init_params(mp, torch.Generator().manual_seed(20), "cuda")
+        for B, M, N in ((4, 96, 32), (4, 80, 96), (3, 40, 48)):
+            batch = lambda B, M=M, N=N: (
+                synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 32
+                else wide_batch(rng, B, M, N, mp))
+            x = batch(B)
+            build = kloop.forward_library(mp, M, N)[0]
+            tag = f"phase 20 #3 ({build}) D={D} G={G} O={O}"
+            note(worst, build, hold_loop_forward(tag, mp, p, x, failures, clusters=(1, 2, 4),
+                                                 relaunches=2))
+            # bf16 at full depth within 2 x the f32-noise floor (and near the f32
+            # kernel): on these few structures the floor is 0.5-0.9 x the whole
+            # bf16-vs-f32 gap, so the f32 kernel's own reading (1.0 x) cannot
+            # separate the mode from f32; with one layer over 16 structures the
+            # kernel must read under 0.5 x the f32 kernel's, as in phase 19. The
+            # floor is phase 15's: f64 sums and weights moved by about one ulp
+            note(worst16, build, hold_bf16_shape(f"phase 20 D={D}", mp, x, failures, below=None,
+                                                 clusters3=(1, 2, 4), grads=False,
+                                                 jitters=JITTERS)[0])
+            note(worst16, build, hold_bf16_shape(
+                f"phase 20 D={D} L=1", dataclasses.replace(mp, n_attention=1), batch(16),
+                failures, below=0.5, clusters3=(), grads=False, jitters=JITTERS)[0])
+            del x
+        for g_update, (B, M, N) in ((True, (8, 96, 32)), (True, (4, 40, 64)),
+                                    (True, (8, 96, 96)), (True, (2, 73, 81)),
+                                    (True, (2, 32, 256)), (False, (8, 96, 32)),
+                                    (False, (8, 96, 96))):
+            args = layer_inputs(rng, B, M, N, D, mp.num_head, g_update)
+            if N > 64:
+                wide_masks(args[3])
+            kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
+            build = kla.library(N, D)
+            errs = hold_wide_layer(f"phase 20 #5 ({build}) {'scann+' if g_update else 'scann'} "
+                                   f"B={B} M={M} N={N} D={D}", args, failures)
+            note(worst, build, errs[0])
+            note(worst16, build, errs[1])
+    return worst, worst16
+
+
+def phase20_times(qm9_model, mp2018, card):
+    """The *_d256 builds at D = G = O = 256 against their plain versions,
+    in turns (plain, kernel, kernel, plain), and in bf16 in turns with f32
+    (f32, bf16, bf16, f32): #1 at QM9 (128, 32, 16), #3 at MP2018 (64, 96,
+    32) (the build the gate picks: tall) and (16, 80, 96) (wide), #5 at one
+    MP2018 layer (64, 96, 32) and at (8, 96, 96). Returns {build: timing}
+    with the bound (``bound_ms``: the products as three TF32 passes, the
+    energies and context at FP32, or the bytes; in bf16 the products once
+    at the BF16 rate, ``bf16_bound_ms``)."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(200)
+    qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    out = {}
+    # #1 at the QM9 serving shape
+    p = init_params(qm9, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(p, qm9)
+    x = synthetic_batch(rng, 128, 32, 16)
+    B, M, N = 128, 32, 16
+    with torch.inference_mode():
+        kfwd._check_inputs(x, qm9, packed["wde"].device)
+        ms, plain_ms = in_turns_ms(lambda: kfwd.reference_scann_forward(p, x, qm9),
+                                   lambda: kfwd._launch(packed, x, qm9, False), 3, 10)
+        ms16, f32_ms = in_turns_ms(lambda: kfwd._launch(packed, x, qm9, False),
+                                   lambda: kfwd._launch(packed, x, bf16(qm9), False), 10, 10)
+    flops, fp32 = kfwd.forward_flops(qm9, B, M, N), kfwd.forward_fp32_flops(qm9, B, M, N)
+    nbytes = tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+    bound, by, measured = bound_ms(flops, nbytes, fp32)
+    out["scann_forward_d256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                 "bound_by": by, "measured_bound_ms": measured, "flops": flops,
+                                 "bf16_ms": ms16, "bf16_f32_ms": f32_ms,
+                                 "bf16_bound_ms": bound_ms(flops, nbytes, fp32, bf16=True)[0]}
+    print(f"scann_forward_d256 at QM9 B={B} M={M} N={N} D=256: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (in turns), bf16 {ms16:.4f} ms beside f32 {f32_ms:.4f} ms (in "
+          f"turns), {flops:.4e} FLOP, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of "
+          f"it reached)  [{card}]", flush=True)
+    del x
+    # #3 at the MP2018 recipe bucket (the tall build) and at (16, 80, 96) (the wide one)
+    p = init_params(mp, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(p, mp)
+    for B, M, N in ((64, 96, 32), (16, 80, 96)):
+        x = (synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 32
+             else wide_batch(rng, B, M, N, mp))
+        build = kloop.forward_library(mp, M, N)[0]
+        t = next(iter(time_loop_forward(f"MP2018 D=256", mp, x, card).values()))
+        C = t.pop("cluster")
+        with torch.inference_mode():
+            ms16, f32_ms = in_turns_ms(
+                lambda: kloop._launch(packed, x, mp, False, 0.0, 0, 0, C),
+                lambda: kloop._launch(packed, x, bf16(mp), False, 0.0, 0, 0, C), 10, 10)
+        nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+                  + kloop.loop_forward_bytes(mp, B, M, N))
+        t.update({"bf16_ms": ms16, "bf16_f32_ms": f32_ms, "cluster": C,
+                  "bf16_bound_ms": bound_ms(t["flops"], nbytes,
+                                            kfwd.forward_fp32_flops(mp, B, M, N), bf16=True)[0]})
+        print(f"{build} at MP2018 B={B} M={M} N={N} D=256 C={C}: bf16 {ms16:.4f} ms beside "
+              f"f32 {f32_ms:.4f} ms (in turns)  [{card}]", flush=True)
+        out[build] = t
+        del x
+    # #5 at one MP2018 layer and at (8, 96, 96)
+    for B, M, N in ((64, 96, 32), (8, 96, 96)):
+        args = layer_inputs(rng, B, M, N, 256, mp.num_head, True)
+        t = time_local_attention(args, card)
+        args16 = layer_cast(args, torch.bfloat16)
+        args32 = layer_cast(args16, torch.float32)     # the same values in f32
+        with torch.inference_mode():
+            ms16, f32_ms = in_turns_ms(lambda: kla._launch(*args32), lambda: kla._launch(*args16),
+                                       10, 10)
+        build = kla.library(N, 256)
+        print(f"{build} at B={B} M={M} N={N} D=256: bf16 tensors {ms16:.4f} ms beside f32 "
+              f"{f32_ms:.4f} ms (in turns)  [{card}]", flush=True)
+        t.update({"bf16_ms": ms16, "bf16_f32_ms": f32_ms})
+        out[build] = t
+        del args, args16, args32
+    return out
+
+
+def phase20_paths(qm9_model, mp2018, failures, card):
+    """The main paths at D = G = O = 256 through the entry points a user
+    calls, with the launch counts set to 0 just before each and read just
+    after: ``Scann.predict_featurized`` of one QM9 molecule (benzene; #1's
+    build, one launch), of an MP2018 crystal of 300 sites at 24 neighbours
+    (ladder (384, 24): the tall #3) and one of 40 sites at 80 (ladder (48,
+    96): the wide #3), then of two crystals of 40 sites (ladder (48, 24) and
+    (48, 96)) to an MP2018 model without the attention LayerNorm (the
+    per-layer model: L launches of the narrow #5 and L of the wide one);
+    each answer held to the eager model at rtol/atol. Returns the launches
+    of each *_d256 build."""
+    import dataclasses
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+
+    rng = np.random.default_rng(201)
+    qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
+    counters = (kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention)
+
+    def reset():
+        for c in counters:
+            for name in ("launches", "wide_launches", "tall_launches", "d256_launches"):
+                if hasattr(c, name):
+                    setattr(c, name, 0)
+
+    def model(cfm, target):
+        hyper = HyperConfig(batch_size=16, target=target, target_mean=-0.2, target_std=0.03)
+        scann = Scann(ScannConfig(model=cfm, hyper=hyper, tpu=TpuConfig(max_buckets=2)),
+                      device="cuda")
+        scann.init_params(0)
+        return scann
+
+    def record(na, nmax):
+        x = wide_batch(rng, 1, na, nmax, mp, min_atoms=na, edges=False)
+        return {k: v.cpu().numpy() for k, v in x.items()}
+
+    def held(label, scann, structs, inputs, answers):
+        for (pred, ga), x, st in zip(answers, inputs, structs):
+            with torch.inference_mode():
+                want, _ = scann_forward(scann.params, {k: torch.from_numpy(v).cuda()
+                                                       for k, v in x.items()},
+                                        scann.config.model)
+            hyper = scann.config.hyper
+            want = want[0, 0].item() * hyper.target_std + hyper.target_mean
+            ok = abs(pred - want) <= ATOL + RTOL * abs(want) and len(ga) == len(st)
+            print(f"phase 20 served {label} ({len(st)} sites): {pred:.6f}, the eager model "
+                  f"{want:.6f}", flush=True)
+            if not ok or not np.isfinite(ga).all():
+                failures.append(f"phase 20 served {label}: {pred} against the eager model's "
+                                f"{want}")
+
+    launched = {}
+    # one QM9 molecule: #1's *_d256 build
+    qscann = model(qm9, "homo")
+    sp, xyz = MOLECULES["benzene"]
+    structs = [Structure(sp, xyz)]
+    _, inputs = qscann.featurize_structures(structs)
+    inputs = [{k: np.asarray(v) for k, v in inputs[0].items()}]
+    reset()
+    answers = qscann.predict_featurized(structs, inputs)
+    torch.cuda.synchronize()
+    c1 = kfwd.fused_scann_forward
+    launched["scann_forward_d256"] = c1.d256_launches
+    route = qscann.trainer.eval_route(inputs[0]["atomic"].shape[1],
+                                      inputs[0]["neighbors"].shape[2])
+    print(f"phase 20 served a QM9 molecule to a D = 256 model: route {route}, #1 launches "
+          f"{c1.launches} ({c1.d256_launches} of scann_forward_d256)  [{card}]", flush=True)
+    if route != "fused" or c1.launches != 1 or c1.d256_launches != 1:
+        failures.append(f"phase 20 QM9 molecule: route {route}, #1 launches {c1.launches} "
+                        f"({c1.d256_launches} d256)")
+    held("QM9 molecule", qscann, structs, inputs, answers)
+    del qscann
+    # two MP2018 crystals: #3's tall and wide *_d256 builds
+    mscann = model(mp, "formation_energy_per_atom")
+    structs = [Structure(["Si"] * na, rng.uniform(0, 9, size=(na, 3)), np.eye(3) * 9.0)
+               for na in (300, 40)]
+    inputs = [record(300, 24), record(40, 80)]
+    reset()
+    answers = mscann.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    c3 = kloop.launch_loop_forward
+    launched["scann_loop_tall_d256"] = c3.tall_launches
+    launched["scann_loop_wide_d256"] = c3.wide_launches
+    routes = [mscann.trainer.eval_route(384, 24), mscann.trainer.eval_route(48, 96)]
+    print(f"phase 20 served MP2018 crystals of 300 and 40 sites to a D = 256 model: routes "
+          f"{routes}, #3 launches {c3.launches} ({c3.d256_launches} d256: {c3.tall_launches} "
+          f"tall, {c3.wide_launches} wide), #1 {c1.launches}  [{card}]", flush=True)
+    if (routes != ["loop", "loop"] or (c3.launches, c3.d256_launches, c3.tall_launches,
+                                       c3.wide_launches) != (2, 2, 1, 1) or c1.launches):
+        failures.append(f"phase 20 crystals: routes {routes}, #3 launches {c3.launches} "
+                        f"({c3.d256_launches} d256, {c3.tall_launches} tall, "
+                        f"{c3.wide_launches} wide)")
+    held("MP2018 crystal", mscann, structs, inputs, answers)
+    del mscann
+    # the per-layer route: #5's narrow and wide *_d256 builds, L launches each
+    layered = model(dataclasses.replace(mp, use_attn_norm=False), "formation_energy_per_atom")
+    structs = [Structure(["Si"] * 40, rng.uniform(0, 9, size=(40, 3)), np.eye(3) * 9.0)
+               for _ in range(2)]
+    inputs = [record(40, 24), record(40, 80)]
+    reset()
+    answers = layered.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    c5, L = kla.fused_local_attention, mp.n_attention
+    launched["local_attention_wide_d256"] = c5.wide_launches
+    launched["local_attention_d256"] = c5.d256_launches - c5.wide_launches
+    routes = [layered.trainer.eval_route(48, 24), layered.trainer.eval_route(48, 96)]
+    print(f"phase 20 served two crystals of 40 sites to a D = 256 model without the attention "
+          f"LayerNorm: routes {routes}, #5 launches {c5.launches} ({c5.d256_launches} d256, "
+          f"{c5.wide_launches} wide), #3 {c3.launches}  [{card}]", flush=True)
+    if (routes != ["per_layer", "per_layer"] or c3.launches
+            or (c5.launches, c5.d256_launches, c5.wide_launches) != (2 * L, 2 * L, L)):
+        failures.append(f"phase 20 per-layer: routes {routes}, #5 launches {c5.launches} "
+                        f"({c5.d256_launches} d256, {c5.wide_launches} wide); want {2 * L}, "
+                        f"{2 * L}, {L}")
+    held("per-layer crystal", layered, structs, inputs, answers)
+    reset()
+    return launched
+
+
+def phase20(qm9_model, mp2018, failures, card):
+    """Phase 20: widths above 128. Returns the kernels line's rows of the five
+    *_d256 builds (#1, the tall and wide #3, the narrow and wide #5)."""
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    worst, worst16 = phase20_holds(qm9_model, mp2018, failures)
+    t1 = time.time()
+    times = phase20_times(qm9_model, mp2018, card)
+    t2 = time.time()
+    launched = phase20_paths(qm9_model, mp2018, failures, card)
+    print(f"phase 20 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
+          f"{time.time() - t2:.1f}", flush=True)
+    rows = []
+    for name, replaces in (("scann_forward_d256", kfwd.REPLACES),
+                           ("scann_loop_tall_d256", kloop.REPLACES),
+                           ("scann_loop_wide_d256", kloop.REPLACES),
+                           ("local_attention_d256", kla.REPLACES),
+                           ("local_attention_wide_d256", kla.REPLACES)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"scann_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                     "launches": launched[name], "max_abs_err": worst[name],
+                     "bf16_max_abs_err": worst16[name], "library_ms": None, **times[name]})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5456,6 +5814,10 @@ def main():
     torch.cuda.empty_cache()
     shape16_rows = phase19(mp2018, ptgp, tall_data, shape16, layer16, failures, card)
     lap("19")
+    # ---- phase 20: widths above 128 in #1, #3 and #5 (the *_d256 builds) ----------------
+    torch.cuda.empty_cache()
+    width_rows = phase20(qm9_model, mp2018, failures, card)
+    lap("20")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -5520,7 +5882,7 @@ def main():
         "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
-    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows]
+    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows, *width_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "
@@ -5568,7 +5930,11 @@ def backward_ab(root, out_path=None):
     ``forward_cluster`` where it has one, else ``cluster_size``), and saves
     their outputs at Pt/graphene (4, 322, 32) and MP2018 (8, 80, 96) in
     both modes (the bf16 ones with the f32-noise floor of their plain
-    version). Run the turns A, B, B, A, each a process of its own."""
+    version). With OUT it also saves #1 in the bf16 operand mode at QM9,
+    #5 on bfloat16 tensors at (64, 96, 32) and (8, 96, 96), and the ``ptxas
+    -v`` lines of every build of the checkout (``_build.kernel_resources``,
+    read from the logs beside its cached libraries: build them first).
+    Run the turns A, B, B, A, each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5746,8 +6112,26 @@ def backward_ab(root, out_path=None):
             saved[name] = {"pred": got[0], "ga": got[1], "floor": floor.cpu()}
         args = layer_inputs(np.random.default_rng(8), 8, 96, 96, mp2018.local_dim,
                             mp2018.num_head, True)
+        narrow = layer_inputs(np.random.default_rng(7), 64, 96, 32, mp2018.local_dim,
+                              mp2018.num_head, True)
         with torch.inference_mode():
             saved["local_attention_wide"] = [t.cpu() for t in kla._launch(*args)]
+            # #5 on bfloat16 tensors, narrow and wide, and #1 in the bf16 operand mode
+            for name, layer in (("local_attention_bf16", narrow),
+                                ("local_attention_wide_bf16", args)):
+                saved[name] = [None if t is None else t.cpu()
+                               for t in kla._launch(*layer_cast(layer, torch.bfloat16))]
+            qm9_16 = bf16(qm9_config())
+            packed = kfwd.pack_params(init_params(qm9_config(), torch.Generator().manual_seed(17),
+                                                  "cuda"), qm9_config())
+            saved["scann_forward_bf16"] = launcher("scann_forward_bf16", qm9_16, qm9_x, packed)[1]()
+        # ptxas -v of every build of this checkout: (kernel, registers, spill
+        # stores, spill loads), from the logs beside its cached libraries
+        from scann_tpu_torch.kernels import _build
+
+        saved["ptxas"] = out["ptxas"] = {
+            name: [list(r) for r in _build.kernel_resources(name)]
+            for name in _build.SOURCES + _build.SHAPE_SOURCES}
         torch.save(saved, out_path)
     out["card"] = card_line()
     print(json.dumps(out), flush=True)
@@ -5797,6 +6181,17 @@ def bf16_grad_floor(params, x, y, cfm):
                for q in [f64_params(params)] + [jittered(params, j) for j in range(JITTERS)])
 
 
+def ptxas_differ(a, b):
+    """The builds both ``ptxas -v`` maps (build -> [kernel, registers, spill
+    stores, spill loads] a kernel, ``--backward-ab``'s ``ptxas``) have whose
+    lines differ, or that have none. A kernel's name is taken without the
+    hash nvcc gives each source's anonymous namespace, which changes with
+    the source's path and text while the kernel does not."""
+    norm = lambda rows: sorted([re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", str(r[0])),
+                                *r[1:]] for r in rows)
+    return [k for k in sorted(set(a) & set(b)) if not a[k] or norm(a[k]) != norm(b[k])]
+
+
 def ab_compare(path_a, path_b):
     """``--ab-compare A.pt B.pt``: the outputs two ``--backward-ab`` turns
     saved, held bit for bit output by output (gradients by name), those of
@@ -5804,12 +6199,19 @@ def ab_compare(path_a, path_b):
     the mean distance within BF16_FLOOR x A's floor; pred at RTOL / ATOL,
     bit for bit in ``AB_PRED_EXACT``), those of ``AB_FORWARD`` at RTOL /
     ATOL, of ``AB_FORWARD_FLOOR`` within BF16_FLOOR x A's floor and of
-    ``AB_LAYER`` at RTOL / ATOL (the attention at ATTN_ATOL). Prints
+    ``AB_LAYER`` at RTOL / ATOL (the attention at ATTN_ATOL), and the
+    ``ptxas -v`` lines of every build both saved, equal kernel by kernel
+    (``ptxas``; ``ptxas_differ`` names the builds that differ). Prints
     one JSON line, name -> equal (within the limit, beside the worst share
     of it as ``<name>_rel``, or the largest difference as
     ``<name>_max_abs``), and exits 1 on any difference."""
     a, b = (torch.load(p, weights_only=True) for p in (path_a, path_b))
     same, rels = {}, {}
+    # ptxas -v of the builds both checkouts have, kernel by kernel
+    pa, pb = a.pop("ptxas", {}), b.pop("ptxas", {})
+    if set(pa) & set(pb):
+        rels["ptxas_differ"] = ptxas_differ(pa, pb)
+        same["ptxas"] = not rels["ptxas_differ"]
     for name in sorted(set(a) | set(b)):
         x, y = a.get(name), b.get(name)
         if name in AB_LAYER and isinstance(x, list) and isinstance(y, list):

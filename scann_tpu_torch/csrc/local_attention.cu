@@ -71,7 +71,10 @@
 //   ~10% faster at (64, 96, 96) than the f32 layout, and the keys in shared
 //   memory and the second buffer buy no time there.
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
-//   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0.
+//   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0. The
+//   *_d256 builds (SCANN_WIDTH_256: 8 values a lane) take D up to 256, the
+//   narrow one with atom blocks down to 8 and the wide one's context one
+//   thread a column over all N.
 //
 // Summation orders (a launch repeats bit for bit): every product as
 // mma_gemm sums (scann_mma.cuh); the energies over the head's lanes in
@@ -90,7 +93,14 @@ namespace {
 
 using namespace scann;
 
+// Past 128 columns (the *_d256 builds) a chunk of 64 rows and the slots of
+// 16 atoms outgrow a block's shared memory (at D = 256, N = 32), so the
+// narrow plan also takes blocks of 8 atoms there.
+#ifdef SCANN_WIDTH_256
+constexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};
+#else
 constexpr int kAtomBlocks[] = {64, 48, 32, 16};
+#endif
 
 // The kernel's tensors, of element type T (float or bfloat16).
 template <typename T>
@@ -526,7 +536,7 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 
   // the narrow build takes N <= kFwdMaxChunkRows, the wide one the rest
   if (a.B < 1 || a.M < 1 || a.N < 1 || (a.N > kFwdMaxChunkRows) != kWide ||
-      a.N > kWideMaxN || (!kWide && wide_keys != nullptr) || a.D < 4 || a.D > 128 ||
+      a.N > kWideMaxN || (!kWide && wide_keys != nullptr) || a.D < 4 || a.D > kMaxWidth ||
       (a.D & 3) || a.H < 1 || a.D % a.H || a.K < 1 || a.K > a.D || n_sm < 1)
     return kErrShape;
   int bytes;
@@ -573,7 +583,18 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 // local_attention_wide.cu includes it with SCANN_LOCAL_ATTENTION_WIDE defined
 // and builds the wide ones (local_attention_wide_launch,
 // local_attention_wide_bf16_launch), at the first wide launch.
-#ifndef SCANN_LOCAL_ATTENTION_WIDE
+// local_attention_d256.cu and local_attention_wide_d256.cu add
+// SCANN_WIDTH_256: the builds of widths up to 256 (local_attention_d256_*,
+// local_attention_wide_d256_*), at the first launch of a wider model.
+#if defined(SCANN_WIDTH_256) && defined(SCANN_LOCAL_ATTENTION_WIDE)
+#define SCANN_LA_F32(x) local_attention_wide_d256_##x
+#define SCANN_LA_BF16(x) local_attention_wide_d256_bf16_##x
+constexpr bool kWideBuild = true;
+#elif defined(SCANN_WIDTH_256)
+#define SCANN_LA_F32(x) local_attention_d256_##x
+#define SCANN_LA_BF16(x) local_attention_d256_bf16_##x
+constexpr bool kWideBuild = false;
+#elif !defined(SCANN_LOCAL_ATTENTION_WIDE)
 #define SCANN_LA_F32(x) local_attention_##x
 #define SCANN_LA_BF16(x) local_attention_bf16_##x
 constexpr bool kWideBuild = false;

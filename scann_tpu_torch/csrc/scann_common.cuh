@@ -24,6 +24,18 @@ constexpr int kMaxSharedBytes = 232448;   // 227 KB opt-in per block (sm_90)
 constexpr int kErrSharedMemory = 10001;
 constexpr int kErrShape = 10002;
 
+// The values of a row that each lane holds in the warp LayerNorms
+// (warp_layer_norm): lane l holds columns l, l + 32, ..., so a build takes
+// widths (D, G, O) up to kMaxWidth = 32 x kLaneValues. The builds of widths
+// up to 128 hold 4; the wide-width sources (*_d256.cu) define
+// SCANN_WIDTH_256 and hold 8, up to 256.
+#ifdef SCANN_WIDTH_256
+constexpr int kLaneValues = 8;
+#else
+constexpr int kLaneValues = 4;
+#endif
+constexpr int kMaxWidth = 32 * kLaneValues;
+
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
 __device__ __forceinline__ float swishf(float x) { return x / (1.0f + expf(-x)); }
@@ -82,7 +94,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // out[r][c] = sum_k A[r * lda + k] * W[k * ldw + c] for r < rows (<= 64),
-// c < nc (a multiple of 4, <= 128). A lives in shared memory, W in global
+// c < nc (a multiple of 4; rows <= 8 x (4 kThreads / nc), so one row up to
+// nc = 1024: the readouts' heads, O <= 256). A lives in shared memory, W in global
 // memory. Each thread owns up to 8 consecutive rows x 4 columns and hands
 // every finished quad to epi(row, col, value). No barrier inside: the
 // caller synchronises before reading the results. kBf16: both operands
@@ -561,27 +574,28 @@ __device__ inline void seg_query_key_grads(const SegVectors& v, float* q, int ld
   }
 }
 
-// Two-pass LayerNorm (eps 1e-6) of one row of D <= 128 values held by a
-// warp, lane l holding elements l, l+32, l+64, l+96; gamma and beta of
-// element type T (float or bfloat16).
-template <typename T>
-__device__ __forceinline__ void warp_layer_norm(float (&v)[4], int D, const T* gamma,
+// Two-pass LayerNorm (eps 1e-6) of one row of D <= 32 V values held by a
+// warp, lane l holding elements l, l+32, ..., l + 32 (V - 1) (V = 4 in the
+// builds of widths up to 128); gamma and beta of element type T (float or
+// bfloat16).
+template <typename T, int V>
+__device__ __forceinline__ void warp_layer_norm(float (&v)[V], int D, const T* gamma,
                                                 const T* beta, int lane) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < V; ++i)
     if (lane + 32 * i < D) s += v[i];
   const float mean = warp_sum(s) / (float)D;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < V; ++i)
     if (lane + 32 * i < D) {
       const float t = v[i] - mean;
       q += t * t;
     }
   const float inv = rsqrtf(warp_sum(q) / (float)D + 1e-6f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int d = lane + 32 * i;
     if (d < D) v[i] = (v[i] - mean) * inv * to_float(gamma[d]) + to_float(beta[d]);
   }

@@ -40,6 +40,11 @@
 //   warp per (atom, head) for the softmax, one thread per (atom, column) for
 //   the context.
 //
+// Widths past 128 (D, G, O up to 256): scann_forward_d256.cu builds the
+// kernel with SCANN_WIDTH_256, 8 values of a row a lane in the warp
+// LayerNorms (kLaneValues of scann_common.cuh); the wrapper's plan halves
+// the chunks to 32 rows (QM9 at D = 256) or 16 where 64 do not fit.
+//
 // bf16 operand mode (model.dtype "bfloat16"): a second instantiation of the
 // kernel, kBf16, rounds the operands of every product to bfloat16 and sums in
 // f32, where and as the TPU kernel's dots do (scann_forward_common.cuh);
@@ -166,9 +171,9 @@ scann_forward_kernel(const Args a) {
     // centers of this layer are no longer needed, so they take h2
     fwd_residual_norm<kBf16>(a, l, M, sQ, sW, sC, ldm,
                       [&](int r, int c) { return mask4(1 + l, r, c); },
-                      [&](int m, const float (&v)[4]) {
+                      [&](int m, const float (&v)[kLaneValues]) {
 #pragma unroll
-                        for (int i = 0; i < 4; ++i)
+                        for (int i = 0; i < kLaneValues; ++i)
                           if (lane + 32 * i < D) sC[m * ldm + lane + 32 * i] = v[i];
                       });
   }
@@ -275,8 +280,17 @@ scann_forward_kernel(const Args a) {
 // ids [B, M] (null unless packed), size 20, the segments per slot S, and size
 // 21, the bf16 operand mode (0 or 1); in the order
 // scann_tpu_torch/kernels/scann_forward.py passes them. Size 17 (the chunk
-// buffer) is the work region of make_plan.
-extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const float* scalars,
+// buffer) is the work region of make_plan. This file builds the kernels of
+// widths up to 128; scann_forward_d256.cu includes it with SCANN_WIDTH_256
+// defined and builds those of widths up to 256 (scann_forward_d256_launch),
+// at the first launch of a wider model.
+#ifdef SCANN_WIDTH_256
+#define SCANN_FORWARD_ENTRY(x) scann_forward_d256_##x
+#else
+#define SCANN_FORWARD_ENTRY(x) scann_forward_##x
+#endif
+
+extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, const float* scalars,
                                     const unsigned int* rng, void* stream) {
   Args a;
   unpack_forward_args(a, ptrs, dims, scalars, rng);
@@ -287,8 +301,8 @@ extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const fl
   if (bf16 & ~1) return kErrShape;
 
   if (a.M > 64 || a.M < 1 || a.N < 1 || a.chunk_atoms < 1 || a.chunk_atoms > a.M ||
-      a.chunk_atoms * a.N > kFwdMaxChunkRows || a.D > 128 || a.G > 128 ||
-      a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D)
+      a.chunk_atoms * a.N > kFwdMaxChunkRows || a.D > kMaxWidth || a.G > kMaxWidth ||
+      a.O > kMaxWidth || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D)
     return kErrShape;
   const Plan plan = make_plan(a);
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
@@ -302,7 +316,7 @@ extern "C" int scann_forward_launch(void* const* ptrs, const int* dims, const fl
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* scann_forward_error_string(int code) {
+extern "C" const char* SCANN_FORWARD_ENTRY(error_string)(int code) {
   if (code == kErrSharedMemory) return "shared-memory plan exceeds 227 KB per block";
   if (code == kErrShape) return "shape outside what the kernel takes";
   return cudaGetErrorString((cudaError_t)code);

@@ -72,17 +72,17 @@ __host__ __device__ inline int fwd_chunk_floats(int rows, int D, int H) {
 
 // warp_layer_norm (scann_common.cuh) of R rows at once, the same arithmetic
 // on each, their shuffles interleaved; g and bt are the lane's values of
-// gamma and beta (columns lane + 32 i).
-template <int R>
-__device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, const float (&g)[4],
-                                                     const float (&bt)[4], int lane) {
+// gamma and beta (columns lane + 32 i), V of each (kLaneValues).
+template <int R, int V>
+__device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][V], int D, const float (&g)[V],
+                                                     const float (&bt)[V], int lane) {
   float s[R], q[R], mean[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     s[j] = 0.f;
     q[j] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < V; ++i)
       if (lane + 32 * i < D) s[j] += v[j][i];
   }
 #pragma unroll
@@ -93,7 +93,7 @@ __device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, co
   for (int j = 0; j < R; ++j) {
     mean[j] = s[j] / (float)D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < V; ++i)
       if (lane + 32 * i < D) {
         const float t = v[j][i] - mean[j];
         q[j] += t * t;
@@ -107,7 +107,7 @@ __device__ __forceinline__ void warp_layer_norm_rows(float (&v)[R][4], int D, co
   for (int j = 0; j < R; ++j) {
     const float inv = rsqrtf(q[j] / (float)D + 1e-6f);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < V; ++i)
       if (lane + 32 * i < D) v[j][i] = (v[j][i] - mean[j]) * inv * g[i] + bt[i];
   }
 }
@@ -275,9 +275,9 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
                          cw[2] + v.z + to_float(b[2]), cw[3] + v.w + to_float(b[3])));
     });
     __syncthreads();
-    float g[4], bt[4];
+    float g[kLaneValues], bt[kLaneValues];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kLaneValues; ++i) {
       const int d = lane + 32 * i;
       g[i] = d < D ? to_float(w.lng_s[d]) : 0.f;
       bt[i] = d < D ? to_float(w.lng_b[d]) : 0.f;
@@ -285,12 +285,12 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
     // four rows of the warp together: r0, r0 + kWarps, ...
     constexpr int kRows = 4;
     for (int r0 = warp; r0 < rows; r0 += kRows * kWarps) {
-      float v[kRows][4];
+      float v[kRows][kLaneValues];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
         const int r = r0 + j * kWarps;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[j][i] = d < D && r < rows ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
         }
@@ -301,7 +301,7 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
         const int r = r0 + j * kWarps;
         if (r >= rows) continue;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             if (geo_out) geo_out[(size_t)r * D + d] = from_float<T>(v[j][i]);
@@ -342,12 +342,12 @@ __device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int at = warp; at < ca; at += kWarps) {
     float* row = sQ + at * ldq;
-    float v[4];
+    float v[kLaneValues];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
+    for (int i = 0; i < kLaneValues; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
     warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kLaneValues; ++i)
       if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
   }
   __syncthreads();
@@ -380,9 +380,9 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
                          cw[2] + v.z + to_float(b[2]), cw[3] + v.w + to_float(b[3])));
     });
     __syncthreads();
-    float g[4], bt[4];
+    float g[kLaneValues], bt[kLaneValues];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kLaneValues; ++i) {
       const int d = lane + 32 * i;
       g[i] = d < D ? to_float(w.lng_s[d]) : 0.f;
       bt[i] = d < D ? to_float(w.lng_b[d]) : 0.f;
@@ -390,12 +390,12 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
     // four rows of the warp together: r0, r0 + kWarps, ...
     constexpr int kRows = 4;
     for (int r0 = warp; r0 < rows; r0 += kRows * kWarps) {
-      float v[kRows][4];
+      float v[kRows][kLaneValues];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
         const int r = r0 + j * kWarps;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[j][i] = d < D && r < rows ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
         }
@@ -406,7 +406,7 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
         const int r = r0 + j * kWarps;
         if (r >= rows) continue;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             if (geo_out) geo_out[(size_t)r * D + d] = from_float<T>(v[j][i]);
@@ -502,12 +502,12 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
   // out = LN(ctx + query), one warp per atom
   for (int at = warp; at < ca; at += kWarps) {
     float* row = sQ + at * ldq;
-    float v[4];
+    float v[kLaneValues];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
+    for (int i = 0; i < kLaneValues; ++i) v[i] = lane + 32 * i < D ? row[lane + 32 * i] : 0.f;
     warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kLaneValues; ++i)
       if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
   }
   __syncthreads();
@@ -526,8 +526,9 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
 // dropout and the neighbour mask into sE, and the context, which splits the N
 // neighbours into two halves over the block's threads (thread t: column t %
 // D of half t / D, D <= 128), each half summed in order, then first half +
-// second half + query. sU [D] passes the second half's sums (the sub-chunk's
-// product buffer, free by then). sCW and sQ are the atom's rows; nmask,
+// second half + query; past 128 columns (kLaneValues 8) one thread a column
+// sums all N in order, then + query. sU [D] passes the second half's sums
+// (the sub-chunk's product buffer, free by then). sCW and sQ are the atom's rows; nmask,
 // nweight, geo_out and attn_out point at the atom's first row; drop(n, h)
 // takes the neighbour's index in the atom. kBf16: the operand mode; T: the
 // element type of the weights, masks and outputs. Ends with a barrier.
@@ -558,23 +559,41 @@ __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const Lay
     sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * to_float(nmask[n]);
   });
   __syncthreads();
-  const int d = tid % D, part = tid / D, half = (N + 1) / 2;
-  float s = 0.f;
-  if (part < 2) {
-    const int n1 = part ? N : half;
-    const float* e = sE + d / hd;
-    if (smem_keys) {
+  if constexpr (kLaneValues > 4) {
+    // widths past 128 (the *_d256 builds): one thread a column, over all N
+    // neighbours in order, then + query
+    if (tid < D) {
+      const float* e = sE + tid / hd;
+      float s = 0.f;
+      if (smem_keys) {
 #pragma unroll 4
-      for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * keys[n * ldk + d];
-    } else {
+        for (int n = 0; n < N; ++n) s += e[n * H] * keys[n * ldk + tid];
+      } else {
 #pragma unroll 4
-      for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + d);
+        for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + tid);
+      }
+      sQ[tid] = s + sQ[tid];
     }
-    if (part == 1) sU[d] = s;
+    __syncthreads();
+  } else {
+    const int d = tid % D, part = tid / D, half = (N + 1) / 2;
+    float s = 0.f;
+    if (part < 2) {
+      const int n1 = part ? N : half;
+      const float* e = sE + d / hd;
+      if (smem_keys) {
+#pragma unroll 4
+        for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * keys[n * ldk + d];
+      } else {
+#pragma unroll 4
+        for (int n = part ? half : 0; n < n1; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + d);
+      }
+      if (part == 1) sU[d] = s;
+    }
+    __syncthreads();
+    if (tid < D) sQ[d] = (s + sU[d]) + sQ[d];
+    __syncthreads();
   }
-  __syncthreads();
-  if (tid < D) sQ[d] = (s + sU[d]) + sQ[d];
-  __syncthreads();
   fwd_out_norm(w, 1, sQ, 0, D);
 }
 
@@ -664,7 +683,8 @@ __device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b,
 // ld]: next = LN(out + mask * (swish(out @ W1 + b1) @ W2 + b2)). sH1 and sH2
 // [ab, ld] are scratch (sH2 may be the centers the block no longer needs);
 // mask(c-quad) is the residual dropout of row r, and out(r, v) takes each
-// finished row as a warp's four values per lane (v[i] at column lane + 32 i).
+// finished row as a warp's kLaneValues values per lane (v[i] at column lane +
+// 32 i).
 // kBf16: the operand mode.
 template <bool kBf16, typename Mask, typename Out>
 __device__ __forceinline__ void fwd_residual_norm(const ForwardArgs& a, int l, int ab,
@@ -685,9 +705,9 @@ __device__ __forceinline__ void fwd_residual_norm(const ForwardArgs& a, int l, i
   });
   __syncthreads();
   for (int m = warp; m < ab; m += kWarps) {
-    float v[4];
+    float v[kLaneValues];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kLaneValues; ++i) {
       const int d = lane + 32 * i;
       v[i] = d < D ? sO[m * ld + d] + sH2[m * ld + d] : 0.f;
     }

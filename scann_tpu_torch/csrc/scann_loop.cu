@@ -74,6 +74,13 @@
 //   D]; the context splits the N neighbours into two halves over the
 //   block's 256 threads and adds the halves in order. Its plan does not
 //   grow with M either.
+// - Widths past 128 (D, G, O up to 256): scann_loop_tall_d256.cu and
+//   scann_loop_wide_d256.cu build the tall and wide kernels with
+//   SCANN_WIDTH_256 (8 values of a row a lane in the warp LayerNorms,
+//   kLaneValues of scann_common.cuh); the wrapper halves the tall build's
+//   chunks to 32 rows where 64 do not fit, and the wide build takes N >
+//   kTallMaxN = 32 there. Their arithmetic is the builds' of widths up to
+//   128 but for the wide context, one thread a column over all N.
 // - The readout: the narrow build runs after_Lc, the GA queries and keys,
 //   the scores, the pooled context and the head over all M atoms in every
 //   block of the cluster, in the same order. In the tall and wide builds
@@ -115,6 +122,11 @@ constexpr int kMaxCluster = 4;
 // the tall and wide builds take clusters of up to 16 blocks (past 8, a
 // non-portable size the launch opts into), to fill the card at small batches
 constexpr int kMaxL2Cluster = 16;
+// The largest N of the narrow and tall builds, the wide build taking the
+// rest: a chunk's rows (kFwdMaxChunkRows) up to 128 columns; past 128 (the
+// *_d256 builds) 32, since two tall operand buffers of more rows do not fit
+// a block's shared memory at D = 256, so the wide build takes N > 32 there.
+constexpr int kTallMaxN = kLaneValues > 4 ? 32 : kFwdMaxChunkRows;
 
 // The tall build (scann_loop_tall.cu defines SCANN_LOOP_TALL): the centers in
 // global memory; every other build keeps them in shared memory.
@@ -534,9 +546,9 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
       // ResidualNorm of the block: next = LN(out + swish(out @ W1 + b1) @ W2 + b2)
       fwd_residual_norm<kBf16>(a, l, ab, sQ, sW, work, lds,
                         [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
-                        [&](int m, const float (&v)[4]) {
+                        [&](int m, const float (&v)[kLaneValues]) {
 #pragma unroll
-                          for (int i = 0; i < 4; ++i)
+                          for (int i = 0; i < kLaneValues; ++i)
                             if (lane + 32 * i < D)
                               out_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
                         });
@@ -779,7 +791,16 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // the first wide launch; scann_loop_tall.cu with SCANN_LOOP_TALL, the tall
 // one (scann_loop_forward_tall_*, N <= kFwdMaxChunkRows), at the first tall
 // launch. Each build takes both operand modes.
-#if defined(SCANN_LOOP_WIDE)
+// scann_loop_tall_d256.cu and scann_loop_wide_d256.cu add SCANN_WIDTH_256:
+// the tall and wide builds of widths up to 256 (scann_loop_forward_tall_d256_*,
+// scann_loop_forward_wide_d256_*), at the first launch of a wider model.
+#if defined(SCANN_LOOP_WIDE) && defined(SCANN_WIDTH_256)
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_d256_##x
+constexpr bool kWideBuild = true;
+#elif defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_tall_d256_##x
+constexpr bool kWideBuild = false;
+#elif defined(SCANN_LOOP_WIDE)
 #define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_##x
 constexpr bool kWideBuild = true;
 #elif defined(SCANN_LOOP_TALL)
@@ -841,9 +862,9 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   const int C = dims[23];
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
-  // the wide build: kFwdMaxChunkRows < N <= kWideMaxN, one atom a chunk; the
+  // the wide build: kTallMaxN < N <= kWideMaxN, one atom a chunk; the
   // tall and wide builds: their readout rows
-  if ((a.N > kFwdMaxChunkRows) != kWideBuild || (l2 != nullptr) != (kWideBuild || kTall) ||
+  if ((a.N > kTallMaxN) != kWideBuild || (l2 != nullptr) != (kWideBuild || kTall) ||
       (kWideBuild && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;
 
@@ -851,8 +872,8 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
       (!kWideBuild && a.chunk_atoms * a.N > kFwdMaxChunkRows) || a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       C < 1 || C > kBuildMaxCluster ||
-      a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
-      a.D % a.H || a.K > a.D)
+      a.D > kMaxWidth || a.G > kMaxWidth || a.O > kMaxWidth ||
+      (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D)
     return kErrShape;
   const Plan plan = make_plan<kWideBuild>(a);
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one

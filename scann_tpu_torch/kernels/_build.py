@@ -91,8 +91,15 @@ TALL_SOURCES = ("scann_loop_tall", "scann_loop_backward_tall")
 # modes in one library, as its narrow build does), built at the first bf16
 # wide or tall launch.
 BF16_SHAPE_SOURCES = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall_bf16")
+# The forwards' builds of widths past 128 (D, G, O up to 256: 8 values of a
+# row a lane in the warp LayerNorms), one source each for #1, the tall and
+# wide #3 and the narrow and wide #5, each holding both operand modes: the
+# same sources with SCANN_WIDTH_256 defined, built at the first launch of a
+# wider model, so the builds of widths up to 128 are the ones they were.
+WIDTH_SOURCES = ("scann_forward_d256", "scann_loop_tall_d256", "scann_loop_wide_d256",
+                 "local_attention_d256", "local_attention_wide_d256")
 # Every build made for some shapes only.
-SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES
+SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES + WIDTH_SOURCES
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
 # utils/roofline.py. Built and loaded the same way.
 PROBES = ("roofline_probe",)

@@ -20,7 +20,7 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   autograd, as the JAX package's VJP does (it has no backward kernel here).
   ``fused_local_attention.launches`` counts kernel launches
   (``.bf16_launches`` those on bfloat16 tensors, ``.wide_launches`` those
-  of the wide build).
+  of the wide build, ``.d256_launches`` those of D past 128).
 - ``reference_local_attention`` is the plain layer in the tensors' own
   dtypes (the flax model's layer: in the bf16 model its products and
   elementwise ops round as the tensors do), with the attention dropout of
@@ -37,9 +37,12 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   there; bfloat16 centers with an f32 tensor are refused.
 - The kernel reads the previous layer's centers from global memory and tiles
   the atoms over the grid, so M is not limited. Its tiles limit the rest: D
-  a multiple of 4 up to 128 and divisible by the heads, N <= 256, the SCANN
-  filter's input K <= D, float32 or bfloat16. Up to N = 64 one atom's
-  neighbours fit a chunk of 64 rows (``csrc/local_attention.cu``); a wider
+  a multiple of 4 up to 256 (``MAX_WIDTH``; past 128 the builds of
+  ``csrc/local_attention_d256.cu`` and ``local_attention_wide_d256.cu``, 8
+  values of a row a lane in the warp LayerNorms, the narrow one with atom
+  blocks down to 8, ``D256_ATOM_BLOCKS``) and divisible by the heads, N <=
+  256, the SCANN filter's input K <= D, float32 or bfloat16. Up to N = 64
+  one atom's neighbours fit a chunk of 64 rows (``csrc/local_attention.cu``); a wider
   list launches the wide build (``csrc/local_attention_wide.cu``, built at
   its first launch): one atom at a time, its rows in sub-chunks of 64, the
   softmax over all N from an energy row in shared memory (``wide_softmax``
@@ -77,9 +80,13 @@ REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
 MAX_CHUNK_ROWS = 64
 MAX_NEIGHBORS = 256   # the wide builds' limit (csrc/scann_mma.cuh kWideMaxN)
-MAX_WIDTH = 128
+MAX_WIDTH = 256      # past NARROW_WIDTH the *_d256 builds
+NARROW_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 ATOM_BLOCKS = (64, 48, 32, 16)
+# the narrow build's blocks past 128 columns: a 64-row chunk and 16 atoms'
+# slots outgrow a block at D = 256, N = 32 (kAtomBlocks of the d256 build)
+D256_ATOM_BLOCKS = ATOM_BLOCKS + (8,)
 WIDE_ATOM_BLOCKS = (16, 8, 4, 2, 1)
 WIDE_ATOM_COST, WIDE_HEAD_COST = 20, 3   # the wide plan's cost of a wave: 20 AB + 3
 PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
@@ -185,11 +192,12 @@ def is_wide(N: int) -> bool:
     return N > MAX_CHUNK_ROWS
 
 
-def library(N: int) -> str:
-    """The build that takes N neighbours, the name of its library and its
-    entry points' prefix: ``local_attention_wide`` where ``is_wide``, else
-    ``local_attention``."""
-    return "local_attention_wide" if is_wide(N) else "local_attention"
+def library(N: int, D: int) -> str:
+    """The build that takes N neighbours of width D, the name of its library
+    and its entry points' prefix: ``local_attention_wide`` where ``is_wide``,
+    else ``local_attention``; with ``_d256`` past ``NARROW_WIDTH``."""
+    name = "local_attention_wide" if is_wide(N) else "local_attention"
+    return name + ("_d256" if D > NARROW_WIDTH else "")
 
 
 def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple[int, int]:
@@ -236,16 +244,18 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     ``make_plan`` and ``make_wide_plan`` of the CUDA source, which refuses
     any other. A block takes a whole SM, so the B * ceil(M / AB) blocks run
     in ceil(blocks / n_sm) waves of AB atoms. The narrow build takes the
-    atom block of ``ATOM_BLOCKS`` whose ``block_plan`` fits with the fewest
-    atoms per SM, the larger where two tie. The wide build (one atom a
-    chunk, ``wide_block_plan`` on f32 or ``bf16`` tensors) takes the atom
+    atom block of ``ATOM_BLOCKS`` (``D256_ATOM_BLOCKS`` past 128 columns)
+    whose ``block_plan`` fits with the fewest atoms per SM, the larger where
+    two tie. The wide build (one atom a chunk, ``wide_block_plan`` on f32
+    or ``bf16`` tensors) takes the atom
     block of ``WIDE_ATOM_BLOCKS`` whose waves cost least, a wave costing
     ``WIDE_ATOM_COST`` x AB + ``WIDE_HEAD_COST`` (a block's head, its
     atoms' cw and query products, costs about 0.15 of an atom's rows), the
     smaller where two tie."""
     wide = is_wide(N)
     best = None
-    for ab in WIDE_ATOM_BLOCKS if wide else ATOM_BLOCKS:
+    blocks = D256_ATOM_BLOCKS if D > NARROW_WIDTH else ATOM_BLOCKS
+    for ab in WIDE_ATOM_BLOCKS if wide else blocks:
         waves = -(-B * -(-M // ab) // n_sm)
         if wide:
             plan = wide_block_plan(ab, N, D, H, g_update, bf16)
@@ -343,7 +353,7 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     n_sm = sm_count(dev)
     bf16 = int(dt == torch.bfloat16)
     plan = make_plan(B, M, N, D, num_head, g_update, n_sm, bool(bf16))
-    lib = library(N)
+    lib = library(N, D)
     keys = (torch.empty((B * -(-M // plan[0]), N, D), device=dev, dtype=torch.float32)
             if is_wide(N) and not wide_block_plan(plan[0], N, D, num_head, g_update,
                                                   bool(bf16))[1]
@@ -353,6 +363,7 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     fused_local_attention.launches += 1
     fused_local_attention.bf16_launches += bf16
     fused_local_attention.wide_launches += is_wide(N)
+    fused_local_attention.d256_launches += D > NARROW_WIDTH
     return out, geo_out, attn
 
 
@@ -429,6 +440,7 @@ def fused_local_attention(centers: torch.Tensor, neighbor_idx: torch.Tensor,
 fused_local_attention.launches = 0
 fused_local_attention.bf16_launches = 0
 fused_local_attention.wide_launches = 0
+fused_local_attention.d256_launches = 0
 
 
 def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:

@@ -81,7 +81,7 @@ from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_ATOMS,
     MAX_SHARED_BYTES,
-    MAX_WIDTH,
+    NARROW_WIDTH,
     RBF_WIDTH,
     _LAYER_KEYS,
     AttentionLayer,
@@ -109,6 +109,11 @@ from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, sca
 REPLACES = "scann_tpu/kernels/scann_backward.py:77"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_backward.cu"
 MAX_CHUNK_ROWS = 32
+# The backward kernels #2 and #4 hold 4 values of a row a lane in their warp
+# LayerNorms: D, G, O up to 128. A wider model trains on the per-layer route
+# (``Trainer.train_route``); the forwards take widths up to
+# ``kfwd.MAX_WIDTH``.
+MAX_WIDTH = NARROW_WIDTH
 N_WARPS = 8
 # The device memory one backward launch may give its activation stash (this
 # kernel's keep-acts stash, the loop backward's selective stash): 6 GiB. It

@@ -13,7 +13,8 @@ Philox masks of ``ops.dropout`` that the backward replays).
   for CPU tensors it runs the plain version, ``reference_scann_forward``:
   the eager model called functionally, with the same masks.
   ``fused_scann_forward.launches`` counts kernel launches
-  (``.bf16_launches`` those in the bf16 operand mode).
+  (``.bf16_launches`` those in the bf16 operand mode, ``.d256_launches``
+  those of the build of widths past 128).
 - ``model.dtype: "bfloat16"`` is the bf16 operand mode of
   ``kernels/dots.py``: the kernel rounds both operands of every product to
   bfloat16 and sums in f32, as the TPU kernel's dots do, and its plain
@@ -31,7 +32,11 @@ Philox masks of ``ops.dropout`` that the backward replays).
   eager model's segmented readout.
 - The gate is the kernel's own shared-memory plan (``shared_memory_plan``)
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
-  (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 128.
+  (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 256
+  (``MAX_WIDTH``). A model wider than ``NARROW_WIDTH`` = 128 (``is_d256``)
+  launches the forwards' builds of 8 values of a row a lane in the warp
+  LayerNorms, sources of their own (``csrc/*_d256.cu``, ``library``),
+  and its chunks fall to 32 or 16 rows where 64 do not fit.
   Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
   A packed batch adds its per-segment vectors to the plan
   (``max_segments`` is the largest S a shape takes, at most
@@ -77,7 +82,13 @@ SOURCE = "scann_tpu_torch/csrc/scann_forward.cu"
 MAX_ATOMS = 64
 MAX_CHUNK_ROWS = 64
 MAX_NEIGHBORS = 256   # kernels #3, #5 and #4 in their wide builds (kWideMaxN)
-MAX_WIDTH = 128
+# D, G and O up to 256 in the forwards #1, #3 and #5; past NARROW_WIDTH
+# their *_d256 builds (8 values of a row a lane in the warp LayerNorms)
+MAX_WIDTH = 256
+NARROW_WIDTH = 128
+# the forward's chunks of (atom, neighbour) rows, the first whose plan fits
+# (64 fits at every width up to 128; 32 at QM9 at D = 256)
+CHUNK_ROWS = (64, 32, 16)
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 MAX_SEGMENTS = 32          # kMaxSegments of csrc/scann_common.cuh
 RBF_WIDTH = 0.25
@@ -457,14 +468,35 @@ def shared_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[in
     block) -- the layout ``make_plan`` in the CUDA source walks: centers,
     query and a scratch [M, max(D, G) + 4] each, the work region (a chunk's
     buffers or the embedding's staging), the readout's vectors (per segment
-    for a packed batch of S segments a slot)."""
+    for a packed batch of S segments a slot). The chunk is the first of
+    ``CHUNK_ROWS`` rows (whole atoms, at least one) whose plan fits, else
+    the first's plan."""
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     ldm = max(D, G) + 4
-    chunk_atoms = max(1, min(M, MAX_CHUNK_ROWS // N))
-    work = max(forward_chunk_floats(chunk_atoms * N, D, H), embedding_stage_floats(cfm, M))
     misc = seg_forward_floats(S, ldm, M, O) if S else 2 * ldm + _r4(M) + _r4(O)
-    floats = 3 * M * ldm + work + misc
-    return chunk_atoms, work, 4 * floats
+    plans = []
+    for rows in CHUNK_ROWS:
+        chunk_atoms = max(1, min(M, rows // N))
+        work = max(forward_chunk_floats(chunk_atoms * N, D, H), embedding_stage_floats(cfm, M))
+        plans.append((chunk_atoms, work, 4 * (3 * M * ldm + work + misc)))
+        if plans[-1][2] <= MAX_SHARED_BYTES:
+            return plans[-1]
+    return plans[0]
+
+
+def is_d256(cfm: ModelConfig) -> bool:
+    """Whether the model is wider than ``NARROW_WIDTH`` (D, G or O past 128),
+    so that the forwards #1, #3 and #5 launch their builds of widths up to
+    256 (``csrc/*_d256.cu``: 8 values of a row a lane in the warp LayerNorms);
+    the builds of widths up to 128 are the ones they always were."""
+    return max(cfm.local_dim, cfm.global_dim, cfm.dense_out) > NARROW_WIDTH
+
+
+def library(cfm: ModelConfig) -> str:
+    """The build of #1 that launches the config's batches, the name of its
+    library and its entry points' prefix: ``scann_forward_d256`` where
+    ``is_d256``, else ``scann_forward``."""
+    return "scann_forward_d256" if is_d256(cfm) else "scann_forward"
 
 
 def segment_count(inputs: Dict[str, torch.Tensor]) -> int:
@@ -515,19 +547,22 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     return reason
 
 
-def common_refusal(cfm: ModelConfig, N: int, max_n: int = MAX_CHUNK_ROWS) -> Optional[str]:
+def common_refusal(cfm: ModelConfig, N: int, max_n: int = MAX_CHUNK_ROWS,
+                   max_width: int = MAX_WIDTH) -> Optional[str]:
     """What the whole-model kernels refuse: a dtype other than float32 and
     bfloat16 (the bf16 operand mode) and sizes outside the tiles of
     ``csrc/scann_common.cuh``, with N up to ``max_n`` (#1: one chunk of
-    rows; the loop kernels #3 and #4: ``MAX_NEIGHBORS``)."""
+    rows; the loop kernels #3 and #4: ``MAX_NEIGHBORS``) and D, G, O up to
+    ``max_width`` (the forwards: ``MAX_WIDTH``; the backward kernels #2 and
+    #4 keep ``kernels.scann_backward.MAX_WIDTH``)."""
     if cfm.dtype not in ("float32", "bfloat16"):
         return (f"model.dtype={cfm.dtype!r}: the kernels take float32 and bfloat16 (the "
                 "bf16 operand mode)")
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
-    if (N < 1 or N > max_n or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
+    if (N < 1 or N > max_n or any(x % 4 or x > max_width for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
         return (f"sizes outside the kernel's tiles: N={N} (<= {max_n}), "
-                f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
+                f"D={D}, G={G}, O={O} (multiples of 4, <= {max_width}), E={E} "
                 f"(multiple of 4), D % num_head == 0, num_gaussian <= D")
     return None
 
@@ -729,10 +764,11 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     chunk_atoms, work, _ = shared_memory_plan(cfm, M, N, S)
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
-    call_kernel("scann_forward", "scann_forward", packed["wde"].device, tensors + [seg],
-                dims + [S, bf16], scalars, rng)
+    lib = library(cfm)
+    call_kernel(lib, lib, packed["wde"].device, tensors + [seg], dims + [S, bf16], scalars, rng)
     fused_scann_forward.launches += 1
     fused_scann_forward.bf16_launches += bf16
+    fused_scann_forward.d256_launches += is_d256(cfm)
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -767,6 +803,7 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
 
 fused_scann_forward.launches = 0
 fused_scann_forward.bf16_launches = 0
+fused_scann_forward.d256_launches = 0
 
 
 def attention_scale(cfm: ModelConfig) -> float:

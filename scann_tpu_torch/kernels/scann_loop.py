@@ -31,8 +31,17 @@ Forward:
   other per-atom tensor for one block of 32, 16 or 8 atoms at a time, so it
   needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
   fits a block's 227 KB. It shares the molecule kernel's tiles: chunks
-  of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 128.
-  ``use_attn_norm=False`` is refused.
+  of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 256
+  (``kfwd.MAX_WIDTH``). ``use_attn_norm=False`` is refused.
+- Widths past 128 (``kfwd.is_d256``): the tall and wide builds of widths up
+  to 256 (``csrc/scann_loop_tall_d256.cu``, ``scann_loop_wide_d256.cu``: 8
+  values of a row a lane in the warp LayerNorms; ``forward_library``
+  names them, ``.d256_launches`` counts them). The narrow build is not
+  launched there (``is_tall`` holds at every narrow N); the tall build's
+  chunks fall to 32 rows where 64 do not fit (``l2_memory_plan``), and it
+  takes N <= ``D256_TALL_MAX_N`` = 32, the wide build the rest
+  (``is_wide_forward``). The backward keeps D, G, O <= 128
+  (``kbwd.MAX_WIDTH``).
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
   modes) keeps the centers in global memory, which L2 holds: a ping-pong [2,
@@ -237,6 +246,11 @@ CLUSTER_SIZES = tuple(CLUSTERS_AT_ONCE)
 # clusters the card runs at once, so that small batches fill it (one
 # structure: 16 blocks rather than 4).
 FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
+# The largest N of the loop forward's narrow and tall builds past 128 columns
+# (``kfwd.is_d256``; kTallMaxN of csrc/scann_loop.cu): two tall chunk
+# buffers of more rows do not fit a block's shared memory at D = 256, so the
+# wide build takes N > 32 there (N > 64 up to 128 columns).
+D256_TALL_MAX_N = 32
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -244,6 +258,14 @@ def supports_loop(cfm: ModelConfig) -> bool:
     SCANN+, with or without attention dropout; only ``use_attn_norm=False``
     (no published config) is left to the per-layer model."""
     return cfm.use_attn_norm
+
+
+def is_wide_forward(cfm: ModelConfig, N: int) -> bool:
+    """Whether the loop forward takes N neighbours in its wide build
+    (``csrc/scann_loop_wide.cu``, or ``scann_loop_wide_d256.cu`` past 128
+    columns): N > 64 (``is_wide``, #5's rule too), and past 128 columns N >
+    ``D256_TALL_MAX_N``."""
+    return is_wide(N) or (kfwd.is_d256(cfm) and N > D256_TALL_MAX_N)
 
 
 def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -254,11 +276,11 @@ def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = 
     G) + 4], and a work region that holds a chunk's buffers, the embedding's
     staging, the ResidualNorm's h2 or the readout's block and vectors (per
     segment for a packed batch of S segments a slot). The tall (``tall``)
-    and wide (N > 64) builds keep the centers in global memory:
+    and wide (``is_wide_forward``) builds keep the centers in global memory:
     ``l2_memory_plan``. The atom block is the largest of 32, 16, 8 whose plan
     fits a block's shared memory (the smallest one's plan if none does).
     ``forward_plan`` is the plan of the build a launch takes."""
-    if tall or is_wide(N):
+    if tall or is_wide_forward(cfm, N):
         return l2_memory_plan(cfm, M, N, S)[:4]
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
@@ -296,36 +318,44 @@ def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     vectors. The wide
     build takes the keys into shared memory at the largest atom block that
     fits them, else leaves them in global memory (``loop_forward_scratch``'s
-    ``wide_keys``). None of it grows with M but the readout's [M] vectors,
-    so the plan takes M into the thousands."""
+    ``wide_keys``). The tall build's chunk is the first of
+    ``kfwd.CHUNK_ROWS`` rows (whole atoms) whose plan fits (64 up to 128
+    columns, 32 at D = 256). None of it grows with M but the readout's [M]
+    vectors, so the plan takes M into the thousands; where nothing fits, the
+    plan of the first chunk size at the smallest block."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
-    wide = is_wide(N)
-    for smem_keys in ((True, False) if wide else (False,)):
-        for block in ATOM_BLOCKS:
-            block = min(block, M)
-            chunk_atoms = max(1, min(block, MAX_CHUNK_ROWS // max(N, 1)))
-            rows = MAX_CHUNK_ROWS if wide else chunk_atoms * N
-            front = max(rows * (D + 4) + r4(N * H if wide else rows * H), block * (wd + 4))
-            chunk = (front + (1 if wide else 2) * rows * (2 * D + 4)
-                     + r4(2 * (N if wide else rows)) + 4 + (N * D if smem_keys else 0))
-            work = max(chunk, kfwd.embedding_stage_floats(cfm, block),
-                       block * wd + 2 * wd + 2 * r4(M) + r4(O))
-            if S:
-                work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
-            floats = 2 * block * (wd + 4) + work
-            if 4 * floats <= MAX_SHARED_BYTES:
-                return chunk_atoms, block, work, 4 * floats, smem_keys
-    return chunk_atoms, block, work, 4 * floats, smem_keys
+    wide = is_wide_forward(cfm, N)
+    first = None
+    for most_rows in ((MAX_CHUNK_ROWS,) if wide else kfwd.CHUNK_ROWS):
+        for smem_keys in ((True, False) if wide else (False,)):
+            for block in ATOM_BLOCKS:
+                block = min(block, M)
+                chunk_atoms = max(1, min(block, most_rows // max(N, 1)))
+                rows = MAX_CHUNK_ROWS if wide else chunk_atoms * N
+                front = max(rows * (D + 4) + r4(N * H if wide else rows * H), block * (wd + 4))
+                chunk = (front + (1 if wide else 2) * rows * (2 * D + 4)
+                         + r4(2 * (N if wide else rows)) + 4 + (N * D if smem_keys else 0))
+                work = max(chunk, kfwd.embedding_stage_floats(cfm, block),
+                           block * wd + 2 * wd + 2 * r4(M) + r4(O))
+                if S:
+                    work = max(work, block * wd + seg_forward_floats(S, wd, M, O))
+                floats = 2 * block * (wd + 4) + work
+                if 4 * floats <= MAX_SHARED_BYTES:
+                    return chunk_atoms, block, work, 4 * floats, smem_keys
+        first = first or (chunk_atoms, block, work, 4 * floats, smem_keys)
+    return first
 
 
 def is_tall(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     """Whether the loop forward takes (config, M, N, S) in its tall build
-    (``csrc/scann_loop_tall.cu``): a narrow N (not ``is_wide``) whose narrow
-    plan does not fit a block's shared memory, so the centers live in global
-    memory."""
-    return not is_wide(N) and loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES
+    (``csrc/scann_loop_tall.cu``): a narrow N (not ``is_wide_forward``)
+    whose narrow plan does not fit a block's shared memory, so the centers
+    live in global memory; past 128 columns every narrow N (the narrow build
+    has no such build: ``scann_loop_tall_d256.cu`` takes them)."""
+    return not is_wide_forward(cfm, N) and (
+        kfwd.is_d256(cfm) or loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES)
 
 
 def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -347,14 +377,17 @@ def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = F
                     ) -> Tuple[str, str]:
     """(library, entry-point prefix) of the loop forward's build that takes
     (config, M, N, S): the wide one (``csrc/scann_loop_wide.cu``) where
-    ``is_wide``, the tall one (``csrc/scann_loop_tall.cu``) where ``is_tall``
-    or ``tall`` forces it, else the narrow one. Each build holds both
-    operand modes (``kfwd.operand_mode(cfm)`` is a launch argument), so the
-    library is the same for f32 and bf16. The one place that chooses."""
-    if is_wide(N):
-        return "scann_loop_wide", "scann_loop_forward_wide"
+    ``is_wide_forward``, the tall one (``csrc/scann_loop_tall.cu``) where
+    ``is_tall`` or ``tall`` forces it, else the narrow one; past 128
+    columns (``kfwd.is_d256``) the wide or tall one of widths up to 256
+    (``*_d256``). Each build holds both operand modes
+    (``kfwd.operand_mode(cfm)`` is a launch argument), so the library is the
+    same for f32 and bf16. The one place that chooses."""
+    d256 = "_d256" if kfwd.is_d256(cfm) else ""
+    if is_wide_forward(cfm, N):
+        return "scann_loop_wide" + d256, "scann_loop_forward_wide" + d256
     if tall or is_tall(cfm, M, N, S):
-        return "scann_loop_tall", "scann_loop_forward_tall"
+        return "scann_loop_tall" + d256, "scann_loop_forward_tall" + d256
     return "scann_loop", "scann_loop_forward"
 
 
@@ -391,7 +424,7 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     reason = kfwd.common_refusal(cfm, N, MAX_NEIGHBORS) or segment_refusal(S)
     if reason:
         return reason
-    l2 = is_wide(N) or is_tall(cfm, M, N, S)
+    l2 = is_wide_forward(cfm, N) or is_tall(cfm, M, N, S)
     nbytes = forward_plan(cfm, M, N, S)[3]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
@@ -443,7 +476,7 @@ def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
     own unless it is handed one, and refuses one of another build."""
     D = cfm.local_dim
     tall = is_tall(cfm, M, N, S) if tall is None else tall
-    l2 = tall or is_wide(N)
+    l2 = tall or is_wide_forward(cfm, N)
     empty = lambda *shape: torch.empty(shape, device=device, dtype=torch.float32)
     # SCANN+: the geometry, D columns a row; SCANN in the tall and wide
     # builds: the distance RBF table, round4(K) columns a row
@@ -454,7 +487,7 @@ def loop_forward_scratch(cfm: ModelConfig, B: int, M: int, N: int, device,
     if l2:
         rows = readout_shape_for(cfm, B, M)
         keys = None
-        if is_wide(N) and not l2_memory_plan(cfm, M, N, S)[4]:
+        if is_wide_forward(cfm, N) and not l2_memory_plan(cfm, M, N, S)[4]:
             C = forward_cluster(cfm, B, M, N, S) if cluster is None else cluster
             keys = wide_keys_shape_for(cfm, B, M, N, C, S)
         n = math.prod(rows)
@@ -476,9 +509,9 @@ def wide_keys_shape_for(cfm: ModelConfig, B: int, M: int, N: int, cluster: int, 
                         ) -> Optional[Tuple[int, int, int]]:
     """The wide loop forward's global key scratch [B * C, N, D] (one atom's
     keys a block), where ``l2_memory_plan`` leaves them out of shared
-    memory; None where N is not wide (``is_wide``) or the keys are in shared
-    memory."""
-    if not is_wide(N) or l2_memory_plan(cfm, M, N, S)[4]:
+    memory; None where N is not wide (``is_wide_forward``) or the keys are in
+    shared memory."""
+    if not is_wide_forward(cfm, N) or l2_memory_plan(cfm, M, N, S)[4]:
         return None
     return (B * cluster, N, cfm.local_dim)
 
@@ -528,6 +561,7 @@ launch_loop_forward.launches = 0
 launch_loop_forward.bf16_launches = 0
 launch_loop_forward.wide_launches = 0
 launch_loop_forward.tall_launches = 0
+launch_loop_forward.d256_launches = 0
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -547,8 +581,8 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     library, symbol = forward_library(cfm, M, N, S, tall)
-    tall = library == "scann_loop_tall"
-    wide = is_wide(N)
+    wide = is_wide_forward(cfm, N)
+    tall = not wide and (tall or is_tall(cfm, M, N, S))
     sizes = FORWARD_CLUSTER_SIZES if tall or wide else CLUSTER_SIZES
     if cluster is None:
         cluster = forward_cluster(cfm, B, M, N, S, tall)
@@ -580,6 +614,7 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     launch_loop_forward.bf16_launches += bf16
     launch_loop_forward.wide_launches += wide
     launch_loop_forward.tall_launches += tall
+    launch_loop_forward.d256_launches += kfwd.is_d256(cfm)
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -665,7 +700,7 @@ def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0,
     B = 16 on a card that runs 15 clusters of 8 and 16 of 7), so a small
     batch fills the card; in the narrow build ``cluster_size(B)``, as the
     loop backward."""
-    if not (tall or is_wide(N) or is_tall(cfm, M, N, S)):
+    if not (tall or is_wide_forward(cfm, N) or is_tall(cfm, M, N, S)):
         return cluster_size(B)
     for C in FORWARD_CLUSTER_SIZES:
         if B <= max_active_forward_clusters(cfm, B, M, N, C, S, tall):
@@ -766,7 +801,8 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
                 "(models.scann.scann_forward with use_pallas, under torch.autograd)")
     if M < 1:
         return f"M={M}: no atoms"
-    reason = (kbwd.dtype_refusal(cfm) or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
+    reason = (kbwd.dtype_refusal(cfm)
+              or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS, kbwd.MAX_WIDTH)
               or segment_refusal(S))
     if reason:
         return reason

@@ -266,11 +266,12 @@ class Trainer:
 
     def shape_libraries(self, shapes, training: bool = False) -> Tuple[str, ...]:
         """The builds made for some shapes only (``_build.SHAPE_SOURCES``:
-        the wide and tall builds, #4's in the model's operand mode) that
-        batches of these (M, N, S) shapes launch, by their routes: the loop
+        the wide and tall builds, #4's in the model's operand mode, the
+        forwards' builds of widths past 128) that batches of these (M, N, S)
+        shapes launch, by their routes: the molecule forward's, the loop
         forward's and the per-layer kernel's in eval, the loop backward's in
         training; the kernel modules name each route's build
-        (``kloop.forward_library``, ``kla.library``,
+        (``kfwd.library``, ``kloop.forward_library``, ``kla.library``,
         ``kloop.backward_library``)."""
         from scann_tpu_torch.kernels._build import SHAPE_SOURCES
 
@@ -278,10 +279,12 @@ class Trainer:
         libs = set()
         for M, N, S in shapes:
             route = self.eval_route(M, N, S)
+            if route == "fused":
+                libs.add(kfwd.library(cfm))
             if route == "loop":
                 libs.add(kloop.forward_library(cfm, M, N, S)[0])
             if route == "per_layer":
-                libs.add(kla.library(N))
+                libs.add(kla.library(N, cfm.local_dim))
             if training and self.train_route(M, N, S) == "loop":
                 libs.add(kloop.backward_library(cfm, M, N, S))
         return tuple(sorted(libs & set(SHAPE_SOURCES)))

@@ -190,7 +190,8 @@ def test_torch_training_refuses_crystal_buckets_naming_the_loop_backward():
 def test_torch_local_attention_gate_and_flops():
     kla.check_supported(128, 32, 128, 8, torch.float32)
     kla.check_supported(128, 64, 20, 8, torch.float32)
-    for bad in ((130, 32, 20, 8), (256, 32, 20, 8), (128, 264, 20, 8), (128, 32, 200, 8),
+    kla.check_supported(256, 32, 20, 8, torch.float32)      # the *_d256 builds
+    for bad in ((130, 32, 20, 8), (260, 32, 20, 8), (128, 264, 20, 8), (128, 32, 200, 8),
                 (128, 32, 20, 7)):
         with pytest.raises(NotImplementedError, match="sizes"):
             kla.check_supported(*bad, torch.float32)
