@@ -2370,7 +2370,9 @@ def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, bel
     draw to draw), and (d) the f32 kernel's mean distance from the bf16
     plain version, the reading of a kernel that skipped the mode. It holds
     (a) to the larger of ``BF16_GAP`` x (b) and ``BF16_FLOOR`` x (c), and to
-    ``below_f32`` x (d) (pred to ``below_pred`` x (d) where given); and the
+    ``below_f32`` x (d) (pred to ``below_pred`` x (d) where given; None: no
+    such limit, where the f32-noise floor of a few structures at full depth
+    reaches the whole gap); and the
     bf16 kernel's gradient cosine with the f32
     kernel's above ``BF16_COSINE``, or where the plain version's own bf16
     gradient reads below that against its f32 one, no more than 1e-4 below
@@ -2388,14 +2390,15 @@ def hold_bf16_grads(label, got16, plain16, plain32, floors, got32, failures, bel
         c64, *cjit = (dist(p16, sel(f)) for f in floors)
         c = max(c64, *cjit)
         limit = max(BF16_GAP * b, BF16_FLOOR * c)
-        ok = a <= limit and a <= below * d and bool(torch.isfinite(k16).all())
+        if below is not None:
+            limit = min(limit, below * d)
+        ok = a <= limit and bool(torch.isfinite(k16).all())
         line.append(f"{what}: (a) {a:.3e} = {a / b:.4f} x (b) {b:.3e}, (c) {c / b:.4f} x (f64 "
                     f"{c64 / b:.4f}, jitter {'/'.join(f'{j / b:.4f}' for j in cjit)}), (d) "
-                    f"{d / b:.4f} x; limit {min(limit, below * d) / b:.4f} x")
+                    f"{d / b:.4f} x; limit {limit / b:.4f} x")
         if not ok:
             failures.append(f"{label} {what}: (a) {a:.3e} over min(max({BF16_GAP} (b), "
-                            f"{BF16_FLOOR} (c)), {below} (d)) = "
-                            f"{min(limit, below * d):.3e}")
+                            f"{BF16_FLOOR} (c)), {below} (d)) = {limit:.3e}")
             if what == "grads":
                 share = sorted(((got16[1][k] - plain16[1][k]).abs().sum().item(), k)
                                for k in plain16[1])[::-1][:4]
@@ -4081,12 +4084,12 @@ def phase17_loops(mp2018, ptgp, failures, card):
     return worst3, worst4, fwd, t4
 
 
-def time_loop_schedules(build, name, cfm, x, card):
+def time_loop_schedules(build, name, cfm, x, card, reps=(3, 8)):
     """#4 at one batch shape in the f32 stash and in the recompute schedule
     (dropout 0.1, one-shot), each in turns with its plain version (plain,
-    kernel, kernel, plain), against its bound; ``build`` names the build in
-    the printed lines. Returns the f32 stash's times with the recompute
-    schedule's beside them."""
+    kernel, kernel, plain; ``reps``: timed calls of each a round), against
+    its bound; ``build`` names the build in the printed lines. Returns the
+    f32 stash's times with the recompute schedule's beside them."""
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -4103,7 +4106,7 @@ def time_loop_schedules(build, name, cfm, x, card):
         ms, plain_ms = in_turns_ms(
             lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7),
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
-                                           scratch, stash=mode), 3, 8)
+                                           scratch, stash=mode), *reps)
         del scratch
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
@@ -5163,9 +5166,12 @@ def phase20_holds(qm9_model, mp2018, failures):
     96) and (3, 40, 48) (the wide one, which takes N > 32 past 128 columns)
     at C = 1, 2, 4 and the rule's C, each relaunched on NaN- and
     constant-filled scratch bit for bit (``hold_loop_forward``; bf16 by
-    ``hold_bf16_shape`` without #4: within 2 x the f32-noise floor at full
-    depth, and under 0.5 x the f32 kernel's reading with one layer over 16
-    structures); #5 on one layer at (8, 96, 32) and (4,
+    ``hold_bf16_shape``: within 2 x the f32-noise floor at full depth, and
+    under 0.5 x the f32 kernel's reading with one layer over 16 structures;
+    #4's bf16 tall and wide d256 builds the same way at (4, 96, 32) and (3,
+    40, 48), in their three schedules, at C = 1, 2, 4 at full depth and at
+    the rule's C with one layer, pred there at 0.9 x as in phase 19); #5 on
+    one layer at (8, 96, 32) and (4,
     40, 64) (the narrow build, atom blocks down to 8) and (8, 96, 96), (2,
     73, 81) and (2, 32, 256) (the wide one), SCANN+, and SCANN at (8, 96,
     32) and (8, 96, 96), f32 and bf16 tensors, each relaunched into
@@ -5225,12 +5231,21 @@ def phase20_holds(qm9_model, mp2018, failures):
             # separate the mode from f32; with one layer over 16 structures the
             # kernel must read under 0.5 x the f32 kernel's, as in phase 19. The
             # floor is phase 15's: f64 sums and weights moved by about one ulp
-            note(worst16, build, hold_bf16_shape(f"phase 20 D={D}", mp, x, failures, below=None,
-                                                 clusters3=(1, 2, 4), grads=False,
-                                                 jitters=JITTERS)[0])
-            note(worst16, build, hold_bf16_shape(
-                f"phase 20 D={D} L=1", dataclasses.replace(mp, n_attention=1), batch(16),
-                failures, below=0.5, clusters3=(), grads=False, jitters=JITTERS)[0])
+            # #4's bf16 builds the same way (phase 15's floor rule), at the
+            # tall (96, 32) and the wide (40, 48), in their three schedules
+            # (with one layer, pred at 0.9 x and at the rule's C, as phase 19)
+            grads = N != 96
+            build4 = kloop.backward_library(dataclasses.replace(mp, dtype="bfloat16"), M, N)
+            for tag, cfm, xb, below, c3, c4 in (
+                    (f"phase 20 D={D}", mp, x, None, (1, 2, 4), (1, 2, 4)),
+                    (f"phase 20 D={D} L=1", dataclasses.replace(mp, n_attention=1), batch(16),
+                     0.5, (), (kloop.cluster_size(16),))):
+                w3, w4 = hold_bf16_shape(tag, cfm, xb, failures, below=below, clusters3=c3,
+                                         grads=grads, jitters=JITTERS, clusters=c4,
+                                         below_pred=0.9 if below else None)
+                note(worst16, build, w3)
+                if grads:
+                    note(worst16, build4, w4)
             del x
         for g_update, (B, M, N) in ((True, (8, 96, 32)), (True, (4, 40, 64)),
                                     (True, (8, 96, 96)), (True, (2, 73, 81)),
@@ -5455,20 +5470,233 @@ def phase20_paths(qm9_model, mp2018, failures, card):
     reset()
     return launched
 
+def phase20_backward_holds(qm9_model, mp2018, failures):
+    """#4's f32 *_d256 builds against their plain versions at (D, G, O) =
+    (136, 132, 140) and (256, 256, 256), dropout 0.1 with attention dropout:
+    the tall build at QM9 (8, 32, 16), MP2018 (4, 96, 32) and a QM9 batch
+    packed at capacity 48 (S = 8, empty segments), the wide build at MP2018
+    (3, 40, 48) and (2, 24, 80) (two and three sub-chunks of 32 rows), each
+    at C = 1, 2, 4 (the rule's C among them) in its three schedules
+    (``hold_wide_backward``: the f32 stash against the plain gradients by
+    name within 1e-4 x each one's max, recompute bit-equal to it, the bf16
+    stash against its plain version, relaunches on NaN- and constant-filled
+    scratch bit for bit); and QM9 (8, 32, 16) in one-shot and cotangent
+    mode through the public entry points (``hold_loop_backward``). Returns
+    {build: worst f32 error}. The bf16 builds are held in
+    ``phase20_holds``."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(203)
+    worst = {}
+    for D, G, O in D256_WIDTHS:
+        qm9 = dataclasses.replace(widened(qm9_model, D, G, O), use_drop=True)
+        mp = dataclasses.replace(widened(mp2018, D, G, O), use_drop=True)
+        cases = (("QM9", qm9, synthetic_batch(rng, 8, 32, 16)),
+                 ("MP2018", mp, synthetic_batch(rng, 4, 96, 32, n_atoms=mp.n_atoms,
+                                                min_atoms=20)),
+                 ("QM9 packed", qm9, pack_batch(synthetic_batch(rng, 24, 16, 16), 48)),
+                 ("MP2018", mp, wide_batch(rng, 3, 40, 48, mp)),
+                 ("MP2018", mp, wide_batch(rng, 2, 24, 80, mp)))
+        for name, cfm, x in cases:
+            B, M = x["atom_mask"].shape[:2]
+            N, S = x["neighbors"].shape[2], kfwd.segment_count(x)
+            build = kloop.backward_library(cfm, M, N, S)
+            if not build.endswith("_d256"):
+                raise AssertionError(f"phase 20: {name} {(B, M, N, S)} takes {build}")
+            p = init_params(cfm, torch.Generator().manual_seed(23), "cuda")
+            y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
+            err = hold_wide_backward(f"phase 20 #4 ({build}) D={D} G={G} O={O} {name}", cfm, p,
+                                     x, y, 0.1, 7, failures)
+            worst[build] = max(worst.get(build, 0.0), err)
+            if name == "QM9":
+                ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
+                      torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda())
+                err = hold_loop_backward(f"phase 20 #4 ({build}) D={D} entry points", cfm, p, x,
+                                         y, False, 0.1, 7, failures, ct=ct)
+                worst[build] = max(worst[build], err)
+            del x
+    return worst
+
+
+def phase20_backward_times(qm9_model, mp2018, card):
+    """#4's *_d256 builds at D = G = O = 256, each alone: the f32 stash and
+    the recompute schedule in turns with the plain version (plain, kernel,
+    kernel, plain; ``time_loop_schedules``, 2 plain and 5 kernel calls a
+    round) at QM9 (128, 32, 16) and MP2018 (64, 96, 32) (the tall build)
+    and MP2018 (16, 80, 96) (the wide one), against the bound of
+    ``loop_backward_flops``; the bf16 builds at MP2018 (64, 96, 32) and (16,
+    80, 96) in turns with their bf16 plain version and with the f32 build
+    (f32, bf16, bf16, f32). Returns {build: timing}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(204)
+    qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
+    out = {}
+    for name, cfm, x in (
+            ("QM9 D=256", qm9, synthetic_batch(rng, 128, 32, 16)),
+            ("MP2018 D=256", mp, synthetic_batch(rng, 64, 96, 32, n_atoms=mp.n_atoms,
+                                                 min_atoms=20)),
+            ("MP2018 D=256", mp, wide_batch(rng, 16, 80, 96, mp))):
+        B, M = x["atom_mask"].shape[:2]
+        N = x["neighbors"].shape[2]
+        build = kloop.backward_library(cfm, M, N)
+        t = time_loop_schedules(build, name, cfm, x, card, reps=(2, 5))
+        t["shape"] = [B, M, N]
+        if build in out:       # the MP2018 bucket's row, with the QM9 bucket's beside it
+            t = dict(t, qm9=out[build])
+        out[build] = t
+        if name.startswith("MP2018"):
+            cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+            b16 = kloop.backward_library(cfm16, M, N)
+            params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+            packed = kfwd.pack_params(params, cfm)
+            y = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 1))
+                                 .astype(np.float32)).cuda()
+            mode = kloop.loop_stash_mode(cfm16, B, M, N)
+            scratch = kloop.loop_backward_scratch(packed, cfm16, B, M, N, stash=mode)
+            run16 = lambda c: kloop._launch_backward(packed, x, c, y, None, True, False, 0.1, 7,
+                                                     0, scratch, stash=mode)
+            ms, plain_ms = in_turns_ms(
+                lambda: kloop.reference_loop_train_grads(params, x, y, cfm16, False, 0.1, 7),
+                lambda: run16(cfm16), 2, 5)
+            ms16, f32_ms = in_turns_ms(lambda: run16(cfm), lambda: run16(cfm16), 5, 5)
+            del scratch
+            flops = kloop.loop_backward_flops(cfm, B, M, N)
+            _, P = kbwd.grad_layout(packed)
+            bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values())
+                                           + 4 * B + 4 * (P + B),
+                                           kbwd.backward_fp32_flops(cfm, B, M, N), bf16=True)
+            print(f"scann_loop_backward ({b16}) at {name} B={B} M={M} N={N} (the "
+                  f"{mode or 'recompute'} schedule; dropout 0.1, one-shot): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms (in turns), beside f32 {ms16:.4f} / {f32_ms:.4f} ms "
+                  f"(bf16 / f32 in turns), {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
+                  f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
+            out[b16] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "measured_bound_ms": measured, "flops": flops,
+                        "schedule": mode or "recompute", "shape": [B, M, N],
+                        "bf16_ms": ms16, "bf16_f32_ms": f32_ms}
+        del x
+    return out
+
+
+def phase20_train(qm9_model, mp2018, failures, card):
+    """The training path at D = G = O = 256 through the entry points a user
+    calls: ``Trainer.fit`` for 3 epochs of a QM9 model in a (32, 16) bucket
+    and of an MP2018 model, f32 and bf16, in a (96, 32) and a (48, 96)
+    bucket (32 seeded structures each, batch 16, the recipes' learning
+    rate), with the launch counts set to 0 just before and read just after:
+    every step must take the "loop" route, one launch of #4's d256 build a
+    step (the tall build at (32, 16) and (96, 32), the wide one at (48, 96);
+    ``.d256_launches`` equal to the steps, no #2 launch), with finite epoch
+    losses, the last lower than the first; the same f32 epochs with the
+    plain step (``plain_loop_trainer``) must give the same losses and
+    validation MAEs within ``TRAIN_RTOL``. Returns the launches of each #4
+    d256 build."""
+    import dataclasses
+    import tempfile
+
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.pipeline import PackedBucket
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(205)
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_d256_")
+    qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
+    launched = {}
+
+    def bucket(cfm, n, M, N):
+        x = (synthetic_batch(rng, n, M, N, n_atoms=cfm.n_atoms) if N <= 32
+             else wide_batch(rng, n, M, N, cfm))
+        x = {k: v.cpu().numpy() for k, v in x.items()}
+        return PackedBucket(x, rng.normal(size=n).astype(np.float32), np.arange(n))
+
+    for label, cfm, shapes in (("QM9", qm9, ((32, 16),)),
+                               ("MP2018", mp, ((96, 32), (48, 96))),
+                               ("bf16 MP2018", dataclasses.replace(mp, dtype="bfloat16"),
+                                ((96, 32), (48, 96)))):
+        cfg = ScannConfig(model=cfm,
+                          hyper=HyperConfig(batch_size=16, scheduler="sgdr", lr=5e-4,
+                                            min_lr=1e-4, epochs=3, seed=0,
+                                            save_path=os.path.join(work, label)),
+                          tpu=TpuConfig(max_buckets=2))
+        train = [bucket(cfm, 32, M, N) for M, N in shapes]
+        valid = [bucket(cfm, 16, M, N) for M, N in shapes]
+        trainer = Trainer(cfg, device="cuda", workdir=os.path.join(work, label, "fit"))
+        trainer.init_state(0)
+        routes = [trainer.train_route(*b.shape) for b in train]
+        builds = [kloop.backward_library(cfm, *b.shape) for b in train]
+        c4 = kloop.launch_loop_backward
+        kbwd.reset_counts(c4)
+        kbwd.reset_counts(kbwd.launch_scann_backward)
+        t0 = time.time()
+        hist = trainer.fit(train, valid, epochs=3, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        steps = [3 * -(-b.num_structures // 16) for b in train]
+        tall = sum(s for s, b in zip(steps, train) if b.shape[1] <= 32)
+        print(f"phase 20 trained a {label} model at D = 256 for 3 epochs in buckets "
+              f"{[b.shape for b in train]} (routes {routes}, builds {builds}) in {wall:.1f} s: "
+              f"{sum(steps)} steps, #4 launches {c4.launches} ({c4.d256_launches} d256: "
+              f"{c4.tall_launches} tall, {c4.wide_launches} wide; {mode_counts(c4)}), #2 "
+              f"{kbwd.launch_scann_backward.launches}; losses "
+              f"{[round(v, 5) for v in hist['loss']]}  [{card}]", flush=True)
+        if (set(routes) != {"loop"} or c4.launches != sum(steps)
+                or c4.d256_launches != sum(steps) or c4.tall_launches != tall
+                or c4.wide_launches != sum(steps) - tall or kbwd.launch_scann_backward.launches):
+            failures.append(f"phase 20 {label} training: routes {routes}, #4 launches "
+                            f"{c4.launches} ({c4.d256_launches} d256, {c4.tall_launches} tall, "
+                            f"{c4.wide_launches} wide) for {sum(steps)} steps ({tall} tall), "
+                            f"#2 {kbwd.launch_scann_backward.launches}")
+        if not (all(np.isfinite(hist["loss"])) and hist["loss"][-1] < hist["loss"][0]):
+            failures.append(f"phase 20 {label} training: losses {hist['loss']}")
+        if cfm.dtype == "float32":
+            plain = plain_loop_trainer()(cfg, "cuda", os.path.join(work, label, "plain"))
+            plain.init_state(0)
+            ref = plain.fit(train, valid, epochs=3, log_fn=lambda *a: None)
+            mine, want = hist["loss"] + hist["val_mae"], ref["loss"] + ref["val_mae"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(mine, want))
+            print(f"phase 20 {label}: the same epochs with the plain step: losses "
+                  f"{[round(v, 5) for v in ref['loss']]}; max rel {rel:.3e} from the kernel's "
+                  f"(limit {TRAIN_RTOL})", flush=True)
+            if not rel <= TRAIN_RTOL:
+                failures.append(f"phase 20 {label}: kernel and plain epochs differ by {rel:.3e}")
+            del plain
+        for name, n in ((kloop.backward_library(cfm, 96, 32), c4.tall_launches),
+                        (kloop.backward_library(cfm, 48, 96), c4.wide_launches)):
+            launched[name] = launched.get(name, 0) + n
+        kbwd.reset_counts(c4)
+        del trainer
+    return launched
+
 
 def phase20(qm9_model, mp2018, failures, card):
-    """Phase 20: widths above 128. Returns the kernels line's rows of the five
-    *_d256 builds (#1, the tall and wide #3, the narrow and wide #5)."""
+    """Phase 20: widths above 128. Returns the kernels line's rows of the nine
+    *_d256 builds (#1, the tall and wide #3, the narrow and wide #5, and the
+    tall and wide #4 in f32 and bf16)."""
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
 
     t0 = time.time()
     worst, worst16 = phase20_holds(qm9_model, mp2018, failures)
+    worst.update(phase20_backward_holds(qm9_model, mp2018, failures))
     t1 = time.time()
     times = phase20_times(qm9_model, mp2018, card)
+    times.update(phase20_backward_times(qm9_model, mp2018, card))
     t2 = time.time()
     launched = phase20_paths(qm9_model, mp2018, failures, card)
+    launched.update(phase20_train(qm9_model, mp2018, failures, card))
     print(f"phase 20 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
           f"{time.time() - t2:.1f}", flush=True)
     rows = []
@@ -5481,6 +5709,16 @@ def phase20(qm9_model, mp2018, failures, card):
                      "source": f"scann_tpu_torch/csrc/{name}.cu", "replaces": replaces,
                      "launches": launched[name], "max_abs_err": worst[name],
                      "bf16_max_abs_err": worst16[name], "library_ms": None, **times[name]})
+    # #4's d256 builds: the f32 rows held by phase20_backward_holds, the bf16
+    # ones by phase20_holds (the max abs error of the recompute schedule and
+    # the bf16 stash against their bf16 plain versions)
+    for name in ("scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
+                 "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16"):
+        err = worst16[name] if name.endswith("_bf16") else worst[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"scann_tpu_torch/csrc/{name}.cu",
+                     "replaces": kloop.BACKWARD_REPLACES, "launches": launched[name],
+                     "max_abs_err": err, "library_ms": None, **times[name]})
     return rows
 
 
@@ -5814,7 +6052,7 @@ def main():
     torch.cuda.empty_cache()
     shape16_rows = phase19(mp2018, ptgp, tall_data, shape16, layer16, failures, card)
     lap("19")
-    # ---- phase 20: widths above 128 in #1, #3 and #5 (the *_d256 builds) ----------------
+    # ---- phase 20: widths above 128 in #1, #3, #4 and #5 (the *_d256 builds) -----------
     torch.cuda.empty_cache()
     width_rows = phase20(qm9_model, mp2018, failures, card)
     lap("20")

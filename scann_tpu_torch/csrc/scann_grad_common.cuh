@@ -216,19 +216,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// LayerNorm statistics of one row held by a warp as in warp_layer_norm:
-// the same two-pass mean and rsqrt(var + 1e-6), so a recomputed row
-// normalises to the same bits.
-__device__ __forceinline__ void warp_ln_stats(const float (&v)[4], int D, int lane,
+// LayerNorm statistics of one row held by a warp as in warp_layer_norm
+// (V values a lane: 4 in the builds of widths up to 128, kLaneValues = 8 in
+// those past it): the same two-pass mean and rsqrt(var + 1e-6), so a
+// recomputed row normalises to the same bits.
+template <int V>
+__device__ __forceinline__ void warp_ln_stats(const float (&v)[V], int D, int lane,
                                               float& mean, float& inv) {
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < V; ++i)
     if (lane + 32 * i < D) s += v[i];
   mean = warp_sum(s) / (float)D;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < V; ++i)
     if (lane + 32 * i < D) {
       const float t = v[i] - mean;
       q += t * t;
@@ -236,14 +238,15 @@ __device__ __forceinline__ void warp_ln_stats(const float (&v)[4], int D, int la
   inv = rsqrtf(warp_sum(q) / (float)D + 1e-6f);
 }
 
-// LayerNorm backward of one row: dx = inv (dxhat - mean(dxhat) - xhat
-// mean(dxhat xhat)), dxhat = dy gamma.
-__device__ __forceinline__ void warp_ln_backward(const float (&xhat)[4], float inv,
-                                                 const float (&dy)[4], const float* gamma,
-                                                 int D, int lane, float (&dx)[4]) {
-  float dxh[4], s1 = 0.f, s2 = 0.f;
+// LayerNorm backward of one row (V values a lane, as warp_ln_stats): dx =
+// inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat)), dxhat = dy gamma.
+template <int V>
+__device__ __forceinline__ void warp_ln_backward(const float (&xhat)[V], float inv,
+                                                 const float (&dy)[V], const float* gamma,
+                                                 int D, int lane, float (&dx)[V]) {
+  float dxh[V], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < V; ++i) {
     const int d = lane + 32 * i;
     dxh[i] = d < D ? dy[i] * gamma[d] : 0.f;
     s1 += dxh[i];
@@ -251,7 +254,7 @@ __device__ __forceinline__ void warp_ln_backward(const float (&xhat)[4], float i
   }
   const float m1 = warp_sum(s1) / (float)D, m2 = warp_sum(s2) / (float)D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dx[i] = inv * (dxh[i] - m1 - xhat[i] * m2);
+  for (int i = 0; i < V; ++i) dx[i] = inv * (dxh[i] - m1 - xhat[i] * m2);
 }
 
 // out[p] = sum_b rows[b * P + p], b in order: the batch's gradients, the

@@ -152,6 +152,19 @@
 //   the 16-atom blocks' per-atom work (2-4%, twice the 32-atom blocks') are
 //   what the global homes cost. The context's key loads, eight in flight a
 //   thread, measured no faster than the plain loop, which stays.
+// - Widths past 128 (D, G, O up to 256; the *_d256 builds,
+//   scann_loop_backward_tall_d256.cu, _wide_d256.cu and their _bf16 twins,
+//   all three schedules): the tall and wide builds with SCANN_WIDTH_256, so
+//   a warp's LayerNorm rows hold kLaneValues = 8 values a lane
+//   (scann_common.cuh; warp_ln_stats and warp_ln_backward of
+//   scann_grad_common.cuh take either), and the launcher takes widths up to
+//   kMaxWidth. The narrow build, whose resident [M, max(D, G)] buffer
+//   leaves no room at these widths, is not built for them: every N <= 32
+//   takes the tall build, in chunks of 32 rows with atom blocks of 8 at D =
+//   256 (the wrapper's plan, the first of 64, 32, 16 rows that fits), and
+//   every N > 32 the wide one in sub-chunks of kWideChunkRows = 32 rows
+//   with atom blocks of 4. The arithmetic and its order are the builds' of
+//   widths up to 128; those compile the same text (kLaneValues 4).
 // - No sequential grid, no atomics: each block writes its share of the
 //   gradients into its own row of a [B * C, P] scratch, added to from the
 //   second atom block (or chunk) on by the same thread, and scann_reduce_rows
@@ -210,14 +223,17 @@ constexpr bool kTall = false;
 
 // The tall build's chunk of (atom, neighbour) rows: up to 64 (two atoms at
 // N = 32, four at N = 16, eight at N = 8), in the shared memory the resident
-// buffer left.
+// buffer left. Past 128 columns (the *_d256 builds) the wrapper's plan takes
+// the first of 64, 32 and 16 rows that fits: 32 at D = 256.
 constexpr int kTallChunkRows = 64;
 
 // The wide build's sub-chunk of one atom's (atom, neighbour) rows: 64, in the
 // shared memory the resident buffer left (that buffer's roles take the tall
 // build's global homes in the wide build too); at N <= 64 one sub-chunk holds
-// the atom's whole list.
-constexpr int kWideChunkRows = 64;
+// the atom's whole list. Past 128 columns (the *_d256 builds) 32: 64 rows
+// of [2D + 4] and three [D + 4] buffers do not fit a block at D = 256, so
+// every wide N there takes more than one sub-chunk.
+constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;
 
 // The gather's transpose into the tall build's global d(layer input)
 // partial [M, ldd] for one thread: column d of the targets with index % np ==
@@ -789,16 +805,16 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       const float* gb = a.lng_b + (size_t)l * D;
       float* g_out = write_g ? g_st + ((size_t)(l + 1) * R + base) * D : nullptr;
       for (int r = warp; r < rows; r += kWarps) {
-        float v[4];
+        float v[kLaneValues];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
         }
         float mean, inv;
         warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             const float g = (v[i] - mean) * inv * gs[d] + gb[d];
@@ -1092,16 +1108,16 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       // itself), then o1 = LN(ctx + query)
       for (int m = warp; m < ab; m += kWarps) {
         float* row = sQ + m * wd;
-        float v[4];
+        float v[kLaneValues];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[i] = d < D ? row[d] : 0.f;
           if (d < D && sb != 2) o_st[((size_t)l * M + ab0 + m) * D + d] = v[i];
         }
         warp_layer_norm(v, D, ls, lb, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             row[d] = v[i];
@@ -1123,15 +1139,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       });
       __syncthreads();
       for (int m = warp; m < ab; m += kWarps) {
-        float v[4];
+        float v[kLaneValues];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[i] = d < D ? sQ[m * wd + d] + sH2[m * wd + d] : 0.f;
         }
         warp_layer_norm(v, D, rs, rb, lane);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kLaneValues; ++i)
           if (lane + 32 * i < D) c_next[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
       }
       __syncthreads();
@@ -1433,12 +1449,12 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       // recompute o1 and the ResidualNorm
       for (int m = warp; m < ab; m += kWarps) {
-        float v[4], mean, inv;
+        float v[kLaneValues], mean, inv;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = lane + 32 * i < D ? P0[m * wd + lane + 32 * i] : 0.f;
+        for (int i = 0; i < kLaneValues; ++i) v[i] = lane + 32 * i < D ? P0[m * wd + lane + 32 * i] : 0.f;
         warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             const float xh = (v[i] - mean) * inv;
@@ -1465,19 +1481,19 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       // ResidualNorm's LayerNorm backward: P5 = d sum, P4 = d h2 = d sum * mask
       for (int m = warp; m < ab; m += kWarps) {
-        float v[4], dy[4], xh[4], dx[4], mean, inv;
+        float v[kLaneValues], dy[kLaneValues], xh[kLaneValues], dx[kLaneValues], mean, inv;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           v[i] = d < D ? P4[m * wd + d] : 0.f;
           dy[i] = d < D ? dcen[(size_t)(ab0 + m) * D + d] : 0.f;
         }
         warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xh[i] = lane + 32 * i < D ? (v[i] - mean) * inv : 0.f;
+        for (int i = 0; i < kLaneValues; ++i) xh[i] = lane + 32 * i < D ? (v[i] - mean) * inv : 0.f;
         warp_ln_backward(xh, inv, dy, rls, D, lane, dx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             P5[m * wd + d] = dx[i];
@@ -1507,16 +1523,16 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
       __syncthreads();
       // attention LayerNorm backward: d ctx = d query = LN'(d o1) -> sDQ
       for (int m = warp; m < ab; m += kWarps) {
-        float dy[4], xh[4], dx[4];
+        float dy[kLaneValues], xh[kLaneValues], dx[kLaneValues];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           xh[i] = d < D ? P0[m * wd + d] : 0.f;
           dy[i] = d < D ? P5[m * wd + d] : 0.f;
         }
         warp_ln_backward(xh, oinv[m], dy, lns, D, lane, dx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kLaneValues; ++i) {
           const int d = lane + 32 * i;
           if (d < D) {
             sDQ[m * wd + d] = dx[i];
@@ -1634,15 +1650,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
             const float* gs = a.lng_s + (size_t)l * D;
             const float* gb = a.lng_b + (size_t)l * D;
             for (int r = warp; r < rows; r += kWarps) {
-              float v[4], xh[4], dy[4], dx[4], mean, inv;
+              float v[kLaneValues], xh[kLaneValues], dy[kLaneValues], dx[kLaneValues], mean, inv;
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
+              for (int i = 0; i < kLaneValues; ++i) {
                 const int d = lane + 32 * i;
                 v[i] = d < D ? swishf(sU[r * ldu + d]) + sA[r * lda + d] : 0.f;
               }
               warp_ln_stats(v, D, lane, mean, inv);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
+              for (int i = 0; i < kLaneValues; ++i) {
                 const int d = lane + 32 * i;
                 xh[i] = d < D ? (v[i] - mean) * inv : 0.f;
                 dy[i] = 0.f;
@@ -1655,7 +1671,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
               }
               warp_ln_backward(xh, inv, dy, gs, D, lane, dx);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
+              for (int i = 0; i < kLaneValues; ++i) {
                 const int d = lane + 32 * i;
                 if (d < D) {
                   sW[r * ldu + d] = dx[i];                                  // d r (residual into geo)
@@ -1914,8 +1930,8 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
       a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       a.cluster < 1 || a.cluster > kMaxCluster ||
-      a.D > 128 || a.G > 128 || a.O > 128 || (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) ||
-      a.D % a.H || a.K > a.D || a.P <= 0)
+      a.D > kMaxWidth || a.G > kMaxWidth || a.O > kMaxWidth ||
+      (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D || a.P <= 0)
     return kErrShape;
   const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
@@ -1960,12 +1976,14 @@ int max_clusters(const int* dims, int cluster) {
 
 }  // namespace
 
-// Six builds of this file, each its own library (so that nvcc compiles them
+// Ten builds of this file, each its own library (so that nvcc compiles them
 // in parallel) with its own entry points: the f32 narrow one (no define), the
 // bf16 one (scann_loop_backward_bf16.cu: SCANN_LOOP_BACKWARD_BF16), the wide
 // ones (scann_loop_backward_wide.cu, _wide_bf16.cu: SCANN_LOOP_BACKWARD_WIDE)
 // and the tall ones (scann_loop_backward_tall.cu, _tall_bf16.cu:
-// SCANN_LOOP_BACKWARD_TALL), each with <name>_launch, <name>_error_string and
+// SCANN_LOOP_BACKWARD_TALL), and the wide and tall ones of widths up to 256
+// (scann_loop_backward_{wide,tall}_d256.cu and their _bf16 twins:
+// SCANN_WIDTH_256 as well), each with <name>_launch, <name>_error_string and
 // <name>_max_clusters, the launcher taking the f32 narrow build's arguments.
 #if defined(SCANN_LOOP_BACKWARD_BF16)
 constexpr bool kBf16Build = true;
@@ -1977,7 +1995,17 @@ constexpr bool kWideBuild = true;
 #else
 constexpr bool kWideBuild = false;
 #endif
-#if defined(SCANN_LOOP_BACKWARD_WIDE) && defined(SCANN_LOOP_BACKWARD_BF16)
+#if defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_WIDE) && \
+    defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_d256_bf16_##x
+#elif defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_WIDE)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_d256_##x
+#elif defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_TALL) && \
+    defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_d256_bf16_##x
+#elif defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_TALL)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_d256_##x
+#elif defined(SCANN_LOOP_BACKWARD_WIDE) && defined(SCANN_LOOP_BACKWARD_BF16)
 #define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_bf16_##x
 #elif defined(SCANN_LOOP_BACKWARD_WIDE)
 #define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_##x

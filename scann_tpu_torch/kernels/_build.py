@@ -23,8 +23,9 @@ the library (``<lib>.so.log``) and in ``build_logs``, and
 ``kernel_resources`` reads it. ``build_all`` starts one nvcc per source,
 all at once. ``SOURCES`` are the ports of the TPU kernels, ``WIDE_SOURCES``
 and ``TALL_SOURCES`` their wide and tall builds, ``BF16_SHAPE_SOURCES`` the
-wide and tall builds of #4 in the bf16 operand mode (built when a shape
-needs one; ``SHAPE_SOURCES`` all of these), ``PROBES`` the rate
+wide and tall builds of #4 in the bf16 operand mode, ``WIDTH_SOURCES`` the
+builds of widths past 128 (built when a shape or a width needs one;
+``SHAPE_SOURCES`` all of these), ``PROBES`` the rate
 probes of ``utils/roofline.py``. Nothing here is built at module
 import time, and nothing falls back: a failed build raises, and a library
 that fails to load is removed and rebuilt once, then raises.
@@ -91,13 +92,16 @@ TALL_SOURCES = ("scann_loop_tall", "scann_loop_backward_tall")
 # modes in one library, as its narrow build does), built at the first bf16
 # wide or tall launch.
 BF16_SHAPE_SOURCES = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall_bf16")
-# The forwards' builds of widths past 128 (D, G, O up to 256: 8 values of a
-# row a lane in the warp LayerNorms), one source each for #1, the tall and
-# wide #3 and the narrow and wide #5, each holding both operand modes: the
-# same sources with SCANN_WIDTH_256 defined, built at the first launch of a
-# wider model, so the builds of widths up to 128 are the ones they were.
+# The builds of widths past 128 (D, G, O up to 256: 8 values of a row a lane
+# in the warp LayerNorms): one source each for #1, the tall and wide #3 and
+# the narrow and wide #5, each holding both operand modes, and for the tall
+# and wide #4, one a mode as its other builds; the same sources with
+# SCANN_WIDTH_256 defined, built at the first launch (or training launch) of
+# a wider model, so the builds of widths up to 128 are the ones they were.
 WIDTH_SOURCES = ("scann_forward_d256", "scann_loop_tall_d256", "scann_loop_wide_d256",
-                 "local_attention_d256", "local_attention_wide_d256")
+                 "local_attention_d256", "local_attention_wide_d256",
+                 "scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
+                 "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16")
 # Every build made for some shapes only.
 SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES + WIDTH_SOURCES
 # Sources of the port that are not ports of a TPU kernel: the rate probes of

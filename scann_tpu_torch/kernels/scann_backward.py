@@ -109,10 +109,10 @@ from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, sca
 REPLACES = "scann_tpu/kernels/scann_backward.py:77"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/scann_backward.cu"
 MAX_CHUNK_ROWS = 32
-# The backward kernels #2 and #4 hold 4 values of a row a lane in their warp
-# LayerNorms: D, G, O up to 128. A wider model trains on the per-layer route
-# (``Trainer.train_route``); the forwards take widths up to
-# ``kfwd.MAX_WIDTH``.
+# This kernel (#2) holds 4 values of a row a lane in its warp LayerNorms and
+# seven resident [M, max(D, G)] buffers: D, G, O up to 128. A wider model
+# trains on the loop backward (#4), whose tall and wide builds take widths
+# up to ``kfwd.MAX_WIDTH`` (``Trainer.train_route``), as the forwards do.
 MAX_WIDTH = NARROW_WIDTH
 N_WARPS = 8
 # The device memory one backward launch may give its activation stash (this
@@ -237,7 +237,11 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     if reason:
         return reason
     D, G, O, E = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.embedding_dim
-    if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 or x > MAX_WIDTH for x in (D, G, O))
+    if any(x > MAX_WIDTH for x in (D, G, O)):
+        return (f"D={D}, G={G}, O={O}: the molecule backward takes D, G, O <= {MAX_WIDTH}; "
+                "a wider model trains through the backward of the crystal loop kernel "
+                "(kernels.scann_loop.loop_scann_train_grads, its *_d256 builds)")
+    if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
         return (f"sizes outside the backward kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
                 f"D={D}, G={G}, O={O} (multiples of 4, <= {MAX_WIDTH}), E={E} "
@@ -724,10 +728,11 @@ def count_launch(launcher, cfm: ModelConfig, mode: Optional[str]) -> None:
 
 
 def reset_counts(launcher) -> None:
-    """Set a backward launcher's counts to 0 (``.wide_launches`` and
-    ``.tall_launches``: the loop backward's wide and tall builds)."""
+    """Set a backward launcher's counts to 0 (``.wide_launches``,
+    ``.tall_launches`` and ``.d256_launches``: the loop backward's wide and
+    tall builds, and those of widths past 128)."""
     for name in ("launches", "bf16_launches", "stash_launches", "bf16_stash_launches",
-                 "wide_launches", "tall_launches"):
+                 "wide_launches", "tall_launches", "d256_launches"):
         setattr(launcher, name, 0)
 
 

@@ -553,8 +553,8 @@ def common_refusal(cfm: ModelConfig, N: int, max_n: int = MAX_CHUNK_ROWS,
     bfloat16 (the bf16 operand mode) and sizes outside the tiles of
     ``csrc/scann_common.cuh``, with N up to ``max_n`` (#1: one chunk of
     rows; the loop kernels #3 and #4: ``MAX_NEIGHBORS``) and D, G, O up to
-    ``max_width`` (the forwards: ``MAX_WIDTH``; the backward kernels #2 and
-    #4 keep ``kernels.scann_backward.MAX_WIDTH``)."""
+    ``max_width`` (the forwards and the loop backward #4: ``MAX_WIDTH``; the
+    molecule backward #2 keeps ``kernels.scann_backward.MAX_WIDTH``)."""
     if cfm.dtype not in ("float32", "bfloat16"):
         return (f"model.dtype={cfm.dtype!r}: the kernels take float32 and bfloat16 (the "
                 "bf16 operand mode)")

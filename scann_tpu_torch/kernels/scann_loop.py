@@ -40,8 +40,8 @@ Forward:
   launched there (``is_tall`` holds at every narrow N); the tall build's
   chunks fall to 32 rows where 64 do not fit (``l2_memory_plan``), and it
   takes N <= ``D256_TALL_MAX_N`` = 32, the wide build the rest
-  (``is_wide_forward``). The backward keeps D, G, O <= 128
-  (``kbwd.MAX_WIDTH``).
+  (``is_wide_forward``). The loop backward trains such a model too, in its
+  tall and wide builds of widths up to 256 (below).
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
   modes) keeps the centers in global memory, which L2 holds: a ping-pong [2,
@@ -147,6 +147,18 @@ Backward (crystal training):
   sub-chunk holds an atom's list (N <= 64) it keeps the first pass's rows,
   past it the recompute schedule's second pass stages them back from
   ``wide_rows``, so the reverse walk forms each row once.
+- Widths past 128 (``kfwd.is_d256``): the tall and wide builds of widths up
+  to 256 (``csrc/scann_loop_backward_tall_d256.cu``,
+  ``scann_loop_backward_wide_d256.cu`` and their ``_bf16`` twins: 8 values
+  of a row a lane in the warp LayerNorms; ``backward_library`` names them,
+  ``.d256_launches`` counts them), in all three schedules. The narrow build
+  is not launched there (``is_tall_backward`` holds at every N <= 32): the
+  tall build takes the first of ``kfwd.CHUNK_ROWS`` = 64, 32, 16 rows a
+  chunk that fits (32 rows with atom blocks of 8 at D = 256), the wide one
+  sub-chunks of ``D256_WIDE_CHUNK_ROWS`` = 32 rows (atom blocks of 4 at D =
+  256). So a D = 256 model trains on #4 at QM9 (32, 16), which #2 refuses
+  past 128 columns (``kbwd.MAX_WIDTH``), and at MP2018 (96, 32) and (48,
+  96).
 - A cluster of C thread blocks works on each structure, each block on its
   share of the atoms (``cluster_size``: C is a function of the batch size
   alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
@@ -228,8 +240,10 @@ WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
 # resident buffer left; the narrow build keeps kbwd.MAX_CHUNK_ROWS
 TALL_CHUNK_ROWS = 64
 # the wide loop backward's sub-chunk of one atom's rows (kWideChunkRows), in the
-# shared memory the resident buffer left there too
+# shared memory the resident buffer left there too; past 128 columns 32 (the
+# *_d256 builds: 64 rows do not fit a block at D = 256)
 WIDE_CHUNK_ROWS = 64
+D256_WIDE_CHUNK_ROWS = 32
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -395,13 +409,16 @@ def backward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = 
     """The loop backward's build that takes (config, M, N, S), the name of
     its library and its entry points: the wide one where
     ``is_wide_backward``, the tall one where ``is_tall_backward`` or
-    ``tall`` forces it, else the narrow one; each in the config's operand
-    mode (``kbwd.kernel_name``: ``<build>_bf16`` in bf16, a source of its
-    own). The one place that chooses."""
+    ``tall`` forces it, else the narrow one; past 128 columns
+    (``kfwd.is_d256``) the wide or tall one of widths up to 256
+    (``*_d256``); each in the config's operand mode (``kbwd.kernel_name``:
+    ``<build>_bf16`` in bf16, a source of its own). The one place that
+    chooses."""
+    d256 = "_d256" if kfwd.is_d256(cfm) else ""
     if is_wide_backward(N):
-        return kbwd.kernel_name("scann_loop_backward_wide", cfm)
+        return kbwd.kernel_name("scann_loop_backward_wide" + d256, cfm)
     if tall or is_tall_backward(cfm, M, N, S):
-        return kbwd.kernel_name("scann_loop_backward_tall", cfm)
+        return kbwd.kernel_name("scann_loop_backward_tall" + d256, cfm)
     return kbwd.kernel_name("scann_loop_backward", cfm)
 
 
@@ -722,44 +739,55 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     one's plan if none does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``)
     walks one atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows,
     beside the atom's attention and d attention [N, H], without the
-    resident buffer. ``backward_plan`` is the plan of the build a launch
-    takes."""
+    resident buffer. Past 128 columns (``kfwd.is_d256``) the tall chunk is
+    the first of ``kfwd.CHUNK_ROWS`` rows whose plan fits at some block
+    (where none does, the first's plan at the smallest block), and the wide
+    sub-chunk ``D256_WIDE_CHUNK_ROWS`` rows. ``backward_plan`` is the plan
+    of the build a launch takes."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
     wide = is_wide_backward(N)
-    cap = TALL_CHUNK_ROWS if tall and not wide else kbwd.MAX_CHUNK_ROWS
-    for block in WIDE_BACKWARD_ATOM_BLOCKS if wide else ATOM_BLOCKS:
-        block = min(block, M)
-        chunk_atoms = max(1, min(block, cap // max(N, 1)))
-        if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
-            rows = WIDE_CHUNK_ROWS
-            chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H)
-                     + wd)
-        else:
-            chunk = kbwd.chunk_floats(chunk_atoms * N, D, H)
-        work = max(chunk,
-                   5 * block * wd + r4(block),
-                   block * (2 * lde + ldf) + block * wd,
-                   block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
-        if S:
-            work = max(work, block * wd + seg_backward_floats(S, wd, M, O))
-        floats = ((0 if tall or wide else M * wd) + 5 * block * wd + work + kbwd.N_WARPS * 2 * wd
-                  + 2 * wd)
-        if 4 * floats <= MAX_SHARED_BYTES:
-            break
-    return chunk_atoms, block, 4 * floats
+    d256 = kfwd.is_d256(cfm)
+    if wide or not tall:
+        caps = (kbwd.MAX_CHUNK_ROWS,)
+    else:
+        caps = kfwd.CHUNK_ROWS if d256 else (TALL_CHUNK_ROWS,)
+    first = None
+    for cap in caps:
+        for block in WIDE_BACKWARD_ATOM_BLOCKS if wide else ATOM_BLOCKS:
+            block = min(block, M)
+            chunk_atoms = max(1, min(block, cap // max(N, 1)))
+            if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
+                rows = D256_WIDE_CHUNK_ROWS if d256 else WIDE_CHUNK_ROWS
+                chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H)
+                         + r4(rows * H) + wd)
+            else:
+                chunk = kbwd.chunk_floats(chunk_atoms * N, D, H)
+            work = max(chunk,
+                       5 * block * wd + r4(block),
+                       block * (2 * lde + ldf) + block * wd,
+                       block * wd + 4 * wd + 5 * r4(M) + 3 * r4(O) + 4)   # the readout
+            if S:
+                work = max(work, block * wd + seg_backward_floats(S, wd, M, O))
+            floats = ((0 if tall or wide else M * wd) + 5 * block * wd + work
+                      + kbwd.N_WARPS * 2 * wd + 2 * wd)
+            if 4 * floats <= MAX_SHARED_BYTES:
+                return chunk_atoms, block, 4 * floats
+        first = first or (chunk_atoms, block, 4 * floats)
+    return first
 
 
 def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     """Whether the loop backward takes (config, M, N, S) in its tall build
     (``csrc/scann_loop_backward_tall.cu``): a narrow N (not
     ``is_wide_backward``) whose narrow plan does not fit a block's shared
-    memory."""
-    return (not is_wide_backward(N)
-            and loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
+    memory; past 128 columns every narrow N (the narrow build has no build
+    of widths past 128: ``scann_loop_backward_tall_d256.cu`` takes them)."""
+    return not is_wide_backward(N) and (
+        kfwd.is_d256(cfm) or loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
 
 
 def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -802,7 +830,7 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
     if M < 1:
         return f"M={M}: no atoms"
     reason = (kbwd.dtype_refusal(cfm)
-              or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS, kbwd.MAX_WIDTH)
+              or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
               or segment_refusal(S))
     if reason:
         return reason
@@ -1088,6 +1116,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     kbwd.count_launch(launch_loop_backward, cfm, mode)
     launch_loop_backward.wide_launches += wide
     launch_loop_backward.tall_launches += tall
+    launch_loop_backward.d256_launches += kfwd.is_d256(cfm)
     return flat, pred
 
 

@@ -16,9 +16,13 @@ MAE, best-val checkpoints, a test report.
   anything is launched (``Trainer.train_route``, the mirror of
   ``eval_route`` and of ``loop.py:384-430``): "fused", ONE launch of the
   molecule backward kernel (forward recompute, residual and every gradient)
-  plus its row reduction where its gate passes (M <= 32 at D = 128); else
-  "loop", ONE launch of the crystal loop backward kernel where its gate
-  passes (M <= 226 at N = 32, D = 128); else "per_layer", the plain model
+  plus its row reduction where its gate passes (M <= 32 at D = 128; widths
+  up to 128); else "loop", ONE launch of the crystal loop backward kernel
+  where its gate passes (the narrow build M <= 226 at N = 32, D = 128; the
+  tall and wide builds M into the thousands, widths up to 256 in their
+  ``*_d256`` builds, so a D = 256 model trains QM9 (32, 16) here); else
+  "per_layer" (what no gate takes: no attention LayerNorm, a plan that does
+  not fit, widths past 256), the plain model
   under ``torch.autograd``, as the JAX Trainer trains its ``self.model``
   (``loop.py:108-116``); the LocalAttention kernel is for eval, serving and
   prediction. All run at dropout 0.1 on the

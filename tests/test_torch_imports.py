@@ -94,7 +94,9 @@ def test_torch_port_kernel_sources_stand_alone():
         "local_attention_wide", "scann_loop_wide", "scann_loop_backward_wide",
         "scann_loop_tall", "scann_loop_backward_tall", "scann_loop_backward_wide_bf16",
         "scann_loop_backward_tall_bf16", "scann_forward_d256", "scann_loop_tall_d256",
-        "scann_loop_wide_d256", "local_attention_d256", "local_attention_wide_d256"}
+        "scann_loop_wide_d256", "local_attention_d256", "local_attention_wide_d256",
+        "scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
+        "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16"}
     for name in _build.SOURCES + _build.SHAPE_SOURCES:
         files = _build.source_files(name)
         assert files[0].endswith(f"{name}.cu")

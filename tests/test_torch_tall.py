@@ -439,7 +439,7 @@ def test_torch_tall_sources():
     bwd = src["scann_loop_backward"]
     assert "constexpr int kMaxChunkRows = 32;" in bwd
     assert "constexpr int kTallChunkRows = 64;" in bwd
-    assert "constexpr int kWideChunkRows = 64;" in bwd
+    assert "constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;" in bwd
     assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
     assert "a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)" in bwd
     assert "(a.N > kMaxChunkRows) != kWide" in bwd

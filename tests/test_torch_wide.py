@@ -701,7 +701,7 @@ def test_torch_wide_plans_match_cuda_sources():
     with open(f"{_build.SRC_DIR}/scann_loop_backward.cu") as f:
         bwd = f.read()
     assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
-    assert "constexpr int kWideChunkRows = 64;" in bwd
+    assert "constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;" in bwd
     assert "p.offBlk = kTall || kWide ? 0 : a.M * p.wd;" in bwd
     assert ("const int chunk = kWide ? p.rows * p.lda + 3 * p.rows * p.ldu + "
             "2 * round4(a.N * a.H) +\n                                round4(p.rows * a.H) + p.wd"

@@ -23,8 +23,9 @@ PyTorch port, against the JAX package on the CPU.
   batch.
 - Gates, plans and routes at D = G = O = 256: the kernel routes of the
   QM9 and MP2018 recipe buckets and of tall and wide crystals, a #5 plan at
-  every N of the per-layer route, training on the per-layer route (the
-  backward kernels keep their limit of 128), D = 260 refused, the builds a
+  every N of the per-layer route, training on the loop backward (#2 keeps
+  its limit of 128; ``tests/test_torch_widths_train.py`` holds #4's d256
+  builds), D = 260 refused, the builds a
   launch takes (a stub in place of the CUDA library) and the plan terms
   read from the CUDA sources.
 """
@@ -295,10 +296,11 @@ def test_torch_widths_eval_routes_take_a_kernel(cfm, M, N, route, library):
     """At D = G = O = 256 the recipe buckets and the tall and wide crystals
     evaluate on a whole-model kernel, each in its *_d256 build, which the
     Trainer builds before a fit or a served ladder (``shape_libraries``);
-    training stays on the per-layer route."""
+    they train on the loop backward's d256 builds
+    (``tests/test_torch_widths_train.py``)."""
     trainer = _trainer(cfm)
     assert trainer.eval_route(M, N) == route
-    assert trainer.train_route(M, N) == "per_layer"
+    assert trainer.train_route(M, N) == "loop"
     assert trainer.shape_libraries([(M, N, 0)]) == (library,)
     assert library in _build.WIDTH_SOURCES and library in _build.SHAPE_SOURCES
     if route == "loop":
@@ -334,13 +336,23 @@ def test_torch_widths_per_layer_route_has_a_plan(N, bf16):
 
 
 def test_torch_widths_backward_gates_keep_128():
-    """The backward kernels #2 and #4 keep their limit of 128 columns (they
-    hold 4 values of a row a lane): their gates name the width, and the
-    Trainer trains such a model on the per-layer route."""
+    """The molecule backward #2 keeps its limit of 128 columns (4 values of
+    a row a lane and seven resident [M, max(D, G)] buffers): its gate names
+    the width and the loop backward; the loop backward #4 takes widths up to
+    256 in its d256 builds, so a D = 256 QM9 model trains its recipe bucket
+    (32, 16) on "loop", and D = 260 is refused by both."""
     assert kbwd.MAX_WIDTH == 128 and kfwd.MAX_WIDTH == 256
-    for reason in (kbwd.refusal(QM9, 32, 16), kloop.backward_refusal(MP2018, 96, 32)):
-        assert reason is not None and "<= 128" in reason and "D=256" in reason
-    assert _trainer(QM9).train_route(32, 16) == "per_layer"
+    reason = kbwd.refusal(QM9, 32, 16)
+    assert reason is not None and "<= 128" in reason and "D=256" in reason
+    assert "loop_scann_train_grads" in reason
+    assert kloop.backward_refusal(MP2018, 96, 32) is None
+    assert kloop.backward_refusal(QM9, 32, 16) is None
+    assert _trainer(QM9).train_route(32, 16) == "loop"
+    narrow = dataclasses.replace(QM9, local_dim=128, global_dim=128, dense_out=128)
+    assert _trainer(narrow).train_route(32, 16) == "fused"
+    wide = dataclasses.replace(MP2018, local_dim=260)
+    reason = kloop.backward_refusal(wide, 96, 32)
+    assert reason is not None and "<= 256" in reason and "D=260" in reason
 
 
 def test_torch_widths_past_256_are_refused():
@@ -422,7 +434,11 @@ def test_torch_widths_plans_match_cuda_sources():
         assert _build.source_files(name)[1].endswith(base)
     assert set(_build.WIDTH_SOURCES) == {"scann_forward_d256", "scann_loop_tall_d256",
                                          "scann_loop_wide_d256", "local_attention_d256",
-                                         "local_attention_wide_d256"}
+                                         "local_attention_wide_d256",
+                                         "scann_loop_backward_tall_d256",
+                                         "scann_loop_backward_wide_d256",
+                                         "scann_loop_backward_tall_d256_bf16",
+                                         "scann_loop_backward_wide_d256_bf16"}
     la = _source("local_attention.cu")
     assert ("#ifdef SCANN_WIDTH_256\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};\n#else\n"
             "constexpr int kAtomBlocks[] = {64, 48, 32, 16};\n#endif") in la
