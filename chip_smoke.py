@@ -327,8 +327,9 @@ without printing a result when CUDA is not available.
 
 ``python3 chip_smoke.py --backward-ab ROOT [OUT]`` runs one turn of an A/B
 comparison of #2-#5 against another checkout ROOT instead (``backward_ab``;
-also the tall and wide #3 at B = 1, 16 and 64 and the wide #5 at (1, 48,
-96), (8, 96, 96) and (64, 96, 96), in f32 and bf16; with OUT it
+also the tall and wide #3 at B = 1, 16 and 64, the wide #5 at (1, 48,
+96), (8, 96, 96) and (64, 96, 96), in f32 and bf16, and #4's d256 builds
+at their timed shapes and (64, 80, 96) recompute; with OUT it
 saves the outputs of every build both checkouts have), and
 ``python3 chip_smoke.py --ab-compare A.pt B.pt`` holds two turns' outputs
 bit for bit (``ab_compare``; the tall and wide #4 within their gradient
@@ -5239,7 +5240,7 @@ def phase20_holds(qm9_model, mp2018, failures):
             for tag, cfm, xb, below, c3, c4 in (
                     (f"phase 20 D={D}", mp, x, None, (1, 2, 4), (1, 2, 4)),
                     (f"phase 20 D={D} L=1", dataclasses.replace(mp, n_attention=1), batch(16),
-                     0.5, (), (kloop.cluster_size(16),))):
+                     0.5, (), (kloop.backward_cluster(mp, 16, M, N),))):
                 w3, w4 = hold_bf16_shape(tag, cfm, xb, failures, below=below, clusters3=c3,
                                          grads=grads, jitters=JITTERS, clusters=c4,
                                          below_pred=0.9 if below else None)
@@ -5475,8 +5476,11 @@ def phase20_backward_holds(qm9_model, mp2018, failures):
     (136, 132, 140) and (256, 256, 256), dropout 0.1 with attention dropout:
     the tall build at QM9 (8, 32, 16), MP2018 (4, 96, 32) and a QM9 batch
     packed at capacity 48 (S = 8, empty segments), the wide build at MP2018
-    (3, 40, 48) and (2, 24, 80) (two and three sub-chunks of 32 rows), each
-    at C = 1, 2, 4 (the rule's C among them) in its three schedules
+    (3, 40, 48) and (2, 24, 80) (at D = 256 two and three sub-chunks of 32
+    rows; at D = 136 one sub-chunk of 64 and 64 + 16), and at D = 136 (2,
+    30, 64) and (2, 30, 65) (one sub-chunk of exactly 64 rows, and 64 + 1),
+    each at C = 1, 2, 4 and the rule's C (``backward_cluster``: 8 for these
+    few structures) in its three schedules
     (``hold_wide_backward``: the f32 stash against the plain gradients by
     name within 1e-4 x each one's max, recompute bit-equal to it, the bf16
     stash against its plain version, relaunches on NaN- and constant-filled
@@ -5501,6 +5505,9 @@ def phase20_backward_holds(qm9_model, mp2018, failures):
                  ("QM9 packed", qm9, pack_batch(synthetic_batch(rng, 24, 16, 16), 48)),
                  ("MP2018", mp, wide_batch(rng, 3, 40, 48, mp)),
                  ("MP2018", mp, wide_batch(rng, 2, 24, 80, mp)))
+        if D < 256:
+            cases += (("MP2018", mp, wide_batch(rng, 2, 30, 64, mp)),
+                      ("MP2018", mp, wide_batch(rng, 2, 30, 65, mp)))
         for name, cfm, x in cases:
             B, M = x["atom_mask"].shape[:2]
             N, S = x["neighbors"].shape[2], kfwd.segment_count(x)
@@ -5509,8 +5516,12 @@ def phase20_backward_holds(qm9_model, mp2018, failures):
                 raise AssertionError(f"phase 20: {name} {(B, M, N, S)} takes {build}")
             p = init_params(cfm, torch.Generator().manual_seed(23), "cuda")
             y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
-            err = hold_wide_backward(f"phase 20 #4 ({build}) D={D} G={G} O={O} {name}", cfm, p,
-                                     x, y, 0.1, 7, failures)
+            rule = kloop.backward_cluster(cfm, B, M, N, S)
+            sub = (f" sub-chunk {kloop.wide_sub_chunk(cfm, M, N, S)}"
+                   if kloop.is_wide_backward(N) else "")
+            err = hold_wide_backward(f"phase 20 #4 ({build}) D={D} G={G} O={O} {name}{sub}", cfm,
+                                     p, x, y, 0.1, 7, failures,
+                                     clusters=tuple(sorted({1, 2, 4, rule})))
             worst[build] = max(worst.get(build, 0.0), err)
             if name == "QM9":
                 ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
@@ -5522,21 +5533,97 @@ def phase20_backward_holds(qm9_model, mp2018, failures):
     return worst
 
 
-def phase20_backward_times(qm9_model, mp2018, card):
-    """#4's *_d256 builds at D = G = O = 256, each alone: the f32 stash and
-    the recompute schedule in turns with the plain version (plain, kernel,
-    kernel, plain; ``time_loop_schedules``, 2 plain and 5 kernel calls a
-    round) at QM9 (128, 32, 16) and MP2018 (64, 96, 32) (the tall build)
-    and MP2018 (16, 80, 96) (the wide one), against the bound of
-    ``loop_backward_flops``; the bf16 builds at MP2018 (64, 96, 32) and (16,
-    80, 96) in turns with their bf16 plain version and with the f32 build
-    (f32, bf16, bf16, f32). Returns {build: timing}."""
+def time_d256_turns(build, name, cfm, x, card, bf16=False):
+    """#4's d256 build at one batch shape (dropout 0.1, one-shot): the f32
+    stash, the recompute schedule and (``bf16``) the bf16 build with its
+    schedule, all in one set of turns with the plain f32 (and bf16)
+    versions: plain, kernels, kernels in the reverse order, plain (2 plain
+    and 5 kernel calls a round, one warm-up call each), against the bound
+    of ``loop_backward_flops``. Returns the f32 stash's row (with the
+    recompute schedule's times beside it) and the bf16 build's row (or
+    None)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_backward as kbwd
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
     from scann_tpu_torch.models.scann import init_params
+
+    params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(params, cfm)
+    B, M = x["atom_mask"].shape[:2]
+    N = x["neighbors"].shape[2]
+    y = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 1)).astype(np.float32)).cuda()
+    cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+    mode16 = kloop.loop_stash_mode(cfm16, B, M, N)
+    modes = {"f32": (cfm, "f32"), "recompute": (cfm, None)}
+    if bf16:
+        modes["bf16"] = (cfm16, mode16)
+    scratch = {k: kloop.loop_backward_scratch(packed, c, B, M, N, stash=m)
+               for k, (c, m) in modes.items()}
+    run = {k: (lambda k=k, c=c, m=m: kloop._launch_backward(packed, x, c, y, None, True, False,
+                                                            0.1, 7, 0, scratch[k], stash=m))
+           for k, (c, m) in modes.items()}
+    plain = {"f32": lambda: kloop.reference_loop_train_grads(params, x, y, cfm, False, 0.1, 7)}
+    if bf16:
+        plain["bf16"] = lambda: kloop.reference_loop_train_grads(params, x, y, cfm16, False, 0.1,
+                                                                 7)
+    for fn in list(plain.values()) + list(run.values()):
+        fn()
+    torch.cuda.synchronize()
+    kt, pt = {k: [] for k in run}, {k: [] for k in plain}
+    for k in plain:
+        pt[k] += cuda_times(plain[k], 2, warmup=0)
+    for k in list(run) + list(run)[::-1]:
+        kt[k] += cuda_times(run[k], 5, warmup=0)
+    for k in list(plain)[::-1]:
+        pt[k] += cuda_times(plain[k], 2, warmup=0)
+    del scratch
+    ms = {k: statistics.median(v) for k, v in kt.items()}
+    plain_ms = {k: statistics.median(v) for k, v in pt.items()}
+    flops = kloop.loop_backward_flops(cfm, B, M, N)
+    _, P = kbwd.grad_layout(packed)
+    nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+    bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
+    for k in ("f32", "recompute"):
+        print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention} "
+              f"({'the f32 stash' if k == 'f32' else 'the recompute schedule'}, C="
+              f"{kloop.backward_cluster(cfm, B, M, N)}; dropout 0.1, one-shot; timed in turns "
+              f"with the plain version): kernel {ms[k]:.4f} ms, plain {plain_ms['f32']:.4f} ms, "
+              f"{flops:.4e} FLOP, bound {bound:.4f} ms by {by} ({100 * bound / ms[k]:.1f}% of it "
+              f"reached)  [{card}]", flush=True)
+    row = {"ms": ms["f32"], "plain_ms": plain_ms["f32"], "bound_ms": bound, "bound_by": by,
+           "measured_bound_ms": measured, "flops": flops, "schedule": "f32",
+           "recompute_ms": ms["recompute"], "recompute_plain_ms": plain_ms["f32"],
+           "shape": [B, M, N]}
+    if not bf16:
+        return row, None
+    b16 = kloop.backward_library(cfm16, M, N)
+    bound16, by16, measured16 = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N),
+                                         bf16=True)
+    print(f"scann_loop_backward ({b16}) at {name} B={B} M={M} N={N} (the "
+          f"{mode16 or 'recompute'} schedule; dropout 0.1, one-shot): kernel {ms['bf16']:.4f} ms, "
+          f"plain {plain_ms['bf16']:.4f} ms (in turns), beside f32 {ms['bf16']:.4f} / "
+          f"{ms['f32']:.4f} ms (bf16 / f32 in turns), {flops:.4e} FLOP, bound {bound16:.4f} ms "
+          f"by {by16} ({100 * bound16 / ms['bf16']:.1f}% of it reached)  [{card}]", flush=True)
+    return row, {"ms": ms["bf16"], "plain_ms": plain_ms["bf16"], "bound_ms": bound16,
+                 "bound_by": by16, "measured_bound_ms": measured16, "flops": flops,
+                 "schedule": mode16 or "recompute", "shape": [B, M, N], "bf16_ms": ms["bf16"],
+                 "bf16_f32_ms": ms["f32"]}
+
+
+def phase20_backward_times(qm9_model, mp2018, card):
+    """#4's *_d256 builds at D = G = O = 256, each alone, at the launch's own
+    cluster size (``backward_cluster``): the f32 stash and the recompute
+    schedule in turns with the plain version (``time_d256_turns``) at QM9
+    (128, 32, 16) and MP2018 (64, 96, 32) (the tall build) and MP2018 (16,
+    80, 96) (the wide one), against the bound of ``loop_backward_flops``;
+    the bf16 builds at MP2018 (64, 96, 32) and (16, 80, 96) in the same
+    turns, beside their bf16 plain version and the f32 build. Returns
+    {build: timing}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_loop as kloop
 
     rng = np.random.default_rng(204)
     qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
@@ -5546,44 +5633,15 @@ def phase20_backward_times(qm9_model, mp2018, card):
             ("MP2018 D=256", mp, synthetic_batch(rng, 64, 96, 32, n_atoms=mp.n_atoms,
                                                  min_atoms=20)),
             ("MP2018 D=256", mp, wide_batch(rng, 16, 80, 96, mp))):
-        B, M = x["atom_mask"].shape[:2]
+        M = x["atom_mask"].shape[1]
         N = x["neighbors"].shape[2]
         build = kloop.backward_library(cfm, M, N)
-        t = time_loop_schedules(build, name, cfm, x, card, reps=(2, 5))
-        t["shape"] = [B, M, N]
+        t, t16 = time_d256_turns(build, name, cfm, x, card, bf16=name.startswith("MP2018"))
         if build in out:       # the MP2018 bucket's row, with the QM9 bucket's beside it
             t = dict(t, qm9=out[build])
         out[build] = t
-        if name.startswith("MP2018"):
-            cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
-            b16 = kloop.backward_library(cfm16, M, N)
-            params = init_params(cfm, torch.Generator().manual_seed(0), "cuda")
-            packed = kfwd.pack_params(params, cfm)
-            y = torch.from_numpy(np.random.default_rng(B).normal(size=(B, 1))
-                                 .astype(np.float32)).cuda()
-            mode = kloop.loop_stash_mode(cfm16, B, M, N)
-            scratch = kloop.loop_backward_scratch(packed, cfm16, B, M, N, stash=mode)
-            run16 = lambda c: kloop._launch_backward(packed, x, c, y, None, True, False, 0.1, 7,
-                                                     0, scratch, stash=mode)
-            ms, plain_ms = in_turns_ms(
-                lambda: kloop.reference_loop_train_grads(params, x, y, cfm16, False, 0.1, 7),
-                lambda: run16(cfm16), 2, 5)
-            ms16, f32_ms = in_turns_ms(lambda: run16(cfm), lambda: run16(cfm16), 5, 5)
-            del scratch
-            flops = kloop.loop_backward_flops(cfm, B, M, N)
-            _, P = kbwd.grad_layout(packed)
-            bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values())
-                                           + 4 * B + 4 * (P + B),
-                                           kbwd.backward_fp32_flops(cfm, B, M, N), bf16=True)
-            print(f"scann_loop_backward ({b16}) at {name} B={B} M={M} N={N} (the "
-                  f"{mode or 'recompute'} schedule; dropout 0.1, one-shot): kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (in turns), beside f32 {ms16:.4f} / {f32_ms:.4f} ms "
-                  f"(bf16 / f32 in turns), {flops:.4e} FLOP, bound {bound:.4f} ms by {by} "
-                  f"({100 * bound / ms:.1f}% of it reached)  [{card}]", flush=True)
-            out[b16] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                        "measured_bound_ms": measured, "flops": flops,
-                        "schedule": mode or "recompute", "shape": [B, M, N],
-                        "bf16_ms": ms16, "bf16_f32_ms": f32_ms}
+        if t16 is not None:
+            out[kloop.backward_library(dataclasses.replace(cfm, dtype="bfloat16"), M, N)] = t16
         del x
     return out
 
@@ -6137,6 +6195,52 @@ def main():
     return 0
 
 
+def d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_model, mp2018):
+    """``--backward-ab``'s times of #4's d256 builds (one-shot, dropout 0.1, 5
+    timed launches after 2), with the checkout's modules: label -> {ms, C,
+    bound_ms, bound_by}."""
+    import dataclasses
+
+    bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
+    qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
+    mp136 = widened(mp2018, 136, 132, 140)
+    own = getattr(kloop, "backward_cluster", None)
+    out = {}
+    for label, cfm, B, M, N, mode, C in (
+            ("tall MP2018 (64, 96, 32) f32 stash", mp, 64, 96, 32, "f32", None),
+            ("tall MP2018 (64, 96, 32) recompute", mp, 64, 96, 32, None, None),
+            ("tall QM9 (128, 32, 16) f32 stash", qm9, 128, 32, 16, "f32", None),
+            ("tall QM9 (128, 32, 16) recompute", qm9, 128, 32, 16, None, None),
+            ("wide MP2018 (16, 80, 96) f32 stash", mp, 16, 80, 96, "f32", None),
+            ("wide MP2018 (16, 80, 96) recompute", mp, 16, 80, 96, None, None),
+            ("wide MP2018 (16, 80, 96) f32 stash C=4", mp, 16, 80, 96, "f32", 4),
+            ("wide MP2018 (16, 80, 96) recompute C=4", mp, 16, 80, 96, None, 4),
+            ("wide MP2018 (64, 80, 96) recompute", mp, 64, 80, 96, None, None),
+            ("wide D=136 MP2018 (16, 80, 96) f32 stash C=4", mp136, 16, 80, 96, "f32", 4),
+            ("tall bf16 MP2018 (64, 96, 32) f32 stash", bf16(mp), 64, 96, 32, "f32", None),
+            ("wide bf16 MP2018 (16, 80, 96) f32 stash", bf16(mp), 16, 80, 96, "f32", None)):
+        rng = np.random.default_rng(241)
+        x = (synthetic_batch(rng, B, M, N, n_atoms=cfm.n_atoms, min_atoms=min(20, M))
+             if N <= 32 else wide_batch(rng, B, M, N, cfm))
+        f32 = dataclasses.replace(cfm, dtype="float32")
+        packed = kfwd.pack_params(init_params(f32, torch.Generator().manual_seed(0), "cuda"), f32)
+        y = torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda()
+        if C is None:
+            C = own(cfm, B, M, N) if own else kloop.cluster_size(B)
+        scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, C, mode)
+        ms = statistics.median(cuda_times(
+            lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                           scratch, C, stash=mode), 5, warmup=2))
+        _, P = kbwd.grad_layout(packed)
+        bound, by, _ = bound_ms(kloop.loop_backward_flops(cfm, B, M, N),
+                                tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B),
+                                kbwd.backward_fp32_flops(cfm, B, M, N),
+                                bf16=cfm.dtype == "bfloat16")
+        out[label] = {"ms": ms, "C": C, "bound_ms": bound, "bound_by": by}
+        del scratch, x
+    return out
+
+
 def backward_ab(root, out_path=None):
     """``--backward-ab ROOT [OUT]``: one turn of an A/B comparison of the
     narrow builds of #2, #3, #4 and #5 between two checkouts on one card.
@@ -6172,7 +6276,13 @@ def backward_ab(root, out_path=None):
     #5 on bfloat16 tensors at (64, 96, 32) and (8, 96, 96), and the ``ptxas
     -v`` lines of every build of the checkout (``_build.kernel_resources``,
     read from the logs beside its cached libraries: build them first).
-    Run the turns A, B, B, A, each a process of its own."""
+    Times #4's builds past 128 columns (``d256_ab_times``: the tall one at
+    MP2018 (64, 96, 32) and QM9 (128, 32, 16), the wide one at (16, 80, 96)
+    in both f32 schedules, the recipe bucket (64, 80, 96) in the recompute
+    schedule, the bf16 builds, at the checkout's own cluster size and the
+    wide one at C = 4 too, ``out["d256"]``) and with OUT saves their
+    gradients at a fixed C = 2 (``AB_WITHIN``). Run the turns A, B, B, A,
+    each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6293,6 +6403,15 @@ def backward_ab(root, out_path=None):
             lambda: kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
                                            scratch, C, stash=mode), 5, warmup=2))
         del scratch, x
+    # #4's builds past 128 columns at D = G = O = 256: the tall one at MP2018
+    # (64, 96, 32) and QM9 (128, 32, 16), the wide one at (16, 80, 96) (also
+    # at C = 4, the cluster size before the d256 rule) in the f32 stash and
+    # recompute, the MP2018 recipe bucket (64, 80, 96) in the recompute
+    # schedule its 13.7 GB stash leaves it, and the bf16 builds with the f32
+    # stash, and the wide one at (136, 132, 140) and C = 4 (its sub-chunk the
+    # plan's); each at the checkout's own cluster size unless named, beside
+    # its bound (``loop_backward_flops``)
+    out["d256"] = d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_config(), mp2018)
     # #3's tall and wide builds at B = 1, 16 and the recipe batch of 64, in f32
     # and bf16, at the checkout's own cluster size
     out["forward"] = {}
@@ -6363,6 +6482,33 @@ def backward_ab(root, out_path=None):
             packed = kfwd.pack_params(init_params(qm9_config(), torch.Generator().manual_seed(17),
                                                   "cuda"), qm9_config())
             saved["scann_forward_bf16"] = launcher("scann_forward_bf16", qm9_16, qm9_x, packed)[1]()
+        # #4's d256 builds at a fixed C = 2, f32 stash: the tall one at MP2018
+        # (4, 96, 32), the wide one at (4, 80, 96), D = 256 (f32 and bf16), and
+        # at (136, 132, 140), whose wide sub-chunk the plan may change
+        for name, D, G, O, N in (("scann_loop_backward_tall_d256", 256, 256, 256, 32),
+                                 ("scann_loop_backward_wide_d256", 256, 256, 256, 96),
+                                 ("scann_loop_backward_tall_d256_bf16", 256, 256, 256, 32),
+                                 ("scann_loop_backward_wide_d256_bf16", 256, 256, 256, 96),
+                                 ("scann_loop_backward_wide_d136", 136, 132, 140, 96)):
+            cfm = widened(mp2018, D, G, O)
+            x = (synthetic_batch(np.random.default_rng(242), 4, 96, 32, n_atoms=cfm.n_atoms,
+                                 min_atoms=20) if N <= 32
+                 else wide_batch(np.random.default_rng(242), 4, 80, N, cfm))
+            params = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
+            packed = kfwd.pack_params(params, cfm)
+            if name.endswith("_bf16"):
+                cfm = bf16(cfm)
+            B, M = x["atomic"].shape[:2]
+            y = torch.from_numpy(np.random.default_rng(243).normal(size=(B, 1))
+                                 .astype(np.float32)).cuda()
+            scratch = kloop.loop_backward_scratch(packed, cfm, B, M, N, 2, "f32")
+            flat, pred = kloop._launch_backward(packed, x, cfm, y, None, True, False, 0.1, 7, 0,
+                                                scratch, 2, stash="f32")
+            saved[name] = {"pred": pred.cpu(), **{k: v.cpu() for k, v in
+                                                  kbwd.grads_from_flat(flat, packed, cfm).items()}}
+            if name in AB_FLOOR:
+                saved[name]["floor"] = torch.tensor(bf16_grad_floor(params, x, y, cfm))
+            del scratch, x
         # ptxas -v of every build of this checkout: (kernel, registers, spill
         # stores, spill loads), from the logs beside its cached libraries
         from scann_tpu_torch.kernels import _build
@@ -6388,8 +6534,11 @@ def backward_ab(root, out_path=None):
 # mean distance within BF16_FLOOR x the f32-noise floor of its plain version
 # (AB_FLOOR, the floor saved beside its outputs)
 AB_PRED_EXACT = ("scann_loop_backward_wide", "scann_loop_backward_wide_bf16",
-                 "scann_loop_backward_wide_n48")
-AB_FLOOR = ("scann_loop_backward_wide_bf16",)
+                 "scann_loop_backward_wide_n48", "scann_loop_backward_tall_d256",
+                 "scann_loop_backward_wide_d256", "scann_loop_backward_tall_d256_bf16",
+                 "scann_loop_backward_wide_d256_bf16", "scann_loop_backward_wide_d136")
+AB_FLOOR = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall_d256_bf16",
+            "scann_loop_backward_wide_d256_bf16")
 AB_WITHIN = ("scann_loop_backward_tall", "scann_loop_backward_tall_bf16") + AB_PRED_EXACT
 # The tall and wide #3 against a build before their redesign: the wide
 # build's context sums each half of the neighbours, then adds the halves, so

@@ -61,7 +61,8 @@
 //   per (atom, head).
 // - A cluster of C blocks per structure (C = 1, 2 or 4, chosen by the wrapper
 //   from the batch size so that a batch of 64 fills 128 of the card's 132
-//   SMs). The blocks split the structure's atoms into C contiguous ranges.
+//   SMs; up to 8 in the *_d256 builds, below). The blocks split the
+//   structure's atoms into C contiguous ranges.
 //   What crosses blocks: the new centers of a layer go to the global stash,
 //   then a cluster barrier, then every block reloads all M rows; the readout's
 //   first pass (three small products on [M, D]) runs in every block; in the
@@ -162,9 +163,37 @@
 //   leaves no room at these widths, is not built for them: every N <= 32
 //   takes the tall build, in chunks of 32 rows with atom blocks of 8 at D =
 //   256 (the wrapper's plan, the first of 64, 32, 16 rows that fits), and
-//   every N > 32 the wide one in sub-chunks of kWideChunkRows = 32 rows
-//   with atom blocks of 4. The arithmetic and its order are the builds' of
-//   widths up to 128; those compile the same text (kLaneValues 4).
+//   every N > 32 the wide one, in sub-chunks of the larger of kWideChunkRows
+//   = 64 and 32 rows whose plan fits (build_plan: 64 at D = 136 with atom
+//   blocks of 8, 32 with atom blocks of 4 at D = 256, (80, 96)). A 64-row
+//   chunk cannot fit at D = 256: the reverse walk holds four [rows, D + 4]
+//   buffers at once (ns, u_pre, kin, d key at gWK), 266 KB for 64 rows.
+//   What bounds these builds (clock64() marks of block 0, NVIDIA H100 80GB
+//   HBM3 at 700 W, MP2018 (64, 96, 32) with the f32 stash): the weight
+//   gradients of the chunks' rows (gWK, gWFG) took 31% of the time, the
+//   row products 19% in the reverse walk and 15% in the forward pass, the
+//   per-atom work of the 8-atom blocks 10%, the LN_g backward 7%. A
+//   gradient's products cost 1.6 x the same product into rows; with the adds
+//   into the gradient row left out (a measurement only) the build took 24%
+//   less, and with half of them 12% less: each block's gradient row of a
+//   layer (768 KB at D = 256) misses L2 beside the 127 others, and a
+//   block's adds held its later loads back. So past 128 columns every add
+//   into a gradient row, a LayerNorm partial or a d(layer input) partial is
+//   a reduction (red_add4 / red_add of scann_mma.cuh) that the warp does not
+//   wait for (tall_gemm_tA, mma_gemm_tA, flush_ln, tall_scatter and the
+//   per-atom d(layer input) adds, each under kD256): the same adds by the
+//   same thread in the same order, so the same sums as a load, an add and
+//   a store; and a launch takes up to kMaxCluster = 8 blocks a structure
+//   (kernels/scann_loop.py backward_cluster: the largest C whose B clusters
+//   the card runs at once), so a batch of 16 runs 96 blocks, not 64. Two
+//   ways of fewer adds were measured and dropped: a chunk's operands kept
+//   in L2 for the next chunk's products (one add for two chunks; the
+//   products' reads from L2 cost what the adds saved) and pairs of blocks
+//   sharing a chunk through distributed shared memory (the same; four
+//   cluster barriers a chunk on top); so was a product that keeps 32
+//   output columns a warp (it spilled). The arithmetic and its order are
+//   the builds' of widths up to 128; those compile the same text
+//   (kLaneValues 4), their adds the load-add-store they had.
 // - No sequential grid, no atomics: each block writes its share of the
 //   gradients into its own row of a [B * C, P] scratch, added to from the
 //   second atom block (or chunk) on by the same thread, and scann_reduce_rows
@@ -210,7 +239,7 @@ using Args = BackwardArgs;
 
 constexpr int kMaxChunkRows = 32;
 constexpr int kMaxAtomBlock = 32;
-constexpr int kMaxCluster = 4;
+constexpr int kMaxCluster = kLaneValues > 4 ? 8 : 4;   // 8 in the *_d256 builds
 
 // The tall build (scann_loop_backward_tall.cu defines
 // SCANN_LOOP_BACKWARD_TALL): no resident [M, wd] buffer; every other build
@@ -221,6 +250,9 @@ constexpr bool kTall = true;
 constexpr bool kTall = false;
 #endif
 
+// The builds of widths past 128 (the *_d256 sources: SCANN_WIDTH_256).
+constexpr bool kD256 = kLaneValues > 4;
+
 // The tall build's chunk of (atom, neighbour) rows: up to 64 (two atoms at
 // N = 32, four at N = 16, eight at N = 8), in the shared memory the resident
 // buffer left. Past 128 columns (the *_d256 builds) the wrapper's plan takes
@@ -230,10 +262,11 @@ constexpr int kTallChunkRows = 64;
 // The wide build's sub-chunk of one atom's (atom, neighbour) rows: 64, in the
 // shared memory the resident buffer left (that buffer's roles take the tall
 // build's global homes in the wide build too); at N <= 64 one sub-chunk holds
-// the atom's whole list. Past 128 columns (the *_d256 builds) 32: 64 rows
-// of [2D + 4] and three [D + 4] buffers do not fit a block at D = 256, so
-// every wide N there takes more than one sub-chunk.
-constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;
+// the atom's whole list. Past 128 columns (the *_d256 builds) build_plan
+// takes 64 where that plan fits a block (D = 136), else 32: 64 rows of
+// [2D + 4] and three [D + 4] buffers do not fit at D = 256, so every wide
+// N there takes more than one sub-chunk.
+constexpr int kWideChunkRows = 64;
 
 // The gather's transpose into the tall build's global d(layer input)
 // partial [M, ldd] for one thread: column d of the targets with index % np ==
@@ -246,6 +279,14 @@ template <bool kBf16>
 __device__ __forceinline__ void tall_scatter(float* dst, const int* nbr, const float* src,
                                              int lds, int ldd, int rows, int np, int part,
                                              int d) {
+  if constexpr (kD256) {             // one reduction a row, in row order: nothing to wait for
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r) {
+      const int idx = __ldg(nbr + r);
+      if (idx % np == part) red_add(dst + (size_t)idx * ldd + d, operand<kBf16>(src[r * lds + d]));
+    }
+    return;
+  }
   constexpr int kGroup = 16;
 #pragma unroll 1
   for (int r0 = 0; r0 < rows; r0 += kGroup) {
@@ -340,8 +381,21 @@ __device__ __forceinline__ void tall_gemm_tA(const float* X, int ldx, const floa
         }
       }
     }
-    // add into the gradient row, the four quads' loads before their stores
     const int jw = j0 + 4 * t;
+    if constexpr (kD256) {           // reductions (red_add4), as mma_gemm_tA's
+#pragma unroll
+      for (int mh = 0; mh < 4; ++mh) {
+        const int m = mh >> 1, h = mh & 1, i = i0 + 16 * m + g + 8 * h;
+        if (jw < J && i < I) {
+          const float4 v = make_float4(acc[m][0][2 * h], acc[m][1][2 * h], acc[m][0][2 * h + 1],
+                                       acc[m][1][2 * h + 1]);
+          if (accumulate) red_add4(Gout + (size_t)i * ldg + jw, v);
+          else store4(Gout + (size_t)i * ldg + jw, make_float4(0.f + v.x, 0.f + v.y, 0.f + v.z,
+                                                               0.f + v.w));
+        }
+      }
+    } else {
+    // add into the gradient row, the four quads' loads before their stores
     float4 prev[4];
 #pragma unroll
     for (int mh = 0; mh < 4; ++mh) {
@@ -359,6 +413,7 @@ __device__ __forceinline__ void tall_gemm_tA(const float* X, int ldx, const floa
                make_float4(o.x + acc[m][0][2 * h], o.y + acc[m][1][2 * h],
                            o.z + acc[m][0][2 * h + 1], o.w + acc[m][1][2 * h + 1]));
       }
+    }
     }
     if (sums) {
 #pragma unroll
@@ -466,12 +521,12 @@ struct Plan {
 };
 
 template <bool kWide>
-__host__ __device__ inline Plan make_plan(const Args& a) {
+__host__ __device__ inline Plan make_plan(const Args& a, int wide_rows = kWideChunkRows) {
   Plan p;
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.ABW = AB * p.wd;
-  p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;
+  p.rows = kWide ? wide_rows : a.chunk_atoms * a.N;
   p.lda = 2 * a.D + 4;
   p.ldu = a.D + 4;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
@@ -497,6 +552,20 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   return p;
 }
 
+// The plan a build launches: make_plan's, but past 128 columns (the *_d256
+// builds) the wide sub-chunk is the larger of kWideChunkRows and half of it
+// whose plan fits a block (64 rows at D = 136, 32 at D = 256).
+template <bool kWide>
+__host__ __device__ inline Plan build_plan(const Args& a) {
+  if constexpr (kWide && kD256) {
+    const Plan p = make_plan<kWide>(a);
+    if (p.total * (int)sizeof(float) <= kMaxSharedBytes) return p;
+    return make_plan<kWide>(a, kWideChunkRows / 2);
+  } else {
+    return make_plan<kWide>(a);
+  }
+}
+
 // The plan of either build, by N (host side).
 inline Plan plan_of(const Args& a) {
   return a.N > kMaxChunkRows ? make_plan<true>(a) : make_plan<false>(a);
@@ -514,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 scann_loop_backward_kernel(const Args a, float* wide_keys) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan P = make_plan<kWide>(a);
+  const Plan P = build_plan<kWide>(a);
   // the resident buffer's three roles in global memory (the tall and wide builds)
   constexpr bool kHomes = kTall || kWide;
   cg::cluster_group cluster = cg::this_cluster();
@@ -882,8 +951,18 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
         sPart[(w * 2) * wd + d] = 0.f;
         sPart[(w * 2 + 1) * wd + d] = 0.f;
       }
-      gs[d] = accumulate ? gs[d] + s0 : s0;
-      gb[d] = accumulate ? gb[d] + s1 : s1;
+      if constexpr (kD256) {
+        if (accumulate) {
+          red_add(gs + d, s0);
+          red_add(gb + d, s1);
+        } else {
+          gs[d] = s0;
+          gb[d] = s1;
+        }
+      } else {
+        gs[d] = accumulate ? gs[d] + s0 : s0;
+        gb[d] = accumulate ? gb[d] + s1 : s1;
+      }
     }
   };
 
@@ -1745,13 +1824,15 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
         mma_gemm_tA<kBf16>(sCb, wd, sDCW, wd, ab, D, D, grad(gWFG) + (size_t)l * fg_in * D, D, acc);
       mma_gemm_tB<kBf16>(sDQ, wd, ab, D, a.wq + (size_t)l * D * D, D, D, D, [&](int r, int c, float4 v) {
         float* p = sDCN + (ab0 + r) * ldn + c;
-        store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
+        if constexpr (kD256) red_add4(p, v);
+        else store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
       });
       __syncthreads();
       if (a.g_update) {
         mma_gemm_tB<kBf16>(sDCW, wd, ab, D, wfg, D, D, D, [&](int r, int c, float4 v) {
           float* p = sDCN + (ab0 + r) * ldn + c;
-          store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
+          if constexpr (kD256) red_add4(p, v);
+          else store4(p, make_float4(p[0] + v.x, p[1] + v.y, p[2] + v.z, p[3] + v.w));
         });
       }
       __syncthreads();
@@ -1933,7 +2014,7 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
       a.D > kMaxWidth || a.G > kMaxWidth || a.O > kMaxWidth ||
       (a.D & 3) || (a.G & 3) || (a.O & 3) || (a.E & 3) || a.D % a.H || a.K > a.D || a.P <= 0)
     return kErrShape;
-  const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
+  const int bytes = build_plan<kWide>(a).total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
   cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1962,7 +2043,7 @@ template <bool kBf16, bool kWide>
 int max_clusters(const int* dims, int cluster) {
   Args a = {};
   set_dims(a, dims);
-  const int bytes = make_plan<kWide>(a).total * (int)sizeof(float);
+  const int bytes = build_plan<kWide>(a).total * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(scann_loop_backward_kernel<kBf16, kWide>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return -(int)err;

@@ -35,8 +35,10 @@
 // warps split the 32-row x 64-column output tiles; each thread adds its sums
 // into the block's gradient row as float4 (16 bytes a thread, 64 bytes a
 // quad), the same thread for the same element at every call, so the sums
-// repeat from run to run. The column sums of dy (the bias gradient) fall out
-// of the same fragments. In the bf16 operand mode the backward kernels round
+// repeat from run to run; in the backward kernel's builds of widths past
+// 128 each add is a reduction the warp does not wait for (red_add4). The
+// column sums of dy (the bias gradient) fall out of the same fragments. In
+// the bf16 operand mode the backward kernels round
 // the cotangent too, as the TPU kernels' transposed products do
 // (scann_tpu/kernels/scann_backward.py:359-530): mma_gemm_tA<true> rounds
 // both x and dy and makes one pass, while its column sums stay the sums of
@@ -80,6 +82,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ahi)[
   mma_tf32(c, ahi, blo[0], blo[1]);
   mma_tf32(c, ahi, bhi[0], bhi[1]);
 }
+
+// dst[0..3] += v without reading dst back (a RED.ADD, fire and forget): the
+// backward kernels of widths past 128 add their weight gradients, LayerNorm
+// partials and d(layer input) partials this way. Every element is added to
+// by one thread, in program order, so the sums and their order are those of
+// a load, an add and a store; the warp goes on without waiting for L2. (The
+// reduction flushes a subnormal sum to zero.)
+__device__ __forceinline__ void red_add4(float* dst, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+__device__ __forceinline__ void red_add(float* dst, float v) { atomicAdd(dst, v); }
 
 constexpr int kMmaMTiles = 2;      // m-tiles of 16 rows a warp holds at once
 constexpr int kMmaStage = 32;      // k-values per step of the B prefetch
@@ -364,6 +377,25 @@ __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float
         }
       }
     }
+    if constexpr (kLaneValues > 4) {
+      // the builds of widths past 128: each quad goes in as a reduction
+      // (red_add4), so the warp does not wait for the row's old values
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int jw = j0 + 16 * p + 4 * t;
+#pragma unroll
+        for (int mh = 0; mh < 4; ++mh) {
+          const int m = mh >> 1, h = mh & 1, i = i0 + 16 * m + g + 8 * h;
+          if (jw < J && i < I) {
+            const float4 v = make_float4(acc[m][2 * p][2 * h], acc[m][2 * p + 1][2 * h],
+                                         acc[m][2 * p][2 * h + 1], acc[m][2 * p + 1][2 * h + 1]);
+            if (accumulate) red_add4(Gout + (size_t)i * ldg + jw, v);
+            else store4(Gout + (size_t)i * ldg + jw, make_float4(0.f + v.x, 0.f + v.y, 0.f + v.z,
+                                                                 0.f + v.w));
+          }
+        }
+      }
+    } else {
     // add into the gradient row, 8 quads at a time: all the loads of a batch
     // are started before its first store, so they wait for L2 together
 #pragma unroll
@@ -395,6 +427,7 @@ __device__ __forceinline__ void mma_gemm_tA(const float* X, int ldx, const float
           }
         }
       }
+    }
     }
     if (sums) {
       // the 4 lanes of a quad hold the rows' slices of columns jc, jc + 1: a fixed tree

@@ -155,10 +155,17 @@ Backward (crystal training):
   is not launched there (``is_tall_backward`` holds at every N <= 32): the
   tall build takes the first of ``kfwd.CHUNK_ROWS`` = 64, 32, 16 rows a
   chunk that fits (32 rows with atom blocks of 8 at D = 256), the wide one
-  sub-chunks of ``D256_WIDE_CHUNK_ROWS`` = 32 rows (atom blocks of 4 at D =
-  256). So a D = 256 model trains on #4 at QM9 (32, 16), which #2 refuses
-  past 128 columns (``kbwd.MAX_WIDTH``), and at MP2018 (96, 32) and (48,
-  96).
+  the first of ``D256_WIDE_CHUNK_ROWS`` = (64, 32) rows a sub-chunk that
+  fits (``wide_sub_chunk``: 64 at D = 136 with atom blocks of 8, 32 with
+  atom blocks of 4 at (80, 96) and D = 256). Their design (from a
+  phase split: the weight gradients' adds into each block's gradient row,
+  a quarter of the time on an NVIDIA H100 80GB HBM3 at 700 W, lead at D =
+  256): every such add is a reduction
+  that the warp does not wait for, and a launch takes up to 8 blocks a
+  structure (``backward_cluster``: the largest C whose B clusters the card
+  runs at once, so that a batch of 16 fills 96 SMs rather than 64). So a
+  D = 256 model trains on #4 at QM9 (32, 16), which #2 refuses past 128
+  columns (``kbwd.MAX_WIDTH``), and at MP2018 (96, 32) and (48, 96).
 - A cluster of C thread blocks works on each structure, each block on its
   share of the atoms (``cluster_size``: C is a function of the batch size
   alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
@@ -240,10 +247,11 @@ WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
 # resident buffer left; the narrow build keeps kbwd.MAX_CHUNK_ROWS
 TALL_CHUNK_ROWS = 64
 # the wide loop backward's sub-chunk of one atom's rows (kWideChunkRows), in the
-# shared memory the resident buffer left there too; past 128 columns 32 (the
-# *_d256 builds: 64 rows do not fit a block at D = 256)
+# shared memory the resident buffer left there too; past 128 columns (the
+# *_d256 builds, ``build_plan`` of the CUDA source) the first of these whose
+# plan fits a block: 64 rows up to D = 152 or so, 32 at D = 256
 WIDE_CHUNK_ROWS = 64
-D256_WIDE_CHUNK_ROWS = 32
+D256_WIDE_CHUNK_ROWS = (WIDE_CHUNK_ROWS, WIDE_CHUNK_ROWS // 2)
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -260,6 +268,12 @@ CLUSTER_SIZES = tuple(CLUSTERS_AT_ONCE)
 # clusters the card runs at once, so that small batches fill it (one
 # structure: 16 blocks rather than 4).
 FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
+# Blocks per structure the loop backward's builds past 128 columns (the
+# *_d256 builds, kMaxCluster = 8 there) may launch with: any portable size up
+# to 8. ``backward_cluster`` takes the largest whose B clusters the card runs
+# at once, so that a small batch fills it (6 at B = 16 on a card that runs 15
+# clusters of 8 or 7, 2 at the MP2018 recipe batch of 64, 1 at 128).
+D256_CLUSTER_SIZES = tuple(range(8, 0, -1))
 # The largest N of the loop forward's narrow and tall builds past 128 columns
 # (``kfwd.is_d256``; kTallMaxN of csrc/scann_loop.cu): two tall chunk
 # buffers of more rows do not fit a block's shared memory at D = 256, so the
@@ -740,10 +754,18 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     walks one atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows,
     beside the atom's attention and d attention [N, H], without the
     resident buffer. Past 128 columns (``kfwd.is_d256``) the tall chunk is
-    the first of ``kfwd.CHUNK_ROWS`` rows whose plan fits at some block
-    (where none does, the first's plan at the smallest block), and the wide
-    sub-chunk ``D256_WIDE_CHUNK_ROWS`` rows. ``backward_plan`` is the plan
-    of the build a launch takes."""
+    the first of ``kfwd.CHUNK_ROWS`` rows whose plan fits at some block,
+    and the wide sub-chunk the first of ``D256_WIDE_CHUNK_ROWS`` (64 rows
+    with blocks of 8 atoms or more, else 32; where none does, the first's
+    plan at the smallest block); ``wide_sub_chunk`` names the wide one.
+    ``backward_plan`` is the plan of the build a launch takes."""
+    return _backward_plan(cfm, M, N, S, tall)[:3]
+
+
+def _backward_plan(cfm: ModelConfig, M: int, N: int, S: int, tall: bool
+                   ) -> Tuple[int, int, int, int]:
+    """``loop_backward_memory_plan`` with the rows of a chunk (of a wide
+    sub-chunk) after it."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
@@ -751,21 +773,27 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
     wide = is_wide_backward(N)
     d256 = kfwd.is_d256(cfm)
-    if wide or not tall:
-        caps = (kbwd.MAX_CHUNK_ROWS,)
-    else:
+    if wide:
+        caps = D256_WIDE_CHUNK_ROWS if d256 else (WIDE_CHUNK_ROWS,)
+    elif tall:
         caps = kfwd.CHUNK_ROWS if d256 else (TALL_CHUNK_ROWS,)
+    else:
+        caps = (kbwd.MAX_CHUNK_ROWS,)
     first = None
     for cap in caps:
-        for block in WIDE_BACKWARD_ATOM_BLOCKS if wide else ATOM_BLOCKS:
+        blocks = ATOM_BLOCKS
+        if wide and not (d256 and cap == WIDE_CHUNK_ROWS):
+            blocks = WIDE_BACKWARD_ATOM_BLOCKS   # 64 rows past 128 columns: 8 atoms or more
+        for block in blocks:
             block = min(block, M)
             chunk_atoms = max(1, min(block, cap // max(N, 1)))
             if wide:   # a sub-chunk, the atom's attention and d attention [N, H], the d query sum
-                rows = D256_WIDE_CHUNK_ROWS if d256 else WIDE_CHUNK_ROWS
+                rows = cap
                 chunk = (rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H)
                          + r4(rows * H) + wd)
             else:
-                chunk = kbwd.chunk_floats(chunk_atoms * N, D, H)
+                rows = chunk_atoms * N
+                chunk = kbwd.chunk_floats(rows, D, H)
             work = max(chunk,
                        5 * block * wd + r4(block),
                        block * (2 * lde + ldf) + block * wd,
@@ -775,9 +803,17 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
             floats = ((0 if tall or wide else M * wd) + 5 * block * wd + work
                       + kbwd.N_WARPS * 2 * wd + 2 * wd)
             if 4 * floats <= MAX_SHARED_BYTES:
-                return chunk_atoms, block, 4 * floats
-        first = first or (chunk_atoms, block, 4 * floats)
+                return chunk_atoms, block, 4 * floats, rows
+        first = first or (chunk_atoms, block, 4 * floats, rows)
     return first
+
+
+def wide_sub_chunk(cfm: ModelConfig, M: int, N: int, S: int = 0) -> int:
+    """Rows of the wide loop backward's sub-chunk at (config, M, N, S):
+    ``WIDE_CHUNK_ROWS`` up to 128 columns, past them the first of
+    ``D256_WIDE_CHUNK_ROWS`` whose plan fits (``build_plan`` of the CUDA
+    source)."""
+    return _backward_plan(cfm, M, N, S, False)[3]
 
 
 def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
@@ -809,6 +845,21 @@ def cluster_size(B: int) -> int:
     for c, at_once in CLUSTERS_AT_ONCE.items():
         if B <= at_once:
             return c
+    return 1
+
+
+def backward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> int:
+    """Thread blocks per structure of a loop-backward launch: past 128
+    columns (the *_d256 builds) the largest of ``D256_CLUSTER_SIZES`` whose
+    B clusters the card runs at once by that build's own
+    ``max_active_clusters`` (8 for up to 15 structures, 6 at B = 16, 2 at
+    64), so a small batch fills the card; up to 128 columns
+    ``cluster_size(B)``, as before."""
+    if not kfwd.is_d256(cfm):
+        return cluster_size(B)
+    for C in D256_CLUSTER_SIZES:
+        if B <= max_active_clusters(cfm, B, M, N, C, S):
+            return C
     return 1
 
 
@@ -1006,16 +1057,16 @@ def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: 
     """The global scratch of one loop-backward launch at batch shape (B, M,
     N) and S segments a slot: that of the molecule backward with the last
     centers stashed too and one gradient row per block ([B * cluster, P];
-    ``cluster`` defaults to ``cluster_size(B)``), plus the [B, M, D] d(layer
-    output), the selective stash of ``stash`` (``loop_stash_mode``'s by
+    ``cluster`` defaults to ``backward_cluster``'s), plus the [B, M, D]
+    d(layer output), the selective stash of ``stash`` (``loop_stash_mode``'s by
     default) and, for the tall build (``tall``, ``is_tall_backward`` by
     default) and the wide build, each block's GA keys and d(layer input)
     partial ``tall`` [B * C, M, G + D]; in the wide build each block's rows
     of one atom ``wide_rows`` [B * C, 3, N, D] (``wide_rows_shape_for``)
     follow it in the same allocation (the kernel takes one pointer). A
     trainer allocates it once per shape."""
-    cluster = cluster_size(B) if cluster is None else cluster
     tall = is_tall_backward(cfm, M, N, S) if tall is None else tall
+    cluster = backward_cluster(cfm, B, M, N, S) if cluster is None else cluster
     wide = is_wide_backward(N)
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
@@ -1048,9 +1099,9 @@ def launch_loop_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torc
     [B, M] (ignored when ``one_shot``); ``scratch``
     from ``loop_backward_scratch`` at this batch shape, cluster size, stash
     mode and build (allocated here when None; one of another mode or build
-    raises); ``cluster`` blocks per structure (1, 2 or 4; ``cluster_size(B)``
-    when None). The build is ``backward_library``'s, the schedule
-    ``loop_stash_mode``'s. Returns
+    raises); ``cluster`` blocks per structure (1, 2 or 4, up to 8 past 128
+    columns; ``backward_cluster``'s when None). The build is
+    ``backward_library``'s, the schedule ``loop_stash_mode``'s. Returns
     (flat gradients [P], pred [B], or [B * S] packed)."""
     dev = packed["wde"].device
     if dev.type != "cuda":
@@ -1083,9 +1134,10 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     mode = kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N)
-    cluster = cluster_size(B) if cluster is None else cluster
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster={cluster}: the loop backward launches with {CLUSTER_SIZES}")
+    sizes = D256_CLUSTER_SIZES if kfwd.is_d256(cfm) else CLUSTER_SIZES
+    cluster = backward_cluster(cfm, B, M, N, S) if cluster is None else cluster
+    if cluster not in sizes:
+        raise ValueError(f"cluster={cluster}: the loop backward launches with {sizes}")
     name = backward_library(cfm, M, N, S, tall)
     tall = name.startswith("scann_loop_backward_tall")
     wide = is_wide_backward(N)
@@ -1128,29 +1180,37 @@ def _rows_follow(scratch: Dict[str, Optional[torch.Tensor]]) -> bool:
             and rows.data_ptr() == homes.data_ptr() + 4 * homes.numel())
 
 
-def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int) -> int:
+def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int,
+                        S: int = 0) -> int:
     """How many clusters of ``cluster`` loop-backward blocks at this shape the
     card runs at once (``cudaOccupancyMaxActiveClusters``); a launch of more
     than that many structures takes more than one wave. The kernel of the
-    build that launches (M, N) in the config's operand mode answers
-    (``backward_library``; every build exports its own)."""
+    build that launches (M, N, S) in the config's operand mode answers
+    (``backward_library``; every build exports its own), and each entry
+    point keeps its answers, so a launch asks the card once a shape."""
     import ctypes
 
     from scann_tpu_torch.kernels._build import load_library
 
-    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N)
+    chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
-            atom_block, 0, cluster]
-    name = backward_library(cfm, M, N)
+            atom_block, S, cluster]
+    name = backward_library(cfm, M, N, S)
     fn = getattr(load_library(name), name + "_max_clusters")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    n = fn((ctypes.c_int * len(dims))(*dims), cluster)
-    if n < 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
-    return n
+    known = getattr(fn, "answers", None)
+    if known is None:
+        known = fn.answers = {}
+    key = (tuple(dims), cluster)
+    if key not in known:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = fn((ctypes.c_int * len(dims))(*dims), cluster)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
+        known[key] = n
+    return known[key]
 
 
 def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],

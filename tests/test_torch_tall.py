@@ -439,8 +439,9 @@ def test_torch_tall_sources():
     bwd = src["scann_loop_backward"]
     assert "constexpr int kMaxChunkRows = 32;" in bwd
     assert "constexpr int kTallChunkRows = 64;" in bwd
-    assert "constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;" in bwd
-    assert "p.rows = kWide ? kWideChunkRows : a.chunk_atoms * a.N;" in bwd
+    assert "constexpr int kWideChunkRows = 64;" in bwd
+    assert "p.rows = kWide ? wide_rows : a.chunk_atoms * a.N;" in bwd
+    assert "inline Plan make_plan(const Args& a, int wide_rows = kWideChunkRows) {" in bwd
     assert "a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)" in bwd
     assert "(a.N > kMaxChunkRows) != kWide" in bwd
     assert (kloop.TALL_CHUNK_ROWS, kbwd.MAX_CHUNK_ROWS) == (64, 32)

@@ -271,18 +271,23 @@ def test_torch_widths_tall_backward_plan(D, N, want):
         assert nbytes == 228352
 
 
-@pytest.mark.parametrize("D,N,want", [(256, 96, 4), (256, 40, 8), (192, 96, 16),
-                                      (136, 96, 32)])
+@pytest.mark.parametrize("D,N,want", [(256, 96, (4, 32)), (256, 40, (8, 32)),
+                                      (192, 96, (16, 32)), (136, 96, (8, 64)),
+                                      (136, 48, (8, 64)), (152, 96, (32, 32))])
 def test_torch_widths_wide_backward_plan(D, N, want):
-    """The wide #4's plan past 128 columns: sub-chunks of
-    ``D256_WIDE_CHUNK_ROWS`` = 32 rows beside the atom's attention and d
-    attention [N, H] and the d query sum, and the largest atom block that
-    fits (4 at MP2018 (80, 96) and D = 256, 212,992 bytes)."""
+    """The wide #4's plan past 128 columns: sub-chunks of the first of
+    ``D256_WIDE_CHUNK_ROWS`` = (64, 32) rows that fits (64 only with atom
+    blocks of 8 or more: 64 at D = 136, 32 at D = 152 and beyond) beside
+    the atom's attention and d attention [N, H] and the d query sum, and
+    the largest atom block that fits (4 at MP2018 (80, 96) and D = 256,
+    212,992 bytes)."""
     cfm = dataclasses.replace(MP2018, local_dim=D, global_dim=D, dense_out=D)
     chunk_atoms, block, nbytes = kloop.backward_plan(cfm, 80, N)
-    assert (chunk_atoms, block) == (1, want)
+    rows = kloop.wide_sub_chunk(cfm, 80, N)
+    assert (block, rows) == want and chunk_atoms == 1
+    assert rows in kloop.D256_WIDE_CHUNK_ROWS
     r4 = lambda v: -(-v // 4) * 4
-    wd, rows, H = D, kloop.D256_WIDE_CHUNK_ROWS, 8
+    wd, H = D, 8
     work = max(rows * (2 * D + 4) + 3 * rows * (D + 4) + 2 * r4(N * H) + r4(rows * H) + wd,
                5 * block * wd + r4(block), block * 2 * 128 + block * wd,
                block * wd + 4 * wd + 5 * 80 + 3 * D + 4)
@@ -297,8 +302,12 @@ def test_torch_widths_backward_plans_match_cuda_sources():
     launcher's width check, the entry points, and the templated LayerNorm
     helpers of ``scann_grad_common.cuh``."""
     src = open(f"{_build.SRC_DIR}/scann_loop_backward.cu").read()
-    assert "constexpr int kWideChunkRows = kLaneValues > 4 ? 32 : 64;" in src
-    assert (kloop.D256_WIDE_CHUNK_ROWS, kloop.WIDE_CHUNK_ROWS) == (32, 64)
+    assert "constexpr int kWideChunkRows = 64;" in src
+    assert (kloop.D256_WIDE_CHUNK_ROWS, kloop.WIDE_CHUNK_ROWS) == ((64, 32), 64)
+    assert ("    if (p.total * (int)sizeof(float) <= kMaxSharedBytes) return p;\n"
+            "    return make_plan<kWide>(a, kWideChunkRows / 2);") in src
+    assert "constexpr int kMaxCluster = kLaneValues > 4 ? 8 : 4;" in src
+    assert kloop.D256_CLUSTER_SIZES == tuple(range(8, 0, -1))
     assert "constexpr int kTallChunkRows = 64;" in src and kloop.TALL_CHUNK_ROWS == 64
     assert max(kfwd.CHUNK_ROWS) == kloop.TALL_CHUNK_ROWS
     assert "a.D > kMaxWidth || a.G > kMaxWidth || a.O > kMaxWidth ||" in src
@@ -335,6 +344,7 @@ def test_torch_widths_launch_the_d256_backward_builds(N, dtype, monkeypatch):
     and counts it (``.d256_launches`` beside ``.tall_launches`` /
     ``.wide_launches``), in each schedule."""
     seen = _stub(monkeypatch)
+    monkeypatch.setattr(kloop, "max_active_clusters", lambda cfm, B, M, N, C, S=0: 15)
     cfm = dataclasses.replace(MP2018, n_attention=1, dtype=dtype)
     x = _torch(make_synthetic_batch(np.random.default_rng(0), B=2, M=10, N=N, n_atoms=95))
     packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0)), cfm)
@@ -350,6 +360,7 @@ def test_torch_widths_launch_the_d256_backward_builds(N, dtype, monkeypatch):
         assert call[:2] == (want, want)
         dims = call[4]
         assert dims[3] == 256 and dims[18] == chunk_atoms and dims[21] == block
+        assert dims[23] == 8          # backward_cluster: 2 structures, 15 clusters of 8 at once
     assert [call[4][24] for call in seen] == [0, 4, 2]
     tall = N <= 32
     assert (c.launches, c.d256_launches, c.tall_launches, c.wide_launches) == (
@@ -363,6 +374,7 @@ def test_torch_widths_sharded_train_takes_the_d256_build(monkeypatch):
     Trainer passes as its ``local``) takes the d256 build on a rank's rows,
     its ``mol_base`` the rows' first global index."""
     seen = _stub(monkeypatch)
+    monkeypatch.setattr(kloop, "max_active_clusters", lambda cfm, B, M, N, C, S=0: 15)
     cfm = dataclasses.replace(MP2018, n_attention=1)
     x = _torch(make_synthetic_batch(np.random.default_rng(1), B=2, M=10, N=16, n_atoms=95))
     params = init_params(cfm, torch.Generator().manual_seed(0))
