@@ -391,6 +391,17 @@ RATE_LIMIT = 1.05            # a measured rate over 105% of its published peak: 
 # the wrapper's own choice, kloop.forward_cluster)
 HOLD_CLUSTERS = (1, 2, 4, 8, 16)
 
+
+def held_sizes(i, n):
+    """The sizes of ``HOLD_CLUSTERS`` at which the i-th of a phase's n holds
+    of one build holds #3, beside the wrapper's own choice: round robin, so
+    that the phase holds the build at every size without holding every
+    shape at all of them."""
+    k = len(HOLD_CLUSTERS)
+    if n >= k:
+        return (HOLD_CLUSTERS[i % k],)
+    return tuple(c for j, c in enumerate(HOLD_CLUSTERS) if j % n == i % n)
+
 # The H100 SXM's published rates (utils/flops.py's table), which the bounds
 # use; ``MEASURED`` holds the rates the roofline phase measures on this card,
 # which ``bound_ms`` also applies to the same work (``measured_bound_ms``).
@@ -1227,6 +1238,12 @@ def tensor_bytes(*groups):
     return sum(t.numel() * t.element_size() for g in groups for t in g if t is not None)
 
 
+def weights(packed):
+    """The weights of a ``pack_params`` dict, which a bound counts once:
+    without the TF32 planes made from them (``kfwd.tf32_planes``)."""
+    return [t for k, t in packed.items() if k != "tf32_planes"]
+
+
 def hold(label, named, failures):
     """Print one line of max abs errors for (what, got, want, atol) and
     record what falls outside rtol/atol; returns the largest error."""
@@ -1336,7 +1353,7 @@ def time_loop_forward(name, cfm, x, card, clusters=(None,), plain=True):
     B, M = x["atom_mask"].shape[:2]
     N = x["neighbors"].shape[2]
     flops = kloop.loop_forward_flops(cfm, B, M, N)
-    nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+    nbytes = (tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * M)
               + kloop.loop_forward_bytes(cfm, B, M, N))
     bound, by, measured = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N))
     out = {}
@@ -2149,7 +2166,7 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
                                lambda: kfwd._launch(packed, x, qm9_16, False), 5, 10)
         plain_ms[1] = cuda_ms(lambda: kfwd.reference_bf16_forward(params, x, qm9_16), 5)
     work[1] = (kfwd.forward_flops(qm9_model, B, M, N), kfwd.forward_fp32_flops(qm9_model, B, M, N),
-               tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M))
+               tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * M))
 
     # ---- #3 at full width: MP2018 and packed at capacity 96, relaunched ------------
     mp_16 = bf16(mp2018)
@@ -2193,7 +2210,7 @@ def phase14(matrix, qm9_model, mp2018, qm9_inputs, packed_qm9, mp_packed, failur
         plain_ms[3] = cuda_ms(lambda: kloop.reference_loop_forward(params, x, mp_16), 3)
     work[3] = (kloop.loop_forward_flops(mp2018, B, M, N),
                kfwd.forward_fp32_flops(mp2018, B, M, N),
-               tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
+               tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * M)
                + kloop.loop_forward_bytes(mp2018, B, M, N))
     del scratch
 
@@ -2565,7 +2582,7 @@ def phase15_times(qm9_model, mp2018, qm9_inputs, mp_x, card):
         plain_ms = statistics.median(cuda_times(lambda: chunked_train_grads(
             plain, params, x, y, cfm16, False, 0.1, 7, chunk), 2, warmup=1))
         _, P = kbwd.grad_layout(packed)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        nbytes = tensor_bytes(x.values(), weights(packed)) + 4 * B + 4 * (P + B)
         out[n] = (t, plain_ms, kbwd.backward_flops(cfm, B, M, N),
                   kbwd.backward_fp32_flops(cfm, B, M, N), nbytes)
         print(f"phase 15 #{n} at B={B} M={M} N={N} (dropout 0.1, one-shot; timed in turns: f32, "
@@ -2872,7 +2889,7 @@ def phase16(qm9_model, mp2018, ptgp, qm9_inputs, packed_qm9, mp_packed, main, he
             plains[n][m == "bf16"], params, x, y, cfm, False, 0.1, 16, chunk), 2, warmup=1))
             for m in modes}
         _, P = kbwd.grad_layout(packed)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B * S + 4 * (P + B * S)
+        nbytes = tensor_bytes(x.values(), weights(packed)) + 4 * B * S + 4 * (P + B * S)
         stash_bytes = {m: (kloop.loop_stash_bytes if n == 4 else kbwd.keep_acts_stash_bytes)(
             cfm, B, M, N, m) for m in modes}
         recompute = {m: (kloop.loop_recompute_flops if n == 4 else kbwd.recompute_flops)(
@@ -3077,7 +3094,7 @@ def phase9(matrix, mp2018, ptgp, qm9_model, packed_batches, failures, card):
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         recompute = kloop.loop_recompute_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B * S + 4 * (P + B * S)
+        nbytes = tensor_bytes(x.values(), weights(packed)) + 4 * B * S + 4 * (P + B * S)
         bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         scratch_bytes = tensor_bytes(scratch.values())
         print(f"scann_loop_backward at {name} B={B} M={M} N={N}{packed_label(x)} "
@@ -4019,8 +4036,9 @@ def phase17_loops(mp2018, ptgp, failures, card):
     where its atom blocks fall to 8 and #3's keys leave shared memory, and
     #3 alone past its old edge at (300, 96) and at the odd N of (73, 81) and
     (30, 199) (B = 2); #4 at 1, 2 and 4 blocks a
-    structure, #3 at ``HOLD_CLUSTERS`` and its own choice, each with NaN-
-    and constant-filled relaunches; #4 in its three schedules at dropout 0.1
+    structure, #3 at its own choice and one size of ``HOLD_CLUSTERS`` a
+    shape (``held_sizes``: every size over the phase), each with NaN- and
+    constant-filled relaunches; #4 in its three schedules at dropout 0.1
     with attention dropout. The holds run at B = 8 (4 at N = 40, 48 and 72,
     2 at the last three; the plain versions' time bounds the phase's), the
     times at B = 16, MP2018 (16, 80, 96), in turns with the plain versions,
@@ -4049,6 +4067,10 @@ def phase17_loops(mp2018, ptgp, failures, card):
              ("MP2018", mp_drop, wide_batch(rng, 2, 300, 48, mp2018, min_atoms=250)),
              ("MP2018", mp_drop, wide_batch(rng, 2, 40, 256, mp2018)))
     worst3 = worst4 = 0.0
+    # #3's wide holds: those of the wide cases, then three more below, over
+    # HOLD_CLUSTERS by held_sizes
+    n3 = sum(kloop.is_wide(x["neighbors"].shape[2]) for _, _, x in cases) + 3
+    held = iter(range(n3))
     for name, cfm, x in cases:
         t0 = time.time()
         p = init_params(cfm, torch.Generator().manual_seed(17), "cuda")
@@ -4057,7 +4079,7 @@ def phase17_loops(mp2018, ptgp, failures, card):
         y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
         if kloop.is_wide(x["neighbors"].shape[2]):
             worst3 = max(worst3, hold_loop_forward(f"phase 17 #3 wide {name}", cfm, p, x,
-                                                   failures, clusters=HOLD_CLUSTERS,
+                                                   failures, clusters=held_sizes(next(held), n3),
                                                    relaunches=2))
         worst4 = max(worst4, hold_wide_backward(f"phase 17 #4 wide {name}", cfm, p, x, y, 0.1,
                                                 7, failures))
@@ -4067,13 +4089,14 @@ def phase17_loops(mp2018, ptgp, failures, card):
     p = init_params(mp_drop, torch.Generator().manual_seed(17), "cuda")
     x = wide_batch(rng, 2, 300, 96, mp2018, min_atoms=250)
     worst3 = max(worst3, hold_loop_forward("phase 17 #3 wide MP2018", mp_drop, p, x, failures,
-                                           clusters=HOLD_CLUSTERS, relaunches=2))
+                                           clusters=held_sizes(next(held), n3), relaunches=2))
     # odd N: the index ring [2][N] is rounded up so the atom's keys in shared
     # memory stay 16-byte aligned (N = 199: the last N whose keys fit there)
     for M, N in ((73, 81), (30, 199)):
         x = wide_batch(rng, 2, M, N, mp2018)
         worst3 = max(worst3, hold_loop_forward("phase 17 #3 wide MP2018 odd N", mp_drop, p, x,
-                                               failures, clusters=HOLD_CLUSTERS, relaunches=2))
+                                               failures, clusters=held_sizes(next(held), n3),
+                                               relaunches=2))
     x = wide_batch(rng, 16, 80, 96, mp2018)
     fwd = next(iter(time_loop_forward("MP2018 wide", mp2018, x, card).values()))
     t4 = time_loop_schedules("wide", "MP2018", mp2018, x, card)
@@ -4111,7 +4134,7 @@ def time_loop_schedules(build, name, cfm, x, card, reps=(3, 8)):
         del scratch
         flops = kloop.loop_backward_flops(cfm, B, M, N)
         _, P = kbwd.grad_layout(packed)
-        nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+        nbytes = tensor_bytes(x.values(), weights(packed)) + 4 * B + 4 * (P + B)
         bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
         print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention} "
               f"({'the f32 stash' if mode else 'the recompute schedule'}; dropout 0.1, one-shot; "
@@ -4390,8 +4413,9 @@ def phase18_holds(mp2018, ptgp, failures):
     gates' edges, full width, B = 2: Pt/graphene (322, 32) and (573, 16),
     MP2018 (428, 16), and MP2018-like crystals packed at capacity 300 (N =
     32, up to 8 segments a slot); #4 at 1, 2 and 4 blocks a structure, #3
-    at ``HOLD_CLUSTERS`` and its own choice, with NaN- and constant-filled
-    relaunches; #4 in its three schedules at
+    at its own choice and the sizes of ``HOLD_CLUSTERS`` that ``held_sizes``
+    gives each shape (every size over the four), with NaN- and
+    constant-filled relaunches; #4 in its three schedules at
     dropout 0.1 with attention dropout (``hold_wide_backward``: the f32
     stash bit-equal to recompute). Then ``tall=True`` against the narrow
     builds at MP2018 (4, 96, 32) and Pt/graphene (4, 128, 32)
@@ -4413,7 +4437,7 @@ def phase18_holds(mp2018, ptgp, failures):
              ("MP2018 packed", mp_drop, pack_batch(synthetic_batch(
                  rng, 10, 100, 32, n_atoms=mp2018.n_atoms, min_atoms=60), 300)))
     worst3 = worst4 = 0.0
-    for name, cfm, x in cases:
+    for i, (name, cfm, x) in enumerate(cases):
         t0 = time.time()
         B, M = x["atom_mask"].shape[:2]
         N, S = x["neighbors"].shape[2], kfwd.segment_count(x)
@@ -4422,7 +4446,8 @@ def phase18_holds(mp2018, ptgp, failures):
         p = init_params(cfm, torch.Generator().manual_seed(18), "cuda")
         y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
         worst3 = max(worst3, hold_loop_forward(f"phase 18 #3 tall {name}", cfm, p, x, failures,
-                                               rate=0.1, clusters=HOLD_CLUSTERS, relaunches=2))
+                                               rate=0.1, clusters=held_sizes(i, len(cases)),
+                                               relaunches=2))
         worst4 = max(worst4, hold_wide_backward(f"phase 18 #4 tall {name}", cfm, p, x, y, 0.1,
                                                 7, failures))
         print(f"phase 18 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
@@ -4513,7 +4538,7 @@ def time_recipe_batch(build, name, cfm, x, card):
     del scratch
     _, P = kbwd.grad_layout(packed)
     flops = kloop.loop_backward_flops(cfm, B, M, N)
-    bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
+    bound, by, measured = bound_ms(flops, tensor_bytes(x.values(), weights(packed)) + 4 * B
                                    + 4 * (P + B), kbwd.backward_fp32_flops(cfm, B, M, N))
     print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention}, "
           f"C={kloop.cluster_size(B)} (the {mode or 'recompute'} schedule; dropout 0.1, "
@@ -4808,8 +4833,9 @@ def hold_bf16_shape(label, cfm, x, failures, seed=19, clusters=(1, 2, 4), below=
 
 
 def phase19_holds(mp2018, ptgp, failures):
-    """The four bf16 builds against their plain versions (``hold_bf16_shape``)
-    at the wide shapes MP2018 (4, 96, 72) and (4, 80, 96) and the tall ones
+    """The four bf16 builds against their plain versions (``hold_bf16_shape``;
+    #3 at every size of ``HOLD_CLUSTERS`` over each build's two shapes,
+    ``held_sizes``) at the wide shapes MP2018 (4, 96, 72) and (4, 80, 96) and the tall ones
     Pt/graphene (2, 322, 32) and MP2018 (2, 428, 16), full width and depth,
     attention dropout on, and again with one layer over 16 structures at
     their cluster size (0.5 x the f32 kernel's reading, #4's pred 0.9 x);
@@ -4833,7 +4859,7 @@ def phase19_holds(mp2018, ptgp, failures):
              ("tall", "MP2018", mp_drop,
               lambda B: synthetic_batch(rng, B, 428, 16, n_atoms=mp2018.n_atoms, min_atoms=400)))
     worst = {}
-    for build, name, cfm, batch in cases:
+    for i, (build, name, cfm, batch) in enumerate(cases):
         t0 = time.time()
         x = batch(4 if build == "wide" else 2)
         M, N = x["atom_mask"].shape[1], x["neighbors"].shape[2]
@@ -4841,7 +4867,9 @@ def phase19_holds(mp2018, ptgp, failures):
                   else kloop.is_tall(cfm, M, N) and kloop.is_tall_backward(cfm, M, N))
         if not shaped:
             raise AssertionError(f"phase 19: {name} {(M, N)} is not a {build} shape")
-        w3, w4 = hold_bf16_shape(f"phase 19 {name}", cfm, x, failures)
+        # each build's two shapes: #3 at every size of HOLD_CLUSTERS between them
+        w3, w4 = hold_bf16_shape(f"phase 19 {name}", cfm, x, failures,
+                                 clusters3=held_sizes(i % 2, 2))
         # one layer over 16 structures at 0.5 x the f32 kernel's reading, but
         # #4's training pred at 0.9 x: at these shapes its f32-noise floor
         # (the plain version against itself on weights moved by 1e-7) is
@@ -4910,7 +4938,7 @@ def phase19_times(mp2018, ptgp, card):
             kloop.reference_loop_train_grads, params, x, y, cfm16, False, 0.1, 7, 4), 2,
             warmup=1))
         _, P = kbwd.grad_layout(packed)
-        common = tensor_bytes(x.values(), packed.values())
+        common = tensor_bytes(x.values(), weights(packed))
         out[f"3-{build}-bf16"] = (t3, plain3, kloop.loop_forward_flops(cfm, B, M, N),
                                   kfwd.forward_fp32_flops(cfm, B, M, N),
                                   common + 4 * (B + B * M) + kloop.loop_forward_bytes(cfm, B, M, N))
@@ -5172,8 +5200,9 @@ def phase20_holds(qm9_model, mp2018, failures):
     #4's bf16 tall and wide d256 builds the same way at (4, 96, 32) and (3,
     40, 48), in their three schedules, at C = 1, 2, 4 at full depth and at
     the rule's C with one layer, pred there at 0.9 x as in phase 19); #5 on
-    one layer at (8, 96, 32) and (4,
-    40, 64) (the narrow build, atom blocks down to 8) and (8, 96, 96), (2,
+    one layer at (8, 96, 32), (4, 40, 64) and (3, 37, 12) (the narrow
+    build: one atom a chunk of 32 rows with two operand buffers, an atom of
+    64 rows with one, two atoms a chunk and a ragged last chunk) and (8, 96, 96), (2,
     73, 81) and (2, 32, 256) (the wide one), SCANN+, and SCANN at (8, 96,
     32) and (8, 96, 96), f32 and bf16 tensors, each relaunched into
     NaN-filled outputs (``hold_wide_layer``). Returns {build: worst f32
@@ -5249,10 +5278,14 @@ def phase20_holds(qm9_model, mp2018, failures):
                     note(worst16, build4, w4)
             del x
         for g_update, (B, M, N) in ((True, (8, 96, 32)), (True, (4, 40, 64)),
+                                    (True, (3, 37, 12)),
                                     (True, (8, 96, 96)), (True, (2, 73, 81)),
                                     (True, (2, 32, 256)), (False, (8, 96, 32)),
                                     (False, (8, 96, 96))):
-            args = layer_inputs(rng, B, M, N, D, mp.num_head, g_update)
+            # the (3, 37, 12) layer draws from a generator of its own, so that
+            # the batches drawn after it are the ones they were before it
+            args = layer_inputs(rng if N != 12 else np.random.default_rng(D), B, M, N, D,
+                                mp.num_head, g_update)
             if N > 64:
                 wide_masks(args[3])
             kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
@@ -5264,15 +5297,33 @@ def phase20_holds(qm9_model, mp2018, failures):
     return worst, worst16
 
 
+def turns_ms(plain, kernels, plain_reps=2, kernel_reps=5):
+    """One set of turns: plain, each kernel of ``kernels`` (name -> call),
+    each again in the reverse order, plain (``plain_reps`` and
+    ``kernel_reps`` calls a round, after one warm-up call each), so that a
+    drift of the card's clock falls on all alike. Returns ({name: kernel
+    ms}, plain ms), medians."""
+    for fn in [plain, *kernels.values()]:
+        fn()
+    torch.cuda.synchronize()
+    p = cuda_times(plain, plain_reps, warmup=0)
+    kt = {k: [] for k in kernels}
+    for k in list(kernels) + list(kernels)[::-1]:
+        kt[k] += cuda_times(kernels[k], kernel_reps, warmup=0)
+    p += cuda_times(plain, plain_reps, warmup=0)
+    return {k: statistics.median(v) for k, v in kt.items()}, statistics.median(p)
+
+
 def phase20_times(qm9_model, mp2018, card):
-    """The *_d256 builds at D = G = O = 256 against their plain versions,
-    in turns (plain, kernel, kernel, plain), and in bf16 in turns with f32
-    (f32, bf16, bf16, f32): #1 at QM9 (128, 32, 16), #3 at MP2018 (64, 96,
+    """The *_d256 builds at D = G = O = 256, each in one set of turns with
+    its plain version and its bf16 mode (plain, f32, bf16, bf16, f32,
+    plain: ``turns_ms``): #1 at QM9 (128, 32, 16), #3 at MP2018 (64, 96,
     32) (the build the gate picks: tall) and (16, 80, 96) (wide), #5 at one
-    MP2018 layer (64, 96, 32) and at (8, 96, 96). Returns {build: timing}
-    with the bound (``bound_ms``: the products as three TF32 passes, the
-    energies and context at FP32, or the bytes; in bf16 the products once
-    at the BF16 rate, ``bf16_bound_ms``)."""
+    MP2018 layer (64, 96, 32) and at (8, 96, 96) (on bf16 tensors, and
+    ``ms_back_to_back``: 20 launches between two events). Returns {build:
+    timing} with the bound (``bound_ms``: the products as three TF32
+    passes, the energies and context at FP32, or the bytes; in bf16 the
+    products once at the BF16 rate, ``bf16_bound_ms``)."""
     import dataclasses
 
     from scann_tpu_torch.kernels import local_attention as kla
@@ -5284,28 +5335,33 @@ def phase20_times(qm9_model, mp2018, card):
     qm9, mp = widened(qm9_model, 256, 256, 256), widened(mp2018, 256, 256, 256)
     bf16 = lambda cfm: dataclasses.replace(cfm, dtype="bfloat16")
     out = {}
+
+    def row(build, what, plain, runs, flops, nbytes, fp32, **extra):
+        with torch.inference_mode():
+            ms, plain_ms = turns_ms(plain, runs)
+        bound, by, measured = bound_ms(flops, nbytes, fp32)
+        bound16 = bound_ms(flops, nbytes, fp32, bf16=True)[0]
+        print(f"{build} at {what} D=256{''.join(f' {k}={v}' for k, v in extra.items())} (timed "
+              f"in turns: plain, f32, bf16, bf16, f32, plain): kernel {ms['f32']:.4f} ms, bf16 "
+              f"{ms['bf16']:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, bound "
+              f"{bound:.4f} ms by {by} ({100 * bound / ms['f32']:.1f}% of it reached)  [{card}]",
+              flush=True)
+        out[build] = {"ms": ms["f32"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                      "measured_bound_ms": measured, "flops": flops, "bf16_ms": ms["bf16"],
+                      "bf16_f32_ms": ms["f32"], "bf16_bound_ms": bound16, **extra}
+
     # #1 at the QM9 serving shape
     p = init_params(qm9, torch.Generator().manual_seed(0), "cuda")
     packed = kfwd.pack_params(p, qm9)
     x = synthetic_batch(rng, 128, 32, 16)
     B, M, N = 128, 32, 16
-    with torch.inference_mode():
-        kfwd._check_inputs(x, qm9, packed["wde"].device)
-        ms, plain_ms = in_turns_ms(lambda: kfwd.reference_scann_forward(p, x, qm9),
-                                   lambda: kfwd._launch(packed, x, qm9, False), 3, 10)
-        ms16, f32_ms = in_turns_ms(lambda: kfwd._launch(packed, x, qm9, False),
-                                   lambda: kfwd._launch(packed, x, bf16(qm9), False), 10, 10)
-    flops, fp32 = kfwd.forward_flops(qm9, B, M, N), kfwd.forward_fp32_flops(qm9, B, M, N)
-    nbytes = tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
-    bound, by, measured = bound_ms(flops, nbytes, fp32)
-    out["scann_forward_d256"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                 "bound_by": by, "measured_bound_ms": measured, "flops": flops,
-                                 "bf16_ms": ms16, "bf16_f32_ms": f32_ms,
-                                 "bf16_bound_ms": bound_ms(flops, nbytes, fp32, bf16=True)[0]}
-    print(f"scann_forward_d256 at QM9 B={B} M={M} N={N} D=256: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (in turns), bf16 {ms16:.4f} ms beside f32 {f32_ms:.4f} ms (in "
-          f"turns), {flops:.4e} FLOP, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of "
-          f"it reached)  [{card}]", flush=True)
+    kfwd._check_inputs(x, qm9, packed["wde"].device)
+    row("scann_forward_d256", f"QM9 B={B} M={M} N={N}",
+        lambda: kfwd.reference_scann_forward(p, x, qm9),
+        {"f32": lambda: kfwd._launch(packed, x, qm9, False),
+         "bf16": lambda: kfwd._launch(packed, x, bf16(qm9), False)},
+        kfwd.forward_flops(qm9, B, M, N), tensor_bytes(x.values(), weights(packed))
+        + 4 * (B + B * M), kfwd.forward_fp32_flops(qm9, B, M, N))
     del x
     # #3 at the MP2018 recipe bucket (the tall build) and at (16, 80, 96) (the wide one)
     p = init_params(mp, torch.Generator().manual_seed(0), "cuda")
@@ -5313,37 +5369,34 @@ def phase20_times(qm9_model, mp2018, card):
     for B, M, N in ((64, 96, 32), (16, 80, 96)):
         x = (synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 32
              else wide_batch(rng, B, M, N, mp))
-        build = kloop.forward_library(mp, M, N)[0]
-        t = next(iter(time_loop_forward(f"MP2018 D=256", mp, x, card).values()))
-        C = t.pop("cluster")
-        with torch.inference_mode():
-            ms16, f32_ms = in_turns_ms(
-                lambda: kloop._launch(packed, x, mp, False, 0.0, 0, 0, C),
-                lambda: kloop._launch(packed, x, bf16(mp), False, 0.0, 0, 0, C), 10, 10)
-        nbytes = (tensor_bytes(x.values(), packed.values()) + 4 * (B + B * M)
-                  + kloop.loop_forward_bytes(mp, B, M, N))
-        t.update({"bf16_ms": ms16, "bf16_f32_ms": f32_ms, "cluster": C,
-                  "bf16_bound_ms": bound_ms(t["flops"], nbytes,
-                                            kfwd.forward_fp32_flops(mp, B, M, N), bf16=True)[0]})
-        print(f"{build} at MP2018 B={B} M={M} N={N} D=256 C={C}: bf16 {ms16:.4f} ms beside "
-              f"f32 {f32_ms:.4f} ms (in turns)  [{card}]", flush=True)
-        out[build] = t
-        del x
+        kfwd._check_inputs(x, mp, packed["wde"].device)
+        C = kloop.forward_cluster(mp, B, M, N)
+        scratch = kloop.loop_forward_scratch(mp, B, M, N, "cuda", C)
+        row(kloop.forward_library(mp, M, N)[0], f"MP2018 B={B} M={M} N={N}",
+            lambda: kloop.reference_loop_forward(p, x, mp),
+            {"f32": lambda: kloop._launch(packed, x, mp, False, 0.0, 0, 0, C, scratch),
+             "bf16": lambda: kloop._launch(packed, x, bf16(mp), False, 0.0, 0, 0, C, scratch)},
+            kloop.loop_forward_flops(mp, B, M, N),
+            tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * M)
+            + kloop.loop_forward_bytes(mp, B, M, N), kfwd.forward_fp32_flops(mp, B, M, N),
+            cluster=C)
+        del x, scratch
     # #5 at one MP2018 layer and at (8, 96, 96)
     for B, M, N in ((64, 96, 32), (8, 96, 96)):
         args = layer_inputs(rng, B, M, N, 256, mp.num_head, True)
-        t = time_local_attention(args, card)
         args16 = layer_cast(args, torch.bfloat16)
-        args32 = layer_cast(args16, torch.float32)     # the same values in f32
-        with torch.inference_mode():
-            ms16, f32_ms = in_turns_ms(lambda: kla._launch(*args32), lambda: kla._launch(*args16),
-                                       10, 10)
+        centers, idx, geometry, mask, weight, params, H, _, g_update = args
+        nbytes = (tensor_bytes([centers, idx, geometry, mask], params.values())
+                  + 4 * (centers.numel() + B * M * N * H + geometry.numel()))
         build = kla.library(N, 256)
-        print(f"{build} at B={B} M={M} N={N} D=256: bf16 tensors {ms16:.4f} ms beside f32 "
-              f"{f32_ms:.4f} ms (in turns)  [{card}]", flush=True)
-        t.update({"bf16_ms": ms16, "bf16_f32_ms": f32_ms})
-        out[build] = t
-        del args, args16, args32
+        row(build, f"B={B} M={M} N={N}", lambda: kla.reference_local_attention(*args),
+            {"f32": lambda: kla._launch(*args), "bf16": lambda: kla._launch(*args16)},
+            kla.layer_flops(B, M, N, 256, True, geometry.shape[-1]), nbytes,
+            kla.layer_fp32_flops(B, M, N, 256),
+            atom_block=kla.make_plan(B, M, N, 256, H, True, kla.sm_count(centers.device))[0])
+        with torch.inference_mode():
+            out[build]["ms_back_to_back"] = back_to_back_ms(lambda: kla._launch(*args))
+        del args, args16
     return out
 
 
@@ -5583,7 +5636,7 @@ def time_d256_turns(build, name, cfm, x, card, bf16=False):
     plain_ms = {k: statistics.median(v) for k, v in pt.items()}
     flops = kloop.loop_backward_flops(cfm, B, M, N)
     _, P = kbwd.grad_layout(packed)
-    nbytes = tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B)
+    nbytes = tensor_bytes(x.values(), weights(packed)) + 4 * B + 4 * (P + B)
     bound, by, measured = bound_ms(flops, nbytes, kbwd.backward_fp32_flops(cfm, B, M, N))
     for k in ("f32", "recompute"):
         print(f"scann_loop_backward ({build}) at {name} B={B} M={M} N={N} L={cfm.n_attention} "
@@ -6233,11 +6286,72 @@ def d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_model, mp2018):
                                            scratch, C, stash=mode), 5, warmup=2))
         _, P = kbwd.grad_layout(packed)
         bound, by, _ = bound_ms(kloop.loop_backward_flops(cfm, B, M, N),
-                                tensor_bytes(x.values(), packed.values()) + 4 * B + 4 * (P + B),
+                                tensor_bytes(x.values(), weights(packed)) + 4 * B + 4 * (P + B),
                                 kbwd.backward_fp32_flops(cfm, B, M, N),
                                 bf16=cfm.dtype == "bfloat16")
         out[label] = {"ms": ms, "C": C, "bound_ms": bound, "bound_by": by}
         del scratch, x
+    return out
+
+
+def d256_forward_ab(kloop, kla, kfwd, init_params, mp2018, saved=None):
+    """``--backward-ab``'s times of the tall #3 and the narrow #5 past 128
+    columns, with the checkout's modules: #3 at MP2018 (B, 96, 32), B = 1,
+    16 and 64, f32 and bf16, at the checkout's own cluster size, and #5 at
+    one MP2018 layer (64, 96, 32) and at (8, 256, 32), f32 and bf16 tensors
+    (10 timed launches after 3): label -> {ms,
+    bound_ms, bound_by} (#5: {ms, plan}). With ``saved`` (a dict), one
+    launch's outputs of each, #3 at MP2018 (4, 96, 32) and C = 2, #5 at (4,
+    48, 32), for ``--ab-compare``."""
+    import dataclasses
+
+    mp = widened(mp2018, 256, 256, 256)
+    bf16 = dataclasses.replace(mp, dtype="bfloat16")
+    packed = kfwd.pack_params(init_params(mp, torch.Generator().manual_seed(0), "cuda"), mp)
+    out = {}
+    for B in (1, 16, 64):
+        x = synthetic_batch(np.random.default_rng(250), B, 96, 32, n_atoms=mp.n_atoms,
+                            min_atoms=20)
+        flops = kloop.loop_forward_flops(mp, B, 96, 32)
+        nbytes = (tensor_bytes(x.values(), weights(packed))
+                  + 4 * (B + B * 96) + kloop.loop_forward_bytes(mp, B, 96, 32))
+        for cfm in (mp, bf16):
+            C = kloop.forward_cluster(cfm, B, 96, 32)
+            scratch = kloop.loop_forward_scratch(cfm, B, 96, 32, "cuda", C)
+            with torch.inference_mode():
+                ms = statistics.median(cuda_times(
+                    lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 10,
+                    warmup=3))
+            bound, by, _ = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, 96, 32),
+                                    bf16=cfm is bf16)
+            out[f"3-d256 {cfm.dtype} MP2018 ({B}, 96, 32) C={C}"] = {
+                "ms": ms, "bound_ms": bound, "bound_by": by}
+            del scratch
+    for B, M in ((64, 96), (8, 256)):
+        args = layer_inputs(np.random.default_rng(251), B, M, 32, 256, mp.num_head, True)
+        for dt in (torch.float32, torch.bfloat16):
+            typed = layer_cast(args, dt)
+            with torch.inference_mode():
+                ms = statistics.median(cuda_times(lambda: kla._launch(*typed), 10, warmup=3))
+            out[f"5-d256 {str(dt)[6:]} ({B}, {M}, 32)"] = {
+                "ms": ms, "plan": list(kla.make_plan(B, M, 32, 256, mp.num_head, True,
+                                                     kla.sm_count(args[0].device),
+                                                     dt == torch.bfloat16))}
+        del args, typed
+    if saved is not None:
+        x = synthetic_batch(np.random.default_rng(252), 4, 96, 32, n_atoms=mp.n_atoms,
+                            min_atoms=20)
+        for name, cfm in (("scann_loop_tall_d256", mp), ("scann_loop_tall_d256_bf16", bf16)):
+            scratch = kloop.loop_forward_scratch(cfm, 4, 96, 32, "cuda", 2)
+            with torch.inference_mode():
+                saved[name] = [t.cpu() for t in kloop._launch(packed, x, cfm, False, 0.0, 0, 0,
+                                                              2, scratch)]
+        args = layer_inputs(np.random.default_rng(253), 4, 48, 32, 256, mp.num_head, True)
+        with torch.inference_mode():
+            for name, dt in (("local_attention_d256", torch.float32),
+                             ("local_attention_d256_bf16", torch.bfloat16)):
+                saved[name] = [None if t is None else t.cpu()
+                               for t in kla._launch(*layer_cast(args, dt))]
     return out
 
 
@@ -6281,8 +6395,12 @@ def backward_ab(root, out_path=None):
     in both f32 schedules, the recipe bucket (64, 80, 96) in the recompute
     schedule, the bf16 builds, at the checkout's own cluster size and the
     wide one at C = 4 too, ``out["d256"]``) and with OUT saves their
-    gradients at a fixed C = 2 (``AB_WITHIN``). Run the turns A, B, B, A,
-    each a process of its own."""
+    gradients at a fixed C = 2 (``AB_WITHIN``). Times the tall #3 and the
+    narrow #5 past 128 columns (``d256_forward_ab``: #3 at MP2018 (B, 96,
+    32), B = 1, 16, 64, #5 at one MP2018 layer and (8, 256, 32), f32 and
+    bf16, ``out["d256_forward"]``) and with OUT saves their outputs (#3 at
+    C = 2), held bit for bit. Run the turns A, B, B, A, each a process of
+    its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6412,6 +6530,9 @@ def backward_ab(root, out_path=None):
     # plan's); each at the checkout's own cluster size unless named, beside
     # its bound (``loop_backward_flops``)
     out["d256"] = d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_config(), mp2018)
+    # the tall #3 and the narrow #5 past 128 columns (the 32-column products)
+    out["d256_forward"] = d256_forward_ab(kloop, kla, kfwd, init_params, mp2018,
+                                          saved if out_path else None)
     # #3's tall and wide builds at B = 1, 16 and the recipe batch of 64, in f32
     # and bf16, at the checkout's own cluster size
     out["forward"] = {}
@@ -6691,7 +6812,7 @@ def tall_table(out_path=None):
         del scratch
         _, P = kbwd.grad_layout(packed)
         flops = kloop.loop_backward_flops(cfm, B, M, N)
-        bound, by, _ = bound_ms(flops, tensor_bytes(x.values(), packed.values()) + 4 * B
+        bound, by, _ = bound_ms(flops, tensor_bytes(x.values(), weights(packed)) + 4 * B
                                 + 4 * (P + B), kbwd.backward_fp32_flops(cfm, B, M, N))
         row = {"shape": [name, B, M, N], "cluster": kloop.cluster_size(B),
                "schedule": mode or "recompute", "narrow_ms": narrow_ms, "tall_ms": tall_ms,

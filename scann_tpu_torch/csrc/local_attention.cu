@@ -70,6 +70,20 @@
 //   row products, which their 32-row passes read again; on an H100 that is
 //   ~10% faster at (64, 96, 96) than the f32 layout, and the keys in shared
 //   memory and the second buffer buy no time there.
+// - Past 128 columns, the narrow build (local_attention_d256.cu, d256_block):
+//   chunks of at most 32 rows (kD256ChunkRows: one atom at N = 32, an atom
+//   alone past it), so that two operand buffers fit beside the slots of 16
+//   atoms at D = 256 (199,680 B; 232,448 B with the bf16 raw area): the
+//   next chunk is staged by cp.async while this one runs, the first while
+//   the block forms its queries; bfloat16 rows land in a raw area and are
+//   converted once the chunk is done (one buffer, staged in the open, where
+//   two do not fit: N past 32 at D = 256). MP2018 (64, 96, 32) takes 16
+//   atoms a block (384 blocks, 2.9 waves; 48 atoms with one buffer cost the
+//   same waves and lose the tie). Every product, the head's too, is
+//   mma_gemm_w32 (scann_mma.cuh) on packed TF32 planes of Wfg, Wk and Wq
+//   that the wrapper splits once (kernels/local_attention.py layer_planes;
+//   f32 on bfloat16 tensors too, where lo is zero), so the outputs are the
+//   parent layout's bits whatever the plan.
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
 //   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0. The
 //   *_d256 builds (SCANN_WIDTH_256: 8 values a lane) take D up to 256, the
@@ -116,6 +130,9 @@ struct Args {
   T* out;                 // [B, M, D]
   T* geo_out;             // [B, M, N, D] (SCANN+)
   T* attn;                // [B, M, N, H]
+  // the narrow build past 128 columns: the packed TF32 planes of Wfg, Wk and
+  // Wq (layer_plane_floats, tf32_planes of the wrapper); null elsewhere
+  const float* planes;
   int B, M, N, D, H, K, g_update, atom_block, chunk_atoms;
   float dk;               // hd ** -scale
 };
@@ -152,6 +169,67 @@ inline Plan make_plan(int B, int M, int N, int D, int H, int g_update, int n_sm)
     const long long blocks = (long long)B * ((M + AB - 1) / AB);
     const long long cost = (blocks + n_sm - 1) / n_sm * AB;
     if (best_cost < 0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The narrow build past 128 columns (local_attention_d256.cu): chunks of at
+// most 32 rows (one atom at N = 32; an atom of N rows past 32), so that two
+// operand buffers fit beside the slots of 16 atoms at D = 256: the next chunk
+// is staged into one while this one runs in the other. On bfloat16 tensors a
+// raw area [rows, 2D] of bfloat16 takes the next chunk's rows by cp.async,
+// converted into the free buffer once this chunk is done. Where two buffers
+// (and the raw area) do not fit, one buffer staged in the open, as the
+// builds up to 128 columns stage. The front holds the block's centers for
+// the head products, then a chunk's product and attention.
+constexpr int kD256ChunkRows = 32;
+
+struct D256Plan {
+  int atom_block, chunk_atoms, buffers, offA, offA1, offR, work, total;
+};
+
+__host__ __device__ inline D256Plan d256_plan_for(int AB, int N, int D, int H, int g_update,
+                                                  int bf16) {
+  D256Plan p;
+  p.atom_block = AB;
+  const int fit = kD256ChunkRows / N;
+  p.chunk_atoms = fit < 1 ? 1 : fit < AB ? fit : AB;
+  const int rows = p.chunk_atoms * N;
+  const int chunk = rows * (D + 4) + round4(rows * H), centers = AB * (D + 4);
+  const int front = chunk > centers ? chunk : centers;
+  const int slots = (g_update ? 2 : 1) * AB * (D + 4), buf = rows * (2 * D + 4);
+  p.buffers = 2;
+  p.offA = front;
+  p.offA1 = front + buf;
+  p.offR = front + 2 * buf;
+  p.work = p.offR + (bf16 ? rows * D : 0);
+  p.total = slots + p.work;
+  if (p.total * (int)sizeof(float) > kMaxSharedBytes) {
+    p.buffers = 1;
+    p.offA1 = p.offA;
+    p.offR = p.work = front + buf;
+    p.total = slots + p.work;
+  }
+  return p;
+}
+
+// make_plan of the narrow build past 128 columns: kAtomBlocks by the same
+// cost, each with d256_plan_for's layout; where two cost the same, the one
+// with two operand buffers (its staging hides behind the products), then the
+// larger block.
+inline D256Plan make_d256_plan(int B, int M, int N, int D, int H, int g_update, int bf16,
+                               int n_sm) {
+  D256Plan best = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long best_cost = -1;
+  for (int AB : kAtomBlocks) {
+    const D256Plan p = d256_plan_for(AB, N, D, H, g_update, bf16);
+    if (p.total * (int)sizeof(float) > kMaxSharedBytes) continue;
+    const long long blocks = (long long)B * ((M + AB - 1) / AB);
+    const long long cost = (blocks + n_sm - 1) / n_sm * AB;
+    if (best_cost < 0 || cost < best_cost || (cost == best_cost && p.buffers > best.buffers)) {
       best = p;
       best_cost = cost;
     }
@@ -431,6 +509,155 @@ __device__ __forceinline__ void wide_block(const Args<T>& a, float* wide_keys) {
   }
 }
 
+#ifdef SCANN_WIDTH_256
+// 8 bytes from global to shared memory (cp.async, through L1)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The narrow build past 128 columns on bfloat16 tensors: a chunk's rows
+// [0, rows) as they are, into the raw area [rows, 2D] (the geometry's G
+// columns at 0, a multiple of 4, the neighbours' states at D), by cp.async,
+// without a wait.
+__device__ __forceinline__ void stage_raw(const Args<__nv_bfloat16>& a, __nv_bfloat16* raw,
+                                          const __nv_bfloat16* cen, const int* nbr,
+                                          const __nv_bfloat16* geo, int rows) {
+  const int tid = threadIdx.x, D = a.D, G = a.g_update ? D : a.K, g4 = G / 4, q4 = D / 4;
+  for (int i = tid; i < rows * g4; i += kThreads) {
+    const int r = i / g4, c = (i - r * g4) * 4;
+    cp_async8(raw + r * 2 * D + c, geo + (size_t)r * G + c);
+  }
+  for (int i = tid; i < rows * q4; i += kThreads) {
+    const int r = i / q4, c = (i - r * q4) * 4;
+    cp_async8(raw + r * 2 * D + D + c, cen + (size_t)__ldg(nbr + r) * D + c);
+  }
+}
+
+// The raw area's rows as f32 into the operand buffer sA, as stage_chunk
+// converts them. The caller synchronises before and after.
+__device__ __forceinline__ void convert_raw(const Args<__nv_bfloat16>& a,
+                                            const __nv_bfloat16* raw, float* sA, int rows) {
+  const int tid = threadIdx.x, D = a.D, G = a.g_update ? D : a.K, g4 = G / 4, q4 = D / 4;
+  const int n = g4 + q4, lda = 2 * D + 4;
+  for (int i = tid; i < rows * n; i += kThreads) {
+    const int r = i / n, q = i - r * n, c = q < g4 ? 4 * q : D + 4 * (q - g4);
+    const uint2 u = *reinterpret_cast<const uint2*>(raw + r * 2 * D + c);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    store4(sA + r * lda + c, make_float4(x.x, x.y, y.x, y.y));
+  }
+}
+
+// The narrow build's block past 128 columns (local_attention_d256.cu), on
+// d256_plan_for's layout: the block's centers staged into the front, chunk 0
+// in flight while the block forms cw (SCANN+) and the queries, then chunk j
+// runs in buffer j & 1 while chunk j + 1 is staged into the other (f32 rows
+// by cp.async straight into it; bfloat16 rows into the raw area, converted
+// once chunk j is done; in the open where the plan has one buffer or an RBF
+// of K not a multiple of 4 is staged from bfloat16). Every product is
+// mma_gemm_w32 on the packed TF32 planes a.planes, so the outputs are those
+// of the builds up to 128 columns bit for bit.
+template <typename T>
+__device__ __forceinline__ void d256_block(const Args<T>& a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr bool kRaw = sizeof(T) != sizeof(float);
+  const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block, CA = a.chunk_atoms;
+  const int lds = D + 4, q4 = D / 4, G = a.g_update ? D : a.K, tid = threadIdx.x;
+  const D256Plan P = d256_plan_for(AB, N, D, H, a.g_update, kRaw);
+  float* sQ = smem;                                    // query, then out   [AB, D + 4]
+  float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
+  float* work = sW + (a.g_update ? AB * lds : 0);
+  float* sU = work;                     // the centers, then the chunk product [rows, D + 4]
+  float* sE = sU + CA * N * lds;                       // attention         [rows, H]
+  float* const buf0 = work + P.offA;                   // operand buffers   [rows, 2D + 4]
+  float* const buf1 = work + P.offA1;
+  auto buf = [&](int j) { return (j & 1) ? buf1 : buf0; };
+  const int blocks_per_structure = (M + AB - 1) / AB;
+  const int b = blockIdx.x / blocks_per_structure;
+  const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
+  const ChunkDims cd = {N, D, H, a.K, a.g_update, 0, a.dk};
+  const RowPlanes pl = row_planes(a.planes, D, a.K, a.g_update);
+
+  const T* centers_b = a.centers + (size_t)b * M * D;
+  const int* nbr = a.nbr + (size_t)b * M * N;
+  const T* geometry = a.geometry + (size_t)b * M * N * G;
+  const T* nmask = a.nmask + (size_t)b * M * N;
+  const T* nweight = a.nweight + (size_t)b * M * N;
+  T* geo_out = a.geo_out + (size_t)b * M * N * D;
+  T* attn = a.attn + (size_t)b * M * N * H;
+
+  const int chunks = (ab + CA - 1) / CA;
+  const bool in_open = P.buffers == 1 || (kRaw && !a.g_update && (a.K & 3));
+  auto rows_of = [&](int j) { return min(CA, ab0 + ab - (ab0 + j * CA)) * N; };
+  auto base_of = [&](int j) { return (size_t)(ab0 + j * CA) * N; };
+  auto issue = [&](int j) {   // chunk j on its way, unless it is staged in the open
+    if (in_open || j >= chunks) return;
+    const size_t base = base_of(j);
+    if constexpr (kRaw)
+      stage_raw(a, reinterpret_cast<__nv_bfloat16*>(work + P.offR), centers_b, nbr + base,
+                geometry + base * G, rows_of(j));
+    else
+      stage_wide(a, buf(j), centers_b, nbr + base, geometry + base * G, rows_of(j));
+  };
+  auto land = [&](int j) {    // chunk j in buffer j & 1, after a barrier
+    const size_t base = base_of(j);
+    if (in_open) {
+      stage_chunk(a, buf(j), centers_b, nbr + base, geometry + base * G, rows_of(j));
+      return;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (kRaw) {
+      convert_raw(a, reinterpret_cast<const __nv_bfloat16*>(work + P.offR), buf(j), rows_of(j));
+      __syncthreads();
+    }
+  };
+
+  // the block's centers, then chunk 0 in flight while the block forms cw =
+  // centers @ Wfg[0:D] (SCANN+) and the query
+  for (int i = tid; i < ab * q4; i += kThreads) {
+    const int m = i / q4, c = (i - m * q4) * 4;
+    stage4(sU + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  issue(0);
+  if (a.g_update)
+    mma_gemm_w32<false>(sU, lds, ab, D, pl.cw, D,
+                        [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+  mma_gemm_w32<false>(sU, lds, ab, D, pl.q, D, [&](int r, int c, float4 v) {
+    const T* bq = a.bq + c;
+    store4(sQ + r * lds + c, make_float4(v.x + to_float(bq[0]), v.y + to_float(bq[1]),
+                                         v.z + to_float(bq[2]), v.w + to_float(bq[3])));
+  });
+  land(0);
+
+  for (int j = 0; j < chunks; ++j) {
+    const int m0 = ab0 + j * CA, ca = min(CA, ab0 + ab - m0);
+    const size_t base = base_of(j);
+    issue(j + 1);
+    fwd_chunk_w32(cd, a.w, ca, buf(j), sU, sE, sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds,
+                  nmask + base, nweight + base, a.g_update ? geo_out + base * D : nullptr,
+                  attn + base * H, [](int, int, int) { return 1.0f; }, pl);
+    if (j + 1 < chunks) land(j + 1);
+  }
+
+  for (int i = tid; i < ab * q4; i += kThreads) {
+    const int m = i / q4, c = (i - m * q4) * 4;
+    T* o = a.out + ((size_t)b * M + ab0 + m) * D + c;
+    const float* v = sQ + m * lds + c;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      store4(reinterpret_cast<float*>(o), *reinterpret_cast<const float4*>(v));
+    } else {
+      __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(q);
+    }
+  }
+}
+#endif  // SCANN_WIDTH_256
+
 // one block per SM (its shared memory takes most of the SM), so the compiler
 // may spend up to 255 registers a thread. kWide: N > kFwdMaxChunkRows, the
 // wide build (local_attention_wide.cu), wide_block.
@@ -439,6 +666,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 local_attention_kernel(const Args<T> a, float* wide_keys) {
   if constexpr (kWide) {
     wide_block(a, wide_keys);
+  } else if constexpr (kLaneValues > 4) {   // the narrow build past 128 columns
+#ifdef SCANN_WIDTH_256
+    d256_block(a);
+#endif
   } else {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -528,6 +759,9 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
   a.geo_out = (T*)ptrs[i++];
   a.attn = (T*)ptrs[i++];
   float* wide_keys = (float*)ptrs[i++];
+  // only the narrow build past 128 columns takes pointer 19, its planes
+  constexpr bool kNarrowD256 = !kWide && kLaneValues > 4;
+  a.planes = kNarrowD256 ? (const float*)ptrs[i++] : nullptr;
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4]; a.K = dims[5];
   a.g_update = dims[6];
   const int n_sm = dims[7];
@@ -549,6 +783,15 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
     // not in shared memory
     if (a.atom_block != plan.atom_block || a.chunk_atoms != 1 || dims[10] != bytes ||
         (wide_keys == nullptr) != (plan.smem_keys != 0))
+      return kErrShape;
+  } else if constexpr (kNarrowD256) {
+    const D256Plan plan = make_d256_plan(a.B, a.M, a.N, a.D, a.H, a.g_update,
+                                         sizeof(T) != sizeof(float), n_sm);
+    if (plan.atom_block == 0) return kErrSharedMemory;
+    bytes = plan.total * (int)sizeof(float);
+    // the wrapper's plan is this one, with the weights' TF32 planes
+    if (a.atom_block != plan.atom_block || a.chunk_atoms != plan.chunk_atoms ||
+        dims[10] != bytes || a.planes == nullptr)
       return kErrShape;
   } else {
     const Plan plan = make_plan(a.B, a.M, a.N, a.D, a.H, a.g_update, n_sm);
@@ -572,7 +815,9 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 // ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
 // bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn, the wide
 // key scratch [blocks, N, D] (f32; null in the narrow build, and in the wide
-// one where its plan keeps the keys in shared memory) (every other
+// one where its plan keeps the keys in shared memory), in the narrow
+// build past 128 columns the packed TF32 planes of Wfg, Wk and Wq (f32,
+// layer_plane_floats; no other build takes a pointer 19) (every other
 // float tensor f32 for local_attention_launch, bfloat16 for
 // local_attention_bf16_launch);
 // dims: B, M, N, D, H, K, g_update, the card's SM count, and the wrapper's

@@ -10,7 +10,10 @@
 // float64 product), the block's 8 warps splitting the output columns 16 each,
 // so a weight element leaves L2 once per 32 rows. The chunk's operand buffers
 // have row strides of 2D + 4 and D + 4 floats (4 mod 32), which keeps the
-// fragment reads free of bank conflicts.
+// fragment reads free of bank conflicts. The tall #3 and the narrow #5 past
+// 128 columns take fwd_chunk_w32 instead: the same chunk with its products
+// in the 32-column layout (mma_gemm_w32) on TF32 planes of the weights
+// (RowPlanes), bit for bit the same outputs.
 //
 // The serial tails of the chunk: energies and the softmax over N <= 64
 // neighbours one warp per (atom, head) (lane n holds neighbours n and n + 32,
@@ -353,6 +356,45 @@ __device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, 
   __syncthreads();
 }
 
+// The packed TF32 planes (tf32_planes of the wrappers, w32_plane_floats
+// each) of one layer's products for the 32-column layout: cw = centers @
+// Wfg[0:D] (SCANN+), the geometry or filter product's Wfg[D:3D] (SCANN+) or
+// Wfg (SCANN), Wk and Wq, one after the other in that order.
+struct RowPlanes {
+  const float* cw;
+  const float* fg;
+  const float* k;
+  const float* q;
+};
+
+// The planes of a layer whose packed planes start at p.
+__device__ __forceinline__ RowPlanes row_planes(const float* p, int D, int K, int g_update) {
+  RowPlanes r;
+  r.cw = p;
+  r.fg = g_update ? p + w32_plane_floats(D, D) : p;
+  r.k = r.fg + w32_plane_floats(g_update ? 2 * D : K, D);
+  r.q = r.k + w32_plane_floats(D, D);
+  return r;
+}
+
+// The floats of one layer's packed planes (LocalAttention's four blocks).
+__host__ __device__ inline size_t layer_plane_floats(int D, int K, int g_update) {
+  return (g_update ? w32_plane_floats(D, D) + w32_plane_floats(2 * D, D)
+                   : w32_plane_floats(K, D)) + 2 * w32_plane_floats(D, D);
+}
+
+// A row product in mma_gemm's layout (kW32 false: on W) or the 32-column
+// one (on W's packed planes).
+template <bool kW32, bool kBf16, typename T, typename Epi>
+__device__ __forceinline__ void row_gemm(const float* A, int lda, int rows, int K, const T* W,
+                                         const float* planes, int ldw, int nc, Epi epi) {
+  if constexpr (kW32) {
+    mma_gemm_w32<kBf16>(A, lda, rows, K, planes, nc, epi);
+  } else {
+    mma_gemm<kBf16>(A, lda, rows, K, W, ldw, nc, epi);
+  }
+}
+
 // LocalAttention of one staged chunk of ca atoms x N neighbours (rows = ca * N
 // <= 64), called by the whole block. sCW [ca, ldq] holds centers @ Wfg[0:D]
 // of the chunk's atoms (SCANN+), sQ [ca, ldq] their queries; nmask and
@@ -362,17 +404,19 @@ __device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, 
 // neighbour mask and the dropout; drop(atom, n, h) is the factor of the
 // attention dropout. kBf16: the operand mode; T: the element type of the
 // weights, masks and outputs. Ends with a barrier.
-template <bool kBf16 = false, typename T, typename Drop>
-__device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeightsT<T>& w, int ca,
-                                          float* sA, float* sU, float* sE, const float* sCW,
-                                          float* sQ, int ldq, const T* nmask, const T* nweight,
-                                          T* geo_out, T* attn_out, Drop drop) {
+template <bool kW32, bool kBf16, typename T, typename Drop>
+__device__ __forceinline__ void fwd_chunk_impl(const ChunkDims& a, const LayerWeightsT<T>& w,
+                                               int ca, float* sA, float* sU, float* sE,
+                                               const float* sCW, float* sQ, int ldq,
+                                               const T* nmask, const T* nweight, T* geo_out,
+                                               T* attn_out, Drop drop, const RowPlanes& pl) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4, ldu = D + 4;
   const int rows = ca * N;
   if (a.g_update) {
     // u = cw + [geo | ns] @ Wfg[D:3D] + b; geo' = LN_g(swish(u) + geo); kin = ns * geo'
-    mma_gemm<kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+    row_gemm<kW32, kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, pl.fg, D, D,
+                          [&](int r, int c, float4 v) {
       const float* cw = sCW + (r / N) * ldq + c;
       const T* b = w.bfg + c;
       store4(sU + r * ldu + c,
@@ -417,7 +461,8 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
     }
   } else {
     // kin = ns * (swish(rbf(d) @ Wfg + b) * weight)
-    mma_gemm<kBf16>(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
+    row_gemm<kW32, kBf16>(sA, lda, rows, a.K, w.wfg, pl.fg, D, D,
+                          [&](int r, int c, float4 v) {
       const float* ns = sA + r * lda + D + c;
       const T* b = w.bfg + c;
       const float wt = to_float(nweight[r]);
@@ -430,7 +475,8 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
   }
   __syncthreads();
   // key = kin @ Wk + bk, into the neighbour half of sA
-  mma_gemm<kBf16>(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+  row_gemm<kW32, kBf16>(sU, ldu, rows, D, w.wk, pl.k, D, D,
+                        [&](int r, int c, float4 v) {
     const T* b = w.bk + c;
     store4(sA + r * lda + D + c, make_float4(v.x + to_float(b[0]), v.y + to_float(b[1]),
                                              v.z + to_float(b[2]), v.w + to_float(b[3])));
@@ -511,6 +557,28 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
       if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
   }
   __syncthreads();
+}
+
+template <bool kBf16 = false, typename T, typename Drop>
+__device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeightsT<T>& w, int ca,
+                                          float* sA, float* sU, float* sE, const float* sCW,
+                                          float* sQ, int ldq, const T* nmask, const T* nweight,
+                                          T* geo_out, T* attn_out, Drop drop) {
+  fwd_chunk_impl<false, kBf16>(a, w, ca, sA, sU, sE, sCW, sQ, ldq, nmask, nweight, geo_out,
+                               attn_out, drop, RowPlanes{});
+}
+
+// fwd_chunk with its row products in the 32-column layout (mma_gemm_w32) on
+// the layer's packed TF32 planes pl: the two builds redesigned at 256
+// columns. The same outputs, bit for bit.
+template <bool kBf16 = false, typename T, typename Drop>
+__device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWeightsT<T>& w,
+                                              int ca, float* sA, float* sU, float* sE,
+                                              const float* sCW, float* sQ, int ldq,
+                                              const T* nmask, const T* nweight, T* geo_out,
+                                              T* attn_out, Drop drop, const RowPlanes& pl) {
+  fwd_chunk_impl<true, kBf16>(a, w, ca, sA, sU, sE, sCW, sQ, ldq, nmask, nweight, geo_out,
+                              attn_out, drop, pl);
 }
 
 // The wide form of fwd_chunk for one atom whose N neighbours (64 < N <=
@@ -685,20 +753,24 @@ __device__ __forceinline__ void fwd_stage_embedding(const ForwardArgs& a, int b,
 // mask(c-quad) is the residual dropout of row r, and out(r, v) takes each
 // finished row as a warp's kLaneValues values per lane (v[i] at column lane +
 // 32 i).
-// kBf16: the operand mode.
-template <bool kBf16, typename Mask, typename Out>
+// kBf16: the operand mode; kW32: the two products in the 32-column layout
+// on the packed TF32 planes p1 and p2 of W1 and W2.
+template <bool kBf16, bool kW32 = false, typename Mask, typename Out>
 __device__ __forceinline__ void fwd_residual_norm(const ForwardArgs& a, int l, int ab,
                                                   const float* sO, float* sH1, float* sH2, int ld,
-                                                  Mask mask, Out out) {
+                                                  Mask mask, Out out, const float* p1 = nullptr,
+                                                  const float* p2 = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, D = a.D;
   const float* br1 = a.br1 + (size_t)l * D;
   const float* br2 = a.br2 + (size_t)l * D;
-  mma_gemm<kBf16>(sO, ld, ab, D, a.wr1 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+  row_gemm<kW32, kBf16>(sO, ld, ab, D, a.wr1 + (size_t)l * D * D, p1, D, D,
+                        [&](int r, int c, float4 v) {
     store4(sH1 + r * ld + c, make_float4(swishf(v.x + br1[c]), swishf(v.y + br1[c + 1]),
                                          swishf(v.z + br1[c + 2]), swishf(v.w + br1[c + 3])));
   });
   __syncthreads();
-  mma_gemm<kBf16>(sH1, ld, ab, D, a.wr2 + (size_t)l * D * D, D, D, [&](int r, int c, float4 v) {
+  row_gemm<kW32, kBf16>(sH1, ld, ab, D, a.wr2 + (size_t)l * D * D, p2, D, D,
+                        [&](int r, int c, float4 v) {
     const float4 m = mask(r, c);
     store4(sH2 + r * ld + c, make_float4((v.x + br2[c]) * m.x, (v.y + br2[c + 1]) * m.y,
                                          (v.z + br2[c + 2]) * m.z, (v.w + br2[c + 3]) * m.w));

@@ -80,7 +80,17 @@
 //   kLaneValues of scann_common.cuh); the wrapper halves the tall build's
 //   chunks to 32 rows where 64 do not fit, and the wide build takes N >
 //   kTallMaxN = 32 there. Their arithmetic is the builds' of widths up to
-//   128 but for the wide context, one thread a column over all N.
+//   128 but for the wide context, one thread a column over all N. The tall
+//   one (kW32) runs its row products, its cw and query products and its
+//   ResidualNorm in the 32-column layout (mma_gemm_w32 of scann_mma.cuh: a
+//   warp owns 32 output columns, so a 256-column row is one pass and each
+//   left operand value is split once), on packed TF32 planes of each layer's
+//   Wfg, Wk, Wq, W1 and W2 split once by the wrapper (planes, kernel
+//   argument 4; the bf16 mode reads their bfloat16 plane); the operands and
+//   order of sums are mma_gemm's, so its outputs are the same bits. The
+//   products are bound by instruction issue there (a phase split on an H100:
+//   70% of the time, and 4 integer ops in place of each mma.sync made it
+//   slower), and the layout issues fewer of them per mma.
 // - The readout: the narrow build runs after_Lc, the GA queries and keys,
 //   the scores, the pooled context and the head over all M atoms in every
 //   block of the cluster, in the same order. In the tall and wide builds
@@ -134,6 +144,21 @@ constexpr int kTallMaxN = kLaneValues > 4 ? 32 : kFwdMaxChunkRows;
 constexpr bool kTall = true;
 #else
 constexpr bool kTall = false;
+#endif
+// The tall build past 128 columns (scann_loop_tall_d256.cu) runs its row and
+// per-atom products in the 32-column layout (mma_gemm_w32), on the packed
+// TF32 planes of each layer's Wfg, Wk, Wq, W1 and W2 that the wrapper makes
+// (tf32_planes), in both operand modes; only its kernel takes them as a
+// fourth argument, so every other build's kernel is the one it was.
+#if defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)
+constexpr bool kW32 = true;
+#define SCANN_LOOP_TAKES_PLANES
+#define SCANN_LOOP_PLANES_PARAM , const float* planes
+#define SCANN_LOOP_PLANES_ARG , planes
+#else
+constexpr bool kW32 = false;
+#define SCANN_LOOP_PLANES_PARAM
+#define SCANN_LOOP_PLANES_ARG
 #endif
 
 // Shared-memory plan, in floats: centers [M, wd] (none in the tall and wide
@@ -250,10 +275,16 @@ inline Plan plan_of(const ForwardArgs& a) {
 // atom's GA keys, then its GA queries, written by the block that owns the
 // atom), followed in the wide build whose plan keeps the atom's keys out of
 // shared memory by each block's keys [B * C, N, D]; null in the narrow build.
+// planes: the kW32 build's packed TF32 planes of each layer's products
+// (row_planes' four blocks, then the ResidualNorm's W1 and W2); null
+// elsewhere.
 template <bool kBf16, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
+scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP_PLANES_PARAM) {
   constexpr bool kL2 = kTall || kWide;
+#ifndef SCANN_LOOP_TAKES_PLANES
+  const float* const planes = nullptr;   // read under kW32 only
+#endif
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan<kWide>(a);
@@ -426,6 +457,12 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
     const float* cen = kL2 ? centers_of(l) : sC;
     const int ldc = kL2 ? D : wd;
     float* out_b = kL2 ? centers_of(l + 1) : next_b;
+    // kW32: the layer's packed planes (LocalAttention's, then the
+    // ResidualNorm's W1 and W2), made where they are used, so that no
+    // register holds them across the layer
+    auto layer_planes = [&]() {
+      return planes + (layer_plane_floats(D, a.K, a.g_update) + 2 * w32_plane_floats(D, D)) * l;
+    };
     // tall: the layer's chunks run in order, each staged into one of two
     // operand buffers while the chunk before it runs in the other, from the
     // indices the ring took in one chunk earlier. The first chunk is staged
@@ -478,13 +515,24 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
         __syncthreads();
         cb = work;
       }
-      if (a.g_update)
-        mma_gemm<kBf16>(cb, wd, ab, D, w.wfg, D, D,
-                        [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
-      mma_gemm<kBf16>(cb, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
-        store4(sQ + r * lds + c,
-               make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
-      });
+      if constexpr (kW32) {
+        const RowPlanes pl = row_planes(layer_planes(), D, a.K, a.g_update);
+        if (a.g_update)
+          mma_gemm_w32<kBf16>(cb, wd, ab, D, pl.cw, D,
+                              [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+        mma_gemm_w32<kBf16>(cb, wd, ab, D, pl.q, D, [&](int r, int c, float4 v) {
+          store4(sQ + r * lds + c,
+                 make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
+        });
+      } else {
+        if (a.g_update)
+          mma_gemm<kBf16>(cb, wd, ab, D, w.wfg, D, D,
+                          [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+        mma_gemm<kBf16>(cb, wd, ab, D, wq, D, D, [&](int r, int c, float4 v) {
+          store4(sQ + r * lds + c,
+                 make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
+        });
+      }
       __syncthreads();
 
       if constexpr (kWide) {
@@ -517,14 +565,26 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
           const int n0 = next_chunk(m0), n1 = n0 < m_hi ? next_chunk(n0) : m_hi;
           if (n1 < m_hi) fetch_ring(cur, n1 * N, chunk_atoms(n1) * N);
           if (n0 < m_hi) stage(cur ^ 1, ring_idx(cur ^ 1), n0 * N, chunk_atoms(n0) * N);
-          fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, chunk_buf(cur), sU, sE,
-                    sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds, nmask + base,
-                    nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
-                    [&](int at, int n, int h) {
-                      return scann_philox::mask_value(
-                          a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
-                          a.attn_threshold, a.attn_scale);
-                    });
+          if constexpr (kW32)
+            fwd_chunk_w32<kBf16, float>(
+                forward_chunk_dims(a), w, ca, chunk_buf(cur), sU, sE, sW + (m0 - ab0) * lds,
+                sQ + (m0 - ab0) * lds, lds, nmask + base, nweight + base,
+                l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+                [&](int at, int n, int h) {
+                  return scann_philox::mask_value(
+                      a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                      a.attn_threshold, a.attn_scale);
+                },
+                row_planes(layer_planes(), D, a.K, a.g_update));
+          else
+            fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, chunk_buf(cur), sU, sE,
+                      sW + (m0 - ab0) * lds, sQ + (m0 - ab0) * lds, lds, nmask + base,
+                      nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+                      [&](int at, int n, int h) {
+                        return scann_philox::mask_value(
+                            a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                            a.attn_threshold, a.attn_scale);
+                      });
           if (n0 < m_hi) wait(cur ^ 1, chunk_atoms(n0) * N);
           cur ^= 1;
         }
@@ -544,14 +604,26 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2) {
       }
 
       // ResidualNorm of the block: next = LN(out + swish(out @ W1 + b1) @ W2 + b2)
-      fwd_residual_norm<kBf16>(a, l, ab, sQ, sW, work, lds,
-                        [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
-                        [&](int m, const float (&v)[kLaneValues]) {
+      if constexpr (kW32) {
+        const float* r1 = layer_planes() + layer_plane_floats(D, a.K, a.g_update);
+        fwd_residual_norm<kBf16, true>(
+            a, l, ab, sQ, sW, work, lds, [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
+            [&](int m, const float (&v)[kLaneValues]) {
 #pragma unroll
-                          for (int i = 0; i < kLaneValues; ++i)
-                            if (lane + 32 * i < D)
-                              out_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
-                        });
+              for (int i = 0; i < kLaneValues; ++i)
+                if (lane + 32 * i < D) out_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
+            },
+            r1, r1 + w32_plane_floats(D, D));
+      } else {
+        fwd_residual_norm<kBf16>(a, l, ab, sQ, sW, work, lds,
+                          [&](int r, int c) { return mask4(1 + l, ab0 + r, c); },
+                          [&](int m, const float (&v)[kLaneValues]) {
+#pragma unroll
+                            for (int i = 0; i < kLaneValues; ++i)
+                              if (lane + 32 * i < D)
+                                out_b[(size_t)(ab0 + m) * D + lane + 32 * i] = v[i];
+                          });
+      }
     }
 
     // every atom of the structure has gathered from this layer's input and
@@ -780,6 +852,8 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // packed), pointer 51, the tall and wide builds' readout rows [B, M, 2G]
 // (the wide build's per-block keys [B * C, N, D] right after them where its
 // plan keeps the keys out of shared memory), null in the narrow one,
+// in the tall build past 128 columns pointer 52, the packed TF32 planes of
+// the layers' Wfg, Wk, Wq, W1 and W2 (no other build takes a pointer 52),
 // size 20, the atom block, size 21, the
 // segments per slot S, size 22, the bf16 operand mode (0 or 1), and size 23,
 // the blocks per structure C; in the order
@@ -856,6 +930,10 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   a.next_centers = (float*)ptrs[49];
   a.seg = (const int*)ptrs[50];
   float* l2 = (float*)ptrs[51];
+#ifdef SCANN_LOOP_TAKES_PLANES
+  const float* planes = (const float*)ptrs[52];
+  if (planes == nullptr) return kErrShape;
+#endif
   a.atom_block = dims[20];
   a.S = dims[21];
   const int bf16 = dims[22];
@@ -885,7 +963,7 @@ extern "C" int SCANN_LOOP_ENTRY(launch)(void* const* ptrs, const int* dims, cons
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cluster_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a, C, l2);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, C, l2 SCANN_LOOP_PLANES_ARG);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -23,6 +23,27 @@
 // output columns of rows g and g + 8 and hands them to the epilogue as one
 // float4, as tile_gemm does.
 //
+// The 32-column layout (mma_gemm_w32), taken by the two builds redesigned at
+// 256 columns (the tall #3 and the narrow #5 past 128 columns), whose row
+// products are bound by instruction issue: a warp owns 32 output columns,
+// four n-tiles (tile j holds columns 4g + j), so at 256 columns the 8 warps
+// cover a row in one pass and each A value is read from shared memory and
+// split once a k-step, not once for every 16 columns. Its weights come as
+// TF32 planes split once where the launch packs them (tf32_planes of the
+// wrappers: hi = w rounded to TF32, lo = w - hi, so hi + lo == w, and w
+// rounded to bfloat16 for the bf16 operand mode), in the order the lanes
+// read them: a lane loads its 4 columns of one k-value as one float4 a
+// plane, with one pointer step a half, no bounds checks (zero padding) and
+// no other address arithmetic; k-values 2 and 3 of the next 16 load while
+// this half's first m16n8k8 step runs, 0 and 1 into the registers that step
+// frees. The lane hands lo over as split_tf32 does (its bits + 0x1000), and
+// each half's partial starts from a zero accumulator as mma_gemm's does, so
+// every fragment, and every sum in its order, is mma_gemm's bit for bit. A
+// lane ends with 8 consecutive columns of rows g and g + 8: two float4s
+// each. Its accumulators and partials take 64 registers a thread, 32 more
+// than mma_gemm's, so the tall #3 spills more of the pointers it keeps
+// across a chunk (PERF.md §6), none inside the loop.
+//
 // The bf16 operand mode (kBf16 of mma_gemm and mma_gemm_tB; the whole-model
 // forwards at model.dtype "bfloat16", scann_tpu/kernels/dots.py): each
 // operand element is rounded to bfloat16 (bf16r) and a tile is ONE TF32 pass.
@@ -69,6 +90,16 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b (mma_tf32 into a zero accumulator, without zeroing c first)
+__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 // The bits of x rounded to bfloat16: a TF32 operand that is exact.
@@ -288,6 +319,184 @@ __device__ __forceinline__ void mma_gemm_tB(const float* A, int lda, int rows, i
                                             const float* __restrict__ W, int ldw, int nc,
                                             int nvalid, Epi epi) {
   mma_gemm_body<true, kBf16>(A, lda, rows, K, W, ldw, nc, nvalid, epi);
+}
+
+__device__ __forceinline__ float pick4(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The packed TF32 planes of one weight W [R, nc] (kernels/scann_forward.py
+// tf32_planes), in the order mma_gemm_w32 reads them: for each group of 32
+// output columns and each half s of each step of 32 k-values (R and nc
+// padded with zeros to multiples of 32), kW32Quads float4s a lane: q = 4p +
+// i is plane p's row k = 32 (s / 2) + 8t + 4 (s % 2) + i at the lane's 4
+// columns 32 G + 4g .. + 3, where plane 0 is hi = W rounded to TF32, plane 1
+// lo = W - hi and plane 2 W rounded to bfloat16 (the bf16 operand mode's B
+// operand); the lanes' float4s of one q lie side by side, so a load is 512
+// contiguous bytes and a lane's next half is one pointer step on.
+constexpr int kW32Quads = 12;
+constexpr int kW32Block = kW32Quads * 32 * 4;   // floats of one half of one column group
+
+__host__ __device__ inline size_t w32_plane_floats(int R, int nc) {
+  return (size_t)((nc + 31) / 32) * 2 * ((R + 31) / 32) * kW32Block;
+}
+
+// mma_gemm in the 32-column layout above: out[r][c] = sum_k A[r * lda + k] *
+// W[k][c] for r < rows, c < nc (a multiple of 4), K <= R, W given as its
+// packed planes P, with mma_gemm's operands, passes and order of sums, so
+// the outputs are its bits (kBf16: the bf16 operand mode, one pass on
+// plane 2). A lives in shared memory as mma_gemm's. epi(r, c, v) takes each
+// finished quad; no barrier inside.
+template <bool kBf16, typename Epi>
+__device__ __forceinline__ void mma_gemm_w32(const float* A, int lda, int rows, int K,
+                                             const float* __restrict__ P, int nc, Epi epi) {
+  constexpr int kNt = 4;   // n-tiles a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  // mma_gemm's halves of each step of 32 k-values, in its order: in half s
+  // lane t holds k-values kc..kc+3, kc = 32 (s / 2) + 8t + 4 (s % 2)
+  const int steps = 2 * ((K + kMmaStage - 1) / kMmaStage);
+  const bool whole = (K & (kMmaStage - 1)) == 0;   // no k-value of A past K
+#pragma unroll 1
+  for (int n0 = warp * 8 * kNt; n0 < nc; n0 += kWarps * 8 * kNt) {
+    // the lane's float4s of the column group, half 0
+    const float4* pg = reinterpret_cast<const float4*>(P) +
+                       (size_t)(n0 / 32) * steps * (kW32Block / 4) + lane;
+    // k-value i of half s into bh, bl (hi and lo; kBf16: the bf16 plane)
+    auto load_b = [&](int s, int i, float4& bh, float4& bl) {
+      const float4* p = pg + (size_t)s * (kW32Block / 4);
+      if constexpr (kBf16) {
+        bh = __ldg(p + (8 + i) * 32);
+      } else {
+        bh = __ldg(p + i * 32);
+        bl = __ldg(p + (4 + i) * 32);
+      }
+    };
+    // up to 32 rows at a time (two m-tiles); taller operands take another pass
+#pragma unroll 1
+    for (int m0 = 0; m0 < rows; m0 += 16 * kMmaMTiles) {
+      float acc[kMmaMTiles][kNt][4];
+#pragma unroll
+      for (int mt = 0; mt < kMmaMTiles; ++mt)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+      // the lane's row g at its k-value 8t; rows g + 8 i lie 8 i lda on
+      const float* a0 = A + (m0 + g) * lda + 8 * t;
+      const int live = rows - m0 - g;   // row g + 8 i is in the operand where 8 i < live
+      // the current half's weights, and k-values 2 and 3 of the next half,
+      // which load a half and a half ahead; its k-values 0 and 1 load into
+      // the registers k-values 0 and 1 of this half free, once its first
+      // m16n8k8 step is done
+      float4 bh[4], bl[4], th[2], tl[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_b(0, i, bh[i], bl[i]);
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) {
+        const int ko = (s >> 1) * kMmaStage + 4 * (s & 1);   // kc - 8t
+        const bool more = s + 1 < steps;
+        if (more) {
+          load_b(s + 1, 2, th[0], tl[0]);
+          load_b(s + 1, 3, th[1], tl[1]);
+        }
+        // the half's products into a partial that starts from zero, then the
+        // partial into the sum
+        float part[kMmaMTiles][kNt][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          // the lane's k-values 2 kk, 2 kk + 1 of rows g and g + 8 of each m-tile
+          float2 av[kMmaMTiles][2];
+#pragma unroll
+          for (int mt = 0; mt < kMmaMTiles; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              av[mt][h] = 16 * mt + 8 * h < live && (whole || ko + 8 * t < K)
+                              ? *reinterpret_cast<const float2*>(a0 + (16 * mt + 8 * h) * lda +
+                                                                 ko + 2 * kk)
+                              : make_float2(0.f, 0.f);
+          // one m16n8k8 step: k-slot t is the lane's value 2 kk, slot t + 4 its value 2 kk + 1
+          if constexpr (kBf16) {
+            unsigned b[kNt][2];
+#pragma unroll
+            for (int j = 0; j < kNt; ++j) {
+              b[j][0] = __float_as_uint(pick4(bh[2 * kk], j));
+              b[j][1] = __float_as_uint(pick4(bh[2 * kk + 1], j));
+            }
+#pragma unroll
+            for (int mt = 0; mt < kMmaMTiles; ++mt) {
+              const float2 r0 = av[mt][0], r1 = av[mt][1];
+              const unsigned a[4] = {bf16_bits(r0.x), bf16_bits(r1.x), bf16_bits(r0.y),
+                                     bf16_bits(r1.y)};
+#pragma unroll
+              for (int j = 0; j < kNt; ++j) {
+                if (kk == 0) mma_tf32_first(part[mt][j], a, b[j][0], b[j][1]);
+                else mma_tf32(part[mt][j], a, b[j][0], b[j][1]);
+              }
+            }
+          } else {
+            unsigned bhi[kNt][2], blo[kNt][2];
+#pragma unroll
+            for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                bhi[j][q] = __float_as_uint(pick4(bh[2 * kk + q], j));
+                blo[j][q] = __float_as_uint(pick4(bl[2 * kk + q], j)) + 0x1000u;
+              }
+            }
+#pragma unroll
+            for (int mt = 0; mt < kMmaMTiles; ++mt) {
+              const float2 r0 = av[mt][0], r1 = av[mt][1];
+              unsigned ahi[4], alo[4];
+              split_tf32(r0.x, ahi[0], alo[0]);
+              split_tf32(r1.x, ahi[1], alo[1]);
+              split_tf32(r0.y, ahi[2], alo[2]);
+              split_tf32(r1.y, ahi[3], alo[3]);
+#pragma unroll
+              for (int j = 0; j < kNt; ++j) {
+                // mma_3xtf32, the first pass of the half into a zero partial
+                if (kk == 0) mma_tf32_first(part[mt][j], alo, bhi[j][0], bhi[j][1]);
+                else mma_tf32(part[mt][j], alo, bhi[j][0], bhi[j][1]);
+                mma_tf32(part[mt][j], ahi, blo[j][0], blo[j][1]);
+                mma_tf32(part[mt][j], ahi, bhi[j][0], bhi[j][1]);
+              }
+            }
+          }
+          if (kk == 0 && more) {
+            load_b(s + 1, 0, bh[0], bl[0]);
+            load_b(s + 1, 1, bh[1], bl[1]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMmaMTiles; ++mt)
+#pragma unroll
+          for (int j = 0; j < kNt; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][j][i] += part[mt][j][i];
+        if (more) {
+          bh[2] = th[0];
+          bh[3] = th[1];
+          bl[2] = tl[0];
+          bl[3] = tl[1];
+        }
+      }
+      // tile j, fragment column 2t (+1) is output column n0 + 8t + j (+4)
+      const int c = n0 + 8 * t;
+#pragma unroll
+      for (int mt = 0; mt < kMmaMTiles; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + mt * 16 + g + 8 * h;
+          if (r >= rows) continue;
+          if (c < nc)
+            epi(r, c, make_float4(acc[mt][0][2 * h], acc[mt][1][2 * h], acc[mt][2][2 * h],
+                                  acc[mt][3][2 * h]));
+          if (c + 4 < nc)
+            epi(r, c + 4, make_float4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
+                                      acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]));
+        }
+      }
+    }
+  }
 }
 
 // Gout[i * ldg + j] (+)= sum_{r < rows} X[r * ldx + i] * Y[r * ldy + j] for

@@ -84,9 +84,11 @@ MAX_WIDTH = 256      # past NARROW_WIDTH the *_d256 builds
 NARROW_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 ATOM_BLOCKS = (64, 48, 32, 16)
-# the narrow build's blocks past 128 columns: a 64-row chunk and 16 atoms'
-# slots outgrow a block at D = 256, N = 32 (kAtomBlocks of the d256 build)
+# the narrow build's blocks past 128 columns (kAtomBlocks of the d256 build),
+# in chunks of at most D256_CHUNK_ROWS rows (an atom of more N alone), two
+# operand buffers where they fit (d256_block_plan): 16 atoms at D = 256, N = 32
 D256_ATOM_BLOCKS = ATOM_BLOCKS + (8,)
+D256_CHUNK_ROWS = 32
 WIDE_ATOM_BLOCKS = (16, 8, 4, 2, 1)
 WIDE_ATOM_COST, WIDE_HEAD_COST = 20, 3   # the wide plan's cost of a wave: 20 AB + 3
 PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
@@ -214,6 +216,29 @@ def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple
     return chunk_atoms, 4 * ((2 if g_update else 1) * atom_block * (D + 4) + work)
 
 
+def d256_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
+                    bf16: bool = False) -> Tuple[int, int, int]:
+    """(atoms per chunk, operand buffers, shared bytes) of one block of
+    ``atom_block`` atoms of the narrow build past 128 columns --
+    ``d256_plan_for`` of the CUDA source. Chunks of at most
+    ``D256_CHUNK_ROWS`` rows (one atom of N rows past that); the slots, the
+    front (the block's centers [AB, D + 4] for the head products, then a
+    chunk's product [rows, D + 4] and attention [rows, H]) and two operand
+    buffers [rows, 2D + 4], with a raw area [rows, 2D] of bfloat16 (rows x D
+    floats) on ``bf16`` tensors, so that the next chunk is staged while one
+    runs; one buffer where that does not fit."""
+    r4 = lambda v: -(-v // 4) * 4
+    chunk_atoms = min(atom_block, max(1, D256_CHUNK_ROWS // N))
+    rows = chunk_atoms * N
+    front = max(rows * (D + 4) + r4(rows * H), atom_block * (D + 4))
+    slots = (2 if g_update else 1) * atom_block * (D + 4)
+    buf = rows * (2 * D + 4)
+    two = slots + front + 2 * buf + (rows * D if bf16 else 0)
+    if 4 * two <= MAX_SHARED_BYTES:
+        return chunk_atoms, 2, 4 * two
+    return chunk_atoms, 1, 4 * (slots + front + buf)
+
+
 def wide_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
                     bf16: bool = False) -> Optional[Tuple[int, bool, int]]:
     """(operand buffers, keys in shared memory, shared bytes) of one block of
@@ -245,8 +270,10 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     any other. A block takes a whole SM, so the B * ceil(M / AB) blocks run
     in ceil(blocks / n_sm) waves of AB atoms. The narrow build takes the
     atom block of ``ATOM_BLOCKS`` (``D256_ATOM_BLOCKS`` past 128 columns)
-    whose ``block_plan`` fits with the fewest atoms per SM, the larger where
-    two tie. The wide build (one atom a chunk, ``wide_block_plan`` on f32
+    whose ``block_plan`` (past 128 columns ``d256_block_plan``, on f32 or
+    ``bf16`` tensors) fits with the fewest atoms per SM, where two tie the
+    one with two operand buffers (past 128 columns), then the larger. The
+    wide build (one atom a chunk, ``wide_block_plan`` on f32
     or ``bf16`` tensors) takes the atom
     block of ``WIDE_ATOM_BLOCKS`` whose waves cost least, a wave costing
     ``WIDE_ATOM_COST`` x AB + ``WIDE_HEAD_COST`` (a block's head, its
@@ -257,6 +284,7 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     blocks = D256_ATOM_BLOCKS if D > NARROW_WIDTH else ATOM_BLOCKS
     for ab in WIDE_ATOM_BLOCKS if wide else blocks:
         waves = -(-B * -(-M // ab) // n_sm)
+        buffers = 1
         if wide:
             plan = wide_block_plan(ab, N, D, H, g_update, bf16)
             if plan is None:
@@ -264,15 +292,19 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
             chunk_atoms, nbytes = 1, plan[2]
             cost = waves * (WIDE_ATOM_COST * ab + WIDE_HEAD_COST)
         else:
-            chunk_atoms, nbytes = block_plan(ab, N, D, H, g_update)
+            if D <= NARROW_WIDTH:
+                chunk_atoms, nbytes = block_plan(ab, N, D, H, g_update)
+            else:
+                chunk_atoms, buffers, nbytes = d256_block_plan(ab, N, D, H, g_update, bf16)
             if nbytes > MAX_SHARED_BYTES:
                 continue
             cost = waves * ab
-        if best is None or cost < best[0] or (wide and cost == best[0]):
-            best = (cost, ab, chunk_atoms, nbytes)
+        if (best is None or cost < best[0] or (wide and cost == best[0])
+                or (cost == best[0] and buffers > best[1])):
+            best = (cost, buffers, ab, chunk_atoms, nbytes)
     if best is None:
         raise NotImplementedError(f"no atom block fits a block's shared memory at N={N}, D={D}")
-    return best[1:]
+    return best[2:]
 
 
 @functools.lru_cache(maxsize=None)
@@ -358,13 +390,36 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
             if is_wide(N) and not wide_block_plan(plan[0], N, D, num_head, g_update,
                                                   bool(bf16))[1]
             else None)
-    call_kernel(lib, lib + ("_bf16" if bf16 else ""), dev, tensors + [keys],
+    # the narrow build past 128 columns takes the packed TF32 planes as pointer 19
+    planes = [layer_planes(params, g_update)] if D > NARROW_WIDTH and not is_wide(N) else []
+    call_kernel(lib, lib + ("_bf16" if bf16 else ""), dev, tensors + [keys] + planes,
                 [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
     fused_local_attention.bf16_launches += bf16
     fused_local_attention.wide_launches += is_wide(N)
     fused_local_attention.d256_launches += D > NARROW_WIDTH
     return out, geo_out, attn
+
+
+def layer_planes(params: Params, g_update: bool) -> torch.Tensor:
+    """``kernels.scann_forward.layer_tf32_planes`` of the layer's Wfg, Wk and
+    Wq (f32), which the narrow build past 128 columns reads. Kept on the Wfg
+    tensor and made again when any of the three is another tensor or has
+    changed in place (its version counter; a tensor made in inference mode
+    has none and is split at every launch)."""
+    from scann_tpu_torch.kernels.scann_forward import layer_tf32_planes
+
+    ws = [params[k] for k in ("filter_geo/kernel", "key/kernel", "query/kernel")]
+    try:
+        key = (tuple(w._version for w in ws), g_update)
+    except RuntimeError:
+        return layer_tf32_planes(*ws, g_update)
+    kept = getattr(ws[0], "_scann_tf32_planes", None)
+    if kept is not None and kept[0] == key and all(a is b for a, b in zip(kept[1], ws[1:])):
+        return kept[2]
+    planes = layer_tf32_planes(*ws, g_update)
+    ws[0]._scann_tf32_planes = (key, ws[1:], planes)
+    return planes
 
 
 class _FusedLocalAttention(torch.autograd.Function):

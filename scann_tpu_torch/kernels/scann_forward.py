@@ -574,9 +574,60 @@ def check_supported(cfm: ModelConfig, M: int, N: int, S: int = 0) -> None:
         raise NotImplementedError(reason)
 
 
+def tf32_planes(w: torch.Tensor) -> torch.Tensor:
+    """The packed TF32 planes of a weight [..., R, C] -> [..., n], in the
+    order ``mma_gemm_w32`` of ``csrc/scann_mma.cuh`` reads them. Three
+    planes: hi, w rounded to TF32 as ``split_tf32`` rounds it (half a TF32
+    ulp added to the bits, the 13 low bits cleared), lo = w - hi (exact, so
+    hi + lo == w), and w rounded to bfloat16 (the bf16 operand mode's
+    operand). R and C are padded with zeros to multiples of 32; for each
+    group G of 32 columns and each half s of each step of 32 rows come 12
+    float4s a lane (plane p's row 32 (s // 2) + 8t + 4 (s % 2) + i at its
+    columns 32G + 4g .. + 3, lane 4g + t, as q = 4p + i), the lanes side by
+    side: [..., G, s, q, lane, 4]. The 32-column products of the tall #3 and
+    the narrow #5 past 128 columns read them: each weight split once where
+    it is packed, with the bits a split at use gives."""
+    w = w.detach().to(torch.float32)
+    *lead, R, C = w.shape
+    w = torch.nn.functional.pad(w, (0, -C % 32, 0, -R % 32)).contiguous()
+    hi = ((w.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    p = torch.stack([hi, w - hi, w.to(torch.bfloat16).to(torch.float32)], dim=-3)
+    n = len(lead)
+    # [plane, s2, t, h, i, G, g, j] -> [G, s2, h, plane, i, g, t, j]
+    p = p.reshape(*lead, 3, p.shape[-2] // 32, 4, 2, 4, p.shape[-1] // 32, 8, 4)
+    p = p.permute(*range(n), *(n + a for a in (5, 1, 3, 0, 4, 6, 2, 7)))
+    return p.reshape(*lead, -1).contiguous()
+
+
+def unpack_tf32_planes(p: torch.Tensor, R: int, C: int) -> torch.Tensor:
+    """The three planes [..., 3, R, C] of ``tf32_planes`` output for a
+    weight [..., R, C] (the inverse of its packing)."""
+    lead = p.shape[:-1]
+    n = len(lead)
+    Rp, Cp = R + -R % 32, C + -C % 32
+    q = p.reshape(*lead, Cp // 32, Rp // 32, 2, 3, 4, 8, 4, 4)
+    # [G, s2, h, plane, i, g, t, j] -> [plane, s2, t, h, i, G, g, j]
+    q = q.permute(*range(n), *(n + a for a in (3, 1, 6, 2, 4, 0, 5, 7)))
+    return q.reshape(*lead, 3, Rp, Cp)[..., :R, :C]
+
+
+def layer_tf32_planes(wfg: torch.Tensor, wk: torch.Tensor, wq: torch.Tensor,
+                      g_update: bool) -> torch.Tensor:
+    """``tf32_planes`` of one layer's products (or of [L, ...] stacked
+    layers) one after the other, as ``row_planes`` of
+    ``csrc/scann_forward_common.cuh`` finds them: Wfg[0:D] (cw) and
+    Wfg[D:3D] for SCANN+, Wfg for SCANN, then Wk and Wq."""
+    D = wk.shape[-1]
+    blocks = ([wfg[..., :D, :], wfg[..., D:, :]] if g_update else [wfg]) + [wk, wq]
+    return torch.cat([tf32_planes(b) for b in blocks], dim=-1)
+
+
 def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, torch.Tensor]:
     """Everything the kernel reads besides the batch: stacked layer params,
-    the other weights, the RBF centers; contiguous f32 on the params' device."""
+    the other weights, the RBF centers; contiguous f32 on the params' device.
+    Past 128 columns (``is_d256``) also each layer's ``layer_tf32_planes``
+    followed by the ``tf32_planes`` of its ResidualNorm's W1 and W2, [L, n]
+    ("tf32_planes"), which the tall #3 reads there."""
     dev = params["dense_embed/kernel"].device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     p = {k: f32(v) for k, v in stack_layer_params(params, cfm.n_attention,
@@ -600,6 +651,9 @@ def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, 
             p[f"b{short}"] = f32(params[f"{name}/bias"])
         p["angle_centers"] = f32(torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)))
     p["dist_centers"] = f32(torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)))
+    if is_d256(cfm):
+        p["tf32_planes"] = torch.cat([layer_tf32_planes(p["wfg"], p["wk"], p["wq"], cfm.g_update),
+                                      tf32_planes(p["wr1"]), tf32_planes(p["wr2"])], dim=-1)
     return p
 
 

@@ -639,7 +639,9 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
-    kfwd.call_kernel(library, symbol, dev, tensors + [scratch["next_centers"], seg, rows],
+    # the tall build past 128 columns takes the packed TF32 planes as pointer 52
+    planes = [packed["tf32_planes"]] if tall and kfwd.is_d256(cfm) else []
+    kfwd.call_kernel(library, symbol, dev, tensors + [scratch["next_centers"], seg, rows] + planes,
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
     launch_loop_forward.bf16_launches += bf16

@@ -1,0 +1,287 @@
+"""The forward builds redesigned at 256 columns, the tall #3
+(``csrc/scann_loop_tall_d256.cu``) and the narrow #5
+(``csrc/local_attention_d256.cu``), on the CPU: what their launches are
+handed and planned, and their plain versions against the JAX package.
+
+- The packed TF32 planes of the products' weights (``kfwd.tf32_planes``):
+  hi + lo == w in f32, hi with its 13 low bits clear and equal to the split
+  the kernels made at every use (``split_tf32`` of ``csrc/scann_mma.cuh``),
+  lo 0 for a bfloat16 weight, the bf16 plane w rounded; element by element
+  in the order ``mma_gemm_w32`` reads them; ``pack_params`` holds a layer's
+  (``layer_tf32_planes``) past 128 columns only, and ``kla.layer_planes``
+  keeps them on the weight until it changes.
+- The plans: #5's narrow plan past 128 columns (``kla.d256_block_plan``,
+  ``make_plan``) term by term at the published widths, within 232,448 B,
+  two operand buffers of 32 rows at MP2018 (AB = 16), and the CUDA
+  source's terms; #3's tall plan at the MP2018 recipe bucket.
+- The launches (a stub in place of the CUDA library): the planes handed to
+  the tall #3 (both operand modes) and to the narrow #5, and to no other
+  build.
+- The plain versions of #3 and #5 at D = 256 against the JAX kernels in
+  interpret mode at N = 16 and 32, rtol 1e-5 / atol 1e-6, as
+  ``tests/test_torch_widths.py`` (#5's updated geometry at atol 2e-6: f32
+  noise of a LayerNorm over 256 columns, ``GEO_ATOL``).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_synthetic_batch
+from scann_tpu.kernels import local_attention as jla
+from scann_tpu.kernels.scann_loop import loop_scann_forward as jax_loop_forward
+from scann_tpu_torch.kernels import _build
+from scann_tpu_torch.kernels import local_attention as kla
+from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.models import init_params
+from test_torch_widths import MP2018, _flat_params, _layer_inputs, _setup, _torch
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-6
+# The updated geometry at D = 256 is a LayerNorm over 256 columns of values of
+# order 1, whose f32 rounding in XLA and in PyTorch differs by up to ~8 ulps
+# there (1.05e-6 on one of 163,840 values at N = 32): its atol is 2e-6.
+GEO_ATOL = 2e-6
+
+
+def _split_at_use(w: np.ndarray):
+    """split_tf32 of csrc/scann_mma.cuh in numpy: hi, and the bits of lo as
+    the kernels hand them to the tensor cores (13 low bits ignored)."""
+    bits = w.astype(np.float32).view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    lo = ((w - hi).astype(np.float32).view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return hi, lo
+
+
+def _plane_floats(R, C):
+    """w32_plane_floats of csrc/scann_mma.cuh."""
+    return -(-C // 32) * 2 * -(-R // 32) * 12 * 32 * 4
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e4])
+def test_torch_d256_tf32_planes_split_once(scale):
+    rng = np.random.default_rng(int(scale * 7) + 1)
+    w = (scale * rng.normal(size=(3, 40, 36))).astype(np.float32)
+    packed = kfwd.tf32_planes(torch.from_numpy(w))
+    assert packed.shape == (3, _plane_floats(40, 36)) and packed.dtype == torch.float32
+    planes = kfwd.unpack_tf32_planes(packed, 40, 36).numpy()
+    hi, lo, b16 = planes[:, 0], planes[:, 1], planes[:, 2]
+    assert np.array_equal(hi + lo, w)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+    want_hi, want_lo = _split_at_use(w)
+    assert np.array_equal(hi.view(np.uint32), want_hi.view(np.uint32))
+    got_lo = (lo.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    assert np.array_equal(got_lo, want_lo)
+    assert torch.equal(torch.from_numpy(b16), torch.from_numpy(w).bfloat16().float())
+
+
+def test_torch_d256_tf32_planes_of_bf16_weights():
+    """A bfloat16 weight is exact in TF32: hi is the weight, lo is 0."""
+    w = torch.randn(16, 8, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
+    planes = kfwd.unpack_tf32_planes(kfwd.tf32_planes(w), 16, 8)
+    assert torch.equal(planes[0], w.float()) and not planes[1].any()
+    assert torch.equal(planes[2], w.float())
+
+
+def test_torch_d256_tf32_planes_in_the_order_the_lanes_read():
+    """Element by element, the float ``mma_gemm_w32`` reads for column group
+    G, half s, quad q = 4 plane + i, lane 4g + t and column j is plane
+    ``plane``'s row 32 (s // 2) + 8t + 4 (s % 2) + i at column 32G + 4g + j,
+    zero in the padding."""
+    R, C = 70, 72
+    w = torch.randn(R, C, generator=torch.Generator().manual_seed(4))
+    flat = kfwd.tf32_planes(w)
+    planes = kfwd.unpack_tf32_planes(flat, R, C)
+    S = 2 * -(-R // 32)
+    idx = torch.arange(flat.numel())
+    j, lane = idx % 4, (idx // 4) % 32
+    q, rest = (idx // 128) % 12, idx // (128 * 12)
+    s, G = rest % S, rest // S
+    g, t_, plane, i = lane // 4, lane % 4, q // 4, q % 4
+    k = 32 * (s // 2) + 8 * t_ + 4 * (s % 2) + i
+    n = 32 * G + 4 * g + j
+    inside = (k < R) & (n < C)
+    want = torch.zeros_like(flat)
+    want[inside] = planes[plane[inside], k[inside], n[inside]]
+    assert torch.equal(flat, want)
+
+
+@pytest.mark.parametrize("D,planes", [(128, False), (256, True), (136, True)])
+def test_torch_d256_pack_params_holds_the_planes(D, planes):
+    cfm = dataclasses.replace(MP2018, n_attention=2, local_dim=D, global_dim=D, dense_out=D)
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0)), cfm)
+    assert ("tf32_planes" in packed) == planes
+    if planes:
+        want = torch.cat([kfwd.layer_tf32_planes(packed["wfg"], packed["wk"], packed["wq"], True),
+                          kfwd.tf32_planes(packed["wr1"]), kfwd.tf32_planes(packed["wr2"])], -1)
+        n = _plane_floats(D, D) * 5 + _plane_floats(2 * D, D)    # row_planes' blocks, W1, W2
+        assert packed["tf32_planes"].shape == (2, n)
+        assert torch.equal(packed["tf32_planes"], want)
+        wfg = packed["wfg"][1]
+        first = kfwd.unpack_tf32_planes(packed["tf32_planes"][1, :_plane_floats(D, D)], D, D)
+        assert torch.equal(first[0] + first[1], wfg[:D])
+
+
+def test_torch_d256_layer_planes_are_kept_until_the_weight_changes():
+    rng = np.random.default_rng(5)
+    params = _flat_params(_layer_inputs(rng, 1, 4, 8, 256, True)[5])
+    first = kla.layer_planes(params, True)
+    assert kla.layer_planes(params, True) is first
+    params["key/kernel"].mul_(2.0)
+    again = kla.layer_planes(params, True)
+    assert again is not first
+    assert torch.equal(again, kfwd.layer_tf32_planes(params["filter_geo/kernel"],
+                                                     params["key/kernel"],
+                                                     params["query/kernel"], True))
+    other = dict(params, **{"query/kernel": params["query/kernel"].clone()})
+    assert kla.layer_planes(other, True) is not again
+    scann = kla.layer_planes(dict(params, **{"filter_geo/kernel": params["key/kernel"][:20]}),
+                             False)
+    assert scann.shape == (_plane_floats(20, 256) + 2 * _plane_floats(256, 256),)
+
+
+# --- plans ---------------------------------------------------------------------
+
+def _d256_terms(AB, N, D, H, g_update, bf16):
+    """d256_plan_for of csrc/local_attention.cu, term by term."""
+    ca = min(AB, max(1, 32 // N))
+    rows = ca * N
+    front = max(rows * (D + 4) + -(-rows * H // 4) * 4, AB * (D + 4))
+    slots = (2 if g_update else 1) * AB * (D + 4)
+    two = slots + front + 2 * rows * (2 * D + 4) + (rows * D if bf16 else 0)
+    if 4 * two <= kla.MAX_SHARED_BYTES:
+        return ca, 2, 4 * two
+    return ca, 1, 4 * (slots + front + rows * (2 * D + 4))
+
+
+@pytest.mark.parametrize("N", [8, 12, 16, 24, 32, 48, 64])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_d256_layer_plan_fits_and_matches_its_terms(N, bf16, g_update):
+    for AB in kla.D256_ATOM_BLOCKS:
+        plan = kla.d256_block_plan(AB, N, 256, 8, g_update, bf16)
+        assert plan == _d256_terms(AB, N, 256, 8, g_update, bf16)
+        assert plan[0] * N <= max(kla.D256_CHUNK_ROWS, N)
+    for B, M in ((1, 48), (8, 96), (8, 256), (64, 96)):
+        ab, ca, nbytes = kla.make_plan(B, M, N, 256, 8, g_update, 132, bf16)
+        assert ab in kla.D256_ATOM_BLOCKS and nbytes <= kla.MAX_SHARED_BYTES
+        assert (ca, nbytes) == kla.d256_block_plan(ab, N, 256, 8, g_update, bf16)[::2]
+
+
+def test_torch_d256_layer_plan_at_mp2018():
+    """One MP2018 layer at D = 256 (64, 96, 32): atom blocks of 16 (not 8),
+    chunks of one atom, two operand buffers; 48 atoms cost the same waves
+    with one buffer and lose the tie."""
+    assert kla.make_plan(64, 96, 32, 256, 8, True, 132) == (16, 1, 199680)
+    assert kla.make_plan(64, 96, 32, 256, 8, True, 132, True) == (16, 1, 232448)
+    assert kla.d256_block_plan(48, 32, 256, 8, True)[1] == 1
+    assert kla.make_plan(8, 256, 32, 256, 8, True, 132) == (16, 1, 199680)
+    assert kla.make_plan(64, 96, 64, 256, 8, True, 132)[0] == 8     # one buffer of 64 rows
+    assert kla.make_plan(64, 96, 32, 128, 8, True, 132) == (    # up to 128: as it was
+        48, *kla.block_plan(48, 32, 128, 8, True))
+
+
+def test_torch_d256_plans_match_cuda_sources():
+    with open(f"{_build.SRC_DIR}/local_attention.cu") as f:
+        la = f.read()
+    assert "constexpr int kD256ChunkRows = 32;" in la and kla.D256_CHUNK_ROWS == 32
+    assert "const int fit = kD256ChunkRows / N;" in la
+    assert "p.work = p.offR + (bf16 ? rows * D : 0);" in la
+    assert "(cost == best_cost && p.buffers > best.buffers)" in la
+    with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
+        loop = f.read()
+    assert ("#if defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)\nconstexpr bool kW32 = true;"
+            in loop)
+    assert "#ifdef SCANN_LOOP_TAKES_PLANES\n  const float* planes = (const float*)ptrs[52];" in loop
+    with open(f"{_build.SRC_DIR}/scann_mma.cuh") as f:
+        mma = f.read()
+    assert "constexpr int kW32Quads = 12;" in mma
+    assert "return (size_t)((nc + 31) / 32) * 2 * ((R + 31) / 32) * kW32Block;" in mma
+
+
+@pytest.mark.parametrize("M", [96, 322, 1000])
+def test_torch_d256_tall_plan_at_mp2018(M):
+    """The tall #3 past 128 columns at MP2018's N = 32: chunks of one atom,
+    atom blocks of 16, within a block's shared memory."""
+    cfm = dataclasses.replace(MP2018)
+    chunk_atoms, block, work, nbytes, _ = kloop.l2_memory_plan(cfm, M, 32)
+    assert (chunk_atoms, block) == (1, 16) and nbytes <= kloop.MAX_SHARED_BYTES
+    assert kloop.forward_library(cfm, M, 32)[0] == "scann_loop_tall_d256"
+
+
+# --- launches --------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["tall f32", "tall bf16", "tall 128", "layer", "layer wide",
+                                  "layer 128"])
+def test_torch_d256_launches_hand_the_planes(case, monkeypatch):
+    seen = []
+    monkeypatch.setattr(kfwd, "call_kernel", lambda *a, **k: seen.append(a))
+    monkeypatch.setattr(kloop, "max_active_forward_clusters", lambda *a, **k: 132)
+    monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
+    D = 128 if case.endswith("128") else 256
+    cfm = dataclasses.replace(MP2018, n_attention=2, local_dim=D, global_dim=D, dense_out=D)
+    if case.startswith("tall"):
+        if case == "tall bf16":
+            cfm = dataclasses.replace(cfm, dtype="bfloat16")
+        x = _torch(make_synthetic_batch(np.random.default_rng(0), B=2, M=40, N=16, n_atoms=95))
+        packed = kfwd.pack_params(init_params(dataclasses.replace(cfm, dtype="float32"),
+                                              torch.Generator().manual_seed(0)), cfm)
+        kloop._launch(packed, x, cfm, False, tall=True)
+        if case == "tall 128":
+            assert len(seen[0][3]) == 52   # no pointer 52
+        else:
+            assert len(seen[0][3]) == 53 and seen[0][3][52] is packed["tf32_planes"]
+        kloop.launch_loop_forward.launches = kloop.launch_loop_forward.d256_launches = 0
+        kloop.launch_loop_forward.tall_launches = kloop.launch_loop_forward.bf16_launches = 0
+    else:
+        N = 96 if case == "layer wide" else 32
+        c, i, g, m, w, p = _layer_inputs(np.random.default_rng(1), 2, 10, N, D, True)
+        params = _flat_params(p)
+        kla._launch(*[torch.from_numpy(a) for a in (c, i, g, m, w)], params, 8, 0.5, True)
+        if case == "layer":
+            assert len(seen[0][3]) == 20
+            assert torch.equal(seen[0][3][19], kfwd.layer_tf32_planes(
+                params["filter_geo/kernel"], params["key/kernel"], params["query/kernel"], True))
+        else:
+            assert len(seen[0][3]) == 19   # no pointer 19
+        for name in ("launches", "bf16_launches", "wide_launches", "d256_launches"):
+            setattr(kla.fused_local_attention, name, 0)
+
+
+# --- the plain versions against the JAX kernels ------------------------------------
+
+@pytest.mark.parametrize("N", [16, 32])
+@pytest.mark.parametrize("g_update", [True, False])
+def test_torch_d256_layer_plain_matches_jax_kernel(N, g_update):
+    """#5's plain version at D = 256 and the N the narrow build's chunks of
+    32 rows hold (two atoms, one atom)."""
+    rng = np.random.default_rng(N + 256)
+    centers, idx, geometry, mask, weight, params = _layer_inputs(rng, 2, 10, N, 256, g_update)
+    H, scale = 8, 0.5
+    want = jla._pallas_forward(*[jnp.asarray(a) for a in (centers, idx, geometry, mask, weight)],
+                               params, H, scale, g_update, interpret=True)
+    with torch.no_grad():
+        out, geo, attn = kla.fused_local_attention(
+            *[torch.from_numpy(a) for a in (centers, idx, geometry, mask, weight)],
+            _flat_params(params), H, scale, g_update)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want[0]), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want[2]), rtol=RTOL, atol=ATOL)
+    if g_update:
+        np.testing.assert_allclose(geo.numpy(), np.asarray(want[1]), rtol=RTOL, atol=GEO_ATOL)
+
+
+def test_torch_d256_tall_plain_matches_jax_kernel():
+    """#3's plain version at D = G = O = 256 and N = 16, where the tall
+    build past 128 columns takes the batch."""
+    jcfg, tcfg, jp, tp, x = _setup("256", 37, M=12, N=16)
+    assert kloop.forward_library(tcfg, 12, 16, tall=True)[0] == "scann_loop_tall_d256"
+    want = jax_loop_forward(jp, x, jcfg, interpret=True)
+    with torch.no_grad():
+        got = kloop.loop_scann_forward(tp, _torch(x), tcfg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)

@@ -23,6 +23,7 @@ chunk of rows: N up to 256) against the JAX package on the CPU, in float32.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -985,8 +986,12 @@ def test_torch_wide_row_copy_matches_fwd_chunk():
     loop its LayerNorm of ctx + query."""
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
         common = f.read()
-    chunk = _between(common, "__device__ __forceinline__ void fwd_chunk(",
-                     "\n// The wide form of fwd_chunk")
+    # fwd_chunk's body is fwd_chunk_impl's, whose row products are row_gemm
+    # calls: mma_gemm<kBf16> without the planes argument where kW32 is false
+    chunk = re.sub(r"row_gemm<kW32, kBf16>\((.*?), pl\.\w+, (.*?),\n\s*\[&\]",
+                   r"mma_gemm<kBf16>(\1, \2, [&]",
+                   _between(common, "__device__ __forceinline__ void fwd_chunk_impl(",
+                            "\n// The wide form of fwd_chunk"))
     rows = _between(common, "__device__ __forceinline__ void fwd_chunk_rows(",
                     "\n// out = LN(ctx + query)")
     norm = _between(common, "__device__ __forceinline__ void fwd_out_norm(",
