@@ -5199,14 +5199,19 @@ def phase20_holds(qm9_model, mp2018, failures):
     under 0.5 x the f32 kernel's reading with one layer over 16 structures;
     #4's bf16 tall and wide d256 builds the same way at (4, 96, 32) and (3,
     40, 48), in their three schedules, at C = 1, 2, 4 at full depth and at
-    the rule's C with one layer, pred there at 0.9 x as in phase 19); #5 on
+    the rule's C with one layer, pred there at 0.9 x as in phase 19); the
+    wide #3 also at its 32-row sub-chunks' edges at D = 256, (2, 40, 33),
+    (2, 40, 65), (2, 30, 97) and (2, 24, 80), at every size of
+    ``HOLD_CLUSTERS`` with the relaunches, f32 and bf16 at full depth; #5 on
     one layer at (8, 96, 32), (4, 40, 64) and (3, 37, 12) (the narrow
     build: one atom a chunk of 32 rows with two operand buffers, an atom of
-    64 rows with one, two atoms a chunk and a ragged last chunk) and (8, 96, 96), (2,
-    73, 81) and (2, 32, 256) (the wide one), SCANN+, and SCANN at (8, 96,
-    32) and (8, 96, 96), f32 and bf16 tensors, each relaunched into
-    NaN-filled outputs (``hold_wide_layer``). Returns {build: worst f32
-    error} and {build: worst bf16 error}."""
+    64 rows with one, two atoms a chunk and a ragged last chunk) and (8, 96,
+    96), (2, 73, 81), (2, 32, 256), (3, 20, 65) and (2, 30, 97) (the wide
+    one: its 32-row sub-chunks whole, a ragged last one of 17 rows, one row
+    past two and three), SCANN+, and SCANN at (8, 96, 32), (8, 96, 96) and
+    (2, 30, 97), f32 and bf16 tensors, each relaunched into NaN-filled
+    outputs (``hold_wide_layer``). Returns {build: worst f32 error} and
+    {build: worst bf16 error}."""
     import dataclasses
 
     from scann_tpu_torch.kernels import local_attention as kla
@@ -5277,14 +5282,30 @@ def phase20_holds(qm9_model, mp2018, failures):
                 if grads:
                     note(worst16, build4, w4)
             del x
+        # the wide #3's 32-row sub-chunks at their edges (D = 256): one row past
+        # one, two and three of them, and a last one of 16 rows; at every
+        # cluster size of HOLD_CLUSTERS, f32 and bf16 (at full depth), each
+        # batch from a generator of its own so that the others are as they were
+        for B, M, N in ((2, 40, 33), (2, 40, 65), (2, 30, 97), (2, 24, 80)) if D == 256 else ():
+            x = wide_batch(np.random.default_rng(N), B, M, N, mp)
+            build = kloop.forward_library(mp, M, N)[0]
+            note(worst, build, hold_loop_forward(f"phase 20 #3 ({build}) D={D} edge", mp, p, x,
+                                                 failures, clusters=HOLD_CLUSTERS, relaunches=2))
+            note(worst16, build, hold_bf16_shape(f"phase 20 D={D} edge", mp, x, failures,
+                                                 below=None, clusters3=HOLD_CLUSTERS,
+                                                 grads=False, jitters=JITTERS)[0])
+            del x
         for g_update, (B, M, N) in ((True, (8, 96, 32)), (True, (4, 40, 64)),
                                     (True, (3, 37, 12)),
                                     (True, (8, 96, 96)), (True, (2, 73, 81)),
                                     (True, (2, 32, 256)), (False, (8, 96, 32)),
-                                    (False, (8, 96, 96))):
-            # the (3, 37, 12) layer draws from a generator of its own, so that
-            # the batches drawn after it are the ones they were before it
-            args = layer_inputs(rng if N != 12 else np.random.default_rng(D), B, M, N, D,
+                                    (False, (8, 96, 96)), (True, (3, 20, 65)),
+                                    (True, (2, 30, 97)), (False, (2, 30, 97))):
+            # the (3, 37, 12) layer and the wide build's edges (one row past two
+            # and three 32-row sub-chunks) draw from generators of their own,
+            # so that the batches drawn after them are the ones they were
+            own = {12: D, 65: D + 65, 97: D + 97}.get(N)
+            args = layer_inputs(rng if own is None else np.random.default_rng(own), B, M, N, D,
                                 mp.num_head, g_update)
             if N > 64:
                 wide_masks(args[3])
@@ -6295,63 +6316,80 @@ def d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_model, mp2018):
 
 
 def d256_forward_ab(kloop, kla, kfwd, init_params, mp2018, saved=None):
-    """``--backward-ab``'s times of the tall #3 and the narrow #5 past 128
-    columns, with the checkout's modules: #3 at MP2018 (B, 96, 32), B = 1,
-    16 and 64, f32 and bf16, at the checkout's own cluster size, and #5 at
-    one MP2018 layer (64, 96, 32) and at (8, 256, 32), f32 and bf16 tensors
-    (10 timed launches after 3): label -> {ms,
-    bound_ms, bound_by} (#5: {ms, plan}). With ``saved`` (a dict), one
-    launch's outputs of each, #3 at MP2018 (4, 96, 32) and C = 2, #5 at (4,
-    48, 32), for ``--ab-compare``."""
+    """``--backward-ab``'s times of the forward builds past 128 columns, with
+    the checkout's modules: the tall #3 at MP2018 (B, 96, 32) and the wide
+    #3 at MP2018 (B, 80, 96), B = 1, 16 and 64, f32 and bf16, at the
+    checkout's own cluster size; the narrow #5 at one MP2018 layer (64, 96,
+    32) and at (8, 256, 32), and the wide #5 at (1, 48, 96), (8, 96, 96) and
+    (64, 96, 96), f32 and bf16 tensors (10 timed launches after 3): label ->
+    {ms, bound_ms, bound_by} (#5: {ms, plan}). With ``saved`` (a dict), one
+    launch's outputs of each, the tall #3 at MP2018 (4, 96, 32), the wide
+    one at (4, 80, 97) (a last sub-chunk of one row), both at C = 2, the
+    narrow #5 at (4, 48, 32) and the wide one at (2, 40, 97), for
+    ``--ab-compare``."""
     import dataclasses
 
     mp = widened(mp2018, 256, 256, 256)
     bf16 = dataclasses.replace(mp, dtype="bfloat16")
     packed = kfwd.pack_params(init_params(mp, torch.Generator().manual_seed(0), "cuda"), mp)
     out = {}
-    for B in (1, 16, 64):
-        x = synthetic_batch(np.random.default_rng(250), B, 96, 32, n_atoms=mp.n_atoms,
-                            min_atoms=20)
-        flops = kloop.loop_forward_flops(mp, B, 96, 32)
-        nbytes = (tensor_bytes(x.values(), weights(packed))
-                  + 4 * (B + B * 96) + kloop.loop_forward_bytes(mp, B, 96, 32))
-        for cfm in (mp, bf16):
-            C = kloop.forward_cluster(cfm, B, 96, 32)
-            scratch = kloop.loop_forward_scratch(cfm, B, 96, 32, "cuda", C)
-            with torch.inference_mode():
-                ms = statistics.median(cuda_times(
-                    lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 10,
-                    warmup=3))
-            bound, by, _ = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, 96, 32),
-                                    bf16=cfm is bf16)
-            out[f"3-d256 {cfm.dtype} MP2018 ({B}, 96, 32) C={C}"] = {
-                "ms": ms, "bound_ms": bound, "bound_by": by}
-            del scratch
-    for B, M in ((64, 96), (8, 256)):
-        args = layer_inputs(np.random.default_rng(251), B, M, 32, 256, mp.num_head, True)
+    for build, M, N in (("3-d256", 96, 32), ("3-wide-d256", 80, 96)):
+        for B in (1, 16, 64):
+            x = (synthetic_batch(np.random.default_rng(250), B, M, N, n_atoms=mp.n_atoms,
+                                 min_atoms=20) if N <= 32
+                 else wide_batch(np.random.default_rng(254), B, M, N, mp))
+            flops = kloop.loop_forward_flops(mp, B, M, N)
+            nbytes = (tensor_bytes(x.values(), weights(packed))
+                      + 4 * (B + B * M) + kloop.loop_forward_bytes(mp, B, M, N))
+            for cfm in (mp, bf16):
+                C = kloop.forward_cluster(cfm, B, M, N)
+                scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda", C)
+                with torch.inference_mode():
+                    ms = statistics.median(cuda_times(
+                        lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch), 10,
+                        warmup=3))
+                bound, by, _ = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, M, N),
+                                        bf16=cfm is bf16)
+                out[f"{build} {cfm.dtype} MP2018 ({B}, {M}, {N}) C={C}"] = {
+                    "ms": ms, "bound_ms": bound, "bound_by": by}
+                del scratch
+            del x
+    for build, B, M, N in (("5-d256", 64, 96, 32), ("5-d256", 8, 256, 32),
+                           ("5-wide-d256", 1, 48, 96), ("5-wide-d256", 8, 96, 96),
+                           ("5-wide-d256", 64, 96, 96)):
+        args = layer_inputs(np.random.default_rng(251), B, M, N, 256, mp.num_head, True)
         for dt in (torch.float32, torch.bfloat16):
             typed = layer_cast(args, dt)
             with torch.inference_mode():
                 ms = statistics.median(cuda_times(lambda: kla._launch(*typed), 10, warmup=3))
-            out[f"5-d256 {str(dt)[6:]} ({B}, {M}, 32)"] = {
-                "ms": ms, "plan": list(kla.make_plan(B, M, 32, 256, mp.num_head, True,
+            out[f"{build} {str(dt)[6:]} ({B}, {M}, {N})"] = {
+                "ms": ms, "plan": list(kla.make_plan(B, M, N, 256, mp.num_head, True,
                                                      kla.sm_count(args[0].device),
                                                      dt == torch.bfloat16))}
         del args, typed
     if saved is not None:
         x = synthetic_batch(np.random.default_rng(252), 4, 96, 32, n_atoms=mp.n_atoms,
                             min_atoms=20)
-        for name, cfm in (("scann_loop_tall_d256", mp), ("scann_loop_tall_d256_bf16", bf16)):
-            scratch = kloop.loop_forward_scratch(cfm, 4, 96, 32, "cuda", 2)
+        wide_x = wide_batch(np.random.default_rng(255), 4, 80, 97, mp)
+        for name, cfm, xs in (("scann_loop_tall_d256", mp, x),
+                              ("scann_loop_tall_d256_bf16", bf16, x),
+                              ("scann_loop_wide_d256", mp, wide_x),
+                              ("scann_loop_wide_d256_bf16", bf16, wide_x)):
+            B, M = xs["atomic"].shape[:2]
+            N = xs["neighbors"].shape[2]
+            scratch = kloop.loop_forward_scratch(cfm, B, M, N, "cuda", 2)
             with torch.inference_mode():
-                saved[name] = [t.cpu() for t in kloop._launch(packed, x, cfm, False, 0.0, 0, 0,
+                saved[name] = [t.cpu() for t in kloop._launch(packed, xs, cfm, False, 0.0, 0, 0,
                                                               2, scratch)]
-        args = layer_inputs(np.random.default_rng(253), 4, 48, 32, 256, mp.num_head, True)
-        with torch.inference_mode():
-            for name, dt in (("local_attention_d256", torch.float32),
-                             ("local_attention_d256_bf16", torch.bfloat16)):
-                saved[name] = [None if t is None else t.cpu()
-                               for t in kla._launch(*layer_cast(args, dt))]
+        for tag, (B, M, N) in (("", (4, 48, 32)), ("_wide", (2, 40, 97))):
+            args = layer_inputs(np.random.default_rng(253), B, M, N, 256, mp.num_head, True)
+            if N > 64:
+                wide_masks(args[3])
+            with torch.inference_mode():
+                for name, dt in ((f"local_attention{tag}_d256", torch.float32),
+                                 (f"local_attention{tag}_d256_bf16", torch.bfloat16)):
+                    saved[name] = [None if t is None else t.cpu()
+                                   for t in kla._launch(*layer_cast(args, dt))]
     return out
 
 
@@ -6395,12 +6433,13 @@ def backward_ab(root, out_path=None):
     in both f32 schedules, the recipe bucket (64, 80, 96) in the recompute
     schedule, the bf16 builds, at the checkout's own cluster size and the
     wide one at C = 4 too, ``out["d256"]``) and with OUT saves their
-    gradients at a fixed C = 2 (``AB_WITHIN``). Times the tall #3 and the
-    narrow #5 past 128 columns (``d256_forward_ab``: #3 at MP2018 (B, 96,
-    32), B = 1, 16, 64, #5 at one MP2018 layer and (8, 256, 32), f32 and
-    bf16, ``out["d256_forward"]``) and with OUT saves their outputs (#3 at
-    C = 2), held bit for bit. Run the turns A, B, B, A, each a process of
-    its own."""
+    gradients at a fixed C = 2 (``AB_WITHIN``). Times the forward builds
+    past 128 columns (``d256_forward_ab``: the tall #3 at MP2018 (B, 96,
+    32) and the wide #3 at (B, 80, 96), B = 1, 16, 64, the narrow #5 at one
+    MP2018 layer and (8, 256, 32) and the wide #5 at (1, 48, 96), (8, 96,
+    96) and (64, 96, 96), f32 and bf16, ``out["d256_forward"]``) and with
+    OUT saves their outputs (#3 at C = 2), held bit for bit. Run the turns
+    A, B, B, A, each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

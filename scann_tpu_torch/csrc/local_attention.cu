@@ -84,6 +84,13 @@
 //   that the wrapper splits once (kernels/local_attention.py layer_planes;
 //   f32 on bfloat16 tensors too, where lo is zero), so the outputs are the
 //   parent layout's bits whatever the plan.
+// - Past 128 columns, the wide build (local_attention_wide_d256.cu,
+//   wide_d256_block): the same walk in the 32-column layout on the same
+//   planes, each atom's rows in sub-chunks of 32 in two operand buffers (at
+//   D = 256 what one buffer of 64 rows took), the next sub-chunk, or the
+//   next atom's first, staged behind the products as d256_block stages
+//   (bfloat16 rows through the raw area); the keys in L2 at D = 256 (they
+//   fit beside two buffers only to N = 61 there).
 // - Limits: D a multiple of 4 up to 128 (a warp's LayerNorm holds 4 values a
 //   lane), N <= 256 (the narrow build N <= 64), K <= D, D % H == 0. The
 //   *_d256 builds (SCANN_WIDTH_256: 8 values a lane) take D up to 256, the
@@ -130,8 +137,8 @@ struct Args {
   T* out;                 // [B, M, D]
   T* geo_out;             // [B, M, N, D] (SCANN+)
   T* attn;                // [B, M, N, H]
-  // the narrow build past 128 columns: the packed TF32 planes of Wfg, Wk and
-  // Wq (layer_plane_floats, tf32_planes of the wrapper); null elsewhere
+  // the builds past 128 columns: the packed TF32 planes of Wfg, Wk and Wq
+  // (layer_plane_floats, tf32_planes of the wrapper); null elsewhere
   const float* planes;
   int B, M, N, D, H, K, g_update, atom_block, chunk_atoms;
   float dk;               // hd ** -scale
@@ -516,10 +523,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// The narrow build past 128 columns on bfloat16 tensors: a chunk's rows
-// [0, rows) as they are, into the raw area [rows, 2D] (the geometry's G
-// columns at 0, a multiple of 4, the neighbours' states at D), by cp.async,
-// without a wait.
+// The builds past 128 columns on bfloat16 tensors: a chunk's rows [0, rows)
+// as they are, into the raw area [rows, 2D] (the geometry's G columns at 0,
+// a multiple of 4, the neighbours' states at D), by cp.async, without a
+// wait. The neighbours' indices from nbr in global memory, or (kRing, the
+// wide build) from the index ring in shared memory.
+template <bool kRing = false>
 __device__ __forceinline__ void stage_raw(const Args<__nv_bfloat16>& a, __nv_bfloat16* raw,
                                           const __nv_bfloat16* cen, const int* nbr,
                                           const __nv_bfloat16* geo, int rows) {
@@ -530,7 +539,8 @@ __device__ __forceinline__ void stage_raw(const Args<__nv_bfloat16>& a, __nv_bfl
   }
   for (int i = tid; i < rows * q4; i += kThreads) {
     const int r = i / q4, c = (i - r * q4) * 4;
-    cp_async8(raw + r * 2 * D + D + c, cen + (size_t)__ldg(nbr + r) * D + c);
+    const int n = kRing ? nbr[r] : __ldg(nbr + r);
+    cp_async8(raw + r * 2 * D + D + c, cen + (size_t)n * D + c);
   }
 }
 
@@ -656,6 +666,201 @@ __device__ __forceinline__ void d256_block(const Args<T>& a) {
     }
   }
 }
+
+// The wide build past 128 columns (local_attention_wide_d256.cu): each
+// atom's rows in sub-chunks of kFwdWideW32Rows (the atom walk's; 32, as
+// kD256ChunkRows) in two operand buffers [32, 2D + 4], the next sub-chunk,
+// or the next atom's first, staged while this one runs (f32 rows by
+// cp.async straight into the free buffer; bfloat16 rows into a raw area
+// [32, 2D] of bfloat16, converted once this one is done). Shared memory, in
+// floats: the queries and cw [AB, D + 4] as in Plan, then the work region:
+// the front (the block's centers [AB, D + 4] for the head, then a
+// sub-chunk's product [32, D + 4] and the atom's energies [N, H]), the
+// buffers (offA, offA1), the raw area (offR, bfloat16 only), the index ring
+// [2][N] (offI; round4(2N) floats) and, with smem_keys, the atom's keys [N,
+// D] (offK). Two buffers of 32 rows take the floats of WidePlan's one of 64
+// and its front 32 x (D + 4) fewer, more than the raw area, so this plan
+// fits wherever WidePlan's one-buffer layouts fit. The weights' TF32 planes
+// replace the L1 the builds up to 128 columns left for the bf16 weights, so
+// the f32 and bfloat16 plans are one layout, the raw area aside.
+struct WideD256Plan {
+  int atom_block, smem_keys, offA, offA1, offR, offI, offK, total;
+};
+
+__host__ __device__ inline WideD256Plan wide_d256_plan_for(int AB, int N, int D, int H,
+                                                           int g_update, int bf16,
+                                                           int smem_keys) {
+  WideD256Plan p;
+  p.atom_block = AB;
+  p.smem_keys = smem_keys;
+  const int rows = kFwdWideW32Rows, buf = rows * (2 * D + 4);
+  const int front = rows * (D + 4) + round4(N * H), centers = AB * (D + 4);
+  p.offA = front > centers ? front : centers;
+  p.offA1 = p.offA + buf;
+  p.offR = p.offA1 + buf;
+  p.offI = p.offR + (bf16 ? rows * D : 0);
+  p.offK = p.offI + round4(2 * N);
+  p.total = (g_update ? 2 : 1) * AB * (D + 4) + p.offK + (smem_keys ? N * D : 0);
+  return p;
+}
+
+// The layout of a wide block of AB atoms past 128 columns: the keys in
+// shared memory where they fit, else in L2; atom_block 0 if nothing fits.
+__host__ __device__ inline WideD256Plan wide_d256_block_plan(int AB, int N, int D, int H,
+                                                             int g_update, int bf16) {
+  for (int keys = 1; keys >= 0; --keys) {
+    const WideD256Plan q = wide_d256_plan_for(AB, N, D, H, g_update, bf16, keys);
+    if (q.total * (int)sizeof(float) <= kMaxSharedBytes) return q;
+  }
+  return WideD256Plan{0, 0, 0, 0, 0, 0, 0, 0};
+}
+
+// make_wide_plan past 128 columns: the same atom blocks and cost, each with
+// wide_d256_block_plan's layout.
+inline WideD256Plan make_wide_d256_plan(int B, int M, int N, int D, int H, int g_update,
+                                        int bf16, int n_sm) {
+  WideD256Plan best = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long best_cost = -1;
+  for (int AB : kWideAtomBlocks) {
+    const WideD256Plan p = wide_d256_block_plan(AB, N, D, H, g_update, bf16);
+    if (p.atom_block == 0) continue;
+    const long long blocks = (long long)B * ((M + AB - 1) / AB);
+    const long long cost = (blocks + n_sm - 1) / n_sm * (kWideAtomCost * AB + kWideHeadCost);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The wide build's block past 128 columns, on wide_d256_block_plan's layout:
+// ab atoms one at a time through fwd_atom_wide_keys in the 32-column layout
+// (its sub-chunks of 32 rows, every product mma_gemm_w32 on the packed TF32
+// planes a.planes, the head's too), so the outputs are those of the builds
+// up to 128 columns bit for bit. The block's sub-chunks j = 0, 1, ... (atom
+// ab0 + j / S, rows from 32 (j % S), S sub-chunks an atom) run in buffer j &
+// 1: sub-chunk 0 is staged while the block forms its queries, sub-chunk j + 1
+// once sub-chunk j has landed, so that it arrives while j runs (in_open:
+// sub-chunk j when its turn comes).
+template <typename T>
+__device__ __forceinline__ void wide_d256_block(const Args<T>& a, float* wide_keys) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr bool kRaw = sizeof(T) != sizeof(float);
+  constexpr int R = kFwdWideW32Rows;
+  const int N = a.N, D = a.D, H = a.H, M = a.M, AB = a.atom_block;
+  const int lds = D + 4, q4 = D / 4, G = a.g_update ? D : a.K, tid = threadIdx.x;
+  const WideD256Plan P = wide_d256_block_plan(AB, N, D, H, a.g_update, kRaw);
+  float* sQ = smem;                                    // query, then out   [AB, D + 4]
+  float* sW = sQ + AB * lds;                           // cw (SCANN+)       [AB, D + 4]
+  float* work = sW + (a.g_update ? AB * lds : 0);
+  float* sU = work;                      // centers, then the sub-chunk product [32, D + 4]
+  float* sE = sU + R * lds;                            // the atom's energies [N, H]
+  float* const buf0 = work + P.offA;                   // operand buffers [32, 2D + 4]
+  float* const buf1 = work + P.offA1;
+  auto buf = [&](int j) { return (j & 1) ? buf1 : buf0; };
+  int* ring = reinterpret_cast<int*>(work + P.offI);   // neighbour indices [2][N]
+  float* keys = P.smem_keys ? work + P.offK : wide_keys + (size_t)blockIdx.x * N * D;
+  const int blocks_per_structure = (M + AB - 1) / AB;
+  const int b = blockIdx.x / blocks_per_structure;
+  const int ab0 = (blockIdx.x - b * blocks_per_structure) * AB, ab = min(AB, M - ab0);
+  const ChunkDims cd = {N, D, H, a.K, a.g_update, 0, a.dk};
+  const RowPlanes pl = row_planes(a.planes, D, a.K, a.g_update);
+
+  const T* centers_b = a.centers + (size_t)b * M * D;
+  const int* nbr = a.nbr + (size_t)b * M * N;
+  const T* geometry = a.geometry + (size_t)b * M * N * G;
+  const T* nmask = a.nmask + (size_t)b * M * N;
+  const T* nweight = a.nweight + (size_t)b * M * N;
+  T* geo_out = a.geo_out + (size_t)b * M * N * D;
+  T* attn = a.attn + (size_t)b * M * N * H;
+
+  // atom m's neighbour indices into its slot of the ring, as copies in flight
+  auto fetch_ring = [&](int m) {
+    if (m < ab0 + ab)
+      for (int i = tid; i < N; i += kThreads)
+        cp_async4(reinterpret_cast<float*>(ring + ((m - ab0) & 1) * N + i),
+                  nbr + (size_t)m * N + i);
+  };
+  const int S = (N + R - 1) / R;
+  // bfloat16 rows of an RBF whose K is not a multiple of 4 are staged in the
+  // open (stage_raw copies 4 values at a time)
+  const bool in_open = kRaw && !a.g_update && (a.K & 3);
+  auto idx_of = [&](int j) { return ring + ((j / S) & 1) * N + (j % S) * R; };
+  auto geo_of = [&](int j) { return geometry + ((size_t)(ab0 + j / S) * N + (j % S) * R) * G; };
+  auto rows_of = [&](int j) { return min(R, N - (j % S) * R); };
+  auto issue = [&](int j) {   // sub-chunk j on its way, unless it is staged in the open
+    if (in_open || j >= ab * S) return;
+    if constexpr (kRaw)
+      stage_raw<true>(a, reinterpret_cast<__nv_bfloat16*>(work + P.offR), centers_b, idx_of(j),
+                      geo_of(j), rows_of(j));
+    else
+      stage_wide(a, buf(j), centers_b, idx_of(j), geo_of(j), rows_of(j));
+  };
+  auto land = [&](int j) {    // sub-chunk j in buffer j & 1, after a barrier
+    if (in_open) stage_wide(a, buf(j), centers_b, idx_of(j), geo_of(j), rows_of(j));
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (kRaw) {
+      if (!in_open) {
+        convert_raw(a, reinterpret_cast<const __nv_bfloat16*>(work + P.offR), buf(j), rows_of(j));
+        __syncthreads();
+      }
+    }
+  };
+  // sub-chunk j for the walk, sub-chunk j + 1 on its way; with an atom's
+  // first sub-chunk the next atom's indices, which the next land waits for
+  // (S >= 3: N > 64), before any staging reads them
+  int next = 0;   // the sub-chunk the walk takes next
+  auto stage = [&](int, int) {
+    const int j = next++;
+    land(j);
+    issue(j + 1);
+    if (j % S == 0) fetch_ring(ab0 + j / S + 1);
+    return buf(j);
+  };
+
+  // the block's centers and the first atom's indices, then sub-chunk 0 in
+  // flight while the block forms cw = centers @ Wfg[0:D] (SCANN+) and the query
+  fetch_ring(ab0);
+  for (int i = tid; i < ab * q4; i += kThreads) {
+    const int m = i / q4, c = (i - m * q4) * 4;
+    stage4(sU + m * lds + c, centers_b + (size_t)(ab0 + m) * D + c);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  issue(0);
+  if (a.g_update)
+    mma_gemm_w32<false>(sU, lds, ab, D, pl.cw, D,
+                        [&](int r, int c, float4 v) { store4(sW + r * lds + c, v); });
+  mma_gemm_w32<false>(sU, lds, ab, D, pl.q, D, [&](int r, int c, float4 v) {
+    const T* bq = a.bq + c;
+    store4(sQ + r * lds + c, make_float4(v.x + to_float(bq[0]), v.y + to_float(bq[1]),
+                                         v.z + to_float(bq[2]), v.w + to_float(bq[3])));
+  });
+  __syncthreads();
+
+  for (int m = ab0; m < ab0 + ab; ++m) {
+    const size_t base = (size_t)m * N;
+    fwd_atom_wide_keys<false, true>(cd, a.w, stage, sU, sE, sW + (m - ab0) * lds,
+                                    sQ + (m - ab0) * lds, nmask + base, nweight + base,
+                                    a.g_update ? geo_out + base * D : nullptr, attn + base * H,
+                                    keys, D, P.smem_keys != 0, [](int, int) { return 1.0f; }, pl);
+  }
+
+  for (int i = tid; i < ab * q4; i += kThreads) {
+    const int m = i / q4, c = (i - m * q4) * 4;
+    T* o = a.out + ((size_t)b * M + ab0 + m) * D + c;
+    const float* v = sQ + m * lds + c;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      store4(reinterpret_cast<float*>(o), *reinterpret_cast<const float4*>(v));
+    } else {
+      __nv_bfloat162 q[2] = {__floats2bfloat162_rn(v[0], v[1]), __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(q);
+    }
+  }
+}
 #endif  // SCANN_WIDTH_256
 
 // one block per SM (its shared memory takes most of the SM), so the compiler
@@ -665,7 +870,11 @@ template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 local_attention_kernel(const Args<T> a, float* wide_keys) {
   if constexpr (kWide) {
+#ifdef SCANN_WIDTH_256
+    wide_d256_block(a, wide_keys);   // the wide build past 128 columns
+#else
     wide_block(a, wide_keys);
+#endif
   } else if constexpr (kLaneValues > 4) {   // the narrow build past 128 columns
 #ifdef SCANN_WIDTH_256
     d256_block(a);
@@ -759,9 +968,9 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
   a.geo_out = (T*)ptrs[i++];
   a.attn = (T*)ptrs[i++];
   float* wide_keys = (float*)ptrs[i++];
-  // only the narrow build past 128 columns takes pointer 19, its planes
+  // only the builds past 128 columns take pointer 19, their planes
   constexpr bool kNarrowD256 = !kWide && kLaneValues > 4;
-  a.planes = kNarrowD256 ? (const float*)ptrs[i++] : nullptr;
+  a.planes = kLaneValues > 4 ? (const float*)ptrs[i++] : nullptr;
   a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4]; a.K = dims[5];
   a.g_update = dims[6];
   const int n_sm = dims[7];
@@ -775,8 +984,14 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
     return kErrShape;
   int bytes;
   if constexpr (kWide) {
+#ifdef SCANN_WIDTH_256
+    const WideD256Plan plan = make_wide_d256_plan(a.B, a.M, a.N, a.D, a.H, a.g_update,
+                                                  sizeof(T) != sizeof(float), n_sm);
+    if (a.planes == nullptr) return kErrShape;
+#else
     const WidePlan plan = make_wide_plan(a.B, a.M, a.N, a.D, a.H, a.g_update,
                                                 sizeof(T) != sizeof(float), n_sm);
+#endif
     if (plan.atom_block == 0) return kErrSharedMemory;
     bytes = plan.total * (int)sizeof(float);
     // the wrapper's plan is this one, with a key scratch where the keys are
@@ -815,8 +1030,8 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 // ptrs: centers, neighbours, geometry, mask, weight, Wfg, bfg, Wk, bk, Wq,
 // bq, ln scale, ln bias, ln_g scale, ln_g bias, out, geo_out, attn, the wide
 // key scratch [blocks, N, D] (f32; null in the narrow build, and in the wide
-// one where its plan keeps the keys in shared memory), in the narrow
-// build past 128 columns the packed TF32 planes of Wfg, Wk and Wq (f32,
+// one where its plan keeps the keys in shared memory), in the builds past
+// 128 columns the packed TF32 planes of Wfg, Wk and Wq (f32,
 // layer_plane_floats; no other build takes a pointer 19) (every other
 // float tensor f32 for local_attention_launch, bfloat16 for
 // local_attention_bf16_launch);

@@ -13,7 +13,9 @@
 // fragment reads free of bank conflicts. The tall #3 and the narrow #5 past
 // 128 columns take fwd_chunk_w32 instead: the same chunk with its products
 // in the 32-column layout (mma_gemm_w32) on TF32 planes of the weights
-// (RowPlanes), bit for bit the same outputs.
+// (RowPlanes), bit for bit the same outputs; the wide #3 and #5 past 128
+// columns walk their atoms in the same layout (fwd_atom_wide_keys with kW32,
+// sub-chunks of 32 rows).
 //
 // The serial tails of the chunk: energies and the softmax over N <= 64
 // neighbours one warp per (atom, head) (lane n holds neighbours n and n + 32,
@@ -57,6 +59,9 @@
 namespace scann {
 
 constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
+// the wide atom walk's sub-chunk in the 32-column layout (the wide builds
+// past 128 columns): two operand buffers of it fit beside the rest at D = 256
+constexpr int kFwdWideW32Rows = 32;
 
 // The sizes fwd_chunk reads: the whole-model forwards take them from their
 // ForwardArgs (forward_chunk_dims), the per-layer kernel fills them itself.
@@ -208,8 +213,8 @@ __device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
 // N, D] or the SCANN distance RBF from the launch's table rbf [M * N,
 // round4(K)]; bar counts their bytes (thread 0 sets them). The thread that
 // issues a copy spends no registers on it. fwd_stage_chunk_wait waits for
-// the phase of parity `parity` of bar and for the thread's cp.async copies
-// (the ring), rounds the neighbour states to bfloat16 (kBf16, as
+// the phase of parity `parity` of bar and, where `ring`, for the thread's
+// cp.async copies (the ring), rounds the neighbour states to bfloat16 (kBf16, as
 // fwd_stage_chunk rounds them before its stores), fences this thread's
 // accesses to shared memory before the next bulk copies and ends with a
 // barrier. The staged values are fwd_stage_chunk's bit for bit. The caller
@@ -240,9 +245,10 @@ __device__ __forceinline__ void fwd_stage_chunk_bulk(const ForwardArgs& a, float
 
 template <bool kBf16>
 __device__ __forceinline__ void fwd_stage_chunk_wait(const ForwardArgs& a, float* sA, int rows,
-                                                     unsigned long long* bar, unsigned parity) {
+                                                     unsigned long long* bar, unsigned parity,
+                                                     bool ring = true) {
   mbar_wait(bar, parity);
-  cp_async_wait_all();
+  if (ring) cp_async_wait_all();
   if constexpr (kBf16) {
     const int tid = threadIdx.x, D = a.D, lda = 2 * D + 4, q4 = D / 4;
     for (int i = tid; i < rows * q4; i += kThreads) {
@@ -255,22 +261,65 @@ __device__ __forceinline__ void fwd_stage_chunk_wait(const ForwardArgs& a, float
   __syncthreads();
 }
 
+// The packed TF32 planes (tf32_planes of the wrappers, w32_plane_floats
+// each) of one layer's products for the 32-column layout: cw = centers @
+// Wfg[0:D] (SCANN+), the geometry or filter product's Wfg[D:3D] (SCANN+) or
+// Wfg (SCANN), Wk and Wq, one after the other in that order.
+struct RowPlanes {
+  const float* cw;
+  const float* fg;
+  const float* k;
+  const float* q;
+};
+
+// The planes of a layer whose packed planes start at p.
+__device__ __forceinline__ RowPlanes row_planes(const float* p, int D, int K, int g_update) {
+  RowPlanes r;
+  r.cw = p;
+  r.fg = g_update ? p + w32_plane_floats(D, D) : p;
+  r.k = r.fg + w32_plane_floats(g_update ? 2 * D : K, D);
+  r.q = r.k + w32_plane_floats(D, D);
+  return r;
+}
+
+// The floats of one layer's packed planes (LocalAttention's four blocks).
+__host__ __device__ inline size_t layer_plane_floats(int D, int K, int g_update) {
+  return (g_update ? w32_plane_floats(D, D) + w32_plane_floats(2 * D, D)
+                   : w32_plane_floats(K, D)) + 2 * w32_plane_floats(D, D);
+}
+
+// A row product in mma_gemm's layout (kW32 false: on W) or the 32-column
+// one (on W's packed planes).
+template <bool kW32, bool kBf16, typename T, typename Epi>
+__device__ __forceinline__ void row_gemm(const float* A, int lda, int rows, int K, const T* W,
+                                         const float* planes, int ldw, int nc, Epi epi) {
+  if constexpr (kW32) {
+    mma_gemm_w32<kBf16>(A, lda, rows, K, planes, nc, epi);
+  } else {
+    mma_gemm<kBf16>(A, lda, rows, K, W, ldw, nc, epi);
+  }
+}
+
 // The row part of fwd_chunk (the same code, which fwd_chunk keeps inline)
 // for a sub-chunk of `rows` staged rows of one atom's wide neighbour list:
 // the SCANN+ geometry update (geo_out, or null, takes LN_g's output) or the
 // SCANN filter, the key input in sU and the keys in the neighbour half of
 // sA. sCW [atoms, ldq] holds the center terms, row r belonging to atom r /
 // a.N, which is 0 for every row of a sub-chunk (rows < a.N). nweight and
-// geo_out point at the first row. Ends with a barrier.
-template <bool kBf16 = false, typename T>
+// geo_out point at the first row. kW32: the products in the 32-column
+// layout on the layer's packed planes pl (the wide builds past 128
+// columns), else on W. Ends with a barrier.
+template <bool kBf16 = false, bool kW32 = false, typename T>
 __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWeightsT<T>& w,
                                                int rows, float* sA, float* sU, const float* sCW,
-                                               int ldq, const T* nweight, T* geo_out) {
+                                               int ldq, const T* nweight, T* geo_out,
+                                               const RowPlanes& pl) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int N = a.N, D = a.D, lda = 2 * D + 4, ldu = D + 4;
   if (a.g_update) {
     // u = cw + [geo | ns] @ Wfg[D:3D] + b; geo' = LN_g(swish(u) + geo); kin = ns * geo'
-    mma_gemm<kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, D, D, [&](int r, int c, float4 v) {
+    row_gemm<kW32, kBf16>(sA, lda, rows, 2 * D, w.wfg + (size_t)D * D, pl.fg, D, D,
+                          [&](int r, int c, float4 v) {
       const float* cw = sCW + (r / N) * ldq + c;
       const T* b = w.bfg + c;
       store4(sU + r * ldu + c,
@@ -315,7 +364,8 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
     }
   } else {
     // kin = ns * (swish(rbf(d) @ Wfg + b) * weight)
-    mma_gemm<kBf16>(sA, lda, rows, a.K, w.wfg, D, D, [&](int r, int c, float4 v) {
+    row_gemm<kW32, kBf16>(sA, lda, rows, a.K, w.wfg, pl.fg, D, D,
+                          [&](int r, int c, float4 v) {
       const float* ns = sA + r * lda + D + c;
       const T* b = w.bfg + c;
       const float wt = to_float(nweight[r]);
@@ -328,7 +378,8 @@ __device__ __forceinline__ void fwd_chunk_rows(const ChunkDims& a, const LayerWe
   }
   __syncthreads();
   // key = kin @ Wk + bk, into the neighbour half of sA
-  mma_gemm<kBf16>(sU, ldu, rows, D, w.wk, D, D, [&](int r, int c, float4 v) {
+  row_gemm<kW32, kBf16>(sU, ldu, rows, D, w.wk, pl.k, D, D,
+                        [&](int r, int c, float4 v) {
     const T* b = w.bk + c;
     store4(sA + r * lda + D + c, make_float4(v.x + to_float(b[0]), v.y + to_float(b[1]),
                                              v.z + to_float(b[2]), v.w + to_float(b[3])));
@@ -354,45 +405,6 @@ __device__ __forceinline__ void fwd_out_norm(const LayerWeightsT<T>& w, int ca, 
       if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
   }
   __syncthreads();
-}
-
-// The packed TF32 planes (tf32_planes of the wrappers, w32_plane_floats
-// each) of one layer's products for the 32-column layout: cw = centers @
-// Wfg[0:D] (SCANN+), the geometry or filter product's Wfg[D:3D] (SCANN+) or
-// Wfg (SCANN), Wk and Wq, one after the other in that order.
-struct RowPlanes {
-  const float* cw;
-  const float* fg;
-  const float* k;
-  const float* q;
-};
-
-// The planes of a layer whose packed planes start at p.
-__device__ __forceinline__ RowPlanes row_planes(const float* p, int D, int K, int g_update) {
-  RowPlanes r;
-  r.cw = p;
-  r.fg = g_update ? p + w32_plane_floats(D, D) : p;
-  r.k = r.fg + w32_plane_floats(g_update ? 2 * D : K, D);
-  r.q = r.k + w32_plane_floats(D, D);
-  return r;
-}
-
-// The floats of one layer's packed planes (LocalAttention's four blocks).
-__host__ __device__ inline size_t layer_plane_floats(int D, int K, int g_update) {
-  return (g_update ? w32_plane_floats(D, D) + w32_plane_floats(2 * D, D)
-                   : w32_plane_floats(K, D)) + 2 * w32_plane_floats(D, D);
-}
-
-// A row product in mma_gemm's layout (kW32 false: on W) or the 32-column
-// one (on W's packed planes).
-template <bool kW32, bool kBf16, typename T, typename Epi>
-__device__ __forceinline__ void row_gemm(const float* A, int lda, int rows, int K, const T* W,
-                                         const float* planes, int ldw, int nc, Epi epi) {
-  if constexpr (kW32) {
-    mma_gemm_w32<kBf16>(A, lda, rows, K, planes, nc, epi);
-  } else {
-    mma_gemm<kBf16>(A, lda, rows, K, W, ldw, nc, epi);
-  }
 }
 
 // LocalAttention of one staged chunk of ca atoms x N neighbours (rows = ca * N
@@ -584,7 +596,9 @@ __device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWei
 // The wide form of fwd_chunk for one atom whose N neighbours (64 < N <=
 // kWideMaxN) exceed a chunk: the atom walk of the wide builds of #3
 // (scann_loop_wide.cu) and #5 (local_attention_wide.cu). Its rows go through
-// fwd_chunk_rows in sub-chunks of at most kFwdMaxChunkRows, stage(n0, rows)
+// fwd_chunk_rows in sub-chunks of at most kFwdMaxChunkRows (kW32, the wide
+// builds past 128 columns: kFwdWideW32Rows, their products in the 32-column
+// layout on the layer's packed planes pl), stage(n0, rows)
 // staging rows [n0, n0 + rows) of the atom and returning the operand buffer
 // that holds them (after a barrier); each sub-chunk's energies go into the
 // atom's energy row sE [N, H] and its keys to keys [N, ldk], in shared
@@ -600,20 +614,21 @@ __device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWei
 // nweight, geo_out and attn_out point at the atom's first row; drop(n, h)
 // takes the neighbour's index in the atom. kBf16: the operand mode; T: the
 // element type of the weights, masks and outputs. Ends with a barrier.
-template <bool kBf16, typename T, typename Stage, typename Drop>
+template <bool kBf16, bool kW32 = false, typename T, typename Stage, typename Drop>
 __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const LayerWeightsT<T>& w,
                                                    Stage stage, float* sU, float* sE,
                                                    const float* sCW, float* sQ, const T* nmask,
                                                    const T* nweight, T* geo_out, T* attn_out,
                                                    float* keys, int ldk, bool smem_keys,
-                                                   Drop drop) {
+                                                   Drop drop, const RowPlanes& pl = RowPlanes{}) {
+  constexpr int kSub = kW32 ? kFwdWideW32Rows : kFwdMaxChunkRows;
   const int tid = threadIdx.x, N = a.N, D = a.D, H = a.H, hd = D / H, lda = 2 * D + 4;
   const int q4 = D / 4;
-  for (int n0 = 0; n0 < N; n0 += kFwdMaxChunkRows) {
-    const int rows = min(kFwdMaxChunkRows, N - n0);
+  for (int n0 = 0; n0 < N; n0 += kSub) {
+    const int rows = min(kSub, N - n0);
     float* sA = stage(n0, rows);
-    fwd_chunk_rows<kBf16>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
-                          geo_out ? geo_out + (size_t)n0 * D : nullptr);
+    fwd_chunk_rows<kBf16, kW32>(a, w, rows, sA, sU, sCW, 0, nweight + n0,
+                                geo_out ? geo_out + (size_t)n0 * D : nullptr, pl);
     warp_energies<kBf16>(sQ, sA + D, lda, nmask + n0, sE + n0 * H, rows, H, hd, a.dk);
     for (int i = tid; i < rows * q4; i += kThreads) {
       const int r = i / q4, c = (i - r * q4) * 4;
@@ -629,7 +644,9 @@ __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const Lay
   __syncthreads();
   if constexpr (kLaneValues > 4) {
     // widths past 128 (the *_d256 builds): one thread a column, over all N
-    // neighbours in order, then + query
+    // neighbours in order, then + query; keys in L2 eight loads in flight
+    // (1.3% of the wide #3 at D = 256 over four, on an NVIDIA H100 80GB HBM3
+    // at 700 W)
     if (tid < D) {
       const float* e = sE + tid / hd;
       float s = 0.f;
@@ -637,7 +654,7 @@ __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const Lay
 #pragma unroll 4
         for (int n = 0; n < N; ++n) s += e[n * H] * keys[n * ldk + tid];
       } else {
-#pragma unroll 4
+#pragma unroll 8
         for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + tid);
       }
       sQ[tid] = s + sQ[tid];

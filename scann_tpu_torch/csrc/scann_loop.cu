@@ -68,7 +68,8 @@
 //   outputs are the same bits. Its plan does not grow with M but for the
 //   readout's vectors: atom blocks of 32 for M into the thousands.
 // - The wide build walks one atom at a time (fwd_atom_wide_keys), its rows
-//   in sub-chunks of 64, its energies [N, H] in shared memory for a softmax
+//   in sub-chunks of 64 (of 32 past 128 columns, below), its energies [N, H]
+//   in shared memory for a softmax
 //   over all N, its keys in shared memory [N, D] where the plan holds them
 //   (N <= 200 at D = 128), else in a per-block global scratch [B * C, N,
 //   D]; the context splits the N neighbours into two halves over the
@@ -80,17 +81,22 @@
 //   kLaneValues of scann_common.cuh); the wrapper halves the tall build's
 //   chunks to 32 rows where 64 do not fit, and the wide build takes N >
 //   kTallMaxN = 32 there. Their arithmetic is the builds' of widths up to
-//   128 but for the wide context, one thread a column over all N. The tall
-//   one (kW32) runs its row products, its cw and query products and its
+//   128 but for the wide context, one thread a column over all N. Both
+//   (kW32) run their row products, their cw and query products and their
 //   ResidualNorm in the 32-column layout (mma_gemm_w32 of scann_mma.cuh: a
 //   warp owns 32 output columns, so a 256-column row is one pass and each
 //   left operand value is split once), on packed TF32 planes of each layer's
 //   Wfg, Wk, Wq, W1 and W2 split once by the wrapper (planes, kernel
 //   argument 4; the bf16 mode reads their bfloat16 plane); the operands and
-//   order of sums are mma_gemm's, so its outputs are the same bits. The
+//   order of sums are mma_gemm's, so their outputs are the same bits. The
 //   products are bound by instruction issue there (a phase split on an H100:
 //   70% of the time, and 4 integer ops in place of each mma.sync made it
-//   slower), and the layout issues fewer of them per mma.
+//   slower), and the layout issues fewer of them per mma. The wide one
+//   walks each atom in sub-chunks of 32 rows (kWideRows) in two operand
+//   buffers, the next sub-chunk, or the next atom's first, staged by bulk
+//   copies while this one runs (two buffers of 64 rows do not fit at D =
+//   256); 32 rows a pass is what every product took anyway (two m-tiles),
+//   and the sub-chunk changes no sum, so its outputs are the same bits.
 // - The readout: the narrow build runs after_Lc, the GA queries and keys,
 //   the scores, the pooled context and the head over all M atoms in every
 //   block of the cluster, in the same order. In the tall and wide builds
@@ -145,12 +151,15 @@ constexpr bool kTall = true;
 #else
 constexpr bool kTall = false;
 #endif
-// The tall build past 128 columns (scann_loop_tall_d256.cu) runs its row and
-// per-atom products in the 32-column layout (mma_gemm_w32), on the packed
-// TF32 planes of each layer's Wfg, Wk, Wq, W1 and W2 that the wrapper makes
-// (tf32_planes), in both operand modes; only its kernel takes them as a
-// fourth argument, so every other build's kernel is the one it was.
-#if defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)
+// The tall and wide builds past 128 columns (scann_loop_tall_d256.cu,
+// scann_loop_wide_d256.cu) run their row and per-atom products in the
+// 32-column layout (mma_gemm_w32), on the packed TF32 planes of each layer's
+// Wfg, Wk, Wq, W1 and W2 that the wrapper makes (tf32_planes), in both
+// operand modes; only their kernels take them as a fourth argument, so every
+// other build's kernel is the one it was. The wide one walks its atoms in
+// sub-chunks of kFwdWideW32Rows rows in two operand buffers (kWideRows,
+// kWideBuffers): the next sub-chunk is staged while this one runs.
+#if defined(SCANN_WIDTH_256) && (defined(SCANN_LOOP_TALL) || defined(SCANN_LOOP_WIDE))
 constexpr bool kW32 = true;
 #define SCANN_LOOP_TAKES_PLANES
 #define SCANN_LOOP_PLANES_PARAM , const float* planes
@@ -160,6 +169,9 @@ constexpr bool kW32 = false;
 #define SCANN_LOOP_PLANES_PARAM
 #define SCANN_LOOP_PLANES_ARG
 #endif
+// the wide build's sub-chunk rows and operand buffers
+constexpr int kWideRows = kW32 ? kFwdWideW32Rows : kFwdMaxChunkRows;
+constexpr int kWideBuffers = kW32 ? 2 : 1;
 
 // Shared-memory plan, in floats: centers [M, wd] (none in the tall and wide
 // builds, l2_plan); two per-block slots [AB, wd + 4]; the work region: a
@@ -183,11 +195,13 @@ struct L2Plan {
 // product and attention, the wide atom's energy row [N, H] in place of the
 // attention; between chunks the ResidualNorm's h2 and the rows the per-atom
 // projections read), then the chunk operand buffers [rows, 2D + 4] (two in
-// the tall build: the next chunk is staged into one while the other runs; one
-// in the wide build), the index ring [2][n] (two slots of a chunk's rows, n =
-// rows, or of a wide atom's N: the neighbour indices, copied in a chunk or
-// an atom ahead of their staging; round4(2n) floats, so that what follows
-// stays 16-byte aligned at an odd n), the operand buffers' two mbarriers (4
+// the tall build: the next chunk is staged into one while the other runs; in
+// the wide build kWideBuffers of kWideRows rows: one of 64 up to 128
+// columns, two of 32 past them), the index ring [2][n] (two slots of a
+// chunk's rows, n = rows, or of a wide atom's N: the neighbour indices,
+// copied in a chunk or an atom ahead of their staging; round4(2n) floats, so
+// that what follows stays 16-byte aligned at an odd n), the operand buffers'
+// two mbarriers (4
 // floats) and, in the wide build with smem_keys, the atom's keys [N, D].
 // Outside the layers it holds the embedding's staging or the readout's
 // block and vectors.
@@ -198,7 +212,7 @@ __host__ __device__ inline L2Plan l2_plan(const ForwardArgs& a, bool smem_keys) 
   const int AB = a.atom_block;
   p.wd = a.D > a.G ? a.D : a.G;
   p.lds = p.wd + 4;
-  p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;
+  p.rows = kWide ? kWideRows : a.chunk_atoms * a.N;
   p.lde = round4(a.E + (a.use_ring ? 10 : 0));
   p.ldf = a.cgcnn ? round4(a.F) : 0;
   const int att = round4(kWide ? a.N * a.H : p.rows * a.H);
@@ -206,7 +220,7 @@ __host__ __device__ inline L2Plan l2_plan(const ForwardArgs& a, bool smem_keys) 
   front = AB * p.lds > front ? AB * p.lds : front;
   q.offA = front;
   q.offA1 = front + p.rows * (2 * a.D + 4);
-  q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);
+  q.offI = front + (kWide ? kWideBuffers : 2) * p.rows * (2 * a.D + 4);
   // the ring rounded up to 4 floats: the keys take 16-byte stores at any N
   q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;
   q.smem_keys = kWide && smem_keys;
@@ -318,7 +332,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
   float* sA = work;                        // chunk operand [rows, 2D + 4]
   float* sU = sA + P.rows * lda;           // chunk product [rows, D + 4]
   float* sE = sU + P.rows * ldu;           // attention     [rows, H]
-  float* sA1 = nullptr;        // tall: the second chunk operand buffer
+  float* sA1 = nullptr;        // tall, wide past 128 columns: the second operand buffer
   int* ring = nullptr;         // the index ring [2][ring_n]
   unsigned long long* bars = nullptr;   // the operand buffers' mbarriers [2]
   // SCANN: the distance RBF of the structure's rows [M * N, round4(K)], a
@@ -333,7 +347,7 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
     sU = work;
     sE = sU + P.rows * ldu;
     sA = work + Q.offA;
-    if constexpr (kTall) sA1 = work + Q.offA1;
+    if constexpr (kTall || (kWide && kWideBuffers == 2)) sA1 = work + Q.offA1;
     ring = reinterpret_cast<int*>(work + Q.offI);
     bars = reinterpret_cast<unsigned long long*>(ring + 2 * ring_n);
     if (!a.g_update) rbf_b = a.geo + (size_t)b * M * N * round4(a.K);
@@ -413,10 +427,10 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
   // ---- SCANN+ geometry embedding of this block's atoms -> global scratch --
   if constexpr (kWide) {
     // row by row: rows [m_lo N, m_hi N) as atoms of one neighbour each, in
-    // sub-chunks of kFwdMaxChunkRows
+    // sub-chunks of kWideRows
     ForwardArgs by_row = a;
     by_row.N = 1;
-    by_row.chunk_atoms = kFwdMaxChunkRows;
+    by_row.chunk_atoms = kWideRows;
     if (a.g_update)
       fwd_embed_geometry<kBf16>(by_row, sA, sU, ndist, nweight, geo_b, m_lo * N, m_hi * N);
   } else {
@@ -482,8 +496,8 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
     auto stage = [&](int k, const int* idx, int base, int rows) {
       fwd_stage_chunk_bulk(a, chunk_buf(k), cen, idx, geo_b, rbf_b, base, rows, bars + k);
     };
-    auto wait = [&](int k, int rows) {
-      fwd_stage_chunk_wait<kBf16>(a, chunk_buf(k), rows, bars + k, (phases >> k) & 1u);
+    auto wait = [&](int k, int rows, bool ring = true) {
+      fwd_stage_chunk_wait<kBf16>(a, chunk_buf(k), rows, bars + k, (phases >> k) & 1u, ring);
       phases ^= 1u << k;
     };
     if constexpr (kTall) {
@@ -498,10 +512,29 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
         wait(0, chunk_atoms(m_lo) * N);
       }
     }
+    // wide past 128 columns (kW32): the layer's sub-chunks j = 0, 1, ... of
+    // the block's atoms (atom m_lo + j / per_atom, rows from kWideRows (j %
+    // per_atom)) in order, sub-chunk j in buffer j & 1, staged while sub-chunk
+    // j - 1 runs: sub-chunk 0 now, each later one once the walk has waited
+    // for the one before it (one barrier a sub-chunk: every thread fences its
+    // accesses to the buffer sub-chunk j - 1 took before the barrier of that
+    // wait, and the copies into it are issued after it)
+    const int per_atom = (N + kWideRows - 1) / kWideRows;
+    const int subs = (m_hi - m_lo) * per_atom;
+    int wj = 0;
+    auto wide_rows = [&](int j) { return min(kWideRows, N - (j % per_atom) * kWideRows); };
+    auto wide_issue = [&](int j) {
+      if (j >= subs) return;
+      const int at = j / per_atom, n0 = (j - at * per_atom) * kWideRows;
+      stage(j & 1, ring_idx(at & 1) + n0, (m_lo + at) * N + n0, wide_rows(j));
+    };
     if constexpr (kWide) {
       wide_atom_ring(m_lo);
       cp_async_wait_all();
+      // the buffers' last users: the geometry embedding, the last layer
+      if constexpr (kW32) fence_proxy_async();
       __syncthreads();
+      if constexpr (kW32) wide_issue(0);
     }
 
     for (int ab0 = m_lo; ab0 < m_hi; ab0 += AB) {
@@ -535,7 +568,31 @@ scann_loop_forward_kernel(const ForwardArgs a, const int C, float* l2 SCANN_LOOP
       }
       __syncthreads();
 
-      if constexpr (kWide) {
+      if constexpr (kWide && kW32) {
+        for (int m = ab0; m < ab0 + ab; ++m) {
+          const int base = m * N;
+          // the next atom's indices, waited for where the staging of its
+          // first sub-chunk is issued
+          wide_atom_ring(m + 1);
+          fwd_atom_wide_keys<kBf16, true>(
+              forward_chunk_dims(a), w,
+              [&](int, int rows) {
+                const int j = wj++;
+                wait(j & 1, rows, (j + 1) % per_atom == 0);
+                wide_issue(j + 1);
+                return chunk_buf(j & 1);
+              },
+              sU, sE, sW + (m - ab0) * lds, sQ + (m - ab0) * lds, nmask + base,
+              nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+              static_cast<float*>(nullptr), atom_keys, D, smem_keys,
+              [&](int n, int h) {
+                return scann_philox::mask_value(a.seed, mol, 1 + a.L + l,
+                                                (unsigned)((base + n) * H + h),
+                                                a.attn_threshold, a.attn_scale);
+              },
+              row_planes(layer_planes(), D, a.K, a.g_update));
+        }
+      } else if constexpr (kWide) {
         for (int m = ab0; m < ab0 + ab; ++m) {
           const int base = m * N, slot = (m - m_lo) & 1;
           // the next atom's indices, waited for with this atom's first staging
@@ -852,8 +909,9 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // packed), pointer 51, the tall and wide builds' readout rows [B, M, 2G]
 // (the wide build's per-block keys [B * C, N, D] right after them where its
 // plan keeps the keys out of shared memory), null in the narrow one,
-// in the tall build past 128 columns pointer 52, the packed TF32 planes of
-// the layers' Wfg, Wk, Wq, W1 and W2 (no other build takes a pointer 52),
+// in the tall and wide builds past 128 columns pointer 52, the packed TF32
+// planes of the layers' Wfg, Wk, Wq, W1 and W2 (no other build takes a
+// pointer 52),
 // size 20, the atom block, size 21, the
 // segments per slot S, size 22, the bf16 operand mode (0 or 1), and size 23,
 // the blocks per structure C; in the order

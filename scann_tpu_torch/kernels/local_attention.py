@@ -49,7 +49,11 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   of ``csrc/scann_mma.cuh``) and the context from the atom's keys, kept in
   shared memory where ``wide_block_plan`` holds them (f32), else in a
   per-block scratch [blocks, N, D] the wrapper allocates (bf16: always,
-  since the L1 the smallest layout leaves holds the bf16 weights).
+  since the L1 the smallest layout leaves holds the bf16 weights). Past 128
+  columns both builds run their products in the 32-column layout on the
+  layer's packed TF32 planes (``layer_planes``, pointer 19), the narrow one
+  in chunks of 32 rows and the wide one in sub-chunks of 32, each in two
+  operand buffers where they fit, the next staged while one runs.
 - It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
   accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
   the whole-model forwards share. ``make_plan`` mirrors the launch plan of
@@ -243,19 +247,35 @@ def wide_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
                     bf16: bool = False) -> Optional[Tuple[int, bool, int]]:
     """(operand buffers, keys in shared memory, shared bytes) of one block of
     ``atom_block`` atoms of the wide build (N > 64) -- ``wide_block_plan`` of
-    the CUDA source, or None if nothing fits. A block holds the queries and,
-    for SCANN+, cw [AB, D + 4] each; the front (the block's centers [AB, D +
-    4], then a 64-row sub-chunk's product [64, D + 4] and the atom's
-    energies [N, H]); one or two operand buffers [64, 2D + 4]; the index
-    ring [2][N] (round4(2N) floats); on f32 tensors the atom's keys [N, D]
-    where they fit beside one buffer, and a second buffer where that fits
-    too; on ``bf16`` tensors one buffer and the keys in L2, the smallest
-    layout, whose L1 holds the bf16 weights of the row products."""
+    the CUDA source (past 128 columns ``wide_d256_block_plan``), or None if
+    nothing fits. A block holds the queries and, for SCANN+, cw [AB, D + 4]
+    each; the front (the block's centers [AB, D + 4], then a sub-chunk's
+    product [rows, D + 4] and the atom's energies [N, H]); one or two operand
+    buffers [rows, 2D + 4]; the index ring [2][N] (round4(2N) floats); the
+    atom's keys [N, D] where the layout holds them. Up to 128 columns rows =
+    64: on f32 tensors the keys where they fit beside one buffer, and a
+    second buffer where that fits too; on ``bf16`` tensors one buffer and the
+    keys in L2, the smallest layout, whose L1 holds the bf16 weights of the
+    row products. Past 128 columns rows = ``D256_CHUNK_ROWS`` (32) and
+    always two buffers, the keys where they fit, with a raw area [32, 2D] of
+    bfloat16 (32 x D floats) on ``bf16`` tensors: the products read the
+    weights' TF32 planes, and this layout fits wherever one 64-row buffer
+    fits."""
     r4 = lambda v: -(-v // 4) * 4
+    slots = (2 if g_update else 1) * atom_block * (D + 4)
+    if D > NARROW_WIDTH:
+        rows = D256_CHUNK_ROWS
+        off_a = max(rows * (D + 4) + r4(N * H), atom_block * (D + 4))
+        for smem_keys in (True, False):
+            floats = (slots + off_a + 2 * rows * (2 * D + 4) + (rows * D if bf16 else 0)
+                      + r4(2 * N) + (N * D if smem_keys else 0))
+            if 4 * floats <= MAX_SHARED_BYTES:
+                return 2, smem_keys, 4 * floats
+        return None
     off_a = max(MAX_CHUNK_ROWS * (D + 4) + r4(N * H), atom_block * (D + 4))
     layouts = ((True, 2), (True, 1), (False, 2), (False, 1))
     for smem_keys, buffers in layouts[3 if bf16 else 0:]:
-        floats = ((2 if g_update else 1) * atom_block * (D + 4) + off_a
+        floats = (slots + off_a
                   + buffers * MAX_CHUNK_ROWS * (2 * D + 4) + r4(2 * N)
                   + (N * D if smem_keys else 0))
         if 4 * floats <= MAX_SHARED_BYTES:
@@ -277,8 +297,9 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     or ``bf16`` tensors) takes the atom
     block of ``WIDE_ATOM_BLOCKS`` whose waves cost least, a wave costing
     ``WIDE_ATOM_COST`` x AB + ``WIDE_HEAD_COST`` (a block's head, its
-    atoms' cw and query products, costs about 0.15 of an atom's rows), the
-    smaller where two tie."""
+    atoms' cw and query products, costs about 0.15 of an atom's rows; 0.165
+    at D = 256 on an NVIDIA H100 80GB HBM3 at 700 W), the smaller where two
+    tie."""
     wide = is_wide(N)
     best = None
     blocks = D256_ATOM_BLOCKS if D > NARROW_WIDTH else ATOM_BLOCKS
@@ -390,8 +411,8 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
             if is_wide(N) and not wide_block_plan(plan[0], N, D, num_head, g_update,
                                                   bool(bf16))[1]
             else None)
-    # the narrow build past 128 columns takes the packed TF32 planes as pointer 19
-    planes = [layer_planes(params, g_update)] if D > NARROW_WIDTH and not is_wide(N) else []
+    # the builds past 128 columns take the packed TF32 planes as pointer 19
+    planes = [layer_planes(params, g_update)] if D > NARROW_WIDTH else []
     call_kernel(lib, lib + ("_bf16" if bf16 else ""), dev, tensors + [keys] + planes,
                 [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
@@ -403,7 +424,7 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
 
 def layer_planes(params: Params, g_update: bool) -> torch.Tensor:
     """``kernels.scann_forward.layer_tf32_planes`` of the layer's Wfg, Wk and
-    Wq (f32), which the narrow build past 128 columns reads. Kept on the Wfg
+    Wq (f32), which the builds past 128 columns read. Kept on the Wfg
     tensor and made again when any of the three is another tensor or has
     changed in place (its version counter; a tensor made in inference mode
     has none and is split at every launch)."""

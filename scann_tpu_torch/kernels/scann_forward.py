@@ -627,7 +627,7 @@ def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, 
     the other weights, the RBF centers; contiguous f32 on the params' device.
     Past 128 columns (``is_d256``) also each layer's ``layer_tf32_planes``
     followed by the ``tf32_planes`` of its ResidualNorm's W1 and W2, [L, n]
-    ("tf32_planes"), which the tall #3 reads there."""
+    ("tf32_planes"), which the tall and wide #3 read there."""
     dev = params["dense_embed/kernel"].device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     p = {k: f32(v) for k, v in stack_layer_params(params, cfm.n_attention,

@@ -40,7 +40,11 @@ Forward:
   launched there (``is_tall`` holds at every narrow N); the tall build's
   chunks fall to 32 rows where 64 do not fit (``l2_memory_plan``), and it
   takes N <= ``D256_TALL_MAX_N`` = 32, the wide build the rest
-  (``is_wide_forward``). The loop backward trains such a model too, in its
+  (``is_wide_forward``). Both run their products 32 output columns a warp
+  on the packed TF32 planes of ``pack_params`` (``"tf32_planes"``, launch
+  pointer 52), and the wide one walks each atom in sub-chunks of
+  ``D256_WIDE_FORWARD_ROWS`` = 32 rows in two operand buffers, the next
+  staged while one runs. The loop backward trains such a model too, in its
   tall and wide builds of widths up to 256 (below).
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
@@ -279,6 +283,11 @@ D256_CLUSTER_SIZES = tuple(range(8, 0, -1))
 # buffers of more rows do not fit a block's shared memory at D = 256, so the
 # wide build takes N > 32 there (N > 64 up to 128 columns).
 D256_TALL_MAX_N = 32
+# The wide loop forward's sub-chunk past 128 columns (kFwdWideW32Rows of
+# csrc/scann_forward_common.cuh, kWideRows of scann_loop.cu): two operand
+# buffers of 32 rows, the next staged while one runs, in what one buffer of
+# 64 rows took at D = 256
+D256_WIDE_FORWARD_ROWS = 32
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -337,10 +346,11 @@ def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     (max(D, G) + 4)) (a chunk's product and attention, the wide atom's
     energies [N, H] in place of the attention; the ResidualNorm's h2), the
     chunk operand buffers [rows, 2D + 4] (two in the tall build, which
-    stages the next chunk while one runs; one sub-chunk of 64 rows in the
-    wide build), the index ring (two slots of a chunk's or a wide atom's
-    neighbour indices, 2 x rows or 2 N rounded up to 4 floats, so that the
-    keys after it stay 16-byte aligned at an odd N), the buffers' two
+    stages the next chunk while one runs; in the wide build one sub-chunk of
+    64 rows, or past 128 columns two of ``D256_WIDE_FORWARD_ROWS`` = 32, the
+    next staged while one runs), the index ring (two slots of a chunk's or
+    a wide atom's neighbour indices, 2 x rows or 2 N rounded up to 4 floats,
+    so that the keys after it stay 16-byte aligned at an odd N), the buffers' two
     mbarriers (4 floats) and, in the wide build where they fit, the atom's
     keys [N, D]; or the embedding's staging, or the readout's block and
     vectors. The wide
@@ -355,15 +365,17 @@ def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     wide = is_wide_forward(cfm, N)
+    sub = D256_WIDE_FORWARD_ROWS if kfwd.is_d256(cfm) else MAX_CHUNK_ROWS
+    buffers = 2 if not wide or kfwd.is_d256(cfm) else 1
     first = None
     for most_rows in ((MAX_CHUNK_ROWS,) if wide else kfwd.CHUNK_ROWS):
         for smem_keys in ((True, False) if wide else (False,)):
             for block in ATOM_BLOCKS:
                 block = min(block, M)
                 chunk_atoms = max(1, min(block, most_rows // max(N, 1)))
-                rows = MAX_CHUNK_ROWS if wide else chunk_atoms * N
+                rows = sub if wide else chunk_atoms * N
                 front = max(rows * (D + 4) + r4(N * H if wide else rows * H), block * (wd + 4))
-                chunk = (front + (1 if wide else 2) * rows * (2 * D + 4)
+                chunk = (front + buffers * rows * (2 * D + 4)
                          + r4(2 * (N if wide else rows)) + 4 + (N * D if smem_keys else 0))
                 work = max(chunk, kfwd.embedding_stage_floats(cfm, block),
                            block * wd + 2 * wd + 2 * r4(M) + r4(O))
@@ -639,8 +651,9 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     tensors, dims, scalars, rng, pred, ga = kfwd.launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work,
         scratch["geo"])
-    # the tall build past 128 columns takes the packed TF32 planes as pointer 52
-    planes = [packed["tf32_planes"]] if tall and kfwd.is_d256(cfm) else []
+    # the tall and wide builds past 128 columns take the packed TF32 planes as
+    # pointer 52
+    planes = [packed["tf32_planes"]] if kfwd.is_d256(cfm) else []
     kfwd.call_kernel(library, symbol, dev, tensors + [scratch["next_centers"], seg, rows] + planes,
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1

@@ -15,8 +15,8 @@ handed and planned, and their plain versions against the JAX package.
   two operand buffers of 32 rows at MP2018 (AB = 16), and the CUDA
   source's terms; #3's tall plan at the MP2018 recipe bucket.
 - The launches (a stub in place of the CUDA library): the planes handed to
-  the tall #3 (both operand modes) and to the narrow #5, and to no other
-  build.
+  the tall and wide #3 (both operand modes) and to the narrow and wide #5
+  past 128 columns, and to no build up to 128 columns.
 - The plain versions of #3 and #5 at D = 256 against the JAX kernels in
   interpret mode at N = 16 and 32, rtol 1e-5 / atol 1e-6, as
   ``tests/test_torch_widths.py`` (#5's updated geometry at atol 2e-6: f32
@@ -195,8 +195,8 @@ def test_torch_d256_plans_match_cuda_sources():
     assert "(cost == best_cost && p.buffers > best.buffers)" in la
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()
-    assert ("#if defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)\nconstexpr bool kW32 = true;"
-            in loop)
+    assert ("#if defined(SCANN_WIDTH_256) && (defined(SCANN_LOOP_TALL) || "
+            "defined(SCANN_LOOP_WIDE))\nconstexpr bool kW32 = true;" in loop)
     assert "#ifdef SCANN_LOOP_TAKES_PLANES\n  const float* planes = (const float*)ptrs[52];" in loop
     with open(f"{_build.SRC_DIR}/scann_mma.cuh") as f:
         mma = f.read()
@@ -216,8 +216,8 @@ def test_torch_d256_tall_plan_at_mp2018(M):
 
 # --- launches --------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["tall f32", "tall bf16", "tall 128", "layer", "layer wide",
-                                  "layer 128"])
+@pytest.mark.parametrize("case", ["tall f32", "tall bf16", "tall 128", "wide f32", "wide bf16",
+                                  "wide 128", "layer", "layer wide", "layer 128"])
 def test_torch_d256_launches_hand_the_planes(case, monkeypatch):
     seen = []
     monkeypatch.setattr(kfwd, "call_kernel", lambda *a, **k: seen.append(a))
@@ -225,25 +225,29 @@ def test_torch_d256_launches_hand_the_planes(case, monkeypatch):
     monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
     D = 128 if case.endswith("128") else 256
     cfm = dataclasses.replace(MP2018, n_attention=2, local_dim=D, global_dim=D, dense_out=D)
-    if case.startswith("tall"):
-        if case == "tall bf16":
+    if case.startswith(("tall", "wide")):
+        if case.endswith("bf16"):
             cfm = dataclasses.replace(cfm, dtype="bfloat16")
-        x = _torch(make_synthetic_batch(np.random.default_rng(0), B=2, M=40, N=16, n_atoms=95))
+        # the wide build past 128 columns takes N > 32; up to 128 N > 64
+        N = 16 if case.startswith("tall") else 72
+        x = _torch(make_synthetic_batch(np.random.default_rng(0), B=2, M=40, N=N, n_atoms=95))
         packed = kfwd.pack_params(init_params(dataclasses.replace(cfm, dtype="float32"),
                                               torch.Generator().manual_seed(0)), cfm)
-        kloop._launch(packed, x, cfm, False, tall=True)
-        if case == "tall 128":
+        kloop._launch(packed, x, cfm, False, tall=case.startswith("tall"))
+        assert seen[0][1] == kloop.forward_library(cfm, 40, N, tall=case.startswith("tall"))[1]
+        if case.endswith("128"):
             assert len(seen[0][3]) == 52   # no pointer 52
         else:
             assert len(seen[0][3]) == 53 and seen[0][3][52] is packed["tf32_planes"]
-        kloop.launch_loop_forward.launches = kloop.launch_loop_forward.d256_launches = 0
-        kloop.launch_loop_forward.tall_launches = kloop.launch_loop_forward.bf16_launches = 0
+        for name in ("launches", "bf16_launches", "wide_launches", "tall_launches",
+                     "d256_launches"):
+            setattr(kloop.launch_loop_forward, name, 0)
     else:
         N = 96 if case == "layer wide" else 32
         c, i, g, m, w, p = _layer_inputs(np.random.default_rng(1), 2, 10, N, D, True)
         params = _flat_params(p)
         kla._launch(*[torch.from_numpy(a) for a in (c, i, g, m, w)], params, 8, 0.5, True)
-        if case == "layer":
+        if case != "layer 128":
             assert len(seen[0][3]) == 20
             assert torch.equal(seen[0][3][19], kfwd.layer_tf32_planes(
                 params["filter_geo/kernel"], params["key/kernel"], params["query/kernel"], True))

@@ -692,10 +692,11 @@ def test_torch_wide_plans_match_cuda_sources():
     assert (kla.WIDE_ATOM_COST, kla.WIDE_HEAD_COST) == (20, 3)
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()
-    assert "p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;" in loop
+    assert "p.rows = kWide ? kWideRows : a.chunk_atoms * a.N;" in loop
+    assert "constexpr int kWideRows = kW32 ? kFwdWideW32Rows : kFwdMaxChunkRows;" in loop
     for term in ("const int att = round4(kWide ? a.N * a.H : p.rows * a.H);",
                  "int front = p.rows * (a.D + 4) + att;",
-                 "q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);",
+                 "q.offI = front + (kWide ? kWideBuffers : 2) * p.rows * (2 * a.D + 4);",
                  "q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;",
                  "int w = q.offK + (q.smem_keys ? a.N * a.D : 0);"):
         assert term in loop
@@ -758,12 +759,15 @@ def test_torch_l2_plan_matches_cuda_source(name, M, N, S):
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()
     plan = loop[loop.index("inline L2Plan l2_plan("):loop.index("inline L2Plan make_l2_plan(")]
-    for term in ("p.rows = kWide ? kFwdMaxChunkRows : a.chunk_atoms * a.N;",
+    # up to 128 columns kW32 is false: one sub-chunk buffer of 64 rows
+    assert "constexpr int kWideRows = kW32 ? kFwdWideW32Rows : kFwdMaxChunkRows;" in loop
+    assert "constexpr int kWideBuffers = kW32 ? 2 : 1;" in loop
+    for term in ("p.rows = kWide ? kWideRows : a.chunk_atoms * a.N;",
                  "const int att = round4(kWide ? a.N * a.H : p.rows * a.H);",
                  "int front = p.rows * (a.D + 4) + att;",
                  "front = AB * p.lds > front ? AB * p.lds : front;",
                  "q.offA1 = front + p.rows * (2 * a.D + 4);",
-                 "q.offI = front + (kWide ? 1 : 2) * p.rows * (2 * a.D + 4);",
+                 "q.offI = front + (kWide ? kWideBuffers : 2) * p.rows * (2 * a.D + 4);",
                  "q.offK = q.offI + round4(2 * (kWide ? a.N : p.rows)) + 4;",
                  "int w = q.offK + (q.smem_keys ? a.N * a.D : 0);",
                  "const int readout = AB * p.wd + 2 * p.wd + 2 * round4(a.M) + round4(a.O);",
@@ -987,17 +991,18 @@ def test_torch_wide_row_copy_matches_fwd_chunk():
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
         common = f.read()
     # fwd_chunk's body is fwd_chunk_impl's, whose row products are row_gemm
-    # calls: mma_gemm<kBf16> without the planes argument where kW32 is false
-    chunk = re.sub(r"row_gemm<kW32, kBf16>\((.*?), pl\.\w+, (.*?),\n\s*\[&\]",
-                   r"mma_gemm<kBf16>(\1, \2, [&]",
-                   _between(common, "__device__ __forceinline__ void fwd_chunk_impl(",
-                            "\n// The wide form of fwd_chunk"))
+    # calls (mma_gemm where kW32 is false, mma_gemm_w32 on the planes where
+    # it is true); fwd_chunk_rows takes the same kW32 and makes the same calls
+    chunk = _between(common, "__device__ __forceinline__ void fwd_chunk_impl(",
+                     "\n// The wide form of fwd_chunk")
     rows = _between(common, "__device__ __forceinline__ void fwd_chunk_rows(",
                     "\n// out = LN(ctx + query)")
     norm = _between(common, "__device__ __forceinline__ void fwd_out_norm(",
                     "\n// LocalAttention of one staged chunk")
     body = _between(rows, "  if (a.g_update) {\n", "\n}\n")
-    assert body.count("mma_gemm<kBf16>") == 3 and "warp_layer_norm_rows" in body
+    assert body.count("row_gemm<kW32, kBf16>") == 3 and "warp_layer_norm_rows" in body
+    assert ("template <bool kBf16 = false, bool kW32 = false, typename T>\n"
+            "__device__ __forceinline__ void fwd_chunk_rows(") in common
     assert _between(chunk, "  if (a.g_update) {\n", "  // energies (query * dk)") == body + "\n"
     loop = _between(norm, "  for (int at = warp; at < ca; at += kWarps) {", "\n}\n")
     assert "warp_layer_norm(v, D, w.ln_s, w.ln_b, lane);" in loop
