@@ -5184,10 +5184,40 @@ def widened(cfm, D, G, O):
     return dataclasses.replace(cfm, local_dim=D, global_dim=G, dense_out=O)
 
 
+def hold_fused_clusters(tag, packed, x, cfm, drop, got, got16, failures):
+    """#1 past 128 columns at every size of ``HOLD_CLUSTERS`` that the batch
+    takes (at most one block a chunk of atoms), f32 and bf16 (``drop``: the
+    dropout rate, seed and ``mol_base``): bit for bit what the rule's size
+    gave (``got``, ``got16``), since every product, softmax and LayerNorm is
+    a row's or an atom's."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+
+    B, M = x["atomic"].shape[:2]
+    N = x["neighbors"].shape[2]
+    S = x["segment_onehot"].shape[-1] if "segment_onehot" in x else 0
+    cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
+    sizes = [C for C in HOLD_CLUSTERS if C <= kfwd.chunk_count(cfm, M, N, S)]
+    differ = []
+    with torch.inference_mode():
+        for C in sizes:
+            for mode, want in ((cfm, got), (cfm16, got16)):
+                out = kfwd._launch(packed, x, mode, False, *drop, cluster=C)
+                if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                    differ.append(f"{mode.dtype} C={C}")
+    print(f"{tag}: at C = {sizes} (the rule's {kfwd.forward_cluster(cfm, B, M, N, S)}), f32 "
+          f"and bf16, bit for bit: {not differ}", flush=True)
+    if differ:
+        failures.append(f"{tag}: differs from the rule's cluster at {differ}")
+
+
 def phase20_holds(qm9_model, mp2018, failures):
     """Every *_d256 build against its plain version at (D, G, O) =
     (136, 132, 140) and (256, 256, 256), f32 and bf16: #1 at QM9 (16, 32,
-    16) and (8, 8, 8) of 1-8 atoms (rtol/atol, a relaunch bit-identical;
+    16) and (8, 8, 8) of 1-8 atoms, at D = 256 also on a packed batch (QM9
+    at capacity 48) and with dropout on (rtol/atol, a relaunch bit-identical,
+    every cluster size the batch takes bit for bit, ``hold_fused_clusters``;
     bf16 by ``hold_bf16`` at 2 x the f32-noise floor and 0.9 x the f32
     kernel's reading; the floor of every phase 20 bf16 hold is phase 15's,
     the plain version's largest distance from itself with f64 sums or on
@@ -5248,8 +5278,39 @@ def phase20_holds(qm9_model, mp2018, failures):
             print(f"{tag}: a relaunch bit-identical: {same}", flush=True)
             if not same:
                 failures.append(f"{tag}: a relaunch differs")
+            hold_fused_clusters(tag, packed, x, qm9, (), (pred, ga), got16[0], failures)
             note(worst16, kfwd.library(qm9), hold_bf16(f"{tag} bf16", *got16, failures, f64,
                                                        below_f32=0.9, plain16_moved=moved))
+        # at D = 256 also a packed batch (QM9 at capacity 48, empty segments)
+        # and a launch with dropout on, each batch from a generator of its own
+        # so that the batches drawn after them are the ones they were
+        for label, x, drop in () if D != 256 else (
+                ("QM9 capacity 48", pack_batch(
+                    synthetic_batch(np.random.default_rng(2048), 12, 29, 16), 48), ()),
+                ("dropout 0.1", synthetic_batch(np.random.default_rng(2049), 8, 32, 16),
+                 (0.1, 27, 40))):
+            tag = f"phase 20 #1 ({kfwd.library(qm9)}) D={D} {label}{packed_label(x)}"
+            with torch.inference_mode():
+                got = kfwd._launch(packed, x, qm9, False, *drop)
+                got16 = kfwd._launch(packed, x, qm9_16, False, *drop)
+                again = kfwd._launch(packed, x, qm9, False, *drop) + kfwd._launch(
+                    packed, x, qm9_16, False, *drop)
+                want = kfwd.reference_scann_forward(p, x, qm9, False, *drop)
+                plain16 = kfwd.reference_scann_forward(p, x, qm9_16, False, *drop)
+                f64 = kfwd.reference_scann_forward(f64_params(p), x, qm9_16, False, *drop)
+                moved = [kfwd.reference_scann_forward(jittered(p, j), x, qm9_16, False, *drop)
+                         for j in range(JITTERS)]
+                torch.cuda.synchronize()
+            note(worst, kfwd.library(qm9), hold(tag, [("pred", got[0], want[0], ATOL),
+                                                     ("ga", got[1], want[1], ATOL)], failures))
+            same = all(torch.equal(a, b) for a, b in zip(again, got + got16))
+            print(f"{tag}: a relaunch bit-identical (f32 and bf16): {same}", flush=True)
+            if not same:
+                failures.append(f"{tag}: a relaunch differs")
+            hold_fused_clusters(tag, packed, x, qm9, drop, got, got16, failures)
+            note(worst16, kfwd.library(qm9), hold_bf16(f"{tag} bf16", got16, plain16, want, got,
+                                                       failures, f64, below_f32=0.9,
+                                                       plain16_moved=moved))
         p = init_params(mp, torch.Generator().manual_seed(20), "cuda")
         for B, M, N in ((4, 96, 32), (4, 80, 96), (3, 40, 48)):
             batch = lambda B, M=M, N=N: (
@@ -5382,7 +5443,8 @@ def phase20_times(qm9_model, mp2018, card):
         {"f32": lambda: kfwd._launch(packed, x, qm9, False),
          "bf16": lambda: kfwd._launch(packed, x, bf16(qm9), False)},
         kfwd.forward_flops(qm9, B, M, N), tensor_bytes(x.values(), weights(packed))
-        + 4 * (B + B * M), kfwd.forward_fp32_flops(qm9, B, M, N))
+        + 4 * (B + B * M), kfwd.forward_fp32_flops(qm9, B, M, N),
+        cluster=kfwd.forward_cluster(qm9, B, M, N))
     del x
     # #3 at the MP2018 recipe bucket (the tall build) and at (16, 80, 96) (the wide one)
     p = init_params(mp, torch.Generator().manual_seed(0), "cuda")
@@ -6317,22 +6379,42 @@ def d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_model, mp2018):
 
 def d256_forward_ab(kloop, kla, kfwd, init_params, mp2018, saved=None):
     """``--backward-ab``'s times of the forward builds past 128 columns, with
-    the checkout's modules: the tall #3 at MP2018 (B, 96, 32) and the wide
-    #3 at MP2018 (B, 80, 96), B = 1, 16 and 64, f32 and bf16, at the
-    checkout's own cluster size; the narrow #5 at one MP2018 layer (64, 96,
-    32) and at (8, 256, 32), and the wide #5 at (1, 48, 96), (8, 96, 96) and
-    (64, 96, 96), f32 and bf16 tensors (10 timed launches after 3): label ->
-    {ms, bound_ms, bound_by} (#5: {ms, plan}). With ``saved`` (a dict), one
-    launch's outputs of each, the tall #3 at MP2018 (4, 96, 32), the wide
-    one at (4, 80, 97) (a last sub-chunk of one row), both at C = 2, the
-    narrow #5 at (4, 48, 32) and the wide one at (2, 40, 97), for
-    ``--ab-compare``."""
+    the checkout's modules: #1 at QM9 (B, 32, 16), B = 1, 16 and 128; the
+    tall #3 at MP2018 (B, 96, 32) and the wide #3 at MP2018 (B, 80, 96), B =
+    1, 16 and 64, at the checkout's own cluster size; all f32 and bf16; the
+    narrow #5 at one MP2018 layer (64, 96, 32) and at (8, 256, 32), and the
+    wide #5 at (1, 48, 96), (8, 96, 96) and (64, 96, 96), f32 and bf16
+    tensors (10 timed launches after 3): label -> {ms, bound_ms, bound_by}
+    (#5: {ms, plan}). With ``saved`` (a dict), one launch's outputs of each,
+    #1 at QM9 (4, 32, 16), at (8, 8, 8) of 1-8 atoms, on a packed batch
+    (capacity 48) and with dropout on (0.1, seed 7, ``mol_base`` 40), the
+    tall #3 at MP2018 (4, 96, 32), the wide one at (4, 80, 97) (a last
+    sub-chunk of one row), both at C = 2, the narrow #5 at (4, 48, 32) and
+    the wide one at (2, 40, 97), for ``--ab-compare``."""
     import dataclasses
 
     mp = widened(mp2018, 256, 256, 256)
     bf16 = dataclasses.replace(mp, dtype="bfloat16")
     packed = kfwd.pack_params(init_params(mp, torch.Generator().manual_seed(0), "cuda"), mp)
     out = {}
+    qm9 = widened(qm9_config(), 256, 256, 256)
+    qm9_16 = dataclasses.replace(qm9, dtype="bfloat16")
+    qp = kfwd.pack_params(init_params(qm9, torch.Generator().manual_seed(0), "cuda"), qm9)
+    for B in (1, 16, 128):
+        x = synthetic_batch(np.random.default_rng(270), B, 32, 16)
+        flops = kfwd.forward_flops(qm9, B, 32, 16)
+        nbytes = tensor_bytes(x.values(), weights(qp)) + 4 * (B + B * 32)
+        for cfm in (qm9, qm9_16):
+            # the checkout's own blocks a molecule (one before clusters)
+            C = kfwd.forward_cluster(cfm, B, 32, 16) if hasattr(kfwd, "forward_cluster") else 1
+            with torch.inference_mode():
+                ms = statistics.median(cuda_times(lambda: kfwd._launch(qp, x, cfm, False), 10,
+                                                  warmup=3))
+            bound, by, _ = bound_ms(flops, nbytes, kfwd.forward_fp32_flops(cfm, B, 32, 16),
+                                    bf16=cfm is qm9_16)
+            out[f"1-d256 {cfm.dtype} QM9 ({B}, 32, 16)"] = {"ms": ms, "bound_ms": bound,
+                                                            "bound_by": by, "cluster": C}
+        del x
     for build, M, N in (("3-d256", 96, 32), ("3-wide-d256", 80, 96)):
         for B in (1, 16, 64):
             x = (synthetic_batch(np.random.default_rng(250), B, M, N, n_atoms=mp.n_atoms,
@@ -6368,6 +6450,19 @@ def d256_forward_ab(kloop, kla, kfwd, init_params, mp2018, saved=None):
                                                      dt == torch.bfloat16))}
         del args, typed
     if saved is not None:
+        unpacked = synthetic_batch(np.random.default_rng(271), 4, 32, 16)
+        cases = (("(4, 32, 16)", unpacked, ()),
+                 ("(8, 8, 8)", synthetic_batch(np.random.default_rng(272), 8, 8, 8, min_atoms=1),
+                  ()),
+                 ("packed 48", pack_batch(synthetic_batch(np.random.default_rng(273), 12, 29, 16),
+                                          48), ()),
+                 ("dropout 0.1", unpacked, (0.1, 7, 40)))
+        for name, cfm in (("scann_forward_d256", qm9), ("scann_forward_d256_bf16", qm9_16)):
+            saved[name] = {}
+            with torch.inference_mode():
+                for label, xs, drop in cases:
+                    pred, ga = kfwd._launch(qp, xs, cfm, False, *drop)
+                    saved[name][f"{label} pred"], saved[name][f"{label} ga"] = pred.cpu(), ga.cpu()
         x = synthetic_batch(np.random.default_rng(252), 4, 96, 32, n_atoms=mp.n_atoms,
                             min_atoms=20)
         wide_x = wide_batch(np.random.default_rng(255), 4, 80, 97, mp)
@@ -6434,11 +6529,12 @@ def backward_ab(root, out_path=None):
     schedule, the bf16 builds, at the checkout's own cluster size and the
     wide one at C = 4 too, ``out["d256"]``) and with OUT saves their
     gradients at a fixed C = 2 (``AB_WITHIN``). Times the forward builds
-    past 128 columns (``d256_forward_ab``: the tall #3 at MP2018 (B, 96,
-    32) and the wide #3 at (B, 80, 96), B = 1, 16, 64, the narrow #5 at one
-    MP2018 layer and (8, 256, 32) and the wide #5 at (1, 48, 96), (8, 96,
-    96) and (64, 96, 96), f32 and bf16, ``out["d256_forward"]``) and with
-    OUT saves their outputs (#3 at C = 2), held bit for bit. Run the turns
+    past 128 columns (``d256_forward_ab``: #1 at QM9 (B, 32, 16), B = 1,
+    16, 128, the tall #3 at MP2018 (B, 96, 32) and the wide #3 at (B, 80,
+    96), B = 1, 16, 64, the narrow #5 at one MP2018 layer and (8, 256, 32)
+    and the wide #5 at (1, 48, 96), (8, 96, 96) and (64, 96, 96), f32 and
+    bf16, ``out["d256_forward"]``) and with OUT saves their outputs (#1
+    unpacked, packed and with dropout; #3 at C = 2), held bit for bit. Run the turns
     A, B, B, A, each a process of its own."""
     sys.path.insert(0, os.path.abspath(root))
     if not torch.cuda.is_available():
@@ -6569,7 +6665,8 @@ def backward_ab(root, out_path=None):
     # plan's); each at the checkout's own cluster size unless named, beside
     # its bound (``loop_backward_flops``)
     out["d256"] = d256_ab_times(kloop, kbwd, kfwd, init_params, qm9_config(), mp2018)
-    # the tall #3 and the narrow #5 past 128 columns (the 32-column products)
+    # #1, the tall and wide #3 and the narrow and wide #5 past 128 columns
+    # (the 32-column products)
     out["d256_forward"] = d256_forward_ab(kloop, kla, kfwd, init_params, mp2018,
                                           saved if out_path else None)
     # #3's tall and wide builds at B = 1, 16 and the recipe batch of 64, in f32

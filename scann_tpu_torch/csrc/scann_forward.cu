@@ -43,7 +43,25 @@
 // Widths past 128 (D, G, O up to 256): scann_forward_d256.cu builds the
 // kernel with SCANN_WIDTH_256, 8 values of a row a lane in the warp
 // LayerNorms (kLaneValues of scann_common.cuh); the wrapper's plan halves
-// the chunks to 32 rows (QM9 at D = 256) or 16 where 64 do not fit.
+// the chunks to 32 rows (QM9 at D = 256) or 16 where 64 do not fit. That
+// build (kW32) runs each layer's products, the chunk's row products
+// (fwd_chunk_w32), cw, the query and the ResidualNorm's two, in the
+// 32-column layout (mma_gemm_w32 of scann_mma.cuh: a warp owns 32 output
+// columns, so each left-operand value is split once), on the packed TF32
+// planes of the layers' Wfg, Wk, Wq, W1 and W2 that the wrapper makes
+// (tf32_planes, launch pointer 50): those products are bound by instruction
+// issue at 256 columns, and the layout spends fewer instructions on each
+// tensor-core step, with mma_gemm's fragments and order of sums, so the
+// outputs are the ones mma_gemm gives, bit for bit. It also spreads a
+// molecule's atoms over a cluster of C blocks (up to kMaxForwardCluster,
+// whole chunks a block; the wrapper takes the most whose B clusters the
+// card runs at once), since one block a molecule leaves all but B of the
+// 132 SMs idle: a lone molecule took nearly the time of a batch of 128.
+// Each block keeps every atom's centers and writes its own atoms' new ones
+// into every block of the cluster (distributed shared memory) between two
+// cluster barriers a layer; rank 0 reads out. Only that build's kernel
+// takes the planes and C, so the build of widths up to 128 is the one it
+// was.
 //
 // bf16 operand mode (model.dtype "bfloat16"): a second instantiation of the
 // kernel, kBf16, rounds the operands of every product to bfloat16 and sums in
@@ -56,13 +74,31 @@
 // given stream, synchronises nothing, allocates nothing, and returns the
 // cudaGetLastError() code of the launch (or kErrSharedMemory / kErrShape).
 
+#include <cooperative_groups.h>
+
 #include "scann_forward_common.cuh"
 
 namespace {
 
 using namespace scann;
+namespace cg = cooperative_groups;
 
 using Args = ForwardArgs;   // scann_common.cuh
+
+#ifdef SCANN_WIDTH_256
+constexpr bool kW32 = true;
+#define SCANN_FORWARD_TAKES_PLANES
+#define SCANN_FORWARD_CLUSTER_TPARAM , bool kCluster
+#define SCANN_FORWARD_D256_PARAMS , const float* planes, const int C
+#else
+constexpr bool kW32 = false;
+constexpr bool kCluster = false;
+#define SCANN_FORWARD_CLUSTER_TPARAM
+#define SCANN_FORWARD_D256_PARAMS
+#endif
+// the largest cluster of the build past 128 columns (blocks a molecule; past
+// 8 a non-portable size the launcher opts into)
+constexpr int kMaxForwardCluster = 16;
 
 // Shared-memory plan, in floats: centers, query, scratch [M, ldm] each
 // (ldm = max(D, G) + 4); the work region (a chunk's buffers, or the
@@ -91,14 +127,26 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
 }
 
 // one block per SM (its shared memory takes most of the SM), so the
-// compiler may spend up to 255 registers a thread
-template <bool kBf16>
+// compiler may spend up to 255 registers a thread. The kW32 build also
+// takes planes, the packed TF32 planes of each layer's products
+// (row_planes' four blocks, then the ResidualNorm's W1 and W2), and C, the
+// blocks of a molecule: kCluster, a cluster of C > 1, else one block (the
+// code of one block a molecule, without the cluster's).
+template <bool kBf16 SCANN_FORWARD_CLUSTER_TPARAM>
 __global__ void __launch_bounds__(kThreads, 1)
-scann_forward_kernel(const Args a) {
+scann_forward_kernel(const Args a SCANN_FORWARD_D256_PARAMS) {
+#ifdef SCANN_FORWARD_TAKES_PLANES
+  const int b = blockIdx.x / C;
+#else
+  const float* const planes = nullptr;   // read under kW32 only
+  constexpr int C = 1;
+#endif
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Plan P = make_plan(a);
+#ifndef SCANN_FORWARD_TAKES_PLANES
   const int b = blockIdx.x;
+#endif
   const int M = a.M, N = a.N, D = a.D, H = a.H, G = a.G, O = a.O;
   const int ldm = P.ldm, CA = a.chunk_atoms, lda = 2 * D + 4, ldu = D + 4;
   const unsigned int mol = a.mol_base + (unsigned int)b;
@@ -137,45 +185,140 @@ scann_forward_kernel(const Args a) {
   });
   __syncthreads();
 
-  // ---- SCANN+ geometry embedding -> global scratch -----------------------
-  if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, 0, M);
+  if constexpr (kW32) {
+    // ---- past 128 columns: the molecule's atoms over a cluster of C blocks
+    // Block `rank` takes the atoms [m_lo, m_hi) of its share of the chunks
+    // (whole chunks, at least one a block) and keeps the centers of all M
+    // atoms, which the embedding gave every block alike; each layer gathers
+    // from them, then every block writes its atoms' new centers into each
+    // block of the cluster (distributed shared memory) between two cluster
+    // barriers: after the last gather from this layer's centers, and
+    // before the first gather from the next layer's. Every product, softmax
+    // and LayerNorm is a row's or an atom's, so the outputs are the ones
+    // one block a molecule gives, bit for bit. Rank 0 then reads out.
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = kCluster ? (int)cluster.block_rank() : 0;
+    const int chunks = (M + CA - 1) / CA;
+    const int m_lo = kCluster ? rank * chunks / C * CA : 0;
+    const int m_hi = kCluster ? min(M, (rank + 1) * chunks / C * CA) : M;
+    auto cluster_barrier = [&]() {
+      if constexpr (kCluster) cluster.sync();
+    };
 
-  // ---- L x (LocalAttention + ResidualNorm) -------------------------------
-  for (int l = 0; l < a.L; ++l) {
-    const LayerWeights w = layer_weights(a, l);
-    const float* wq = a.wq + (size_t)l * D * D;
-    const float* bq = a.bq + (size_t)l * D;
+    // ---- SCANN+ geometry embedding of the block's atoms -> global scratch
+    if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, m_lo, m_hi);
 
-    // per-atom projections: cw = centers @ Wfg[0:D] (SCANN+), query
-    if (a.g_update)
-      mma_gemm<kBf16>(sC, ldm, M, D, w.wfg, D, D,
-                      [&](int r, int c, float4 v) { store4(sW + r * ldm + c, v); });
-    mma_gemm<kBf16>(sC, ldm, M, D, wq, D, D, [&](int r, int c, float4 v) {
-      store4(sQ + r * ldm + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
-    });
-    __syncthreads();
+    // ---- L x (LocalAttention + ResidualNorm) -----------------------------
+    for (int l = 0; l < a.L; ++l) {
+      const LayerWeights w = layer_weights(a, l);
+      const float* bq = a.bq + (size_t)l * D;
+      // the layer's packed planes (LocalAttention's, then the ResidualNorm's
+      // W1 and W2), made where they are used, so that no register holds them
+      // across the layer
+      auto layer_planes = [&]() {
+        return planes + (layer_plane_floats(D, a.K, a.g_update) + 2 * w32_plane_floats(D, D)) * l;
+      };
 
-    for (int m0 = 0; m0 < M; m0 += CA) {
-      const int ca = min(CA, M - m0), base = m0 * N;
-      fwd_stage_chunk<kBf16>(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
-      fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm,
-                nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
-                nullptr, [&](int at, int n, int h) {
-                  return scann_philox::mask_value(
-                      a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
-                      a.attn_threshold, a.attn_scale);
-                });
-    }
+      // per-atom projections of the block's atoms: cw = centers @ Wfg[0:D]
+      // (SCANN+), query
+      {
+        const RowPlanes pl = row_planes(layer_planes(), D, a.K, a.g_update);
+        const float* cb = sC + m_lo * ldm;
+        if (a.g_update)
+          mma_gemm_w32<kBf16>(cb, ldm, m_hi - m_lo, D, pl.cw, D, [&](int r, int c, float4 v) {
+            store4(sW + (m_lo + r) * ldm + c, v);
+          });
+        mma_gemm_w32<kBf16>(cb, ldm, m_hi - m_lo, D, pl.q, D, [&](int r, int c, float4 v) {
+          store4(sQ + (m_lo + r) * ldm + c,
+                 make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
+        });
+      }
+      __syncthreads();
+      cluster_barrier();   // every block's centers of this layer are in place
 
-    // ResidualNorm: centers = LN(out + swish(out @ W1 + b1) @ W2 + b2); the
-    // centers of this layer are no longer needed, so they take h2
-    fwd_residual_norm<kBf16>(a, l, M, sQ, sW, sC, ldm,
-                      [&](int r, int c) { return mask4(1 + l, r, c); },
-                      [&](int m, const float (&v)[kLaneValues]) {
+      for (int m0 = m_lo; m0 < m_hi; m0 += CA) {
+        const int ca = min(CA, m_hi - m0), base = m0 * N;
+        fwd_stage_chunk<kBf16>(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
+        fwd_chunk_w32<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm,
+                                    sQ + m0 * ldm, ldm, nmask + base, nweight + base,
+                                    l + 1 < a.L ? geo_b + (size_t)base * D : nullptr, nullptr,
+                                    [&](int at, int n, int h) {
+                                      return scann_philox::mask_value(
+                                          a.seed, mol, 1 + a.L + l,
+                                          (unsigned)((base + at * N + n) * H + h),
+                                          a.attn_threshold, a.attn_scale);
+                                    },
+                                    row_planes(layer_planes(), D, a.K, a.g_update));
+      }
+      cluster_barrier();   // no block gathers from this layer's centers any more
+
+      // ResidualNorm of the block's atoms: centers = LN(out + swish(out @ W1 +
+      // b1) @ W2 + b2); their centers of this layer take h2, and each new row
+      // goes to every block of the cluster
+      const float* r1 = layer_planes() + layer_plane_floats(D, a.K, a.g_update);
+      fwd_residual_norm<kBf16, true>(
+          a, l, m_hi - m_lo, sQ + m_lo * ldm, sW + m_lo * ldm, sC + m_lo * ldm, ldm,
+          [&](int r, int c) { return mask4(1 + l, m_lo + r, c); },
+          [&](int m, const float (&v)[kLaneValues]) {
+            float* row = sC + (m_lo + m) * ldm;
 #pragma unroll
-                        for (int i = 0; i < kLaneValues; ++i)
-                          if (lane + 32 * i < D) sC[m * ldm + lane + 32 * i] = v[i];
-                      });
+            for (int i = 0; i < kLaneValues; ++i)
+              if (lane + 32 * i < D) row[lane + 32 * i] = v[i];
+            if constexpr (kCluster) {
+              for (int r = 1; r < C; ++r) {   // the other blocks of the cluster
+                float* dst = cluster.map_shared_rank(row, (rank + r) % C);
+#pragma unroll
+                for (int i = 0; i < kLaneValues; ++i)
+                  if (lane + 32 * i < D) dst[lane + 32 * i] = v[i];
+              }
+            }
+          },
+          r1, r1 + w32_plane_floats(D, D));
+    }
+    // the last layer's centers in every block; the other blocks are done
+    cluster_barrier();
+    if (kCluster && rank != 0) return;
+  } else {
+    // ---- SCANN+ geometry embedding -> global scratch -----------------------
+    if (a.g_update) fwd_embed_geometry<kBf16>(a, sA, sU, ndist, nweight, geo_b, 0, M);
+
+    // ---- L x (LocalAttention + ResidualNorm) -------------------------------
+    for (int l = 0; l < a.L; ++l) {
+      const LayerWeights w = layer_weights(a, l);
+      const float* wq = a.wq + (size_t)l * D * D;
+      const float* bq = a.bq + (size_t)l * D;
+
+      // per-atom projections: cw = centers @ Wfg[0:D] (SCANN+), query
+      if (a.g_update)
+        mma_gemm<kBf16>(sC, ldm, M, D, w.wfg, D, D,
+                        [&](int r, int c, float4 v) { store4(sW + r * ldm + c, v); });
+      mma_gemm<kBf16>(sC, ldm, M, D, wq, D, D, [&](int r, int c, float4 v) {
+        store4(sQ + r * ldm + c, make_float4(v.x + bq[c], v.y + bq[c + 1], v.z + bq[c + 2], v.w + bq[c + 3]));
+      });
+      __syncthreads();
+
+      for (int m0 = 0; m0 < M; m0 += CA) {
+        const int ca = min(CA, M - m0), base = m0 * N;
+        fwd_stage_chunk<kBf16>(a, sA, sC, ldm, nbr, ndist, geo_b, base, ca * N);
+        fwd_chunk<kBf16, float>(forward_chunk_dims(a), w, ca, sA, sU, sE, sW + m0 * ldm, sQ + m0 * ldm, ldm,
+                  nmask + base, nweight + base, l + 1 < a.L ? geo_b + (size_t)base * D : nullptr,
+                  nullptr, [&](int at, int n, int h) {
+                    return scann_philox::mask_value(
+                        a.seed, mol, 1 + a.L + l, (unsigned)((base + at * N + n) * H + h),
+                        a.attn_threshold, a.attn_scale);
+                  });
+      }
+
+      // ResidualNorm: centers = LN(out + swish(out @ W1 + b1) @ W2 + b2); the
+      // centers of this layer are no longer needed, so they take h2
+      fwd_residual_norm<kBf16>(a, l, M, sQ, sW, sC, ldm,
+                        [&](int r, int c) { return mask4(1 + l, r, c); },
+                        [&](int m, const float (&v)[kLaneValues]) {
+  #pragma unroll
+                          for (int i = 0; i < kLaneValues; ++i)
+                            if (lane + 32 * i < D) sC[m * ldm + lane + 32 * i] = v[i];
+                        });
+    }
   }
 
   // ---- readout: after_Lc, GA scores, pooled context, head ----------------
@@ -283,11 +426,84 @@ scann_forward_kernel(const Args a) {
 // buffer) is the work region of make_plan. This file builds the kernels of
 // widths up to 128; scann_forward_d256.cu includes it with SCANN_WIDTH_256
 // defined and builds those of widths up to 256 (scann_forward_d256_launch),
-// at the first launch of a wider model.
+// at the first launch of a wider model, which also take pointer 50, the
+// packed TF32 planes of the layers' products ([L, n] of pack_params'
+// "tf32_planes"; never null there), and size 22, the blocks a molecule C
+// (1 to kMaxForwardCluster, at most one a chunk of atoms), and answer
+// scann_forward_d256_max_clusters.
 #ifdef SCANN_WIDTH_256
 #define SCANN_FORWARD_ENTRY(x) scann_forward_d256_##x
 #else
 #define SCANN_FORWARD_ENTRY(x) scann_forward_##x
+#endif
+
+#ifdef SCANN_FORWARD_TAKES_PLANES
+namespace {
+
+// The kernel of the operand mode bf16 (0 or 1) for C blocks a molecule,
+// with its launch attributes for `bytes` of shared memory (clusters past 8
+// blocks are non-portable).
+auto d256_kernel(int bf16, int C, int bytes, cudaError_t& err) {
+  const auto kernel = C > 1 ? (bf16 ? scann_forward_kernel<true, true>
+                                    : scann_forward_kernel<false, true>)
+                            : (bf16 ? scann_forward_kernel<true, false>
+                                    : scann_forward_kernel<false, false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && C > 1)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return kernel;
+}
+
+// C blocks a molecule: B clusters of C (one block a molecule without a
+// cluster at C = 1)
+void d256_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int B, int C,
+                        int bytes, cudaStream_t s) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+}
+
+}  // namespace
+
+// How many clusters of `cluster` blocks with this shape's shared memory the
+// card runs at once (cudaOccupancyMaxActiveClusters) in the kernel of the
+// operand mode in size 21, or minus the CUDA error; the sizes are the
+// launch's.
+extern "C" int SCANN_FORWARD_ENTRY(max_clusters)(const int* dims, int cluster) {
+  Args a = {};
+  a.B = dims[0]; a.M = dims[1]; a.N = dims[2]; a.D = dims[3]; a.H = dims[4];
+  a.E = dims[5]; a.G = dims[7]; a.O = dims[8]; a.F = dims[10];
+  a.cgcnn = dims[11]; a.use_ring = dims[12]; a.chunk_atoms = dims[16];
+  a.S = dims[20];
+  if ((dims[21] & ~1) || cluster < 1 || cluster > kMaxForwardCluster || a.chunk_atoms < 1)
+    return -(int)cudaErrorInvalidValue;
+  const int bytes = make_plan(a).total * (int)sizeof(float);
+  cudaError_t err;
+  const auto kernel = d256_kernel(dims[21], cluster, bytes, err);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  if (cluster == 1) {   // no cluster: blocks a SM times the SMs
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, bytes);
+    return err == cudaSuccess ? n * sms : -(int)err;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  d256_launch_config(cfg, attr, a.B, cluster, bytes, nullptr);
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
 #endif
 
 extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, const float* scalars,
@@ -297,6 +513,11 @@ extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, c
   a.seg = (const int*)ptrs[49];
   a.S = dims[20];
   const int bf16 = dims[21];
+#ifdef SCANN_FORWARD_TAKES_PLANES
+  const float* planes = (const float*)ptrs[50];
+  const int C = dims[22];
+  if (planes == nullptr || C < 1 || C > kMaxForwardCluster) return kErrShape;
+#endif
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
 
@@ -308,11 +529,24 @@ extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, c
   if (a.abuf_floats != plan.work) return kErrShape;   // the wrapper's plan is this one
   const int bytes = plan.total * (int)sizeof(float);
   if (bytes > kMaxSharedBytes) return kErrSharedMemory;
+#ifdef SCANN_FORWARD_TAKES_PLANES
+  // at least one chunk of atoms a block
+  if (C > (a.M + a.chunk_atoms - 1) / a.chunk_atoms) return kErrShape;
+  cudaError_t err;
+  const auto kernel = d256_kernel(bf16, C, bytes, err);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  d256_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, planes, C);
+  if (err != cudaSuccess) return (int)err;
+#else
   const auto kernel = bf16 ? scann_forward_kernel<true> : scann_forward_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.B, kThreads, bytes, (cudaStream_t)stream>>>(a);
+#endif
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,8 @@
 // float64 product), the block's 8 warps splitting the output columns 16 each,
 // so a weight element leaves L2 once per 32 rows. The chunk's operand buffers
 // have row strides of 2D + 4 and D + 4 floats (4 mod 32), which keeps the
-// fragment reads free of bank conflicts. The tall #3 and the narrow #5 past
-// 128 columns take fwd_chunk_w32 instead: the same chunk with its products
+// fragment reads free of bank conflicts. #1, the tall #3 and the narrow #5
+// past 128 columns take fwd_chunk_w32 instead: the same chunk with its products
 // in the 32-column layout (mma_gemm_w32) on TF32 planes of the weights
 // (RowPlanes), bit for bit the same outputs; the wide #3 and #5 past 128
 // columns walk their atoms in the same layout (fwd_atom_wide_keys with kW32,
@@ -581,8 +581,8 @@ __device__ __forceinline__ void fwd_chunk(const ChunkDims& a, const LayerWeights
 }
 
 // fwd_chunk with its row products in the 32-column layout (mma_gemm_w32) on
-// the layer's packed TF32 planes pl: the two builds redesigned at 256
-// columns. The same outputs, bit for bit.
+// the layer's packed TF32 planes pl: #1, the tall #3 and the narrow #5 past
+// 128 columns. The same outputs, bit for bit.
 template <bool kBf16 = false, typename T, typename Drop>
 __device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWeightsT<T>& w,
                                               int ca, float* sA, float* sU, float* sE,

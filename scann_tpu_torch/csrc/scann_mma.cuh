@@ -23,8 +23,8 @@
 // output columns of rows g and g + 8 and hands them to the epilogue as one
 // float4, as tile_gemm does.
 //
-// The 32-column layout (mma_gemm_w32), taken by the two builds redesigned at
-// 256 columns (the tall #3 and the narrow #5 past 128 columns), whose row
+// The 32-column layout (mma_gemm_w32), taken by every forward build past 128
+// columns (#1, the tall and wide #3, the narrow and wide #5), whose row
 // products are bound by instruction issue: a warp owns 32 output columns,
 // four n-tiles (tile j holds columns 4g + j), so at 256 columns the 8 warps
 // cover a row in one pass and each A value is read from shared memory and

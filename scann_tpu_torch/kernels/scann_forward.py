@@ -36,7 +36,11 @@ Philox masks of ``ops.dropout`` that the backward replays).
   (``MAX_WIDTH``). A model wider than ``NARROW_WIDTH`` = 128 (``is_d256``)
   launches the forwards' builds of 8 values of a row a lane in the warp
   LayerNorms, sources of their own (``csrc/*_d256.cu``, ``library``),
-  and its chunks fall to 32 or 16 rows where 64 do not fit.
+  and its chunks fall to 32 or 16 rows where 64 do not fit. That build of
+  #1 runs its products on the packed TF32 planes of ``pack_params`` and
+  spreads a molecule's atoms over a cluster of ``forward_cluster`` blocks
+  (up to 16: the most whose B clusters the card runs at once, at least a
+  chunk of atoms a block), so a small batch fills the card.
   Larger structures (crystals) go to the loop kernel (``kernels.scann_loop``).
   A packed batch adds its per-segment vectors to the plan
   (``max_segments`` is the largest S a shape takes, at most
@@ -91,6 +95,11 @@ NARROW_WIDTH = 128
 CHUNK_ROWS = (64, 32, 16)
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 MAX_SEGMENTS = 32          # kMaxSegments of csrc/scann_common.cuh
+# Blocks a molecule #1's build past 128 columns may launch with
+# (kMaxForwardCluster of csrc/scann_forward.cu; past 8 a non-portable size):
+# ``forward_cluster`` takes the largest whose B clusters the card runs at
+# once, at most one a chunk of atoms.
+FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
 RBF_WIDTH = 0.25
 
 _LAYER_KEYS = (
@@ -584,9 +593,10 @@ def tf32_planes(w: torch.Tensor) -> torch.Tensor:
     group G of 32 columns and each half s of each step of 32 rows come 12
     float4s a lane (plane p's row 32 (s // 2) + 8t + 4 (s % 2) + i at its
     columns 32G + 4g .. + 3, lane 4g + t, as q = 4p + i), the lanes side by
-    side: [..., G, s, q, lane, 4]. The 32-column products of the tall #3 and
-    the narrow #5 past 128 columns read them: each weight split once where
-    it is packed, with the bits a split at use gives."""
+    side: [..., G, s, q, lane, 4]. The 32-column products of every forward
+    build past 128 columns read them (#1, the tall and wide #3, the narrow
+    and wide #5): each weight split once where it is packed, with the bits a
+    split at use gives."""
     w = w.detach().to(torch.float32)
     *lead, R, C = w.shape
     w = torch.nn.functional.pad(w, (0, -C % 32, 0, -R % 32)).contiguous()
@@ -627,7 +637,8 @@ def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, 
     the other weights, the RBF centers; contiguous f32 on the params' device.
     Past 128 columns (``is_d256``) also each layer's ``layer_tf32_planes``
     followed by the ``tf32_planes`` of its ResidualNorm's W1 and W2, [L, n]
-    ("tf32_planes"), which the tall and wide #3 read there."""
+    ("tf32_planes"), which #1 (launch pointer 50) and the tall and wide #3
+    (pointer 52) read there."""
     dev = params["dense_embed/kernel"].device
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     p = {k: f32(v) for k, v in stack_layer_params(params, cfm.n_attention,
@@ -806,10 +817,75 @@ def call_kernel(library: str, symbol: str, dev: torch.device, tensors, dims, sca
         raise RuntimeError(f"{symbol} kernel launch failed ({rc}): {err(rc).decode()}")
 
 
+def chunk_count(cfm: ModelConfig, M: int, N: int, S: int = 0) -> int:
+    """The chunks of atoms of a molecule in the plan (``shared_memory_plan``):
+    the most blocks a molecule of #1's build past 128 columns may take."""
+    return -(-M // shared_memory_plan(cfm, M, N, S)[0])
+
+
+def launch_dims(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> list:
+    """The launch's sizes that its plan and its cluster's occupancy read (the
+    others 0): those of ``launch_arguments``, then S and the operand mode."""
+    chunk_atoms, work, _ = shared_memory_plan(cfm, M, N, S)
+    return [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
+            cfm.global_dim, cfm.dense_out, cfm.n_attention, CGCNN_FEATURES,
+            int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
+            chunk_atoms, work, 0, 0, S, operand_mode(cfm)]
+
+
+def cluster_answer(library: str, symbol: str, dims: list, cluster: int) -> int:
+    """``<symbol>_max_clusters`` of the build ``library`` at a launch's sizes
+    ``dims``: how many clusters of ``cluster`` blocks the card runs at once
+    (``cudaOccupancyMaxActiveClusters``). Each entry point keeps its
+    answers, so a launch asks the card once a shape."""
+    from scann_tpu_torch.kernels._build import load_library
+
+    fn = getattr(load_library(library), symbol + "_max_clusters")
+    known = getattr(fn, "answers", None)
+    if known is None:
+        known = fn.answers = {}
+    key = (tuple(dims), cluster)
+    if key not in known:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = fn((ctypes.c_int * len(dims))(*dims), cluster)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
+        known[key] = n
+    return known[key]
+
+
+def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int,
+                        S: int = 0) -> int:
+    """How many clusters of ``cluster`` blocks of #1's build past 128
+    columns at this shape the card runs at once, in the launch's operand
+    mode (``cluster_answer``)."""
+    return cluster_answer("scann_forward_d256", "scann_forward_d256",
+                          launch_dims(cfm, B, M, N, S), cluster)
+
+
+def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> int:
+    """Thread blocks a molecule of a launch: past 128 columns (``is_d256``)
+    the largest of ``FORWARD_CLUSTER_SIZES`` with at least a chunk of atoms
+    a block (``chunk_count``) whose B clusters the card runs at once
+    (``max_active_clusters``: 16 for a lone QM9 molecule, 6 at B = 16 on a
+    card that runs 17 clusters of 6, 1 at the batch of 128); the build up to
+    128 columns launches one."""
+    if not is_d256(cfm):
+        return 1
+    most = chunk_count(cfm, M, N, S)
+    for C in FORWARD_CLUSTER_SIZES:
+        if C <= most and B <= max_active_clusters(cfm, B, M, N, C, S):
+            return C
+    return 1
+
+
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
-            seed: int = 0, mol_base: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The launch itself, on inputs ``_check_shapes`` accepted."""
+            seed: int = 0, mol_base: int = 0, cluster: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch itself, on inputs ``_check_shapes`` accepted; past 128
+    columns at ``cluster`` blocks a molecule (None: ``forward_cluster``)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
@@ -819,7 +895,21 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
     tensors, dims, scalars, rng, pred, ga = launch_arguments(
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
     lib = library(cfm)
-    call_kernel(lib, lib, packed["wde"].device, tensors + [seg], dims + [S, bf16], scalars, rng)
+    # past 128 columns, pointer 50: the packed TF32 planes of the layers'
+    # products, and size 22: the blocks a molecule
+    planes, blocks = [], []
+    if is_d256(cfm):
+        if cluster is None:
+            cluster = forward_cluster(cfm, B, M, N, S)
+        if cluster not in FORWARD_CLUSTER_SIZES or cluster > chunk_count(cfm, M, N, S):
+            raise ValueError(f"cluster={cluster}: #1 past 128 columns launches with one of "
+                             f"{FORWARD_CLUSTER_SIZES} blocks a molecule, at most one a chunk "
+                             f"of atoms ({chunk_count(cfm, M, N, S)} here)")
+        planes, blocks = [packed["tf32_planes"]], [cluster]
+    elif cluster not in (None, 1):
+        raise ValueError(f"cluster={cluster}: #1 up to 128 columns launches one block a molecule")
+    call_kernel(lib, lib, packed["wde"].device, tensors + [seg] + planes,
+                dims + [S, bf16] + blocks, scalars, rng)
     fused_scann_forward.launches += 1
     fused_scann_forward.bf16_launches += bf16
     fused_scann_forward.d256_launches += is_d256(cfm)

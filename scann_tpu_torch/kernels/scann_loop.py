@@ -711,30 +711,14 @@ def max_active_forward_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluste
     card runs at once (``cudaOccupancyMaxActiveClusters``), in the kernel of
     the build and operand mode that launches (M, N, S) (``forward_library``,
     ``kfwd.operand_mode``; ``tall`` forces the tall build). Each entry
-    point's answers are kept, so a launch asks the card once a shape."""
-    import ctypes
-
-    from scann_tpu_torch.kernels._build import load_library
-
+    point's answers are kept, so a launch asks the card once a shape
+    (``kfwd.cluster_answer``)."""
     chunk_atoms, atom_block, work, _ = forward_plan(cfm, M, N, S, tall)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kfwd.CGCNN_FEATURES,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), int(cfm.g_update), 0, 0,
             chunk_atoms, work, 0, 0, atom_block, S, kfwd.operand_mode(cfm), cluster]
-    library, symbol = forward_library(cfm, M, N, S, tall)
-    fn = getattr(load_library(library), symbol + "_max_clusters")
-    known = getattr(fn, "answers", None)
-    if known is None:
-        known = fn.answers = {}
-    key = (tuple(dims), cluster)
-    if key not in known:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        n = fn((ctypes.c_int * len(dims))(*dims), cluster)
-        if n < 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
-        known[key] = n
-    return known[key]
+    return kfwd.cluster_answer(*forward_library(cfm, M, N, S, tall), dims, cluster)
 
 
 def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0,
@@ -1202,30 +1186,15 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int,
     than that many structures takes more than one wave. The kernel of the
     build that launches (M, N, S) in the config's operand mode answers
     (``backward_library``; every build exports its own), and each entry
-    point keeps its answers, so a launch asks the card once a shape."""
-    import ctypes
-
-    from scann_tpu_torch.kernels._build import load_library
-
+    point keeps its answers, so a launch asks the card once a shape
+    (``kfwd.cluster_answer``)."""
     chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S)
     dims = [B, M, N, cfm.local_dim, cfm.num_head, cfm.embedding_dim, cfm.num_gaussian,
             cfm.global_dim, cfm.dense_out, cfm.n_attention, kbwd.CGCNN_FEATURES, 0,
             int(cfm.feature == "cgcnn"), int(cfm.use_ring), 0, 0, 0, 0, chunk_atoms, 0, 0,
             atom_block, S, cluster]
     name = backward_library(cfm, M, N, S)
-    fn = getattr(load_library(name), name + "_max_clusters")
-    known = getattr(fn, "answers", None)
-    if known is None:
-        known = fn.answers = {}
-    key = (tuple(dims), cluster)
-    if key not in known:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        n = fn((ctypes.c_int * len(dims))(*dims), cluster)
-        if n < 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-n}")
-        known[key] = n
-    return known[key]
+    return kfwd.cluster_answer(name, name, dims, cluster)
 
 
 def loop_scann_grad(params: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],

@@ -1,4 +1,5 @@
-"""The forward builds redesigned at 256 columns, the tall #3
+"""The forward builds redesigned at 256 columns, #1
+(``csrc/scann_forward_d256.cu``), the tall #3
 (``csrc/scann_loop_tall_d256.cu``) and the narrow #5
 (``csrc/local_attention_d256.cu``), on the CPU: what their launches are
 handed and planned, and their plain versions against the JAX package.
@@ -15,12 +16,13 @@ handed and planned, and their plain versions against the JAX package.
   two operand buffers of 32 rows at MP2018 (AB = 16), and the CUDA
   source's terms; #3's tall plan at the MP2018 recipe bucket.
 - The launches (a stub in place of the CUDA library): the planes handed to
-  the tall and wide #3 (both operand modes) and to the narrow and wide #5
-  past 128 columns, and to no build up to 128 columns.
+  #1 and to the tall and wide #3 (both operand modes, #1 packed too) and
+  to the narrow and wide #5 past 128 columns, and to no build up to 128
+  columns.
 - The plain versions of #3 and #5 at D = 256 against the JAX kernels in
-  interpret mode at N = 16 and 32, rtol 1e-5 / atol 1e-6, as
-  ``tests/test_torch_widths.py`` (#5's updated geometry at atol 2e-6: f32
-  noise of a LayerNorm over 256 columns, ``GEO_ATOL``).
+  interpret mode at N = 16 and 32, and #1's on a packed batch, rtol 1e-5 /
+  atol 1e-6, as ``tests/test_torch_widths.py`` (#5's updated geometry at
+  atol 2e-6: f32 noise of a LayerNorm over 256 columns, ``GEO_ATOL``).
 """
 
 import dataclasses
@@ -33,12 +35,15 @@ import torch
 from conftest import make_synthetic_batch
 from scann_tpu.kernels import local_attention as jla
 from scann_tpu.kernels.scann_loop import loop_scann_forward as jax_loop_forward
+from scann_tpu.kernels.scann_forward import fused_scann_forward as jax_fused_forward
+from scann_tpu_torch.data import packing
 from scann_tpu_torch.kernels import _build
 from scann_tpu_torch.kernels import local_attention as kla
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
 from scann_tpu_torch.models import init_params
-from test_torch_widths import MP2018, _flat_params, _layer_inputs, _setup, _torch
+from test_torch_packing import _models, _packed_batch
+from test_torch_widths import MP2018, SMALL, WIDTHS, _flat_params, _layer_inputs, _setup, _torch
 
 torch.set_num_threads(1)
 
@@ -198,6 +203,33 @@ def test_torch_d256_plans_match_cuda_sources():
     assert ("#if defined(SCANN_WIDTH_256) && (defined(SCANN_LOOP_TALL) || "
             "defined(SCANN_LOOP_WIDE))\nconstexpr bool kW32 = true;" in loop)
     assert "#ifdef SCANN_LOOP_TAKES_PLANES\n  const float* planes = (const float*)ptrs[52];" in loop
+    with open(f"{_build.SRC_DIR}/scann_forward.cu") as f:
+        fwd = f.read()
+    # #1: the planes in the d256 build only, at pointer 50, a layer's at the
+    # tall #3's offsets (row_planes' blocks, then W1 and W2)
+    assert ("#ifdef SCANN_WIDTH_256\nconstexpr bool kW32 = true;\n"
+            "#define SCANN_FORWARD_TAKES_PLANES\n") in fwd
+    assert "#ifdef SCANN_FORWARD_TAKES_PLANES\n  const float* planes = (const float*)ptrs[50];" in fwd
+    assert "#define SCANN_FORWARD_D256_PARAMS , const float* planes, const int C\n" in fwd
+    assert "scann_forward_kernel(const Args a SCANN_FORWARD_D256_PARAMS)" in fwd
+    # #1's clusters: size 22, up to kMaxForwardCluster blocks, one a chunk at least
+    assert "constexpr int kMaxForwardCluster = 16;" in fwd
+    assert kfwd.FORWARD_CLUSTER_SIZES == tuple(range(16, 0, -1))
+    assert "  const int C = dims[22];\n" in fwd
+    assert "if (C > (a.M + a.chunk_atoms - 1) / a.chunk_atoms) return kErrShape;" in fwd
+    assert "const int m_lo = kCluster ? rank * chunks / C * CA : 0;" in fwd
+    assert "const int m_hi = kCluster ? min(M, (rank + 1) * chunks / C * CA) : M;" in fwd
+    # a cluster only at C > 1 (kCluster); the build up to 128 columns keeps
+    # its one template argument
+    assert "#define SCANN_FORWARD_CLUSTER_TPARAM , bool kCluster\n" in fwd
+    assert "const auto kernel = C > 1 ? (bf16 ? scann_forward_kernel<true, true>" in fwd
+    assert "const auto kernel = bf16 ? scann_forward_kernel<true> : scann_forward_kernel<false>;" in fwd
+    assert "a.S = dims[20];\n  if ((dims[21] & ~1) ||" in fwd   # max_clusters reads launch_dims
+    offset = "(layer_plane_floats(D, a.K, a.g_update) + 2 * w32_plane_floats(D, D)) * l;"
+    assert offset in fwd and offset in loop
+    assert "fwd_residual_norm<kBf16, true>(" in fwd and "fwd_chunk_w32<kBf16, float>(" in fwd
+    with open(f"{_build.SRC_DIR}/scann_forward_d256.cu") as f:
+        assert "#define SCANN_WIDTH_256\n#include \"scann_forward.cu\"" in f.read()
     with open(f"{_build.SRC_DIR}/scann_mma.cuh") as f:
         mma = f.read()
     assert "constexpr int kW32Quads = 12;" in mma
@@ -217,15 +249,43 @@ def test_torch_d256_tall_plan_at_mp2018(M):
 # --- launches --------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", ["tall f32", "tall bf16", "tall 128", "wide f32", "wide bf16",
-                                  "wide 128", "layer", "layer wide", "layer 128"])
+                                  "wide 128", "layer", "layer wide", "layer 128", "fused f32",
+                                  "fused bf16", "fused 128", "fused packed"])
 def test_torch_d256_launches_hand_the_planes(case, monkeypatch):
     seen = []
     monkeypatch.setattr(kfwd, "call_kernel", lambda *a, **k: seen.append(a))
     monkeypatch.setattr(kloop, "max_active_forward_clusters", lambda *a, **k: 132)
     monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(kfwd, "max_active_clusters", lambda cfm, B, M, N, C, S=0: 132 // C)
     D = 128 if case.endswith("128") else 256
     cfm = dataclasses.replace(MP2018, n_attention=2, local_dim=D, global_dim=D, dense_out=D)
-    if case.startswith(("tall", "wide")):
+    if case.startswith("fused"):
+        # #1: pointer 50 past 128 columns (after the segment ids, pointer 49)
+        if case.endswith("bf16"):
+            cfm = dataclasses.replace(cfm, dtype="bfloat16")
+        x = _torch(make_synthetic_batch(np.random.default_rng(0), B=3, M=12, N=16, n_atoms=95))
+        if case.endswith("packed"):
+            x = _torch(packing.pack_padded_inputs({k: v.numpy() for k, v in x.items()},
+                                                  capacity=24, max_segments=4).inputs)
+        packed = kfwd.pack_params(init_params(dataclasses.replace(cfm, dtype="float32"),
+                                              torch.Generator().manual_seed(0)), cfm)
+        kfwd._launch(packed, x, cfm, False)
+        assert seen[0][:2] == (kfwd.library(cfm),) * 2
+        assert (seen[0][3][49] is None) == (not case.endswith("packed"))
+        if case.endswith("128"):
+            # no pointer 50, no size 22
+            assert kfwd.library(cfm) == "scann_forward" and len(seen[0][3]) == 50
+            assert len(seen[0][4]) == 22 and seen[0][4][21] == 0
+        else:
+            assert len(seen[0][3]) == 51 and seen[0][3][50] is packed["tf32_planes"]
+            # sizes 21 and 22: the operand mode and the blocks a molecule
+            M, N = x["neighbors"].shape[1:]
+            S = x["segment_onehot"].shape[-1] if "segment_onehot" in x else 0
+            assert seen[0][4][21:] == [int(case.endswith("bf16")),
+                                       kfwd.forward_cluster(cfm, x["atomic"].shape[0], M, N, S)]
+        for name in ("launches", "bf16_launches", "d256_launches"):
+            setattr(kfwd.fused_scann_forward, name, 0)
+    elif case.startswith(("tall", "wide")):
         if case.endswith("bf16"):
             cfm = dataclasses.replace(cfm, dtype="bfloat16")
         # the wide build past 128 columns takes N > 32; up to 128 N > 64
@@ -289,3 +349,114 @@ def test_torch_d256_tall_plain_matches_jax_kernel():
         got = kloop.loop_scann_forward(tp, _torch(x), tcfg)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_torch_d256_fused_plain_packed_matches_jax_kernel(width):
+    """#1's plain version on a packed batch (the per-segment GA readout and
+    head, an empty segment in every slot) past 128 columns, where the
+    d256 build takes it, against the JAX kernel in interpret mode."""
+    _, x, _ = _packed_batch(27)
+    jcfg, tcfg, jvars, tparams = _models(27, x, small=SMALL, **WIDTHS[width])
+    slots, M, S = x["segment_onehot"].shape
+    assert kfwd.refusal(tcfg, M, x["neighbors"].shape[2], S) is None
+    assert kfwd.library(tcfg) == "scann_forward_d256"
+    jpred, jga = jax_fused_forward(jvars, {k: v for k, v in x.items() if k != "segment_mask"},
+                                   jcfg, interpret=True, batch_tile=1)
+    with torch.no_grad():
+        pred, ga = kfwd.fused_scann_forward(tparams, _torch(x), tcfg)
+    assert tuple(pred.shape) == tuple(jpred.shape) == (slots, S)
+    np.testing.assert_allclose(pred.numpy(), np.asarray(jpred), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(jga), rtol=RTOL, atol=ATOL)
+
+
+# --- #1's blocks a molecule past 128 columns ------------------------------------
+
+@pytest.mark.parametrize("B,M,N,S,want", [
+    (1, 32, 16, 0, 16),     # a lone QM9 molecule: one 2-atom chunk a block
+    (16, 32, 16, 0, 6),     # 17 clusters of 6 run at once, 15 of 7
+    (128, 32, 16, 0, 1),    # the batch fills the card
+    (1, 30, 16, 0, 15),     # 15 chunks: no block without atoms
+    (2, 8, 8, 0, 1),        # one chunk of 8 atoms
+    (3, 48, 16, 8, 16),     # a packed slot of 48 rows, chunks of one atom
+    (8, 48, 16, 8, 8),      # 7 clusters of 9-16 run at once, 15 of 8
+])
+def test_torch_d256_fused_cluster_rule(B, M, N, S, want, monkeypatch):
+    """#1 past 128 columns takes the most blocks a molecule (up to 16) whose
+    B clusters the card runs at once, at most one a chunk of atoms; up to
+    128 columns one block a molecule, without asking the card."""
+    occupancy = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+    asked = []
+
+    def max_active(cfm, B, M, N, C, S=0):
+        asked.append((B, C))
+        return occupancy.get(C, 7)
+
+    monkeypatch.setattr(kfwd, "max_active_clusters", max_active)
+    cfm = dataclasses.replace(MP2018, local_dim=256, global_dim=256, dense_out=256)
+    assert kfwd.forward_cluster(cfm, B, M, N, S) == want
+    assert want <= kfwd.chunk_count(cfm, M, N, S) == -(-M // kfwd.shared_memory_plan(
+        cfm, M, N, S)[0])
+    assert kfwd.launch_dims(cfm, B, M, N, S)[16:18] == list(kfwd.shared_memory_plan(
+        cfm, M, N, S)[:2])
+    narrow = dataclasses.replace(cfm, local_dim=128, global_dim=128, dense_out=128)
+    asked.clear()
+    assert kfwd.forward_cluster(narrow, B, M, N, S) == 1 and not asked
+
+
+def test_torch_d256_fused_launch_takes_a_cluster(monkeypatch):
+    """The private ``_launch(..., cluster=)`` forces the blocks a molecule
+    past 128 columns (chip_smoke's holds at every size); a size past the
+    chunks or not in ``FORWARD_CLUSTER_SIZES`` is refused, and so is any
+    size but 1 up to 128 columns."""
+    seen = []
+    monkeypatch.setattr(kfwd, "call_kernel", lambda *a, **k: seen.append(a))
+    cfm = dataclasses.replace(MP2018, n_attention=1, local_dim=256, global_dim=256,
+                              dense_out=256)
+    x = _torch(make_synthetic_batch(np.random.default_rng(3), B=2, M=12, N=16, n_atoms=95))
+    packed = kfwd.pack_params(init_params(cfm, torch.Generator().manual_seed(0)), cfm)
+    chunks = kfwd.chunk_count(cfm, 12, 16)
+    assert chunks == 6      # chunks of 2 atoms (32 rows) at D = 256
+    for C in range(1, chunks + 1):
+        kfwd._launch(packed, x, cfm, False, cluster=C)
+        assert seen[-1][4][22] == C
+    for C in (chunks + 1, 0, 17):
+        with pytest.raises(ValueError, match="blocks a molecule"):
+            kfwd._launch(packed, x, cfm, False, cluster=C)
+    narrow = dataclasses.replace(cfm, local_dim=128, global_dim=128, dense_out=128)
+    with pytest.raises(ValueError, match="one block a molecule"):
+        kfwd._launch(kfwd.pack_params(init_params(narrow, torch.Generator().manual_seed(0)),
+                                      narrow), x, narrow, False, cluster=2)
+    for name in ("launches", "bf16_launches", "d256_launches"):
+        setattr(kfwd.fused_scann_forward, name, 0)
+
+
+def test_torch_d256_fused_max_clusters_asks_its_build(monkeypatch):
+    """``kfwd.max_active_clusters`` asks the d256 build's own entry
+    (``scann_forward_d256_max_clusters``) with the launch's sizes in the
+    operand mode that launches, once a shape (``cluster_answer``)."""
+    asked = []
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, symbol):
+            def entry(dims, cluster):
+                asked.append((self.name, symbol, list(dims), cluster))
+                return 5
+            entry.__name__ = symbol
+            return entry
+
+    libs = {}
+    monkeypatch.setattr(_build, "load_library", lambda name: libs.setdefault(name, Lib(name)))
+    cfm = dataclasses.replace(MP2018, local_dim=256, global_dim=256, dense_out=256)
+    b16 = dataclasses.replace(cfm, dtype="bfloat16")
+    assert kfwd.max_active_clusters(cfm, 4, 32, 16, 8) == 5
+    assert kfwd.max_active_clusters(b16, 4, 32, 16, 8, 2) == 5
+    (lib, sym, dims, C), (_, _, dims16, _) = asked[:2]
+    assert (lib, sym, C) == ("scann_forward_d256", "scann_forward_d256_max_clusters", 8)
+    assert dims == kfwd.launch_dims(cfm, 4, 32, 16) and len(dims) == 22
+    assert (dims[20:], dims16[20:]) == ([0, 0], [2, 1])
+    with open(f"{_build.SRC_DIR}/scann_forward.cu") as f:
+        assert 'extern "C" int SCANN_FORWARD_ENTRY(max_clusters)(' in f.read()

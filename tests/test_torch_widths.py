@@ -372,6 +372,7 @@ def test_torch_widths_launch_the_d256_builds(route, monkeypatch):
     seen = []
     monkeypatch.setattr(kfwd, "call_kernel", lambda *a, **k: seen.append(a))
     monkeypatch.setattr(kloop, "max_active_forward_clusters", lambda *a, **k: 132)
+    monkeypatch.setattr(kfwd, "max_active_clusters", lambda *a, **k: 132)
     monkeypatch.setattr(kla, "sm_count", lambda dev: 132)
     cfm = dataclasses.replace(MP2018, n_attention=1)
     if route in ("fused", "tall", "wide"):
