@@ -276,6 +276,18 @@ layers); random weights from seeds:
    the bf16 plain version; and one training step at (248, 64) of the model
    without the attention LayerNorm (which #4 refuses) keeps the per-layer
    route in bf16 as in f32.
+20. widths above 128 (D, G, O up to 256): the ``*_d256`` builds of #1,
+   #3, #4 and #5 (``phase20``'s docstrings say what each holds, times and
+   drives).
+21. the user's scripts (``examples_torch/``) through their own entry
+   points on phase 5's molecules: a short training run of the QM9 model on
+   the card, then ``interpretability.main`` (two xyz molecules) and
+   ``ga_analysis.main`` (the run's 256 molecules) from its run directory on
+   the card and again on the CPU, held together at the forward tolerance,
+   and ``packed_training.run_once`` bucketed and packed (occupancy, epoch
+   seconds and structures/s beside the card); the launch counts, set to 0
+   before each script, and the routes the Trainer takes: #1 and #2 (on
+   packed slots in the packed run), never #3-#5 or the per-layer route.
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -303,7 +315,9 @@ first use; phase 5's featurization pool loads the library phase 12 built.
 Prints the card (``nvidia-smi``), the build time, each comparison and
 phase, each kernel's share of both bounds, the run's whole time, then one
 ``{"kernels": [...]}`` line (every row with ``measured_bound_ms`` and
-``sharded_launches``, its launches in phase 13's two ranks together; the
+``sharded_launches``, its launches in phase 13's two ranks together; rows
+``scann_forward`` to ``local_attention`` and the stash rows with
+``scripts_launches``, their launches in phase 21's scripts; the
 rows of the four whole-model kernels with ``packed_launches``, their
 launches on the packed training runs, and ``packed``, their times at a
 packed shape; the tall and wide #3 rows also ``b1_*`` and ``recipe_*``,
@@ -5916,6 +5930,246 @@ def phase20(qm9_model, mp2018, failures, card):
     return rows
 
 
+# ---- phase 21: the user's scripts (examples_torch/) on the card ---------------------------
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as the module ``examples_torch_<name>``:
+    ``examples/`` holds the JAX scripts under the same names."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def subset_dataset(info, n, out_dir, seed):
+    """``n`` molecules of phase 5's featurized set, drawn across its size
+    range (the set is sorted by size), written as a dataset pair of their
+    own: nothing is featurized again."""
+    energy, nbr = info["data"]
+    records, neighbors = (np.load(f, allow_pickle=True) for f in (energy, nbr))
+    pick = np.sort(np.random.default_rng(seed).choice(len(records), n, replace=False))
+    os.makedirs(out_dir, exist_ok=True)
+    paths = (os.path.join(out_dir, "synthetic_data_energy.npy"),
+             os.path.join(out_dir, "synthetic_data_neighbor_dt4.0_wt0.4.npy"))
+    for path, data in zip(paths, (records, neighbors)):
+        np.save(path, data[pick])
+    return paths
+
+
+def csv_rows(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split(",") for line in f]
+
+
+def same_csv(got, want):
+    """Where two of ``ga_analysis``'s CSVs differ: the header, the row
+    count, a cell that is "nan" (an element the structure lacks) in one
+    only, or a number more than rtol 1e-4 / atol 1e-5 plus one unit of its
+    last printed digit apart (both sides are rounded); [] when they agree."""
+    if got[0] != want[0] or len(got) != len(want):
+        return [f"header or rows: {got[0]} x {len(got)} against {want[0]} x {len(want)}"]
+    bad = []
+    for g_row, w_row in zip(got[1:], want[1:]):
+        for col, g, w in zip(want[0], g_row, w_row):
+            if "nan" in (g, w) or col == "structure":
+                if g != w:
+                    bad.append(f"row {w_row[0]} {col}: {g} against {w}")
+                continue
+            unit = 10.0 ** -len(w.split(".")[1])
+            if not (np.isfinite(float(g))
+                    and abs(float(g) - float(w)) <= ATOL + RTOL * abs(float(w)) + unit):
+                bad.append(f"row {w_row[0]} {col}: {g} against {w}")
+    return bad
+
+
+def phase21(qm9_model, qm9_run, failures, card):
+    """Phase 21: the user's scripts (``examples_torch/``) on the card,
+    through their own entry points, on phase 5's molecules. One short run
+    trains the QM9 recipe's model (1 epoch, 256 molecules) on the card;
+    ``interpretability.main`` predicts two xyz molecules from its run
+    directory on the card and again on the CPU (values and GA scores at the
+    forward tolerance, each GA vector summing to 1); ``ga_analysis.main``
+    runs over that run's whole dataset on the card and on the CPU (the
+    arrays at the forward tolerance, the CSVs row for row);
+    ``packed_training.run_once`` trains the demo's model 2 epochs on 512
+    molecules bucketed, then packed (packed occupancy above bucketed).
+    The launch counts are set to 0 before and read after each script on
+    the card, and the routes the Trainer picked are recorded: #1 and #2
+    must launch (#2 on packed slots in the packed run), #3-#5 never, and no
+    batch may take the per-layer route. Returns the launches by kernel (the
+    backward kernels' also by schedule)."""
+    import contextlib
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.train.loop import Trainer
+
+    t0 = time.time()
+    work = os.path.join(qm9_run["work"], "phase21")
+    counters = {"scann_forward": kfwd.fused_scann_forward,
+                "scann_backward": kbwd.launch_scann_backward,
+                "scann_loop": kloop.launch_loop_forward,
+                "scann_loop_backward": kloop.launch_loop_backward,
+                "local_attention": kla.fused_local_attention}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        for name in ("scann_backward", "scann_loop_backward"):
+            kbwd.reset_counts(counters[name])
+
+    def read():
+        return {**{k: c.launches for k, c in counters.items()},
+                **{f"{k}/{m}": n for k in ("scann_backward", "scann_loop_backward")
+                   for m, n in schedules(counters[k]).items()}}
+
+    routes = []
+
+    def recorded(kind, method):
+        def route(self, M, N, S=0):
+            out = method(self, M, N, S)
+            routes.append((kind, out, S))
+            return out
+        return route
+
+    runs, total = {}, {}
+
+    @contextlib.contextmanager
+    def counted(name):
+        """Launches and routes of one script's run on the card."""
+        reset()
+        del routes[:]
+        t = time.time()
+        yield
+        torch.cuda.synchronize()
+        runs[name] = {"launches": read(), "routes": list(routes), "s": time.time() - t}
+        for k, v in runs[name]["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    original = Trainer.eval_route, Trainer.train_route
+    Trainer.eval_route = recorded("eval", original[0])
+    Trainer.train_route = recorded("train", original[1])
+    try:
+        # ---- one short training run on the card, whose run directory the two
+        # ---- analysis scripts read
+        energy, nbr = subset_dataset(qm9_run, 256, os.path.join(work, "data256"), 21)
+        cfg = ScannConfig(model=qm9_model,
+                          hyper=HyperConfig(batch_size=128, scheduler="sgdr", lr=5e-4,
+                                            min_lr=1e-4, data_energy_path=energy,
+                                            data_nei_path=nbr, epochs=1, seed=0,
+                                            save_path=os.path.join(work, "run")),
+                          tpu=TpuConfig(max_buckets=2))
+        with counted("train"):
+            scann = Scann(cfg, device="cuda")
+            scann.prepare_dataset()
+            scann.train()
+        run_dir = scann.trainer.workdir
+
+        # ---- interpretability: two molecules, on the card, then the CPU
+        interp = load_example("interpretability")
+        xyz = []
+        for name in ("water", "benzene"):
+            species, coords = MOLECULES[name]
+            path = os.path.join(work, f"{name}.xyz")
+            Structure(species, coords).to_xyz(path)
+            xyz.append(path)
+        with counted("interpretability"):
+            on_card = interp.main(["--model-dir", run_dir, "--out", os.path.join(work, "ga_card"),
+                                   "--device", "cuda", *xyz])
+        on_cpu = interp.main(["--model-dir", run_dir, "--out", os.path.join(work, "ga_cpu"),
+                              "--device", "cpu", *xyz])
+        for name in on_cpu:
+            (v, ga), (v0, ga0) = on_card[name], on_cpu[name]
+            ok = (np.isfinite(v) and abs(v - v0) <= ATOL + RTOL * abs(v0)
+                  and ga.shape == ga0.shape and np.all(np.abs(ga - ga0) <= ATOL + RTOL * np.abs(ga0))
+                  and abs(ga.sum() - 1) <= 1e-5 and abs(ga0.sum() - 1) <= 1e-5)
+            print(f"phase 21 interpretability {name}: card {v:.6f}, CPU {v0:.6f}, GA max |d| "
+                  f"{float(np.abs(ga - ga0).max()):.3e}, GA sums {ga.sum():.7f} and "
+                  f"{ga0.sum():.7f} (rtol {RTOL}, atol {ATOL})", flush=True)
+            if not ok:
+                failures.append(f"phase 21 interpretability {name}: the card's {v}, {ga} against "
+                                f"the CPU's {v0}, {ga0}")
+
+        # ---- ga_analysis over the run's dataset, on the card, then the CPU
+        ga_script = load_example("ga_analysis")
+        csvs = [os.path.join(work, f"ga_{d}.csv") for d in ("card", "cpu")]
+        with counted("ga_analysis"):
+            preds, gas = ga_script.main([run_dir, "--out", csvs[0], "--device", "cuda"])
+        preds0, gas0 = ga_script.main([run_dir, "--out", csvs[1], "--device", "cpu"])
+        rows, rows0 = csv_rows(csvs[0]), csv_rows(csvs[1])
+        d_pred = float(np.abs(preds - preds0).max())
+        d_ga = max(float(np.abs(g - g0).max()) for g, g0 in zip(gas, gas0))
+        bad = same_csv(rows, rows0)
+        ok = (len(rows) == 1 + 256 and preds.shape == preds0.shape == (256,)
+              and np.isfinite(preds).all()
+              and np.all(np.abs(preds - preds0) <= ATOL + RTOL * np.abs(preds0))
+              and all(g.shape == g0.shape and np.all(np.abs(g - g0) <= ATOL + RTOL * np.abs(g0))
+                      for g, g0 in zip(gas, gas0)) and not bad)
+        print(f"phase 21 ga_analysis: {len(rows) - 1} rows of {len(rows[0])} columns; card "
+              f"against CPU: predictions max |d| {d_pred:.3e}, GA {d_ga:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}); CSV cells apart {len(bad)}", flush=True)
+        if not ok:
+            failures.append(f"phase 21 ga_analysis: card against CPU {d_pred:.3e}, {d_ga:.3e}, "
+                            f"{len(rows)} rows, CSV {bad[:4]}")
+
+        # ---- packed_training: the demo's model, bucketed then packed. At this
+        # ---- size host time decides the epoch: its seconds and structures/s
+        # ---- say nothing of packing's speed (phase 5's packed run does)
+        packed = load_example("packed_training")
+        energy, nbr = subset_dataset(qm9_run, 512, os.path.join(work, "data512"), 22)
+        demo = {}
+        for name, packing in (("bucketed", False), ("packed", True)):
+            with counted(name):
+                demo[name] = packed.run_once(os.path.join(work, name), energy, nbr, 2, packing,
+                                             device="cuda")
+            r = demo[name]
+            print(f"phase 21 packed_training {name}: occupancy {r['occupancy']:.4f}, epoch "
+                  f"{r['epoch_s']:.4f} s, {r['structs_per_sec']:.1f} structures/s, slot batch "
+                  f"{r['slot_batch']}, val_mae {r['val_mae']:.4f} (host-bound at this size: no "
+                  f"measure of packing's speed)  [{card}]", flush=True)
+            if not (np.isfinite(r["val_mae"]) and np.isfinite(r["preds"]).all()
+                    and r["preds"].shape == (512,)):
+                failures.append(f"phase 21 packed_training {name}: not finite: {r['val_mae']}")
+        if not demo["packed"]["occupancy"] > demo["bucketed"]["occupancy"]:
+            failures.append(f"phase 21 packed_training: packed occupancy "
+                            f"{demo['packed']['occupancy']} not above bucketed "
+                            f"{demo['bucketed']['occupancy']}")
+    finally:
+        Trainer.eval_route, Trainer.train_route = original
+
+    # ---- what each run launched, and the routes it took
+    for name, r in runs.items():
+        n = r["launches"]
+        took = sorted({(kind, route, S > 0) for kind, route, S in r["routes"]})
+        print(f"phase 21 {name}: {r['s']:.2f} s; #1 {n['scann_forward']}, #2 "
+              f"{n['scann_backward']} ({n['scann_backward/f32']} f32 stash), #3 "
+              f"{n['scann_loop']}, #4 {n['scann_loop_backward']}, #5 {n['local_attention']}; "
+              f"routes (kind, route, packed) {took}", flush=True)
+        want_1 = len(xyz) if name == "interpretability" else None
+        want_2 = name in ("train", "bucketed", "packed")
+        if (n["scann_forward"] == 0 or (want_1 is not None and n["scann_forward"] != want_1)
+                or (n["scann_backward"] > 0) != want_2 or n["scann_loop"]
+                or n["scann_loop_backward"] or n["local_attention"]
+                or any(route == "per_layer" for _, route, _ in r["routes"])):
+            failures.append(f"phase 21 {name}: launches {n}, routes {took}")
+        steps = [(route, S) for kind, route, S in r["routes"] if kind == "train"]
+        if name == "packed" and not (steps and all(route == "fused" and S > 0
+                                                   for route, S in steps)):
+            failures.append(f"phase 21 packed: #2 not on packed slots: train routes {steps}")
+    print(f"phase 21 wall: {time.time() - t0:.1f} s  [{card}]", flush=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6250,6 +6504,10 @@ def main():
     torch.cuda.empty_cache()
     width_rows = phase20(qm9_model, mp2018, failures, card)
     lap("20")
+    # ---- phase 21: the user's scripts (examples_torch/) on the card ----------------------
+    torch.cuda.empty_cache()
+    scripts_launches = phase21(qm9_model, qm9_run, failures, card)
+    lap("21")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -6269,7 +6527,8 @@ def main():
     # take the launches of their own schedule
     for row in stash_rows:
         for key, counts in (("packed_launches", packed_launches),
-                            ("sharded_launches", sharded_launches)):
+                            ("sharded_launches", sharded_launches),
+                            ("scripts_launches", scripts_launches)):
             row[key] = counts[f"{row['kernel']}/{row['schedule']}"]
     kernels = [{
         "name": "scann_forward", "route": "cuda", "source": kfwd.SOURCE,
@@ -6279,6 +6538,7 @@ def main():
         "measured_bound_ms": fwd_measured, "library_ms": None, "flops": flops,
         "packed_launches": packed_launches["scann_forward"], "packed": fwd_packed_time,
         "sharded_launches": sharded_launches["scann_forward"],
+        "scripts_launches": scripts_launches["scann_forward"],
     }, {
         "name": "scann_backward", "schedule": "recompute", "route": "cuda",
         "source": kbwd.SOURCE, "replaces": kbwd.REPLACES,
@@ -6292,11 +6552,13 @@ def main():
         "packed": {k: bwd_packed_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "measured_bound_ms", "flops")},
         "sharded_launches": sharded_launches["scann_backward/recompute"],
+        "scripts_launches": scripts_launches["scann_backward/recompute"],
     }, {
         "name": "scann_loop", "route": "cuda", "source": kloop.SOURCE,
         "replaces": kloop.REPLACES, "launches": loop_launches, "max_abs_err": loop_err,
         "library_ms": None, "packed_launches": packed_launches["scann_loop"], **loop_time,
         "sharded_launches": sharded_launches["scann_loop"],
+        "scripts_launches": scripts_launches["scann_loop"],
     }, {
         "name": "scann_loop_backward", "schedule": "recompute", "route": "cuda",
         "source": kloop.BACKWARD_SOURCE, "replaces": kloop.BACKWARD_REPLACES,
@@ -6304,6 +6566,7 @@ def main():
         "max_abs_err": recompute_err[4], "library_ms": None,
         "packed_launches": packed_launches["scann_loop_backward/recompute"], **loop_bwd_time,
         "sharded_launches": sharded_launches["scann_loop_backward/recompute"],
+        "scripts_launches": scripts_launches["scann_loop_backward/recompute"],
     }, {
         # phase 8's per-layer launches (none since the tall #3 serves every
         # f32 crystal rung at N <= 64) and phase 14's f32 request to a model
@@ -6314,6 +6577,7 @@ def main():
         "max_abs_err": layer_err,
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
+        "scripts_launches": scripts_launches["local_attention"],
     }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows, *width_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "

@@ -108,3 +108,29 @@ def test_torch_port_kernel_sources_stand_alone():
                "reference_loop_train_grads", "loop_backward_flops", "loop_recompute_flops"):
         assert callable(getattr(scann_loop, fn))
     assert scann_loop.BACKWARD_SOURCE == "scann_tpu_torch/csrc/scann_loop_backward.cu"
+
+
+def test_torch_twins_name_no_jax_package():
+    """No line of the port's user-facing scripts (``examples_torch/``,
+    ``tools/*_torch.py``) imports JAX or the JAX package, at module level or
+    inside a function (``interpretability.demo_model`` too), and each names
+    the JAX script it mirrors."""
+    twins = {os.path.join("examples_torch", f): os.path.join("examples", f)
+             for f in sorted(os.listdir(os.path.join(ROOT, "examples_torch")))
+             if f.endswith(".py")}
+    twins.update({os.path.join("tools", f"{n}_torch.py"): os.path.join("tools", f"{n}.py")
+                  for n in ("make_notebooks", "run_accuracy")})
+    assert len(twins) == 6
+    bad = []
+    for twin, jax_script in twins.items():
+        assert os.path.exists(os.path.join(ROOT, jax_script)), jax_script
+        text = open(os.path.join(ROOT, twin)).read()
+        assert f"``{jax_script}``" in text, twin
+        assert "scann_tpu_torch" in text and 'default="cuda"' in text, twin
+        for line in text.splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1].split(".")[0].rstrip(",")
+                if mod in ("jax", "jaxlib", "flax", "optax", "orbax", "scann_tpu"):
+                    bad.append(f"{twin}: {line.strip()}")
+    assert bad == []
