@@ -288,6 +288,13 @@ layers); random weights from seeds:
    seconds and structures/s beside the card); the launch counts, set to 0
    before each script, and the routes the Trainer takes: #1 and #2 (on
    packed slots in the packed run), never #3-#5 or the per-layer route.
+22. widths past 256 (D, G, O up to 512): the ``*_d512`` builds of #1, #3
+   and #5 held against their plain versions at (264, 260, 268), 384 and
+   512 in f32 and bf16 (relaunched on NaN-filled scratch, #1 and #3 at
+   every cluster size), timed at D = 512 in turns with their plain
+   versions, served to D = 384 and 512 models through ``Scann`` and a D =
+   384 QM9 model fitted for one epoch, every path checked by its launch
+   counts (``phase22``'s docstrings say what each holds, times and drives).
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -4083,7 +4090,7 @@ def phase17_loops(mp2018, ptgp, failures, card):
     worst3 = worst4 = 0.0
     # #3's wide holds: those of the wide cases, then three more below, over
     # HOLD_CLUSTERS by held_sizes
-    n3 = sum(kloop.is_wide(x["neighbors"].shape[2]) for _, _, x in cases) + 3
+    n3 = sum(kloop.is_wide_forward(cfm, x["neighbors"].shape[2]) for _, cfm, x in cases) + 3
     held = iter(range(n3))
     for name, cfm, x in cases:
         t0 = time.time()
@@ -4091,7 +4098,7 @@ def phase17_loops(mp2018, ptgp, failures, card):
         B = x["atom_mask"].shape[0]
         S = max(kfwd.segment_count(x), 1)
         y = torch.from_numpy(rng.normal(size=(B, S)).astype(np.float32)).cuda()
-        if kloop.is_wide(x["neighbors"].shape[2]):
+        if kloop.is_wide_forward(cfm, x["neighbors"].shape[2]):
             worst3 = max(worst3, hold_loop_forward(f"phase 17 #3 wide {name}", cfm, p, x,
                                                    failures, clusters=held_sizes(next(held), n3),
                                                    relaunches=2))
@@ -4895,7 +4902,7 @@ def phase19_holds(mp2018, ptgp, failures):
                               below_pred=0.9, clusters3=())
         w3, w4 = max(w3, one[0]), max(w4, one[1])
         # #3 runs narrow at N = 72 and below: its wide row takes N > 64 only
-        if build == "tall" or kloop.is_wide(N):
+        if build == "tall" or kloop.is_wide_forward(cfm, N):
             worst[f"3-{build}-bf16"] = max(worst.get(f"3-{build}-bf16", 0.0), w3)
         worst[f"4-{build}-bf16"] = max(worst.get(f"4-{build}-bf16", 0.0), w4)
         print(f"phase 19 holds at {name} {tuple(x['neighbor_mask'].shape)}: "
@@ -5203,7 +5210,8 @@ def hold_fused_clusters(tag, packed, x, cfm, drop, got, got16, failures):
     takes (at most one block a chunk of atoms), f32 and bf16 (``drop``: the
     dropout rate, seed and ``mol_base``): bit for bit what the rule's size
     gave (``got``, ``got16``), since every product, softmax and LayerNorm is
-    a row's or an atom's."""
+    a row's or an atom's. Past 256 columns each launch also runs on L2 rows
+    (``kfwd.l2_rows_shape``) filled with NaN, at the rule's size too."""
     import dataclasses
 
     from scann_tpu_torch.kernels import scann_forward as kfwd
@@ -5213,15 +5221,20 @@ def hold_fused_clusters(tag, packed, x, cfm, drop, got, got16, failures):
     S = x["segment_onehot"].shape[-1] if "segment_onehot" in x else 0
     cfm16 = dataclasses.replace(cfm, dtype="bfloat16")
     sizes = [C for C in HOLD_CLUSTERS if C <= kfwd.chunk_count(cfm, M, N, S)]
+    rows = kfwd.l2_rows_shape(cfm, B, M)
+    if rows is not None:
+        sizes = sorted(set(sizes) | {kfwd.forward_cluster(cfm, B, M, N, S)})
     differ = []
     with torch.inference_mode():
         for C in sizes:
             for mode, want in ((cfm, got), (cfm16, got16)):
-                out = kfwd._launch(packed, x, mode, False, *drop, cluster=C)
+                nan = None if rows is None else torch.full(rows, float("nan"), device="cuda")
+                out = kfwd._launch(packed, x, mode, False, *drop, cluster=C, l2_rows=nan)
                 if not all(torch.equal(a, b) for a, b in zip(out, want)):
                     differ.append(f"{mode.dtype} C={C}")
     print(f"{tag}: at C = {sizes} (the rule's {kfwd.forward_cluster(cfm, B, M, N, S)}), f32 "
-          f"and bf16, bit for bit: {not differ}", flush=True)
+          f"and bf16{'' if rows is None else ', on NaN-filled L2 rows'}, bit for bit: "
+          f"{not differ}", flush=True)
     if differ:
         failures.append(f"{tag}: differs from the rule's cluster at {differ}")
 
@@ -6170,6 +6183,478 @@ def phase21(qm9_model, qm9_run, failures, card):
     return total
 
 
+# ---- phase 22: widths past 256 (D, G, O up to 512) in #1, #3 and #5 -----------------------
+
+# one triple that no width class divides, and 384 and 512, where the JAX
+# gates still take the QM9 buckets on #1; 8 heads as published
+D512_WIDTHS = ((264, 260, 268), (384, 384, 384), (512, 512, 512))
+# ``hold_layer_past_256``: an f32 #5 output past 256 columns outside
+# rtol/atol of the plain version stays within this many times the f32 plain
+# version's distance from the plain layer in float64
+PAST_256_FACTOR = 4
+D512_BUILDS = ("scann_forward_d512", "scann_loop_tall_d512", "scann_loop_wide_d512",
+               "local_attention_d512", "local_attention_wide_d512")
+
+
+def phase22_holds(qm9_model, mp2018, failures):
+    """Every *_d512 build against its plain version at (D, G, O) = (264,
+    260, 268), (384, 384, 384) and (512, 512, 512), f32 and bf16 (bf16 by
+    ``hold_bf16`` and ``hold_bf16_shape``, phase 20's rules): #1 at QM9 (16,
+    32, 16) and (8, 8, 8) of 1-8 atoms, at D = 512 also on a packed batch
+    (QM9 at capacity 32, S = 8) and with dropout on, each at every size of
+    ``HOLD_CLUSTERS`` the batch takes and the rule's, on NaN-filled L2 rows,
+    bit for bit (``hold_fused_clusters``); #3 at MP2018 (4, 96, 16) (the
+    tall build, N <= 16 past 256 columns) and (4, 80, 96) (the wide one) at
+    C = 1, 2, 4 and the rule's, relaunched on NaN- and constant-filled
+    scratch (``hold_loop_forward``), at D = 512 also packed (crystals of
+    20-90 sites at capacity 96, the tall build), (3, 40, 48) and the
+    wide build's 16-row sub-chunks at their edges, (2, 40, 17), (2, 30, 33)
+    and (2, 24, 80), at every size of ``HOLD_CLUSTERS``; #5 on one layer at
+    (8, 96, 16), (3, 37, 12) and (4, 40, 8) (the narrow build: one atom a
+    chunk of 16 rows, a ragged last chunk, two atoms a chunk) and (8, 96,
+    32), (8, 96, 96), (3, 20, 17) and (2, 32, 256) (the wide one: one row
+    past a sub-chunk, the widest list), SCANN+, and SCANN at (8, 96, 16) and
+    (8, 96, 96), f32 and bf16 tensors, each relaunched into NaN-filled
+    outputs (``hold_layer_past_256``). Returns {build: worst f32 error} and
+    {build: worst bf16 error}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(22)
+    worst, worst16 = {}, {}
+    note = lambda d, k, v: d.__setitem__(k, max(d.get(k, 0.0), v))
+    for D, G, O in D512_WIDTHS:
+        qm9, mp = widened(qm9_model, D, G, O), widened(mp2018, D, G, O)
+        qm9_16 = dataclasses.replace(qm9, dtype="bfloat16")
+        p = init_params(qm9, torch.Generator().manual_seed(22), "cuda")
+        packed = kfwd.pack_params(p, qm9)
+        lib = kfwd.library(qm9)
+        cases = [("", synthetic_batch(rng, 16, 32, 16), ()),
+                 ("", synthetic_batch(rng, 8, 8, 8, min_atoms=1), ())]
+        if D == 512:   # each from a generator of its own
+            cases += [("QM9 capacity 32", pack_batch(
+                synthetic_batch(np.random.default_rng(2232), 12, 29, 16), 32), ()),
+                      ("dropout 0.1", synthetic_batch(np.random.default_rng(2249), 8, 32, 16),
+                       (0.1, 27, 40))]
+        for label, x, drop in cases:
+            B, M = x["atomic"].shape[:2]
+            N = x["neighbors"].shape[2]
+            tag = f"phase 22 #1 ({lib}) D={D} G={G} O={O} B={B} M={M} N={N} {label}{packed_label(x)}"
+            with torch.inference_mode():
+                got = (kfwd._launch(packed, x, qm9, False, *drop) if drop
+                       else kfwd.fused_scann_forward(p, x, qm9))
+                got16 = kfwd._launch(packed, x, qm9_16, False, *drop)
+                want = kfwd.reference_scann_forward(p, x, qm9, False, *drop)
+                plain16 = kfwd.reference_scann_forward(p, x, qm9_16, False, *drop)
+                f64 = kfwd.reference_scann_forward(f64_params(p), x, qm9_16, False, *drop)
+                moved = [kfwd.reference_scann_forward(jittered(p, j), x, qm9_16, False, *drop)
+                         for j in range(JITTERS)]
+                torch.cuda.synchronize()
+            note(worst, lib, hold(tag, [("pred", got[0], want[0], ATOL),
+                                        ("ga", got[1], want[1], ATOL)], failures))
+            hold_fused_clusters(tag, packed, x, qm9, drop, got, got16, failures)
+            note(worst16, lib, hold_bf16(f"{tag} bf16", got16, plain16, want, got, failures, f64,
+                                         below_f32=0.9, plain16_moved=moved))
+        p = init_params(mp, torch.Generator().manual_seed(22), "cuda")
+        shapes = [((4, 96, 16), (1, 2, 4)), ((4, 80, 96), (1, 2, 4))]
+        if D == 512:   # and the wide build's 16-row sub-chunks at their edges
+            shapes += [((3, 40, 48), (1, 2, 4)), ((2, 40, 17), HOLD_CLUSTERS),
+                       ((2, 30, 33), HOLD_CLUSTERS), ((2, 24, 80), HOLD_CLUSTERS)]
+        for (B, M, N), clusters in shapes:
+            x = (synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 16
+                 else wide_batch(rng, B, M, N, mp))
+            build = kloop.forward_library(mp, M, N)[0]
+            tag = f"phase 22 #3 ({build}) D={D} G={G} O={O}"
+            note(worst, build, hold_loop_forward(tag, mp, p, x, failures, clusters=clusters,
+                                                 relaunches=2))
+            if D == 512 and N == 16:   # packed: crystals of 20-90 sites at capacity 96
+                xp = pack_batch(synthetic_batch(np.random.default_rng(2296), 12, 90, 16,
+                                                n_atoms=mp.n_atoms, min_atoms=20), 96)
+                note(worst, build, hold_loop_forward(f"{tag} capacity 96", mp, p, xp, failures,
+                                                     clusters=clusters, relaunches=2))
+                del xp
+            note(worst16, build, hold_bf16_shape(f"phase 22 D={D}", mp, x, failures, below=None,
+                                                 clusters3=clusters, grads=False,
+                                                 jitters=JITTERS)[0])
+            del x
+        for g_update, (B, M, N) in ((True, (8, 96, 16)), (True, (3, 37, 12)), (True, (4, 40, 8)),
+                                    (True, (8, 96, 32)), (True, (8, 96, 96)),
+                                    (True, (3, 20, 17)), (True, (2, 32, 256)),
+                                    (False, (8, 96, 16)), (False, (8, 96, 96))):
+            args = layer_inputs(rng, B, M, N, D, mp.num_head, g_update)
+            if N > 16:
+                wide_masks(args[3])
+            kla.check_neighbor_range(*kla.index_bounds(args[1]), M)
+            build = kla.library(N, D)
+            errs = hold_layer_past_256(f"phase 22 #5 ({build}) {'scann+' if g_update else 'scann'} "
+                                       f"B={B} M={M} N={N} D={D}", args, failures)
+            note(worst, build, errs[0])
+            note(worst16, build, errs[1])
+    return worst, worst16
+
+
+def hold_layer_past_256(tag, args, failures):
+    """``hold_wide_layer`` past 256 columns. There one layer of
+    ``layer_inputs`` (its kernels 0.1 x a normal draw, not scaled by the fan
+    in) sums 1,536-term products whose f32 rounding alone can reach the
+    forward atol of 1e-5 (D = 512: 1.86e-5 at (8, 96, 96)), so an f32 output
+    outside rtol/atol of the plain version is held instead to the plain
+    layer in float64: no further from it than ``PAST_256_FACTOR`` x the f32
+    plain version is (a split-TF32 product term leaves out a_lo b_lo, 2^-22
+    of it, where an f32 FMA rounds at 2^-24: ``csrc/scann_mma.cuh``). A
+    control shows the limit tells products of less precision: the plain
+    layer with single-pass TF32 products (``allow_tf32``), which must land
+    outside it. Only the outputs that missed take this rule; the others
+    stand held at rtol/atol (the attention of a wholly masked atom, as
+    ``wide_masks`` makes, is uniform in f32, where -1e9 swamps the energies,
+    and not in float64, so there no f32 version comes near the f64 layer).
+    Every other check of ``hold_wide_layer`` (bf16, relaunches) stands."""
+    from scann_tpu_torch.kernels import local_attention as kla
+
+    local = []
+    worst, worst16 = hold_wide_layer(tag, args, local)
+    misses = [f for f in local if "outside rtol" in f]
+    failures += [f for f in local if f not in misses]
+    missed = {f.split(": max_abs")[0].rsplit(" ", 1)[1] for f in misses}
+    if misses:
+        with torch.inference_mode():
+            got = kla._launch(*args)
+            want = kla.reference_local_attention(*args)
+            exact = kla.reference_local_attention(*layer_cast(args, torch.float64))
+            was, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
+            try:
+                control = kla.reference_local_attention(*args)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = was
+        for name, g, w, c, e in zip(("out", "geometry", "attn"), got, want, control, exact):
+            if name not in missed:
+                continue
+            port, plain, tf32 = ((t.double() - e).abs().max().item() for t in (g, w, c))
+            limit = PAST_256_FACTOR * plain
+            print(f"{tag} {name} against the plain layer in f64: kernel {port:.3e}, f32 plain "
+                  f"version {plain:.3e}, single-pass TF32 control {tf32:.3e} (limit "
+                  f"{PAST_256_FACTOR} x the f32 plain version, {limit:.3e})", flush=True)
+            if not port <= limit:
+                failures.append(f"{tag} {name}: {port:.3e} from the f64 plain layer, more than "
+                                f"{PAST_256_FACTOR} x the f32 plain version's {plain:.3e}")
+            if not tf32 > limit:
+                failures.append(f"{tag} {name}: the single-pass TF32 control, {tf32:.3e} from "
+                                f"the f64 plain layer, is within the limit {limit:.3e}")
+    return worst, worst16
+
+
+def phase22_times(qm9_model, mp2018, card):
+    """The *_d512 builds at D = G = O = 512, each in one set of turns with its
+    plain version and its bf16 mode (``turns_ms``), against its bound: #1 at
+    QM9 (128, 32, 16), at B = 1 and 16 (``b1``, ``b16``) and at D = 384
+    (``d384``); the tall #3 at MP2018 (64, 96, 16) and at (16, 62, 16), the
+    largest M of the JAX loop kernel's gate at MP2018, N = 16 and D = 384
+    (``jax_gate``); the wide #3 at (16, 80, 96) and at the MP2018 recipe
+    bucket (64, 96, 32) (``mp2018``), which past 256 columns is wide; the
+    narrow #5 at one layer (64, 96, 16); the wide #5 at (8, 96, 96) and at
+    one MP2018 layer (64, 96, 32) (``mp2018``). Returns {build: timing}."""
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(220)
+    out = {}
+    for D, B, key in ((512, 128, None), (512, 1, "b1"), (512, 16, "b16"), (384, 128, "d384")):
+        qm9 = widened(qm9_model, D, D, D)
+        p = init_params(qm9, torch.Generator().manual_seed(0), "cuda")
+        packed = kfwd.pack_params(p, qm9)
+        x = synthetic_batch(rng, B, 32, 16)
+        kfwd._check_inputs(x, qm9, packed["wde"].device)
+        width_row(out, "scann_forward_d512", f"QM9 B={B} M=32 N=16", D, card,
+                  lambda: kfwd.reference_scann_forward(p, x, qm9),
+                  lambda cfm: lambda: kfwd._launch(packed, x, cfm, False), qm9,
+                  kfwd.forward_flops(qm9, B, 32, 16),
+                  tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * 32),
+                  kfwd.forward_fp32_flops(qm9, B, 32, 16), key,
+                  cluster=kfwd.forward_cluster(qm9, B, 32, 16))
+        del x
+    mp = widened(mp2018, 512, 512, 512)
+    p = init_params(mp, torch.Generator().manual_seed(0), "cuda")
+    packed = kfwd.pack_params(p, mp)
+    for B, M, N, key in ((64, 96, 16, None), (16, 62, 16, "jax_gate"), (16, 80, 96, None),
+                         (64, 96, 32, "mp2018")):
+        x = (synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 16
+             else wide_batch(rng, B, M, N, mp))
+        kfwd._check_inputs(x, mp, packed["wde"].device)
+        C = kloop.forward_cluster(mp, B, M, N)
+        scratch = kloop.loop_forward_scratch(mp, B, M, N, "cuda", C)
+        width_row(out, kloop.forward_library(mp, M, N)[0], f"MP2018 B={B} M={M} N={N}", 512, card,
+                  lambda: kloop.reference_loop_forward(p, x, mp),
+                  lambda cfm: lambda: kloop._launch(packed, x, cfm, False, 0.0, 0, 0, C, scratch),
+                  mp, kloop.loop_forward_flops(mp, B, M, N),
+                  tensor_bytes(x.values(), weights(packed)) + 4 * (B + B * M)
+                  + kloop.loop_forward_bytes(mp, B, M, N), kfwd.forward_fp32_flops(mp, B, M, N),
+                  key, cluster=C)
+        del x, scratch
+    for B, M, N, key in ((64, 96, 16, None), (8, 96, 96, None), (64, 96, 32, "mp2018")):
+        args = layer_inputs(rng, B, M, N, 512, mp.num_head, True)
+        args16 = layer_cast(args, torch.bfloat16)
+        centers, idx, geometry, mask, weight, params, H, _, g_update = args
+        nbytes = (tensor_bytes([centers, idx, geometry, mask], params.values())
+                  + 4 * (centers.numel() + B * M * N * H + geometry.numel()))
+        width_row(out, kla.library(N, 512), f"B={B} M={M} N={N}", 512, card,
+                  lambda: kla.reference_local_attention(*args),
+                  lambda cfm: (lambda: kla._launch(*args)) if cfm is None
+                  else (lambda: kla._launch(*args16)), None,
+                  kla.layer_flops(B, M, N, 512, True, geometry.shape[-1]), nbytes,
+                  kla.layer_fp32_flops(B, M, N, 512), key,
+                  atom_block=kla.make_plan(B, M, N, 512, H, True,
+                                           kla.sm_count(centers.device))[0])
+        del args, args16
+    return out
+
+
+def width_row(out, build, what, D, card, plain, launch, cfm, flops, nbytes, fp32, key=None,
+              **extra):
+    """One timing of a build past 256 columns in one set of turns (plain, f32,
+    bf16, bf16, f32, plain: ``turns_ms``): ``launch(cfm)`` makes the f32 call
+    and ``launch(bf16 cfm)`` the bf16 one (#5: ``launch(None)`` its f32
+    tensors, ``launch("bf16")`` its bf16 ones). Kept in ``out[build]`` (the
+    kernels line's row) or, with ``key``, in ``out[build][key]``."""
+    import dataclasses
+
+    bf16 = dataclasses.replace(cfm, dtype="bfloat16") if cfm is not None else "bf16"
+    with torch.inference_mode():
+        ms, plain_ms = turns_ms(plain, {"f32": launch(cfm), "bf16": launch(bf16)})
+    bound, by, measured = bound_ms(flops, nbytes, fp32)
+    bound16 = bound_ms(flops, nbytes, fp32, bf16=True)[0]
+    print(f"{build} at {what} D={D}{''.join(f' {k}={v}' for k, v in extra.items())} (timed in "
+          f"turns: plain, f32, bf16, bf16, f32, plain): kernel {ms['f32']:.4f} ms, bf16 "
+          f"{ms['bf16']:.4f} ms, plain {plain_ms:.4f} ms, {flops:.4e} FLOP, bound {bound:.4f} "
+          f"ms by {by} ({100 * bound / ms['f32']:.1f}% of it reached)  [{card}]", flush=True)
+    row = {"ms": ms["f32"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "measured_bound_ms": measured, "flops": flops, "bf16_ms": ms["bf16"],
+           "bf16_bound_ms": bound16, "D": D, **extra}
+    if key is None:
+        out.setdefault(build, {}).update(row)
+    else:
+        out.setdefault(build, {})[key] = row
+
+
+def phase22_paths(qm9_model, mp2018, failures, card):
+    """The main paths past 256 columns through the entry points a user calls,
+    with the launch counts set to 0 just before each and read just after:
+    ``Scann.predict_featurized`` to models at D = G = O = 384 and 512, f32
+    and bf16, of one QM9 molecule (benzene: #1's d512 build, one launch) and
+    of two MP2018 crystals, 300 sites at 16 neighbours (the tall #3) and 40
+    at 80 (the wide #3; past 256 columns N > 16 is wide), with each step's
+    seconds:
+    each answer held to the eager model at rtol/atol (f32) or to the bf16
+    plain version at JAX's bf16 bound; two crystals of 40 sites at 12 and 80
+    neighbours to a D = 512 model without the attention LayerNorm (the
+    per-layer model: L launches of the narrow #5 and L of the wide one);
+    then ``Trainer.fit`` of a D = 384 QM9 model for one epoch (steps on the
+    "per_layer" route, which #4 does not take past 256 columns; its
+    validation batch on #1's d512 build). Returns the launches of each
+    *_d512 build."""
+    import dataclasses
+    import tempfile
+
+    from scann_tpu_torch.api import Scann
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.pipeline import PackedBucket
+    from scann_tpu_torch.data.structure import Structure
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import scann_forward
+    from scann_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(222)
+    c1, c3, c5 = kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention
+    launched = dict.fromkeys(D512_BUILDS, 0)
+
+    def reset():
+        for c in (c1, c3, c5):
+            for name in ("launches", "bf16_launches", "wide_launches", "tall_launches",
+                         "d256_launches", "d512_launches"):
+                if hasattr(c, name):
+                    setattr(c, name, 0)
+
+    def model(cfm, target):
+        hyper = HyperConfig(batch_size=16, target=target, target_mean=-0.2, target_std=0.03)
+        scann = Scann(ScannConfig(model=cfm, hyper=hyper, tpu=TpuConfig(max_buckets=2)),
+                      device="cuda")
+        scann.init_params(0)
+        return scann
+
+    def record(na, nmax):
+        mp = widened(mp2018, 512, 512, 512)
+        x = wide_batch(rng, 1, na, nmax, mp, min_atoms=na, edges=False)
+        return {k: v.cpu().numpy() for k, v in x.items()}
+
+    def held(label, scann, structs, inputs, answers, routes):
+        cfm, hyper = scann.config.model, scann.config.hyper
+        for (pred, ga), x, st, route in zip(answers, inputs, structs, routes):
+            xt = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+            with torch.inference_mode():
+                if cfm.dtype == "float32":
+                    want = scann_forward(scann.params, xt, cfm)[0]
+                elif route == "fused":
+                    want = kfwd.reference_scann_forward(scann.params, xt, cfm)[0]
+                elif route == "loop":
+                    want = kloop.reference_loop_forward(scann.params, xt, cfm)[0]
+                else:
+                    want = scann_forward(scann.params, xt, cfm)[0]
+            want = want[0, 0].item() * hyper.target_std + hyper.target_mean
+            rtol, atol = (RTOL, ATOL) if cfm.dtype == "float32" else (BF16_RTOL, BF16_ATOL)
+            ok = abs(pred - want) <= atol + rtol * abs(want) and len(ga) == len(st)
+            print(f"phase 22 served {label} ({len(st)} sites, route {route}): {pred:.6f}, "
+                  f"{'the eager model' if cfm.dtype == 'float32' else 'the bf16 plain version'}"
+                  f" {want:.6f}", flush=True)
+            if not ok or not np.isfinite(ga).all():
+                failures.append(f"phase 22 served {label}: {pred} against {want}")
+
+    molecule = [Structure(*MOLECULES["benzene"])]
+    crystals = [Structure(["Si"] * na, rng.uniform(0, 9, size=(na, 3)), np.eye(3) * 9.0)
+                for na in (300, 40)]
+    crystal_inputs = [record(300, 16), record(40, 80)]
+    for D in (384, 512):
+        for dtype in ("float32", "bfloat16"):
+            qm9 = dataclasses.replace(widened(qm9_model, D, D, D), dtype=dtype)
+            mp = dataclasses.replace(widened(mp2018, D, D, D), dtype=dtype)
+            what = f"D = {D} {dtype}"
+            t0 = time.time()
+            qscann = model(qm9, "homo")
+            _, inputs = qscann.featurize_structures(molecule)
+            inputs = [{k: np.asarray(v) for k, v in inputs[0].items()}]
+            reset()
+            answers = qscann.predict_featurized(molecule, inputs)
+            torch.cuda.synchronize()
+            route = qscann.trainer.eval_route(inputs[0]["atomic"].shape[1],
+                                              inputs[0]["neighbors"].shape[2])
+            launched["scann_forward_d512"] += c1.d512_launches
+            print(f"phase 22 served a QM9 molecule to a {what} model: route {route}, #1 "
+                  f"launches {c1.launches} ({c1.d512_launches} d512, {c1.bf16_launches} bf16); "
+                  f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+            if (route != "fused" or (c1.launches, c1.d512_launches) != (1, 1)
+                    or c1.bf16_launches != (dtype == "bfloat16")):
+                failures.append(f"phase 22 QM9 molecule {what}: route {route}, #1 launches "
+                                f"{c1.launches} ({c1.d512_launches} d512)")
+            held(f"QM9 molecule {what}", qscann, molecule, inputs, answers, [route])
+            del qscann
+            t0 = time.time()
+            mscann = model(mp, "formation_energy_per_atom")
+            reset()
+            answers = mscann.predict_featurized(crystals, crystal_inputs, batch_size=4)
+            torch.cuda.synchronize()
+            routes = [mscann.trainer.eval_route(x["atomic"].shape[1], x["neighbors"].shape[2])
+                      for x in crystal_inputs]
+            launched["scann_loop_tall_d512"] += c3.tall_launches
+            launched["scann_loop_wide_d512"] += c3.wide_launches
+            print(f"phase 22 served MP2018 crystals of 300 and 40 sites at 16 and 80 "
+                  f"neighbours to a {what} model: routes {routes}, #3 launches {c3.launches} "
+                  f"({c3.d512_launches} d512: {c3.tall_launches} tall, {c3.wide_launches} wide; "
+                  f"{c3.bf16_launches} bf16), #1 {c1.launches}, #5 {c5.launches}; "
+                  f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+            if (routes != ["loop"] * 2 or c1.launches or c5.launches
+                    or (c3.launches, c3.d512_launches, c3.tall_launches, c3.wide_launches)
+                    != (2, 2, 1, 1) or c3.bf16_launches != 2 * (dtype == "bfloat16")):
+                failures.append(f"phase 22 crystals {what}: routes {routes}, #3 launches "
+                                f"{c3.launches} ({c3.d512_launches} d512, {c3.tall_launches} "
+                                f"tall, {c3.wide_launches} wide)")
+            held(f"MP2018 crystal {what}", mscann, crystals, crystal_inputs, answers, routes)
+            del mscann
+    # the per-layer route: #5's narrow and wide *_d512 builds, L launches each
+    mp = widened(mp2018, 512, 512, 512)
+    t0 = time.time()
+    layered = model(dataclasses.replace(mp, use_attn_norm=False), "formation_energy_per_atom")
+    structs = crystals[1:] * 2
+    inputs = [record(40, 12), record(40, 80)]
+    reset()
+    answers = layered.predict_featurized(structs, inputs, batch_size=4)
+    torch.cuda.synchronize()
+    L = mp.n_attention
+    launched["local_attention_wide_d512"] += c5.wide_launches
+    launched["local_attention_d512"] += c5.d512_launches - c5.wide_launches
+    routes = [layered.trainer.eval_route(x["atomic"].shape[1], x["neighbors"].shape[2])
+              for x in inputs]
+    print(f"phase 22 served two crystals of 40 sites to a D = 512 model without the attention "
+          f"LayerNorm: routes {routes}, #5 launches {c5.launches} ({c5.d512_launches} d512, "
+          f"{c5.wide_launches} wide), #3 {c3.launches}; {time.time() - t0:.1f} s  [{card}]",
+          flush=True)
+    if (routes != ["per_layer", "per_layer"] or c3.launches
+            or (c5.launches, c5.d512_launches, c5.wide_launches) != (2 * L, 2 * L, L)):
+        failures.append(f"phase 22 per-layer: routes {routes}, #5 launches {c5.launches} "
+                        f"({c5.d512_launches} d512, {c5.wide_launches} wide); want {2 * L}, "
+                        f"{2 * L}, {L}")
+    held("per-layer crystal", layered, structs, inputs, answers, routes)
+    del layered
+    # Trainer.fit of a D = 384 QM9 model, one epoch: per-layer steps, #1 validation
+    qm9 = widened(qm9_model, 384, 384, 384)
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_d512_")
+
+    def bucket(n):
+        x = {k: v.cpu().numpy() for k, v in synthetic_batch(rng, n, 32, 16).items()}
+        return PackedBucket(x, rng.normal(size=n).astype(np.float32), np.arange(n))
+
+    cfg = ScannConfig(model=qm9, hyper=HyperConfig(batch_size=16, lr=5e-4, epochs=1, seed=0,
+                                                   save_path=os.path.join(work, "qm9")),
+                      tpu=TpuConfig(max_buckets=2))
+    trainer = Trainer(cfg, device="cuda", workdir=os.path.join(work, "qm9", "fit"))
+    trainer.init_state(0)
+    train, valid = [bucket(32)], [bucket(16)]
+    routes = (trainer.train_route(32, 16), trainer.eval_route(32, 16))
+    reset()
+    kbwd.reset_counts(kbwd.launch_scann_backward)
+    kbwd.reset_counts(kloop.launch_loop_backward)
+    hist = trainer.fit(train, valid, epochs=1, log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    launched["scann_forward_d512"] += c1.d512_launches
+    n2, n4 = kbwd.launch_scann_backward.launches, kloop.launch_loop_backward.launches
+    print(f"phase 22 fitted a D = 384 QM9 model for one epoch in a (32, 16) bucket: routes "
+          f"(train, eval) {routes}, #1 launches {c1.launches} ({c1.d512_launches} d512), #2 "
+          f"{n2}, #4 {n4}, #5 {c5.launches}; loss {hist['loss']}, val MAE {hist['val_mae']}; "
+          f"{time.time() - t0:.1f} s  [{card}]", flush=True)
+    if (routes != ("per_layer", "fused") or c1.launches < 1 or c1.d512_launches != c1.launches
+            or n2 or n4 or c5.launches or not np.isfinite(hist["loss"] + hist["val_mae"]).all()):
+        failures.append(f"phase 22 fit: routes {routes}, #1 {c1.launches} ({c1.d512_launches} "
+                        f"d512), #2 {n2}, #4 {n4}, #5 {c5.launches}, history {hist}")
+    reset()
+    return launched
+
+
+def phase22(qm9_model, mp2018, failures, card):
+    """Phase 22: widths past 256. Returns the kernels line's rows of the five
+    *_d512 builds (#1, the tall and wide #3, the narrow and wide #5)."""
+    from scann_tpu_torch.kernels import local_attention as kla
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    t0 = time.time()
+    worst, worst16 = phase22_holds(qm9_model, mp2018, failures)
+    t1 = time.time()
+    times = phase22_times(qm9_model, mp2018, card)
+    t2 = time.time()
+    launched = phase22_paths(qm9_model, mp2018, failures, card)
+    print(f"phase 22 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
+          f"{time.time() - t2:.1f}, in all {time.time() - t0:.1f}  [{card}]", flush=True)
+    replaces = {"scann_forward_d512": kfwd.REPLACES, "local_attention_d512": kla.REPLACES,
+                "local_attention_wide_d512": kla.REPLACES}
+    rows = []
+    for name in D512_BUILDS:
+        rows.append({"name": name, "route": "cuda", "source": f"scann_tpu_torch/csrc/{name}.cu",
+                     "replaces": replaces.get(name, kloop.REPLACES), "launches": launched[name],
+                     "max_abs_err": worst[name], "bf16_max_abs_err": worst16[name],
+                     "library_ms": None, **times[name]})
+        if not launched[name]:
+            failures.append(f"phase 22: {name} was not launched on the main paths")
+    return rows
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6198,6 +6683,13 @@ def main():
           f"(one nvcc per source, in parallel) into the build cache "
           f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
           f"{exec_cache.env_fingerprint()})", flush=True)
+    d512 = [n for n in _build.WIDTH_SOURCES if n.endswith("_d512")]
+    secs = _build.build_seconds
+    print(f"the five *_d512 sources' share of the build: "
+          f"{sum(secs[n] for n in d512):.1f} of {sum(secs.values()):.1f} nvcc-seconds "
+          f"({100 * sum(secs[n] for n in d512) / sum(secs.values()):.1f}%); each "
+          f"{ {n: round(secs[n], 1) for n in d512} }; the longest nvcc of all "
+          f"{max(secs.values()):.1f} s", flush=True)
     for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
                  "scann_loop_backward_bf16", "scann_loop", "local_attention",
                  *_build.SHAPE_SOURCES):
@@ -6508,6 +7000,10 @@ def main():
     torch.cuda.empty_cache()
     scripts_launches = phase21(qm9_model, qm9_run, failures, card)
     lap("21")
+    # ---- phase 22: widths past 256 in #1, #3 and #5 (the *_d512 builds) --------------
+    torch.cuda.empty_cache()
+    width512_rows = phase22(qm9_model, mp2018, failures, card)
+    lap("22")
     # ---- phase 13: two ranks of the data-parallel Trainer from the build cache --
     torch.cuda.empty_cache()
     sharded_launches = phase13(qm9_model, mp2018, qm9_run, cache_dir, failures, card)
@@ -6578,7 +7074,8 @@ def main():
         "library_ms": None, **layer_time,
         "sharded_launches": sharded_launches["local_attention"],
         "scripts_launches": scripts_launches["local_attention"],
-    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows, *width_rows]
+    }, *bf16_rows, *stash_rows, *wide_rows, *tall_rows, *shape16_rows, *width_rows,
+        *width512_rows]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of its bound "
               f"at the published rates ({k['bound_ms']:.4f} ms), "

@@ -96,6 +96,14 @@
 //   *_d256 builds (SCANN_WIDTH_256: 8 values a lane) take D up to 256, the
 //   narrow one with atom blocks down to 8 and the wide one's context one
 //   thread a column over all N.
+// - Past 256 columns (local_attention_d512.cu, local_attention_wide_d512.cu:
+//   SCANN_WIDTH_512 beside SCANN_WIDTH_256, 16 values a lane, D up to 512):
+//   d256_block and wide_d256_block with chunks and sub-chunks of 16 rows
+//   (kD256ChunkRows, kFwdWideW32Rows), since one operand buffer of 32 rows
+//   is 131,584 bytes at D = 512; so the narrow build takes N <= 16
+//   (kNarrowMaxN: an atom's list within a chunk) and the wide one N > 16,
+//   with atom blocks down to 4 in the narrow plan; the keys in L2, the
+//   context a thread's two columns over all N.
 //
 // Summation orders (a launch repeats bit for bit): every product as
 // mma_gemm sums (scann_mma.cuh); the energies over the head's lanes in
@@ -117,7 +125,9 @@ using namespace scann;
 // Past 128 columns (the *_d256 builds) a chunk of 64 rows and the slots of
 // 16 atoms outgrow a block's shared memory (at D = 256, N = 32), so the
 // narrow plan also takes blocks of 8 atoms there.
-#ifdef SCANN_WIDTH_256
+#if defined(SCANN_WIDTH_512)
+constexpr int kAtomBlocks[] = {64, 48, 32, 16, 8, 4};
+#elif defined(SCANN_WIDTH_256)
 constexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};
 #else
 constexpr int kAtomBlocks[] = {64, 48, 32, 16};
@@ -192,7 +202,15 @@ inline Plan make_plan(int B, int M, int N, int D, int H, int g_update, int n_sm)
 // (and the raw area) do not fit, one buffer staged in the open, as the
 // builds up to 128 columns stage. The front holds the block's centers for
 // the head products, then a chunk's product and attention.
+#ifdef SCANN_WIDTH_512
+constexpr int kD256ChunkRows = 16;   // past 256 columns
+#else
 constexpr int kD256ChunkRows = 32;
+#endif
+// The largest N of the narrow build: an atom's list within a chunk
+// (kFwdMaxChunkRows; past 256 columns kD256ChunkRows), the wide build taking
+// the rest.
+constexpr int kNarrowMaxN = kLaneValues > 8 ? kD256ChunkRows : kFwdMaxChunkRows;
 
 struct D256Plan {
   int atom_block, chunk_atoms, buffers, offA, offA1, offR, work, total;
@@ -811,7 +829,8 @@ __device__ __forceinline__ void wide_d256_block(const Args<T>& a, float* wide_ke
   };
   // sub-chunk j for the walk, sub-chunk j + 1 on its way; with an atom's
   // first sub-chunk the next atom's indices, which the next land waits for
-  // (S >= 3: N > 64), before any staging reads them
+  // (S >= 2: N > R, at D <= 256 N > 64 and past 256 N > 16), before any
+  // staging reads them
   int next = 0;   // the sub-chunk the walk takes next
   auto stage = [&](int, int) {
     const int j = next++;
@@ -977,8 +996,8 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
   a.atom_block = dims[8]; a.chunk_atoms = dims[9];
   a.dk = scalars[0];
 
-  // the narrow build takes N <= kFwdMaxChunkRows, the wide one the rest
-  if (a.B < 1 || a.M < 1 || a.N < 1 || (a.N > kFwdMaxChunkRows) != kWide ||
+  // the narrow build takes N <= kNarrowMaxN, the wide one the rest
+  if (a.B < 1 || a.M < 1 || a.N < 1 || (a.N > kNarrowMaxN) != kWide ||
       a.N > kWideMaxN || (!kWide && wide_keys != nullptr) || a.D < 4 || a.D > kMaxWidth ||
       (a.D & 3) || a.H < 1 || a.D % a.H || a.K < 1 || a.K > a.D || n_sm < 1)
     return kErrShape;
@@ -1045,8 +1064,20 @@ int launch(void* const* ptrs, const int* dims, const float* scalars, cudaStream_
 // local_attention_wide_bf16_launch), at the first wide launch.
 // local_attention_d256.cu and local_attention_wide_d256.cu add
 // SCANN_WIDTH_256: the builds of widths up to 256 (local_attention_d256_*,
-// local_attention_wide_d256_*), at the first launch of a wider model.
-#if defined(SCANN_WIDTH_256) && defined(SCANN_LOCAL_ATTENTION_WIDE)
+// local_attention_wide_d256_*), at the first launch of a wider model;
+// local_attention_d512.cu and local_attention_wide_d512.cu SCANN_WIDTH_512
+// too: those of widths up to 512 (local_attention_d512_*,
+// local_attention_wide_d512_*; the narrow one N <= 16), with the same
+// pointers and sizes.
+#if defined(SCANN_WIDTH_512) && defined(SCANN_LOCAL_ATTENTION_WIDE)
+#define SCANN_LA_F32(x) local_attention_wide_d512_##x
+#define SCANN_LA_BF16(x) local_attention_wide_d512_bf16_##x
+constexpr bool kWideBuild = true;
+#elif defined(SCANN_WIDTH_512)
+#define SCANN_LA_F32(x) local_attention_d512_##x
+#define SCANN_LA_BF16(x) local_attention_d512_bf16_##x
+constexpr bool kWideBuild = false;
+#elif defined(SCANN_WIDTH_256) && defined(SCANN_LOCAL_ATTENTION_WIDE)
 #define SCANN_LA_F32(x) local_attention_wide_d256_##x
 #define SCANN_LA_BF16(x) local_attention_wide_d256_bf16_##x
 constexpr bool kWideBuild = true;

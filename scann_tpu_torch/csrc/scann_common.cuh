@@ -28,8 +28,12 @@ constexpr int kErrShape = 10002;
 // (warp_layer_norm): lane l holds columns l, l + 32, ..., so a build takes
 // widths (D, G, O) up to kMaxWidth = 32 x kLaneValues. The builds of widths
 // up to 128 hold 4; the wide-width sources (*_d256.cu) define
-// SCANN_WIDTH_256 and hold 8, up to 256.
-#ifdef SCANN_WIDTH_256
+// SCANN_WIDTH_256 and hold 8, up to 256. The sources of widths past 256
+// (*_d512.cu) define SCANN_WIDTH_512 beside SCANN_WIDTH_256, so they take
+// every code path of the builds past 128 columns, and hold 16, up to 512.
+#if defined(SCANN_WIDTH_512)
+constexpr int kLaneValues = 16;
+#elif defined(SCANN_WIDTH_256)
 constexpr int kLaneValues = 8;
 #else
 constexpr int kLaneValues = 4;

@@ -63,6 +63,19 @@
 // takes the planes and C, so the build of widths up to 128 is the one it
 // was.
 //
+// Widths past 256 (D, G, O up to 512): scann_forward_d512.cu builds that
+// kernel with SCANN_WIDTH_512 beside SCANN_WIDTH_256, 16 values of a row a
+// lane, chunks of 16 rows (the plan's; 32 do not fit at D = 512). Three
+// resident [M, max(D, G) + 4] arrays take 198,144 bytes at M = 32 and D =
+// 512, more than the chunk leaves, so that build keeps the centers alone in
+// shared memory, where every gather reads them (and the cluster shares
+// them), and the query / attention output and the cw / ResidualNorm hidden
+// rows of each molecule in global memory (L2), rows [B, 2, M, ldm] of
+// launch pointer 51 (kL2Rows). A block reads and writes only its own atoms'
+// rows there until rank 0's readout, which writes every row it reads, so
+// no block reads another's, and a barrier of the block orders them. QM9 (M
+// <= 32, N = 16) at D = 512 takes 171,680 bytes a block.
+//
 // bf16 operand mode (model.dtype "bfloat16"): a second instantiation of the
 // kernel, kBf16, rounds the operands of every product to bfloat16 and sums in
 // f32, where and as the TPU kernel's dots do (scann_forward_common.cuh);
@@ -89,7 +102,13 @@ using Args = ForwardArgs;   // scann_common.cuh
 constexpr bool kW32 = true;
 #define SCANN_FORWARD_TAKES_PLANES
 #define SCANN_FORWARD_CLUSTER_TPARAM , bool kCluster
+#ifdef SCANN_WIDTH_512
+#define SCANN_FORWARD_D256_PARAMS , const float* planes, const int C, float* l2rows
+#define SCANN_FORWARD_L2_ARG , l2rows
+#else
 #define SCANN_FORWARD_D256_PARAMS , const float* planes, const int C
+#define SCANN_FORWARD_L2_ARG
+#endif
 #else
 constexpr bool kW32 = false;
 constexpr bool kCluster = false;
@@ -100,10 +119,13 @@ constexpr bool kCluster = false;
 // 8 a non-portable size the launcher opts into)
 constexpr int kMaxForwardCluster = 16;
 
+// the query and scratch rows in global memory (the build past 256 columns)
+constexpr bool kL2Rows = kLaneValues > 8;
+
 // Shared-memory plan, in floats: centers, query, scratch [M, ldm] each
-// (ldm = max(D, G) + 4); the work region (a chunk's buffers, or the
-// embedding's staging [M, lde + ldf]); readout vectors (per segment for a
-// packed batch).
+// (ldm = max(D, G) + 4; kL2Rows: the centers alone, offQ and offW unused);
+// the work region (a chunk's buffers, or the embedding's staging [M, lde +
+// ldf]); readout vectors (per segment for a packed batch).
 struct Plan {
   int ldm, rows, lde, ldf, work, offQ, offW, offWork, offMisc, total;
 };
@@ -119,7 +141,7 @@ __host__ __device__ inline Plan make_plan(const Args& a) {
   p.work = chunk > embed ? chunk : embed;
   p.offQ = a.M * p.ldm;
   p.offW = 2 * a.M * p.ldm;
-  p.offWork = 3 * a.M * p.ldm;
+  p.offWork = (kL2Rows ? 1 : 3) * a.M * p.ldm;
   p.offMisc = p.offWork + p.work;
   p.total = p.offMisc + 2 * p.ldm + round4(a.M) + round4(a.O);
   if (a.S) p.total = p.offMisc + seg_forward_floats(a.S, p.ldm, a.M, a.O);
@@ -158,8 +180,13 @@ scann_forward_kernel(const Args a SCANN_FORWARD_D256_PARAMS) {
                                    a.drop_threshold, a.drop_scale);
   };
   float* sC = smem;               // centers        [M, ldm]
+#ifdef SCANN_WIDTH_512
+  float* sQ = l2rows + (size_t)b * 2 * M * ldm;   // query / out [M, ldm], in L2
+  float* sW = sQ + (size_t)M * ldm;               // cw, then the hidden [M, ldm], in L2
+#else
   float* sQ = smem + P.offQ;      // query / out    [M, ldm]
   float* sW = smem + P.offW;      // cw, then the ResidualNorm hidden [M, ldm]
+#endif
   float* work = smem + P.offWork;
   float* sA = work;                        // chunk operand [rows, 2D + 4]
   float* sU = sA + P.rows * lda;           // chunk product [rows, D + 4]
@@ -430,8 +457,13 @@ scann_forward_kernel(const Args a SCANN_FORWARD_D256_PARAMS) {
 // packed TF32 planes of the layers' products ([L, n] of pack_params'
 // "tf32_planes"; never null there), and size 22, the blocks a molecule C
 // (1 to kMaxForwardCluster, at most one a chunk of atoms), and answer
-// scann_forward_d256_max_clusters.
-#ifdef SCANN_WIDTH_256
+// scann_forward_d256_max_clusters. scann_forward_d512.cu adds
+// SCANN_WIDTH_512: the build of widths up to 512 (scann_forward_d512_*),
+// which also takes pointer 51, the query and scratch rows [B, 2, M,
+// max(D, G) + 4] (f32; never null there).
+#if defined(SCANN_WIDTH_512)
+#define SCANN_FORWARD_ENTRY(x) scann_forward_d512_##x
+#elif defined(SCANN_WIDTH_256)
 #define SCANN_FORWARD_ENTRY(x) scann_forward_d256_##x
 #else
 #define SCANN_FORWARD_ENTRY(x) scann_forward_##x
@@ -518,6 +550,10 @@ extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, c
   const int C = dims[22];
   if (planes == nullptr || C < 1 || C > kMaxForwardCluster) return kErrShape;
 #endif
+#ifdef SCANN_WIDTH_512
+  float* l2rows = (float*)ptrs[51];
+  if (l2rows == nullptr) return kErrShape;
+#endif
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (bf16 & ~1) return kErrShape;
 
@@ -538,7 +574,7 @@ extern "C" int SCANN_FORWARD_ENTRY(launch)(void* const* ptrs, const int* dims, c
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   d256_launch_config(cfg, attr, a.B, C, bytes, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a, planes, C);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, planes, C SCANN_FORWARD_L2_ARG);
   if (err != cudaSuccess) return (int)err;
 #else
   const auto kernel = bf16 ? scann_forward_kernel<true> : scann_forward_kernel<false>;

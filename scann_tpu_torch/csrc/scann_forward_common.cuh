@@ -60,8 +60,14 @@ namespace scann {
 
 constexpr int kFwdMaxChunkRows = 64;   // N <= 64: one atom's neighbours fit a chunk
 // the wide atom walk's sub-chunk in the 32-column layout (the wide builds
-// past 128 columns): two operand buffers of it fit beside the rest at D = 256
+// past 128 columns): two operand buffers of it fit beside the rest at D =
+// 256; past 256 columns (the *_d512 builds) 16, since two buffers of 32 rows
+// take 263,168 bytes at D = 512
+#ifdef SCANN_WIDTH_512
+constexpr int kFwdWideW32Rows = 16;
+#else
 constexpr int kFwdWideW32Rows = 32;
+#endif
 
 // The sizes fwd_chunk reads: the whole-model forwards take them from their
 // ForwardArgs (forward_chunk_dims), the per-layer kernel fills them itself.
@@ -594,7 +600,8 @@ __device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWei
 }
 
 // The wide form of fwd_chunk for one atom whose N neighbours (64 < N <=
-// kWideMaxN) exceed a chunk: the atom walk of the wide builds of #3
+// kWideMaxN; past 128 columns in #3, and past 256 columns in #5 too, fewer)
+// exceed a chunk: the atom walk of the wide builds of #3
 // (scann_loop_wide.cu) and #5 (local_attention_wide.cu). Its rows go through
 // fwd_chunk_rows in sub-chunks of at most kFwdMaxChunkRows (kW32, the wide
 // builds past 128 columns: kFwdWideW32Rows, their products in the 32-column
@@ -609,7 +616,8 @@ __device__ __forceinline__ void fwd_chunk_w32(const ChunkDims& a, const LayerWei
 // neighbours into two halves over the block's threads (thread t: column t %
 // D of half t / D, D <= 128), each half summed in order, then first half +
 // second half + query; past 128 columns (kLaneValues 8) one thread a column
-// sums all N in order, then + query. sU [D] passes the second half's sums
+// sums all N in order, then + query (past 256, kLaneValues 16, a thread
+// sums columns t and t + 256 so). sU [D] passes the second half's sums
 // (the sub-chunk's product buffer, free by then). sCW and sQ are the atom's rows; nmask,
 // nweight, geo_out and attn_out point at the atom's first row; drop(n, h)
 // takes the neighbour's index in the atom. kBf16: the operand mode; T: the
@@ -642,7 +650,23 @@ __device__ __forceinline__ void fwd_atom_wide_keys(const ChunkDims& a, const Lay
     sE[n * H + h] = operand<kBf16>(a.attn_dropout ? pr * drop(n, h) : pr) * to_float(nmask[n]);
   });
   __syncthreads();
-  if constexpr (kLaneValues > 4) {
+  if constexpr (kLaneValues > 8) {
+    // widths past 256 (the *_d512 builds): the same sum, columns tid and
+    // tid + 256
+    for (int d = tid; d < D; d += kThreads) {
+      const float* e = sE + d / hd;
+      float s = 0.f;
+      if (smem_keys) {
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) s += e[n * H] * keys[n * ldk + d];
+      } else {
+#pragma unroll 8
+        for (int n = 0; n < N; ++n) s += e[n * H] * __ldcg(keys + (size_t)n * ldk + d);
+      }
+      sQ[d] = s + sQ[d];
+    }
+    __syncthreads();
+  } else if constexpr (kLaneValues > 4) {
     // widths past 128 (the *_d256 builds): one thread a column, over all N
     // neighbours in order, then + query; keys in L2 eight loads in flight
     // (1.3% of the wide #3 at D = 256 over four, on an NVIDIA H100 80GB HBM3

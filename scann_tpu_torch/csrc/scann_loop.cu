@@ -97,6 +97,14 @@
 //   copies while this one runs (two buffers of 64 rows do not fit at D =
 //   256); 32 rows a pass is what every product took anyway (two m-tiles),
 //   and the sub-chunk changes no sum, so its outputs are the same bits.
+// - Widths past 256 (D, G, O up to 512): scann_loop_tall_d512.cu and
+//   scann_loop_wide_d512.cu, the same two kernels with SCANN_WIDTH_512 (16
+//   values a lane): the tall build takes N <= kTallMaxN = 16 in chunks of
+//   16 rows, the wide one N > 16 in sub-chunks of 16 (kFwdWideW32Rows), two
+//   buffers each (at D = 512 the wide build takes MP2018 (96, 32) with atom
+//   blocks of 16 in 231,952 bytes and (80, 96) with 8 in 201,488); the wide
+//   context a thread's two columns over all N. The centers, the wide atom's
+//   keys and the readout rows live in L2 as at 256.
 // - The readout: the narrow build runs after_Lc, the GA queries and keys,
 //   the scores, the pooled context and the head over all M atoms in every
 //   block of the cluster, in the same order. In the tall and wide builds
@@ -141,8 +149,10 @@ constexpr int kMaxL2Cluster = 16;
 // The largest N of the narrow and tall builds, the wide build taking the
 // rest: a chunk's rows (kFwdMaxChunkRows) up to 128 columns; past 128 (the
 // *_d256 builds) 32, since two tall operand buffers of more rows do not fit
-// a block's shared memory at D = 256, so the wide build takes N > 32 there.
-constexpr int kTallMaxN = kLaneValues > 4 ? 32 : kFwdMaxChunkRows;
+// a block's shared memory at D = 256, so the wide build takes N > 32 there;
+// past 256 (the *_d512 builds) 16, the rows of two buffers that fit at D =
+// 512 (the wide build's sub-chunks, kFwdWideW32Rows, are 16 rows there too).
+constexpr int kTallMaxN = kLaneValues > 8 ? 16 : kLaneValues > 4 ? 32 : kFwdMaxChunkRows;
 
 // The tall build (scann_loop_tall.cu defines SCANN_LOOP_TALL): the centers in
 // global memory; every other build keeps them in shared memory.
@@ -925,8 +935,17 @@ extern "C" int scann_loop_forward_shared_bytes(const int* dims) {
 // launch. Each build takes both operand modes.
 // scann_loop_tall_d256.cu and scann_loop_wide_d256.cu add SCANN_WIDTH_256:
 // the tall and wide builds of widths up to 256 (scann_loop_forward_tall_d256_*,
-// scann_loop_forward_wide_d256_*), at the first launch of a wider model.
-#if defined(SCANN_LOOP_WIDE) && defined(SCANN_WIDTH_256)
+// scann_loop_forward_wide_d256_*), at the first launch of a wider model;
+// scann_loop_tall_d512.cu and scann_loop_wide_d512.cu add SCANN_WIDTH_512
+// too: those of widths up to 512 (scann_loop_forward_tall_d512_*,
+// scann_loop_forward_wide_d512_*), with the same pointers and sizes.
+#if defined(SCANN_LOOP_WIDE) && defined(SCANN_WIDTH_512)
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_d512_##x
+constexpr bool kWideBuild = true;
+#elif defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_512)
+#define SCANN_LOOP_ENTRY(x) scann_loop_forward_tall_d512_##x
+constexpr bool kWideBuild = false;
+#elif defined(SCANN_LOOP_WIDE) && defined(SCANN_WIDTH_256)
 #define SCANN_LOOP_ENTRY(x) scann_loop_forward_wide_d256_##x
 constexpr bool kWideBuild = true;
 #elif defined(SCANN_LOOP_TALL) && defined(SCANN_WIDTH_256)

@@ -65,6 +65,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -98,10 +99,16 @@ BF16_SHAPE_SOURCES = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall
 # and wide #4, one a mode as its other builds; the same sources with
 # SCANN_WIDTH_256 defined, built at the first launch (or training launch) of
 # a wider model, so the builds of widths up to 128 are the ones they were.
+# Past 256 (D, G, O up to 512: 16 values a lane, SCANN_WIDTH_512 beside
+# SCANN_WIDTH_256) the forwards #1, #3 (tall, wide) and #5 (narrow, wide)
+# have one source each too, built the same way at the first launch of a
+# model that wide.
 WIDTH_SOURCES = ("scann_forward_d256", "scann_loop_tall_d256", "scann_loop_wide_d256",
                  "local_attention_d256", "local_attention_wide_d256",
                  "scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
-                 "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16")
+                 "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16",
+                 "scann_forward_d512", "scann_loop_tall_d512", "scann_loop_wide_d512",
+                 "local_attention_d512", "local_attention_wide_d512")
 # Every build made for some shapes only.
 SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES + WIDTH_SOURCES
 # Sources of the port that are not ports of a TPU kernel: the rate probes of
@@ -115,6 +122,8 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _lock = threading.Lock()
 _cache = None       # the ExecutableCache that load_library and build_all go through
 build_logs: Dict[str, str] = {}   # name -> nvcc's output of the build made by this process
+# name -> wall seconds of that build's nvcc, from its start to its exit
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -258,6 +267,13 @@ def _start(name: str, out: str) -> subprocess.Popen:
     return proc
 
 
+def _finish(name: str, proc: subprocess.Popen, t0: float) -> None:
+    """Wait for one nvcc started at ``t0`` (read its output to the end) and
+    keep its log and wall seconds in ``build_logs`` and ``build_seconds``."""
+    build_logs[name], _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
+
+
 def build_all(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]:
     """Compile every missing library (every one with ``force``) in
     parallel, into the build cache; returns name -> .so path."""
@@ -319,12 +335,19 @@ class ExecutableCache:
         paths = {n: self.path(n) for n in names}
         with _directory_lock(self.cache_dir):
             # what another process published while this one waited is not built again
+            t0 = time.perf_counter()
             procs = {n: _start(n, p) for n, p in paths.items()
                      if force or not os.path.exists(p)}
             errors = []
+            # one waiter a build, so that each build's seconds end at its own exit
+            waiters = [threading.Thread(target=_finish, args=(name, proc, t0))
+                       for name, proc in procs.items()]
+            for t in waiters:
+                t.start()
+            for t in waiters:
+                t.join()
             for name, proc in procs.items():
-                log, _ = proc.communicate()
-                build_logs[name] = log
+                log = build_logs[name]
                 out, tmp = paths[name], proc.scann_tmp
                 if proc.returncode != 0:
                     if os.path.exists(tmp):

@@ -20,7 +20,8 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   autograd, as the JAX package's VJP does (it has no backward kernel here).
   ``fused_local_attention.launches`` counts kernel launches
   (``.bf16_launches`` those on bfloat16 tensors, ``.wide_launches`` those
-  of the wide build, ``.d256_launches`` those of D past 128).
+  of the wide build, ``.d256_launches`` those of D past 128 up to 256,
+  ``.d512_launches`` those of D past 256).
 - ``reference_local_attention`` is the plain layer in the tensors' own
   dtypes (the flax model's layer: in the bf16 model its products and
   elementwise ops round as the tensors do), with the attention dropout of
@@ -37,10 +38,14 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   there; bfloat16 centers with an f32 tensor are refused.
 - The kernel reads the previous layer's centers from global memory and tiles
   the atoms over the grid, so M is not limited. Its tiles limit the rest: D
-  a multiple of 4 up to 256 (``MAX_WIDTH``; past 128 the builds of
+  a multiple of 4 up to 512 (``MAX_WIDTH``; past 128 the builds of
   ``csrc/local_attention_d256.cu`` and ``local_attention_wide_d256.cu``, 8
   values of a row a lane in the warp LayerNorms, the narrow one with atom
-  blocks down to 8, ``D256_ATOM_BLOCKS``) and divisible by the heads, N <=
+  blocks down to 8; past 256 those of
+  ``local_attention_d512.cu`` and ``local_attention_wide_d512.cu``, 16
+  values a lane, chunks and sub-chunks of 16 rows, so the narrow one takes
+  N <= 16 with atom blocks down to 4: the width class, ``kernels.widths``)
+  and divisible by the heads, N <=
   256, the SCANN filter's input K <= D, float32 or bfloat16. Up to N = 64
   one atom's neighbours fit a chunk of 64 rows (``csrc/local_attention.cu``); a wider
   list launches the wide build (``csrc/local_attention_wide.cu``, built at
@@ -52,8 +57,9 @@ loop kernel's shared-memory plan, and ``use_attn_norm=False``.
   since the L1 the smallest layout leaves holds the bf16 weights). Past 128
   columns both builds run their products in the 32-column layout on the
   layer's packed TF32 planes (``layer_planes``, pointer 19), the narrow one
-  in chunks of 32 rows and the wide one in sub-chunks of 32, each in two
-  operand buffers where they fit, the next staged while one runs.
+  in chunks of 32 rows and the wide one in sub-chunks of 32 (16 past 256
+  columns), each in two operand buffers where they fit, the next staged
+  while one runs.
 - It runs its row products on the tensor cores (split-TF32 ``mma.sync``, f32
   accuracy) through the chunk code of ``csrc/scann_forward_common.cuh`` that
   the whole-model forwards share. ``make_plan`` mirrors the launch plan of
@@ -77,6 +83,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from scann_tpu_torch.kernels import widths
+from scann_tpu_torch.kernels.widths import MAX_WIDTH, NARROW_WIDTH
 from scann_tpu_torch.ops.activations import swish
 from scann_tpu_torch.ops.attention import gather_neighbor_states, local_attention_core, matmul
 
@@ -84,15 +92,12 @@ REPLACES = "scann_tpu/kernels/local_attention.py:49"  # _kernel
 SOURCE = "scann_tpu_torch/csrc/local_attention.cu"
 MAX_CHUNK_ROWS = 64
 MAX_NEIGHBORS = 256   # the wide builds' limit (csrc/scann_mma.cuh kWideMaxN)
-MAX_WIDTH = 256      # past NARROW_WIDTH the *_d256 builds
-NARROW_WIDTH = 128
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
-ATOM_BLOCKS = (64, 48, 32, 16)
-# the narrow build's blocks past 128 columns (kAtomBlocks of the d256 build),
-# in chunks of at most D256_CHUNK_ROWS rows (an atom of more N alone), two
-# operand buffers where they fit (d256_block_plan): 16 atoms at D = 256, N = 32
-D256_ATOM_BLOCKS = ATOM_BLOCKS + (8,)
-D256_CHUNK_ROWS = 32
+# the narrow build's atom blocks up to 128 columns; past it those of the
+# width class (``widths.class_of(D).atom_blocks``), in chunks of at most its
+# ``chunk_rows`` rows (an atom of more N alone), two operand buffers where
+# they fit (d256_block_plan)
+ATOM_BLOCKS = widths.CLASSES[0].atom_blocks
 WIDE_ATOM_BLOCKS = (16, 8, 4, 2, 1)
 WIDE_ATOM_COST, WIDE_HEAD_COST = 20, 3   # the wide plan's cost of a wave: 20 AB + 3
 PARAM_KEYS = ("filter_geo/kernel", "filter_geo/bias", "key/kernel", "key/bias",
@@ -192,18 +197,27 @@ def check_supported(D: int, N: int, K: int, num_head: int, dtype: torch.dtype) -
             f"input K={K} (<= D)")
 
 
-def is_wide(N: int) -> bool:
-    """Whether N neighbours take the wide build (more than a chunk's rows):
-    the rule of the forwards #5 and #3 (``kernels.scann_loop`` takes it)."""
-    return N > MAX_CHUNK_ROWS
+def narrow_max_n(D: int) -> int:
+    """The largest N of #5's narrow build at width D: an atom's list within a
+    chunk of rows (the width class's ``narrow_max_n``, kNarrowMaxN of the
+    CUDA source: 64, past 256 columns 16)."""
+    return widths.class_of(D).narrow_max_n
+
+
+def is_wide(N: int, D: int) -> bool:
+    """Whether N neighbours of width D take #5's wide build (more than
+    ``narrow_max_n``; #3's rule is ``scann_loop.is_wide_forward``, the same
+    answer up to 128 columns)."""
+    return N > narrow_max_n(D)
 
 
 def library(N: int, D: int) -> str:
     """The build that takes N neighbours of width D, the name of its library
     and its entry points' prefix: ``local_attention_wide`` where ``is_wide``,
-    else ``local_attention``; with ``_d256`` past ``NARROW_WIDTH``."""
-    name = "local_attention_wide" if is_wide(N) else "local_attention"
-    return name + ("_d256" if D > NARROW_WIDTH else "")
+    else ``local_attention``; with the width class's suffix
+    (``_d256`` past ``NARROW_WIDTH``, ``_d512`` past 256)."""
+    name = "local_attention_wide" if is_wide(N, D) else "local_attention"
+    return name + widths.class_of(D).suffix
 
 
 def block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool) -> Tuple[int, int]:
@@ -225,14 +239,15 @@ def d256_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
     """(atoms per chunk, operand buffers, shared bytes) of one block of
     ``atom_block`` atoms of the narrow build past 128 columns --
     ``d256_plan_for`` of the CUDA source. Chunks of at most
-    ``D256_CHUNK_ROWS`` rows (one atom of N rows past that); the slots, the
+    the width class's ``chunk_rows`` rows (32, past 256 columns 16; one
+    atom of N rows past that); the slots, the
     front (the block's centers [AB, D + 4] for the head products, then a
     chunk's product [rows, D + 4] and attention [rows, H]) and two operand
     buffers [rows, 2D + 4], with a raw area [rows, 2D] of bfloat16 (rows x D
     floats) on ``bf16`` tensors, so that the next chunk is staged while one
     runs; one buffer where that does not fit."""
     r4 = lambda v: -(-v // 4) * 4
-    chunk_atoms = min(atom_block, max(1, D256_CHUNK_ROWS // N))
+    chunk_atoms = min(atom_block, max(1, widths.class_of(D).chunk_rows // N))
     rows = chunk_atoms * N
     front = max(rows * (D + 4) + r4(rows * H), atom_block * (D + 4))
     slots = (2 if g_update else 1) * atom_block * (D + 4)
@@ -256,15 +271,15 @@ def wide_block_plan(atom_block: int, N: int, D: int, H: int, g_update: bool,
     64: on f32 tensors the keys where they fit beside one buffer, and a
     second buffer where that fits too; on ``bf16`` tensors one buffer and the
     keys in L2, the smallest layout, whose L1 holds the bf16 weights of the
-    row products. Past 128 columns rows = ``D256_CHUNK_ROWS`` (32) and
-    always two buffers, the keys where they fit, with a raw area [32, 2D] of
-    bfloat16 (32 x D floats) on ``bf16`` tensors: the products read the
-    weights' TF32 planes, and this layout fits wherever one 64-row buffer
-    fits."""
+    row products. Past 128 columns rows = the width class's ``chunk_rows``
+    (32; past 256 columns 16) and always two buffers, the keys where they
+    fit, with a raw area [rows, 2D] of bfloat16 (rows x D floats) on
+    ``bf16`` tensors: the products read the weights' TF32 planes, and this
+    layout fits wherever one 64-row buffer fits."""
     r4 = lambda v: -(-v // 4) * 4
     slots = (2 if g_update else 1) * atom_block * (D + 4)
     if D > NARROW_WIDTH:
-        rows = D256_CHUNK_ROWS
+        rows = widths.class_of(D).chunk_rows
         off_a = max(rows * (D + 4) + r4(N * H), atom_block * (D + 4))
         for smem_keys in (True, False):
             floats = (slots + off_a + 2 * rows * (2 * D + 4) + (rows * D if bf16 else 0)
@@ -289,8 +304,9 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     ``make_plan`` and ``make_wide_plan`` of the CUDA source, which refuses
     any other. A block takes a whole SM, so the B * ceil(M / AB) blocks run
     in ceil(blocks / n_sm) waves of AB atoms. The narrow build takes the
-    atom block of ``ATOM_BLOCKS`` (``D256_ATOM_BLOCKS`` past 128 columns)
-    whose ``block_plan`` (past 128 columns ``d256_block_plan``, on f32 or
+    atom block of its width class's ``atom_blocks`` (``ATOM_BLOCKS`` up to
+    128 columns, down to 8 atoms past it and to 4 past 256) whose
+    ``block_plan`` (past 128 columns ``d256_block_plan``, on f32 or
     ``bf16`` tensors) fits with the fewest atoms per SM, where two tie the
     one with two operand buffers (past 128 columns), then the larger. The
     wide build (one atom a chunk, ``wide_block_plan`` on f32
@@ -300,10 +316,9 @@ def make_plan(B: int, M: int, N: int, D: int, H: int, g_update: bool,
     atoms' cw and query products, costs about 0.15 of an atom's rows; 0.165
     at D = 256 on an NVIDIA H100 80GB HBM3 at 700 W), the smaller where two
     tie."""
-    wide = is_wide(N)
+    wide = is_wide(N, D)
     best = None
-    blocks = D256_ATOM_BLOCKS if D > NARROW_WIDTH else ATOM_BLOCKS
-    for ab in WIDE_ATOM_BLOCKS if wide else blocks:
+    for ab in WIDE_ATOM_BLOCKS if wide else widths.class_of(D).atom_blocks:
         waves = -(-B * -(-M // ab) // n_sm)
         buffers = 1
         if wide:
@@ -408,8 +423,8 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
     plan = make_plan(B, M, N, D, num_head, g_update, n_sm, bool(bf16))
     lib = library(N, D)
     keys = (torch.empty((B * -(-M // plan[0]), N, D), device=dev, dtype=torch.float32)
-            if is_wide(N) and not wide_block_plan(plan[0], N, D, num_head, g_update,
-                                                  bool(bf16))[1]
+            if is_wide(N, D) and not wide_block_plan(plan[0], N, D, num_head, g_update,
+                                                     bool(bf16))[1]
             else None)
     # the builds past 128 columns take the packed TF32 planes as pointer 19
     planes = [layer_planes(params, g_update)] if D > NARROW_WIDTH else []
@@ -417,8 +432,9 @@ def _launch(centers, neighbor_idx, geometry, neighbor_mask, neighbor_weight, par
                 [B, M, N, D, num_head, K, int(g_update), n_sm, *plan], [dk])
     fused_local_attention.launches += 1
     fused_local_attention.bf16_launches += bf16
-    fused_local_attention.wide_launches += is_wide(N)
-    fused_local_attention.d256_launches += D > NARROW_WIDTH
+    fused_local_attention.wide_launches += is_wide(N, D)
+    fused_local_attention.d256_launches += widths.width_class_of(D) == 256
+    fused_local_attention.d512_launches += widths.width_class_of(D) == 512
     return out, geo_out, attn
 
 
@@ -517,6 +533,7 @@ fused_local_attention.launches = 0
 fused_local_attention.bf16_launches = 0
 fused_local_attention.wide_launches = 0
 fused_local_attention.d256_launches = 0
+fused_local_attention.d512_launches = 0
 
 
 def layer_flops(B: int, M: int, N: int, D: int, g_update: bool, K: int = 20) -> int:

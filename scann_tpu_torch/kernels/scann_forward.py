@@ -14,7 +14,8 @@ Philox masks of ``ops.dropout`` that the backward replays).
   the eager model called functionally, with the same masks.
   ``fused_scann_forward.launches`` counts kernel launches
   (``.bf16_launches`` those in the bf16 operand mode, ``.d256_launches``
-  those of the build of widths past 128).
+  those of the build of widths past 128 up to 256, ``.d512_launches``
+  those of the build past 256).
 - ``model.dtype: "bfloat16"`` is the bf16 operand mode of
   ``kernels/dots.py``: the kernel rounds both operands of every product to
   bfloat16 and sums in f32, as the TPU kernel's dots do, and its plain
@@ -32,11 +33,16 @@ Philox masks of ``ops.dropout`` that the backward replays).
   eager model's segmented readout.
 - The gate is the kernel's own shared-memory plan (``shared_memory_plan``)
   plus the sizes its tiles take: M <= 64 atoms, chunks of at most 64
-  (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 256
-  (``MAX_WIDTH``). A model wider than ``NARROW_WIDTH`` = 128 (``is_d256``)
-  launches the forwards' builds of 8 values of a row a lane in the warp
-  LayerNorms, sources of their own (``csrc/*_d256.cu``, ``library``),
-  and its chunks fall to 32 or 16 rows where 64 do not fit. That build of
+  (atom, neighbour) rows (so N <= 64), D, G, O multiples of 4 up to 512
+  (``MAX_WIDTH``). ``width_class`` names the builds a model launches: up
+  to ``NARROW_WIDTH`` = 128 the first ones, up to 256 the forwards' builds
+  of 8 values of a row a lane in the warp LayerNorms, sources of their own
+  (``csrc/*_d256.cu``, ``library``), and up to 512 those of 16 values a
+  lane (``csrc/*_d512.cu``); the chunks fall to 32 or 16 rows where 64 do
+  not fit. The build of #1 past 256 columns keeps the centers alone in
+  shared memory and each molecule's query and scratch rows in global memory
+  (``l2_rows_shape``), so it takes QM9 (M <= 32, N = 16) at D = 512. That
+  build of
   #1 runs its products on the packed TF32 planes of ``pack_params`` and
   spreads a molecule's atoms over a cluster of ``forward_cluster`` blocks
   (up to 16: the most whose B clusters the card runs at once, at least a
@@ -70,6 +76,8 @@ import torch
 
 from scann_tpu_torch.config import ModelConfig, attn_dropout_rate
 from scann_tpu_torch.kernels import dots
+from scann_tpu_torch.kernels import widths
+from scann_tpu_torch.kernels.widths import MAX_WIDTH, NARROW_WIDTH
 from scann_tpu_torch.models.scann import CGCNN_FEATURES, check_index_ranges, scann_forward
 from scann_tpu_torch.ops.activations import mrelu, swish
 from scann_tpu_torch.ops.attention import gather_neighbor_states, segment_ids
@@ -86,12 +94,10 @@ SOURCE = "scann_tpu_torch/csrc/scann_forward.cu"
 MAX_ATOMS = 64
 MAX_CHUNK_ROWS = 64
 MAX_NEIGHBORS = 256   # kernels #3, #5 and #4 in their wide builds (kWideMaxN)
-# D, G and O up to 256 in the forwards #1, #3 and #5; past NARROW_WIDTH
-# their *_d256 builds (8 values of a row a lane in the warp LayerNorms)
-MAX_WIDTH = 256
-NARROW_WIDTH = 128
+# D, G and O up to MAX_WIDTH = 512 in the forwards #1, #3 and #5; past
+# NARROW_WIDTH their *_d256 builds, past 256 their *_d512 ones: ``width_class``
 # the forward's chunks of (atom, neighbour) rows, the first whose plan fits
-# (64 fits at every width up to 128; 32 at QM9 at D = 256)
+# (64 fits at every width up to 128; 32 at QM9 at D = 256, 16 at D = 512)
 CHUNK_ROWS = (64, 32, 16)
 MAX_SHARED_BYTES = 232448  # 227 KB per block on sm_90
 MAX_SEGMENTS = 32          # kMaxSegments of csrc/scann_common.cuh
@@ -475,37 +481,56 @@ def seg_backward_floats(S: int, ld: int, M: int, O: int) -> int:
 def shared_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Tuple[int, int, int]:
     """(atoms per chunk of rows, floats of the work region, shared bytes per
     block) -- the layout ``make_plan`` in the CUDA source walks: centers,
-    query and a scratch [M, max(D, G) + 4] each, the work region (a chunk's
-    buffers or the embedding's staging), the readout's vectors (per segment
-    for a packed batch of S segments a slot). The chunk is the first of
-    ``CHUNK_ROWS`` rows (whole atoms, at least one) whose plan fits, else
-    the first's plan."""
+    query and a scratch [M, max(D, G) + 4] each (past 256 columns the
+    centers alone: the build keeps the other two in ``l2_rows_shape``), the
+    work region (a chunk's buffers or the embedding's staging), the
+    readout's vectors (per segment for a packed batch of S segments a slot).
+    The chunk is the first of ``CHUNK_ROWS`` rows (whole atoms, at least
+    one) whose plan fits, else the first's plan."""
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     ldm = max(D, G) + 4
+    resident = 1 if width_class(cfm) > 256 else 3
     misc = seg_forward_floats(S, ldm, M, O) if S else 2 * ldm + _r4(M) + _r4(O)
     plans = []
     for rows in CHUNK_ROWS:
         chunk_atoms = max(1, min(M, rows // N))
         work = max(forward_chunk_floats(chunk_atoms * N, D, H), embedding_stage_floats(cfm, M))
-        plans.append((chunk_atoms, work, 4 * (3 * M * ldm + work + misc)))
+        plans.append((chunk_atoms, work, 4 * (resident * M * ldm + work + misc)))
         if plans[-1][2] <= MAX_SHARED_BYTES:
             return plans[-1]
     return plans[0]
 
 
-def is_d256(cfm: ModelConfig) -> bool:
-    """Whether the model is wider than ``NARROW_WIDTH`` (D, G or O past 128),
-    so that the forwards #1, #3 and #5 launch their builds of widths up to
-    256 (``csrc/*_d256.cu``: 8 values of a row a lane in the warp LayerNorms);
-    the builds of widths up to 128 are the ones they always were."""
-    return max(cfm.local_dim, cfm.global_dim, cfm.dense_out) > NARROW_WIDTH
+def width_constants(cfm: ModelConfig) -> widths.WidthClass:
+    """The row of ``kernels.widths`` of the largest of the model's D, G and
+    O: its class, its builds' suffix and the constants their plans mirror."""
+    return widths.class_of(max(cfm.local_dim, cfm.global_dim, cfm.dense_out))
+
+
+def width_class(cfm: ModelConfig) -> int:
+    """The width class of the model (``width_constants``): 128
+    (``NARROW_WIDTH``), whose launches take the builds that always were;
+    256, the builds of ``csrc/*_d256.cu`` (8 values of a row a lane in the
+    warp LayerNorms); 512, those of ``csrc/*_d512.cu`` (16 values a lane).
+    Every choice of a build of the forwards #1, #3 and #5 and of the loop
+    backward #4 reads it."""
+    return width_constants(cfm).width
 
 
 def library(cfm: ModelConfig) -> str:
     """The build of #1 that launches the config's batches, the name of its
-    library and its entry points' prefix: ``scann_forward_d256`` where
-    ``is_d256``, else ``scann_forward``."""
-    return "scann_forward_d256" if is_d256(cfm) else "scann_forward"
+    library and its entry points' prefix: ``scann_forward`` with the width
+    class's suffix (``scann_forward_d256``, ``scann_forward_d512``)."""
+    return "scann_forward" + width_constants(cfm).suffix
+
+
+def l2_rows_shape(cfm: ModelConfig, B: int, M: int) -> Optional[Tuple[int, int, int, int]]:
+    """The query and scratch rows of each molecule that #1's build past 256
+    columns keeps in global memory (launch pointer 51), [B, 2, M, max(D, G)
+    + 4]; None for the other builds, which keep them in shared memory."""
+    if width_class(cfm) <= 256:
+        return None
+    return (B, 2, M, max(cfm.local_dim, cfm.global_dim) + 4)
 
 
 def segment_count(inputs: Dict[str, torch.Tensor]) -> int:
@@ -635,7 +660,7 @@ def layer_tf32_planes(wfg: torch.Tensor, wk: torch.Tensor, wq: torch.Tensor,
 def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, torch.Tensor]:
     """Everything the kernel reads besides the batch: stacked layer params,
     the other weights, the RBF centers; contiguous f32 on the params' device.
-    Past 128 columns (``is_d256``) also each layer's ``layer_tf32_planes``
+    Past 128 columns (``width_class``) also each layer's ``layer_tf32_planes``
     followed by the ``tf32_planes`` of its ResidualNorm's W1 and W2, [L, n]
     ("tf32_planes"), which #1 (launch pointer 50) and the tall and wide #3
     (pointer 52) read there."""
@@ -662,7 +687,7 @@ def pack_params(params: Dict[str, torch.Tensor], cfm: ModelConfig) -> Dict[str, 
             p[f"b{short}"] = f32(params[f"{name}/bias"])
         p["angle_centers"] = f32(torch.from_numpy(make_centers(2 * np.pi, cfm.num_gaussian)))
     p["dist_centers"] = f32(torch.from_numpy(make_centers(cfm.gaussian_d, cfm.num_gaussian)))
-    if is_d256(cfm):
+    if width_class(cfm) > NARROW_WIDTH:
         p["tf32_planes"] = torch.cat([layer_tf32_planes(p["wfg"], p["wk"], p["wq"], cfm.g_update),
                                       tf32_planes(p["wr1"]), tf32_planes(p["wr2"])], dim=-1)
     return p
@@ -860,18 +885,17 @@ def max_active_clusters(cfm: ModelConfig, B: int, M: int, N: int, cluster: int,
     """How many clusters of ``cluster`` blocks of #1's build past 128
     columns at this shape the card runs at once, in the launch's operand
     mode (``cluster_answer``)."""
-    return cluster_answer("scann_forward_d256", "scann_forward_d256",
-                          launch_dims(cfm, B, M, N, S), cluster)
+    return cluster_answer(library(cfm), library(cfm), launch_dims(cfm, B, M, N, S), cluster)
 
 
 def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> int:
-    """Thread blocks a molecule of a launch: past 128 columns (``is_d256``)
+    """Thread blocks a molecule of a launch: past 128 columns (``width_class``)
     the largest of ``FORWARD_CLUSTER_SIZES`` with at least a chunk of atoms
     a block (``chunk_count``) whose B clusters the card runs at once
     (``max_active_clusters``: 16 for a lone QM9 molecule, 6 at B = 16 on a
     card that runs 17 clusters of 6, 1 at the batch of 128); the build up to
     128 columns launches one."""
-    if not is_d256(cfm):
+    if width_class(cfm) == NARROW_WIDTH:
         return 1
     most = chunk_count(cfm, M, N, S)
     for C in FORWARD_CLUSTER_SIZES:
@@ -882,10 +906,12 @@ def forward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> int
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
             cfm: ModelConfig, mrelu_head: bool, dropout_rate: float = 0.0,
-            seed: int = 0, mol_base: int = 0, cluster: Optional[int] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            seed: int = 0, mol_base: int = 0, cluster: Optional[int] = None,
+            l2_rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch itself, on inputs ``_check_shapes`` accepted; past 128
-    columns at ``cluster`` blocks a molecule (None: ``forward_cluster``)."""
+    columns at ``cluster`` blocks a molecule (None: ``forward_cluster``);
+    past 256 on the rows ``l2_rows`` of ``l2_rows_shape`` (allocated here
+    when None; their contents mean nothing between launches)."""
     B, M = inputs["atomic"].shape[:2]
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
@@ -896,23 +922,34 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
         packed, inputs, cfm, mrelu_head, dropout_rate, seed, mol_base, chunk_atoms, work)
     lib = library(cfm)
     # past 128 columns, pointer 50: the packed TF32 planes of the layers'
-    # products, and size 22: the blocks a molecule
+    # products, and size 22: the blocks a molecule; past 256, pointer 51: the
+    # query and scratch rows
     planes, blocks = [], []
-    if is_d256(cfm):
+    rows_shape = l2_rows_shape(cfm, B, M)
+    if rows_shape is not None:
+        if l2_rows is None:
+            l2_rows = torch.empty(rows_shape, device=packed["wde"].device, dtype=torch.float32)
+        elif tuple(l2_rows.shape) != rows_shape or not l2_rows.is_contiguous():
+            raise ValueError(f"l2_rows of shape {tuple(l2_rows.shape)} handed to a launch "
+                             f"that takes {rows_shape}")
+    elif l2_rows is not None:
+        raise ValueError("l2_rows: only #1 past 256 columns keeps rows in global memory")
+    if width_class(cfm) > NARROW_WIDTH:
         if cluster is None:
             cluster = forward_cluster(cfm, B, M, N, S)
         if cluster not in FORWARD_CLUSTER_SIZES or cluster > chunk_count(cfm, M, N, S):
             raise ValueError(f"cluster={cluster}: #1 past 128 columns launches with one of "
                              f"{FORWARD_CLUSTER_SIZES} blocks a molecule, at most one a chunk "
                              f"of atoms ({chunk_count(cfm, M, N, S)} here)")
-        planes, blocks = [packed["tf32_planes"]], [cluster]
+        planes, blocks = [packed["tf32_planes"]] + ([l2_rows] if rows_shape else []), [cluster]
     elif cluster not in (None, 1):
         raise ValueError(f"cluster={cluster}: #1 up to 128 columns launches one block a molecule")
     call_kernel(lib, lib, packed["wde"].device, tensors + [seg] + planes,
                 dims + [S, bf16] + blocks, scalars, rng)
     fused_scann_forward.launches += 1
     fused_scann_forward.bf16_launches += bf16
-    fused_scann_forward.d256_launches += is_d256(cfm)
+    fused_scann_forward.d256_launches += width_class(cfm) == 256
+    fused_scann_forward.d512_launches += width_class(cfm) == 512
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -948,6 +985,7 @@ def fused_scann_forward(params: Dict[str, torch.Tensor], inputs: Dict[str, torch
 fused_scann_forward.launches = 0
 fused_scann_forward.bf16_launches = 0
 fused_scann_forward.d256_launches = 0
+fused_scann_forward.d512_launches = 0
 
 
 def attention_scale(cfm: ModelConfig) -> float:

@@ -31,21 +31,30 @@ Forward:
   other per-atom tensor for one block of 32, 16 or 8 atoms at a time, so it
   needs M * 512 bytes + 108 to 133 KB at D = G = 128: M <= 237 (at N = 32)
   fits a block's 227 KB. It shares the molecule kernel's tiles: chunks
-  of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 256
+  of at most 64 (atom, neighbour) rows, D, G, O multiples of 4 up to 512
   (``kfwd.MAX_WIDTH``). ``use_attn_norm=False`` is refused.
-- Widths past 128 (``kfwd.is_d256``): the tall and wide builds of widths up
+- Widths past 128 (``kfwd.width_class``): the tall and wide builds of widths up
   to 256 (``csrc/scann_loop_tall_d256.cu``, ``scann_loop_wide_d256.cu``: 8
   values of a row a lane in the warp LayerNorms; ``forward_library``
   names them, ``.d256_launches`` counts them). The narrow build is not
   launched there (``is_tall`` holds at every narrow N); the tall build's
   chunks fall to 32 rows where 64 do not fit (``l2_memory_plan``), and it
-  takes N <= ``D256_TALL_MAX_N`` = 32, the wide build the rest
+  takes N <= 32 (``tall_max_n``), the wide build the rest
   (``is_wide_forward``). Both run their products 32 output columns a warp
   on the packed TF32 planes of ``pack_params`` (``"tf32_planes"``, launch
-  pointer 52), and the wide one walks each atom in sub-chunks of
-  ``D256_WIDE_FORWARD_ROWS`` = 32 rows in two operand buffers, the next
+  pointer 52), and the wide one walks each atom in sub-chunks of 32 rows
+  (``kfwd.width_constants(cfm).wide_forward_rows``) in two operand buffers, the next
   staged while one runs. The loop backward trains such a model too, in its
   tall and wide builds of widths up to 256 (below).
+- Widths past 256: the tall and wide builds of widths up to 512
+  (``csrc/scann_loop_tall_d512.cu``, ``scann_loop_wide_d512.cu``: 16 values
+  a lane; ``.d512_launches``), the same design with chunks and sub-chunks
+  of 16 rows (``kernels.widths``: two operand buffers of 32 rows take
+  263,168 bytes at D = 512), so the tall build
+  takes N <= 16 and the wide one the rest, each with atom blocks of 8 at
+  D = 512 and M into the thousands. The loop backward does not take them
+  (``BACKWARD_MAX_WIDTH``): such a model trains through the per-layer
+  model.
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
   modes) keeps the centers in global memory, which L2 holds: a ping-pong [2,
@@ -151,8 +160,8 @@ Backward (crystal training):
   sub-chunk holds an atom's list (N <= 64) it keeps the first pass's rows,
   past it the recompute schedule's second pass stages them back from
   ``wide_rows``, so the reverse walk forms each row once.
-- Widths past 128 (``kfwd.is_d256``): the tall and wide builds of widths up
-  to 256 (``csrc/scann_loop_backward_tall_d256.cu``,
+- Widths past 128 (``kfwd.width_class``) up to ``BACKWARD_MAX_WIDTH`` = 256: the
+  tall and wide builds of widths up to 256 (``csrc/scann_loop_backward_tall_d256.cu``,
   ``scann_loop_backward_wide_d256.cu`` and their ``_bf16`` twins: 8 values
   of a row a lane in the warp LayerNorms; ``backward_library`` names them,
   ``.d256_launches`` counts them), in all three schedules. The narrow build
@@ -221,7 +230,6 @@ from scann_tpu_torch.config import ModelConfig
 from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
-from scann_tpu_torch.kernels.local_attention import is_wide
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_CHUNK_ROWS,
     MAX_NEIGHBORS,
@@ -278,16 +286,9 @@ FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
 # at once, so that a small batch fills it (6 at B = 16 on a card that runs 15
 # clusters of 8 or 7, 2 at the MP2018 recipe batch of 64, 1 at 128).
 D256_CLUSTER_SIZES = tuple(range(8, 0, -1))
-# The largest N of the loop forward's narrow and tall builds past 128 columns
-# (``kfwd.is_d256``; kTallMaxN of csrc/scann_loop.cu): two tall chunk
-# buffers of more rows do not fit a block's shared memory at D = 256, so the
-# wide build takes N > 32 there (N > 64 up to 128 columns).
-D256_TALL_MAX_N = 32
-# The wide loop forward's sub-chunk past 128 columns (kFwdWideW32Rows of
-# csrc/scann_forward_common.cuh, kWideRows of scann_loop.cu): two operand
-# buffers of 32 rows, the next staged while one runs, in what one buffer of
-# 64 rows took at D = 256
-D256_WIDE_FORWARD_ROWS = 32
+# The widest model the loop backward #4 trains (its *_d256 builds); the
+# forwards take ``kfwd.MAX_WIDTH``
+BACKWARD_MAX_WIDTH = 256
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -297,12 +298,21 @@ def supports_loop(cfm: ModelConfig) -> bool:
     return cfm.use_attn_norm
 
 
+def tall_max_n(cfm: ModelConfig) -> int:
+    """The largest N of the loop forward's narrow and tall builds at the
+    model's width class (kTallMaxN of ``csrc/scann_loop.cu``, the class's
+    ``tall_max_n`` of ``kernels.widths``): 64, past 128 columns 32, past 256
+    16."""
+    return kfwd.width_constants(cfm).tall_max_n
+
+
 def is_wide_forward(cfm: ModelConfig, N: int) -> bool:
     """Whether the loop forward takes N neighbours in its wide build
-    (``csrc/scann_loop_wide.cu``, or ``scann_loop_wide_d256.cu`` past 128
-    columns): N > 64 (``is_wide``, #5's rule too), and past 128 columns N >
-    ``D256_TALL_MAX_N``."""
-    return is_wide(N) or (kfwd.is_d256(cfm) and N > D256_TALL_MAX_N)
+    (``csrc/scann_loop_wide.cu``, or its ``_d256`` / ``_d512`` build past 128
+    or 256 columns): N > ``tall_max_n`` (up to 128 columns
+    ``kernels.local_attention.is_wide``, #5's
+    rule too)."""
+    return N > tall_max_n(cfm)
 
 
 def loop_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -347,8 +357,10 @@ def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     energies [N, H] in place of the attention; the ResidualNorm's h2), the
     chunk operand buffers [rows, 2D + 4] (two in the tall build, which
     stages the next chunk while one runs; in the wide build one sub-chunk of
-    64 rows, or past 128 columns two of ``D256_WIDE_FORWARD_ROWS`` = 32, the
-    next staged while one runs), the index ring (two slots of a chunk's or
+    64 rows, or past 128 columns two of the width class's
+    ``wide_forward_rows``, 32 (past 256 columns 16), the next staged while
+    one runs),
+    the index ring (two slots of a chunk's or
     a wide atom's neighbour indices, 2 x rows or 2 N rounded up to 4 floats,
     so that the keys after it stay 16-byte aligned at an odd N), the buffers' two
     mbarriers (4 floats) and, in the wide build where they fit, the atom's
@@ -358,21 +370,23 @@ def l2_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0
     fits them, else leaves them in global memory (``loop_forward_scratch``'s
     ``wide_keys``). The tall build's chunk is the first of
     ``kfwd.CHUNK_ROWS`` rows (whole atoms) whose plan fits (64 up to 128
-    columns, 32 at D = 256). None of it grows with M but the readout's [M]
+    columns, 32 at D = 256, 16 at D = 512). None of it grows with M but the readout's [M]
     vectors, so the plan takes M into the thousands; where nothing fits, the
     plan of the first chunk size at the smallest block."""
     r4 = lambda x: -(-x // 4) * 4
     D, G, O, H = cfm.local_dim, cfm.global_dim, cfm.dense_out, cfm.num_head
     wd = max(D, G)
     wide = is_wide_forward(cfm, N)
-    sub = D256_WIDE_FORWARD_ROWS if kfwd.is_d256(cfm) else MAX_CHUNK_ROWS
-    buffers = 2 if not wide or kfwd.is_d256(cfm) else 1
+    row = kfwd.width_constants(cfm)
+    sub = row.wide_forward_rows
+    buffers = 2 if not wide or row.width > kfwd.NARROW_WIDTH else 1
     first = None
     for most_rows in ((MAX_CHUNK_ROWS,) if wide else kfwd.CHUNK_ROWS):
         for smem_keys in ((True, False) if wide else (False,)):
             for block in ATOM_BLOCKS:
                 block = min(block, M)
-                chunk_atoms = max(1, min(block, most_rows // max(N, 1)))
+                # the wide build walks one atom at a time (its launcher takes 1)
+                chunk_atoms = 1 if wide else max(1, min(block, most_rows // max(N, 1)))
                 rows = sub if wide else chunk_atoms * N
                 front = max(rows * (D + 4) + r4(N * H if wide else rows * H), block * (wd + 4))
                 chunk = (front + buffers * rows * (2 * D + 4)
@@ -395,7 +409,8 @@ def is_tall(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     live in global memory; past 128 columns every narrow N (the narrow build
     has no such build: ``scann_loop_tall_d256.cu`` takes them)."""
     return not is_wide_forward(cfm, N) and (
-        kfwd.is_d256(cfm) or loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES)
+        kfwd.width_class(cfm) > kfwd.NARROW_WIDTH
+        or loop_memory_plan(cfm, M, N, S)[3] > MAX_SHARED_BYTES)
 
 
 def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -419,15 +434,15 @@ def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = F
     (config, M, N, S): the wide one (``csrc/scann_loop_wide.cu``) where
     ``is_wide_forward``, the tall one (``csrc/scann_loop_tall.cu``) where
     ``is_tall`` or ``tall`` forces it, else the narrow one; past 128
-    columns (``kfwd.is_d256``) the wide or tall one of widths up to 256
-    (``*_d256``). Each build holds both operand modes
+    columns (``kfwd.width_class``) the wide or tall one of widths up to 256
+    (``*_d256``) or 512 (``*_d512``). Each build holds both operand modes
     (``kfwd.operand_mode(cfm)`` is a launch argument), so the library is the
     same for f32 and bf16. The one place that chooses."""
-    d256 = "_d256" if kfwd.is_d256(cfm) else ""
+    width = kfwd.width_constants(cfm).suffix
     if is_wide_forward(cfm, N):
-        return "scann_loop_wide" + d256, "scann_loop_forward_wide" + d256
+        return "scann_loop_wide" + width, "scann_loop_forward_wide" + width
     if tall or is_tall(cfm, M, N, S):
-        return "scann_loop_tall" + d256, "scann_loop_forward_tall" + d256
+        return "scann_loop_tall" + width, "scann_loop_forward_tall" + width
     return "scann_loop", "scann_loop_forward"
 
 
@@ -436,11 +451,11 @@ def backward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = 
     its library and its entry points: the wide one where
     ``is_wide_backward``, the tall one where ``is_tall_backward`` or
     ``tall`` forces it, else the narrow one; past 128 columns
-    (``kfwd.is_d256``) the wide or tall one of widths up to 256
+    (``kfwd.width_class``) the wide or tall one of widths up to 256
     (``*_d256``); each in the config's operand mode (``kbwd.kernel_name``:
     ``<build>_bf16`` in bf16, a source of its own). The one place that
     chooses."""
-    d256 = "_d256" if kfwd.is_d256(cfm) else ""
+    d256 = kfwd.width_constants(cfm).suffix
     if is_wide_backward(N):
         return kbwd.kernel_name("scann_loop_backward_wide" + d256, cfm)
     if tall or is_tall_backward(cfm, M, N, S):
@@ -605,6 +620,7 @@ launch_loop_forward.bf16_launches = 0
 launch_loop_forward.wide_launches = 0
 launch_loop_forward.tall_launches = 0
 launch_loop_forward.d256_launches = 0
+launch_loop_forward.d512_launches = 0
 
 
 def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
@@ -653,14 +669,16 @@ def _launch(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor],
         scratch["geo"])
     # the tall and wide builds past 128 columns take the packed TF32 planes as
     # pointer 52
-    planes = [packed["tf32_planes"]] if kfwd.is_d256(cfm) else []
+    width = kfwd.width_class(cfm)
+    planes = [packed["tf32_planes"]] if width > kfwd.NARROW_WIDTH else []
     kfwd.call_kernel(library, symbol, dev, tensors + [scratch["next_centers"], seg, rows] + planes,
                      dims + [atom_block, S, bf16, cluster], scalars, rng)
     launch_loop_forward.launches += 1
     launch_loop_forward.bf16_launches += bf16
     launch_loop_forward.wide_launches += wide
     launch_loop_forward.tall_launches += tall
-    launch_loop_forward.d256_launches += kfwd.is_d256(cfm)
+    launch_loop_forward.d256_launches += width == 256
+    launch_loop_forward.d512_launches += width == 512
     return pred.view(B, max(S, 1)), ga.view(B, M, 1)
 
 
@@ -752,7 +770,7 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     one's plan if none does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``)
     walks one atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows,
     beside the atom's attention and d attention [N, H], without the
-    resident buffer. Past 128 columns (``kfwd.is_d256``) the tall chunk is
+    resident buffer. Past 128 columns (``kfwd.width_class``) the tall chunk is
     the first of ``kfwd.CHUNK_ROWS`` rows whose plan fits at some block,
     and the wide sub-chunk the first of ``D256_WIDE_CHUNK_ROWS`` (64 rows
     with blocks of 8 atoms or more, else 32; where none does, the first's
@@ -771,7 +789,7 @@ def _backward_plan(cfm: ModelConfig, M: int, N: int, S: int, tall: bool
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
     wide = is_wide_backward(N)
-    d256 = kfwd.is_d256(cfm)
+    d256 = kfwd.width_class(cfm) > kfwd.NARROW_WIDTH
     if wide:
         caps = D256_WIDE_CHUNK_ROWS if d256 else (WIDE_CHUNK_ROWS,)
     elif tall:
@@ -822,7 +840,8 @@ def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     memory; past 128 columns every narrow N (the narrow build has no build
     of widths past 128: ``scann_loop_backward_tall_d256.cu`` takes them)."""
     return not is_wide_backward(N) and (
-        kfwd.is_d256(cfm) or loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
+        kfwd.width_class(cfm) > kfwd.NARROW_WIDTH
+        or loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
 
 
 def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -854,7 +873,7 @@ def backward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> in
     ``max_active_clusters`` (8 for up to 15 structures, 6 at B = 16, 2 at
     64), so a small batch fills the card; up to 128 columns
     ``cluster_size(B)``, as before."""
-    if not kfwd.is_d256(cfm):
+    if kfwd.width_class(cfm) == kfwd.NARROW_WIDTH:
         return cluster_size(B)
     for C in D256_CLUSTER_SIZES:
         if B <= max_active_clusters(cfm, B, M, N, C, S):
@@ -880,7 +899,7 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
     if M < 1:
         return f"M={M}: no atoms"
     reason = (kbwd.dtype_refusal(cfm)
-              or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS)
+              or kfwd.common_refusal(cfm, N, MAX_NEIGHBORS, BACKWARD_MAX_WIDTH)
               or segment_refusal(S))
     if reason:
         return reason
@@ -1133,7 +1152,8 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     N = inputs["neighbors"].shape[2]
     seg, S = segment_arguments(inputs)
     mode = kbwd.resolve_stash(stash, loop_stash_mode, cfm, B, M, N)
-    sizes = D256_CLUSTER_SIZES if kfwd.is_d256(cfm) else CLUSTER_SIZES
+    width = kfwd.width_class(cfm)
+    sizes = D256_CLUSTER_SIZES if width > kfwd.NARROW_WIDTH else CLUSTER_SIZES
     cluster = backward_cluster(cfm, B, M, N, S) if cluster is None else cluster
     if cluster not in sizes:
         raise ValueError(f"cluster={cluster}: the loop backward launches with {sizes}")
@@ -1167,7 +1187,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     kbwd.count_launch(launch_loop_backward, cfm, mode)
     launch_loop_backward.wide_launches += wide
     launch_loop_backward.tall_launches += tall
-    launch_loop_backward.d256_launches += kfwd.is_d256(cfm)
+    launch_loop_backward.d256_launches += width == 256
     return flat, pred
 
 

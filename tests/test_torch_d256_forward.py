@@ -41,6 +41,7 @@ from scann_tpu_torch.kernels import _build
 from scann_tpu_torch.kernels import local_attention as kla
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.kernels import widths
 from scann_tpu_torch.models import init_params
 from test_torch_packing import _models, _packed_batch
 from test_torch_widths import MP2018, SMALL, WIDTHS, _flat_params, _layer_inputs, _setup, _torch
@@ -168,13 +169,14 @@ def _d256_terms(AB, N, D, H, g_update, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("g_update", [True, False])
 def test_torch_d256_layer_plan_fits_and_matches_its_terms(N, bf16, g_update):
-    for AB in kla.D256_ATOM_BLOCKS:
+    d256 = widths.class_of(256)
+    for AB in d256.atom_blocks:
         plan = kla.d256_block_plan(AB, N, 256, 8, g_update, bf16)
         assert plan == _d256_terms(AB, N, 256, 8, g_update, bf16)
-        assert plan[0] * N <= max(kla.D256_CHUNK_ROWS, N)
+        assert plan[0] * N <= max(d256.chunk_rows, N)
     for B, M in ((1, 48), (8, 96), (8, 256), (64, 96)):
         ab, ca, nbytes = kla.make_plan(B, M, N, 256, 8, g_update, 132, bf16)
-        assert ab in kla.D256_ATOM_BLOCKS and nbytes <= kla.MAX_SHARED_BYTES
+        assert ab in d256.atom_blocks and nbytes <= kla.MAX_SHARED_BYTES
         assert (ca, nbytes) == kla.d256_block_plan(ab, N, 256, 8, g_update, bf16)[::2]
 
 
@@ -194,7 +196,7 @@ def test_torch_d256_layer_plan_at_mp2018():
 def test_torch_d256_plans_match_cuda_sources():
     with open(f"{_build.SRC_DIR}/local_attention.cu") as f:
         la = f.read()
-    assert "constexpr int kD256ChunkRows = 32;" in la and kla.D256_CHUNK_ROWS == 32
+    assert "constexpr int kD256ChunkRows = 32;" in la and widths.class_of(256).chunk_rows == 32
     assert "const int fit = kD256ChunkRows / N;" in la
     assert "p.work = p.offR + (bf16 ? rows * D : 0);" in la
     assert "(cost == best_cost && p.buffers > best.buffers)" in la

@@ -32,6 +32,7 @@ from scann_tpu_torch.kernels import _build
 from scann_tpu_torch.kernels import local_attention as kla
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.kernels import widths
 from test_torch_widths import MP2018, _flat_params, _layer_inputs, _setup, _torch
 
 torch.set_num_threads(1)
@@ -173,7 +174,8 @@ def test_torch_d256_wide_plans_match_cuda_sources():
     with open(f"{_build.SRC_DIR}/scann_forward_common.cuh") as f:
         common = f.read()
     assert "constexpr int kFwdWideW32Rows = 32;" in common
-    assert kloop.D256_WIDE_FORWARD_ROWS == 32 == kla.D256_CHUNK_ROWS
+    d256 = widths.class_of(256)
+    assert d256.wide_forward_rows == 32 == d256.chunk_rows
     assert "constexpr int kSub = kW32 ? kFwdWideW32Rows : kFwdMaxChunkRows;" in common
     with open(f"{_build.SRC_DIR}/scann_loop.cu") as f:
         loop = f.read()

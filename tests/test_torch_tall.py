@@ -186,7 +186,7 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
     runs its tall plan (``backward_plan(..., tall=True)``)."""
     cfm = CONFIGS[name]
     edge3 = _narrow_edge(lambda M: kloop.loop_memory_plan(cfm, M, N)[3])
-    if kloop.is_wide(N):
+    if kloop.is_wide_forward(cfm, N):
         assert kloop.forward_library(cfm, edge3 + 1, N, tall=True)[0] == "scann_loop_wide"
     else:
         assert kloop.forward_library(cfm, edge3, N) == ("scann_loop", "scann_loop_forward")
@@ -223,7 +223,7 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
         assert kloop.backward_plan(b16, edge4 + 1, N) == kloop.backward_plan(cfm, edge4 + 1, N)
     else:
         assert kloop.backward_library(b16, edge4 + 1, N) == "scann_loop_backward_wide_bf16"
-    if not kloop.is_wide(N):
+    if not kloop.is_wide_forward(cfm, N):
         assert kloop.refusal(b16, edge3, N) is None
         assert kloop.refusal(b16, edge3 + 1, N) is None
         assert kloop.forward_library(b16, edge3 + 1, N) == kloop.forward_library(cfm, edge3 + 1, N)
@@ -296,7 +296,7 @@ def test_torch_forward_cluster_fills_the_card(B, want, M, N, monkeypatch):
 
     monkeypatch.setattr(kloop, "max_active_forward_clusters", at_once)
     cfm = MP2018
-    assert kloop.is_tall(cfm, M, N) or kloop.is_wide(N)
+    assert kloop.is_tall(cfm, M, N) or kloop.is_wide_forward(cfm, N)
     assert kloop.forward_cluster(cfm, B, M, N) == want
     assert {lib for lib, _ in asked} == {kloop.forward_library(cfm, M, N)[0]}
     assert asked[0][1] == 16 and asked[-1][1] == want
@@ -332,7 +332,7 @@ def test_torch_scann_rbf_table_scratch(M, N, tall):
     cfm = dataclasses.replace(CONFIGS["ptgp"], n_attention=1)
     B = 2
     f = kloop.loop_forward_scratch(cfm, B, M, N, "cpu", 2)
-    l2 = kloop.is_tall(cfm, M, N) or kloop.is_wide(N)
+    l2 = kloop.is_tall(cfm, M, N) or kloop.is_wide_forward(cfm, N)
     assert l2 == tall
     assert (f["geo"] is None) != tall
     if tall:

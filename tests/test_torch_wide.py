@@ -156,7 +156,7 @@ def test_torch_wide_loop_forward_matches_jax_kernel(case, N):
     JAX loop forward in interpret mode at N = 40 and 72 (the port's #3 takes
     72 in its wide build)."""
     jcfg, tcfg, jp, tp, x, tx = _setup(3, N, **CASES[case])
-    assert kloop.refusal(tcfg, 12, N) is None and kloop.is_wide(N) == (N > 64)
+    assert kloop.refusal(tcfg, 12, N) is None and kloop.is_wide_forward(tcfg, N) == (N > 64)
     want_pred, want_ga = jax_loop.loop_scann_forward(jp, x, jcfg, interpret=True)
     with torch.no_grad():
         pred, ga = kloop.loop_scann_forward(tp, tx, tcfg)

@@ -54,6 +54,7 @@ from scann_tpu_torch.kernels import local_attention as kla
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
 from scann_tpu_torch.kernels import scann_loop as kloop
+from scann_tpu_torch.kernels import widths
 from scann_tpu_torch.models import init_params
 from scann_tpu_torch.train import loop as train_loop
 from test_kernels import make_layer_inputs
@@ -118,7 +119,7 @@ def test_torch_widths_loop_plain_at_wide_n_matches_jax_kernel(width):
     128 columns the wide build takes (two tall chunk buffers of 40 rows do
     not fit at D = 256)."""
     jcfg, tcfg, jp, tp, x = _setup(width, 32, M=10, N=40)
-    assert kloop.is_wide_forward(tcfg, 40) and not kloop.is_wide(40)
+    assert kloop.is_wide_forward(tcfg, 40) and not kla.is_wide(40, kfwd.NARROW_WIDTH)
     assert kloop.forward_library(tcfg, 10, 40) == ("scann_loop_wide_d256",
                                                    "scann_loop_forward_wide_d256")
     want = jax_loop_forward(jp, x, jcfg, interpret=True)
@@ -331,7 +332,8 @@ def test_torch_widths_per_layer_route_has_a_plan(N, bf16):
     for B, M in ((1, 48), (8, 96), (64, 96)):
         for g_update in (True, False):
             ab, ca, nbytes = kla.make_plan(B, M, N, 256, 8, g_update, 132, bf16)
-            assert ab in (kla.WIDE_ATOM_BLOCKS if kla.is_wide(N) else kla.D256_ATOM_BLOCKS)
+            assert ab in (kla.WIDE_ATOM_BLOCKS if kla.is_wide(N, 256)
+                          else widths.class_of(256).atom_blocks)
             assert nbytes <= kla.MAX_SHARED_BYTES and ca >= 1
 
 
@@ -339,9 +341,12 @@ def test_torch_widths_backward_gates_keep_128():
     """The molecule backward #2 keeps its limit of 128 columns (4 values of
     a row a lane and seven resident [M, max(D, G)] buffers): its gate names
     the width and the loop backward; the loop backward #4 takes widths up to
-    256 in its d256 builds, so a D = 256 QM9 model trains its recipe bucket
-    (32, 16) on "loop", and D = 260 is refused by both."""
-    assert kbwd.MAX_WIDTH == 128 and kfwd.MAX_WIDTH == 256
+    256 in its d256 builds (``kloop.BACKWARD_MAX_WIDTH``), so a D = 256 QM9
+    model trains its recipe bucket (32, 16) on "loop", and D = 260 is
+    refused by both and trains on "per_layer", while the forwards, which
+    take widths up to 512 (``kfwd.MAX_WIDTH``), evaluate it on #3."""
+    assert kbwd.MAX_WIDTH == 128 and kloop.BACKWARD_MAX_WIDTH == 256
+    assert kfwd.MAX_WIDTH == 512
     reason = kbwd.refusal(QM9, 32, 16)
     assert reason is not None and "<= 128" in reason and "D=256" in reason
     assert "loop_scann_train_grads" in reason
@@ -350,19 +355,28 @@ def test_torch_widths_backward_gates_keep_128():
     assert _trainer(QM9).train_route(32, 16) == "loop"
     narrow = dataclasses.replace(QM9, local_dim=128, global_dim=128, dense_out=128)
     assert _trainer(narrow).train_route(32, 16) == "fused"
-    wide = dataclasses.replace(MP2018, local_dim=260)
+    wide = dataclasses.replace(MP2018, local_dim=260, num_head=4)
     reason = kloop.backward_refusal(wide, 96, 32)
     assert reason is not None and "<= 256" in reason and "D=260" in reason
+    assert kbwd.refusal(wide, 32, 16) is not None
+    assert _trainer(wide).train_route(96, 32) == "per_layer"
+    assert _trainer(wide).eval_route(96, 32) == "loop"
 
 
 def test_torch_widths_past_256_are_refused():
-    """D = 260 is past every forward's gate, with the gate's message."""
-    wide = dataclasses.replace(MP2018, local_dim=260)
+    """Past 512 columns every forward's gate refuses, with the gate's message
+    (D = 516, 4 heads: the width is the only reason), and the per-layer
+    route's #5 raises the same; D = 260 is taken by the forwards' builds
+    past 256 (``tests/test_torch_d512.py``)."""
+    wide = dataclasses.replace(MP2018, local_dim=516, num_head=4)
     for reason in (kfwd.refusal(wide, 32, 16), kloop.refusal(wide, 96, 32)):
-        assert reason is not None and "<= 256" in reason and "D=260" in reason
-    with pytest.raises(NotImplementedError, match="<= 256"):
-        kla.check_supported(260, 32, 20, 4, torch.float32)
+        assert reason is not None and "<= 512" in reason and "D=516" in reason
+    with pytest.raises(NotImplementedError, match="<= 512"):
+        kla.check_supported(516, 32, 20, 4, torch.float32)
     assert _trainer(wide).eval_route(96, 32) == "per_layer"
+    taken = dataclasses.replace(MP2018, local_dim=260, num_head=4)
+    assert kloop.refusal(taken, 96, 32) is None and kfwd.refusal(taken, 32, 16) is None
+    kla.check_supported(260, 32, 20, 4, torch.float32)
 
 
 @pytest.mark.parametrize("route", ["fused", "tall", "wide", "layer", "layer wide"])
@@ -419,42 +433,57 @@ def test_torch_widths_plans_match_cuda_sources():
     #5's atom blocks, the loop forward's tall limit, and each launcher's
     width check."""
     common = _source("scann_common.cuh")
-    assert re.search(r"#ifdef SCANN_WIDTH_256\nconstexpr int kLaneValues = 8;\n#else\n"
+    assert re.search(r"#if defined\(SCANN_WIDTH_512\)\nconstexpr int kLaneValues = 16;\n"
+                     r"#elif defined\(SCANN_WIDTH_256\)\nconstexpr int kLaneValues = 8;\n#else\n"
                      r"constexpr int kLaneValues = 4;\n#endif\nconstexpr int kMaxWidth = "
                      r"32 \* kLaneValues;", common)
-    assert 32 * 8 == kfwd.MAX_WIDTH == kla.MAX_WIDTH and 32 * 4 == kfwd.NARROW_WIDTH
-    for name, base, defines in (
-            ("scann_forward_d256", "scann_forward.cu", ()),
-            ("scann_loop_tall_d256", "scann_loop.cu", ("SCANN_LOOP_TALL",)),
-            ("scann_loop_wide_d256", "scann_loop.cu", ("SCANN_LOOP_WIDE",)),
-            ("local_attention_d256", "local_attention.cu", ()),
-            ("local_attention_wide_d256", "local_attention.cu", ("SCANN_LOCAL_ATTENTION_WIDE",))):
-        src = _source(f"{name}.cu")
-        assert "#define SCANN_WIDTH_256\n" in src and f'#include "{base}"' in src
-        assert all(f"#define {d}\n" in src for d in defines)
-        assert _build.source_files(name)[1].endswith(base)
+    assert 32 * 16 == kfwd.MAX_WIDTH == kla.MAX_WIDTH and 32 * 4 == kfwd.NARROW_WIDTH
+    assert tuple(c.width for c in widths.CLASSES) == (32 * 4, 32 * 8, 32 * 16)
+    for width in ("256", "512"):
+        for name, base, defines in (
+                (f"scann_forward_d{width}", "scann_forward.cu", ()),
+                (f"scann_loop_tall_d{width}", "scann_loop.cu", ("SCANN_LOOP_TALL",)),
+                (f"scann_loop_wide_d{width}", "scann_loop.cu", ("SCANN_LOOP_WIDE",)),
+                (f"local_attention_d{width}", "local_attention.cu", ()),
+                (f"local_attention_wide_d{width}", "local_attention.cu",
+                 ("SCANN_LOCAL_ATTENTION_WIDE",))):
+            src = _source(f"{name}.cu")
+            assert "#define SCANN_WIDTH_256\n" in src and f'#include "{base}"' in src
+            assert ("#define SCANN_WIDTH_512\n" in src) == (width == "512")
+            assert all(f"#define {d}\n" in src for d in defines)
+            assert _build.source_files(name)[1].endswith(base)
     assert set(_build.WIDTH_SOURCES) == {"scann_forward_d256", "scann_loop_tall_d256",
                                          "scann_loop_wide_d256", "local_attention_d256",
                                          "local_attention_wide_d256",
                                          "scann_loop_backward_tall_d256",
                                          "scann_loop_backward_wide_d256",
                                          "scann_loop_backward_tall_d256_bf16",
-                                         "scann_loop_backward_wide_d256_bf16"}
+                                         "scann_loop_backward_wide_d256_bf16",
+                                         "scann_forward_d512", "scann_loop_tall_d512",
+                                         "scann_loop_wide_d512", "local_attention_d512",
+                                         "local_attention_wide_d512"}
     la = _source("local_attention.cu")
-    assert ("#ifdef SCANN_WIDTH_256\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};\n#else\n"
-            "constexpr int kAtomBlocks[] = {64, 48, 32, 16};\n#endif") in la
-    assert kla.D256_ATOM_BLOCKS == (64, 48, 32, 16, 8)
+    assert ("#if defined(SCANN_WIDTH_512)\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8, 4};"
+            "\n#elif defined(SCANN_WIDTH_256)\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};"
+            "\n#else\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16};\n#endif") in la
+    assert [c.atom_blocks for c in widths.CLASSES] == [
+        (64, 48, 32, 16), (64, 48, 32, 16, 8), (64, 48, 32, 16, 8, 4)]
+    assert kla.ATOM_BLOCKS == widths.class_of(128).atom_blocks
     assert "a.D < 4 || a.D > kMaxWidth ||" in la
     assert "local_attention_wide_d256_##x" in la and "local_attention_d256_##x" in la
+    assert "local_attention_wide_d512_##x" in la and "local_attention_d512_##x" in la
     loop = _source("scann_loop.cu")
-    assert "constexpr int kTallMaxN = kLaneValues > 4 ? 32 : kFwdMaxChunkRows;" in loop
-    assert kloop.D256_TALL_MAX_N == 32 and kloop.MAX_CHUNK_ROWS == 64
+    assert ("constexpr int kTallMaxN = kLaneValues > 8 ? 16 : kLaneValues > 4 ? 32 : "
+            "kFwdMaxChunkRows;") in loop
+    assert [c.tall_max_n for c in widths.CLASSES] == [kloop.MAX_CHUNK_ROWS, 32, 16]
+    assert kloop.MAX_CHUNK_ROWS == 64
     assert "if ((a.N > kTallMaxN) != kWideBuild ||" in loop
     assert "a.D > kMaxWidth || a.G > kMaxWidth || a.O > kMaxWidth ||" in loop
     assert "scann_loop_forward_tall_d256_##x" in loop and "scann_loop_forward_wide_d256_##x" in loop
+    assert "scann_loop_forward_tall_d512_##x" in loop and "scann_loop_forward_wide_d512_##x" in loop
     fwd = _source("scann_forward.cu")
     assert "a.D > kMaxWidth || a.G > kMaxWidth ||\n      a.O > kMaxWidth" in fwd
-    assert "scann_forward_d256_##x" in fwd
+    assert "scann_forward_d256_##x" in fwd and "scann_forward_d512_##x" in fwd
     # the wide atom's context past 128 columns: one thread a column over all N
     walk = _source("scann_forward_common.cuh")
     assert "if constexpr (kLaneValues > 4) {" in walk

@@ -192,7 +192,7 @@ def _trainer(cfm):
     (dataclasses.replace(MP2018, local_dim=192, global_dim=192, dense_out=192), 96, 32, "loop",
      "scann_loop_backward_tall_d256"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer", None),
-    (dataclasses.replace(MP2018, local_dim=260), 96, 32, "per_layer", None),
+    (dataclasses.replace(MP2018, local_dim=260, num_head=4), 96, 32, "per_layer", None),
     (MP2018, 20000, 256, "per_layer", None),
 ])
 def test_torch_widths_train_routes(cfm, M_, N, route, library):
