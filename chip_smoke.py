@@ -288,13 +288,15 @@ layers); random weights from seeds:
    seconds and structures/s beside the card); the launch counts, set to 0
    before each script, and the routes the Trainer takes: #1 and #2 (on
    packed slots in the packed run), never #3-#5 or the per-layer route.
-22. widths past 256 (D, G, O up to 512): the ``*_d512`` builds of #1, #3
-   and #5 held against their plain versions at (264, 260, 268), 384 and
-   512 in f32 and bf16 (relaunched on NaN-filled scratch, #1 and #3 at
-   every cluster size), timed at D = 512 in turns with their plain
-   versions, served to D = 384 and 512 models through ``Scann`` and a D =
-   384 QM9 model fitted for one epoch, every path checked by its launch
-   counts (``phase22``'s docstrings say what each holds, times and drives).
+22. widths past 256 (D, G, O up to 512): the ``*_d512`` builds of #1, #3,
+   #5 and the tall and wide #4 held against their plain versions at (264,
+   260, 268), 384 and 512 in f32 and bf16 (relaunched on NaN-filled
+   scratch, #1, #3 and #4 at every cluster size; #4 in its three
+   schedules), timed in turns with their plain versions, served to D = 384
+   and 512 models through ``Scann``, a D = 384 QM9 model and a D = 384
+   MP2018 model (f32 and bf16) fitted for one epoch on #4's d512 builds,
+   every path checked by its launch counts (``phase22``'s docstrings say
+   what each holds, times and drives).
 13. (run last) spawns two processes on the one card, each a rank of the
    Trainer's data parallelism on cuda:0 over gloo (passed explicitly: NCCL
    refuses two ranks on one device), both loading every kernel from the
@@ -4269,7 +4271,7 @@ def phase17_paths(mp2018, failures, card):
     wall = time.time() - t0
     steps = 2 * sum(-(-b.num_structures // hyper.batch_size) for b in train)
     wide_steps = 2 * sum(-(-b.num_structures // hyper.batch_size) for b in train
-                         if kloop.is_wide_backward(b.shape[1]))
+                         if kloop.is_wide_backward(cfg.model, b.shape[1]))
     c4 = kloop.launch_loop_backward
     print(f"phase 17 trained 2 epochs in buckets {[b.shape for b in train]} (routes {routes}) "
           f"in {wall:.1f} s: {steps} steps, #4 launches {c4.launches} ({c4.wide_launches} "
@@ -4884,7 +4886,7 @@ def phase19_holds(mp2018, ptgp, failures):
         t0 = time.time()
         x = batch(4 if build == "wide" else 2)
         M, N = x["atom_mask"].shape[1], x["neighbors"].shape[2]
-        shaped = (kloop.is_wide_backward(N) if build == "wide"
+        shaped = (kloop.is_wide_backward(cfm, N) if build == "wide"
                   else kloop.is_tall(cfm, M, N) and kloop.is_tall_backward(cfm, M, N))
         if not shaped:
             raise AssertionError(f"phase 19: {name} {(M, N)} is not a {build} shape")
@@ -5681,7 +5683,7 @@ def phase20_backward_holds(qm9_model, mp2018, failures):
             y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
             rule = kloop.backward_cluster(cfm, B, M, N, S)
             sub = (f" sub-chunk {kloop.wide_sub_chunk(cfm, M, N, S)}"
-                   if kloop.is_wide_backward(N) else "")
+                   if kloop.is_wide_backward(cfm, N) else "")
             err = hold_wide_backward(f"phase 20 #4 ({build}) D={D} G={G} O={O} {name}{sub}", cfm,
                                      p, x, y, 0.1, 7, failures,
                                      clusters=tuple(sorted({1, 2, 4, rule})))
@@ -6183,7 +6185,7 @@ def phase21(qm9_model, qm9_run, failures, card):
     return total
 
 
-# ---- phase 22: widths past 256 (D, G, O up to 512) in #1, #3 and #5 -----------------------
+# ---- phase 22: widths past 256 (D, G, O up to 512) in #1, #3, #4 and #5 -------------------
 
 # one triple that no width class divides, and 384 and 512, where the JAX
 # gates still take the QM9 buckets on #1; 8 heads as published
@@ -6194,6 +6196,9 @@ D512_WIDTHS = ((264, 260, 268), (384, 384, 384), (512, 512, 512))
 PAST_256_FACTOR = 4
 D512_BUILDS = ("scann_forward_d512", "scann_loop_tall_d512", "scann_loop_wide_d512",
                "local_attention_d512", "local_attention_wide_d512")
+# #4's builds past 256 columns, f32 and bf16
+D512_BACKWARD_BUILDS = ("scann_loop_backward_tall_d512", "scann_loop_backward_wide_d512",
+                        "scann_loop_backward_tall_d512_bf16", "scann_loop_backward_wide_d512_bf16")
 
 
 def phase22_holds(qm9_model, mp2018, failures):
@@ -6295,6 +6300,201 @@ def phase22_holds(qm9_model, mp2018, failures):
             note(worst, build, errs[0])
             note(worst16, build, errs[1])
     return worst, worst16
+
+
+def phase22_backward_holds(qm9_model, mp2018, failures):
+    """#4's *_d512 builds against their plain versions at (D, G, O) = (264,
+    260, 268) and (512, 512, 512), dropout 0.1 with attention dropout: the
+    tall build (N <= 16 past 256 columns) at QM9 (4, 32, 8) (D = 264) and
+    (4, 32, 16) (D = 512), the wide one at MP2018 (3, 40, 24) (D = 264) and
+    (2, 24, 40) (D = 512) (two and three 16-row sub-chunks, the last
+    short), at D = 512 also a QM9 batch packed at capacity 32 (S = 8, empty
+    segments) and MP2018 (2, 24, 121) (atom blocks of 1), each in its three
+    schedules (``hold_wide_backward``: the f32
+    stash against the plain gradients by name within 1e-4 x each one's max
+    and pred at rtol / atol, recompute bit-equal to it, the bf16 stash
+    against its plain version, relaunches on NaN- and constant-filled
+    scratch bit for bit) at C = 1, 2, 4 and the rule's C, at D = 512 (4,
+    32, 16) and (2, 24, 40) at every size the builds take (1-8); and QM9 (4,
+    32, 16) in one-shot and cotangent mode through the public entry points
+    (``hold_loop_backward``). The bf16 builds by ``hold_bf16_shape``'s rule
+    at D = 384, as phase 20 holds the d256 ones: MP2018 (4, 96, 16) (tall)
+    and (3, 40, 48) (wide) in their three schedules at C = 1, 2, 4 at full
+    depth, and with one layer over 16 structures at the rule's C, pred at
+    0.9 x the f32 kernel's reading, the gradients at 0.5 x in the tall
+    build and at 0.9 x (``hold_bf16_shape``'s default) in the wide one:
+    there the f32-noise floor of the bf16 plain version is above half the
+    bf16-vs-f32 gap (0.76 x it on the batch held; 0.59 x in the median of
+    16 batches of the d256 build, where the 0.5 x rule failed 8 of 16 at
+    every C alike while the kernel read within that floor in all 16), so
+    0.5 x would fail a kernel that rounds where the plain version does.
+    Returns ({build: worst f32 error}, {build: worst bf16 error})."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_forward as kfwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.models.scann import init_params
+
+    rng = np.random.default_rng(2204)
+    worst, worst16 = {}, {}
+    note = lambda d, k, v: d.__setitem__(k, max(d.get(k, 0.0), v))
+    for D, G, O in (D512_WIDTHS[0], D512_WIDTHS[-1]):
+        qm9 = dataclasses.replace(widened(qm9_model, D, G, O), use_drop=True)
+        mp = dataclasses.replace(widened(mp2018, D, G, O), use_drop=True)
+        cases = ([("QM9", qm9, synthetic_batch(rng, 4, 32, 8)),
+                  ("MP2018", mp, wide_batch(rng, 3, 40, 24, mp))] if D < 512 else
+                 [("QM9", qm9, synthetic_batch(rng, 4, 32, 16)),
+                  ("MP2018", mp, wide_batch(rng, 2, 24, 40, mp))])
+        if D == 512:   # each from a generator of its own
+            cases += [("QM9 packed", qm9, pack_batch(
+                synthetic_batch(np.random.default_rng(2205), 12, 16, 16), 32)),
+                      ("MP2018", mp, wide_batch(np.random.default_rng(2206), 2, 24, 121, mp))]
+        for name, cfm, x in cases:
+            B, M = x["atom_mask"].shape[:2]
+            N, S = x["neighbors"].shape[2], kfwd.segment_count(x)
+            build = kloop.backward_library(cfm, M, N, S)
+            if not build.endswith("_d512"):
+                raise AssertionError(f"phase 22: {name} {(B, M, N, S)} takes {build}")
+            p = init_params(cfm, torch.Generator().manual_seed(22), "cuda")
+            y = torch.from_numpy(rng.normal(size=(B, max(S, 1))).astype(np.float32)).cuda()
+            rule = kloop.backward_cluster(cfm, B, M, N, S)
+            clusters = (kloop.D256_CLUSTER_SIZES if not S and (M, N) in ((32, 16), (24, 40))
+                        else tuple(sorted({1, 2, 4, rule})))
+            sub = (f" sub-chunk {kloop.wide_sub_chunk(cfm, M, N, S)}"
+                   if kloop.is_wide_backward(cfm, N) else "")
+            note(worst, build, hold_wide_backward(
+                f"phase 22 #4 ({build}) D={D} G={G} O={O} {name}{sub}", cfm, p, x, y, 0.1, 7,
+                failures, clusters=tuple(sorted(clusters))))
+            if name == "QM9" and N == 16:
+                ct = (torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)).cuda(),
+                      torch.from_numpy(rng.normal(size=(B, M, 1)).astype(np.float32)).cuda())
+                note(worst, build, hold_loop_backward(f"phase 22 #4 ({build}) D={D} entry points",
+                                                      cfm, p, x, y, False, 0.1, 7, failures,
+                                                      ct=ct))
+            del x
+    mp = widened(mp2018, 384, 384, 384)
+    for M, N in ((96, 16), (40, 48)):
+        batch = lambda B, M=M, N=N: (
+            synthetic_batch(rng, B, M, N, n_atoms=mp.n_atoms, min_atoms=20) if N <= 16
+            else wide_batch(rng, B, M, N, mp))
+        build4 = kloop.backward_library(dataclasses.replace(mp, dtype="bfloat16"), M, N)
+        for tag, cfm, xb, below, c4 in (
+                ("phase 22 D=384", mp, batch(4 if N <= 16 else 3), None, (1, 2, 4)),
+                ("phase 22 D=384 L=1", dataclasses.replace(mp, n_attention=1), batch(16),
+                 0.5 if N <= 16 else 0.9, (kloop.backward_cluster(mp, 16, M, N),))):
+            w3, w4 = hold_bf16_shape(tag, cfm, xb, failures, below=below, clusters3=(1, 2),
+                                     jitters=JITTERS, clusters=c4,
+                                     below_pred=0.9 if below else None)
+            note(worst16, build4, w4)
+            del xb
+    return worst, worst16
+
+
+def phase22_backward_times(qm9_model, mp2018, card):
+    """#4's *_d512 builds, each alone at the launch's own cluster size
+    (``backward_cluster``): the f32 stash and the recompute schedule in
+    turns with the plain version (``time_d256_turns``) at QM9 (128, 32, 16)
+    at D = 512 and D = 384 (``d384``; the tall build) and MP2018 (64, 31,
+    32) at D = 384 (the wide one: N > 16 past 256 columns), against the
+    bound of ``loop_backward_flops``; the bf16 builds at QM9 (128, 32, 16), D
+    = 512, and MP2018 (64, 31, 32), D = 384, in the same turns beside their
+    bf16 plain version and the f32 build. Returns {build: timing}."""
+    import dataclasses
+
+    from scann_tpu_torch.kernels import scann_loop as kloop
+
+    rng = np.random.default_rng(2207)
+    out = {}
+    for name, cfm, x, key in (
+            ("QM9 D=512", widened(qm9_model, 512, 512, 512), synthetic_batch(rng, 128, 32, 16),
+             None),
+            ("QM9 D=384", widened(qm9_model, 384, 384, 384), synthetic_batch(rng, 128, 32, 16),
+             "d384"),
+            ("MP2018 D=384", widened(mp2018, 384, 384, 384),
+             synthetic_batch(rng, 64, 31, 32, n_atoms=mp2018.n_atoms, min_atoms=20), None)):
+        M, N = x["atom_mask"].shape[1], x["neighbors"].shape[2]
+        build = kloop.backward_library(cfm, M, N)
+        t, t16 = time_d256_turns(build, name, cfm, x, card, bf16=key is None)
+        if key is None:
+            out.setdefault(build, {}).update(t)
+        else:
+            out.setdefault(build, {})[key] = t
+        if t16 is not None:
+            out[kloop.backward_library(dataclasses.replace(cfm, dtype="bfloat16"), M, N)] = t16
+        del x
+    return out
+
+
+def phase22_train(mp2018, failures, card):
+    """The training path of a crystal model past 256 columns through the
+    entry point a user calls: ``Trainer.fit`` for one epoch of an MP2018
+    model at D = G = O = 384, f32 and bf16, in a (40, 16) and a (40, 32)
+    bucket of 16 seeded crystals each (batch 16), with the launch counts set
+    to 0 just before and read just after: every step on the "loop" route, one
+    launch of #4's d512 build a step (the tall build at N = 16, the wide one
+    at N = 32: N > 16 is wide past 256 columns; ``.d512_launches`` equal to
+    the steps, no #2 launch), finite losses. Returns the launches of each #4
+    d512 build."""
+    import dataclasses
+    import tempfile
+
+    from scann_tpu_torch.config import HyperConfig, ScannConfig, TpuConfig
+    from scann_tpu_torch.data.pipeline import PackedBucket
+    from scann_tpu_torch.kernels import scann_backward as kbwd
+    from scann_tpu_torch.kernels import scann_loop as kloop
+    from scann_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(2208)
+    work = tempfile.mkdtemp(prefix="scann_chip_smoke_d512_train_")
+    launched = dict.fromkeys(D512_BACKWARD_BUILDS, 0)
+
+    def bucket(cfm, n, M, N):
+        x = synthetic_batch(rng, n, M, N, n_atoms=cfm.n_atoms, min_atoms=20)
+        x = {k: v.cpu().numpy() for k, v in x.items()}
+        return PackedBucket(x, rng.normal(size=n).astype(np.float32), np.arange(n))
+
+    for dtype in ("float32", "bfloat16"):
+        cfm = dataclasses.replace(widened(mp2018, 384, 384, 384), dtype=dtype)
+        label = f"MP2018 D = 384 {dtype}"
+        cfg = ScannConfig(model=cfm,
+                          hyper=HyperConfig(batch_size=16, lr=5e-4, epochs=1, seed=0,
+                                            save_path=os.path.join(work, dtype)),
+                          tpu=TpuConfig(max_buckets=2))
+        shapes = ((40, 16), (40, 32))
+        train = [bucket(cfm, 16, M, N) for M, N in shapes]
+        valid = [bucket(cfm, 8, M, N) for M, N in shapes]
+        trainer = Trainer(cfg, device="cuda", workdir=os.path.join(work, dtype, "fit"))
+        trainer.init_state(0)
+        routes = [trainer.train_route(*b.shape) for b in train]
+        builds = [kloop.backward_library(cfm, *b.shape) for b in train]
+        c4 = kloop.launch_loop_backward
+        kbwd.reset_counts(c4)
+        kbwd.reset_counts(kbwd.launch_scann_backward)
+        t0 = time.time()
+        hist = trainer.fit(train, valid, epochs=1, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        steps = len(train)
+        print(f"phase 22 fitted a {label} model for one epoch in buckets "
+              f"{[b.shape for b in train]} (routes {routes}, builds {builds}) in "
+              f"{time.time() - t0:.1f} s: {steps} steps, #4 launches {c4.launches} "
+              f"({c4.d512_launches} d512: {c4.tall_launches} tall, {c4.wide_launches} wide; "
+              f"{c4.bf16_launches} bf16; {mode_counts(c4)}), #2 "
+              f"{kbwd.launch_scann_backward.launches}; loss {hist['loss']}, val MAE "
+              f"{hist['val_mae']}  [{card}]", flush=True)
+        if (set(routes) != {"loop"} or (c4.launches, c4.d512_launches, c4.tall_launches,
+                                        c4.wide_launches) != (steps, steps, 1, 1)
+                or c4.bf16_launches != steps * (dtype == "bfloat16")
+                or kbwd.launch_scann_backward.launches
+                or not np.isfinite(hist["loss"] + hist["val_mae"]).all()):
+            failures.append(f"phase 22 {label} training: routes {routes}, #4 launches "
+                            f"{c4.launches} ({c4.d512_launches} d512, {c4.tall_launches} tall, "
+                            f"{c4.wide_launches} wide) for {steps} steps, #2 "
+                            f"{kbwd.launch_scann_backward.launches}, history {hist}")
+        launched[builds[0]] += c4.tall_launches
+        launched[builds[1]] += c4.wide_launches
+        kbwd.reset_counts(c4)
+        del trainer
+    return launched
 
 
 def hold_layer_past_256(tag, args, failures):
@@ -6454,9 +6654,9 @@ def phase22_paths(qm9_model, mp2018, failures, card):
     neighbours to a D = 512 model without the attention LayerNorm (the
     per-layer model: L launches of the narrow #5 and L of the wide one);
     then ``Trainer.fit`` of a D = 384 QM9 model for one epoch (steps on the
-    "per_layer" route, which #4 does not take past 256 columns; its
-    validation batch on #1's d512 build). Returns the launches of each
-    *_d512 build."""
+    "loop" route, #4's tall d512 build, ``.d512_launches`` equal to #4's
+    launches and to the steps; its validation batch on #1's d512 build).
+    Returns the launches of each *_d512 build (#4's tall one too)."""
     import dataclasses
     import tempfile
 
@@ -6473,7 +6673,7 @@ def phase22_paths(qm9_model, mp2018, failures, card):
 
     rng = np.random.default_rng(222)
     c1, c3, c5 = kfwd.fused_scann_forward, kloop.launch_loop_forward, kla.fused_local_attention
-    launched = dict.fromkeys(D512_BUILDS, 0)
+    launched = dict.fromkeys(D512_BUILDS + D512_BACKWARD_BUILDS[:1], 0)
 
     def reset():
         for c in (c1, c3, c5):
@@ -6591,7 +6791,7 @@ def phase22_paths(qm9_model, mp2018, failures, card):
                         f"{2 * L}, {L}")
     held("per-layer crystal", layered, structs, inputs, answers, routes)
     del layered
-    # Trainer.fit of a D = 384 QM9 model, one epoch: per-layer steps, #1 validation
+    # Trainer.fit of a D = 384 QM9 model, one epoch: #4 (tall d512) steps, #1 validation
     qm9 = widened(qm9_model, 384, 384, 384)
     t0 = time.time()
     work = tempfile.mkdtemp(prefix="scann_chip_smoke_d512_")
@@ -6613,22 +6813,30 @@ def phase22_paths(qm9_model, mp2018, failures, card):
     hist = trainer.fit(train, valid, epochs=1, log_fn=lambda *a: None)
     torch.cuda.synchronize()
     launched["scann_forward_d512"] += c1.d512_launches
-    n2, n4 = kbwd.launch_scann_backward.launches, kloop.launch_loop_backward.launches
+    c4 = kloop.launch_loop_backward
+    n2, n4 = kbwd.launch_scann_backward.launches, c4.launches
+    launched["scann_loop_backward_tall_d512"] += c4.d512_launches
+    steps = -(-train[0].num_structures // 16)
     print(f"phase 22 fitted a D = 384 QM9 model for one epoch in a (32, 16) bucket: routes "
           f"(train, eval) {routes}, #1 launches {c1.launches} ({c1.d512_launches} d512), #2 "
-          f"{n2}, #4 {n4}, #5 {c5.launches}; loss {hist['loss']}, val MAE {hist['val_mae']}; "
+          f"{n2}, #4 {n4} ({c4.d512_launches} d512, {c4.tall_launches} tall) for {steps} "
+          f"steps, #5 {c5.launches}; loss {hist['loss']}, val MAE {hist['val_mae']}; "
           f"{time.time() - t0:.1f} s  [{card}]", flush=True)
-    if (routes != ("per_layer", "fused") or c1.launches < 1 or c1.d512_launches != c1.launches
-            or n2 or n4 or c5.launches or not np.isfinite(hist["loss"] + hist["val_mae"]).all()):
+    if (routes != ("loop", "fused") or c1.launches < 1 or c1.d512_launches != c1.launches
+            or n2 or n4 != steps or c4.d512_launches != n4 or c4.tall_launches != n4
+            or c5.launches or not np.isfinite(hist["loss"] + hist["val_mae"]).all()):
         failures.append(f"phase 22 fit: routes {routes}, #1 {c1.launches} ({c1.d512_launches} "
-                        f"d512), #2 {n2}, #4 {n4}, #5 {c5.launches}, history {hist}")
+                        f"d512), #2 {n2}, #4 {n4} ({c4.d512_launches} d512) for {steps} steps, "
+                        f"#5 {c5.launches}, history {hist}")
+    kbwd.reset_counts(c4)
     reset()
     return launched
 
 
 def phase22(qm9_model, mp2018, failures, card):
-    """Phase 22: widths past 256. Returns the kernels line's rows of the five
-    *_d512 builds (#1, the tall and wide #3, the narrow and wide #5)."""
+    """Phase 22: widths past 256. Returns the kernels line's rows of the nine
+    *_d512 builds (#1, the tall and wide #3, the narrow and wide #5, and the
+    tall and wide #4 in f32 and bf16)."""
     from scann_tpu_torch.kernels import local_attention as kla
     from scann_tpu_torch.kernels import scann_forward as kfwd
     from scann_tpu_torch.kernels import scann_loop as kloop
@@ -6636,11 +6844,18 @@ def phase22(qm9_model, mp2018, failures, card):
     t0 = time.time()
     worst, worst16 = phase22_holds(qm9_model, mp2018, failures)
     t1 = time.time()
-    times = phase22_times(qm9_model, mp2018, card)
+    held4, held4_16 = phase22_backward_holds(qm9_model, mp2018, failures)
     t2 = time.time()
+    times = phase22_times(qm9_model, mp2018, card)
+    t3 = time.time()
+    times.update(phase22_backward_times(qm9_model, mp2018, card))
+    t4 = time.time()
     launched = phase22_paths(qm9_model, mp2018, failures, card)
-    print(f"phase 22 wall (s): holds {t1 - t0:.1f}, times {t2 - t1:.1f}, main paths "
-          f"{time.time() - t2:.1f}, in all {time.time() - t0:.1f}  [{card}]", flush=True)
+    for name, n in phase22_train(mp2018, failures, card).items():
+        launched[name] = launched.get(name, 0) + n
+    print(f"phase 22 wall (s): holds {t1 - t0:.1f}, #4 holds {t2 - t1:.1f}, times "
+          f"{t3 - t2:.1f}, #4 times {t4 - t3:.1f}, main paths {time.time() - t4:.1f}, in all "
+          f"{time.time() - t0:.1f}  [{card}]", flush=True)
     replaces = {"scann_forward_d512": kfwd.REPLACES, "local_attention_d512": kla.REPLACES,
                 "local_attention_wide_d512": kla.REPLACES}
     rows = []
@@ -6649,6 +6864,16 @@ def phase22(qm9_model, mp2018, failures, card):
                      "replaces": replaces.get(name, kloop.REPLACES), "launches": launched[name],
                      "max_abs_err": worst[name], "bf16_max_abs_err": worst16[name],
                      "library_ms": None, **times[name]})
+        if not launched[name]:
+            failures.append(f"phase 22: {name} was not launched on the main paths")
+    # #4's d512 builds: the f32 rows held by phase22_backward_holds against
+    # the f32 plain version, the bf16 ones by hold_bf16_shape (the recompute
+    # schedule and the bf16 stash against their bf16 plain versions)
+    for name in D512_BACKWARD_BUILDS:
+        err = held4_16[name] if name.endswith("_bf16") else held4[name]
+        rows.append({"name": name, "route": "cuda", "source": f"scann_tpu_torch/csrc/{name}.cu",
+                     "replaces": kloop.BACKWARD_REPLACES, "launches": launched[name],
+                     "max_abs_err": err, "library_ms": None, **times[name]})
         if not launched[name]:
             failures.append(f"phase 22: {name} was not launched on the main paths")
     return rows
@@ -6683,13 +6908,14 @@ def main():
           f"(one nvcc per source, in parallel) into the build cache "
           f"{os.path.relpath(cache_dir)} ({cache.stats['compiles']} builds; "
           f"{exec_cache.env_fingerprint()})", flush=True)
-    d512 = [n for n in _build.WIDTH_SOURCES if n.endswith("_d512")]
     secs = _build.build_seconds
-    print(f"the five *_d512 sources' share of the build: "
-          f"{sum(secs[n] for n in d512):.1f} of {sum(secs.values()):.1f} nvcc-seconds "
-          f"({100 * sum(secs[n] for n in d512) / sum(secs.values()):.1f}%); each "
-          f"{ {n: round(secs[n], 1) for n in d512} }; the longest nvcc of all "
-          f"{max(secs.values()):.1f} s", flush=True)
+    for what, names in (("nine *_d512", [n for n in _build.WIDTH_SOURCES if "_d512" in n]),
+                        ("four #4 *_d512", D512_BACKWARD_BUILDS)):
+        print(f"the {what} sources' share of the build: "
+              f"{sum(secs[n] for n in names):.1f} of {sum(secs.values()):.1f} nvcc-seconds "
+              f"({100 * sum(secs[n] for n in names) / sum(secs.values()):.1f}%); each "
+              f"{ {n: round(secs[n], 1) for n in names} }; the longest nvcc of all "
+              f"{max(secs.values()):.1f} s", flush=True)
     for name in ("scann_backward", "scann_loop_backward", "scann_backward_bf16",
                  "scann_loop_backward_bf16", "scann_loop", "local_attention",
                  *_build.SHAPE_SOURCES):
@@ -7000,7 +7226,7 @@ def main():
     torch.cuda.empty_cache()
     scripts_launches = phase21(qm9_model, qm9_run, failures, card)
     lap("21")
-    # ---- phase 22: widths past 256 in #1, #3 and #5 (the *_d512 builds) --------------
+    # ---- phase 22: widths past 256 in #1, #3, #4 and #5 (the *_d512 builds) ---------
     torch.cuda.empty_cache()
     width512_rows = phase22(qm9_model, mp2018, failures, card)
     lap("22")

@@ -218,8 +218,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // LayerNorm statistics of one row held by a warp as in warp_layer_norm
 // (V values a lane: 4 in the builds of widths up to 128, kLaneValues = 8 in
-// those past it): the same two-pass mean and rsqrt(var + 1e-6), so a
-// recomputed row normalises to the same bits.
+// those past it, 16 in those past 256): the same two-pass mean and
+// rsqrt(var + 1e-6), so a recomputed row normalises to the same bits.
 template <int V>
 __device__ __forceinline__ void warp_ln_stats(const float (&v)[V], int D, int lane,
                                               float& mean, float& inv) {

@@ -194,6 +194,21 @@
 //   output columns a warp (it spilled). The arithmetic and its order are
 //   the builds' of widths up to 128; those compile the same text
 //   (kLaneValues 4), their adds the load-add-store they had.
+// - Widths past 256 (D, G, O up to 512; the *_d512 builds,
+//   scann_loop_backward_tall_d512.cu, _wide_d512.cu and their _bf16 twins,
+//   all three schedules): the d256 design with SCANN_WIDTH_512 beside
+//   SCANN_WIDTH_256, so a warp's LayerNorm rows hold kLaneValues = 16 values
+//   a lane and every path past 128 columns (the reductions, up to 8 blocks a
+//   structure) is theirs. A tall chunk holds whole atoms, and 32 rows do not
+//   fit beside the five [AB, wd] slots and the eight warps' LayerNorm
+//   partials at D = 384, so the tall build takes N <= kTallMaxN = 16 in
+//   chunks of kD512ChunkRows = 16 rows, and the wide build every N > 16 in
+//   sub-chunks of 16 rows; the wrapper's plan takes the largest atom block
+//   that fits (8 at D = 384; 2 at D = 512, and in the wide build 1 past N
+//   = 120). Past 256 columns a thread of the gather's transpose takes
+//   columns d and d + kThreads. The builds of widths up to 256 compile the
+//   text they compiled (every new line is under kD512 or in the host-side
+//   checks, which read kTallMaxN = kMaxChunkRows there).
 // - No sequential grid, no atomics: each block writes its share of the
 //   gradients into its own row of a [B * C, P] scratch, added to from the
 //   second atom block (or chunk) on by the same thread, and scann_reduce_rows
@@ -239,7 +254,7 @@ using Args = BackwardArgs;
 
 constexpr int kMaxChunkRows = 32;
 constexpr int kMaxAtomBlock = 32;
-constexpr int kMaxCluster = kLaneValues > 4 ? 8 : 4;   // 8 in the *_d256 builds
+constexpr int kMaxCluster = kLaneValues > 4 ? 8 : 4;   // 8 in the *_d256 and *_d512 builds
 
 // The tall build (scann_loop_backward_tall.cu defines
 // SCANN_LOOP_BACKWARD_TALL): no resident [M, wd] buffer; every other build
@@ -250,8 +265,26 @@ constexpr bool kTall = true;
 constexpr bool kTall = false;
 #endif
 
-// The builds of widths past 128 (the *_d256 sources: SCANN_WIDTH_256).
+// The builds of widths past 128 (the *_d256 sources: SCANN_WIDTH_256; the
+// *_d512 sources define it too, so they take every path past 128 columns).
 constexpr bool kD256 = kLaneValues > 4;
+// The builds of widths past 256 (the *_d512 sources: SCANN_WIDTH_512).
+constexpr bool kD512 = kLaneValues > 8;
+
+// The largest N of the narrow and tall builds, the wide build taking the
+// rest: one chunk of kMaxChunkRows rows up to 256 columns; past 256 (the
+// *_d512 builds) 16, since a tall chunk holds whole atoms and a chunk of 32
+// rows does not fit at D = 384 (339,968 bytes with atom blocks of 8).
+constexpr int kTallMaxN = kD512 ? 16 : kMaxChunkRows;
+
+// The tall chunk and the wide sub-chunk of the *_d512 builds: 16 rows. At
+// D = 512 the tall plan takes 223,744 bytes with atom blocks of 2 (285,184
+// with 8: the eight warps' LayerNorm partials, 32 KB, and the five [block,
+// 512] slots leave no room for more rows), the wide one 228,864 at N = 64
+// with blocks of 2 and 230,912 at N = 256 with blocks of 1; at D = 384 the
+// tall plan takes 214,528 bytes and the wide one 231,424 at N = 256, both
+// with blocks of 8 (the wrapper's plan picks the block, kernels/widths.py).
+constexpr int kD512ChunkRows = 16;
 
 // The tall build's chunk of (atom, neighbour) rows: up to 64 (two atoms at
 // N = 32, four at N = 16, eight at N = 8), in the shared memory the resident
@@ -554,10 +587,13 @@ __host__ __device__ inline Plan make_plan(const Args& a, int wide_rows = kWideCh
 
 // The plan a build launches: make_plan's, but past 128 columns (the *_d256
 // builds) the wide sub-chunk is the larger of kWideChunkRows and half of it
-// whose plan fits a block (64 rows at D = 136, 32 at D = 256).
+// whose plan fits a block (64 rows at D = 136, 32 at D = 256), and past 256
+// (the *_d512 builds) kD512ChunkRows.
 template <bool kWide>
 __host__ __device__ inline Plan build_plan(const Args& a) {
-  if constexpr (kWide && kD256) {
+  if constexpr (kWide && kD512) {
+    return make_plan<kWide>(a, kD512ChunkRows);
+  } else if constexpr (kWide && kD256) {
     const Plan p = make_plan<kWide>(a);
     if (p.total * (int)sizeof(float) <= kMaxSharedBytes) return p;
     return make_plan<kWide>(a, kWideChunkRows / 2);
@@ -1498,6 +1534,7 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
   const int ldn = kHomes ? D : wd;
   // the gather's transpose: column d of the targets with index % np == part
   // belongs to thread part * D + d, which walks the chunk's rows in order
+  // (past 256 columns thread d also takes column d + kThreads)
   const int np = kThreads / D > 0 ? kThreads / D : 1;
   const int sc_d = tid % D, sc_part = tid / D;
   zero(sPart, kWarps * 2 * wd);
@@ -1802,6 +1839,10 @@ scann_loop_backward_kernel(const Args a, float* wide_keys) {
           if constexpr (kHomes) {
             if (sc_part < np)
               tall_scatter<kBf16>(sDCN, nbr + base, sV, ldu, ldn, rows, np, sc_part, sc_d);
+            if constexpr (kD512)
+              if (sc_d + kThreads < D)
+                tall_scatter<kBf16>(sDCN, nbr + base, sV, ldu, ldn, rows, np, sc_part,
+                                    sc_d + kThreads);
           } else if (sc_part < np)
             for (int r = 0; r < rows; ++r) {
               const int idx = nbr[base + r];
@@ -1979,7 +2020,7 @@ void cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, i
 // the key scratch [B * C, N, D] right after it), null in the narrow builds.
 // Launches the
 // backward kernel in the operand mode kBf16 (a cluster
-// of C blocks per structure; kWide: N > kMaxChunkRows) and the reduction of
+// of C blocks per structure; kWide: N > kTallMaxN) and the reduction of
 // its gradient rows into out [P].
 template <bool kBf16, bool kWide>
 int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
@@ -1996,9 +2037,9 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   a.st_attn = ptrs[57];
   a.st_atoms = (float*)ptrs[58];
   float* wide_keys = (float*)ptrs[59];
-  // the wide build: kMaxChunkRows < N <= kWideMaxN, one atom a chunk; the
+  // the wide build: kTallMaxN < N <= kWideMaxN, one atom a chunk; the
   // wide and tall builds: their scratch
-  if ((a.N > kMaxChunkRows) != kWide || (wide_keys != nullptr) != (kWide || kTall) ||
+  if ((a.N > kTallMaxN) != kWide || (wide_keys != nullptr) != (kWide || kTall) ||
       (kWide && (a.N > kWideMaxN || a.chunk_atoms != 1)))
     return kErrShape;
   if ((a.stash != 0 && a.stash != 4 && a.stash != 2) ||
@@ -2008,6 +2049,7 @@ int launch_backward(void* const* ptrs, const int* dims, const float* scalars,
   if (a.S < 0 || a.S > kMaxSegments || (a.S > 0) != (a.seg != nullptr)) return kErrShape;
   if (a.M < 1 || a.N < 1 || a.L < 1 || a.chunk_atoms < 1 ||
       (!kWide && a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)) ||
+      (kD512 && !kWide && a.chunk_atoms * a.N > kD512ChunkRows) ||
       a.atom_block < 1 ||
       a.atom_block > kMaxAtomBlock || a.chunk_atoms > a.atom_block ||
       a.cluster < 1 || a.cluster > kMaxCluster ||
@@ -2057,15 +2099,18 @@ int max_clusters(const int* dims, int cluster) {
 
 }  // namespace
 
-// Ten builds of this file, each its own library (so that nvcc compiles them
-// in parallel) with its own entry points: the f32 narrow one (no define), the
-// bf16 one (scann_loop_backward_bf16.cu: SCANN_LOOP_BACKWARD_BF16), the wide
-// ones (scann_loop_backward_wide.cu, _wide_bf16.cu: SCANN_LOOP_BACKWARD_WIDE)
-// and the tall ones (scann_loop_backward_tall.cu, _tall_bf16.cu:
-// SCANN_LOOP_BACKWARD_TALL), and the wide and tall ones of widths up to 256
-// (scann_loop_backward_{wide,tall}_d256.cu and their _bf16 twins:
-// SCANN_WIDTH_256 as well), each with <name>_launch, <name>_error_string and
-// <name>_max_clusters, the launcher taking the f32 narrow build's arguments.
+// Fourteen builds of this file, each its own library (so that nvcc compiles
+// them in parallel) with its own entry points: the f32 narrow one (no
+// define), the bf16 one (scann_loop_backward_bf16.cu:
+// SCANN_LOOP_BACKWARD_BF16), the wide ones (scann_loop_backward_wide.cu,
+// _wide_bf16.cu: SCANN_LOOP_BACKWARD_WIDE) and the tall ones
+// (scann_loop_backward_tall.cu, _tall_bf16.cu: SCANN_LOOP_BACKWARD_TALL), the
+// wide and tall ones of widths up to 256 (scann_loop_backward_{wide,tall}_d256.cu
+// and their _bf16 twins: SCANN_WIDTH_256 as well) and of widths up to 512
+// (scann_loop_backward_{wide,tall}_d512.cu and their _bf16 twins:
+// SCANN_WIDTH_512 beside SCANN_WIDTH_256), each with <name>_launch,
+// <name>_error_string and <name>_max_clusters, the launcher taking the f32
+// narrow build's arguments.
 #if defined(SCANN_LOOP_BACKWARD_BF16)
 constexpr bool kBf16Build = true;
 #else
@@ -2076,7 +2121,17 @@ constexpr bool kWideBuild = true;
 #else
 constexpr bool kWideBuild = false;
 #endif
-#if defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_WIDE) && \
+#if defined(SCANN_WIDTH_512) && defined(SCANN_LOOP_BACKWARD_WIDE) && \
+    defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_d512_bf16_##x
+#elif defined(SCANN_WIDTH_512) && defined(SCANN_LOOP_BACKWARD_WIDE)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_d512_##x
+#elif defined(SCANN_WIDTH_512) && defined(SCANN_LOOP_BACKWARD_TALL) && \
+    defined(SCANN_LOOP_BACKWARD_BF16)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_d512_bf16_##x
+#elif defined(SCANN_WIDTH_512) && defined(SCANN_LOOP_BACKWARD_TALL)
+#define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_tall_d512_##x
+#elif defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_WIDE) && \
     defined(SCANN_LOOP_BACKWARD_BF16)
 #define SCANN_LOOP_BACKWARD_ENTRY(x) scann_loop_backward_wide_d256_bf16_##x
 #elif defined(SCANN_WIDTH_256) && defined(SCANN_LOOP_BACKWARD_WIDE)

@@ -101,14 +101,16 @@ BF16_SHAPE_SOURCES = ("scann_loop_backward_wide_bf16", "scann_loop_backward_tall
 # a wider model, so the builds of widths up to 128 are the ones they were.
 # Past 256 (D, G, O up to 512: 16 values a lane, SCANN_WIDTH_512 beside
 # SCANN_WIDTH_256) the forwards #1, #3 (tall, wide) and #5 (narrow, wide)
-# have one source each too, built the same way at the first launch of a
-# model that wide.
+# have one source each too, and the tall and wide #4 one a mode, built the
+# same way at the first launch (or training launch) of a model that wide.
 WIDTH_SOURCES = ("scann_forward_d256", "scann_loop_tall_d256", "scann_loop_wide_d256",
                  "local_attention_d256", "local_attention_wide_d256",
                  "scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
                  "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16",
                  "scann_forward_d512", "scann_loop_tall_d512", "scann_loop_wide_d512",
-                 "local_attention_d512", "local_attention_wide_d512")
+                 "local_attention_d512", "local_attention_wide_d512",
+                 "scann_loop_backward_tall_d512", "scann_loop_backward_wide_d512",
+                 "scann_loop_backward_tall_d512_bf16", "scann_loop_backward_wide_d512_bf16")
 # Every build made for some shapes only.
 SHAPE_SOURCES = WIDE_SOURCES + TALL_SOURCES + BF16_SHAPE_SOURCES + WIDTH_SOURCES
 # Sources of the port that are not ports of a TPU kernel: the rate probes of

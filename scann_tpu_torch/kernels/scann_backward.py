@@ -240,7 +240,7 @@ def refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[str]:
     if any(x > MAX_WIDTH for x in (D, G, O)):
         return (f"D={D}, G={G}, O={O}: the molecule backward takes D, G, O <= {MAX_WIDTH}; "
                 "a wider model trains through the backward of the crystal loop kernel "
-                "(kernels.scann_loop.loop_scann_train_grads, its *_d256 builds)")
+                "(kernels.scann_loop.loop_scann_train_grads, its *_d256 and *_d512 builds)")
     if (N < 1 or N > MAX_CHUNK_ROWS or any(x % 4 for x in (D, G, O))
             or E % 4 or D % cfm.num_head or cfm.num_gaussian > D):
         return (f"sizes outside the backward kernel's tiles: N={N} (<= {MAX_CHUNK_ROWS}), "
@@ -729,10 +729,11 @@ def count_launch(launcher, cfm: ModelConfig, mode: Optional[str]) -> None:
 
 def reset_counts(launcher) -> None:
     """Set a backward launcher's counts to 0 (``.wide_launches``,
-    ``.tall_launches`` and ``.d256_launches``: the loop backward's wide and
-    tall builds, and those of widths past 128)."""
+    ``.tall_launches``, ``.d256_launches`` and ``.d512_launches``: the loop
+    backward's wide and tall builds, and those of widths past 128 and past
+    256)."""
     for name in ("launches", "bf16_launches", "stash_launches", "bf16_stash_launches",
-                 "wide_launches", "tall_launches", "d256_launches"):
+                 "wide_launches", "tall_launches", "d256_launches", "d512_launches"):
         setattr(launcher, name, 0)
 
 

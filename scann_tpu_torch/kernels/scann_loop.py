@@ -52,9 +52,8 @@ Forward:
   of 16 rows (``kernels.widths``: two operand buffers of 32 rows take
   263,168 bytes at D = 512), so the tall build
   takes N <= 16 and the wide one the rest, each with atom blocks of 8 at
-  D = 512 and M into the thousands. The loop backward does not take them
-  (``BACKWARD_MAX_WIDTH``): such a model trains through the per-layer
-  model.
+  D = 512 and M into the thousands. The loop backward trains such a model
+  in its tall and wide builds of widths up to 512 (below).
 - Tall structures, N <= 64 and M past that plan: the tall build
   ``csrc/scann_loop_tall.cu`` (built at its first launch, both operand
   modes) keeps the centers in global memory, which L2 holds: a ping-pong [2,
@@ -155,12 +154,13 @@ Backward (crystal training):
   there too (the ``tall`` scratch, with each block's rows of one atom
   ``wide_rows`` [B * C, 3, N, D] right after it in one allocation), so its
   plan does not grow with M: atom blocks of 16 up to N = 184 and 8 beyond
-  at D = 128 (``WIDE_BACKWARD_ATOM_BLOCKS``), M into the thousands. Its reverse walk
+  at D = 128 (the blocks of 4 where 8 do not fit beside the readout's [M]
+  vectors, M near 10^4; ``kernels.widths``), M into the thousands. Its reverse walk
   runs the softmax backward over all N before the rows' backward; where one
   sub-chunk holds an atom's list (N <= 64) it keeps the first pass's rows,
   past it the recompute schedule's second pass stages them back from
   ``wide_rows``, so the reverse walk forms each row once.
-- Widths past 128 (``kfwd.width_class``) up to ``BACKWARD_MAX_WIDTH`` = 256: the
+- Widths past 128 (``kfwd.width_class``) up to 256: the
   tall and wide builds of widths up to 256 (``csrc/scann_loop_backward_tall_d256.cu``,
   ``scann_loop_backward_wide_d256.cu`` and their ``_bf16`` twins: 8 values
   of a row a lane in the warp LayerNorms; ``backward_library`` names them,
@@ -179,6 +179,18 @@ Backward (crystal training):
   runs at once, so that a batch of 16 fills 96 SMs rather than 64). So a
   D = 256 model trains on #4 at QM9 (32, 16), which #2 refuses past 128
   columns (``kbwd.MAX_WIDTH``), and at MP2018 (96, 32) and (48, 96).
+- Widths past 256 up to ``BACKWARD_MAX_WIDTH`` = 512: the tall and wide
+  builds of widths up to 512 (``csrc/scann_loop_backward_tall_d512.cu``,
+  ``_wide_d512.cu`` and their ``_bf16`` twins: the d256 design with 16
+  values a lane; ``.d512_launches``), in all three schedules. A tall chunk
+  holds whole atoms, and 32 rows do not fit at D = 384 (339,968 bytes with
+  atom blocks of 8), so the tall build takes N <= 16
+  (``backward_tall_max_n``) in 16-row chunks and the wide one the rest in
+  16-row sub-chunks, each with the largest atom block that fits
+  (``kernels.widths``: 8 at D = 384, 2 at D = 512; the wide build down to
+  1 at D = 512, N = 256), M into the thousands. So a model the TPU's #4 or
+  #2 trains at these widths (QM9 (32, 16), MP2018 (96, 32)) trains on a
+  kernel here, where #2 keeps 128 columns.
 - A cluster of C thread blocks works on each structure, each block on its
   share of the atoms (``cluster_size``: C is a function of the batch size
   alone, 2 at the MP2018 batch of 64, so that the batch fills the card's 132
@@ -230,6 +242,7 @@ from scann_tpu_torch.config import ModelConfig
 from scann_tpu_torch.kernels import dots
 from scann_tpu_torch.kernels import scann_backward as kbwd
 from scann_tpu_torch.kernels import scann_forward as kfwd
+from scann_tpu_torch.kernels import widths
 from scann_tpu_torch.kernels.scann_forward import (
     MAX_CHUNK_ROWS,
     MAX_NEIGHBORS,
@@ -250,20 +263,18 @@ SOURCE = "scann_tpu_torch/csrc/scann_loop.cu"
 BACKWARD_REPLACES = "scann_tpu/kernels/scann_loop.py:435"  # _bwd_kernel
 BACKWARD_SOURCE = "scann_tpu_torch/csrc/scann_loop_backward.cu"
 ATOM_BLOCKS = (32, 16, 8)
-# the wide loop backward (N > kbwd.MAX_CHUNK_ROWS) also takes blocks of 4
-# atoms, where 8 do not fit beside the readout's [M] vectors (M near 10^4 at
-# D = 128)
-WIDE_BACKWARD_ATOM_BLOCKS = ATOM_BLOCKS + (4,)
 # the tall loop backward's chunk of (atom, neighbour) rows (kTallChunkRows of
 # csrc/scann_loop_backward.cu): two atoms at N = 32, in the shared memory the
-# resident buffer left; the narrow build keeps kbwd.MAX_CHUNK_ROWS
-TALL_CHUNK_ROWS = 64
+# resident buffer left; the narrow build keeps kbwd.MAX_CHUNK_ROWS. Past 256
+# columns 16 (``kernels.widths``, the class's ``tall_backward``)
+TALL_CHUNK_ROWS = widths.CLASSES[0].tall_backward[0][0]
 # the wide loop backward's sub-chunk of one atom's rows (kWideChunkRows), in the
 # shared memory the resident buffer left there too; past 128 columns (the
 # *_d256 builds, ``build_plan`` of the CUDA source) the first of these whose
-# plan fits a block: 64 rows up to D = 152 or so, 32 at D = 256
-WIDE_CHUNK_ROWS = 64
-D256_WIDE_CHUNK_ROWS = (WIDE_CHUNK_ROWS, WIDE_CHUNK_ROWS // 2)
+# plan fits a block: 64 rows up to D = 152 or so, 32 at D = 256; past 256
+# columns 16 (the class's ``wide_backward``)
+WIDE_CHUNK_ROWS = widths.CLASSES[0].wide_backward[0][0]
+D256_WIDE_CHUNK_ROWS = tuple(rows for rows, _ in widths.class_of(256).wide_backward)
 # Blocks per structure the loop kernels (forward and backward) launch with ->
 # how many such clusters any H100 SXM (132 SMs, 66 pairs of SMs in 8 GPCs)
 # runs at once when a block takes a whole SM (most of its shared memory, or
@@ -286,9 +297,9 @@ FORWARD_CLUSTER_SIZES = tuple(range(16, 0, -1))
 # at once, so that a small batch fills it (6 at B = 16 on a card that runs 15
 # clusters of 8 or 7, 2 at the MP2018 recipe batch of 64, 1 at 128).
 D256_CLUSTER_SIZES = tuple(range(8, 0, -1))
-# The widest model the loop backward #4 trains (its *_d256 builds); the
-# forwards take ``kfwd.MAX_WIDTH``
-BACKWARD_MAX_WIDTH = 256
+# The widest model the loop backward #4 trains (its *_d512 builds), as the
+# forwards (``kfwd.MAX_WIDTH``)
+BACKWARD_MAX_WIDTH = widths.MAX_WIDTH
 
 
 def supports_loop(cfm: ModelConfig) -> bool:
@@ -422,10 +433,19 @@ def forward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = Fals
     return loop_memory_plan(cfm, M, N, S, tall or is_tall(cfm, M, N, S))
 
 
-def is_wide_backward(N: int) -> bool:
+def backward_tall_max_n(cfm: ModelConfig) -> int:
+    """The largest N of the loop backward's narrow and tall builds at the
+    model's width class (kTallMaxN of ``csrc/scann_loop_backward.cu``, the
+    class's ``backward_tall_max_n`` of ``kernels.widths``): 32
+    (``kbwd.MAX_CHUNK_ROWS``) up to 256 columns, past 256 16."""
+    return kfwd.width_constants(cfm).backward_tall_max_n
+
+
+def is_wide_backward(cfm: ModelConfig, N: int) -> bool:
     """Whether the loop backward takes N neighbours in its wide build
-    (``csrc/scann_loop_backward_wide.cu``)."""
-    return N > kbwd.MAX_CHUNK_ROWS
+    (``csrc/scann_loop_backward_wide.cu``, or its ``_d256`` / ``_d512``
+    build past 128 or 256 columns): N > ``backward_tall_max_n``."""
+    return N > backward_tall_max_n(cfm)
 
 
 def forward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = False
@@ -452,14 +472,14 @@ def backward_library(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = 
     ``is_wide_backward``, the tall one where ``is_tall_backward`` or
     ``tall`` forces it, else the narrow one; past 128 columns
     (``kfwd.width_class``) the wide or tall one of widths up to 256
-    (``*_d256``); each in the config's operand mode (``kbwd.kernel_name``:
-    ``<build>_bf16`` in bf16, a source of its own). The one place that
-    chooses."""
-    d256 = kfwd.width_constants(cfm).suffix
-    if is_wide_backward(N):
-        return kbwd.kernel_name("scann_loop_backward_wide" + d256, cfm)
+    (``*_d256``) or 512 (``*_d512``); each in the config's operand mode
+    (``kbwd.kernel_name``: ``<build>_bf16`` in bf16, a source of its own).
+    The one place that chooses."""
+    width = kfwd.width_constants(cfm).suffix
+    if is_wide_backward(cfm, N):
+        return kbwd.kernel_name("scann_loop_backward_wide" + width, cfm)
     if tall or is_tall_backward(cfm, M, N, S):
-        return kbwd.kernel_name("scann_loop_backward_tall" + d256, cfm)
+        return kbwd.kernel_name("scann_loop_backward_tall" + width, cfm)
     return kbwd.kernel_name("scann_loop_backward", cfm)
 
 
@@ -585,7 +605,7 @@ def wide_rows_shape_for(cfm: ModelConfig, B: int, N: int, cluster: int
     (ns, u_pre, key: the forward pass's context reads the keys, the
     recompute schedule's second pass over an atom past one sub-chunk all
     three), None where N is not wide for #4."""
-    return (B * cluster, 3, N, cfm.local_dim) if is_wide_backward(N) else None
+    return (B * cluster, 3, N, cfm.local_dim) if is_wide_backward(cfm, N) else None
 
 
 def tall_shape_for(cfm: ModelConfig, B: int, M: int, cluster: int, tall: bool
@@ -767,15 +787,18 @@ def loop_backward_memory_plan(cfm: ModelConfig, M: int, N: int, S: int = 0,
     ``tall``, whose chunks hold up to ``TALL_CHUNK_ROWS`` rows in the shared
     memory that buffer left). The atom block is the largest of 32, 16, 8
     (wide: and 4) whose plan fits a block's shared memory (the smallest
-    one's plan if none does). A wide N (more than ``kbwd.MAX_CHUNK_ROWS``)
-    walks one atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows,
-    beside the atom's attention and d attention [N, H], without the
-    resident buffer. Past 128 columns (``kfwd.width_class``) the tall chunk is
-    the first of ``kfwd.CHUNK_ROWS`` rows whose plan fits at some block,
-    and the wide sub-chunk the first of ``D256_WIDE_CHUNK_ROWS`` (64 rows
-    with blocks of 8 atoms or more, else 32; where none does, the first's
-    plan at the smallest block); ``wide_sub_chunk`` names the wide one.
-    ``backward_plan`` is the plan of the build a launch takes."""
+    one's plan if none does). A wide N (``is_wide_backward``) walks one
+    atom at a time in sub-chunks of ``WIDE_CHUNK_ROWS`` rows, beside the
+    atom's attention and d attention [N, H], without the resident buffer.
+    The tall chunks and wide sub-chunks are the width class's
+    (``kernels.widths``: ``tall_backward``, ``wide_backward``), the first
+    (rows, atom block) whose plan fits taken, or where none does, the first
+    rows' plan at their smallest block: past 128 columns the tall chunk is
+    the first of ``kfwd.CHUNK_ROWS`` rows that fits, and the wide sub-chunk
+    the first of ``D256_WIDE_CHUNK_ROWS`` (64 rows with blocks of 8 atoms
+    or more, else 32); past 256 columns 16 rows each, with atom blocks down
+    to 2 and 1 (``wide_sub_chunk`` names the wide one). ``backward_plan``
+    is the plan of the build a launch takes."""
     return _backward_plan(cfm, M, N, S, tall)[:3]
 
 
@@ -788,19 +811,16 @@ def _backward_plan(cfm: ModelConfig, M: int, N: int, S: int, tall: bool
     wd = max(D, G)
     lde = r4(cfm.embedding_dim + (10 if cfm.use_ring else 0))
     ldf = r4(kbwd.CGCNN_FEATURES) if cfm.feature == "cgcnn" else 0
-    wide = is_wide_backward(N)
-    d256 = kfwd.width_class(cfm) > kfwd.NARROW_WIDTH
+    wide = is_wide_backward(cfm, N)
+    row = kfwd.width_constants(cfm)
     if wide:
-        caps = D256_WIDE_CHUNK_ROWS if d256 else (WIDE_CHUNK_ROWS,)
+        chunks = row.wide_backward
     elif tall:
-        caps = kfwd.CHUNK_ROWS if d256 else (TALL_CHUNK_ROWS,)
+        chunks = row.tall_backward
     else:
-        caps = (kbwd.MAX_CHUNK_ROWS,)
+        chunks = ((kbwd.MAX_CHUNK_ROWS, ATOM_BLOCKS),)
     first = None
-    for cap in caps:
-        blocks = ATOM_BLOCKS
-        if wide and not (d256 and cap == WIDE_CHUNK_ROWS):
-            blocks = WIDE_BACKWARD_ATOM_BLOCKS   # 64 rows past 128 columns: 8 atoms or more
+    for cap, blocks in chunks:
         for block in blocks:
             block = min(block, M)
             chunk_atoms = max(1, min(block, cap // max(N, 1)))
@@ -828,8 +848,8 @@ def _backward_plan(cfm: ModelConfig, M: int, N: int, S: int, tall: bool
 def wide_sub_chunk(cfm: ModelConfig, M: int, N: int, S: int = 0) -> int:
     """Rows of the wide loop backward's sub-chunk at (config, M, N, S):
     ``WIDE_CHUNK_ROWS`` up to 128 columns, past them the first of
-    ``D256_WIDE_CHUNK_ROWS`` whose plan fits (``build_plan`` of the CUDA
-    source)."""
+    ``D256_WIDE_CHUNK_ROWS`` whose plan fits, past 256 columns 16
+    (``build_plan`` of the CUDA source)."""
     return _backward_plan(cfm, M, N, S, False)[3]
 
 
@@ -838,8 +858,9 @@ def is_tall_backward(cfm: ModelConfig, M: int, N: int, S: int = 0) -> bool:
     (``csrc/scann_loop_backward_tall.cu``): a narrow N (not
     ``is_wide_backward``) whose narrow plan does not fit a block's shared
     memory; past 128 columns every narrow N (the narrow build has no build
-    of widths past 128: ``scann_loop_backward_tall_d256.cu`` takes them)."""
-    return not is_wide_backward(N) and (
+    of widths past 128: ``scann_loop_backward_tall_d256.cu`` and
+    ``_tall_d512.cu`` take them)."""
+    return not is_wide_backward(cfm, N) and (
         kfwd.width_class(cfm) > kfwd.NARROW_WIDTH
         or loop_backward_memory_plan(cfm, M, N, S)[2] > MAX_SHARED_BYTES)
 
@@ -850,7 +871,7 @@ def backward_plan(cfm: ModelConfig, M: int, N: int, S: int = 0, tall: bool = Fal
     S): the narrow (or wide) plan where it fits, else the tall one; the tall
     one too where ``tall`` forces the tall build at a narrow N (the build
     runs its own plan at every shape)."""
-    tall = not is_wide_backward(N) and (tall or is_tall_backward(cfm, M, N, S))
+    tall = not is_wide_backward(cfm, N) and (tall or is_tall_backward(cfm, M, N, S))
     return loop_backward_memory_plan(cfm, M, N, S, tall)
 
 
@@ -868,7 +889,7 @@ def cluster_size(B: int) -> int:
 
 def backward_cluster(cfm: ModelConfig, B: int, M: int, N: int, S: int = 0) -> int:
     """Thread blocks per structure of a loop-backward launch: past 128
-    columns (the *_d256 builds) the largest of ``D256_CLUSTER_SIZES`` whose
+    columns (the *_d256 and *_d512 builds) the largest of ``D256_CLUSTER_SIZES`` whose
     B clusters the card runs at once by that build's own
     ``max_active_clusters`` (8 for up to 15 structures, 6 at B = 16, 2 at
     64), so a small batch fills the card; up to 128 columns
@@ -903,7 +924,7 @@ def backward_refusal(cfm: ModelConfig, M: int, N: int, S: int = 0) -> Optional[s
               or segment_refusal(S))
     if reason:
         return reason
-    homes = is_tall_backward(cfm, M, N, S) or is_wide_backward(N)
+    homes = is_tall_backward(cfm, M, N, S) or is_wide_backward(cfm, N)
     nbytes = backward_plan(cfm, M, N, S)[2]
     if nbytes > MAX_SHARED_BYTES:
         reason = (f"M={M} atoms" + (f", S={S} segments" if S else "") + ": "
@@ -1085,7 +1106,7 @@ def loop_backward_scratch(packed: Dict[str, torch.Tensor], cfm: ModelConfig, B: 
     trainer allocates it once per shape."""
     tall = is_tall_backward(cfm, M, N, S) if tall is None else tall
     cluster = backward_cluster(cfm, B, M, N, S) if cluster is None else cluster
-    wide = is_wide_backward(N)
+    wide = is_wide_backward(cfm, N)
     dev = packed["wde"].device
     scratch = kbwd.allocate_scratch(packed, cfm, B, M, N, cfm.n_attention + 1, cluster)
     scratch["dcenters"] = torch.empty((B, M, cfm.local_dim), device=dev, dtype=torch.float32)
@@ -1159,7 +1180,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
         raise ValueError(f"cluster={cluster}: the loop backward launches with {sizes}")
     name = backward_library(cfm, M, N, S, tall)
     tall = name.startswith("scann_loop_backward_tall")
-    wide = is_wide_backward(N)
+    wide = is_wide_backward(cfm, N)
     chunk_atoms, atom_block, _ = backward_plan(cfm, M, N, S, tall)
     if scratch is None:
         scratch = loop_backward_scratch(packed, cfm, B, M, N, cluster, mode, S, tall)
@@ -1188,6 +1209,7 @@ def _launch_backward(packed: Dict[str, torch.Tensor], inputs: Dict[str, torch.Te
     launch_loop_backward.wide_launches += wide
     launch_loop_backward.tall_launches += tall
     launch_loop_backward.d256_launches += width == 256
+    launch_loop_backward.d512_launches += width == 512
     return flat, pred
 
 

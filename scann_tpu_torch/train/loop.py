@@ -20,9 +20,10 @@ MAE, best-val checkpoints, a test report.
   up to 128); else "loop", ONE launch of the crystal loop backward kernel
   where its gate passes (the narrow build M <= 226 at N = 32, D = 128; the
   tall and wide builds M into the thousands, widths up to 256 in their
-  ``*_d256`` builds, so a D = 256 model trains QM9 (32, 16) here); else
-  "per_layer" (what no gate takes: no attention LayerNorm, a plan that does
-  not fit, widths past 256), the plain model
+  ``*_d256`` builds and up to 512 in their ``*_d512`` builds, so a D = 256,
+  384 or 512 model trains QM9 (32, 16) here); else "per_layer" (what no gate
+  takes: no attention LayerNorm, a plan that does not fit, widths past
+  512), the plain model
   under ``torch.autograd``, as the JAX Trainer trains its ``self.model``
   (``loop.py:108-116``); the LocalAttention kernel is for eval, serving and
   prediction. All run at dropout 0.1 on the

@@ -315,7 +315,7 @@ def test_torch_bf16_shapes_launch_arguments(M, N, monkeypatch):
         kloop._launch_backward(packed, x, cfm, torch.zeros(B, 1), None, True, cluster=2,
                                stash=stash, tall=force)
     (lib_f, sym_f, t_f, d_f), *backward = calls
-    wide3, wide4 = kloop.is_wide_forward(cfm, N), kloop.is_wide_backward(N)
+    wide3, wide4 = kloop.is_wide_forward(cfm, N), kloop.is_wide_backward(cfm, N)
     tall3 = force or kloop.is_tall(cfm, M, N)
     tall4 = force or kloop.is_tall_backward(cfm, M, N)
     assert (lib_f, sym_f) == (("scann_loop_wide", "scann_loop_forward_wide") if wide3 else

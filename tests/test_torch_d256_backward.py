@@ -65,7 +65,7 @@ def test_torch_d256_backward_plans_fit_every_n(D):
                 assert lib.endswith("_d256"), (D, M, N, lib)
                 chunk_atoms, block, nbytes = kloop.backward_plan(cfm, M, N)
                 assert nbytes <= kloop.MAX_SHARED_BYTES, (D, M, N, block, nbytes)
-                if kloop.is_wide_backward(N):
+                if kloop.is_wide_backward(cfm, N):
                     assert chunk_atoms == 1
                     assert kloop.wide_sub_chunk(cfm, M, N) in kloop.D256_WIDE_CHUNK_ROWS
                 else:

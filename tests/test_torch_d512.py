@@ -463,13 +463,21 @@ def test_torch_d512_eval_routes_take_a_kernel(cfm, M, N, route, library, D):
     """At D = G = O = 384 and 512 the recipe buckets and the tall and wide
     crystals evaluate on a *_d512 build (#5's for the per-layer model), which
     the Trainer builds before a fit or a served ladder (``shape_libraries``);
-    training takes the per-layer route, which #4 leaves past 256 columns."""
+    training takes #4's d512 build (its tall build at N <= 16, the wide one
+    past it), the per-layer route only where #4 refuses the model (no
+    attention LayerNorm), and a fit builds that build too."""
     cfm = _width(cfm, D)
     trainer = _trainer(cfm)
     assert trainer.eval_route(M, N) == route
     assert trainer.shape_libraries([(M, N, 0)]) == (library,)
-    assert trainer.shape_libraries([(M, N, 0)], training=True) == (library,)
-    assert trainer.train_route(M, N) == "per_layer"
+    if not cfm.use_attn_norm:
+        assert trainer.train_route(M, N) == "per_layer"
+        assert trainer.shape_libraries([(M, N, 0)], training=True) == (library,)
+        return
+    train = f"scann_loop_backward_{'tall' if N <= 16 else 'wide'}_d512"
+    assert trainer.train_route(M, N) == "loop"
+    assert kloop.backward_library(cfm, M, N) == train
+    assert trainer.shape_libraries([(M, N, 0)], training=True) == tuple(sorted((library, train)))
 
 
 @pytest.mark.parametrize("D", [384, 512])

@@ -98,7 +98,9 @@ def test_torch_port_kernel_sources_stand_alone():
         "scann_loop_backward_tall_d256", "scann_loop_backward_wide_d256",
         "scann_loop_backward_tall_d256_bf16", "scann_loop_backward_wide_d256_bf16",
         "scann_forward_d512", "scann_loop_tall_d512", "scann_loop_wide_d512",
-        "local_attention_d512", "local_attention_wide_d512"}
+        "local_attention_d512", "local_attention_wide_d512",
+        "scann_loop_backward_tall_d512", "scann_loop_backward_wide_d512",
+        "scann_loop_backward_tall_d512_bf16", "scann_loop_backward_wide_d512_bf16"}
     for name in _build.SOURCES + _build.SHAPE_SOURCES:
         files = _build.source_files(name)
         assert files[0].endswith(f"{name}.cu")

@@ -198,7 +198,7 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
             cfm, edge3 + 1, N, tall=True)
         assert kloop.refusal(cfm, edge3 + 1, N) is None and kloop.refusal(cfm, 968, N) is None
     edge4 = _narrow_edge(lambda M: kloop.loop_backward_memory_plan(cfm, M, N)[2])
-    if kloop.is_wide_backward(N):
+    if kloop.is_wide_backward(cfm, N):
         assert kloop.backward_library(cfm, edge4 + 1, N, tall=True) == "scann_loop_backward_wide"
         assert not kloop.is_tall_backward(cfm, edge4 + 1, N)
     else:
@@ -215,7 +215,7 @@ def test_torch_tall_builds_only_past_the_narrow_plan(name, N):
         assert kloop.backward_refusal(cfm, 968, N) is None
     # bf16 operands: the same builds at the same edges, #4's in their bf16 sources
     b16 = dataclasses.replace(cfm, dtype="bfloat16")
-    if not kloop.is_wide_backward(N):
+    if not kloop.is_wide_backward(cfm, N):
         assert kloop.backward_library(b16, edge4, N) == "scann_loop_backward_bf16"
         assert kloop.backward_library(b16, edge4 + 1, N) == "scann_loop_backward_tall_bf16"
         assert kloop.backward_library(b16, 96, N, tall=True) == "scann_loop_backward_tall_bf16"
@@ -443,7 +443,9 @@ def test_torch_tall_sources():
     assert "p.rows = kWide ? wide_rows : a.chunk_atoms * a.N;" in bwd
     assert "inline Plan make_plan(const Args& a, int wide_rows = kWideChunkRows) {" in bwd
     assert "a.chunk_atoms * a.N > (kTall ? kTallChunkRows : kMaxChunkRows)" in bwd
-    assert "(a.N > kMaxChunkRows) != kWide" in bwd
+    # the wide build takes N past kTallMaxN: kMaxChunkRows up to 256 columns
+    assert "(a.N > kTallMaxN) != kWide" in bwd
+    assert "constexpr int kTallMaxN = kD512 ? 16 : kMaxChunkRows;" in bwd
     assert (kloop.TALL_CHUNK_ROWS, kbwd.MAX_CHUNK_ROWS) == (64, 32)
     # the tall build's own helpers run only under kTall (the scatter and the
     # small weight gradient under kHomes, kTall || kWide: the wide build's

@@ -174,7 +174,7 @@ def test_torch_wide_loop_train_grads_match_jax_kernel(case, N, monkeypatch):
     ``tests/test_torch_stash.py`` draws them)."""
     rate = 0.1
     jcfg, tcfg, jp, tp, x, tx = _setup(4, N, dropout=True, **CASES[case])
-    assert kloop.backward_refusal(tcfg, 12, N) is None and kloop.is_wide_backward(N)
+    assert kloop.backward_refusal(tcfg, 12, N) is None and kloop.is_wide_backward(tcfg, N)
     masks = _jax_masks("loop", 42, 2, 12, N, tcfg, rate)
     monkeypatch.setattr(kbwd, "dropout_masks_for", lambda *a, **k: masks)
     y = np.random.default_rng(5).normal(size=(2, 1)).astype(np.float32)
@@ -956,7 +956,7 @@ def test_torch_wide_backward_plans_take_64_rows(name, N):
     such M; the narrow and tall plans (N = 16 and 32) are the ones they
     were, term by term."""
     cfm = YAML_MODELS[name]
-    assert kloop.WIDE_CHUNK_ROWS == 64 and kloop.is_wide_backward(N)
+    assert kloop.WIDE_CHUNK_ROWS == 64 and kloop.is_wide_backward(cfm, N)
     for M in (48, 80, 96, 128, 217, 243, 244, 300, 600, 1000, 2000):
         S_max = kloop.backward_max_segments(cfm, M, N)
         assert S_max == kfwd.MAX_SEGMENTS, (M, S_max)

@@ -341,11 +341,12 @@ def test_torch_widths_backward_gates_keep_128():
     """The molecule backward #2 keeps its limit of 128 columns (4 values of
     a row a lane and seven resident [M, max(D, G)] buffers): its gate names
     the width and the loop backward; the loop backward #4 takes widths up to
-    256 in its d256 builds (``kloop.BACKWARD_MAX_WIDTH``), so a D = 256 QM9
-    model trains its recipe bucket (32, 16) on "loop", and D = 260 is
-    refused by both and trains on "per_layer", while the forwards, which
-    take widths up to 512 (``kfwd.MAX_WIDTH``), evaluate it on #3."""
-    assert kbwd.MAX_WIDTH == 128 and kloop.BACKWARD_MAX_WIDTH == 256
+    512 in its d256 and d512 builds (``kloop.BACKWARD_MAX_WIDTH``, as the
+    forwards' ``kfwd.MAX_WIDTH``), so a D = 256 QM9 model trains its recipe
+    bucket (32, 16) on "loop", D = 260 is refused by #2 and trains on "loop"
+    too, and D = 516 is refused by both and trains on "per_layer", while
+    the forwards evaluate D = 260 on #3."""
+    assert kbwd.MAX_WIDTH == 128 and kloop.BACKWARD_MAX_WIDTH == 512
     assert kfwd.MAX_WIDTH == 512
     reason = kbwd.refusal(QM9, 32, 16)
     assert reason is not None and "<= 128" in reason and "D=256" in reason
@@ -356,11 +357,14 @@ def test_torch_widths_backward_gates_keep_128():
     narrow = dataclasses.replace(QM9, local_dim=128, global_dim=128, dense_out=128)
     assert _trainer(narrow).train_route(32, 16) == "fused"
     wide = dataclasses.replace(MP2018, local_dim=260, num_head=4)
-    reason = kloop.backward_refusal(wide, 96, 32)
-    assert reason is not None and "<= 256" in reason and "D=260" in reason
+    assert kloop.backward_refusal(wide, 96, 32) is None
     assert kbwd.refusal(wide, 32, 16) is not None
-    assert _trainer(wide).train_route(96, 32) == "per_layer"
+    assert _trainer(wide).train_route(96, 32) == "loop"
     assert _trainer(wide).eval_route(96, 32) == "loop"
+    wider = dataclasses.replace(MP2018, local_dim=516, num_head=4)
+    reason = kloop.backward_refusal(wider, 96, 32)
+    assert reason is not None and "<= 512" in reason and "D=516" in reason
+    assert _trainer(wider).train_route(96, 32) == "per_layer"
 
 
 def test_torch_widths_past_256_are_refused():
@@ -461,7 +465,11 @@ def test_torch_widths_plans_match_cuda_sources():
                                          "scann_loop_backward_wide_d256_bf16",
                                          "scann_forward_d512", "scann_loop_tall_d512",
                                          "scann_loop_wide_d512", "local_attention_d512",
-                                         "local_attention_wide_d512"}
+                                         "local_attention_wide_d512",
+                                         "scann_loop_backward_tall_d512",
+                                         "scann_loop_backward_wide_d512",
+                                         "scann_loop_backward_tall_d512_bf16",
+                                         "scann_loop_backward_wide_d512_bf16"}
     la = _source("local_attention.cu")
     assert ("#if defined(SCANN_WIDTH_512)\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8, 4};"
             "\n#elif defined(SCANN_WIDTH_256)\nconstexpr int kAtomBlocks[] = {64, 48, 32, 16, 8};"

@@ -192,15 +192,19 @@ def _trainer(cfm):
     (dataclasses.replace(MP2018, local_dim=192, global_dim=192, dense_out=192), 96, 32, "loop",
      "scann_loop_backward_tall_d256"),
     (dataclasses.replace(MP2018, use_attn_norm=False), 96, 32, "per_layer", None),
-    (dataclasses.replace(MP2018, local_dim=260, num_head=4), 96, 32, "per_layer", None),
+    (dataclasses.replace(MP2018, local_dim=516, num_head=4), 96, 32, "per_layer", None),
+    (dataclasses.replace(MP2018, local_dim=260, num_head=4), 96, 32, "loop",
+     "scann_loop_backward_wide_d512"),
     (MP2018, 20000, 256, "per_layer", None),
 ])
 def test_torch_widths_train_routes(cfm, M_, N, route, library):
     """A model wider than 128 trains on #4's d256 builds wherever their
     plans fit: the recipe buckets of QM9 and MP2018 at D = 256 (QM9's, which
     #2 takes at D = 128, too), tall and wide crystals, bf16 in its own
-    sources; the per-layer route is left to what no gate takes (no
-    attention LayerNorm, D past 256, a plan past a block), and the Trainer
+    sources; past 256 columns the d512 builds, whose tall build takes N <=
+    16 (``backward_tall_max_n``); the per-layer route is left to what no
+    gate takes (no attention LayerNorm, D past 512, a plan past a block),
+    and the Trainer
     builds the route's library before a fit (``shape_libraries``)."""
     trainer = _trainer(cfm)
     assert trainer.train_route(M_, N) == route
@@ -210,7 +214,7 @@ def test_torch_widths_train_routes(cfm, M_, N, route, library):
     assert kloop.backward_library(cfm, M_, N) == library
     assert library in _build.WIDTH_SOURCES and library in _build.SHAPE_SOURCES
     assert library in trainer.shape_libraries([(M_, N, 0)], training=True)
-    assert kloop.is_tall_backward(cfm, M_, N) == (N <= 32)
+    assert kloop.is_tall_backward(cfm, M_, N) == (N <= kloop.backward_tall_max_n(cfm))
 
 
 def test_torch_widths_train_packed_routes():
